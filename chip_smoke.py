@@ -3,44 +3,77 @@
 
     python3 chip_smoke.py [--seed S]
 
-Run from the root of a checkout, on a machine with a CUDA card and the
-CUDA toolkit. It
+Run on a machine with a CUDA card and the CUDA toolkit, from any working
+directory: the script puts its own directory (the root of a checkout)
+first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the four CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the nine CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (B=32, N=1024, K=20; C = 64, 128, 256 for
-   the neighbour max), uniform and masked, and times both (CUDA events,
-   median of 30 runs);
+   the shapes of the serving path and the train step (B=32, N=1024,
+   K=20; C = 64, 128, 256 for the neighbour max and sum), uniform and
+   masked, and times both (CUDA events around 5 back-to-back calls,
+   median of 30 such samples);
 4. serves 64 uniform and 11 ragged clouds with normals through
    ``InferenceEngine`` on ``DeltaNetClassification(num_classes=40)`` at
    the reference width, weights drawn from a seeded generator with
-   randomized BatchNorm statistics, counting each kernel's launches;
-5. checks the logits: finite, of the right shape, equal (atol 1e-3, same
+   randomized BatchNorm statistics, counting each kernel's launches, and
+   checks the logits: finite, of the right shape, equal (atol 1e-3, same
    argmax) to the same engine run through the plain versions on the
-   card, and a full cloud's logits the same served ragged or uniform.
+   card, and a full cloud's logits the same served ragged or uniform;
+5. trains the same model at the reference recipe (B=32 clouds of
+   N=1024, SGD lr 0.1, momentum 0.9, weight decay 1e-4, label smoothing
+   0.2, dropout 0.5 from a seeded CUDA generator) for 20 steps on one
+   batch of class-conditioned ellipsoids, counting launches: the losses
+   must be finite and fall; it times each step and prints a profile of
+   one step;
+6. takes one step from the same weights through the kernels and through
+   the plain versions (dropout 0), uniform and ragged, and compares the
+   loss (rtol 1e-5), every gradient and updated parameter (1e-3 x the
+   tensor's max) and the running statistics (1e-4 x max), with the
+   operators built by the kernels on both sides; with the plain build on
+   the plain side it holds the loss and the statistics (winner flips at
+   near-ties move single gradients); then the first comparison again
+   with the gather-sum cutoff at 0, the route of clouds whose adjacency
+   exceeds its budget, counting the streaming kernels' launches.
 
-Any failed phase raises (non-zero exit). The last two lines are a JSON
-record of the kernels and ``{"ok": true, "device": ...}``. Nothing here
-imports JAX or the JAX package.
+Any failed phase raises (non-zero exit). The last three lines are a JSON
+record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
+"device": ...}``. Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
+import re
 import subprocess
+import sys
 import time
+from pathlib import Path
 
-import numpy as np
-import torch
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import deltaconv_tpu_torch  # noqa: E402,F401  (fails here without a checkout)
 
 B, N, K = 32, 1024, 20
-GATHER_MAX_WIDTHS = (64, 128, 256)
+NUM_CLASSES = 40
+WIDTHS = (64, 128, 256)
 REPS = 30
+INNER = 5  # calls per timed sample
 LOGIT_ATOL = 1e-3
 WLS_ATOL = 1e-5  # FMA contraction and K-sum order
 DENSIFY_ATOL = 1e-6  # duplicate columns may sum in another order
+SCATTER_RTOL = 1e-5  # x max|dh|: atomics add in any order
+TRAIN_LR = 0.1  # 100 x the reference base lr 0.001
+TRAIN_STEPS = 20
+LOSS_RTOL = 1e-5
+PARAM_RTOL = 1e-3  # x the tensor's max: gradients and updated parameters
+STATS_RTOL = 1e-4  # x max: running statistics
 
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
@@ -51,7 +84,27 @@ KERNEL_META = {
                 "deltaconv_tpu/ops/densify_op.py:249"),
     "gather_max": ("deltaconv_tpu_torch/csrc/gather_max.cu",
                    "deltaconv_tpu/ops/gather_max.py:230"),
+    "gather_max_win": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                       "deltaconv_tpu/ops/gather_max.py:230"),
+    "gather_max_bwd": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                       "deltaconv_tpu/ops/gather_max.py:362"),
+    "adjacency": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
+                  "deltaconv_tpu/ops/gather_sum.py:117"),
+    "gather_sum": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
+                   "deltaconv_tpu/ops/gather_sum.py:201"),
+    "gather_sum_bwd": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
+                       "deltaconv_tpu/ops/gather_sum.py:255"),
 }
+# The path whose launch counts each kernel's record reports.
+SERVE_KERNELS = ("gather_rows", "wls", "densify", "gather_max")
+TRAIN_KERNELS = ("gather_rows", "wls", "densify", "gather_max_win",
+                 "gather_max_bwd", "adjacency")
+STREAM_KERNELS = ("gather_sum", "gather_sum_bwd")
+# Width of the record's time: the widest conv for the max, the first
+# conv's [y, y^2] (2 x 64) for the sum, as the train step calls them.
+RECORD_WIDTH = {"gather_max": 256, "gather_max_win": 256,
+                "gather_max_bwd": 256, "gather_sum": 128,
+                "gather_sum_bwd": 128}
 
 
 def card_line() -> str:
@@ -62,21 +115,26 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def ellipsoid_clouds(rng, sizes):
-    """Clouds on random axis-aligned ellipsoids with analytic normals."""
+def ellipsoid_clouds(rng, sizes, axes=None):
+    """Clouds on axis-aligned ellipsoids with analytic normals; ``axes``
+    ``[M, 3]`` (random when None)."""
     clouds, normals = [], []
-    for n in sizes:
-        axes = rng.uniform(0.5, 1.5, 3).astype(np.float32)
+    for i, n in enumerate(sizes):
+        ax = (rng.uniform(0.5, 1.5, 3) if axes is None
+              else axes[i]).astype(np.float32)
         d = rng.standard_normal((n, 3)).astype(np.float32)
         d /= np.linalg.norm(d, axis=1, keepdims=True)
-        nrm = d / axes
-        clouds.append(d * axes)
+        nrm = d / ax
+        clouds.append(d * ax)
         normals.append(nrm / np.linalg.norm(nrm, axis=1, keepdims=True))
     return clouds, normals
 
 
 def median_ms(fn) -> float:
-    """Median CUDA-event time of ``fn`` over REPS runs, after warm-up."""
+    """Median over REPS samples, after warm-up, of the CUDA-event time
+    of INNER back-to-back calls of ``fn`` divided by INNER. After the
+    first call the card no longer waits for the host to enqueue, so a
+    sample reads a call's device time (or its host time, if longer)."""
     for _ in range(3):
         fn()
     times = []
@@ -84,15 +142,16 @@ def median_ms(fn) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(INNER):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / INNER)
     return float(np.median(times))
 
 
 def max_err(a, b) -> float:
-    return float((a - b).abs().max())
+    return float((a - b).detach().abs().max())
 
 
 def check(name, ok, detail):
@@ -101,18 +160,16 @@ def check(name, ok, detail):
         raise AssertionError(f"{name}: {detail}")
 
 
-def kernel_phase(rng, dev, card):
-    """Each kernel against its plain version at the serving shapes."""
-    from deltaconv_tpu_torch import ops
+def graph_cases(rng, dev):
+    """Uniform and masked kNN graphs at the serving and train shapes;
+    masked: the last 40% of the points of every other cloud are
+    padding."""
     from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
-    from deltaconv_tpu_torch.ops.wls_fused import edge_planes
 
     clouds, normals = ellipsoid_clouds(rng, [N] * B)
     pos = torch.from_numpy(np.stack(clouds)).to(dev)
     nrm = torch.from_numpy(np.stack(normals)).to(dev)
     xb, yb = build_tangent_basis(nrm)
-    # Masked case: the last 40% of the points of every other cloud are
-    # padding, the serving path's ragged batch.
     pmask = torch.ones((B, N), dtype=torch.bool, device=dev)
     pmask[::2, int(0.6 * N):] = False
     cases = {}
@@ -121,16 +178,27 @@ def kernel_phase(rng, dev, card):
         if mask is not None:
             nbr_mask = nbr_mask & mask[:, :, None]
         cases[label] = (idx, nbr_mask)
+    return pos, nrm, xb, yb, cases
 
+
+def kernel_phase(rng, dev, card):
+    """Each kernel against its plain version at the main paths' shapes."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.ops.wls_fused import edge_planes
+
+    pos, nrm, xb, yb, cases = graph_cases(rng, dev)
     res = {name: {"max_abs_err": 0.0} for name in KERNEL_META}
+
+    def record(name, err):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+
     table = torch.cat([pos, xb, yb], dim=-1).contiguous()
     for label, (idx, nbr_mask) in cases.items():
         print(f"[kernels] {label}", flush=True)
         got = ops.gather_rows(table, idx)
         want = ops.gather_rows_plain(table, idx)
         err = max_err(got, want)
-        res["gather_rows"]["max_abs_err"] = max(
-            res["gather_rows"]["max_abs_err"], err)
+        record("gather_rows", err)
         check("gather_rows", torch.equal(got, want), f"max_abs_err {err}")
 
         pm = nbr_mask.any(dim=2).to(torch.float32)
@@ -140,7 +208,7 @@ def kernel_phase(rng, dev, card):
         gp, dp = ops.wls_plain(edges, 1.0, 1e-3)
         err = max(max_err(g, gp), max_err(d, dp))
         scale = float(max(gp.abs().max(), dp.abs().max()))
-        res["wls"]["max_abs_err"] = max(res["wls"]["max_abs_err"], err)
+        record("wls", err)
         check("wls", err <= WLS_ATOL,
               f"max_abs_err {err} <= {WLS_ATOL} (max |coef| {scale})")
         gd_k = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
@@ -149,7 +217,7 @@ def kernel_phase(rng, dev, card):
                                         wls_fn=ops.wls_plain)
         err = max(max_err(gd_k.grad_coef, gd_p.grad_coef),
                   max_err(gd_k.div_coef, gd_p.div_coef))
-        res["wls"]["max_abs_err"] = max(res["wls"]["max_abs_err"], err)
+        record("wls", err)
         check("wls (normalized operator)", err <= WLS_ATOL,
               f"max_abs_err {err} <= {WLS_ATOL}")
 
@@ -157,23 +225,62 @@ def kernel_phase(rng, dev, card):
         wg, wd = ops.densify_coefs(idx, gc, dc)
         wgp, wdp = ops.densify_coefs_plain(idx, gc, dc)
         err = max(max_err(wg, wgp), max_err(wd, wdp))
-        res["densify"]["max_abs_err"] = max(res["densify"]["max_abs_err"],
-                                            err)
+        record("densify", err)
         check("densify", err <= DENSIFY_ATOL,
               f"max_abs_err {err} <= {DENSIFY_ATOL}")
         del wg, wd, wgp, wdp
 
-        for c in GATHER_MAX_WIDTHS:
+        got = ops.adjacency(idx, nbr_mask)
+        want = ops.adjacency_plain(idx, nbr_mask)
+        err = max_err(got, want)
+        record("adjacency", err)
+        check("adjacency", torch.equal(got, want), f"max_abs_err {err}")
+        del got, want
+
+        for c in WIDTHS:
             h = torch.randn((B, N, c), device=dev)
             got = ops.gather_max(h, idx, nbr_mask)
             want = ops.gather_max_plain(h, idx, nbr_mask)
             err = max_err(got, want)
-            res["gather_max"]["max_abs_err"] = max(
-                res["gather_max"]["max_abs_err"], err)
+            record("gather_max", err)
             check(f"gather_max C={c}", torch.equal(got, want),
                   f"max_abs_err {err}")
 
-    # Times at the uniform serving shapes.
+            out, win = ops.gather_max_win(h, idx, nbr_mask)
+            out_p, win_p = ops.gather_max_win_plain(h, idx, nbr_mask)
+            err = max_err(out, out_p)
+            record("gather_max_win", err)
+            check(f"gather_max_win C={c}",
+                  torch.equal(out, out_p) and torch.equal(win, win_p),
+                  f"out max_abs_err {err}, winners differ at "
+                  f"{int((win != win_p).sum())}")
+
+            g = torch.randn((B, N, c), device=dev)
+            dh = ops.gather_max_bwd(idx, win_p, g, N)
+            dh_p = ops.gather_max_bwd_plain(idx, win_p, g, N)
+            err, tol = max_err(dh, dh_p), SCATTER_RTOL * float(
+                dh_p.abs().max())
+            record("gather_max_bwd", err)
+            check(f"gather_max_bwd C={c}", err <= tol,
+                  f"max_abs_err {err} <= {tol}")
+
+            got = ops.gather_sum_fwd(h, idx, nbr_mask)
+            want = ops.gather_sum_fwd_plain(h, idx, nbr_mask)
+            err = max_err(got, want)
+            record("gather_sum", err)
+            check(f"gather_sum C={c}", torch.equal(got, want),
+                  f"max_abs_err {err}")
+
+            dh = ops.gather_sum_bwd(idx, nbr_mask, g)
+            dh_p = ops.gather_sum_bwd_plain(idx, nbr_mask, g)
+            err, tol = max_err(dh, dh_p), SCATTER_RTOL * float(
+                dh_p.abs().max())
+            record("gather_sum_bwd", err)
+            check(f"gather_sum_bwd C={c}", err <= tol,
+                  f"max_abs_err {err} <= {tol}")
+        torch.cuda.synchronize()
+
+    # Times at the uniform shapes.
     idx, nbr_mask = cases["uniform"]
     pm = nbr_mask.any(dim=2).to(torch.float32)
     edges = edge_planes(pos, nrm, xb, yb, idx, nbr_mask, pm,
@@ -188,39 +295,63 @@ def kernel_phase(rng, dev, card):
                                               gd.div_coef),
                     lambda: ops.densify_coefs_plain(idx, gd.grad_coef,
                                                     gd.div_coef)),
+        "adjacency": (lambda: ops.adjacency(idx, nbr_mask),
+                      lambda: ops.adjacency_plain(idx, nbr_mask)),
     }
-    print(f"[times] median of {REPS} CUDA-event runs, B={B} N={N} K={K}, "
-          f"card: {card}")
+    print(f"[times] per call, median of {REPS} CUDA-event samples of "
+          f"{INNER} back-to-back calls, B={B} N={N} K={K}, card: {card}")
     for name, (fk, fp) in timed.items():
         res[name]["ms"] = median_ms(fk)
         res[name]["plain_ms"] = median_ms(fp)
         print(f"  {name}: kernel {res[name]['ms']:.4f} ms, "
               f"plain {res[name]['plain_ms']:.4f} ms")
-    for c in GATHER_MAX_WIDTHS:
+    for c in WIDTHS:
         h = torch.randn((B, N, c), device=dev)
-        km = median_ms(lambda: ops.gather_max(h, idx, nbr_mask))
-        pl = median_ms(lambda: ops.gather_max_plain(h, idx, nbr_mask))
-        print(f"  gather_max C={c}: kernel {km:.4f} ms, plain {pl:.4f} ms")
-        res["gather_max"]["ms"], res["gather_max"]["plain_ms"] = km, pl
-    print("  (the JSON record gives gather_max at C=256)")
+        g = torch.randn((B, N, c), device=dev)
+        _, win = ops.gather_max_win_plain(h, idx, nbr_mask)
+        per_width = {
+            "gather_max": (lambda: ops.gather_max(h, idx, nbr_mask),
+                           lambda: ops.gather_max_plain(h, idx, nbr_mask)),
+            "gather_max_win": (
+                lambda: ops.gather_max_win(h, idx, nbr_mask),
+                lambda: ops.gather_max_win_plain(h, idx, nbr_mask)),
+            "gather_max_bwd": (
+                lambda: ops.gather_max_bwd(idx, win, g, N),
+                lambda: ops.gather_max_bwd_plain(idx, win, g, N)),
+            "gather_sum": (
+                lambda: ops.gather_sum_fwd(h, idx, nbr_mask),
+                lambda: ops.gather_sum_fwd_plain(h, idx, nbr_mask)),
+            "gather_sum_bwd": (
+                lambda: ops.gather_sum_bwd(idx, nbr_mask, g),
+                lambda: ops.gather_sum_bwd_plain(idx, nbr_mask, g)),
+        }
+        for name, (fk, fp) in per_width.items():
+            km, pl = median_ms(fk), median_ms(fp)
+            print(f"  {name} C={c}: kernel {km:.4f} ms, plain {pl:.4f} ms")
+            if c == RECORD_WIDTH[name]:
+                res[name]["ms"], res[name]["plain_ms"] = km, pl
+    print(f"  (the JSON record gives each at its width: {RECORD_WIDTH})")
     return res
 
 
-def random_model(seed, dev):
+def random_model(seed, dev, dropout=0.5, affine=True):
     """The reference-width classifier with seeded weights and randomized
-    BatchNorm statistics, scales (both signs) and biases."""
+    BatchNorm statistics and, when ``affine``, scales (both signs) and
+    biases."""
     from deltaconv_tpu_torch import DeltaNetClassification
     from deltaconv_tpu_torch.nn import BatchNorm
 
     gen = torch.Generator().manual_seed(seed)
-    model = DeltaNetClassification(num_classes=40, generator=gen)
+    model = DeltaNetClassification(num_classes=NUM_CLASSES, dropout=dropout,
+                                   generator=gen)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, BatchNorm):
                 m.running_mean.normal_(0.0, 0.2, generator=gen)
                 m.running_var.uniform_(0.5, 1.5, generator=gen)
-                m.weight.uniform_(-1.5, 1.5, generator=gen)
-                m.bias.normal_(0.0, 0.2, generator=gen)
+                if affine:
+                    m.weight.uniform_(-1.5, 1.5, generator=gen)
+                    m.bias.normal_(0.0, 0.2, generator=gen)
     return model.to(dev)
 
 
@@ -251,12 +382,13 @@ def serve_phase(rng, seed, dev, card):
     print(f"[serve] launches during serving: {counts}")
 
     print("[serve] checks")
-    check("uniform logits", logits_u.shape == (64, 40)
+    check("uniform logits", logits_u.shape == (64, NUM_CLASSES)
           and bool(np.isfinite(logits_u).all()), f"shape {logits_u.shape}")
-    check("ragged logits", logits_r.shape == (11, 40)
+    check("ragged logits", logits_r.shape == (11, NUM_CLASSES)
           and bool(np.isfinite(logits_r).all()), f"shape {logits_r.shape}")
-    for name, n in counts.items():
-        check(f"{name} launched", n > 0, f"{n} launches")
+    for name in SERVE_KERNELS:
+        check(f"{name} launched", counts[name] > 0,
+              f"{counts[name]} launches")
     ref_u = plain.predict(uni, uni_n)
     ref_r = plain.predict(rag, rag_n)
     for label, got, ref in (("uniform", logits_u, ref_u),
@@ -276,6 +408,197 @@ def serve_phase(rng, seed, dev, card):
           f"{t * 1e3 / n_batches:.3f} ms per batch, {64 / t:.1f} clouds/s "
           f"(host clock, synchronised), card: {card}")
     return counts
+
+
+def train_batch(rng, dev, sizes):
+    """One batch of class-conditioned ellipsoids (the class fixes the
+    axes up to 5% noise), padded with a point mask when ragged."""
+    class_axes = np.random.default_rng(1234).uniform(0.4, 1.6,
+                                                     (NUM_CLASSES, 3))
+    labels = rng.integers(0, NUM_CLASSES, len(sizes))
+    axes = class_axes[labels] * rng.uniform(0.95, 1.05, (len(sizes), 3))
+    clouds, normals = ellipsoid_clouds(rng, sizes, axes)
+    pos = np.zeros((len(sizes), N, 3), np.float32)
+    nrm = np.tile(np.asarray([0.0, 0.0, 1.0], np.float32),
+                  (len(sizes), N, 1))
+    for i, (c, q) in enumerate(zip(clouds, normals)):
+        pos[i, :len(c)], nrm[i, :len(c)] = c, q
+    batch = {"pos": torch.from_numpy(pos).to(dev),
+             "normal": torch.from_numpy(nrm).to(dev),
+             "label": torch.from_numpy(labels).to(dev)}
+    if min(sizes) < N:
+        batch["point_mask"] = torch.from_numpy(
+            np.arange(N)[None, :] < np.asarray(sizes)[:, None]).to(dev)
+    return batch
+
+
+def train_once(batch, seed, dev, ops):
+    """One step of a fresh model (dropout 0) through ``ops``."""
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    model = random_model(seed, dev, dropout=0.0, affine=False)
+    state = create_train_state(model, sgd_momentum(TRAIN_LR))
+    metrics = make_train_step(model, ops=ops)(state, batch, None)
+    return float(metrics["loss"]), model
+
+
+def compare_steps(label, batch, seed, dev, same_build):
+    """One step from the same weights through the kernels and through
+    the plain versions; raises on disagreement.
+
+    ``same_build``: the plain side builds its operators with the build
+    kernels too, so the two steps differ only in this slice's kernels
+    (neighbour max with winners, its backward, the neighbour sum) and
+    every quantity is held. Otherwise the plain side builds with the
+    plain versions, whose operators differ by ~1e-6 (wls): then some
+    neighbour-max winners flip at near-ties, which moves single
+    gradient entries by a whole cotangent, so only the loss and the
+    running statistics (continuous in the inputs) are held and the
+    gradient and parameter deviations are printed."""
+    from deltaconv_tpu_torch import KERNEL_OPS, PLAIN_OPS
+    from deltaconv_tpu_torch.ops import gather_max_plain, gather_sum_plain
+
+    plain = (KERNEL_OPS._replace(gather_max=gather_max_plain,
+                                 gather_sum=gather_sum_plain)
+             if same_build else PLAIN_OPS)
+    lk, mk = train_once(batch, seed, dev, KERNEL_OPS)
+    lp, mp = train_once(batch, seed, dev, plain)
+    check(f"{label} loss kernel vs plain",
+          abs(lk - lp) <= LOSS_RTOL * abs(lp),
+          f"{lk} vs {lp}, rel {abs(lk - lp) / abs(lp):.3e} <= {LOSS_RTOL}")
+    worst = {"grad": (0.0, ""), "param": (0.0, ""), "stat": (0.0, "")}
+    params_p = dict(mp.named_parameters())
+    for name, p in mk.named_parameters():
+        q = params_p[name]
+        for kind, a, b in (("grad", p.grad, q.grad), ("param", p, q)):
+            rel = max_err(a, b) / max(float(b.detach().abs().max()), 1e-30)
+            worst[kind] = max(worst[kind], (rel, name))
+    bufs_p = dict(mp.named_buffers())
+    for name, s in mk.named_buffers():
+        rel = max_err(s, bufs_p[name]) / max(float(bufs_p[name].abs().max()),
+                                             1e-30)
+        worst["stat"] = max(worst["stat"], (rel, name))
+    for kind, tol in (("grad", PARAM_RTOL), ("param", PARAM_RTOL),
+                      ("stat", STATS_RTOL)):
+        rel, name = worst[kind]
+        detail = f"worst {rel:.3e} x max ({name})"
+        if same_build or kind == "stat":
+            check(f"{label} {kind}s kernel vs plain", rel <= tol,
+                  f"{detail} <= {tol}")
+        else:
+            print(f"  {label} {kind}s kernel vs plain: {detail} (winner "
+                  f"flips from the builds' ~1e-6; not held)")
+
+
+def profile_step(step, state, batch, gen, step_ms):
+    """Device time of one train step by op and by kernel
+    (torch.profiler), and its share of ``step_ms``, the unprofiled
+    median step (the profiler itself slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops_, kernels = [], []
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if us > 0:
+            row = (us, evt.count, evt.key)
+            (kernels if evt.device_type == DeviceType.CUDA
+             else ops_).append(row)
+    total = sum(r[0] for r in kernels)
+    # The port's kernels are launched through ctypes, outside any aten
+    # op, so they appear only as kernel events.
+    ours = [r for r in kernels if re.match(
+        r"(void )?\(anonymous namespace\)::(gather_rows|wls|densify|"
+        r"gather_max|gather_max_bwd|adjacency|gather_sum|gather_sum_bwd)"
+        r"_kernel\b", r[2])]
+    ops_ += ours
+    print(f"[train] profile of one step: {total / 1e3:.3f} ms of device "
+          f"time, {total / 1e3 / step_ms:.3f} of the {step_ms:.3f} ms "
+          f"median step ({wall * 1e3:.3f} ms profiled); the port's kernels "
+          f"{sum(r[0] for r in ours) / 1e3:.3f} ms")
+    for title, rows in (("by op (self device time)", ops_),
+                        ("by kernel", kernels),
+                        ("the port's kernels", ours)):
+        print(f"  {title}, top 12:")
+        for us, count, key in sorted(rows, reverse=True)[:12]:
+            print(f"  {us / 1e3:9.3f} ms {100 * us / max(total, 1e-9):5.1f}%"
+                  f" x{count:<4d} {key[:100]}")
+
+
+def train_phase(rng, seed, dev, card):
+    from deltaconv_tpu_torch import launch_counts, reset_launch_counts
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    uniform = train_batch(rng, dev, [N] * B)
+    ragged = train_batch(rng, dev, rng.integers(N * 600 // 1024, N + 1,
+                                                B).tolist())
+
+    model = random_model(seed, dev, affine=False)  # a fresh model
+    state = create_train_state(model, sgd_momentum(TRAIN_LR))
+    step = make_train_step(model, smoothing=0.2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    warm = random_model(seed + 1, dev)  # warm-up: cuBLAS, allocator
+    make_train_step(warm)(create_train_state(warm, sgd_momentum(TRAIN_LR)),
+                          uniform, torch.Generator(device=dev).manual_seed(1))
+    del warm
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(state, uniform, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    counts = launch_counts()
+    print(f"[train] launches during {TRAIN_STEPS} steps: {counts}")
+    print(f"[train] losses: {[round(x, 4) for x in losses]}")
+    check("train losses finite", bool(np.isfinite(losses).all()),
+          f"{TRAIN_STEPS} steps")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check("train loss falls", last < first,
+          f"mean of last 5 {last:.4f} < mean of first 5 {first:.4f}")
+    for name in TRAIN_KERNELS:
+        check(f"{name} launched in training", counts[name] > 0,
+              f"{counts[name]} launches")
+    t = float(np.median(times))
+    print(f"[train] B={B} N={N} K={K}, reference width: median "
+          f"{t * 1e3:.3f} ms per train step, {B / t:.1f} training clouds/s "
+          f"(host clock, synchronised after each step), card: {card}")
+    profile_step(step, state, uniform, gen, t * 1e3)
+
+    print("[train] kernel path vs plain path, one step from the same "
+          "weights, dropout 0")
+    for label, batch in (("uniform", uniform), ("ragged", ragged)):
+        compare_steps(f"{label}, same build", batch, seed, dev, True)
+        compare_steps(f"{label}, plain build", batch, seed, dev, False)
+
+    gather_sum_mod = importlib.import_module(
+        "deltaconv_tpu_torch.ops.gather_sum")
+    budget = gather_sum_mod._DENSE_ADJ_MAX_BYTES
+    gather_sum_mod._DENSE_ADJ_MAX_BYTES = 0
+    try:
+        reset_launch_counts()
+        compare_steps("ragged, same build, streaming gather-sum route",
+                      ragged, seed, dev, True)
+        stream = launch_counts()
+    finally:
+        gather_sum_mod._DENSE_ADJ_MAX_BYTES = budget
+    print(f"[train] launches in the streaming-route steps: {stream}")
+    for name in STREAM_KERNELS:
+        check(f"{name} launched in the streaming route", stream[name] > 0,
+              f"{stream[name]} launches")
+    return counts, stream
 
 
 def main():
@@ -305,11 +628,17 @@ def main():
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
     res = kernel_phase(rng, dev, card)
-    counts = serve_phase(rng, args.seed, dev, card)
+    serve = serve_phase(rng, args.seed, dev, card)
+    train, stream = train_phase(rng, args.seed, dev, card)
+
+    def launches(name):
+        if name in SERVE_KERNELS:
+            return serve[name]
+        return (train if name in TRAIN_KERNELS else stream)[name]
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name],
+         "launches": launches(name),
          "max_abs_err": res[name]["max_abs_err"],
          "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"]}
         for name, (src, rep) in KERNEL_META.items()]}

@@ -1,13 +1,15 @@
-"""deltaconv_tpu_torch: the DeltaConv f32 serving path in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""deltaconv_tpu_torch: the DeltaConv f32 serving path and train step in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``deltaconv_tpu`` (JAX, TPU), which stays the reference. This
-package imports neither JAX nor ``deltaconv_tpu``. Its four kernels
+package imports neither JAX nor ``deltaconv_tpu``. Its nine kernels
 (``csrc/*.cu``) are built with ``nvcc`` at first use on a CUDA tensor;
 on CPU tensors every kernel wrapper runs its plain PyTorch version.
 
     from deltaconv_tpu_torch import (DeltaNetClassification,
                                      InferenceEngine, state_dict_from_flax)
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
 """
 
 from .models import DeltaNetClassification

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.densify_op import densify_coefs
 from ..ops.gather_max import gather_max
+from ..ops.gather_sum import gather_sum
 from .grad_div import GradDiv
 from .nbr_ops import NeighborAggregations
 
@@ -27,13 +28,15 @@ __all__ = ["DenseGradDiv", "densify"]
 @dataclass(frozen=True)
 class DenseGradDiv(NeighborAggregations):
     """Dense grad/div operators plus the neighbour lists (for the
-    scalar-stream max aggregation, which stays a gather)."""
+    scalar-stream max aggregation and the train-mode edge sums, which
+    stay gathers)."""
 
     nbr_idx: torch.Tensor  # [B, N, K] int32
     nbr_mask: torch.Tensor  # [B, N, K] bool
     w_grad: torch.Tensor  # [B, 2, N, N]
     w_div: torch.Tensor  # [B, 2, N, N]
     gather_max_fn: Callable = gather_max
+    gather_sum_fn: Callable = gather_sum
 
     def grad(self, x):
         """``[B, N, C] -> [B, N, 2, C]`` via one batched matmul."""
@@ -47,12 +50,14 @@ class DenseGradDiv(NeighborAggregations):
 
 
 def densify(gd: GradDiv, densify_fn=densify_coefs,
-            gather_max_fn=gather_max) -> DenseGradDiv:
+            gather_max_fn=gather_max,
+            gather_sum_fn=gather_sum) -> DenseGradDiv:
     """Materializes a batched :class:`GradDiv` into its dense f32 form.
-    ``densify_fn``/``gather_max_fn`` select the kernels or their plain
-    versions. Unlike the JAX package (Pallas only at N >= 512 on the
-    TPU), the kernel runs at every N."""
+    ``densify_fn``, ``gather_max_fn`` and ``gather_sum_fn`` select the
+    kernels or their plain versions. Unlike the JAX package (Pallas only
+    at N >= 512 on the TPU), the kernel runs at every N."""
     w_grad, w_div = densify_fn(gd.nbr_idx, gd.grad_coef, gd.div_coef)
     return DenseGradDiv(nbr_idx=gd.nbr_idx, nbr_mask=gd.nbr_mask,
                         w_grad=w_grad, w_div=w_div,
-                        gather_max_fn=gather_max_fn)
+                        gather_max_fn=gather_max_fn,
+                        gather_sum_fn=gather_sum_fn)

@@ -6,13 +6,15 @@ The kNN graph and the grad/div operators are rebuilt on every forward
 from the positions, so operator construction is part of the serving
 path: kNN (plain torch), tangent frames, the edge-plane gather and the
 WLS solve (two kernels), and the dense assembly (a third kernel). The
-convs' neighbour max is the fourth.
+convs' neighbour max is the fourth; in training the first conv's edge
+statistics add the neighbour sum.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 from torch import nn
 
 from ..geometry.dense import DenseGradDiv, densify
@@ -39,6 +41,11 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
       kernel_width, regularizer: WLS parameters.
       ops: the kernels (default) or their plain versions.
     """
+    if pos.requires_grad or (normal is not None and normal.requires_grad):
+        raise NotImplementedError(
+            "gradients for positions or normals need the backward kernels "
+            "of the operator build (sites #2, #4 and #6 of ROADMAP queue "
+            "2), which are not ported yet")
     if normal is None:
         raise NotImplementedError(
             "normal estimation (estimate_basis, geometry/linalg.py) is not "
@@ -50,7 +57,7 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
     gd = build_grad_div_fused(pos, normal, x_basis, y_basis, nbr_idx,
                               nbr_mask, kernel_width, regularizer,
                               ops.gather_rows, ops.wls)
-    return densify(gd, ops.densify_coefs, ops.gather_max)
+    return densify(gd, ops.densify_coefs, ops.gather_max, ops.gather_sum)
 
 
 class DeltaNetBase(nn.Module):
@@ -76,13 +83,17 @@ class DeltaNetBase(nn.Module):
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS):
         """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``."""
-        gd = build_operators(pos, self.num_neighbors, normal, point_mask,
-                             self.grad_kernel_width, self.grad_regularizer,
-                             ops)
+        # Positions carry no gradient on this path (the loss is
+        # differentiated for the parameters only), so the build keeps
+        # no autograd graph, in training as in eval.
+        with torch.no_grad():
+            gd = build_operators(pos, self.num_neighbors, normal,
+                                 point_mask, self.grad_kernel_width,
+                                 self.grad_regularizer, ops)
         x = pos
         v = gd.grad(x)
         out = []
         for conv in self.convs:
-            x, v = conv(x, v, gd)
+            x, v = conv(x, v, gd, point_mask)
             out.append(x)
         return out

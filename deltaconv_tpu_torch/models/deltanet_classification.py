@@ -1,9 +1,9 @@
 """DeltaNet classification head (counterpart of
-``deltaconv_tpu/models/deltanet_classification.py``, eval only).
+``deltaconv_tpu/models/deltanet_classification.py``).
 
 Backbone stage outputs are concatenated, embedded, globally max+mean
-pooled, and classified through an MLP head. Module names follow the
-upstream release (``deltanet_base.convs.{i}``, ``lin_embedding``,
+pooled, and classified through an MLP head with dropout. Module names
+follow the upstream release (``deltanet_base.convs.{i}``, ``lin_embedding``,
 ``classification_head.{0,2,4}``), so its ``state_dict``s and those
 converted from the JAX package (:mod:`..utils.weights`) load strictly.
 """
@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..nn.dropout import Dropout
 from ..nn.init import torch_linear_init_
 from ..nn.mlp import MLP
 from ..ops import KERNEL_OPS, Ops
@@ -28,36 +29,45 @@ class DeltaNetClassification(nn.Module):
     """Point-cloud classification with DeltaConv.
 
     Defaults match the reference: conv channels (64, 64, 128, 256), MLP
-    depth 1, k=20, lambda=1e-3, kernel width 1, embedding 1024. The
-    weights are drawn from ``generator`` (torch's Linear defaults); the
-    module is built on the CPU, so move it with ``.to(device)``.
+    depth 1, k=20, lambda=1e-3, kernel width 1, embedding 1024, head
+    dropout 0.5. The weights are drawn from ``generator`` (torch's
+    Linear defaults); the module is built on the CPU, so move it with
+    ``.to(device)``. ``model.train()`` / ``model.eval()`` switch
+    BatchNorm and dropout between batch and running behaviour.
     """
 
     def __init__(self, num_classes: int,
                  conv_channels: Sequence[int] = (64, 64, 128, 256),
                  num_neighbors: int = 20, grad_regularizer: float = 0.001,
                  grad_kernel_width: float = 1.0, embedding_size: int = 1024,
+                 dropout: float = 0.5,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.deltanet_base = DeltaNetBase(conv_channels, num_neighbors,
                                           grad_regularizer,
                                           grad_kernel_width)
         self.lin_embedding = MLP([sum(conv_channels), embedding_size])
-        # Positions 1 and 3 hold the reference's dropout, which is the
-        # identity when serving.
+        self.dropout = dropout
+        # Positions 1 and 3 hold the reference's dropout (no parameters),
+        # so the upstream keys of positions 0, 2 and 4 stay.
         self.classification_head = nn.Sequential(
-            MLP([2 * embedding_size, 512]), nn.Identity(),
-            MLP([512, 256]), nn.Identity(),
+            MLP([2 * embedding_size, 512]), Dropout(dropout),
+            MLP([512, 256]), Dropout(dropout),
             nn.Linear(256, num_classes))
         torch_linear_init_(self, generator)
 
     def forward(self, pos, normal=None, point_mask=None,
-                ops: Ops = KERNEL_OPS):
+                ops: Ops = KERNEL_OPS,
+                generator: Optional[torch.Generator] = None):
         """``pos``/``normal`` ``[B, N, 3]``, ``point_mask`` optional
         ``[B, N]`` bool -> logits ``[B, num_classes]``. ``ops`` selects
-        the kernels (default) or their plain versions."""
+        the kernels (default) or their plain versions; ``generator``
+        (on the batch's device) draws the train-mode dropout masks."""
         conv_out = self.deltanet_base(pos, normal, point_mask, ops)
-        x = self.lin_embedding(torch.cat(conv_out, dim=-1))
+        x = self.lin_embedding(torch.cat(conv_out, dim=-1), point_mask)
         x = torch.cat([global_max_pool(x, point_mask),
                        global_mean_pool(x, point_mask)], dim=-1)
-        return self.classification_head(x)
+        mlp0, drop0, mlp1, drop1, out = self.classification_head
+        x = drop0(mlp0(x), generator)
+        x = drop1(mlp1(x), generator)
+        return out(x)

@@ -1,10 +1,11 @@
-"""Layers of the f32 serving path."""
+"""Layers of the f32 serving path and train step."""
 
 from .deltaconv import DeltaConv, EdgeMaxMLP, PointMaxMLP
+from .dropout import Dropout
 from .init import torch_linear_init_
 from .mlp import MLP, VectorMLP
 from .nonlin import BatchNorm, BatchNormSlot, VectorNonLin, leaky_relu02
 
-__all__ = ["BatchNorm", "BatchNormSlot", "DeltaConv", "EdgeMaxMLP", "MLP",
-           "PointMaxMLP", "VectorMLP", "VectorNonLin", "leaky_relu02",
+__all__ = ["BatchNorm", "BatchNormSlot", "DeltaConv", "Dropout", "EdgeMaxMLP",
+           "MLP", "PointMaxMLP", "VectorMLP", "VectorNonLin", "leaky_relu02",
            "torch_linear_init_"]

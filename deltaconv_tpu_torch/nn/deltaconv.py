@@ -1,4 +1,4 @@
-"""The DeltaConv layer, f32 eval (counterpart of
+"""The DeltaConv layer, f32, train and eval (counterpart of
 ``deltaconv_tpu/nn/deltaconv.py``).
 
 Scalar stream:
@@ -8,8 +8,9 @@ Vector stream (skipped on the last layer):
   ``v' = v_mlp(I_J([v, hodge_laplacian(v), grad x']))``
 
 Only depth-1 internal MLPs exist on this slice (the classification
-defaults). The neighbour max goes through the operator object
-(``gd.nbr_max``), which runs the gather-max kernel.
+defaults). The neighbour max and sum go through the operator object
+(``gd.nbr_max``, ``gd.nbr_sum``), which runs their kernels. A point
+mask leaves padded points out of every train-mode BatchNorm statistic.
 """
 
 from __future__ import annotations
@@ -35,33 +36,62 @@ class EdgeMaxMLP(MLP):
     sign-folding: with ``s = sign(inv)`` and ``y' = s * y``,
     ``max_k (y'_j - y'_i) = s * (extreme_j - y_i)``. Parameters are
     those of ``MLP([C_in, C])``.
+
+    In training the BatchNorm statistics are those of the edge
+    population, from neighbour sums ``s1, s2`` of ``[y, y^2]``
+    (``gd.nbr_sum``) and the valid-slot counts ``cnt``:
+    ``sum_e (y_j - y_i) = sum_n s1_n - cnt_n y_n`` and
+    ``sum_e (y_j - y_i)^2 = sum_n s2_n - 2 y_n s1_n + cnt_n y_n^2``.
     """
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__([in_channels, out_channels])
 
-    def forward(self, x, gd):
+    def forward(self, x, gd, stats_mask=None):
+        """``stats_mask``: the ``[B, N, K]`` edges of the statistics
+        (None: every slot, as the reference's mask-free BatchNorm)."""
         lin, bn = self[0][0], self[0][1].bn
         y = lin(x)
-        inv = bn.inv()
+        if self.training:
+            mean, var = self._edge_moments(y, gd, stats_mask)
+            bn.update_running(mean, var)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        inv = bn.inv(var)
         sign = torch.where(inv >= 0, 1.0, -1.0)
         yp = y * sign
         mxp = gd.nbr_max(yp)
         h_star = sign * (mxp - yp)
-        out = leaky_relu02((h_star - bn.running_mean) * inv + bn.bias)
+        out = leaky_relu02((h_star - mean) * inv + bn.bias)
         return torch.where(gd.nbr_mask.any(dim=-1, keepdim=True), out, 0.0)
+
+    @staticmethod
+    def _edge_moments(y, gd, stats_mask):
+        """Mean and clamped variance of ``y_j - y_i`` over the edges."""
+        smask = (torch.ones_like(gd.nbr_mask) if stats_mask is None
+                 else stats_mask)
+        c = y.shape[-1]
+        s = gd.nbr_sum(torch.cat([y, y * y], dim=-1), smask)
+        s1, s2 = s[..., :c], s[..., c:]
+        cnt = smask.sum(dim=-1, keepdim=True).to(y.dtype)
+        edges = torch.clamp(cnt.sum(), min=1.0)
+        lead = tuple(range(y.dim() - 1))
+        mean = (s1 - cnt * y).sum(dim=lead) / edges
+        mean2 = (s2 - 2.0 * y * s1 + cnt * y * y).sum(dim=lead) / edges
+        return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
 class PointMaxMLP(MLP):
     """Non-centralized scalar max branch
     ``max_k LeakyReLU(BN(Linear(x)))[nbr_k]``: the per-point MLP, then
-    the masked neighbour max."""
+    the masked neighbour max. ``stats_mask`` (``[B, N]`` points) leaves
+    padded points out of the train-mode BatchNorm statistics."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__([in_channels, out_channels])
 
-    def forward(self, x, gd):
-        return gd.nbr_max(super().forward(x))
+    def forward(self, x, gd, stats_mask=None):
+        return gd.nbr_max(super().forward(x, stats_mask))
 
 
 class DeltaConv(nn.Module):
@@ -79,17 +109,23 @@ class DeltaConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  centralized: bool = False, vector: bool = True):
         super().__init__()
+        self.centralized = centralized
         branch = EdgeMaxMLP if centralized else PointMaxMLP
         self.s_mlp_max = branch(in_channels, out_channels)
         self.s_mlp = MLP([4 * in_channels, out_channels])
         self.v_mlp = (VectorMLP([2 * (2 * in_channels + out_channels),
                                  out_channels]) if vector else None)
 
-    def forward(self, x, v, gd):
+    def forward(self, x, v, gd, point_mask=None):
         """``x [B, N, C]``, ``v [B, N, 2, C]``, ``gd`` the dense
-        operators. Returns ``(x', v')`` (``v'`` is None on the last
-        layer)."""
-        x_max = self.s_mlp_max(x, gd)
+        operators, ``point_mask`` optional ``[B, N]`` validity (left out
+        of the BatchNorm statistics). Returns ``(x', v')`` (``v'`` is
+        None on the last layer)."""
+        if self.centralized:  # the edges of valid points
+            stats_mask = gd.nbr_mask if point_mask is not None else None
+        else:
+            stats_mask = point_mask
+        x_max = self.s_mlp_max(x, gd, stats_mask)
 
         # div([v, Jv]) yields div(v) and -curl(v) in ONE apply.
         c = x.shape[-1]
@@ -97,7 +133,7 @@ class DeltaConv(nn.Module):
         div_v = dd[..., :c]
         curl_v = -dd[..., c:]
         x_cat = torch.cat([x, div_v, curl_v, norm(v)], dim=-1)
-        x = x_max + self.s_mlp(x_cat)
+        x = x_max + self.s_mlp(x_cat, point_mask)
 
         if self.v_mlp is None:
             return x, None
@@ -105,4 +141,4 @@ class DeltaConv(nn.Module):
         gg = gd.grad(torch.cat([div_v, curl_v, x], dim=-1))
         hodge = -(gg[..., :c] + J(gg[..., c:2 * c]))
         v_cat = torch.cat([v, hodge, gg[..., 2 * c:]], dim=-1)
-        return x, self.v_mlp(I_J(v_cat))
+        return x, self.v_mlp(I_J(v_cat), point_mask)

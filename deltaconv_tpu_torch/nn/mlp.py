@@ -1,9 +1,10 @@
 """Scalar and vector MLP stacks (counterpart of
 ``deltaconv_tpu/nn/mlp.py``). Each scalar layer is bias-free Linear ->
 BatchNorm -> LeakyReLU(0.2); each vector layer is bias-free Linear
-(acting per component, hence equivariant) -> VectorNonLin. Parameter
-names follow the upstream release: ``{j}.0.weight``, ``{j}.1.bn.*``
-and ``{j}.1.batchnorm.bn.*``."""
+(acting per component, hence equivariant) -> VectorNonLin. A ``mask``
+over the rows leaves padded points out of the train-mode BatchNorm
+statistics. Parameter names follow the upstream release:
+``{j}.0.weight``, ``{j}.1.bn.*`` and ``{j}.1.batchnorm.bn.*``."""
 
 from __future__ import annotations
 
@@ -27,9 +28,9 @@ class MLP(nn.ModuleList):
                           BatchNormSlot(c_out))
             for c_in, c_out in zip(channels[:-1], channels[1:]))
 
-    def forward(self, x):
-        for layer in self:
-            x = leaky_relu02(layer(x))
+    def forward(self, x, mask=None):
+        for lin, norm in self:
+            x = leaky_relu02(norm(lin(x), mask))
         return x
 
 
@@ -43,7 +44,7 @@ class VectorMLP(nn.ModuleList):
                           VectorNonLin(c_out))
             for c_in, c_out in zip(channels[:-1], channels[1:]))
 
-    def forward(self, v):
-        for layer in self:
-            v = layer(v)
+    def forward(self, v, mask=None):
+        for lin, nonlin in self:
+            v = nonlin(lin(v), mask)
         return v

@@ -1,10 +1,19 @@
-"""Normalization and vector non-linearities, eval mode (counterpart of
+"""Normalization and vector non-linearities (counterpart of
 ``deltaconv_tpu/nn/nonlin.py``).
 
-The port serves only, so BatchNorm always normalizes with its running
-statistics; batch statistics come with the training slice. Module and
-buffer names follow the upstream release (``.bn.weight``,
-``.bn.running_mean``, ...), so its ``state_dict``s load as they are.
+BatchNorm follows flax's ``BatchNorm`` as the JAX package configures it,
+which differs from torch's ``BatchNorm1d`` in training:
+
+- the batch statistics reduce over every axis but the last, over the
+  rows an optional mask keeps, with flax's fast variance
+  ``max(0, E[x^2] - E[x]^2)``;
+- the running statistics move as ``0.9 * running + 0.1 * batch`` with
+  the BIASED batch variance (torch would use the unbiased one).
+
+Train or eval is the module's ``training`` flag (``model.train()`` /
+``model.eval()``). Module and buffer names follow the upstream release
+(``.bn.weight``, ``.bn.running_mean``, ...), so its ``state_dict``s load
+as they are.
 """
 
 from __future__ import annotations
@@ -24,9 +33,29 @@ def leaky_relu02(x):
     return torch.where(x >= 0, x, 0.2 * x)
 
 
+def _batch_moments(x, mask=None):
+    """Per-channel ``(mean, var)`` of ``x [..., C]`` over every other
+    axis, restricted to the rows where ``mask`` (``x.shape[:-1]``) is
+    true; ``var`` is flax's clamped fast variance."""
+    lead = tuple(range(x.dim() - 1))
+    if mask is None:
+        mean = x.mean(dim=lead)
+        mean2 = (x * x).mean(dim=lead)
+    else:
+        m = mask[..., None]
+        xm = torch.where(m, x, 0.0)
+        count = m.sum(dim=lead).to(x.dtype)
+        mean = xm.sum(dim=lead) / count
+        mean2 = (xm * xm).sum(dim=lead) / count
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis with eps 1e-5, computed as
-    flax does: ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
+    """BatchNorm over the last axis with eps 1e-5 and flax's momentum
+    0.9, normalizing as flax does:
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -36,16 +65,32 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def inv(self):
-        """The per-channel multiplier ``rsqrt(var + eps) * weight``."""
-        return torch.rsqrt(self.running_var + self.eps) * self.weight
+    def inv(self, var=None):
+        """The per-channel multiplier ``rsqrt(var + eps) * weight``
+        (``var`` defaults to the running variance)."""
+        if var is None:
+            var = self.running_var
+        return torch.rsqrt(var + self.eps) * self.weight
 
-    def forward(self, x):
-        return (x - self.running_mean) * self.inv() + self.bias
+    @torch.no_grad()
+    def update_running(self, mean, var):
+        """Moves the running statistics towards batch statistics."""
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+    def forward(self, x, mask=None):
+        """``mask``: optional validity over ``x.shape[:-1]``; masked rows
+        are left out of the batch statistics (train mode only)."""
+        if not self.training:
+            return (x - self.running_mean) * self.inv() + self.bias
+        mean, var = _batch_moments(x, mask)
+        self.update_running(mean, var)
+        return (x - mean) * self.inv(var) + self.bias
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        # Upstream checkpoints carry torch's step counter, which eval
-        # never reads.
+        # Upstream checkpoints carry torch's step counter, which this
+        # BatchNorm never reads.
         state_dict.pop(prefix + "num_batches_tracked", None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
@@ -57,8 +102,8 @@ class BatchNormSlot(nn.Module):
         super().__init__()
         self.bn = BatchNorm(num_features)
 
-    def forward(self, x):
-        return self.bn(x)
+    def forward(self, x, mask=None):
+        return self.bn(x, mask)
 
 
 class VectorNonLin(nn.Module):
@@ -73,9 +118,11 @@ class VectorNonLin(nn.Module):
         super().__init__()
         self.batchnorm = BatchNormSlot(num_features)
 
-    def forward(self, v):
+    def forward(self, v, mask=None):
+        """``mask``: optional validity over ``v.shape[:-2]``, left out of
+        the norms' batch statistics."""
         n = safe_norm(v, dim=-2)  # [..., C]
-        scale = torch.relu(self.batchnorm(n)) / torch.clamp(n, min=EPS)
+        scale = torch.relu(self.batchnorm(n, mask)) / torch.clamp(n, min=EPS)
         return v * scale[..., None, :]
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):

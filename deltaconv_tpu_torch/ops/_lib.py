@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` into one shared
-library with a plain C interface, cached under ``_build/<hash>/`` by a
-hash of the sources and flags, and loaded with ``ctypes``. A build
+The sources are compiled at first use with ``nvcc`` (one process per
+source, in parallel) and linked into one shared library with a plain C
+interface, cached under ``_build/<hash>/`` by a hash of the sources and
+flags, and loaded with ``ctypes``. A build
 through ``torch.utils.cpp_extension`` (PyTorch's headers) takes minutes;
 this one takes seconds, which a fresh machine can afford at every start.
 
@@ -33,7 +34,7 @@ _BUILD = _PKG / "_build"
 _LIB_NAME = "libdeltaconv_kernels.so"
 
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +47,26 @@ _KERNELS = {
     "wls": ("dc_wls", [_P, _P, _P, _I, _I, _I, _F, _F]),
     "densify": ("dc_densify", [_P, _P, _P, _P, _P, _I, _I, _I]),
     "gather_max": ("dc_gather_max", [_P, _P, _P, _P, _I, _I, _I, _I]),
+    "gather_max_win": ("dc_gather_max_win",
+                       [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
+    "gather_max_bwd": ("dc_gather_max_bwd",
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "adjacency": ("dc_adjacency", [_P, _P, _P, _I, _I, _I]),
+    "gather_sum": ("dc_gather_sum", [_P, _P, _P, _P, _I, _I, _I, _I]),
+    "gather_sum_bwd": ("dc_gather_sum_bwd", [_P, _P, _P, _P, _I, _I, _I, _I]),
+}
+
+# Why a raw kernel takes no tensor that requires grad: the operator
+# build has no backward kernels yet (they are reached only when positions
+# carry gradients), and the differentiable neighbour max and sum are the
+# autograd Functions around their kernels.
+_NO_GRAD = {
+    "gather_rows": "its backward (`_scatter_impl`, site #2 of ROADMAP "
+                   "queue 2) is not ported yet",
+    "wls": "its backward (`_wls_bwd_pallas`, site #4 of ROADMAP queue 2) "
+           "is not ported yet",
+    "densify": "its backward (`_densify_bwd`, site #6 of ROADMAP queue 2) "
+               "is not ported yet",
 }
 
 _launches = {name: 0 for name in _KERNELS}
@@ -86,20 +107,37 @@ def _build_key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Runs the commands in parallel; raises with the output of the
+    first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for _, proc in procs]
+    for (cmd, proc), out in zip(procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """Builds (once per source hash) and loads the kernel library."""
+    """Builds (once per source hash) and loads the kernel library: one
+    ``nvcc -c`` per source, all at once, then one link."""
     out = _BUILD / _build_key() / _LIB_NAME
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        objs, compiles = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = out.with_name(f"{src.stem}.{tag}.o")
+            objs.append(str(obj))
+            compiles.append([nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj),
+                             str(src)])
+        _run_all(compiles)
+        tmp = out.with_name(f"{_LIB_NAME}.{tag}")
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *objs]])
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for fn_name, argtypes in _KERNELS.values():
@@ -132,8 +170,11 @@ def check_inputs(name: str, specs) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{where}: not contiguous")
         if t.requires_grad:
-            raise ValueError(f"{where}: the kernel is forward only and "
-                             "has no backward yet")
+            why = _NO_GRAD.get(
+                name, "differentiate through ops.gather_max or "
+                "ops.gather_sum, whose backward is a kernel")
+            raise ValueError(f"{where}: the raw kernel takes no tensor "
+                             f"that requires grad; {why}")
     return device
 
 

@@ -4,22 +4,27 @@ the card. Skipped where there is no CUDA device. On a GPU machine
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-Shapes are small and include widths the serving path never uses (N not
-a multiple of 4, C not a multiple of 32) so that every branch of the
-kernels' indexing runs.
+Shapes are small and include widths the model never uses (N not a
+multiple of 4, C not a multiple of 32) so that every branch of the
+kernels' indexing runs. The scatters add with atomics in any order, so
+they are held to 1e-5 x max|dh|.
 """
+
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
-from deltaconv_tpu_torch import (PLAIN_OPS, DeltaNetClassification,
-                                 InferenceEngine, launch_counts,
-                                 reset_launch_counts)
+from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS,
+                                 DeltaNetClassification, InferenceEngine,
+                                 launch_counts, reset_launch_counts)
 from deltaconv_tpu_torch import ops
 from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
 from deltaconv_tpu_torch.ops.gather_max import NEG
 from deltaconv_tpu_torch.ops.wls_fused import edge_planes
+from deltaconv_tpu_torch.training import (create_train_state,
+                                          make_train_step, sgd_momentum)
 
 pytestmark = pytest.mark.gpu
 
@@ -126,8 +131,26 @@ def test_kernel_inputs_are_checked(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.gather_max(h.transpose(0, 1).contiguous().transpose(0, 1), idx,
                        mask)
-    with pytest.raises(ValueError, match="forward only"):
-        ops.gather_max(h.clone().requires_grad_(), idx, mask)
+    # Differentiated, the neighbour max is an autograd Function whose
+    # backward is a kernel; the raw kernels and the build kernels, which
+    # have no backward yet, refuse a tensor that requires grad.
+    hg = h.clone().requires_grad_()
+    reset_launch_counts()
+    ops.gather_max(hg, idx, mask).sum().backward()
+    assert launch_counts()["gather_max_win"] == 1
+    assert launch_counts()["gather_max_bwd"] == 1
+    assert hg.grad.shape == h.shape
+    with pytest.raises(ValueError, match="requires grad"):
+        ops.gather_max_win(hg, idx, mask)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ops.gather_rows(hg, idx)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ops.wls(torch.zeros((2, 12, 3, 16), device=cuda,
+                            requires_grad=True), 1.0, 1e-3)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ops.densify_coefs(idx, torch.zeros((2, 16, 3, 2), device=cuda,
+                                           requires_grad=True),
+                          torch.zeros((2, 16, 3, 2), device=cuda))
 
 
 def test_model_kernels_match_plain(cuda):
@@ -145,6 +168,115 @@ def test_model_kernels_match_plain(cuda):
     normals = [q[:s].numpy() for q, s in zip(nrm, [128, 128, 90, 128, 60])]
     reset_launch_counts()
     got = engine.predict(clouds, normals)
-    assert all(n > 0 for n in launch_counts().values())
+    counts = launch_counts()
+    assert all(counts[name] > 0
+               for name in ("gather_rows", "wls", "densify", "gather_max"))
     want = plain.predict(clouds, normals)
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def _rand_graph(rng, n, k, dev):
+    idx = torch.from_numpy(
+        rng.integers(0, n, (2, n, k)).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random((2, n, k)) > 0.3).to(dev)
+    mask[0, 4] = False  # no valid neighbour
+    return idx, mask
+
+
+def _close_to_max(got, want, rtol):
+    tol = rtol * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("c", [3, 64, 300])
+def test_gather_max_win_and_bwd_kernels(cuda, c):
+    """Forward with winners bit-equal (ties from repeated indices and
+    rounded values included); the winner-routed scatter within 1e-5 x
+    max."""
+    rng = np.random.default_rng(5)
+    n, k = 150, 9
+    h = torch.from_numpy(np.round(
+        rng.standard_normal((2, n, c)) * 8).astype(np.float32)).to(cuda)
+    idx, mask = _rand_graph(rng, n, k, cuda)
+    out, win = ops.gather_max_win(h, idx, mask)
+    out_p, win_p = ops.gather_max_win_plain(h, idx, mask)
+    assert torch.equal(out, out_p) and torch.equal(win, win_p)
+    assert not win[0, 4].any()
+    g = torch.randn((2, n, c), device=cuda)
+    _close_to_max(ops.gather_max_bwd(idx, win, g, n),
+                  ops.gather_max_bwd_plain(idx, win, g, n), 1e-5)
+
+
+@pytest.mark.parametrize("n,c", [(100, 3), (150, 64), (77, 300)])
+def test_gather_sum_kernels(cuda, n, c):
+    """Adjacency and the streaming sum (both in slot order) bit-equal,
+    its scatter within 1e-5 x max; the differentiable sum on both
+    routes."""
+    rng = np.random.default_rng(6)
+    idx, mask = _rand_graph(rng, n, 9, cuda)
+    assert torch.equal(ops.adjacency(idx, mask),
+                       ops.adjacency_plain(idx, mask))
+    h = torch.randn((2, n, c), device=cuda)
+    g = torch.randn((2, n, c), device=cuda)
+    assert torch.equal(ops.gather_sum_fwd(h, idx, mask),
+                       ops.gather_sum_fwd_plain(h, idx, mask))
+    _close_to_max(ops.gather_sum_bwd(idx, mask, g),
+                  ops.gather_sum_bwd_plain(idx, mask, g), 1e-5)
+    gs = importlib.import_module("deltaconv_tpu_torch.ops.gather_sum")
+    budget = gs._DENSE_ADJ_MAX_BYTES
+    try:
+        for cutoff in (budget, 0):  # dense route, then streaming
+            gs._DENSE_ADJ_MAX_BYTES = cutoff
+            grads = []
+            for fn in (ops.gather_sum, ops.gather_sum_plain):
+                hg = h.clone().requires_grad_()
+                (fn(hg, idx, mask) * g).sum().backward()
+                grads.append(hg.grad)
+            _close_to_max(grads[0], grads[1], 1e-5)
+    finally:
+        gs._DENSE_ADJ_MAX_BYTES = budget
+
+
+def _train_step_params(batch, ops_, seed=0):
+    model = DeltaNetClassification(
+        5, conv_channels=(8, 8, 16, 16), embedding_size=32, num_neighbors=8,
+        dropout=0.0, generator=torch.Generator().manual_seed(seed))
+    model = model.to(batch["pos"].device)
+    state = create_train_state(model, sgd_momentum(0.01))
+    loss = float(make_train_step(model, ops=ops_)(state, batch, None)["loss"])
+    return loss, model
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_train_step_kernels_match_plain(cuda, streaming):
+    """One narrow-model train step through the kernels and through the
+    plain versions on the card, ragged batch; with the gather-sum
+    budget at 0 the streaming kernels run inside the step."""
+    rng = np.random.default_rng(7)
+    pos, nrm = _cloud_batch(rng, 4, 128, cuda)
+    batch = {"pos": pos, "normal": nrm,
+             "label": torch.tensor([0, 1, 2, 3], device=cuda),
+             "point_mask": torch.arange(128, device=cuda)[None, :]
+             < torch.tensor([[128], [90], [128], [60]], device=cuda)}
+    gs = importlib.import_module("deltaconv_tpu_torch.ops.gather_sum")
+    budget = gs._DENSE_ADJ_MAX_BYTES
+    gs._DENSE_ADJ_MAX_BYTES = 0 if streaming else budget
+    try:
+        reset_launch_counts()
+        loss_k, model_k = _train_step_params(batch, KERNEL_OPS)
+        counts = launch_counts()
+        loss_p, model_p = _train_step_params(batch, PLAIN_OPS)
+    finally:
+        gs._DENSE_ADJ_MAX_BYTES = budget
+    used = (("gather_sum", "gather_sum_bwd") if streaming
+            else ("adjacency",))
+    assert all(counts[name] > 0 for name in
+               ("gather_max_win", "gather_max_bwd") + used), counts
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    params_p = dict(model_p.named_parameters())
+    for name, p in model_k.named_parameters():
+        _close_to_max(p.grad, params_p[name].grad, 1e-3)
+        _close_to_max(p.detach(), params_p[name].detach(), 1e-3)
+    bufs_p = dict(model_p.named_buffers())
+    for name, b in model_k.named_buffers():
+        _close_to_max(b, bufs_p[name], 1e-4)

@@ -72,6 +72,7 @@ def pair():
         np.asarray, dict(variables["batch_stats"])), rng)
     port = DeltaNetClassification(4, **WIDTH)
     port.load_state_dict(state_dict_from_flax(params, stats), strict=True)
+    port.eval()  # a new module is in training mode
     return model, {"params": params, "batch_stats": stats}, port
 
 

@@ -11,6 +11,8 @@ are drawn with at most 16 significant bits, which the pair holds
 exactly, so these comparisons test indexing and masking exactly.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +24,10 @@ from deltaconv_tpu.geometry.grad_div import build_grad_div
 from deltaconv_tpu.geometry.knn import knn as jax_knn
 from deltaconv_tpu.ops.densify_op import densify_coefs as jax_densify
 from deltaconv_tpu.ops.gather_max import _pallas_fwd
+from deltaconv_tpu.ops.gather_max import gather_max as jax_gather_max
 from deltaconv_tpu.ops.gather_max import masked_nbr_max as jax_masked_max
 from deltaconv_tpu.ops.gather_rows import gather_rows as jax_gather_rows
+from deltaconv_tpu.ops.gather_sum import _adjacency_matrix
 from deltaconv_tpu.ops.wls_fused import build_grad_div_fused as jax_fused
 from deltaconv_tpu_torch import geometry as G
 from deltaconv_tpu_torch import ops
@@ -200,3 +204,112 @@ def test_vector_operators_match_jax():
         np.testing.assert_allclose(getattr(PO, name)(_t(v)).numpy(),
                                    np.asarray(getattr(JO, name)(v)),
                                    atol=1e-6)
+
+
+def _graph_with_ties(rng, b, n, k):
+    """Random neighbour lists with masked slots; indices repeat inside a
+    row (exact ties in the max), and one row has no valid neighbour."""
+    idx = rng.integers(0, n, (b, n, k)).astype(np.int32)
+    mask = rng.random((b, n, k)) > 0.25
+    mask[0, 5] = False
+    return idx, mask
+
+
+@pytest.mark.parametrize("c", [8, 64])
+def test_gather_max_win_matches_pallas_interpret(c):
+    """Out and winners equal: the winner is the FIRST slot holding the
+    maximum, which repeated indices and 16-bit values put to the test."""
+    rng = np.random.default_rng(7)
+    b, n, k = 2, 256, 10
+    h = _pair_exact(rng, (b, n, c))
+    idx, mask = _graph_with_ties(rng, b, n, k)
+    want, want_win = _pallas_fwd(jnp.asarray(h), jnp.asarray(idx),
+                                 jnp.asarray(mask), tile=128, interpret=True,
+                                 winners=True)
+    got, win = ops.gather_max_win(_t(h), _t(idx), _t(mask))
+    assert win.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(win.numpy(), np.asarray(want_win))
+    vals = np.where(mask[..., None], h[np.arange(b)[:, None, None], idx],
+                    -np.inf)
+    ties = (vals == vals.max(axis=2, keepdims=True)).sum(axis=2) > 1
+    assert ties.sum() > 20  # the first-winner rule decided these
+    assert not win[0, 5].any()  # no valid neighbour: winner 0
+
+
+@pytest.mark.parametrize("masked_max", [False, True])
+def test_gather_max_vjp_matches_jax(masked_max):
+    """The single-winner backward against jax.vjp of the JAX gather_max
+    (its reference path on the CPU), atol 1e-5: every cotangent goes to
+    the first winning neighbour, none is split over ties; through
+    masked_nbr_max the row with no valid neighbour passes nothing
+    back."""
+    rng = np.random.default_rng(8)
+    b, n, k, c = 2, 96, 8, 16
+    h = _pair_exact(rng, (b, n, c))
+    idx, mask = _graph_with_ties(rng, b, n, k)
+    ct = rng.standard_normal((b, n, c)).astype(np.float32)
+    jfn = jax_masked_max if masked_max else jax_gather_max
+    want, vjp = jax.vjp(lambda a: jfn(a, jnp.asarray(idx),
+                                      jnp.asarray(mask)), jnp.asarray(h))
+    (want_dh,) = vjp(jnp.asarray(ct))
+    for gmax in (ops.gather_max, ops.gather_max_plain):
+        hg = _t(h).requires_grad_()
+        out = (ops.masked_nbr_max(hg, _t(idx), _t(mask), gmax) if masked_max
+               else gmax(hg, _t(idx), _t(mask)))
+        out.backward(_t(ct))
+        np.testing.assert_array_equal(out.detach().numpy(), np.asarray(want))
+        np.testing.assert_allclose(hg.grad.numpy(), np.asarray(want_dh),
+                                   atol=1e-5)
+
+
+def test_adjacency_matches_pallas_interpret():
+    rng = np.random.default_rng(9)
+    b, n, k = 2, 192, 9
+    idx, mask = _graph_with_ties(rng, b, n, k)
+    want = _adjacency_matrix(jnp.asarray(idx), jnp.asarray(mask), 128, True)
+    got = ops.adjacency(_t(idx), _t(mask))
+    assert got.dtype == torch.float32 and got.shape == (b, n, n)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).astype(np.float32))
+    assert got.max() > 1  # repeated indices count twice
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_gather_sum_and_vjp_match_jax(streaming, monkeypatch):
+    """Forward and VJP on the dense route (adjacency + products) and on
+    the streaming one (both packages' byte budget patched to 0), masked
+    slots included, atol 1e-5. The JAX side runs its Pallas kernels in
+    interpret mode; they split f32 into a hi/lo bf16 pair, which holds
+    the 16-bit inputs exactly."""
+    import deltaconv_tpu.ops.gather_sum as jax_gs
+
+    port_gs = importlib.import_module("deltaconv_tpu_torch.ops.gather_sum")
+    if streaming:
+        monkeypatch.setattr(jax_gs, "_DENSE_ADJ_MAX_BYTES", 0)
+        monkeypatch.setattr(port_gs, "_DENSE_ADJ_MAX_BYTES", 0)
+    rng = np.random.default_rng(10)
+    b, n, k, c = 2, 128, 7, 12
+    h = _pair_exact(rng, (b, n, c))
+    idx, mask = _graph_with_ties(rng, b, n, k)
+    ct = _pair_exact(rng, (b, n, c))
+    want, vjp = jax.vjp(lambda a: jax_gs.gather_sum(
+        a, jnp.asarray(idx), jnp.asarray(mask), 64, True), jnp.asarray(h))
+    (want_dh,) = vjp(jnp.asarray(ct))
+
+    for fn in (ops.gather_sum, ops.gather_sum_plain):
+        hg = _t(h).requires_grad_()
+        out = fn(hg, _t(idx), _t(mask))
+        # What the backward keeps tells the route: A, or the graph.
+        saved = out.grad_fn.saved_tensors
+        assert [t.shape for t in saved] == (
+            [(b, n, k), (b, n, k)] if streaming else [(b, n, n)])
+        out.backward(_t(ct))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                                   atol=1e-5)
+        np.testing.assert_allclose(hg.grad.numpy(), np.asarray(want_dh),
+                                   atol=1e-5)
+    with torch.no_grad():  # no gradient traced: the streaming forward
+        out = ops.gather_sum(_t(h).requires_grad_(), _t(idx), _t(mask))
+    assert out.grad_fn is None
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)

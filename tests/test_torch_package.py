@@ -1,7 +1,10 @@
 """deltaconv_tpu_torch as a package: it imports without JAX, its kernel
-wrappers dispatch on the device of their inputs, and the serving
-surface rejects what the port does not have yet."""
+wrappers dispatch on the device of their inputs, the serving and
+training surfaces reject what the port does not have yet, and
+chip_smoke.py finds the package from any working directory."""
 
+import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -59,10 +62,30 @@ def test_cpu_tensors_take_the_plain_versions():
                                rtol=0, atol=0)
     torch.testing.assert_close(ops.gather_rows(h, idx),
                                ops.gather_rows_plain(h, idx), rtol=0, atol=0)
-    assert launch_counts() == {"gather_rows": 0, "wls": 0, "densify": 0,
-                               "gather_max": 0}
+    out, win = ops.gather_max_win(h, idx, mask)
+    torch.testing.assert_close(ops.gather_max_bwd(idx, win, h, 32),
+                               ops.gather_max_bwd_plain(idx, win, h, 32),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.adjacency(idx, mask),
+                               ops.adjacency_plain(idx, mask), rtol=0, atol=0)
+    torch.testing.assert_close(ops.gather_sum(h, idx, mask),
+                               ops.gather_sum_plain(h, idx, mask),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.gather_sum_bwd(idx, mask, h),
+                               ops.gather_sum_bwd_plain(idx, mask, h),
+                               rtol=0, atol=0)
+    # Differentiated: the autograd Functions, still on the plain versions.
+    hg = h.clone().requires_grad_()
+    ops.gather_max(hg, idx, mask).sum().backward()
+    ops.gather_sum(hg, idx, mask).sum().backward()
+    assert launch_counts() == {
+        "gather_rows": 0, "wls": 0, "densify": 0, "gather_max": 0,
+        "gather_max_win": 0, "gather_max_bwd": 0, "adjacency": 0,
+        "gather_sum": 0, "gather_sum_bwd": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
+    assert KERNEL_OPS.gather_sum is ops.gather_sum
+    assert PLAIN_OPS.gather_sum is ops.gather_sum_plain
 
 
 def test_kernels_refuse_other_devices():
@@ -83,6 +106,18 @@ def test_kernels_refuse_other_devices():
                           torch.zeros(2, 32, 6, 2, device=meta))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.wls(torch.zeros(2, 12, 6, 32, device=meta), 1.0, 1e-3)
+    hm, im, mm = h.to(meta), idx.to(meta), mask.to(meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_max_win(hm, im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_max_bwd(im, torch.zeros(2, 32, 5, dtype=torch.int32,
+                                           device=meta), hm, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.adjacency(im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_sum(hm, im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_sum_bwd(im, mm, hm)
     assert sum(launch_counts().values()) == 0
 
 
@@ -113,6 +148,54 @@ def test_normal_estimation_not_ported():
     pos = torch.zeros((1, 8, 3))
     with pytest.raises(NotImplementedError, match="estimate_basis"):
         build_operators(pos, 4)
+
+
+def test_position_gradients_not_ported():
+    """The operator build has no backward kernels yet: differentiating
+    positions raises instead of returning a zero gradient."""
+    pos = torch.randn((1, 8, 3), requires_grad=True)
+    normal = torch.nn.functional.normalize(torch.randn((1, 8, 3)), dim=-1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_operators(pos, 4, normal)
+
+
+def _run_smoke(args, cwd):
+    """Runs Python on a card-less CPU with the repo off ``sys.path``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+_RUN_SMOKE = """
+import runpy, sys
+sys.argv = sys.argv[1:]  # the script's own command line
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as exc:
+    print("exit:", exc)
+print("imported:", "deltaconv_tpu_torch" in sys.modules)
+"""
+
+
+def test_chip_smoke_runs_from_another_directory(tmp_path):
+    """From any working directory the script finds the port beside it
+    (and then stops, since this host has no card)."""
+    out = _run_smoke(["-c", _RUN_SMOKE, str(ROOT / "chip_smoke.py")],
+                     tmp_path)
+    assert "ModuleNotFoundError" not in out.stderr, out.stderr
+    assert "imported: True" in out.stdout, out.stdout + out.stderr
+    assert "torch.cuda.is_available() is False" in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Without the checkout beside it the script exits non-zero with no
+    result line."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    out = _run_smoke(["chip_smoke.py"], tmp_path)
+    assert out.returncode != 0
+    assert "ModuleNotFoundError" in out.stderr
+    assert '"ok": true' not in out.stdout
 
 
 def test_seeded_init_is_reproducible():
