@@ -8,12 +8,18 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the nine CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the thirteen CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
-   the shapes of the serving path and the train step (B=32, N=1024,
-   K=20; C = 64, 128, 256 for the neighbour max and sum), uniform and
-   masked, and times both (CUDA events around 5 back-to-back calls,
-   median of 30 such samples);
+   the shapes of the serving paths and the train step (B=32, N=1024,
+   K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
+   at C = 64 and 128 and 128 -> 256; knn_topk also at N=4096), uniform
+   and masked, and times the kernel, the plain version and, where
+   PyTorch's library calls compute the same function, those calls with
+   their set-up (CUDA events around 5 back-to-back calls, median of 30
+   such samples); each kernel's bound is the larger of its bytes over
+   3.35 TB/s and the operations the function needs over the peak of
+   their type (989 TFLOP/s bf16 tensor cores; 33.5 T thread
+   instructions/s issued outside them), from this run's shapes;
 4. serves 64 uniform and 11 ragged clouds with normals through
    ``InferenceEngine`` on ``DeltaNetClassification(num_classes=40)`` at
    the reference width, weights drawn from a seeded generator with
@@ -21,13 +27,24 @@ first on ``sys.path``. It
    checks the logits: finite, of the right shape, equal (atol 1e-3, same
    argmax) to the same engine run through the plain versions on the
    card, and a full cloud's logits the same served ragged or uniform;
-5. trains the same model at the reference recipe (B=32 clouds of
+5. serves the same clouds at the JAX package's production config
+   (``knn_method="approx"``, ``precision="bfloat16"``) on the same
+   weights, counting launches, and checks the logits: finite, of the
+   right shape, the kernel path within 0.01 x max|logit| of the plain
+   path on the card, within the JAX package's bf16 bound (0.05 x
+   max|logit|) of the port's own f32 engine, the argmax equal wherever
+   the reference's top-2 margin exceeds twice the deviation, and a full
+   cloud served ragged (exact kNN route) or uniform (knn_topk) within
+   that bound; it prints clouds/s and a profile of one call, and times
+   the last conv's max in both forms (``gather_matmul_max``, and
+   ``x @ w`` followed by ``gather_max_affine`` at C=256);
+6. trains the f32 model at the reference recipe (B=32 clouds of
    N=1024, SGD lr 0.1, momentum 0.9, weight decay 1e-4, label smoothing
    0.2, dropout 0.5 from a seeded CUDA generator) for 20 steps on one
    batch of class-conditioned ellipsoids, counting launches: the losses
    must be finite and fall; it times each step and prints a profile of
    one step;
-6. takes one step from the same weights through the kernels and through
+7. takes one step from the same weights through the kernels and through
    the plain versions (dropout 0), uniform and ragged, and compares the
    loss (rtol 1e-5), every gradient and updated parameter (1e-3 x the
    tensor's max) and the running statistics (1e-4 x max), with the
@@ -63,6 +80,25 @@ import deltaconv_tpu_torch  # noqa: E402,F401  (fails here without a checkout)
 B, N, K = 32, 1024, 20
 NUM_CLASSES = 40
 WIDTHS = (64, 128, 256)
+BF16_WIDTHS = (64, 128)  # gather_max_affine: conv0/conv1, conv2
+MM_IN, MM_OUT = 128, 256  # gather_matmul_max: conv3
+KNN_BIG_N = 4096  # knn_topk beyond the register path
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, an FMA as 2
+BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
+# Thread instructions issued per second: 4 schedulers x 32 lanes per SM,
+# the same 128 lanes x 132 SMs x clock that gives 67 TFLOP/s as FMAs.
+# Any instruction (f32 add, integer, compare-select) takes one slot.
+ISSUE_PER_S = F32_OPS_PER_S / 2
+# knn_topk's work per (query, point) pair that the function needs:
+# the score 2 (q.p) - |p|^2 (3 mul, 2 add, x2, sub), the row's min and
+# max, the quantization (sub, mul, convert), the key (sub, shift, or)
+# and one compare of a single selection pass over the row. INT32 issues
+# at half the f32 rate and conversions at an eighth, 4 and 1 a pair: 8
+# slots each, below the 16 issued.
+KNN_INSTR_PER_PAIR = 7 + 2 + 3 + 3 + 1
+BF16_REL = 0.05  # the JAX package's bf16 serving bound, x max|logit|
+BF16_PATH_REL = 0.01  # bf16 kernel vs plain path, x max|logit|
 REPS = 30
 INNER = 5  # calls per timed sample
 LOGIT_ATOL = 1e-3
@@ -94,9 +130,19 @@ KERNEL_META = {
                    "deltaconv_tpu/ops/gather_sum.py:201"),
     "gather_sum_bwd": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
                        "deltaconv_tpu/ops/gather_sum.py:255"),
+    "knn_topk": ("deltaconv_tpu_torch/csrc/knn_topk.cu",
+                 "deltaconv_tpu/ops/knn_topk.py:391"),
+    "densify_bf16": ("deltaconv_tpu_torch/csrc/densify.cu",
+                     "deltaconv_tpu/ops/densify_op.py:249"),
+    "gather_max_affine": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
+                          "deltaconv_tpu/ops/gather_max.py:666"),
+    "gather_matmul_max": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
+                          "deltaconv_tpu/ops/gather_max.py:756"),
 }
 # The path whose launch counts each kernel's record reports.
 SERVE_KERNELS = ("gather_rows", "wls", "densify", "gather_max")
+BF16_KERNELS = ("knn_topk", "densify_bf16", "gather_max_affine",
+                "gather_matmul_max")
 TRAIN_KERNELS = ("gather_rows", "wls", "densify", "gather_max_win",
                  "gather_max_bwd", "adjacency")
 STREAM_KERNELS = ("gather_sum", "gather_sum_bwd")
@@ -105,6 +151,44 @@ STREAM_KERNELS = ("gather_sum", "gather_sum_bwd")
 RECORD_WIDTH = {"gather_max": 256, "gather_max_win": 256,
                 "gather_max_bwd": 256, "gather_sum": 128,
                 "gather_sum_bwd": 128}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, ops=0.0, ops_per_s=F32_OPS_PER_S):
+    """``(bound_ms, bound_by)``: the larger of the bytes moved (each
+    input read once, each output written once) over the HBM rate and
+    the operations over the peak rate of their type."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def bf16_ulps(a, b):
+    """Per-element distance of two bf16 tensors in bf16 ulps."""
+    def ordered(t):
+        u = t.contiguous().view(torch.int16).int() & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bits_equal(a, b) -> bool:
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a, b)
+
+
+def random_affine(gen_shape, dev):
+    """A BatchNorm eval affine (sign, inv, mean, bias) with slopes of
+    both signs."""
+    inv = torch.randn(gen_shape, device=dev)
+    return (torch.where(inv >= 0, 1.0, -1.0), inv,
+            torch.randn(gen_shape, device=dev) * 0.2,
+            torch.randn(gen_shape, device=dev) * 0.2)
 
 
 def card_line() -> str:
@@ -181,13 +265,84 @@ def graph_cases(rng, dev):
     return pos, nrm, xb, yb, cases
 
 
+def check_bf16_kernels(record, label, pos, idx, nbr_mask, gd, dev):
+    """The four kernels of the bf16 serving path against their plain
+    versions at the serving shapes: knn_topk (uniform only: it takes no
+    mask), densify bf16, gather_max_affine, gather_matmul_max."""
+    from deltaconv_tpu_torch import ops
+
+    if label == "uniform":
+        for q in (True, False):
+            got, want = ops.knn_topk(pos, K, q), ops.knn_topk_plain(pos, K, q)
+            err = max_err(got.float(), want.float())
+            record("knn_topk", err)
+            check(f"knn_topk quantized={q}", torch.equal(got, want),
+                  f"{int((got != want).sum())} indices differ")
+        big = torch.randn((4, KNN_BIG_N, 3), device=dev)
+        for q in (True, False):
+            got = ops.knn_topk(big, K, q)
+            want = ops.knn_topk_plain(big, K, q)
+            check(f"knn_topk N={KNN_BIG_N} quantized={q}",
+                  torch.equal(got, want),
+                  f"{int((got != want).sum())} indices differ")
+        del big, got, want
+
+    gc, dc = gd.grad_coef, gd.div_coef
+    wg, wd = ops.densify_coefs(idx, gc, dc, torch.bfloat16)
+    wgp, wdp = ops.densify_coefs_plain(idx, gc, dc, torch.bfloat16)
+    err = max(max_err(wg.float(), wgp.float()), max_err(wd.float(),
+                                                         wdp.float()))
+    record("densify_bf16", err)
+    check("densify bf16", bits_equal(wg, wgp) and bits_equal(wd, wdp),
+          f"max_abs_err {err}")
+    del wg, wd, wgp, wdp
+
+    for c in BF16_WIDTHS:
+        h = torch.randn((B, N, c), device=dev).to(torch.bfloat16)
+        aff = random_affine(c, dev)
+        for sub_self in (False, True):
+            got = ops.gather_max_affine(h, idx, nbr_mask, aff, sub_self)
+            want = ops.gather_max_affine_plain(h, idx, nbr_mask, aff,
+                                               sub_self)
+            err = max_err(got.float(), want.float())
+            record("gather_max_affine", err)
+            check(f"gather_max_affine C={c} sub_self={sub_self}",
+                  bits_equal(got, want), f"max_abs_err {err}")
+
+    x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    aff = random_affine(MM_OUT, dev)
+    raw = ops.gather_matmul_max(x, w, idx, nbr_mask)
+    raw_p = ops.gather_matmul_max_plain(x, w, idx, nbr_mask)
+    ulps = bf16_ulps(raw, raw_p)
+    err = max_err(raw.float(), raw_p.float())
+    record("gather_matmul_max", err)
+    check(f"gather_matmul_max {MM_IN}->{MM_OUT}", int(ulps.max()) <= 1,
+          f"max {int(ulps.max())} bf16 ulp, {float((ulps > 0).float().mean())}"
+          f" of elements differ (f32 sum order), max_abs_err {err}")
+    fused = ops.gather_matmul_max(x, w, idx, nbr_mask, aff)
+    fused_p = ops.gather_matmul_max_plain(x, w, idx, nbr_mask, aff)
+    replay = ops.bn_lrelu_epilogue(raw.float(), aff,
+                                   nbr_mask.any(dim=-1, keepdim=True))
+    ulps = bf16_ulps(fused, fused_p)
+    check(f"gather_matmul_max {MM_IN}->{MM_OUT} with the epilogue",
+          bits_equal(fused, replay),
+          f"equal to the epilogue replayed on the kernel's own max; vs the "
+          f"plain version {float((ulps > 0).float().mean())} of elements "
+          f"differ (a 1-ulp max through the affine), max_abs_err "
+          f"{max_err(fused.float(), fused_p.float())}")
+    torch.cuda.synchronize()
+
+
 def kernel_phase(rng, dev, card):
-    """Each kernel against its plain version at the main paths' shapes."""
+    """Each kernel against its plain version at the main paths' shapes;
+    times, bounds and library-call times at the uniform shapes."""
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.ops.wls_fused import edge_planes
 
     pos, nrm, xb, yb, cases = graph_cases(rng, dev)
-    res = {name: {"max_abs_err": 0.0} for name in KERNEL_META}
+    res = {name: {"max_abs_err": 0.0, "library_ms": None}
+           for name in KERNEL_META}
 
     def record(name, err):
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
@@ -278,25 +433,43 @@ def kernel_phase(rng, dev, card):
             record("gather_sum_bwd", err)
             check(f"gather_sum_bwd C={c}", err <= tol,
                   f"max_abs_err {err} <= {tol}")
+        check_bf16_kernels(record, label, pos, idx, nbr_mask, gd_p, dev)
         torch.cuda.synchronize()
 
-    # Times at the uniform shapes.
+    # Times, bounds and library calls at the uniform shapes.
     idx, nbr_mask = cases["uniform"]
     pm = nbr_mask.any(dim=2).to(torch.float32)
     edges = edge_planes(pos, nrm, xb, yb, idx, nbr_mask, pm,
                         ops.gather_rows_plain)
     gd = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
+    gc, dc = gd.grad_coef, gd.div_coef
+    h128 = torch.randn((B, N, 128), device=dev).to(torch.bfloat16)
+    aff128 = random_affine(128, dev)
+    x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    aff256 = random_affine(MM_OUT, dev)
     timed = {
         "gather_rows": (lambda: ops.gather_rows(table, idx),
                         lambda: ops.gather_rows_plain(table, idx)),
         "wls": (lambda: ops.wls(edges, 1.0, 1e-3),
                 lambda: ops.wls_plain(edges, 1.0, 1e-3)),
-        "densify": (lambda: ops.densify_coefs(idx, gd.grad_coef,
-                                              gd.div_coef),
-                    lambda: ops.densify_coefs_plain(idx, gd.grad_coef,
-                                                    gd.div_coef)),
+        "densify": (lambda: ops.densify_coefs(idx, gc, dc),
+                    lambda: ops.densify_coefs_plain(idx, gc, dc)),
+        "densify_bf16": (
+            lambda: ops.densify_coefs(idx, gc, dc, torch.bfloat16),
+            lambda: ops.densify_coefs_plain(idx, gc, dc, torch.bfloat16)),
         "adjacency": (lambda: ops.adjacency(idx, nbr_mask),
                       lambda: ops.adjacency_plain(idx, nbr_mask)),
+        "knn_topk": (lambda: ops.knn_topk(pos, K, True),
+                     lambda: ops.knn_topk_plain(pos, K, True)),
+        "gather_max_affine": (
+            lambda: ops.gather_max_affine(h128, idx, nbr_mask, aff128),
+            lambda: ops.gather_max_affine_plain(h128, idx, nbr_mask,
+                                                aff128)),
+        "gather_matmul_max": (
+            lambda: ops.gather_matmul_max(x, w, idx, nbr_mask, aff256),
+            lambda: ops.gather_matmul_max_plain(x, w, idx, nbr_mask,
+                                                aff256)),
     }
     print(f"[times] per call, median of {REPS} CUDA-event samples of "
           f"{INNER} back-to-back calls, B={B} N={N} K={K}, card: {card}")
@@ -305,6 +478,69 @@ def kernel_phase(rng, dev, card):
         res[name]["plain_ms"] = median_ms(fp)
         print(f"  {name}: kernel {res[name]['ms']:.4f} ms, "
               f"plain {res[name]['plain_ms']:.4f} ms")
+    t_out = ops.gather_rows(table, idx)
+    res["gather_rows"]["bound"] = bound(nbytes(table, idx, t_out))
+    res["wls"]["bound"] = bound(nbytes(edges, *ops.wls(edges, 1.0, 1e-3)))
+    for name, dt in (("densify", torch.float32),
+                     ("densify_bf16", torch.bfloat16)):
+        res[name]["bound"] = bound(nbytes(
+            idx, gc, dc, *ops.densify_coefs(idx, gc, dc, dt)))
+    res["adjacency"]["bound"] = bound(nbytes(
+        idx, nbr_mask, ops.adjacency(idx, nbr_mask)))
+    # The work the function needs, not the kernel's K selection sweeps.
+    res["knn_topk"]["bound"] = bound(
+        nbytes(pos, ops.knn_topk(pos, K, True)),
+        float(B) * N * N * KNN_INSTR_PER_PAIR, ISSUE_PER_S)
+    res["gather_max_affine"]["bound"] = bound(nbytes(
+        h128, idx, nbr_mask, torch.stack(aff128), h128))
+    # Row j's x_j @ w is the same whichever point gathers it, so the
+    # function needs one product per row (the kernel does K: the TPU's
+    # gather-then-matmul form).
+    res["gather_matmul_max"]["bound"] = bound(
+        nbytes(x, w, idx, nbr_mask, torch.stack(aff256),
+               torch.empty((B, N, MM_OUT), dtype=torch.bfloat16,
+                           device=dev)),
+        2.0 * B * N * MM_IN * MM_OUT, BF16_TC_OPS_PER_S)
+
+    # PyTorch library calls that compute the same function, where there
+    # are, each with its set-up timed too: zero fill, scatter_add_ in f32
+    # (both operators as the four planes of one [B, 4, N, N] tensor) and,
+    # for bf16, the cast; the score plane and topk for the kNN.
+    index4 = idx.long()[:, None].expand(B, 4, N, K)
+    coef4 = torch.cat([gc, dc], dim=-1).permute(0, 3, 1, 2).contiguous()
+    res["densify"]["library_ms"] = median_ms(
+        lambda: torch.zeros((B, 4, N, N), device=dev).scatter_add_(
+            3, index4, coef4))
+    res["densify_bf16"]["library_ms"] = median_ms(
+        lambda: torch.zeros((B, 4, N, N), device=dev).scatter_add_(
+            3, index4, coef4).to(torch.bfloat16))
+    ones = nbr_mask.float()
+    idx_l = idx.long()
+    res["adjacency"]["library_ms"] = median_ms(
+        lambda: torch.zeros((B, N, N), device=dev).scatter_add_(
+            2, idx_l, ones))
+    res["knn_topk"]["library_ms"] = median_ms(
+        lambda: torch.topk(2.0 * torch.matmul(pos, pos.transpose(1, 2))
+                           - (pos * pos).sum(-1)[:, None, :], K, dim=-1))
+    for name in ("densify", "densify_bf16", "adjacency", "knn_topk"):
+        print(f"  {name}: library call {res[name]['library_ms']:.4f} ms")
+    h64 = torch.randn((B, N, 64), device=dev).to(torch.bfloat16)
+    aff64 = random_affine(64, dev)
+    others = {
+        "knn_topk exact": (lambda: ops.knn_topk(pos, K, False),
+                           lambda: ops.knn_topk_plain(pos, K, False)),
+        "gather_max_affine C=64 sub_self": (
+            lambda: ops.gather_max_affine(h64, idx, nbr_mask, aff64, True),
+            lambda: ops.gather_max_affine_plain(h64, idx, nbr_mask, aff64,
+                                                True)),
+        f"gather_matmul_max {MM_IN}->{MM_OUT} without the epilogue": (
+            lambda: ops.gather_matmul_max(x, w, idx, nbr_mask),
+            lambda: ops.gather_matmul_max_plain(x, w, idx, nbr_mask)),
+    }
+    for label, (fk, fp) in others.items():
+        print(f"  {label}: kernel {median_ms(fk):.4f} ms, plain "
+              f"{median_ms(fp):.4f} ms")
+
     for c in WIDTHS:
         h = torch.randn((B, N, c), device=dev)
         g = torch.randn((B, N, c), device=dev)
@@ -330,11 +566,24 @@ def kernel_phase(rng, dev, card):
             print(f"  {name} C={c}: kernel {km:.4f} ms, plain {pl:.4f} ms")
             if c == RECORD_WIDTH[name]:
                 res[name]["ms"], res[name]["plain_ms"] = km, pl
-    print(f"  (the JSON record gives each at its width: {RECORD_WIDTH})")
+                outs = {
+                    "gather_max": (h, idx, nbr_mask, h),
+                    "gather_max_win": (h, idx, nbr_mask, h, win),
+                    "gather_max_bwd": (idx, win, g, h),
+                    "gather_sum": (h, idx, nbr_mask, h),
+                    "gather_sum_bwd": (idx, nbr_mask, g, h),
+                }[name]  # inputs, then an output-sized tensor
+                res[name]["bound"] = bound(nbytes(*outs))
+    print(f"  (the JSON record gives each at its width: {RECORD_WIDTH}, "
+          f"gather_max_affine at C=128, gather_matmul_max at "
+          f"{MM_IN}->{MM_OUT})")
+    for name, r in res.items():
+        print(f"  {name}: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+              f"kernel at {r['bound'][0] / r['ms']:.3f} of it")
     return res
 
 
-def random_model(seed, dev, dropout=0.5, affine=True):
+def random_model(seed, dev, dropout=0.5, affine=True, knn_method="exact"):
     """The reference-width classifier with seeded weights and randomized
     BatchNorm statistics and, when ``affine``, scales (both signs) and
     biases."""
@@ -343,7 +592,7 @@ def random_model(seed, dev, dropout=0.5, affine=True):
 
     gen = torch.Generator().manual_seed(seed)
     model = DeltaNetClassification(num_classes=NUM_CLASSES, dropout=dropout,
-                                   generator=gen)
+                                   knn_method=knn_method, generator=gen)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, BatchNorm):
@@ -355,6 +604,15 @@ def random_model(seed, dev, dropout=0.5, affine=True):
     return model.to(dev)
 
 
+def serving_clouds(rng):
+    """64 uniform clouds, then 10 ragged ones (600..1023 points) and one
+    full cloud, the first of the uniform ones."""
+    uni, uni_n = ellipsoid_clouds(rng, [N] * 64)
+    sizes = rng.integers(N * 600 // 1024, N, 10).tolist()
+    rag, rag_n = ellipsoid_clouds(rng, sizes)
+    return uni, uni_n, rag + uni[:1], rag_n + uni_n[:1]
+
+
 def serve_phase(rng, seed, dev, card):
     from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
                                      launch_counts, reset_launch_counts)
@@ -363,10 +621,7 @@ def serve_phase(rng, seed, dev, card):
     engine = InferenceEngine(model, num_points=N, batch_size=B)
     plain = InferenceEngine(model, num_points=N, batch_size=B,
                             ops=PLAIN_OPS)
-    uni, uni_n = ellipsoid_clouds(rng, [N] * 64)
-    sizes = rng.integers(N * 600 // 1024, N, 10).tolist()  # 600..1023
-    rag, rag_n = ellipsoid_clouds(rng, sizes)
-    rag, rag_n = rag + uni[:1], rag_n + uni_n[:1]  # one full cloud too
+    uni, uni_n, rag, rag_n = serving_clouds(rng)
 
     engine.predict(uni[:B], uni_n[:B])  # warm-up: library, cuBLAS
     torch.cuda.synchronize()
@@ -408,6 +663,96 @@ def serve_phase(rng, seed, dev, card):
           f"{t * 1e3 / n_batches:.3f} ms per batch, {64 / t:.1f} clouds/s "
           f"(host clock, synchronised), card: {card}")
     return counts
+
+
+def held_to(label, got, ref, rel):
+    """Max deviation within ``rel`` x max|ref| and the argmax equal
+    wherever the reference's top-2 margin exceeds twice the deviation."""
+    dev_ = float(np.abs(got - ref).max())
+    tol = rel * float(np.abs(ref).max())
+    top2 = np.sort(ref, axis=-1)
+    decisive = top2[:, -1] - top2[:, -2] > 2 * dev_
+    same = bool((got.argmax(1) == ref.argmax(1))[decisive].all())
+    check(label, dev_ <= tol and same,
+          f"max_abs_err {dev_} <= {tol} ({dev_ / max(tol / rel, 1e-30):.3e} "
+          f"x max|logit|), argmax equal on {int(decisive.sum())} of "
+          f"{len(ref)} decisive clouds {same}")
+
+
+def serve_bf16_phase(rng, seed, dev, card):
+    """The JAX package's production serving config: approximate kNN,
+    bf16 compute and operators, on the same random weights."""
+    from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
+                                     launch_counts, reset_launch_counts)
+
+    model = random_model(seed, dev, knn_method="approx")
+    engine = InferenceEngine(model, num_points=N, batch_size=B,
+                             precision="bfloat16")
+    plain = InferenceEngine(model, num_points=N, batch_size=B,
+                            precision="bfloat16", ops=PLAIN_OPS)
+    f32 = InferenceEngine(model, num_points=N, batch_size=B)
+    uni, uni_n, rag, rag_n = serving_clouds(rng)
+
+    engine.predict(uni[:B], uni_n[:B])  # warm-up: cuBLAS bf16
+    engine.predict(rag[:3], rag_n[:3])
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits_u = engine.predict(uni, uni_n)
+        times.append(time.perf_counter() - t0)
+    logits_r = engine.predict(rag, rag_n)
+    counts = launch_counts()
+    print(f"[serve-bf16] launches during serving: {counts}")
+
+    print("[serve-bf16] checks")
+    check("uniform logits", logits_u.shape == (64, NUM_CLASSES)
+          and bool(np.isfinite(logits_u).all()), f"shape {logits_u.shape}")
+    check("ragged logits", logits_r.shape == (11, NUM_CLASSES)
+          and bool(np.isfinite(logits_r).all()), f"shape {logits_r.shape}")
+    for name in ("gather_rows", "wls") + BF16_KERNELS:
+        check(f"{name} launched", counts[name] > 0,
+              f"{counts[name]} launches")
+    for label, clouds, normals, got in (("uniform", uni, uni_n, logits_u),
+                                        ("ragged", rag, rag_n, logits_r)):
+        held_to(f"{label} kernel vs plain path", got,
+                plain.predict(clouds, normals), BF16_PATH_REL)
+        held_to(f"{label} bf16 vs the f32 engine", got,
+                f32.predict(clouds, normals), BF16_REL)
+    held_to("full cloud ragged (exact kNN) vs uniform (knn_topk)",
+            logits_r[-1:], logits_u[:1], BF16_REL)
+
+    t = float(np.median(times))
+    print(f"[serve-bf16] 64 uniform clouds (N={N}, batch {B}, "
+          f"knn_method=approx, precision=bfloat16): median {t * 1e3:.3f} ms "
+          f"per call of 2 batches, {t * 1e3 / 2:.3f} ms per batch, "
+          f"{64 / t:.1f} clouds/s (host clock, synchronised), card: {card}")
+    profile("serve-bf16", "one 64-cloud predict call",
+            lambda: engine.predict(uni, uni_n), t * 1e3)
+    return counts
+
+
+def conv3_forms(dev, card):
+    """The last conv's max in both forms, at its shapes: gather then
+    matmul (``gather_matmul_max``, the JAX package's TPU choice, K times
+    the products) and matmul then gather (``x @ w``, then
+    ``gather_max_affine`` at C_out)."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import knn
+
+    pos = torch.randn((B, N, 3), device=dev)
+    idx, nbr_mask = knn(pos, K)
+    x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    aff = random_affine(MM_OUT, dev)
+    one = median_ms(lambda: ops.gather_matmul_max(x, w, idx, nbr_mask, aff))
+    two = median_ms(lambda: ops.gather_max_affine(torch.matmul(x, w), idx,
+                                                  nbr_mask, aff))
+    print(f"[conv3] {MM_IN}->{MM_OUT}, B={B} N={N} K={K}: gather_matmul_max "
+          f"{one:.4f} ms; x @ w then gather_max_affine {two:.4f} ms; card: "
+          f"{card}")
 
 
 def train_batch(rng, dev, sizes):
@@ -491,18 +836,19 @@ def compare_steps(label, batch, seed, dev, same_build):
                   f"flips from the builds' ~1e-6; not held)")
 
 
-def profile_step(step, state, batch, gen, step_ms):
-    """Device time of one train step by op and by kernel
-    (torch.profiler), and its share of ``step_ms``, the unprofiled
-    median step (the profiler itself slows the host)."""
+def profile(tag, what, fn, ref_ms):
+    """Device time of one call of ``fn`` by op and by kernel
+    (torch.profiler), and its share of ``ref_ms``, the unprofiled median
+    (the profiler itself slows the host)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch, gen)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ops_, kernels = [], []
@@ -514,16 +860,16 @@ def profile_step(step, state, batch, gen, step_ms):
              else ops_).append(row)
     total = sum(r[0] for r in kernels)
     # The port's kernels are launched through ctypes, outside any aten
-    # op, so they appear only as kernel events.
-    ours = [r for r in kernels if re.match(
-        r"(void )?\(anonymous namespace\)::(gather_rows|wls|densify|"
-        r"gather_max|gather_max_bwd|adjacency|gather_sum|gather_sum_bwd)"
-        r"_kernel\b", r[2])]
+    # op, so they appear only as kernel events (all in an anonymous
+    # namespace of their own).
+    ours = [r for r in kernels
+            if re.match(r"(void )?\(anonymous namespace\)::\w+_kernel\b",
+                        r[2])]
     ops_ += ours
-    print(f"[train] profile of one step: {total / 1e3:.3f} ms of device "
-          f"time, {total / 1e3 / step_ms:.3f} of the {step_ms:.3f} ms "
-          f"median step ({wall * 1e3:.3f} ms profiled); the port's kernels "
-          f"{sum(r[0] for r in ours) / 1e3:.3f} ms")
+    print(f"[{tag}] profile of {what}: {total / 1e3:.3f} ms of device "
+          f"time, {total / 1e3 / ref_ms:.3f} of the {ref_ms:.3f} ms "
+          f"unprofiled median ({wall * 1e3:.3f} ms profiled); the port's "
+          f"kernels {sum(r[0] for r in ours) / 1e3:.3f} ms")
     for title, rows in (("by op (self device time)", ops_),
                         ("by kernel", kernels),
                         ("the port's kernels", ours)):
@@ -575,7 +921,7 @@ def train_phase(rng, seed, dev, card):
     print(f"[train] B={B} N={N} K={K}, reference width: median "
           f"{t * 1e3:.3f} ms per train step, {B / t:.1f} training clouds/s "
           f"(host clock, synchronised after each step), card: {card}")
-    profile_step(step, state, uniform, gen, t * 1e3)
+    profile("train", "one step", lambda: step(state, uniform, gen), t * 1e3)
 
     print("[train] kernel path vs plain path, one step from the same "
           "weights, dropout 0")
@@ -629,18 +975,27 @@ def main():
     torch.manual_seed(args.seed)
     res = kernel_phase(rng, dev, card)
     serve = serve_phase(rng, args.seed, dev, card)
+    serve_bf16 = serve_bf16_phase(rng, args.seed, dev, card)
+    conv3_forms(dev, card)
     train, stream = train_phase(rng, args.seed, dev, card)
 
     def launches(name):
-        if name in SERVE_KERNELS:
-            return serve[name]
-        return (train if name in TRAIN_KERNELS else stream)[name]
+        for path, counts in ((SERVE_KERNELS, serve),
+                             (BF16_KERNELS, serve_bf16),
+                             (TRAIN_KERNELS, train),
+                             (STREAM_KERNELS, stream)):
+            if name in path:
+                return counts[name]
+        raise KeyError(name)
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches(name),
          "max_abs_err": res[name]["max_abs_err"],
-         "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"]}
+         "ms": res[name]["ms"], "plain_ms": res[name]["plain_ms"],
+         "bound_ms": res[name]["bound"][0],
+         "bound_by": res[name]["bound"][1],
+         "library_ms": res[name]["library_ms"]}
         for name, (src, rep) in KERNEL_META.items()]}
     print(json.dumps(record))
     print(card)

@@ -1,10 +1,13 @@
-"""deltaconv_tpu_torch: the DeltaConv f32 serving path and train step in
-PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""deltaconv_tpu_torch: the DeltaConv serving path (f32, and bf16 with
+approximate kNN) and f32 train step in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``deltaconv_tpu`` (JAX, TPU), which stays the reference. This
-package imports neither JAX nor ``deltaconv_tpu``. Its nine kernels
+package imports neither JAX nor ``deltaconv_tpu``. Its thirteen kernels
 (``csrc/*.cu``) are built with ``nvcc`` at first use on a CUDA tensor;
-on CPU tensors every kernel wrapper runs its plain PyTorch version.
+on CPU tensors every kernel wrapper runs its plain PyTorch version. The
+entry points (``InferenceEngine``, ``create_train_state``) run on the
+card unless the caller passes ``device="cpu"``.
 
     from deltaconv_tpu_torch import (DeltaNetClassification,
                                      InferenceEngine, state_dict_from_flax)

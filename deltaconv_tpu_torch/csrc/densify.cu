@@ -1,36 +1,73 @@
-// Dense grad/div operators from the per-edge coefficients (f32 output):
+// Dense grad/div operators from the per-edge coefficients:
 //   w_grad[b, d, n, idx[b, n, k]] += grad_coef[b, n, k, d]
 //   w_div [b, d, n, idx[b, n, k]] += div_coef [b, n, k, d]
 // idx [B, N, K] i32, grad_coef/div_coef [B, N, K, 2] f32
-//   -> w_grad, w_div [B, 2, N, N] f32 (zero where no edge lands).
+//   -> w_grad, w_div [B, 2, N, N] f32 (`dc_densify`) or bf16
+//   (`dc_densify_bf16`), zero where no edge lands.
 //
-// Replaces the f32 Pallas kernel of deltaconv_tpu/ops/densify_op.py
-// (`densify_coef_planes`, pallas_call at densify_op.py:249, kernel body
-// `_fwd_kernel`). The TPU built each row tile in VMEM by K masked
-// select-accumulates over a [T, N] column iota; here a block owns one
-// row (b, n) of all four planes, stages the row's K indices and
-// coefficients in shared memory, and every thread writes its columns
-// once: zero, plus the coefficients of the slots that land there. No
-// other block writes the row, so no atomics are needed.
+// Replaces the Pallas kernel of deltaconv_tpu/ops/densify_op.py
+// (`densify_coef_planes`, pallas_call at densify_op.py:249) in both of
+// its bodies: the f32 `_fwd_kernel` and the bf16 `_fwd_kernel_bf16`. The
+// TPU built each row tile in VMEM by K masked select-accumulates over a
+// [T, N] column iota; here a block owns one row (b, n) of all four
+// planes, stages the row's K indices and coefficients in shared memory,
+// and every thread writes its columns once: zero, plus the coefficients
+// of the slots that land there. No other block writes the row, so no
+// atomics are needed.
 //
-// Coefficients are ADDED, in slot order, never stored: on the masked
-// path the padded kNN slots are clamped to the point itself with a zero
-// coefficient (geometry/knn.py), so a column can be hit twice and a
-// store would overwrite slot 0's real self coefficient. The TPU kernel
+// Coefficients are ADDED in f32, in slot order, never stored: on the
+// masked path the padded kNN slots are clamped to the point itself with
+// a zero coefficient (geometry/knn.py), so a column can be hit twice and
+// a store would overwrite slot 0's real self coefficient. The TPU kernel
 // sums too.
 //
-// Bound on the H100: the stores, 4 * N * N * 4 bytes per cloud (512 MB
-// at B=32, N=1024), written as 16-byte stores where N % 4 == 0. The K
-// compares per stored vector come from shared memory.
+// The bf16 body rounds the f32 sum once, to nearest even
+// (__float2bfloat16_rn). The TPU's bf16 body rounds each coefficient and
+// ORs the bits into place with -0.0 made +0.0; that is the same value,
+// because the kNN gives every real slot its own column, a clamped slot
+// adds +0.0 to it, and +0.0 + -0.0 is +0.0.
+//
+// Bound on the H100: the stores, 4 * N * N * 4 bytes per cloud in f32
+// (512 MB at B=32, N=1024), half that in bf16, written as 16-byte
+// (f32) or 8-byte (bf16) vectors where N % 4 == 0. The K compares per
+// stored vector come from shared memory.
 #include "common.cuh"
+
+#include <cuda_bf16.h>
 
 namespace {
 
+__device__ __forceinline__ void store4(float* row, int q, const float* v) {
+  reinterpret_cast<float4*>(row)[q] = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* row, int q,
+                                       const float* v) {
+  __nv_bfloat162 lo, hi;
+  lo.x = __float2bfloat16_rn(v[0]);
+  lo.y = __float2bfloat16_rn(v[1]);
+  hi.x = __float2bfloat16_rn(v[2]);
+  hi.y = __float2bfloat16_rn(v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  reinterpret_cast<uint2*>(row)[q] = u;
+}
+
+__device__ __forceinline__ void store1(float* row, int m, float v) {
+  row[m] = v;
+}
+
+__device__ __forceinline__ void store1(__nv_bfloat16* row, int m, float v) {
+  row[m] = __float2bfloat16_rn(v);
+}
+
+template <typename T>
 __global__ void densify_kernel(const int* __restrict__ idx,
                                const float* __restrict__ grad_coef,
                                const float* __restrict__ div_coef,
-                               float* __restrict__ w_grad,
-                               float* __restrict__ w_div, int N, int K) {
+                               T* __restrict__ w_grad, T* __restrict__ w_div,
+                               int N, int K) {
   extern __shared__ float smem[];
   int* s_idx = reinterpret_cast<int*>(smem);  // [K]
   float* s_coef = smem + K;                   // [4, K]: g1, g2, d1, d2
@@ -48,10 +85,10 @@ __global__ void densify_kernel(const int* __restrict__ idx,
   __syncthreads();
 
   const long long nn = (long long)N * N;
-  float* rows[4] = {w_grad + (b * 2 + 0) * nn + n * N,
-                    w_grad + (b * 2 + 1) * nn + n * N,
-                    w_div + (b * 2 + 0) * nn + n * N,
-                    w_div + (b * 2 + 1) * nn + n * N};
+  T* rows[4] = {w_grad + (b * 2 + 0) * nn + n * N,
+                w_grad + (b * 2 + 1) * nn + n * N,
+                w_div + (b * 2 + 0) * nn + n * N,
+                w_div + (b * 2 + 1) * nn + n * N};
   if ((N & 3) == 0) {
     for (int q = threadIdx.x; q < N / 4; q += blockDim.x) {
       float acc[4][4] = {};
@@ -66,9 +103,7 @@ __global__ void densify_kernel(const int* __restrict__ idx,
         }
       }
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
-        reinterpret_cast<float4*>(rows[p])[q] =
-            make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+      for (int p = 0; p < 4; ++p) store4(rows[p], q, acc[p]);
     }
   } else {
     for (int m = threadIdx.x; m < N; m += blockDim.x) {
@@ -78,9 +113,23 @@ __global__ void densify_kernel(const int* __restrict__ idx,
 #pragma unroll
           for (int p = 0; p < 4; ++p) acc[p] += s_coef[p * K + k];
 #pragma unroll
-      for (int p = 0; p < 4; ++p) rows[p][m] = acc[p];
+      for (int p = 0; p < 4; ++p) store1(rows[p], m, acc[p]);
     }
   }
+}
+
+template <typename T>
+int launch_densify(const void* idx, const void* grad_coef,
+                   const void* div_coef, void* w_grad, void* w_div, int B,
+                   int N, int K, int device, void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * N == 0) return (int)cudaGetLastError();
+  const dim3 grid(N, B);
+  const size_t smem = (size_t)K * 5 * sizeof(float);
+  densify_kernel<T><<<grid, 256, smem, (cudaStream_t)stream>>>(
+      (const int*)idx, (const float*)grad_coef, (const float*)div_coef,
+      (T*)w_grad, (T*)w_div, N, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -88,12 +137,14 @@ __global__ void densify_kernel(const int* __restrict__ idx,
 extern "C" int dc_densify(const void* idx, const void* grad_coef,
                           const void* div_coef, void* w_grad, void* w_div,
                           int B, int N, int K, int device, void* stream) {
-  DC_SET_DEVICE(device);
-  if ((long long)B * N == 0) return (int)cudaGetLastError();
-  const dim3 grid(N, B);
-  const size_t smem = (size_t)K * 5 * sizeof(float);
-  densify_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      (const int*)idx, (const float*)grad_coef, (const float*)div_coef,
-      (float*)w_grad, (float*)w_div, N, K);
-  return (int)cudaGetLastError();
+  return launch_densify<float>(idx, grad_coef, div_coef, w_grad, w_div, B,
+                               N, K, device, stream);
+}
+
+extern "C" int dc_densify_bf16(const void* idx, const void* grad_coef,
+                               const void* div_coef, void* w_grad,
+                               void* w_div, int B, int N, int K, int device,
+                               void* stream) {
+  return launch_densify<__nv_bfloat16>(idx, grad_coef, div_coef, w_grad,
+                                       w_div, B, N, K, device, stream);
 }

@@ -1,4 +1,4 @@
-"""Geometry of the f32 serving path: kNN, tangent frames, operators."""
+"""Geometry of the serving path: kNN, tangent frames, operators."""
 
 from .dense import DenseGradDiv, densify
 from .frames import build_tangent_basis

@@ -1,8 +1,9 @@
 """Neighbour aggregations shared by the operator objects (counterpart of
 ``deltaconv_tpu/geometry/nbr_ops.py``: ``nbr_max`` on every path,
-``nbr_sum`` for the train-mode edge statistics). ``DeltaConv`` never
+``nbr_sum`` for the train-mode edge statistics, ``nbr_max_affine`` and
+``nbr_matmul_max`` for the bf16 eval branches). ``DeltaConv`` never
 gathers through raw indices itself: it asks its operator object, which
-keeps the kernel choice in one place."""
+keeps the kernel choice (its ``ops``) in one place."""
 
 from __future__ import annotations
 
@@ -13,16 +14,30 @@ __all__ = ["NeighborAggregations"]
 
 class NeighborAggregations:
     """Mixin over objects exposing ``nbr_idx``, ``nbr_mask`` and the
-    ``gather_max_fn`` and ``gather_sum_fn`` to aggregate with."""
+    ``ops`` (kernels or plain versions) to aggregate with. The kNN self
+    loop sits in slot 0."""
 
     def nbr_max(self, h):
         """Masked neighbour max ``[B, N, C] -> [B, N, C]``; all-masked
-        rows give 0. The kNN self loop sits in slot 0."""
+        rows give 0."""
         return masked_nbr_max(h, self.nbr_idx, self.nbr_mask,
-                              self.gather_max_fn)
+                              self.ops.gather_max)
 
     def nbr_sum(self, h, mask=None):
         """Masked neighbour sum ``[B, N, C] -> [B, N, C]`` over ``mask``
         (default: the graph's ``nbr_mask``)."""
         mask = self.nbr_mask if mask is None else mask
-        return self.gather_sum_fn(h, self.nbr_idx, mask)
+        return self.ops.gather_sum(h, self.nbr_idx, mask)
+
+    def nbr_max_affine(self, h, affine, sub_self: bool = False):
+        """bf16 eval: masked neighbour max with the BatchNorm +
+        LeakyReLU epilogue, ``affine = (sign, inv, mean, bias)``;
+        ``sub_self`` subtracts the self row inside the sign fold."""
+        return self.ops.gather_max_affine(h, self.nbr_idx, self.nbr_mask,
+                                          affine, sub_self)
+
+    def nbr_matmul_max(self, x, w, affine=None):
+        """bf16 eval: masked max of ``(x @ w)[nbr]`` (f32 accumulation),
+        with the epilogue when ``affine`` is given."""
+        return self.ops.gather_matmul_max(x, w, self.nbr_idx, self.nbr_mask,
+                                          affine)

@@ -1,4 +1,4 @@
-"""DeltaNet models of the f32 serving path."""
+"""DeltaNet models of the serving path and the train step."""
 
 from .deltanet_base import DeltaNetBase, build_operators
 from .deltanet_classification import DeltaNetClassification

@@ -4,10 +4,17 @@ operators, given normals).
 
 The kNN graph and the grad/div operators are rebuilt on every forward
 from the positions, so operator construction is part of the serving
-path: kNN (plain torch), tangent frames, the edge-plane gather and the
-WLS solve (two kernels), and the dense assembly (a third kernel). The
-convs' neighbour max is the fourth; in training the first conv's edge
+path: kNN (``torch.topk``, or the ``knn_topk`` kernel for
+``knn_method="approx"``), tangent frames, the edge-plane gather and the
+WLS solve (two kernels), and the dense assembly (a kernel, f32 or bf16).
+Then the convs' neighbour maxes; in training the first conv's edge
 statistics add the neighbour sum.
+
+Mixed precision as in the JAX package: ``operator_dtype`` is the dtype of
+the dense operators, ``compute_dtype`` that of the conv stack's
+activations (positions are cast to it before the first conv); the
+operator build itself always runs in f32. Either set to bf16 is for
+eval only.
 """
 
 from __future__ import annotations
@@ -21,15 +28,30 @@ from ..geometry.dense import DenseGradDiv, densify
 from ..geometry.frames import build_tangent_basis
 from ..geometry.knn import knn
 from ..nn.deltaconv import DeltaConv
+from ..nn.mlp import MLP, VectorMLP
 from ..ops import KERNEL_OPS, Ops
 from ..ops.wls_fused import build_grad_div_fused
 
-__all__ = ["DeltaNetBase", "build_operators"]
+__all__ = ["DeltaNetBase", "build_operators", "to_dtype"]
+
+_DTYPES = {None: None, "float32": None, torch.float32: None,
+           "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
+
+
+def to_dtype(name):
+    """A JAX-style dtype setting (None, "float32", "bfloat16" or the
+    torch dtype) as the port's: None for f32, else ``torch.bfloat16``."""
+    if name not in _DTYPES:
+        raise NotImplementedError(
+            f"dtype {name!r} is not ported (None, float32 or bfloat16; "
+            "int8 operators are ROADMAP slice F)")
+    return _DTYPES[name]
 
 
 def build_operators(pos, k: int, normal=None, point_mask=None,
                     kernel_width: float = 1.0, regularizer: float = 0.001,
-                    ops: Ops = KERNEL_OPS) -> DenseGradDiv:
+                    ops: Ops = KERNEL_OPS, operator_dtype=None,
+                    knn_method: str = "exact") -> DenseGradDiv:
     """Builds the dense grad/div operators of a batch of clouds.
 
     Args:
@@ -40,6 +62,8 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
       point_mask: optional ``[B, N]`` bool validity.
       kernel_width, regularizer: WLS parameters.
       ops: the kernels (default) or their plain versions.
+      operator_dtype: dtype of the dense operators (None: f32, or bf16).
+      knn_method: ``"exact"`` or ``"approx"`` (``geometry.knn``).
     """
     if pos.requires_grad or (normal is not None and normal.requires_grad):
         raise NotImplementedError(
@@ -50,14 +74,14 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
         raise NotImplementedError(
             "normal estimation (estimate_basis, geometry/linalg.py) is not "
             "ported yet (ROADMAP: port queue); pass normals")
-    nbr_idx, nbr_mask = knn(pos, k, point_mask)
+    nbr_idx, nbr_mask = knn(pos, k, point_mask, knn_method, ops.knn_topk)
     x_basis, y_basis = build_tangent_basis(normal)
     if point_mask is not None:
         nbr_mask = nbr_mask & point_mask[:, :, None]
     gd = build_grad_div_fused(pos, normal, x_basis, y_basis, nbr_idx,
                               nbr_mask, kernel_width, regularizer,
                               ops.gather_rows, ops.wls)
-    return densify(gd, ops.densify_coefs, ops.gather_max, ops.gather_sum)
+    return densify(gd, ops, to_dtype(operator_dtype))
 
 
 class DeltaNetBase(nn.Module):
@@ -68,29 +92,46 @@ class DeltaNetBase(nn.Module):
 
     def __init__(self, conv_channels: Sequence[int], num_neighbors: int = 20,
                  grad_regularizer: float = 0.001,
-                 grad_kernel_width: float = 1.0):
+                 grad_kernel_width: float = 1.0, operator_dtype=None,
+                 compute_dtype=None, knn_method: str = "exact"):
         super().__init__()
         self.num_neighbors = num_neighbors
         self.grad_regularizer = grad_regularizer
         self.grad_kernel_width = grad_kernel_width
+        self.knn_method = knn_method
         widths = [3, *conv_channels]  # the first conv reads positions
         last = len(conv_channels) - 1
         self.convs = nn.ModuleList(
             DeltaConv(widths[i], widths[i + 1], centralized=(i == 0),
                       vector=(i != last))
             for i in range(len(conv_channels)))
+        self.set_precision(compute_dtype, operator_dtype)
+
+    def set_precision(self, compute_dtype, operator_dtype) -> None:
+        """Sets both dtypes (None, "float32" or "bfloat16"); the convs
+        take ``compute_dtype``. Parameters are unchanged (f32)."""
+        self.compute_dtype = to_dtype(compute_dtype)
+        self.operator_dtype = to_dtype(operator_dtype)
+        for m in self.convs.modules():
+            if isinstance(m, (MLP, VectorMLP)):
+                m.dtype = self.compute_dtype
 
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS):
         """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``."""
+        if self.training and self.operator_dtype is not None:
+            raise NotImplementedError(
+                "training with bf16 operators is not ported yet (bf16 "
+                "training, ROADMAP queue 1): train in f32")
         # Positions carry no gradient on this path (the loss is
         # differentiated for the parameters only), so the build keeps
         # no autograd graph, in training as in eval.
         with torch.no_grad():
             gd = build_operators(pos, self.num_neighbors, normal,
                                  point_mask, self.grad_kernel_width,
-                                 self.grad_regularizer, ops)
-        x = pos
+                                 self.grad_regularizer, ops,
+                                 self.operator_dtype, self.knn_method)
+        x = pos if self.compute_dtype is None else pos.to(self.compute_dtype)
         v = gd.grad(x)
         out = []
         for conv in self.convs:

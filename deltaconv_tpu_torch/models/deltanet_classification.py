@@ -31,21 +31,33 @@ class DeltaNetClassification(nn.Module):
     Defaults match the reference: conv channels (64, 64, 128, 256), MLP
     depth 1, k=20, lambda=1e-3, kernel width 1, embedding 1024, head
     dropout 0.5. The weights are drawn from ``generator`` (torch's
-    Linear defaults); the module is built on the CPU, so move it with
-    ``.to(device)``. ``model.train()`` / ``model.eval()`` switch
-    BatchNorm and dropout between batch and running behaviour.
+    Linear defaults) on the CPU; ``InferenceEngine`` and
+    ``create_train_state`` move the model to the card. ``model.train()``
+    / ``model.eval()`` switch BatchNorm and dropout between batch and
+    running behaviour.
+
+    ``operator_dtype``, ``compute_dtype`` (None, "float32" or
+    "bfloat16") and ``knn_method`` ("exact" or "approx") are the JAX
+    model's fields: the JAX package serves in production with both
+    dtypes bf16 and approximate kNN (``InferenceEngine(...,
+    precision="bfloat16")`` sets the dtypes). The backbone, embedding
+    and head MLPs compute in ``compute_dtype``; the last Linear
+    (``head_out``) runs in f32 on the f32-cast activations, so logits
+    are f32.
     """
 
     def __init__(self, num_classes: int,
                  conv_channels: Sequence[int] = (64, 64, 128, 256),
                  num_neighbors: int = 20, grad_regularizer: float = 0.001,
                  grad_kernel_width: float = 1.0, embedding_size: int = 1024,
-                 dropout: float = 0.5,
+                 dropout: float = 0.5, operator_dtype=None,
+                 compute_dtype=None, knn_method: str = "exact",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.deltanet_base = DeltaNetBase(conv_channels, num_neighbors,
                                           grad_regularizer,
-                                          grad_kernel_width)
+                                          grad_kernel_width,
+                                          knn_method=knn_method)
         self.lin_embedding = MLP([sum(conv_channels), embedding_size])
         self.dropout = dropout
         # Positions 1 and 3 hold the reference's dropout (no parameters),
@@ -55,6 +67,24 @@ class DeltaNetClassification(nn.Module):
             MLP([512, 256]), Dropout(dropout),
             nn.Linear(256, num_classes))
         torch_linear_init_(self, generator)
+        self.set_precision(compute_dtype, operator_dtype)
+
+    @property
+    def compute_dtype(self):
+        return self.deltanet_base.compute_dtype
+
+    @property
+    def operator_dtype(self):
+        return self.deltanet_base.operator_dtype
+
+    def set_precision(self, compute_dtype, operator_dtype) -> None:
+        """Sets both dtypes (None, "float32" or "bfloat16") in place, as
+        the JAX model's ``clone(compute_dtype=..., operator_dtype=...)``;
+        parameters stay f32."""
+        self.deltanet_base.set_precision(compute_dtype, operator_dtype)
+        for mlp in (self.lin_embedding, self.classification_head[0],
+                    self.classification_head[2]):
+            mlp.dtype = self.compute_dtype
 
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS,
@@ -70,4 +100,4 @@ class DeltaNetClassification(nn.Module):
         mlp0, drop0, mlp1, drop1, out = self.classification_head
         x = drop0(mlp0(x), generator)
         x = drop1(mlp1(x), generator)
-        return out(x)
+        return out(x.float())

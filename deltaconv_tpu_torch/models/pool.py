@@ -18,7 +18,10 @@ def global_max_pool(x, point_mask=None):
 
 
 def global_mean_pool(x, point_mask=None):
-    """``[B, N, C] -> [B, C]`` masked mean over points."""
+    """``[B, N, C] -> [B, C]`` masked mean over points, in ``x``'s
+    dtype. As in the JAX package, a bf16 ``x`` divides by a bf16 count
+    (the sum of a bf16 mask), which rounds counts above 256 to 8
+    significant bits (1001 points count as 1000)."""
     if point_mask is None:
         return x.mean(dim=-2)
     m = point_mask[..., None].to(x.dtype)

@@ -1,4 +1,4 @@
-"""Layers of the f32 serving path and train step."""
+"""Layers of the serving path (f32 and bf16) and the f32 train step."""
 
 from .deltaconv import DeltaConv, EdgeMaxMLP, PointMaxMLP
 from .dropout import Dropout

@@ -1,4 +1,4 @@
-"""The DeltaConv layer, f32, train and eval (counterpart of
+"""The DeltaConv layer, f32 train and eval, bf16 eval (counterpart of
 ``deltaconv_tpu/nn/deltaconv.py``).
 
 Scalar stream:
@@ -11,6 +11,15 @@ Only depth-1 internal MLPs exist on this slice (the classification
 defaults). The neighbour max and sum go through the operator object
 (``gd.nbr_max``, ``gd.nbr_sum``), which runs their kernels. A point
 mask leaves padded points out of every train-mode BatchNorm statistic.
+
+With ``dtype=torch.bfloat16`` (eval only: bf16 training is not ported)
+the layer computes as the JAX package's mixed precision: bf16 Linear
+products and activations, f32 BatchNorm, and both max branches commuted
+through the monotone BatchNorm + LeakyReLU by sign folding into the
+kernels that apply that epilogue themselves (``gd.nbr_max_affine``,
+``gd.nbr_matmul_max``), as ``_epilogue_fusible`` routes them on the TPU.
+The port takes that route on every device: the kernels on the card,
+their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -19,10 +28,25 @@ import torch
 from torch import nn
 
 from ..geometry.operators import I_J, J, norm
-from .mlp import MLP, VectorMLP
+from .mlp import MLP, VectorMLP, linear
 from .nonlin import leaky_relu02
 
 __all__ = ["DeltaConv", "EdgeMaxMLP", "PointMaxMLP"]
+
+
+def _bn_affine(bn):
+    """Eval BatchNorm as ``(sign, inv, mean, bias)`` for the sign-folded
+    epilogue: ``inv = rsqrt(var + eps) * weight``, ``sign = sign(inv)``
+    (+1 at 0)."""
+    inv = bn.inv()
+    return torch.where(inv >= 0, 1.0, -1.0), inv, bn.running_mean, bn.bias
+
+
+def _check_eval(module):
+    if module.training:
+        raise NotImplementedError(
+            "bf16 training is not ported yet (ROADMAP queue 1; its kernel "
+            "is site #14 of queue 2); train in f32 (dtype=None)")
 
 
 class EdgeMaxMLP(MLP):
@@ -44,13 +68,21 @@ class EdgeMaxMLP(MLP):
     ``sum_e (y_j - y_i)^2 = sum_n s2_n - 2 y_n s1_n + cnt_n y_n^2``.
     """
 
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__([in_channels, out_channels])
+    def __init__(self, in_channels: int, out_channels: int, dtype=None):
+        super().__init__([in_channels, out_channels], dtype)
 
     def forward(self, x, gd, stats_mask=None):
         """``stats_mask``: the ``[B, N, K]`` edges of the statistics
         (None: every slot, as the reference's mask-free BatchNorm)."""
         lin, bn = self[0][0], self[0][1].bn
+        if self.dtype is not None:
+            # bf16 eval: the whole epilogue, self-row subtract included,
+            # in the gather_max_affine kernel.
+            _check_eval(self)
+            affine = _bn_affine(bn)
+            y = linear(lin, x, self.dtype).float()
+            yp = (y * affine[0]).to(self.dtype)
+            return gd.nbr_max_affine(yp, affine, sub_self=True)
         y = lin(x)
         if self.training:
             mean, var = self._edge_moments(y, gd, stats_mask)
@@ -81,17 +113,39 @@ class EdgeMaxMLP(MLP):
         return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
+def _pad128(c: int) -> int:
+    return -(-c // 128) * 128
+
+
 class PointMaxMLP(MLP):
     """Non-centralized scalar max branch
     ``max_k LeakyReLU(BN(Linear(x)))[nbr_k]``: the per-point MLP, then
     the masked neighbour max. ``stats_mask`` (``[B, N]`` points) leaves
-    padded points out of the train-mode BatchNorm statistics."""
+    padded points out of the train-mode BatchNorm statistics.
 
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__([in_channels, out_channels])
+    bf16 eval takes one of the JAX package's two sign-folded branches,
+    by its ``narrower`` rule (a TPU lane rule, kept as it is): when the
+    input is lane-narrower than the output (``pad128(C_in) <
+    pad128(C_out)``) the ``gather_matmul_max`` kernel gathers the input
+    rows and applies the sign-folded weight per neighbour; otherwise the
+    per-point product goes through the ``gather_max_affine`` kernel."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype=None):
+        super().__init__([in_channels, out_channels], dtype)
 
     def forward(self, x, gd, stats_mask=None):
-        return gd.nbr_max(super().forward(x, stats_mask))
+        if self.dtype is None:
+            return gd.nbr_max(super().forward(x, stats_mask))
+        _check_eval(self)
+        lin, bn = self[0][0], self[0][1].bn
+        affine = _bn_affine(bn)
+        sign = affine[0]
+        if _pad128(lin.in_features) < _pad128(lin.out_features):
+            wp = (lin.weight.t() * sign[None, :]).to(self.dtype).contiguous()
+            return gd.nbr_matmul_max(x.to(self.dtype), wp, affine)
+        y = linear(lin, x, self.dtype)
+        yp = (y.float() * sign).to(self.dtype)
+        return gd.nbr_max_affine(yp, affine)
 
 
 class DeltaConv(nn.Module):
@@ -104,17 +158,20 @@ class DeltaConv(nn.Module):
       centralized: centralize scalar features before the max (the first
         conv, on raw positions).
       vector: propagate the vector stream (False on the last layer).
+      dtype: compute dtype (None for f32, or ``torch.bfloat16``, eval
+        only), handed to the three MLPs.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
-                 centralized: bool = False, vector: bool = True):
+                 centralized: bool = False, vector: bool = True,
+                 dtype=None):
         super().__init__()
         self.centralized = centralized
         branch = EdgeMaxMLP if centralized else PointMaxMLP
-        self.s_mlp_max = branch(in_channels, out_channels)
-        self.s_mlp = MLP([4 * in_channels, out_channels])
+        self.s_mlp_max = branch(in_channels, out_channels, dtype)
+        self.s_mlp = MLP([4 * in_channels, out_channels], dtype)
         self.v_mlp = (VectorMLP([2 * (2 * in_channels + out_channels),
-                                 out_channels]) if vector else None)
+                                 out_channels], dtype) if vector else None)
 
     def forward(self, x, v, gd, point_mask=None):
         """``x [B, N, C]``, ``v [B, N, 2, C]``, ``gd`` the dense

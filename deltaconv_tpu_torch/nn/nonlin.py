@@ -10,6 +10,10 @@ which differs from torch's ``BatchNorm1d`` in training:
 - the running statistics move as ``0.9 * running + 0.1 * batch`` with
   the BIASED batch variance (torch would use the unbiased one).
 
+Statistics and normalization run in f32 on bf16 inputs too (the JAX
+package's ``dtype=float32`` BatchNorm under mixed precision); the result
+is f32 and callers cast it back.
+
 Train or eval is the module's ``training`` flag (``model.train()`` /
 ``model.eval()``). Module and buffer names follow the upstream release
 (``.bn.weight``, ``.bn.running_mean``, ...), so its ``state_dict``s load
@@ -81,7 +85,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, mask=None):
         """``mask``: optional validity over ``x.shape[:-1]``; masked rows
-        are left out of the batch statistics (train mode only)."""
+        are left out of the batch statistics (train mode only). Returns
+        f32."""
+        x = x.float()
         if not self.training:
             return (x - self.running_mean) * self.inv() + self.bias
         mean, var = _batch_moments(x, mask)
@@ -111,7 +117,9 @@ class VectorNonLin(nn.Module):
 
     Input ``[..., 2, C]``: the per-channel norms over the component axis
     are batch-normalized, passed through ReLU, and the vectors rescaled
-    by ``relu(bn(norm)) / max(norm, 1e-8)``.
+    by ``relu(bn(norm)) / max(norm, 1e-8)``. The norm and its scale are
+    f32 whatever the input's dtype; the scale is cast to that dtype
+    before the rescale (a bf16 product for bf16 vectors).
     """
 
     def __init__(self, num_features: int):
@@ -121,9 +129,9 @@ class VectorNonLin(nn.Module):
     def forward(self, v, mask=None):
         """``mask``: optional validity over ``v.shape[:-2]``, left out of
         the norms' batch statistics."""
-        n = safe_norm(v, dim=-2)  # [..., C]
+        n = safe_norm(v.float(), dim=-2)  # [..., C]
         scale = torch.relu(self.batchnorm(n, mask)) / torch.clamp(n, min=EPS)
-        return v * scale[..., None, :]
+        return v * scale[..., None, :].to(v.dtype)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # Upstream's VectorNonLin also owns a bias that is dead code

@@ -1,9 +1,9 @@
-"""The hand-written CUDA kernels of the f32 serving path and train step,
-each beside its plain PyTorch version.
+"""The hand-written CUDA kernels of the serving paths (f32 and bf16) and
+the f32 train step, each beside its plain PyTorch version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the five functions the model calls so that
+and :data:`PLAIN_OPS` bundle the eight functions the model calls so that
 a caller can run a forward, or a whole train step, through the kernels
 or through the plain versions on the same device, which is how the
 kernel path is checked on the card. The neighbour max and sum are
@@ -17,36 +17,47 @@ from typing import Callable, NamedTuple
 
 from ._lib import launch_counts, library, reset_launch_counts
 from .densify_op import densify_coefs, densify_coefs_plain
-from .gather_max import (gather_max, gather_max_bwd, gather_max_bwd_plain,
+from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
+                         gather_matmul_max_plain, gather_max,
+                         gather_max_affine, gather_max_affine_plain,
+                         gather_max_bwd, gather_max_bwd_plain,
                          gather_max_plain, gather_max_win,
                          gather_max_win_plain, masked_nbr_max)
 from .gather_rows import gather_rows, gather_rows_plain
 from .gather_sum import (adjacency, adjacency_plain, gather_sum,
                          gather_sum_bwd, gather_sum_bwd_plain, gather_sum_fwd,
                          gather_sum_fwd_plain, gather_sum_plain)
+from .knn_topk import knn_topk, knn_topk_plain
 from .wls_fused import build_grad_div_fused, wls, wls_plain
 
 __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
-           "build_grad_div_fused", "densify_coefs", "densify_coefs_plain",
-           "gather_max", "gather_max_bwd", "gather_max_bwd_plain",
-           "gather_max_plain", "gather_max_win", "gather_max_win_plain",
-           "gather_rows", "gather_rows_plain", "gather_sum",
-           "gather_sum_bwd", "gather_sum_bwd_plain", "gather_sum_fwd",
-           "gather_sum_fwd_plain", "gather_sum_plain", "launch_counts",
-           "library", "masked_nbr_max", "reset_launch_counts", "wls",
-           "wls_plain"]
+           "bn_lrelu_epilogue", "build_grad_div_fused", "densify_coefs",
+           "densify_coefs_plain", "gather_matmul_max",
+           "gather_matmul_max_plain", "gather_max", "gather_max_affine",
+           "gather_max_affine_plain", "gather_max_bwd",
+           "gather_max_bwd_plain", "gather_max_plain", "gather_max_win",
+           "gather_max_win_plain", "gather_rows", "gather_rows_plain",
+           "gather_sum", "gather_sum_bwd", "gather_sum_bwd_plain",
+           "gather_sum_fwd", "gather_sum_fwd_plain", "gather_sum_plain",
+           "knn_topk", "knn_topk_plain", "launch_counts", "library",
+           "masked_nbr_max", "reset_launch_counts", "wls", "wls_plain"]
 
 
 class Ops(NamedTuple):
-    """The five kernel-backed functions the model calls."""
+    """The eight kernel-backed functions the model calls."""
 
     gather_rows: Callable
     wls: Callable
     densify_coefs: Callable
     gather_max: Callable
     gather_sum: Callable
+    knn_topk: Callable
+    gather_max_affine: Callable
+    gather_matmul_max: Callable
 
 
-KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum)
+KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
+                 knn_topk, gather_max_affine, gather_matmul_max)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
-                gather_max_plain, gather_sum_plain)
+                gather_max_plain, gather_sum_plain, knn_topk_plain,
+                gather_max_affine_plain, gather_matmul_max_plain)

@@ -46,6 +46,7 @@ _KERNELS = {
     "gather_rows": ("dc_gather_rows", [_P, _P, _P, _I, _I, _I, _I]),
     "wls": ("dc_wls", [_P, _P, _P, _I, _I, _I, _F, _F]),
     "densify": ("dc_densify", [_P, _P, _P, _P, _P, _I, _I, _I]),
+    "densify_bf16": ("dc_densify_bf16", [_P, _P, _P, _P, _P, _I, _I, _I]),
     "gather_max": ("dc_gather_max", [_P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_max_win": ("dc_gather_max_win",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
@@ -54,12 +55,20 @@ _KERNELS = {
     "adjacency": ("dc_adjacency", [_P, _P, _P, _I, _I, _I]),
     "gather_sum": ("dc_gather_sum", [_P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_sum_bwd": ("dc_gather_sum_bwd", [_P, _P, _P, _P, _I, _I, _I, _I]),
+    "knn_topk": ("dc_knn_topk", [_P, _P, _I, _I, _I, _I]),
+    "gather_max_affine": ("dc_gather_max_affine",
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "gather_matmul_max": ("dc_gather_matmul_max",
+                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
 }
 
 # Why a raw kernel takes no tensor that requires grad: the operator
 # build has no backward kernels yet (they are reached only when positions
-# carry gradients), and the differentiable neighbour max and sum are the
-# autograd Functions around their kernels.
+# carry gradients), the bf16 maxes are eval-only, and the differentiable
+# neighbour max and sum are the autograd Functions around their kernels.
+_BF16_TRAIN = ("the bf16 maxes are eval-only: bf16 training "
+               "(`_mm_train_pallas_fwd`, site #14 of ROADMAP queue 2) is not "
+               "ported yet")
 _NO_GRAD = {
     "gather_rows": "its backward (`_scatter_impl`, site #2 of ROADMAP "
                    "queue 2) is not ported yet",
@@ -67,7 +76,11 @@ _NO_GRAD = {
            "is not ported yet",
     "densify": "its backward (`_densify_bwd`, site #6 of ROADMAP queue 2) "
                "is not ported yet",
+    "knn_topk": "kNN indices carry no gradient",
+    "gather_max_affine": _BF16_TRAIN,
+    "gather_matmul_max": _BF16_TRAIN,
 }
+_NO_GRAD["densify_bf16"] = _NO_GRAD["densify"]
 
 _launches = {name: 0 for name in _KERNELS}
 

@@ -1,5 +1,6 @@
-"""Masked neighbour max with single-winner gradients (CUDA kernels +
-plain versions).
+"""Masked neighbour max with single-winner gradients, and the bf16 eval
+maxes with the BatchNorm + LeakyReLU epilogue (CUDA kernels + plain
+versions).
 
 ``gather_max(h, idx, mask)``: ``[B, N, C], [B, N, K], [B, N, K] ->
 [B, N, C]``, the max over valid slots of the gathered neighbour rows;
@@ -17,6 +18,24 @@ torch's own ``amax`` backward splits ties evenly and would differ on
 every tie. Otherwise the forward runs without winner tracking, as JAX's
 primal path does. :func:`gather_max` runs the kernels,
 :func:`gather_max_plain` the plain versions, with the same routing.
+
+The bf16 eval maxes (``csrc/gather_max_bf16.cu``), counterparts of
+``gather_max_affine`` and ``gather_matmul_max`` of the JAX module, take
+``affine = (sign, inv, mean, bias)``, four ``[C]`` f32 vectors, and end
+in :func:`bn_lrelu_epilogue`:
+
+- :func:`gather_max_affine` ``(h [B, N, C] bf16, idx, mask, affine,
+  sub_self) -> [B, N, C] bf16``: the masked max of the neighbour rows;
+  with ``sub_self`` (the centralized first conv) the self row
+  ``h[idx[..., 0]]`` is subtracted inside the sign fold.
+- :func:`gather_matmul_max` ``(x [B, N, C_in] bf16, w [C_in, C_out]
+  bf16, idx, mask, affine=None) -> [B, N, C_out] bf16``: the masked max
+  of ``x[idx_k] @ w`` (f32 accumulation); without ``affine`` the max
+  rounded to bf16, ``-3e38`` on rows with no valid neighbour.
+
+Both are forward-only (eval). The plain matmul max multiplies per point
+(``x @ w`` in f32, then the gather), which sums the products in another
+order than the kernel: the two agree to one bf16 ulp.
 """
 
 from __future__ import annotations
@@ -27,9 +46,11 @@ import torch
 
 from . import _lib
 
-__all__ = ["NEG", "gather_max", "gather_max_bwd", "gather_max_bwd_plain",
-           "gather_max_plain", "gather_max_win", "gather_max_win_plain",
-           "masked_nbr_max"]
+__all__ = ["NEG", "bn_lrelu_epilogue", "gather_matmul_max",
+           "gather_matmul_max_plain", "gather_max", "gather_max_affine",
+           "gather_max_affine_plain", "gather_max_bwd",
+           "gather_max_bwd_plain", "gather_max_plain", "gather_max_win",
+           "gather_max_win_plain", "masked_nbr_max"]
 
 NEG = -3.0e38  # ~ -inf in f32, safe to negate and compare
 
@@ -178,3 +199,115 @@ def masked_nbr_max(h, nbr_idx, nbr_mask, gather_max_fn=gather_max):
     the plain versions."""
     out = gather_max_fn(h, nbr_idx, nbr_mask)
     return torch.where(nbr_mask.any(dim=-1, keepdim=True), out, 0.0)
+
+
+# -- bf16 eval maxes with the BatchNorm + LeakyReLU epilogue ---------------
+
+
+def bn_lrelu_epilogue(best, affine, valid, self_rows=None):
+    """``_bn_lrelu_epilogue`` of the JAX module, op for op in f32:
+    ``best`` (f32 max) rounded to bf16; with ``self_rows``, rows with no
+    valid neighbour set to 0 and ``sign * (max - self)``, else ``sign *
+    max``; ``(h - mean) * inv + bias``; LeakyReLU 0.2; 0 where not
+    ``valid`` (``[B, N, 1]``). Returns bf16."""
+    sign, inv, mean, bias = affine
+    mxb = best.to(torch.bfloat16).float()
+    if self_rows is not None:
+        mxb = torch.where(valid, mxb, 0.0)
+        h = sign * (mxb - self_rows)
+    else:
+        h = sign * mxb
+    o = (h - mean) * inv + bias
+    o = torch.where(o >= 0, o, 0.2 * o)
+    return torch.where(valid, o, 0.0).to(torch.bfloat16)
+
+
+def _affine_rows(affine, c):
+    """``affine`` as a contiguous ``[4, C]`` f32 tensor."""
+    aff = torch.stack([torch.as_tensor(a).float().reshape(c)
+                       for a in affine])
+    return aff.contiguous()
+
+
+def _valid_rows(mask):
+    return mask.any(dim=-1, keepdim=True)
+
+
+def gather_max_affine_plain(h, idx, mask, affine, sub_self: bool = False):
+    """Plain version: gather, masked ``amax`` in f32, the epilogue."""
+    best = _masked_rows(h.float(), idx, mask).amax(dim=2)
+    self_rows = None
+    if sub_self:
+        self_rows = _masked_rows(h.float(), idx[..., :1],
+                                 torch.ones_like(mask[..., :1]))[:, :, 0]
+    return bn_lrelu_epilogue(best, affine, _valid_rows(mask), self_rows)
+
+
+def gather_max_affine(h, idx, mask, affine, sub_self: bool = False):
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    if h.device.type == "cpu":
+        return gather_max_affine_plain(h, idx, mask, affine, sub_self)
+    b, n, c = h.shape
+    k = idx.shape[-1]
+    aff = _affine_rows(affine, c).to(h.device)
+    device = _lib.check_inputs("gather_max_affine", [
+        ("h", h, torch.bfloat16, (b, n, c)),
+        ("idx", idx, torch.int32, (b, n, k)),
+        ("mask", mask, torch.bool, (b, n, k)),
+        ("affine", aff, torch.float32, (4, c)),
+    ])
+    out = torch.empty_like(h)
+    _lib.launch("gather_max_affine", device, h.data_ptr(), idx.data_ptr(),
+                mask.data_ptr(), aff.data_ptr(), out.data_ptr(), b, n, c, k,
+                int(sub_self))
+    return out
+
+
+def gather_matmul_max_plain(x, w, idx, mask, affine=None):
+    """Plain version: ``x @ w`` per point in f32 (bf16 products are exact
+    in f32), then the masked max of the gathered rows and the epilogue,
+    or the max rounded to bf16."""
+    y = torch.matmul(x.float(), w.float())
+    best = _masked_rows(y, idx, mask).amax(dim=2)
+    if affine is None:
+        return best.to(torch.bfloat16)
+    return bn_lrelu_epilogue(best, affine, _valid_rows(mask))
+
+
+def _pad_last(t, multiple):
+    pad = -t.shape[-1] % multiple
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
+
+
+def gather_matmul_max(x, w, idx, mask, affine=None):
+    """Plain version for CPU tensors; the CUDA kernel (tensor cores) for
+    CUDA tensors. The kernel takes widths that are multiples of 16:
+    other widths are zero-padded here (zero columns add nothing) and the
+    padded outputs dropped."""
+    if x.device.type == "cpu":
+        return gather_matmul_max_plain(x, w, idx, mask, affine)
+    b, n, c_in = x.shape
+    c_out = w.shape[-1]
+    k = idx.shape[-1]
+    device = _lib.check_inputs("gather_matmul_max", [
+        ("x", x, torch.bfloat16, (b, n, c_in)),
+        ("w", w, torch.bfloat16, (c_in, c_out)),
+        ("idx", idx, torch.int32, (b, n, k)),
+        ("mask", mask, torch.bool, (b, n, k)),
+    ])
+    xp = _pad_last(x, 16)
+    wp = _pad_last(_pad_last(w, 16).t(), 16).t().contiguous()
+    aff = None
+    if affine is not None:
+        aff = _pad_last(_affine_rows(affine, c_out).to(device), 16)
+    for name, t, align in (("x", xp, 16), ("w", wp, 32)):
+        if t.data_ptr() % align:
+            raise ValueError(f"gather_matmul_max({name}): the kernel's "
+                             f"loads need {align}-byte aligned data")
+    out = torch.empty((b, n, wp.shape[1]), dtype=torch.bfloat16,
+                      device=device)
+    _lib.launch("gather_matmul_max", device, xp.data_ptr(), wp.data_ptr(),
+                idx.data_ptr(), mask.data_ptr(),
+                0 if aff is None else aff.data_ptr(), out.data_ptr(), b, n,
+                xp.shape[-1], wp.shape[1], k)
+    return out[..., :c_out].contiguous() if wp.shape[1] != c_out else out

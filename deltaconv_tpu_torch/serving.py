@@ -1,75 +1,87 @@
 """Inference engine: pad -> batch -> predict (counterpart of
-``deltaconv_tpu/serving.py``, f32).
+``deltaconv_tpu/serving.py``, precisions None, float32 and bfloat16).
 
 Requests are clouds of any size up to ``num_points``. Each is padded to
 ``num_points`` (zero positions, unit-z normals, a point mask), clouds
 are stacked into batches of ``batch_size`` (a partial batch is filled by
 replicating its first cloud and the filler outputs dropped), and each
-batch runs one forward pass on the model's device. When every cloud has
-exactly ``num_points`` points the mask is dropped (the uniform path).
+batch runs one forward pass on the engine's device. When every cloud
+has exactly ``num_points`` points the mask is dropped (the uniform
+path).
 
-Typical use::
+The JAX package's production serving config, on the card::
 
-    model = DeltaNetClassification(num_classes=40).to("cuda")
+    model = DeltaNetClassification(num_classes=40, knn_method="approx")
     model.load_state_dict(state_dict_from_flax(params, batch_stats))
-    engine = InferenceEngine(model, num_points=1024)
-    logits = engine.predict(clouds, normals)   # [M, 40]
+    engine = InferenceEngine(model, num_points=1024, precision="bfloat16")
+    logits = engine.predict(clouds, normals)   # [M, 40] f32
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .ops import KERNEL_OPS, Ops
+from .utils.device import resolve_device
 
-__all__ = ["InferenceEngine", "check_precision"]
+__all__ = ["InferenceEngine", "apply_precision"]
 
 # Unit-z padding normal keeps build_tangent_basis well-defined on padded
 # rows (they are masked out of every statistic downstream).
 _PAD_NORMAL = np.asarray([0.0, 0.0, 1.0], np.float32)
 
 
-def check_precision(precision: Optional[str]) -> None:
-    """Accepts the f32 serving modes; the reduced-precision ones are
-    still to be ported."""
-    if precision in (None, "float32"):
-        return
-    if precision in ("bfloat16", "int8"):
+def apply_precision(model, precision: Optional[str]):
+    """A copy of ``model`` in a serving precision (the caller's model is
+    never changed, as the JAX engine clones it): ``None`` keeps the
+    dtypes as built, ``"float32"`` strips both, ``"bfloat16"`` sets
+    ``compute_dtype`` and ``operator_dtype`` to bf16."""
+    if precision == "int8":
         raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (ROADMAP: bf16 "
-            "and int8 serving, with gather_max_affine, gather_matmul_max "
-            "and the int8 kernels)")
-    raise ValueError(f"unknown precision {precision!r}; expected None | "
-                     "float32")
+            "precision='int8' is not ported yet (ROADMAP slice F: int8 "
+            "operators and quantized neighbour maxes)")
+    if precision not in (None, "float32", "bfloat16"):
+        raise ValueError(f"unknown precision {precision!r}; expected None | "
+                         "float32 | bfloat16 | int8")
+    model = copy.deepcopy(model)
+    if precision is not None:
+        dtype = "bfloat16" if precision == "bfloat16" else None
+        model.set_precision(compute_dtype=dtype, operator_dtype=dtype)
+    return model
 
 
 class InferenceEngine:
     """Batched fixed-shape serving wrapper around a DeltaNet model.
 
     Args:
-      model: a :class:`~.models.DeltaNetClassification` on its device.
+      model: a :class:`~.models.DeltaNetClassification`; the engine
+        serves a copy of it (:func:`apply_precision`), on ``device``.
       num_points: point count every request is padded to; larger clouds
         are rejected (subsample upstream).
       batch_size: clouds per forward pass.
-      precision: ``None`` (as built) or ``"float32"``.
+      precision: ``None`` (as built), ``"float32"`` or ``"bfloat16"``
+        (``"int8"``: not ported yet).
       ops: the kernels (default) or their plain versions.
+      device: where to serve, the card by default; without a card this
+        raises unless the caller asks for ``"cpu"``.
     """
 
     def __init__(self, model, *, num_points: int, batch_size: int = 32,
-                 precision: Optional[str] = None, ops: Ops = KERNEL_OPS):
-        check_precision(precision)
+                 precision: Optional[str] = None, ops: Ops = KERNEL_OPS,
+                 device="cuda"):
+        self.device = resolve_device(device)
         # Strict f32 matmuls on the card: TF32 would reorder near-tied kNN
         # neighbours and move the logits.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.model = model.eval()
+        self.model = apply_precision(model, precision).to(self.device).eval()
         self.num_points = int(num_points)
         self.batch_size = int(batch_size)
         self.ops = ops
-        self.device = next(model.parameters()).device
 
     def _pad_one(self, pos, normal):
         pos = np.asarray(pos, np.float32)

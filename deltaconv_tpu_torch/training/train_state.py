@@ -18,6 +18,8 @@ from typing import Callable, Union
 import torch
 from torch import nn
 
+from ..utils.device import resolve_device
+
 __all__ = ["TrainState", "cosine_epoch_schedule", "create_train_state",
            "sgd_momentum"]
 
@@ -63,9 +65,11 @@ def sgd_momentum(learning_rate: Union[float, Callable[[int], float]],
     return make
 
 
-def create_train_state(model: nn.Module, tx) -> TrainState:
-    """Wraps ``model`` (already initialized, on its device) and the
-    optimizer that ``tx`` (e.g. :func:`sgd_momentum`) builds over its
-    parameters."""
+def create_train_state(model: nn.Module, tx, device="cuda") -> TrainState:
+    """Moves ``model`` (already initialized) to ``device``, the card by
+    default, and wraps it with the optimizer that ``tx`` (e.g.
+    :func:`sgd_momentum`) builds over its parameters. Without a card the
+    default raises: pass ``device="cpu"`` to train on the CPU."""
+    model.to(resolve_device(device))
     optimizer, scheduler = tx(model.parameters())
     return TrainState(model, optimizer, scheduler)

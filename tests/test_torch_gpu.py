@@ -280,3 +280,138 @@ def test_train_step_kernels_match_plain(cuda, streaming):
     bufs_p = dict(model_p.named_buffers())
     for name, b in model_k.named_buffers():
         _close_to_max(b, bufs_p[name], 1e-4)
+
+
+# -- the bf16 serving slice ---------------------------------------------------
+
+
+def _bf16_ulps(a, b):
+    def ordered(t):
+        u = t.contiguous().view(torch.int16).int() & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.parametrize("n", [77, 1024, 1500])
+@pytest.mark.parametrize("quantized", [True, False])
+def test_knn_topk_kernel_exact(cuda, n, quantized):
+    """Bit-equal indices in the register path (N <= 1024) and the
+    recomputing one (N=1500), self in slot 0, a duplicate point (a tie)
+    included."""
+    rng = np.random.default_rng(10)
+    pos = rng.standard_normal((2, n, 3)).astype(np.float32)
+    pos[0, 5] = pos[0, 2]
+    pos = torch.from_numpy(pos).to(cuda)
+    got = ops.knn_topk(pos, 20, quantized)
+    want = ops.knn_topk_plain(pos, 20, quantized)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[:, :, 0].long(),
+                       torch.arange(n, device=cuda).expand(2, n))
+
+
+@pytest.mark.parametrize("n,masked", [(96, False), (102, True)])
+def test_densify_bf16_kernel_exact(cuda, n, masked):
+    """Bit-equal to f32 scatter_add_ then the bf16 cast, on neighbour
+    lists as the kNN makes them (distinct columns, clamped zero slots)."""
+    rng = np.random.default_rng(11)
+    k = 8
+    idx = np.stack([np.stack([np.concatenate(
+        [[i], rng.permutation(np.delete(np.arange(n), i))[:k - 1]])
+        for i in range(n)]) for _ in range(2)]).astype(np.int32)
+    gc = rng.standard_normal((2, n, k, 2)).astype(np.float32)
+    dc = rng.standard_normal((2, n, k, 2)).astype(np.float32)
+    if masked:
+        idx[:, :, -3:] = np.arange(n)[None, :, None]
+        gc[:, :, -3:] = 0.0
+        dc[:, :, -3:] = 0.0
+    args = [torch.from_numpy(a).to(cuda) for a in (idx, gc, dc)]
+    got = ops.densify_coefs(*args, torch.bfloat16)
+    want = ops.densify_coefs_plain(*args, torch.bfloat16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("c", [3, 64, 300])
+@pytest.mark.parametrize("sub_self", [False, True])
+def test_gather_max_affine_kernel_exact(cuda, c, sub_self):
+    rng = np.random.default_rng(12)
+    n, k = 150, 9
+    h = torch.randn((2, n, c), device=cuda).to(torch.bfloat16)
+    idx, mask = _rand_graph(rng, n, k, cuda)
+    inv = torch.randn(c, device=cuda)
+    aff = (torch.where(inv >= 0, 1.0, -1.0), inv, torch.randn(c, device=cuda),
+           torch.randn(c, device=cuda))
+    got = ops.gather_max_affine(h, idx, mask, aff, sub_self)
+    want = ops.gather_max_affine_plain(h, idx, mask, aff, sub_self)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert not got[0, 4].float().any()  # no valid neighbour: 0
+
+
+@pytest.mark.parametrize("c_in,c_out", [(128, 256), (24, 40)])
+def test_gather_matmul_max_kernel(cuda, c_in, c_out):
+    """Within one bf16 ulp of the plain version (f32 sums in another
+    order); bit-equal on inputs whose sums are exact in any order; the
+    epilogue bit-equal to its replay on the kernel's own max."""
+    rng = np.random.default_rng(13)
+    n, k = 150, 9
+    idx, mask = _rand_graph(rng, n, k, cuda)
+    inv = torch.randn(c_out, device=cuda)
+    aff = (torch.where(inv >= 0, 1.0, -1.0), inv,
+           torch.randn(c_out, device=cuda), torch.randn(c_out, device=cuda))
+    x = torch.randn((2, n, c_in), device=cuda).to(torch.bfloat16)
+    w = (torch.randn((c_in, c_out), device=cuda) / 8).to(torch.bfloat16)
+    raw = ops.gather_matmul_max(x, w, idx, mask)
+    assert int(_bf16_ulps(raw, ops.gather_matmul_max_plain(
+        x, w, idx, mask)).max()) <= 1
+    assert bool((raw[0, 4].float() == torch.tensor(NEG).to(
+        torch.bfloat16).float()).all())
+    fused = ops.gather_matmul_max(x, w, idx, mask, aff)
+    replay = ops.bn_lrelu_epilogue(raw.float(), aff,
+                                   mask.any(dim=-1, keepdim=True))
+    assert torch.equal(_bits(fused), _bits(replay))
+    xe = (torch.randint(-32, 33, (2, n, c_in), device=cuda) / 8.0).to(
+        torch.bfloat16)
+    we = (torch.randint(-16, 17, (c_in, c_out), device=cuda) / 16.0).to(
+        torch.bfloat16)
+    for a in (None, aff):
+        assert torch.equal(
+            _bits(ops.gather_matmul_max(xe, we, idx, mask, a)),
+            _bits(ops.gather_matmul_max_plain(xe, we, idx, mask, a)))
+
+
+def test_bf16_model_kernels_match_plain(cuda):
+    """The narrow model at the production config (approximate kNN, bf16)
+    served through the kernels and through the plain versions on the
+    card, uniform and ragged; every kernel of the path is launched."""
+    rng = np.random.default_rng(14)
+    model = DeltaNetClassification(
+        5, conv_channels=(8, 16, 16, 136), embedding_size=32,
+        num_neighbors=8, knn_method="approx",
+        generator=torch.Generator().manual_seed(0))
+    engine = InferenceEngine(model, num_points=128, batch_size=4,
+                             precision="bfloat16")
+    plain = InferenceEngine(model, num_points=128, batch_size=4,
+                            precision="bfloat16", ops=PLAIN_OPS)
+    pos, nrm = _cloud_batch(rng, 5, 128, "cpu")
+    for sizes in ([128] * 5, [128, 128, 90, 128, 60]):
+        clouds = [p[:s].numpy() for p, s in zip(pos, sizes)]
+        normals = [q[:s].numpy() for q, s in zip(nrm, sizes)]
+        reset_launch_counts()
+        got = engine.predict(clouds, normals)
+        counts = launch_counts()
+        want = plain.predict(clouds, normals)
+        np.testing.assert_allclose(got, want,
+                                   atol=1e-2 * float(np.abs(want).max()))
+    assert all(counts[name] > 0 for name in
+               ("densify_bf16", "gather_max_affine", "gather_matmul_max"))
+    reset_launch_counts()
+    engine.predict([p.numpy() for p in pos], [q.numpy() for q in nrm])
+    assert launch_counts()["knn_topk"] > 0

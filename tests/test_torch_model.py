@@ -108,7 +108,7 @@ def test_inference_engine_matches_jax_engine(pair):
     model, variables, port = pair
     rng = np.random.default_rng(2)
     jax_engine = JaxEngine(model, variables, num_points=N, batch_size=B)
-    engine = InferenceEngine(port, num_points=N, batch_size=B)
+    engine = InferenceEngine(port, num_points=N, batch_size=B, device="cpu")
     for sizes in ([N] * 3, [N, 100, 77]):
         clouds, normals = _clouds(rng, sizes)
         want = jax_engine.predict(clouds, normals)

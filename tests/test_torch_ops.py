@@ -313,3 +313,187 @@ def test_gather_sum_and_vjp_match_jax(streaming, monkeypatch):
         out = ops.gather_sum(_t(h).requires_grad_(), _t(idx), _t(mask))
     assert out.grad_fn is None
     np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+
+
+# -- the bf16 serving slice: knn_topk, densify bf16, the bf16 maxes --------
+
+
+def _bf16(a):
+    """numpy f32 -> (the same values rounded to bf16 as f32 numpy, jnp
+    bf16, torch bf16)."""
+    j = jnp.asarray(a).astype(jnp.bfloat16)
+    f = np.asarray(j, np.float32)
+    return f, j, torch.from_numpy(f).to(torch.bfloat16)
+
+
+def _bf16_ulps(a, b):
+    """Per-element distance in bf16 ulps of two bf16-valued arrays."""
+    def ordered(x):
+        u = torch.from_numpy(np.asarray(x, np.float32)).to(
+            torch.bfloat16).view(torch.int16).int() & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_knn_topk_plain_matches_pallas_interpret(quantized):
+    """Same indices in the same order as the Pallas kernel (interpret),
+    self in slot 0; the scores are elementwise f32 in the kernel's order
+    on both sides, so every row agrees."""
+    from deltaconv_tpu.ops.knn_topk import knn_topk as jax_knn_topk
+
+    rng = np.random.default_rng(11)
+    b, n, k = 2, 256, 12
+    pos = rng.standard_normal((b, n, 3)).astype(np.float32)
+    pos[0, 7] = pos[0, 3]  # a duplicate point: an exact tie
+    want = np.asarray(jax_knn_topk(jnp.asarray(pos), k, interpret=True,
+                                   quantized=quantized))
+    got = ops.knn_topk(_t(pos), k, quantized=quantized)
+    assert got.dtype == torch.int32 and got.shape == (b, n, k)
+    np.testing.assert_array_equal(got.numpy()[:, :, 0],
+                                  np.broadcast_to(np.arange(n), (b, n)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # The same neighbour sets as the exact kNN (the packed keys reorder
+    # only near-ties, and these clouds have none at 16 bits).
+    idx_e, _ = G.knn(_t(pos), k)
+    for bi in range(b):
+        for i in range(n):
+            assert set(got[bi, i].tolist()) == set(idx_e[bi, i].tolist())
+
+
+def _distinct_graph(rng, b, n, k, clamped):
+    """Neighbour lists as the kNN makes them: self in slot 0, distinct
+    columns, and ``clamped`` trailing slots clamped to self with zero
+    coefficients (a masked cloud)."""
+    idx = np.stack([np.stack([np.concatenate(
+        [[i], rng.permutation(np.delete(np.arange(n), i))[:k - 1]])
+        for i in range(n)]) for _ in range(b)]).astype(np.int32)
+    gc = rng.standard_normal((b, n, k, 2)).astype(np.float32)
+    dc = rng.standard_normal((b, n, k, 2)).astype(np.float32)
+    gc[0, 0, 1, 0] = -0.0  # a negative zero lands alone in its column
+    if clamped:
+        idx[:, :, -clamped:] = np.arange(n)[None, :, None]
+        gc[:, :, -clamped:] = 0.0
+        dc[:, :, -clamped:] = 0.0
+    return idx, gc, dc
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_densify_bf16_plain_matches_pallas_interpret(masked):
+    """Bit-equal to the Pallas bf16 body (interpret), which rounds every
+    coefficient and ORs it into place: the f32 sum rounded once is the
+    same value when every real slot has its own column."""
+    rng = np.random.default_rng(12)
+    b, n, k = 2, 96, 8
+    idx, gc, dc = _distinct_graph(rng, b, n, k, 3 if masked else 0)
+    wg_j, wd_j = jax_densify(jnp.asarray(idx), jnp.asarray(gc),
+                             jnp.asarray(dc), "bfloat16", 128, True)
+    wg, wd = ops.densify_coefs(_t(idx), _t(gc), _t(dc), torch.bfloat16)
+    assert wg.dtype == torch.bfloat16 and wg.shape == (b, 2, n, n)
+    for got, want in ((wg, wg_j), (wd, wd_j)):
+        got_bits = got.view(torch.int16).numpy()
+        want_bits = np.asarray(want).view(np.int16)
+        np.testing.assert_array_equal(got_bits, want_bits)
+    assert not (wg.view(torch.int16) == -32768).any()  # no -0.0 stored
+
+
+def _affine(rng, c):
+    """A BatchNorm eval affine with slopes of both signs."""
+    inv = rng.standard_normal(c).astype(np.float32)
+    return [np.where(inv >= 0, 1.0, -1.0).astype(np.float32), inv,
+            rng.standard_normal(c).astype(np.float32),
+            rng.standard_normal(c).astype(np.float32)]
+
+
+def _self_first_graph(rng, b, n, k):
+    idx = rng.integers(0, n, (b, n, k)).astype(np.int32)
+    idx[:, :, 0] = np.arange(n)
+    mask = rng.random((b, n, k)) > 0.2
+    mask[:, :, 0] = True
+    mask[0, 3] = False  # a row with no valid neighbour
+    return idx, mask
+
+
+# XLA's CPU compiler contracts ``(h - mean) * inv + bias`` into one FMA
+# (jit(a * b + c) on the CPU equals the fused result for every input we
+# drew); the port rounds the product on its own, as its CUDA kernel does,
+# so an f32 result that sits on a bf16 rounding boundary can land one
+# bf16 ulp away. Measured: 0 of 4800 and 1 of 10240 elements.
+_EPILOGUE_ULPS = 1
+_EPILOGUE_SHARE = 1e-3
+
+
+def _assert_epilogue_close(got, want):
+    ulps = _bf16_ulps(got.float().numpy(), want)
+    assert int(ulps.max()) <= _EPILOGUE_ULPS
+    assert float((ulps > 0).float().mean()) <= _EPILOGUE_SHARE
+
+
+@pytest.mark.parametrize("sub_self", [False, True])
+def test_gather_max_affine_plain_matches_pallas_interpret(sub_self):
+    """Both replay the epilogue op for op in f32 on the bf16-rounded max;
+    within one bf16 ulp (FMA contraction on the JAX side, above). N=100
+    is not a multiple of the Pallas tile, so its self row comes through
+    the slot-0 gather, as the port's."""
+    from deltaconv_tpu.ops.gather_max import gather_max_affine as jax_fn
+
+    rng = np.random.default_rng(13)
+    b, n, k, c = 2, 100, 7, 24
+    _, h_j, h = _bf16(rng.standard_normal((b, n, c)).astype(np.float32))
+    idx, mask = _self_first_graph(rng, b, n, k)
+    aff = _affine(rng, c)
+    want = jax_fn(h_j, jnp.asarray(idx), jnp.asarray(mask),
+                  tuple(map(jnp.asarray, aff)), sub_self=sub_self,
+                  interpret=True)
+    got = ops.gather_max_affine(h, _t(idx), _t(mask),
+                                tuple(map(_t, aff)), sub_self)
+    assert got.dtype == torch.bfloat16
+    _assert_epilogue_close(got, np.asarray(want, np.float32))
+    assert not got[0, 3].float().any()
+    assert (np.asarray(aff[0]) < 0).any()  # negative slopes were folded
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_gather_matmul_max_plain_matches_pallas_interpret(affine):
+    """Random bf16 inputs: within one bf16 ulp (the f32 sums run in
+    another order). Inputs with few significant bits, whose products and
+    sums are exact in f32 in any order: bit-equal without the epilogue,
+    within one bf16 ulp with it (FMA contraction on the JAX side)."""
+    from deltaconv_tpu.ops.gather_max import gather_matmul_max as jax_fn
+
+    rng = np.random.default_rng(14)
+    b, n, k, ci, co = 2, 128, 7, 32, 40
+    idx, mask = _self_first_graph(rng, b, n, k)
+    aff = _affine(rng, co)
+    draws = {
+        "random": (rng.standard_normal((b, n, ci)),
+                   rng.standard_normal((ci, co)) / 4),
+        "exact": (rng.integers(-32, 33, (b, n, ci)) / 8.0,
+                  rng.integers(-16, 17, (ci, co)) / 16.0),
+    }
+    for label, (x, w) in draws.items():
+        _, x_j, x_t = _bf16(x.astype(np.float32))
+        _, w_j, w_t = _bf16(w.astype(np.float32))
+        want = np.asarray(jax_fn(
+            x_j, w_j, jnp.asarray(idx), jnp.asarray(mask), interpret=True,
+            self_slot0=True,
+            affine=tuple(map(jnp.asarray, aff)) if affine else None),
+            np.float32)
+        got = ops.gather_matmul_max(x_t, w_t, _t(idx), _t(mask),
+                                    tuple(map(_t, aff)) if affine else None)
+        assert got.dtype == torch.bfloat16 and got.shape == (b, n, co)
+        if label == "exact" and affine:
+            _assert_epilogue_close(got, want)
+        elif label == "exact":
+            np.testing.assert_array_equal(got.float().numpy(), want)
+        elif not affine:
+            assert int(_bf16_ulps(got.float().numpy(), want).max()) <= 1
+        else:  # one ulp of the max, through the affine
+            slope = np.abs(aff[1]).max()
+            tol = 2.0 ** -7 * slope * np.abs(want).max() + 2.0 ** -7
+            np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                       atol=tol)
+    if not affine:  # rows with no valid neighbour: -3e38 rounded to bf16
+        assert bool((got[0, 3].float() == torch.tensor(NEG).to(
+            torch.bfloat16).float()).all())

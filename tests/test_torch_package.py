@@ -78,14 +78,36 @@ def test_cpu_tensors_take_the_plain_versions():
     hg = h.clone().requires_grad_()
     ops.gather_max(hg, idx, mask).sum().backward()
     ops.gather_sum(hg, idx, mask).sum().backward()
+    pos = torch.from_numpy(rng.standard_normal((2, 32, 3)).astype(np.float32))
+    torch.testing.assert_close(ops.knn_topk(pos, 6, True),
+                               ops.knn_topk_plain(pos, 6, True),
+                               rtol=0, atol=0)
+    hb = h.to(torch.bfloat16)
+    aff = tuple(torch.randn(5) for _ in range(4))
+    torch.testing.assert_close(ops.gather_max_affine(hb, idx, mask, aff),
+                               ops.gather_max_affine_plain(hb, idx, mask,
+                                                           aff),
+                               rtol=0, atol=0)
+    w = torch.randn((5, 7)).to(torch.bfloat16)
+    torch.testing.assert_close(ops.gather_matmul_max(hb, w, idx, mask),
+                               ops.gather_matmul_max_plain(hb, w, idx, mask),
+                               rtol=0, atol=0)
+    coef = torch.randn((2, 32, 6, 2))
+    for got, want in zip(
+            ops.densify_coefs(idx, coef, coef, torch.bfloat16),
+            ops.densify_coefs_plain(idx, coef, coef, torch.bfloat16)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert launch_counts() == {
-        "gather_rows": 0, "wls": 0, "densify": 0, "gather_max": 0,
-        "gather_max_win": 0, "gather_max_bwd": 0, "adjacency": 0,
-        "gather_sum": 0, "gather_sum_bwd": 0}
+        "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
+        "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
+        "adjacency": 0, "gather_sum": 0, "gather_sum_bwd": 0,
+        "knn_topk": 0, "gather_max_affine": 0, "gather_matmul_max": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
     assert PLAIN_OPS.gather_sum is ops.gather_sum_plain
+    assert KERNEL_OPS.knn_topk is ops.knn_topk
+    assert PLAIN_OPS.gather_matmul_max is ops.gather_matmul_max_plain
 
 
 def test_kernels_refuse_other_devices():
@@ -118,25 +140,88 @@ def test_kernels_refuse_other_devices():
         ops.gather_sum(hm, im, mm)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.gather_sum_bwd(im, mm, hm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.knn_topk(torch.zeros(2, 32, 3, device=meta), 6, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.densify_coefs(im, torch.zeros(2, 32, 6, 2, device=meta),
+                          torch.zeros(2, 32, 6, 2, device=meta),
+                          torch.bfloat16)
+    hb = hm.to(torch.bfloat16)
+    aff = tuple(torch.zeros(5, device=meta) for _ in range(4))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_max_affine(hb, im, mm, aff, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_matmul_max(hb, torch.zeros(5, 7, dtype=torch.bfloat16,
+                                              device=meta), im, mm)
     assert sum(launch_counts().values()) == 0
 
 
 def test_precision_modes():
+    """None keeps the dtypes as built, float32 strips them, bfloat16 sets
+    both; int8 is still to port; the engine serves a copy and leaves the
+    caller's model as it was."""
     model = DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
                                    num_neighbors=4)
-    for precision in (None, "float32"):
-        InferenceEngine(model, num_points=16, precision=precision)
-    for precision in ("bfloat16", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(model, num_points=16, precision=precision)
+    model.train()
+    expect = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+    for precision, dtype in expect.items():
+        engine = InferenceEngine(model, num_points=16, precision=precision,
+                                 device="cpu")
+        assert engine.model is not model and not engine.model.training
+        assert engine.model.compute_dtype is dtype
+        assert engine.model.operator_dtype is dtype
+        assert engine.model.lin_embedding.dtype is dtype
+    assert model.compute_dtype is None and model.training
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InferenceEngine(model, num_points=16, precision="int8", device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
-        InferenceEngine(model, num_points=16, precision="fp8")
+        InferenceEngine(model, num_points=16, precision="fp8", device="cpu")
+
+    bf16 = DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
+                                  num_neighbors=4, compute_dtype="bfloat16",
+                                  operator_dtype="bfloat16")
+    kept = InferenceEngine(bf16, num_points=16, device="cpu")
+    assert kept.model.compute_dtype is torch.bfloat16
+    stripped = InferenceEngine(bf16, num_points=16, precision="float32",
+                               device="cpu")
+    assert stripped.model.compute_dtype is None
+    assert stripped.model.operator_dtype is None
+    assert all(m.dtype is None for m in stripped.model.modules()
+               if hasattr(m, "dtype"))
+    assert bf16.compute_dtype is torch.bfloat16  # unchanged
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a card the default device raises: nothing serves or
+    trains on the CPU unless the caller asks for it."""
+    from deltaconv_tpu_torch.training import create_train_state, sgd_momentum
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
+                                   num_neighbors=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(model, num_points=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(model, sgd_momentum(0.1))
+    state = create_train_state(model, sgd_momentum(0.1), device="cpu")
+    assert next(state.model.parameters()).device.type == "cpu"
+
+
+def test_bf16_training_not_ported():
+    model = DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
+                                   num_neighbors=4, compute_dtype="bfloat16")
+    pos = torch.randn((2, 16, 3))
+    normal = torch.nn.functional.normalize(torch.randn((2, 16, 3)), dim=-1)
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        model(pos, normal)  # a new module is in training mode
+    model.eval()
+    assert model(pos, normal).dtype == torch.float32
 
 
 def test_engine_rejects_oversized_and_mismatched_clouds():
     model = DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
                                    num_neighbors=4)
-    engine = InferenceEngine(model, num_points=16, batch_size=2)
+    engine = InferenceEngine(model, num_points=16, batch_size=2, device="cpu")
     cloud = np.zeros((17, 3), np.float32)
     with pytest.raises(ValueError, match="num_points"):
         engine.predict([cloud], [cloud])

@@ -266,7 +266,7 @@ def test_three_train_steps_match_jax(masked):
 
     port = DeltaNetClassification(4, dropout=0.0, **WIDTH)
     port.load_state_dict(state_dict_from_flax(params, stats), strict=True)
-    tstate = create_train_state(port, sgd_momentum(LR))
+    tstate = create_train_state(port, sgd_momentum(LR), device="cpu")
     tstep = make_train_step(port, smoothing=0.2)
     gen = torch.Generator().manual_seed(0)
 
@@ -316,7 +316,7 @@ def test_point_mask_invariance_in_training():
         model = DeltaNetClassification(
             4, dropout=0.0, generator=torch.Generator().manual_seed(0),
             **WIDTH)
-        state = create_train_state(model, sgd_momentum(LR))
+        state = create_train_state(model, sgd_momentum(LR), device="cpu")
         m = make_train_step(model)(state, batch, None)
         return float(m["loss"]), model.state_dict()
 
