@@ -8,11 +8,13 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the thirteen CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the sixteen CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
-   the shapes of the serving paths and the train step (B=32, N=1024,
+   the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
-   at C = 64 and 128 and 128 -> 256; knn_topk also at N=4096), uniform
+   at C = 64 and 128 and 128 -> 256, the bf16 train maxes at C = 64 and
+   128, their backward also at 256, the train matmul max at 128 -> 256;
+   knn_topk also at N=4096), uniform
    and masked, and times the kernel, the plain version and, where
    PyTorch's library calls compute the same function, those calls with
    their set-up (CUDA events around 5 back-to-back calls, median of 30
@@ -36,8 +38,10 @@ first on ``sys.path``. It
    the reference's top-2 margin exceeds twice the deviation, and a full
    cloud served ragged (exact kNN route) or uniform (knn_topk) within
    that bound; it prints clouds/s and a profile of one call, and times
-   the last conv's max in both forms (``gather_matmul_max``, and
-   ``x @ w`` followed by ``gather_max_affine`` at C=256);
+   the last conv's max in both forms, for eval (``gather_matmul_max``,
+   and ``x @ w`` followed by ``gather_max_affine`` at C=256) and for
+   training (``gather_matmul_max_win``, and ``x @ w`` rounded to bf16
+   followed by ``gather_max_win_bf16`` at C=256);
 6. trains the f32 model at the reference recipe (B=32 clouds of
    N=1024, SGD lr 0.1, momentum 0.9, weight decay 1e-4, label smoothing
    0.2, dropout 0.5 from a seeded CUDA generator) for 20 steps on one
@@ -52,7 +56,20 @@ first on ``sys.path``. It
    the plain side it holds the loss and the statistics (winner flips at
    near-ties move single gradients); then the first comparison again
    with the gather-sum cutoff at 0, the route of clouds whose adjacency
-   exceeds its budget, counting the streaming kernels' launches.
+   exceeds its budget, counting the streaming kernels' launches;
+8. trains the same model at the JAX package's production config
+   (``compute_dtype`` and ``operator_dtype`` bf16, ``knn_method=
+   "approx"``) at the reference recipe for 20 steps, counting launches:
+   the losses must be finite and fall; it prints the median step time,
+   training clouds/s and a profile of one step; then one step from the
+   same weights through the kernels and through the plain versions
+   (same build, dropout 0), uniform and ragged: loss rtol 1e-3, running
+   statistics 1e-3 x max, the updated parameters within a relative
+   Frobenius deviation of 2e-2 over all tensors, and the kernels' bf16
+   gradients no farther (x 1.25) from the f32 step's than the plain
+   versions' (winner flips at bf16 near-ties move single entries; the
+   gradients' deviations, all tensors, worst tensor and worst element,
+   are printed beside the spread of two kernel steps).
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -82,6 +99,8 @@ NUM_CLASSES = 40
 WIDTHS = (64, 128, 256)
 BF16_WIDTHS = (64, 128)  # gather_max_affine: conv0/conv1, conv2
 MM_IN, MM_OUT = 128, 256  # gather_matmul_max: conv3
+TRAIN_BF16_WIDTHS = (64, 128)  # gather_max_win_bf16: conv0/conv1, conv2
+BWD_BF16_WIDTHS = (64, 128, 256)  # gather_max_bwd_bf16, conv3 included
 KNN_BIG_N = 4096  # knn_topk beyond the register path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, an FMA as 2
@@ -110,6 +129,11 @@ TRAIN_STEPS = 20
 LOSS_RTOL = 1e-5
 PARAM_RTOL = 1e-3  # x the tensor's max: gradients and updated parameters
 STATS_RTOL = 1e-4  # x max: running statistics
+BF16_LOSS_RTOL = 1e-3  # bf16 step, kernels vs plain
+BF16_STATS_RTOL = 1e-3  # x max
+BF16_PARAM_FROB = 2e-2  # relative Frobenius, all parameters at once
+BF16_F32_RATIO = 1.25  # gradients' distance to the f32 step, kernels/plain
+MM_WIN_FRAC = 1e-4  # gather_matmul_max_win: share of 1-ulp values, flips
 
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
@@ -138,7 +162,18 @@ KERNEL_META = {
                           "deltaconv_tpu/ops/gather_max.py:666"),
     "gather_matmul_max": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
                           "deltaconv_tpu/ops/gather_max.py:756"),
+    "gather_max_win_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                            "deltaconv_tpu/ops/gather_max.py:230"),
+    "gather_max_bwd_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                            "deltaconv_tpu/ops/gather_max.py:362"),
+    "gather_matmul_max_win": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
+                              "deltaconv_tpu/ops/gather_max.py:865"),
 }
+# The port's autograd Functions, whose forward or backward launches a
+# kernel outside any aten op (the profiler books it to them).
+AUTOGRAD_FUNCTIONS = ("_GatherMax", "_GatherMatmulMax", "_GatherSum",
+                      "_GatherMaxBackward", "_GatherMatmulMaxBackward",
+                      "_GatherSumBackward")
 # The path whose launch counts each kernel's record reports.
 SERVE_KERNELS = ("gather_rows", "wls", "densify", "gather_max")
 BF16_KERNELS = ("knn_topk", "densify_bf16", "gather_max_affine",
@@ -146,11 +181,15 @@ BF16_KERNELS = ("knn_topk", "densify_bf16", "gather_max_affine",
 TRAIN_KERNELS = ("gather_rows", "wls", "densify", "gather_max_win",
                  "gather_max_bwd", "adjacency")
 STREAM_KERNELS = ("gather_sum", "gather_sum_bwd")
+TRAIN_BF16_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
+                      "adjacency", "gather_max_win_bf16",
+                      "gather_max_bwd_bf16", "gather_matmul_max_win")
 # Width of the record's time: the widest conv for the max, the first
 # conv's [y, y^2] (2 x 64) for the sum, as the train step calls them.
 RECORD_WIDTH = {"gather_max": 256, "gather_max_win": 256,
                 "gather_max_bwd": 256, "gather_sum": 128,
-                "gather_sum_bwd": 128}
+                "gather_sum_bwd": 128, "gather_max_win_bf16": 128,
+                "gather_max_bwd_bf16": 256}
 
 
 def nbytes(*tensors) -> int:
@@ -334,6 +373,59 @@ def check_bf16_kernels(record, label, pos, idx, nbr_mask, gd, dev):
     torch.cuda.synchronize()
 
 
+def check_bf16_train_kernels(record, idx, nbr_mask, dev):
+    """The three kernels of the bf16 train step against their plain
+    versions at its shapes: gather_max_win_bf16 (values and winners
+    bit-equal), gather_max_bwd_bf16 (atomics: SCATTER_RTOL x max) and
+    gather_matmul_max_win (values within one bf16 ulp on at most
+    MM_WIN_FRAC of the elements, winners equal on all but MM_WIN_FRAC,
+    and where a winner differs the plain products at the two slots are
+    within one ulp: the f32 sums run in another order)."""
+    from deltaconv_tpu_torch import ops
+
+    for c in TRAIN_BF16_WIDTHS:
+        h = torch.randn((B, N, c), device=dev).to(torch.bfloat16)
+        out, win = ops.gather_max_win(h, idx, nbr_mask)
+        out_p, win_p = ops.gather_max_win_plain(h, idx, nbr_mask)
+        err = max_err(out.float(), out_p.float())
+        record("gather_max_win_bf16", err)
+        check(f"gather_max_win_bf16 C={c}",
+              bits_equal(out, out_p) and torch.equal(win, win_p),
+              f"out max_abs_err {err}, winners differ at "
+              f"{int((win != win_p).sum())}")
+    for c in BWD_BF16_WIDTHS:
+        h = torch.randn((B, N, c), device=dev).to(torch.bfloat16)
+        g = torch.randn((B, N, c), device=dev).to(torch.bfloat16)
+        _, win = ops.gather_max_win_plain(h, idx, nbr_mask)
+        dh = ops.gather_max_bwd(idx, win, g, N)
+        dh_p = ops.gather_max_bwd_plain(idx, win, g, N)
+        err, tol = max_err(dh, dh_p), SCATTER_RTOL * float(dh_p.abs().max())
+        record("gather_max_bwd_bf16", err)
+        check(f"gather_max_bwd_bf16 C={c}", err <= tol,
+              f"max_abs_err {err} <= {tol}")
+
+    x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    out, win = ops.gather_matmul_max_win(x, w, idx, nbr_mask)
+    out_p, win_p = ops.gather_matmul_max_win_plain(x, w, idx, nbr_mask)
+    ulps = bf16_ulps(out, out_p)
+    err = max_err(out.float(), out_p.float())
+    record("gather_matmul_max_win", err)
+    y = torch.matmul(x.float(), w.float()).to(torch.bfloat16)
+    at = torch.gather(y, 1, torch.gather(idx.long(), 2, win.long()))
+    at_p = torch.gather(y, 1, torch.gather(idx.long(), 2, win_p.long()))
+    flips = float((win != win_p).float().mean())
+    near = int(bf16_ulps(at, at_p).max())
+    share = float((ulps > 0).float().mean())
+    check(f"gather_matmul_max_win {MM_IN}->{MM_OUT}",
+          int(ulps.max()) <= 1 and share <= MM_WIN_FRAC
+          and flips <= MM_WIN_FRAC and near <= 1,
+          f"values: max {int(ulps.max())} bf16 ulp on {share} of elements; "
+          f"winners differ on {flips} of elements, the plain products at "
+          f"the two slots within {near} ulp; max_abs_err {err}")
+    torch.cuda.synchronize()
+
+
 def kernel_phase(rng, dev, card):
     """Each kernel against its plain version at the main paths' shapes;
     times, bounds and library-call times at the uniform shapes."""
@@ -434,6 +526,7 @@ def kernel_phase(rng, dev, card):
             check(f"gather_sum_bwd C={c}", err <= tol,
                   f"max_abs_err {err} <= {tol}")
         check_bf16_kernels(record, label, pos, idx, nbr_mask, gd_p, dev)
+        check_bf16_train_kernels(record, idx, nbr_mask, dev)
         torch.cuda.synchronize()
 
     # Times, bounds and library calls at the uniform shapes.
@@ -470,6 +563,9 @@ def kernel_phase(rng, dev, card):
             lambda: ops.gather_matmul_max(x, w, idx, nbr_mask, aff256),
             lambda: ops.gather_matmul_max_plain(x, w, idx, nbr_mask,
                                                 aff256)),
+        "gather_matmul_max_win": (
+            lambda: ops.gather_matmul_max_win(x, w, idx, nbr_mask),
+            lambda: ops.gather_matmul_max_win_plain(x, w, idx, nbr_mask)),
     }
     print(f"[times] per call, median of {REPS} CUDA-event samples of "
           f"{INNER} back-to-back calls, B={B} N={N} K={K}, card: {card}")
@@ -500,6 +596,10 @@ def kernel_phase(rng, dev, card):
         nbytes(x, w, idx, nbr_mask, torch.stack(aff256),
                torch.empty((B, N, MM_OUT), dtype=torch.bfloat16,
                            device=dev)),
+        2.0 * B * N * MM_IN * MM_OUT, BF16_TC_OPS_PER_S)
+    res["gather_matmul_max_win"]["bound"] = bound(
+        nbytes(x, w, idx, nbr_mask,
+               *ops.gather_matmul_max_win(x, w, idx, nbr_mask)),
         2.0 * B * N * MM_IN * MM_OUT, BF16_TC_OPS_PER_S)
 
     # PyTorch library calls that compute the same function, where there
@@ -574,19 +674,40 @@ def kernel_phase(rng, dev, card):
                     "gather_sum_bwd": (idx, nbr_mask, g, h),
                 }[name]  # inputs, then an output-sized tensor
                 res[name]["bound"] = bound(nbytes(*outs))
+    # The bf16 bodies of the train step's neighbour max and its backward.
+    for c in BWD_BF16_WIDTHS:
+        h = torch.randn((B, N, c), device=dev).to(torch.bfloat16)
+        g = torch.randn((B, N, c), device=dev).to(torch.bfloat16)
+        out, win = ops.gather_max_win_plain(h, idx, nbr_mask)
+        per_width = {"gather_max_bwd_bf16": (
+            lambda: ops.gather_max_bwd(idx, win, g, N),
+            lambda: ops.gather_max_bwd_plain(idx, win, g, N),
+            (idx, win, g, torch.empty((B, N, c), device=dev)))}
+        if c in TRAIN_BF16_WIDTHS:
+            per_width["gather_max_win_bf16"] = (
+                lambda: ops.gather_max_win(h, idx, nbr_mask),
+                lambda: ops.gather_max_win_plain(h, idx, nbr_mask),
+                (h, idx, nbr_mask, out, win))
+        for name, (fk, fp, io) in per_width.items():
+            km, pl = median_ms(fk), median_ms(fp)
+            print(f"  {name} C={c}: kernel {km:.4f} ms, plain {pl:.4f} ms")
+            if c == RECORD_WIDTH[name]:
+                res[name]["ms"], res[name]["plain_ms"] = km, pl
+                res[name]["bound"] = bound(nbytes(*io))
     print(f"  (the JSON record gives each at its width: {RECORD_WIDTH}, "
-          f"gather_max_affine at C=128, gather_matmul_max at "
-          f"{MM_IN}->{MM_OUT})")
+          f"gather_max_affine at C=128, gather_matmul_max and "
+          f"gather_matmul_max_win at {MM_IN}->{MM_OUT})")
     for name, r in res.items():
         print(f"  {name}: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
               f"kernel at {r['bound'][0] / r['ms']:.3f} of it")
     return res
 
 
-def random_model(seed, dev, dropout=0.5, affine=True, knn_method="exact"):
+def random_model(seed, dev, dropout=0.5, affine=True, knn_method="exact",
+                 precision=None):
     """The reference-width classifier with seeded weights and randomized
     BatchNorm statistics and, when ``affine``, scales (both signs) and
-    biases."""
+    biases; ``precision`` ("bfloat16") sets both dtypes."""
     from deltaconv_tpu_torch import DeltaNetClassification
     from deltaconv_tpu_torch.nn import BatchNorm
 
@@ -601,6 +722,7 @@ def random_model(seed, dev, dropout=0.5, affine=True, knn_method="exact"):
                 if affine:
                     m.weight.uniform_(-1.5, 1.5, generator=gen)
                     m.bias.normal_(0.0, 0.2, generator=gen)
+    model.set_precision(precision, precision)
     return model.to(dev)
 
 
@@ -753,6 +875,12 @@ def conv3_forms(dev, card):
     print(f"[conv3] {MM_IN}->{MM_OUT}, B={B} N={N} K={K}: gather_matmul_max "
           f"{one:.4f} ms; x @ w then gather_max_affine {two:.4f} ms; card: "
           f"{card}")
+    one = median_ms(lambda: ops.gather_matmul_max_win(x, w, idx, nbr_mask))
+    two = median_ms(lambda: ops.gather_max_win(
+        torch.matmul(x, w), idx, nbr_mask))
+    print(f"[conv3] training forward, {MM_IN}->{MM_OUT}: "
+          f"gather_matmul_max_win {one:.4f} ms; x @ w (bf16) then "
+          f"gather_max_win_bf16 {two:.4f} ms; card: {card}")
 
 
 def train_batch(rng, dev, sizes):
@@ -777,12 +905,13 @@ def train_batch(rng, dev, sizes):
     return batch
 
 
-def train_once(batch, seed, dev, ops):
-    """One step of a fresh model (dropout 0) through ``ops``."""
+def train_once(batch, seed, dev, ops, **config):
+    """One step of a fresh model (dropout 0) through ``ops``; ``config``
+    (``knn_method``, ``precision``) as :func:`random_model`'s."""
     from deltaconv_tpu_torch.training import (create_train_state,
                                               make_train_step, sgd_momentum)
 
-    model = random_model(seed, dev, dropout=0.0, affine=False)
+    model = random_model(seed, dev, dropout=0.0, affine=False, **config)
     state = create_train_state(model, sgd_momentum(TRAIN_LR))
     metrics = make_train_step(model, ops=ops)(state, batch, None)
     return float(metrics["loss"]), model
@@ -865,7 +994,9 @@ def profile(tag, what, fn, ref_ms):
     ours = [r for r in kernels
             if re.match(r"(void )?\(anonymous namespace\)::\w+_kernel\b",
                         r[2])]
-    ops_ += ours
+    # Inside the port's autograd Functions they are that Function's self
+    # time too: list them once, as kernels.
+    ops_ = [r for r in ops_ if r[2] not in AUTOGRAD_FUNCTIONS] + ours
     print(f"[{tag}] profile of {what}: {total / 1e3:.3f} ms of device "
           f"time, {total / 1e3 / ref_ms:.3f} of the {ref_ms:.3f} ms "
           f"unprofiled median ({wall * 1e3:.3f} ms profiled); the port's "
@@ -877,6 +1008,156 @@ def profile(tag, what, fn, ref_ms):
         for us, count, key in sorted(rows, reverse=True)[:12]:
             print(f"  {us / 1e3:9.3f} ms {100 * us / max(total, 1e-9):5.1f}%"
                   f" x{count:<4d} {key[:100]}")
+
+
+def _deviations(ma, mb):
+    """Per tensor and over all tensors at once, the relative Frobenius
+    deviation of ``ma``'s gradients and parameters from ``mb``'s, and
+    the worst element against its tensor's max."""
+    params_b = dict(mb.named_parameters())
+    out = {}
+    for kind in ("grad", "param"):
+        per, num, den, elem = [], 0.0, 0.0, (0.0, "")
+        for name, p in ma.named_parameters():
+            q = params_b[name]
+            a, b = (p.grad, q.grad) if kind == "grad" else (p, q)
+            a, b = a.detach().double(), b.detach().double()
+            d2, n2 = float(((a - b) ** 2).sum()), float((b ** 2).sum())
+            num, den = num + d2, den + n2
+            per.append((np.sqrt(d2 / max(n2, 1e-60)), name))
+            elem = max(elem, (max_err(a, b) / max(float(b.abs().max()),
+                                                  1e-30), name))
+        out[kind] = (np.sqrt(num / max(den, 1e-60)), max(per), elem)
+    return out
+
+
+def compare_bf16_steps(label, batch, seed, dev):
+    """One bf16 step from the same weights through the kernels and
+    through the plain versions of the train step's maxes and sum, the
+    operators built by the kernels on both sides. They differ by the
+    order of f32 sums (the matmul max's products, the backward's
+    atomics), which moves a bf16 value by one ulp on a few elements and
+    with it a neighbour-max winner at a near-tie and a whole cotangent;
+    a gradient that is a cancelling sum (a BatchNorm bias) then moves by
+    a large share of its small norm, and all of them together by up to
+    5e-2 (relative Frobenius; measured 6.9e-3 uniform, 4.8e-2 ragged).
+    So the loss and the running statistics are held elementwise, the
+    parameters by their relative Frobenius deviation over all tensors at
+    once, and the gradients by their distance to the f32 step's (the
+    same weights through the kernels): the kernels' bf16 gradients may
+    be at most BF16_F32_RATIO times as far from them, on the mean over
+    tensors, as the plain versions' (a misrouted cotangent moves that
+    distance; the bf16 step's own rounding does not). The deviations
+    over all tensors, of the worst tensor and of the worst element are
+    printed beside the spread of two kernel steps (atomics)."""
+    from deltaconv_tpu_torch import KERNEL_OPS
+    from deltaconv_tpu_torch.ops import (gather_matmul_max_train_plain,
+                                         gather_max_plain, gather_sum_plain)
+
+    plain = KERNEL_OPS._replace(
+        gather_max=gather_max_plain, gather_sum=gather_sum_plain,
+        gather_matmul_max_train=gather_matmul_max_train_plain)
+    config = dict(knn_method="approx", precision="bfloat16")
+    lk, mk = train_once(batch, seed, dev, KERNEL_OPS, **config)
+    lp, mp = train_once(batch, seed, dev, plain, **config)
+    _, mk2 = train_once(batch, seed, dev, KERNEL_OPS, **config)
+    _, mf = train_once(batch, seed, dev, KERNEL_OPS, knn_method="approx")
+    dev_k, dev_kk = _deviations(mk, mp), _deviations(mk2, mk)
+    for kind in ("grad", "param"):
+        (whole, per, elem), (whole_k, per_k, _) = dev_k[kind], dev_kk[kind]
+        print(f"  {label} {kind}s kernel vs plain: all tensors {whole:.3e}, "
+              f"worst tensor {per[0]:.3e} ({per[1]}), worst element "
+              f"{elem[0]:.3e} x max ({elem[1]}); kernel vs kernel: all "
+              f"{whole_k:.3e}, worst tensor {per_k[0]:.3e} ({per_k[1]})")
+    grads_f = dict(mf.named_parameters())
+
+    def to_f32(m):
+        return float(np.mean([
+            float(torch.linalg.norm(p.grad - grads_f[n].grad))
+            / max(float(torch.linalg.norm(grads_f[n].grad)), 1e-30)
+            for n, p in m.named_parameters()]))
+
+    far_k, far_p = to_f32(mk), to_f32(mp)
+    bufs_p = dict(mp.named_buffers())
+    worst = (0.0, "")
+    for name, st in mk.named_buffers():
+        worst = max(worst, (max_err(st, bufs_p[name]) / max(
+            float(bufs_p[name].abs().max()), 1e-30), name))
+    check(f"{label} loss kernel vs plain",
+          abs(lk - lp) <= BF16_LOSS_RTOL * abs(lp),
+          f"{lk} vs {lp}, rel {abs(lk - lp) / abs(lp):.3e} <= "
+          f"{BF16_LOSS_RTOL}")
+    check(f"{label} stats kernel vs plain", worst[0] <= BF16_STATS_RTOL,
+          f"worst {worst[0]:.3e} x max ({worst[1]}) <= {BF16_STATS_RTOL}")
+    check(f"{label} params kernel vs plain",
+          dev_k["param"][0] <= BF16_PARAM_FROB,
+          f"relative Frobenius deviation over all tensors "
+          f"{dev_k['param'][0]:.3e} <= {BF16_PARAM_FROB}")
+    check(f"{label} grads' distance to the f32 step",
+          far_k <= BF16_F32_RATIO * far_p,
+          f"mean over tensors: kernels {far_k:.3e}, plain {far_p:.3e}, "
+          f"ratio {far_k / far_p:.3f} <= {BF16_F32_RATIO}")
+
+
+def train_bf16_phase(rng, seed, dev, card):
+    """The JAX package's production train config: bf16 compute and
+    operators, approximate kNN, at the reference recipe."""
+    from deltaconv_tpu_torch import launch_counts, reset_launch_counts
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    uniform = train_batch(rng, dev, [N] * B)
+    ragged = train_batch(rng, dev, rng.integers(N * 600 // 1024, N + 1,
+                                                B).tolist())
+    config = dict(knn_method="approx", precision="bfloat16")
+    model = random_model(seed, dev, affine=False, **config)
+    state = create_train_state(model, sgd_momentum(TRAIN_LR))
+    step = make_train_step(model, smoothing=0.2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    warm = random_model(seed + 1, dev, **config)  # warm-up: cuBLAS bf16
+    make_train_step(warm)(create_train_state(warm, sgd_momentum(TRAIN_LR)),
+                          uniform, torch.Generator(device=dev).manual_seed(1))
+    del warm
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(state, uniform, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    counts = launch_counts()
+    print(f"[train-bf16] launches during {TRAIN_STEPS} steps: {counts}")
+    print("[train-bf16] launches per step: " + ", ".join(
+        f"{name} {counts[name] / TRAIN_STEPS:g}"
+        for name in TRAIN_BF16_KERNELS))
+    print(f"[train-bf16] losses: {[round(x, 4) for x in losses]}")
+    check("bf16 train losses finite", bool(np.isfinite(losses).all()),
+          f"{TRAIN_STEPS} steps")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check("bf16 train loss falls", last < first,
+          f"mean of last 5 {last:.4f} < mean of first 5 {first:.4f}")
+    check("bf16 parameters stay f32",
+          all(p.dtype == torch.float32 for p in model.parameters()),
+          "every parameter")
+    for name in TRAIN_BF16_KERNELS:
+        check(f"{name} launched in bf16 training", counts[name] > 0,
+              f"{counts[name]} launches")
+    t = float(np.median(times))
+    print(f"[train-bf16] B={B} N={N} K={K}, reference width, bf16 compute "
+          f"and operators, knn_method=approx: median {t * 1e3:.3f} ms per "
+          f"train step, {B / t:.1f} training clouds/s (host clock, "
+          f"synchronised after each step), card: {card}")
+    profile("train-bf16", "one step", lambda: step(state, uniform, gen),
+            t * 1e3)
+
+    print("[train-bf16] kernel path vs plain path, one step from the same "
+          "weights, dropout 0, same build")
+    for label, batch in (("uniform", uniform), ("ragged", ragged)):
+        compare_bf16_steps(f"bf16 {label}", batch, seed, dev)
+    return counts
 
 
 def train_phase(rng, seed, dev, card):
@@ -978,12 +1259,14 @@ def main():
     serve_bf16 = serve_bf16_phase(rng, args.seed, dev, card)
     conv3_forms(dev, card)
     train, stream = train_phase(rng, args.seed, dev, card)
+    train_bf16 = train_bf16_phase(rng, args.seed, dev, card)
 
     def launches(name):
         for path, counts in ((SERVE_KERNELS, serve),
                              (BF16_KERNELS, serve_bf16),
                              (TRAIN_KERNELS, train),
-                             (STREAM_KERNELS, stream)):
+                             (STREAM_KERNELS, stream),
+                             (TRAIN_BF16_KERNELS, train_bf16)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

@@ -1,5 +1,6 @@
-// The bf16 eval neighbour maxes of the DeltaConv scalar branch, with the
-// BatchNorm + LeakyReLU epilogue in the kernel.
+// The bf16 neighbour maxes of the DeltaConv scalar branch: the eval ones
+// with the BatchNorm + LeakyReLU epilogue in the kernel, and the
+// train-mode gather-then-matmul max with winner slots.
 //
 // `gather_max_affine`:
 //   best[b, n, c] = max over k with mask[b, n, k] of h[b, idx[b, n, k], c]
@@ -17,8 +18,22 @@
 // Replaces `gather_matmul_max` (pallas_call at gather_max.py:756, body
 // `_mm_max_kernel`).
 //
-// Both end in `_bn_lrelu_epilogue` (gather_max.py:584), replayed op for op
-// in f32 with every operation rounded on its own (no FMA contraction):
+// `gather_matmul_max_win` (the train-mode twin):
+//   y[b, n, k, o] = bf16(sum_c x[b, idx[b, n, k], c] w[c, o])
+//   out[b, n, o] = max over valid k of y, winner[b, n, o] = the first such
+//   k that holds it (strict >, slots in ascending order)
+//   x [B, N, C_in] bf16, w [C_in, C_out] bf16 -> out [B, N, C_out] bf16,
+//   winner [B, N, C_out] i32; -3e38 and winner 0 on a row with no valid
+//   slot; no epilogue. Each slot's f32 product is rounded to bf16 BEFORE it
+//   enters the max (gather_max.py:827-837), so values and winners are
+//   those of the per-point bf16 product followed by the neighbour max.
+// Replaces `_mm_train_pallas_fwd` (pallas_call at gather_max.py:865, body
+// `_mm_max_win_kernel`); its backward is the winner-routed scatter of
+// gather_max.cu at C_out.
+//
+// Both eval kernels end in `_bn_lrelu_epilogue` (gather_max.py:584),
+// replayed op for op in f32 with every operation rounded on its own (no
+// FMA contraction):
 // the max rounded to bf16; with `sub_self`, rows with no valid slot set
 // to 0 and then sign * (max - h[idx[., 0]]), else sign * max; then
 // (h* - mean) * inv + bias, LeakyReLU 0.2, and 0 on rows with no valid
@@ -43,7 +58,11 @@
 // lane keeps a running max of its 8 cells in registers. Bound on the
 // H100: the tensor cores, 2 B N K C_in C_out operations (42.9 GFLOP at
 // B=32, N=1024, K=20, 128 -> 256), K times the work of x @ w followed by
-// a gather.
+// a gather. `gather_matmul_max_win` is the same kernel with the per-slot
+// bf16 rounding and a winner slot beside each lane's running max; the
+// function it computes is bound by its bytes (x, idx/mask, and the bf16
+// out plus the i32 winners: ~62 MB, ~0.019 ms at 128 -> 256), which this
+// design, paying the K-fold product, does not approach.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -157,11 +176,14 @@ inline size_t mm_smem_bytes(int K, int Cin) {
 }
 
 // C_in and C_out are multiples of 16; x 16-byte and w 32-byte aligned.
+// kWinners: the train-mode form (bf16-rounded products, winner slots, no
+// epilogue: `aff` is null).
+template <bool kWinners>
 __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const int* __restrict__ idx, const uint8_t* __restrict__ mask,
-    const float* __restrict__ aff, __nv_bfloat16* __restrict__ out, int B,
-    int N, int Cin, int Cout, int K) {
+    const float* __restrict__ aff, __nv_bfloat16* __restrict__ out,
+    int* __restrict__ winner, int B, int N, int Cin, int Cout, int K) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   const int rows = K * kMmPoints;  // row r = k * 16 + p
@@ -208,8 +230,12 @@ __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
   float* sc = scratch + warp * 256;
   for (int nf = warp; nf < Cout / 16; nf += kMmWarps) {
     float best[8];
+    int win[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) best[i] = kNeg;
+    for (int i = 0; i < 8; ++i) {
+      best[i] = kNeg;
+      win[i] = 0;
+    }
     for (int k0 = 0; k0 < K; k0 += kMmSlotsPerPass) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float>
           acc[kMmSlotsPerPass];
@@ -240,8 +266,21 @@ __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const int e = lane + 32 * i;
-          if (slot_ok[k * kMmPoints + e / 16])
+          if (!slot_ok[k * kMmPoints + e / 16]) continue;
+          if (!kWinners) {
             best[i] = nan_max(best[i], sc[e]);
+            continue;
+          }
+          const float v = __bfloat162float(__float2bfloat16_rn(sc[e]));
+          if (v != v) {  // NaN: propagates, winner 0, sticks
+            if (best[i] == best[i]) {
+              best[i] = v;
+              win[i] = 0;
+            }
+          } else if (v > best[i]) {
+            best[i] = v;
+            win[i] = k;
+          }
         }
         __syncwarp();
       }
@@ -255,8 +294,36 @@ __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
                                      aff, Cout, o)
                           : best[i];
       out[bn * Cout + o] = __float2bfloat16_rn(v);
+      if (kWinners) winner[bn * Cout + o] = win[i];
     }
   }
+}
+
+// Shared memory of the matmul maxes: above the default 48 KB a kernel
+// must opt in (up to 227 KB; beyond that the launch is refused and
+// reported).
+template <bool kWinners>
+int launch_matmul_max(const void* x, const void* w, const void* idx,
+                      const void* mask, const void* aff, void* out,
+                      void* winner, int B, int N, int Cin, int Cout, int K,
+                      void* stream) {
+  if ((long long)B * N * Cout == 0) return (int)cudaGetLastError();
+  if (Cin % 16 != 0 || Cout % 16 != 0 || Cin == 0 || K <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = mm_smem_bytes(K, Cin);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gather_matmul_max_kernel<kWinners>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = ((long long)B * N + kMmPoints - 1) / kMmPoints;
+  gather_matmul_max_kernel<kWinners><<<(unsigned)blocks, kMmWarps * 32, smem,
+                                       (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const int*)idx,
+      (const uint8_t*)mask, (const float*)aff, (__nv_bfloat16*)out,
+      (int*)winner, B, N, Cin, Cout, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -288,23 +355,16 @@ extern "C" int dc_gather_matmul_max(const void* x, const void* w,
                                     int Cin, int Cout, int K, int device,
                                     void* stream) {
   DC_SET_DEVICE(device);
-  if ((long long)B * N * Cout == 0) return (int)cudaGetLastError();
-  if (Cin % 16 != 0 || Cout % 16 != 0 || Cin == 0 || K <= 0)
-    return (int)cudaErrorInvalidValue;
-  // Above the default 48 KB a kernel must opt in to its shared memory
-  // (up to 227 KB; beyond that the launch is refused and reported).
-  const size_t smem = mm_smem_bytes(K, Cin);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gather_matmul_max_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long blocks = ((long long)B * N + kMmPoints - 1) / kMmPoints;
-  gather_matmul_max_kernel<<<(unsigned)blocks, kMmWarps * 32, smem,
-                             (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const int*)idx,
-      (const uint8_t*)mask, (const float*)aff, (__nv_bfloat16*)out, B, N, Cin,
-      Cout, K);
-  return (int)cudaGetLastError();
+  return launch_matmul_max<false>(x, w, idx, mask, aff, out, nullptr, B, N,
+                                  Cin, Cout, K, stream);
+}
+
+extern "C" int dc_gather_matmul_max_win(const void* x, const void* w,
+                                        const void* idx, const void* mask,
+                                        void* out, void* winner, int B, int N,
+                                        int Cin, int Cout, int K, int device,
+                                        void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_matmul_max<true>(x, w, idx, mask, nullptr, out, winner, B, N,
+                                 Cin, Cout, K, stream);
 }

@@ -16,6 +16,12 @@ the result is cast to the input's dtype. A bf16 product with an f32
 result is ``torch.bmm(..., out_dtype=torch.float32)`` on the card (one
 rounding, as XLA); on the CPU, where that overload does not exist, the
 bf16 operands are widened to f32 first, which is the same arithmetic.
+
+The bf16 applies are differentiable in the features (the operators take
+no gradient), with the JAX VJP's rounding: the cotangent of the f32
+product is the cotangent of the cast, a bf16 value; it is contracted
+with the transposed bf16 operator, f32 accumulation and result, and the
+result is cast to the bf16 input's dtype.
 """
 
 from __future__ import annotations
@@ -30,13 +36,35 @@ from .nbr_ops import NeighborAggregations
 __all__ = ["DenseGradDiv", "densify"]
 
 
+def _bmm_f32(a, b):
+    """``a @ b`` of two bf16 batches, f32 accumulation and result."""
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class _Bf16Apply(torch.autograd.Function):
+    """``w @ x`` of a bf16 operator and bf16 features with an f32 result;
+    the backward gives ``x`` the product of ``w^T`` and the cotangent
+    rounded to bf16 (exact: it is the cotangent of a cast from bf16),
+    cast to bf16."""
+
+    @staticmethod
+    def forward(ctx, w, x):
+        ctx.save_for_backward(w)
+        return _bmm_f32(w, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        dx = _bmm_f32(w.transpose(1, 2), g.to(w.dtype)).to(w.dtype)
+        return None, dx
+
+
 def _bf16_product(w, x):
     """``w [B, M, N] @ x [B, N, C]`` for bf16 ``w``: ``x`` rounded to
-    bf16, f32 accumulation, f32 result."""
-    x = x.to(w.dtype)
-    if w.device.type == "cuda":
-        return torch.bmm(w, x, out_dtype=torch.float32)
-    return torch.bmm(w.float(), x.float())
+    bf16, f32 accumulation, f32 result; differentiable in ``x``."""
+    return _Bf16Apply.apply(w, x.to(w.dtype))
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """Neighbour aggregations shared by the operator objects (counterpart of
 ``deltaconv_tpu/geometry/nbr_ops.py``: ``nbr_max`` on every path,
 ``nbr_sum`` for the train-mode edge statistics, ``nbr_max_affine`` and
-``nbr_matmul_max`` for the bf16 eval branches). ``DeltaConv`` never
+``nbr_matmul_max`` for the bf16 eval branches, ``nbr_matmul_max_train``
+for the bf16 train branch of a lane-narrower conv). ``DeltaConv`` never
 gathers through raw indices itself: it asks its operator object, which
 keeps the kernel choice (its ``ops``) in one place."""
 
@@ -41,3 +42,11 @@ class NeighborAggregations:
         with the epilogue when ``affine`` is given."""
         return self.ops.gather_matmul_max(x, w, self.nbr_idx, self.nbr_mask,
                                           affine)
+
+    def nbr_matmul_max_train(self, x, w):
+        """bf16 training: differentiable masked max of ``(x @ w)[nbr]``,
+        each slot's product rounded to bf16 before the max, gradients to
+        the single winning neighbour (for ``x`` and ``w``). Rows with no
+        valid neighbour give ``-3e38``."""
+        return self.ops.gather_matmul_max_train(x, w, self.nbr_idx,
+                                                self.nbr_mask)

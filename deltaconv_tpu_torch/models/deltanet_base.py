@@ -13,8 +13,9 @@ statistics add the neighbour sum.
 Mixed precision as in the JAX package: ``operator_dtype`` is the dtype of
 the dense operators, ``compute_dtype`` that of the conv stack's
 activations (positions are cast to it before the first conv); the
-operator build itself always runs in f32. Either set to bf16 is for
-eval only.
+operator build itself always runs in f32. Both serve and train in bf16
+(the production config); in training the operator applies are
+differentiated in the features, never in the operators.
 """
 
 from __future__ import annotations
@@ -119,10 +120,6 @@ class DeltaNetBase(nn.Module):
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS):
         """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``."""
-        if self.training and self.operator_dtype is not None:
-            raise NotImplementedError(
-                "training with bf16 operators is not ported yet (bf16 "
-                "training, ROADMAP queue 1): train in f32")
         # Positions carry no gradient on this path (the loss is
         # differentiated for the parameters only), so the build keeps
         # no autograd graph, in training as in eval.

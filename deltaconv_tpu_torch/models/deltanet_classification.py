@@ -38,12 +38,13 @@ class DeltaNetClassification(nn.Module):
 
     ``operator_dtype``, ``compute_dtype`` (None, "float32" or
     "bfloat16") and ``knn_method`` ("exact" or "approx") are the JAX
-    model's fields: the JAX package serves in production with both
-    dtypes bf16 and approximate kNN (``InferenceEngine(...,
-    precision="bfloat16")`` sets the dtypes). The backbone, embedding
-    and head MLPs compute in ``compute_dtype``; the last Linear
-    (``head_out``) runs in f32 on the f32-cast activations, so logits
-    are f32.
+    model's fields: the JAX package serves and trains in production with
+    both dtypes bf16 and approximate kNN (``InferenceEngine(...,
+    precision="bfloat16")`` sets the dtypes for serving). The backbone,
+    embedding and head MLPs compute in ``compute_dtype`` (dropout on the
+    bf16 activations in training); the last Linear (``head_out``) runs in
+    f32 on the f32-cast activations, so logits, and the loss, are f32.
+    Parameters stay f32 in every mode.
     """
 
     def __init__(self, num_classes: int,

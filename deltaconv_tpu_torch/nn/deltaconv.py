@@ -1,4 +1,4 @@
-"""The DeltaConv layer, f32 train and eval, bf16 eval (counterpart of
+"""The DeltaConv layer, f32 and bf16, train and eval (counterpart of
 ``deltaconv_tpu/nn/deltaconv.py``).
 
 Scalar stream:
@@ -12,14 +12,17 @@ defaults). The neighbour max and sum go through the operator object
 (``gd.nbr_max``, ``gd.nbr_sum``), which runs their kernels. A point
 mask leaves padded points out of every train-mode BatchNorm statistic.
 
-With ``dtype=torch.bfloat16`` (eval only: bf16 training is not ported)
-the layer computes as the JAX package's mixed precision: bf16 Linear
-products and activations, f32 BatchNorm, and both max branches commuted
-through the monotone BatchNorm + LeakyReLU by sign folding into the
-kernels that apply that epilogue themselves (``gd.nbr_max_affine``,
-``gd.nbr_matmul_max``), as ``_epilogue_fusible`` routes them on the TPU.
-The port takes that route on every device: the kernels on the card,
-their plain versions on the CPU.
+With ``dtype=torch.bfloat16`` the layer computes as the JAX package's
+mixed precision: bf16 Linear products and activations, f32 BatchNorm.
+In eval both max branches are commuted through the monotone BatchNorm +
+LeakyReLU by sign folding into the kernels that apply that epilogue
+themselves (``gd.nbr_max_affine``, ``gd.nbr_matmul_max``), as
+``_epilogue_fusible`` routes them on the TPU. In training the max runs
+on bf16 values with the single-winner gradient (``gd.nbr_max``), except
+in a lane-narrower ``PointMaxMLP``, which takes the commuted train
+branch through ``gd.nbr_matmul_max_train``, as the JAX package's TPU
+route does. The port takes the TPU's route on every device: the kernels
+on the card, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from torch import nn
 
 from ..geometry.operators import I_J, J, norm
 from .mlp import MLP, VectorMLP, linear
-from .nonlin import leaky_relu02
+from .nonlin import batch_moments, leaky_relu02
 
 __all__ = ["DeltaConv", "EdgeMaxMLP", "PointMaxMLP"]
 
@@ -42,11 +45,10 @@ def _bn_affine(bn):
     return torch.where(inv >= 0, 1.0, -1.0), inv, bn.running_mean, bn.bias
 
 
-def _check_eval(module):
-    if module.training:
-        raise NotImplementedError(
-            "bf16 training is not ported yet (ROADMAP queue 1; its kernel "
-            "is site #14 of queue 2); train in f32 (dtype=None)")
+def _masked_rows_to_zero(out, gd, dtype):
+    """0 on the points with no valid neighbour, cast to ``dtype``."""
+    out = torch.where(gd.nbr_mask.any(dim=-1, keepdim=True), out, 0.0)
+    return out if dtype is None else out.to(dtype)
 
 
 class EdgeMaxMLP(MLP):
@@ -66,6 +68,9 @@ class EdgeMaxMLP(MLP):
     (``gd.nbr_sum``) and the valid-slot counts ``cnt``:
     ``sum_e (y_j - y_i) = sum_n s1_n - cnt_n y_n`` and
     ``sum_e (y_j - y_i)^2 = sum_n s2_n - 2 y_n s1_n + cnt_n y_n^2``.
+    In bf16 training ``y`` is the bf16 product widened to f32, the max
+    runs on the sign-folded ``y`` rounded to bf16, and the epilogue in
+    f32, cast to bf16 at the end.
     """
 
     def __init__(self, in_channels: int, out_channels: int, dtype=None):
@@ -75,15 +80,13 @@ class EdgeMaxMLP(MLP):
         """``stats_mask``: the ``[B, N, K]`` edges of the statistics
         (None: every slot, as the reference's mask-free BatchNorm)."""
         lin, bn = self[0][0], self[0][1].bn
-        if self.dtype is not None:
+        y = linear(lin, x, self.dtype).float()
+        if self.dtype is not None and not self.training:
             # bf16 eval: the whole epilogue, self-row subtract included,
             # in the gather_max_affine kernel.
-            _check_eval(self)
             affine = _bn_affine(bn)
-            y = linear(lin, x, self.dtype).float()
             yp = (y * affine[0]).to(self.dtype)
             return gd.nbr_max_affine(yp, affine, sub_self=True)
-        y = lin(x)
         if self.training:
             mean, var = self._edge_moments(y, gd, stats_mask)
             bn.update_running(mean, var)
@@ -92,10 +95,12 @@ class EdgeMaxMLP(MLP):
         inv = bn.inv(var)
         sign = torch.where(inv >= 0, 1.0, -1.0)
         yp = y * sign
+        if self.dtype is not None:
+            yp = yp.to(self.dtype)
         mxp = gd.nbr_max(yp)
-        h_star = sign * (mxp - yp)
+        h_star = sign * (mxp.float() - yp.float())
         out = leaky_relu02((h_star - mean) * inv + bn.bias)
-        return torch.where(gd.nbr_mask.any(dim=-1, keepdim=True), out, 0.0)
+        return _masked_rows_to_zero(out, gd, self.dtype)
 
     @staticmethod
     def _edge_moments(y, gd, stats_mask):
@@ -123,24 +128,43 @@ class PointMaxMLP(MLP):
     the masked neighbour max. ``stats_mask`` (``[B, N]`` points) leaves
     padded points out of the train-mode BatchNorm statistics.
 
-    bf16 eval takes one of the JAX package's two sign-folded branches,
-    by its ``narrower`` rule (a TPU lane rule, kept as it is): when the
-    input is lane-narrower than the output (``pad128(C_in) <
-    pad128(C_out)``) the ``gather_matmul_max`` kernel gathers the input
-    rows and applies the sign-folded weight per neighbour; otherwise the
-    per-point product goes through the ``gather_max_affine`` kernel."""
+    bf16 takes the JAX package's branches by its ``narrower`` rule (a TPU
+    lane rule, kept as it is): when the input is lane-narrower than the
+    output (``pad128(C_in) < pad128(C_out)``) the matmul max gathers the
+    input rows and applies the sign-folded weight per neighbour (eval:
+    ``gather_matmul_max`` with the epilogue; training: the commuted
+    branch below); otherwise the per-point product goes through
+    ``gather_max_affine`` (eval) or, in training, the per-point
+    BatchNorm + LeakyReLU, cast to bf16, then ``gd.nbr_max``.
+
+    The commuted train branch (JAX ``fused_train``): the per-point bf16
+    product feeds only the BatchNorm batch moments (the variance left
+    unclamped, as the JAX branch computes it); the max runs on
+    ``gd.nbr_matmul_max_train`` with the weight's columns flipped by
+    ``sign(inv)``, and the epilogue ``LeakyReLU((sign * max - mean) * inv
+    + bias)`` in f32, cast to bf16."""
 
     def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__([in_channels, out_channels], dtype)
 
     def forward(self, x, gd, stats_mask=None):
-        if self.dtype is None:
-            return gd.nbr_max(super().forward(x, stats_mask))
-        _check_eval(self)
         lin, bn = self[0][0], self[0][1].bn
+        narrower = _pad128(lin.in_features) < _pad128(lin.out_features)
+        if self.dtype is None or (self.training and not narrower):
+            return gd.nbr_max(super().forward(x, stats_mask))
+        if self.training:
+            y = linear(lin, x, self.dtype).float()
+            mean, var = batch_moments(y, stats_mask, clamp=False)
+            bn.update_running(mean, var)
+            inv = bn.inv(var)
+            sign = torch.where(inv >= 0, 1.0, -1.0)
+            wp = (lin.weight.t() * sign[None, :]).to(self.dtype).contiguous()
+            mxp = gd.nbr_matmul_max_train(x.to(self.dtype), wp)
+            out = leaky_relu02((sign * mxp.float() - mean) * inv + bn.bias)
+            return _masked_rows_to_zero(out, gd, self.dtype)
         affine = _bn_affine(bn)
         sign = affine[0]
-        if _pad128(lin.in_features) < _pad128(lin.out_features):
+        if narrower:
             wp = (lin.weight.t() * sign[None, :]).to(self.dtype).contiguous()
             return gd.nbr_matmul_max(x.to(self.dtype), wp, affine)
         y = linear(lin, x, self.dtype)
@@ -158,8 +182,8 @@ class DeltaConv(nn.Module):
       centralized: centralize scalar features before the max (the first
         conv, on raw positions).
       vector: propagate the vector stream (False on the last layer).
-      dtype: compute dtype (None for f32, or ``torch.bfloat16``, eval
-        only), handed to the three MLPs.
+      dtype: compute dtype (None for f32, or ``torch.bfloat16``), handed
+        to the three MLPs.
     """
 
     def __init__(self, in_channels: int, out_channels: int,

@@ -11,8 +11,9 @@ which differs from torch's ``BatchNorm1d`` in training:
   the BIASED batch variance (torch would use the unbiased one).
 
 Statistics and normalization run in f32 on bf16 inputs too (the JAX
-package's ``dtype=float32`` BatchNorm under mixed precision); the result
-is f32 and callers cast it back.
+package's ``dtype=float32`` BatchNorm under mixed precision), in
+training as in eval, and the gradient reaches the bf16 input through
+the widening cast; the result is f32 and callers cast it back.
 
 Train or eval is the module's ``training`` flag (``model.train()`` /
 ``model.eval()``). Module and buffer names follow the upstream release
@@ -29,7 +30,8 @@ from ..geometry.utils import safe_norm
 
 EPS = 1e-8
 
-__all__ = ["BatchNorm", "BatchNormSlot", "VectorNonLin", "leaky_relu02"]
+__all__ = ["BatchNorm", "BatchNormSlot", "VectorNonLin", "batch_moments",
+           "leaky_relu02"]
 
 
 def leaky_relu02(x):
@@ -37,10 +39,13 @@ def leaky_relu02(x):
     return torch.where(x >= 0, x, 0.2 * x)
 
 
-def _batch_moments(x, mask=None):
+def batch_moments(x, mask=None, clamp: bool = True):
     """Per-channel ``(mean, var)`` of ``x [..., C]`` over every other
     axis, restricted to the rows where ``mask`` (``x.shape[:-1]``) is
-    true; ``var`` is flax's clamped fast variance."""
+    true; ``var`` is the fast variance ``E[x^2] - E[x]^2``, clamped at 0
+    as flax's BatchNorm does unless ``clamp`` is False (the commuted
+    bf16 train branch of ``PointMaxMLP``, whose JAX counterpart hands its
+    BatchNorm the unclamped one)."""
     lead = tuple(range(x.dim() - 1))
     if mask is None:
         mean = x.mean(dim=lead)
@@ -51,7 +56,8 @@ def _batch_moments(x, mask=None):
         count = m.sum(dim=lead).to(x.dtype)
         mean = xm.sum(dim=lead) / count
         mean2 = (xm * xm).sum(dim=lead) / count
-    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+    var = mean2 - mean * mean
+    return mean, torch.clamp(var, min=0.0) if clamp else var
 
 
 class BatchNorm(nn.Module):
@@ -90,7 +96,7 @@ class BatchNorm(nn.Module):
         x = x.float()
         if not self.training:
             return (x - self.running_mean) * self.inv() + self.bias
-        mean, var = _batch_moments(x, mask)
+        mean, var = batch_moments(x, mask)
         self.update_running(mean, var)
         return (x - mean) * self.inv(var) + self.bias
 

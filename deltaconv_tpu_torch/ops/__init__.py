@@ -1,14 +1,15 @@
-"""The hand-written CUDA kernels of the serving paths (f32 and bf16) and
-the f32 train step, each beside its plain PyTorch version.
+"""The hand-written CUDA kernels of the serving paths and the train
+steps (f32 and bf16), each beside its plain PyTorch version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the eight functions the model calls so that
+and :data:`PLAIN_OPS` bundle the nine functions the model calls so that
 a caller can run a forward, or a whole train step, through the kernels
 or through the plain versions on the same device, which is how the
-kernel path is checked on the card. The neighbour max and sum are
-differentiable in their features, with the same gradient routing on
-both.
+kernel path is checked on the card. The neighbour max (f32 or bf16) and
+sum are differentiable in their features, the bf16 gather-then-matmul
+max of training in its input and weight, with the same gradient routing
+on both.
 """
 
 from __future__ import annotations
@@ -18,7 +19,10 @@ from typing import Callable, NamedTuple
 from ._lib import launch_counts, library, reset_launch_counts
 from .densify_op import densify_coefs, densify_coefs_plain
 from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
-                         gather_matmul_max_plain, gather_max,
+                         gather_matmul_max_plain, gather_matmul_max_train,
+                         gather_matmul_max_train_plain,
+                         gather_matmul_max_win, gather_matmul_max_win_plain,
+                         gather_max,
                          gather_max_affine, gather_max_affine_plain,
                          gather_max_bwd, gather_max_bwd_plain,
                          gather_max_plain, gather_max_win,
@@ -33,7 +37,9 @@ from .wls_fused import build_grad_div_fused, wls, wls_plain
 __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "bn_lrelu_epilogue", "build_grad_div_fused", "densify_coefs",
            "densify_coefs_plain", "gather_matmul_max",
-           "gather_matmul_max_plain", "gather_max", "gather_max_affine",
+           "gather_matmul_max_plain", "gather_matmul_max_train",
+           "gather_matmul_max_train_plain", "gather_matmul_max_win",
+           "gather_matmul_max_win_plain", "gather_max", "gather_max_affine",
            "gather_max_affine_plain", "gather_max_bwd",
            "gather_max_bwd_plain", "gather_max_plain", "gather_max_win",
            "gather_max_win_plain", "gather_rows", "gather_rows_plain",
@@ -44,7 +50,7 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
 
 
 class Ops(NamedTuple):
-    """The eight kernel-backed functions the model calls."""
+    """The nine kernel-backed functions the model calls."""
 
     gather_rows: Callable
     wls: Callable
@@ -54,10 +60,13 @@ class Ops(NamedTuple):
     knn_topk: Callable
     gather_max_affine: Callable
     gather_matmul_max: Callable
+    gather_matmul_max_train: Callable
 
 
 KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
-                 knn_topk, gather_max_affine, gather_matmul_max)
+                 knn_topk, gather_max_affine, gather_matmul_max,
+                 gather_matmul_max_train)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_max_plain, gather_sum_plain, knn_topk_plain,
-                gather_max_affine_plain, gather_matmul_max_plain)
+                gather_max_affine_plain, gather_matmul_max_plain,
+                gather_matmul_max_train_plain)

@@ -52,6 +52,10 @@ _KERNELS = {
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_max_bwd": ("dc_gather_max_bwd",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "gather_max_win_bf16": ("dc_gather_max_win_bf16",
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
+    "gather_max_bwd_bf16": ("dc_gather_max_bwd_bf16",
+                            [_P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "adjacency": ("dc_adjacency", [_P, _P, _P, _I, _I, _I]),
     "gather_sum": ("dc_gather_sum", [_P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_sum_bwd": ("dc_gather_sum_bwd", [_P, _P, _P, _P, _I, _I, _I, _I]),
@@ -60,15 +64,18 @@ _KERNELS = {
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "gather_matmul_max": ("dc_gather_matmul_max",
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "gather_matmul_max_win": ("dc_gather_matmul_max_win",
+                              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
 }
 
 # Why a raw kernel takes no tensor that requires grad: the operator
 # build has no backward kernels yet (they are reached only when positions
-# carry gradients), the bf16 maxes are eval-only, and the differentiable
-# neighbour max and sum are the autograd Functions around their kernels.
-_BF16_TRAIN = ("the bf16 maxes are eval-only: bf16 training "
-               "(`_mm_train_pallas_fwd`, site #14 of ROADMAP queue 2) is not "
-               "ported yet")
+# carry gradients), the bf16 maxes with the epilogue are the eval forms,
+# and the differentiable maxes and sum are the autograd Functions around
+# their kernels.
+_BF16_EVAL = ("it is the eval form (running statistics in the "
+              "epilogue); in training the layers take ops.gather_max or "
+              "ops.gather_matmul_max_train, whose backward is a kernel")
 _NO_GRAD = {
     "gather_rows": "its backward (`_scatter_impl`, site #2 of ROADMAP "
                    "queue 2) is not ported yet",
@@ -77,8 +84,8 @@ _NO_GRAD = {
     "densify": "its backward (`_densify_bwd`, site #6 of ROADMAP queue 2) "
                "is not ported yet",
     "knn_topk": "kNN indices carry no gradient",
-    "gather_max_affine": _BF16_TRAIN,
-    "gather_matmul_max": _BF16_TRAIN,
+    "gather_max_affine": _BF16_EVAL,
+    "gather_matmul_max": _BF16_EVAL,
 }
 _NO_GRAD["densify_bf16"] = _NO_GRAD["densify"]
 
@@ -184,8 +191,9 @@ def check_inputs(name: str, specs) -> torch.device:
             raise ValueError(f"{where}: not contiguous")
         if t.requires_grad:
             why = _NO_GRAD.get(
-                name, "differentiate through ops.gather_max or "
-                "ops.gather_sum, whose backward is a kernel")
+                name, "differentiate through ops.gather_max, "
+                "ops.gather_sum or ops.gather_matmul_max_train, whose "
+                "backward is a kernel")
             raise ValueError(f"{where}: the raw kernel takes no tensor "
                              f"that requires grad; {why}")
     return device

@@ -1,10 +1,11 @@
-"""Masked neighbour max with single-winner gradients, and the bf16 eval
-maxes with the BatchNorm + LeakyReLU epilogue (CUDA kernels + plain
-versions).
+"""Masked neighbour max with single-winner gradients, the bf16 eval
+maxes with the BatchNorm + LeakyReLU epilogue, and the differentiable
+bf16 gather-then-matmul max of training (CUDA kernels + plain versions).
 
 ``gather_max(h, idx, mask)``: ``[B, N, C], [B, N, K], [B, N, K] ->
-[B, N, C]``, the max over valid slots of the gathered neighbour rows;
-rows with no valid neighbour give ``-3e38``. :func:`masked_nbr_max`
+[B, N, C]``, f32 or bf16 (the output keeps ``h``'s dtype), the max over
+valid slots of the gathered neighbour rows; rows with no valid neighbour
+give ``-3e38``. :func:`masked_nbr_max`
 turns those into 0, as the scalar-stream aggregation of every DeltaConv
 needs. Counterpart of ``deltaconv_tpu/ops/gather_max.py``
 (``gather_max`` and its custom VJP, ``masked_nbr_max``); the kernels are
@@ -15,9 +16,13 @@ autograd Function: its forward also records, per output element, the
 FIRST slot that holds the maximum, and its backward routes the whole
 cotangent to that one neighbour row. This is the JAX package's VJP;
 torch's own ``amax`` backward splits ties evenly and would differ on
-every tie. Otherwise the forward runs without winner tracking, as JAX's
-primal path does. :func:`gather_max` runs the kernels,
-:func:`gather_max_plain` the plain versions, with the same routing.
+every tie. The backward accumulates in f32 and casts ``dh`` to ``h``'s
+dtype, as the JAX VJP does (a bf16 cotangent is read as it is:
+``gather_max_win_bf16`` and ``gather_max_bwd_bf16`` are the bf16
+bodies). Otherwise the forward runs without winner tracking, as JAX's
+primal path does (a bf16 table takes the winner kernel, its winners
+unused). :func:`gather_max` runs the kernels, :func:`gather_max_plain`
+the plain versions, with the same routing.
 
 The bf16 eval maxes (``csrc/gather_max_bf16.cu``), counterparts of
 ``gather_max_affine`` and ``gather_matmul_max`` of the JAX module, take
@@ -36,6 +41,17 @@ in :func:`bn_lrelu_epilogue`:
 Both are forward-only (eval). The plain matmul max multiplies per point
 (``x @ w`` in f32, then the gather), which sums the products in another
 order than the kernel: the two agree to one bf16 ulp.
+
+:func:`gather_matmul_max_train` ``(x [B, N, C_in] bf16, w [C_in, C_out]
+bf16, idx, mask) -> [B, N, C_out] bf16`` is the training twin of
+``gather_matmul_max`` (JAX ``gather_matmul_max_train``): the forward
+(``gather_matmul_max_win``) rounds each slot's f32 product to bf16 before
+the max and records the first winning slot, so values and winners are
+those of the per-point bf16 product followed by the neighbour max; the
+backward routes the cotangent to the winning rows at ``C_out``
+(``gather_max_bwd``), rounds it to bf16, and forms ``dx = dy @ w^T`` and
+``dw = x^T dy`` with f32 accumulation, cast to ``x``'s and ``w``'s dtypes
+(``_gmm_train_bwd``). Rows with no valid neighbour give ``-3e38``.
 """
 
 from __future__ import annotations
@@ -47,7 +63,9 @@ import torch
 from . import _lib
 
 __all__ = ["NEG", "bn_lrelu_epilogue", "gather_matmul_max",
-           "gather_matmul_max_plain", "gather_max", "gather_max_affine",
+           "gather_matmul_max_plain", "gather_matmul_max_train",
+           "gather_matmul_max_train_plain", "gather_matmul_max_win",
+           "gather_matmul_max_win_plain", "gather_max", "gather_max_affine",
            "gather_max_affine_plain", "gather_max_bwd",
            "gather_max_bwd_plain", "gather_max_plain", "gather_max_win",
            "gather_max_win_plain", "masked_nbr_max"]
@@ -87,11 +105,20 @@ def gather_max_bwd_plain(idx, winner, g, n_out: int):
     return dh.scatter_add_(1, src, g.float())
 
 
-def _check_fwd(name, h, idx, mask):
+def _body(name, t):
+    """The kernel of ``name`` for ``t``'s dtype, and that dtype: the f32
+    body, or the ``_bf16`` one for bf16 (any other dtype is refused by
+    the f32 body's check)."""
+    if t.dtype == torch.bfloat16:
+        return f"{name}_bf16", torch.bfloat16
+    return name, torch.float32
+
+
+def _check_fwd(name, h, idx, mask, dtype=torch.float32):
     b, n, c = h.shape
     k = idx.shape[-1]
     return _lib.check_inputs(name, [
-        ("h", h, torch.float32, (b, n, c)),
+        ("h", h, dtype, (b, n, c)),
         ("idx", idx, torch.int32, (b, n, k)),
         ("mask", mask, torch.bool, (b, n, k)),
     ])
@@ -99,9 +126,12 @@ def _check_fwd(name, h, idx, mask):
 
 def _max(h, idx, mask):
     """The forward without winners: plain version for CPU tensors, the
-    ``gather_max`` kernel for CUDA tensors."""
+    ``gather_max`` kernel for f32 CUDA tensors (the bf16 winner kernel
+    for bf16 ones)."""
     if h.device.type == "cpu":
         return _max_plain(h, idx, mask)
+    if h.dtype == torch.bfloat16:
+        return gather_max_win(h, idx, mask)[0]
     device = _check_fwd("gather_max", h, idx, mask)
     b, n, c = h.shape
     out = torch.empty_like(h)
@@ -112,64 +142,58 @@ def _max(h, idx, mask):
 
 def gather_max_win(h, idx, mask):
     """The forward with winners ``(out, winner [B, N, C] int32)``: plain
-    version for CPU tensors, the ``gather_max_win`` kernel for CUDA
-    tensors."""
+    version for CPU tensors, the ``gather_max_win`` kernel (f32) or
+    ``gather_max_win_bf16`` (bf16 in, bf16 out) for CUDA tensors."""
     if h.device.type == "cpu":
         return gather_max_win_plain(h, idx, mask)
-    device = _check_fwd("gather_max_win", h, idx, mask)
+    name, dtype = _body("gather_max_win", h)
+    device = _check_fwd(name, h, idx, mask, dtype)
     b, n, c = h.shape
     out = torch.empty_like(h)
     winner = torch.empty((b, n, c), dtype=torch.int32, device=device)
-    _lib.launch("gather_max_win", device, h.data_ptr(), idx.data_ptr(),
+    _lib.launch(name, device, h.data_ptr(), idx.data_ptr(),
                 mask.data_ptr(), out.data_ptr(), winner.data_ptr(), b, n, c,
                 idx.shape[-1])
     return out, winner
 
 
 def gather_max_bwd(idx, winner, g, n_out: int):
-    """The winner-routed backward ``dh [B, n_out, C]``: plain version for
-    CPU tensors, the ``gather_max_bwd`` kernel for CUDA tensors."""
+    """The winner-routed backward ``dh [B, n_out, C]`` f32: plain version
+    for CPU tensors, the ``gather_max_bwd`` kernel (f32 ``g``) or
+    ``gather_max_bwd_bf16`` (bf16 ``g``) for CUDA tensors."""
     if g.device.type == "cpu":
         return gather_max_bwd_plain(idx, winner, g, n_out)
     b, n, c = g.shape
     k = idx.shape[-1]
-    device = _lib.check_inputs("gather_max_bwd", [
+    name, dtype = _body("gather_max_bwd", g)
+    device = _lib.check_inputs(name, [
         ("idx", idx, torch.int32, (b, n, k)),
         ("winner", winner, torch.int32, (b, n, c)),
-        ("g", g, torch.float32, (b, n, c)),
+        ("g", g, dtype, (b, n, c)),
     ])
     dh = torch.zeros((b, n_out, c), dtype=torch.float32, device=device)
-    _lib.launch("gather_max_bwd", device, idx.data_ptr(), winner.data_ptr(),
+    _lib.launch(name, device, idx.data_ptr(), winner.data_ptr(),
                 g.data_ptr(), dh.data_ptr(), b, n, c, k, n_out)
     return dh
 
 
-class _Route(NamedTuple):
-    win: Callable
-    bwd: Callable
-
-
-_KERNELS = _Route(gather_max_win, gather_max_bwd)
-_PLAIN = _Route(gather_max_win_plain, gather_max_bwd_plain)
-
-
 class _GatherMax(torch.autograd.Function):
     """Neighbour max with the single-winner VJP, gradient for ``h``
-    only. The raw functions get detached tensors: inside ``forward``
-    the inputs still carry ``requires_grad``."""
+    only, cast to ``h``'s dtype. The raw functions get detached tensors:
+    inside ``forward`` the inputs still carry ``requires_grad``."""
 
     @staticmethod
     def forward(ctx, h, idx, mask, route):
         out, winner = route.win(h.detach(), idx, mask)
         ctx.save_for_backward(idx, winner)
-        ctx.route, ctx.n_out = route, h.shape[1]
+        ctx.route, ctx.n_out, ctx.dtype = route, h.shape[1], h.dtype
         return out
 
     @staticmethod
     def backward(ctx, g):
         idx, winner = ctx.saved_tensors
         dh = ctx.route.bwd(idx, winner, g.contiguous(), ctx.n_out)
-        return dh, None, None, None
+        return dh.to(ctx.dtype), None, None, None
 
 
 def _differentiated(h) -> bool:
@@ -279,17 +303,14 @@ def _pad_last(t, multiple):
     return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
-def gather_matmul_max(x, w, idx, mask, affine=None):
-    """Plain version for CPU tensors; the CUDA kernel (tensor cores) for
-    CUDA tensors. The kernel takes widths that are multiples of 16:
-    other widths are zero-padded here (zero columns add nothing) and the
-    padded outputs dropped."""
-    if x.device.type == "cpu":
-        return gather_matmul_max_plain(x, w, idx, mask, affine)
+def _mm_operands(name, x, w, idx, mask):
+    """Checks the matmul maxes' inputs; returns the device and ``x`` and
+    ``w`` zero-padded to widths that are multiples of 16 (zero columns
+    add nothing), aligned as the kernel's loads need."""
     b, n, c_in = x.shape
     c_out = w.shape[-1]
     k = idx.shape[-1]
-    device = _lib.check_inputs("gather_matmul_max", [
+    device = _lib.check_inputs(name, [
         ("x", x, torch.bfloat16, (b, n, c_in)),
         ("w", w, torch.bfloat16, (c_in, c_out)),
         ("idx", idx, torch.int32, (b, n, k)),
@@ -297,13 +318,27 @@ def gather_matmul_max(x, w, idx, mask, affine=None):
     ])
     xp = _pad_last(x, 16)
     wp = _pad_last(_pad_last(w, 16).t(), 16).t().contiguous()
+    for arg, t, align in (("x", xp, 16), ("w", wp, 32)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}({arg}): the kernel's loads need "
+                             f"{align}-byte aligned data")
+    return device, xp, wp
+
+
+def gather_matmul_max(x, w, idx, mask, affine=None):
+    """Plain version for CPU tensors; the CUDA kernel (tensor cores) for
+    CUDA tensors. The kernel takes widths that are multiples of 16:
+    other widths are zero-padded here (zero columns add nothing) and the
+    padded outputs dropped."""
+    if x.device.type == "cpu":
+        return gather_matmul_max_plain(x, w, idx, mask, affine)
+    b, n, _ = x.shape
+    c_out = w.shape[-1]
+    k = idx.shape[-1]
+    device, xp, wp = _mm_operands("gather_matmul_max", x, w, idx, mask)
     aff = None
     if affine is not None:
         aff = _pad_last(_affine_rows(affine, c_out).to(device), 16)
-    for name, t, align in (("x", xp, 16), ("w", wp, 32)):
-        if t.data_ptr() % align:
-            raise ValueError(f"gather_matmul_max({name}): the kernel's "
-                             f"loads need {align}-byte aligned data")
     out = torch.empty((b, n, wp.shape[1]), dtype=torch.bfloat16,
                       device=device)
     _lib.launch("gather_matmul_max", device, xp.data_ptr(), wp.data_ptr(),
@@ -311,3 +346,90 @@ def gather_matmul_max(x, w, idx, mask, affine=None):
                 0 if aff is None else aff.data_ptr(), out.data_ptr(), b, n,
                 xp.shape[-1], wp.shape[1], k)
     return out[..., :c_out].contiguous() if wp.shape[1] != c_out else out
+
+
+# -- the differentiable bf16 gather-then-matmul max (training) -------------
+
+
+def gather_matmul_max_win_plain(x, w, idx, mask):
+    """Plain version: ``x @ w`` per point in f32 (bf16 products are exact
+    in f32), rounded to bf16, then the masked max with winners."""
+    y = torch.matmul(x.float(), w.float()).to(torch.bfloat16)
+    return gather_max_win_plain(y, idx, mask)
+
+
+def gather_matmul_max_win(x, w, idx, mask):
+    """``(out [B, N, C_out] bf16, winner [B, N, C_out] int32)``: plain
+    version for CPU tensors; the ``gather_matmul_max_win`` kernel (tensor
+    cores) for CUDA tensors, with the widths zero-padded to multiples of
+    16 as in :func:`gather_matmul_max` (a padded column is never read
+    back)."""
+    if x.device.type == "cpu":
+        return gather_matmul_max_win_plain(x, w, idx, mask)
+    device, xp, wp = _mm_operands("gather_matmul_max_win", x, w, idx, mask)
+    b, n, _ = x.shape
+    c_out = w.shape[-1]
+    out = torch.empty((b, n, wp.shape[1]), dtype=torch.bfloat16,
+                      device=device)
+    winner = torch.empty((b, n, wp.shape[1]), dtype=torch.int32,
+                         device=device)
+    _lib.launch("gather_matmul_max_win", device, xp.data_ptr(),
+                wp.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), winner.data_ptr(), b, n, xp.shape[-1],
+                wp.shape[1], idx.shape[-1])
+    if wp.shape[1] != c_out:
+        return out[..., :c_out].contiguous(), winner[..., :c_out].contiguous()
+    return out, winner
+
+
+class _Route(NamedTuple):
+    win: Callable
+    bwd: Callable
+    mm_win: Callable
+
+
+_KERNELS = _Route(gather_max_win, gather_max_bwd, gather_matmul_max_win)
+_PLAIN = _Route(gather_max_win_plain, gather_max_bwd_plain,
+                gather_matmul_max_win_plain)
+
+
+class _GatherMatmulMax(torch.autograd.Function):
+    """``max_k (x @ w)[idx_k]`` with the single-winner VJP of
+    ``_gmm_train_bwd``: the cotangent scattered to the winning rows at
+    ``C_out`` in f32, rounded to bf16 (``dyc``), then ``dx = dyc @ w^T``
+    and ``dw = x^T dyc`` over all points, f32 accumulation of the exact
+    bf16 products (as f32 products of bf16 values on every device), cast
+    to ``x``'s and ``w``'s dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w, idx, mask, route):
+        out, winner = route.mm_win(x.detach(), w.detach(), idx, mask)
+        ctx.save_for_backward(x, w, idx, winner)
+        ctx.route = route
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, idx, winner = ctx.saved_tensors
+        dy = ctx.route.bwd(idx, winner, g.contiguous(), x.shape[1])
+        dyc = dy.to(torch.bfloat16).float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dyc, w.float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.float().flatten(0, 1).t(),
+                              dyc.flatten(0, 1)).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+def gather_matmul_max_train(x, w, idx, mask):
+    """Differentiable bf16 ``max_k (x @ w)[idx_k]`` over valid slots
+    through the kernels on CUDA tensors (plain versions on CPU ones);
+    gradients for ``x`` and ``w``."""
+    return _GatherMatmulMax.apply(x, w, idx, mask, _KERNELS)
+
+
+def gather_matmul_max_train_plain(x, w, idx, mask):
+    """:func:`gather_matmul_max_train` through the plain versions on any
+    device."""
+    return _GatherMatmulMax.apply(x, w, idx, mask, _PLAIN)

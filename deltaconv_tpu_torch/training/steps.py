@@ -2,7 +2,9 @@
 ``deltaconv_tpu/training/steps.py``). One train step runs what the
 reference's hot loop runs per batch: the operator build, the forward,
 the loss, the backward, the SGD update and the BatchNorm running-stat
-update."""
+update. It runs a model in f32 or at the production mixed precision
+(``compute_dtype`` and ``operator_dtype`` bf16): bf16 products and
+activations, f32 BatchNorm, logits, loss and parameters."""
 
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ __all__ = ["make_eval_step", "make_train_step"]
 
 
 def _strict_f32():
-    # TF32 would reorder near-tied kNN neighbours and move the results.
+    # TF32 would reorder near-tied kNN neighbours and move the results;
+    # it stays off in bf16 too (the build and the loss run in f32).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -10,6 +10,7 @@ kernels' indexing runs. The scatters add with atomics in any order, so
 they are held to 1e-5 x max|dh|.
 """
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -21,6 +22,7 @@ from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS,
                                  launch_counts, reset_launch_counts)
 from deltaconv_tpu_torch import ops
 from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+from deltaconv_tpu_torch.models import build_operators
 from deltaconv_tpu_torch.ops.gather_max import NEG
 from deltaconv_tpu_torch.ops.wls_fused import edge_planes
 from deltaconv_tpu_torch.training import (create_train_state,
@@ -415,3 +417,163 @@ def test_bf16_model_kernels_match_plain(cuda):
     reset_launch_counts()
     engine.predict([p.numpy() for p in pos], [q.numpy() for q in nrm])
     assert launch_counts()["knn_topk"] > 0
+
+
+# -- the bf16 train slice -------------------------------------------------------
+
+
+@pytest.mark.parametrize("c", [3, 64, 300])
+def test_gather_max_win_bf16_and_bwd_kernels(cuda, c):
+    """bf16 in, bf16 out: values and winners equal (ties from repeated
+    indices and coarse values included; odd C takes the one-channel
+    loads), values as numbers: where +0 and -0 tie the kernel keeps the
+    first slot's and the plain ``amax`` either; the bf16-cotangent
+    scatter within 1e-5 x max."""
+    rng = np.random.default_rng(15)
+    n, k = 150, 9
+    h = torch.from_numpy(np.round(rng.standard_normal((2, n, c)) * 8).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    idx, mask = _rand_graph(rng, n, k, cuda)
+    out, win = ops.gather_max_win(h, idx, mask)
+    out_p, win_p = ops.gather_max_win_plain(h, idx, mask)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, out_p), int((out != out_p).sum())
+    assert torch.equal(win, win_p), int((win != win_p).sum())
+    assert not win[0, 4].any()
+    g = torch.randn((2, n, c), device=cuda).to(torch.bfloat16)
+    _close_to_max(ops.gather_max_bwd(idx, win, g, n),
+                  ops.gather_max_bwd_plain(idx, win, g, n), 1e-5)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(128, 256), (24, 40)])
+def test_gather_matmul_max_win_kernel(cuda, c_in, c_out):
+    """Bit-equal values and winners on inputs whose sums are exact in any
+    order; on random inputs within one bf16 ulp, and a winner that
+    differs only where the plain products at the two slots are within
+    two ulps (each product may sit one ulp off); -3e38 and winner 0
+    where no slot is valid."""
+    rng = np.random.default_rng(16)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    n, k = 150, 9
+    idx, mask = _rand_graph(rng, n, k, cuda)
+    xe = (torch.randint(-32, 33, (2, n, c_in), device=cuda) / 8.0).to(
+        torch.bfloat16)
+    we = (torch.randint(-16, 17, (c_in, c_out), device=cuda) / 16.0).to(
+        torch.bfloat16)
+    out, win = ops.gather_matmul_max_win(xe, we, idx, mask)
+    out_p, win_p = ops.gather_matmul_max_win_plain(xe, we, idx, mask)
+    assert torch.equal(out, out_p), int((out != out_p).sum())
+    assert torch.equal(win, win_p), int((win != win_p).sum())
+    x = torch.randn((2, n, c_in), device=cuda, generator=gen).to(
+        torch.bfloat16)
+    w = (torch.randn((c_in, c_out), device=cuda, generator=gen) / 8).to(
+        torch.bfloat16)
+    out, win = ops.gather_matmul_max_win(x, w, idx, mask)
+    out_p, win_p = ops.gather_matmul_max_win_plain(x, w, idx, mask)
+    torch.cuda.synchronize()
+    assert int(_bf16_ulps(out, out_p).max()) <= 1
+    y = torch.matmul(x.float(), w.float()).to(torch.bfloat16)
+    rows = torch.gather(idx.long(), 2, win.long())  # the kernel's winners
+    rows_p = torch.gather(idx.long(), 2, win_p.long())
+    at = torch.gather(y, 1, rows)
+    at_p = torch.gather(y, 1, rows_p)
+    assert int(_bf16_ulps(at, at_p).max()) <= 2
+    assert bool((out[0, 4].float() == torch.tensor(NEG).to(
+        torch.bfloat16).float()).all())
+    assert not win[0, 4].any()
+
+
+def test_bf16_autograd_round_trip_launches(cuda):
+    """The differentiable bf16 maxes and dense applies on the card: each
+    forward and backward launches its kernel once, and the gradients
+    equal those of the plain route (same winners: exact inputs)."""
+    rng = np.random.default_rng(17)
+    n, k = 96, 8
+    idx, mask = _rand_graph(rng, n, k, cuda)
+    h = torch.randn((2, n, 64), device=cuda).to(torch.bfloat16)
+    x = (torch.randint(-32, 33, (2, n, 32), device=cuda) / 8.0).to(
+        torch.bfloat16)
+    w = (torch.randint(-16, 17, (32, 48), device=cuda) / 16.0).to(
+        torch.bfloat16)
+    g = torch.randn((2, n, 64), device=cuda).to(torch.bfloat16)
+    g2 = torch.randn((2, n, 48), device=cuda).to(torch.bfloat16)
+    grads = []
+    for maxed, mm in ((ops.gather_max, ops.gather_matmul_max_train),
+                      (ops.gather_max_plain,
+                       ops.gather_matmul_max_train_plain)):
+        reset_launch_counts()
+        hg = h.clone().requires_grad_()
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        ((maxed(hg, idx, mask).float() * g.float()).sum()
+         + (mm(xg, wg, idx, mask).float() * g2.float()).sum()).backward()
+        grads.append((hg.grad, xg.grad, wg.grad))
+        counts = launch_counts()
+        if maxed is ops.gather_max:
+            assert counts["gather_max_win_bf16"] == 1, counts
+            assert counts["gather_matmul_max_win"] == 1, counts
+            assert counts["gather_max_bwd_bf16"] == 2, counts
+        else:
+            assert sum(counts.values()) == 0, counts
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16
+        _close_to_max(got.float(), want.float(), 2.0 ** -8)
+
+    pos, nrm = _cloud_batch(rng, 2, 128, cuda)
+    gd = build_operators(pos, 8, nrm, operator_dtype="bfloat16")
+    gd_cpu = dataclasses.replace(
+        gd, nbr_idx=gd.nbr_idx.cpu(), nbr_mask=gd.nbr_mask.cpu(),
+        w_grad=gd.w_grad.cpu(), w_div=gd.w_div.cpu())
+    v = torch.randn((2, 128, 2, 16), device=cuda).to(torch.bfloat16)
+    ct = torch.randn((2, 128, 16), device=cuda).to(torch.bfloat16)
+    outs = []
+    for op, vv, cc in ((gd, v, ct), (gd_cpu, v.cpu(), ct.cpu())):
+        vg = vv.clone().requires_grad_()
+        out = op.div(vg)
+        out.backward(cc)
+        outs.append((out.float().cpu(), vg.grad.float().cpu()))
+    for got, want in zip(*outs):  # f32 sums over N in another order
+        _close_to_max(got, want, 2.0 ** -8)
+
+
+def _bf16_step(batch, ops_, seed=0):
+    model = DeltaNetClassification(
+        5, conv_channels=(8, 136, 272), embedding_size=32, num_neighbors=8,
+        dropout=0.0, compute_dtype="bfloat16", operator_dtype="bfloat16",
+        knn_method="approx", generator=torch.Generator().manual_seed(seed))
+    model = model.to(batch["pos"].device)
+    state = create_train_state(model, sgd_momentum(0.01))
+    loss = float(make_train_step(model, ops=ops_)(state, batch, None)["loss"])
+    return loss, model
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_bf16_train_step_kernels_match_plain(cuda, ragged):
+    """One narrow bf16 train step (approximate kNN, every PointMaxMLP
+    lane-narrower) through the kernels and through the plain versions on
+    the card: every kernel of the path is launched, the losses agree to
+    1e-3, the running statistics to 1e-2 x max (measured up to 1.7e-3:
+    a one-ulp difference in a bf16 activation moves the 4-row head
+    BatchNorm's statistics), and the gradients are finite (winner flips
+    at bf16 near-ties move single entries)."""
+    rng = np.random.default_rng(18)
+    pos, nrm = _cloud_batch(rng, 4, 128, cuda)
+    batch = {"pos": pos, "normal": nrm,
+             "label": torch.tensor([0, 1, 2, 3], device=cuda)}
+    if ragged:
+        batch["point_mask"] = torch.arange(128, device=cuda)[None, :] < (
+            torch.tensor([[128], [90], [128], [60]], device=cuda))
+    reset_launch_counts()
+    loss_k, model_k = _bf16_step(batch, KERNEL_OPS)
+    counts = launch_counts()
+    loss_p, model_p = _bf16_step(batch, PLAIN_OPS)
+    used = ["gather_rows", "wls", "densify_bf16", "adjacency",
+            "gather_max_win_bf16", "gather_max_bwd_bf16",
+            "gather_matmul_max_win"] + ([] if ragged else ["knn_topk"])
+    assert all(counts[name] > 0 for name in used), counts
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    for p in model_k.parameters():
+        assert p.dtype == torch.float32 and bool(p.grad.isfinite().all())
+    bufs_p = dict(model_p.named_buffers())
+    for name, b in model_k.named_buffers():
+        _close_to_max(b, bufs_p[name], 1e-2)

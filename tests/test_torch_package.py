@@ -92,6 +92,20 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(ops.gather_matmul_max(hb, w, idx, mask),
                                ops.gather_matmul_max_plain(hb, w, idx, mask),
                                rtol=0, atol=0)
+    for got, want in zip(ops.gather_max_win(hb, idx, mask),
+                         ops.gather_max_win_plain(hb, idx, mask)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    gb = torch.randn((2, 32, 7)).to(torch.bfloat16)
+    out, win = ops.gather_matmul_max_win(hb, w, idx, mask)
+    torch.testing.assert_close(
+        (out, win), ops.gather_matmul_max_win_plain(hb, w, idx, mask),
+        rtol=0, atol=0)
+    torch.testing.assert_close(ops.gather_max_bwd(idx, win, gb, 32),
+                               ops.gather_max_bwd_plain(idx, win, gb, 32),
+                               rtol=0, atol=0)
+    xg, wg = hb.clone().requires_grad_(), w.clone().requires_grad_()
+    ops.gather_matmul_max_train(xg, wg, idx, mask).float().sum().backward()
+    assert xg.grad.dtype == wg.grad.dtype == torch.bfloat16
     coef = torch.randn((2, 32, 6, 2))
     for got, want in zip(
             ops.densify_coefs(idx, coef, coef, torch.bfloat16),
@@ -101,13 +115,18 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
         "adjacency": 0, "gather_sum": 0, "gather_sum_bwd": 0,
-        "knn_topk": 0, "gather_max_affine": 0, "gather_matmul_max": 0}
+        "knn_topk": 0, "gather_max_affine": 0, "gather_matmul_max": 0,
+        "gather_max_win_bf16": 0, "gather_max_bwd_bf16": 0,
+        "gather_matmul_max_win": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
     assert PLAIN_OPS.gather_sum is ops.gather_sum_plain
     assert KERNEL_OPS.knn_topk is ops.knn_topk
     assert PLAIN_OPS.gather_matmul_max is ops.gather_matmul_max_plain
+    assert KERNEL_OPS.gather_matmul_max_train is ops.gather_matmul_max_train
+    assert (PLAIN_OPS.gather_matmul_max_train
+            is ops.gather_matmul_max_train_plain)
 
 
 def test_kernels_refuse_other_devices():
@@ -150,9 +169,16 @@ def test_kernels_refuse_other_devices():
     aff = tuple(torch.zeros(5, device=meta) for _ in range(4))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.gather_max_affine(hb, im, mm, aff, True)
+    wb = torch.zeros(5, 7, dtype=torch.bfloat16, device=meta)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        ops.gather_matmul_max(hb, torch.zeros(5, 7, dtype=torch.bfloat16,
-                                              device=meta), im, mm)
+        ops.gather_matmul_max(hb, wb, im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_max_win(hb, im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_max_bwd(im, torch.zeros(2, 32, 5, dtype=torch.int32,
+                                           device=meta), hb, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_matmul_max_win(hb, wb, im, mm)
     assert sum(launch_counts().values()) == 0
 
 
@@ -207,13 +233,28 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert next(state.model.parameters()).device.type == "cpu"
 
 
-def test_bf16_training_not_ported():
-    model = DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
-                                   num_neighbors=4, compute_dtype="bfloat16")
-    pos = torch.randn((2, 16, 3))
-    normal = torch.nn.functional.normalize(torch.randn((2, 16, 3)), dim=-1)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        model(pos, normal)  # a new module is in training mode
+def test_bf16_training_runs_on_the_cpu():
+    """A narrow model at the production config (bf16 compute and
+    operators, approximate kNN) takes a few CPU steps: the losses stay
+    finite and fall, the parameters stay f32, and eval still serves."""
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    model = DeltaNetClassification(
+        4, conv_channels=(8, 16, 136), embedding_size=16, num_neighbors=6,
+        compute_dtype="bfloat16", operator_dtype="bfloat16",
+        knn_method="approx", generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    pos = torch.randn((4, 48, 3), generator=gen)
+    normal = torch.nn.functional.normalize(pos, dim=-1)
+    batch = {"pos": pos, "normal": normal, "label": torch.arange(4)}
+    state = create_train_state(model, sgd_momentum(0.05), device="cpu")
+    step = make_train_step(model)
+    losses = [float(step(state, batch, gen)["loss"]) for _ in range(6)]
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-2:]) < np.mean(losses[:2]), losses
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())
     model.eval()
     assert model(pos, normal).dtype == torch.float32
 
