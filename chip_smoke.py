@@ -8,13 +8,15 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the sixteen CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the eighteen CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
    at C = 64 and 128 and 128 -> 256, the bf16 train maxes at C = 64 and
    128, their backward also at 256, the train matmul max at 128 -> 256;
-   knn_topk also at N=4096), uniform
+   knn_topk also at N=4096; segmentation serving's kernels at B=16,
+   N=2048, K=30: the bf16 max without winners at C=128, gather_mlp_max
+   at conv0, 3 -> 64 -> 64, and conv2, 128 -> 256 -> 256), uniform
    and masked, and times the kernel, the plain version and, where
    PyTorch's library calls compute the same function, those calls with
    their set-up (CUDA events around 5 back-to-back calls, median of 30
@@ -69,7 +71,22 @@ first on ``sys.path``. It
    gradients no farther (x 1.25) from the f32 step's than the plain
    versions' (winner flips at bf16 near-ties move single entries; the
    gradients' deviations, all tensors, worst tensor and worst element,
-   are printed beside the spread of two kernel steps).
+   are printed beside the spread of two kernel steps);
+9. serves 32 uniform and 8 ragged clouds (1200..2048 points, the last a
+   full one) with normals and category ids through ``InferenceEngine``
+   on ``DeltaNetSegmentation`` at the ShapeNet config (50 part classes,
+   conv channels (64, 128, 256), MLP depth 2, k=30, the categorical
+   head; seeded weights, randomized BatchNorm), in f32 (exact kNN) and
+   at the production config (approximate kNN, bf16), counting launches
+   per forward (gather_mlp_max twice in bf16), and checks the per-point
+   logits: finite, of the right shapes, trimmed per cloud; f32 within
+   atol 1e-3 of the plain path, bf16 within 0.01 x max|logit| of it and
+   within 0.05 x max|logit| of the f32 engine, argmaxes equal where
+   decisive; a full cloud the same ragged or uniform; it prints clouds/s,
+   batch latency and a profile of one call;
+10. times the segmentation config's last conv in both forms: the per-edge
+    MLP and max in one kernel (``gather_mlp_max``) and the per-point
+    chain followed by ``gather_max_affine``.
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -134,6 +151,17 @@ BF16_STATS_RTOL = 1e-3  # x max
 BF16_PARAM_FROB = 2e-2  # relative Frobenius, all parameters at once
 BF16_F32_RATIO = 1.25  # gradients' distance to the f32 step, kernels/plain
 MM_WIN_FRAC = 1e-4  # gather_matmul_max_win: share of 1-ulp values, flips
+# Segmentation serving: the ShapeNet config (experiments/train_shapenet.py,
+# bench.py's seg mode): B=16 clouds of N=2048 points, k=30, conv channels
+# (64, 128, 256), MLP depth 2, 50 part classes, the categorical head.
+SEG_B, SEG_N, SEG_K = 16, 2048, 30
+SEG_CLASSES = 50
+SEG_UNIFORM, SEG_RAGGED = 32, 7  # clouds: 2 uniform batches, 1 ragged
+SEG_MAX_WIDTH = 128  # gather_max_bf16: conv1's MLP output
+# gather_mlp_max at conv0 and conv2: (C_in, C_out, centralized)
+MLP_CASES = {"conv0": (3, 64, True), "conv2": (128, 256, False)}
+MLP_FRAC = 1e-2  # share of best values that may differ from the plain
+MLP_REL = 1e-2  # x max|best|: a one-ulp product through the next layer
 
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
@@ -168,6 +196,10 @@ KERNEL_META = {
                             "deltaconv_tpu/ops/gather_max.py:362"),
     "gather_matmul_max_win": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
                               "deltaconv_tpu/ops/gather_max.py:865"),
+    "gather_max_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                        "deltaconv_tpu/ops/gather_max.py:230"),
+    "gather_mlp_max": ("deltaconv_tpu_torch/csrc/gather_mlp_max.cu",
+                       "deltaconv_tpu/ops/gather_mlp_max.py:237"),
 }
 # The port's autograd Functions, whose forward or backward launches a
 # kernel outside any aten op (the profiler books it to them).
@@ -184,12 +216,18 @@ STREAM_KERNELS = ("gather_sum", "gather_sum_bwd")
 TRAIN_BF16_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
                       "adjacency", "gather_max_win_bf16",
                       "gather_max_bwd_bf16", "gather_matmul_max_win")
+SEG_KERNELS = ("gather_rows", "wls", "densify", "gather_max")
+SEG_BF16_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
+                    "gather_max_bf16", "gather_mlp_max")
 # Width of the record's time: the widest conv for the max, the first
-# conv's [y, y^2] (2 x 64) for the sum, as the train step calls them.
+# conv's [y, y^2] (2 x 64) for the sum, as the train step calls them;
+# the bf16 max without winners at conv1's width in segmentation serving,
+# gather_mlp_max at conv2's widths.
 RECORD_WIDTH = {"gather_max": 256, "gather_max_win": 256,
                 "gather_max_bwd": 256, "gather_sum": 128,
                 "gather_sum_bwd": 128, "gather_max_win_bf16": 128,
-                "gather_max_bwd_bf16": 256}
+                "gather_max_bwd_bf16": 256, "gather_max_bf16": SEG_MAX_WIDTH,
+                "gather_mlp_max": "conv2"}
 
 
 def nbytes(*tensors) -> int:
@@ -426,6 +464,136 @@ def check_bf16_train_kernels(record, idx, nbr_mask, dev):
     torch.cuda.synchronize()
 
 
+def mlp_inputs(c_in, c_out, centralized, dev):
+    """Inputs of gather_mlp_max at one conv's widths: bf16 ``x``, the two
+    layers' weights (the last sign-folded by the epilogue's signs), the
+    intermediate affine, the self slot (the chain of the zero edge, or of
+    every point) and the epilogue."""
+    from deltaconv_tpu_torch import ops
+
+    x = torch.randn((SEG_B, SEG_N, c_in), device=dev).to(torch.bfloat16)
+    epi = random_affine(c_out, dev)
+    ws = [torch.randn((c_in, c_out), device=dev) / c_in ** 0.5,
+          torch.randn((c_out, c_out), device=dev) / c_out ** 0.5
+          * epi[0][None, :]]
+    affines = [(torch.randn(c_out, device=dev),
+                torch.randn(c_out, device=dev) * 0.2)]
+    z0 = (ops.mlp_chain(torch.zeros((1, c_in), device=dev), ws, affines)[0]
+          if centralized else ops.mlp_chain(x, ws, affines))
+    return x, ws, affines, z0, epi
+
+
+def seg_graphs(rng, dev):
+    """Uniform and masked kNN graphs at the segmentation shapes; masked:
+    the last 40% of the points of every other cloud are padding."""
+    from deltaconv_tpu_torch.geometry import knn
+
+    clouds, _ = ellipsoid_clouds(rng, [SEG_N] * SEG_B)
+    pos = torch.from_numpy(np.stack(clouds)).to(dev)
+    pmask = torch.ones((SEG_B, SEG_N), dtype=torch.bool, device=dev)
+    pmask[::2, int(0.6 * SEG_N):] = False
+    cases = {}
+    for label, mask in (("uniform", None), ("masked", pmask)):
+        idx, nbr_mask = knn(pos, SEG_K, mask)
+        if mask is not None:
+            nbr_mask = nbr_mask & mask[:, :, None]
+        cases[label] = (idx, nbr_mask)
+    return cases
+
+
+def check_seg_kernels(record, idx, nbr_mask, dev):
+    """The two kernels of bf16 segmentation serving against their plain
+    versions at its shapes: gather_max_bf16 (values equal) and
+    gather_mlp_max at conv0 and conv2: over every slot without the self
+    slot and the epilogue, at most MLP_FRAC of the best values differ
+    and by at most MLP_REL x max (the tensor cores sum in another order
+    and a one-ulp product carries through the next layer); the self-slot
+    merge and the epilogue bit-equal to their replay on the kernel's own
+    best values; the fused output within MLP_REL x max of the plain."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.ops.gather_max import NEG
+
+    h = torch.randn((SEG_B, SEG_N, SEG_MAX_WIDTH),
+                    device=dev).to(torch.bfloat16)
+    got = ops.gather_max(h, idx, nbr_mask)
+    want = ops.gather_max_plain(h, idx, nbr_mask)
+    err = max_err(got.float(), want.float())
+    record("gather_max_bf16", err)
+    check(f"gather_max_bf16 C={SEG_MAX_WIDTH}",
+          torch.equal(got.float(), want.float()), f"max_abs_err {err}")
+    valid = nbr_mask.any(dim=-1, keepdim=True)
+    for conv, (c_in, c_out, cen) in MLP_CASES.items():
+        x, ws, aff, z0, epi = mlp_inputs(c_in, c_out, cen, dev)
+        args = (x, ws, aff, idx, nbr_mask, cen)
+        raw = ops.gather_mlp_max(*args, False)
+        raw_p = ops.gather_mlp_max_plain(*args, False)
+        live = raw_p > NEG / 2
+        share = float((raw != raw_p).float().mean())
+        err = max_err(raw[live], raw_p[live])
+        tol = MLP_REL * float(raw_p[live].abs().max())
+        record("gather_mlp_max", err)
+        check(f"gather_mlp_max {conv} {c_in}->{c_out}->{c_out}, every slot",
+              torch.equal(raw > NEG / 2, live) and share <= MLP_FRAC
+              and err <= tol,
+              f"{share} of best values differ, max_abs_err {err} <= {tol}")
+        best = ops.gather_mlp_max(*args, True)
+        z0b = z0.expand_as(best) if cen else z0
+        merged = torch.maximum(best, torch.where(nbr_mask[..., :1], z0b,
+                                                 NEG))
+        o = (epi[0] * merged - epi[2]) * epi[1] + epi[3]
+        o = torch.where(valid, torch.where(o >= 0, o, 0.2 * o), 0.0)
+        fused = ops.gather_mlp_max(*args, True, z0, epi)
+        fused_p = ops.gather_mlp_max_plain(*args, True, z0, epi)
+        ferr = max_err(fused.float(), fused_p.float())
+        ftol = MLP_REL * float(fused_p.float().abs().max())
+        record("gather_mlp_max", ferr)
+        check(f"gather_mlp_max {conv} self slot and epilogue",
+              torch.equal(ops.gather_mlp_max(*args, True, z0), merged)
+              and bits_equal(fused, o.to(torch.bfloat16)) and ferr <= ftol,
+              f"bit-equal to the merge and the epilogue replayed on the "
+              f"kernel's own best values; vs the plain version max_abs_err "
+              f"{ferr} <= {ftol}")
+    torch.cuda.synchronize()
+
+
+def time_seg_kernels(res, idx, nbr_mask, dev, card):
+    """Times and bounds of the segmentation kernels at its uniform
+    shapes; gather_mlp_max's bound counts the per-edge MLP of every
+    valid covered slot on the bf16 tensor cores."""
+    from deltaconv_tpu_torch import ops
+
+    print(f"[times] segmentation shapes B={SEG_B} N={SEG_N} K={SEG_K}, "
+          f"card: {card}")
+    h = torch.randn((SEG_B, SEG_N, SEG_MAX_WIDTH),
+                    device=dev).to(torch.bfloat16)
+    r = res["gather_max_bf16"]
+    r["ms"] = median_ms(lambda: ops.gather_max(h, idx, nbr_mask))
+    r["plain_ms"] = median_ms(lambda: ops.gather_max_plain(h, idx, nbr_mask))
+    r["bound"] = bound(nbytes(h, idx, nbr_mask, h))
+    print(f"  gather_max_bf16 C={SEG_MAX_WIDTH}: kernel {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms")
+    edges = float(nbr_mask[..., 1:].sum())
+    for conv, (c_in, c_out, cen) in MLP_CASES.items():
+        x, ws, aff, z0, epi = mlp_inputs(c_in, c_out, cen, dev)
+        km = median_ms(lambda: ops.gather_mlp_max(x, ws, aff, idx, nbr_mask,
+                                                  cen, True, z0, epi))
+        pm = median_ms(lambda: ops.gather_mlp_max_plain(
+            x, ws, aff, idx, nbr_mask, cen, True, z0, epi))
+        out = ops.gather_mlp_max(x, ws, aff, idx, nbr_mask, cen, True, z0,
+                                 epi)
+        flops = 2.0 * edges * sum(w.shape[0] * w.shape[1] for w in ws)
+        bd = bound(nbytes(x, idx, nbr_mask, *(w.to(torch.bfloat16)
+                                              for w in ws),
+                          *aff[0], z0, torch.stack(epi), out),
+                   flops, BF16_TC_OPS_PER_S)
+        print(f"  gather_mlp_max {conv} {c_in}->{c_out}->{c_out}: kernel "
+              f"{km:.4f} ms, plain {pm:.4f} ms, bound {bd[0]:.4f} ms "
+              f"({bd[1]}; {flops / 1e9:.1f} GFLOP), {flops / km / 1e9:.1f} "
+              f"TFLOP/s")
+        if conv == RECORD_WIDTH["gather_mlp_max"]:
+            res["gather_mlp_max"].update(ms=km, plain_ms=pm, bound=bd)
+
+
 def kernel_phase(rng, dev, card):
     """Each kernel against its plain version at the main paths' shapes;
     times, bounds and library-call times at the uniform shapes."""
@@ -528,6 +696,11 @@ def kernel_phase(rng, dev, card):
         check_bf16_kernels(record, label, pos, idx, nbr_mask, gd_p, dev)
         check_bf16_train_kernels(record, idx, nbr_mask, dev)
         torch.cuda.synchronize()
+    seg_cases = seg_graphs(rng, dev)
+    for label, (idx, nbr_mask) in seg_cases.items():
+        print(f"[kernels] segmentation shapes B={SEG_B} N={SEG_N} "
+              f"K={SEG_K}, {label}", flush=True)
+        check_seg_kernels(record, idx, nbr_mask, dev)
 
     # Times, bounds and library calls at the uniform shapes.
     idx, nbr_mask = cases["uniform"]
@@ -694,6 +867,7 @@ def kernel_phase(rng, dev, card):
             if c == RECORD_WIDTH[name]:
                 res[name]["ms"], res[name]["plain_ms"] = km, pl
                 res[name]["bound"] = bound(nbytes(*io))
+    time_seg_kernels(res, *seg_cases["uniform"], dev, card)
     print(f"  (the JSON record gives each at its width: {RECORD_WIDTH}, "
           f"gather_max_affine at C=128, gather_matmul_max and "
           f"gather_matmul_max_win at {MM_IN}->{MM_OUT})")
@@ -787,9 +961,10 @@ def serve_phase(rng, seed, dev, card):
     return counts
 
 
-def held_to(label, got, ref, rel):
+def held_to(label, got, ref, rel, rows="clouds"):
     """Max deviation within ``rel`` x max|ref| and the argmax equal
-    wherever the reference's top-2 margin exceeds twice the deviation."""
+    wherever the reference's top-2 margin exceeds twice the deviation;
+    ``rows`` names what a row of logits belongs to."""
     dev_ = float(np.abs(got - ref).max())
     tol = rel * float(np.abs(ref).max())
     top2 = np.sort(ref, axis=-1)
@@ -798,7 +973,7 @@ def held_to(label, got, ref, rel):
     check(label, dev_ <= tol and same,
           f"max_abs_err {dev_} <= {tol} ({dev_ / max(tol / rel, 1e-30):.3e} "
           f"x max|logit|), argmax equal on {int(decisive.sum())} of "
-          f"{len(ref)} decisive clouds {same}")
+          f"{len(ref)} decisive {rows} {same}")
 
 
 def serve_bf16_phase(rng, seed, dev, card):
@@ -854,6 +1029,151 @@ def serve_bf16_phase(rng, seed, dev, card):
     profile("serve-bf16", "one 64-cloud predict call",
             lambda: engine.predict(uni, uni_n), t * 1e3)
     return counts
+
+
+def random_seg_model(seed, dev, knn_method="exact"):
+    """The ShapeNet segmentation config with seeded weights and
+    randomized BatchNorm statistics, scales (both signs) and biases."""
+    from deltaconv_tpu_torch import DeltaNetSegmentation
+    from deltaconv_tpu_torch.nn import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    model = DeltaNetSegmentation(
+        num_classes=SEG_CLASSES, conv_channels=(64, 128, 256), mlp_depth=2,
+        categorical_vector=True, num_neighbors=SEG_K, knn_method=knn_method,
+        generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.normal_(0.0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+                m.weight.uniform_(-1.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+    return model.to(dev)
+
+
+def seg_clouds(rng):
+    """SEG_UNIFORM clouds of SEG_N points, then SEG_RAGGED of 1200..2047
+    points and the first uniform one again, with category ids."""
+    uni, uni_n = ellipsoid_clouds(rng, [SEG_N] * SEG_UNIFORM)
+    sizes = rng.integers(SEG_N * 600 // 1024, SEG_N, SEG_RAGGED).tolist()
+    rag, rag_n = ellipsoid_clouds(rng, sizes)
+    uni_c = rng.integers(0, 16, SEG_UNIFORM).tolist()
+    rag_c = rng.integers(0, 16, SEG_RAGGED).tolist() + uni_c[:1]
+    return (uni, uni_n, uni_c), (rag + uni[:1], rag_n + uni_n[:1], rag_c)
+
+
+def held_abs(label, got, ref, atol):
+    """Max deviation within ``atol`` and the argmax equal wherever the
+    reference's top-2 margin exceeds twice the deviation."""
+    dev_ = float(np.abs(got - ref).max())
+    top2 = np.sort(ref, axis=-1)
+    decisive = top2[:, -1] - top2[:, -2] > 2 * dev_
+    same = bool((got.argmax(1) == ref.argmax(1))[decisive].all())
+    check(label, dev_ <= atol and same,
+          f"max_abs_err {dev_} <= {atol}, argmax equal on "
+          f"{int(decisive.sum())} of {len(ref)} decisive points {same}")
+
+
+def serve_seg_phase(rng, seed, dev, card, precision):
+    """Segmentation serving at the ShapeNet config, f32 (exact kNN) or
+    the production config (approximate kNN, bf16), with categories."""
+    from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
+                                     launch_counts, reset_launch_counts)
+
+    tag = "serve-seg" + ("-bf16" if precision else "")
+    model = random_seg_model(seed, dev, "approx" if precision else "exact")
+    kw = dict(num_points=SEG_N, batch_size=SEG_B)
+    engine = InferenceEngine(model, precision=precision, **kw)
+    plain = InferenceEngine(model, precision=precision, ops=PLAIN_OPS, **kw)
+    (uni, uni_n, uni_c), (rag, rag_n, rag_c) = seg_clouds(rng)
+
+    engine.predict(uni[:SEG_B], uni_n[:SEG_B], uni_c[:SEG_B])  # warm-up
+    engine.predict(rag[:3], rag_n[:3], rag_c[:3])
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out_u = engine.predict(uni, uni_n, uni_c)
+        times.append(time.perf_counter() - t0)
+    out_r = engine.predict(rag, rag_n, rag_c)
+    counts = launch_counts()
+    forwards = 3 * (SEG_UNIFORM // SEG_B) + 1
+    path = SEG_BF16_KERNELS if precision else SEG_KERNELS
+    print(f"[{tag}] launches during serving ({forwards} forwards): {counts}")
+    print(f"[{tag}] launches per forward: " + ", ".join(
+        f"{name} {counts[name] / forwards:g}" for name in path))
+
+    print(f"[{tag}] checks")
+    check("uniform logits", [o.shape for o in out_u]
+          == [(SEG_N, SEG_CLASSES)] * SEG_UNIFORM
+          and all(np.isfinite(o).all() for o in out_u),
+          f"{len(out_u)} clouds of shape {out_u[0].shape}")
+    check("ragged logits trimmed", [o.shape for o in out_r]
+          == [(len(c), SEG_CLASSES) for c in rag]
+          and all(np.isfinite(o).all() for o in out_r),
+          f"shapes {[o.shape[0] for o in out_r]}")
+    for name in path:
+        check(f"{name} launched", counts[name] > 0, f"{counts[name]} launches")
+    if precision:
+        check("gather_mlp_max twice a forward (conv0, conv2)",
+              counts["gather_mlp_max"] == 2 * forwards,
+              f"{counts['gather_mlp_max']} launches in {forwards} forwards")
+        f32 = InferenceEngine(model, **kw)
+    for label, clouds, normals, cats, got in (
+            ("uniform", uni, uni_n, uni_c, out_u),
+            ("ragged", rag, rag_n, rag_c, out_r)):
+        got = np.concatenate(got)
+        ref = np.concatenate(plain.predict(clouds, normals, cats))
+        if precision:
+            held_to(f"{label} kernel vs plain path", got, ref, BF16_PATH_REL,
+                    "points")
+            held_to(f"{label} bf16 vs the f32 engine", got, np.concatenate(
+                f32.predict(clouds, normals, cats)), BF16_REL, "points")
+        else:
+            held_abs(f"{label} kernel vs plain", got, ref, LOGIT_ATOL)
+    if precision:
+        held_to("full cloud ragged (exact kNN) vs uniform (knn_topk)",
+                out_r[-1], out_u[0], BF16_REL, "points")
+    else:
+        held_abs("full cloud ragged vs uniform", out_r[-1], out_u[0],
+                 LOGIT_ATOL)
+
+    t = float(np.median(times))
+    n_batches = SEG_UNIFORM // SEG_B
+    print(f"[{tag}] {SEG_UNIFORM} uniform clouds (N={SEG_N}, K={SEG_K}, "
+          f"batch {SEG_B}, precision={precision}): median {t * 1e3:.3f} ms "
+          f"per call of {n_batches} batches, {t * 1e3 / n_batches:.3f} ms "
+          f"per batch, {SEG_UNIFORM / t:.1f} clouds/s (host clock, "
+          f"synchronised), card: {card}")
+    profile(tag, f"one {SEG_UNIFORM}-cloud predict call",
+            lambda: engine.predict(uni, uni_n, uni_c), t * 1e3)
+    return counts
+
+
+def conv2_seg_forms(dev, card):
+    """The segmentation config's last conv (128 -> 256 -> 256) in both
+    forms: the per-edge MLP and max in one kernel (``gather_mlp_max``,
+    the JAX package's TPU choice, K - 1 times the products), and the
+    per-point chain (plain matmuls) followed by the bf16 max with the
+    epilogue (``gather_max_affine`` on the sign-folded output)."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import knn
+
+    c_in, c_out, _ = MLP_CASES["conv2"]
+    idx, nbr_mask = knn(torch.randn((SEG_B, SEG_N, 3), device=dev), SEG_K)
+    x, ws, aff, z0, epi = mlp_inputs(c_in, c_out, False, dev)
+    one = median_ms(lambda: ops.gather_mlp_max(
+        x, ws, aff, idx, nbr_mask, False, True, ops.mlp_chain(x, ws, aff),
+        epi))
+    two = median_ms(lambda: ops.gather_max_affine(
+        ops.mlp_chain(x, ws, aff).to(torch.bfloat16), idx, nbr_mask, epi))
+    print(f"[conv2-seg] {c_in}->{c_out}->{c_out}, B={SEG_B} N={SEG_N} "
+          f"K={SEG_K}: per-point chain + gather_mlp_max {one:.4f} ms; "
+          f"per-point chain then gather_max_affine {two:.4f} ms; card: "
+          f"{card}")
 
 
 def conv3_forms(dev, card):
@@ -1260,13 +1580,18 @@ def main():
     conv3_forms(dev, card)
     train, stream = train_phase(rng, args.seed, dev, card)
     train_bf16 = train_bf16_phase(rng, args.seed, dev, card)
+    seg = serve_seg_phase(rng, args.seed, dev, card, None)
+    seg_bf16 = serve_seg_phase(rng, args.seed, dev, card, "bfloat16")
+    conv2_seg_forms(dev, card)
 
     def launches(name):
         for path, counts in ((SERVE_KERNELS, serve),
                              (BF16_KERNELS, serve_bf16),
                              (TRAIN_KERNELS, train),
                              (STREAM_KERNELS, stream),
-                             (TRAIN_BF16_KERNELS, train_bf16)):
+                             (TRAIN_BF16_KERNELS, train_bf16),
+                             (SEG_KERNELS, seg),
+                             (SEG_BF16_KERNELS, seg_bf16)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

@@ -14,10 +14,12 @@
 // Replaces the Pallas forward of deltaconv_tpu/ops/gather_max.py
 // (`_pallas_fwd`, pallas_call at gather_max.py:230, kernel body
 // `_fwd_kernel`) in both of its modes: winners=False on the eval path
-// (`gather_max`, `masked_nbr_max`) and winners=True in the forward of
-// the custom VJP, with f32 features (`gather_max_win`) and with the bf16
-// features of the mixed-precision train step (`gather_max_win_bf16`:
-// bf16 in, bf16 out, gather_max.py:218-225). The TPU kernel gathered
+// (`gather_max`, `masked_nbr_max`; `gather_max_bf16` on the bf16
+// features of a depth-2 conv's per-point MLP in bf16 serving) and
+// winners=True in the forward of the custom VJP, with f32 features
+// (`gather_max_win`) and with the bf16 features of the mixed-precision
+// train step (`gather_max_win_bf16`); bf16 in, bf16 out
+// (gather_max.py:218-225). The TPU kernel gathered
 // through one-hot MXU matmuls on a hi/lo bf16 split of the f32 table and
 // read the self slot from its own rows; a CUDA thread loads h directly,
 // so every slot, the self slot included, is an exact load.
@@ -187,6 +189,11 @@ int launch_bwd(const void* idx, const void* winner, const void* g, void* dh,
   return (int)cudaGetLastError();
 }
 
+// Pairs of channels where every pair is 4-byte aligned.
+bool bf16_pairs(const void* h, const void* out, int C) {
+  return C % 2 == 0 && (uintptr_t)h % 4 == 0 && (uintptr_t)out % 4 == 0;
+}
+
 }  // namespace
 
 extern "C" int dc_gather_max(const void* h, const void* idx, const void* mask,
@@ -208,16 +215,25 @@ extern "C" int dc_gather_max_win(const void* h, const void* idx,
                                     stream);
 }
 
+extern "C" int dc_gather_max_bf16(const void* h, const void* idx,
+                                  const void* mask, void* out, int B, int N,
+                                  int C, int K, int device, void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
+  if (bf16_pairs(h, out, C))
+    return launch_fwd<__nv_bfloat16, 2, false>(h, idx, mask, out, nullptr, B,
+                                               N, C, K, stream);
+  return launch_fwd<__nv_bfloat16, 1, false>(h, idx, mask, out, nullptr, B, N,
+                                             C, K, stream);
+}
+
 extern "C" int dc_gather_max_win_bf16(const void* h, const void* idx,
                                       const void* mask, void* out,
                                       void* winner, int B, int N, int C,
                                       int K, int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
-  // Pairs of channels where every pair is 4-byte aligned.
-  const bool pairs = C % 2 == 0 && (uintptr_t)h % 4 == 0 &&
-                     (uintptr_t)out % 4 == 0;
-  if (pairs)
+  if (bf16_pairs(h, out, C))
     return launch_fwd<__nv_bfloat16, 2, true>(h, idx, mask, out, winner, B,
                                               N, C, K, stream);
   return launch_fwd<__nv_bfloat16, 1, true>(h, idx, mask, out, winner, B, N,

@@ -2,9 +2,11 @@
 ``deltaconv_tpu/geometry/nbr_ops.py``: ``nbr_max`` on every path,
 ``nbr_sum`` for the train-mode edge statistics, ``nbr_max_affine`` and
 ``nbr_matmul_max`` for the bf16 eval branches, ``nbr_matmul_max_train``
-for the bf16 train branch of a lane-narrower conv). ``DeltaConv`` never
-gathers through raw indices itself: it asks its operator object, which
-keeps the kernel choice (its ``ops``) in one place."""
+for the bf16 train branch of a lane-narrower conv, ``nbr_gather`` for
+the edge tensor of a depth-2 centralized conv, ``nbr_mlp_max`` for the
+bf16 eval branch of a depth-2 conv). ``DeltaConv`` never gathers through
+raw indices itself: it asks its operator object, which keeps the kernel
+choice (its ``ops``) in one place."""
 
 from __future__ import annotations
 
@@ -50,3 +52,19 @@ class NeighborAggregations:
         valid neighbour give ``-3e38``."""
         return self.ops.gather_matmul_max_train(x, w, self.nbr_idx,
                                                 self.nbr_mask)
+
+    def nbr_gather(self, h):
+        """Per-neighbour rows ``[B, N, C] -> [B, N, K, C]`` in ``h``'s
+        dtype, through the component-major ``gather_rows`` (f32, exact
+        for bf16 values) and a permute, as the JAX package's TPU route."""
+        rows = self.ops.gather_rows(h.float().contiguous(), self.nbr_idx)
+        return rows.permute(0, 3, 2, 1).to(h.dtype)
+
+    def nbr_mlp_max(self, x, ws, affines, centralized, z0, epilogue):
+        """bf16 eval: masked max over the neighbours of the eval MLP
+        (``ws``, intermediate ``affines``) applied per edge, the self
+        slot ``z0`` merged and the epilogue ``(sign, inv, mean, bias)``
+        applied (``ops.gather_mlp_max`` with ``skip_slot0``)."""
+        return self.ops.gather_mlp_max(x, ws, affines, self.nbr_idx,
+                                       self.nbr_mask, centralized, True, z0,
+                                       epilogue)

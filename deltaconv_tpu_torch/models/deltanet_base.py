@@ -88,11 +88,12 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
 class DeltaNetBase(nn.Module):
     """DGCNN-style backbone of sequential DeltaConv blocks on the
     positions: the first conv is centralized, the last drops the vector
-    stream, and every stage's scalar output is returned for the
-    heads."""
+    stream, and every stage's scalar output is returned for the heads.
+    ``mlp_depth`` is the depth of every conv's internal MLPs (1 for
+    classification, 2 for segmentation)."""
 
-    def __init__(self, conv_channels: Sequence[int], num_neighbors: int = 20,
-                 grad_regularizer: float = 0.001,
+    def __init__(self, conv_channels: Sequence[int], mlp_depth: int = 1,
+                 num_neighbors: int = 20, grad_regularizer: float = 0.001,
                  grad_kernel_width: float = 1.0, operator_dtype=None,
                  compute_dtype=None, knn_method: str = "exact"):
         super().__init__()
@@ -103,8 +104,8 @@ class DeltaNetBase(nn.Module):
         widths = [3, *conv_channels]  # the first conv reads positions
         last = len(conv_channels) - 1
         self.convs = nn.ModuleList(
-            DeltaConv(widths[i], widths[i + 1], centralized=(i == 0),
-                      vector=(i != last))
+            DeltaConv(widths[i], widths[i + 1], depth=mlp_depth,
+                      centralized=(i == 0), vector=(i != last))
             for i in range(len(conv_channels)))
         self.set_precision(compute_dtype, operator_dtype)
 

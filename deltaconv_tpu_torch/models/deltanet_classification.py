@@ -55,9 +55,10 @@ class DeltaNetClassification(nn.Module):
                  compute_dtype=None, knn_method: str = "exact",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.deltanet_base = DeltaNetBase(conv_channels, num_neighbors,
-                                          grad_regularizer,
-                                          grad_kernel_width,
+        self.deltanet_base = DeltaNetBase(conv_channels,
+                                          num_neighbors=num_neighbors,
+                                          grad_regularizer=grad_regularizer,
+                                          grad_kernel_width=grad_kernel_width,
                                           knn_method=knn_method)
         self.lin_embedding = MLP([sum(conv_channels), embedding_size])
         self.dropout = dropout

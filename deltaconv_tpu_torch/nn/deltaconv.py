@@ -7,9 +7,10 @@ Scalar stream:
 Vector stream (skipped on the last layer):
   ``v' = v_mlp(I_J([v, hodge_laplacian(v), grad x']))``
 
-Only depth-1 internal MLPs exist on this slice (the classification
-defaults). The neighbour max and sum go through the operator object
-(``gd.nbr_max``, ``gd.nbr_sum``), which runs their kernels. A point
+Internal MLPs of depth 1 (the classification defaults) serve and train;
+depth >= 2 (the segmentation config, ``DeepMaxMLP``) serves only. The
+neighbour max, sum and gathers go through the operator object
+(``gd.nbr_max``, ``gd.nbr_sum``, ...), which runs their kernels. A point
 mask leaves padded points out of every train-mode BatchNorm statistic.
 
 With ``dtype=torch.bfloat16`` the layer computes as the JAX package's
@@ -27,14 +28,17 @@ on the card, their plain versions on the CPU.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 from torch import nn
 
 from ..geometry.operators import I_J, J, norm
+from ..ops.gather_mlp_max import mlp_chain
 from .mlp import MLP, VectorMLP, linear
 from .nonlin import batch_moments, leaky_relu02
 
-__all__ = ["DeltaConv", "EdgeMaxMLP", "PointMaxMLP"]
+__all__ = ["DeepMaxMLP", "DeltaConv", "EdgeMaxMLP", "PointMaxMLP"]
 
 
 def _bn_affine(bn):
@@ -172,13 +176,76 @@ class PointMaxMLP(MLP):
         return gd.nbr_max_affine(yp, affine)
 
 
+class DeepMaxMLP(MLP):
+    """Scalar max branch of a depth >= 2 conv, centralized or not:
+    ``max_k MLP(x_j - x_i)`` or ``max_k MLP(x)[nbr_k]``, eval only. Its
+    parameters are those of ``MLP([C_in, *channels])``.
+
+    The branches follow the JAX gate: in bf16, when the conv is
+    centralized or its input is lane-narrower than its output
+    (``pad128(C_in) < pad128(C_out)``, a TPU lane rule kept as it is),
+    the fused kernel (``gd.nbr_mlp_max``) gathers the input rows and runs
+    the whole eval MLP per edge, the last layer sign-folded so that one
+    max finds the surviving extreme of its BatchNorm + LeakyReLU, which
+    the kernel then applies; the self slot (kNN slot 0) is the MLP of
+    the zero edge (centralized) or of the point itself, a per-point
+    composition outside the kernel. Otherwise the reference pipeline:
+    the ``[B, N, K, C]`` edge tensor through the MLP and a masked max
+    (centralized; rows with no valid neighbour give 0), or the per-point
+    MLP then ``gd.nbr_max``. The port takes the TPU's route on every
+    device.
+    """
+
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 centralized: bool = False, dtype=None):
+        super().__init__([in_channels, *channels], dtype)
+        self.centralized = centralized
+
+    def forward(self, x, gd, stats_mask=None):
+        if self.training:
+            raise NotImplementedError(
+                "DeepMaxMLP (mlp_depth >= 2) in training: segmentation "
+                "training is ROADMAP queue 1 item 7, not ported yet")
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        c_out = self[-1][0].out_features
+        if self.dtype is not None and (
+                self.centralized or _pad128(x.shape[-1]) < _pad128(c_out)):
+            return self._fused(x, gd)
+        if not self.centralized:
+            return gd.nbr_max(super().forward(x))
+        h = super().forward(gd.nbr_gather(x) - x[:, :, None, :])
+        out = torch.where(gd.nbr_mask[..., None], h, -torch.inf).amax(dim=2)
+        return torch.where(gd.nbr_mask.any(dim=-1, keepdim=True), out, 0.0)
+
+    def _fused(self, x, gd):
+        ws, affines = [], []
+        for i, (lin, norm) in enumerate(self):
+            bn = norm.bn
+            inv = bn.inv()
+            ws.append(lin.weight.t())
+            if i < len(self) - 1:
+                affines.append((inv, bn.bias - bn.running_mean * inv))
+        sign = torch.where(inv >= 0, 1.0, -1.0)
+        ws[-1] = ws[-1] * sign[None, :]
+        if self.centralized:
+            z0 = mlp_chain(x.new_zeros((1, x.shape[-1])), ws, affines)[0]
+        else:
+            z0 = mlp_chain(x, ws, affines)
+        return gd.nbr_mlp_max(x, ws, affines, self.centralized, z0,
+                              (sign, inv, bn.running_mean, bn.bias))
+
+
 class DeltaConv(nn.Module):
-    """One DeltaConv block with depth-1 internal MLPs.
+    """One DeltaConv block.
 
     Args:
       in_channels: width of the scalar input ``x`` and of the vector
         input ``v`` (``[B, N, 2, in_channels]``).
       out_channels: output width of both streams.
+      depth: layers of each internal MLP (1: ``EdgeMaxMLP`` or
+        ``PointMaxMLP`` for the max branch, which serve and train; 2 or
+        more: ``DeepMaxMLP``, eval only).
       centralized: centralize scalar features before the max (the first
         conv, on raw positions).
       vector: propagate the vector stream (False on the last layer).
@@ -186,16 +253,21 @@ class DeltaConv(nn.Module):
         to the three MLPs.
     """
 
-    def __init__(self, in_channels: int, out_channels: int,
+    def __init__(self, in_channels: int, out_channels: int, depth: int = 1,
                  centralized: bool = False, vector: bool = True,
                  dtype=None):
         super().__init__()
         self.centralized = centralized
-        branch = EdgeMaxMLP if centralized else PointMaxMLP
-        self.s_mlp_max = branch(in_channels, out_channels, dtype)
-        self.s_mlp = MLP([4 * in_channels, out_channels], dtype)
+        channels = [out_channels] * depth
+        if depth == 1:
+            branch = EdgeMaxMLP if centralized else PointMaxMLP
+            self.s_mlp_max = branch(in_channels, out_channels, dtype)
+        else:
+            self.s_mlp_max = DeepMaxMLP(in_channels, channels, centralized,
+                                        dtype)
+        self.s_mlp = MLP([4 * in_channels, *channels], dtype)
         self.v_mlp = (VectorMLP([2 * (2 * in_channels + out_channels),
-                                 out_channels], dtype) if vector else None)
+                                 *channels], dtype) if vector else None)
 
     def forward(self, x, v, gd, point_mask=None):
         """``x [B, N, C]``, ``v [B, N, 2, C]``, ``gd`` the dense

@@ -1,9 +1,10 @@
-"""The hand-written CUDA kernels of the serving paths and the train
-steps (f32 and bf16), each beside its plain PyTorch version.
+"""The hand-written CUDA kernels of the serving paths (classification and
+segmentation) and the train steps (f32 and bf16), each beside its plain
+PyTorch version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the nine functions the model calls so that
+and :data:`PLAIN_OPS` bundle the ten functions the models call so that
 a caller can run a forward, or a whole train step, through the kernels
 or through the plain versions on the same device, which is how the
 kernel path is checked on the card. The neighbour max (f32 or bf16) and
@@ -27,6 +28,7 @@ from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
                          gather_max_bwd, gather_max_bwd_plain,
                          gather_max_plain, gather_max_win,
                          gather_max_win_plain, masked_nbr_max)
+from .gather_mlp_max import gather_mlp_max, gather_mlp_max_plain, mlp_chain
 from .gather_rows import gather_rows, gather_rows_plain
 from .gather_sum import (adjacency, adjacency_plain, gather_sum,
                          gather_sum_bwd, gather_sum_bwd_plain, gather_sum_fwd,
@@ -42,15 +44,17 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "gather_matmul_max_win_plain", "gather_max", "gather_max_affine",
            "gather_max_affine_plain", "gather_max_bwd",
            "gather_max_bwd_plain", "gather_max_plain", "gather_max_win",
-           "gather_max_win_plain", "gather_rows", "gather_rows_plain",
+           "gather_max_win_plain", "gather_mlp_max", "gather_mlp_max_plain",
+           "gather_rows", "gather_rows_plain",
            "gather_sum", "gather_sum_bwd", "gather_sum_bwd_plain",
            "gather_sum_fwd", "gather_sum_fwd_plain", "gather_sum_plain",
            "knn_topk", "knn_topk_plain", "launch_counts", "library",
-           "masked_nbr_max", "reset_launch_counts", "wls", "wls_plain"]
+           "masked_nbr_max", "mlp_chain", "reset_launch_counts", "wls",
+           "wls_plain"]
 
 
 class Ops(NamedTuple):
-    """The nine kernel-backed functions the model calls."""
+    """The ten kernel-backed functions the models call."""
 
     gather_rows: Callable
     wls: Callable
@@ -61,12 +65,13 @@ class Ops(NamedTuple):
     gather_max_affine: Callable
     gather_matmul_max: Callable
     gather_matmul_max_train: Callable
+    gather_mlp_max: Callable
 
 
 KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
                  knn_topk, gather_max_affine, gather_matmul_max,
-                 gather_matmul_max_train)
+                 gather_matmul_max_train, gather_mlp_max)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_max_plain, gather_sum_plain, knn_topk_plain,
                 gather_max_affine_plain, gather_matmul_max_plain,
-                gather_matmul_max_train_plain)
+                gather_matmul_max_train_plain, gather_mlp_max_plain)

@@ -52,6 +52,8 @@ _KERNELS = {
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_max_bwd": ("dc_gather_max_bwd",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "gather_max_bf16": ("dc_gather_max_bf16",
+                        [_P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_max_win_bf16": ("dc_gather_max_win_bf16",
                             [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_max_bwd_bf16": ("dc_gather_max_bwd_bf16",
@@ -66,6 +68,7 @@ _KERNELS = {
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "gather_matmul_max_win": ("dc_gather_matmul_max_win",
                               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "gather_mlp_max": ("dc_gather_mlp_max", [_P] * 9 + [_I] * 7),
 }
 
 # Why a raw kernel takes no tensor that requires grad: the operator
@@ -86,6 +89,9 @@ _NO_GRAD = {
     "knn_topk": "kNN indices carry no gradient",
     "gather_max_affine": _BF16_EVAL,
     "gather_matmul_max": _BF16_EVAL,
+    "gather_mlp_max": "it is the eval form (forward only, as the JAX "
+                      "kernel); DeepMaxMLP in training (segmentation "
+                      "training, ROADMAP queue 1 item 7) is not ported yet",
 }
 _NO_GRAD["densify_bf16"] = _NO_GRAD["densify"]
 

@@ -20,9 +20,9 @@ every tie. The backward accumulates in f32 and casts ``dh`` to ``h``'s
 dtype, as the JAX VJP does (a bf16 cotangent is read as it is:
 ``gather_max_win_bf16`` and ``gather_max_bwd_bf16`` are the bf16
 bodies). Otherwise the forward runs without winner tracking, as JAX's
-primal path does (a bf16 table takes the winner kernel, its winners
-unused). :func:`gather_max` runs the kernels, :func:`gather_max_plain`
-the plain versions, with the same routing.
+primal path does (``gather_max``, or its bf16 body ``gather_max_bf16``).
+:func:`gather_max` runs the kernels, :func:`gather_max_plain` the plain
+versions, with the same routing.
 
 The bf16 eval maxes (``csrc/gather_max_bf16.cu``), counterparts of
 ``gather_max_affine`` and ``gather_matmul_max`` of the JAX module, take
@@ -126,16 +126,15 @@ def _check_fwd(name, h, idx, mask, dtype=torch.float32):
 
 def _max(h, idx, mask):
     """The forward without winners: plain version for CPU tensors, the
-    ``gather_max`` kernel for f32 CUDA tensors (the bf16 winner kernel
-    for bf16 ones)."""
+    ``gather_max`` kernel (f32) or ``gather_max_bf16`` (bf16 in, bf16
+    out) for CUDA tensors."""
     if h.device.type == "cpu":
         return _max_plain(h, idx, mask)
-    if h.dtype == torch.bfloat16:
-        return gather_max_win(h, idx, mask)[0]
-    device = _check_fwd("gather_max", h, idx, mask)
+    name, dtype = _body("gather_max", h)
+    device = _check_fwd(name, h, idx, mask, dtype)
     b, n, c = h.shape
     out = torch.empty_like(h)
-    _lib.launch("gather_max", device, h.data_ptr(), idx.data_ptr(),
+    _lib.launch(name, device, h.data_ptr(), idx.data_ptr(),
                 mask.data_ptr(), out.data_ptr(), b, n, c, idx.shape[-1])
     return out
 

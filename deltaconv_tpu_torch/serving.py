@@ -4,10 +4,10 @@
 Requests are clouds of any size up to ``num_points``. Each is padded to
 ``num_points`` (zero positions, unit-z normals, a point mask), clouds
 are stacked into batches of ``batch_size`` (a partial batch is filled by
-replicating its first cloud and the filler outputs dropped), and each
-batch runs one forward pass on the engine's device. When every cloud
-has exactly ``num_points`` points the mask is dropped (the uniform
-path).
+replicating its first cloud, and its category, and the filler outputs
+dropped), and each batch runs one forward pass on the engine's device.
+When every cloud has exactly ``num_points`` points the mask is dropped
+(the uniform path).
 
 The JAX package's production serving config, on the card::
 
@@ -15,6 +15,17 @@ The JAX package's production serving config, on the card::
     model.load_state_dict(state_dict_from_flax(params, batch_stats))
     engine = InferenceEngine(model, num_points=1024, precision="bfloat16")
     logits = engine.predict(clouds, normals)   # [M, 40] f32
+
+and ShapeNet part segmentation, per-point logits trimmed per cloud::
+
+    model = DeltaNetSegmentation(num_classes=50, categorical_vector=True,
+                                 num_neighbors=30, knn_method="approx")
+    model.load_state_dict(state_dict_from_flax(params, batch_stats,
+                                               head="segmentation"))
+    engine = InferenceEngine(model, num_points=2048, batch_size=16,
+                             precision="bfloat16")
+    parts = engine.predict(clouds, normals, categories=[3, 0, 15])
+    # a list of [N_i, 50] f32
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .models.deltanet_segmentation import NUM_CATEGORIES
 from .ops import KERNEL_OPS, Ops
 from .utils.device import resolve_device
 
@@ -33,6 +45,19 @@ __all__ = ["InferenceEngine", "apply_precision"]
 # Unit-z padding normal keeps build_tangent_basis well-defined on padded
 # rows (they are masked out of every statistic downstream).
 _PAD_NORMAL = np.asarray([0.0, 0.0, 1.0], np.float32)
+
+
+def _encode_category(c):
+    """An int category id -> the 16-wide one-hot (ShapeNet convention;
+    ids outside 0..15 are refused); an array-like passes through."""
+    if np.ndim(c) == 0:
+        cid = int(c)
+        if not 0 <= cid < NUM_CATEGORIES:
+            raise ValueError(
+                f"category id {cid} outside the {NUM_CATEGORIES}-category "
+                "convention; pass a pre-encoded vector instead")
+        return np.eye(NUM_CATEGORIES, dtype=np.float32)[cid]
+    return np.asarray(c, np.float32)
 
 
 def apply_precision(model, precision: Optional[str]):
@@ -58,8 +83,9 @@ class InferenceEngine:
     """Batched fixed-shape serving wrapper around a DeltaNet model.
 
     Args:
-      model: a :class:`~.models.DeltaNetClassification`; the engine
-        serves a copy of it (:func:`apply_precision`), on ``device``.
+      model: a :class:`~.models.DeltaNetClassification` or
+        :class:`~.models.DeltaNetSegmentation`; the engine serves a copy
+        of it (:func:`apply_precision`), on ``device``.
       num_points: point count every request is padded to; larger clouds
         are rejected (subsample upstream).
       batch_size: clouds per forward pass.
@@ -105,13 +131,15 @@ class InferenceEngine:
         mask = np.arange(self.num_points) < n
         return pos, normal, mask, n
 
-    def _assemble(self, clouds, normals):
+    def _assemble(self, clouds, normals, categories):
         """Pads and stacks all clouds into device batches
-        ``(pos, normal, mask, keep)``; ``keep`` counts non-filler rows."""
+        ``(pos, normal, mask, category, keep)``; ``keep`` counts
+        non-filler rows. Also returns every cloud's size."""
         has_normal = normals is not None
         padded = [self._pad_one(c, normals[i] if has_normal else None)
                   for i, c in enumerate(clouds)]
-        masked = any(p[3] != self.num_points for p in padded)
+        sizes = [p[3] for p in padded]
+        masked = any(s != self.num_points for s in sizes)
 
         def upload(rows):
             return torch.from_numpy(np.stack(rows)).to(self.device)
@@ -124,19 +152,39 @@ class InferenceEngine:
             pos = upload([c[0] for c in chunk])
             normal = upload([c[1] for c in chunk]) if has_normal else None
             mask = upload([c[2] for c in chunk]) if masked else None
-            batches.append((pos, normal, mask, self.batch_size - fill))
-        return batches
+            cat = None
+            if categories is not None:
+                cats = list(categories[start:start + self.batch_size])
+                cat = upload([_encode_category(c)
+                              for c in cats + [cats[0]] * fill])
+            batches.append((pos, normal, mask, cat, self.batch_size - fill))
+        return batches, sizes
 
-    def predict(self, clouds: Sequence, normals: Optional[Sequence] = None):
+    def predict(self, clouds: Sequence, normals: Optional[Sequence] = None,
+                categories: Optional[Sequence] = None):
         """Runs the model on ``clouds`` (sequence of ``[N_i, 3]`` arrays,
-        ragged ``N_i`` allowed) with matching ``normals``. Returns
-        ``[M, num_classes]`` float32 logits (an empty list for no
-        clouds)."""
+        ragged ``N_i`` allowed) with matching ``normals``.
+        ``categories``: one object category a cloud, for a segmentation
+        model with ``categorical_vector=True``: int ids are one-hot
+        encoded to the ShapeNet-convention 16 (ids outside 0..15 are
+        refused), vectors pass through. Returns, for classification,
+        ``[M, num_classes]`` float32 logits; for segmentation, a list of
+        ``[N_i, num_classes]`` float32 per-point logits, each trimmed to
+        its cloud; an empty list for no clouds."""
         if len(clouds) == 0:
             return []
+        if categories is not None and len(categories) != len(clouds):
+            raise ValueError(f"{len(categories)} categories for "
+                             f"{len(clouds)} clouds; give one a cloud")
+        batches, sizes = self._assemble(clouds, normals, categories)
         outs = []
         with torch.inference_mode():
-            for pos, normal, mask, keep in self._assemble(clouds, normals):
-                logits = self.model(pos, normal, mask, ops=self.ops)
+            for pos, normal, mask, cat, keep in batches:
+                kwargs = {} if cat is None else {"category": cat}
+                logits = self.model(pos, normal, mask, ops=self.ops,
+                                    **kwargs)
                 outs.append(logits[:keep].float().cpu().numpy())
-        return np.concatenate(outs, axis=0)
+        logits = np.concatenate(outs, axis=0)
+        if logits.ndim == 3:  # segmentation: trim the padding per cloud
+            return [logits[i, :n] for i, n in enumerate(sizes)]
+        return logits

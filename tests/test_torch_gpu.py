@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS,
-                                 DeltaNetClassification, InferenceEngine,
+                                 DeltaNetClassification,
+                                 DeltaNetSegmentation, InferenceEngine,
                                  launch_counts, reset_launch_counts)
 from deltaconv_tpu_torch import ops
 from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
@@ -577,3 +578,130 @@ def test_bf16_train_step_kernels_match_plain(cuda, ragged):
     bufs_p = dict(model_p.named_buffers())
     for name, b in model_k.named_buffers():
         _close_to_max(b, bufs_p[name], 1e-2)
+
+
+# -- the segmentation serving slice ---------------------------------------------
+
+
+@pytest.mark.parametrize("c", [3, 64, 300])
+def test_gather_max_bf16_kernel_exact(cuda, c):
+    """The bf16 max without winners: the values of the plain version (a
+    bf16 max is lossless; +0 and -0 tie), and no winner kernel runs."""
+    rng = np.random.default_rng(19)
+    h = torch.randn((2, 150, c), device=cuda).to(torch.bfloat16)
+    idx, mask = _rand_graph(rng, 150, 9, cuda)
+    reset_launch_counts()
+    got = ops.gather_max(h, idx, mask)
+    counts = launch_counts()
+    want = ops.gather_max_plain(h, idx, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.float(), want.float())
+    assert counts["gather_max_bf16"] == 1 and counts["gather_max_win_bf16"] == 0
+
+
+def _mlp_case(rng, widths, n, dev, exact=False):
+    """Inputs of gather_mlp_max: bf16 x, weights, intermediate affines,
+    an epilogue. ``exact``: x and the weights on coarse grids and the
+    affine ``y + 64`` (no negative slope is taken), so that every sum of
+    a two-layer MLP is exact in f32 in any order."""
+    def draw(shape, scale, grid):
+        a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        a = a * scale
+        return (torch.round(a * grid) / grid if exact else a).to(dev)
+
+    x = draw((2, n, widths[0]), 1.0, 8).to(torch.bfloat16)
+    ws = [draw((a, b), 1 / np.sqrt(a), 16) for a, b in
+          zip(widths[:-1], widths[1:])]
+    affines = [(torch.ones(c, device=dev), torch.full((c,), 64.0, device=dev))
+               if exact else (draw(c, 1.0, 4), draw(c, 0.2, 16))
+               for c in widths[1:-1]]
+    inv = torch.randn(widths[-1], device=dev)
+    epi = (torch.where(inv >= 0, 1.0, -1.0), inv,
+           torch.randn(widths[-1], device=dev) * 0.2,
+           torch.randn(widths[-1], device=dev) * 0.2)
+    return x, ws, affines, epi
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("widths,centralized", [
+    ((3, 64, 64), True), ((128, 256, 256), False), ((24, 40, 16, 8), False)],
+    ids=["conv0", "conv2", "three-layers"])
+def test_gather_mlp_max_kernel(cuda, widths, centralized, masked):
+    """At the segmentation convs' widths (and a 3-layer MLP of widths
+    that are not multiples of 16): the best values equal to the plain
+    version's on >= 99% of the elements and within 1e-2 x max on all
+    (the tensor cores sum in another order, and a one-ulp product
+    carries through the next layer); bit-equal on two-layer inputs whose
+    sums are exact in any order; the self slot and the epilogue
+    bit-equal to their replay on the kernel's own best values."""
+    rng = np.random.default_rng(20)
+    n, k = 150, 9
+    pos, _ = _cloud_batch(rng, 2, n, cuda)
+    idx, mask = _graph(pos, k, masked)
+    x, ws, affines, epi = _mlp_case(rng, widths, n, cuda)
+    args = (x, ws, affines, idx, mask, centralized)
+    raw = ops.gather_mlp_max(*args, False)
+    raw_p = ops.gather_mlp_max_plain(*args, False)
+    torch.cuda.synchronize()
+    live = raw_p > NEG / 2  # rows with a valid slot
+    assert torch.equal(raw > NEG / 2, live)
+    assert float((raw != raw_p).float().mean()) <= 0.01
+    _close_to_max(raw[live], raw_p[live], 1e-2)
+    if masked:
+        assert bool((raw[0, n // 2:] == NEG).all())
+    z0 = (ops.mlp_chain(torch.zeros((1, widths[0]), device=cuda), ws,
+                        affines)[0]
+          if centralized else ops.mlp_chain(x, ws, affines))
+    best = ops.gather_mlp_max(*args, True)
+    z0b = z0.expand_as(best) if centralized else z0
+    merged = torch.maximum(best, torch.where(mask[..., :1], z0b, NEG))
+    assert torch.equal(ops.gather_mlp_max(*args, True, z0), merged)
+    o = (epi[0] * merged - epi[2]) * epi[1] + epi[3]
+    o = torch.where(mask.any(dim=-1, keepdim=True),
+                    torch.where(o >= 0, o, 0.2 * o), 0.0)
+    fused = ops.gather_mlp_max(*args, True, z0, epi)
+    assert torch.equal(_bits(fused), _bits(o.to(torch.bfloat16)))
+    if len(widths) != 3:
+        return
+    xe, we, ae, _ = _mlp_case(rng, widths, n, cuda, exact=True)
+    for z, e in ((None, None), (z0, epi)):
+        got = ops.gather_mlp_max(xe, we, ae, idx, mask, centralized, True, z,
+                                 e)
+        want = ops.gather_mlp_max_plain(xe, we, ae, idx, mask, centralized,
+                                        True, z, e)
+        assert torch.equal(got.float(), want.float())
+
+
+def test_seg_model_kernels_match_plain(cuda):
+    """A narrow segmentation model with categories served in f32 and at
+    the production config through the kernels and through the plain
+    versions on the card, uniform and ragged; every kernel of the bf16
+    path is launched, gather_mlp_max twice a forward (first and last
+    conv)."""
+    rng = np.random.default_rng(21)
+    model = DeltaNetSegmentation(
+        6, conv_channels=(8, 16, 136), embedding_size=32, num_neighbors=8,
+        categorical_vector=True, knn_method="approx",
+        generator=torch.Generator().manual_seed(0))
+    pos, nrm = _cloud_batch(rng, 5, 128, "cpu")
+    cats = [0, 3, 15, 7, 1]
+    for precision, rel in ((None, 1e-4), ("bfloat16", 1e-2)):
+        engine = InferenceEngine(model, num_points=128, batch_size=4,
+                                 precision=precision)
+        plain = InferenceEngine(model, num_points=128, batch_size=4,
+                                precision=precision, ops=PLAIN_OPS)
+        for sizes in ([128] * 5, [128, 128, 90, 128, 60]):
+            clouds = [p[:s].numpy() for p, s in zip(pos, sizes)]
+            normals = [q[:s].numpy() for q, s in zip(nrm, sizes)]
+            reset_launch_counts()
+            got = engine.predict(clouds, normals, categories=cats)
+            counts = launch_counts()
+            want = plain.predict(clouds, normals, categories=cats)
+            assert [g.shape for g in got] == [(s, 6) for s in sizes]
+            got, want = np.concatenate(got), np.concatenate(want)
+            np.testing.assert_allclose(got, want,
+                                       atol=rel * float(np.abs(want).max()))
+            if precision:
+                assert counts["gather_mlp_max"] == 2 * 2  # 2 batches
+                assert counts["gather_max_bf16"] > 0

@@ -95,6 +95,16 @@ def test_cpu_tensors_take_the_plain_versions():
     for got, want in zip(ops.gather_max_win(hb, idx, mask),
                          ops.gather_max_win_plain(hb, idx, mask)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(ops.gather_max(hb, idx, mask),
+                               ops.gather_max_plain(hb, idx, mask),
+                               rtol=0, atol=0)
+    mlp = ([torch.randn((5, 8)), torch.randn((8, 7))],
+           [(torch.randn(8), torch.randn(8))])
+    z0, epi = torch.randn(7), tuple(torch.randn(7) for _ in range(4))
+    torch.testing.assert_close(
+        ops.gather_mlp_max(hb, *mlp, idx, mask, True, True, z0, epi),
+        ops.gather_mlp_max_plain(hb, *mlp, idx, mask, True, True, z0, epi),
+        rtol=0, atol=0)
     gb = torch.randn((2, 32, 7)).to(torch.bfloat16)
     out, win = ops.gather_matmul_max_win(hb, w, idx, mask)
     torch.testing.assert_close(
@@ -117,7 +127,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "adjacency": 0, "gather_sum": 0, "gather_sum_bwd": 0,
         "knn_topk": 0, "gather_max_affine": 0, "gather_matmul_max": 0,
         "gather_max_win_bf16": 0, "gather_max_bwd_bf16": 0,
-        "gather_matmul_max_win": 0}
+        "gather_matmul_max_win": 0, "gather_max_bf16": 0,
+        "gather_mlp_max": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
@@ -127,6 +138,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert KERNEL_OPS.gather_matmul_max_train is ops.gather_matmul_max_train
     assert (PLAIN_OPS.gather_matmul_max_train
             is ops.gather_matmul_max_train_plain)
+    assert KERNEL_OPS.gather_mlp_max is ops.gather_mlp_max
+    assert PLAIN_OPS.gather_mlp_max is ops.gather_mlp_max_plain
 
 
 def test_kernels_refuse_other_devices():
@@ -179,6 +192,10 @@ def test_kernels_refuse_other_devices():
                                            device=meta), hb, 32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.gather_matmul_max_win(hb, wb, im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_max(hb, im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_mlp_max(hb, [torch.zeros(5, 7, device=meta)], [], im, mm)
     assert sum(launch_counts().values()) == 0
 
 
