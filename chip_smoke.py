@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the eighteen CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the twenty-one CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -16,7 +16,9 @@ first on ``sys.path``. It
    128, their backward also at 256, the train matmul max at 128 -> 256;
    knn_topk also at N=4096; segmentation serving's kernels at B=16,
    N=2048, K=30: the bf16 max without winners at C=128, gather_mlp_max
-   at conv0, 3 -> 64 -> 64, and conv2, 128 -> 256 -> 256), uniform
+   at conv0, 3 -> 64 -> 64, and conv2, 128 -> 256 -> 256; int8 serving's
+   densify_int8, gather_max_int8 at C = 64 and 128 (and 128 at the
+   segmentation shapes), gather_matmul_max_int8 at 128 -> 256), uniform
    and masked, and times the kernel, the plain version and, where
    PyTorch's library calls compute the same function, those calls with
    their set-up (CUDA events around 5 back-to-back calls, median of 30
@@ -39,7 +41,14 @@ first on ``sys.path``. It
    max|logit|) of the port's own f32 engine, the argmax equal wherever
    the reference's top-2 margin exceeds twice the deviation, and a full
    cloud served ragged (exact kNN route) or uniform (knn_topk) within
-   that bound; it prints clouds/s and a profile of one call, and times
+   that bound; it prints clouds/s and a profile of one call; then
+   ``[serve-int8]`` serves the same clouds on the same weights at
+   ``precision="int8"`` (bf16 compute on int8 operators, the JAX
+   package's int8 serving mode), held the same way, with densify_int8
+   once, gather_max_int8 three times and gather_matmul_max_int8 once a
+   forward, and ``[applies]`` times one forward's operator applies on the
+   int8 operators beside the bf16 ones (and the int8 values widened to
+   bf16 in one ``bmm``, exact, for comparison); it times
    the last conv's max in both forms, for eval (``gather_matmul_max``,
    and ``x @ w`` followed by ``gather_max_affine`` at C=256) and for
    training (``gather_matmul_max_win``, and ``x @ w`` rounded to bf16
@@ -83,7 +92,9 @@ first on ``sys.path``. It
    atol 1e-3 of the plain path, bf16 within 0.01 x max|logit| of it and
    within 0.05 x max|logit| of the f32 engine, argmaxes equal where
    decisive; a full cloud the same ragged or uniform; it prints clouds/s,
-   batch latency and a profile of one call;
+   batch latency and a profile of one call; then ``[serve-seg-int8]``
+   at ``precision="int8"``, held as bf16 is (densify_int8 and
+   gather_max_int8 once, gather_mlp_max twice a forward);
 10. times the segmentation config's last conv in both forms: the per-edge
     MLP and max in one kernel (``gather_mlp_max``) and the per-point
     chain followed by ``gather_max_affine``.
@@ -162,6 +173,14 @@ SEG_MAX_WIDTH = 128  # gather_max_bf16: conv1's MLP output
 MLP_CASES = {"conv0": (3, 64, True), "conv2": (128, 256, False)}
 MLP_FRAC = 1e-2  # share of best values that may differ from the plain
 MLP_REL = 1e-2  # x max|best|: a one-ulp product through the next layer
+# int8 serving (bench.py --mode=int8 and --mode=seg-int8): bf16 compute on
+# int8 operators; the int8 max at conv0-2 (classification, C = 64, 64,
+# 128) and conv1 (segmentation, C = 128), the int8 matmul max at conv3.
+INT8_WIDTHS = (64, 128)
+# One classification forward's operator applies, (grad widths, div
+# widths) at conv channels (64, 64, 128, 256): grad of the positions, then
+# of [div v, curl v, x'] (3 C_out) at conv0-2; div of [v, Jv] (2 C_in).
+APPLY_WIDTHS = ((3, 192, 192, 384), (6, 128, 128, 256))
 
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
@@ -200,6 +219,12 @@ KERNEL_META = {
                         "deltaconv_tpu/ops/gather_max.py:230"),
     "gather_mlp_max": ("deltaconv_tpu_torch/csrc/gather_mlp_max.cu",
                        "deltaconv_tpu/ops/gather_mlp_max.py:237"),
+    "densify_int8": ("deltaconv_tpu_torch/csrc/densify.cu",
+                     "deltaconv_tpu/ops/densify_op.py:180"),
+    "gather_max_int8": ("deltaconv_tpu_torch/csrc/gather_max_int8.cu",
+                        "deltaconv_tpu/ops/gather_max.py:1016"),
+    "gather_matmul_max_int8": ("deltaconv_tpu_torch/csrc/gather_max_int8.cu",
+                               "deltaconv_tpu/ops/gather_max.py:1092"),
 }
 # The port's autograd Functions, whose forward or backward launches a
 # kernel outside any aten op (the profiler books it to them).
@@ -219,6 +244,18 @@ TRAIN_BF16_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
 SEG_KERNELS = ("gather_rows", "wls", "densify", "gather_max")
 SEG_BF16_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
                     "gather_max_bf16", "gather_mlp_max")
+INT8_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_int8",
+                "gather_max_int8", "gather_matmul_max_int8")
+SEG_INT8_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_int8",
+                    "gather_max_int8", "gather_mlp_max")
+# Launches per forward on the int8 paths, as the JAX module code routes
+# them: classification conv0-2 the int8 max, conv3 (lane-narrower) the
+# int8 matmul max; segmentation conv1 the int8 max, conv0 and conv2
+# gather_mlp_max.
+INT8_PER_FORWARD = {"densify_int8": 1, "gather_max_int8": 3,
+                    "gather_matmul_max_int8": 1}
+SEG_INT8_PER_FORWARD = {"densify_int8": 1, "gather_max_int8": 1,
+                        "gather_mlp_max": 2}
 # Width of the record's time: the widest conv for the max, the first
 # conv's [y, y^2] (2 x 64) for the sum, as the train step calls them;
 # the bf16 max without winners at conv1's width in segmentation serving,
@@ -227,7 +264,7 @@ RECORD_WIDTH = {"gather_max": 256, "gather_max_win": 256,
                 "gather_max_bwd": 256, "gather_sum": 128,
                 "gather_sum_bwd": 128, "gather_max_win_bf16": 128,
                 "gather_max_bwd_bf16": 256, "gather_max_bf16": SEG_MAX_WIDTH,
-                "gather_mlp_max": "conv2"}
+                "gather_mlp_max": "conv2", "gather_max_int8": 128}
 
 
 def nbytes(*tensors) -> int:
@@ -391,12 +428,11 @@ def check_bf16_kernels(record, label, pos, idx, nbr_mask, gd, dev):
     aff = random_affine(MM_OUT, dev)
     raw = ops.gather_matmul_max(x, w, idx, nbr_mask)
     raw_p = ops.gather_matmul_max_plain(x, w, idx, nbr_mask)
-    ulps = bf16_ulps(raw, raw_p)
     err = max_err(raw.float(), raw_p.float())
     record("gather_matmul_max", err)
-    check(f"gather_matmul_max {MM_IN}->{MM_OUT}", int(ulps.max()) <= 1,
-          f"max {int(ulps.max())} bf16 ulp, {float((ulps > 0).float().mean())}"
-          f" of elements differ (f32 sum order), max_abs_err {err}")
+    ok, detail = mm_max_held(raw, x, w, idx, nbr_mask)
+    check(f"gather_matmul_max {MM_IN}->{MM_OUT}", ok,
+          f"{detail}, max_abs_err {err}")
     fused = ops.gather_matmul_max(x, w, idx, nbr_mask, aff)
     fused_p = ops.gather_matmul_max_plain(x, w, idx, nbr_mask, aff)
     replay = ops.bn_lrelu_epilogue(raw.float(), aff,
@@ -464,6 +500,75 @@ def check_bf16_train_kernels(record, idx, nbr_mask, dev):
     torch.cuda.synchronize()
 
 
+def mm_max_held(got, x, w, idx, mask):
+    """``(ok, detail)``: a matmul max (bf16 ``got``) held element by
+    element within one bf16 ulp of its plain version or, near zero, within
+    the f32 summation bound ``C_in * 2^-24 * (|x| @ |w|)`` (the largest
+    over the row's valid slots) plus the bf16 rounding (``2^-8 |got|``) of
+    the exact max, an f64 product: there one bf16 ulp is finer than two
+    f32 sums of the same terms in another order can agree."""
+    from deltaconv_tpu_torch import ops
+
+    ulps = bf16_ulps(got, ops.gather_matmul_max_plain(x, w, idx, mask))
+    xd, wd = x.double(), w.double()
+    exact = ops.gather_max_plain(xd @ wd, idx, mask)
+    mag = ops.gather_max_plain(xd.abs() @ wd.abs(), idx, mask)
+    gd = got.double()
+    near = (gd - exact).abs() <= (x.shape[-1] * 2.0 ** -24 * mag
+                                  + 2.0 ** -8 * gd.abs())
+    valid = mask.any(dim=-1, keepdim=True).expand_as(got)
+    ok = bool((((ulps <= 1) | near) | ~valid).all())
+    beyond = int(((ulps > 1) & valid).sum())
+    return ok, (f"max {int(ulps[valid].max())} bf16 ulp, "
+                f"{float((ulps > 0).float().mean())} of elements differ (f32 "
+                f"sum order), {beyond} beyond one ulp; all within one ulp or "
+                f"the f32 sum bound of the exact max: {ok}")
+
+
+def check_int8_kernels(record, idx, nbr_mask, gd, dev):
+    """The three kernels of int8 serving against their plain versions at
+    the classification shapes: densify_int8 (planes and scales equal),
+    gather_max_int8 at C = 64 and 128, bf16 (the path's) and f32 features
+    (equal), gather_matmul_max_int8 at 128 -> 256 (``mm_max_held``, and
+    bit-equal where the sums are exact in any order)."""
+    from deltaconv_tpu_torch import ops
+
+    gc, dc = gd.grad_coef, gd.div_coef
+    got = ops.densify_coefs_int8(idx, gc, dc)
+    want = ops.densify_coefs_int8_plain(idx, gc, dc)
+    err = max(max_err(g.float(), w.float()) for g, w in zip(got, want))
+    record("densify_int8", err)
+    check("densify_int8", all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"planes and scales equal, max_abs_err {err}")
+    del got, want
+    for c in INT8_WIDTHS:
+        for dt in (torch.bfloat16, torch.float32):
+            h = torch.randn((B, N, c), device=dev).to(dt)
+            got = ops.gather_max_int8(h, idx, nbr_mask)
+            want = ops.gather_max_int8_plain(h, idx, nbr_mask)
+            err = max_err(got.float(), want.float())
+            record("gather_max_int8", err)
+            check(f"gather_max_int8 C={c} {str(dt)[6:]}",
+                  got.dtype == dt and bits_equal(got, want),
+                  f"max_abs_err {err}")
+    xq, _ = ops.int8_quantize(torch.randn((B, N, MM_IN), device=dev))
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    got = ops.gather_matmul_max_int8(xq, w, idx, nbr_mask)
+    err = max_err(got.float(), ops.gather_matmul_max_int8_plain(
+        xq, w, idx, nbr_mask).float())
+    record("gather_matmul_max_int8", err)
+    ok, detail = mm_max_held(got, xq, w, idx, nbr_mask)
+    check(f"gather_matmul_max_int8 {MM_IN}->{MM_OUT}", ok,
+          f"{detail}, max_abs_err {err}")
+    we = (torch.randint(-16, 17, (MM_IN, MM_OUT), device=dev) / 16.0).to(
+        torch.bfloat16)
+    check(f"gather_matmul_max_int8 {MM_IN}->{MM_OUT}, exact sums",
+          bits_equal(ops.gather_matmul_max_int8(xq, we, idx, nbr_mask),
+                     ops.gather_matmul_max_int8_plain(xq, we, idx, nbr_mask)),
+          "bit-equal")
+    torch.cuda.synchronize()
+
+
 def mlp_inputs(c_in, c_out, centralized, dev):
     """Inputs of gather_mlp_max at one conv's widths: bf16 ``x``, the two
     layers' weights (the last sign-folded by the epilogue's signs), the
@@ -484,12 +589,16 @@ def mlp_inputs(c_in, c_out, centralized, dev):
 
 
 def seg_graphs(rng, dev):
-    """Uniform and masked kNN graphs at the segmentation shapes; masked:
-    the last 40% of the points of every other cloud are padding."""
-    from deltaconv_tpu_torch.geometry import knn
+    """Uniform and masked kNN graphs at the segmentation shapes, each with
+    its operator coefficients; masked: the last 40% of the points of every
+    other cloud are padding."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
 
-    clouds, _ = ellipsoid_clouds(rng, [SEG_N] * SEG_B)
+    clouds, normals = ellipsoid_clouds(rng, [SEG_N] * SEG_B)
     pos = torch.from_numpy(np.stack(clouds)).to(dev)
+    nrm = torch.from_numpy(np.stack(normals)).to(dev)
+    xb, yb = build_tangent_basis(nrm)
     pmask = torch.ones((SEG_B, SEG_N), dtype=torch.bool, device=dev)
     pmask[::2, int(0.6 * SEG_N):] = False
     cases = {}
@@ -497,13 +606,16 @@ def seg_graphs(rng, dev):
         idx, nbr_mask = knn(pos, SEG_K, mask)
         if mask is not None:
             nbr_mask = nbr_mask & mask[:, :, None]
-        cases[label] = (idx, nbr_mask)
+        gd = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
+        cases[label] = (idx, nbr_mask, gd)
     return cases
 
 
-def check_seg_kernels(record, idx, nbr_mask, dev):
-    """The two kernels of bf16 segmentation serving against their plain
-    versions at its shapes: gather_max_bf16 (values equal) and
+def check_seg_kernels(record, idx, nbr_mask, gd, dev):
+    """The kernels of bf16 and int8 segmentation serving against their
+    plain versions at its shapes: densify_int8 on the clouds' operator
+    coefficients (planes and scales equal), gather_max_bf16 and
+    gather_max_int8 (values equal) and
     gather_mlp_max at conv0 and conv2: over every slot without the self
     slot and the epilogue, at most MLP_FRAC of the best values differ
     and by at most MLP_REL x max (the tensor cores sum in another order
@@ -513,6 +625,13 @@ def check_seg_kernels(record, idx, nbr_mask, dev):
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.ops.gather_max import NEG
 
+    got = ops.densify_coefs_int8(idx, gd.grad_coef, gd.div_coef)
+    want = ops.densify_coefs_int8_plain(idx, gd.grad_coef, gd.div_coef)
+    err = max(max_err(g.float(), w.float()) for g, w in zip(got, want))
+    record("densify_int8", err)
+    check("densify_int8", all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"planes and scales equal, max_abs_err {err}")
+    del got, want
     h = torch.randn((SEG_B, SEG_N, SEG_MAX_WIDTH),
                     device=dev).to(torch.bfloat16)
     got = ops.gather_max(h, idx, nbr_mask)
@@ -521,6 +640,12 @@ def check_seg_kernels(record, idx, nbr_mask, dev):
     record("gather_max_bf16", err)
     check(f"gather_max_bf16 C={SEG_MAX_WIDTH}",
           torch.equal(got.float(), want.float()), f"max_abs_err {err}")
+    got = ops.gather_max_int8(h, idx, nbr_mask)
+    want = ops.gather_max_int8_plain(h, idx, nbr_mask)
+    err = max_err(got.float(), want.float())
+    record("gather_max_int8", err)
+    check(f"gather_max_int8 C={SEG_MAX_WIDTH}", bits_equal(got, want),
+          f"max_abs_err {err}")
     valid = nbr_mask.any(dim=-1, keepdim=True)
     for conv, (c_in, c_out, cen) in MLP_CASES.items():
         x, ws, aff, z0, epi = mlp_inputs(c_in, c_out, cen, dev)
@@ -695,12 +820,13 @@ def kernel_phase(rng, dev, card):
                   f"max_abs_err {err} <= {tol}")
         check_bf16_kernels(record, label, pos, idx, nbr_mask, gd_p, dev)
         check_bf16_train_kernels(record, idx, nbr_mask, dev)
+        check_int8_kernels(record, idx, nbr_mask, gd_p, dev)
         torch.cuda.synchronize()
     seg_cases = seg_graphs(rng, dev)
-    for label, (idx, nbr_mask) in seg_cases.items():
+    for label, (idx, nbr_mask, seg_gd) in seg_cases.items():
         print(f"[kernels] segmentation shapes B={SEG_B} N={SEG_N} "
               f"K={SEG_K}, {label}", flush=True)
-        check_seg_kernels(record, idx, nbr_mask, dev)
+        check_seg_kernels(record, idx, nbr_mask, seg_gd, dev)
 
     # Times, bounds and library calls at the uniform shapes.
     idx, nbr_mask = cases["uniform"]
@@ -714,6 +840,7 @@ def kernel_phase(rng, dev, card):
     x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
     w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
     aff256 = random_affine(MM_OUT, dev)
+    xq, _ = ops.int8_quantize(x)
     timed = {
         "gather_rows": (lambda: ops.gather_rows(table, idx),
                         lambda: ops.gather_rows_plain(table, idx)),
@@ -739,6 +866,15 @@ def kernel_phase(rng, dev, card):
         "gather_matmul_max_win": (
             lambda: ops.gather_matmul_max_win(x, w, idx, nbr_mask),
             lambda: ops.gather_matmul_max_win_plain(x, w, idx, nbr_mask)),
+        "densify_int8": (
+            lambda: ops.densify_coefs_int8(idx, gc, dc),
+            lambda: ops.densify_coefs_int8_plain(idx, gc, dc)),
+        "gather_max_int8": (
+            lambda: ops.gather_max_int8(h128, idx, nbr_mask),
+            lambda: ops.gather_max_int8_plain(h128, idx, nbr_mask)),
+        "gather_matmul_max_int8": (
+            lambda: ops.gather_matmul_max_int8(xq, w, idx, nbr_mask),
+            lambda: ops.gather_matmul_max_int8_plain(xq, w, idx, nbr_mask)),
     }
     print(f"[times] per call, median of {REPS} CUDA-event samples of "
           f"{INNER} back-to-back calls, B={B} N={N} K={K}, card: {card}")
@@ -774,6 +910,17 @@ def kernel_phase(rng, dev, card):
         nbytes(x, w, idx, nbr_mask,
                *ops.gather_matmul_max_win(x, w, idx, nbr_mask)),
         2.0 * B * N * MM_IN * MM_OUT, BF16_TC_OPS_PER_S)
+    # The int8 form: each input read once (the quantized coefficients'
+    # per-cloud maxima, and the features' quantization, are part of the
+    # function), each output written once.
+    res["densify_int8"]["bound"] = bound(nbytes(
+        idx, gc, dc, *ops.densify_coefs_int8(idx, gc, dc)))
+    res["gather_max_int8"]["bound"] = bound(nbytes(
+        h128, idx, nbr_mask, h128))
+    res["gather_matmul_max_int8"]["bound"] = bound(
+        nbytes(xq, w, idx, nbr_mask,
+               ops.gather_matmul_max_int8(xq, w, idx, nbr_mask)),
+        2.0 * B * N * MM_IN * MM_OUT, BF16_TC_OPS_PER_S)
 
     # PyTorch library calls that compute the same function, where there
     # are, each with its set-up timed too: zero fill, scatter_add_ in f32
@@ -787,6 +934,17 @@ def kernel_phase(rng, dev, card):
     res["densify_bf16"]["library_ms"] = median_ms(
         lambda: torch.zeros((B, 4, N, N), device=dev).scatter_add_(
             3, index4, coef4).to(torch.bfloat16))
+
+    def int8_library():
+        """The torch quantization, then zero fill, scatter_add_, cast."""
+        s_g = torch.clamp(gc.abs().amax(dim=(1, 2, 3)), min=1e-30)
+        s_d = torch.clamp(dc.abs().amax(dim=(1, 2, 3)), min=1e-30)
+        s4 = torch.stack([s_g, s_g, s_d, s_d], dim=1)[:, :, None, None]
+        q = torch.clamp(torch.round(coef4 / s4 * 127.0), -127.0, 127.0)
+        return torch.zeros((B, 4, N, N), device=dev).scatter_add_(
+            3, index4, q).to(torch.int8)
+
+    res["densify_int8"]["library_ms"] = median_ms(int8_library)
     ones = nbr_mask.float()
     idx_l = idx.long()
     res["adjacency"]["library_ms"] = median_ms(
@@ -795,9 +953,11 @@ def kernel_phase(rng, dev, card):
     res["knn_topk"]["library_ms"] = median_ms(
         lambda: torch.topk(2.0 * torch.matmul(pos, pos.transpose(1, 2))
                            - (pos * pos).sum(-1)[:, None, :], K, dim=-1))
-    for name in ("densify", "densify_bf16", "adjacency", "knn_topk"):
+    for name in ("densify", "densify_bf16", "adjacency", "knn_topk",
+                 "densify_int8"):
         print(f"  {name}: library call {res[name]['library_ms']:.4f} ms")
     h64 = torch.randn((B, N, 64), device=dev).to(torch.bfloat16)
+    h128f = h128.float()
     aff64 = random_affine(64, dev)
     others = {
         "knn_topk exact": (lambda: ops.knn_topk(pos, K, False),
@@ -809,10 +969,19 @@ def kernel_phase(rng, dev, card):
         f"gather_matmul_max {MM_IN}->{MM_OUT} without the epilogue": (
             lambda: ops.gather_matmul_max(x, w, idx, nbr_mask),
             lambda: ops.gather_matmul_max_plain(x, w, idx, nbr_mask)),
+        "gather_max_int8 C=64 bf16": (
+            lambda: ops.gather_max_int8(h64, idx, nbr_mask),
+            lambda: ops.gather_max_int8_plain(h64, idx, nbr_mask)),
+        "gather_max_int8 C=128 f32": (
+            lambda: ops.gather_max_int8(h128f, idx, nbr_mask),
+            lambda: ops.gather_max_int8_plain(h128f, idx, nbr_mask)),
     }
     for label, (fk, fp) in others.items():
         print(f"  {label}: kernel {median_ms(fk):.4f} ms, plain "
               f"{median_ms(fp):.4f} ms")
+    print(f"  int8_quantize of [B, N, 128] bf16 (torch ops; inside "
+          f"gather_max_int8, before gather_matmul_max_int8): "
+          f"{median_ms(lambda: ops.int8_quantize(h128)):.4f} ms")
 
     for c in WIDTHS:
         h = torch.randn((B, N, c), device=dev)
@@ -867,10 +1036,11 @@ def kernel_phase(rng, dev, card):
             if c == RECORD_WIDTH[name]:
                 res[name]["ms"], res[name]["plain_ms"] = km, pl
                 res[name]["bound"] = bound(nbytes(*io))
-    time_seg_kernels(res, *seg_cases["uniform"], dev, card)
+    time_seg_kernels(res, *seg_cases["uniform"][:2], dev, card)
     print(f"  (the JSON record gives each at its width: {RECORD_WIDTH}, "
-          f"gather_max_affine at C=128, gather_matmul_max and "
-          f"gather_matmul_max_win at {MM_IN}->{MM_OUT})")
+          f"gather_max_affine at C=128, gather_matmul_max, "
+          f"gather_matmul_max_win and gather_matmul_max_int8 at "
+          f"{MM_IN}->{MM_OUT}; gather_max_int8 on bf16 features)")
     for name, r in res.items():
         print(f"  {name}: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
               f"kernel at {r['bound'][0] / r['ms']:.3f} of it")
@@ -976,19 +1146,23 @@ def held_to(label, got, ref, rel, rows="clouds"):
           f"{len(ref)} decisive {rows} {same}")
 
 
-def serve_bf16_phase(rng, seed, dev, card):
-    """The JAX package's production serving config: approximate kNN,
-    bf16 compute and operators, on the same random weights."""
+def serve_lowp_phase(clouds, seed, dev, card, precision):
+    """The JAX package's production serving configs, approximate kNN on
+    the same random weights and clouds: bf16 compute and operators
+    (``precision="bfloat16"``, ``[serve-bf16]``) or bf16 compute on int8
+    operators (``"int8"``, ``[serve-int8]``)."""
     from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
                                      launch_counts, reset_launch_counts)
 
+    tag = "serve-bf16" if precision == "bfloat16" else "serve-int8"
+    path = BF16_KERNELS if precision == "bfloat16" else INT8_KERNELS
     model = random_model(seed, dev, knn_method="approx")
     engine = InferenceEngine(model, num_points=N, batch_size=B,
-                             precision="bfloat16")
+                             precision=precision)
     plain = InferenceEngine(model, num_points=N, batch_size=B,
-                            precision="bfloat16", ops=PLAIN_OPS)
+                            precision=precision, ops=PLAIN_OPS)
     f32 = InferenceEngine(model, num_points=N, batch_size=B)
-    uni, uni_n, rag, rag_n = serving_clouds(rng)
+    uni, uni_n, rag, rag_n = clouds
 
     engine.predict(uni[:B], uni_n[:B])  # warm-up: cuBLAS bf16
     engine.predict(rag[:3], rag_n[:3])
@@ -1002,33 +1176,100 @@ def serve_bf16_phase(rng, seed, dev, card):
         times.append(time.perf_counter() - t0)
     logits_r = engine.predict(rag, rag_n)
     counts = launch_counts()
-    print(f"[serve-bf16] launches during serving: {counts}")
+    forwards = 3 * (len(uni) // B) + 1
+    print(f"[{tag}] launches during serving ({forwards} forwards): {counts}")
+    print(f"[{tag}] launches per forward: " + ", ".join(
+        f"{name} {counts[name] / forwards:g}" for name in path))
 
-    print("[serve-bf16] checks")
+    print(f"[{tag}] checks")
     check("uniform logits", logits_u.shape == (64, NUM_CLASSES)
           and bool(np.isfinite(logits_u).all()), f"shape {logits_u.shape}")
     check("ragged logits", logits_r.shape == (11, NUM_CLASSES)
           and bool(np.isfinite(logits_r).all()), f"shape {logits_r.shape}")
-    for name in ("gather_rows", "wls") + BF16_KERNELS:
+    for name in path:
         check(f"{name} launched", counts[name] > 0,
               f"{counts[name]} launches")
-    for label, clouds, normals, got in (("uniform", uni, uni_n, logits_u),
-                                        ("ragged", rag, rag_n, logits_r)):
+    if precision == "int8":
+        for name, per in INT8_PER_FORWARD.items():
+            check(f"{name} {per} a forward", counts[name] == per * forwards,
+                  f"{counts[name]} launches in {forwards} forwards")
+    for label, cl, normals, got in (("uniform", uni, uni_n, logits_u),
+                                    ("ragged", rag, rag_n, logits_r)):
         held_to(f"{label} kernel vs plain path", got,
-                plain.predict(clouds, normals), BF16_PATH_REL)
-        held_to(f"{label} bf16 vs the f32 engine", got,
-                f32.predict(clouds, normals), BF16_REL)
+                plain.predict(cl, normals), BF16_PATH_REL)
+        held_to(f"{label} {precision} vs the f32 engine", got,
+                f32.predict(cl, normals), BF16_REL)
     held_to("full cloud ragged (exact kNN) vs uniform (knn_topk)",
             logits_r[-1:], logits_u[:1], BF16_REL)
 
     t = float(np.median(times))
-    print(f"[serve-bf16] 64 uniform clouds (N={N}, batch {B}, "
-          f"knn_method=approx, precision=bfloat16): median {t * 1e3:.3f} ms "
-          f"per call of 2 batches, {t * 1e3 / 2:.3f} ms per batch, "
-          f"{64 / t:.1f} clouds/s (host clock, synchronised), card: {card}")
-    profile("serve-bf16", "one 64-cloud predict call",
+    print(f"[{tag}] 64 uniform clouds (N={N}, batch {B}, "
+          f"knn_method=approx, precision={precision}): median "
+          f"{t * 1e3:.3f} ms per call of 2 batches, {t * 1e3 / 2:.3f} ms per "
+          f"batch, {64 / t:.1f} clouds/s (host clock, synchronised), card: "
+          f"{card}")
+    profile(tag, "one 64-cloud predict call",
             lambda: engine.predict(uni, uni_n), t * 1e3)
     return counts
+
+
+def apply_times(clouds, dev, card):
+    """One classification forward's operator applies (``APPLY_WIDTHS``)
+    on the int8 operators (``torch._int_mm`` a cloud and plane) beside
+    the bf16 ones, on the same clouds' operators, and the exact
+    alternative for int8 storage: each int8 operator widened to bf16 and
+    multiplied by the quantized activations in one ``bmm`` with an f32
+    result (a row holds at most K nonzeros, so ``K * 127 * 127 < 2^24``
+    and the f32 sums are exact: equal to the int32 ones)."""
+    from deltaconv_tpu_torch import KERNEL_OPS, ops
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+    from deltaconv_tpu_torch.geometry.dense import densify
+
+    pos = torch.from_numpy(np.stack(clouds[0][:B])).to(dev)
+    nrm = torch.from_numpy(np.stack(clouds[1][:B])).to(dev)
+    idx, nbr_mask = knn(pos, K, None, "approx", ops.knn_topk)
+    xb, yb = build_tangent_basis(nrm)
+    gd = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
+    gd8 = densify(gd, KERNEL_OPS, torch.int8)
+    gd16 = densify(gd, KERNEL_OPS, torch.bfloat16)
+
+    def grad_via_bf16(x):
+        xq, sx = ops.int8_quantize(x)
+        acc = torch.bmm(gd8.w_grad.flatten(1, 2).to(torch.bfloat16),
+                        xq.to(torch.bfloat16), out_dtype=torch.float32)
+        out = acc * (gd8.op_scale_grad * sx)[:, None, None]
+        return out.view(B, 2, N, -1).transpose(1, 2).to(x.dtype)
+
+    def div_via_bf16(v):
+        vq, sv = ops.int8_quantize(v)
+        vq = vq.transpose(1, 2).to(torch.bfloat16)
+        acc = sum(torch.bmm(gd8.w_div[:, d].to(torch.bfloat16), vq[:, d],
+                            out_dtype=torch.float32) for d in (0, 1))
+        return (acc * (gd8.op_scale_div * sv)[:, None, None]).to(v.dtype)
+
+    forms = {"int8 (_int_mm a cloud)": (gd8.grad, gd8.div),
+             "bf16 (bmm)": (gd16.grad, gd16.div),
+             "int8 widened to bf16 (bmm)": (grad_via_bf16, div_via_bf16)}
+    grads, divs = APPLY_WIDTHS
+    totals = {form: 0.0 for form in forms}
+    for c_g, c_d in zip(grads, divs):
+        x = torch.randn((B, N, c_g), device=dev).to(torch.bfloat16)
+        v = torch.randn((B, N, 2, c_d), device=dev).to(torch.bfloat16)
+        check(f"int8 applies widened to bf16 equal the int32 ones, "
+              f"C={c_g}/{c_d}",
+              bits_equal(grad_via_bf16(x), gd8.grad(x))
+              and bits_equal(div_via_bf16(v), gd8.div(v)), "bit-equal")
+        line = []
+        for form, (g_fn, d_fn) in forms.items():
+            tg = median_ms(lambda: g_fn(x))
+            td = median_ms(lambda: d_fn(v))
+            totals[form] += tg + td
+            line.append(f"{form} grad {tg:.4f} div {td:.4f}")
+        print(f"  grad C={c_g}, div C={c_d}: " + "; ".join(line) + " ms")
+    print(f"[applies] one forward's 4 grad and 4 div applies, B={B} N={N}: "
+          + "; ".join(
+              f"{form} {t:.4f} ms" for form, t in totals.items())
+          + f"; card: {card}")
 
 
 def random_seg_model(seed, dev, knn_method="exact"):
@@ -1076,12 +1317,14 @@ def held_abs(label, got, ref, atol):
 
 
 def serve_seg_phase(rng, seed, dev, card, precision):
-    """Segmentation serving at the ShapeNet config, f32 (exact kNN) or
-    the production config (approximate kNN, bf16), with categories."""
+    """Segmentation serving at the ShapeNet config, with categories: f32
+    (exact kNN), the production config (approximate kNN, bf16) or int8
+    serving (approximate kNN, bf16 compute on int8 operators)."""
     from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
                                      launch_counts, reset_launch_counts)
 
-    tag = "serve-seg" + ("-bf16" if precision else "")
+    tag = {None: "serve-seg", "bfloat16": "serve-seg-bf16",
+           "int8": "serve-seg-int8"}[precision]
     model = random_seg_model(seed, dev, "approx" if precision else "exact")
     kw = dict(num_points=SEG_N, batch_size=SEG_B)
     engine = InferenceEngine(model, precision=precision, **kw)
@@ -1101,7 +1344,8 @@ def serve_seg_phase(rng, seed, dev, card, precision):
     out_r = engine.predict(rag, rag_n, rag_c)
     counts = launch_counts()
     forwards = 3 * (SEG_UNIFORM // SEG_B) + 1
-    path = SEG_BF16_KERNELS if precision else SEG_KERNELS
+    path = {None: SEG_KERNELS, "bfloat16": SEG_BF16_KERNELS,
+            "int8": SEG_INT8_KERNELS}[precision]
     print(f"[{tag}] launches during serving ({forwards} forwards): {counts}")
     print(f"[{tag}] launches per forward: " + ", ".join(
         f"{name} {counts[name] / forwards:g}" for name in path))
@@ -1118,9 +1362,11 @@ def serve_seg_phase(rng, seed, dev, card, precision):
     for name in path:
         check(f"{name} launched", counts[name] > 0, f"{counts[name]} launches")
     if precision:
-        check("gather_mlp_max twice a forward (conv0, conv2)",
-              counts["gather_mlp_max"] == 2 * forwards,
-              f"{counts['gather_mlp_max']} launches in {forwards} forwards")
+        per_forward = (SEG_INT8_PER_FORWARD if precision == "int8"
+                       else {"gather_mlp_max": 2})
+        for name, per in per_forward.items():
+            check(f"{name} {per} a forward", counts[name] == per * forwards,
+                  f"{counts[name]} launches in {forwards} forwards")
         f32 = InferenceEngine(model, **kw)
     for label, clouds, normals, cats, got in (
             ("uniform", uni, uni_n, uni_c, out_u),
@@ -1130,8 +1376,9 @@ def serve_seg_phase(rng, seed, dev, card, precision):
         if precision:
             held_to(f"{label} kernel vs plain path", got, ref, BF16_PATH_REL,
                     "points")
-            held_to(f"{label} bf16 vs the f32 engine", got, np.concatenate(
-                f32.predict(clouds, normals, cats)), BF16_REL, "points")
+            held_to(f"{label} {precision} vs the f32 engine", got,
+                    np.concatenate(f32.predict(clouds, normals, cats)),
+                    BF16_REL, "points")
         else:
             held_abs(f"{label} kernel vs plain", got, ref, LOGIT_ATOL)
     if precision:
@@ -1576,12 +1823,16 @@ def main():
     torch.manual_seed(args.seed)
     res = kernel_phase(rng, dev, card)
     serve = serve_phase(rng, args.seed, dev, card)
-    serve_bf16 = serve_bf16_phase(rng, args.seed, dev, card)
+    clouds = serving_clouds(rng)  # the same for bf16 and int8 serving
+    serve_bf16 = serve_lowp_phase(clouds, args.seed, dev, card, "bfloat16")
+    serve_int8 = serve_lowp_phase(clouds, args.seed, dev, card, "int8")
+    apply_times(clouds, dev, card)
     conv3_forms(dev, card)
     train, stream = train_phase(rng, args.seed, dev, card)
     train_bf16 = train_bf16_phase(rng, args.seed, dev, card)
     seg = serve_seg_phase(rng, args.seed, dev, card, None)
     seg_bf16 = serve_seg_phase(rng, args.seed, dev, card, "bfloat16")
+    seg_int8 = serve_seg_phase(rng, args.seed, dev, card, "int8")
     conv2_seg_forms(dev, card)
 
     def launches(name):
@@ -1591,7 +1842,9 @@ def main():
                              (STREAM_KERNELS, stream),
                              (TRAIN_BF16_KERNELS, train_bf16),
                              (SEG_KERNELS, seg),
-                             (SEG_BF16_KERNELS, seg_bf16)):
+                             (SEG_BF16_KERNELS, seg_bf16),
+                             (INT8_KERNELS, serve_int8),
+                             (SEG_INT8_KERNELS, seg_int8)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

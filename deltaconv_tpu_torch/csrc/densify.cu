@@ -3,7 +3,8 @@
 //   w_div [b, d, n, idx[b, n, k]] += div_coef [b, n, k, d]
 // idx [B, N, K] i32, grad_coef/div_coef [B, N, K, 2] f32
 //   -> w_grad, w_div [B, 2, N, N] f32 (`dc_densify`) or bf16
-//   (`dc_densify_bf16`), zero where no edge lands.
+//   (`dc_densify_bf16`), zero where no edge lands; or the quantized
+//   int8 planes (`dc_densify_int8`, below).
 //
 // Replaces the Pallas kernel of deltaconv_tpu/ops/densify_op.py
 // (`densify_coef_planes`, pallas_call at densify_op.py:249) in both of
@@ -31,6 +32,29 @@
 // (512 MB at B=32, N=1024), half that in bf16, written as 16-byte
 // (f32) or 8-byte (bf16) vectors where N % 4 == 0. The K compares per
 // stored vector come from shared memory.
+//
+// `dc_densify_int8`: the int8 serving form. idx, grad_coef, div_coef as
+// above and the per-cloud scales s_grad, s_div [B] f32 (max |coef| of
+// the cloud's grad or div coefficients, at least 1e-30; torch ops in the
+// wrapper) -> w_grad, w_div [B, 2, N, N] int8, each coefficient
+// quantized to clip(rint(coef / s * 127), -127, 127): the IEEE division
+// (__fdiv_rn), then the product (__fmul_rn), rounded half to even
+// (rintf), the order of torch's `round(coef / s * 127)` and of JAX's
+// `_quantize_pack` (densify_op.py:143-162). Replaces the Pallas kernel
+// `densify_coefs_int8` (pallas_call at densify_op.py:180, body
+// `_fwd_kernel_int8`), which packed the four planes' bytes into one int32
+// and ORed them into place because Mosaic could not select below 32
+// bits. Here a block row (threadIdx.y) owns one row (b, n) of the four
+// planes, several rows a block of 256 threads; its threads quantize the
+// row's 4 K values into shared memory, one a thread, then each thread
+// ADDS the quantized values of the slots that land in its 4 columns, in
+// int32, and stores each plane's 4 bytes as one 4-byte word where
+// N % 4 == 0, as the bf16 body does (16 columns a thread, with 16-byte
+// stores, ran slower on the H100). Adding equals the TPU's OR wherever at
+// most one value of a column is nonzero (a clamped padded slot quantizes
+// to 0), and it is the JAX CPU fallback's one-hot sum
+// (geometry/dense.py:265-278) everywhere. Bound: the stores, 4 * N * N
+// bytes per cloud (134 MB at B=32, N=1024).
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -132,7 +156,108 @@ int launch_densify(const void* idx, const void* grad_coef,
   return (int)cudaGetLastError();
 }
 
+// clip(rint(p / s * 127), -127, 127), each operation rounded on its own.
+__device__ __forceinline__ int quantize127(float p, float s) {
+  const float v = rintf(__fmul_rn(__fdiv_rn(p, s), 127.0f));
+  return (int)fminf(fmaxf(v, -127.0f), 127.0f);
+}
+
+// A block row (threadIdx.y) a row (b, n) of the four planes; V columns a
+// thread (4 where N % 4 == 0: one 4-byte store a plane, else 1).
+template <int V>
+__global__ void densify_int8_kernel(const int* __restrict__ idx,
+                                    const float* __restrict__ grad_coef,
+                                    const float* __restrict__ div_coef,
+                                    const float* __restrict__ s_grad,
+                                    const float* __restrict__ s_div,
+                                    int8_t* __restrict__ w_grad,
+                                    int8_t* __restrict__ w_div, int N,
+                                    int K) {
+  extern __shared__ int ismem[];
+  int* s_idx = ismem + threadIdx.y * 5 * K;  // [K]
+  int* s_q = s_idx + K;  // [4, K]: g1, g2, d1, d2 quantized
+
+  const long long n = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const long long b = blockIdx.y;
+  const long long row = (b * N + n) * K;
+  const bool live = n < N;
+  const float sg = s_grad[b], sd = s_div[b];
+  // One thread a quantized value: s_q[p * K + k] of plane p (g1, g2, d1,
+  // d2) and slot k.
+  for (int t = threadIdx.x; live && t < 5 * K; t += blockDim.x) {
+    if (t >= 4 * K) {
+      s_idx[t - 4 * K] = idx[row + t - 4 * K];
+      continue;
+    }
+    const int p = t / K, k = t - p * K;
+    const float* coef = p < 2 ? grad_coef : div_coef;
+    s_q[t] = quantize127(coef[(row + k) * 2 + (p & 1)], p < 2 ? sg : sd);
+  }
+  __syncthreads();
+  if (!live) return;
+
+  const long long nn = (long long)N * N;
+  int8_t* rows[4] = {w_grad + (b * 2 + 0) * nn + n * N,
+                     w_grad + (b * 2 + 1) * nn + n * N,
+                     w_div + (b * 2 + 0) * nn + n * N,
+                     w_div + (b * 2 + 1) * nn + n * N};
+  for (int q = threadIdx.x; q < N / V; q += blockDim.x) {
+    int acc[4][V] = {};
+    for (int k = 0; k < K; ++k) {
+      const int j = s_idx[k] - V * q;
+      if ((unsigned)j < (unsigned)V) {
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          if (j == c)
+#pragma unroll
+            for (int p = 0; p < 4; ++p) acc[p][c] += s_q[p * K + k];
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if constexpr (V == 4) {
+        reinterpret_cast<unsigned*>(rows[p])[q] =
+            ((unsigned)acc[p][0] & 0xFFu) |
+            (((unsigned)acc[p][1] & 0xFFu) << 8) |
+            (((unsigned)acc[p][2] & 0xFFu) << 16) |
+            (((unsigned)acc[p][3] & 0xFFu) << 24);
+      } else {
+        rows[p][q] = (int8_t)acc[p][0];
+      }
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int dc_densify_int8(const void* idx, const void* grad_coef,
+                               const void* div_coef, const void* s_grad,
+                               const void* s_div, void* w_grad, void* w_div,
+                               int B, int N, int K, int device,
+                               void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * N == 0) return (int)cudaGetLastError();
+  // One thread per 4 columns (per column where N % 4 != 0) across a row,
+  // whole warps, and as many rows as fill 256 threads.
+  const bool by4 = (N & 3) == 0;
+  const int work = by4 ? N / 4 : N;
+  const int threads = work >= 256 ? 256 : ((work + 31) / 32) * 32;
+  const dim3 block(threads, 256 / threads);
+  const dim3 grid((N + block.y - 1) / block.y, B);
+  const size_t smem = (size_t)block.y * K * 5 * sizeof(int);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (by4)
+    densify_int8_kernel<4><<<grid, block, smem, s>>>(
+        (const int*)idx, (const float*)grad_coef, (const float*)div_coef,
+        (const float*)s_grad, (const float*)s_div, (int8_t*)w_grad,
+        (int8_t*)w_div, N, K);
+  else
+    densify_int8_kernel<1><<<grid, block, smem, s>>>(
+        (const int*)idx, (const float*)grad_coef, (const float*)div_coef,
+        (const float*)s_grad, (const float*)s_div, (int8_t*)w_grad,
+        (int8_t*)w_div, N, K);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int dc_densify(const void* idx, const void* grad_coef,
                           const void* div_coef, void* w_grad, void* w_div,

@@ -1,5 +1,5 @@
 """Dense form of the grad/div operators (counterpart of
-``deltaconv_tpu/geometry/dense.py``, f32 or bf16, ``scale=None``).
+``deltaconv_tpu/geometry/dense.py``, f32, bf16 or int8, ``scale=None``).
 
 ``W_grad [B, 2, N, N]``: plane d maps scalars to the d-component;
 ``W_div [B, 2, N, N]``: plane d maps the d-component to scalars. Built
@@ -22,6 +22,18 @@ no gradient), with the JAX VJP's rounding: the cotangent of the f32
 product is the cotangent of the cast, a bf16 value; it is contracted
 with the transposed bf16 operator, f32 accumulation and result, and the
 result is cast to the bf16 input's dtype.
+
+The int8 serving form (``densify(..., torch.int8)``, eval only) keeps
+one dequantization scale a cloud and operator (``op_scale_grad``,
+``op_scale_div``): ``grad``/``div`` quantize their input per cloud
+(``int8_quantize``, over every axis after the batch), take exact s8 x s8
+-> s32 products (``torch._int_mm``, one a cloud and operator plane, the
+width zero-padded to a multiple of 8; ``div`` adds its two component
+products in int32), and scale by ``op_scale * s_x`` (that product first,
+then the multiply), cast to the input's dtype. The neighbour maxes run
+in the quantized domain: ``nbr_max`` through ``gather_max_int8``,
+``nbr_matmul_max`` through ``int8_quantize``, ``gather_matmul_max_int8``
+and the dequantization, without the epilogue.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.gather_max import int8_quantize
 from .grad_div import GradDiv
 from .nbr_ops import NeighborAggregations
 
@@ -67,21 +80,74 @@ def _bf16_product(w, x):
     return _Bf16Apply.apply(w, x.to(w.dtype))
 
 
+def _int8_products(w, xq):
+    """``w [B, M, N] @ xq [B, N, C]`` of int8 batches, exact, int32
+    ``[B, M, C]``: one ``torch._int_mm`` a cloud, ``C`` zero-padded to a
+    multiple of 8 (as its CUDA form needs; zero columns are exact)."""
+    c = xq.shape[-1]
+    xq = torch.nn.functional.pad(xq, (0, -c % 8)).contiguous()
+    out = torch.empty(w.shape[:2] + xq.shape[-1:], dtype=torch.int32,
+                      device=w.device)
+    for i in range(w.shape[0]):
+        torch._int_mm(w[i], xq[i], out=out[i])
+    return out[..., :c]
+
+
 @dataclass(frozen=True)
 class DenseGradDiv(NeighborAggregations):
     """Dense grad/div operators plus the neighbour lists (for the
     scalar-stream max aggregations and the train-mode edge sums, which
     stay gathers) and the ``ops`` (kernels or plain versions) they go
-    through."""
+    through; on the int8 form also the per-cloud dequantization scales
+    (``W ~= W_q * op_scale``), None otherwise."""
 
     nbr_idx: torch.Tensor  # [B, N, K] int32
     nbr_mask: torch.Tensor  # [B, N, K] bool
-    w_grad: torch.Tensor  # [B, 2, N, N] f32 or bf16
-    w_div: torch.Tensor  # [B, 2, N, N] f32 or bf16
+    w_grad: torch.Tensor  # [B, 2, N, N] f32, bf16 or int8
+    w_div: torch.Tensor  # [B, 2, N, N] f32, bf16 or int8
     ops: object  # ops.Ops
+    op_scale_grad: torch.Tensor = None  # [B] f32 (int8 form) or None
+    op_scale_div: torch.Tensor = None  # [B] f32 (int8 form) or None
+
+    @property
+    def int8(self) -> bool:
+        """True for the int8 serving form."""
+        return self.w_grad.dtype == torch.int8
+
+    def nbr_max(self, h):
+        """int8 form: the masked max in the quantized domain
+        (``gather_max_int8``, rows with no valid neighbour 0); otherwise
+        the shared protocol's."""
+        if self.int8:
+            return self.ops.gather_max_int8(h, self.nbr_idx, self.nbr_mask)
+        return super().nbr_max(h)
+
+    def nbr_matmul_max(self, x, w, affine=None):
+        """int8 form: ``x`` quantized per cloud, the masked max of
+        ``(xq @ w)[nbr]`` (``gather_matmul_max_int8``), dequantized by the
+        cloud's scale and cast to ``x``'s dtype; rows with no valid
+        neighbour are the caller's to mask. The int8 form takes no
+        ``affine``: its epilogue runs after the max, as the JAX
+        package's."""
+        if not self.int8:
+            return super().nbr_matmul_max(x, w, affine)
+        if affine is not None:
+            raise ValueError("the int8 form keeps the epilogue outside the "
+                             "kernel: pass no affine")
+        xq, s = int8_quantize(x)
+        out = self.ops.gather_matmul_max_int8(xq, w, self.nbr_idx,
+                                              self.nbr_mask)
+        return (out.float() * s[:, None, None]).to(x.dtype)
 
     def grad(self, x):
         """``[B, N, C] -> [B, N, 2, C]`` via one batched matmul."""
+        if self.int8:
+            b, n = x.shape[:2]
+            xq, sx = int8_quantize(x)
+            acc = _int8_products(self.w_grad.flatten(1, 2), xq)  # [B, 2N, C]
+            s = self.op_scale_grad * sx
+            out = acc.float() * s[:, None, None]
+            return out.view(b, 2, n, -1).transpose(1, 2).to(x.dtype)
         if self.w_grad.dtype == torch.float32:
             out = torch.matmul(self.w_grad, x[:, None].float())
             return out.transpose(1, 2).to(x.dtype)  # [B, N, 2, C]
@@ -92,6 +158,13 @@ class DenseGradDiv(NeighborAggregations):
     def div(self, v):
         """``[B, N, 2, C] -> [B, N, C]`` as two component matmuls."""
         w = self.w_div
+        if self.int8:
+            vq, sv = int8_quantize(v)
+            vq = vq.transpose(1, 2)  # [B, 2, N, C]
+            acc = (_int8_products(w[:, 0], vq[:, 0])
+                   + _int8_products(w[:, 1], vq[:, 1]))
+            s = self.op_scale_div * sv
+            return (acc.float() * s[:, None, None]).to(v.dtype)
         if w.dtype == torch.float32:
             vf = v.float()
             out = (torch.matmul(w[:, 0], vf[:, :, 0])
@@ -104,10 +177,17 @@ class DenseGradDiv(NeighborAggregations):
 
 def densify(gd: GradDiv, ops, dtype=None) -> DenseGradDiv:
     """Materializes a batched :class:`GradDiv` into its dense form in
-    ``dtype`` (f32 when None, or bf16). ``ops`` (``ops.Ops``) selects
-    the kernels or their plain versions, for the assembly and for every
+    ``dtype`` (f32 when None, bf16, or ``torch.int8``: the quantized
+    serving form with its scales). ``ops`` (``ops.Ops``) selects the
+    kernels or their plain versions, for the assembly and for every
     later aggregation. Unlike the JAX package (Pallas only at N >= 512
     on the TPU), the kernel runs at every N."""
+    if dtype == torch.int8:
+        w_grad, w_div, s_grad, s_div = ops.densify_coefs_int8(
+            gd.nbr_idx, gd.grad_coef, gd.div_coef)
+        return DenseGradDiv(nbr_idx=gd.nbr_idx, nbr_mask=gd.nbr_mask,
+                            w_grad=w_grad, w_div=w_div, ops=ops,
+                            op_scale_grad=s_grad, op_scale_div=s_div)
     w_grad, w_div = ops.densify_coefs(gd.nbr_idx, gd.grad_coef, gd.div_coef,
                                       dtype)
     return DenseGradDiv(nbr_idx=gd.nbr_idx, nbr_mask=gd.nbr_mask,

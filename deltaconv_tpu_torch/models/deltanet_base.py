@@ -6,8 +6,8 @@ The kNN graph and the grad/div operators are rebuilt on every forward
 from the positions, so operator construction is part of the serving
 path: kNN (``torch.topk``, or the ``knn_topk`` kernel for
 ``knn_method="approx"``), tangent frames, the edge-plane gather and the
-WLS solve (two kernels), and the dense assembly (a kernel, f32 or bf16).
-Then the convs' neighbour maxes; in training the first conv's edge
+WLS solve (two kernels), and the dense assembly (a kernel, f32, bf16 or
+int8). Then the convs' neighbour maxes; in training the first conv's edge
 statistics add the neighbour sum.
 
 Mixed precision as in the JAX package: ``operator_dtype`` is the dtype of
@@ -15,7 +15,10 @@ the dense operators, ``compute_dtype`` that of the conv stack's
 activations (positions are cast to it before the first conv); the
 operator build itself always runs in f32. Both serve and train in bf16
 (the production config); in training the operator applies are
-differentiated in the features, never in the operators.
+differentiated in the features, never in the operators. int8 is an
+operator dtype only, and serves only (the JAX package's int8 serving
+mode: quantized operators and neighbour maxes; its rounding has no
+gradient), so a train-mode forward on int8 operators raises.
 """
 
 from __future__ import annotations
@@ -36,16 +39,16 @@ from ..ops.wls_fused import build_grad_div_fused
 __all__ = ["DeltaNetBase", "build_operators", "to_dtype"]
 
 _DTYPES = {None: None, "float32": None, torch.float32: None,
-           "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
+           "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16,
+           "int8": torch.int8, torch.int8: torch.int8}
 
 
 def to_dtype(name):
-    """A JAX-style dtype setting (None, "float32", "bfloat16" or the
-    torch dtype) as the port's: None for f32, else ``torch.bfloat16``."""
+    """A JAX-style dtype setting (None, "float32", "bfloat16", "int8" or
+    the torch dtype) as the port's: None for f32, else the torch dtype."""
     if name not in _DTYPES:
-        raise NotImplementedError(
-            f"dtype {name!r} is not ported (None, float32 or bfloat16; "
-            "int8 operators are ROADMAP slice F)")
+        raise ValueError(f"unknown dtype {name!r}: None, float32, bfloat16 "
+                         "(or int8 for the operators)")
     return _DTYPES[name]
 
 
@@ -63,7 +66,9 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
       point_mask: optional ``[B, N]`` bool validity.
       kernel_width, regularizer: WLS parameters.
       ops: the kernels (default) or their plain versions.
-      operator_dtype: dtype of the dense operators (None: f32, or bf16).
+      operator_dtype: dtype of the dense operators (None: f32, bf16, or
+        int8: quantized per cloud, with the scales on the returned
+        operators; serving only).
       knn_method: ``"exact"`` or ``"approx"`` (``geometry.knn``).
     """
     if pos.requires_grad or (normal is not None and normal.requires_grad):
@@ -110,8 +115,13 @@ class DeltaNetBase(nn.Module):
         self.set_precision(compute_dtype, operator_dtype)
 
     def set_precision(self, compute_dtype, operator_dtype) -> None:
-        """Sets both dtypes (None, "float32" or "bfloat16"); the convs
-        take ``compute_dtype``. Parameters are unchanged (f32)."""
+        """Sets both dtypes (None, "float32" or "bfloat16"; "int8" for
+        ``operator_dtype`` too); the convs take ``compute_dtype``.
+        Parameters are unchanged (f32)."""
+        if to_dtype(compute_dtype) == torch.int8:
+            raise ValueError("int8 is an operator dtype only (the int8 "
+                             "serving mode computes in bf16); compute_dtype "
+                             "takes None, float32 or bfloat16")
         self.compute_dtype = to_dtype(compute_dtype)
         self.operator_dtype = to_dtype(operator_dtype)
         for m in self.convs.modules():
@@ -121,6 +131,10 @@ class DeltaNetBase(nn.Module):
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS):
         """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``."""
+        if self.training and self.operator_dtype == torch.int8:
+            raise NotImplementedError(
+                "int8 operators serve only, as the JAX package's (eval; "
+                "the quantization has no gradient): call model.eval()")
         # Positions carry no gradient on this path (the loss is
         # differentiated for the parameters only), so the build keeps
         # no autograd graph, in training as in eval.

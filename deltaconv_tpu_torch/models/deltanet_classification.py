@@ -36,11 +36,13 @@ class DeltaNetClassification(nn.Module):
     / ``model.eval()`` switch BatchNorm and dropout between batch and
     running behaviour.
 
-    ``operator_dtype``, ``compute_dtype`` (None, "float32" or
-    "bfloat16") and ``knn_method`` ("exact" or "approx") are the JAX
-    model's fields: the JAX package serves and trains in production with
-    both dtypes bf16 and approximate kNN (``InferenceEngine(...,
-    precision="bfloat16")`` sets the dtypes for serving). The backbone,
+    ``operator_dtype`` (None, "float32", "bfloat16" or "int8"),
+    ``compute_dtype`` (None, "float32" or "bfloat16") and ``knn_method``
+    ("exact" or "approx") are the JAX model's fields: the JAX package
+    serves and trains in production with both dtypes bf16 and approximate
+    kNN (``InferenceEngine(..., precision="bfloat16")`` sets the dtypes
+    for serving; ``precision="int8"`` serves bf16 compute on int8
+    operators, eval only). The backbone,
     embedding and head MLPs compute in ``compute_dtype`` (dropout on the
     bf16 activations in training); the last Linear (``head_out``) runs in
     f32 on the f32-cast activations, so logits, and the loss, are f32.
@@ -80,8 +82,9 @@ class DeltaNetClassification(nn.Module):
         return self.deltanet_base.operator_dtype
 
     def set_precision(self, compute_dtype, operator_dtype) -> None:
-        """Sets both dtypes (None, "float32" or "bfloat16") in place, as
-        the JAX model's ``clone(compute_dtype=..., operator_dtype=...)``;
+        """Sets both dtypes (None, "float32" or "bfloat16"; "int8" for
+        ``operator_dtype`` too, which serves only) in place, as the JAX
+        model's ``clone(compute_dtype=..., operator_dtype=...)``;
         parameters stay f32."""
         self.deltanet_base.set_precision(compute_dtype, operator_dtype)
         for mlp in (self.lin_embedding, self.classification_head[0],

@@ -40,10 +40,12 @@ class DeltaNetSegmentation(nn.Module):
     ``generator`` (torch's Linear defaults) on the CPU;
     ``InferenceEngine`` moves the model to the card.
 
-    ``operator_dtype``, ``compute_dtype`` (None, "float32" or
-    "bfloat16") and ``knn_method`` ("exact" or "approx") are the JAX
-    model's fields. The backbone, ``lin_global``, ``lin_categorical`` and
-    the head MLPs compute in ``compute_dtype``; the head's two Linear
+    ``operator_dtype`` (None, "float32", "bfloat16" or "int8"),
+    ``compute_dtype`` (None, "float32" or "bfloat16") and ``knn_method``
+    ("exact" or "approx") are the JAX model's fields (int8 operators
+    serve only, ``InferenceEngine(..., precision="int8")``). The
+    backbone, ``lin_global``, ``lin_categorical`` and the head MLPs
+    compute in ``compute_dtype``; the head's two Linear
     layers (``segmentation_head.4`` and ``.6``) run in f32, as the JAX
     model's ``Dense`` layers without a dtype do (flax promotes the bf16
     activations to their f32 parameters), so logits are f32. Parameters
@@ -91,8 +93,9 @@ class DeltaNetSegmentation(nn.Module):
         return self.deltanet_base.operator_dtype
 
     def set_precision(self, compute_dtype, operator_dtype) -> None:
-        """Sets both dtypes (None, "float32" or "bfloat16") in place, as
-        the JAX model's ``clone(compute_dtype=..., operator_dtype=...)``;
+        """Sets both dtypes (None, "float32" or "bfloat16"; "int8" for
+        ``operator_dtype`` too, which serves only) in place, as the JAX
+        model's ``clone(compute_dtype=..., operator_dtype=...)``;
         parameters stay f32."""
         self.deltanet_base.set_precision(compute_dtype, operator_dtype)
         mlps = [self.lin_global, self.segmentation_head[0],

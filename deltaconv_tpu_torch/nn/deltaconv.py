@@ -24,6 +24,14 @@ in a lane-narrower ``PointMaxMLP``, which takes the commuted train
 branch through ``gd.nbr_matmul_max_train``, as the JAX package's TPU
 route does. The port takes the TPU's route on every device: the kernels
 on the card, their plain versions on the CPU.
+
+On int8 operators (``gd.int8``, the int8 serving mode) the epilogue
+stays outside the maxes, as JAX's ``_epilogue_fusible`` rules: the
+EdgeMaxMLP max and the PointMaxMLP per-point branch run ``gd.nbr_max``
+(the quantized max) with the BatchNorm + LeakyReLU around it, and a
+lane-narrower PointMaxMLP runs ``gd.nbr_matmul_max`` without the affine,
+then the epilogue. DeepMaxMLP keeps its fused kernel (it gathers bf16
+features, not the operators).
 """
 
 from __future__ import annotations
@@ -85,7 +93,7 @@ class EdgeMaxMLP(MLP):
         (None: every slot, as the reference's mask-free BatchNorm)."""
         lin, bn = self[0][0], self[0][1].bn
         y = linear(lin, x, self.dtype).float()
-        if self.dtype is not None and not self.training:
+        if self.dtype is not None and not self.training and not gd.int8:
             # bf16 eval: the whole epilogue, self-row subtract included,
             # in the gather_max_affine kernel.
             affine = _bn_affine(bn)
@@ -154,7 +162,8 @@ class PointMaxMLP(MLP):
     def forward(self, x, gd, stats_mask=None):
         lin, bn = self[0][0], self[0][1].bn
         narrower = _pad128(lin.in_features) < _pad128(lin.out_features)
-        if self.dtype is None or (self.training and not narrower):
+        if self.dtype is None or (
+                (self.training or gd.int8) and not narrower):
             return gd.nbr_max(super().forward(x, stats_mask))
         if self.training:
             y = linear(lin, x, self.dtype).float()
@@ -170,7 +179,13 @@ class PointMaxMLP(MLP):
         sign = affine[0]
         if narrower:
             wp = (lin.weight.t() * sign[None, :]).to(self.dtype).contiguous()
-            return gd.nbr_matmul_max(x.to(self.dtype), wp, affine)
+            if not gd.int8:
+                return gd.nbr_matmul_max(x.to(self.dtype), wp, affine)
+            # int8: the quantized matmul max, then the epilogue.
+            _, inv, mean, bias = affine
+            mxp = gd.nbr_matmul_max(x.to(self.dtype), wp)
+            out = leaky_relu02((sign * mxp.float() - mean) * inv + bias)
+            return _masked_rows_to_zero(out, gd, self.dtype)
         y = linear(lin, x, self.dtype)
         yp = (y.float() * sign).to(self.dtype)
         return gd.nbr_max_affine(yp, affine)

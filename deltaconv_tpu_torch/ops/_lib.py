@@ -69,6 +69,10 @@ _KERNELS = {
     "gather_matmul_max_win": ("dc_gather_matmul_max_win",
                               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "gather_mlp_max": ("dc_gather_mlp_max", [_P] * 9 + [_I] * 7),
+    "densify_int8": ("dc_densify_int8", [_P] * 7 + [_I] * 3),
+    "gather_max_int8": ("dc_gather_max_int8", [_P] * 5 + [_I] * 5),
+    "gather_matmul_max_int8": ("dc_gather_matmul_max_int8",
+                               [_P] * 5 + [_I] * 5),
 }
 
 # Why a raw kernel takes no tensor that requires grad: the operator
@@ -94,6 +98,10 @@ _NO_GRAD = {
                       "training, ROADMAP queue 1 item 7) is not ported yet",
 }
 _NO_GRAD["densify_bf16"] = _NO_GRAD["densify"]
+_NO_GRAD.update(dict.fromkeys(
+    ("densify_int8", "gather_max_int8", "gather_matmul_max_int8"),
+    "int8 operators serve only, as the JAX package's (forward only: the "
+    "rounding has no gradient)"))
 
 _launches = {name: 0 for name in _KERNELS}
 

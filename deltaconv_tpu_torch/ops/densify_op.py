@@ -1,5 +1,5 @@
-"""Dense grad/div operator assembly, f32 or bf16 (CUDA kernels + plain
-version).
+"""Dense grad/div operator assembly, f32, bf16 or int8 (CUDA kernels +
+plain versions).
 
 ``densify_coefs(idx, grad_coef, div_coef, dtype)``: ``[B, N, K]``
 indices and ``[B, N, K, 2]`` per-edge coefficients -> ``(w_grad,
@@ -10,6 +10,17 @@ bf16 rounds that sum once, to nearest even. Counterpart of
 ``deltaconv_tpu/ops/densify_op.py`` (``densify_coefs`` with
 ``dtype_name`` "float32" or "bfloat16", forward only); the kernels are
 ``csrc/densify.cu``.
+
+``densify_coefs_int8(idx, grad_coef, div_coef)`` -> ``(w_grad, w_div,
+s_grad, s_div)``: the int8 serving form (``densify_coefs_int8`` of the
+JAX module, forward only), ``W ~= W_q * s`` with one scale a cloud and
+operator. Per cloud ``s = max(max |coef|, 1e-30)`` over the grad (or
+div) coefficients, each coefficient quantized to ``clip(round(coef / s
+* 127), -127, 127)`` (the division first, then the product, rounded half
+to even), the quantized values of a column ADDED (a clamped padded slot
+adds 0), and the scales returned as ``s / 127``. The per-cloud maxima
+are torch ops (XLA outside the ``pallas_call`` in JAX); the
+quantization and placement are the ``densify_int8`` kernel.
 """
 
 from __future__ import annotations
@@ -18,7 +29,8 @@ import torch
 
 from . import _lib
 
-__all__ = ["densify_coefs", "densify_coefs_plain"]
+__all__ = ["densify_coefs", "densify_coefs_int8", "densify_coefs_int8_plain",
+           "densify_coefs_plain"]
 
 _KERNEL = {torch.float32: "densify", torch.bfloat16: "densify_bf16"}
 
@@ -27,24 +39,26 @@ def _check_dtype(dtype):
     dtype = torch.float32 if dtype is None else dtype
     if dtype not in _KERNEL:
         raise ValueError(f"densify: dtype {dtype}, expected float32 or "
-                         "bfloat16 (int8 operators: ROADMAP slice F)")
+                         "bfloat16 (int8 operators: densify_coefs_int8)")
     return dtype
+
+
+def _scatter_planes(idx, coef, dtype):
+    """``[B, 2, N, N]`` f32 ``scatter_add_`` of ``coef [B, N, K, 2]`` on
+    zeros, cast to ``dtype``."""
+    b, n, k = idx.shape
+    index = idx.long()[:, None].expand(b, 2, n, k)
+    w = torch.zeros((b, 2, n, n), dtype=torch.float32, device=coef.device)
+    w.scatter_add_(3, index, coef.permute(0, 3, 1, 2).float())
+    return w.to(dtype)
 
 
 def densify_coefs_plain(idx, grad_coef, div_coef, dtype=torch.float32):
     """The plain PyTorch version: f32 ``scatter_add_`` on zeros, then
     the cast to ``dtype``."""
     dtype = _check_dtype(dtype)
-    b, n, k = idx.shape
-    index = idx.long()[:, None].expand(b, 2, n, k)
-
-    def one(coef):
-        w = torch.zeros((b, 2, n, n), dtype=torch.float32,
-                        device=coef.device)
-        w.scatter_add_(3, index, coef.permute(0, 3, 1, 2).float())
-        return w.to(dtype)
-
-    return one(grad_coef), one(div_coef)
+    return (_scatter_planes(idx, grad_coef, dtype),
+            _scatter_planes(idx, div_coef, dtype))
 
 
 def densify_coefs(idx, grad_coef, div_coef, dtype=torch.float32):
@@ -66,3 +80,44 @@ def densify_coefs(idx, grad_coef, div_coef, dtype=torch.float32):
                 div_coef.data_ptr(), w_grad.data_ptr(), w_div.data_ptr(),
                 b, n, k)
     return w_grad, w_div
+
+
+def _cloud_scale(coef):
+    """``max(max |coef|, 1e-30)`` of each cloud, ``[B]`` f32."""
+    amax = torch.linalg.vector_norm(coef, float("inf"), dim=(1, 2, 3))
+    return torch.clamp(amax, min=1e-30)
+
+
+def densify_coefs_int8_plain(idx, grad_coef, div_coef):
+    """The plain PyTorch version: the quantization in torch ops, the
+    quantized values placed by f32 ``scatter_add_`` on zeros (exact:
+    small integers), then the cast to int8."""
+    sg, sd = _cloud_scale(grad_coef), _cloud_scale(div_coef)
+
+    def quantized(coef, s):
+        q = torch.round(coef / s[:, None, None, None] * 127.0)
+        return _scatter_planes(idx, torch.clamp(q, -127.0, 127.0),
+                               torch.int8)
+
+    return (quantized(grad_coef, sg), quantized(div_coef, sd),
+            sg / 127.0, sd / 127.0)
+
+
+def densify_coefs_int8(idx, grad_coef, div_coef):
+    """Plain version for CPU tensors; for CUDA tensors the per-cloud
+    maxima in torch ops, then the ``densify_int8`` kernel."""
+    if idx.device.type == "cpu":
+        return densify_coefs_int8_plain(idx, grad_coef, div_coef)
+    b, n, k = idx.shape
+    device = _lib.check_inputs("densify_int8", [
+        ("idx", idx, torch.int32, (b, n, k)),
+        ("grad_coef", grad_coef, torch.float32, (b, n, k, 2)),
+        ("div_coef", div_coef, torch.float32, (b, n, k, 2)),
+    ])
+    sg, sd = _cloud_scale(grad_coef), _cloud_scale(div_coef)
+    w_grad = torch.empty((b, 2, n, n), dtype=torch.int8, device=device)
+    w_div = torch.empty_like(w_grad)
+    _lib.launch("densify_int8", device, idx.data_ptr(), grad_coef.data_ptr(),
+                div_coef.data_ptr(), sg.data_ptr(), sd.data_ptr(),
+                w_grad.data_ptr(), w_div.data_ptr(), b, n, k)
+    return w_grad, w_div, sg / 127.0, sd / 127.0

@@ -52,6 +52,17 @@ backward routes the cotangent to the winning rows at ``C_out``
 (``gather_max_bwd``), rounds it to bf16, and forms ``dx = dy @ w^T`` and
 ``dw = x^T dy`` with f32 accumulation, cast to ``x``'s and ``w``'s dtypes
 (``_gmm_train_bwd``). Rows with no valid neighbour give ``-3e38``.
+
+The int8 serving form's maxes (``csrc/gather_max_int8.cu``, forward only),
+counterparts of the JAX module's int8 functions: :func:`int8_quantize`
+quantizes symmetrically per cloud (torch ops, XLA in JAX);
+:func:`gather_max_int8` ``(h [B, N, C] f32 or bf16, idx, mask) -> [B, N,
+C]`` in ``h``'s dtype is the masked max of the quantized rows, times the
+cloud's scale, 0 on rows with no valid neighbour (max commutes with the
+positive scale); :func:`gather_matmul_max_int8` ``(xq [B, N, C_in] int8,
+w [C_in, C_out] bf16, idx, mask) -> [B, N, C_out] bf16`` is the masked max
+of ``xq[idx_k] @ w`` (f32 accumulation), ``-3e38`` on rows with no valid
+neighbour, which the caller dequantizes.
 """
 
 from __future__ import annotations
@@ -63,23 +74,26 @@ import torch
 from . import _lib
 
 __all__ = ["NEG", "bn_lrelu_epilogue", "gather_matmul_max",
+           "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
            "gather_matmul_max_plain", "gather_matmul_max_train",
            "gather_matmul_max_train_plain", "gather_matmul_max_win",
            "gather_matmul_max_win_plain", "gather_max", "gather_max_affine",
            "gather_max_affine_plain", "gather_max_bwd",
-           "gather_max_bwd_plain", "gather_max_plain", "gather_max_win",
-           "gather_max_win_plain", "masked_nbr_max"]
+           "gather_max_bwd_plain", "gather_max_int8", "gather_max_int8_plain",
+           "gather_max_plain", "gather_max_win", "gather_max_win_plain",
+           "int8_quantize", "masked_nbr_max"]
 
 NEG = -3.0e38  # ~ -inf in f32, safe to negate and compare
+_I8_NEG = -(2 ** 30)  # "-inf" in the int32 quantized domain
 
 
-def _masked_rows(h, idx, mask):
-    """``[B, N, K, C]`` gathered neighbour rows, ``NEG`` where masked."""
+def _masked_rows(h, idx, mask, neg=NEG):
+    """``[B, N, K, C]`` gathered neighbour rows, ``neg`` where masked."""
     b, n, c = h.shape
     k = idx.shape[-1]
     flat = idx.reshape(b, n * k, 1).long().expand(b, n * k, c)
     g = torch.gather(h, 1, flat).reshape(b, n, k, c)
-    return torch.where(mask[..., None], g, NEG)
+    return torch.where(mask[..., None], g, neg)
 
 
 def _max_plain(h, idx, mask):
@@ -302,15 +316,16 @@ def _pad_last(t, multiple):
     return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
-def _mm_operands(name, x, w, idx, mask):
-    """Checks the matmul maxes' inputs; returns the device and ``x`` and
-    ``w`` zero-padded to widths that are multiples of 16 (zero columns
-    add nothing), aligned as the kernel's loads need."""
+def _mm_operands(name, x, w, idx, mask, x_dtype=torch.bfloat16):
+    """Checks the matmul maxes' inputs (``x`` bf16, or int8 for the int8
+    form); returns the device and ``x`` and ``w`` zero-padded to widths
+    that are multiples of 16 (zero columns add nothing), aligned as the
+    kernel's loads need."""
     b, n, c_in = x.shape
     c_out = w.shape[-1]
     k = idx.shape[-1]
     device = _lib.check_inputs(name, [
-        ("x", x, torch.bfloat16, (b, n, c_in)),
+        ("x", x, x_dtype, (b, n, c_in)),
         ("w", w, torch.bfloat16, (c_in, c_out)),
         ("idx", idx, torch.int32, (b, n, k)),
         ("mask", mask, torch.bool, (b, n, k)),
@@ -432,3 +447,80 @@ def gather_matmul_max_train_plain(x, w, idx, mask):
     """:func:`gather_matmul_max_train` through the plain versions on any
     device."""
     return _GatherMatmulMax.apply(x, w, idx, mask, _PLAIN)
+
+
+# -- the int8 serving form (quantized activations) ---------------------------
+
+
+def int8_quantize(h):
+    """Symmetric per-cloud int8 quantization over every axis after the
+    batch (JAX ``int8_quantize`` for ``[B, N, C]``, and the operator
+    applies' ``_quantize_in``): ``(round(h / a * 127) as int8, a / 127
+    [B])`` with ``a = max(max |h|, 1e-30)`` in f32, the division first,
+    rounded half to even; ``|h| / a <= 1`` keeps every value in [-127,
+    127]."""
+    hf = h.float()
+    amax = torch.linalg.vector_norm(hf, float("inf"),
+                                    dim=tuple(range(1, h.dim())))
+    a = torch.clamp(amax, min=1e-30)
+    hq = torch.round(hf / a.reshape((-1,) + (1,) * (h.dim() - 1)) * 127.0)
+    return hq.to(torch.int8), a / 127.0
+
+
+def _dequantized(best, scale, mask, dtype):
+    """``best`` (int) widened to f32 times the cloud's ``scale``, 0 on
+    rows with no valid neighbour, cast to ``dtype``."""
+    out = best.float() * scale[:, None, None]
+    return torch.where(_valid_rows(mask), out, 0.0).to(dtype)
+
+
+def gather_max_int8_plain(h, idx, mask):
+    """Plain version: quantize, gather the int32 rows, masked ``amax``,
+    dequantize."""
+    hq, scale = int8_quantize(h)
+    best = _masked_rows(hq.int(), idx, mask, _I8_NEG).amax(dim=2)
+    return _dequantized(best, scale, mask, h.dtype)
+
+
+def gather_max_int8(h, idx, mask):
+    """Plain version for CPU tensors; for CUDA tensors the quantization
+    in torch ops, then the ``gather_max_int8`` kernel, which also
+    dequantizes and zeroes the rows with no valid neighbour."""
+    if h.device.type == "cpu":
+        return gather_max_int8_plain(h, idx, mask)
+    b, n, c = h.shape
+    k = idx.shape[-1]
+    _, dtype = _body("gather_max", h)  # f32 or bf16 features
+    device = _check_fwd("gather_max_int8", h, idx, mask, dtype)
+    hq, scale = int8_quantize(h)
+    out = torch.empty_like(h)
+    _lib.launch("gather_max_int8", device, hq.data_ptr(), idx.data_ptr(),
+                mask.data_ptr(), scale.data_ptr(), out.data_ptr(), b, n, c, k,
+                int(dtype == torch.bfloat16))
+    return out
+
+
+def gather_matmul_max_int8_plain(xq, w, idx, mask):
+    """Plain version: ``xq @ w`` per point in f32 (exact products of the
+    int8 values and the bf16 weights), the masked max, rounded to bf16;
+    ``-3e38`` on rows with no valid neighbour."""
+    return gather_matmul_max_plain(xq, w, idx, mask)
+
+
+def gather_matmul_max_int8(xq, w, idx, mask):
+    """Plain version for CPU tensors; the CUDA kernel (tensor cores, the
+    int8 rows widened to bf16 as they are gathered) for CUDA tensors,
+    with the widths zero-padded to multiples of 16 as in
+    :func:`gather_matmul_max`."""
+    if xq.device.type == "cpu":
+        return gather_matmul_max_int8_plain(xq, w, idx, mask)
+    b, n, _ = xq.shape
+    c_out = w.shape[-1]
+    device, xp, wp = _mm_operands("gather_matmul_max_int8", xq, w, idx, mask,
+                                  torch.int8)
+    out = torch.empty((b, n, wp.shape[1]), dtype=torch.bfloat16,
+                      device=device)
+    _lib.launch("gather_matmul_max_int8", device, xp.data_ptr(),
+                wp.data_ptr(), idx.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                b, n, xp.shape[-1], wp.shape[1], idx.shape[-1])
+    return out[..., :c_out].contiguous() if wp.shape[1] != c_out else out

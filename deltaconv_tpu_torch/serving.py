@@ -1,5 +1,6 @@
 """Inference engine: pad -> batch -> predict (counterpart of
-``deltaconv_tpu/serving.py``, precisions None, float32 and bfloat16).
+``deltaconv_tpu/serving.py``, precisions None, float32, bfloat16 and
+int8).
 
 Requests are clouds of any size up to ``num_points``. Each is padded to
 ``num_points`` (zero positions, unit-z normals, a point mask), clouds
@@ -26,6 +27,11 @@ and ShapeNet part segmentation, per-point logits trimmed per cloud::
                              precision="bfloat16")
     parts = engine.predict(clouds, normals, categories=[3, 0, 15])
     # a list of [N_i, 50] f32
+
+``precision="int8"`` serves either model in the JAX package's int8 mode
+(bf16 compute, int8 operators quantized per cloud, the neighbour maxes in
+the quantized domain): an accuracy-changing form, held to 0.05 x
+max|logit| of the f32 engine.
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ __all__ = ["InferenceEngine", "apply_precision"]
 # rows (they are masked out of every statistic downstream).
 _PAD_NORMAL = np.asarray([0.0, 0.0, 1.0], np.float32)
 
+# Serving precision -> (compute_dtype, operator_dtype).
+_PRECISIONS = {"float32": (None, None), "bfloat16": ("bfloat16", "bfloat16"),
+               "int8": ("bfloat16", "int8")}
+
 
 def _encode_category(c):
     """An int category id -> the 16-wide one-hot (ShapeNet convention;
@@ -64,18 +74,15 @@ def apply_precision(model, precision: Optional[str]):
     """A copy of ``model`` in a serving precision (the caller's model is
     never changed, as the JAX engine clones it): ``None`` keeps the
     dtypes as built, ``"float32"`` strips both, ``"bfloat16"`` sets
-    ``compute_dtype`` and ``operator_dtype`` to bf16."""
-    if precision == "int8":
-        raise NotImplementedError(
-            "precision='int8' is not ported yet (ROADMAP slice F: int8 "
-            "operators and quantized neighbour maxes)")
-    if precision not in (None, "float32", "bfloat16"):
+    ``compute_dtype`` and ``operator_dtype`` to bf16, ``"int8"`` sets
+    ``compute_dtype`` to bf16 and ``operator_dtype`` to int8."""
+    if precision is not None and precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected None | "
                          "float32 | bfloat16 | int8")
     model = copy.deepcopy(model)
     if precision is not None:
-        dtype = "bfloat16" if precision == "bfloat16" else None
-        model.set_precision(compute_dtype=dtype, operator_dtype=dtype)
+        compute, operator = _PRECISIONS[precision]
+        model.set_precision(compute_dtype=compute, operator_dtype=operator)
     return model
 
 
@@ -89,8 +96,8 @@ class InferenceEngine:
       num_points: point count every request is padded to; larger clouds
         are rejected (subsample upstream).
       batch_size: clouds per forward pass.
-      precision: ``None`` (as built), ``"float32"`` or ``"bfloat16"``
-        (``"int8"``: not ported yet).
+      precision: ``None`` (as built), ``"float32"``, ``"bfloat16"`` or
+        ``"int8"`` (:func:`apply_precision`).
       ops: the kernels (default) or their plain versions.
       device: where to serve, the card by default; without a card this
         raises unless the caller asks for ``"cpu"``.

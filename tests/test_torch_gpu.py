@@ -358,36 +358,101 @@ def test_gather_max_affine_kernel_exact(cuda, c, sub_self):
     assert not got[0, 4].float().any()  # no valid neighbour: 0
 
 
+def _mm_max_held(got, x, w, idx, mask):
+    """A matmul max (bf16 ``got``, the max of ``x[idx_k] @ w`` over valid
+    slots) held element by element: within one bf16 ulp of the plain
+    version, or within the f32 summation bound ``C_in * 2^-24 * (|x| @
+    |w|)`` (the largest over the row's valid slots) plus the bf16 rounding
+    (half an ulp, at most ``2^-8 |got|``) of the exact max, an f64
+    product. Near zero one bf16 ulp is finer than two f32 sums of the
+    same terms in another order (the tensor cores', cuBLAS's) can agree:
+    there the ulp bound alone fails on correct sums. Returns the outputs
+    beyond one ulp as ``|exact| / max(|x| @ |w|)`` ratios, and the count
+    of valid outputs."""
+    ulps = _bf16_ulps(got, ops.gather_matmul_max_plain(x, w, idx, mask))
+    xd, wd = x.double(), w.double()
+    exact = ops.gather_max_plain(xd @ wd, idx, mask)
+    mag = ops.gather_max_plain(xd.abs() @ wd.abs(), idx, mask)
+    gd = got.double()
+    tol = x.shape[-1] * 2.0 ** -24 * mag + 2.0 ** -8 * gd.abs()
+    held = (ulps <= 1) | ((gd - exact).abs() <= tol)
+    valid = mask.any(dim=-1, keepdim=True).expand_as(got)
+    assert bool(held[valid].all()), (
+        f"{int((~held & valid).sum())} elements beyond both bounds")
+    far = (ulps > 1) & valid
+    return (exact.abs() / mag)[far].tolist(), int(valid.sum())
+
+
 @pytest.mark.parametrize("c_in,c_out", [(128, 256), (24, 40)])
 def test_gather_matmul_max_kernel(cuda, c_in, c_out):
-    """Within one bf16 ulp of the plain version (f32 sums in another
-    order); bit-equal on inputs whose sums are exact in any order; the
-    epilogue bit-equal to its replay on the kernel's own max."""
+    """Within one bf16 ulp of the plain version, or near zero within the
+    f32 summation bound of the exact max (``_mm_max_held``); bit-equal on
+    inputs whose sums are exact in any order; the epilogue bit-equal to
+    its replay on the kernel's own max. Inputs from a seeded generator."""
     rng = np.random.default_rng(13)
+    gen = torch.Generator(device=cuda).manual_seed(13)
     n, k = 150, 9
     idx, mask = _rand_graph(rng, n, k, cuda)
-    inv = torch.randn(c_out, device=cuda)
+    inv = torch.randn(c_out, device=cuda, generator=gen)
     aff = (torch.where(inv >= 0, 1.0, -1.0), inv,
-           torch.randn(c_out, device=cuda), torch.randn(c_out, device=cuda))
-    x = torch.randn((2, n, c_in), device=cuda).to(torch.bfloat16)
-    w = (torch.randn((c_in, c_out), device=cuda) / 8).to(torch.bfloat16)
+           torch.randn(c_out, device=cuda, generator=gen),
+           torch.randn(c_out, device=cuda, generator=gen))
+    x = torch.randn((2, n, c_in), device=cuda, generator=gen).to(
+        torch.bfloat16)
+    w = (torch.randn((c_in, c_out), device=cuda, generator=gen) / 8).to(
+        torch.bfloat16)
     raw = ops.gather_matmul_max(x, w, idx, mask)
-    assert int(_bf16_ulps(raw, ops.gather_matmul_max_plain(
-        x, w, idx, mask)).max()) <= 1
+    _mm_max_held(raw, x, w, idx, mask)
     assert bool((raw[0, 4].float() == torch.tensor(NEG).to(
         torch.bfloat16).float()).all())
     fused = ops.gather_matmul_max(x, w, idx, mask, aff)
     replay = ops.bn_lrelu_epilogue(raw.float(), aff,
                                    mask.any(dim=-1, keepdim=True))
     assert torch.equal(_bits(fused), _bits(replay))
-    xe = (torch.randint(-32, 33, (2, n, c_in), device=cuda) / 8.0).to(
-        torch.bfloat16)
-    we = (torch.randint(-16, 17, (c_in, c_out), device=cuda) / 16.0).to(
-        torch.bfloat16)
+    xe = (torch.randint(-32, 33, (2, n, c_in), device=cuda, generator=gen)
+          / 8.0).to(torch.bfloat16)
+    we = (torch.randint(-16, 17, (c_in, c_out), device=cuda, generator=gen)
+          / 16.0).to(torch.bfloat16)
     for a in (None, aff):
         assert torch.equal(
             _bits(ops.gather_matmul_max(xe, we, idx, mask, a)),
             _bits(ops.gather_matmul_max_plain(xe, we, idx, mask, a)))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_matmul_max_seed_sweep(cuda, quantized):
+    """Both matmul maxes over 200 seeds at the shapes of
+    ``test_gather_matmul_max_kernel[128-256]`` (x ~ N(0, 1), w ~ N(0,
+    1/64) in bf16; ``quantized``: x through ``int8_quantize`` into
+    ``gather_matmul_max_int8``), each held by ``_mm_max_held``. Every
+    output more than one bf16 ulp from the plain version is a max near
+    zero: within 1e-4 of its row's ``max(|x| @ |w|)``, where the f32 sums
+    of the tensor cores and of cuBLAS may disagree by more than an ulp.
+    Prints the counts (``pytest -s``)."""
+    n, k, c_in, c_out = 150, 9, 128, 256
+    ratios, outputs, seeds = [], 0, []
+    for seed in range(200):
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        idx, mask = _rand_graph(rng, n, k, cuda)
+        x = torch.randn((2, n, c_in), device=cuda, generator=gen)
+        w = (torch.randn((c_in, c_out), device=cuda, generator=gen) / 8).to(
+            torch.bfloat16)
+        if quantized:
+            x, _ = ops.int8_quantize(x)
+            got = ops.gather_matmul_max_int8(x, w, idx, mask)
+        else:
+            x = x.to(torch.bfloat16)
+            got = ops.gather_matmul_max(x, w, idx, mask)
+        far, valid = _mm_max_held(got, x, w, idx, mask)
+        ratios += far
+        outputs += valid
+        seeds += [seed] if far else []
+    print(f"\n{'gather_matmul_max_int8' if quantized else 'gather_matmul_max'}"
+          f": {len(ratios)} of {outputs} outputs beyond one bf16 ulp, in "
+          f"{len(seeds)} of 200 seeds, largest |exact| / max(|x| @ |w|) "
+          f"{max(ratios, default=0.0)}")
+    assert max(ratios, default=0.0) <= 1e-4
 
 
 def test_bf16_model_kernels_match_plain(cuda):
@@ -705,3 +770,137 @@ def test_seg_model_kernels_match_plain(cuda):
             if precision:
                 assert counts["gather_mlp_max"] == 2 * 2  # 2 batches
                 assert counts["gather_max_bf16"] > 0
+
+
+# -- the int8 serving slice ---------------------------------------------------
+
+
+def _knn_like(rng, n, k, masked):
+    """Neighbour lists as the kNN makes them: self in slot 0, distinct
+    columns; ``masked`` clamps the last 3 slots of every row to self
+    (their coefficients are zero)."""
+    idx = np.stack([np.stack([np.concatenate(
+        [[i], rng.permutation(np.delete(np.arange(n), i))[:k - 1]])
+        for i in range(n)]) for _ in range(2)]).astype(np.int32)
+    if masked:
+        idx[:, :, -3:] = np.arange(n)[None, :, None]
+    return idx
+
+
+@pytest.mark.parametrize("n,k,masked", [(96, 8, False), (102, 8, True),
+                                         (128, 8, True), (2048, 30, True)])
+def test_densify_int8_kernel_exact(cuda, n, k, masked):
+    """Bit-equal planes and equal scales: the kernel quantizes as torch
+    does (the division, then the product, rounded half to even; ties at
+    +-63.5 included) and adds a column's quantized values. N=96, 128 and
+    2048 take the 4-byte stores (V=4), N=102 the per-column ones (V=1);
+    N <= 128 puts several rows in a block, N=2048 with K=30 (the
+    segmentation config's) loops twice over a row's columns."""
+    rng = np.random.default_rng(40)
+    idx = _knn_like(rng, n, k, masked)
+    gc = rng.standard_normal((2, n, k, 2)).astype(np.float32)
+    dc = rng.standard_normal((2, n, k, 2)).astype(np.float32)
+    # Cloud 0: scale 128, so p / 128 * 127 is exact and +-64 lands on the
+    # ties +-63.5.
+    gc[0] = np.clip(gc[0], -100.0, 100.0)
+    gc[0, 0, 0, 0] = 128.0
+    gc[0, 1, 1:3, 0] = (64.0, -64.0)
+    if masked:
+        gc[:, :, -3:] = 0.0
+        dc[:, :, -3:] = 0.0
+    args = [torch.from_numpy(a).to(cuda) for a in (idx, gc, dc)]
+    got = ops.densify_coefs_int8(*args)
+    want = ops.densify_coefs_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == got[1].dtype == torch.int8
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[0][0, 0, 1, idx[0, 1, 1]]) == 64  # 63.5 to even
+    assert int(got[0][0, 0, 1, idx[0, 1, 2]]) == -64
+
+
+@pytest.mark.parametrize("c", [3, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_max_int8_kernel_exact(cuda, c, dtype):
+    """Bit-equal to the plain version (the int max times the cloud's
+    scale, one f32 rounding, then h's dtype); 0 on a row with no valid
+    neighbour."""
+    rng = np.random.default_rng(41)
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    n, k = 150, 9
+    h = torch.randn((2, n, c), device=cuda, generator=gen).to(dtype)
+    idx, mask = _rand_graph(rng, n, k, cuda)
+    got = ops.gather_max_int8(h, idx, mask)
+    want = ops.gather_max_int8_plain(h, idx, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    assert not got[0, 4].float().any()
+
+
+@pytest.mark.parametrize("c_in,c_out", [(128, 256), (24, 40)])
+def test_gather_matmul_max_int8_kernel(cuda, c_in, c_out):
+    """Held as the bf16 matmul max (one bf16 ulp, or the f32 summation
+    bound near zero); bit-equal on inputs whose sums are exact in any
+    order; -3e38 on a row with no valid neighbour."""
+    rng = np.random.default_rng(42)
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    n, k = 150, 9
+    idx, mask = _rand_graph(rng, n, k, cuda)
+    xq = torch.randint(-127, 128, (2, n, c_in), device=cuda, generator=gen,
+                       dtype=torch.int8)
+    w = (torch.randn((c_in, c_out), device=cuda, generator=gen) / 64).to(
+        torch.bfloat16)
+    got = ops.gather_matmul_max_int8(xq, w, idx, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (2, n, c_out)
+    _mm_max_held(got, xq, w, idx, mask)
+    assert bool((got[0, 4].float() == torch.tensor(NEG).to(
+        torch.bfloat16).float()).all())
+    we = (torch.randint(-16, 17, (c_in, c_out), device=cuda, generator=gen)
+          / 16.0).to(torch.bfloat16)
+    assert torch.equal(
+        _bits(ops.gather_matmul_max_int8(xq, we, idx, mask)),
+        _bits(ops.gather_matmul_max_int8_plain(xq, we, idx, mask)))
+
+
+def test_int8_model_kernels_match_plain(cuda):
+    """Narrow classification and segmentation models served at
+    precision="int8" through the kernels and through the plain versions
+    on the card, uniform and ragged: within 1e-2 x max|logit| (a one-ulp
+    bf16 difference before a quantization can move a value by a step);
+    densify_int8 once a forward, gather_max_int8 and (classification, a
+    lane-narrower last conv) gather_matmul_max_int8 launched."""
+    rng = np.random.default_rng(43)
+    pos, nrm = _cloud_batch(rng, 5, 128, "cpu")
+    cats = [0, 3, 15, 7, 1]
+    models = (
+        DeltaNetClassification(5, conv_channels=(8, 16, 16, 136),
+                               embedding_size=32, num_neighbors=8,
+                               knn_method="approx",
+                               generator=torch.Generator().manual_seed(0)),
+        DeltaNetSegmentation(6, conv_channels=(8, 16, 136),
+                             embedding_size=32, num_neighbors=8,
+                             categorical_vector=True, knn_method="approx",
+                             generator=torch.Generator().manual_seed(0)))
+    for model in models:
+        seg = isinstance(model, DeltaNetSegmentation)
+        kw = dict(num_points=128, batch_size=4, precision="int8")
+        engine = InferenceEngine(model, **kw)
+        plain = InferenceEngine(model, ops=PLAIN_OPS, **kw)
+        extra = {"categories": cats} if seg else {}
+        for sizes in ([128] * 5, [128, 128, 90, 128, 60]):
+            clouds = [p[:s].numpy() for p, s in zip(pos, sizes)]
+            normals = [q[:s].numpy() for q, s in zip(nrm, sizes)]
+            reset_launch_counts()
+            got = engine.predict(clouds, normals, **extra)
+            counts = launch_counts()
+            want = plain.predict(clouds, normals, **extra)
+            if seg:
+                got, want = np.concatenate(got), np.concatenate(want)
+            np.testing.assert_allclose(got, want,
+                                       atol=1e-2 * float(np.abs(want).max()))
+            assert counts["densify_int8"] == 2  # 2 batches
+            assert counts["gather_max_int8"] > 0
+            assert counts["gather_matmul_max_int8"] == (0 if seg else 2)
+            assert counts["densify_bf16"] == counts["densify"] == 0

@@ -121,6 +121,18 @@ def test_cpu_tensors_take_the_plain_versions():
             ops.densify_coefs(idx, coef, coef, torch.bfloat16),
             ops.densify_coefs_plain(idx, coef, coef, torch.bfloat16)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for got, want in zip(ops.densify_coefs_int8(idx, coef, coef),
+                         ops.densify_coefs_int8_plain(idx, coef, coef)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for t in (h, hb):
+        torch.testing.assert_close(ops.gather_max_int8(t, idx, mask),
+                                   ops.gather_max_int8_plain(t, idx, mask),
+                                   rtol=0, atol=0)
+    xq, _ = ops.int8_quantize(h)
+    torch.testing.assert_close(ops.gather_matmul_max_int8(xq, w, idx, mask),
+                               ops.gather_matmul_max_int8_plain(xq, w, idx,
+                                                                mask),
+                               rtol=0, atol=0)
     assert launch_counts() == {
         "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
@@ -128,7 +140,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "knn_topk": 0, "gather_max_affine": 0, "gather_matmul_max": 0,
         "gather_max_win_bf16": 0, "gather_max_bwd_bf16": 0,
         "gather_matmul_max_win": 0, "gather_max_bf16": 0,
-        "gather_mlp_max": 0}
+        "gather_mlp_max": 0, "densify_int8": 0, "gather_max_int8": 0,
+        "gather_matmul_max_int8": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
@@ -140,6 +153,10 @@ def test_cpu_tensors_take_the_plain_versions():
             is ops.gather_matmul_max_train_plain)
     assert KERNEL_OPS.gather_mlp_max is ops.gather_mlp_max
     assert PLAIN_OPS.gather_mlp_max is ops.gather_mlp_max_plain
+    assert KERNEL_OPS.densify_coefs_int8 is ops.densify_coefs_int8
+    assert PLAIN_OPS.gather_max_int8 is ops.gather_max_int8_plain
+    assert (PLAIN_OPS.gather_matmul_max_int8
+            is ops.gather_matmul_max_int8_plain)
 
 
 def test_kernels_refuse_other_devices():
@@ -196,27 +213,40 @@ def test_kernels_refuse_other_devices():
         ops.gather_max(hb, im, mm)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.gather_mlp_max(hb, [torch.zeros(5, 7, device=meta)], [], im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.densify_coefs_int8(im, torch.zeros(2, 32, 6, 2, device=meta),
+                               torch.zeros(2, 32, 6, 2, device=meta))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_max_int8(hb, im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_matmul_max_int8(
+            torch.zeros(2, 32, 5, dtype=torch.int8, device=meta), wb, im, mm)
     assert sum(launch_counts().values()) == 0
 
 
 def test_precision_modes():
     """None keeps the dtypes as built, float32 strips them, bfloat16 sets
-    both; int8 is still to port; the engine serves a copy and leaves the
-    caller's model as it was."""
+    both, int8 sets bf16 compute on int8 operators (and serves); the
+    engine serves a copy and leaves the caller's model as it was."""
     model = DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
                                    num_neighbors=4)
     model.train()
-    expect = {None: None, "float32": None, "bfloat16": torch.bfloat16}
-    for precision, dtype in expect.items():
+    expect = {None: (None, None), "float32": (None, None),
+              "bfloat16": (torch.bfloat16, torch.bfloat16),
+              "int8": (torch.bfloat16, torch.int8)}
+    for precision, (compute, operator) in expect.items():
         engine = InferenceEngine(model, num_points=16, precision=precision,
                                  device="cpu")
         assert engine.model is not model and not engine.model.training
-        assert engine.model.compute_dtype is dtype
-        assert engine.model.operator_dtype is dtype
-        assert engine.model.lin_embedding.dtype is dtype
+        assert engine.model.compute_dtype is compute
+        assert engine.model.operator_dtype is operator
+        assert engine.model.lin_embedding.dtype is compute
     assert model.compute_dtype is None and model.training
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(model, num_points=16, precision="int8", device="cpu")
+    cloud = np.random.default_rng(5).standard_normal((16, 3)).astype(
+        np.float32)
+    normal = cloud / np.linalg.norm(cloud, axis=1, keepdims=True)
+    logits = engine.predict([cloud], [normal])  # the int8 engine serves
+    assert logits.shape == (1, 4) and np.isfinite(logits).all()
     with pytest.raises(ValueError, match="unknown precision"):
         InferenceEngine(model, num_points=16, precision="fp8", device="cpu")
 
@@ -232,6 +262,33 @@ def test_precision_modes():
     assert all(m.dtype is None for m in stripped.model.modules()
                if hasattr(m, "dtype"))
     assert bf16.compute_dtype is torch.bfloat16  # unchanged
+
+
+def test_int8_is_an_operator_dtype_only():
+    """int8 quantizes the operators; the activations compute in f32 or
+    bf16, so ``compute_dtype="int8"`` is refused."""
+    with pytest.raises(ValueError, match="operator dtype only"):
+        DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
+                               num_neighbors=4, compute_dtype="int8")
+    model = DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
+                                   num_neighbors=4, operator_dtype="int8")
+    assert model.operator_dtype is torch.int8 and model.compute_dtype is None
+    with pytest.raises(ValueError, match="unknown dtype"):
+        model.set_precision(None, "fp8")
+
+
+def test_int8_operators_refuse_training():
+    """int8 operators serve only, as the JAX package's: a train-mode
+    forward raises instead of returning gradients of a rounding."""
+    model = DeltaNetClassification(4, conv_channels=(8, 8), embedding_size=16,
+                                   num_neighbors=4, compute_dtype="bfloat16",
+                                   operator_dtype="int8")
+    pos = torch.randn((2, 16, 3), generator=torch.Generator().manual_seed(0))
+    normal = torch.nn.functional.normalize(pos, dim=-1)
+    with pytest.raises(NotImplementedError, match="serve only"):
+        model.train()(pos, normal)
+    with torch.inference_mode():
+        assert model.eval()(pos, normal).shape == (2, 4)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
