@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the twenty-one CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the twenty-four CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -18,8 +18,12 @@ first on ``sys.path``. It
    N=2048, K=30: the bf16 max without winners at C=128, gather_mlp_max
    at conv0, 3 -> 64 -> 64, and conv2, 128 -> 256 -> 256; int8 serving's
    densify_int8, gather_max_int8 at C = 64 and 128 (and 128 at the
-   segmentation shapes), gather_matmul_max_int8 at 128 -> 256), uniform
-   and masked, and times the kernel, the plain version and, where
+   segmentation shapes), gather_matmul_max_int8 at 128 -> 256; the
+   large-cloud kernels at B=4, N=8192, K=20 on the clouds' own
+   coefficients: coef_apply_grad at C = 3, 70, 192, 256 and coef_apply_div
+   at C = 6, 128, 256, f32 and bf16, bit-equal, scatter_rows at C' = 70,
+   256, 512), uniform and masked, and times the kernel, the plain
+   version and, where
    PyTorch's library calls compute the same function, those calls with
    their set-up (CUDA events around 5 back-to-back calls, median of 30
    such samples); each kernel's bound is the larger of its bytes over
@@ -97,7 +101,33 @@ first on ``sys.path``. It
    gather_max_int8 once, gather_mlp_max twice a forward);
 10. times the segmentation config's last conv in both forms: the per-edge
     MLP and max in one kernel (``gather_mlp_max``) and the per-point
-    chain followed by ``gather_max_affine``.
+    chain followed by ``gather_max_affine``;
+11. ``[serve-large-bf16]`` and ``[serve-large-f32]``: serves 8 uniform
+    clouds of 8192 points and 3 ragged ones (5000..8192, the last a full
+    one) through ``InferenceEngine(num_points=8192, batch_size=4)`` on the
+    reference-width classifier with ``dense_operators=False`` (the JAX
+    package's large-cloud coefficient-operator mode, approximate kNN), at
+    ``precision="bfloat16"`` and None, counting launches (4 grad and 4
+    div applies a forward, no dense assembly): the kernel path within
+    0.01 x max|logit| of the plain path in bf16 (atol 1e-3 in f32), bf16
+    within 0.05 x max|logit| of the f32 engine; it prints clouds/s and a
+    profile of one call;
+12. ``[coef-vs-dense]``: the same weights served with coefficient-form
+    and dense operators, f32, B=32, N=1024, within atol 1e-3; then one
+    forward's 8 applies in both forms, f32 and bf16, at N = 1024 to 8192
+    (the dense form with and without its assembly);
+13. ``[train-large]``: trains the large-cloud config (``bench.py
+    --mode=large-train``: bf16, coefficient form, approximate kNN, B=4,
+    N=8192, SGD lr 0.01, smoothing 0.2, dropout 0.5 from a seeded CUDA
+    generator) for 8 steps on one batch of class-conditioned ellipsoids:
+    losses finite and falling, 4 + 4 applies and 6 ``scatter_rows`` a
+    step; it prints the median step time, training clouds/s, the peak
+    memory and a profile of one step; then one step from the same weights
+    through the kernels and through the plain versions (same build,
+    dropout 0), uniform and ragged, held as step 8 holds the bf16 step
+    (the parameters' deviation printed, not held: a 4-row head
+    BatchNorm), and one step with only the applies on the plain route:
+    loss and statistics equal, gradients within 2e-2 (atomics).
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -179,8 +209,35 @@ MLP_REL = 1e-2  # x max|best|: a one-ulp product through the next layer
 INT8_WIDTHS = (64, 128)
 # One classification forward's operator applies, (grad widths, div
 # widths) at conv channels (64, 64, 128, 256): grad of the positions, then
-# of [div v, curl v, x'] (3 C_out) at conv0-2; div of [v, Jv] (2 C_in).
-APPLY_WIDTHS = ((3, 192, 192, 384), (6, 128, 128, 256))
+# of [div v, curl v, x'] (2 C_in + C_out) at conv0-2; div of [v, Jv]
+# (2 C_in) at conv0-3.
+APPLY_WIDTHS = ((3, 70, 192, 256), (6, 128, 128, 256))
+# The large-cloud coefficient-operator configuration (bench.py
+# --mode=large-train, bench.py:295-345): the reference width with
+# dense_operators=False, bf16 compute, approximate kNN, B=4 clouds of
+# N=8192 points, SGD lr 0.01 (sgd_momentum's defaults), smoothing 0.2.
+LARGE_B, LARGE_N = 4, 8192
+LARGE_LR = 0.01
+LARGE_STEPS = 8
+LARGE_UNIFORM, LARGE_RAGGED = 8, 3  # served clouds: 2 uniform batches, 1
+LARGE_MIN_POINTS = 5000  # the ragged clouds' smallest size
+COEF_DIV_WIDTHS = (6, 128, 256)  # coef_apply_div checked at conv0, 1-2, 3
+# scatter_rows checked at the grads' 70 (conv0) and 256 (conv2, and the
+# divs' 2 x 128 at conv1-2) and the last div's 512 (conv3).
+SCATTER_WIDTHS = (70, 256, 512)
+# Launches on the coefficient-form path: a forward applies 4 grads (the
+# positions', conv0-2) and 4 divs (conv0-3); a train step's backward
+# scatters the cotangents of the 3 grads and 3 divs whose features
+# require grad (not the positions' grad, nor conv0's div of it).
+COEF_PER_FORWARD = {"coef_apply_grad": 4, "coef_apply_div": 4}
+SCATTERS_PER_STEP = 6
+# Kernels vs plain applies in one large-cloud step: the gradients'
+# relative Frobenius deviation over all tensors (atomics only; two kernel
+# steps differ by about 1e-3 on an H100 80GB HBM3 at 700 W).
+COEF_GRAD_FROB = 2e-2
+# coef-vs-dense: (B, N) of the timed forwards' applies.
+CROSSOVER = ((32, 1024), (4, 1024), (4, 2048), (4, 4096), (4, 8192))
+CROSSOVER_REPS = 10
 
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
@@ -225,12 +282,20 @@ KERNEL_META = {
                         "deltaconv_tpu/ops/gather_max.py:1016"),
     "gather_matmul_max_int8": ("deltaconv_tpu_torch/csrc/gather_max_int8.cu",
                                "deltaconv_tpu/ops/gather_max.py:1092"),
+    "coef_apply_grad": ("deltaconv_tpu_torch/csrc/coef_apply.cu",
+                        "deltaconv_tpu/ops/coef_apply.py:140"),
+    "coef_apply_div": ("deltaconv_tpu_torch/csrc/coef_apply.cu",
+                       "deltaconv_tpu/ops/coef_apply.py:173"),
+    "scatter_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
+                     "deltaconv_tpu/ops/gather_rows.py:292"),
 }
 # The port's autograd Functions, whose forward or backward launches a
 # kernel outside any aten op (the profiler books it to them).
 AUTOGRAD_FUNCTIONS = ("_GatherMax", "_GatherMatmulMax", "_GatherSum",
+                      "_GatherRows", "_CoefApplyGrad", "_CoefApplyDiv",
                       "_GatherMaxBackward", "_GatherMatmulMaxBackward",
-                      "_GatherSumBackward")
+                      "_GatherSumBackward", "_GatherRowsBackward",
+                      "_CoefApplyGradBackward", "_CoefApplyDivBackward")
 # The path whose launch counts each kernel's record reports.
 SERVE_KERNELS = ("gather_rows", "wls", "densify", "gather_max")
 BF16_KERNELS = ("knn_topk", "densify_bf16", "gather_max_affine",
@@ -248,6 +313,15 @@ INT8_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_int8",
                 "gather_max_int8", "gather_matmul_max_int8")
 SEG_INT8_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_int8",
                     "gather_max_int8", "gather_mlp_max")
+LARGE_KERNELS = {  # the large-cloud paths, by precision
+    "bfloat16": ("knn_topk", "gather_rows", "wls", "coef_apply_grad",
+                 "coef_apply_div", "gather_max_affine", "gather_matmul_max"),
+    None: ("knn_topk", "gather_rows", "wls", "coef_apply_grad",
+           "coef_apply_div", "gather_max")}
+TRAIN_LARGE_KERNELS = ("knn_topk", "gather_rows", "wls", "coef_apply_grad",
+                       "coef_apply_div", "scatter_rows", "gather_sum",
+                       "gather_sum_bwd", "gather_max_win_bf16",
+                       "gather_max_bwd_bf16", "gather_matmul_max_win")
 # Launches per forward on the int8 paths, as the JAX module code routes
 # them: classification conv0-2 the int8 max, conv3 (lane-narrower) the
 # int8 matmul max; segmentation conv1 the int8 max, conv0 and conv2
@@ -264,7 +338,9 @@ RECORD_WIDTH = {"gather_max": 256, "gather_max_win": 256,
                 "gather_max_bwd": 256, "gather_sum": 128,
                 "gather_sum_bwd": 128, "gather_max_win_bf16": 128,
                 "gather_max_bwd_bf16": 256, "gather_max_bf16": SEG_MAX_WIDTH,
-                "gather_mlp_max": "conv2", "gather_max_int8": 128}
+                "gather_mlp_max": "conv2", "gather_max_int8": 128,
+                "coef_apply_grad": 256, "coef_apply_div": 256,
+                "scatter_rows": 512}
 
 
 def nbytes(*tensors) -> int:
@@ -328,15 +404,15 @@ def ellipsoid_clouds(rng, sizes, axes=None):
     return clouds, normals
 
 
-def median_ms(fn) -> float:
-    """Median over REPS samples, after warm-up, of the CUDA-event time
+def median_ms(fn, reps=REPS) -> float:
+    """Median over ``reps`` samples, after warm-up, of the CUDA-event time
     of INNER back-to-back calls of ``fn`` divided by INNER. After the
     first call the card no longer waits for the host to enqueue, so a
     sample reads a call's device time (or its host time, if longer)."""
     for _ in range(3):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -753,8 +829,7 @@ def kernel_phase(rng, dev, card):
               f"max_abs_err {err} <= {WLS_ATOL} (max |coef| {scale})")
         gd_k = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
         gd_p = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask,
-                                        gather_rows_fn=ops.gather_rows_plain,
-                                        wls_fn=ops.wls_plain)
+                                        ops=ops.PLAIN_OPS)
         err = max(max_err(gd_k.grad_coef, gd_p.grad_coef),
                   max_err(gd_k.div_coef, gd_p.div_coef))
         record("wls", err)
@@ -1037,6 +1112,8 @@ def kernel_phase(rng, dev, card):
                 res[name]["ms"], res[name]["plain_ms"] = km, pl
                 res[name]["bound"] = bound(nbytes(*io))
     time_seg_kernels(res, *seg_cases["uniform"][:2], dev, card)
+    del seg_cases, cases
+    coef_kernel_phase(res, rng, dev, card)
     print(f"  (the JSON record gives each at its width: {RECORD_WIDTH}, "
           f"gather_max_affine at C=128, gather_matmul_max, "
           f"gather_matmul_max_win and gather_matmul_max_int8 at "
@@ -1048,16 +1125,20 @@ def kernel_phase(rng, dev, card):
 
 
 def random_model(seed, dev, dropout=0.5, affine=True, knn_method="exact",
-                 precision=None):
+                 precision=None, dense_operators=True):
     """The reference-width classifier with seeded weights and randomized
     BatchNorm statistics and, when ``affine``, scales (both signs) and
-    biases; ``precision`` ("bfloat16") sets both dtypes."""
+    biases; ``precision`` ("bfloat16") sets both dtypes;
+    ``dense_operators=False`` is the large-cloud coefficient form (the
+    same weights)."""
     from deltaconv_tpu_torch import DeltaNetClassification
     from deltaconv_tpu_torch.nn import BatchNorm
 
     gen = torch.Generator().manual_seed(seed)
     model = DeltaNetClassification(num_classes=NUM_CLASSES, dropout=dropout,
-                                   knn_method=knn_method, generator=gen)
+                                   knn_method=knn_method,
+                                   dense_operators=dense_operators,
+                                   generator=gen)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, BatchNorm):
@@ -1450,31 +1531,33 @@ def conv3_forms(dev, card):
           f"gather_max_win_bf16 {two:.4f} ms; card: {card}")
 
 
-def train_batch(rng, dev, sizes):
+def train_batch(rng, dev, sizes, n=N):
     """One batch of class-conditioned ellipsoids (the class fixes the
-    axes up to 5% noise), padded with a point mask when ragged."""
+    axes up to 5% noise) of ``n`` points, padded with a point mask when
+    ragged."""
     class_axes = np.random.default_rng(1234).uniform(0.4, 1.6,
                                                      (NUM_CLASSES, 3))
     labels = rng.integers(0, NUM_CLASSES, len(sizes))
     axes = class_axes[labels] * rng.uniform(0.95, 1.05, (len(sizes), 3))
     clouds, normals = ellipsoid_clouds(rng, sizes, axes)
-    pos = np.zeros((len(sizes), N, 3), np.float32)
+    pos = np.zeros((len(sizes), n, 3), np.float32)
     nrm = np.tile(np.asarray([0.0, 0.0, 1.0], np.float32),
-                  (len(sizes), N, 1))
+                  (len(sizes), n, 1))
     for i, (c, q) in enumerate(zip(clouds, normals)):
         pos[i, :len(c)], nrm[i, :len(c)] = c, q
     batch = {"pos": torch.from_numpy(pos).to(dev),
              "normal": torch.from_numpy(nrm).to(dev),
              "label": torch.from_numpy(labels).to(dev)}
-    if min(sizes) < N:
+    if min(sizes) < n:
         batch["point_mask"] = torch.from_numpy(
-            np.arange(N)[None, :] < np.asarray(sizes)[:, None]).to(dev)
+            np.arange(n)[None, :] < np.asarray(sizes)[:, None]).to(dev)
     return batch
 
 
 def train_once(batch, seed, dev, ops, **config):
     """One step of a fresh model (dropout 0) through ``ops``; ``config``
-    (``knn_method``, ``precision``) as :func:`random_model`'s."""
+    (``knn_method``, ``precision``, ``dense_operators``) as
+    :func:`random_model`'s."""
     from deltaconv_tpu_torch.training import (create_train_state,
                                               make_train_step, sgd_momentum)
 
@@ -1598,10 +1681,13 @@ def _deviations(ma, mb):
     return out
 
 
-def compare_bf16_steps(label, batch, seed, dev):
+def compare_bf16_steps(label, batch, seed, dev, dense_operators=True,
+                       hold_params=True):
     """One bf16 step from the same weights through the kernels and
-    through the plain versions of the train step's maxes and sum, the
-    operators built by the kernels on both sides. They differ by the
+    through the plain versions of the train step's maxes and sum (and,
+    with ``dense_operators=False``, the coefficient-form applies with
+    their scatter backward), the operators built by the kernels on both
+    sides. They differ by the
     order of f32 sums (the matmul max's products, the backward's
     atomics), which moves a bf16 value by one ulp on a few elements and
     with it a neighbour-max winner at a near-tie and a whole cotangent;
@@ -1616,19 +1702,26 @@ def compare_bf16_steps(label, batch, seed, dev):
     tensors, as the plain versions' (a misrouted cotangent moves that
     distance; the bf16 step's own rounding does not). The deviations
     over all tensors, of the worst tensor and of the worst element are
-    printed beside the spread of two kernel steps (atomics)."""
-    from deltaconv_tpu_torch import KERNEL_OPS
-    from deltaconv_tpu_torch.ops import (gather_matmul_max_train_plain,
-                                         gather_max_plain, gather_sum_plain)
+    printed beside the spread of two kernel steps (atomics).
+    ``hold_params=False`` prints the parameters' deviation without
+    holding it: at B=4 the head's 4-row BatchNorm amplifies a winner flip
+    to a deviation of about 2e-2 (at N=8192 on an H100 80GB HBM3, 700 W);
+    the gradients' distance to the f32 step holds the same update."""
+    from deltaconv_tpu_torch import KERNEL_OPS, PLAIN_OPS
 
     plain = KERNEL_OPS._replace(
-        gather_max=gather_max_plain, gather_sum=gather_sum_plain,
-        gather_matmul_max_train=gather_matmul_max_train_plain)
-    config = dict(knn_method="approx", precision="bfloat16")
-    lk, mk = train_once(batch, seed, dev, KERNEL_OPS, **config)
-    lp, mp = train_once(batch, seed, dev, plain, **config)
-    _, mk2 = train_once(batch, seed, dev, KERNEL_OPS, **config)
-    _, mf = train_once(batch, seed, dev, KERNEL_OPS, knn_method="approx")
+        gather_max=PLAIN_OPS.gather_max, gather_sum=PLAIN_OPS.gather_sum,
+        gather_matmul_max_train=PLAIN_OPS.gather_matmul_max_train,
+        coef_apply_grad=PLAIN_OPS.coef_apply_grad,
+        coef_apply_div=PLAIN_OPS.coef_apply_div)
+    config = dict(knn_method="approx", dense_operators=dense_operators)
+    lk, mk = train_once(batch, seed, dev, KERNEL_OPS, precision="bfloat16",
+                        **config)
+    lp, mp = train_once(batch, seed, dev, plain, precision="bfloat16",
+                        **config)
+    _, mk2 = train_once(batch, seed, dev, KERNEL_OPS, precision="bfloat16",
+                        **config)
+    _, mf = train_once(batch, seed, dev, KERNEL_OPS, **config)
     dev_k, dev_kk = _deviations(mk, mp), _deviations(mk2, mk)
     for kind in ("grad", "param"):
         (whole, per, elem), (whole_k, per_k, _) = dev_k[kind], dev_kk[kind]
@@ -1656,10 +1749,11 @@ def compare_bf16_steps(label, batch, seed, dev):
           f"{BF16_LOSS_RTOL}")
     check(f"{label} stats kernel vs plain", worst[0] <= BF16_STATS_RTOL,
           f"worst {worst[0]:.3e} x max ({worst[1]}) <= {BF16_STATS_RTOL}")
-    check(f"{label} params kernel vs plain",
-          dev_k["param"][0] <= BF16_PARAM_FROB,
-          f"relative Frobenius deviation over all tensors "
-          f"{dev_k['param'][0]:.3e} <= {BF16_PARAM_FROB}")
+    if hold_params:
+        check(f"{label} params kernel vs plain",
+              dev_k["param"][0] <= BF16_PARAM_FROB,
+              f"relative Frobenius deviation over all tensors "
+              f"{dev_k['param'][0]:.3e} <= {BF16_PARAM_FROB}")
     check(f"{label} grads' distance to the f32 step",
           far_k <= BF16_F32_RATIO * far_p,
           f"mean over tensors: kernels {far_k:.3e}, plain {far_p:.3e}, "
@@ -1795,6 +1889,406 @@ def train_phase(rng, seed, dev, card):
     return counts, stream
 
 
+def large_graphs(rng, dev):
+    """Uniform and masked kNN graphs at the large-cloud shapes (B=4,
+    N=8192, K=20), each with the clouds' own operator coefficients;
+    masked: the last 40% of the points of every other cloud are padding
+    (their edges carry zero coefficients; slots beyond a point's valid
+    neighbours are clamped to self)."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+
+    clouds, normals = ellipsoid_clouds(rng, [LARGE_N] * LARGE_B)
+    pos = torch.from_numpy(np.stack(clouds)).to(dev)
+    nrm = torch.from_numpy(np.stack(normals)).to(dev)
+    xb, yb = build_tangent_basis(nrm)
+    pmask = torch.ones((LARGE_B, LARGE_N), dtype=torch.bool, device=dev)
+    pmask[::2, int(0.6 * LARGE_N):] = False
+    cases = {}
+    for label, mask in (("uniform", None), ("masked", pmask)):
+        idx, nbr_mask = knn(pos, K, mask)
+        if mask is not None:
+            nbr_mask = nbr_mask & mask[:, :, None]
+        gd = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
+        cases[label] = (idx, gd)
+    return cases
+
+
+def check_coef_kernels(record, idx, gd, dev):
+    """The three kernels of the large-cloud path against their plain
+    versions: coef_apply_grad at C = 3, 70, 192, 256 and coef_apply_div at
+    C = 6, 128, 256, f32 and bf16 features, bit-equal (the same products
+    and sums, each rounded, in the same order); scatter_rows at C' = 70,
+    256, 512 (atomics: SCATTER_RTOL x max)."""
+    from deltaconv_tpu_torch import ops
+
+    for dt in (torch.float32, torch.bfloat16):
+        for c in APPLY_WIDTHS[0]:
+            x = torch.randn((LARGE_B, LARGE_N, c), device=dev).to(dt)
+            got = ops.coef_apply_grad(x, gd.grad_coef, idx)
+            want = ops.coef_apply_grad_plain(x, gd.grad_coef, idx)
+            err = max_err(got.float(), want.float())
+            record("coef_apply_grad", err)
+            check(f"coef_apply_grad C={c} {str(dt)[6:]}",
+                  got.dtype == dt and bits_equal(got, want),
+                  f"bit-equal, max_abs_err {err}")
+        for c in COEF_DIV_WIDTHS:
+            v = torch.randn((LARGE_B, LARGE_N, 2, c), device=dev).to(dt)
+            got = ops.coef_apply_div(v, gd.div_coef, idx)
+            want = ops.coef_apply_div_plain(v, gd.div_coef, idx)
+            err = max_err(got.float(), want.float())
+            record("coef_apply_div", err)
+            check(f"coef_apply_div C={c} {str(dt)[6:]}",
+                  got.dtype == dt and bits_equal(got, want),
+                  f"bit-equal, max_abs_err {err}")
+    for c in SCATTER_WIDTHS:
+        g = torch.randn((LARGE_B, c, K, LARGE_N), device=dev)
+        got = ops.scatter_rows(g, idx, LARGE_N)
+        want = ops.scatter_rows_plain(g, idx, LARGE_N)
+        err, tol = max_err(got, want), SCATTER_RTOL * float(want.abs().max())
+        record("scatter_rows", err)
+        check(f"scatter_rows C={c}", err <= tol,
+              f"max_abs_err {err} <= {tol}")
+    torch.cuda.synchronize()
+
+
+def time_coef_kernels(res, idx, gd, dev, card):
+    """Times and bounds of the large-cloud kernels at their uniform
+    shapes, beside the library composition that computes the same
+    function, set-up included: ``torch.gather`` of the K neighbour rows
+    and an ``einsum`` with the coefficients (f32 products, cast to the
+    features' dtype) for the applies, the edge rows' layout copy and
+    ``index_add_`` for the scatter."""
+    from deltaconv_tpu_torch import ops
+
+    b, n = LARGE_B, LARGE_N
+    print(f"[times] large-cloud shapes B={b} N={n} K={K}, card: {card}")
+    gc, dc = gd.grad_coef, gd.div_coef
+    flat = idx.reshape(b, n * K, 1).long()
+
+    def lib_grad(x):
+        rows = torch.gather(x, 1, flat.expand(b, n * K, x.shape[-1]))
+        return torch.einsum("bnkd,bnkc->bndc", gc, rows.view(
+            b, n, K, -1).float()).to(x.dtype)
+
+    def lib_div(v):
+        c2 = 2 * v.shape[-1]
+        rows = torch.gather(v.view(b, n, c2), 1, flat.expand(b, n * K, c2))
+        return torch.einsum("bnkd,bnkdc->bnc", dc, rows.view(
+            b, n, K, 2, -1).float()).to(v.dtype)
+
+    offset = (torch.arange(b, device=dev) * n)[:, None, None]
+    flat_rows = (idx.long() + offset).reshape(-1)
+
+    def lib_scatter(g):
+        c = g.shape[1]
+        rows = g.permute(0, 3, 2, 1).reshape(b * n * K, c)
+        out = torch.zeros((b * n, c), device=dev)
+        return out.index_add_(0, flat_rows, rows).view(b, n, c)
+
+    for dt in (torch.bfloat16, torch.float32):
+        for name, widths, make, kern, plain, lib, coef in (
+                ("coef_apply_grad", APPLY_WIDTHS[0],
+                 lambda c: torch.randn((b, n, c), device=dev).to(dt),
+                 ops.coef_apply_grad, ops.coef_apply_grad_plain, lib_grad,
+                 gc),
+                ("coef_apply_div", COEF_DIV_WIDTHS,
+                 lambda c: torch.randn((b, n, 2, c), device=dev).to(dt),
+                 ops.coef_apply_div, ops.coef_apply_div_plain, lib_div, dc)):
+            for c in widths:
+                x = make(c)
+                km = median_ms(lambda: kern(x, coef, idx))
+                pm = median_ms(lambda: plain(x, coef, idx))
+                lm = median_ms(lambda: lib(x))
+                out = kern(x, coef, idx)
+                # The einsum sums in another order: a bf16 ulp, or f32
+                # rounding, of the output's max.
+                rel = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
+                err = max_err(lib(x).float(), out.float())
+                check(f"{name} C={c} {str(dt)[6:]} library composition",
+                      err <= rel * float(out.float().abs().max()),
+                      f"max_abs_err {err:.3e} within {rel:g} x max of the "
+                      f"kernel")
+                # Each input read once, the output written once; 2 x K
+                # products and as many sums an output element (grad: 2 C
+                # of them a point, div: C).
+                bd = bound(nbytes(x, coef, idx, out),
+                           4.0 * b * n * K * c, F32_OPS_PER_S)
+                print(f"  {name} C={c} {str(dt)[6:]}: kernel {km:.4f} ms, "
+                      f"plain {pm:.4f} ms, library {lm:.4f} ms, bound "
+                      f"{bd[0]:.4f} ms ({bd[1]})")
+                if dt == torch.bfloat16 and c == RECORD_WIDTH[name]:
+                    res[name].update(ms=km, plain_ms=pm, library_ms=lm,
+                                     bound=bd)
+    for c in SCATTER_WIDTHS:
+        g = torch.randn((b, c, K, n), device=dev)
+        km = median_ms(lambda: ops.scatter_rows(g, idx, n))
+        pm = median_ms(lambda: ops.scatter_rows_plain(g, idx, n))
+        lm = median_ms(lambda: lib_scatter(g))
+        out = ops.scatter_rows(g, idx, n)
+        check(f"scatter_rows C={c} library composition",
+              max_err(lib_scatter(g), out)
+              <= SCATTER_RTOL * float(out.abs().max()), "within 1e-5 x max")
+        bd = bound(nbytes(g, idx, out), float(g.numel()), ISSUE_PER_S)
+        print(f"  scatter_rows C={c}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
+              f"library {lm:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
+              f"{nbytes(g) / km / 1e6:.1f} GB/s of edge rows")
+        if c == RECORD_WIDTH["scatter_rows"]:
+            res["scatter_rows"].update(ms=km, plain_ms=pm, library_ms=lm,
+                                       bound=bd)
+    print(f"  (the JSON record gives the applies at C=256 on bf16 features, "
+          f"the scatter at C'=512)")
+
+
+def coef_kernel_phase(res, rng, dev, card):
+    """[kernels] of the large-cloud path: the checks on uniform and masked
+    graphs, then times at the uniform shapes."""
+    cases = large_graphs(rng, dev)
+
+    def record(name, err):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+
+    for label, (idx, gd) in cases.items():
+        print(f"[kernels] large-cloud shapes B={LARGE_B} N={LARGE_N} K={K}, "
+              f"{label}", flush=True)
+        check_coef_kernels(record, idx, gd, dev)
+    time_coef_kernels(res, *cases["uniform"], dev, card)
+
+
+def large_clouds(rng):
+    """LARGE_UNIFORM clouds of LARGE_N points, then LARGE_RAGGED - 1 of
+    LARGE_MIN_POINTS..LARGE_N points and the first uniform one again."""
+    uni, uni_n = ellipsoid_clouds(rng, [LARGE_N] * LARGE_UNIFORM)
+    sizes = rng.integers(LARGE_MIN_POINTS, LARGE_N,
+                         LARGE_RAGGED - 1).tolist()
+    rag, rag_n = ellipsoid_clouds(rng, sizes)
+    return uni, uni_n, rag + uni[:1], rag_n + uni_n[:1]
+
+
+def serve_large_phase(clouds, seed, dev, card, precision):
+    """Large-cloud serving: the reference-width classifier in coefficient
+    form (``dense_operators=False``, approximate kNN) through
+    ``InferenceEngine(num_points=8192, batch_size=4)``, at
+    ``precision="bfloat16"`` or None (f32), counting launches (4 grad
+    and 4 div applies a forward)."""
+    from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
+                                     launch_counts, reset_launch_counts)
+
+    tag = "serve-large" + ("-bf16" if precision else "-f32")
+    model = random_model(seed, dev, knn_method="approx",
+                         dense_operators=False)
+    kw = dict(num_points=LARGE_N, batch_size=LARGE_B)
+    engine = InferenceEngine(model, precision=precision, **kw)
+    plain = InferenceEngine(model, precision=precision, ops=PLAIN_OPS, **kw)
+    uni, uni_n, rag, rag_n = clouds
+
+    engine.predict(uni[:LARGE_B], uni_n[:LARGE_B])  # warm-up
+    engine.predict(rag, rag_n)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits_u = engine.predict(uni, uni_n)
+        times.append(time.perf_counter() - t0)
+    logits_r = engine.predict(rag, rag_n)
+    counts = launch_counts()
+    forwards = 3 * (LARGE_UNIFORM // LARGE_B) + 1
+    path = LARGE_KERNELS[precision]
+    print(f"[{tag}] launches during serving ({forwards} forwards): {counts}")
+    print(f"[{tag}] launches per forward: " + ", ".join(
+        f"{name} {counts[name] / forwards:g}" for name in path))
+
+    print(f"[{tag}] checks")
+    check("uniform logits", logits_u.shape == (LARGE_UNIFORM, NUM_CLASSES)
+          and bool(np.isfinite(logits_u).all()), f"shape {logits_u.shape}")
+    check("ragged logits", logits_r.shape == (LARGE_RAGGED, NUM_CLASSES)
+          and bool(np.isfinite(logits_r).all()), f"shape {logits_r.shape}")
+    for name in path:
+        check(f"{name} launched", counts[name] > 0, f"{counts[name]} launches")
+    for name, per in COEF_PER_FORWARD.items():
+        check(f"{name} {per} a forward", counts[name] == per * forwards,
+              f"{counts[name]} launches in {forwards} forwards")
+    check("no dense assembly", counts["densify"] + counts["densify_bf16"]
+          == 0, "densify launched 0 times")
+    refs = {}
+    for label, cl, normals, got in (("uniform", uni, uni_n, logits_u),
+                                    ("ragged", rag, rag_n, logits_r)):
+        ref = plain.predict(cl, normals)
+        if precision:
+            held_to(f"{label} kernel vs plain path", got, ref, BF16_PATH_REL)
+            held_to(f"{label} {precision} vs the f32 engine", got,
+                    InferenceEngine(model, **kw).predict(cl, normals),
+                    BF16_REL)
+        else:
+            held_abs(f"{label} kernel vs plain", got, ref, LOGIT_ATOL)
+        refs[label] = ref
+    t = float(np.median(times))
+    n_batches = LARGE_UNIFORM // LARGE_B
+    print(f"[{tag}] {LARGE_UNIFORM} uniform clouds (N={LARGE_N}, batch "
+          f"{LARGE_B}, dense_operators=False, knn_method=approx, precision="
+          f"{precision}): median {t * 1e3:.3f} ms per call of {n_batches} "
+          f"batches, {t * 1e3 / n_batches:.3f} ms per batch, "
+          f"{LARGE_UNIFORM / t:.2f} clouds/s (host clock, synchronised), "
+          f"card: {card}")
+    profile(tag, f"one {LARGE_UNIFORM}-cloud predict call",
+            lambda: engine.predict(uni, uni_n), t * 1e3)
+    return counts
+
+
+def coef_vs_dense_phase(clouds, seed, dev, card):
+    """The same weights served with coefficient-form and with dense
+    operators, f32, B=32, N=1024: the logits agree (both apply the same
+    coefficients); then one forward's 8 applies (``APPLY_WIDTHS``) in
+    both forms, f32 and bf16, at N = 1024 .. 8192, the dense form with
+    and without its assembly (``densify``), on knn_topk graphs. This
+    measures the JAX package's TPU choice (dense below about 4k points)
+    on the card; it routes nothing."""
+    from deltaconv_tpu_torch import KERNEL_OPS, InferenceEngine, ops
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+    from deltaconv_tpu_torch.geometry.dense import densify
+
+    uni, uni_n = clouds[:2]
+    kw = dict(num_points=N, batch_size=B)
+    got = InferenceEngine(random_model(seed, dev, dense_operators=False),
+                          **kw).predict(uni, uni_n)
+    ref = InferenceEngine(random_model(seed, dev), **kw).predict(uni, uni_n)
+    held_abs("coefficient form vs dense form, f32", got, ref, LOGIT_ATOL)
+
+    print(f"[coef-vs-dense] one forward's 4 grad and 4 div applies (widths "
+          f"{APPLY_WIDTHS}), median of {CROSSOVER_REPS} samples; card: "
+          f"{card}")
+    rng = np.random.default_rng(seed)
+    for b, n in CROSSOVER:
+        cl, nm = ellipsoid_clouds(rng, [n] * b)
+        pos = torch.from_numpy(np.stack(cl)).to(dev)
+        nrm = torch.from_numpy(np.stack(nm)).to(dev)
+        idx, nbr_mask = knn(pos, K, None, "approx", ops.knn_topk)
+        xb, yb = build_tangent_basis(nrm)
+        gd = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
+        line = []
+        for dt in (torch.float32, torch.bfloat16):
+            dense_dt = None if dt == torch.float32 else dt
+            dgd = densify(gd, KERNEL_OPS, dense_dt)
+            build = median_ms(lambda: densify(gd, KERNEL_OPS, dense_dt),
+                              CROSSOVER_REPS)
+            totals = {"coef": 0.0, "dense": 0.0}
+            for c_g, c_d in zip(*APPLY_WIDTHS):
+                x = torch.randn((b, n, c_g), device=dev).to(dt)
+                v = torch.randn((b, n, 2, c_d), device=dev).to(dt)
+                for form, op in (("coef", gd), ("dense", dgd)):
+                    totals[form] += median_ms(lambda: op.grad(x),
+                                              CROSSOVER_REPS)
+                    totals[form] += median_ms(lambda: op.div(v),
+                                              CROSSOVER_REPS)
+            line.append(f"{str(dt)[6:]} coef {totals['coef']:.4f}, dense "
+                        f"{totals['dense']:.4f} (+ densify {build:.4f} = "
+                        f"{totals['dense'] + build:.4f})")
+            del dgd
+        print(f"  B={b} N={n}: " + "; ".join(line) + " ms")
+
+
+def compare_coef_steps(label, batch, seed, dev):
+    """One large-cloud bf16 step through the kernels and through the same
+    kernels with only the coefficient-form applies (and so their
+    ``scatter_rows`` backward) on the plain route, from the same weights,
+    dropout 0: the applies are bit-equal, so the forward is, and the loss
+    and the running statistics must be equal; the gradients differ only
+    by the order of the atomic sums, held to COEF_GRAD_FROB (relative
+    Frobenius over all tensors; a one-ulp bf16 cast of a cotangent can
+    move a max winner)."""
+    from deltaconv_tpu_torch import KERNEL_OPS, PLAIN_OPS
+
+    applies = KERNEL_OPS._replace(coef_apply_grad=PLAIN_OPS.coef_apply_grad,
+                                  coef_apply_div=PLAIN_OPS.coef_apply_div)
+    config = dict(knn_method="approx", precision="bfloat16",
+                  dense_operators=False)
+    lk, mk = train_once(batch, seed, dev, KERNEL_OPS, **config)
+    lp, mp = train_once(batch, seed, dev, applies, **config)
+    bufs_p = dict(mp.named_buffers())
+    same = all(torch.equal(b, bufs_p[name]) for name, b in mk.named_buffers())
+    check(f"{label} loss and statistics, kernels vs plain applies",
+          lk == lp and same, f"loss {lk} vs {lp}, statistics equal {same}")
+    whole = _deviations(mk, mp)["grad"][0]
+    check(f"{label} grads, kernels vs plain applies", whole <= COEF_GRAD_FROB,
+          f"relative Frobenius deviation over all tensors {whole:.3e} <= "
+          f"{COEF_GRAD_FROB}")
+
+
+def train_large_phase(rng, seed, dev, card):
+    """The large-cloud train step (bench.py --mode=large-train): bf16
+    compute, coefficient-form operators, approximate kNN, B=4, N=8192,
+    SGD lr 0.01, smoothing 0.2, dropout 0.5 from a seeded CUDA generator,
+    LARGE_STEPS steps on one batch of class-conditioned ellipsoids; then
+    kernels vs plain versions from the same weights (dropout 0, same
+    build), uniform and ragged, held as the bf16 step of the reference
+    recipe is (:func:`compare_bf16_steps`)."""
+    from deltaconv_tpu_torch import launch_counts, reset_launch_counts
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    uniform = train_batch(rng, dev, [LARGE_N] * LARGE_B, LARGE_N)
+    ragged = train_batch(rng, dev, rng.integers(
+        LARGE_MIN_POINTS, LARGE_N + 1, LARGE_B).tolist(), LARGE_N)
+    config = dict(knn_method="approx", precision="bfloat16",
+                  dense_operators=False)
+    model = random_model(seed, dev, affine=False, **config)
+    state = create_train_state(model, sgd_momentum(LARGE_LR))
+    step = make_train_step(model, smoothing=0.2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    warm = random_model(seed + 1, dev, **config)  # warm-up
+    make_train_step(warm)(create_train_state(warm, sgd_momentum(LARGE_LR)),
+                          uniform, torch.Generator(device=dev).manual_seed(1))
+    del warm
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(LARGE_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(state, uniform, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train-large] launches during {LARGE_STEPS} steps: {counts}")
+    print("[train-large] launches per step: " + ", ".join(
+        f"{name} {counts[name] / LARGE_STEPS:g}"
+        for name in TRAIN_LARGE_KERNELS))
+    print(f"[train-large] losses: {[round(x, 4) for x in losses]}")
+    check("large train losses finite", bool(np.isfinite(losses).all()),
+          f"{LARGE_STEPS} steps")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check("large train loss falls", last < first,
+          f"mean of last 3 {last:.4f} < mean of first 3 {first:.4f}")
+    for name in TRAIN_LARGE_KERNELS:
+        check(f"{name} launched in large training", counts[name] > 0,
+              f"{counts[name]} launches")
+    per_step = dict(COEF_PER_FORWARD, scatter_rows=SCATTERS_PER_STEP)
+    for name, per in per_step.items():
+        check(f"{name} {per} a step", counts[name] == per * LARGE_STEPS,
+              f"{counts[name]} launches in {LARGE_STEPS} steps")
+    t = float(np.median(times))
+    print(f"[train-large] B={LARGE_B} N={LARGE_N} K={K}, reference width, "
+          f"dense_operators=False, bf16, knn_method=approx: median "
+          f"{t * 1e3:.3f} ms per train step, {LARGE_B / t:.2f} training "
+          f"clouds/s (host clock, synchronised after each step), peak "
+          f"{peak:.2f} GiB allocated, card: {card}")
+    profile("train-large", "one step", lambda: step(state, uniform, gen),
+            t * 1e3)
+
+    print("[train-large] kernel path vs plain path, one step from the same "
+          "weights, dropout 0, same build")
+    for label, batch in (("uniform", uniform), ("ragged", ragged)):
+        compare_coef_steps(f"large {label}", batch, seed, dev)
+        compare_bf16_steps(f"large {label}", batch, seed, dev,
+                           dense_operators=False, hold_params=False)
+    return counts
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1834,6 +2328,11 @@ def main():
     seg_bf16 = serve_seg_phase(rng, args.seed, dev, card, "bfloat16")
     seg_int8 = serve_seg_phase(rng, args.seed, dev, card, "int8")
     conv2_seg_forms(dev, card)
+    large = large_clouds(rng)
+    serve_large = serve_large_phase(large, args.seed, dev, card, "bfloat16")
+    serve_large_f32 = serve_large_phase(large, args.seed, dev, card, None)
+    coef_vs_dense_phase(clouds, args.seed, dev, card)
+    train_large = train_large_phase(rng, args.seed, dev, card)
 
     def launches(name):
         for path, counts in ((SERVE_KERNELS, serve),
@@ -1844,7 +2343,10 @@ def main():
                              (SEG_KERNELS, seg),
                              (SEG_BF16_KERNELS, seg_bf16),
                              (INT8_KERNELS, serve_int8),
-                             (SEG_INT8_KERNELS, seg_int8)):
+                             (SEG_INT8_KERNELS, seg_int8),
+                             (LARGE_KERNELS["bfloat16"], serve_large),
+                             (LARGE_KERNELS[None], serve_large_f32),
+                             (TRAIN_LARGE_KERNELS, train_large)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

@@ -1,24 +1,30 @@
 """DeltaNet backbone: operator construction + stacked DeltaConvs
-(counterpart of ``deltaconv_tpu/models/deltanet_base.py``, dense
-operators, given normals).
+(counterpart of ``deltaconv_tpu/models/deltanet_base.py``, given
+normals).
 
 The kNN graph and the grad/div operators are rebuilt on every forward
 from the positions, so operator construction is part of the serving
 path: kNN (``torch.topk``, or the ``knn_topk`` kernel for
 ``knn_method="approx"``), tangent frames, the edge-plane gather and the
-WLS solve (two kernels), and the dense assembly (a kernel, f32, bf16 or
-int8). Then the convs' neighbour maxes; in training the first conv's edge
-statistics add the neighbour sum.
+WLS solve (two kernels), and, with ``dense_operators=True`` (the
+default), the dense assembly (a kernel, f32, bf16 or int8). With
+``dense_operators=False``, the JAX package's large-cloud mode, the convs
+apply the coefficient-form operators as they are (two kernels,
+``coef_apply_grad`` and ``coef_apply_div``, ``O(N K)`` where the dense
+``[B, 2, N, N]`` matrices are ``O(N^2)``). Then the convs' neighbour
+maxes; in training the first conv's edge statistics add the neighbour
+sum.
 
 Mixed precision as in the JAX package: ``operator_dtype`` is the dtype of
-the dense operators, ``compute_dtype`` that of the conv stack's
-activations (positions are cast to it before the first conv); the
-operator build itself always runs in f32. Both serve and train in bf16
-(the production config); in training the operator applies are
-differentiated in the features, never in the operators. int8 is an
-operator dtype only, and serves only (the JAX package's int8 serving
-mode: quantized operators and neighbour maxes; its rounding has no
-gradient), so a train-mode forward on int8 operators raises.
+the dense operators (the coefficient form ignores it: its coefficients
+stay f32), ``compute_dtype`` that of the conv stack's activations
+(positions are cast to it before the first conv); the operator build
+itself always runs in f32. Both serve and train in bf16 (the production
+config); in training the operator applies are differentiated in the
+features, never in the operators. int8 is a dense operator dtype only,
+and serves only (the JAX package's int8 serving mode: quantized
+operators and neighbour maxes; its rounding has no gradient), so a
+train-mode forward on int8 operators raises.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch import nn
 
 from ..geometry.dense import DenseGradDiv, densify
 from ..geometry.frames import build_tangent_basis
+from ..geometry.grad_div import GradDiv
 from ..geometry.knn import knn
 from ..nn.deltaconv import DeltaConv
 from ..nn.mlp import MLP, VectorMLP
@@ -55,8 +62,10 @@ def to_dtype(name):
 def build_operators(pos, k: int, normal=None, point_mask=None,
                     kernel_width: float = 1.0, regularizer: float = 0.001,
                     ops: Ops = KERNEL_OPS, operator_dtype=None,
-                    knn_method: str = "exact") -> DenseGradDiv:
-    """Builds the dense grad/div operators of a batch of clouds.
+                    knn_method: str = "exact",
+                    dense_operators: bool = True) -> DenseGradDiv | GradDiv:
+    """Builds the grad/div operators of a batch of clouds, dense or in
+    coefficient form.
 
     Args:
       pos: ``[B, N, 3]`` positions.
@@ -68,14 +77,16 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
       ops: the kernels (default) or their plain versions.
       operator_dtype: dtype of the dense operators (None: f32, bf16, or
         int8: quantized per cloud, with the scales on the returned
-        operators; serving only).
+        operators; serving only); ignored in coefficient form.
       knn_method: ``"exact"`` or ``"approx"`` (``geometry.knn``).
+      dense_operators: densify (:class:`DenseGradDiv`), or return the
+        coefficient form (:class:`GradDiv`, the large-cloud path).
     """
     if pos.requires_grad or (normal is not None and normal.requires_grad):
         raise NotImplementedError(
             "gradients for positions or normals need the backward kernels "
-            "of the operator build (sites #2, #4 and #6 of ROADMAP queue "
-            "2), which are not ported yet")
+            "of the operator build (sites #4 and #6 of ROADMAP queue 2), "
+            "which are not ported yet")
     if normal is None:
         raise NotImplementedError(
             "normal estimation (estimate_basis, geometry/linalg.py) is not "
@@ -85,9 +96,10 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
     if point_mask is not None:
         nbr_mask = nbr_mask & point_mask[:, :, None]
     gd = build_grad_div_fused(pos, normal, x_basis, y_basis, nbr_idx,
-                              nbr_mask, kernel_width, regularizer,
-                              ops.gather_rows, ops.wls)
-    return densify(gd, ops, to_dtype(operator_dtype))
+                              nbr_mask, kernel_width, regularizer, ops)
+    if dense_operators:
+        gd = densify(gd, ops, to_dtype(operator_dtype))
+    return gd
 
 
 class DeltaNetBase(nn.Module):
@@ -95,17 +107,20 @@ class DeltaNetBase(nn.Module):
     positions: the first conv is centralized, the last drops the vector
     stream, and every stage's scalar output is returned for the heads.
     ``mlp_depth`` is the depth of every conv's internal MLPs (1 for
-    classification, 2 for segmentation)."""
+    classification, 2 for segmentation); ``dense_operators=False`` applies
+    the operators in coefficient form (large clouds)."""
 
     def __init__(self, conv_channels: Sequence[int], mlp_depth: int = 1,
                  num_neighbors: int = 20, grad_regularizer: float = 0.001,
                  grad_kernel_width: float = 1.0, operator_dtype=None,
-                 compute_dtype=None, knn_method: str = "exact"):
+                 compute_dtype=None, knn_method: str = "exact",
+                 dense_operators: bool = True):
         super().__init__()
         self.num_neighbors = num_neighbors
         self.grad_regularizer = grad_regularizer
         self.grad_kernel_width = grad_kernel_width
         self.knn_method = knn_method
+        self.dense_operators = dense_operators
         widths = [3, *conv_channels]  # the first conv reads positions
         last = len(conv_channels) - 1
         self.convs = nn.ModuleList(
@@ -131,7 +146,8 @@ class DeltaNetBase(nn.Module):
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS):
         """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``."""
-        if self.training and self.operator_dtype == torch.int8:
+        if (self.training and self.dense_operators
+                and self.operator_dtype == torch.int8):
             raise NotImplementedError(
                 "int8 operators serve only, as the JAX package's (eval; "
                 "the quantization has no gradient): call model.eval()")
@@ -142,7 +158,8 @@ class DeltaNetBase(nn.Module):
             gd = build_operators(pos, self.num_neighbors, normal,
                                  point_mask, self.grad_kernel_width,
                                  self.grad_regularizer, ops,
-                                 self.operator_dtype, self.knn_method)
+                                 self.operator_dtype, self.knn_method,
+                                 self.dense_operators)
         x = pos if self.compute_dtype is None else pos.to(self.compute_dtype)
         v = gd.grad(x)
         out = []

@@ -42,7 +42,12 @@ class DeltaNetClassification(nn.Module):
     serves and trains in production with both dtypes bf16 and approximate
     kNN (``InferenceEngine(..., precision="bfloat16")`` sets the dtypes
     for serving; ``precision="int8"`` serves bf16 compute on int8
-    operators, eval only). The backbone,
+    operators, eval only). ``dense_operators=False`` is the JAX package's
+    large-cloud mode (``bench.py --mode=large-train``: B=4, N=8192,
+    bf16, approximate kNN): the operators stay in coefficient form,
+    ``O(N K)``, and the convs apply them through ``coef_apply_grad`` and
+    ``coef_apply_div``; it serves and trains in f32 and bf16 (int8 is
+    refused: it has no coefficient form). The backbone,
     embedding and head MLPs compute in ``compute_dtype`` (dropout on the
     bf16 activations in training); the last Linear (``head_out``) runs in
     f32 on the f32-cast activations, so logits, and the loss, are f32.
@@ -55,13 +60,15 @@ class DeltaNetClassification(nn.Module):
                  grad_kernel_width: float = 1.0, embedding_size: int = 1024,
                  dropout: float = 0.5, operator_dtype=None,
                  compute_dtype=None, knn_method: str = "exact",
+                 dense_operators: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.deltanet_base = DeltaNetBase(conv_channels,
                                           num_neighbors=num_neighbors,
                                           grad_regularizer=grad_regularizer,
                                           grad_kernel_width=grad_kernel_width,
-                                          knn_method=knn_method)
+                                          knn_method=knn_method,
+                                          dense_operators=dense_operators)
         self.lin_embedding = MLP([sum(conv_channels), embedding_size])
         self.dropout = dropout
         # Positions 1 and 3 hold the reference's dropout (no parameters),
@@ -80,6 +87,10 @@ class DeltaNetClassification(nn.Module):
     @property
     def operator_dtype(self):
         return self.deltanet_base.operator_dtype
+
+    @property
+    def dense_operators(self) -> bool:
+        return self.deltanet_base.dense_operators
 
     def set_precision(self, compute_dtype, operator_dtype) -> None:
         """Sets both dtypes (None, "float32" or "bfloat16"; "int8" for

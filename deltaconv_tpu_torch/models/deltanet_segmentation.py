@@ -43,7 +43,9 @@ class DeltaNetSegmentation(nn.Module):
     ``operator_dtype`` (None, "float32", "bfloat16" or "int8"),
     ``compute_dtype`` (None, "float32" or "bfloat16") and ``knn_method``
     ("exact" or "approx") are the JAX model's fields (int8 operators
-    serve only, ``InferenceEngine(..., precision="int8")``). The
+    serve only, ``InferenceEngine(..., precision="int8")``), as is
+    ``dense_operators`` (False: coefficient-form operators, the
+    large-cloud path; no int8 form). The
     backbone, ``lin_global``, ``lin_categorical`` and the head MLPs
     compute in ``compute_dtype``; the head's two Linear
     layers (``segmentation_head.4`` and ``.6``) run in f32, as the JAX
@@ -60,13 +62,14 @@ class DeltaNetSegmentation(nn.Module):
                  grad_regularizer: float = 0.001,
                  grad_kernel_width: float = 1.0, dropout: float = 0.5,
                  operator_dtype=None, compute_dtype=None,
-                 knn_method: str = "exact",
+                 knn_method: str = "exact", dense_operators: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.deltanet_base = DeltaNetBase(
             conv_channels, mlp_depth=mlp_depth, num_neighbors=num_neighbors,
             grad_regularizer=grad_regularizer,
-            grad_kernel_width=grad_kernel_width, knn_method=knn_method)
+            grad_kernel_width=grad_kernel_width, knn_method=knn_method,
+            dense_operators=dense_operators)
         conv_width = sum(conv_channels)
         self.lin_global = MLP([conv_width, embedding_size])
         self.lin_categorical = (MLP([NUM_CATEGORIES, 64])
@@ -91,6 +94,10 @@ class DeltaNetSegmentation(nn.Module):
     @property
     def operator_dtype(self):
         return self.deltanet_base.operator_dtype
+
+    @property
+    def dense_operators(self) -> bool:
+        return self.deltanet_base.dense_operators
 
     def set_precision(self, compute_dtype, operator_dtype) -> None:
         """Sets both dtypes (None, "float32" or "bfloat16"; "int8" for

@@ -285,10 +285,11 @@ class DeltaConv(nn.Module):
                                  *channels], dtype) if vector else None)
 
     def forward(self, x, v, gd, point_mask=None):
-        """``x [B, N, C]``, ``v [B, N, 2, C]``, ``gd`` the dense
-        operators, ``point_mask`` optional ``[B, N]`` validity (left out
-        of the BatchNorm statistics). Returns ``(x', v')`` (``v'`` is
-        None on the last layer)."""
+        """``x [B, N, C]``, ``v [B, N, 2, C]``, ``gd`` the operators
+        (dense, or in coefficient form for large clouds), ``point_mask``
+        optional ``[B, N]`` validity (left out of the BatchNorm
+        statistics). Returns ``(x', v')`` (``v'`` is None on the last
+        layer)."""
         if self.centralized:  # the edges of valid points
             stats_mask = gd.nbr_mask if point_mask is not None else None
         else:

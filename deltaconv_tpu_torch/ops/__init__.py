@@ -1,16 +1,19 @@
 """The hand-written CUDA kernels of the serving paths (classification and
-segmentation; f32, bf16 and int8) and the train steps (f32 and bf16),
-each beside its plain PyTorch version.
+segmentation; f32, bf16 and int8; dense or coefficient-form operators)
+and the train steps (f32 and bf16), each beside its plain PyTorch
+version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the thirteen functions the models call so that
-a caller can run a forward, or a whole train step, through the kernels
-or through the plain versions on the same device, which is how the
-kernel path is checked on the card. The neighbour max (f32 or bf16) and
-sum are differentiable in their features, the bf16 gather-then-matmul
-max of training in its input and weight, with the same gradient routing
-on both.
+and :data:`PLAIN_OPS` bundle the fifteen functions the models call so
+that a caller can run a forward, or a whole train step, through the
+kernels or through the plain versions on the same device, which is how
+the kernel path is checked on the card; a plain entry is differentiated
+through plain versions only. The gather is differentiable in its table,
+the coefficient-form applies in their features and coefficients, the
+neighbour max (f32 or bf16) and sum in their features, the bf16
+gather-then-matmul max of training in its input and weight, with the
+same gradient routing on both.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from ._lib import launch_counts, library, reset_launch_counts
+from .coef_apply import (coef_apply_div, coef_apply_div_plain,
+                         coef_apply_grad, coef_apply_grad_plain)
 from .densify_op import (densify_coefs, densify_coefs_int8,
                          densify_coefs_int8_plain, densify_coefs_plain)
 from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
@@ -32,7 +37,8 @@ from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
                          gather_max_plain, gather_max_win,
                          gather_max_win_plain, int8_quantize, masked_nbr_max)
 from .gather_mlp_max import gather_mlp_max, gather_mlp_max_plain, mlp_chain
-from .gather_rows import gather_rows, gather_rows_plain
+from .gather_rows import (gather_rows, gather_rows_plain, scatter_rows,
+                          scatter_rows_plain)
 from .gather_sum import (adjacency, adjacency_plain, gather_sum,
                          gather_sum_bwd, gather_sum_bwd_plain, gather_sum_fwd,
                          gather_sum_fwd_plain, gather_sum_plain)
@@ -40,7 +46,9 @@ from .knn_topk import knn_topk, knn_topk_plain
 from .wls_fused import build_grad_div_fused, wls, wls_plain
 
 __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
-           "bn_lrelu_epilogue", "build_grad_div_fused", "densify_coefs",
+           "bn_lrelu_epilogue", "build_grad_div_fused", "coef_apply_div",
+           "coef_apply_div_plain", "coef_apply_grad", "coef_apply_grad_plain",
+           "densify_coefs",
            "densify_coefs_int8", "densify_coefs_int8_plain",
            "densify_coefs_plain", "gather_matmul_max",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
@@ -56,12 +64,12 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "gather_sum_fwd", "gather_sum_fwd_plain", "gather_sum_plain",
            "int8_quantize", "knn_topk", "knn_topk_plain", "launch_counts",
            "library",
-           "masked_nbr_max", "mlp_chain", "reset_launch_counts", "wls",
-           "wls_plain"]
+           "masked_nbr_max", "mlp_chain", "reset_launch_counts",
+           "scatter_rows", "scatter_rows_plain", "wls", "wls_plain"]
 
 
 class Ops(NamedTuple):
-    """The thirteen kernel-backed functions the models call."""
+    """The fifteen kernel-backed functions the models call."""
 
     gather_rows: Callable
     wls: Callable
@@ -76,15 +84,19 @@ class Ops(NamedTuple):
     densify_coefs_int8: Callable
     gather_max_int8: Callable
     gather_matmul_max_int8: Callable
+    coef_apply_grad: Callable
+    coef_apply_div: Callable
 
 
 KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
                  knn_topk, gather_max_affine, gather_matmul_max,
                  gather_matmul_max_train, gather_mlp_max, densify_coefs_int8,
-                 gather_max_int8, gather_matmul_max_int8)
+                 gather_max_int8, gather_matmul_max_int8, coef_apply_grad,
+                 coef_apply_div)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_max_plain, gather_sum_plain, knn_topk_plain,
                 gather_max_affine_plain, gather_matmul_max_plain,
                 gather_matmul_max_train_plain, gather_mlp_max_plain,
                 densify_coefs_int8_plain, gather_max_int8_plain,
-                gather_matmul_max_int8_plain)
+                gather_matmul_max_int8_plain, coef_apply_grad_plain,
+                coef_apply_div_plain)

@@ -73,19 +73,20 @@ _KERNELS = {
     "gather_max_int8": ("dc_gather_max_int8", [_P] * 5 + [_I] * 5),
     "gather_matmul_max_int8": ("dc_gather_matmul_max_int8",
                                [_P] * 5 + [_I] * 5),
+    "scatter_rows": ("dc_scatter_rows", [_P] * 3 + [_I] * 5),
+    "coef_apply_grad": ("dc_coef_apply_grad", [_P] * 4 + [_I] * 5),
+    "coef_apply_div": ("dc_coef_apply_div", [_P] * 4 + [_I] * 5),
 }
 
 # Why a raw kernel takes no tensor that requires grad: the operator
 # build has no backward kernels yet (they are reached only when positions
 # carry gradients), the bf16 maxes with the epilogue are the eval forms,
-# and the differentiable maxes and sum are the autograd Functions around
-# their kernels.
+# and the differentiable gather, applies, maxes and sum are the autograd
+# Functions around their kernels.
 _BF16_EVAL = ("it is the eval form (running statistics in the "
               "epilogue); in training the layers take ops.gather_max or "
               "ops.gather_matmul_max_train, whose backward is a kernel")
 _NO_GRAD = {
-    "gather_rows": "its backward (`_scatter_impl`, site #2 of ROADMAP "
-                   "queue 2) is not ported yet",
     "wls": "its backward (`_wls_bwd_pallas`, site #4 of ROADMAP queue 2) "
            "is not ported yet",
     "densify": "its backward (`_densify_bwd`, site #6 of ROADMAP queue 2) "
@@ -205,7 +206,8 @@ def check_inputs(name: str, specs) -> torch.device:
             raise ValueError(f"{where}: not contiguous")
         if t.requires_grad:
             why = _NO_GRAD.get(
-                name, "differentiate through ops.gather_max, "
+                name, "differentiate through ops.gather_rows, "
+                "ops.coef_apply_grad, ops.coef_apply_div, ops.gather_max, "
                 "ops.gather_sum or ops.gather_matmul_max_train, whose "
                 "backward is a kernel")
             raise ValueError(f"{where}: the raw kernel takes no tensor "

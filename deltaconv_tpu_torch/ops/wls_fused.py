@@ -180,16 +180,18 @@ def edge_planes(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask, pm,
 
 def build_grad_div_fused(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask,
                          kernel_width: float = 1.0,
-                         regularizer: float = 0.001,
-                         gather_rows_fn=gather_rows,
-                         wls_fn=wls) -> GradDiv:
+                         regularizer: float = 0.001, ops=None) -> GradDiv:
     """Batched operator build: ``pos [B, N, 3]`` etc. -> :class:`GradDiv`
-    with normalized ``[B, N, K, 2]`` coefficients. ``gather_rows_fn`` and
-    ``wls_fn`` select the kernels or their plain versions."""
+    with normalized ``[B, N, K, 2]`` coefficients. ``ops`` (``ops.Ops``;
+    None: the kernels) selects the kernels or their plain versions, for
+    the build's gather and WLS solve and for every later apply and
+    aggregation of the returned operators."""
+    if ops is None:
+        from . import KERNEL_OPS as ops
     pm = nbr_mask.any(dim=2).to(torch.float32)
     edges = edge_planes(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask,
-                        pm, gather_rows_fn)
-    g, d = wls_fn(edges, kernel_width, regularizer)
+                        pm, ops.gather_rows)
+    g, d = ops.wls(edges, kernel_width, regularizer)
     # [B, 2, K, N] -> [B, N, K, 2]
     g = g.permute(0, 3, 2, 1)
     d = d.permute(0, 3, 2, 1)
@@ -202,4 +204,4 @@ def build_grad_div_fused(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask,
     scale = scale[:, None, None, None]
     return GradDiv(nbr_idx=nbr_idx, nbr_mask=nbr_mask,
                    grad_coef=(g * scale).contiguous(),
-                   div_coef=(d * scale).contiguous())
+                   div_coef=(d * scale).contiguous(), ops=ops)

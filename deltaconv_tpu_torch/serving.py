@@ -28,6 +28,14 @@ and ShapeNet part segmentation, per-point logits trimmed per cloud::
     parts = engine.predict(clouds, normals, categories=[3, 0, 15])
     # a list of [N_i, 50] f32
 
+Large clouds (the JAX package's coefficient-operator mode) serve from a
+model built with ``dense_operators=False``, at any precision but int8::
+
+    model = DeltaNetClassification(num_classes=40, dense_operators=False,
+                                   knn_method="approx")
+    engine = InferenceEngine(model, num_points=8192, batch_size=4,
+                             precision="bfloat16")
+
 ``precision="int8"`` serves either model in the JAX package's int8 mode
 (bf16 compute, int8 operators quantized per cloud, the neighbour maxes in
 the quantized domain): an accuracy-changing form, held to 0.05 x
@@ -75,10 +83,17 @@ def apply_precision(model, precision: Optional[str]):
     never changed, as the JAX engine clones it): ``None`` keeps the
     dtypes as built, ``"float32"`` strips both, ``"bfloat16"`` sets
     ``compute_dtype`` and ``operator_dtype`` to bf16, ``"int8"`` sets
-    ``compute_dtype`` to bf16 and ``operator_dtype`` to int8."""
+    ``compute_dtype`` to bf16 and ``operator_dtype`` to int8 (a model with
+    ``dense_operators=False`` refuses int8)."""
     if precision is not None and precision not in _PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; expected None | "
                          "float32 | bfloat16 | int8")
+    if precision == "int8" and not model.dense_operators:
+        # Only the dense form has a quantized operator dtype: a silent
+        # no-op would leave the caller believing int8 serving is active.
+        raise ValueError(
+            "precision='int8' requires dense_operators=True (the "
+            "coefficient-operator path has no quantized form)")
     model = copy.deepcopy(model)
     if precision is not None:
         compute, operator = _PRECISIONS[precision]

@@ -134,19 +134,30 @@ def test_kernel_inputs_are_checked(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ops.gather_max(h.transpose(0, 1).contiguous().transpose(0, 1), idx,
                        mask)
-    # Differentiated, the neighbour max is an autograd Function whose
-    # backward is a kernel; the raw kernels and the build kernels, which
-    # have no backward yet, refuse a tensor that requires grad.
+    # Differentiated, the neighbour max and the gather are autograd
+    # Functions whose backward is a kernel; the raw kernels and the build
+    # kernels without a backward refuse a tensor that requires grad.
     hg = h.clone().requires_grad_()
     reset_launch_counts()
     ops.gather_max(hg, idx, mask).sum().backward()
+    ops.gather_rows(hg, idx).sum().backward()
     assert launch_counts()["gather_max_win"] == 1
     assert launch_counts()["gather_max_bwd"] == 1
+    assert launch_counts()["gather_rows"] == 1
+    assert launch_counts()["scatter_rows"] == 1
     assert hg.grad.shape == h.shape
     with pytest.raises(ValueError, match="requires grad"):
         ops.gather_max_win(hg, idx, mask)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.gather_rows(hg, idx)
+    coef = torch.zeros((2, 16, 3, 2), device=cuda)
+    with pytest.raises(TypeError):
+        ops.coef_apply_grad(h.half(), coef, idx)
+    with pytest.raises(ValueError, match="shape"):
+        ops.coef_apply_grad(h, coef[:, :, :2], idx)
+    with pytest.raises(ValueError, match="shape"):
+        ops.coef_apply_div(h, coef, idx)
+    with pytest.raises(TypeError):
+        ops.scatter_rows(torch.zeros((2, 4, 3, 16), device=cuda).double(),
+                         idx, 16)
     with pytest.raises(ValueError, match="ROADMAP"):
         ops.wls(torch.zeros((2, 12, 3, 16), device=cuda,
                             requires_grad=True), 1.0, 1e-3)
@@ -904,3 +915,193 @@ def test_int8_model_kernels_match_plain(cuda):
             assert counts["gather_max_int8"] > 0
             assert counts["gather_matmul_max_int8"] == (0 if seg else 2)
             assert counts["densify_bf16"] == counts["densify"] == 0
+
+
+# -- the large-cloud coefficient-operator slice ----------------------------------
+
+
+def _coef_operators(rng, n, k, dev, masked):
+    """Random neighbour lists (self in slot 0) and coefficients;
+    ``masked`` clamps the last 3 slots of every other point to self with
+    zero coefficients, as masked edges are."""
+    idx = rng.integers(0, n, (2, n, k)).astype(np.int32)
+    idx[:, :, 0] = np.arange(n)
+    gc = rng.standard_normal((2, n, k, 2)).astype(np.float32)
+    dc = rng.standard_normal((2, n, k, 2)).astype(np.float32)
+    if masked:
+        idx[:, ::2, -3:] = np.arange(0, n, 2)[None, :, None]
+        gc[:, ::2, -3:] = 0.0
+        dc[:, ::2, -3:] = 0.0
+    return (torch.from_numpy(a).to(dev) for a in (idx, gc, dc))
+
+
+def _bits_equal(got, want):
+    assert got.dtype == want.dtype
+    if got.dtype == torch.bfloat16:
+        got, want = got.view(torch.int16), want.view(torch.int16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 24, 70, 301])
+def test_coef_apply_kernels_exact(cuda, c, dtype, masked):
+    """Both applies bit-equal to their plain versions (the same f32
+    products and sums, each rounded, slot by slot), at widths the model
+    never uses too (odd C: the bf16 body without channel pairs)."""
+    rng = np.random.default_rng(50)
+    n, k = 150, 9
+    idx, gc, dc = _coef_operators(rng, n, k, cuda, masked)
+    x = torch.randn((2, n, c), device=cuda).to(dtype)
+    v = torch.randn((2, n, 2, c), device=cuda).to(dtype)
+    _bits_equal(ops.coef_apply_grad(x, gc, idx),
+                ops.coef_apply_grad_plain(x, gc, idx))
+    _bits_equal(ops.coef_apply_div(v, dc, idx),
+                ops.coef_apply_div_plain(v, dc, idx))
+
+
+@pytest.mark.parametrize("n_out,c", [(150, 5), (150, 70), (170, 512),
+                                     (120, 33)])
+def test_scatter_rows_kernel(cuda, n_out, c):
+    """Within 1e-5 x max of ``scatter_add_`` (atomics add in any order),
+    with repeated indices; indices outside ``[0, n_out)`` add nothing."""
+    rng = np.random.default_rng(51)
+    n, k = 150, 9
+    idx = torch.from_numpy(
+        rng.integers(0, 150, (2, n, k)).astype(np.int32)).to(cuda)
+    idx[:, :, 1] = 3  # one row takes every point's second slot
+    g = torch.randn((2, c, k, n), device=cuda)
+    got = ops.scatter_rows(g, idx, n_out)
+    torch.cuda.synchronize()
+    assert got.shape == (2, n_out, c)
+    _close_to_max(got, ops.scatter_rows_plain(g, idx, n_out), 1e-5)
+
+
+def test_coef_kernels_at_the_large_cloud_shapes(cuda):
+    """B=4 clouds of N=8192, K=20 on the clouds' own coefficients: the
+    applies bit-equal at conv1's widths (grad 192, div 128), bf16 and f32,
+    the scatter of conv3's div cotangent (512) within 1e-5 x max."""
+    rng = np.random.default_rng(52)
+    pos, nrm = _cloud_batch(rng, 4, 8192, cuda)
+    gd = build_operators(pos, 20, nrm, knn_method="approx",
+                         dense_operators=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((4, 8192, 192), device=cuda).to(dtype)
+        v = torch.randn((4, 8192, 2, 128), device=cuda).to(dtype)
+        _bits_equal(ops.coef_apply_grad(x, gd.grad_coef, gd.nbr_idx),
+                    ops.coef_apply_grad_plain(x, gd.grad_coef, gd.nbr_idx))
+        _bits_equal(ops.coef_apply_div(v, gd.div_coef, gd.nbr_idx),
+                    ops.coef_apply_div_plain(v, gd.div_coef, gd.nbr_idx))
+    g = torch.randn((4, 512, 20, 8192), device=cuda)
+    _close_to_max(ops.scatter_rows(g, gd.nbr_idx, 8192),
+                  ops.scatter_rows_plain(g, gd.nbr_idx, 8192), 1e-5)
+
+
+def test_coef_backward_launches_only_what_is_asked(cuda):
+    """Differentiated applies launch their forward kernel once and, in the
+    backward, ``scatter_rows`` only for features that require grad and
+    ``gather_rows`` only for coefficients that do; the gradients equal
+    the plain route's (the scatter within 1e-5 x max). The differentiable
+    gather's backward is one ``scatter_rows``."""
+    rng = np.random.default_rng(53)
+    n, k, c = 128, 8, 24
+    idx, gc, _ = _coef_operators(rng, n, k, cuda, True)
+    x = torch.randn((2, n, c), device=cuda)
+    ct = torch.randn((2, n, 2, c), device=cuda)
+    for needs_x, needs_c in ((True, False), (False, True), (True, True)):
+        grads = []
+        for fn in (ops.coef_apply_grad, ops.coef_apply_grad_plain):
+            reset_launch_counts()
+            xg = x.clone().requires_grad_(needs_x)
+            cg = gc.clone().requires_grad_(needs_c)
+            fn(xg, cg, idx).backward(ct)
+            counts = launch_counts()
+            if fn is ops.coef_apply_grad:
+                assert counts["coef_apply_grad"] == 1, counts
+                assert counts["scatter_rows"] == int(needs_x), counts
+                assert counts["gather_rows"] == int(needs_c), counts
+            else:
+                assert sum(counts.values()) == 0, counts
+            grads.append((xg.grad, cg.grad))
+        for got, want in zip(*grads):
+            assert (got is None) == (want is None)
+            if got is not None:
+                _close_to_max(got, want, 1e-5)
+    reset_launch_counts()
+    table = torch.randn((2, n, 9), device=cuda, requires_grad=True)
+    ops.gather_rows(table, idx).sum().backward()
+    assert launch_counts()["gather_rows"] == 1
+    assert launch_counts()["scatter_rows"] == 1
+
+
+def _coef_step(batch, ops_, compute_dtype=None):
+    model = DeltaNetClassification(
+        5, conv_channels=(8, 8, 16, 16), embedding_size=32, num_neighbors=8,
+        dropout=0.0, compute_dtype=compute_dtype, knn_method="approx",
+        dense_operators=False, generator=torch.Generator().manual_seed(0))
+    model = model.to(batch["pos"].device)
+    state = create_train_state(model, sgd_momentum(0.01))
+    loss = float(make_train_step(model, ops=ops_)(state, batch, None)["loss"])
+    return loss, model
+
+
+def _frob_all(ma, mb):
+    """Relative Frobenius deviation of ``ma``'s gradients from ``mb``'s,
+    over all tensors at once."""
+    grads_b = dict(mb.named_parameters())
+    num = den = 0.0
+    for name, p in ma.named_parameters():
+        q = grads_b[name].grad.double()
+        num += float(((p.grad.double() - q) ** 2).sum())
+        den += float((q ** 2).sum())
+    return (num / max(den, 1e-60)) ** 0.5
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_coef_model_kernels_match_plain(cuda, compute_dtype):
+    """A narrow coefficient-form model on the card: one train step through
+    the kernels launches 4 grad and 4 div applies and 6 scatters (the
+    positions' grad and conv0's div of it take no backward) and none of
+    the dense assembly. Against the same step with only the applies (and
+    their scatters) on the plain route: the forward is bit-equal (loss and
+    running statistics equal), and the gradients differ only by the order
+    of the atomic sums (f32: 1e-3 x each tensor's max, as chip_smoke.py's
+    same-build step; bf16, where a one-ulp cast moves a max winner: 2e-2
+    relative Frobenius over all tensors). Served, the logits of the kernel
+    path and the whole plain path agree within 1e-4 (f32) or 1e-2 (bf16) x
+    max|logit|."""
+    rng = np.random.default_rng(54)
+    pos, nrm = _cloud_batch(rng, 4, 128, cuda)
+    batch = {"pos": pos, "normal": nrm,
+             "label": torch.tensor([0, 1, 2, 3], device=cuda)}
+    reset_launch_counts()
+    loss_k, model_k = _coef_step(batch, KERNEL_OPS, compute_dtype)
+    counts = launch_counts()
+    plain_applies = KERNEL_OPS._replace(
+        coef_apply_grad=ops.coef_apply_grad_plain,
+        coef_apply_div=ops.coef_apply_div_plain)
+    loss_p, model_p = _coef_step(batch, plain_applies, compute_dtype)
+    assert counts["coef_apply_grad"] == counts["coef_apply_div"] == 4, counts
+    assert counts["scatter_rows"] == 6, counts
+    assert counts["densify"] == counts["densify_bf16"] == 0, counts
+    assert loss_k == loss_p
+    bufs_p = dict(model_p.named_buffers())
+    for name, b in model_k.named_buffers():
+        assert torch.equal(b, bufs_p[name]), name
+    params_p = dict(model_p.named_parameters())
+    for name, p in model_k.named_parameters():
+        assert bool(p.grad.isfinite().all())
+        if compute_dtype is None:
+            _close_to_max(p.grad, params_p[name].grad, 1e-3)
+    if compute_dtype is not None:
+        assert _frob_all(model_k, model_p) <= 2e-2
+    f32 = compute_dtype is None
+    precision = "bfloat16" if compute_dtype else None
+    clouds = [p.cpu().numpy() for p in pos]
+    normals = [q.cpu().numpy() for q in nrm]
+    kw = dict(num_points=128, batch_size=4, precision=precision)
+    got = InferenceEngine(model_k, **kw).predict(clouds, normals)
+    want = InferenceEngine(model_k, ops=PLAIN_OPS, **kw).predict(clouds,
+                                                                 normals)
+    np.testing.assert_allclose(got, want, rtol=0, atol=(
+        1e-4 if f32 else 1e-2) * float(np.abs(want).max()))

@@ -133,6 +133,20 @@ def test_cpu_tensors_take_the_plain_versions():
                                ops.gather_matmul_max_int8_plain(xq, w, idx,
                                                                 mask),
                                rtol=0, atol=0)
+    v = torch.randn((2, 32, 2, 5))
+    torch.testing.assert_close(ops.coef_apply_grad(h, coef, idx),
+                               ops.coef_apply_grad_plain(h, coef, idx),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.coef_apply_div(v, coef, idx),
+                               ops.coef_apply_div_plain(v, coef, idx),
+                               rtol=0, atol=0)
+    g = torch.randn((2, 5, 6, 32))
+    torch.testing.assert_close(ops.scatter_rows(g, idx, 32),
+                               ops.scatter_rows_plain(g, idx, 32),
+                               rtol=0, atol=0)
+    vg = v.clone().requires_grad_()
+    ops.coef_apply_div(vg, coef, idx).sum().backward()
+    ops.gather_rows(hg, idx).sum().backward()
     assert launch_counts() == {
         "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
@@ -141,7 +155,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_max_win_bf16": 0, "gather_max_bwd_bf16": 0,
         "gather_matmul_max_win": 0, "gather_max_bf16": 0,
         "gather_mlp_max": 0, "densify_int8": 0, "gather_max_int8": 0,
-        "gather_matmul_max_int8": 0}
+        "gather_matmul_max_int8": 0, "scatter_rows": 0,
+        "coef_apply_grad": 0, "coef_apply_div": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
