@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the twenty-four CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the twenty-eight CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -127,7 +127,37 @@ first on ``sys.path``. It
     dropout 0), uniform and ragged, held as step 8 holds the bf16 step
     (the parameters' deviation printed, not held: a 4-row head
     BatchNorm), and one step with only the applies on the plain route:
-    loss and statistics equal, gradients within 2e-2 (atomics).
+    loss and statistics equal, gradients within 2e-2 (atomics);
+14. ``[kernels]`` at the point-shard shapes: knn_topk_table (exact and
+    quantized) at Nq = Nt = 8192, K = 20 and 30, and its repair form
+    (2048 row_ids against 65,536 columns), knn_topk_bucketed (exact and
+    quantized) at N=65,536, K=20, on surface clouds, uniform, 10% masked
+    and 100 units from the origin: ids equal to the plain versions, the
+    exact winner sets equal to a chunked ``matmul`` + ``torch.topk``
+    (near-tie rows exempt) or, far from the origin, to the exact table
+    kNN; gather_rows and wls of the table-form operator build at the
+    bench cloud's shapes; times beside the plain versions, the library
+    calls and the bounds;
+15. ``[serve-shard-bf16]``: ``InferenceEngine.predict_sharded`` of ONE
+    65,536-point cloud at the bench config (``bench.py
+    --mode=point-shard``: reference width, ``dense_operators=False``,
+    bf16, approximate kNN) on one card: the quantized bucketed kNN once
+    a forward and no table kNN, the kernel path within 0.01 x max|logit|
+    of the plain path and within 0.05 x max|logit| of the f32 sharded
+    engine; 60,000 real points padded to 65,536 with a point mask through
+    ``point_sharded_classification`` against the 60,000-point cloud;
+    points/s and a profile of one call; ``[serve-shard-f32]``: exact kNN
+    (the exact bucketed kNN once a forward, the table kNN once more when
+    rows fail its certificate; the branch printed), atol 1e-3 of the
+    plain path;
+16. ``[serve-shard-seg-f32]`` and ``[serve-shard-seg-bf16]``: the
+    ShapeNet model in coefficient form on one 8192-point cloud with a
+    category (the table kNN once a forward): f32 within 1e-4 x
+    max|logit| of ``InferenceEngine.predict``, bf16 within 0.01 of the
+    plain path;
+17. ``[shard-nccl]``: one bench forward through an initialised 1-rank
+    ``nccl`` group (a FileStore in a temporary directory), bit-equal to
+    ``group=None``.
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -239,6 +269,28 @@ COEF_GRAD_FROB = 2e-2
 CROSSOVER = ((32, 1024), (4, 1024), (4, 2048), (4, 4096), (4, 8192))
 CROSSOVER_REPS = 10
 
+# Point-sharded serving of ONE large cloud (bench.py --mode=point-shard,
+# bench.py:351-407): 65,536 points, the reference-width classifier in
+# coefficient form (dense_operators=False), bf16 and approximate kNN, on
+# one card (a group of one rank); the ShapeNet model on one 8192-point
+# cloud (the table kNN's range, 4,097..16,383 points).
+SHARD_N = 65536
+SHARD_TABLE_N = SHARD_SEG_N = 8192
+SHARD_REPAIR_ROWS = 2048  # knn_topk_bucketed's repair budget
+SHARD_PAD_N = 60000  # the padded run's real points
+SHARD_SHIFT = 100.0  # the far cloud's distance from the origin
+SHARD_MASK_FRAC = 0.1  # masked share of the masked clouds
+SHARD_CALLS = 3  # timed forwards
+SHARD_REPS = 5  # CUDA-event samples of the point-shard kernels
+SHARD_TIE_REL = 1e-6  # x (1 + |q|^2): near-tie K-th scores
+SHARD_SEG_REL = 1e-4  # f32 sharded vs predict, x max|logit|
+# The exact sweeps' work per (query, column) pair: the score (mul, 2 fma,
+# mul, 2 sub) and one compare-select; the quantized ones do
+# KNN_INSTR_PER_PAIR.
+TABLE_INSTR = 8
+SHARD_BF16_KERNELS = ("knn_topk_bucketed_q", "gather_rows", "wls")
+SHARD_F32_KERNELS = ("knn_topk_bucketed", "gather_rows", "wls")
+
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
                     "deltaconv_tpu/ops/gather_rows.py:205"),
@@ -288,6 +340,14 @@ KERNEL_META = {
                        "deltaconv_tpu/ops/coef_apply.py:173"),
     "scatter_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
                      "deltaconv_tpu/ops/gather_rows.py:292"),
+    "knn_topk_table": ("deltaconv_tpu_torch/csrc/knn_table.cu",
+                       "deltaconv_tpu/ops/knn_topk.py:326"),
+    "knn_topk_table_q": ("deltaconv_tpu_torch/csrc/knn_table.cu",
+                         "deltaconv_tpu/ops/knn_topk.py:326"),
+    "knn_topk_bucketed": ("deltaconv_tpu_torch/csrc/knn_bucketed.cu",
+                          "deltaconv_tpu/ops/knn_bucketed.py:318"),
+    "knn_topk_bucketed_q": ("deltaconv_tpu_torch/csrc/knn_bucketed.cu",
+                            "deltaconv_tpu/ops/knn_bucketed.py:318"),
 }
 # The port's autograd Functions, whose forward or backward launches a
 # kernel outside any aten op (the profiler books it to them).
@@ -1114,6 +1174,7 @@ def kernel_phase(rng, dev, card):
     time_seg_kernels(res, *seg_cases["uniform"][:2], dev, card)
     del seg_cases, cases
     coef_kernel_phase(res, rng, dev, card)
+    shard_kernel_phase(res, rng, card)
     print(f"  (the JSON record gives each at its width: {RECORD_WIDTH}, "
           f"gather_max_affine at C=128, gather_matmul_max, "
           f"gather_matmul_max_win and gather_matmul_max_int8 at "
@@ -1353,9 +1414,10 @@ def apply_times(clouds, dev, card):
           + f"; card: {card}")
 
 
-def random_seg_model(seed, dev, knn_method="exact"):
+def random_seg_model(seed, dev, knn_method="exact", dense_operators=True):
     """The ShapeNet segmentation config with seeded weights and
-    randomized BatchNorm statistics, scales (both signs) and biases."""
+    randomized BatchNorm statistics, scales (both signs) and biases;
+    ``dense_operators=False``: the coefficient form (the same weights)."""
     from deltaconv_tpu_torch import DeltaNetSegmentation
     from deltaconv_tpu_torch.nn import BatchNorm
 
@@ -1363,7 +1425,7 @@ def random_seg_model(seed, dev, knn_method="exact"):
     model = DeltaNetSegmentation(
         num_classes=SEG_CLASSES, conv_channels=(64, 128, 256), mlp_depth=2,
         categorical_vector=True, num_neighbors=SEG_K, knn_method=knn_method,
-        generator=gen)
+        dense_operators=dense_operators, generator=gen)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, BatchNorm):
@@ -2289,6 +2351,405 @@ def train_large_phase(rng, seed, dev, card):
     return counts
 
 
+def knn_library(pos_q, pos_t, k, row_offset=0, point_mask=None,
+                row_chunk=1024):
+    """The library call of the table kNN: per chunk of query rows, the
+    score block by ``torch.matmul`` (full f32) and ``torch.topk`` of K + 1
+    columns, the self column pinned, masked ones at -2e30. Returns the K
+    ids and the gap between the K-th and (K+1)-th scores."""
+    sqt = (pos_t * pos_t).sum(-1)
+    cols = torch.arange(pos_t.shape[0], device=pos_t.device)
+    ids, gaps = [], []
+    for start in range(0, pos_q.shape[0], row_chunk):
+        q = pos_q[start:start + row_chunk]
+        s = (2.0 * torch.matmul(q, pos_t.T) - (q * q).sum(-1, keepdim=True)
+             - sqt)
+        rows = row_offset + start + torch.arange(q.shape[0],
+                                                 device=q.device)
+        s = torch.where(rows[:, None] == cols, 2e30, s)
+        if point_mask is not None:
+            s = torch.where(point_mask, s, -2e30)
+        v, i = torch.topk(s, k + 1, dim=-1)
+        ids.append(i[:, :k])
+        gaps.append(v[:, k - 1] - v[:, k])
+    return torch.cat(ids), torch.cat(gaps)
+
+
+def same_winner_sets(label, got, pos_q, pos_t, k, row_offset=0,
+                     point_mask=None, rows=None):
+    """Winner sets of an exact kNN equal to the library call's on the
+    query ``rows`` (default all), except on rows whose K-th and (K+1)-th
+    library scores lie within SHARD_TIE_REL x (1 + |q|^2) of each other
+    (the matmul rounds the scores otherwise than the kernels' elementwise
+    FMAs)."""
+    lib, gap = knn_library(pos_q, pos_t, k, row_offset, point_mask)
+    tie = gap <= SHARD_TIE_REL * (1.0 + (pos_q * pos_q).sum(-1))
+    same = (torch.sort(got.long(), 1).values
+            == torch.sort(lib, 1).values).all(1)
+    held = ~tie if rows is None else ~tie & rows
+    bad = int((~same & held).sum())
+    check(f"{label}: winner sets vs chunked matmul + topk", bad == 0,
+          f"{bad} of {int(held.sum())} rows differ ({int(tie.sum())} "
+          f"near-tie rows exempt, {int((~same).sum())} differ in all)")
+
+
+def shard_cloud(rng, n, masked=False, shift=0.0):
+    """One surface cloud on the card (an ellipsoid with its normals); a
+    point mask hiding SHARD_MASK_FRAC of it when ``masked``."""
+    (pos,), (nrm,) = ellipsoid_clouds(rng, [n])
+    pos = torch.from_numpy(pos + np.float32(shift)).cuda()
+    pm = None
+    if masked:
+        pm = torch.from_numpy(rng.random(n) >= SHARD_MASK_FRAC).cuda()
+    return pos, torch.from_numpy(nrm).cuda(), pm
+
+
+def shard_kernel_phase(res, rng, card):
+    """[kernels] of the point-sharded path at its shapes: knn_topk_table
+    (exact and quantized) at Nq = Nt = 8192 (K=20 and the segmentation
+    slice's K=30) and in its repair form (2048 row_ids against 65,536
+    columns), knn_topk_bucketed (exact and quantized) at N=65,536, K=20,
+    uniform, masked, and 100 units from the origin: ids equal to the
+    plain versions; exact winner sets equal to the library call's; the
+    table-form build's gather_rows and wls at the bench cloud's shapes.
+    Then times, bounds and library times at the uniform shapes."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import build_tangent_basis
+    from deltaconv_tpu_torch.ops import knn_bucketed as kb
+    from deltaconv_tpu_torch.ops.wls_fused import build_grad_div_tables
+
+    def record(name, got, want):
+        err = float((got.long() - want.long()).abs().max())
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        return err
+
+    print(f"[kernels] point-shard shapes: table Nq = Nt = {SHARD_TABLE_N}, "
+          f"repair {SHARD_REPAIR_ROWS} x {SHARD_N}, bucketed N={SHARD_N}",
+          flush=True)
+    for masked in (False, True):
+        pos, _, pm = shard_cloud(rng, SHARD_TABLE_N, masked)
+        for quantized in (False, True):
+            name = "knn_topk_table_q" if quantized else "knn_topk_table"
+            for k in (K, SEG_K):
+                got = ops.knn_topk_table(pos, pos, k, 0, pm,
+                                         quantized=quantized)
+                want = ops.knn_topk_table_plain(pos, pos, k, 0, pm,
+                                                quantized=quantized)
+                err = record(name, got, want)
+                check(f"{name} K={k} masked={masked}",
+                      torch.equal(got, want), f"ids equal, max |diff| {err}")
+                if not quantized:
+                    same_winner_sets(f"{name} K={k} masked={masked}", got,
+                                     pos, pos, k, 0, pm)
+    pos, _, pm = shard_cloud(rng, SHARD_N, masked=True)
+    rows = torch.randperm(SHARD_N, device=pos.device)[:SHARD_REPAIR_ROWS]
+    rows = rows.int()
+    got = ops.knn_topk_table(pos[rows.long()], pos, K, point_mask=pm,
+                             row_ids=rows)
+    want = ops.knn_topk_table_plain(pos[rows.long()], pos, K, point_mask=pm,
+                                    row_ids=rows)
+    err = record("knn_topk_table", got, want)
+    check("knn_topk_table repair form", torch.equal(got, want),
+          f"ids equal, max |diff| {err}")
+
+    clouds = {"uniform": shard_cloud(rng, SHARD_N),
+              "masked": shard_cloud(rng, SHARD_N, masked=True),
+              "shifted": shard_cloud(rng, SHARD_N, shift=SHARD_SHIFT)}
+    for label, (pos, _, pm) in clouds.items():
+        for quantized in (False, True):
+            name = "knn_topk_bucketed_q" if quantized else "knn_topk_bucketed"
+            got = ops.knn_topk_bucketed(pos, pos, K, 0, pm,
+                                        quantized=quantized)
+            branch = dict(kb.last_branch)
+            want = ops.knn_topk_bucketed_plain(pos, pos, K, 0, pm,
+                                               quantized=quantized)
+            err = record(name, got, want)
+            check(f"{name} {label}", torch.equal(got, want),
+                  f"ids equal, max |diff| {err}; exact mode's branch "
+                  f"{branch or '-'}")
+            if quantized:
+                continue
+            if label == "shifted":
+                # f32 cannot resolve these neighbours: the reference is the
+                # exact table kernel's (elementwise) scores, not a matmul.
+                full = ops.knn_topk_table(pos, pos, K, point_mask=pm)
+                same = (torch.sort(got.long(), 1).values
+                        == torch.sort(full.long(), 1).values).all(1)
+                check(f"{name} {label}: winner sets vs the exact table kNN",
+                      bool(same.all()), f"{int((~same).sum())} rows differ")
+            else:
+                # A masked query row keeps its own column in slot 0 here
+                # (the library's masks it): valid rows only.
+                same_winner_sets(f"{name} {label}", got, pos, pos, K, 0, pm,
+                                 pm)
+    # The table-form build's gather and WLS solve at the bench cloud's
+    # shapes ([1, 65536, 9] table, K=20), on its quantized graph.
+    pos, nrm, _ = clouds["uniform"]
+    idx = ops.knn_topk_bucketed(pos, pos, K, quantized=True)[None]
+    xb, yb = build_tangent_basis(nrm)
+    table = torch.cat([pos, xb, yb], dim=-1)[None]
+    got = ops.gather_rows(table, idx)
+    want = ops.gather_rows_plain(table, idx)
+    err = max_err(got, want)
+    res["gather_rows"]["max_abs_err"] = max(res["gather_rows"]["max_abs_err"],
+                                            err)
+    check(f"gather_rows [1, {SHARD_N}, 9] K={K}", torch.equal(got, want),
+          f"max_abs_err {err}")
+    centres = (pos[None], nrm[None], xb[None], yb[None], idx,
+               torch.ones(idx.shape, dtype=torch.bool, device=pos.device))
+    gd_k = build_grad_div_tables(table, *centres)
+    gd_p = build_grad_div_tables(table, *centres, ops=ops.PLAIN_OPS)
+    err = max(max_err(gd_k.grad_coef, gd_p.grad_coef),
+              max_err(gd_k.div_coef, gd_p.div_coef))
+    res["wls"]["max_abs_err"] = max(res["wls"]["max_abs_err"], err)
+    check(f"wls, the table-form build at N={SHARD_N}", err <= WLS_ATOL,
+          f"max_abs_err {err} <= {WLS_ATOL}")
+    torch.cuda.synchronize()
+
+    print(f"[times] point-shard shapes, median of {SHARD_REPS} CUDA-event "
+          f"samples of {INNER} calls, card: {card}")
+    pos, _, _ = clouds["uniform"]
+    tab = pos[:SHARD_TABLE_N].contiguous()
+    lib_table = (lambda: knn_library(tab, tab, K))
+    lib_ms = median_ms(lib_table, SHARD_REPS)
+    for quantized in (False, True):
+        name = "knn_topk_table_q" if quantized else "knn_topk_table"
+        km = median_ms(lambda: ops.knn_topk_table(tab, tab, K,
+                                                  quantized=quantized),
+                       SHARD_REPS)
+        pm_ = median_ms(lambda: ops.knn_topk_table_plain(
+            tab, tab, K, quantized=quantized), SHARD_REPS)
+        idx = ops.knn_topk_table(tab, tab, K, quantized=quantized)
+        bd = bound(nbytes(tab, tab, idx), float(SHARD_TABLE_N) ** 2
+                   * (KNN_INSTR_PER_PAIR if quantized else TABLE_INSTR),
+                   ISSUE_PER_S)
+        res[name].update(ms=km, plain_ms=pm_, library_ms=lib_ms, bound=bd)
+        print(f"  {name} {SHARD_TABLE_N} x {SHARD_TABLE_N} K={K}: kernel "
+              f"{km:.4f} ms, plain {pm_:.4f} ms, library {lib_ms:.4f} ms, "
+              f"bound {bd[0]:.4f} ms ({bd[1]})")
+    q_rows = pos[rows.long()]
+    km = median_ms(lambda: ops.knn_topk_table(q_rows, pos, K, row_ids=rows),
+                   SHARD_REPS)
+    lm = median_ms(lambda: knn_library(q_rows, pos, K), SHARD_REPS)
+    print(f"  knn_topk_table repair form {SHARD_REPAIR_ROWS} x {SHARD_N}: "
+          f"kernel {km:.4f} ms, library {lm:.4f} ms")
+
+    # The candidate sweep alone, on the inputs the bucketed kNN gives it.
+    for quantized in (False, True):
+        name = "knn_topk_bucketed_q" if quantized else "knn_topk_bucketed"
+        captured = {}
+
+        def spy(*args):
+            captured["args"] = args
+            return kb._cand_kernel(*args)
+
+        kb._bucketed(pos, pos, K, 0, None, 64, 256, 24 if quantized else 32,
+                     quantized, 2048, spy, ops.knn_topk_table)
+        args = captured["args"]
+        posq, sqq, srow, comb, perm, cand, ks, marker, _ = args
+        km = median_ms(lambda: kb._cand_kernel(*args), SHARD_REPS)
+        pm_ = median_ms(lambda: kb._cand_plain(*args), SHARD_REPS)
+
+        def lib_sweep():
+            """Gather the candidate planes, score them with one bmm, pin
+            self out, torch.topk."""
+            nqt, m = cand.shape
+            planes = comb[cand.long()].permute(0, 2, 1, 3).reshape(
+                nqt, 4, -1)
+            orig = perm.view(-1, comb.shape[-1])[cand.long()].reshape(
+                nqt, 1, -1)
+            q = posq.view(nqt, -1, 3)
+            qa = torch.cat([2.0 * q, -torch.ones_like(q[..., :1])], -1)
+            s = torch.bmm(qa, planes) - sqq.view(nqt, -1, 1)
+            s = torch.where(orig == srow.view(nqt, -1, 1), -3e38, s)
+            return torch.topk(s, ks, dim=-1)
+
+        lm = median_ms(lib_sweep, SHARD_REPS)
+        whole = median_ms(lambda: ops.knn_topk_bucketed(
+            pos, pos, K, quantized=quantized), SHARD_REPS)
+        idx, sc = kb._cand_kernel(*args)
+        pairs = float(posq.shape[0]) * cand.shape[1] * comb.shape[-1]
+        bd = bound(nbytes(posq, sqq, srow, comb, perm, cand, idx, sc),
+                   pairs * (KNN_INSTR_PER_PAIR if quantized else
+                            TABLE_INSTR), ISSUE_PER_S)
+        res[name].update(ms=km, plain_ms=pm_, library_ms=lm, bound=bd)
+        print(f"  {name} candidate sweep N={SHARD_N} K={K}, "
+              f"m={cand.shape[1]} buckets of {comb.shape[-1]}: kernel "
+              f"{km:.4f} ms, plain {pm_:.4f} ms, library (gather + bmm + "
+              f"topk) {lm:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}); the "
+              f"whole knn_topk_bucketed call {whole:.4f} ms")
+
+
+def shard_model(seed, dev, precision, knn_method):
+    """The bench.py --mode=point-shard model (the reference-width
+    classifier, coefficient operators) at ``precision``."""
+    model = random_model(seed, dev, knn_method=knn_method,
+                         dense_operators=False)
+    model.set_precision(precision, precision)
+    return model
+
+
+def serve_shard_phase(rng, seed, dev, card, precision):
+    """``InferenceEngine.predict_sharded`` of ONE 65,536-point cloud on one
+    card: bf16 with approximate kNN (the bench config: the quantized
+    bucketed kNN, once a forward) or f32 with exact kNN (the exact
+    bucketed kNN, and the table kNN when rows fail its certificate)."""
+    from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS, InferenceEngine,
+                                     launch_counts, reset_launch_counts)
+    from deltaconv_tpu_torch.ops import knn_bucketed as kb
+    from deltaconv_tpu_torch.parallel import point_sharded_classification
+
+    tag = "serve-shard-bf16" if precision else "serve-shard-f32"
+    knn_method = "approx" if precision else "exact"
+    model = shard_model(seed, dev, None, knn_method)
+    kw = dict(num_points=SHARD_N, batch_size=1)
+    engine = InferenceEngine(model, precision=precision, **kw)
+    plain = InferenceEngine(model, precision=precision, ops=PLAIN_OPS, **kw)
+    (cloud,), (normal,) = ellipsoid_clouds(rng, [SHARD_N])
+    engine.predict_sharded(cloud, normal)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    times, branches = [], []
+    for _ in range(SHARD_CALLS):
+        t0 = time.perf_counter()
+        got = engine.predict_sharded(cloud, normal)
+        times.append(time.perf_counter() - t0)
+        branches.append(dict(kb.last_branch))
+    counts = launch_counts()
+    path = SHARD_BF16_KERNELS if precision else SHARD_F32_KERNELS
+    print(f"[{tag}] launches during {SHARD_CALLS} forwards: {counts}")
+    print(f"[{tag}] launches per forward: " + ", ".join(
+        f"{name} {counts[name] / SHARD_CALLS:g}" for name in path))
+    print(f"[{tag}] checks")
+    check("logits", got.shape == (NUM_CLASSES,)
+          and bool(np.isfinite(got).all()), f"shape {got.shape}")
+    for name in path:
+        check(f"{name} launched", counts[name] > 0, f"{counts[name]} launches")
+    if precision:
+        expect = {"knn_topk_bucketed_q": 1, "knn_topk_table": 0,
+                  "knn_topk_table_q": 0, "knn_topk_bucketed": 0}
+    else:
+        print(f"[{tag}] the exact bucketed kNN's certificate: {branches}")
+        repairs = sum(b.get("branch") in ("repair", "full")
+                      for b in branches)
+        expect = {"knn_topk_bucketed": 1, "knn_topk_bucketed_q": 0,
+                  "knn_topk_table": repairs / SHARD_CALLS}
+    for name, per in expect.items():
+        check(f"{name} {per:g} a forward",
+              counts[name] == per * SHARD_CALLS,
+              f"{counts[name]} launches in {SHARD_CALLS} forwards")
+    ref = plain.predict_sharded(cloud, normal)
+    if precision:
+        held_to("kernel vs plain path", got[None], ref[None], BF16_PATH_REL)
+        f32 = InferenceEngine(model, **kw).predict_sharded(cloud, normal)
+        held_to(f"{precision} vs the f32 sharded engine", got[None],
+                f32[None], BF16_REL)
+        # 60,000 real points padded to SHARD_N with a point mask, through
+        # point_sharded_classification, against the 60,000-point cloud.
+        n = SHARD_PAD_N
+        pos = torch.zeros((SHARD_N, 3), device=dev)
+        nrm = torch.zeros((SHARD_N, 3), device=dev)
+        nrm[:, 2] = 1.0
+        pos[:n] = torch.from_numpy(cloud[:n]).to(dev)
+        nrm[:n] = torch.from_numpy(normal[:n]).to(dev)
+        pm = torch.arange(SHARD_N, device=dev) < n
+        with torch.inference_mode():
+            padded = point_sharded_classification(
+                engine.model, pos, nrm, pm, None, KERNEL_OPS).float().cpu()
+        held_to(f"padded ({n} of {SHARD_N} points masked in) vs the "
+                f"{n}-point cloud", padded.numpy()[None],
+                engine.predict_sharded(cloud[:n], normal[:n])[None],
+                BF16_PATH_REL)
+    else:
+        held_abs("kernel vs plain", got[None], ref[None], LOGIT_ATOL)
+    t = float(np.median(times))
+    print(f"[{tag}] one cloud of N={SHARD_N} (K={K}, reference width, "
+          f"dense_operators=False, knn_method={knn_method}, precision="
+          f"{precision}): median {t * 1e3:.3f} ms per predict_sharded call, "
+          f"{SHARD_N / t:.0f} points/s (host clock, synchronised), card: "
+          f"{card}")
+    profile(tag, "one predict_sharded call",
+            lambda: engine.predict_sharded(cloud, normal), t * 1e3)
+    return counts
+
+
+def serve_shard_seg_phase(rng, seed, dev, card, precision):
+    """The ShapeNet model in coefficient form, ONE cloud of 8192 points with
+    a category through ``predict_sharded`` (the table kNN, once a
+    forward): bf16 against the plain path; f32 (exact kNN) against
+    ``InferenceEngine.predict`` of the same cloud."""
+    from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
+                                     launch_counts, reset_launch_counts)
+
+    tag = "serve-shard-seg" + ("-bf16" if precision else "-f32")
+    model = random_seg_model(seed, dev, "approx" if precision else "exact",
+                             dense_operators=False)
+    kw = dict(num_points=SHARD_SEG_N, batch_size=1)
+    engine = InferenceEngine(model, precision=precision, **kw)
+    (cloud,), (normal,) = ellipsoid_clouds(rng, [SHARD_SEG_N])
+    cat = int(rng.integers(0, 16))
+    engine.predict_sharded(cloud, normal, cat)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times = []
+    for _ in range(SHARD_CALLS):
+        t0 = time.perf_counter()
+        got = engine.predict_sharded(cloud, normal, cat)
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    name = "knn_topk_table_q" if precision else "knn_topk_table"
+    print(f"[{tag}] launches during {SHARD_CALLS} forwards: {counts}")
+    check("per-point logits", got.shape == (SHARD_SEG_N, SEG_CLASSES)
+          and bool(np.isfinite(got).all()), f"shape {got.shape}")
+    for kernel in (name, "gather_rows", "wls"):
+        check(f"{kernel} 1 a forward", counts[kernel] == SHARD_CALLS,
+              f"{counts[kernel]} launches in {SHARD_CALLS} forwards")
+    if precision:
+        ref = InferenceEngine(model, precision=precision, ops=PLAIN_OPS,
+                              **kw).predict_sharded(cloud, normal, cat)
+        held_to("kernel vs plain path", got, ref, BF16_PATH_REL, "points")
+    else:
+        ref = engine.predict([cloud], [normal], [cat])[0]
+        held_to("vs InferenceEngine.predict (coefficient form)", got, ref,
+                SHARD_SEG_REL, "points")
+    t = float(np.median(times))
+    print(f"[{tag}] one cloud of N={SHARD_SEG_N} (K={SEG_K}, ShapeNet "
+          f"config, dense_operators=False, precision={precision}): median "
+          f"{t * 1e3:.3f} ms per call, {SHARD_SEG_N / t:.0f} points/s (host "
+          f"clock, synchronised), card: {card}")
+    return counts
+
+
+def shard_nccl_phase(rng, seed, dev):
+    """One bench forward through an initialised 1-rank ``nccl`` group (a
+    FileStore under a temporary directory: no network) and with
+    ``group=None``: the same logits, bit for bit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deltaconv_tpu_torch import InferenceEngine
+
+    engine = InferenceEngine(shard_model(seed, dev, None, "approx"),
+                             num_points=SHARD_N, batch_size=1,
+                             precision="bfloat16")
+    (cloud,), (normal,) = ellipsoid_clouds(rng, [SHARD_N])
+    alone = engine.predict_sharded(cloud, normal)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1)
+        try:
+            grouped = engine.predict_sharded(cloud, normal,
+                                             group=dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+    check("[shard-nccl] 1-rank nccl group vs group=None",
+          np.array_equal(alone, grouped),
+          f"bit-equal logits, max |diff| {np.abs(alone - grouped).max()}")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2333,6 +2794,12 @@ def main():
     serve_large_f32 = serve_large_phase(large, args.seed, dev, card, None)
     coef_vs_dense_phase(clouds, args.seed, dev, card)
     train_large = train_large_phase(rng, args.seed, dev, card)
+    shard_bf16 = serve_shard_phase(rng, args.seed, dev, card, "bfloat16")
+    shard_f32 = serve_shard_phase(rng, args.seed, dev, card, None)
+    shard_seg = serve_shard_seg_phase(rng, args.seed, dev, card, None)
+    shard_seg_bf16 = serve_shard_seg_phase(rng, args.seed, dev, card,
+                                           "bfloat16")
+    shard_nccl_phase(rng, args.seed, dev)
 
     def launches(name):
         for path, counts in ((SERVE_KERNELS, serve),
@@ -2346,7 +2813,11 @@ def main():
                              (SEG_INT8_KERNELS, seg_int8),
                              (LARGE_KERNELS["bfloat16"], serve_large),
                              (LARGE_KERNELS[None], serve_large_f32),
-                             (TRAIN_LARGE_KERNELS, train_large)):
+                             (TRAIN_LARGE_KERNELS, train_large),
+                             (SHARD_BF16_KERNELS, shard_bf16),
+                             (SHARD_F32_KERNELS, shard_f32),
+                             (("knn_topk_table",), shard_seg),
+                             (("knn_topk_table_q",), shard_seg_bf16)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

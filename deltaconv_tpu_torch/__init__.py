@@ -1,7 +1,8 @@
 """deltaconv_tpu_torch: the DeltaConv serving paths (classification and
-segmentation, f32, and bf16 with approximate kNN) and the classification
-train step (f32 and bf16) in PyTorch, with hand-written CUDA kernels for
-NVIDIA Hopper (sm_90a).
+segmentation, f32, and bf16 with approximate kNN; one large cloud
+point-sharded, ``InferenceEngine.predict_sharded``) and the
+classification train step (f32 and bf16) in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``deltaconv_tpu`` (JAX, TPU), which stays the reference. This
 package imports neither JAX nor ``deltaconv_tpu``. Its kernels

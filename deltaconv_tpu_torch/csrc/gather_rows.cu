@@ -1,6 +1,8 @@
 // Component-major neighbour-table gather:
 //   out[b, c, k, n] = table[b, idx[b, n, k], c]
-// table [B, N, C] f32, idx [B, N, K] i32 -> out [B, C, K, N] f32.
+// table [B, Nt, C] f32, idx [B, N, K] i32 -> out [B, C, K, N] f32; the
+// table may be longer than the query rows (the point-sharded build
+// gathers a shard's neighbours from the whole cloud's table).
 //
 // Replaces the Pallas forward of deltaconv_tpu/ops/gather_rows.py
 // (`_fwd`, pallas_call at gather_rows.py:205; kernel bodies `_fwd_kernel`
@@ -14,7 +16,7 @@
 // of a warp is coalesced; it reads its index once and the C contiguous
 // floats of the neighbour's row. The table of one cloud (N * C * 4
 // bytes, 36 KB at N=1024, C=9) stays in L1/L2. An index outside
-// [0, N) gathers 0, as a one-hot row with no match does on the TPU.
+// [0, Nt) gathers 0, as a one-hot row with no match does on the TPU.
 //
 // Its transpose, the scatter of component-major edge rows:
 //   out[b, m, c] = sum over (n, k) with idx[b, n, k] == m of g[b, c, k, n]
@@ -41,15 +43,15 @@ namespace {
 
 __global__ void gather_rows_kernel(const float* __restrict__ table,
                                    const int* __restrict__ idx,
-                                   float* __restrict__ out, int N, int C,
-                                   int K) {
+                                   float* __restrict__ out, int N, int Nt,
+                                   int C, int K) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const int k = blockIdx.y;
   const long long b = blockIdx.z;
   if (n >= N) return;
   const int j = idx[(b * N + n) * K + k];
-  const bool ok = (unsigned)j < (unsigned)N;
-  const float* src = table + (b * N + (ok ? j : 0)) * C;
+  const bool ok = (unsigned)j < (unsigned)Nt;
+  const float* src = table + (b * Nt + (ok ? j : 0)) * C;
   float* dst = out + (b * C * K + k) * N + n;  // + c * K * N
   const long long stride = (long long)K * N;
   for (int c = 0; c < C; ++c) dst[c * stride] = ok ? src[c] : 0.0f;
@@ -92,14 +94,14 @@ __global__ void scatter_rows_kernel(const float* __restrict__ g,
 }  // namespace
 
 extern "C" int dc_gather_rows(const void* table, const void* idx, void* out,
-                              int B, int N, int C, int K, int device,
+                              int B, int N, int Nt, int C, int K, int device,
                               void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C * K == 0) return (int)cudaGetLastError();
   const int threads = 128;
   const dim3 grid((N + threads - 1) / threads, K, B);
   gather_rows_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)table, (const int*)idx, (float*)out, N, C, K);
+      (const float*)table, (const int*)idx, (float*)out, N, Nt, C, K);
   return (int)cudaGetLastError();
 }
 

@@ -144,22 +144,31 @@ class DeltaNetBase(nn.Module):
                 m.dtype = self.compute_dtype
 
     def forward(self, pos, normal=None, point_mask=None,
-                ops: Ops = KERNEL_OPS):
-        """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``."""
+                ops: Ops = KERNEL_OPS, operators=None):
+        """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``.
+        ``operators``: a prebuilt operator object (the point-sharded
+        forward's ``ShardedGradDiv``, eval only) in place of the build."""
         if (self.training and self.dense_operators
                 and self.operator_dtype == torch.int8):
             raise NotImplementedError(
                 "int8 operators serve only, as the JAX package's (eval; "
                 "the quantization has no gradient): call model.eval()")
-        # Positions carry no gradient on this path (the loss is
-        # differentiated for the parameters only), so the build keeps
-        # no autograd graph, in training as in eval.
-        with torch.no_grad():
-            gd = build_operators(pos, self.num_neighbors, normal,
-                                 point_mask, self.grad_kernel_width,
-                                 self.grad_regularizer, ops,
-                                 self.operator_dtype, self.knn_method,
-                                 self.dense_operators)
+        if operators is not None:
+            if self.training:
+                raise NotImplementedError(
+                    "prebuilt operators serve only (point-sharded training "
+                    "is not ported yet): call model.eval()")
+            gd = operators
+        else:
+            # Positions carry no gradient on this path (the loss is
+            # differentiated for the parameters only), so the build keeps
+            # no autograd graph, in training as in eval.
+            with torch.no_grad():
+                gd = build_operators(pos, self.num_neighbors, normal,
+                                     point_mask, self.grad_kernel_width,
+                                     self.grad_regularizer, ops,
+                                     self.operator_dtype, self.knn_method,
+                                     self.dense_operators)
         x = pos if self.compute_dtype is None else pos.to(self.compute_dtype)
         v = gd.grad(x)
         out = []

@@ -104,15 +104,20 @@ class DeltaNetClassification(nn.Module):
 
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                operators=None, group=None):
         """``pos``/``normal`` ``[B, N, 3]``, ``point_mask`` optional
         ``[B, N]`` bool -> logits ``[B, num_classes]``. ``ops`` selects
         the kernels (default) or their plain versions; ``generator``
-        (on the batch's device) draws the train-mode dropout masks."""
-        conv_out = self.deltanet_base(pos, normal, point_mask, ops)
+        (on the batch's device) draws the train-mode dropout masks.
+        ``operators`` and ``group``: the point-sharded forward's operator
+        object and process group (``parallel.point_sharding``); the pools
+        complete across the group's ranks."""
+        conv_out = self.deltanet_base(pos, normal, point_mask, ops,
+                                      operators)
         x = self.lin_embedding(torch.cat(conv_out, dim=-1), point_mask)
-        x = torch.cat([global_max_pool(x, point_mask),
-                       global_mean_pool(x, point_mask)], dim=-1)
+        x = torch.cat([global_max_pool(x, point_mask, group),
+                       global_mean_pool(x, point_mask, group)], dim=-1)
         mlp0, drop0, mlp1, drop1, out = self.classification_head
         x = drop0(mlp0(x), generator)
         x = drop1(mlp1(x), generator)

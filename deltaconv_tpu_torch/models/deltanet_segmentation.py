@@ -114,16 +114,21 @@ class DeltaNetSegmentation(nn.Module):
 
     def forward(self, pos, normal=None, point_mask=None, category=None,
                 ops: Ops = KERNEL_OPS,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                operators=None, group=None):
         """``pos``/``normal`` ``[B, N, 3]``, ``point_mask`` optional
         ``[B, N]`` bool, ``category`` ``[B, 16]`` one-hot (required when
         ``categorical_vector``) -> per-point logits ``[B, N,
         num_classes]`` f32. ``ops`` selects the kernels (default) or
-        their plain versions."""
-        conv_out = self.deltanet_base(pos, normal, point_mask, ops)
+        their plain versions; ``operators`` and ``group`` are the
+        point-sharded forward's (the global max pool completes across the
+        group's ranks)."""
+        conv_out = self.deltanet_base(pos, normal, point_mask, ops,
+                                      operators)
         x = self.lin_global(torch.cat(conv_out, dim=-1), point_mask)
         b, n = pos.shape[:2]
-        parts = [global_max_pool(x, point_mask)[:, None].expand(b, n, -1)]
+        parts = [global_max_pool(x, point_mask, group)[:, None].expand(
+            b, n, -1)]
         if self.lin_categorical is not None:
             if category is None:
                 raise ValueError(

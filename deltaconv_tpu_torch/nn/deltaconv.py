@@ -32,6 +32,14 @@ EdgeMaxMLP max and the PointMaxMLP per-point branch run ``gd.nbr_max``
 lane-narrower PointMaxMLP runs ``gd.nbr_matmul_max`` without the affine,
 then the epilogue. DeepMaxMLP keeps its fused kernel (it gathers bf16
 features, not the operators).
+
+The layers pick their route by what the operator object offers, as the
+JAX layers do with ``hasattr``: a point-sharded one
+(``parallel.ShardedGradDiv``) has neither ``nbr_max_affine`` nor
+``nbr_mlp_max``, so EdgeMaxMLP and PointMaxMLP take the int8 routes
+above, and DeepMaxMLP the unfused one (the edge tensor of the gathered
+rows, or the per-point MLP, then the masked max), which gathers from the
+whole cloud's table and so is right at any world size.
 """
 
 from __future__ import annotations
@@ -55,6 +63,13 @@ def _bn_affine(bn):
     (+1 at 0)."""
     inv = bn.inv()
     return torch.where(inv >= 0, 1.0, -1.0), inv, bn.running_mean, bn.bias
+
+
+def _fusible(gd) -> bool:
+    """Whether the eval epilogue may run inside the gather kernels: an
+    operator object with the affine kernels (a point-sharded one has
+    none) that is not on int8 operators (JAX's ``_epilogue_fusible``)."""
+    return not gd.int8 and hasattr(gd, "nbr_max_affine")
 
 
 def _masked_rows_to_zero(out, gd, dtype):
@@ -93,7 +108,7 @@ class EdgeMaxMLP(MLP):
         (None: every slot, as the reference's mask-free BatchNorm)."""
         lin, bn = self[0][0], self[0][1].bn
         y = linear(lin, x, self.dtype).float()
-        if self.dtype is not None and not self.training and not gd.int8:
+        if self.dtype is not None and not self.training and _fusible(gd):
             # bf16 eval: the whole epilogue, self-row subtract included,
             # in the gather_max_affine kernel.
             affine = _bn_affine(bn)
@@ -163,7 +178,7 @@ class PointMaxMLP(MLP):
         lin, bn = self[0][0], self[0][1].bn
         narrower = _pad128(lin.in_features) < _pad128(lin.out_features)
         if self.dtype is None or (
-                (self.training or gd.int8) and not narrower):
+                (self.training or not _fusible(gd)) and not narrower):
             return gd.nbr_max(super().forward(x, stats_mask))
         if self.training:
             y = linear(lin, x, self.dtype).float()
@@ -179,9 +194,9 @@ class PointMaxMLP(MLP):
         sign = affine[0]
         if narrower:
             wp = (lin.weight.t() * sign[None, :]).to(self.dtype).contiguous()
-            if not gd.int8:
+            if _fusible(gd):
                 return gd.nbr_matmul_max(x.to(self.dtype), wp, affine)
-            # int8: the quantized matmul max, then the epilogue.
+            # int8 or point-sharded: the matmul max, then the epilogue.
             _, inv, mean, bias = affine
             mxp = gd.nbr_matmul_max(x.to(self.dtype), wp)
             out = leaky_relu02((sign * mxp.float() - mean) * inv + bias)
@@ -224,7 +239,7 @@ class DeepMaxMLP(MLP):
         if self.dtype is not None:
             x = x.to(self.dtype)
         c_out = self[-1][0].out_features
-        if self.dtype is not None and (
+        if self.dtype is not None and hasattr(gd, "nbr_mlp_max") and (
                 self.centralized or _pad128(x.shape[-1]) < _pad128(c_out)):
             return self._fused(x, gd)
         if not self.centralized:

@@ -1,11 +1,11 @@
 """The hand-written CUDA kernels of the serving paths (classification and
-segmentation; f32, bf16 and int8; dense or coefficient-form operators)
-and the train steps (f32 and bf16), each beside its plain PyTorch
-version.
+segmentation; f32, bf16 and int8; dense or coefficient-form operators;
+one large cloud point-sharded) and the train steps (f32 and bf16), each
+beside its plain PyTorch version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the fifteen functions the models call so
+and :data:`PLAIN_OPS` bundle the seventeen functions the models call so
 that a caller can run a forward, or a whole train step, through the
 kernels or through the plain versions on the same device, which is how
 the kernel path is checked on the card; a plain entry is differentiated
@@ -42,7 +42,9 @@ from .gather_rows import (gather_rows, gather_rows_plain, scatter_rows,
 from .gather_sum import (adjacency, adjacency_plain, gather_sum,
                          gather_sum_bwd, gather_sum_bwd_plain, gather_sum_fwd,
                          gather_sum_fwd_plain, gather_sum_plain)
-from .knn_topk import knn_topk, knn_topk_plain
+from .knn_bucketed import knn_topk_bucketed, knn_topk_bucketed_plain
+from .knn_topk import (knn_topk, knn_topk_plain, knn_topk_table,
+                       knn_topk_table_plain)
 from .wls_fused import build_grad_div_fused, wls, wls_plain
 
 __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
@@ -62,14 +64,16 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "gather_rows", "gather_rows_plain",
            "gather_sum", "gather_sum_bwd", "gather_sum_bwd_plain",
            "gather_sum_fwd", "gather_sum_fwd_plain", "gather_sum_plain",
-           "int8_quantize", "knn_topk", "knn_topk_plain", "launch_counts",
+           "int8_quantize", "knn_topk", "knn_topk_bucketed",
+           "knn_topk_bucketed_plain", "knn_topk_plain", "knn_topk_table",
+           "knn_topk_table_plain", "launch_counts",
            "library",
            "masked_nbr_max", "mlp_chain", "reset_launch_counts",
            "scatter_rows", "scatter_rows_plain", "wls", "wls_plain"]
 
 
 class Ops(NamedTuple):
-    """The fifteen kernel-backed functions the models call."""
+    """The seventeen kernel-backed functions the models call."""
 
     gather_rows: Callable
     wls: Callable
@@ -86,17 +90,20 @@ class Ops(NamedTuple):
     gather_matmul_max_int8: Callable
     coef_apply_grad: Callable
     coef_apply_div: Callable
+    knn_topk_table: Callable
+    knn_topk_bucketed: Callable
 
 
 KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
                  knn_topk, gather_max_affine, gather_matmul_max,
                  gather_matmul_max_train, gather_mlp_max, densify_coefs_int8,
                  gather_max_int8, gather_matmul_max_int8, coef_apply_grad,
-                 coef_apply_div)
+                 coef_apply_div, knn_topk_table, knn_topk_bucketed)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_max_plain, gather_sum_plain, knn_topk_plain,
                 gather_max_affine_plain, gather_matmul_max_plain,
                 gather_matmul_max_train_plain, gather_mlp_max_plain,
                 densify_coefs_int8_plain, gather_max_int8_plain,
                 gather_matmul_max_int8_plain, coef_apply_grad_plain,
-                coef_apply_div_plain)
+                coef_apply_div_plain, knn_topk_table_plain,
+                knn_topk_bucketed_plain)

@@ -43,7 +43,7 @@ _F = ctypes.c_float
 # kernel name -> (C entry point, argument types before the trailing
 # device index and stream).
 _KERNELS = {
-    "gather_rows": ("dc_gather_rows", [_P, _P, _P, _I, _I, _I, _I]),
+    "gather_rows": ("dc_gather_rows", [_P, _P, _P, _I, _I, _I, _I, _I]),
     "wls": ("dc_wls", [_P, _P, _P, _I, _I, _I, _F, _F]),
     "densify": ("dc_densify", [_P, _P, _P, _P, _P, _I, _I, _I]),
     "densify_bf16": ("dc_densify_bf16", [_P, _P, _P, _P, _P, _I, _I, _I]),
@@ -76,6 +76,10 @@ _KERNELS = {
     "scatter_rows": ("dc_scatter_rows", [_P] * 3 + [_I] * 5),
     "coef_apply_grad": ("dc_coef_apply_grad", [_P] * 4 + [_I] * 5),
     "coef_apply_div": ("dc_coef_apply_div", [_P] * 4 + [_I] * 5),
+    "knn_topk_table": ("dc_knn_topk_table", [_P] * 5 + [_I] * 4),
+    "knn_topk_table_q": ("dc_knn_topk_table_q", [_P] * 5 + [_I] * 4),
+    "knn_topk_bucketed": ("dc_knn_topk_bucketed", [_P] * 8 + [_I] * 6),
+    "knn_topk_bucketed_q": ("dc_knn_topk_bucketed_q", [_P] * 8 + [_I] * 6),
 }
 
 # Why a raw kernel takes no tensor that requires grad: the operator
@@ -92,6 +96,10 @@ _NO_GRAD = {
     "densify": "its backward (`_densify_bwd`, site #6 of ROADMAP queue 2) "
                "is not ported yet",
     "knn_topk": "kNN indices carry no gradient",
+    "knn_topk_table": "kNN indices carry no gradient",
+    "knn_topk_table_q": "kNN indices carry no gradient",
+    "knn_topk_bucketed": "kNN indices carry no gradient",
+    "knn_topk_bucketed_q": "kNN indices carry no gradient",
     "gather_max_affine": _BF16_EVAL,
     "gather_matmul_max": _BF16_EVAL,
     "gather_mlp_max": "it is the eval form (forward only, as the JAX "

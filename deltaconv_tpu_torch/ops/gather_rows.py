@@ -1,9 +1,11 @@
 """Component-major neighbour-table gather and its transpose, the edge-row
 scatter (CUDA kernels + plain versions).
 
-``gather_rows(table, idx)``: ``[B, N, C], [B, N, K] -> [B, C, K, N]``
+``gather_rows(table, idx)``: ``[B, Nt, C], [B, N, K] -> [B, C, K, N]``
 with ``out[b, c, k, n] = table[b, idx[b, n, k], c]``, the layout the
-edge-plane math of the operator build (:mod:`.wls_fused`) works on.
+edge-plane math of the operator build (:mod:`.wls_fused`) works on. The
+table may be longer than the query rows (``Nt != N``): the point-sharded
+build gathers a shard's neighbours from the whole cloud's table.
 Differentiable in ``table`` (f32), as the JAX ``custom_vjp`` is: the
 backward is :func:`scatter_rows`.
 
@@ -31,8 +33,8 @@ __all__ = ["gather_rows", "gather_rows_plain", "scatter_rows",
 
 
 def _gather_plain(table, idx):
-    b, n, c = table.shape
-    k = idx.shape[-1]
+    b, _, c = table.shape
+    n, k = idx.shape[1:]
     flat = idx.reshape(b, n * k, 1).long().expand(b, n * k, c)
     rows = torch.gather(table, 1, flat).reshape(b, n, k, c)
     return rows.permute(0, 3, 2, 1).contiguous()
@@ -41,15 +43,15 @@ def _gather_plain(table, idx):
 def _gather_kernel(table, idx):
     if table.device.type == "cpu":
         return _gather_plain(table, idx)
-    b, n, c = table.shape
-    k = idx.shape[-1]
+    b, n_t, c = table.shape
+    n, k = idx.shape[1:]
     device = _lib.check_inputs("gather_rows", [
-        ("table", table, torch.float32, (b, n, c)),
+        ("table", table, torch.float32, (b, n_t, c)),
         ("idx", idx, torch.int32, (b, n, k)),
     ])
     out = torch.empty((b, c, k, n), dtype=torch.float32, device=device)
     _lib.launch("gather_rows", device, table.data_ptr(), idx.data_ptr(),
-                out.data_ptr(), b, n, c, k)
+                out.data_ptr(), b, n, n_t, c, k)
     return out
 
 

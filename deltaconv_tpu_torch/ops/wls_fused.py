@@ -8,7 +8,11 @@ runs as ONE kernel (``csrc/wls.cu``) over twelve ``[B, K, N]`` edge
 planes. The planes come from one gathered ``[B, N, 9]`` neighbour table
 (:func:`~.gather_rows.gather_rows`) and plain elementwise math; the
 per-cloud infinity-norm normalization is a plain epilogue that scales
-grad and div by the same scalar.
+grad and div by the same scalar. :func:`build_grad_div_tables` is the
+table form (JAX's ``build_grad_div_tables``): the centre rows of one
+shard against the whole cloud's table, with hooks that complete the
+mean edge length and the infinity norm across the ranks of a
+point-sharded cloud.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from ..geometry.grad_div import GradDiv
 from . import _lib
 from .gather_rows import gather_rows
 
-__all__ = ["build_grad_div_fused", "edge_planes", "wls", "wls_plain"]
+__all__ = ["build_grad_div_fused", "build_grad_div_tables", "edge_planes",
+           "edge_planes_tables", "wls", "wls_plain"]
 
 _EPS = 1e-5
 
@@ -131,14 +136,17 @@ def wls(edges, kernel_width: float, regularizer: float):
     return g, d
 
 
-def edge_planes(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask, pm,
-                gather_rows_fn=gather_rows):
+def edge_planes_tables(table, pc, nc, xc, yc, nbr_idx, nbr_mask, pm,
+                       gather_rows_fn=gather_rows, avg_reduce=None):
     """The twelve ``[B, K, N]`` edge planes of the WLS kernel, stacked
-    ``[B, 12, K, N]``: one gather of the ``[B, N, 9]`` neighbour table
-    (positions and frames), then elementwise math."""
-    b, n, _ = pos.shape
+    ``[B, 12, K, N]``, from a neighbour table ``[B, Nt, 9]`` (positions
+    and frames; ``nbr_idx [B, N, K]`` indexes it) and the centre rows
+    ``pc, nc, xc, yc [B, N, 3]``: one gather, then elementwise math.
+    ``pm [B, N]`` f32 marks the valid centres; ``avg_reduce(sum, count)``
+    completes the per-cloud mean edge length (default: ``sum / count``,
+    the point-sharded build sums both over the ranks first)."""
+    b, n, _ = pc.shape
     k = nbr_idx.shape[-1]
-    table = torch.cat([pos, x_basis, y_basis], dim=-1)
     comp = gather_rows_fn(table, nbr_idx)  # [B, 9, K, N]
     gx, gy, gz = comp[:, 0], comp[:, 1], comp[:, 2]  # neighbour pos
     xgx, xgy, xgz = comp[:, 3], comp[:, 4], comp[:, 5]  # neighbour xb
@@ -147,10 +155,10 @@ def edge_planes(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask, pm,
     def ctr(a):  # centre-point components, broadcast over K
         return a[..., 0][:, None], a[..., 1][:, None], a[..., 2][:, None]
 
-    px, py, pz = ctr(pos)
-    nx, ny, nz = ctr(normal)
-    xbx, xby, xbz = ctr(x_basis)
-    ybx, yby, ybz = ctr(y_basis)
+    px, py, pz = ctr(pc)
+    nx, ny, nz = ctr(nc)
+    xbx, xby, xbz = ctr(xc)
+    ybx, yby, ybz = ctr(yc)
 
     ox, oy, oz = gx - px, gy - py, gz - pz  # edge offsets [B, K, N]
     sq = ox * ox + oy * oy + oz * oz
@@ -164,7 +172,9 @@ def edge_planes(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask, pm,
     # Per-cloud mean of per-point mean edge lengths.
     cnt = torch.clamp(emk.sum(dim=1), min=1.0)
     point_mean = (dist * emk).sum(dim=1) / cnt  # [B, N]
-    avg = (point_mean * pm).sum(dim=1) / torch.clamp(pm.sum(dim=1), min=1.0)
+    total, count = (point_mean * pm).sum(dim=1), pm.sum(dim=1)
+    avg = (total / torch.clamp(count, min=1.0) if avg_reduce is None
+           else avg_reduce(total, count))
 
     return torch.stack([
         u, v, dist, patch, emk,
@@ -176,6 +186,57 @@ def edge_planes(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask, pm,
         nx * ygx + ny * ygy + nz * ygz,     # n_i . yb_j
         avg[:, None, None].expand(b, k, n),
     ], dim=1)
+
+
+def edge_planes(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask, pm,
+                gather_rows_fn=gather_rows):
+    """:func:`edge_planes_tables` of one batch of clouds, whose points are
+    both the table and the centres."""
+    table = torch.cat([pos, x_basis, y_basis], dim=-1)
+    return edge_planes_tables(table, pos, normal, x_basis, y_basis, nbr_idx,
+                              nbr_mask, pm, gather_rows_fn)
+
+
+def build_grad_div_tables(table, pc, nc, xc, yc, nbr_idx, nbr_mask,
+                          point_mask=None, kernel_width: float = 1.0,
+                          regularizer: float = 0.001, avg_reduce=None,
+                          max_reduce=None, ops=None) -> GradDiv:
+    """The operators of the centre rows ``pc, nc, xc, yc [B, N, 3]`` whose
+    neighbours ``nbr_idx [B, N, K]`` index ``table [B, Nt, 9]`` (the
+    positions and frames of the whole cloud): the counterpart of JAX's
+    ``build_grad_div_tables``, on the port's kernels. ``point_mask [B,
+    N]`` marks the valid centres; ``avg_reduce(sum, count)`` completes
+    the mean edge length and ``max_reduce`` the infinity norm across the
+    ranks of a point-sharded cloud. The returned :class:`GradDiv` keeps
+    index 0 on its masked slots (JAX's convention), so filler columns
+    beyond the table never reach a gather."""
+    if ops is None:
+        from . import KERNEL_OPS as ops
+    if point_mask is not None:
+        nbr_mask = nbr_mask & point_mask[:, :, None]
+    nbr_idx = torch.where(nbr_mask, nbr_idx, 0).to(torch.int32)
+    pm = nbr_mask.any(dim=2).to(torch.float32)
+    edges = edge_planes_tables(table, pc, nc, xc, yc, nbr_idx, nbr_mask, pm,
+                               ops.gather_rows, avg_reduce)
+    g, d = ops.wls(edges, kernel_width, regularizer)
+    return _normalized(g, d, nbr_idx, nbr_mask, pm, max_reduce, ops)
+
+
+def _normalized(g, d, nbr_idx, nbr_mask, pm, max_reduce, ops) -> GradDiv:
+    """``[B, 2, K, N]`` coefficients -> :class:`GradDiv` ``[B, N, K, 2]``,
+    divided by the per-cloud infinity norm of grad (div scales with it:
+    it is linear in the grad row)."""
+    g = g.permute(0, 3, 2, 1)
+    d = d.permute(0, 3, 2, 1)
+    row_norm = torch.linalg.vector_norm(g.abs().sum(dim=2), dim=-1) * pm
+    inf_norm = row_norm.amax(dim=1)  # [B]
+    if max_reduce is not None:
+        inf_norm = max_reduce(inf_norm)
+    scale = torch.where(inf_norm > 1e-5, 1.0 / inf_norm, 1.0)
+    scale = scale[:, None, None, None]
+    return GradDiv(nbr_idx=nbr_idx, nbr_mask=nbr_mask,
+                   grad_coef=(g * scale).contiguous(),
+                   div_coef=(d * scale).contiguous(), ops=ops)
 
 
 def build_grad_div_fused(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask,
@@ -192,16 +253,4 @@ def build_grad_div_fused(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask,
     edges = edge_planes(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask,
                         pm, ops.gather_rows)
     g, d = ops.wls(edges, kernel_width, regularizer)
-    # [B, 2, K, N] -> [B, N, K, 2]
-    g = g.permute(0, 3, 2, 1)
-    d = d.permute(0, 3, 2, 1)
-
-    # Per-cloud infinity norm of grad; div scales identically (it is
-    # linear in the grad row).
-    row_norm = torch.linalg.vector_norm(g.abs().sum(dim=2), dim=-1) * pm
-    inf_norm = row_norm.amax(dim=1)  # [B]
-    scale = torch.where(inf_norm > 1e-5, 1.0 / inf_norm, 1.0)
-    scale = scale[:, None, None, None]
-    return GradDiv(nbr_idx=nbr_idx, nbr_mask=nbr_mask,
-                   grad_coef=(g * scale).contiguous(),
-                   div_coef=(d * scale).contiguous(), ops=ops)
+    return _normalized(g, d, nbr_idx, nbr_mask, pm, None, ops)

@@ -40,6 +40,16 @@ model built with ``dense_operators=False``, at any precision but int8::
 (bf16 compute, int8 operators quantized per cloud, the neighbour maxes in
 the quantized domain): an accuracy-changing form, held to 0.05 x
 max|logit| of the f32 engine.
+
+ONE cloud too large for a batch serves point-sharded
+(:meth:`InferenceEngine.predict_sharded`, ``bench.py --mode=point-shard``:
+65,536 points on one card), from a model with ``dense_operators=False``::
+
+    model = DeltaNetClassification(num_classes=40, dense_operators=False,
+                                   knn_method="approx")
+    engine = InferenceEngine(model, num_points=65536, batch_size=1,
+                             precision="bfloat16")
+    logits = engine.predict_sharded(cloud, normal)   # [40] f32
 """
 
 from __future__ import annotations
@@ -52,6 +62,8 @@ import torch
 
 from .models.deltanet_segmentation import NUM_CATEGORIES
 from .ops import KERNEL_OPS, Ops
+from .parallel import (all_gather, pad_cloud, point_sharded_classification,
+                       point_sharded_segmentation, rank_and_size, shard_rows)
 from .utils.device import resolve_device
 
 __all__ = ["InferenceEngine", "apply_precision"]
@@ -210,3 +222,45 @@ class InferenceEngine:
         if logits.ndim == 3:  # segmentation: trim the padding per cloud
             return [logits[i, :n] for i, n in enumerate(sizes)]
         return logits
+
+    def predict_sharded(self, cloud, normal=None, category=None,
+                        group=None):
+        """Serves ONE cloud ``[N, 3]`` (with ``normal [N, 3]``) spread over
+        the ranks of ``group`` (``parallel.point_sharding``; None: this
+        process alone). Every rank passes the whole cloud: it is padded to
+        a multiple of the group's size (a point mask hides the padding),
+        each rank builds the operators of its row block and runs the conv
+        stack on it, and the gathers and pools complete with collectives.
+        ``num_points`` and ``batch_size`` do not apply. ``category``: the
+        cloud's object category, for a segmentation model with
+        ``categorical_vector=True``. Returns ``[num_classes]`` f32 logits
+        (classification) or the per-point ``[N, num_classes]``
+        (segmentation), the same on every rank. int8 has no point-sharded
+        form (its operators are dense)."""
+        if self.model.operator_dtype == torch.int8:
+            raise ValueError(
+                "predict_sharded has no int8 form (the point-sharded path "
+                "uses coefficient operators); serve sharded at "
+                "precision=None/float32/bfloat16")
+        _, size = rank_and_size(group)
+        pos = torch.as_tensor(np.asarray(cloud, np.float32))
+        n = pos.shape[0]
+        nrm = (None if normal is None
+               else torch.as_tensor(np.asarray(normal, np.float32)))
+        pos, nrm, pm = pad_cloud(pos, size, nrm)
+
+        def local(t):
+            return None if t is None else shard_rows(t, group).to(
+                self.device)
+
+        pos, nrm, pm = local(pos), local(nrm), local(pm)
+        with torch.inference_mode():
+            if hasattr(self.model, "segmentation_head"):
+                cat = (None if category is None else torch.from_numpy(
+                    _encode_category(category)).to(self.device))
+                out = all_gather(point_sharded_segmentation(
+                    self.model, pos, nrm, pm, cat, group, self.ops), group)
+                return out[:n].float().cpu().numpy()
+            out = point_sharded_classification(self.model, pos, nrm, pm,
+                                               group, self.ops)
+        return out.float().cpu().numpy()

@@ -1105,3 +1105,136 @@ def test_coef_model_kernels_match_plain(cuda, compute_dtype):
                                                                  normals)
     np.testing.assert_allclose(got, want, rtol=0, atol=(
         1e-4 if f32 else 1e-2) * float(np.abs(want).max()))
+
+
+# -- point-sharded serving: the table and bucketed kNN ----------------------
+
+
+def _surface(rng, n, dev, shift=0.0):
+    pos, _ = _cloud_batch(rng, 1, n, dev)
+    return pos[0] + shift
+
+
+def test_gather_rows_kernel_longer_table(cuda):
+    """A table longer than the query rows (the sharded build's)."""
+    rng = np.random.default_rng(60)
+    table = torch.from_numpy(
+        rng.standard_normal((1, 300, 9)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(
+        rng.integers(0, 300, (1, 77, 10)).astype(np.int32)).to(cuda)
+    got = ops.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 9, 10, 77)
+    assert torch.equal(got, ops.gather_rows_plain(table, idx))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("n_q,n_t,k,tile_c", [
+    (300, 700, 11, 128), (300, 5000, 20, 2048), (8192, 8192, 30, 2048)])
+def test_knn_table_kernel_exact(cuda, n_q, n_t, k, tile_c, quantized,
+                                masked):
+    """Ids equal to the plain version (order included), rows offset into
+    the table, 10% of it masked; at the shard shape of the segmentation
+    slice too (N=8192, K=30)."""
+    rng = np.random.default_rng(61)
+    pos_t = _surface(rng, n_t, cuda)
+    off = (n_t - n_q) // 2
+    pm = None
+    if masked:
+        pm = torch.rand(n_t, device=cuda) > 0.1
+        pm[off:off + n_q] = True
+    args = (pos_t[off:off + n_q], pos_t, k, off, pm, tile_c, quantized)
+    got = ops.knn_topk_table(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.knn_topk_table_plain(*args))
+    assert torch.equal(got[:, 0].long(),
+                       off + torch.arange(n_q, device=cuda))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_knn_table_kernel_starved_and_row_ids(cuda, quantized):
+    """Rows with fewer valid columns than K (masked fillers, lowest
+    first) and scattered ``row_ids`` (the repair pass): ids equal."""
+    rng = np.random.default_rng(62)
+    pos_t = _surface(rng, 3000, cuda)
+    pm = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    pm[:5] = True
+    pm[100:108] = True
+    args = (pos_t[100:108], pos_t, 20, 100, pm, 2048, quantized)
+    got = ops.knn_topk_table(*args)
+    assert torch.equal(got, ops.knn_topk_table_plain(*args))
+    ids = torch.randperm(3000, device=cuda)[:700].int()
+    kw = dict(row_ids=ids, quantized=quantized)
+    got = ops.knn_topk_table(pos_t[ids.long()], pos_t, 20, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.knn_topk_table_plain(pos_t[ids.long()],
+                                                      pos_t, 20, **kw))
+    assert torch.equal(got[:, 0], ids)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("n,m_tiles,masked,shift", [
+    (3000, 4, False, 0.0), (3000, 10, True, 0.0), (3000, 4, False, 100.0),
+    (65536, None, True, 0.0)])
+def test_knn_bucketed_kernel_exact(cuda, n, m_tiles, masked, shift,
+                                   quantized):
+    """The candidate sweep's kernel in the whole bucketed kNN: ids equal
+    to the plain version's (fast, repair and full branches; a cloud 100
+    units from the origin; the bench's N=65,536 with 10% masked)."""
+    rng = np.random.default_rng(63)
+    pos = _surface(rng, n, cuda, shift)
+    pm = None
+    if masked:
+        pm = torch.rand(n, device=cuda) > 0.1
+    args = (pos, pos, 20, 0, pm)
+    kw = dict(m_tiles=m_tiles, quantized=quantized, repair_rows=512)
+    reset_launch_counts()
+    got = ops.knn_topk_bucketed(*args, **kw)
+    torch.cuda.synchronize()
+    name = "knn_topk_bucketed_q" if quantized else "knn_topk_bucketed"
+    assert launch_counts()[name] == 1
+    assert torch.equal(got, ops.knn_topk_bucketed_plain(*args, **kw))
+    rows = torch.arange(n, device=cuda)
+    valid = rows >= 0 if pm is None else pm
+    assert torch.equal(got[valid, 0].long(), rows[valid])
+    if masked:
+        assert bool(pm[got[valid].long()].all())
+
+
+def test_knn_bucketed_kernel_starved_rows(cuda):
+    """Only 6 valid points: every filler is the marker (>= N), in both
+    bodies, as in the plain version."""
+    rng = np.random.default_rng(64)
+    pos = _surface(rng, 512, cuda)
+    pm = torch.zeros(512, dtype=torch.bool, device=cuda)
+    pm[:6] = True
+    for quantized in (False, True):
+        args = (pos[:6], pos, 9, 0, pm)
+        kw = dict(quantized=quantized, m_tiles=4)
+        got = ops.knn_topk_bucketed(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.knn_topk_bucketed_plain(*args, **kw))
+        assert bool((got[:, 6:] >= 512).all())
+
+
+@pytest.mark.parametrize("precision", [None, "bfloat16"])
+def test_predict_sharded_kernels_match_plain(cuda, precision):
+    """``predict_sharded`` of a 20,000-point cloud (the bucketed route)
+    through the kernels and through the plain versions: f32 within 1e-4,
+    bf16 within 1e-2 x max|logit|."""
+    rng = np.random.default_rng(65)
+    pos, nrm = _cloud_batch(rng, 1, 20000, "cpu")
+    model = DeltaNetClassification(
+        4, conv_channels=(16, 16, 32), embedding_size=32, num_neighbors=20,
+        dense_operators=False, knn_method="approx",
+        generator=torch.Generator().manual_seed(0))
+    kw = dict(num_points=20000, batch_size=1, precision=precision)
+    reset_launch_counts()
+    got = InferenceEngine(model, **kw).predict_sharded(pos[0], nrm[0])
+    counts = launch_counts()
+    want = InferenceEngine(model, ops=PLAIN_OPS, **kw).predict_sharded(
+        pos[0], nrm[0])
+    assert counts["knn_topk_bucketed_q"] == 1
+    rel = 1e-4 if precision is None else 1e-2
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()

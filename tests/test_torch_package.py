@@ -147,6 +147,18 @@ def test_cpu_tensors_take_the_plain_versions():
     vg = v.clone().requires_grad_()
     ops.coef_apply_div(vg, coef, idx).sum().backward()
     ops.gather_rows(hg, idx).sum().backward()
+    pos = torch.randn((300, 3))
+    for quantized in (False, True):
+        torch.testing.assert_close(
+            ops.knn_topk_table(pos[:40], pos, 6, quantized=quantized),
+            ops.knn_topk_table_plain(pos[:40], pos, 6, quantized=quantized),
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            ops.knn_topk_bucketed(pos, pos, 6, quantized=quantized,
+                                  tile_c=128, m_tiles=1),
+            ops.knn_topk_bucketed_plain(pos, pos, 6, quantized=quantized,
+                                        tile_c=128, m_tiles=1),
+            rtol=0, atol=0)
     assert launch_counts() == {
         "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
@@ -156,7 +168,9 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_matmul_max_win": 0, "gather_max_bf16": 0,
         "gather_mlp_max": 0, "densify_int8": 0, "gather_max_int8": 0,
         "gather_matmul_max_int8": 0, "scatter_rows": 0,
-        "coef_apply_grad": 0, "coef_apply_div": 0}
+        "coef_apply_grad": 0, "coef_apply_div": 0, "knn_topk_table": 0,
+        "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
+        "knn_topk_bucketed_q": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
