@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the twenty-eight CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the thirty CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -157,7 +157,33 @@ first on ``sys.path``. It
     plain path;
 17. ``[shard-nccl]``: one bench forward through an initialised 1-rank
     ``nccl`` group (a FileStore in a temporary directory), bit-equal to
-    ``group=None``.
+    ``group=None``;
+18. ``[kernels]`` at the segmentation train shapes (B=16, N=2048, K=30,
+    64 -> 64): ``edge_delta_mlp`` and its backward, uniform and masked,
+    the forward within one bf16 ulp of the plain version or within the
+    f32 summation bound of the exact (f64) product, ``dy`` within 1e-5 x
+    max (atomics) plus one bf16 ulp of the largest edge term, ``dw1`` and
+    the affine's sums within 1e-5 x max; both timed beside the plain
+    version, the library calls (``index`` gather, ``torch.matmul``,
+    ``index_add_``) and the bound;
+19. ``[train-seg-bf16]``: trains ``DeltaNetSegmentation`` at the ShapeNet
+    config at ``bench.py``'s seg train config (``bench.py:233-265``: B=16,
+    N=2048, bf16, approximate kNN, ``sgd_momentum(0.01)``, smoothing 0,
+    dropout 0.5 from a seeded CUDA generator; per-point part labels that
+    follow the category and the point's octant) for 20 steps, once with
+    ``_EDGE_FUSED_TRAIN`` off (the JAX default: the first conv's edge
+    tensor) and once on (``edge_delta_mlp``): losses finite and falling,
+    the edge MLP 1 + 1 launches a step with the switch on and none off;
+    it prints the median ``seg_train_step_ms``, training clouds/s, peak
+    memory and a profile of one step (its device time) for each branch;
+    then one step from the same weights through the kernels and through
+    the plain versions (same build, dropout 0), uniform and ragged, held
+    as ``[train-bf16]`` holds the classification step, each branch; and
+    the two branches against each other from the same weights: loss and
+    running statistics within the JAX package's 5e-2 (rtol and atol);
+20. ``[train-seg-f32]``: 3 f32 steps (exact kNN) timed, then one step
+    from the same weights through the kernels and the plain versions
+    (same build), uniform and ragged, held as step 7 holds the f32 step.
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -291,6 +317,24 @@ TABLE_INSTR = 8
 SHARD_BF16_KERNELS = ("knn_topk_bucketed_q", "gather_rows", "wls")
 SHARD_F32_KERNELS = ("knn_topk_bucketed", "gather_rows", "wls")
 
+# Segmentation training (bench.py:233-265, the `seg_train_step_ms` config):
+# the ShapeNet model at B=16, N=2048, K=30, bf16 compute and operators,
+# approximate kNN, sgd_momentum(0.01), smoothing 0; the edge MLP of the
+# first conv (3 -> 64 -> 64) at C0 = C1 = 64.
+SEG_LR = 0.01
+SEG_TRAIN_STEPS = 20
+SEG_F32_STEPS = 3
+EDGE_C = 64
+BRANCH_TOL = 5e-2  # fused vs reference conv0, the JAX package's bound
+SEG_TRAIN_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
+                     "adjacency", "gather_max_win_bf16",
+                     "gather_max_bwd_bf16", "edge_delta_mlp",
+                     "edge_delta_mlp_bwd")
+SEG_TRAIN_REF_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
+                         "gather_max_win_bf16", "gather_max_bwd_bf16")
+SEG_TRAIN_F32_KERNELS = ("gather_rows", "wls", "densify", "gather_max_win",
+                         "gather_max_bwd")
+
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
                     "deltaconv_tpu/ops/gather_rows.py:205"),
@@ -348,14 +392,19 @@ KERNEL_META = {
                           "deltaconv_tpu/ops/knn_bucketed.py:318"),
     "knn_topk_bucketed_q": ("deltaconv_tpu_torch/csrc/knn_bucketed.cu",
                             "deltaconv_tpu/ops/knn_bucketed.py:318"),
+    "edge_delta_mlp": ("deltaconv_tpu_torch/csrc/edge_mlp.cu",
+                       "deltaconv_tpu/ops/edge_mlp.py:192"),
+    "edge_delta_mlp_bwd": ("deltaconv_tpu_torch/csrc/edge_mlp.cu",
+                           "deltaconv_tpu/ops/edge_mlp.py:244"),
 }
 # The port's autograd Functions, whose forward or backward launches a
 # kernel outside any aten op (the profiler books it to them).
 AUTOGRAD_FUNCTIONS = ("_GatherMax", "_GatherMatmulMax", "_GatherSum",
                       "_GatherRows", "_CoefApplyGrad", "_CoefApplyDiv",
-                      "_GatherMaxBackward", "_GatherMatmulMaxBackward",
-                      "_GatherSumBackward", "_GatherRowsBackward",
-                      "_CoefApplyGradBackward", "_CoefApplyDivBackward")
+                      "_EdgeDeltaMlp", "_GatherMaxBackward",
+                      "_GatherMatmulMaxBackward", "_GatherSumBackward",
+                      "_GatherRowsBackward", "_CoefApplyGradBackward",
+                      "_CoefApplyDivBackward", "_EdgeDeltaMlpBackward")
 # The path whose launch counts each kernel's record reports.
 SERVE_KERNELS = ("gather_rows", "wls", "densify", "gather_max")
 BF16_KERNELS = ("knn_topk", "densify_bf16", "gather_max_affine",
@@ -855,6 +904,172 @@ def time_seg_kernels(res, idx, nbr_mask, dev, card):
             res["gather_mlp_max"].update(ms=km, plain_ms=pm, bound=bd)
 
 
+def edge_inputs(idx, dev):
+    """Inputs of the edge MLP at the first conv of the segmentation train
+    step (C0 = C1 = EDGE_C): bf16 ``y``, the affine ``(a0, b0)`` with
+    slopes of both signs, ``w1`` and the self slot ``z0``."""
+    b, n, _ = idx.shape
+    y = torch.randn((b, n, EDGE_C), device=dev).to(torch.bfloat16)
+    a0 = torch.randn(EDGE_C, device=dev)
+    b0 = 0.3 * torch.randn(EDGE_C, device=dev)
+    w1 = torch.randn((EDGE_C, EDGE_C), device=dev) / EDGE_C ** 0.5
+    lb = torch.where(b0 >= 0, b0, 0.2 * b0)
+    z0 = lb.to(torch.bfloat16).float() @ w1.to(torch.bfloat16).float()
+    return y, a0, b0, w1, z0
+
+
+def edge_fwd_held(got, y, a0, b0, w1, z0, idx):
+    """``(ok, detail)`` of the edge MLP's forward: slot 0 equal to
+    ``bf16(z0)``; every other element within one bf16 ulp of the plain
+    version or within the f32 summation bound ``C0 * 2^-24 * (|h| @
+    |w1|)`` plus half a bf16 ulp of the exact (f64) product of the same
+    bf16 ``h``, as the matmul maxes are held (``mm_max_held``)."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.ops.edge_mlp import _edges, _leaky
+
+    want = ops.edge_mlp_fwd_plain(y, a0, b0, w1, z0, idx)
+    slot0 = bits_equal(got[:, 0], want[:, 0])
+    _, pre = _edges(y, a0, b0, idx)
+    h = _leaky(pre[:, :, 1:]).to(torch.bfloat16).double()
+    del pre
+    wd = w1.to(torch.bfloat16).double()
+    gd = got[:, 1:].permute(0, 2, 1, 3).double()
+    far = bf16_ulps(got[:, 1:], want[:, 1:]).permute(0, 2, 1, 3) > 1
+    tol = (y.shape[-1] * 2.0 ** -24 * (h.abs() @ wd.abs())
+           + 2.0 ** -8 * gd.abs())
+    beyond = far & ((gd - h @ wd).abs() > tol)
+    n_far, n_beyond = int(far.sum()), int(beyond.sum())
+    return slot0 and n_beyond == 0, (
+        f"slot 0 bit-equal {slot0}; {n_far} elements beyond one bf16 ulp, "
+        f"{n_beyond} of them beyond the f32 summation bound; max_abs_err "
+        f"{max_err(got.float(), want.float())}")
+
+
+def check_edge_mlp_kernels(record, idx, dev):
+    """edge_delta_mlp forward and backward against their plain versions
+    at the segmentation train shapes."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.ops.edge_mlp import _edges
+
+    y, a0, b0, w1, z0 = edge_inputs(idx, dev)
+    out = ops.edge_mlp_fwd(y, a0, b0, w1, z0, idx)
+    want = ops.edge_mlp_fwd_plain(y, a0, b0, w1, z0, idx)
+    record("edge_delta_mlp", max_err(out.float(), want.float()))
+    del want
+    ok, detail = edge_fwd_held(out, y, a0, b0, w1, z0, idx)
+    check(f"edge_delta_mlp {EDGE_C}->{EDGE_C}", ok, detail)
+    del out
+    b, n, k = idx.shape
+    g = torch.randn((b, k, n, EDGE_C), device=dev).to(torch.bfloat16)
+    dy, dw1, dab = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
+    dy_p, dw1_p, dab_p = ops.edge_mlp_bwd_plain(y, a0, b0, w1, idx, g)
+    _, pre = _edges(y, a0, b0, idx)
+    dh = g[:, 1:].float().permute(0, 2, 1, 3) @ w1.to(
+        torch.bfloat16).float().t()
+    flip = 2.0 ** -8 * float((dh * torch.where(pre[:, :, 1:] >= 0, 1.0, 0.2)
+                              * a0).abs().max())
+    del pre, dh
+    errs = [max_err(a, b_) for a, b_ in ((dy, dy_p), (dw1, dw1_p),
+                                         (dab, dab_p))]
+    tols = [SCATTER_RTOL * float(dy_p.abs().max()) + flip,
+            SCATTER_RTOL * float(dw1_p.abs().max()),
+            SCATTER_RTOL * float(dab_p.abs().max())]
+    record("edge_delta_mlp_bwd", max(errs))
+    check("edge_delta_mlp_bwd", all(e <= t for e, t in zip(errs, tols)),
+          f"dy {errs[0]} <= {tols[0]} (atomics, one bf16 ulp of the largest "
+          f"edge term {flip}), dw1 {errs[1]} <= {tols[1]}, dab {errs[2]} <= "
+          f"{tols[2]}")
+    torch.cuda.synchronize()
+
+
+def edge_library(y, a0, b0, w1, z0, idx, g):
+    """The edge MLP's forward and backward as PyTorch library calls, set-up
+    included: the ``index`` gather of the rows, the elementwise affine, a
+    bf16 ``torch.matmul``; backward the bf16 products, ``index_add_`` of
+    the edge terms and the sums. Timed as a yardstick, used nowhere."""
+    b, n, c0 = y.shape
+    k = idx.shape[-1]
+    w1b = w1.to(torch.bfloat16)
+    rows = idx.transpose(1, 2)[:, 1:].long()  # [B, K - 1, N]
+    bidx = torch.arange(b, device=y.device)[:, None, None]
+
+    def pre_of():
+        y0 = y[bidx, rows].float() - y.float()[:, None]
+        return y0, y0 * a0 + b0
+
+    def fwd():
+        _, pre = pre_of()
+        h = torch.where(pre >= 0, pre, 0.2 * pre).to(torch.bfloat16)
+        out = torch.empty((b, k, n, w1.shape[1]), dtype=torch.bfloat16,
+                          device=y.device)
+        out[:, 0] = z0.to(torch.bfloat16)
+        out[:, 1:] = torch.matmul(h, w1b)
+        return out
+
+    def bwd():
+        y0, pre = pre_of()
+        h = torch.where(pre >= 0, pre, 0.2 * pre).to(torch.bfloat16)
+        g1 = g[:, 1:]
+        dpre = torch.matmul(g1, w1b.t()).float() * torch.where(
+            pre >= 0, 1.0, 0.2)
+        dy0 = dpre * a0
+        flat = (rows + bidx * n).reshape(-1)
+        dy = torch.zeros((b * n, c0), device=y.device).index_add_(
+            0, flat, dy0.to(torch.bfloat16).float().reshape(-1, c0))
+        dy = dy.reshape(b, n, c0) - dy0.sum(dim=1)
+        dw1 = torch.matmul(h.reshape(-1, c0).t(), g1.reshape(-1, g1.shape[-1]))
+        return dy, dw1, (dpre * y0).sum(dim=(0, 1, 2)), dpre.sum(dim=(0, 1, 2))
+
+    return fwd, bwd
+
+
+def time_edge_mlp_kernels(res, idx, dev, card):
+    """Times of the edge MLP at the segmentation train shapes: the kernels,
+    the plain versions and the library calls, and the bounds: the forward writes
+    y1 and the backward reads g (each input read once, each output
+    written once), ``2 E C0 C1`` (forward) and ``4 E C0 C1`` (backward)
+    bf16 tensor-core operations over the E = B N (K - 1) edges."""
+    from deltaconv_tpu_torch import ops
+
+    y, a0, b0, w1, z0 = edge_inputs(idx, dev)
+    b, n, k = idx.shape
+    g = torch.randn((b, k, n, EDGE_C), device=dev).to(torch.bfloat16)
+    out = ops.edge_mlp_fwd(y, a0, b0, w1, z0, idx)
+    lib_fwd, lib_bwd = edge_library(y, a0, b0, w1, z0, idx, g)
+    edges = float(b * n * (k - 1))
+    ab = torch.stack([a0, b0])
+    w1b = w1.to(torch.bfloat16)
+    dy, dw1, dab = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
+    times = {
+        "fwd": median_ms(lambda: ops.edge_mlp_fwd(y, a0, b0, w1, z0, idx)),
+        "fwd_plain": median_ms(lambda: ops.edge_mlp_fwd_plain(
+            y, a0, b0, w1, z0, idx)),
+        "fwd_library": median_ms(lib_fwd),
+        "bwd": median_ms(lambda: ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)),
+        "bwd_plain": median_ms(lambda: ops.edge_mlp_bwd_plain(
+            y, a0, b0, w1, idx, g)),
+        "bwd_library": median_ms(lib_bwd),
+    }
+    res["edge_delta_mlp"].update(
+        ms=times["fwd"], plain_ms=times["fwd_plain"],
+        library_ms=times["fwd_library"],
+        bound=bound(nbytes(y, idx, ab, w1b, z0, out),
+                    2.0 * edges * EDGE_C * EDGE_C, BF16_TC_OPS_PER_S))
+    res["edge_delta_mlp_bwd"].update(
+        ms=times["bwd"], plain_ms=times["bwd_plain"],
+        library_ms=times["bwd_library"],
+        bound=bound(nbytes(y, idx, ab, w1b, g, dy, dw1, dab),
+                    4.0 * edges * EDGE_C * EDGE_C, BF16_TC_OPS_PER_S))
+    print(f"[times] edge MLP, B={b} N={n} K={k} {EDGE_C}->{EDGE_C}, card: "
+          f"{card}")
+    for part in ("fwd", "bwd"):
+        name = "edge_delta_mlp" if part == "fwd" else "edge_delta_mlp_bwd"
+        print(f"  {name}: kernel {times[part]:.4f} ms, plain "
+              f"{times[part + '_plain']:.4f} ms, library "
+              f"{times[part + '_library']:.4f} ms, bound "
+              f"{res[name]['bound'][0]:.4f} ms ({res[name]['bound'][1]})")
+
+
 def kernel_phase(rng, dev, card):
     """Each kernel against its plain version at the main paths' shapes;
     times, bounds and library-call times at the uniform shapes."""
@@ -962,6 +1177,7 @@ def kernel_phase(rng, dev, card):
         print(f"[kernels] segmentation shapes B={SEG_B} N={SEG_N} "
               f"K={SEG_K}, {label}", flush=True)
         check_seg_kernels(record, idx, nbr_mask, seg_gd, dev)
+        check_edge_mlp_kernels(record, idx, dev)
 
     # Times, bounds and library calls at the uniform shapes.
     idx, nbr_mask = cases["uniform"]
@@ -1172,6 +1388,7 @@ def kernel_phase(rng, dev, card):
                 res[name]["ms"], res[name]["plain_ms"] = km, pl
                 res[name]["bound"] = bound(nbytes(*io))
     time_seg_kernels(res, *seg_cases["uniform"][:2], dev, card)
+    time_edge_mlp_kernels(res, seg_cases["uniform"][0], dev, card)
     del seg_cases, cases
     coef_kernel_phase(res, rng, dev, card)
     shard_kernel_phase(res, rng, card)
@@ -1414,10 +1631,12 @@ def apply_times(clouds, dev, card):
           + f"; card: {card}")
 
 
-def random_seg_model(seed, dev, knn_method="exact", dense_operators=True):
+def random_seg_model(seed, dev, knn_method="exact", dense_operators=True,
+                     dropout=0.5, affine=True, precision=None):
     """The ShapeNet segmentation config with seeded weights and
-    randomized BatchNorm statistics, scales (both signs) and biases;
-    ``dense_operators=False``: the coefficient form (the same weights)."""
+    randomized BatchNorm statistics and, when ``affine``, scales (both
+    signs) and biases; ``dense_operators=False``: the coefficient form
+    (the same weights); ``precision`` ("bfloat16") sets both dtypes."""
     from deltaconv_tpu_torch import DeltaNetSegmentation
     from deltaconv_tpu_torch.nn import BatchNorm
 
@@ -1425,14 +1644,16 @@ def random_seg_model(seed, dev, knn_method="exact", dense_operators=True):
     model = DeltaNetSegmentation(
         num_classes=SEG_CLASSES, conv_channels=(64, 128, 256), mlp_depth=2,
         categorical_vector=True, num_neighbors=SEG_K, knn_method=knn_method,
-        dense_operators=dense_operators, generator=gen)
+        dense_operators=dense_operators, dropout=dropout, generator=gen)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, BatchNorm):
                 m.running_mean.normal_(0.0, 0.2, generator=gen)
                 m.running_var.uniform_(0.5, 1.5, generator=gen)
-                m.weight.uniform_(-1.5, 1.5, generator=gen)
-                m.bias.normal_(0.0, 0.2, generator=gen)
+                if affine:
+                    m.weight.uniform_(-1.5, 1.5, generator=gen)
+                    m.bias.normal_(0.0, 0.2, generator=gen)
+    model.set_precision(precision, precision)
     return model.to(dev)
 
 
@@ -1629,7 +1850,7 @@ def train_once(batch, seed, dev, ops, **config):
     return float(metrics["loss"]), model
 
 
-def compare_steps(label, batch, seed, dev, same_build):
+def compare_steps(label, batch, seed, dev, same_build, once=train_once):
     """One step from the same weights through the kernels and through
     the plain versions; raises on disagreement.
 
@@ -1641,15 +1862,20 @@ def compare_steps(label, batch, seed, dev, same_build):
     neighbour-max winners flip at near-ties, which moves single
     gradient entries by a whole cotangent, so only the loss and the
     running statistics (continuous in the inputs) are held and the
-    gradient and parameter deviations are printed."""
+    gradient and parameter deviations are printed. ``once``: the step of
+    a fresh model (:func:`train_once`, or :func:`seg_train_once`, whose
+    first conv gathers its edges with ``gather_rows``: exact, so its plain
+    version joins the same build)."""
     from deltaconv_tpu_torch import KERNEL_OPS, PLAIN_OPS
-    from deltaconv_tpu_torch.ops import gather_max_plain, gather_sum_plain
+    from deltaconv_tpu_torch.ops import (gather_max_plain, gather_rows_plain,
+                                         gather_sum_plain)
 
     plain = (KERNEL_OPS._replace(gather_max=gather_max_plain,
-                                 gather_sum=gather_sum_plain)
+                                 gather_sum=gather_sum_plain,
+                                 gather_rows=gather_rows_plain)
              if same_build else PLAIN_OPS)
-    lk, mk = train_once(batch, seed, dev, KERNEL_OPS)
-    lp, mp = train_once(batch, seed, dev, plain)
+    lk, mk = once(batch, seed, dev, KERNEL_OPS)
+    lp, mp = once(batch, seed, dev, plain)
     check(f"{label} loss kernel vs plain",
           abs(lk - lp) <= LOSS_RTOL * abs(lp),
           f"{lk} vs {lp}, rel {abs(lk - lp) / abs(lp):.3e} <= {LOSS_RTOL}")
@@ -1744,7 +1970,7 @@ def _deviations(ma, mb):
 
 
 def compare_bf16_steps(label, batch, seed, dev, dense_operators=True,
-                       hold_params=True):
+                       hold_params=True, once=train_once):
     """One bf16 step from the same weights through the kernels and
     through the plain versions of the train step's maxes and sum (and,
     with ``dense_operators=False``, the coefficient-form applies with
@@ -1768,22 +1994,23 @@ def compare_bf16_steps(label, batch, seed, dev, dense_operators=True,
     ``hold_params=False`` prints the parameters' deviation without
     holding it: at B=4 the head's 4-row BatchNorm amplifies a winner flip
     to a deviation of about 2e-2 (at N=8192 on an H100 80GB HBM3, 700 W);
-    the gradients' distance to the f32 step holds the same update."""
+    the gradients' distance to the f32 step holds the same update.
+    ``once``: :func:`train_once` or :func:`seg_train_once`."""
     from deltaconv_tpu_torch import KERNEL_OPS, PLAIN_OPS
 
     plain = KERNEL_OPS._replace(
         gather_max=PLAIN_OPS.gather_max, gather_sum=PLAIN_OPS.gather_sum,
         gather_matmul_max_train=PLAIN_OPS.gather_matmul_max_train,
         coef_apply_grad=PLAIN_OPS.coef_apply_grad,
-        coef_apply_div=PLAIN_OPS.coef_apply_div)
+        coef_apply_div=PLAIN_OPS.coef_apply_div,
+        edge_delta_mlp=PLAIN_OPS.edge_delta_mlp)
     config = dict(knn_method="approx", dense_operators=dense_operators)
-    lk, mk = train_once(batch, seed, dev, KERNEL_OPS, precision="bfloat16",
-                        **config)
-    lp, mp = train_once(batch, seed, dev, plain, precision="bfloat16",
-                        **config)
-    _, mk2 = train_once(batch, seed, dev, KERNEL_OPS, precision="bfloat16",
-                        **config)
-    _, mf = train_once(batch, seed, dev, KERNEL_OPS, **config)
+    lk, mk = once(batch, seed, dev, KERNEL_OPS, precision="bfloat16",
+                  **config)
+    lp, mp = once(batch, seed, dev, plain, precision="bfloat16", **config)
+    _, mk2 = once(batch, seed, dev, KERNEL_OPS, precision="bfloat16",
+                  **config)
+    _, mf = once(batch, seed, dev, KERNEL_OPS, **config)
     dev_k, dev_kk = _deviations(mk, mp), _deviations(mk2, mk)
     for kind in ("grad", "param"):
         (whole, per, elem), (whole_k, per_k, _) = dev_k[kind], dev_kk[kind]
@@ -1792,12 +2019,23 @@ def compare_bf16_steps(label, batch, seed, dev, dense_operators=True,
               f"{elem[0]:.3e} x max ({elem[1]}); kernel vs kernel: all "
               f"{whole_k:.3e}, worst tensor {per_k[0]:.3e} ({per_k[1]})")
     grads_f = dict(mf.named_parameters())
+    norms = {n: float(torch.linalg.norm(p.grad)) for n, p in grads_f.items()}
+    # The segmentation step leaves out the tensors whose f32 gradient is
+    # rounding noise (below 1e-6 of the largest: the ``lin_global``
+    # BatchNorm bias, whose gradient cancels); the classification steps
+    # hold every tensor.
+    floor = 1e-6 * max(norms.values()) if once is seg_train_once else 0.0
+    held = [n for n in grads_f if norms[n] >= floor]
+    print(f"  {label} grads left out of the distance to the f32 step: "
+          f"{sorted(set(grads_f) - set(held)) or 'none'}")
 
     def to_f32(m):
+        """Mean relative distance to the f32 step's gradients over the
+        held tensors."""
+        grads = dict(m.named_parameters())
         return float(np.mean([
-            float(torch.linalg.norm(p.grad - grads_f[n].grad))
-            / max(float(torch.linalg.norm(grads_f[n].grad)), 1e-30)
-            for n, p in m.named_parameters()]))
+            float(torch.linalg.norm(grads[n].grad - grads_f[n].grad))
+            / max(norms[n], 1e-30) for n in held]))
 
     far_k, far_p = to_f32(mk), to_f32(mp)
     bufs_p = dict(mp.named_buffers())
@@ -2351,6 +2589,190 @@ def train_large_phase(rng, seed, dev, card):
     return counts
 
 
+def seg_train_batch(rng, dev, sizes):
+    """One batch of ellipsoid clouds of up to SEG_N points with categories
+    and per-point part labels that follow the category and the point's
+    octant (learnable from the positions), padded with a point mask when
+    ragged."""
+    clouds, normals = ellipsoid_clouds(rng, sizes)
+    cats = rng.integers(0, 16, len(sizes))
+    pos = np.zeros((len(sizes), SEG_N, 3), np.float32)
+    nrm = np.tile(np.asarray([0.0, 0.0, 1.0], np.float32),
+                  (len(sizes), SEG_N, 1))
+    labels = np.zeros((len(sizes), SEG_N), np.int64)
+    for i, (c, q) in enumerate(zip(clouds, normals)):
+        pos[i, :len(c)], nrm[i, :len(c)] = c, q
+        octant = (c[:, 0] > 0) + 2 * (c[:, 1] > 0) + 4 * (c[:, 2] > 0)
+        labels[i, :len(c)] = (3 * cats[i] + octant) % SEG_CLASSES
+    batch = {"pos": torch.from_numpy(pos).to(dev),
+             "normal": torch.from_numpy(nrm).to(dev),
+             "label": torch.from_numpy(labels).to(dev),
+             "category": torch.eye(16, device=dev)[
+                 torch.from_numpy(cats).to(dev)]}
+    if min(sizes) < SEG_N:
+        batch["point_mask"] = torch.from_numpy(
+            np.arange(SEG_N)[None, :] < np.asarray(sizes)[:, None]).to(dev)
+    return batch
+
+
+def seg_train_once(batch, seed, dev, ops, precision=None, knn_method="exact",
+                   dense_operators=True):
+    """One per-point step of a fresh segmentation model (dropout 0,
+    smoothing 0, lr SEG_LR) through ``ops``; the configuration as
+    :func:`random_seg_model`'s."""
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    model = random_seg_model(seed, dev, knn_method, dense_operators,
+                             dropout=0.0, affine=False, precision=precision)
+    state = create_train_state(model, sgd_momentum(SEG_LR))
+    metrics = make_train_step(model, smoothing=0.0, per_point=True,
+                              ops=ops)(state, batch, None)
+    return float(metrics["loss"]), model
+
+
+def seg_train_steps(tag, batch, seed, dev, card, steps, **config):
+    """``steps`` timed train steps of the bench's seg train config
+    (dropout 0.5 from a seeded CUDA generator) after a warm-up model's
+    step; returns the launch counts, the losses, the median host time of
+    a step and the peak memory, and prints a profile of one more step."""
+    from deltaconv_tpu_torch import launch_counts, reset_launch_counts
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    model = random_seg_model(seed, dev, affine=False, **config)
+    state = create_train_state(model, sgd_momentum(SEG_LR))
+    step = make_train_step(model, smoothing=0.0, per_point=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    warm = random_seg_model(seed + 1, dev, **config)
+    make_train_step(warm, smoothing=0.0, per_point=True)(
+        create_train_state(warm, sgd_momentum(SEG_LR)), batch,
+        torch.Generator(device=dev).manual_seed(1))
+    del warm
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t = float(np.median(times))
+    print(f"[{tag}] losses: {[round(x, 4) for x in losses]}")
+    print(f"[{tag}] B={SEG_B} N={SEG_N} K={SEG_K}, ShapeNet config, "
+          f"{config}: median seg_train_step_ms {t * 1e3:.3f}, "
+          f"{SEG_B / t:.2f} training clouds/s (host clock, synchronised "
+          f"after each step), peak {peak:.2f} GiB allocated, card: {card}")
+    profile(tag, "one step", lambda: step(state, batch, gen), t * 1e3)
+    return counts, losses
+
+
+def train_seg_bf16_phase(rng, seed, dev, card):
+    """Segmentation training at bench.py's seg train config, the first
+    conv on each of its two bf16 branches (``_EDGE_FUSED_TRAIN`` off, the
+    JAX default, and on): 20 steps each, kernels vs plain versions, and
+    the branches against each other."""
+    from deltaconv_tpu_torch import KERNEL_OPS
+
+    dc = importlib.import_module("deltaconv_tpu_torch.nn.deltaconv")
+    uniform = seg_train_batch(rng, dev, [SEG_N] * SEG_B)
+    ragged = seg_train_batch(rng, dev, rng.integers(
+        SEG_N * 600 // 1024, SEG_N + 1, SEG_B).tolist())
+    config = dict(knn_method="approx", precision="bfloat16")
+    tag = "train-seg-bf16"
+    counts = {}
+    try:
+        for fused in (False, True):
+            dc._EDGE_FUSED_TRAIN = fused
+            branch = "fused" if fused else "reference"
+            print(f"[{tag}] conv0 branch: {branch} (_EDGE_FUSED_TRAIN = "
+                  f"{fused})", flush=True)
+            counts[fused], losses = seg_train_steps(
+                f"{tag} {branch}", uniform, seed, dev, card, SEG_TRAIN_STEPS,
+                **config)
+            path = SEG_TRAIN_KERNELS if fused else SEG_TRAIN_REF_KERNELS
+            c = counts[fused]
+            print(f"[{tag} {branch}] launches per step: " + ", ".join(
+                f"{name} {c[name] / SEG_TRAIN_STEPS:g}"
+                for name in SEG_TRAIN_KERNELS))
+            check(f"{branch} losses finite", bool(np.isfinite(losses).all()),
+                  f"{SEG_TRAIN_STEPS} steps")
+            first, last = (float(np.mean(losses[:5])),
+                           float(np.mean(losses[-5:])))
+            check(f"{branch} loss falls", last < first,
+                  f"mean of last 5 {last:.4f} < mean of first 5 {first:.4f}")
+            for name in path:
+                check(f"{name} launched", c[name] > 0, f"{c[name]} launches")
+            for name in ("edge_delta_mlp", "edge_delta_mlp_bwd"):
+                per = int(fused)
+                check(f"{name} {per} a step", c[name] == per * SEG_TRAIN_STEPS,
+                      f"{c[name]} launches in {SEG_TRAIN_STEPS} steps")
+        for fused in (False, True):
+            dc._EDGE_FUSED_TRAIN = fused
+            branch = "fused" if fused else "reference"
+            print(f"[{tag} {branch}] kernel path vs plain path, one step from "
+                  "the same weights, dropout 0, same build")
+            for label, batch in (("uniform", uniform), ("ragged", ragged)):
+                compare_bf16_steps(f"seg {branch} {label}", batch, seed, dev,
+                                   once=seg_train_once)
+        print(f"[{tag}] the two conv0 branches, one step from the same "
+              f"weights (kernels, dropout 0)")
+        for label, batch in (("uniform", uniform), ("ragged", ragged)):
+            runs = {}
+            for fused in (False, True):
+                dc._EDGE_FUSED_TRAIN = fused
+                runs[fused] = seg_train_once(batch, seed, dev, KERNEL_OPS,
+                                             **config)
+            (lr, mr), (lf, mf) = runs[False], runs[True]
+            check(f"{label} loss fused vs reference",
+                  abs(lf - lr) <= BRANCH_TOL * abs(lr),
+                  f"{lf} vs {lr}, rel {abs(lf - lr) / abs(lr):.3e} <= "
+                  f"{BRANCH_TOL}")
+            bufs_r = dict(mr.named_buffers())
+            worst = (0.0, "")
+            for name, b in mf.named_buffers():
+                r = bufs_r[name]
+                excess = float(((b - r).abs() - BRANCH_TOL * r.abs()).max())
+                worst = max(worst, (excess, name))
+            check(f"{label} running statistics fused vs reference",
+                  worst[0] <= BRANCH_TOL,
+                  f"worst |fused - ref| - {BRANCH_TOL} |ref| = {worst[0]:.3e} "
+                  f"<= {BRANCH_TOL} ({worst[1]})")
+    finally:
+        dc._EDGE_FUSED_TRAIN = False
+    return counts[True]
+
+
+def train_seg_f32_phase(rng, seed, dev, card):
+    """A few f32 segmentation steps (exact kNN), then kernels vs plain
+    versions from the same weights, same build, held as the f32
+    classification step is."""
+    uniform = seg_train_batch(rng, dev, [SEG_N] * SEG_B)
+    ragged = seg_train_batch(rng, dev, rng.integers(
+        SEG_N * 600 // 1024, SEG_N + 1, SEG_B).tolist())
+    tag = "train-seg-f32"
+    counts, losses = seg_train_steps(tag, uniform, seed, dev, card,
+                                     SEG_F32_STEPS)
+    print(f"[{tag}] launches per step: " + ", ".join(
+        f"{name} {counts[name] / SEG_F32_STEPS:g}"
+        for name in SEG_TRAIN_F32_KERNELS))
+    check("f32 seg losses finite", bool(np.isfinite(losses).all()),
+          f"{SEG_F32_STEPS} steps")
+    for name in SEG_TRAIN_F32_KERNELS:
+        check(f"{name} launched", counts[name] > 0, f"{counts[name]} launches")
+    print(f"[{tag}] kernel path vs plain path, one step from the same "
+          "weights, dropout 0, same build")
+    for label, batch in (("uniform", uniform), ("ragged", ragged)):
+        compare_steps(f"seg f32 {label}", batch, seed, dev, True,
+                      once=seg_train_once)
+    return counts
+
+
 def knn_library(pos_q, pos_t, k, row_offset=0, point_mask=None,
                 row_chunk=1024):
     """The library call of the table kNN: per chunk of query rows, the
@@ -2800,6 +3222,8 @@ def main():
     shard_seg_bf16 = serve_shard_seg_phase(rng, args.seed, dev, card,
                                            "bfloat16")
     shard_nccl_phase(rng, args.seed, dev)
+    seg_train = train_seg_bf16_phase(rng, args.seed, dev, card)
+    seg_train_f32 = train_seg_f32_phase(rng, args.seed, dev, card)
 
     def launches(name):
         for path, counts in ((SERVE_KERNELS, serve),
@@ -2817,7 +3241,9 @@ def main():
                              (SHARD_BF16_KERNELS, shard_bf16),
                              (SHARD_F32_KERNELS, shard_f32),
                              (("knn_topk_table",), shard_seg),
-                             (("knn_topk_table_q",), shard_seg_bf16)):
+                             (("knn_topk_table_q",), shard_seg_bf16),
+                             (SEG_TRAIN_KERNELS, seg_train),
+                             (SEG_TRAIN_F32_KERNELS, seg_train_f32)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

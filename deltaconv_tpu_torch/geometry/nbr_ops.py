@@ -4,9 +4,10 @@
 ``nbr_matmul_max`` for the bf16 eval branches, ``nbr_matmul_max_train``
 for the bf16 train branch of a lane-narrower conv, ``nbr_gather`` for
 the edge tensor of a depth-2 centralized conv, ``nbr_mlp_max`` for the
-bf16 eval branch of a depth-2 conv). ``DeltaConv`` never gathers through
-raw indices itself: it asks its operator object, which keeps the kernel
-choice (its ``ops``) in one place."""
+bf16 eval branch of a depth-2 conv, ``nbr_edge_mlp`` for the fused bf16
+train branch of a depth-2 centralized conv). ``DeltaConv`` never gathers
+through raw indices itself: it asks its operator object, which keeps the
+kernel choice (its ``ops``) in one place."""
 
 from __future__ import annotations
 
@@ -68,3 +69,9 @@ class NeighborAggregations:
         return self.ops.gather_mlp_max(x, ws, affines, self.nbr_idx,
                                        self.nbr_mask, centralized, True, z0,
                                        epilogue)
+
+    def nbr_edge_mlp(self, y, a0, b0, w1, z0):
+        """bf16 training: the differentiable edge MLP ``bf16(LeakyReLU((y_j
+        - y_i) * a0 + b0)) @ w1`` of every slot, ``z0`` in the self slot,
+        K-major ``[B, K, N, C1]`` bf16 (``ops.edge_delta_mlp``)."""
+        return self.ops.edge_delta_mlp(y, a0, b0, w1, z0, self.nbr_idx)

@@ -1,5 +1,5 @@
 """DeltaNet segmentation head (counterpart of
-``deltaconv_tpu/models/deltanet_segmentation.py``), eval.
+``deltaconv_tpu/models/deltanet_segmentation.py``), train and eval.
 
 Backbone stage outputs are concatenated and embedded (``lin_global``); a
 global max pool is broadcast back to every point, joined by the embedded
@@ -51,8 +51,10 @@ class DeltaNetSegmentation(nn.Module):
     layers (``segmentation_head.4`` and ``.6``) run in f32, as the JAX
     model's ``Dense`` layers without a dtype do (flax promotes the bf16
     activations to their f32 parameters), so logits are f32. Parameters
-    stay f32 in every mode. Training is not ported yet (the depth-2 max
-    branch raises in train mode).
+    stay f32 in every mode. It trains in f32 and bf16 through
+    ``training.make_train_step(model, per_point=True)`` (the categorical
+    head's BatchNorm over the batch's clouds, the head's dropout from the
+    step's generator).
     """
 
     def __init__(self, num_classes: int,
@@ -120,7 +122,8 @@ class DeltaNetSegmentation(nn.Module):
         ``[B, N]`` bool, ``category`` ``[B, 16]`` one-hot (required when
         ``categorical_vector``) -> per-point logits ``[B, N,
         num_classes]`` f32. ``ops`` selects the kernels (default) or
-        their plain versions; ``operators`` and ``group`` are the
+        their plain versions; ``generator`` (on the batch's device) draws
+        the train-mode dropout masks; ``operators`` and ``group`` are the
         point-sharded forward's (the global max pool completes across the
         group's ranks)."""
         conv_out = self.deltanet_base(pos, normal, point_mask, ops,

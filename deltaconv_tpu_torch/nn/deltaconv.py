@@ -7,11 +7,13 @@ Scalar stream:
 Vector stream (skipped on the last layer):
   ``v' = v_mlp(I_J([v, hodge_laplacian(v), grad x']))``
 
-Internal MLPs of depth 1 (the classification defaults) serve and train;
-depth >= 2 (the segmentation config, ``DeepMaxMLP``) serves only. The
+Internal MLPs of depth 1 (the classification defaults) and depth >= 2
+(the segmentation config, ``DeepMaxMLP``) serve and train. The
 neighbour max, sum and gathers go through the operator object
 (``gd.nbr_max``, ``gd.nbr_sum``, ...), which runs their kernels. A point
 mask leaves padded points out of every train-mode BatchNorm statistic.
+Every max over a neighbour axis routes its gradient to the first slot
+that holds the maximum, as the JAX package's single-winner VJPs do.
 
 With ``dtype=torch.bfloat16`` the layer computes as the JAX package's
 mixed precision: bf16 Linear products and activations, f32 BatchNorm.
@@ -56,6 +58,12 @@ from .nonlin import batch_moments, leaky_relu02
 
 __all__ = ["DeepMaxMLP", "DeltaConv", "EdgeMaxMLP", "PointMaxMLP"]
 
+# DeepMaxMLP's fused centralized depth-2 train branch (``gd.nbr_edge_mlp``,
+# the ``edge_delta_mlp`` kernels): the JAX package's switch of the same
+# name and meaning (``deltaconv_tpu/nn/deltaconv.py``), off by default as
+# there. Flip for A/B.
+_EDGE_FUSED_TRAIN = False
+
 
 def _bn_affine(bn):
     """Eval BatchNorm as ``(sign, inv, mean, bias)`` for the sign-folded
@@ -76,6 +84,83 @@ def _masked_rows_to_zero(out, gd, dtype):
     """0 on the points with no valid neighbour, cast to ``dtype``."""
     out = torch.where(gd.nbr_mask.any(dim=-1, keepdim=True), out, 0.0)
     return out if dtype is None else out.to(dtype)
+
+
+class _MaskedMax(torch.autograd.Function):
+    """Max over ``dim`` of ``h`` where ``mask`` (broadcast to ``h``), -inf
+    elsewhere, with the single-winner VJP of the JAX ``_masked_max`` and
+    ``_masked_max_kmajor``: each output's cotangent goes to the FIRST slot
+    that holds the maximum (torch's ``amax`` splits it over ties), in the
+    cotangent's dtype."""
+
+    @staticmethod
+    def forward(ctx, h, mask, dim):
+        masked = torch.where(mask, h, -torch.inf)
+        out = masked.amax(dim=dim)
+        if ctx.needs_input_grad[0]:  # the winners, for the backward only
+            first = (masked == out.unsqueeze(dim)).to(torch.uint8).argmax(
+                dim=dim)
+            ctx.save_for_backward(first)
+            ctx.dim, ctx.shape = dim, h.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (first,) = ctx.saved_tensors
+        dh = g.new_zeros(ctx.shape)
+        return (dh.scatter_(ctx.dim, first.unsqueeze(ctx.dim),
+                            g.unsqueeze(ctx.dim)), None, None)
+
+
+def _edge_max(h, gd, dim=2):
+    """Masked max over the neighbour axis of an edge tensor (``dim=2``:
+    ``[B, N, K, C]``; ``dim=1``: K-major ``[B, K, N, C]``), first-winner
+    gradient, 0 on the points with no valid neighbour."""
+    mask = gd.nbr_mask if dim == 2 else gd.nbr_mask.transpose(1, 2)
+    out = _MaskedMax.apply(h, mask[..., None], dim)
+    return _masked_rows_to_zero(out, gd, None)
+
+
+def _edge_moments(y, gd, stats_mask, table_dtype=None):
+    """Mean and clamped variance of ``y_j - y_i`` over the edges of
+    ``stats_mask`` (None: every slot), from neighbour sums ``s1, s2`` of
+    ``[y, y^2]`` (``gd.nbr_sum``, the table rounded to ``table_dtype``
+    when given) and the valid-slot counts ``cnt``: ``sum_e (y_j - y_i) =
+    sum_n s1_n - cnt_n y_n`` and ``sum_e (y_j - y_i)^2 = sum_n s2_n - 2
+    y_n s1_n + cnt_n y_n^2``."""
+    smask = (torch.ones_like(gd.nbr_mask) if stats_mask is None
+             else stats_mask)
+    c = y.shape[-1]
+    table = torch.cat([y, y * y], dim=-1)
+    if table_dtype is not None:
+        table = table.to(table_dtype).to(y.dtype)
+    s = gd.nbr_sum(table, smask)
+    s1, s2 = s[..., :c], s[..., c:]
+    cnt = smask.sum(dim=-1, keepdim=True).to(y.dtype)
+    edges = torch.clamp(cnt.sum(), min=1.0)
+    lead = tuple(range(y.dim() - 1))
+    mean = (s1 - cnt * y).sum(dim=lead) / edges
+    mean2 = (s2 - 2.0 * y * s1 + cnt * y * y).sum(dim=lead) / edges
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
+def _commuted_max_train(lin, bn, x, gd, stats_mask, dtype):
+    """The commuted bf16 train max of one Linear + BatchNorm + LeakyReLU
+    layer (JAX ``fused_train``): the per-point bf16 product feeds only
+    the BatchNorm batch moments (the variance left unclamped, as the JAX
+    branch computes it); the max runs on ``gd.nbr_matmul_max_train``
+    with the weight's columns flipped by ``sign(inv)``, and the epilogue
+    ``LeakyReLU((sign * max - mean) * inv + bias)`` in f32, cast to
+    ``dtype``."""
+    y = linear(lin, x, dtype).float()
+    mean, var = batch_moments(y, stats_mask, clamp=False)
+    bn.update_running(mean, var)
+    inv = bn.inv(var)
+    sign = torch.where(inv >= 0, 1.0, -1.0)
+    wp = (lin.weight.t() * sign[None, :]).to(dtype).contiguous()
+    mxp = gd.nbr_matmul_max_train(x.to(dtype), wp)
+    out = leaky_relu02((sign * mxp.float() - mean) * inv + bn.bias)
+    return _masked_rows_to_zero(out, gd, dtype)
 
 
 class EdgeMaxMLP(MLP):
@@ -115,7 +200,7 @@ class EdgeMaxMLP(MLP):
             yp = (y * affine[0]).to(self.dtype)
             return gd.nbr_max_affine(yp, affine, sub_self=True)
         if self.training:
-            mean, var = self._edge_moments(y, gd, stats_mask)
+            mean, var = _edge_moments(y, gd, stats_mask)
             bn.update_running(mean, var)
         else:
             mean, var = bn.running_mean, bn.running_var
@@ -128,21 +213,6 @@ class EdgeMaxMLP(MLP):
         h_star = sign * (mxp.float() - yp.float())
         out = leaky_relu02((h_star - mean) * inv + bn.bias)
         return _masked_rows_to_zero(out, gd, self.dtype)
-
-    @staticmethod
-    def _edge_moments(y, gd, stats_mask):
-        """Mean and clamped variance of ``y_j - y_i`` over the edges."""
-        smask = (torch.ones_like(gd.nbr_mask) if stats_mask is None
-                 else stats_mask)
-        c = y.shape[-1]
-        s = gd.nbr_sum(torch.cat([y, y * y], dim=-1), smask)
-        s1, s2 = s[..., :c], s[..., c:]
-        cnt = smask.sum(dim=-1, keepdim=True).to(y.dtype)
-        edges = torch.clamp(cnt.sum(), min=1.0)
-        lead = tuple(range(y.dim() - 1))
-        mean = (s1 - cnt * y).sum(dim=lead) / edges
-        mean2 = (s2 - 2.0 * y * s1 + cnt * y * y).sum(dim=lead) / edges
-        return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
 def _pad128(c: int) -> int:
@@ -164,12 +234,8 @@ class PointMaxMLP(MLP):
     ``gather_max_affine`` (eval) or, in training, the per-point
     BatchNorm + LeakyReLU, cast to bf16, then ``gd.nbr_max``.
 
-    The commuted train branch (JAX ``fused_train``): the per-point bf16
-    product feeds only the BatchNorm batch moments (the variance left
-    unclamped, as the JAX branch computes it); the max runs on
-    ``gd.nbr_matmul_max_train`` with the weight's columns flipped by
-    ``sign(inv)``, and the epilogue ``LeakyReLU((sign * max - mean) * inv
-    + bias)`` in f32, cast to bf16."""
+    The commuted train branch is :func:`_commuted_max_train` (JAX
+    ``fused_train``)."""
 
     def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__([in_channels, out_channels], dtype)
@@ -181,15 +247,8 @@ class PointMaxMLP(MLP):
                 (self.training or not _fusible(gd)) and not narrower):
             return gd.nbr_max(super().forward(x, stats_mask))
         if self.training:
-            y = linear(lin, x, self.dtype).float()
-            mean, var = batch_moments(y, stats_mask, clamp=False)
-            bn.update_running(mean, var)
-            inv = bn.inv(var)
-            sign = torch.where(inv >= 0, 1.0, -1.0)
-            wp = (lin.weight.t() * sign[None, :]).to(self.dtype).contiguous()
-            mxp = gd.nbr_matmul_max_train(x.to(self.dtype), wp)
-            out = leaky_relu02((sign * mxp.float() - mean) * inv + bn.bias)
-            return _masked_rows_to_zero(out, gd, self.dtype)
+            return _commuted_max_train(lin, bn, x, gd, stats_mask,
+                                       self.dtype)
         affine = _bn_affine(bn)
         sign = affine[0]
         if narrower:
@@ -208,22 +267,41 @@ class PointMaxMLP(MLP):
 
 class DeepMaxMLP(MLP):
     """Scalar max branch of a depth >= 2 conv, centralized or not:
-    ``max_k MLP(x_j - x_i)`` or ``max_k MLP(x)[nbr_k]``, eval only. Its
-    parameters are those of ``MLP([C_in, *channels])``.
+    ``max_k MLP(x_j - x_i)`` or ``max_k MLP(x)[nbr_k]``. Its parameters
+    are those of ``MLP([C_in, *channels])``; ``stats_mask`` (the edges
+    ``[B, N, K]`` when centralized, else the points ``[B, N]``) leaves
+    padded ones out of the train-mode BatchNorm statistics.
 
-    The branches follow the JAX gate: in bf16, when the conv is
-    centralized or its input is lane-narrower than its output
-    (``pad128(C_in) < pad128(C_out)``, a TPU lane rule kept as it is),
-    the fused kernel (``gd.nbr_mlp_max``) gathers the input rows and runs
-    the whole eval MLP per edge, the last layer sign-folded so that one
-    max finds the surviving extreme of its BatchNorm + LeakyReLU, which
-    the kernel then applies; the self slot (kNN slot 0) is the MLP of
-    the zero edge (centralized) or of the point itself, a per-point
-    composition outside the kernel. Otherwise the reference pipeline:
-    the ``[B, N, K, C]`` edge tensor through the MLP and a masked max
+    The branches follow the JAX gates, the TPU's route on every device.
+    In bf16 eval, when the conv is centralized or its input is
+    lane-narrower than its output (``pad128(C_in) < pad128(C_out)``, a
+    TPU lane rule kept as it is), the fused kernel (``gd.nbr_mlp_max``)
+    gathers the input rows and runs the whole eval MLP per edge, the last
+    layer sign-folded so that one max finds the surviving extreme of its
+    BatchNorm + LeakyReLU, which the kernel then applies; the self slot
+    (kNN slot 0) is the MLP of the zero edge (centralized) or of the
+    point itself, a per-point composition outside the kernel. In bf16
+    training (not on int8 operators):
+
+    - (a) with ``_EDGE_FUSED_TRAIN``, a centralized conv of depth 2 on an
+      operator object with the affine kernels: layer 0 commutes through
+      the edge difference (``y = x W0`` per point; its BatchNorm's edge
+      moments from neighbour sums of the bf16 table ``[y, y^2]``), the
+      edge MLP ``gd.nbr_edge_mlp`` forms ``lrelu(affine0(y_j - y_i)) @
+      W1`` per edge (K-major, the self slot ``z0 = bf16(lrelu(b0)) @
+      W1``), then BatchNorm 1 over the edges of ``stats_mask`` (JAX takes
+      ``gd.nbr_mask`` there whenever a mask is given; the two differ
+      when the caller's mask is not the graph's), LeakyReLU and the masked
+      max;
+    - (b) a non-centralized conv whose last layer is lane-narrower
+      (``pad128(C_{L-1}) < pad128(C_L)``): the per-point prefix layers,
+      then :func:`_commuted_max_train` of the last (never at
+      ``DeltaConv``'s ``[C_out] * depth``, where the two are equal).
+
+    Otherwise, and in f32, the reference pipeline: the ``[B, N, K, C]``
+    edge tensor (``gd.nbr_gather``) through the MLP and the masked max
     (centralized; rows with no valid neighbour give 0), or the per-point
-    MLP then ``gd.nbr_max``. The port takes the TPU's route on every
-    device.
+    MLP then ``gd.nbr_max``.
     """
 
     def __init__(self, in_channels: int, channels: Sequence[int],
@@ -232,21 +310,49 @@ class DeepMaxMLP(MLP):
         self.centralized = centralized
 
     def forward(self, x, gd, stats_mask=None):
-        if self.training:
-            raise NotImplementedError(
-                "DeepMaxMLP (mlp_depth >= 2) in training: segmentation "
-                "training is ROADMAP queue 1 item 7, not ported yet")
         if self.dtype is not None:
             x = x.to(self.dtype)
         c_out = self[-1][0].out_features
-        if self.dtype is not None and hasattr(gd, "nbr_mlp_max") and (
+        if self.dtype is not None and not self.training and hasattr(
+                gd, "nbr_mlp_max") and (
                 self.centralized or _pad128(x.shape[-1]) < _pad128(c_out)):
             return self._fused(x, gd)
+        if self.dtype is not None and self.training and not gd.int8:
+            if (_EDGE_FUSED_TRAIN and self.centralized and len(self) == 2
+                    and hasattr(gd, "nbr_max_affine")):
+                return self._edge_fused_train(x, gd, stats_mask)
+            if (not self.centralized and hasattr(gd, "nbr_matmul_max_train")
+                    and _pad128(self[-1][0].in_features) < _pad128(c_out)):
+                h = x
+                for lin, norm in list(self)[:-1]:
+                    h = leaky_relu02(norm(linear(lin, h, self.dtype),
+                                          stats_mask)).to(self.dtype)
+                return _commuted_max_train(self[-1][0], self[-1][1].bn, h,
+                                           gd, stats_mask, self.dtype)
         if not self.centralized:
-            return gd.nbr_max(super().forward(x))
-        h = super().forward(gd.nbr_gather(x) - x[:, :, None, :])
-        out = torch.where(gd.nbr_mask[..., None], h, -torch.inf).amax(dim=2)
-        return torch.where(gd.nbr_mask.any(dim=-1, keepdim=True), out, 0.0)
+            return gd.nbr_max(super().forward(x, stats_mask))
+        h = super().forward(gd.nbr_gather(x) - x[:, :, None, :], stats_mask)
+        return _edge_max(h, gd)
+
+    def _edge_fused_train(self, x, gd, stats_mask):
+        """Branch (a) of the class docstring."""
+        (lin0, norm0), (lin1, norm1) = self
+        bn0, bn1 = norm0.bn, norm1.bn
+        y = linear(lin0, x, self.dtype)
+        mean0, var0 = _edge_moments(y.float(), gd, stats_mask,
+                                    torch.bfloat16)
+        bn0.update_running(mean0, var0)
+        a0 = bn0.inv(var0)
+        b0 = bn0.bias - mean0 * a0
+        w1 = lin1.weight.t()
+        z0 = torch.matmul(leaky_relu02(b0).to(self.dtype).float()[None],
+                          w1.to(self.dtype).float())[0]
+        y1 = gd.nbr_edge_mlp(y, a0, b0, w1, z0).float()  # [B, K, N, C1]
+        mean1, var1 = batch_moments(
+            y1, None if stats_mask is None else stats_mask.transpose(1, 2))
+        bn1.update_running(mean1, var1)
+        h1 = leaky_relu02((y1 - mean1) * bn1.inv(var1) + bn1.bias)
+        return _edge_max(h1.to(self.dtype), gd, dim=1)
 
     def _fused(self, x, gd):
         ws, affines = [], []
@@ -274,8 +380,7 @@ class DeltaConv(nn.Module):
         input ``v`` (``[B, N, 2, in_channels]``).
       out_channels: output width of both streams.
       depth: layers of each internal MLP (1: ``EdgeMaxMLP`` or
-        ``PointMaxMLP`` for the max branch, which serve and train; 2 or
-        more: ``DeepMaxMLP``, eval only).
+        ``PointMaxMLP`` for the max branch; 2 or more: ``DeepMaxMLP``).
       centralized: centralize scalar features before the max (the first
         conv, on raw positions).
       vector: propagate the vector stream (False on the last layer).

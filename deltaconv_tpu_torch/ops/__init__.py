@@ -1,19 +1,20 @@
 """The hand-written CUDA kernels of the serving paths (classification and
 segmentation; f32, bf16 and int8; dense or coefficient-form operators;
-one large cloud point-sharded) and the train steps (f32 and bf16), each
-beside its plain PyTorch version.
+one large cloud point-sharded) and the train steps (classification and
+segmentation; f32 and bf16), each beside its plain PyTorch version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the seventeen functions the models call so
+and :data:`PLAIN_OPS` bundle the eighteen functions the models call so
 that a caller can run a forward, or a whole train step, through the
 kernels or through the plain versions on the same device, which is how
 the kernel path is checked on the card; a plain entry is differentiated
 through plain versions only. The gather is differentiable in its table,
 the coefficient-form applies in their features and coefficients, the
 neighbour max (f32 or bf16) and sum in their features, the bf16
-gather-then-matmul max of training in its input and weight, with the
-same gradient routing on both.
+gather-then-matmul max of training in its input and weight, the edge MLP
+of the segmentation train step in its input, affine, weight and self
+slot, with the same gradient routing on both.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
                          gather_max_int8, gather_max_int8_plain,
                          gather_max_plain, gather_max_win,
                          gather_max_win_plain, int8_quantize, masked_nbr_max)
+from .edge_mlp import (edge_delta_mlp, edge_delta_mlp_plain, edge_mlp_bwd,
+                       edge_mlp_bwd_plain, edge_mlp_fwd, edge_mlp_fwd_plain)
 from .gather_mlp_max import gather_mlp_max, gather_mlp_max_plain, mlp_chain
 from .gather_rows import (gather_rows, gather_rows_plain, scatter_rows,
                           scatter_rows_plain)
@@ -52,7 +55,9 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "coef_apply_div_plain", "coef_apply_grad", "coef_apply_grad_plain",
            "densify_coefs",
            "densify_coefs_int8", "densify_coefs_int8_plain",
-           "densify_coefs_plain", "gather_matmul_max",
+           "densify_coefs_plain", "edge_delta_mlp", "edge_delta_mlp_plain",
+           "edge_mlp_bwd", "edge_mlp_bwd_plain", "edge_mlp_fwd",
+           "edge_mlp_fwd_plain", "gather_matmul_max",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
            "gather_matmul_max_plain", "gather_matmul_max_train",
            "gather_matmul_max_train_plain", "gather_matmul_max_win",
@@ -73,7 +78,7 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
 
 
 class Ops(NamedTuple):
-    """The seventeen kernel-backed functions the models call."""
+    """The eighteen kernel-backed functions the models call."""
 
     gather_rows: Callable
     wls: Callable
@@ -92,13 +97,15 @@ class Ops(NamedTuple):
     coef_apply_div: Callable
     knn_topk_table: Callable
     knn_topk_bucketed: Callable
+    edge_delta_mlp: Callable
 
 
 KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
                  knn_topk, gather_max_affine, gather_matmul_max,
                  gather_matmul_max_train, gather_mlp_max, densify_coefs_int8,
                  gather_max_int8, gather_matmul_max_int8, coef_apply_grad,
-                 coef_apply_div, knn_topk_table, knn_topk_bucketed)
+                 coef_apply_div, knn_topk_table, knn_topk_bucketed,
+                 edge_delta_mlp)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_max_plain, gather_sum_plain, knn_topk_plain,
                 gather_max_affine_plain, gather_matmul_max_plain,
@@ -106,4 +113,4 @@ PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 densify_coefs_int8_plain, gather_max_int8_plain,
                 gather_matmul_max_int8_plain, coef_apply_grad_plain,
                 coef_apply_div_plain, knn_topk_table_plain,
-                knn_topk_bucketed_plain)
+                knn_topk_bucketed_plain, edge_delta_mlp_plain)

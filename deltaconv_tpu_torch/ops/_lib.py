@@ -80,6 +80,8 @@ _KERNELS = {
     "knn_topk_table_q": ("dc_knn_topk_table_q", [_P] * 5 + [_I] * 4),
     "knn_topk_bucketed": ("dc_knn_topk_bucketed", [_P] * 8 + [_I] * 6),
     "knn_topk_bucketed_q": ("dc_knn_topk_bucketed_q", [_P] * 8 + [_I] * 6),
+    "edge_delta_mlp": ("dc_edge_mlp_fwd", [_P] * 6 + [_I] * 5),
+    "edge_delta_mlp_bwd": ("dc_edge_mlp_bwd", [_P] * 8 + [_I] * 6),
 }
 
 # Why a raw kernel takes no tensor that requires grad: the operator
@@ -103,8 +105,9 @@ _NO_GRAD = {
     "gather_max_affine": _BF16_EVAL,
     "gather_matmul_max": _BF16_EVAL,
     "gather_mlp_max": "it is the eval form (forward only, as the JAX "
-                      "kernel); DeepMaxMLP in training (segmentation "
-                      "training, ROADMAP queue 1 item 7) is not ported yet",
+                      "kernel); DeepMaxMLP in training takes "
+                      "ops.edge_delta_mlp or the per-point and edge-tensor "
+                      "routes",
 }
 _NO_GRAD["densify_bf16"] = _NO_GRAD["densify"]
 _NO_GRAD.update(dict.fromkeys(
@@ -216,8 +219,8 @@ def check_inputs(name: str, specs) -> torch.device:
             why = _NO_GRAD.get(
                 name, "differentiate through ops.gather_rows, "
                 "ops.coef_apply_grad, ops.coef_apply_div, ops.gather_max, "
-                "ops.gather_sum or ops.gather_matmul_max_train, whose "
-                "backward is a kernel")
+                "ops.gather_sum, ops.gather_matmul_max_train or "
+                "ops.edge_delta_mlp, whose backward is a kernel")
             raise ValueError(f"{where}: the raw kernel takes no tensor "
                              f"that requires grad; {why}")
     return device

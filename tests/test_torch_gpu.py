@@ -1238,3 +1238,168 @@ def test_predict_sharded_kernels_match_plain(cuda, precision):
     assert counts["knn_topk_bucketed_q"] == 1
     rel = 1e-4 if precision is None else 1e-2
     assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+# -- segmentation training: the fused centralized edge MLP ------------------
+
+
+def _edge_mlp_inputs(rng, n, k, c0, c1, masked, dev):
+    """bf16 ``y``, f32 ``a0, b0, w1``, the self slot ``z0`` as the layer
+    makes it, and a graph (masked: the kNN's padding, slots clamped to
+    self), from a seeded generator."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    idx = rng.integers(0, n, (2, n, k)).astype(np.int32)
+    idx[:, :, 0] = np.arange(n)
+    if masked:
+        drop = rng.random((2, n, k)) < 0.3
+        drop[1, n // 2:] = True
+        drop[:, :, 0] = False
+        idx = np.where(drop, np.arange(n, dtype=np.int32)[None, :, None], idx)
+    y = torch.randn((2, n, c0), device=dev, generator=gen).to(torch.bfloat16)
+    a0 = torch.randn(c0, device=dev, generator=gen)
+    b0 = 0.3 * torch.randn(c0, device=dev, generator=gen)
+    w1 = torch.randn((c0, c1), device=dev, generator=gen) / c0 ** 0.5
+    lb = torch.where(b0 >= 0, b0, 0.2 * b0)
+    z0 = lb.to(torch.bfloat16).float() @ w1.to(torch.bfloat16).float()
+    return y, a0, b0, w1, z0, torch.from_numpy(idx).to(dev)
+
+
+def _edge_fwd_held(got, y, a0, b0, w1, z0, idx):
+    """The edge MLP's output held element by element: slot 0 equal to
+    ``bf16(z0)``; every other within one bf16 ulp of the plain version,
+    or within the f32 summation bound ``C0 * 2^-24 * (|h| @ |w1|)`` plus
+    half a bf16 ulp of the exact product (f64) of the same bf16 ``h``
+    (the rule of the matmul maxes, ``_mm_max_held``)."""
+    from deltaconv_tpu_torch.ops.edge_mlp import _edges, _leaky
+
+    want = ops.edge_mlp_fwd_plain(y, a0, b0, w1, z0, idx)
+    assert torch.equal(_bits(got[:, 0]), _bits(want[:, 0]))
+    _, pre = _edges(y, a0, b0, idx)
+    h = _leaky(pre[:, :, 1:]).to(torch.bfloat16).double()
+    wd = w1.to(torch.bfloat16).double()
+    exact = (h @ wd).permute(0, 2, 1, 3)
+    mag = (h.abs() @ wd.abs()).permute(0, 2, 1, 3)
+    gd = got[:, 1:].double()
+    tol = y.shape[-1] * 2.0 ** -24 * mag + 2.0 ** -8 * gd.abs()
+    held = (_bf16_ulps(got[:, 1:], want[:, 1:]) <= 1) | (
+        (gd - exact).abs() <= tol)
+    assert bool(held.all()), f"{int((~held).sum())} elements beyond both"
+
+
+def _dy0_ulp(y, a0, b0, w1, idx, g):
+    """One bf16 ulp of the largest edge term ``|dy0|`` of ``dy``: a term
+    whose f32 sum ran in another order may round to its bf16 neighbour."""
+    from deltaconv_tpu_torch.ops.edge_mlp import _edges
+
+    _, pre = _edges(y, a0, b0, idx)
+    g1 = g[:, 1:].float().permute(0, 2, 1, 3)
+    dh = g1 @ w1.to(torch.bfloat16).float().t()
+    dy0 = dh * torch.where(pre[:, :, 1:] >= 0, 1.0, 0.2) * a0
+    return 2.0 ** -8 * float(dy0.abs().max())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("c0,c1", [(12, 12), (64, 64)])
+def test_edge_mlp_kernels_match_plain(cuda, c0, c1, masked):
+    """``edge_delta_mlp`` forward (``_edge_fwd_held``) and backward against
+    their plain versions at N=150 (a ragged last tile of 16 points) and
+    K=11 (two passes of the backward's 8 warps, the second partial): ``dy``
+    within 1e-5 x max (atomics) plus one bf16 ulp of the largest edge term,
+    ``dw1`` and ``(da0, db0)`` within 1e-5 x max."""
+    rng = np.random.default_rng(90 + c0)
+    n, k = 150, 11
+    y, a0, b0, w1, z0, idx = _edge_mlp_inputs(rng, n, k, c0, c1, masked,
+                                              cuda)
+    out = ops.edge_mlp_fwd(y, a0, b0, w1, z0, idx)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (2, k, n, c1)
+    _edge_fwd_held(out, y, a0, b0, w1, z0, idx)
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    g = torch.randn((2, k, n, c1), device=cuda, generator=gen).to(
+        torch.bfloat16)
+    dy, dw1, dab = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
+    torch.cuda.synchronize()
+    dy_p, dw1_p, dab_p = ops.edge_mlp_bwd_plain(y, a0, b0, w1, idx, g)
+    flip = _dy0_ulp(y, a0, b0, w1, idx, g)
+    torch.testing.assert_close(dy, dy_p, rtol=0, atol=1e-5 * float(
+        dy_p.abs().max()) + flip)
+    _close_to_max(dw1, dw1_p, 1e-5)
+    _close_to_max(dab, dab_p, 1e-5)
+
+
+def test_edge_delta_mlp_autograd_on_the_card(cuda):
+    """The autograd Function through the kernels: one forward and one
+    backward launch; values held as above, the gradients as the raw
+    backward's (``dy`` in bf16: one bf16 ulp more), ``dz0`` the sum of
+    slot 0's cotangent within 1e-5 x max."""
+    rng = np.random.default_rng(95)
+    n, k, c0, c1 = 150, 11, 64, 64
+    y, a0, b0, w1, z0, idx = _edge_mlp_inputs(rng, n, k, c0, c1, True, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    g = torch.randn((2, k, n, c1), device=cuda, generator=gen).to(
+        torch.bfloat16)
+    grads = []
+    reset_launch_counts()
+    for fn in (ops.edge_delta_mlp, ops.edge_delta_mlp_plain):
+        leaves = [t.clone().requires_grad_() for t in (y, a0, b0, w1, z0)]
+        out = fn(*leaves, idx)
+        out.backward(g)
+        grads.append([t.grad for t in leaves])
+        if fn is ops.edge_delta_mlp:
+            _edge_fwd_held(out.detach(), y, a0, b0, w1, z0, idx)
+            counts = launch_counts()
+    assert counts["edge_delta_mlp"] == counts["edge_delta_mlp_bwd"] == 1
+    (dy, da0, db0, dw1, dz0), (dy_p, da0_p, db0_p, dw1_p, dz0_p) = grads
+    assert dy.dtype == torch.bfloat16 and dw1.dtype == torch.float32
+    flip = _dy0_ulp(y, a0, b0, w1, idx, g)
+    torch.testing.assert_close(dy.float(), dy_p.float(), rtol=2.0 ** -8,
+                               atol=1e-5 * float(dy_p.abs().max()) + flip)
+    for got, want in ((da0, da0_p), (db0, db0_p), (dw1, dw1_p),
+                      (dz0, dz0_p)):
+        _close_to_max(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_seg_train_step_kernels_match_plain(cuda, fused, monkeypatch):
+    """A narrow segmentation model at the production config (bf16,
+    approximate kNN, categories), one train step with per-point labels:
+    with ``_EDGE_FUSED_TRAIN`` the step launches ``edge_delta_mlp`` and
+    its backward once each, without it neither. Against the same step with
+    the edge MLP on its plain version: loss rtol 1e-3, running statistics
+    1e-3 x max, gradients 2e-2 relative Frobenius over all tensors (a
+    one-ulp product moves a max winner)."""
+    dc = importlib.import_module("deltaconv_tpu_torch.nn.deltaconv")
+    monkeypatch.setattr(dc, "_EDGE_FUSED_TRAIN", fused)
+    rng = np.random.default_rng(96)
+    pos, nrm = _cloud_batch(rng, 4, 160, cuda)
+    batch = {"pos": pos, "normal": nrm,
+             "label": torch.from_numpy(rng.integers(0, 6, (4, 160))).to(cuda),
+             "category": torch.eye(16, device=cuda)[[1, 4, 4, 9]]}
+
+    def step(ops_):
+        model = DeltaNetSegmentation(
+            6, conv_channels=(16, 32, 64), embedding_size=32,
+            categorical_vector=True, num_neighbors=10, dropout=0.0,
+            compute_dtype="bfloat16", operator_dtype="bfloat16",
+            knn_method="approx", generator=torch.Generator().manual_seed(0))
+        model = model.to(cuda)
+        state = create_train_state(model, sgd_momentum(0.01))
+        metrics = make_train_step(model, smoothing=0.0, per_point=True,
+                                  ops=ops_)(state, batch, None)
+        return float(metrics["loss"]), model
+
+    reset_launch_counts()
+    loss_k, model_k = step(KERNEL_OPS)
+    counts = launch_counts()
+    assert counts["edge_delta_mlp"] == counts["edge_delta_mlp_bwd"] == int(
+        fused), counts
+    loss_p, model_p = step(KERNEL_OPS._replace(
+        edge_delta_mlp=ops.edge_delta_mlp_plain))
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    bufs_p = dict(model_p.named_buffers())
+    for name, b in model_k.named_buffers():
+        _close_to_max(b, bufs_p[name], 1e-3)
+    for p in model_k.parameters():
+        assert bool(p.grad.isfinite().all())
+    assert _frob_all(model_k, model_p) <= 2e-2

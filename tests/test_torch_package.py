@@ -159,6 +159,21 @@ def test_cpu_tensors_take_the_plain_versions():
             ops.knn_topk_bucketed_plain(pos, pos, 6, quantized=quantized,
                                         tile_c=128, m_tiles=1),
             rtol=0, atol=0)
+    ab = torch.randn((2, 5))
+    for got, want in zip(
+            ops.edge_mlp_fwd(hb, ab[0], ab[1], w, gb[0, 0].float(), idx),
+            ops.edge_mlp_fwd_plain(hb, ab[0], ab[1], w, gb[0, 0].float(),
+                                   idx)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    gk = torch.randn((2, 6, 32, 7)).to(torch.bfloat16)
+    for got, want in zip(
+            ops.edge_mlp_bwd(hb, ab[0], ab[1], w, idx, gk),
+            ops.edge_mlp_bwd_plain(hb, ab[0], ab[1], w, idx, gk)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    yg, wg = hb.clone().requires_grad_(), w.float().requires_grad_()
+    ops.edge_delta_mlp(yg, ab[0], ab[1], wg, gb[0, 0].float(),
+                       idx).float().sum().backward()
+    assert yg.grad.dtype == torch.bfloat16 and wg.grad.dtype == torch.float32
     assert launch_counts() == {
         "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
@@ -170,7 +185,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_matmul_max_int8": 0, "scatter_rows": 0,
         "coef_apply_grad": 0, "coef_apply_div": 0, "knn_topk_table": 0,
         "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
-        "knn_topk_bucketed_q": 0}
+        "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
+        "edge_delta_mlp_bwd": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
@@ -186,6 +202,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert PLAIN_OPS.gather_max_int8 is ops.gather_max_int8_plain
     assert (PLAIN_OPS.gather_matmul_max_int8
             is ops.gather_matmul_max_int8_plain)
+    assert KERNEL_OPS.edge_delta_mlp is ops.edge_delta_mlp
+    assert PLAIN_OPS.edge_delta_mlp is ops.edge_delta_mlp_plain
 
 
 def test_kernels_refuse_other_devices():
@@ -250,6 +268,13 @@ def test_kernels_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.gather_matmul_max_int8(
             torch.zeros(2, 32, 5, dtype=torch.int8, device=meta), wb, im, mm)
+    ab = torch.zeros(2, 5, device=meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.edge_mlp_fwd(hb, ab[0], ab[1], wb, torch.zeros(7, device=meta),
+                         im)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.edge_mlp_bwd(hb, ab[0], ab[1], wb, im, torch.zeros(
+            2, 6, 32, 7, dtype=torch.bfloat16, device=meta))
     assert sum(launch_counts().values()) == 0
 
 

@@ -282,14 +282,6 @@ def test_deep_max_mlp_matches_jax(dtype, centralized, c_in, c_out,
         _close_bf16(got, want)
 
 
-def test_deep_max_mlp_training_raises():
-    rng = np.random.default_rng(32)
-    gd, _ = _operators(rng, False)
-    port = DeepMaxMLP(3, (8, 8), centralized=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(_t(rng.standard_normal((B, N, 3)).astype(np.float32)), gd)
-
-
 @pytest.mark.parametrize("dtype,centralized,c_in,c_out", [
     (None, True, 3, 8), (None, False, 8, 16),
     ("bfloat16", True, 3, 8), ("bfloat16", False, 16, 136)],
