@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the thirty CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the thirty-four CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -183,7 +183,36 @@ first on ``sys.path``. It
     running statistics within the JAX package's 5e-2 (rtol and atol);
 20. ``[train-seg-f32]``: 3 f32 steps (exact kNN) timed, then one step
     from the same weights through the kernels and the plain versions
-    (same build), uniform and ragged, held as step 7 holds the f32 step.
+    (same build), uniform and ragged, held as step 7 holds the f32 step;
+21. ``[kernels]`` of the operator build's backward and the fused eval
+    build: wls_bwd (B=32, N=1024 and B=4, N=8192, K=20, uniform and
+    masked; each of the 12 planes within 1e-4 x its max of autograd
+    through the plain WLS math), densify_bwd (bit-equal to
+    ``torch.gather``), fused_gather_wls (within 1e-5 x max of its plain
+    version and of ``gather_rows`` + planes + ``wls``, unnormalized) and
+    knn_topk's mean distances, both bodies (ids equal, distances
+    bit-equal), each timed beside its bound and library call;
+22. ``[pos-grad]``: the reference classifier in f32 at B=32, N=1024, 32
+    uniform clouds and 11 ragged, eval and train mode (dropout 0):
+    ``pos.requires_grad_()``, ``normal.requires_grad_()``, the cross
+    entropy of the logits and ``backward()``, through the kernels and
+    through the plain versions: on the same build the loss within rtol
+    1e-5 and ``pos.grad``, ``normal.grad`` within 1e-3 x max; through the
+    plain build the loss held and the gradients' deviation printed (the
+    ~1e-6 WLS difference flips neighbour-max winners at near-ties);
+    wls_bwd, densify_bwd and scatter_rows once a backward (the plain build
+    only on the first batch and mode); the device and host time of forward
+    + backward, the backward kernels' share and the peak memory;
+23. ``[pos-grad-large]``: the same in coefficient form at B=4, N=8192
+    with approximate kNN (wls_bwd once a backward, densify_bwd never);
+24. ``[serve-fused-build]``: the production bf16 classifier served at
+    B=32, N=1024 with its backbone's ``fused_eval_build`` on and off (a
+    measurement of the backbone's route; the heads take no switch): the
+    fused route through the kernels within 0.01 x max|logit| of the plain
+    versions and of the unfused route, argmax equal where decisive;
+    knn_topk_mean_dist, fused_gather_wls and densify_bf16 once a forward,
+    gather_rows and wls never; the build's device time on both routes and
+    clouds/s of both.
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -335,6 +364,30 @@ SEG_TRAIN_REF_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
 SEG_TRAIN_F32_KERNELS = ("gather_rows", "wls", "densify", "gather_max_win",
                          "gather_max_bwd")
 
+# Gradients for positions and normals (the operator build's backward,
+# wls_bwd and densify_bwd) and the fused eval build (fused_gather_wls,
+# knn_topk's mean distances).
+WLS_BWD_REL = 1e-4  # x each plane's max: the same VJP in another order
+FUSED_REL = 1e-5  # x max: FMA contraction and the K sums' order
+POS_GRAD_REL = 1e-3  # x max: pos.grad and normal.grad, kernels vs plain
+FUSED_PATH_REL = 1e-2  # x max|logit|: fused vs unfused, kernels vs plain
+POS_GRAD_RAGGED = 11  # ragged clouds of the [pos-grad] phase
+POS_GRAD_CALLS = 5  # timed forward + backward calls
+# f32 operations per edge (an FMA as 2), counted from wls_body.cuh: the
+# fit (weights 8, normal equations 66, solve and height sums 70, the
+# frame and div row 36) and its VJP (the fit again, then the four reverse
+# passes: ~100, ~170, ~160 and ~12).
+WLS_FLOPS_PER_EDGE = 180
+WLS_BWD_FLOPS_PER_EDGE = 580
+# Launches on the paths of this slice: one backward through the dense f32
+# build (the gather's VJP scatter_rows once), the coefficient form's (no
+# assembly: no densify_bwd), one forward of the fused eval build.
+POS_GRAD_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 1, "scatter_rows": 1}
+POS_GRAD_LARGE_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 0}
+FUSED_PER_FORWARD = {"knn_topk_mean_dist": 1, "fused_gather_wls": 1,
+                     "densify_bf16": 1, "knn_topk": 0, "gather_rows": 0,
+                     "wls": 0}
+
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
                     "deltaconv_tpu/ops/gather_rows.py:205"),
@@ -396,15 +449,25 @@ KERNEL_META = {
                        "deltaconv_tpu/ops/edge_mlp.py:192"),
     "edge_delta_mlp_bwd": ("deltaconv_tpu_torch/csrc/edge_mlp.cu",
                            "deltaconv_tpu/ops/edge_mlp.py:244"),
+    "wls_bwd": ("deltaconv_tpu_torch/csrc/wls.cu",
+                "deltaconv_tpu/ops/wls_fused.py:212"),
+    "densify_bwd": ("deltaconv_tpu_torch/csrc/densify.cu",
+                    "deltaconv_tpu/ops/densify_op.py:281"),
+    "fused_gather_wls": ("deltaconv_tpu_torch/csrc/fused_build.cu",
+                         "deltaconv_tpu/ops/fused_build.py:180"),
+    "knn_topk_mean_dist": ("deltaconv_tpu_torch/csrc/knn_topk.cu",
+                           "deltaconv_tpu/ops/knn_topk.py:391"),
 }
 # The port's autograd Functions, whose forward or backward launches a
 # kernel outside any aten op (the profiler books it to them).
 AUTOGRAD_FUNCTIONS = ("_GatherMax", "_GatherMatmulMax", "_GatherSum",
                       "_GatherRows", "_CoefApplyGrad", "_CoefApplyDiv",
-                      "_EdgeDeltaMlp", "_GatherMaxBackward",
-                      "_GatherMatmulMaxBackward", "_GatherSumBackward",
-                      "_GatherRowsBackward", "_CoefApplyGradBackward",
-                      "_CoefApplyDivBackward", "_EdgeDeltaMlpBackward")
+                      "_EdgeDeltaMlp", "_Wls", "_Densify",
+                      "_GatherMaxBackward", "_GatherMatmulMaxBackward",
+                      "_GatherSumBackward", "_GatherRowsBackward",
+                      "_CoefApplyGradBackward", "_CoefApplyDivBackward",
+                      "_EdgeDeltaMlpBackward", "_WlsBackward",
+                      "_DensifyBackward")
 # The path whose launch counts each kernel's record reports.
 SERVE_KERNELS = ("gather_rows", "wls", "densify", "gather_max")
 BF16_KERNELS = ("knn_topk", "densify_bf16", "gather_max_affine",
@@ -1392,6 +1455,7 @@ def kernel_phase(rng, dev, card):
     del seg_cases, cases
     coef_kernel_phase(res, rng, dev, card)
     shard_kernel_phase(res, rng, card)
+    build_bwd_kernel_phase(res, rng, dev, card)
     print(f"  (the JSON record gives each at its width: {RECORD_WIDTH}, "
           f"gather_max_affine at C=128, gather_matmul_max, "
           f"gather_matmul_max_win and gather_matmul_max_int8 at "
@@ -1946,6 +2010,7 @@ def profile(tag, what, fn, ref_ms):
         for us, count, key in sorted(rows, reverse=True)[:12]:
             print(f"  {us / 1e3:9.3f} ms {100 * us / max(total, 1e-9):5.1f}%"
                   f" x{count:<4d} {key[:100]}")
+    return total, ours
 
 
 def _deviations(ma, mb):
@@ -3172,6 +3237,452 @@ def shard_nccl_phase(rng, seed, dev):
           f"bit-equal logits, max |diff| {np.abs(alone - grouped).max()}")
 
 
+def _plane_rel(got, want):
+    """The worst of the 12 planes' deviations, each against its plane's
+    max."""
+    return max(max_err(got[:, p], want[:, p])
+               / max(float(want[:, p].abs().max()), 1e-30)
+               for p in range(got.shape[1]))
+
+
+def check_build_bwd_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label,
+                            dev):
+    """wls_bwd against autograd through the plain WLS math (each plane
+    within WLS_BWD_REL x its max); densify_bwd bit-equal to
+    ``torch.gather``; fused_gather_wls within FUSED_REL x max of its plain
+    version and of the unfused build (``gather_rows`` + planes + ``wls``)
+    with the same ``avg``."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.ops.wls_fused import edge_planes
+
+    b, n, k = idx.shape
+    pm = nbr_mask.any(dim=2).to(torch.float32)
+    edges = edge_planes(pos, nrm, xb, yb, idx, nbr_mask, pm, ops.gather_rows)
+    ctg = torch.randn((b, 2, k, n), device=dev)
+    ctd = torch.randn((b, 2, k, n), device=dev)
+    got = ops.wls_bwd(edges, ctg, ctd, 1.0, 1e-3)
+    want = ops.wls_bwd_plain(edges, ctg, ctd, 1.0, 1e-3)
+    rel = _plane_rel(got, want)
+    record("wls_bwd", max_err(got, want))
+    check(f"wls_bwd {label} B={b} N={n}",
+          bool(torch.isfinite(got).all()) and rel <= WLS_BWD_REL,
+          f"worst plane {rel:.3e} x its max <= {WLS_BWD_REL}")
+    if n > N:
+        return
+    dwg = torch.randn((b, 2, n, n), device=dev)
+    dwd = torch.randn((b, 2, n, n), device=dev)
+    got = ops.densify_bwd(idx, dwg, dwd)
+    want = ops.densify_bwd_plain(idx, dwg, dwd)
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    record("densify_bwd", err)
+    check(f"densify_bwd {label}",
+          all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"bit-equal, max_abs_err {err}")
+    del dwg, dwd
+    avg = edges[:, 11, 0, 0].contiguous()
+    got = ops.fused_gather_wls(pos, nrm, xb, yb, idx, nbr_mask, avg)
+    want = ops.fused_gather_wls_plain(pos, nrm, xb, yb, idx, nbr_mask, avg)
+    g, d = ops.wls(edges, 1.0, 1e-3)
+    s = g.abs().sum(dim=2)
+    unfused = (g.transpose(2, 3), d.transpose(2, 3),
+               torch.sqrt(s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1]))
+    for what, ref in (("plain", want), ("unfused", unfused)):
+        rel = max(max_err(a, r) / max(float(r.abs().max()), 1e-30)
+                  for a, r in zip(got, ref))
+        if what == "plain":
+            record("fused_gather_wls", max(max_err(a, r)
+                                           for a, r in zip(got, ref)))
+        check(f"fused_gather_wls {label} vs {what}", rel <= FUSED_REL,
+              f"{rel:.3e} x max <= {FUSED_REL}")
+
+
+def build_bwd_kernel_phase(res, rng, dev, card):
+    """``[kernels]`` of the operator build's backward and the fused eval
+    build: wls_bwd at B=32, N=1024 and B=4, N=8192 (K=20), densify_bwd,
+    fused_gather_wls and knn_topk's mean distances (both bodies) at
+    B=32, N=1024, uniform and masked (the kNN uniform only: it takes no
+    mask); then times, bounds and library calls at the uniform shapes."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+    from deltaconv_tpu_torch.ops.wls_fused import edge_planes
+
+    def record(name, err):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+
+    pos, nrm, xb, yb, cases = graph_cases(rng, dev)
+    for label, (idx, nbr_mask) in cases.items():
+        print(f"[kernels] build backward and fused build, {label}",
+              flush=True)
+        check_build_bwd_kernels(record, pos, nrm, xb, yb, idx, nbr_mask,
+                                label, dev)
+    for quantized in (True, False):
+        idx, md = ops.knn_topk(pos, K, quantized, return_mean_dist=True)
+        idx_p, md_p = ops.knn_topk_plain(pos, K, quantized, True)
+        record("knn_topk_mean_dist", max_err(md, md_p))
+        check(f"knn_topk mean distances quantized={quantized}",
+              torch.equal(idx, idx_p) and torch.equal(md, md_p)
+              and torch.equal(idx, ops.knn_topk(pos, K, quantized)),
+              f"ids equal, distances bit-equal, max_abs_err "
+              f"{max_err(md, md_p)}")
+    (lc, ln) = ellipsoid_clouds(rng, [LARGE_N] * LARGE_B)
+    lpos = torch.from_numpy(np.stack(lc)).to(dev)
+    lnrm = torch.from_numpy(np.stack(ln)).to(dev)
+    lxb, lyb = build_tangent_basis(lnrm)
+    pmask = torch.ones((LARGE_B, LARGE_N), dtype=torch.bool, device=dev)
+    pmask[::2, int(0.6 * LARGE_N):] = False
+    for label, mask in (("uniform", None), ("masked", pmask)):
+        idx, nbr_mask = knn(lpos, K, mask)
+        if mask is not None:
+            nbr_mask = nbr_mask & mask[:, :, None]
+        check_build_bwd_kernels(record, lpos, lnrm, lxb, lyb, idx, nbr_mask,
+                                label, dev)
+    del lpos, lnrm, lxb, lyb, pmask
+
+    idx, nbr_mask = cases["uniform"]
+    pm = nbr_mask.any(dim=2).to(torch.float32)
+    edges = edge_planes(pos, nrm, xb, yb, idx, nbr_mask, pm)
+    ctg = torch.randn((B, 2, K, N), device=dev)
+    ctd = torch.randn((B, 2, K, N), device=dev)
+    dwg = torch.randn((B, 2, N, N), device=dev)
+    dwd = torch.randn((B, 2, N, N), device=dev)
+    avg = edges[:, 11, 0, 0].contiguous()
+    ones = torch.ones_like(nbr_mask)
+    timed = {
+        "wls_bwd": (lambda: ops.wls_bwd(edges, ctg, ctd, 1.0, 1e-3),
+                    lambda: ops.wls_bwd_plain(edges, ctg, ctd, 1.0, 1e-3)),
+        "densify_bwd": (lambda: ops.densify_bwd(idx, dwg, dwd),
+                        lambda: ops.densify_bwd_plain(idx, dwg, dwd)),
+        "fused_gather_wls": (
+            lambda: ops.fused_gather_wls(pos, nrm, xb, yb, idx, ones, avg),
+            lambda: ops.fused_gather_wls_plain(pos, nrm, xb, yb, idx, ones,
+                                               avg)),
+        "knn_topk_mean_dist": (
+            lambda: ops.knn_topk(pos, K, True, return_mean_dist=True),
+            lambda: ops.knn_topk_plain(pos, K, True, True)),
+    }
+    print(f"[times] build backward and fused build, B={B} N={N} K={K}, "
+          f"card: {card}")
+    for name, (fk, fp) in timed.items():
+        res[name]["ms"] = median_ms(fk)
+        res[name]["plain_ms"] = median_ms(fp)
+        print(f"  {name}: kernel {res[name]['ms']:.4f} ms, "
+              f"plain {res[name]['plain_ms']:.4f} ms")
+    print(f"  knn_topk_mean_dist exact body: kernel "
+          f"{median_ms(lambda: ops.knn_topk(pos, K, False, True)):.4f} ms, "
+          f"plain {median_ms(lambda: ops.knn_topk_plain(pos, K, False, True)):.4f}"
+          f" ms")
+    edges_n = B * N * K
+    res["wls_bwd"]["bound"] = bound(
+        nbytes(edges, ctg, ctd, edges),
+        float(edges_n) * WLS_BWD_FLOPS_PER_EDGE)
+    # The gather needs the indices, the 4 entries an edge reads, and its
+    # outputs (not the whole [B, 2, N, N] cotangents).
+    res["densify_bwd"]["bound"] = bound(
+        nbytes(idx) + edges_n * 4 * 4 + edges_n * 4 * 4)
+    gc, dc, rn = ops.fused_gather_wls(pos, nrm, xb, yb, idx, ones, avg)
+    res["fused_gather_wls"]["bound"] = bound(
+        nbytes(pos, nrm, xb, yb, idx, ones, avg, gc, dc, rn),
+        float(edges_n) * WLS_FLOPS_PER_EDGE)
+    res["knn_topk_mean_dist"]["bound"] = bound(
+        nbytes(pos, idx, avg.new_empty((B, N))),
+        float(B) * N * N * KNN_INSTR_PER_PAIR, ISSUE_PER_S)
+    index = idx.long()[:, None].expand(B, 2, N, K)
+    res["densify_bwd"]["library_ms"] = median_ms(
+        lambda: (torch.gather(dwg, 3, index), torch.gather(dwd, 3, index)))
+
+    def knn_library():
+        """Score plane and ``topk``, then the winners' mean distance."""
+        sq = (pos * pos).sum(-1)
+        s = 2.0 * torch.matmul(pos, pos.transpose(1, 2)) - sq[:, None, :]
+        best = torch.topk(s, K, dim=-1).values
+        return torch.sqrt(torch.clamp(sq[..., None] - best, min=0.0)).mean(-1)
+
+    res["knn_topk_mean_dist"]["library_ms"] = median_ms(knn_library)
+    for name in ("densify_bwd", "knn_topk_mean_dist"):
+        print(f"  {name}: library call {res[name]['library_ms']:.4f} ms")
+
+
+def device_ms(fn, reps=3) -> float:
+    """The device time of one call of ``fn``: the kernels' and copies'
+    total in ``torch.profiler`` over ``reps`` calls, divided by ``reps``.
+    A short spin kernel opens the traced window and is left out of the
+    sum. (CUDA events around a call would count the host's gaps: the
+    build's small host-to-device copies wait for the stream.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(evt.self_device_time_total for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA
+               and "spin_kernel" not in evt.key) / 1e3 / reps
+
+
+def _plain_vjp_wls():
+    """The wls kernel's forward with the plain version's VJP (autograd
+    through ``_wls_math``): the plain side of the same-build comparisons
+    builds bit-equal operators and differentiates them with the plain
+    versions only."""
+    from deltaconv_tpu_torch import ops
+
+    class PlainVjpWls(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, edges, kernel_width, regularizer):
+            ctx.save_for_backward(edges)
+            ctx.params = (kernel_width, regularizer)
+            with torch.no_grad():
+                return ops.wls(edges.detach(), kernel_width, regularizer)
+
+        @staticmethod
+        def backward(ctx, ctg, ctd):
+            (edges,) = ctx.saved_tensors
+            return ops.wls_bwd_plain(edges, ctg.contiguous(),
+                                     ctd.contiguous(), *ctx.params), None, None
+
+    def wls(edges, kernel_width, regularizer):
+        if edges.requires_grad and torch.is_grad_enabled():
+            return PlainVjpWls.apply(edges, kernel_width, regularizer)
+        return ops.wls(edges, kernel_width, regularizer)
+
+    return wls
+
+
+def pos_grad_once(batch, seed, dev, ops, train, **config):
+    """``d loss / d pos`` and ``d loss / d normal`` of the cross entropy of a
+    fresh model's logits (dropout 0; in eval mode with randomized
+    BatchNorm scales, in train mode on batch statistics as the train
+    steps), through ``ops``. Returns the loss, both gradients and the
+    model."""
+    model = random_model(seed, dev, dropout=0.0, affine=not train, **config)
+    model.train(train)
+    p = batch["pos"].clone().requires_grad_()
+    q = batch["normal"].clone().requires_grad_()
+    logits = model(p, q, batch.get("point_mask"), ops=ops)
+    loss = torch.nn.functional.cross_entropy(logits, batch["label"])
+    loss.backward()
+    return float(loss), p.grad, q.grad
+
+
+def compare_pos_grads(label, batch, seed, dev, train, per_backward,
+                      plain_build, **config):
+    """One backward through the kernels, then through the plain versions:
+    on the same build (the plain side's operators bit-equal, see
+    :func:`_plain_vjp_wls`) the loss within LOSS_RTOL and both gradients
+    within POS_GRAD_REL x max are held; with ``plain_build``, also
+    through the plain build (its WLS forward ~1e-6 away, enough to flip
+    neighbour-max winners at near-ties): the loss is held and the
+    gradients' deviation printed. Counts the kernel side's launches:
+    ``per_backward`` exactly, and returns them."""
+    from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS, launch_counts,
+                                     reset_launch_counts)
+    from deltaconv_tpu_torch.ops import (coef_apply_div_plain,
+                                         coef_apply_grad_plain,
+                                         densify_coefs_plain,
+                                         gather_max_plain, gather_rows_plain,
+                                         gather_sum_plain)
+
+    same = KERNEL_OPS._replace(
+        gather_rows=gather_rows_plain, wls=_plain_vjp_wls(),
+        densify_coefs=densify_coefs_plain, gather_max=gather_max_plain,
+        gather_sum=gather_sum_plain, coef_apply_grad=coef_apply_grad_plain,
+        coef_apply_div=coef_apply_div_plain)
+    reset_launch_counts()
+    lk, gpk, gnk = pos_grad_once(batch, seed, dev, KERNEL_OPS, train,
+                                 **config)
+    counts = launch_counts()
+    for name, per in per_backward.items():
+        check(f"{label} {name} {per} a backward", counts[name] == per,
+              f"{counts[name]} launches")
+    routes = [("same build", same)]
+    if plain_build:
+        routes.append(("plain build", PLAIN_OPS))
+    for route, plain in routes:
+        lp, gpp, gnp = pos_grad_once(batch, seed, dev, plain, train,
+                                     **config)
+        check(f"{label} loss kernels vs plain ({route})",
+              abs(lk - lp) <= LOSS_RTOL * abs(lp),
+              f"{lk} vs {lp}, rel {abs(lk - lp) / abs(lp):.3e} <= "
+              f"{LOSS_RTOL}")
+        for what, a, b in (("pos.grad", gpk, gpp), ("normal.grad", gnk, gnp)):
+            rel = max_err(a, b) / max(float(b.abs().max()), 1e-30)
+            finite = bool(torch.isfinite(a).all())
+            if route == "same build":
+                check(f"{label} {what} kernels vs plain ({route})",
+                      finite and rel <= POS_GRAD_REL,
+                      f"{rel:.3e} x max <= {POS_GRAD_REL}")
+            else:
+                check(f"{label} {what} finite", finite, "")
+                print(f"  {label} {what} kernels vs plain ({route}): "
+                      f"{rel:.3e} x max (winner flips; not held)")
+    return counts
+
+
+def pos_grad_phase(rng, seed, dev, card, large=False):
+    """``[pos-grad]``: the reference classifier in f32 (exact kNN, dense
+    operators) at B=32, N=1024 on 32 uniform clouds and 11 ragged ones,
+    eval and train mode: ``pos.requires_grad_()``, ``normal
+    .requires_grad_()``, the cross entropy of the logits, ``backward()``.
+    ``[pos-grad-large]`` (``large``): the coefficient form at B=4,
+    N=8192 with approximate kNN, 4 uniform clouds and 3 ragged with a full
+    one. Held kernels vs plain (:func:`compare_pos_grads`; the plain build
+    on the first batch and mode); the device and host time of forward +
+    backward, the backward kernels' share (scatter_rows: the gather's and,
+    in coefficient form, the applies') and the peak memory."""
+    tag = "pos-grad-large" if large else "pos-grad"
+    if large:
+        b, n = LARGE_B, LARGE_N
+        config = dict(dense_operators=False, knn_method="approx")
+        per = POS_GRAD_LARGE_PER_BACKWARD
+        sizes = rng.integers(LARGE_MIN_POINTS, n, b - 1).tolist() + [n]
+    else:
+        b, n, config, per = B, N, {}, POS_GRAD_PER_BACKWARD
+        sizes = rng.integers(n * 600 // 1024, n, POS_GRAD_RAGGED).tolist()
+    uniform = train_batch(rng, dev, [n] * b, n)
+    ragged = train_batch(rng, dev, sizes, n)
+    counts = None
+    for train in (False, True):
+        mode = "train" if train else "eval"
+        for label, batch in (("uniform", uniform), ("ragged", ragged)):
+            print(f"[{tag}] {mode}, {label} ({len(batch['label'])} clouds of "
+                  f"up to {n} points)", flush=True)
+            c = compare_pos_grads(f"{mode} {label}", batch, seed, dev,
+                                  train, per, counts is None, **config)
+            counts = c if counts is None else counts
+    model = random_model(seed, dev, dropout=0.0, **config).eval()
+
+    def step():
+        p = uniform["pos"].clone().requires_grad_()
+        q = uniform["normal"].clone().requires_grad_()
+        torch.nn.functional.cross_entropy(
+            model(p, q), uniform["label"]).backward()
+        model.zero_grad(set_to_none=True)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(POS_GRAD_CALLS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    t = float(np.median(times)) * 1e3
+    print(f"[{tag}] eval forward + backward of {b} uniform clouds (N={n}, "
+          f"K={K}, reference width, f32, {config or 'dense, exact kNN'}): "
+          f"median {t:.3f} ms (host clock, synchronised), peak "
+          f"{peak:.2f} GiB, card: {card}")
+    total, ours = profile(tag, "one eval forward + backward", step, t)
+    for name in ("wls_bwd", "densify_bwd", "scatter_rows"):
+        us = sum(r[0] for r in ours if f"{name}_kernel" in r[2])
+        print(f"[{tag}] {name}: {us / 1e3:.3f} ms, {us / max(total, 1e-9):.4f}"
+              f" of the device time, {us / max(sum(r[0] for r in ours), 1e-9):.3f}"
+              f" of the port's kernels")
+    return counts
+
+
+def serve_fused_build_phase(clouds, seed, dev, card):
+    """``[serve-fused-build]``: the production bf16 classifier (approximate
+    kNN, bf16 compute and operators) served at B=32, N=1024 with its
+    backbone's ``fused_eval_build`` on and off, on the same weights and
+    64 uniform clouds (the gate takes no point mask). Held: the fused
+    route through the kernels within FUSED_PATH_REL x max|logit| of the
+    same route through the plain versions and of the unfused route, the
+    argmax equal where decisive; launches per forward as
+    FUSED_PER_FORWARD. Prints the build's device time on both routes and
+    clouds/s of both engines."""
+    from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine, KERNEL_OPS,
+                                     launch_counts, reset_launch_counts)
+    from deltaconv_tpu_torch.models import (build_dense_operators_fused,
+                                            build_operators)
+
+    model = random_model(seed, dev, knn_method="approx")
+    kw = dict(num_points=N, batch_size=B, precision="bfloat16")
+    engines = {}
+    for fused in (False, True):
+        for route, ops in (("kernels", KERNEL_OPS), ("plain", PLAIN_OPS)):
+            engine = InferenceEngine(model, ops=ops, **kw)
+            # A measurement of the backbone's route: the heads take no
+            # fused_eval_build (as in the JAX package), so the switch is
+            # set on the served copy's backbone.
+            engine.model.deltanet_base.fused_eval_build = fused
+            engines[fused, route] = engine
+    uni, uni_n = clouds[0], clouds[1]
+    for engine in engines.values():
+        engine.predict(uni[:B], uni_n[:B])  # warm-up
+    torch.cuda.synchronize()
+    out, times = {}, {}
+    for fused in (False, True):
+        reset_launch_counts()
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out[fused] = engines[fused, "kernels"].predict(uni, uni_n)
+            t.append(time.perf_counter() - t0)
+        times[fused] = float(np.median(t))
+        counts = launch_counts()
+        forwards = 3 * (len(uni) // B)
+        if fused:
+            fused_counts = counts
+            print(f"[serve-fused-build] launches ({forwards} forwards, "
+                  f"fused): {counts}")
+            for name, per in FUSED_PER_FORWARD.items():
+                check(f"{name} {per} a forward",
+                      counts[name] == per * forwards,
+                      f"{counts[name]} launches in {forwards} forwards")
+        else:
+            check("the unfused route takes no fused build",
+                  counts["fused_gather_wls"] == 0
+                  and counts["knn_topk_mean_dist"] == 0,
+                  f"{counts['fused_gather_wls']} fused_gather_wls launches")
+    check("fused logits", out[True].shape == (64, NUM_CLASSES)
+          and bool(np.isfinite(out[True]).all()), f"shape {out[True].shape}")
+    held_to("fused route, kernels vs plain", out[True],
+            engines[True, "plain"].predict(uni, uni_n), FUSED_PATH_REL)
+    held_to("fused vs unfused route", out[True], out[False], FUSED_PATH_REL)
+
+    pos = torch.from_numpy(np.stack(uni[:B])).to(dev)
+    nrm = torch.from_numpy(np.stack(uni_n[:B])).to(dev)
+    build = {
+        True: lambda: build_dense_operators_fused(pos, K, nrm),
+        False: lambda: build_operators(pos, K, nrm,
+                                       operator_dtype="bfloat16",
+                                       knn_method="approx")}
+    with torch.no_grad():
+        gd_f, gd_u = build[True](), build[False]()
+        x = torch.randn((B, N, 64), device=dev).to(torch.bfloat16)
+        want = gd_u.grad(x).float()
+        rel = max_err(gd_f.grad(x).float(), want) / float(want.abs().max())
+        check("the fused operators' grad vs the unfused", rel <=
+              FUSED_PATH_REL, f"{rel:.3e} x max <= {FUSED_PATH_REL}")
+        ms = {f: (device_ms(fn), median_ms(fn)) for f, fn in build.items()}
+    print(f"[serve-fused-build] the operator build at B={B}, N={N}, K={K} "
+          f"(bf16 operators, approximate kNN), device time (profiler) and "
+          f"CUDA-event median of back-to-back calls: fused "
+          f"{ms[True][0]:.4f} and {ms[True][1]:.4f} ms (knn_topk with mean "
+          f"distances, frames, fused_gather_wls, densify_bf16), unfused "
+          f"{ms[False][0]:.4f} and {ms[False][1]:.4f} ms (knn_topk, frames, "
+          f"gather_rows, planes, wls, normalization, densify_bf16); card: "
+          f"{card}")
+    for fused in (False, True):
+        t = times[fused]
+        print(f"[serve-fused-build] fused_eval_build={fused}: 64 uniform "
+              f"clouds, median {t * 1e3:.3f} ms per call of 2 batches, "
+              f"{64 / t:.1f} clouds/s (host clock, synchronised), card: "
+              f"{card}")
+    profile("serve-fused-build", "one 64-cloud predict call (fused)",
+            lambda: engines[True, "kernels"].predict(uni, uni_n),
+            times[True] * 1e3)
+    return fused_counts
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3198,32 +3709,52 @@ def main():
 
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
+    marks = [("build", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     res = kernel_phase(rng, dev, card)
+    mark("kernels")
     serve = serve_phase(rng, args.seed, dev, card)
     clouds = serving_clouds(rng)  # the same for bf16 and int8 serving
     serve_bf16 = serve_lowp_phase(clouds, args.seed, dev, card, "bfloat16")
     serve_int8 = serve_lowp_phase(clouds, args.seed, dev, card, "int8")
     apply_times(clouds, dev, card)
     conv3_forms(dev, card)
+    mark("serving")
     train, stream = train_phase(rng, args.seed, dev, card)
     train_bf16 = train_bf16_phase(rng, args.seed, dev, card)
+    mark("training")
     seg = serve_seg_phase(rng, args.seed, dev, card, None)
     seg_bf16 = serve_seg_phase(rng, args.seed, dev, card, "bfloat16")
     seg_int8 = serve_seg_phase(rng, args.seed, dev, card, "int8")
     conv2_seg_forms(dev, card)
+    mark("segmentation serving")
     large = large_clouds(rng)
     serve_large = serve_large_phase(large, args.seed, dev, card, "bfloat16")
     serve_large_f32 = serve_large_phase(large, args.seed, dev, card, None)
     coef_vs_dense_phase(clouds, args.seed, dev, card)
     train_large = train_large_phase(rng, args.seed, dev, card)
+    mark("large clouds")
     shard_bf16 = serve_shard_phase(rng, args.seed, dev, card, "bfloat16")
     shard_f32 = serve_shard_phase(rng, args.seed, dev, card, None)
     shard_seg = serve_shard_seg_phase(rng, args.seed, dev, card, None)
     shard_seg_bf16 = serve_shard_seg_phase(rng, args.seed, dev, card,
                                            "bfloat16")
     shard_nccl_phase(rng, args.seed, dev)
+    mark("point sharding")
     seg_train = train_seg_bf16_phase(rng, args.seed, dev, card)
     seg_train_f32 = train_seg_f32_phase(rng, args.seed, dev, card)
+    mark("segmentation training")
+    pos_grad = pos_grad_phase(rng, args.seed, dev, card)
+    pos_grad_phase(rng, args.seed, dev, card, large=True)
+    mark("positions' gradients")
+    fused_build = serve_fused_build_phase(clouds, args.seed, dev, card)
+    mark("fused eval build")
+    print("[time] seconds per group of phases: " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}"
+        for i, (name, t) in enumerate(marks[1:])))
 
     def launches(name):
         for path, counts in ((SERVE_KERNELS, serve),
@@ -3243,7 +3774,10 @@ def main():
                              (("knn_topk_table",), shard_seg),
                              (("knn_topk_table_q",), shard_seg_bf16),
                              (SEG_TRAIN_KERNELS, seg_train),
-                             (SEG_TRAIN_F32_KERNELS, seg_train_f32)):
+                             (SEG_TRAIN_F32_KERNELS, seg_train_f32),
+                             (("wls_bwd", "densify_bwd"), pos_grad),
+                             (("knn_topk_mean_dist", "fused_gather_wls"),
+                              fused_build)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

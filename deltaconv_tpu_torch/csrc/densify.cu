@@ -1,10 +1,13 @@
 // Dense grad/div operators from the per-edge coefficients:
 //   w_grad[b, d, n, idx[b, n, k]] += grad_coef[b, n, k, d]
 //   w_div [b, d, n, idx[b, n, k]] += div_coef [b, n, k, d]
-// idx [B, N, K] i32, grad_coef/div_coef [B, N, K, 2] f32
+// idx [B, N, K] i32, grad_coef/div_coef [B, N, K, 2] f32 (or, with
+// `planes` set, [B, 2, N, K]: the fused eval build's layout, JAX's
+// `densify_coef_planes` entry)
 //   -> w_grad, w_div [B, 2, N, N] f32 (`dc_densify`) or bf16
 //   (`dc_densify_bf16`), zero where no edge lands; or the quantized
-//   int8 planes (`dc_densify_int8`, below).
+//   int8 planes (`dc_densify_int8`, below). `dc_densify_bwd` is the VJP
+//   (below).
 //
 // Replaces the Pallas kernel of deltaconv_tpu/ops/densify_op.py
 // (`densify_coef_planes`, pallas_call at densify_op.py:249) in both of
@@ -55,6 +58,16 @@
 // to 0), and it is the JAX CPU fallback's one-hot sum
 // (geometry/dense.py:265-278) everywhere. Bound: the stores, 4 * N * N
 // bytes per cloud (134 MB at B=32, N=1024).
+//
+// `dc_densify_bwd`: the VJP of the f32 and bf16 bodies, idx [B, N, K]
+// i32 and the cotangents dwg, dwd [B, 2, N, N] f32 -> d_grad, d_div
+// [B, N, K, 2] f32 with d[b, n, k, c] = dW[b, c, n, idx[b, n, k]] (an
+// index outside [0, N) reads 0). Replaces `_densify_bwd` (pallas_call at
+// densify_op.py:281, body `_bwd_kernel`), which scanned all N columns of
+// a row tile with a one-hot select per slot; here a thread owns an edge
+// (b, n, k) and loads its four entries directly. The K edges of a row
+// read one row of each plane, so a warp's loads fall in a few rows.
+// Bound: the indices, the 4 entries an edge reads and the outputs.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -91,7 +104,7 @@ __global__ void densify_kernel(const int* __restrict__ idx,
                                const float* __restrict__ grad_coef,
                                const float* __restrict__ div_coef,
                                T* __restrict__ w_grad, T* __restrict__ w_div,
-                               int N, int K) {
+                               int N, int K, int planes) {
   extern __shared__ float smem[];
   int* s_idx = reinterpret_cast<int*>(smem);  // [K]
   float* s_coef = smem + K;                   // [4, K]: g1, g2, d1, d2
@@ -99,12 +112,16 @@ __global__ void densify_kernel(const int* __restrict__ idx,
   const long long n = blockIdx.x;
   const long long b = blockIdx.y;
   const long long row = (b * N + n) * K;
+  // Element (d, k) of the row's coefficients: [B, N, K, 2] or [B, 2, N, K].
+  const long long base = planes ? (b * 2 * N + n) * K : row * 2;
+  const long long sk = planes ? 1 : 2;
+  const long long sd = planes ? (long long)N * K : 1;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     s_idx[k] = idx[row + k];
-    s_coef[k] = grad_coef[(row + k) * 2];
-    s_coef[K + k] = grad_coef[(row + k) * 2 + 1];
-    s_coef[2 * K + k] = div_coef[(row + k) * 2];
-    s_coef[3 * K + k] = div_coef[(row + k) * 2 + 1];
+    s_coef[k] = grad_coef[base + k * sk];
+    s_coef[K + k] = grad_coef[base + k * sk + sd];
+    s_coef[2 * K + k] = div_coef[base + k * sk];
+    s_coef[3 * K + k] = div_coef[base + k * sk + sd];
   }
   __syncthreads();
 
@@ -145,15 +162,37 @@ __global__ void densify_kernel(const int* __restrict__ idx,
 template <typename T>
 int launch_densify(const void* idx, const void* grad_coef,
                    const void* div_coef, void* w_grad, void* w_div, int B,
-                   int N, int K, int device, void* stream) {
+                   int N, int K, int planes, int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N == 0) return (int)cudaGetLastError();
   const dim3 grid(N, B);
   const size_t smem = (size_t)K * 5 * sizeof(float);
   densify_kernel<T><<<grid, 256, smem, (cudaStream_t)stream>>>(
       (const int*)idx, (const float*)grad_coef, (const float*)div_coef,
-      (T*)w_grad, (T*)w_div, N, K);
+      (T*)w_grad, (T*)w_div, N, K, planes);
   return (int)cudaGetLastError();
+}
+
+__global__ void densify_bwd_kernel(const int* __restrict__ idx,
+                                   const float* __restrict__ dwg,
+                                   const float* __restrict__ dwd,
+                                   float2* __restrict__ d_grad,
+                                   float2* __restrict__ d_div, int N, int K,
+                                   long long edges) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= edges) return;
+  const long long bn = e / K;  // the row b * N + n
+  const long long b = bn / N;
+  const long long nn = (long long)N * N;
+  const int j = idx[e];
+  float2 g = make_float2(0.0f, 0.0f), d = g;
+  if ((unsigned)j < (unsigned)N) {
+    const long long at = b * 2 * nn + (bn - b * N) * N + j;
+    g = make_float2(dwg[at], dwg[at + nn]);
+    d = make_float2(dwd[at], dwd[at + nn]);
+  }
+  d_grad[e] = g;
+  d_div[e] = d;
 }
 
 // clip(rint(p / s * 127), -127, 127), each operation rounded on its own.
@@ -261,15 +300,31 @@ extern "C" int dc_densify_int8(const void* idx, const void* grad_coef,
 
 extern "C" int dc_densify(const void* idx, const void* grad_coef,
                           const void* div_coef, void* w_grad, void* w_div,
-                          int B, int N, int K, int device, void* stream) {
+                          int B, int N, int K, int planes, int device,
+                          void* stream) {
   return launch_densify<float>(idx, grad_coef, div_coef, w_grad, w_div, B,
-                               N, K, device, stream);
+                               N, K, planes, device, stream);
 }
 
 extern "C" int dc_densify_bf16(const void* idx, const void* grad_coef,
                                const void* div_coef, void* w_grad,
-                               void* w_div, int B, int N, int K, int device,
-                               void* stream) {
+                               void* w_div, int B, int N, int K, int planes,
+                               int device, void* stream) {
   return launch_densify<__nv_bfloat16>(idx, grad_coef, div_coef, w_grad,
-                                       w_div, B, N, K, device, stream);
+                                       w_div, B, N, K, planes, device,
+                                       stream);
+}
+
+extern "C" int dc_densify_bwd(const void* idx, const void* dwg,
+                              const void* dwd, void* d_grad, void* d_div,
+                              int B, int N, int K, int device, void* stream) {
+  DC_SET_DEVICE(device);
+  const long long edges = (long long)B * N * K;
+  if (edges == 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  densify_bwd_kernel<<<(unsigned)((edges + threads - 1) / threads), threads,
+                       0, (cudaStream_t)stream>>>(
+      (const int*)idx, (const float*)dwg, (const float*)dwd,
+      (float2*)d_grad, (float2*)d_div, N, K, edges);
+  return (int)cudaGetLastError();
 }

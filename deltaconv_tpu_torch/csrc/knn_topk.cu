@@ -3,7 +3,13 @@
 //
 //   s(n, m) = 2 (q . p_m) - |p_m|^2,  q = pos[b, n], p_m = pos[b, m]
 //   idx[b, n, :] = the K columns m with the largest s(n, m)
-// pos [B, N, 3] f32 -> idx [B, N, K] i32 (N >= K), nothing else.
+// pos [B, N, 3] f32 -> idx [B, N, K] i32 (N >= K); `dc_knn_topk_mean_dist`
+// also writes md [B, N] f32, the mean Euclidean distance to the K
+// winners (self counted as 0): the sum over the rounds, in round order,
+// of sqrt(max(|q|^2 - s, 0)) with s the round's winning score (exact) or
+// its key dequantized, rmin + ((key >> 16) + 32768) / scale (packed;
+// round 0, the self loop, skipped), divided by K (JAX's
+// `return_mean_dist`, knn_topk.py:48-69, 94-114).
 //
 // Replaces the Pallas kernel of deltaconv_tpu/ops/knn_topk.py (`knn_topk`,
 // pallas_call at knn_topk.py:391) in both of its bodies:
@@ -22,7 +28,7 @@
 //
 // Every score is computed in the JAX kernel's order with each operation
 // rounded on its own (__fmul_rn/__fadd_rn: no FMA contraction), so the
-// indices are bit-equal to the plain version's.
+// indices, and the mean distances, are bit-equal to the plain version's.
 //
 // Design: one warp per query row, 8 rows of one cloud per block. Up to
 // 1024 points the block stages the cloud (x, y, z, |p|^2) in shared
@@ -91,11 +97,21 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// One round's term of the mean distance: sqrt(max(|q|^2 - s, 0)).
+__device__ __forceinline__ float dist_term(float qsq, float s) {
+  return __fsqrt_rn(fmaxf(__fsub_rn(qsq, s), 0.0f));
+}
+
+// A packed key's score, dequantized.
+__device__ __forceinline__ float key_score(int key, float rmin, float scale) {
+  return __fadd_rn(rmin, __fdiv_rn((float)((key >> 16) + 32768), scale));
+}
+
 // N <= kMaxRegisterN: lane `l` owns columns l + 32 j.
 template <bool kQuantized>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
     knn_topk_regs_kernel(const float* __restrict__ pos, int* __restrict__ out,
-                         int N, int K) {
+                         float* __restrict__ md, int N, int K) {
   __shared__ float4 pts[kMaxRegisterN];
   const long long b = blockIdx.y;
   const float* pb = pos + b * N * 3;
@@ -135,27 +151,34 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
                : c == row ? self_key(c)
                           : packed_key(s[j], lo, scale, c);
     }
+    float dsum = 0.0f;
     for (int r = 0; r < K; ++r) {
       int m = INT_MIN;
 #pragma unroll
       for (int j = 0; j < kKeysPerLane; ++j) m = max(m, key[j]);
       m = __reduce_max_sync(kFull, m);
       if (lane == 0) orow[r] = 65535 - (m & 65535);
+      if (r > 0)
+        dsum = __fadd_rn(dsum, dist_term(q.w, key_score(m, lo, scale)));
 #pragma unroll
       for (int j = 0; j < kKeysPerLane; ++j)
         if (key[j] == m) key[j] = INT_MIN;
     }
+    if (md != nullptr && lane == 0)
+      md[b * N + row] = __fdiv_rn(dsum, (float)K);
   } else {
 #pragma unroll
     for (int j = 0; j < kKeysPerLane; ++j) {
       const int c = lane + 32 * j;
       s[j] = c >= N ? -INFINITY : (c == row ? 2.0f * kBig : s[j]);
     }
+    float dsum = 0.0f;
     for (int r = 0; r < K; ++r) {
       float m = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kKeysPerLane; ++j) m = fmaxf(m, s[j]);
       m = warp_max(m);
+      dsum = __fadd_rn(dsum, dist_term(q.w, m));
       int w = INT_MAX;
 #pragma unroll
       for (int j = kKeysPerLane - 1; j >= 0; --j)
@@ -166,6 +189,8 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
       for (int j = 0; j < kKeysPerLane; ++j)
         if (lane + 32 * j == w) s[j] = -kBig;
     }
+    if (md != nullptr && lane == 0)
+      md[b * N + row] = __fdiv_rn(dsum, (float)K);
   }
 }
 
@@ -177,7 +202,8 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
 template <bool kQuantized>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
     knn_topk_stream_kernel(const float* __restrict__ pos,
-                           int* __restrict__ out, int N, int K) {
+                           int* __restrict__ out, float* __restrict__ md,
+                           int N, int K) {
   const long long b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
@@ -198,6 +224,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     const float scale = quant_scale(lo, hi);
     // Above every key: the self key of column 0 is INT_MAX itself.
     long long prev = (long long)INT_MAX + 1;
+    float dsum = 0.0f;
     for (int r = 0; r < K; ++r) {
       int m = INT_MIN;
       for (int c = lane; c < N; c += 32) {
@@ -208,11 +235,16 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
       }
       m = __reduce_max_sync(kFull, m);
       if (lane == 0) orow[r] = 65535 - (m & 65535);
+      if (r > 0)
+        dsum = __fadd_rn(dsum, dist_term(q.w, key_score(m, lo, scale)));
       prev = m;
     }
+    if (md != nullptr && lane == 0)
+      md[b * N + row] = __fdiv_rn(dsum, (float)K);
   } else {
     float prev_s = INFINITY;
     int prev_c = -1;
+    float dsum = 0.0f;
     for (int r = 0; r < K; ++r) {
       float m = -INFINITY;
       for (int c = lane; c < N; c += 32) {
@@ -230,16 +262,17 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
       }
       w = __reduce_min_sync(kFull, w);
       if (lane == 0) orow[r] = w;
+      dsum = __fadd_rn(dsum, dist_term(q.w, m));
       prev_s = m;
       prev_c = w;
     }
+    if (md != nullptr && lane == 0)
+      md[b * N + row] = __fdiv_rn(dsum, (float)K);
   }
 }
 
-}  // namespace
-
-extern "C" int dc_knn_topk(const void* pos, void* idx, int B, int N, int K,
-                           int quantized, int device, void* stream) {
+int launch_knn_topk(const void* pos, void* idx, void* md, int B, int N,
+                    int K, int quantized, int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N == 0) return (int)cudaGetLastError();
   const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, B);
@@ -247,16 +280,31 @@ extern "C" int dc_knn_topk(const void* pos, void* idx, int B, int N, int K,
   cudaStream_t s = (cudaStream_t)stream;
   const float* p = (const float*)pos;
   int* o = (int*)idx;
+  float* m = (float*)md;
   if (N <= kMaxRegisterN) {
     if (quantized)
-      knn_topk_regs_kernel<true><<<grid, block, 0, s>>>(p, o, N, K);
+      knn_topk_regs_kernel<true><<<grid, block, 0, s>>>(p, o, m, N, K);
     else
-      knn_topk_regs_kernel<false><<<grid, block, 0, s>>>(p, o, N, K);
+      knn_topk_regs_kernel<false><<<grid, block, 0, s>>>(p, o, m, N, K);
   } else {
     if (quantized)
-      knn_topk_stream_kernel<true><<<grid, block, 0, s>>>(p, o, N, K);
+      knn_topk_stream_kernel<true><<<grid, block, 0, s>>>(p, o, m, N, K);
     else
-      knn_topk_stream_kernel<false><<<grid, block, 0, s>>>(p, o, N, K);
+      knn_topk_stream_kernel<false><<<grid, block, 0, s>>>(p, o, m, N, K);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int dc_knn_topk(const void* pos, void* idx, int B, int N, int K,
+                           int quantized, int device, void* stream) {
+  return launch_knn_topk(pos, idx, nullptr, B, N, K, quantized, device,
+                         stream);
+}
+
+extern "C" int dc_knn_topk_mean_dist(const void* pos, void* idx, void* md,
+                                     int B, int N, int K, int quantized,
+                                     int device, void* stream) {
+  return launch_knn_topk(pos, idx, md, B, N, K, quantized, device, stream);
 }

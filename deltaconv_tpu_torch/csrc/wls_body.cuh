@@ -1,0 +1,462 @@
+// The per-point weighted least squares fit of the grad/div build, shared
+// by the WLS forward (wls.cu), its backward (wls.cu) and the fused eval
+// build (fused_build.cu), so the math exists once.
+//
+// One neighbourhood (a point and its K edges) at a time. An edge source
+// `src(k)` returns the twelve plane values of edge k (struct Edge); the
+// functions below are inlined, so the fields a pass does not use are
+// never loaded or computed. The math is `_wls_math` of
+// deltaconv_tpu/ops/wls_fused.py:45-137, operation for operation, with
+// its clamps: 1e-20 in the Gaussian denominator and on the Cholesky
+// diagonal, 1e-5 on the weight sum.
+//
+// wls_point_bwd is the reverse-mode derivative of the same steps (the
+// VJP that JAX's `_bwd_kernel` traces with jax.vjp, wls_fused.py:195-206),
+// derived by hand and walked in reverse order: the div rows, the inverse
+// metric and the basis transform, the height-field sums, both triangular
+// solves, the Cholesky factorization, the normal equations, the weights.
+// At a clamp it follows jnp.maximum's rule: the derivative passes where
+// the clamped value is larger, half of it at a tie, none below.
+//
+// GatherSrc is the edge source of the fused eval build: it gathers each
+// edge's neighbour rows and forms the planes on the fly.
+//
+// Host and device: the functions compile for the card and, without
+// __CUDACC__, as plain C++.
+#pragma once
+
+#include <math.h>
+
+#ifdef __CUDACC__
+#define WLS_FN __host__ __device__ __forceinline__
+#else
+#define WLS_FN inline
+#endif
+
+namespace wls {
+
+constexpr int NB = 6;  // quadratic patch basis [1, u, v, u^2, uv, v^2]
+
+// The twelve planes of one edge, in plane order.
+struct Edge {
+  float u, v, dist, patch, mask, dxx, dxy, dyx, dyy, dnx, dny, avg;
+};
+
+// The planes of point n's edges from the cloud's [N, 3] rows: neighbour
+// j = idx[k] (clamped into the cloud), centred on slot 0's row (the point
+// itself, as the JAX kernel requires); avg the cloud's mean edge length.
+// The planes are those of edge_planes (ops/wls_fused.py).
+struct GatherSrc {
+  const float* pos;
+  const float* xb;
+  const float* yb;
+  const int* idx;             // [K] of point n
+  const unsigned char* mask;  // [K] of point n
+  int N;
+  float avg;
+  float px, py, pz, nx, ny, nz, xbx, xby, xbz, ybx, yby, ybz;  // centre
+
+  WLS_FN Edge operator()(int k) const {
+    int j = idx[k];
+    j = j < 0 ? 0 : (j >= N ? N - 1 : j);
+    const float* p = pos + 3 * j;
+    const float* x = xb + 3 * j;
+    const float* y = yb + 3 * j;
+    const float ox = p[0] - px, oy = p[1] - py, oz = p[2] - pz;
+    const float sq = ox * ox + oy * oy + oz * oz;
+    Edge e;
+    e.u = ox * xbx + oy * xby + oz * xbz;
+    e.v = ox * ybx + oy * yby + oz * ybz;
+    e.dist = sq > 0.0f ? sqrtf(sq) : 0.0f;
+    e.patch = ox * nx + oy * ny + oz * nz;
+    e.mask = mask[k] ? 1.0f : 0.0f;
+    e.dxx = xbx * x[0] + xby * x[1] + xbz * x[2];
+    e.dxy = xbx * y[0] + xby * y[1] + xbz * y[2];
+    e.dyx = ybx * x[0] + yby * x[1] + ybz * x[2];
+    e.dyy = ybx * y[0] + yby * y[1] + ybz * y[2];
+    e.dnx = nx * x[0] + ny * x[1] + nz * x[2];
+    e.dny = nx * y[0] + ny * y[1] + nz * y[2];
+    e.avg = avg;
+    return e;
+  }
+};
+
+// One neighbourhood's fit.
+struct Fit {
+  float wden;         // max(sum of raw weights, 1e-5)
+  float wgate;        // d wden / d sum: 1 above the clamp, 0.5 at it, 0
+  float L[NB][NB];    // Cholesky factor, lower triangle with diagonal
+  float inv_d[NB];    // 1 / L[j][j]
+  float pgate[NB];    // d L[j][j]^2 / d sdiag, as wgate
+  float c[NB];        // height-field coefficients
+};
+
+// The derivative factor of max(x, floor).
+WLS_FN float gate(float x, float floor) {
+  return x > floor ? 1.0f : (x == floor ? 0.5f : 0.0f);
+}
+
+WLS_FN void basis(float u, float v, float* bs) {
+  bs[0] = 1.0f;
+  bs[1] = u;
+  bs[2] = v;
+  bs[3] = u * u;
+  bs[4] = u * v;
+  bs[5] = v * v;
+}
+
+WLS_FN float gauss_denom(float avg, float kernel_width) {
+  const float kwa = kernel_width * avg;
+  return fmaxf(kwa * kwa, 1e-20f);
+}
+
+// exp(-(dist^2) / denom), before the mask.
+WLS_FN float gauss(const Edge& e, float kernel_width) {
+  return expf(-(e.dist * e.dist) / gauss_denom(e.avg, kernel_width));
+}
+
+// The normalized weight of edge e.
+WLS_FN float weight(const Fit& f, const Edge& e, float kernel_width) {
+  return gauss(e, kernel_width) * e.mask / f.wden;
+}
+
+// z = A^-1 rhs through L: forward substitution (y), then back (z).
+WLS_FN void solve(const Fit& f, const float* rhs, float* y, float* z) {
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    float t = rhs[i];
+#pragma unroll
+    for (int kk = 0; kk < i; ++kk) t = t - f.L[i][kk] * y[kk];
+    y[i] = t * f.inv_d[i];
+  }
+#pragma unroll
+  for (int i = NB - 1; i >= 0; --i) {
+    float t = y[i];
+#pragma unroll
+    for (int kk = i + 1; kk < NB; ++kk) t = t - f.L[kk][i] * z[kk];
+    z[i] = t * f.inv_d[i];
+  }
+}
+
+// Edge k's solve: z = A^-1 (w b) (its grad coefficients are z[1], z[2]).
+WLS_FN void edge_solve(const Fit& f, const Edge& e, float kernel_width,
+                       float* bs, float* rhs, float* y, float* z) {
+  const float w = weight(f, e, kernel_width);
+  basis(e.u, e.v, bs);
+#pragma unroll
+  for (int i = 0; i < NB; ++i) rhs[i] = w * bs[i];
+  solve(f, rhs, y, z);
+}
+
+// Steps 1-6: the weights, the normal equations, the Cholesky factor and
+// the height coefficients c = sum_k z_k patch_k. `on_edge(k, z)` sees
+// every edge's solution once, in edge order.
+template <class Src, class OnEdge>
+WLS_FN void fit(const Src& src, int K, float kernel_width, float regularizer,
+                Fit& f, OnEdge on_edge) {
+  float wsum = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const Edge e = src(k);
+    wsum += gauss(e, kernel_width) * e.mask;
+  }
+  f.wden = fmaxf(wsum, 1e-5f);
+  f.wgate = gate(wsum, 1e-5f);
+
+  float A[NB][NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j) A[i][j] = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const Edge e = src(k);
+    const float w = weight(f, e, kernel_width);
+    float bs[NB];
+    basis(e.u, e.v, bs);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int j = i; j < NB; ++j) A[i][j] += w * bs[i] * bs[j];
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i) A[i][i] += regularizer;
+
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float sdiag = A[j][j];
+#pragma unroll
+    for (int t = 0; t < j; ++t) sdiag = sdiag - f.L[j][t] * f.L[j][t];
+    f.pgate[j] = gate(sdiag, 1e-20f);
+    f.L[j][j] = sqrtf(fmaxf(sdiag, 1e-20f));
+    f.inv_d[j] = 1.0f / f.L[j][j];
+#pragma unroll
+    for (int i = j + 1; i < NB; ++i) {
+      float soff = A[j][i];
+#pragma unroll
+      for (int t = 0; t < j; ++t) soff = soff - f.L[i][t] * f.L[j][t];
+      f.L[i][j] = soff * f.inv_d[j];
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < NB; ++i) f.c[i] = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const Edge e = src(k);
+    float bs[NB], rhs[NB], y[NB], z[NB];
+    edge_solve(f, e, kernel_width, bs, rhs, y, z);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) f.c[i] += z[i] * e.patch;
+    on_edge(k, z);
+  }
+}
+
+// Steps 7-9 of one edge: height partials, inverse metric, basis
+// transform, vector map.
+struct Frame {
+  float hx, hy, det, m11, m12, m22, bt11, bt12, bt21, bt22, M11, M12, M21,
+      M22;
+};
+
+WLS_FN void frame(const Fit& f, const Edge& e, Frame& r) {
+  r.hx = f.c[1] + 2.0f * f.c[3] * e.u + f.c[4] * e.v;
+  r.hy = f.c[2] + f.c[4] * e.u + 2.0f * f.c[5] * e.v;
+  r.det = 1.0f + r.hx * r.hx + r.hy * r.hy;
+  r.m11 = (1.0f + r.hy * r.hy) / r.det;
+  r.m12 = -(r.hx * r.hy) / r.det;
+  r.m22 = (1.0f + r.hx * r.hx) / r.det;
+  r.bt11 = e.dxx + r.hx * e.dnx;
+  r.bt12 = e.dxy + r.hx * e.dny;
+  r.bt21 = e.dyx + r.hy * e.dnx;
+  r.bt22 = e.dyy + r.hy * e.dny;
+  r.M11 = r.m11 * r.bt11 + r.m12 * r.bt21;
+  r.M12 = r.m11 * r.bt12 + r.m12 * r.bt22;
+  r.M21 = r.m12 * r.bt11 + r.m22 * r.bt21;
+  r.M22 = r.m12 * r.bt12 + r.m22 * r.bt22;
+}
+
+// The forward of one neighbourhood: out(k, g1, g2, d1, d2) receives each
+// edge's grad and div coefficients, in edge order. The grad coefficients
+// of the fit's pass are kept by the caller (`keep(k, g1, g2)`) and read
+// back (`kept(k, g1, g2)`) for the div rows: a register array of K would
+// not fit.
+template <class Src, class Keep, class Kept, class Out>
+WLS_FN void wls_point(const Src& src, int K, float kernel_width,
+                      float regularizer, Keep keep, Kept kept, Out out) {
+  Fit f;
+  fit(src, K, kernel_width, regularizer, f,
+      [&](int k, const float* z) { keep(k, z[1], z[2]); });
+  for (int k = 0; k < K; ++k) {
+    const Edge e = src(k);
+    float g1, g2;
+    kept(k, g1, g2);
+    Frame r;
+    frame(f, e, r);
+    out(k, g1, g2, g1 * r.M11 + g2 * r.M21, g1 * r.M12 + g2 * r.M22);
+  }
+}
+
+// The VJP of wls_point. `cot(k, ctg1, ctg2, ctd1, ctd2)` gives edge k's
+// cotangents; `de(p, k)` is a float& to the output cotangent of plane p
+// of edge k, which this function also uses as scratch between its passes
+// (planes 0-3 before their final values).
+template <class Src, class Cot, class De>
+WLS_FN void wls_point_bwd(const Src& src, const Cot& cot, De de, int K,
+                          float kernel_width, float regularizer) {
+  Fit f;
+  // The forward fit; each edge's grad coefficients parked in planes 2-3.
+  fit(src, K, kernel_width, regularizer, f, [&](int k, const float* z) {
+    de(2, k) = z[1];
+    de(3, k) = z[2];
+  });
+
+  // Steps 9-7 and 6's partials, per edge: the div rows, the vector map,
+  // the basis transform and the inverse metric back to (h_x, h_y), then
+  // to c, u and v. Planes 5-10 are final here; 0-1 take u's and v's
+  // first terms, 2-3 the cotangents of z[1] and z[2] so far.
+  float dc[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) dc[i] = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const Edge e = src(k);
+    const float g1 = de(2, k), g2 = de(3, k);
+    float ctg1, ctg2, t1, t2;
+    cot(k, ctg1, ctg2, t1, t2);
+    Frame r;
+    frame(f, e, r);
+    const float dg1 = ctg1 + t1 * r.M11 + t2 * r.M12;
+    const float dg2 = ctg2 + t1 * r.M21 + t2 * r.M22;
+    const float dM11 = t1 * g1, dM21 = t1 * g2;
+    const float dM12 = t2 * g1, dM22 = t2 * g2;
+    const float dm11 = dM11 * r.bt11 + dM12 * r.bt12;
+    const float dm12 =
+        dM11 * r.bt21 + dM12 * r.bt22 + dM21 * r.bt11 + dM22 * r.bt12;
+    const float dm22 = dM21 * r.bt21 + dM22 * r.bt22;
+    const float dbt11 = dM11 * r.m11 + dM21 * r.m12;
+    const float dbt12 = dM12 * r.m11 + dM22 * r.m12;
+    const float dbt21 = dM11 * r.m12 + dM21 * r.m22;
+    const float dbt22 = dM12 * r.m12 + dM22 * r.m22;
+    de(5, k) = dbt11;
+    de(6, k) = dbt12;
+    de(7, k) = dbt21;
+    de(8, k) = dbt22;
+    de(9, k) = dbt11 * r.hx + dbt21 * r.hy;
+    de(10, k) = dbt12 * r.hx + dbt22 * r.hy;
+    float dhx = dbt11 * e.dnx + dbt12 * e.dny;
+    float dhy = dbt21 * e.dnx + dbt22 * e.dny;
+    // m11 = P / det, m12 = -Q / det, m22 = R / det with P = 1 + hy^2,
+    // Q = hx hy, R = 1 + hx^2, det = 1 + hx^2 + hy^2.
+    const float ddet = -(dm11 * r.m11 + dm12 * r.m12 + dm22 * r.m22) / r.det;
+    const float dP = dm11 / r.det, dQ = -dm12 / r.det, dR = dm22 / r.det;
+    dhx += dQ * r.hy + (dR + ddet) * 2.0f * r.hx;
+    dhy += dQ * r.hx + (dP + ddet) * 2.0f * r.hy;
+    dc[1] += dhx;
+    dc[2] += dhy;
+    dc[3] += 2.0f * dhx * e.u;
+    dc[4] += dhx * e.v + dhy * e.u;
+    dc[5] += 2.0f * dhy * e.v;
+    de(0, k) = dhx * 2.0f * f.c[3] + dhy * f.c[4];
+    de(1, k) = dhx * f.c[4] + dhy * 2.0f * f.c[5];
+    de(2, k) = dg1;
+    de(3, k) = dg2;
+  }
+
+  // Steps 6-5 per edge: the height sums to z and the patch, both
+  // triangular solves in reverse to the right-hand side w b and to L.
+  float dL[NB][NB], dinv[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    dinv[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) dL[i][j] = 0.0f;
+  }
+  for (int k = 0; k < K; ++k) {
+    const Edge e = src(k);
+    float bs[NB], rhs[NB], y[NB], z[NB];
+    edge_solve(f, e, kernel_width, bs, rhs, y, z);
+    const float w = rhs[0];
+    float dz[NB], dy[NB], dpatch = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      dz[i] = dc[i] * e.patch;
+      dpatch += dc[i] * z[i];
+      dy[i] = 0.0f;
+    }
+    dz[1] += de(2, k);
+    dz[2] += de(3, k);
+    de(3, k) = dpatch;
+    // Back substitution, reversed: z[i] = t * inv_d[i], t = y[i] - sum
+    // over kk > i of L[kk][i] z[kk].
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      float t = y[i];
+#pragma unroll
+      for (int kk = i + 1; kk < NB; ++kk) t = t - f.L[kk][i] * z[kk];
+      const float dt = dz[i] * f.inv_d[i];
+      dinv[i] += dz[i] * t;
+      dy[i] += dt;
+#pragma unroll
+      for (int kk = i + 1; kk < NB; ++kk) {
+        dL[kk][i] -= dt * z[kk];
+        dz[kk] -= dt * f.L[kk][i];
+      }
+    }
+    // Forward substitution, reversed: y[i] = t * inv_d[i], t = rhs[i] -
+    // sum over kk < i of L[i][kk] y[kk].
+    float drhs[NB];
+#pragma unroll
+    for (int i = NB - 1; i >= 0; --i) {
+      float t = rhs[i];
+#pragma unroll
+      for (int kk = 0; kk < i; ++kk) t = t - f.L[i][kk] * y[kk];
+      const float dt = dy[i] * f.inv_d[i];
+      dinv[i] += dy[i] * t;
+      drhs[i] = dt;
+#pragma unroll
+      for (int kk = 0; kk < i; ++kk) {
+        dL[i][kk] -= dt * y[kk];
+        dy[kk] -= dt * f.L[i][kk];
+      }
+    }
+    // rhs = w b: to the weight and the basis, the basis to u and v.
+    float dw = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) dw += drhs[i] * bs[i];
+    de(0, k) += w * (drhs[1] + 2.0f * e.u * drhs[3] + e.v * drhs[4]);
+    de(1, k) += w * (drhs[2] + e.u * drhs[4] + 2.0f * e.v * drhs[5]);
+    de(2, k) = dw;
+  }
+
+  // Step 4 reversed: the Cholesky factorization back to A (upper
+  // triangle dA[j][i], j <= i), columns in reverse order.
+  float dA[NB][NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j) dA[i][j] = 0.0f;
+#pragma unroll
+  for (int j = NB - 1; j >= 0; --j) {
+#pragma unroll
+    for (int i = NB - 1; i > j; --i) {
+      // L[i][j] = soff * inv_d[j]
+      const float soff = f.L[i][j] * f.L[j][j];
+      const float dsoff = dL[i][j] * f.inv_d[j];
+      dinv[j] += dL[i][j] * soff;
+      dA[j][i] += dsoff;
+#pragma unroll
+      for (int t = 0; t < j; ++t) {
+        dL[i][t] -= dsoff * f.L[j][t];
+        dL[j][t] -= dsoff * f.L[i][t];
+      }
+    }
+    // inv_d[j] = 1 / L[j][j]; L[j][j] = sqrt(max(sdiag, 1e-20)).
+    dL[j][j] -= dinv[j] * f.inv_d[j] * f.inv_d[j];
+    const float dsdiag = dL[j][j] * (0.5f / f.L[j][j]) * f.pgate[j];
+    dA[j][j] += dsdiag;
+#pragma unroll
+    for (int t = 0; t < j; ++t) dL[j][t] -= 2.0f * dsdiag * f.L[j][t];
+  }
+
+  // Step 3 reversed per edge: A = sum_k w b b^T (+ lam I) to the weight
+  // and the basis; u and v final. The weight's cotangent stays in plane
+  // 2, and its sum against the weights gives that of the weight sum.
+  float dot = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const Edge e = src(k);
+    const float w = weight(f, e, kernel_width);
+    float bs[NB], dbs[NB];
+    basis(e.u, e.v, bs);
+    float dw = de(2, k);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) dbs[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int j = i; j < NB; ++j) {
+        const float t = dA[i][j];
+        dw += t * bs[i] * bs[j];
+        dbs[i] += t * w * bs[j];
+        dbs[j] += t * w * bs[i];
+      }
+    de(0, k) += dbs[1] + 2.0f * e.u * dbs[3] + e.v * dbs[4];
+    de(1, k) += dbs[2] + e.u * dbs[4] + 2.0f * e.v * dbs[5];
+    de(2, k) = dw;
+    dot += dw * w;
+  }
+
+  // Step 1 reversed per edge: w = r / max(sum r, 1e-5), r = exp(-(dist^2)
+  // / denom) * mask, denom = max((kernel_width avg)^2, 1e-20).
+  const float dsum = -(dot / f.wden) * f.wgate;
+  for (int k = 0; k < K; ++k) {
+    const Edge e = src(k);
+    const float kwa = kernel_width * e.avg;
+    const float denom = fmaxf(kwa * kwa, 1e-20f);
+    const float ex = expf(-(e.dist * e.dist) / denom);
+    const float dr = de(2, k) / f.wden + dsum;
+    const float darg = dr * e.mask * ex;
+    const float ddenom = darg * (e.dist * e.dist) / (denom * denom);
+    de(2, k) = darg * (-(2.0f * e.dist) / denom);
+    de(4, k) = dr * ex;
+    de(11, k) = ddenom * gate(kwa * kwa, 1e-20f) * 2.0f * kwa * kernel_width;
+  }
+}
+
+}  // namespace wls

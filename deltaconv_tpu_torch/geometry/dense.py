@@ -1,5 +1,5 @@
 """Dense form of the grad/div operators (counterpart of
-``deltaconv_tpu/geometry/dense.py``, f32, bf16 or int8, ``scale=None``).
+``deltaconv_tpu/geometry/dense.py``, f32, bf16 or int8).
 
 ``W_grad [B, 2, N, N]``: plane d maps scalars to the d-component;
 ``W_div [B, 2, N, N]``: plane d maps the d-component to scalars. Built
@@ -34,6 +34,12 @@ then the multiply), cast to the input's dtype. The neighbour maxes run
 in the quantized domain: ``nbr_max`` through ``gather_max_int8``,
 ``nbr_matmul_max`` through ``int8_quantize``, ``gather_matmul_max_int8``
 and the dequantization, without the epilogue.
+
+``scale`` (``[B]`` f32, or None) is the fused eval build's deferred
+per-cloud normalization (its operators are unnormalized): ``grad`` and
+``div`` multiply their input by the cloud's scale in f32 and cast it
+back to the input's dtype before the product, since ``(s W) x = W (s
+x)``. The neighbour maxes ignore it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -108,6 +114,14 @@ class DenseGradDiv(NeighborAggregations):
     ops: object  # ops.Ops
     op_scale_grad: torch.Tensor = None  # [B] f32 (int8 form) or None
     op_scale_div: torch.Tensor = None  # [B] f32 (int8 form) or None
+    scale: torch.Tensor = None  # [B] f32 deferred normalization, or None
+
+    def _scaled(self, x):
+        """``x * scale`` per cloud, in f32, cast back to ``x``'s dtype."""
+        if self.scale is None:
+            return x
+        s = self.scale.view((-1,) + (1,) * (x.dim() - 1))
+        return (x.float() * s).to(x.dtype)
 
     @property
     def int8(self) -> bool:
@@ -141,6 +155,7 @@ class DenseGradDiv(NeighborAggregations):
 
     def grad(self, x):
         """``[B, N, C] -> [B, N, 2, C]`` via one batched matmul."""
+        x = self._scaled(x)
         if self.int8:
             b, n = x.shape[:2]
             xq, sx = int8_quantize(x)
@@ -157,6 +172,7 @@ class DenseGradDiv(NeighborAggregations):
 
     def div(self, v):
         """``[B, N, 2, C] -> [B, N, C]`` as two component matmuls."""
+        v = self._scaled(v)
         w = self.w_div
         if self.int8:
             vq, sv = int8_quantize(v)

@@ -13,7 +13,11 @@ apply the coefficient-form operators as they are (two kernels,
 ``coef_apply_grad`` and ``coef_apply_div``, ``O(N K)`` where the dense
 ``[B, 2, N, N]`` matrices are ``O(N^2)``). Then the convs' neighbour
 maxes; in training the first conv's edge statistics add the neighbour
-sum.
+sum. ``fused_eval_build=True`` (off by default, as in JAX) routes bf16
+eval forwards of uniform batches on the card through
+:func:`build_dense_operators_fused`: ``knn_topk`` with its mean
+distances, the ``fused_gather_wls`` kernel and the bf16 assembly, the
+normalization deferred to the operators' ``scale``.
 
 Mixed precision as in the JAX package: ``operator_dtype`` is the dtype of
 the dense operators (the coefficient form ignores it: its coefficients
@@ -21,10 +25,22 @@ stay f32), ``compute_dtype`` that of the conv stack's activations
 (positions are cast to it before the first conv); the operator build
 itself always runs in f32. Both serve and train in bf16 (the production
 config); in training the operator applies are differentiated in the
-features, never in the operators. int8 is a dense operator dtype only,
-and serves only (the JAX package's int8 serving mode: quantized
-operators and neighbour maxes; its rounding has no gradient), so a
-train-mode forward on int8 operators raises.
+features. int8 is a dense operator dtype only, and serves only (the JAX
+package's int8 serving mode: quantized operators and neighbour maxes;
+its rounding has no gradient), so a train-mode forward on int8
+operators raises.
+
+Gradients for positions and normals (``pos.requires_grad_()``, as
+``jax.grad`` of a loss in ``pos`` or ``normal``): in f32, dense or in
+coefficient form, the build runs under autograd, through the VJPs of its
+kernels (``scatter_rows`` for the gather, ``wls_bwd``, ``densify_bwd``),
+and the operators take their cotangents from the applies. The kNN runs on
+detached positions (its indices carry no gradient, as XLA's ``top_k``).
+When neither input requires grad (or grad mode is off), the build keeps
+no autograd graph. Routes whose forward has no VJP raise instead of
+returning a partial gradient: bf16 or int8 operators or compute (the bf16
+applies give the operators no cotangent), the fused eval build (forward
+only), and prebuilt ``operators``.
 """
 
 from __future__ import annotations
@@ -41,9 +57,11 @@ from ..geometry.knn import knn
 from ..nn.deltaconv import DeltaConv
 from ..nn.mlp import MLP, VectorMLP
 from ..ops import KERNEL_OPS, Ops
+from ..ops.fused_build import fused_dense_build
 from ..ops.wls_fused import build_grad_div_fused
 
-__all__ = ["DeltaNetBase", "build_operators", "to_dtype"]
+__all__ = ["DeltaNetBase", "build_dense_operators_fused", "build_operators",
+           "to_dtype"]
 
 _DTYPES = {None: None, "float32": None, torch.float32: None,
            "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16,
@@ -57,6 +75,12 @@ def to_dtype(name):
         raise ValueError(f"unknown dtype {name!r}: None, float32, bfloat16 "
                          "(or int8 for the operators)")
     return _DTYPES[name]
+
+
+def _requires_grad(pos, normal) -> bool:
+    """Whether the positions or normals are differentiated."""
+    return torch.is_grad_enabled() and (
+        pos.requires_grad or (normal is not None and normal.requires_grad))
 
 
 def build_operators(pos, k: int, normal=None, point_mask=None,
@@ -81,17 +105,22 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
       knn_method: ``"exact"`` or ``"approx"`` (``geometry.knn``).
       dense_operators: densify (:class:`DenseGradDiv`), or return the
         coefficient form (:class:`GradDiv`, the large-cloud path).
+
+    The build is differentiable in ``pos`` and ``normal`` (f32 and bf16
+    operators; the kNN runs on detached positions); int8 operators raise
+    on inputs that require grad.
     """
-    if pos.requires_grad or (normal is not None and normal.requires_grad):
-        raise NotImplementedError(
-            "gradients for positions or normals need the backward kernels "
-            "of the operator build (sites #4 and #6 of ROADMAP queue 2), "
-            "which are not ported yet")
     if normal is None:
         raise NotImplementedError(
             "normal estimation (estimate_basis, geometry/linalg.py) is not "
             "ported yet (ROADMAP: port queue); pass normals")
-    nbr_idx, nbr_mask = knn(pos, k, point_mask, knn_method, ops.knn_topk)
+    if (dense_operators and to_dtype(operator_dtype) == torch.int8
+            and _requires_grad(pos, normal)):
+        raise NotImplementedError(
+            "int8 operators have no gradient (their rounding, as in the JAX "
+            "package); differentiate positions or normals in f32")
+    nbr_idx, nbr_mask = knn(pos.detach(), k, point_mask, knn_method,
+                            ops.knn_topk)
     x_basis, y_basis = build_tangent_basis(normal)
     if point_mask is not None:
         nbr_mask = nbr_mask & point_mask[:, :, None]
@@ -102,20 +131,56 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
     return gd
 
 
+def build_dense_operators_fused(pos, k: int, normal,
+                                kernel_width: float = 1.0,
+                                regularizer: float = 0.001,
+                                knn_method: str = "approx",
+                                ops: Ops = KERNEL_OPS) -> DenseGradDiv:
+    """The eval build in two kernels after the kNN (JAX
+    ``build_dense_operators_fused``): ``knn_topk`` with its mean
+    distances (packed keys for ``"approx"``, else its exact body), the
+    tangent frames, ``fused_gather_wls`` and the bf16 assembly, with the
+    per-cloud normalization deferred to the operators' ``scale``. Needs
+    given normals, no point mask and batched ``[B, N, 3]`` input;
+    forward only. Matches ``densify(build_operators(...), bfloat16)`` to
+    bf16 rounding."""
+    if _requires_grad(pos, normal):
+        raise NotImplementedError(
+            "the fused eval build is forward only (as the JAX kernel, "
+            "fused_build.py); differentiate positions or normals through "
+            "build_operators (fused_eval_build=False)")
+    idx, mean_dist = ops.knn_topk(pos, k, quantized=(knn_method == "approx"),
+                                  return_mean_dist=True)
+    mask = torch.ones(idx.shape, dtype=torch.bool, device=pos.device)
+    x_basis, y_basis = build_tangent_basis(normal)
+    avg = mean_dist.mean(dim=1)
+    w_grad, w_div, row_norm = fused_dense_build(
+        pos, normal, x_basis, y_basis, idx, mask, avg, kernel_width,
+        regularizer, ops)
+    inf_norm = row_norm.amax(dim=1)
+    scale = torch.where(inf_norm > 1e-5, 1.0 / inf_norm, 1.0)
+    return DenseGradDiv(nbr_idx=idx, nbr_mask=mask, w_grad=w_grad,
+                        w_div=w_div, ops=ops, scale=scale)
+
+
 class DeltaNetBase(nn.Module):
     """DGCNN-style backbone of sequential DeltaConv blocks on the
     positions: the first conv is centralized, the last drops the vector
     stream, and every stage's scalar output is returned for the heads.
     ``mlp_depth`` is the depth of every conv's internal MLPs (1 for
     classification, 2 for segmentation); ``dense_operators=False`` applies
-    the operators in coefficient form (large clouds)."""
+    the operators in coefficient form (large clouds); ``fused_eval_build=True``
+    opts in to the fused eval build (JAX's switch, off by default: the
+    JAX package measured it slower on its TPU)."""
 
     def __init__(self, conv_channels: Sequence[int], mlp_depth: int = 1,
                  num_neighbors: int = 20, grad_regularizer: float = 0.001,
                  grad_kernel_width: float = 1.0, operator_dtype=None,
                  compute_dtype=None, knn_method: str = "exact",
-                 dense_operators: bool = True):
+                 dense_operators: bool = True,
+                 fused_eval_build: bool = False):
         super().__init__()
+        self.fused_eval_build = fused_eval_build
         self.num_neighbors = num_neighbors
         self.grad_regularizer = grad_regularizer
         self.grad_kernel_width = grad_kernel_width
@@ -143,6 +208,17 @@ class DeltaNetBase(nn.Module):
             if isinstance(m, (MLP, VectorMLP)):
                 m.dtype = self.compute_dtype
 
+    def _fused_route(self, pos, normal, point_mask) -> bool:
+        """JAX's gate of the fused eval build (``deltanet_base.py:185-192``),
+        the card standing where JAX tests for the TPU: eval, dense bf16
+        operators, given normals, no point mask, batched input, N a
+        multiple of 128."""
+        return (self.fused_eval_build and self.dense_operators
+                and not self.training and point_mask is None
+                and normal is not None and pos.dim() == 3
+                and self.operator_dtype == torch.bfloat16 and pos.is_cuda
+                and pos.shape[1] % 128 == 0)
+
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS, operators=None):
         """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``.
@@ -153,17 +229,34 @@ class DeltaNetBase(nn.Module):
             raise NotImplementedError(
                 "int8 operators serve only, as the JAX package's (eval; "
                 "the quantization has no gradient): call model.eval()")
+        differentiated = _requires_grad(pos, normal)
         if operators is not None:
             if self.training:
                 raise NotImplementedError(
                     "prebuilt operators serve only (point-sharded training "
                     "is not ported yet): call model.eval()")
+            if differentiated:
+                raise NotImplementedError(
+                    "prebuilt operators carry no gradient for the positions "
+                    "or normals they were built from; let the forward build "
+                    "them (operators=None)")
             gd = operators
+        elif self._fused_route(pos, normal, point_mask):
+            gd = build_dense_operators_fused(
+                pos, self.num_neighbors, normal, self.grad_kernel_width,
+                self.grad_regularizer, self.knn_method, ops)
         else:
-            # Positions carry no gradient on this path (the loss is
-            # differentiated for the parameters only), so the build keeps
-            # no autograd graph, in training as in eval.
-            with torch.no_grad():
+            if differentiated and (self.compute_dtype is not None or (
+                    self.dense_operators
+                    and self.operator_dtype is not None)):
+                raise NotImplementedError(
+                    "gradients for positions or normals run in f32 only: the "
+                    "bf16 operator applies give the operators no cotangent "
+                    "and int8 operators have none (ROADMAP queue 1 item "
+                    "[15]); use compute_dtype=None and operator_dtype=None")
+            # Without a differentiated input the build keeps no autograd
+            # graph: the loss is differentiated for the parameters only.
+            with torch.set_grad_enabled(differentiated):
                 gd = build_operators(pos, self.num_neighbors, normal,
                                      point_mask, self.grad_kernel_width,
                                      self.grad_regularizer, ops,

@@ -1,11 +1,13 @@
 """The hand-written CUDA kernels of the serving paths (classification and
 segmentation; f32, bf16 and int8; dense or coefficient-form operators;
 one large cloud point-sharded) and the train steps (classification and
-segmentation; f32 and bf16), each beside its plain PyTorch version.
+segmentation; f32 and bf16), the fused eval build, and the backward of
+the operator build (gradients for positions and normals), each beside
+its plain PyTorch version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the eighteen functions the models call so
+and :data:`PLAIN_OPS` bundle the nineteen functions the models call so
 that a caller can run a forward, or a whole train step, through the
 kernels or through the plain versions on the same device, which is how
 the kernel path is checked on the card; a plain entry is differentiated
@@ -14,7 +16,10 @@ the coefficient-form applies in their features and coefficients, the
 neighbour max (f32 or bf16) and sum in their features, the bf16
 gather-then-matmul max of training in its input and weight, the edge MLP
 of the segmentation train step in its input, affine, weight and self
-slot, with the same gradient routing on both.
+slot, the build's gather, WLS solve and dense assembly in the positions
+and frames (their backward kernels, ``scatter_rows``, ``wls_bwd`` and
+``densify_bwd``, are reached through these Functions, as the max's
+``gather_max_bwd`` is), with the same gradient routing on both.
 """
 
 from __future__ import annotations
@@ -24,8 +29,9 @@ from typing import Callable, NamedTuple
 from ._lib import launch_counts, library, reset_launch_counts
 from .coef_apply import (coef_apply_div, coef_apply_div_plain,
                          coef_apply_grad, coef_apply_grad_plain)
-from .densify_op import (densify_coefs, densify_coefs_int8,
-                         densify_coefs_int8_plain, densify_coefs_plain)
+from .densify_op import (densify_bwd, densify_bwd_plain, densify_coefs,
+                         densify_coefs_int8, densify_coefs_int8_plain,
+                         densify_coefs_plain)
 from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
                          gather_matmul_max_int8, gather_matmul_max_int8_plain,
                          gather_matmul_max_plain, gather_matmul_max_train,
@@ -39,6 +45,8 @@ from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
                          gather_max_win_plain, int8_quantize, masked_nbr_max)
 from .edge_mlp import (edge_delta_mlp, edge_delta_mlp_plain, edge_mlp_bwd,
                        edge_mlp_bwd_plain, edge_mlp_fwd, edge_mlp_fwd_plain)
+from .fused_build import (fused_dense_build, fused_gather_wls,
+                          fused_gather_wls_plain)
 from .gather_mlp_max import gather_mlp_max, gather_mlp_max_plain, mlp_chain
 from .gather_rows import (gather_rows, gather_rows_plain, scatter_rows,
                           scatter_rows_plain)
@@ -48,16 +56,18 @@ from .gather_sum import (adjacency, adjacency_plain, gather_sum,
 from .knn_bucketed import knn_topk_bucketed, knn_topk_bucketed_plain
 from .knn_topk import (knn_topk, knn_topk_plain, knn_topk_table,
                        knn_topk_table_plain)
-from .wls_fused import build_grad_div_fused, wls, wls_plain
+from .wls_fused import (build_grad_div_fused, wls, wls_bwd, wls_bwd_plain,
+                        wls_plain)
 
 __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "bn_lrelu_epilogue", "build_grad_div_fused", "coef_apply_div",
            "coef_apply_div_plain", "coef_apply_grad", "coef_apply_grad_plain",
-           "densify_coefs",
+           "densify_bwd", "densify_bwd_plain", "densify_coefs",
            "densify_coefs_int8", "densify_coefs_int8_plain",
            "densify_coefs_plain", "edge_delta_mlp", "edge_delta_mlp_plain",
            "edge_mlp_bwd", "edge_mlp_bwd_plain", "edge_mlp_fwd",
-           "edge_mlp_fwd_plain", "gather_matmul_max",
+           "edge_mlp_fwd_plain", "fused_dense_build", "fused_gather_wls",
+           "fused_gather_wls_plain", "gather_matmul_max",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
            "gather_matmul_max_plain", "gather_matmul_max_train",
            "gather_matmul_max_train_plain", "gather_matmul_max_win",
@@ -74,11 +84,12 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "knn_topk_table_plain", "launch_counts",
            "library",
            "masked_nbr_max", "mlp_chain", "reset_launch_counts",
-           "scatter_rows", "scatter_rows_plain", "wls", "wls_plain"]
+           "scatter_rows", "scatter_rows_plain", "wls", "wls_bwd",
+           "wls_bwd_plain", "wls_plain"]
 
 
 class Ops(NamedTuple):
-    """The eighteen kernel-backed functions the models call."""
+    """The nineteen kernel-backed functions the models call."""
 
     gather_rows: Callable
     wls: Callable
@@ -98,6 +109,7 @@ class Ops(NamedTuple):
     knn_topk_table: Callable
     knn_topk_bucketed: Callable
     edge_delta_mlp: Callable
+    fused_gather_wls: Callable
 
 
 KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
@@ -105,7 +117,7 @@ KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
                  gather_matmul_max_train, gather_mlp_max, densify_coefs_int8,
                  gather_max_int8, gather_matmul_max_int8, coef_apply_grad,
                  coef_apply_div, knn_topk_table, knn_topk_bucketed,
-                 edge_delta_mlp)
+                 edge_delta_mlp, fused_gather_wls)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_max_plain, gather_sum_plain, knn_topk_plain,
                 gather_max_affine_plain, gather_matmul_max_plain,
@@ -113,4 +125,5 @@ PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 densify_coefs_int8_plain, gather_max_int8_plain,
                 gather_matmul_max_int8_plain, coef_apply_grad_plain,
                 coef_apply_div_plain, knn_topk_table_plain,
-                knn_topk_bucketed_plain, edge_delta_mlp_plain)
+                knn_topk_bucketed_plain, edge_delta_mlp_plain,
+                fused_gather_wls_plain)

@@ -45,8 +45,12 @@ _F = ctypes.c_float
 _KERNELS = {
     "gather_rows": ("dc_gather_rows", [_P, _P, _P, _I, _I, _I, _I, _I]),
     "wls": ("dc_wls", [_P, _P, _P, _I, _I, _I, _F, _F]),
-    "densify": ("dc_densify", [_P, _P, _P, _P, _P, _I, _I, _I]),
-    "densify_bf16": ("dc_densify_bf16", [_P, _P, _P, _P, _P, _I, _I, _I]),
+    "wls_bwd": ("dc_wls_bwd", [_P] * 4 + [_I] * 3 + [_F] * 2),
+    "fused_gather_wls": ("dc_fused_gather_wls",
+                         [_P] * 10 + [_I] * 3 + [_F] * 2),
+    "densify": ("dc_densify", [_P] * 5 + [_I] * 4),
+    "densify_bf16": ("dc_densify_bf16", [_P] * 5 + [_I] * 4),
+    "densify_bwd": ("dc_densify_bwd", [_P] * 5 + [_I] * 3),
     "gather_max": ("dc_gather_max", [_P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_max_win": ("dc_gather_max_win",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
@@ -62,6 +66,7 @@ _KERNELS = {
     "gather_sum": ("dc_gather_sum", [_P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_sum_bwd": ("dc_gather_sum_bwd", [_P, _P, _P, _P, _I, _I, _I, _I]),
     "knn_topk": ("dc_knn_topk", [_P, _P, _I, _I, _I, _I]),
+    "knn_topk_mean_dist": ("dc_knn_topk_mean_dist", [_P] * 3 + [_I] * 4),
     "gather_max_affine": ("dc_gather_max_affine",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "gather_matmul_max": ("dc_gather_matmul_max",
@@ -84,20 +89,19 @@ _KERNELS = {
     "edge_delta_mlp_bwd": ("dc_edge_mlp_bwd", [_P] * 8 + [_I] * 6),
 }
 
-# Why a raw kernel takes no tensor that requires grad: the operator
-# build has no backward kernels yet (they are reached only when positions
-# carry gradients), the bf16 maxes with the epilogue are the eval forms,
-# and the differentiable gather, applies, maxes and sum are the autograd
-# Functions around their kernels.
+# Why a raw kernel takes no tensor that requires grad: the differentiable
+# gather, WLS solve, assembly, applies, maxes and sum are the autograd
+# Functions around their kernels, the fused build and the bf16 maxes with
+# the epilogue are eval forms, and kNN indices carry no gradient.
 _BF16_EVAL = ("it is the eval form (running statistics in the "
               "epilogue); in training the layers take ops.gather_max or "
               "ops.gather_matmul_max_train, whose backward is a kernel")
 _NO_GRAD = {
-    "wls": "its backward (`_wls_bwd_pallas`, site #4 of ROADMAP queue 2) "
-           "is not ported yet",
-    "densify": "its backward (`_densify_bwd`, site #6 of ROADMAP queue 2) "
-               "is not ported yet",
+    "fused_gather_wls": "the fused eval build is forward only, as the JAX "
+                        "kernel; differentiate through the unfused build "
+                        "(ops.gather_rows, ops.wls, ops.densify_coefs)",
     "knn_topk": "kNN indices carry no gradient",
+    "knn_topk_mean_dist": "kNN indices carry no gradient",
     "knn_topk_table": "kNN indices carry no gradient",
     "knn_topk_table_q": "kNN indices carry no gradient",
     "knn_topk_bucketed": "kNN indices carry no gradient",
@@ -109,7 +113,6 @@ _NO_GRAD = {
                       "ops.edge_delta_mlp or the per-point and edge-tensor "
                       "routes",
 }
-_NO_GRAD["densify_bf16"] = _NO_GRAD["densify"]
 _NO_GRAD.update(dict.fromkeys(
     ("densify_int8", "gather_max_int8", "gather_matmul_max_int8"),
     "int8 operators serve only, as the JAX package's (forward only: the "
@@ -217,8 +220,9 @@ def check_inputs(name: str, specs) -> torch.device:
             raise ValueError(f"{where}: not contiguous")
         if t.requires_grad:
             why = _NO_GRAD.get(
-                name, "differentiate through ops.gather_rows, "
-                "ops.coef_apply_grad, ops.coef_apply_div, ops.gather_max, "
+                name, "differentiate through ops.gather_rows, ops.wls, "
+                "ops.densify_coefs, ops.coef_apply_grad, ops.coef_apply_div, "
+                "ops.gather_max, "
                 "ops.gather_sum, ops.gather_matmul_max_train or "
                 "ops.edge_delta_mlp, whose backward is a kernel")
             raise ValueError(f"{where}: the raw kernel takes no tensor "

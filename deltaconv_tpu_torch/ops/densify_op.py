@@ -8,8 +8,16 @@ w_div)``, each ``[B, 2, N, N]`` in ``dtype`` (f32 or bf16) with
 in f32 (padded kNN slots are clamped to self with zero coefficients);
 bf16 rounds that sum once, to nearest even. Counterpart of
 ``deltaconv_tpu/ops/densify_op.py`` (``densify_coefs`` with
-``dtype_name`` "float32" or "bfloat16", forward only); the kernels are
-``csrc/densify.cu``.
+``dtype_name`` "float32" or "bfloat16"); the kernels are
+``csrc/densify.cu``. ``planes=True`` takes the coefficients as ``[B, 2,
+N, K]`` planes (the fused eval build's layout, JAX's
+``densify_coef_planes``), the same kernel on other strides.
+
+Differentiable in the coefficients, as the JAX ``custom_vjp`` is: the
+VJP is a row-local gather, ``d_coef[b, n, k, d] = dW[b, d, n, idx[b, n,
+k]]`` (:func:`densify_bwd`, the ``densify_bwd`` kernel, counterpart of
+``_densify_bwd``), the cotangents read as f32 and the result returned in
+the coefficients' dtype.
 
 ``densify_coefs_int8(idx, grad_coef, div_coef)`` -> ``(w_grad, w_div,
 s_grad, s_div)``: the int8 serving form (``densify_coefs_int8`` of the
@@ -29,7 +37,8 @@ import torch
 
 from . import _lib
 
-__all__ = ["densify_coefs", "densify_coefs_int8", "densify_coefs_int8_plain",
+__all__ = ["densify_bwd", "densify_bwd_plain", "densify_coefs",
+           "densify_coefs_int8", "densify_coefs_int8_plain",
            "densify_coefs_plain"]
 
 _KERNEL = {torch.float32: "densify", torch.bfloat16: "densify_bf16"}
@@ -43,6 +52,11 @@ def _check_dtype(dtype):
     return dtype
 
 
+def _stacked(coef, planes):
+    """``coef`` as ``[B, N, K, 2]`` (a view of ``[B, 2, N, K]`` planes)."""
+    return coef.permute(0, 2, 3, 1) if planes else coef
+
+
 def _scatter_planes(idx, coef, dtype):
     """``[B, 2, N, N]`` f32 ``scatter_add_`` of ``coef [B, N, K, 2]`` on
     zeros, cast to ``dtype``."""
@@ -53,33 +67,98 @@ def _scatter_planes(idx, coef, dtype):
     return w.to(dtype)
 
 
-def densify_coefs_plain(idx, grad_coef, div_coef, dtype=torch.float32):
+def densify_coefs_plain(idx, grad_coef, div_coef, dtype=torch.float32,
+                        planes=False):
     """The plain PyTorch version: f32 ``scatter_add_`` on zeros, then
-    the cast to ``dtype``."""
+    the cast to ``dtype`` (differentiable by autograd)."""
     dtype = _check_dtype(dtype)
-    return (_scatter_planes(idx, grad_coef, dtype),
-            _scatter_planes(idx, div_coef, dtype))
+    return (_scatter_planes(idx, _stacked(grad_coef, planes), dtype),
+            _scatter_planes(idx, _stacked(div_coef, planes), dtype))
 
 
-def densify_coefs(idx, grad_coef, div_coef, dtype=torch.float32):
-    """Plain version for CPU tensors; the CUDA kernel of ``dtype`` for
-    CUDA tensors."""
-    dtype = _check_dtype(dtype)
+def _densify_kernel(idx, grad_coef, div_coef, dtype, planes):
     if idx.device.type == "cpu":
-        return densify_coefs_plain(idx, grad_coef, div_coef, dtype)
+        return densify_coefs_plain(idx, grad_coef, div_coef, dtype, planes)
     b, n, k = idx.shape
     name = _KERNEL[dtype]
+    shape = (b, 2, n, k) if planes else (b, n, k, 2)
     device = _lib.check_inputs(name, [
         ("idx", idx, torch.int32, (b, n, k)),
-        ("grad_coef", grad_coef, torch.float32, (b, n, k, 2)),
-        ("div_coef", div_coef, torch.float32, (b, n, k, 2)),
+        ("grad_coef", grad_coef, torch.float32, shape),
+        ("div_coef", div_coef, torch.float32, shape),
     ])
     w_grad = torch.empty((b, 2, n, n), dtype=dtype, device=device)
     w_div = torch.empty_like(w_grad)
     _lib.launch(name, device, idx.data_ptr(), grad_coef.data_ptr(),
                 div_coef.data_ptr(), w_grad.data_ptr(), w_div.data_ptr(),
-                b, n, k)
+                b, n, k, int(planes))
     return w_grad, w_div
+
+
+def densify_bwd_plain(idx, dwg, dwd):
+    """The plain PyTorch version of the VJP: ``torch.gather`` of the f32
+    cotangents at the edges' columns, ``[B, N, K, 2]`` each."""
+    b, n, k = idx.shape
+    index = idx.long()[:, None].expand(b, 2, n, k)
+    return tuple(torch.gather(dw.float(), 3, index).permute(0, 2, 3, 1)
+                 .contiguous() for dw in (dwg, dwd))
+
+
+def densify_bwd(idx, dwg, dwd):
+    """``idx [B, N, K]`` and the cotangents ``dwg, dwd [B, 2, N, N]`` (read
+    as f32) -> ``(d_grad_coef, d_div_coef)`` ``[B, N, K, 2]`` f32 with
+    ``d[b, n, k, c] = dW[b, c, n, idx[b, n, k]]``. Plain version for CPU
+    tensors; the ``densify_bwd`` kernel for CUDA tensors."""
+    if idx.device.type == "cpu":
+        return densify_bwd_plain(idx, dwg, dwd)
+    b, n, k = idx.shape
+    dwg = dwg.float().contiguous()
+    dwd = dwd.float().contiguous()
+    device = _lib.check_inputs("densify_bwd", [
+        ("idx", idx, torch.int32, (b, n, k)),
+        ("dwg", dwg, torch.float32, (b, 2, n, n)),
+        ("dwd", dwd, torch.float32, (b, 2, n, n)),
+    ])
+    d_grad = torch.empty((b, n, k, 2), dtype=torch.float32, device=device)
+    d_div = torch.empty_like(d_grad)
+    _lib.launch("densify_bwd", device, idx.data_ptr(), dwg.data_ptr(),
+                dwd.data_ptr(), d_grad.data_ptr(), d_div.data_ptr(), b, n, k)
+    return d_grad, d_div
+
+
+class _Densify(torch.autograd.Function):
+    """:func:`densify_coefs` with its VJP (:func:`densify_bwd`), gradient
+    for the coefficients only."""
+
+    @staticmethod
+    def forward(ctx, idx, grad_coef, div_coef, dtype, planes):
+        ctx.save_for_backward(idx)
+        ctx.dtypes = (grad_coef.dtype, div_coef.dtype)
+        ctx.planes = planes
+        return _densify_kernel(idx, grad_coef.detach(), div_coef.detach(),
+                               dtype, planes)
+
+    @staticmethod
+    def backward(ctx, dwg, dwd):
+        (idx,) = ctx.saved_tensors
+        d_grad, d_div = densify_bwd(idx, dwg, dwd)
+        if ctx.planes:
+            d_grad = d_grad.permute(0, 3, 1, 2).contiguous()
+            d_div = d_div.permute(0, 3, 1, 2).contiguous()
+        return (None, d_grad.to(ctx.dtypes[0]), d_div.to(ctx.dtypes[1]),
+                None, None)
+
+
+def densify_coefs(idx, grad_coef, div_coef, dtype=torch.float32,
+                  planes=False):
+    """Plain version for CPU tensors; the CUDA kernel of ``dtype`` for
+    CUDA tensors. Differentiable in the coefficients (f32 and bf16
+    bodies)."""
+    dtype = _check_dtype(dtype)
+    if torch.is_grad_enabled() and (grad_coef.requires_grad
+                                    or div_coef.requires_grad):
+        return _Densify.apply(idx, grad_coef, div_coef, dtype, planes)
+    return _densify_kernel(idx, grad_coef, div_coef, dtype, planes)
 
 
 def _cloud_scale(coef):

@@ -3,16 +3,23 @@
 ``knn_topk(pos, k, quantized)``: ``pos [B, N, 3]`` f32 -> ``idx [B, N,
 K]`` int32, the K columns with the largest score ``s = 2 q.p - |p|^2``
 (``= |q|^2 - d^2``) of every row, the self loop pinned to slot 0, N >= K,
-no mask. Counterpart of ``deltaconv_tpu/ops/knn_topk.py`` (``knn_topk``
-without ``return_mean_dist``, which only the fused operator build uses):
+no mask. Counterpart of ``deltaconv_tpu/ops/knn_topk.py`` (``knn_topk``;
+``return_mean_dist=True`` also returns the ``[B, N]`` f32 mean Euclidean
+distance to the K winners, self counted as 0, which the fused eval build
+takes for its Gaussian bandwidth; the launch is counted as
+``knn_topk_mean_dist``):
 
 - exact (``quantized=False``): K rounds of "maximum score, the lowest
-  column among ties, then remove it";
+  column among ties, then remove it"; the mean distance sums
+  ``sqrt(max(|q|^2 - best, 0))`` over the rounds (the pinned self score
+  gives 0), in round order, and divides by K;
 - packed keys (``quantized=True``): each row's scores are quantized
   linearly to 16 bits over the row's range and packed with the column
   into one int32, so the order is exact at the row's range / 65534 and
   ties go to the lowest column. Above 65535 points the column no longer
-  fits the low 16 bits and the exact body runs, as in JAX.
+  fits the low 16 bits and the exact body runs, as in JAX. The mean
+  distance takes each round's winner score dequantized from its key,
+  ``rmin + ((key >> 16) + 32768) / scale``, round 0 (self) skipped.
 
 The scores are computed elementwise in the JAX kernel's order (not as a
 matmul), so the kernel (``csrc/knn_topk.cu``) and the plain version
@@ -78,12 +85,27 @@ def _scores(pos):
     return 2.0 * dot - sq[:, None, :]
 
 
-def knn_topk_plain(pos, k: int, quantized: bool = False):
+def _sqrt_dist(qsq, score):
+    """``sqrt(max(|q|^2 - score, 0))``."""
+    return torch.sqrt(torch.clamp(qsq - score, min=0.0))
+
+
+def _over_k(dsum, k):
+    """``dsum / k``, a true division (on the card ``dsum / float(k)``
+    would multiply by 1 / k)."""
+    return dsum / torch.full_like(dsum, float(k))
+
+
+def knn_topk_plain(pos, k: int, quantized: bool = False,
+                   return_mean_dist: bool = False):
     """The plain PyTorch version: the score plane, then the packed keys'
     ``topk`` (unique keys: no ties) or K exact sweeps."""
     _check(pos, k)
     b, n, _ = pos.shape
     s = _scores(pos)
+    x, y, z = pos.float().unbind(-1)
+    qsq = x * x + y * y + z * z  # the kernel's order
+    dsum = torch.zeros((b, n), dtype=torch.float32, device=pos.device)
     col = torch.arange(n, device=pos.device)
     is_self = col[:, None] == col[None, :]
     if quantized and n <= _MAX_PACKED_N:
@@ -98,7 +120,13 @@ def knn_topk_plain(pos, k: int, quantized: bool = False):
         keys = torch.where(is_self, 0x7FFF0000 + low, (q - 32768) * 65536
                            + low)
         best = torch.topk(keys, k, dim=-1).values
-        return (65535 - (best & 65535)).to(torch.int32)
+        idx = (65535 - (best & 65535)).to(torch.int32)
+        if not return_mean_dist:
+            return idx
+        st = rmin + ((best >> 16) + 32768).to(torch.float32) / scale
+        for r in range(1, k):  # round 0 is the self loop
+            dsum = dsum + _sqrt_dist(qsq, st[..., r])
+        return idx, _over_k(dsum, k)
     s = torch.where(is_self, 2.0 * _BIG, s)
     wins = []
     for _ in range(k):
@@ -106,21 +134,31 @@ def knn_topk_plain(pos, k: int, quantized: bool = False):
         win = torch.where(s >= best, col, n).amin(dim=-1, keepdim=True)
         wins.append(win)
         s = torch.where(col == win, -_BIG, s)
-    return torch.cat(wins, dim=-1).to(torch.int32)
+        dsum = dsum + _sqrt_dist(qsq, best[..., 0])
+    idx = torch.cat(wins, dim=-1).to(torch.int32)
+    return (idx, _over_k(dsum, k)) if return_mean_dist else idx
 
 
-def knn_topk(pos, k: int, quantized: bool = False):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+def knn_topk(pos, k: int, quantized: bool = False,
+             return_mean_dist: bool = False):
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors
+    (``knn_topk``, or ``knn_topk_mean_dist`` with the mean distances)."""
     if pos.device.type == "cpu":
-        return knn_topk_plain(pos, k, quantized)
+        return knn_topk_plain(pos, k, quantized, return_mean_dist)
     _check(pos, k)
     b, n, _ = pos.shape
-    device = _lib.check_inputs("knn_topk",
-                               [("pos", pos, torch.float32, (b, n, 3))])
+    name = "knn_topk_mean_dist" if return_mean_dist else "knn_topk"
+    device = _lib.check_inputs(name, [("pos", pos, torch.float32, (b, n, 3))])
     idx = torch.empty((b, n, k), dtype=torch.int32, device=device)
-    _lib.launch("knn_topk", device, pos.data_ptr(), idx.data_ptr(), b, n, k,
-                int(quantized and n <= _MAX_PACKED_N))
-    return idx
+    quantized = int(quantized and n <= _MAX_PACKED_N)
+    if not return_mean_dist:
+        _lib.launch(name, device, pos.data_ptr(), idx.data_ptr(), b, n, k,
+                    quantized)
+        return idx
+    md = torch.empty((b, n), dtype=torch.float32, device=device)
+    _lib.launch(name, device, pos.data_ptr(), idx.data_ptr(), md.data_ptr(),
+                b, n, k, quantized)
+    return idx, md
 
 
 def _fma(a, b, c):

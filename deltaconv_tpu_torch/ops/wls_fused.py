@@ -13,6 +13,12 @@ table form (JAX's ``build_grad_div_tables``): the centre rows of one
 shard against the whole cloud's table, with hooks that complete the
 mean edge length and the infinity norm across the ranks of a
 point-sharded cloud.
+
+The build is differentiable in the positions and frames, as the JAX
+``custom_vjp``s are: the gather through ``scatter_rows``, :func:`wls`
+through :func:`wls_bwd` (the VJP of ``_wls_math`` with respect to the
+twelve planes, one kernel, counterpart of ``_wls_bwd_pallas``), the
+planes and the normalization through autograd.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from . import _lib
 from .gather_rows import gather_rows
 
 __all__ = ["build_grad_div_fused", "build_grad_div_tables", "edge_planes",
-           "edge_planes_tables", "wls", "wls_plain"]
+           "edge_planes_tables", "wls", "wls_bwd", "wls_bwd_plain",
+           "wls_plain"]
 
 _EPS = 1e-5
 
@@ -119,10 +126,7 @@ def wls_plain(edges, kernel_width: float, regularizer: float):
     return _wls_math(edges, float(kernel_width), float(regularizer))
 
 
-def wls(edges, kernel_width: float, regularizer: float):
-    """``edges [B, 12, K, N] -> (g, d)`` per-edge grad/div coefficients,
-    each ``[B, 2, K, N]``. Plain version for CPU tensors; the CUDA kernel
-    for CUDA tensors."""
+def _wls_kernel(edges, kernel_width, regularizer):
     if edges.device.type == "cpu":
         return wls_plain(edges, kernel_width, regularizer)
     b, _, k, n = edges.shape
@@ -134,6 +138,64 @@ def wls(edges, kernel_width: float, regularizer: float):
     _lib.launch("wls", device, edges.data_ptr(), g.data_ptr(), d.data_ptr(),
                 b, k, n, float(kernel_width), float(regularizer))
     return g, d
+
+
+def wls_bwd_plain(edges, ctg, ctd, kernel_width: float, regularizer: float):
+    """The plain PyTorch version of the VJP: ``torch.autograd.grad``
+    through ``_wls_math``."""
+    with torch.enable_grad():
+        e = edges.detach().requires_grad_()
+        g, d = _wls_math(e, float(kernel_width), float(regularizer))
+        (de,) = torch.autograd.grad((g, d), e, (ctg, ctd))
+    return de
+
+
+def wls_bwd(edges, ctg, ctd, kernel_width: float, regularizer: float):
+    """The VJP of :func:`wls` with respect to its planes: ``edges [B, 12,
+    K, N]`` and the cotangents ``ctg, ctd [B, 2, K, N]`` -> ``[B, 12, K,
+    N]`` f32. Plain version for CPU tensors; the ``wls_bwd`` kernel for
+    CUDA tensors."""
+    if edges.device.type == "cpu":
+        return wls_bwd_plain(edges, ctg, ctd, kernel_width, regularizer)
+    b, _, k, n = edges.shape
+    device = _lib.check_inputs("wls_bwd", [
+        ("edges", edges, torch.float32, (b, 12, k, n)),
+        ("ctg", ctg, torch.float32, (b, 2, k, n)),
+        ("ctd", ctd, torch.float32, (b, 2, k, n)),
+    ])
+    de = torch.empty_like(edges)
+    _lib.launch("wls_bwd", device, edges.data_ptr(), ctg.data_ptr(),
+                ctd.data_ptr(), de.data_ptr(), b, k, n, float(kernel_width),
+                float(regularizer))
+    return de
+
+
+class _Wls(torch.autograd.Function):
+    """:func:`wls` with its VJP (:func:`wls_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, edges, kernel_width, regularizer):
+        edges = edges.detach()
+        ctx.save_for_backward(edges)
+        ctx.params = (kernel_width, regularizer)
+        return _wls_kernel(edges, kernel_width, regularizer)
+
+    @staticmethod
+    def backward(ctx, ctg, ctd):
+        (edges,) = ctx.saved_tensors
+        de = wls_bwd(edges, ctg.float().contiguous(),
+                     ctd.float().contiguous(), *ctx.params)
+        return de, None, None
+
+
+def wls(edges, kernel_width: float, regularizer: float):
+    """``edges [B, 12, K, N] -> (g, d)`` per-edge grad/div coefficients,
+    each ``[B, 2, K, N]``. Plain version for CPU tensors; the CUDA kernel
+    for CUDA tensors. Differentiable in ``edges`` (its backward is
+    :func:`wls_bwd`)."""
+    if edges.requires_grad and torch.is_grad_enabled():
+        return _Wls.apply(edges, float(kernel_width), float(regularizer))
+    return _wls_kernel(edges, kernel_width, regularizer)
 
 
 def edge_planes_tables(table, pc, nc, xc, yc, nbr_idx, nbr_mask, pm,

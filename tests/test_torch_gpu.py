@@ -158,13 +158,21 @@ def test_kernel_inputs_are_checked(cuda):
     with pytest.raises(TypeError):
         ops.scatter_rows(torch.zeros((2, 4, 3, 16), device=cuda).double(),
                          idx, 16)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.wls(torch.zeros((2, 12, 3, 16), device=cuda,
-                            requires_grad=True), 1.0, 1e-3)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.densify_coefs(idx, torch.zeros((2, 16, 3, 2), device=cuda,
-                                           requires_grad=True),
-                          torch.zeros((2, 16, 3, 2), device=cuda))
+    # The build's WLS solve and assembly are autograd Functions too (their
+    # backward kernels wls_bwd and densify_bwd); the fused eval build is
+    # forward only.
+    edges = torch.rand((2, 12, 3, 16), device=cuda).requires_grad_()
+    coef = torch.zeros((2, 16, 3, 2), device=cuda, requires_grad=True)
+    reset_launch_counts()
+    sum(t.sum() for t in ops.wls(edges, 1.0, 1e-3)).backward()
+    sum(t.sum() for t in ops.densify_coefs(idx, coef, coef)).backward()
+    assert launch_counts()["wls_bwd"] == 1
+    assert launch_counts()["densify_bwd"] == 1
+    assert edges.grad.shape == edges.shape and coef.grad.shape == coef.shape
+    p3 = torch.zeros((2, 16, 3), device=cuda)
+    with pytest.raises(ValueError, match="forward only"):
+        ops.fused_gather_wls(p3.clone().requires_grad_(), p3, p3, p3, idx,
+                             mask, torch.ones(2, device=cuda))
 
 
 def test_model_kernels_match_plain(cuda):
@@ -1403,3 +1411,156 @@ def test_seg_train_step_kernels_match_plain(cuda, fused, monkeypatch):
     for p in model_k.parameters():
         assert bool(p.grad.isfinite().all())
     assert _frob_all(model_k, model_p) <= 2e-2
+
+
+# The operator build's backward (wls_bwd, densify_bwd), the fused eval
+# build (fused_gather_wls) and knn_topk's mean distances.
+
+
+def _edges(rng, n, k, masked, flat, dev):
+    pos, nrm = _cloud_batch(rng, 2, n, dev)
+    if flat:  # a nearly flat neighbourhood: the patch fit's small heights
+        pos[1, :, 2] *= 1e-3
+        nrm[1] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    idx, mask = _graph(pos, k, masked)
+    xb, yb = build_tangent_basis(nrm)
+    return edge_planes(pos, nrm, xb, yb, idx, mask,
+                       mask.any(dim=2).to(torch.float32))
+
+
+@pytest.mark.parametrize("n,k,masked,flat", [
+    (200, 12, False, False), (200, 12, True, True), (1024, 20, True, False)])
+def test_wls_bwd_kernel_matches_plain(cuda, n, k, masked, flat):
+    """Each of the 12 planes' cotangents within 1e-4 x that plane's max of
+    the plain version's (autograd through ``_wls_math``): the same math
+    in another order of operations (FMA contraction, the K sums, the
+    reverse Cholesky's accumulators)."""
+    rng = np.random.default_rng(50)
+    edges = _edges(rng, n, k, masked, flat, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ctg = torch.randn((2, 2, k, n), device=cuda, generator=gen)
+    ctd = torch.randn((2, 2, k, n), device=cuda, generator=gen)
+    reset_launch_counts()
+    got = ops.wls_bwd(edges, ctg, ctd, 1.0, 1e-3)
+    assert launch_counts()["wls_bwd"] == 1
+    want = ops.wls_bwd_plain(edges, ctg, ctd, 1.0, 1e-3)
+    assert bool(torch.isfinite(got).all())
+    for p in range(12):
+        _close_to_max(got[:, p], want[:, p], 1e-4)
+
+
+@pytest.mark.parametrize("n,masked", [(96, False), (102, True),
+                                      (1024, True)])
+def test_densify_bwd_kernel_exact(cuda, n, masked):
+    """Bit-equal to ``torch.gather``: the VJP reads one entry an edge and
+    plane, with duplicate (clamped) columns and bf16 cotangents read as
+    f32."""
+    rng = np.random.default_rng(51)
+    idx = torch.from_numpy(_knn_like(rng, n, 8, masked)).to(cuda)
+    dwg = torch.randn((2, 2, n, n), device=cuda)
+    dwd = torch.randn((2, 2, n, n), device=cuda)
+    for cast in (torch.float32, torch.bfloat16):
+        got = ops.densify_bwd(idx, dwg.to(cast), dwd.to(cast))
+        want = ops.densify_bwd_plain(idx, dwg.to(cast), dwd.to(cast))
+        for g, w in zip(got, want):
+            assert g.shape == (2, n, 8, 2) and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_densify_planes_layout_exact(cuda, dtype):
+    """``planes=True`` ([B, 2, N, K] coefficients) gives the operators of
+    the stacked layout bit for bit."""
+    rng = np.random.default_rng(52)
+    n = 128
+    idx = torch.from_numpy(_knn_like(rng, n, 8, True)).to(cuda)
+    gc = torch.randn((2, 2, n, 8), device=cuda)
+    dc = torch.randn((2, 2, n, 8), device=cuda)
+    got = ops.densify_coefs(idx, gc, dc, dtype, planes=True)
+    want = ops.densify_coefs(idx, gc.permute(0, 2, 3, 1).contiguous(),
+                             dc.permute(0, 2, 3, 1).contiguous(), dtype)
+    for g, w in zip(got, want):
+        assert torch.equal(g.float(), w.float())
+
+
+@pytest.mark.parametrize("n,k,masked", [(128, 12, False), (256, 20, True),
+                                        (1024, 20, False)])
+def test_fused_gather_wls_kernel_matches_plain(cuda, n, k, masked):
+    """Coefficients within 1e-5 x max and row norms within 1e-5 relative of
+    the plain version (the same f32 gather; FMA contraction and the K sums'
+    order), and of the unfused ``edge_planes`` + ``wls`` with the same
+    ``avg``, unnormalized."""
+    rng = np.random.default_rng(53)
+    pos, nrm = _cloud_batch(rng, 2, n, cuda)
+    xb, yb = build_tangent_basis(nrm)
+    idx, md = ops.knn_topk(pos, k, True, return_mean_dist=True)
+    mask = torch.ones(idx.shape, dtype=torch.bool, device=cuda)
+    if masked:
+        mask[:, :, k // 2:] = torch.rand((2, n, k - k // 2),
+                                         device=cuda) > 0.3
+    avg = md.mean(dim=1)
+    reset_launch_counts()
+    got = ops.fused_gather_wls(pos, nrm, xb, yb, idx, mask, avg)
+    assert launch_counts()["fused_gather_wls"] == 1
+    want = ops.fused_gather_wls_plain(pos, nrm, xb, yb, idx, mask, avg)
+    for g, w in zip(got[:2], want[:2]):
+        _close_to_max(g, w, 1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    edges = edge_planes(pos, nrm, xb, yb, idx, mask,
+                        torch.ones((2, n), device=cuda))
+    edges[:, 11] = avg[:, None, None]
+    g, d = ops.wls(edges, 1.0, 1e-3)
+    _close_to_max(got[0], g.transpose(2, 3), 1e-5)
+    _close_to_max(got[1], d.transpose(2, 3), 1e-5)
+
+
+@pytest.mark.parametrize("n", [77, 1024, 1500])
+@pytest.mark.parametrize("quantized", [True, False])
+def test_knn_topk_mean_dist_kernel_exact(cuda, n, quantized):
+    """The mean distances bit-equal to the plain version's (the same
+    rounding of every term, summed in round order) and the ids equal to
+    the kernel without them, in the register path and the recomputing
+    one."""
+    rng = np.random.default_rng(54)
+    pos = torch.from_numpy(
+        rng.standard_normal((2, n, 3)).astype(np.float32)).to(cuda)
+    reset_launch_counts()
+    idx, md = ops.knn_topk(pos, 20, quantized, return_mean_dist=True)
+    assert launch_counts()["knn_topk_mean_dist"] == 1
+    want_idx, want_md = ops.knn_topk_plain(pos, 20, quantized, True)
+    assert torch.equal(idx, want_idx) and torch.equal(md, want_md)
+    assert torch.equal(idx, ops.knn_topk(pos, 20, quantized))
+
+
+@pytest.mark.parametrize("dense,train", [(True, False), (True, True),
+                                         (False, False)])
+def test_position_gradients_kernels_match_plain(cuda, dense, train):
+    """``d loss / d pos`` and ``d loss / d normal`` of a narrow f32 model
+    through the kernels and through the plain versions on the card, within
+    1e-3 x max (the train steps' gradient bound), the loss at rtol 1e-5;
+    the build's backward kernels launch once each (``densify_bwd`` only
+    with dense operators)."""
+    rng = np.random.default_rng(55)
+    model = DeltaNetClassification(
+        5, conv_channels=(8, 8, 16, 16), embedding_size=32, num_neighbors=8,
+        dropout=0.0, dense_operators=dense,
+        generator=torch.Generator().manual_seed(0)).to(cuda)
+    model.train(train)
+    pos, nrm = _cloud_batch(rng, 4, 128, cuda)
+    labels = torch.tensor([0, 1, 2, 3], device=cuda)
+    out = {}
+    for route in (KERNEL_OPS, PLAIN_OPS):
+        p = pos.clone().requires_grad_()
+        q = nrm.clone().requires_grad_()
+        reset_launch_counts()
+        loss = torch.nn.functional.cross_entropy(
+            model(p, q, ops=route), labels)
+        loss.backward()
+        out[route is KERNEL_OPS] = (float(loss), p.grad, q.grad,
+                                    launch_counts())
+    loss, gp, gn, counts = out[True]
+    assert counts["wls_bwd"] == 1
+    assert counts["densify_bwd"] == int(dense)
+    assert sum(out[False][3].values()) == 0
+    assert loss == pytest.approx(out[False][0], rel=1e-5)
+    _close_to_max(gp, out[False][1], 1e-3)
+    _close_to_max(gn, out[False][2], 1e-3)

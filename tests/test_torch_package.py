@@ -174,6 +174,29 @@ def test_cpu_tensors_take_the_plain_versions():
     ops.edge_delta_mlp(yg, ab[0], ab[1], wg, gb[0, 0].float(),
                        idx).float().sum().backward()
     assert yg.grad.dtype == torch.bfloat16 and wg.grad.dtype == torch.float32
+    pos = torch.randn((2, 32, 3))
+    nrm = torch.nn.functional.normalize(torch.randn((2, 32, 3)), dim=-1)
+    for quantized in (False, True):
+        for got, want in zip(
+                ops.knn_topk(pos, 6, quantized, return_mean_dist=True),
+                ops.knn_topk_plain(pos, 6, quantized, True)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    knn_idx, md = ops.knn_topk(pos, 6, True, return_mean_dist=True)
+    xb, yb = torch.randn((2, 2, 32, 3)).unbind(0)
+    for got, want in zip(
+            ops.fused_gather_wls(pos, nrm, xb, yb, knn_idx, mask, md[:, 0]),
+            ops.fused_gather_wls_plain(pos, nrm, xb, yb, knn_idx, mask,
+                                       md[:, 0])):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    edges = torch.rand((2, 12, 6, 32))
+    ct = torch.randn((2, 2, 2, 6, 32))
+    torch.testing.assert_close(ops.wls_bwd(edges, ct[0], ct[1], 1.0, 1e-3),
+                               ops.wls_bwd_plain(edges, ct[0], ct[1], 1.0,
+                                                 1e-3), rtol=0, atol=0)
+    dw = torch.randn((2, 2, 2, 32, 32))
+    for got, want in zip(ops.densify_bwd(idx, dw[0], dw[1]),
+                         ops.densify_bwd_plain(idx, dw[0], dw[1])):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert launch_counts() == {
         "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
@@ -186,7 +209,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "coef_apply_grad": 0, "coef_apply_div": 0, "knn_topk_table": 0,
         "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
         "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
-        "edge_delta_mlp_bwd": 0}
+        "edge_delta_mlp_bwd": 0, "wls_bwd": 0, "densify_bwd": 0,
+        "fused_gather_wls": 0, "knn_topk_mean_dist": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
@@ -204,6 +228,8 @@ def test_cpu_tensors_take_the_plain_versions():
             is ops.gather_matmul_max_int8_plain)
     assert KERNEL_OPS.edge_delta_mlp is ops.edge_delta_mlp
     assert PLAIN_OPS.edge_delta_mlp is ops.edge_delta_mlp_plain
+    assert KERNEL_OPS.fused_gather_wls is ops.fused_gather_wls
+    assert PLAIN_OPS.fused_gather_wls is ops.fused_gather_wls_plain
 
 
 def test_kernels_refuse_other_devices():
@@ -275,6 +301,22 @@ def test_kernels_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.edge_mlp_bwd(hb, ab[0], ab[1], wb, im, torch.zeros(
             2, 6, 32, 7, dtype=torch.bfloat16, device=meta))
+    em = torch.zeros(2, 12, 6, 32, device=meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.wls_bwd(em, em[:, :2], em[:, :2], 1.0, 1e-3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.densify_bwd(im, torch.zeros(2, 2, 32, 32, device=meta),
+                        torch.zeros(2, 2, 32, 32, device=meta))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.densify_coefs(im, torch.zeros(2, 2, 32, 6, device=meta),
+                          torch.zeros(2, 2, 32, 6, device=meta),
+                          torch.bfloat16, planes=True)
+    p3 = torch.zeros(2, 32, 3, device=meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.knn_topk(p3, 6, True, return_mean_dist=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.fused_gather_wls(p3, p3, p3, p3, im, mm,
+                             torch.zeros(2, device=meta))
     assert sum(launch_counts().values()) == 0
 
 
@@ -402,15 +444,6 @@ def test_normal_estimation_not_ported():
     pos = torch.zeros((1, 8, 3))
     with pytest.raises(NotImplementedError, match="estimate_basis"):
         build_operators(pos, 4)
-
-
-def test_position_gradients_not_ported():
-    """The operator build has no backward kernels yet: differentiating
-    positions raises instead of returning a zero gradient."""
-    pos = torch.randn((1, 8, 3), requires_grad=True)
-    normal = torch.nn.functional.normalize(torch.randn((1, 8, 3)), dim=-1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_operators(pos, 4, normal)
 
 
 def _run_smoke(args, cwd):
