@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the thirty-four CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the forty-one CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -22,7 +22,12 @@ first on ``sys.path``. It
    large-cloud kernels at B=4, N=8192, K=20 on the clouds' own
    coefficients: coef_apply_grad at C = 3, 70, 192, 256 and coef_apply_div
    at C = 6, 128, 256, f32 and bf16, bit-equal, scatter_rows at C' = 70,
-   256, 512), uniform and masked, and times the kernel, the plain
+   256, 512; the min/max hooks' kernels: gather_minmax and
+   gather_minmax_win at f32 C=256 and bf16 C=128, bit-equal,
+   gather_minmax_bwd at C=256 with f32 and bf16 cotangents,
+   gather_matmul_minmax at 128 -> 256, within one bf16 ulp or the f32
+   summation bound of the f64 product), uniform and masked, and times
+   the kernel, the plain
    version and, where
    PyTorch's library calls compute the same function, those calls with
    their set-up (CUDA events around 5 back-to-back calls, median of 30
@@ -212,7 +217,20 @@ first on ``sys.path``. It
     versions and of the unfused route, argmax equal where decisive;
     knn_topk_mean_dist, fused_gather_wls and densify_bf16 once a forward,
     gather_rows and wls never; the build's device time on both routes and
-    clouds/s of both.
+    clouds/s of both;
+25. ``[nbr-minmax]``: the neighbour min/max hooks of the operator object
+    that the reference classifier builds (k=20, dense f32) for 32 uniform
+    clouds of 1024 points and 11 ragged ones: ``gd.nbr_minmax`` at C =
+    64, 128, 256 in f32 and 64, 128 in bf16, its gradient at C=256 (f32
+    and bf16, cotangents on every row, rows with no valid neighbour
+    included), ``gd.nbr_matmul_minmax`` at 128 -> 256, through the
+    kernels and the plain versions on the same build (forwards bit-equal,
+    the f32 gradient within 1e-5 x max, the bf16 one with integer
+    cotangents bit-equal, the matmul form held as in step 3), one launch
+    of gather_minmax a call without grad, of gather_minmax_win and
+    gather_minmax_bwd each with grad, of gather_matmul_minmax a matmul
+    call (the _bf16 bodies for bf16); then the sharded forms
+    (``ShardedGradDiv``) on a 1-rank ``nccl`` group against the hooks.
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -384,6 +402,18 @@ WLS_BWD_FLOPS_PER_EDGE = 580
 # assembly: no densify_bwd), one forward of the fused eval build.
 POS_GRAD_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 1, "scatter_rows": 1}
 POS_GRAD_LARGE_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 0}
+MINMAX_C = 256  # gather_minmax (f32), its backward (f32 and bf16)
+MINMAX_BF16_C = 128  # the bf16 forward bodies
+MINMAX_WIDTHS = (64, 128, 256)  # [nbr-minmax]: the conv widths, f32
+MINMAX_BF16_WIDTHS = (64, 128)  # and bf16
+MINMAX_RAGGED = 11  # ragged clouds of the [nbr-minmax] phase
+# [nbr-minmax]: the hooks' kernels, and launches per hook call: without
+# grad gather_minmax once; with grad gather_minmax_win and
+# gather_minmax_bwd once each; nbr_matmul_minmax gather_matmul_minmax once
+# (the _bf16 bodies for bf16 features).
+MINMAX_KERNELS = ("gather_minmax", "gather_minmax_bf16", "gather_minmax_win",
+                  "gather_minmax_win_bf16", "gather_minmax_bwd",
+                  "gather_minmax_bwd_bf16", "gather_matmul_minmax")
 FUSED_PER_FORWARD = {"knn_topk_mean_dist": 1, "fused_gather_wls": 1,
                      "densify_bf16": 1, "knn_topk": 0, "gather_rows": 0,
                      "wls": 0}
@@ -457,6 +487,20 @@ KERNEL_META = {
                          "deltaconv_tpu/ops/fused_build.py:180"),
     "knn_topk_mean_dist": ("deltaconv_tpu_torch/csrc/knn_topk.cu",
                            "deltaconv_tpu/ops/knn_topk.py:391"),
+    "gather_minmax": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                      "deltaconv_tpu/ops/gather_max.py:474"),
+    "gather_minmax_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                           "deltaconv_tpu/ops/gather_max.py:474"),
+    "gather_minmax_win": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                          "deltaconv_tpu/ops/gather_max.py:474"),
+    "gather_minmax_win_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                               "deltaconv_tpu/ops/gather_max.py:474"),
+    "gather_minmax_bwd": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                          "deltaconv_tpu/ops/gather_max.py:362"),
+    "gather_minmax_bwd_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                               "deltaconv_tpu/ops/gather_max.py:362"),
+    "gather_matmul_minmax": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
+                             "deltaconv_tpu/ops/gather_max.py:792"),
 }
 # The port's autograd Functions, whose forward or backward launches a
 # kernel outside any aten op (the profiler books it to them).
@@ -815,6 +859,146 @@ def check_int8_kernels(record, idx, nbr_mask, gd, dev):
                      ops.gather_matmul_max_int8_plain(xq, we, idx, nbr_mask)),
           "bit-equal")
     torch.cuda.synchronize()
+
+
+def mm_minmax_held(got, x, w, idx, mask):
+    """``(ok, detail)``: both outputs of a matmul min/max held by
+    :func:`mm_max_held`, the max as it is and the min as the max of
+    ``x @ (-w)`` negated (negating bf16 values is exact)."""
+    ok_mx, d_mx = mm_max_held(got[0], x, w, idx, mask)
+    ok_mn, d_mn = mm_max_held(-got[1], x, -w, idx, mask)
+    return ok_mx and ok_mn, f"max: {d_mx}; min: {d_mn}"
+
+
+def check_minmax_kernels(record, idx, nbr_mask, dev):
+    """The kernels of the min/max hooks against their plain versions at
+    the classification shapes: gather_minmax and gather_minmax_win at f32
+    C=256 and their bf16 bodies at C=128 (values and winners bit-equal: a
+    max and a min are exact), gather_minmax_bwd at C=256 with f32 and
+    bf16 cotangents (atomics: SCATTER_RTOL x max), gather_matmul_minmax
+    at 128 -> 256 (``mm_minmax_held``: one bf16 ulp, or the f32
+    summation bound of the f64 product)."""
+    from deltaconv_tpu_torch import ops
+
+    for c, dt in ((MINMAX_C, torch.float32),
+                  (MINMAX_BF16_C, torch.bfloat16)):
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
+        h = torch.randn((B, N, c), device=dev).to(dt)
+        got = ops.gather_minmax(h, idx, nbr_mask)
+        want = ops.gather_minmax_plain(h, idx, nbr_mask)
+        err = max(max_err(g.float(), w.float()) for g, w in zip(got, want))
+        record(f"gather_minmax{sfx}", err)
+        check(f"gather_minmax{sfx} C={c}",
+              all(bits_equal(g, w) for g, w in zip(got, want)),
+              f"max and min bit-equal, max_abs_err {err}")
+        got = ops.gather_minmax_win(h, idx, nbr_mask)
+        want = ops.gather_minmax_win_plain(h, idx, nbr_mask)
+        err = max(max_err(g.float(), w.float()) for g, w in zip(got[:2],
+                                                                want[:2]))
+        record(f"gather_minmax_win{sfx}", err)
+        check(f"gather_minmax_win{sfx} C={c}",
+              all(bits_equal(g, w) for g, w in zip(got, want)),
+              f"values and winners equal (winners differ at "
+              f"{int((got[2] != want[2]).sum() + (got[3] != want[3]).sum())}"
+              f"), max_abs_err {err}")
+    h = torch.randn((B, N, MINMAX_C), device=dev)
+    _, _, wmx, wmn = ops.gather_minmax_win_plain(h, idx, nbr_mask)
+    for dt in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
+        gmx, gmn = (torch.randn((B, N, MINMAX_C), device=dev).to(dt)
+                    for _ in range(2))
+        dh = ops.gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, N)
+        dh_p = ops.gather_minmax_bwd_plain(idx, wmx, gmx, wmn, gmn, N)
+        err, tol = max_err(dh, dh_p), SCATTER_RTOL * float(dh_p.abs().max())
+        record(f"gather_minmax_bwd{sfx}", err)
+        check(f"gather_minmax_bwd{sfx} C={MINMAX_C}", err <= tol,
+              f"max_abs_err {err} <= {tol}")
+    x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    got = ops.gather_matmul_minmax(x, w, idx, nbr_mask)
+    want = ops.gather_matmul_minmax_plain(x, w, idx, nbr_mask)
+    err = max(max_err(g.float(), v.float()) for g, v in zip(got, want))
+    record("gather_matmul_minmax", err)
+    ok, detail = mm_minmax_held(got, x, w, idx, nbr_mask)
+    check(f"gather_matmul_minmax {MM_IN}->{MM_OUT}", ok,
+          f"{detail}; max_abs_err {err}")
+    torch.cuda.synchronize()
+
+
+def time_minmax_kernels(res, idx, nbr_mask, dev):
+    """Times, bounds and library calls of the min/max kernels at the
+    uniform classification shapes (every slot valid, so the library calls
+    need no mask): the forwards beside an ``index`` gather and
+    ``torch.aminmax`` over K (with winners: ``torch.max`` and ``torch.min``
+    over K, values and indices, no promised tie rule), the backward beside
+    the winners resolved with ``torch.gather`` and two ``scatter_add_``
+    into zeros, the matmul form beside a bf16 ``torch.matmul``, the gather
+    and ``aminmax``."""
+    from deltaconv_tpu_torch import ops
+
+    assert bool(nbr_mask.all())
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    idx_l = idx.long()
+
+    def library_fwd(h):
+        return torch.aminmax(h[bidx, idx_l], dim=2)
+
+    def library_win(h):
+        g = h[bidx, idx_l]
+        return torch.max(g, dim=2), torch.min(g, dim=2)
+
+    for c, dt in ((MINMAX_C, torch.float32),
+                  (MINMAX_BF16_C, torch.bfloat16)):
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
+        h = torch.randn((B, N, c), device=dev).to(dt)
+        outs = ops.gather_minmax_win(h, idx, nbr_mask)
+        for name, fk, fp, fl, io in (
+                (f"gather_minmax{sfx}",
+                 lambda: ops.gather_minmax(h, idx, nbr_mask),
+                 lambda: ops.gather_minmax_plain(h, idx, nbr_mask),
+                 lambda: library_fwd(h), (h, idx, nbr_mask, *outs[:2])),
+                (f"gather_minmax_win{sfx}",
+                 lambda: ops.gather_minmax_win(h, idx, nbr_mask),
+                 lambda: ops.gather_minmax_win_plain(h, idx, nbr_mask),
+                 lambda: library_win(h), (h, idx, nbr_mask, *outs))):
+            res[name].update(ms=median_ms(fk), plain_ms=median_ms(fp),
+                             library_ms=median_ms(fl), bound=bound(nbytes(*io)))
+    h = torch.randn((B, N, MINMAX_C), device=dev)
+    _, _, wmx, wmn = ops.gather_minmax_win_plain(h, idx, nbr_mask)
+    for dt in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
+        gmx, gmn = (torch.randn((B, N, MINMAX_C), device=dev).to(dt)
+                    for _ in range(2))
+
+        def library_bwd():
+            dh = torch.zeros((B, N, MINMAX_C), device=dev)
+            dh.scatter_add_(1, torch.gather(idx_l, 2, wmx.long()), gmx.float())
+            return dh.scatter_add_(1, torch.gather(idx_l, 2, wmn.long()),
+                                   gmn.float())
+
+        res[f"gather_minmax_bwd{sfx}"].update(
+            ms=median_ms(lambda: ops.gather_minmax_bwd(idx, wmx, gmx, wmn,
+                                                       gmn, N)),
+            plain_ms=median_ms(lambda: ops.gather_minmax_bwd_plain(
+                idx, wmx, gmx, wmn, gmn, N)),
+            library_ms=median_ms(library_bwd),
+            bound=bound(nbytes(idx, wmx, gmx, wmn, gmn, h)))
+    x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    outs = ops.gather_matmul_minmax(x, w, idx, nbr_mask)
+    # One product a row, as gather_matmul_max's bound counts.
+    res["gather_matmul_minmax"].update(
+        ms=median_ms(lambda: ops.gather_matmul_minmax(x, w, idx, nbr_mask)),
+        plain_ms=median_ms(lambda: ops.gather_matmul_minmax_plain(
+            x, w, idx, nbr_mask)),
+        library_ms=median_ms(
+            lambda: torch.aminmax(torch.matmul(x, w)[bidx, idx_l], dim=2)),
+        bound=bound(nbytes(x, w, idx, nbr_mask, *outs),
+                    2.0 * B * N * MM_IN * MM_OUT, BF16_TC_OPS_PER_S))
+    for name in MINMAX_KERNELS:
+        r = res[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, library call {r['library_ms']:.4f} ms")
 
 
 def mlp_inputs(c_in, c_out, centralized, dev):
@@ -1234,6 +1418,7 @@ def kernel_phase(rng, dev, card):
         check_bf16_kernels(record, label, pos, idx, nbr_mask, gd_p, dev)
         check_bf16_train_kernels(record, idx, nbr_mask, dev)
         check_int8_kernels(record, idx, nbr_mask, gd_p, dev)
+        check_minmax_kernels(record, idx, nbr_mask, dev)
         torch.cuda.synchronize()
     seg_cases = seg_graphs(rng, dev)
     for label, (idx, nbr_mask, seg_gd) in seg_cases.items():
@@ -1450,6 +1635,7 @@ def kernel_phase(rng, dev, card):
             if c == RECORD_WIDTH[name]:
                 res[name]["ms"], res[name]["plain_ms"] = km, pl
                 res[name]["bound"] = bound(nbytes(*io))
+    time_minmax_kernels(res, idx, nbr_mask, dev)
     time_seg_kernels(res, *seg_cases["uniform"][:2], dev, card)
     time_edge_mlp_kernels(res, seg_cases["uniform"][0], dev, card)
     del seg_cases, cases
@@ -1458,8 +1644,11 @@ def kernel_phase(rng, dev, card):
     build_bwd_kernel_phase(res, rng, dev, card)
     print(f"  (the JSON record gives each at its width: {RECORD_WIDTH}, "
           f"gather_max_affine at C=128, gather_matmul_max, "
-          f"gather_matmul_max_win and gather_matmul_max_int8 at "
-          f"{MM_IN}->{MM_OUT}; gather_max_int8 on bf16 features)")
+          f"gather_matmul_max_win, gather_matmul_max_int8 and "
+          f"gather_matmul_minmax at {MM_IN}->{MM_OUT}; gather_max_int8 on "
+          f"bf16 features; gather_minmax, gather_minmax_win and both "
+          f"gather_minmax_bwd bodies at C={MINMAX_C}, the bf16 forwards at "
+          f"C={MINMAX_BF16_C})")
     for name, r in res.items():
         print(f"  {name}: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
               f"kernel at {r['bound'][0] / r['ms']:.3f} of it")
@@ -3683,6 +3872,149 @@ def serve_fused_build_phase(clouds, seed, dev, card):
     return fused_counts
 
 
+def nbr_minmax_phase(rng, dev, card):
+    """``[nbr-minmax]``: the min/max hooks on the operator object that the
+    reference classifier builds (``build_operators``: k=20, dense f32) for
+    32 uniform clouds of 1024 points and 11 ragged ones (their padded
+    points' rows have no valid neighbour): ``gd.nbr_minmax`` at the conv
+    widths (f32 64, 128, 256; bf16 64, 128), its gradient at C=256 (f32:
+    random cotangents, within SCATTER_RTOL x max; bf16: integer ones, exact
+    sums in any order, bit-equal) with cotangents on every row, and
+    ``gd.nbr_matmul_minmax`` at 128 -> 256 (``mm_minmax_held``), each
+    through the kernels and, on the same build, the plain versions (the
+    forwards bit-equal). Counts each call's launches exactly, and the
+    phase's. Then the sharded forms on a 1-rank ``nccl`` group (a
+    FileStore in a temporary directory) against the unsharded hooks on
+    the same cloud's operators: ``nbr_minmax`` bit-equal, the matmul form
+    held by ``mm_minmax_held``."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deltaconv_tpu_torch import (PLAIN_OPS, launch_counts,
+                                     reset_launch_counts)
+    from deltaconv_tpu_torch.models import build_operators
+    from deltaconv_tpu_torch.parallel import (ShardedGradDiv,
+                                              point_sharded_operators)
+
+    sizes = rng.integers(N * 600 // 1024, N, MINMAX_RAGGED).tolist()
+    batches = (("uniform", train_batch(rng, dev, [N] * B, N)),
+               ("ragged", train_batch(rng, dev, sizes, N)))
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    phase = dict.fromkeys(MINMAX_KERNELS, 0)
+
+    def launched(label, want):
+        """The launches since the last reset equal ``want``; added to the
+        phase's counts."""
+        got = {k: v for k, v in launch_counts().items() if v}
+        check(f"[nbr-minmax] {label} launches", got == want, f"{got}")
+        for name, v in got.items():
+            phase[name] += v
+        reset_launch_counts()
+
+    gds = {}
+    for label, batch in batches:
+        print(f"[nbr-minmax] {label} ({len(batch['label'])} clouds of up to "
+              f"{N} points)", flush=True)
+        gd = gds[label] = build_operators(batch["pos"], K, batch["normal"],
+                                          batch.get("point_mask"))
+        gp = dataclasses.replace(gd, ops=PLAIN_OPS)
+        reset_launch_counts()
+        b = gd.nbr_idx.shape[0]
+        empty = int((~gd.nbr_mask.any(dim=-1)).sum())
+        for dt, widths in ((torch.float32, MINMAX_WIDTHS),
+                           (torch.bfloat16, MINMAX_BF16_WIDTHS)):
+            sfx = "_bf16" if dt == torch.bfloat16 else ""
+            for c in widths:
+                h = torch.randn((b, N, c), device=dev).to(dt)
+                got = gd.nbr_minmax(h)
+                launched(f"{label} nbr_minmax {str(dt)[6:]} C={c}",
+                         {f"gather_minmax{sfx}": 1})
+                want = gp.nbr_minmax(h)
+                check(f"[nbr-minmax] {label} nbr_minmax {str(dt)[6:]} C={c} "
+                      f"kernels vs plain",
+                      all(bits_equal(g, v) for g, v in zip(got, want)),
+                      f"max and min bit-equal ({empty} rows with no valid "
+                      f"neighbour)")
+            h = torch.randn((b, N, MINMAX_C), device=dev).to(dt)
+            if dt == torch.float32:
+                cts = torch.randn((2, b, N, MINMAX_C), device=dev)
+            else:
+                cts = torch.randint(-4, 5, (2, b, N, MINMAX_C),
+                                    device=dev).to(dt)
+            grads = []
+            for op in (gd, gp):
+                hg = h.clone().requires_grad_()
+                torch.autograd.backward(op.nbr_minmax(hg), (cts[0],
+                                                            -2 * cts[1]))
+                grads.append(hg.grad)
+                if op is gd:
+                    launched(f"{label} nbr_minmax gradient {str(dt)[6:]}",
+                             {f"gather_minmax_win{sfx}": 1,
+                              f"gather_minmax_bwd{sfx}": 1})
+            err = max_err(grads[0].float(), grads[1].float())
+            tol = (SCATTER_RTOL * float(grads[1].float().abs().max())
+                   if dt == torch.float32 else 0.0)
+            check(f"[nbr-minmax] {label} gradient {str(dt)[6:]} "
+                  f"C={MINMAX_C} kernels vs plain",
+                  grads[0].dtype == dt and bool(torch.isfinite(
+                      grads[0].float()).all()) and err <= tol,
+                  f"max_abs_err {err} <= {tol}")
+        x = torch.randn((b, N, MM_IN), device=dev)
+        got = gd.nbr_matmul_minmax(x, w)
+        launched(f"{label} nbr_matmul_minmax", {"gather_matmul_minmax": 1})
+        xb = x.to(torch.bfloat16)
+        ok, detail = mm_minmax_held(got, xb, w, gd.nbr_idx, gd.nbr_mask)
+        want = gp.nbr_matmul_minmax(x, w)
+        check(f"[nbr-minmax] {label} nbr_matmul_minmax {MM_IN}->{MM_OUT}", ok,
+              f"{detail}; vs the plain route max_abs_err "
+              f"{max(max_err(g.float(), v.float()) for g, v in zip(got, want))}")
+    n_b = len(batches)
+    want = {"gather_minmax": n_b * len(MINMAX_WIDTHS),
+            "gather_minmax_bf16": n_b * len(MINMAX_BF16_WIDTHS),
+            "gather_minmax_win": n_b, "gather_minmax_win_bf16": n_b,
+            "gather_minmax_bwd": n_b, "gather_minmax_bwd_bf16": n_b,
+            "gather_matmul_minmax": n_b}
+    check("[nbr-minmax] the hook calls' launches", phase == want,
+          f"{phase}")
+
+    gd = gds["uniform"]
+    h = torch.randn((B, N, MINMAX_C), device=dev)
+    x = torch.randn((B, N, MM_IN), device=dev)
+    print(f"[nbr-minmax] per hook call at B={B} N={N} K={K} (uniform, "
+          f"CUDA events), card: {card}: nbr_minmax f32 C={MINMAX_C} "
+          f"{median_ms(lambda: gd.nbr_minmax(h)):.4f} ms, nbr_matmul_minmax "
+          f"f32 x {MM_IN}->{MM_OUT} "
+          f"{median_ms(lambda: gd.nbr_matmul_minmax(x, w)):.4f} ms")
+
+    pos, nrm = batches[0][1]["pos"][0], batches[0][1]["normal"][0]
+    h1, x1 = h[:1], x[:1].to(torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1)
+        try:
+            group = dist.group.WORLD
+            local = point_sharded_operators(pos, K, nrm, group=group)
+            sgd = ShardedGradDiv(local, group)
+            for dt in (torch.float32, torch.bfloat16):
+                got = sgd.nbr_minmax(h1.to(dt))
+                want = local.nbr_minmax(h1.to(dt))
+                check(f"[nbr-minmax] sharded nbr_minmax {str(dt)[6:]} "
+                      f"(1-rank nccl) vs the hook",
+                      all(g.dtype == dt and bits_equal(g, v)
+                          for g, v in zip(got, want)), "bit-equal")
+            got = sgd.nbr_matmul_minmax(x1, w)
+            ok, detail = mm_minmax_held(got, x1, w, local.nbr_idx,
+                                        local.nbr_mask)
+            check("[nbr-minmax] sharded nbr_matmul_minmax bf16 (1-rank "
+                  "nccl) vs the hook's plain version", ok, detail)
+        finally:
+            dist.destroy_process_group()
+    return phase
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3752,6 +4084,8 @@ def main():
     mark("positions' gradients")
     fused_build = serve_fused_build_phase(clouds, args.seed, dev, card)
     mark("fused eval build")
+    minmax = nbr_minmax_phase(rng, dev, card)
+    mark("min/max hooks")
     print("[time] seconds per group of phases: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
@@ -3777,7 +4111,8 @@ def main():
                              (SEG_TRAIN_F32_KERNELS, seg_train_f32),
                              (("wls_bwd", "densify_bwd"), pos_grad),
                              (("knn_topk_mean_dist", "fused_gather_wls"),
-                              fused_build)):
+                              fused_build),
+                             (MINMAX_KERNELS, minmax)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

@@ -20,6 +20,11 @@ __device__ __forceinline__ float nan_max(float best, float v) {
   return (best != best || v <= best) ? best : v;
 }
 
+// jnp.minimum: a NaN in either operand wins.
+__device__ __forceinline__ float nan_min(float worst, float v) {
+  return (worst != worst || v >= worst) ? worst : v;
+}
+
 // `_bn_lrelu_epilogue` for one element; `aff` holds the four [C] rows.
 __device__ __forceinline__ float bn_lrelu(float best, float self_val,
                                           bool sub_self, bool valid,
@@ -84,12 +89,15 @@ inline size_t mm_smem_bytes(int K, int Cin) {
 // and w 32-byte aligned.
 // kWinners: the train-mode form (bf16-rounded products, winner slots, no
 // epilogue: `aff` is null).
-template <bool kWinners, typename Tin>
+// kMinMax: also the running min of each lane's cells, into `out_min`
+// (`gather_matmul_minmax`: no winners, no epilogue).
+template <bool kWinners, typename Tin, bool kMinMax = false>
 __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
     const Tin* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const int* __restrict__ idx, const uint8_t* __restrict__ mask,
     const float* __restrict__ aff, __nv_bfloat16* __restrict__ out,
-    int* __restrict__ winner, int B, int N, int Cin, int Cout, int K) {
+    int* __restrict__ winner, int B, int N, int Cin, int Cout, int K,
+    __nv_bfloat16* __restrict__ out_min) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   const int rows = K * kMmPoints;  // row r = k * 16 + p
@@ -135,11 +143,12 @@ __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* sc = scratch + warp * 256;
   for (int nf = warp; nf < Cout / 16; nf += kMmWarps) {
-    float best[8];
+    float best[8], worst[8];
     int win[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       best[i] = kNeg;
+      worst[i] = -kNeg;
       win[i] = 0;
     }
     for (int k0 = 0; k0 < K; k0 += kMmSlotsPerPass) {
@@ -175,6 +184,7 @@ __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
           if (!slot_ok[k * kMmPoints + e / 16]) continue;
           if (!kWinners) {
             best[i] = nan_max(best[i], sc[e]);
+            if (kMinMax) worst[i] = nan_min(worst[i], sc[e]);
             continue;
           }
           const float v = __bfloat162float(__float2bfloat16_rn(sc[e]));
@@ -200,6 +210,7 @@ __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
                                      aff, Cout, o)
                           : best[i];
       out[bn * Cout + o] = __float2bfloat16_rn(v);
+      if (kMinMax) out_min[bn * Cout + o] = __float2bfloat16_rn(worst[i]);
       if (kWinners) winner[bn * Cout + o] = win[i];
     }
   }
@@ -208,27 +219,27 @@ __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
 // Shared memory of the matmul maxes: above the default 48 KB a kernel
 // must opt in (up to 227 KB; beyond that the launch is refused and
 // reported).
-template <bool kWinners, typename Tin>
+template <bool kWinners, typename Tin, bool kMinMax = false>
 int launch_matmul_max(const void* x, const void* w, const void* idx,
                       const void* mask, const void* aff, void* out,
                       void* winner, int B, int N, int Cin, int Cout, int K,
-                      void* stream) {
+                      void* stream, void* out_min = nullptr) {
   if ((long long)B * N * Cout == 0) return (int)cudaGetLastError();
   if (Cin % 16 != 0 || Cout % 16 != 0 || Cin == 0 || K <= 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = mm_smem_bytes(K, Cin);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gather_matmul_max_kernel<kWinners, Tin>,
+        gather_matmul_max_kernel<kWinners, Tin, kMinMax>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = ((long long)B * N + kMmPoints - 1) / kMmPoints;
-  gather_matmul_max_kernel<kWinners, Tin>
+  gather_matmul_max_kernel<kWinners, Tin, kMinMax>
       <<<(unsigned)blocks, kMmWarps * 32, smem, (cudaStream_t)stream>>>(
       (const Tin*)x, (const __nv_bfloat16*)w, (const int*)idx,
       (const uint8_t*)mask, (const float*)aff, (__nv_bfloat16*)out,
-      (int*)winner, B, N, Cin, Cout, K);
+      (int*)winner, B, N, Cin, Cout, K, (__nv_bfloat16*)out_min);
   return (int)cudaGetLastError();
 }
 

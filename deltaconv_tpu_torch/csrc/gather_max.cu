@@ -48,6 +48,26 @@
 // the channels it won). Bound: the atomics in L2. The order of the adds,
 // and so the last bits of a sum, can change from run to run, as with
 // scatter_add_ on CUDA.
+//
+// Min and max together (`gather_minmax`, `gather_minmax_bf16`, and with
+// winners `gather_minmax_win`, `gather_minmax_win_bf16`):
+//   mx[b, n, c] = the masked max above, mn[b, n, c] = the masked min,
+// with the same layout, loads and NaN rule, a running max (strict >) and
+// a running min (strict <, so a tie also goes to the lowest slot) kept
+// side by side; a row with no valid neighbour gets (-3e38, +3e38) and
+// winners 0. Replaces `_pallas_minmax` (pallas_call at gather_max.py:474,
+// kernel body `_minmax_kernel`), which gathered through the same one-hot
+// MXU product on a hi/lo split as the max; here every slot is a direct
+// load. Bound on the H100: memory, as the max (the same K rows read,
+// two outputs written; four with the winners).
+//
+// Two-map backward (`gather_minmax_bwd`, `gather_minmax_bwd_bf16`):
+//   dh[b, idx[b, n, wmx[b, n, c]], c] += gmx[b, n, c]
+//   dh[b, idx[b, n, wmn[b, n, c]], c] += gmn[b, n, c]
+// into one zero-filled f32 dh, one launch reading idx once for both
+// maps: the counterpart of `_pallas_bwd_mm` called with two (winner, g)
+// pairs (gather_max.py:528-536). Where the max and the min win at the
+// same (row, c) (one valid slot, or equal values) both cotangents add.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -102,12 +122,31 @@ __device__ __forceinline__ void store_row(T* p, const float* val) {
   }
 }
 
-template <typename T, int V, bool kWinners>
+// One step of a running extreme over the slots: the max (kMin false,
+// strict >) or the min (kMin true, strict <), so a tie keeps the lowest
+// slot. A NaN propagates, takes winner 0, and sticks.
+template <bool kMin>
+__device__ __forceinline__ void take(float val, int k, float& best, int& w) {
+  if (val != val) {
+    if (best == best) {
+      best = val;
+      w = 0;
+    }
+  } else if (kMin ? val < best : val > best) {
+    best = val;
+    w = k;
+  }
+}
+
+// kMin: also the running min, into out_min (and winner_min).
+template <typename T, int V, bool kWinners, bool kMin>
 __global__ void gather_max_kernel(const T* __restrict__ h,
                                   const int* __restrict__ idx,
                                   const uint8_t* __restrict__ mask,
                                   T* __restrict__ out,
-                                  int* __restrict__ winner, int B, int N,
+                                  int* __restrict__ winner,
+                                  T* __restrict__ out_min,
+                                  int* __restrict__ winner_min, int B, int N,
                                   int C, int K) {
   const long long bn = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   if (bn >= (long long)B * N) return;
@@ -116,41 +155,54 @@ __global__ void gather_max_kernel(const T* __restrict__ h,
   const uint8_t* mr = mask + bn * K;
   const T* hb = h + b * N * C;
   for (int c = threadIdx.x * V; c < C; c += blockDim.x * V) {
-    float best[V], val[V];
-    int w[V];
+    float best[V], worst[V], val[V];
+    int w[V], wn[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       best[v] = kNeg;
-      w[v] = 0;
+      worst[v] = -kNeg;
+      w[v] = wn[v] = 0;
     }
     for (int k = 0; k < K; ++k) {
       if (!mr[k]) continue;
       load_row<T, V>(hb, ir[k], N, C, c, val);
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        if (val[v] != val[v]) {  // NaN: propagates, winner 0, sticks
-          if (best[v] == best[v]) {
-            best[v] = val[v];
-            w[v] = 0;
-          }
-        } else if (val[v] > best[v]) {
-          best[v] = val[v];
-          w[v] = k;
-        }
+        take<false>(val[v], k, best[v], w[v]);
+        if (kMin) take<true>(val[v], k, worst[v], wn[v]);
       }
     }
     store_row<T, V>(out + bn * C + c, best);
+    if (kMin) store_row<T, V>(out_min + bn * C + c, worst);
     if (kWinners) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) winner[bn * C + c + v] = w[v];
+      for (int v = 0; v < V; ++v) {
+        winner[bn * C + c + v] = w[v];
+        if (kMin) winner_min[bn * C + c + v] = wn[v];
+      }
     }
   }
 }
 
+// One (winner, g) map routed into dh at channel c of point bn.
 template <typename G>
+__device__ __forceinline__ void route(const int* ir, const int* winner,
+                                      const G* g, float* db, long long bn,
+                                      int c, int C, int K, int n_out) {
+  const int w = winner[bn * C + c];
+  if ((unsigned)w >= (unsigned)K) return;
+  const int j = ir[w];
+  if ((unsigned)j >= (unsigned)n_out) return;
+  atomicAdd(db + (long long)j * C + c, to_f32(g[bn * C + c]));
+}
+
+// kTwo: a second map (winner2, g2) into the same dh.
+template <typename G, bool kTwo>
 __global__ void gather_max_bwd_kernel(const int* __restrict__ idx,
                                       const int* __restrict__ winner,
                                       const G* __restrict__ g,
+                                      const int* __restrict__ winner2,
+                                      const G* __restrict__ g2,
                                       float* __restrict__ dh, int B, int N,
                                       int C, int K, int n_out) {
   const long long bn = (long long)blockIdx.x * blockDim.y + threadIdx.y;
@@ -159,39 +211,51 @@ __global__ void gather_max_bwd_kernel(const int* __restrict__ idx,
   const int* ir = idx + bn * K;
   float* db = dh + b * n_out * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int w = winner[bn * C + c];
-    if ((unsigned)w >= (unsigned)K) continue;
-    const int j = ir[w];
-    if ((unsigned)j >= (unsigned)n_out) continue;
-    atomicAdd(db + (long long)j * C + c, to_f32(g[bn * C + c]));
+    route<G>(ir, winner, g, db, bn, c, C, K, n_out);
+    if (kTwo) route<G>(ir, winner2, g2, db, bn, c, C, K, n_out);
   }
 }
 
-template <typename T, int V, bool kWinners>
+template <typename T, int V, bool kWinners, bool kMin = false>
 int launch_fwd(const void* h, const void* idx, const void* mask, void* out,
-               void* winner, int B, int N, int C, int K, void* stream) {
+               void* winner, int B, int N, int C, int K, void* stream,
+               void* out_min = nullptr, void* winner_min = nullptr) {
   const dim3 block = dc_row_block((C + V - 1) / V);
-  gather_max_kernel<T, V, kWinners><<<dc_row_grid(B, N, block), block, 0,
-                                      (cudaStream_t)stream>>>(
+  gather_max_kernel<T, V, kWinners, kMin><<<dc_row_grid(B, N, block), block,
+                                            0, (cudaStream_t)stream>>>(
       (const T*)h, (const int*)idx, (const uint8_t*)mask, (T*)out,
-      (int*)winner, B, N, C, K);
+      (int*)winner, (T*)out_min, (int*)winner_min, B, N, C, K);
   return (int)cudaGetLastError();
 }
 
-template <typename G>
+template <typename G, bool kTwo = false>
 int launch_bwd(const void* idx, const void* winner, const void* g, void* dh,
-               int B, int N, int C, int K, int n_out, void* stream) {
+               int B, int N, int C, int K, int n_out, void* stream,
+               const void* winner2 = nullptr, const void* g2 = nullptr) {
   const dim3 block = dc_row_block(C);
-  gather_max_bwd_kernel<G><<<dc_row_grid(B, N, block), block, 0,
-                             (cudaStream_t)stream>>>(
-      (const int*)idx, (const int*)winner, (const G*)g, (float*)dh, B, N, C,
-      K, n_out);
+  gather_max_bwd_kernel<G, kTwo><<<dc_row_grid(B, N, block), block, 0,
+                                   (cudaStream_t)stream>>>(
+      (const int*)idx, (const int*)winner, (const G*)g, (const int*)winner2,
+      (const G*)g2, (float*)dh, B, N, C, K, n_out);
   return (int)cudaGetLastError();
 }
 
 // Pairs of channels where every pair is 4-byte aligned.
 bool bf16_pairs(const void* h, const void* out, int C) {
   return C % 2 == 0 && (uintptr_t)h % 4 == 0 && (uintptr_t)out % 4 == 0;
+}
+
+// The min/max forward on bf16 features: pairs of channels where h and
+// both outputs allow them, else one channel a thread.
+template <bool kWinners>
+int launch_minmax_bf16(const void* h, const void* idx, const void* mask,
+                       void* mx, void* mn, void* wmx, void* wmn, int B, int N,
+                       int C, int K, void* stream) {
+  if (bf16_pairs(h, mx, C) && bf16_pairs(h, mn, C))
+    return launch_fwd<__nv_bfloat16, 2, kWinners, true>(
+        h, idx, mask, mx, wmx, B, N, C, K, stream, mn, wmn);
+  return launch_fwd<__nv_bfloat16, 1, kWinners, true>(
+      h, idx, mask, mx, wmx, B, N, C, K, stream, mn, wmn);
 }
 
 }  // namespace
@@ -256,4 +320,67 @@ extern "C" int dc_gather_max_bwd_bf16(const void* idx, const void* winner,
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   return launch_bwd<__nv_bfloat16>(idx, winner, g, dh, B, N, C, K, n_out,
                                    stream);
+}
+
+extern "C" int dc_gather_minmax(const void* h, const void* idx,
+                                const void* mask, void* mx, void* mn, int B,
+                                int N, int C, int K, int device,
+                                void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
+  return launch_fwd<float, 1, false, true>(h, idx, mask, mx, nullptr, B, N, C,
+                                           K, stream, mn, nullptr);
+}
+
+extern "C" int dc_gather_minmax_bf16(const void* h, const void* idx,
+                                     const void* mask, void* mx, void* mn,
+                                     int B, int N, int C, int K, int device,
+                                     void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
+  return launch_minmax_bf16<false>(h, idx, mask, mx, mn, nullptr, nullptr, B,
+                                   N, C, K, stream);
+}
+
+extern "C" int dc_gather_minmax_win(const void* h, const void* idx,
+                                    const void* mask, void* mx, void* mn,
+                                    void* wmx, void* wmn, int B, int N, int C,
+                                    int K, int device, void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
+  return launch_fwd<float, 1, true, true>(h, idx, mask, mx, wmx, B, N, C, K,
+                                          stream, mn, wmn);
+}
+
+extern "C" int dc_gather_minmax_win_bf16(const void* h, const void* idx,
+                                         const void* mask, void* mx, void* mn,
+                                         void* wmx, void* wmn, int B, int N,
+                                         int C, int K, int device,
+                                         void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
+  return launch_minmax_bf16<true>(h, idx, mask, mx, mn, wmx, wmn, B, N, C, K,
+                                  stream);
+}
+
+extern "C" int dc_gather_minmax_bwd(const void* idx, const void* wmx,
+                                    const void* gmx, const void* wmn,
+                                    const void* gmn, void* dh, int B, int N,
+                                    int C, int K, int n_out, int device,
+                                    void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
+  return launch_bwd<float, true>(idx, wmx, gmx, dh, B, N, C, K, n_out, stream,
+                                 wmn, gmn);
+}
+
+extern "C" int dc_gather_minmax_bwd_bf16(const void* idx, const void* wmx,
+                                         const void* gmx, const void* wmn,
+                                         const void* gmn, void* dh, int B,
+                                         int N, int C, int K, int n_out,
+                                         int device, void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
+  return launch_bwd<__nv_bfloat16, true>(idx, wmx, gmx, dh, B, N, C, K, n_out,
+                                         stream, wmn, gmn);
 }

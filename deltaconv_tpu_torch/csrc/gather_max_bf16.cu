@@ -31,6 +31,20 @@
 // `_mm_max_win_kernel`); its backward is the winner-routed scatter of
 // gather_max.cu at C_out.
 //
+// `gather_matmul_minmax` (forward only, as JAX's):
+//   mx[b, n, o] = max over valid k of sum_c x[b, idx[b, n, k], c] w[c, o]
+//   mn[b, n, o] = min over valid k of the same sums
+//   x [B, N, C_in] bf16, w [C_in, C_out] bf16 -> mx, mn [B, N, C_out]
+//   bf16, the f32 max and min each rounded to bf16 (rounding is monotone,
+//   so this equals rounding each slot first); (-3e38, +3e38) on a row
+//   with no valid slot. Replaces the Pallas kernel of `gather_matmul_minmax`
+//   (pallas_call at gather_max.py:792, body `_mm_minmax_kernel`). It is
+//   the template of `gather_matmul_max` in its min/max mode: each lane
+//   keeps a running min beside its running max; no epilogue, no winners.
+//   Bound on the H100: its bytes (x, w, idx/mask and the two bf16 outputs;
+//   one product a row), which this design, paying the K-fold product as
+//   the max does, does not approach.
+//
 // Both eval kernels end in `_bn_lrelu_epilogue` (gather_max.py:584),
 // replayed op for op in f32 with every operation rounded on its own (no
 // FMA contraction):
@@ -172,4 +186,14 @@ extern "C" int dc_gather_matmul_max_win(const void* x, const void* w,
   DC_SET_DEVICE(device);
   return launch_matmul_max<true, __nv_bfloat16>(
       x, w, idx, mask, nullptr, out, winner, B, N, Cin, Cout, K, stream);
+}
+
+extern "C" int dc_gather_matmul_minmax(const void* x, const void* w,
+                                       const void* idx, const void* mask,
+                                       void* mx, void* mn, int B, int N,
+                                       int Cin, int Cout, int K, int device,
+                                       void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_matmul_max<false, __nv_bfloat16, true>(
+      x, w, idx, mask, nullptr, mx, nullptr, B, N, Cin, Cout, K, stream, mn);
 }

@@ -1,6 +1,8 @@
 """Neighbour aggregations shared by the operator objects (counterpart of
 ``deltaconv_tpu/geometry/nbr_ops.py``: ``nbr_max`` on every path,
-``nbr_sum`` for the train-mode edge statistics, ``nbr_max_affine`` and
+``nbr_minmax`` and ``nbr_matmul_minmax`` for the neighbour max and min
+together, ``nbr_sum`` for the train-mode edge statistics,
+``nbr_max_affine`` and
 ``nbr_matmul_max`` for the bf16 eval branches, ``nbr_matmul_max_train``
 for the bf16 train branch of a lane-narrower conv, ``nbr_gather`` for
 the edge tensor of a depth-2 centralized conv, ``nbr_mlp_max`` for the
@@ -10,6 +12,8 @@ through raw indices itself: it asks its operator object, which keeps the
 kernel choice (its ``ops``) in one place."""
 
 from __future__ import annotations
+
+import torch
 
 from ..ops.gather_max import masked_nbr_max
 
@@ -26,6 +30,26 @@ class NeighborAggregations:
         rows give 0."""
         return masked_nbr_max(h, self.nbr_idx, self.nbr_mask,
                               self.ops.gather_max)
+
+    def nbr_minmax(self, h):
+        """Masked neighbour ``(max, min)`` ``[B, N, C] -> 2 x [B, N, C]``
+        in one pass (``ops.gather_minmax``), f32 or bf16 (bf16 out);
+        differentiable in ``h``, each cotangent to its first winning
+        neighbour. Rows with no valid neighbour give ``(-3e38, +3e38)``
+        (callers mask them) and route their cotangents to
+        ``nbr_idx[..., 0]``, as JAX's. Every slot is a direct load, the
+        self slot too, which equals JAX's ``self_slot0`` shortcut when
+        ``nbr_idx[..., 0]`` is the point itself."""
+        return self.ops.gather_minmax(h, self.nbr_idx, self.nbr_mask)
+
+    def nbr_matmul_minmax(self, x, w):
+        """Masked ``(max, min)`` of ``(x @ w)[nbr]``: ``x`` and ``w`` cast
+        to bf16, f32 accumulation, bf16 out
+        (``ops.gather_matmul_minmax``); forward only. Rows with no valid
+        neighbour give ``(-3e38, +3e38)`` rounded to bf16."""
+        return self.ops.gather_matmul_minmax(
+            x.to(torch.bfloat16), w.to(torch.bfloat16), self.nbr_idx,
+            self.nbr_mask)
 
     def nbr_sum(self, h, mask=None):
         """Masked neighbour sum ``[B, N, C] -> [B, N, C]`` over ``mask``

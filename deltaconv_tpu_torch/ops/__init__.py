@@ -7,19 +7,21 @@ its plain PyTorch version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the nineteen functions the models call so
-that a caller can run a forward, or a whole train step, through the
-kernels or through the plain versions on the same device, which is how
-the kernel path is checked on the card; a plain entry is differentiated
-through plain versions only. The gather is differentiable in its table,
-the coefficient-form applies in their features and coefficients, the
-neighbour max (f32 or bf16) and sum in their features, the bf16
+and :data:`PLAIN_OPS` bundle the twenty-one functions the models and the
+operator objects' aggregation hooks call so that a caller can run a
+forward, or a whole train step, through the kernels or through the plain
+versions on the same device, which is how the kernel path is checked on
+the card; a plain entry is differentiated through plain versions only.
+The gather is differentiable in its table, the coefficient-form applies
+in their features and coefficients, the neighbour max (f32 or bf16),
+min/max and sum in their features, the bf16
 gather-then-matmul max of training in its input and weight, the edge MLP
 of the segmentation train step in its input, affine, weight and self
 slot, the build's gather, WLS solve and dense assembly in the positions
 and frames (their backward kernels, ``scatter_rows``, ``wls_bwd`` and
 ``densify_bwd``, are reached through these Functions, as the max's
-``gather_max_bwd`` is), with the same gradient routing on both.
+``gather_max_bwd`` and the min/max's ``gather_minmax_bwd`` are), with the
+same gradient routing on both.
 """
 
 from __future__ import annotations
@@ -37,12 +39,17 @@ from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
                          gather_matmul_max_plain, gather_matmul_max_train,
                          gather_matmul_max_train_plain,
                          gather_matmul_max_win, gather_matmul_max_win_plain,
+                         gather_matmul_minmax, gather_matmul_minmax_plain,
                          gather_max,
                          gather_max_affine, gather_max_affine_plain,
                          gather_max_bwd, gather_max_bwd_plain,
                          gather_max_int8, gather_max_int8_plain,
                          gather_max_plain, gather_max_win,
-                         gather_max_win_plain, int8_quantize, masked_nbr_max)
+                         gather_max_win_plain, gather_minmax,
+                         gather_minmax_bwd, gather_minmax_bwd_plain,
+                         gather_minmax_plain, gather_minmax_win,
+                         gather_minmax_win_plain, int8_quantize,
+                         masked_nbr_max)
 from .edge_mlp import (edge_delta_mlp, edge_delta_mlp_plain, edge_mlp_bwd,
                        edge_mlp_bwd_plain, edge_mlp_fwd, edge_mlp_fwd_plain)
 from .fused_build import (fused_dense_build, fused_gather_wls,
@@ -71,11 +78,15 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
            "gather_matmul_max_plain", "gather_matmul_max_train",
            "gather_matmul_max_train_plain", "gather_matmul_max_win",
-           "gather_matmul_max_win_plain", "gather_max", "gather_max_affine",
+           "gather_matmul_max_win_plain", "gather_matmul_minmax",
+           "gather_matmul_minmax_plain", "gather_max", "gather_max_affine",
            "gather_max_affine_plain", "gather_max_bwd",
            "gather_max_bwd_plain", "gather_max_int8", "gather_max_int8_plain",
            "gather_max_plain", "gather_max_win",
-           "gather_max_win_plain", "gather_mlp_max", "gather_mlp_max_plain",
+           "gather_max_win_plain", "gather_minmax", "gather_minmax_bwd",
+           "gather_minmax_bwd_plain", "gather_minmax_plain",
+           "gather_minmax_win", "gather_minmax_win_plain",
+           "gather_mlp_max", "gather_mlp_max_plain",
            "gather_rows", "gather_rows_plain",
            "gather_sum", "gather_sum_bwd", "gather_sum_bwd_plain",
            "gather_sum_fwd", "gather_sum_fwd_plain", "gather_sum_plain",
@@ -89,7 +100,8 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
 
 
 class Ops(NamedTuple):
-    """The nineteen kernel-backed functions the models call."""
+    """The twenty-one kernel-backed functions the models and the
+    aggregation hooks call."""
 
     gather_rows: Callable
     wls: Callable
@@ -110,6 +122,8 @@ class Ops(NamedTuple):
     knn_topk_bucketed: Callable
     edge_delta_mlp: Callable
     fused_gather_wls: Callable
+    gather_minmax: Callable
+    gather_matmul_minmax: Callable
 
 
 KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
@@ -117,7 +131,8 @@ KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
                  gather_matmul_max_train, gather_mlp_max, densify_coefs_int8,
                  gather_max_int8, gather_matmul_max_int8, coef_apply_grad,
                  coef_apply_div, knn_topk_table, knn_topk_bucketed,
-                 edge_delta_mlp, fused_gather_wls)
+                 edge_delta_mlp, fused_gather_wls, gather_minmax,
+                 gather_matmul_minmax)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_max_plain, gather_sum_plain, knn_topk_plain,
                 gather_max_affine_plain, gather_matmul_max_plain,
@@ -126,4 +141,5 @@ PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_matmul_max_int8_plain, coef_apply_grad_plain,
                 coef_apply_div_plain, knn_topk_table_plain,
                 knn_topk_bucketed_plain, edge_delta_mlp_plain,
-                fused_gather_wls_plain)
+                fused_gather_wls_plain, gather_minmax_plain,
+                gather_matmul_minmax_plain)

@@ -26,7 +26,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["check_inputs", "launch", "launch_counts", "library",
-           "reset_launch_counts"]
+           "no_grad_reason", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -87,6 +87,15 @@ _KERNELS = {
     "knn_topk_bucketed_q": ("dc_knn_topk_bucketed_q", [_P] * 8 + [_I] * 6),
     "edge_delta_mlp": ("dc_edge_mlp_fwd", [_P] * 6 + [_I] * 5),
     "edge_delta_mlp_bwd": ("dc_edge_mlp_bwd", [_P] * 8 + [_I] * 6),
+    "gather_minmax": ("dc_gather_minmax", [_P] * 5 + [_I] * 4),
+    "gather_minmax_bf16": ("dc_gather_minmax_bf16", [_P] * 5 + [_I] * 4),
+    "gather_minmax_win": ("dc_gather_minmax_win", [_P] * 7 + [_I] * 4),
+    "gather_minmax_win_bf16": ("dc_gather_minmax_win_bf16",
+                               [_P] * 7 + [_I] * 4),
+    "gather_minmax_bwd": ("dc_gather_minmax_bwd", [_P] * 6 + [_I] * 5),
+    "gather_minmax_bwd_bf16": ("dc_gather_minmax_bwd_bf16",
+                               [_P] * 6 + [_I] * 5),
+    "gather_matmul_minmax": ("dc_gather_matmul_minmax", [_P] * 6 + [_I] * 5),
 }
 
 # Why a raw kernel takes no tensor that requires grad: the differentiable
@@ -112,6 +121,9 @@ _NO_GRAD = {
                       "kernel); DeepMaxMLP in training takes "
                       "ops.edge_delta_mlp or the per-point and edge-tensor "
                       "routes",
+    "gather_matmul_minmax": "it is forward only, as the JAX function (no "
+                            "VJP); differentiate through ops.gather_minmax "
+                            "of x @ w",
 }
 _NO_GRAD.update(dict.fromkeys(
     ("densify_int8", "gather_max_int8", "gather_matmul_max_int8"),
@@ -219,15 +231,20 @@ def check_inputs(name: str, specs) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{where}: not contiguous")
         if t.requires_grad:
-            why = _NO_GRAD.get(
-                name, "differentiate through ops.gather_rows, ops.wls, "
-                "ops.densify_coefs, ops.coef_apply_grad, ops.coef_apply_div, "
-                "ops.gather_max, "
-                "ops.gather_sum, ops.gather_matmul_max_train or "
-                "ops.edge_delta_mlp, whose backward is a kernel")
             raise ValueError(f"{where}: the raw kernel takes no tensor "
-                             f"that requires grad; {why}")
+                             f"that requires grad; {no_grad_reason(name)}")
     return device
+
+
+def no_grad_reason(name: str) -> str:
+    """Why kernel ``name`` takes no tensor that requires grad, and what to
+    differentiate through instead."""
+    return _NO_GRAD.get(
+        name, "differentiate through ops.gather_rows, ops.wls, "
+        "ops.densify_coefs, ops.coef_apply_grad, ops.coef_apply_div, "
+        "ops.gather_max, ops.gather_minmax, "
+        "ops.gather_sum, ops.gather_matmul_max_train or "
+        "ops.edge_delta_mlp, whose backward is a kernel")
 
 
 def launch(name: str, device: torch.device, *args) -> None:

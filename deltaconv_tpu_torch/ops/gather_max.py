@@ -24,6 +24,28 @@ primal path does (``gather_max``, or its bf16 body ``gather_max_bf16``).
 :func:`gather_max` runs the kernels, :func:`gather_max_plain` the plain
 versions, with the same routing.
 
+The neighbour max AND min of the ``NeighborAggregations`` hooks
+(``nbr_minmax``, ``nbr_matmul_minmax``; counterparts of the JAX module's
+``gather_minmax`` and ``gather_matmul_minmax``):
+
+- :func:`gather_minmax` ``(h, idx, mask) -> (mx, mn)``, ``[B, N, C]``
+  each in ``h``'s dtype (f32 or bf16), compared in f32;
+  rows with no valid neighbour give ``(-3e38, +3e38)``. Differentiated,
+  it is an autograd Function whose forward also records the FIRST
+  winning slot of the max (strict ``>``) and of the min (strict ``<``)
+  (``gather_minmax_win``), and whose backward adds both cotangents at
+  their winners' rows into one f32 ``dh`` (``gather_minmax_bwd``, one
+  launch for both maps), cast to ``h``'s dtype. A row with no valid
+  neighbour keeps winner 0, so its cotangents go to ``idx[..., 0]``'s
+  row, as JAX's. Otherwise ``gather_minmax`` runs without winners.
+  Kernels in ``csrc/gather_max.cu`` (``_bf16`` bodies for bf16).
+- :func:`gather_matmul_minmax` ``(x [B, N, C_in] bf16, w [C_in, C_out]
+  bf16, idx, mask) -> (mx, mn)`` ``[B, N, C_out]`` bf16: the masked max
+  and min of ``x[idx_k] @ w`` (f32 accumulation), rounded to bf16;
+  forward only (JAX's has no VJP), so it raises on a tensor that
+  requires grad. The kernel is the WMMA matmul max of
+  ``csrc/gather_matmul_max.cuh`` in its min/max mode.
+
 The bf16 eval maxes (``csrc/gather_max_bf16.cu``), counterparts of
 ``gather_max_affine`` and ``gather_matmul_max`` of the JAX module, take
 ``affine = (sign, inv, mean, bias)``, four ``[C]`` f32 vectors, and end
@@ -77,11 +99,14 @@ __all__ = ["NEG", "bn_lrelu_epilogue", "gather_matmul_max",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
            "gather_matmul_max_plain", "gather_matmul_max_train",
            "gather_matmul_max_train_plain", "gather_matmul_max_win",
-           "gather_matmul_max_win_plain", "gather_max", "gather_max_affine",
+           "gather_matmul_max_win_plain", "gather_matmul_minmax",
+           "gather_matmul_minmax_plain", "gather_max", "gather_max_affine",
            "gather_max_affine_plain", "gather_max_bwd",
            "gather_max_bwd_plain", "gather_max_int8", "gather_max_int8_plain",
            "gather_max_plain", "gather_max_win", "gather_max_win_plain",
-           "int8_quantize", "masked_nbr_max"]
+           "gather_minmax", "gather_minmax_bwd", "gather_minmax_bwd_plain",
+           "gather_minmax_plain", "gather_minmax_win",
+           "gather_minmax_win_plain", "int8_quantize", "masked_nbr_max"]
 
 NEG = -3.0e38  # ~ -inf in f32, safe to negate and compare
 _I8_NEG = -(2 ** 30)  # "-inf" in the int32 quantized domain
@@ -117,6 +142,42 @@ def gather_max_bwd_plain(idx, winner, g, n_out: int):
     src = torch.gather(idx.long(), 2, winner.long())  # [B, N, C]
     dh = torch.zeros((b, n_out, c), dtype=torch.float32, device=g.device)
     return dh.scatter_add_(1, src, g.float())
+
+
+def _extremes(h, idx, mask):
+    """``(vmax, vmin, mx, mn)``: the gathered rows in f32, ``-3e38`` (for
+    the max) or ``+3e38`` (for the min) where masked, and their masked
+    max and min over the slots, in f32."""
+    vmax = _masked_rows(h.float(), idx, mask)
+    vmin = torch.where(mask[..., None], vmax, -NEG)
+    return vmax, vmin, vmax.amax(dim=2), vmin.amin(dim=2)
+
+
+def _minmax_plain(h, idx, mask):
+    """Plain forward without winners: gather, masked ``amax`` and
+    ``amin`` in f32, cast to ``h``'s dtype (lossless for bf16)."""
+    _, _, mx, mn = _extremes(h, idx, mask)
+    return mx.to(h.dtype), mn.to(h.dtype)
+
+
+def gather_minmax_win_plain(h, idx, mask):
+    """Plain forward with winners ``(mx, mn, wmx, wmn)``: the masked
+    ``amax``/``amin`` in f32, then the first slot equal to each (JAX's
+    ``_reference_minmax``: first-index ``argmax``/``argmin``, so a row
+    with no valid neighbour gets winner 0); bf16 in, bf16 out."""
+    vmax, vmin, mx, mn = _extremes(h, idx, mask)
+    wmx = (vmax == mx[:, :, None]).to(torch.uint8).argmax(dim=2)
+    wmn = (vmin == mn[:, :, None]).to(torch.uint8).argmax(dim=2)
+    return (mx.to(h.dtype), mn.to(h.dtype), wmx.to(torch.int32),
+            wmn.to(torch.int32))
+
+
+def gather_minmax_bwd_plain(idx, wmx, gmx, wmn, gmn, n_out: int):
+    """Plain backward: both cotangents routed to their winners' rows
+    (JAX's ``_route_cotangent`` twice), summed into one f32 ``dh``."""
+    dh = gather_max_bwd_plain(idx, wmx, gmx, n_out)
+    src = torch.gather(idx.long(), 2, wmn.long())
+    return dh.scatter_add_(1, src, gmn.float())
 
 
 def _body(name, t):
@@ -190,6 +251,63 @@ def gather_max_bwd(idx, winner, g, n_out: int):
     return dh
 
 
+def _minmax(h, idx, mask):
+    """The min/max forward without winners: plain version for CPU
+    tensors, the ``gather_minmax`` kernel (f32) or ``gather_minmax_bf16``
+    (bf16 in, bf16 out) for CUDA tensors."""
+    if h.device.type == "cpu":
+        return _minmax_plain(h, idx, mask)
+    name, dtype = _body("gather_minmax", h)
+    device = _check_fwd(name, h, idx, mask, dtype)
+    b, n, c = h.shape
+    mx, mn = torch.empty_like(h), torch.empty_like(h)
+    _lib.launch(name, device, h.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                mx.data_ptr(), mn.data_ptr(), b, n, c, idx.shape[-1])
+    return mx, mn
+
+
+def gather_minmax_win(h, idx, mask):
+    """The min/max forward with winners ``(mx, mn, wmx [B, N, C] int32,
+    wmn)``: plain version for CPU tensors, the ``gather_minmax_win``
+    kernel (f32) or ``gather_minmax_win_bf16`` for CUDA tensors."""
+    if h.device.type == "cpu":
+        return gather_minmax_win_plain(h, idx, mask)
+    name, dtype = _body("gather_minmax_win", h)
+    device = _check_fwd(name, h, idx, mask, dtype)
+    b, n, c = h.shape
+    mx, mn = torch.empty_like(h), torch.empty_like(h)
+    wmx, wmn = (torch.empty((b, n, c), dtype=torch.int32, device=device)
+                for _ in range(2))
+    _lib.launch(name, device, h.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                mx.data_ptr(), mn.data_ptr(), wmx.data_ptr(), wmn.data_ptr(),
+                b, n, c, idx.shape[-1])
+    return mx, mn, wmx, wmn
+
+
+def gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, n_out: int):
+    """The two-map winner-routed backward ``dh [B, n_out, C]`` f32: plain
+    version for CPU tensors, one launch of the ``gather_minmax_bwd``
+    kernel (f32 cotangents) or ``gather_minmax_bwd_bf16`` (bf16) for
+    CUDA tensors."""
+    if gmx.device.type == "cpu":
+        return gather_minmax_bwd_plain(idx, wmx, gmx, wmn, gmn, n_out)
+    b, n, c = gmx.shape
+    k = idx.shape[-1]
+    name, dtype = _body("gather_minmax_bwd", gmx)
+    device = _lib.check_inputs(name, [
+        ("idx", idx, torch.int32, (b, n, k)),
+        ("wmx", wmx, torch.int32, (b, n, c)),
+        ("gmx", gmx, dtype, (b, n, c)),
+        ("wmn", wmn, torch.int32, (b, n, c)),
+        ("gmn", gmn, dtype, (b, n, c)),
+    ])
+    dh = torch.zeros((b, n_out, c), dtype=torch.float32, device=device)
+    _lib.launch(name, device, idx.data_ptr(), wmx.data_ptr(), gmx.data_ptr(),
+                wmn.data_ptr(), gmn.data_ptr(), dh.data_ptr(), b, n, c, k,
+                n_out)
+    return dh
+
+
 class _GatherMax(torch.autograd.Function):
     """Neighbour max with the single-winner VJP, gradient for ``h``
     only, cast to ``h``'s dtype. The raw functions get detached tensors:
@@ -228,6 +346,42 @@ def gather_max_plain(h: torch.Tensor, idx: torch.Tensor,
     if _differentiated(h):
         return _GatherMax.apply(h, idx, mask, _PLAIN)
     return _max_plain(h, idx, mask)
+
+
+class _GatherMinMax(torch.autograd.Function):
+    """Neighbour max and min with JAX's ``gather_minmax`` VJP: each
+    cotangent to its output's first winning neighbour, both summed into
+    one f32 ``dh`` (one backward launch), cast to ``h``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, h, idx, mask, route):
+        mx, mn, wmx, wmn = route.minmax_win(h.detach(), idx, mask)
+        ctx.save_for_backward(idx, wmx, wmn)
+        ctx.route, ctx.n_out, ctx.dtype = route, h.shape[1], h.dtype
+        return mx, mn
+
+    @staticmethod
+    def backward(ctx, gmx, gmn):
+        idx, wmx, wmn = ctx.saved_tensors
+        dh = ctx.route.minmax_bwd(idx, wmx, gmx.contiguous(), wmn,
+                                  gmn.contiguous(), ctx.n_out)
+        return dh.to(ctx.dtype), None, None, None
+
+
+def gather_minmax(h: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor):
+    """Neighbour ``(max, min)`` through the kernels on CUDA tensors (the
+    plain versions on CPU ones); differentiable in ``h``."""
+    if _differentiated(h):
+        return _GatherMinMax.apply(h, idx, mask, _KERNELS)
+    return _minmax(h, idx, mask)
+
+
+def gather_minmax_plain(h: torch.Tensor, idx: torch.Tensor,
+                        mask: torch.Tensor):
+    """:func:`gather_minmax` through the plain versions on any device."""
+    if _differentiated(h):
+        return _GatherMinMax.apply(h, idx, mask, _PLAIN)
+    return _minmax_plain(h, idx, mask)
 
 
 def masked_nbr_max(h, nbr_idx, nbr_mask, gather_max_fn=gather_max):
@@ -362,6 +516,45 @@ def gather_matmul_max(x, w, idx, mask, affine=None):
     return out[..., :c_out].contiguous() if wp.shape[1] != c_out else out
 
 
+def _forward_only(x, w):
+    """JAX's ``gather_matmul_minmax`` has no VJP: refuse a tensor that
+    requires grad, on every device."""
+    for arg, t in (("x", x), ("w", w)):
+        if t.requires_grad:
+            raise ValueError(f"gather_matmul_minmax({arg}): "
+                             f"{_lib.no_grad_reason('gather_matmul_minmax')}")
+
+
+def gather_matmul_minmax_plain(x, w, idx, mask):
+    """Plain version: ``x @ w`` per point in f32 (bf16 products are exact
+    in f32), the masked max and min of the gathered rows, each rounded to
+    bf16 (rounding is monotone, so this equals rounding first)."""
+    _forward_only(x, w)
+    y = torch.matmul(x.float(), w.float())
+    mx, mn = _minmax_plain(y, idx, mask)
+    return mx.to(torch.bfloat16), mn.to(torch.bfloat16)
+
+
+def gather_matmul_minmax(x, w, idx, mask):
+    """``(mx, mn)``: plain version for CPU tensors; the
+    ``gather_matmul_minmax`` kernel (tensor cores) for CUDA tensors, with
+    the widths zero-padded to multiples of 16 as in
+    :func:`gather_matmul_max`. Forward only."""
+    if x.device.type == "cpu":
+        return gather_matmul_minmax_plain(x, w, idx, mask)
+    device, xp, wp = _mm_operands("gather_matmul_minmax", x, w, idx, mask)
+    b, n, _ = x.shape
+    c_out = w.shape[-1]
+    mx, mn = (torch.empty((b, n, wp.shape[1]), dtype=torch.bfloat16,
+                          device=device) for _ in range(2))
+    _lib.launch("gather_matmul_minmax", device, xp.data_ptr(), wp.data_ptr(),
+                idx.data_ptr(), mask.data_ptr(), mx.data_ptr(), mn.data_ptr(),
+                b, n, xp.shape[-1], wp.shape[1], idx.shape[-1])
+    if wp.shape[1] != c_out:
+        return mx[..., :c_out].contiguous(), mn[..., :c_out].contiguous()
+    return mx, mn
+
+
 # -- the differentiable bf16 gather-then-matmul max (training) -------------
 
 
@@ -400,11 +593,15 @@ class _Route(NamedTuple):
     win: Callable
     bwd: Callable
     mm_win: Callable
+    minmax_win: Callable
+    minmax_bwd: Callable
 
 
-_KERNELS = _Route(gather_max_win, gather_max_bwd, gather_matmul_max_win)
+_KERNELS = _Route(gather_max_win, gather_max_bwd, gather_matmul_max_win,
+                  gather_minmax_win, gather_minmax_bwd)
 _PLAIN = _Route(gather_max_win_plain, gather_max_bwd_plain,
-                gather_matmul_max_win_plain)
+                gather_matmul_max_win_plain, gather_minmax_win_plain,
+                gather_minmax_bwd_plain)
 
 
 class _GatherMatmulMax(torch.autograd.Function):

@@ -91,7 +91,8 @@ class ShardedGradDiv:
     gather first all-gathers the feature table over ``group``. It offers
     what the eval conv stack asks of an operator object: ``grad``,
     ``div``, ``nbr_max``, ``nbr_matmul_max`` (no epilogue) and
-    ``nbr_gather``. Lacking ``nbr_max_affine`` and ``nbr_mlp_max``, it
+    ``nbr_gather``; and the min/max hooks ``nbr_minmax`` and
+    ``nbr_matmul_minmax`` (plain torch, as JAX's sharded forms). Lacking ``nbr_max_affine`` and ``nbr_mlp_max``, it
     sends the convs down their unfused routes, as the JAX convs route a
     ``ShardedGradDiv``; and the depth-2 max gathers the whole table's
     rows, so it is right at any world size.
@@ -154,15 +155,29 @@ class ShardedGradDiv:
         return self._contract(coef, vg.reshape(b, n, 2 * k, c))[:, :, 0].to(
             v.dtype)
 
+    def _gathered(self, table):
+        """The rows of a FULL table as masked-ready neighbour values
+        ``[1, n_l, K, C]``: bf16 stays bf16 (the max and min of bf16
+        values are exact in it), any other dtype in f32."""
+        g = self._rows(table)
+        return g if g.dtype == torch.bfloat16 else g.float()
+
     def _max_of(self, g):
         neg = torch.tensor(_NEG, dtype=g.dtype, device=g.device)
         return torch.where(self.nbr_mask[..., None], g, neg).amax(dim=-2)
 
+    def _min_of(self, g):
+        pos = torch.tensor(-_NEG, dtype=g.dtype, device=g.device)
+        return torch.where(self.nbr_mask[..., None], g, pos).amin(dim=-2)
+
+    def _matmul_full(self, x, w):
+        """``x @ w`` of the full table: f32 sums rounded to ``x``'s
+        dtype."""
+        return torch.matmul(self._full(x).float(), w.float()).to(x.dtype)
+
     def nbr_max(self, h):
         """Masked neighbour max; rows with no valid neighbour give 0."""
-        g = self._rows(self._full(h))
-        g = g if g.dtype == torch.bfloat16 else g.float()
-        out = self._max_of(g)
+        out = self._max_of(self._gathered(self._full(h)))
         any_valid = self.nbr_mask.any(dim=-1, keepdim=True)
         return torch.where(any_valid, out, 0.0).to(h.dtype)
 
@@ -170,10 +185,22 @@ class ShardedGradDiv:
         """Masked max of ``(x @ w)[nbr]``: the product of the full table,
         f32 sums rounded to ``x``'s dtype; rows with no valid neighbour
         give -3e38."""
-        y = torch.matmul(self._full(x).float(), w.float()).to(x.dtype)
-        g = self._rows(y)
-        g = g if g.dtype == torch.bfloat16 else g.float()
-        return self._max_of(g).to(x.dtype)
+        return self._max_of(self._gathered(self._matmul_full(x, w))).to(
+            x.dtype)
+
+    def nbr_minmax(self, h):
+        """Masked neighbour ``(max, min)`` of the whole table's rows (JAX's
+        sharded ``nbr_minmax``), bf16 for bf16 ``h``, else f32; rows with
+        no valid neighbour give ``(-3e38, +3e38)``."""
+        g = self._gathered(self._full(h))
+        return self._max_of(g), self._min_of(g)
+
+    def nbr_matmul_minmax(self, x, w):
+        """Masked ``(max, min)`` of ``(x @ w)[nbr]``: the product of the
+        full table rounded to ``x``'s dtype before the max and min, as
+        JAX's sharded form (the unsharded hook always works in bf16)."""
+        g = self._gathered(self._matmul_full(x, w))
+        return self._max_of(g), self._min_of(g)
 
     def nbr_gather(self, h):
         """Per-neighbour rows ``[1, n_l, C] -> [1, n_l, K, C]``."""

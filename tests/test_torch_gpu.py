@@ -1564,3 +1564,216 @@ def test_position_gradients_kernels_match_plain(cuda, dense, train):
     assert loss == pytest.approx(out[False][0], rel=1e-5)
     _close_to_max(gp, out[False][1], 1e-3)
     _close_to_max(gn, out[False][2], 1e-3)
+
+
+# -- the neighbour min/max (gather_minmax #10, gather_matmul_minmax #13) -------
+
+
+def _minmax_graph(rng, n, k, dev):
+    """``_rand_graph`` plus a row with one valid slot (1, 7), where the max
+    and the min win at the same slot."""
+    idx, mask = _rand_graph(rng, n, k, dev)
+    mask[1, 7] = False
+    mask[1, 7, 2] = True
+    return idx, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 64, 300])
+def test_gather_minmax_kernels_exact(cuda, c, dtype):
+    """``gather_minmax`` and ``gather_minmax_win`` (the ``_bf16`` bodies for
+    bf16, odd C on one-channel loads): values, in the input's dtype, and
+    first winners equal to the plain versions, ties from repeated indices
+    and coarse values included; (-3e38, +3e38) and winners 0 where no slot
+    is valid; the one-slot row's two winners the same slot."""
+    rng = np.random.default_rng(60)
+    n, k = 150, 9
+    h = torch.from_numpy(np.round(rng.standard_normal((2, n, c)) * 8).astype(
+        np.float32)).to(cuda).to(dtype)
+    idx, mask = _minmax_graph(rng, n, k, cuda)
+    got = ops.gather_minmax(h, idx, mask)
+    want = ops.gather_minmax_plain(h, idx, mask)
+    got_w = ops.gather_minmax_win(h, idx, mask)
+    want_w = ops.gather_minmax_win_plain(h, idx, mask)
+    torch.cuda.synchronize()
+    for g, w in zip(got + got_w, want + want_w):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, w), int((g != w).sum())
+    assert got[0].dtype == dtype
+    sentinels = torch.tensor([NEG, -NEG], device=cuda).to(dtype)
+    assert bool((got[0][0, 4] == sentinels[0]).all())
+    assert bool((got[1][0, 4] == sentinels[1]).all())
+    assert not got_w[2][0, 4].any() and not got_w[3][0, 4].any()
+    assert torch.equal(got_w[2][1, 7], got_w[3][1, 7])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 64, 300])
+def test_gather_minmax_bwd_kernel(cuda, c, dtype):
+    """The two-map backward (``gather_minmax_bwd``, ``_bf16`` for bf16
+    cotangents) within 1e-5 x max of the plain version (atomics add in any
+    order), and equal to two one-map backwards summed within the same."""
+    rng = np.random.default_rng(61)
+    n, k = 150, 9
+    h = torch.from_numpy(np.round(rng.standard_normal((2, n, c)) * 8).astype(
+        np.float32)).to(cuda)
+    idx, mask = _minmax_graph(rng, n, k, cuda)
+    _, _, wmx, wmn = ops.gather_minmax_win_plain(h, idx, mask)
+    gmx = torch.randn((2, n, c), device=cuda).to(dtype)
+    gmn = torch.randn((2, n, c), device=cuda).to(dtype)
+    reset_launch_counts()
+    dh = ops.gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, n)
+    name = "gather_minmax_bwd" + ("_bf16" if dtype == torch.bfloat16 else "")
+    assert launch_counts()[name] == 1
+    assert dh.dtype == torch.float32
+    want = ops.gather_minmax_bwd_plain(idx, wmx, gmx, wmn, gmn, n)
+    _close_to_max(dh, want, 1e-5)
+    _close_to_max(dh, ops.gather_max_bwd(idx, wmx, gmx, n)
+                  + ops.gather_max_bwd(idx, wmn, gmn, n), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_minmax_autograd_launches(cuda, dtype):
+    """Differentiated, ``ops.gather_minmax`` launches ``gather_minmax_win``
+    and ``gather_minmax_bwd`` once each (the ``_bf16`` bodies for bf16),
+    without grad ``gather_minmax`` once; the gradient equals the plain
+    route's (integer cotangents: exact sums in any order) and is in
+    ``h``'s dtype."""
+    rng = np.random.default_rng(62)
+    n, k, c = 120, 8, 40
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    h = torch.randn((2, n, c), device=cuda).to(dtype)
+    idx, mask = _minmax_graph(rng, n, k, cuda)
+    g1 = torch.randint(-4, 5, (2, n, c), device=cuda).to(dtype)
+    g2 = torch.randint(-4, 5, (2, n, c), device=cuda).to(dtype)
+    grads = []
+    for fn in (ops.gather_minmax, ops.gather_minmax_plain):
+        reset_launch_counts()
+        hg = h.clone().requires_grad_()
+        torch.autograd.backward(fn(hg, idx, mask), (g1, -2 * g2))
+        counts = {name: c for name, c in launch_counts().items() if c}
+        if fn is ops.gather_minmax:
+            assert counts == {f"gather_minmax_win{suffix}": 1,
+                              f"gather_minmax_bwd{suffix}": 1}, counts
+        else:
+            assert counts == {}, counts
+        assert hg.grad.dtype == dtype
+        grads.append(hg.grad)
+    assert torch.equal(*grads)
+    reset_launch_counts()
+    ops.gather_minmax(h, idx, mask)
+    assert {k_: v for k_, v in launch_counts().items() if v} == {
+        f"gather_minmax{suffix}": 1}
+
+
+def _mm_minmax_held(got, x, w, idx, mask):
+    """Both outputs of the matmul min/max held by ``_mm_max_held``: the
+    max as it is, the min as the max of ``x @ (-w)`` negated (negating
+    bf16 values is exact). Returns the far ratios and valid counts."""
+    far_mx, valid = _mm_max_held(got[0], x, w, idx, mask)
+    far_mn, _ = _mm_max_held(-got[1], x, -w, idx, mask)
+    return far_mx + far_mn, 2 * valid
+
+
+@pytest.mark.parametrize("c_in,c_out", [(128, 256), (24, 40)])
+def test_gather_matmul_minmax_kernel(cuda, c_in, c_out):
+    """Each output within one bf16 ulp of the plain version, or near zero
+    within the f32 summation bound of the exact (f64) value
+    (``_mm_minmax_held``); bit-equal on inputs whose sums are exact in
+    any order; (-3e38, +3e38) rounded to bf16 where no slot is valid;
+    ``C_out`` = 40 pads to 48 and is cut back. Forward only: an input
+    that requires grad is refused."""
+    rng = np.random.default_rng(63)
+    gen = torch.Generator(device=cuda).manual_seed(63)
+    n, k = 150, 9
+    idx, mask = _minmax_graph(rng, n, k, cuda)
+    x = torch.randn((2, n, c_in), device=cuda, generator=gen).to(
+        torch.bfloat16)
+    w = (torch.randn((c_in, c_out), device=cuda, generator=gen) / 8).to(
+        torch.bfloat16)
+    reset_launch_counts()
+    got = ops.gather_matmul_minmax(x, w, idx, mask)
+    assert launch_counts()["gather_matmul_minmax"] == 1
+    assert all(g.shape == (2, n, c_out) and g.dtype == torch.bfloat16
+               for g in got)
+    _mm_minmax_held(got, x, w, idx, mask)
+    sentinels = torch.tensor([NEG, -NEG], device=cuda).to(torch.bfloat16)
+    assert bool((got[0][0, 4] == sentinels[0]).all())
+    assert bool((got[1][0, 4] == sentinels[1]).all())
+    xe = (torch.randint(-32, 33, (2, n, c_in), device=cuda, generator=gen)
+          / 8.0).to(torch.bfloat16)
+    we = (torch.randint(-16, 17, (c_in, c_out), device=cuda, generator=gen)
+          / 16.0).to(torch.bfloat16)
+    for g, wv in zip(ops.gather_matmul_minmax(xe, we, idx, mask),
+                     ops.gather_matmul_minmax_plain(xe, we, idx, mask)):
+        assert torch.equal(_bits(g), _bits(wv))
+    with pytest.raises(ValueError, match="forward only"):
+        ops.gather_matmul_minmax(x.clone().requires_grad_(), w, idx, mask)
+
+
+def test_matmul_minmax_seed_sweep(cuda):
+    """``gather_matmul_minmax`` over 200 seeds at the shapes of
+    ``test_matmul_max_seed_sweep`` (x ~ N(0, 1), w ~ N(0, 1/64) in bf16),
+    both outputs held by ``_mm_minmax_held``: every output more than one
+    bf16 ulp from the plain version is an extreme near zero, within 1e-4
+    of its row's ``max(|x| @ |w|)``. Prints the counts (``pytest -s``)."""
+    n, k, c_in, c_out = 150, 9, 128, 256
+    ratios, outputs, seeds = [], 0, []
+    for seed in range(200):
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        idx, mask = _rand_graph(rng, n, k, cuda)
+        x = torch.randn((2, n, c_in), device=cuda, generator=gen).to(
+            torch.bfloat16)
+        w = (torch.randn((c_in, c_out), device=cuda, generator=gen) / 8).to(
+            torch.bfloat16)
+        far, valid = _mm_minmax_held(ops.gather_matmul_minmax(x, w, idx, mask),
+                                     x, w, idx, mask)
+        ratios += far
+        outputs += valid
+        seeds += [seed] if far else []
+    print(f"\ngather_matmul_minmax: {len(ratios)} of {outputs} outputs beyond "
+          f"one bf16 ulp, in {len(seeds)} of 200 seeds, largest |exact| / "
+          f"max(|x| @ |w|) {max(ratios, default=0.0)}")
+    assert max(ratios, default=0.0) <= 1e-4
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_minmax_hooks_kernels_match_plain(cuda, dense):
+    """The hooks on an operator object built on the card (one cloud
+    padded): ``nbr_minmax`` f32 and bf16 and its gradient, and
+    ``nbr_matmul_minmax``, through the kernels and through the plain
+    versions (``dataclasses.replace`` of ``ops``): values equal, the
+    gradient within 1e-5 x max (atomics), the matmul form held by
+    ``_mm_minmax_held``; one launch of each kernel a call."""
+    rng = np.random.default_rng(64)
+    pos, nrm = _cloud_batch(rng, 2, 128, cuda)
+    pm = torch.ones((2, 128), dtype=torch.bool, device=cuda)
+    pm[1, 90:] = False
+    gd = build_operators(pos, 10, nrm, pm, dense_operators=dense)
+    gp = dataclasses.replace(gd, ops=PLAIN_OPS)
+    for dt in (torch.float32, torch.bfloat16):
+        h = torch.randn((2, 128, 48), device=cuda).to(dt)
+        reset_launch_counts()
+        got = gd.nbr_minmax(h)
+        suffix = "_bf16" if dt == torch.bfloat16 else ""
+        assert launch_counts()[f"gather_minmax{suffix}"] == 1
+        for g, w in zip(got, gp.nbr_minmax(h)):
+            assert torch.equal(g, w)
+    h = torch.randn((2, 128, 48), device=cuda)
+    g1, g2 = torch.randn((2, 2, 128, 48), device=cuda)
+    grads = []
+    for op in (gd, gp):
+        hg = h.clone().requires_grad_()
+        torch.autograd.backward(op.nbr_minmax(hg), (g1, g2))
+        grads.append(hg.grad)
+    _close_to_max(*grads, 1e-5)
+    x = torch.randn((2, 128, 64), device=cuda)
+    w = torch.randn((64, 96), device=cuda) / 8
+    got = gd.nbr_matmul_minmax(x, w)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    _mm_minmax_held(got, xb, wb, gd.nbr_idx, gd.nbr_mask)
+    for g, wv in zip(gp.nbr_matmul_minmax(x, w),
+                     ops.gather_matmul_minmax_plain(xb, wb, gd.nbr_idx,
+                                                    gd.nbr_mask)):
+        assert torch.equal(g, wv)

@@ -197,6 +197,25 @@ def test_cpu_tensors_take_the_plain_versions():
     for got, want in zip(ops.densify_bwd(idx, dw[0], dw[1]),
                          ops.densify_bwd_plain(idx, dw[0], dw[1])):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for t in (h, hb):
+        for got, want in zip(ops.gather_minmax(t, idx, mask),
+                             ops.gather_minmax_plain(t, idx, mask)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        got = ops.gather_minmax_win(t, idx, mask)
+        torch.testing.assert_close(got, ops.gather_minmax_win_plain(
+            t, idx, mask), rtol=0, atol=0)
+        g = torch.randn(t.shape).to(t.dtype)
+        torch.testing.assert_close(
+            ops.gather_minmax_bwd(idx, got[2], g, got[3], g, 32),
+            ops.gather_minmax_bwd_plain(idx, got[2], g, got[3], g, 32),
+            rtol=0, atol=0)
+        tg = t.clone().requires_grad_()
+        sum(o.float().sum() for o in ops.gather_minmax(tg, idx,
+                                                       mask)).backward()
+        assert tg.grad.dtype == t.dtype
+    for got, want in zip(ops.gather_matmul_minmax(hb, w, idx, mask),
+                         ops.gather_matmul_minmax_plain(hb, w, idx, mask)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert launch_counts() == {
         "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
@@ -210,7 +229,10 @@ def test_cpu_tensors_take_the_plain_versions():
         "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
         "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
         "edge_delta_mlp_bwd": 0, "wls_bwd": 0, "densify_bwd": 0,
-        "fused_gather_wls": 0, "knn_topk_mean_dist": 0}
+        "fused_gather_wls": 0, "knn_topk_mean_dist": 0, "gather_minmax": 0,
+        "gather_minmax_bf16": 0, "gather_minmax_win": 0,
+        "gather_minmax_win_bf16": 0, "gather_minmax_bwd": 0,
+        "gather_minmax_bwd_bf16": 0, "gather_matmul_minmax": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
@@ -230,6 +252,10 @@ def test_cpu_tensors_take_the_plain_versions():
     assert PLAIN_OPS.edge_delta_mlp is ops.edge_delta_mlp_plain
     assert KERNEL_OPS.fused_gather_wls is ops.fused_gather_wls
     assert PLAIN_OPS.fused_gather_wls is ops.fused_gather_wls_plain
+    assert KERNEL_OPS.gather_minmax is ops.gather_minmax
+    assert PLAIN_OPS.gather_minmax is ops.gather_minmax_plain
+    assert KERNEL_OPS.gather_matmul_minmax is ops.gather_matmul_minmax
+    assert PLAIN_OPS.gather_matmul_minmax is ops.gather_matmul_minmax_plain
 
 
 def test_kernels_refuse_other_devices():
@@ -317,6 +343,16 @@ def test_kernels_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.fused_gather_wls(p3, p3, p3, p3, im, mm,
                              torch.zeros(2, device=meta))
+    wm = torch.zeros(2, 32, 5, dtype=torch.int32, device=meta)
+    for t in (hm, hb):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ops.gather_minmax(t, im, mm)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ops.gather_minmax_win(t, im, mm)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ops.gather_minmax_bwd(im, wm, t, wm, t, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_matmul_minmax(hb, wb, im, mm)
     assert sum(launch_counts().values()) == 0
 
 
