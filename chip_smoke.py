@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the forty-one CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the forty-two CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -22,7 +22,13 @@ first on ``sys.path``. It
    large-cloud kernels at B=4, N=8192, K=20 on the clouds' own
    coefficients: coef_apply_grad at C = 3, 70, 192, 256 and coef_apply_div
    at C = 6, 128, 256, f32 and bf16, bit-equal, scatter_rows at C' = 70,
-   256, 512; the min/max hooks' kernels: gather_minmax and
+   256, 512 on component-major rows and on the edge-major view that the
+   coefficient VJPs pass (within 1e-5 x max of ``scatter_add_``,
+   bit-equal across two calls), its inverse adjacency equal to the plain
+   stable ``argsort``, and scatter_rows at C'=9 on the operator build's
+   component-major ``[B, 9, K, N]`` rows (B=32, N=1024) read through
+   their strides (the wrapper's route) and transposed first by
+   ``permute`` + ``contiguous``; the min/max hooks' kernels: gather_minmax and
    gather_minmax_win at f32 C=256 and bf16 C=128, bit-equal,
    gather_minmax_bwd at C=256 with f32 and bf16 cotangents,
    gather_matmul_minmax at 128 -> 256, within one bf16 ulp or the f32
@@ -31,7 +37,11 @@ first on ``sys.path``. It
    version and, where
    PyTorch's library calls compute the same function, those calls with
    their set-up (CUDA events around 5 back-to-back calls, median of 30
-   such samples); each kernel's bound is the larger of its bytes over
+   such samples; on the uniform graphs, where every slot is valid, the
+   neighbour maxes' and sums' library calls are the ``index`` gather with
+   ``amax``, ``max`` or ``sum`` over K, after the matmul, quantization or
+   before the epilogue as the function has them, and their backward
+   ``scatter_add_``); each kernel's bound is the larger of its bytes over
    3.35 TB/s and the operations the function needs over the peak of
    their type (989 TFLOP/s bf16 tensor cores; 33.5 T thread
    instructions/s issued outside them), from this run's shapes;
@@ -126,13 +136,16 @@ first on ``sys.path``. It
     N=8192, SGD lr 0.01, smoothing 0.2, dropout 0.5 from a seeded CUDA
     generator) for 8 steps on one batch of class-conditioned ellipsoids:
     losses finite and falling, 4 + 4 applies and 6 ``scatter_rows`` a
-    step; it prints the median step time, training clouds/s, the peak
-    memory and a profile of one step; then one step from the same weights
-    through the kernels and through the plain versions (same build,
-    dropout 0), uniform and ragged, held as step 8 holds the bf16 step
-    (the parameters' deviation printed, not held: a 4-row head
-    BatchNorm), and one step with only the applies on the plain route:
-    loss and statistics equal, gradients within 2e-2 (atomics);
+    step, each with one ``inverse_adjacency``; it prints the median step
+    time, training clouds/s, the peak memory and a profile of one step;
+    then one step from the same weights through the kernels and through
+    the plain versions (same build, dropout 0), uniform and ragged, held
+    as step 8 holds the bf16 step (the parameters' deviation printed, not
+    held: a 4-row head BatchNorm), and one step with only the applies on
+    the plain route:
+    loss and statistics equal, gradients within 2e-2 (the order of the
+    scatters' sums: ``scatter_add_``'s atomics against the kernel's fixed
+    edge order);
 14. ``[kernels]`` at the point-shard shapes: knn_topk_table (exact and
     quantized) at Nq = Nt = 8192, K = 20 and 30, and its repair form
     (2048 row_ids against 65,536 columns), knn_topk_bucketed (exact and
@@ -205,7 +218,8 @@ first on ``sys.path``. It
     1e-5 and ``pos.grad``, ``normal.grad`` within 1e-3 x max; through the
     plain build the loss held and the gradients' deviation printed (the
     ~1e-6 WLS difference flips neighbour-max winners at near-ties);
-    wls_bwd, densify_bwd and scatter_rows once a backward (the plain build
+    wls_bwd, densify_bwd, scatter_rows and inverse_adjacency once a
+    backward (the plain build
     only on the first batch and mode); the device and host time of forward
     + backward, the backward kernels' share and the peak memory;
 23. ``[pos-grad-large]``: the same in coefficient form at B=4, N=8192
@@ -281,10 +295,12 @@ BF16_REL = 0.05  # the JAX package's bf16 serving bound, x max|logit|
 BF16_PATH_REL = 0.01  # bf16 kernel vs plain path, x max|logit|
 REPS = 30
 INNER = 5  # calls per timed sample
+SPIN_CYCLES = 2_000_000  # ~1 ms: the spin kernel that opens a traced window
+PROFILE_CALLS = 2  # calls of a profiled function in one traced window
 LOGIT_ATOL = 1e-3
 WLS_ATOL = 1e-5  # FMA contraction and K-sum order
 DENSIFY_ATOL = 1e-6  # duplicate columns may sum in another order
-SCATTER_RTOL = 1e-5  # x max|dh|: atomics add in any order
+SCATTER_RTOL = 1e-5  # x max|dh|: f32 sums in another order (atomics)
 TRAIN_LR = 0.1  # 100 x the reference base lr 0.001
 TRAIN_STEPS = 20
 LOSS_RTOL = 1e-5
@@ -328,6 +344,9 @@ COEF_DIV_WIDTHS = (6, 128, 256)  # coef_apply_div checked at conv0, 1-2, 3
 # scatter_rows checked at the grads' 70 (conv0) and 256 (conv2, and the
 # divs' 2 x 128 at conv1-2) and the last div's 512 (conv3).
 SCATTER_WIDTHS = (70, 256, 512)
+# The operator build's gather VJP scatters component-major [B, 9, K, N]
+# rows (pos, x basis, y basis) at B=32, N=1024.
+SCATTER_NARROW_C = 9
 # Launches on the coefficient-form path: a forward applies 4 grads (the
 # positions', conv0-2) and 4 divs (conv0-3); a train step's backward
 # scatters the cotangents of the 3 grads and 3 divs whose features
@@ -335,8 +354,8 @@ SCATTER_WIDTHS = (70, 256, 512)
 COEF_PER_FORWARD = {"coef_apply_grad": 4, "coef_apply_div": 4}
 SCATTERS_PER_STEP = 6
 # Kernels vs plain applies in one large-cloud step: the gradients'
-# relative Frobenius deviation over all tensors (atomics only; two kernel
-# steps differ by about 1e-3 on an H100 80GB HBM3 at 700 W).
+# relative Frobenius deviation over all tensors (sum order only: the plain
+# scatter_add_ adds with atomics in any order).
 COEF_GRAD_FROB = 2e-2
 # coef-vs-dense: (B, N) of the timed forwards' applies.
 CROSSOVER = ((32, 1024), (4, 1024), (4, 2048), (4, 4096), (4, 8192))
@@ -400,7 +419,8 @@ WLS_BWD_FLOPS_PER_EDGE = 580
 # Launches on the paths of this slice: one backward through the dense f32
 # build (the gather's VJP scatter_rows once), the coefficient form's (no
 # assembly: no densify_bwd), one forward of the fused eval build.
-POS_GRAD_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 1, "scatter_rows": 1}
+POS_GRAD_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 1, "scatter_rows": 1,
+                         "inverse_adjacency": 1}
 POS_GRAD_LARGE_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 0}
 MINMAX_C = 256  # gather_minmax (f32), its backward (f32 and bf16)
 MINMAX_BF16_C = 128  # the bf16 forward bodies
@@ -467,6 +487,8 @@ KERNEL_META = {
                        "deltaconv_tpu/ops/coef_apply.py:173"),
     "scatter_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
                      "deltaconv_tpu/ops/gather_rows.py:292"),
+    "inverse_adjacency": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
+                          "deltaconv_tpu/ops/gather_rows.py:292"),
     "knn_topk_table": ("deltaconv_tpu_torch/csrc/knn_table.cu",
                        "deltaconv_tpu/ops/knn_topk.py:326"),
     "knn_topk_table_q": ("deltaconv_tpu_torch/csrc/knn_table.cu",
@@ -535,7 +557,8 @@ LARGE_KERNELS = {  # the large-cloud paths, by precision
     None: ("knn_topk", "gather_rows", "wls", "coef_apply_grad",
            "coef_apply_div", "gather_max")}
 TRAIN_LARGE_KERNELS = ("knn_topk", "gather_rows", "wls", "coef_apply_grad",
-                       "coef_apply_div", "scatter_rows", "gather_sum",
+                       "coef_apply_div", "scatter_rows", "inverse_adjacency",
+                       "gather_sum",
                        "gather_sum_bwd", "gather_max_win_bf16",
                        "gather_max_bwd_bf16", "gather_matmul_max_win")
 # Launches per forward on the int8 paths, as the JAX module code routes
@@ -925,6 +948,127 @@ def check_minmax_kernels(record, idx, nbr_mask, dev):
     torch.cuda.synchronize()
 
 
+def time_library_calls(res, table, idx, nbr_mask, aff128, x, w, aff256, xq,
+                       dev):
+    """The library calls of the classification shapes' gathers, maxes and
+    sums, set-up included, at each kernel's record width, on the uniform
+    graph (every slot valid, so no mask): the ``index`` gather of the K
+    neighbour rows (``torch.gather`` for the gather), then ``amax`` (the
+    max), ``torch.max`` with its indices (the max with winners; no promised
+    tie rule), ``sum``; the bf16 maxes after the bf16 ``matmul`` or the
+    int8 quantization and before the epilogue or the dequantization; the
+    backward ``scatter_add_`` of the cotangent at its winners or
+    neighbours. The exact ones are checked against the kernels."""
+    from deltaconv_tpu_torch import ops
+
+    assert bool(nbr_mask.all())
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    idx_l = idx.long()
+    valid = nbr_mask.any(dim=-1, keepdim=True)
+    flat = idx_l.reshape(B, N * K, 1)
+
+    def scatter_back(g, to):
+        """``scatter_add_`` of g's rows at the neighbours ``to [B, N,
+        K']`` (K' = 1 for the winners' rows), into zeros."""
+        kk = to.shape[-1]
+        src = g.float()[:, :, None, :].expand(B, N, kk, g.shape[-1])
+        return torch.zeros((B, N, g.shape[-1]), device=dev).scatter_add_(
+            1, to.reshape(B, N * kk, 1).expand(B, N * kk, g.shape[-1]),
+            src.reshape(B, N * kk, g.shape[-1]))
+
+    h256 = torch.randn((B, N, 256), device=dev)
+    h128f = torch.randn((B, N, 128), device=dev)
+    h128 = torch.randn((B, N, 128), device=dev).to(torch.bfloat16)
+    g256 = torch.randn((B, N, 256), device=dev)
+    g128 = torch.randn((B, N, 128), device=dev)
+    g256b = g256.to(torch.bfloat16)
+    _, win256 = ops.gather_max_win_plain(h256, idx, nbr_mask)
+
+    def max_bwd(win, g):
+        """The winners' rows: each output channel's winner is its own
+        neighbour, so the cotangent goes channel by channel."""
+        to = torch.gather(idx_l, 2, win.long())  # [B, N, C]
+        return torch.zeros((B, N, g.shape[-1]), device=dev).scatter_add_(
+            1, to, g.float())
+
+    calls = {
+        "gather_rows": (lambda: torch.gather(
+            table, 1, flat.expand(B, N * K, table.shape[-1])).view(
+                B, N, K, -1).permute(0, 3, 2, 1).contiguous(),
+            lambda: ops.gather_rows(table, idx), True),
+        "gather_max": (lambda: h256[bidx, idx_l].amax(dim=2),
+                       lambda: ops.gather_max(h256, idx, nbr_mask), True),
+        "gather_max_win": (lambda: torch.max(h256[bidx, idx_l], dim=2),
+                           None, False),
+        "gather_max_bwd": (lambda: max_bwd(win256, g256),
+                           lambda: ops.gather_max_bwd(idx, win256, g256, N),
+                           True),
+        "gather_max_bwd_bf16": (lambda: max_bwd(win256, g256b), None, False),
+        "gather_max_win_bf16": (lambda: torch.max(h128[bidx, idx_l], dim=2),
+                                None, False),
+        "gather_sum": (lambda: h128f[bidx, idx_l].sum(dim=2),
+                       lambda: ops.gather_sum_fwd(h128f, idx, nbr_mask), True),
+        "gather_sum_bwd": (lambda: scatter_back(g128, idx_l),
+                           lambda: ops.gather_sum_bwd(idx, nbr_mask, g128),
+                           True),
+        "gather_max_affine": (lambda: ops.bn_lrelu_epilogue(
+            h128[bidx, idx_l].amax(dim=2).float(), aff128, valid), None,
+            False),
+        "gather_matmul_max": (lambda: ops.bn_lrelu_epilogue(
+            torch.matmul(x, w)[bidx, idx_l].amax(dim=2).float(), aff256,
+            valid), None, False),
+        "gather_matmul_max_win": (lambda: torch.max(
+            torch.matmul(x, w)[bidx, idx_l], dim=2), None, False),
+        "gather_max_int8": (lambda: int8_library_max(h128, bidx, idx_l),
+                            None, False),
+        "gather_matmul_max_int8": (lambda: torch.matmul(
+            xq.to(torch.bfloat16), w)[bidx, idx_l].amax(dim=2), None, False),
+    }
+    for name, (lib, kern, exact) in calls.items():
+        res[name]["library_ms"] = median_ms(lib)
+        if exact:  # the same values, summed in another order at most
+            want, got = lib(), kern()
+            err = max_err(want, got)
+            check(f"{name} library composition",
+                  err <= SCATTER_RTOL * float(want.abs().max()),
+                  f"max_abs_err {err:.3e} within 1e-5 x max")
+        print(f"  {name}: library call {res[name]['library_ms']:.4f} ms")
+
+
+def int8_library_max(h, bidx, idx_l):
+    """gather_max_int8 by library calls: the per-cloud quantization, the
+    ``index`` gather and ``amax`` of the int8 rows, the dequantization."""
+    from deltaconv_tpu_torch import ops
+
+    hq, scale = ops.int8_quantize(h)
+    best = hq[bidx, idx_l].amax(dim=2).float()
+    return (best * scale[:, None, None]).to(h.dtype)
+
+
+def time_narrow_scatter(table, idx, card):
+    """scatter_rows at the operator build's gather VJP (B=32, N=1024,
+    K=20, C'=9 component-major rows, the c stride K * N): read through
+    the strides (the wrapper's route), and transposed to edge-major rows
+    first (``permute`` + ``contiguous``); the same sums in the same order,
+    bit-equal. CUDA events (the host's enqueue time where it is longer)
+    and the profiler's device time."""
+    from deltaconv_tpu_torch import ops
+
+    g = ops.gather_rows(table, idx)  # [B, 9, K, N]
+    assert g.shape[1] == SCATTER_NARROW_C and g.stride(1) != 1
+    ways = {"read through the strides": lambda: ops.scatter_rows(g, idx, N),
+            "permute + contiguous first":
+            lambda: ops.scatter_rows(edge_major(g), idx, N)}
+    outs = [fn() for fn in ways.values()]
+    check(f"scatter_rows C'={SCATTER_NARROW_C} both ways",
+          bits_equal(*outs), "bit-equal")
+    for label, fn in ways.items():
+        print(f"  scatter_rows C'={SCATTER_NARROW_C} component-major, "
+              f"{label}: {median_ms(fn):.4f} ms (events), "
+              f"{device_ms(fn):.4f} ms of device time, B={B} N={N} K={K}, "
+              f"card: {card}")
+
+
 def time_minmax_kernels(res, idx, nbr_mask, dev):
     """Times, bounds and library calls of the min/max kernels at the
     uniform classification shapes (every slot valid, so the library calls
@@ -1127,8 +1271,17 @@ def time_seg_kernels(res, idx, nbr_mask, dev, card):
     r["ms"] = median_ms(lambda: ops.gather_max(h, idx, nbr_mask))
     r["plain_ms"] = median_ms(lambda: ops.gather_max_plain(h, idx, nbr_mask))
     r["bound"] = bound(nbytes(h, idx, nbr_mask, h))
+    # Library calls on the uniform graph (every slot valid): the index
+    # gather and amax; for the MLP max also the two bf16 matmuls of every
+    # slot but the self slot, their intermediate affine and LeakyReLU, the
+    # self slot's row and the epilogue (the JAX gather-then-MLP form).
+    assert bool(nbr_mask.all())
+    bidx = torch.arange(SEG_B, device=dev)[:, None, None]
+    idx_l = idx.long()
+    r["library_ms"] = median_ms(lambda: h[bidx, idx_l].amax(dim=2))
     print(f"  gather_max_bf16 C={SEG_MAX_WIDTH}: kernel {r['ms']:.4f} ms, "
-          f"plain {r['plain_ms']:.4f} ms")
+          f"plain {r['plain_ms']:.4f} ms, library call "
+          f"{r['library_ms']:.4f} ms")
     edges = float(nbr_mask[..., 1:].sum())
     for conv, (c_in, c_out, cen) in MLP_CASES.items():
         x, ws, aff, z0, epi = mlp_inputs(c_in, c_out, cen, dev)
@@ -1148,7 +1301,23 @@ def time_seg_kernels(res, idx, nbr_mask, dev, card):
               f"({bd[1]}; {flops / 1e9:.1f} GFLOP), {flops / km / 1e9:.1f} "
               f"TFLOP/s")
         if conv == RECORD_WIDTH["gather_mlp_max"]:
-            res["gather_mlp_max"].update(ms=km, plain_ms=pm, bound=bd)
+            w0, w1 = (t.to(torch.bfloat16) for t in ws)
+            (a, bb), = aff
+            sign, inv, mean, bias = epi
+
+            def library():
+                e = x[bidx, idx_l[:, :, 1:]]  # [B, N, K - 1, C_in] bf16
+                y = torch.nn.functional.leaky_relu(
+                    torch.matmul(e, w0).float() * a + bb, 0.2)
+                z = torch.matmul(y.to(torch.bfloat16), w1).amax(dim=2)
+                best = torch.maximum(z.float(), z0.float())
+                return torch.nn.functional.leaky_relu(
+                    (sign * best - mean) * inv + bias, 0.2)
+
+            lm = median_ms(library)
+            print(f"  gather_mlp_max {conv}: library call {lm:.4f} ms")
+            res["gather_mlp_max"].update(ms=km, plain_ms=pm, bound=bd,
+                                         library_ms=lm)
 
 
 def edge_inputs(idx, dev):
@@ -1555,6 +1724,12 @@ def kernel_phase(rng, dev, card):
     for name in ("densify", "densify_bf16", "adjacency", "knn_topk",
                  "densify_int8"):
         print(f"  {name}: library call {res[name]['library_ms']:.4f} ms")
+    # Back to back, each adjacency call's events take its launch gap too.
+    adj_dev = device_ms(lambda: ops.adjacency(idx, nbr_mask))
+    lib_dev = device_ms(lambda: torch.zeros((B, N, N), device=dev)
+                        .scatter_add_(2, idx_l, ones))
+    print(f"  adjacency: {adj_dev:.4f} ms of device time (profiler), "
+          f"library call {lib_dev:.4f} ms")
     h64 = torch.randn((B, N, 64), device=dev).to(torch.bfloat16)
     h128f = h128.float()
     aff64 = random_affine(64, dev)
@@ -1635,6 +1810,9 @@ def kernel_phase(rng, dev, card):
             if c == RECORD_WIDTH[name]:
                 res[name]["ms"], res[name]["plain_ms"] = km, pl
                 res[name]["bound"] = bound(nbytes(*io))
+    time_library_calls(res, table, idx, nbr_mask, aff128, x, w, aff256, xq,
+                       dev)
+    time_narrow_scatter(table, idx, card)
     time_minmax_kernels(res, idx, nbr_mask, dev)
     time_seg_kernels(res, *seg_cases["uniform"][:2], dev, card)
     time_edge_mlp_kernels(res, seg_cases["uniform"][0], dev, card)
@@ -2159,7 +2337,10 @@ def compare_steps(label, batch, seed, dev, same_build, once=train_once):
 def profile(tag, what, fn, ref_ms):
     """Device time of one call of ``fn`` by op and by kernel
     (torch.profiler), and its share of ``ref_ms``, the unprofiled median
-    (the profiler itself slows the host)."""
+    (the profiler itself slows the host). The window holds PROFILE_CALLS
+    calls; each row is its mean per instance times the instances a call
+    runs (as in :func:`device_ms`), so an instance the trace drops leaves
+    the row right."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -2167,15 +2348,22 @@ def profile(tag, what, fn, ref_ms):
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        # A spin kernel opens the traced window (left out of the sums): a
+        # kernel at its very start can go unrecorded.
+        torch.cuda._sleep(SPIN_CYCLES)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / PROFILE_CALLS
     ops_, kernels = [], []
     for evt in prof.key_averages():
-        us = evt.self_device_time_total
-        if us > 0:
-            row = (us, evt.count, evt.key)
+        if (evt.self_device_time_total > 0 and evt.count
+                and "spin_kernel" not in evt.key):
+            count = max(1, round(evt.count / PROFILE_CALLS))
+            row = (evt.self_device_time_total / evt.count * count, count,
+                   evt.key)
             (kernels if evt.device_type == DeviceType.CUDA
              else ops_).append(row)
     total = sum(r[0] for r in kernels)
@@ -2473,7 +2661,9 @@ def check_coef_kernels(record, idx, gd, dev):
     versions: coef_apply_grad at C = 3, 70, 192, 256 and coef_apply_div at
     C = 6, 128, 256, f32 and bf16 features, bit-equal (the same products
     and sums, each rounded, in the same order); scatter_rows at C' = 70,
-    256, 512 (atomics: SCATTER_RTOL x max)."""
+    256, 512 on component-major and edge-major rows (SCATTER_RTOL x max
+    of ``scatter_add_``, bit-equal across two calls); the inverse
+    adjacency equal to its plain version."""
     from deltaconv_tpu_torch import ops
 
     for dt in (torch.float32, torch.bfloat16):
@@ -2497,13 +2687,47 @@ def check_coef_kernels(record, idx, gd, dev):
                   f"bit-equal, max_abs_err {err}")
     for c in SCATTER_WIDTHS:
         g = torch.randn((LARGE_B, c, K, LARGE_N), device=dev)
-        got = ops.scatter_rows(g, idx, LARGE_N)
         want = ops.scatter_rows_plain(g, idx, LARGE_N)
-        err, tol = max_err(got, want), SCATTER_RTOL * float(want.abs().max())
-        record("scatter_rows", err)
-        check(f"scatter_rows C={c}", err <= tol,
-              f"max_abs_err {err} <= {tol}")
+        tol = SCATTER_RTOL * float(want.abs().max())
+        for layout, rows in (("component-major", g),
+                             ("edge-major", edge_major(g))):
+            got = ops.scatter_rows(rows, idx, LARGE_N)
+            again = ops.scatter_rows(rows, idx, LARGE_N)
+            err = max_err(got, want)
+            record("scatter_rows", err)
+            check(f"scatter_rows C={c} {layout}",
+                  err <= tol and bits_equal(got, again),
+                  f"max_abs_err {err} <= {tol}, two calls bit-equal")
+            del got, again, rows
+        del g, want
+    got = ops.inverse_adjacency(idx, LARGE_N)
+    want = ops.inverse_adjacency_plain(idx, LARGE_N)
+    err = max(max_err(a.float(), w.float()) for a, w in zip(got, want))
+    record("inverse_adjacency", err)
+    check("inverse_adjacency", all(torch.equal(a, w) for a, w in
+                                   zip(got, want)),
+          f"offsets and lists equal, max_abs_err {err}")
     torch.cuda.synchronize()
+
+
+def edge_major(g):
+    """``g [B, C, K, N]`` as the coefficient VJPs hand it to scatter_rows:
+    the same values in edge-major rows ``[B, N, K, C]``, viewed as ``[B,
+    C, K, N]``."""
+    return g.permute(0, 3, 2, 1).contiguous().permute(0, 3, 2, 1)
+
+
+def inverse_adjacency_library(idx, n_out):
+    """The inverse adjacency by library calls: a stable ``torch.sort`` of
+    the destination keys and ``searchsorted`` for the offsets."""
+    b, n, k = idx.shape
+    key = idx.reshape(b, n * k)
+    key = torch.where((key >= 0) & (key < n_out), key, n_out)
+    keys, order = torch.sort(key, dim=1, stable=True)
+    offsets = torch.searchsorted(
+        keys, torch.arange(n_out + 1, device=idx.device,
+                           dtype=keys.dtype).expand(b, n_out + 1).contiguous())
+    return offsets.int(), torch.where(keys < n_out, order, -1).int()
 
 
 def time_coef_kernels(res, idx, gd, dev, card):
@@ -2511,8 +2735,10 @@ def time_coef_kernels(res, idx, gd, dev, card):
     shapes, beside the library composition that computes the same
     function, set-up included: ``torch.gather`` of the K neighbour rows
     and an ``einsum`` with the coefficients (f32 products, cast to the
-    features' dtype) for the applies, the edge rows' layout copy and
-    ``index_add_`` for the scatter."""
+    features' dtype) for the applies, the edge rows' layout copy (none for
+    the edge-major view) and ``index_add_`` for the scatter; the scatter
+    on both layouts (the record: edge-major, as the coefficient VJPs pass
+    it) and the inverse adjacency alone."""
     from deltaconv_tpu_torch import ops
 
     b, n = LARGE_B, LARGE_N
@@ -2574,24 +2800,49 @@ def time_coef_kernels(res, idx, gd, dev, card):
                 if dt == torch.bfloat16 and c == RECORD_WIDTH[name]:
                     res[name].update(ms=km, plain_ms=pm, library_ms=lm,
                                      bound=bd)
+    inv = res["inverse_adjacency"]
+    inv.update(ms=median_ms(lambda: ops.inverse_adjacency(idx, n)),
+               plain_ms=median_ms(lambda: ops.inverse_adjacency_plain(idx, n)),
+               library_ms=median_ms(lambda: inverse_adjacency_library(idx,
+                                                                      n)),
+               bound=bound(nbytes(idx, *ops.inverse_adjacency(idx, n))))
+    check("inverse_adjacency library composition", all(
+        torch.equal(a, w) for a, w in zip(inverse_adjacency_library(idx, n),
+                                          ops.inverse_adjacency(idx, n))),
+        "equal")
+    inv_dev = device_ms(lambda: ops.inverse_adjacency(idx, n))
+    print(f"  inverse_adjacency: kernel {inv['ms']:.4f} ms ({inv_dev:.4f} ms "
+          f"of device time, profiler), plain {inv['plain_ms']:.4f} ms, "
+          f"library {inv['library_ms']:.4f} ms, bound {inv['bound'][0]:.4f} "
+          f"ms ({inv['bound'][1]})")
     for c in SCATTER_WIDTHS:
         g = torch.randn((b, c, K, n), device=dev)
-        km = median_ms(lambda: ops.scatter_rows(g, idx, n))
-        pm = median_ms(lambda: ops.scatter_rows_plain(g, idx, n))
-        lm = median_ms(lambda: lib_scatter(g))
-        out = ops.scatter_rows(g, idx, n)
-        check(f"scatter_rows C={c} library composition",
-              max_err(lib_scatter(g), out)
-              <= SCATTER_RTOL * float(out.abs().max()), "within 1e-5 x max")
-        bd = bound(nbytes(g, idx, out), float(g.numel()), ISSUE_PER_S)
-        print(f"  scatter_rows C={c}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
-              f"library {lm:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
-              f"{nbytes(g) / km / 1e6:.1f} GB/s of edge rows")
-        if c == RECORD_WIDTH["scatter_rows"]:
-            res["scatter_rows"].update(ms=km, plain_ms=pm, library_ms=lm,
-                                       bound=bd)
+        for layout, rows in (("component-major", g),
+                             ("edge-major", edge_major(g))):
+            km = median_ms(lambda: ops.scatter_rows(rows, idx, n))
+            pm = median_ms(lambda: ops.scatter_rows_plain(rows, idx, n))
+            lm = median_ms(lambda: lib_scatter(rows))
+            dm = device_ms(lambda: ops.scatter_rows(rows, idx, n))
+            out = ops.scatter_rows(rows, idx, n)
+            check(f"scatter_rows C={c} {layout} library composition",
+                  max_err(lib_scatter(rows), out)
+                  <= SCATTER_RTOL * float(out.abs().max()),
+                  "within 1e-5 x max")
+            bd = bound(nbytes(g, idx, out), float(g.numel()), ISSUE_PER_S)
+            print(f"  scatter_rows C={c} {layout}: kernel {km:.4f} ms "
+                  f"({dm:.4f} ms of device time, the inverse adjacency "
+                  f"{inv_dev / dm:.3f} of it), plain {pm:.4f} ms, library "
+                  f"{lm:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), kernel at "
+                  f"{bd[0] / km:.3f} of it, {nbytes(g) / km / 1e6:.1f} GB/s "
+                  f"of edge rows")
+            if c == RECORD_WIDTH["scatter_rows"] and layout == "edge-major":
+                res["scatter_rows"].update(ms=km, plain_ms=pm, library_ms=lm,
+                                           bound=bd)
+            del out, rows
+        del g
     print(f"  (the JSON record gives the applies at C=256 on bf16 features, "
-          f"the scatter at C'=512)")
+          f"the scatter at C'=512 edge-major, the inverse adjacency at "
+          f"these shapes)")
 
 
 def coef_kernel_phase(res, rng, dev, card):
@@ -2749,7 +3000,8 @@ def compare_coef_steps(label, batch, seed, dev):
     ``scatter_rows`` backward) on the plain route, from the same weights,
     dropout 0: the applies are bit-equal, so the forward is, and the loss
     and the running statistics must be equal; the gradients differ only
-    by the order of the atomic sums, held to COEF_GRAD_FROB (relative
+    by the order of the scatters' sums (the plain ``scatter_add_`` adds
+    with atomics, the kernel in edge order), held to COEF_GRAD_FROB (relative
     Frobenius over all tensors; a one-ulp bf16 cast of a cotangent can
     move a max winner)."""
     from deltaconv_tpu_torch import KERNEL_OPS, PLAIN_OPS
@@ -2821,7 +3073,8 @@ def train_large_phase(rng, seed, dev, card):
     for name in TRAIN_LARGE_KERNELS:
         check(f"{name} launched in large training", counts[name] > 0,
               f"{counts[name]} launches")
-    per_step = dict(COEF_PER_FORWARD, scatter_rows=SCATTERS_PER_STEP)
+    per_step = dict(COEF_PER_FORWARD, scatter_rows=SCATTERS_PER_STEP,
+                    inverse_adjacency=SCATTERS_PER_STEP)
     for name, per in per_step.items():
         check(f"{name} {per} a step", counts[name] == per * LARGE_STEPS,
               f"{counts[name]} launches in {LARGE_STEPS} steps")
@@ -3592,11 +3845,14 @@ def build_bwd_kernel_phase(res, rng, dev, card):
 
 
 def device_ms(fn, reps=3) -> float:
-    """The device time of one call of ``fn``: the kernels' and copies'
-    total in ``torch.profiler`` over ``reps`` calls, divided by ``reps``.
-    A short spin kernel opens the traced window and is left out of the
-    sum. (CUDA events around a call would count the host's gaps: the
-    build's small host-to-device copies wait for the stream.)"""
+    """The device time of one call of ``fn`` in ``torch.profiler`` over
+    ``reps`` calls: for each kernel or copy, its mean time times the
+    times a call runs it (its count over ``reps``, rounded), so that an
+    instance the trace drops leaves the sum right (traces have dropped
+    the first launch of the port's library in a window). A spin kernel
+    opens the traced window and is left out of the sum. (CUDA events
+    around a call would count the host's gaps: the build's small
+    host-to-device copies wait for the stream.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -3605,13 +3861,16 @@ def device_ms(fn, reps=3) -> float:
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(evt.self_device_time_total for evt in prof.key_averages()
-               if evt.device_type == DeviceType.CUDA
-               and "spin_kernel" not in evt.key) / 1e3 / reps
+    return sum(evt.self_device_time_total / evt.count
+               * max(1, round(evt.count / reps))
+               for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA and evt.count
+               and "spin_kernel" not in evt.key) / 1e3
 
 
 def _plain_vjp_wls():
@@ -3769,8 +4028,9 @@ def pos_grad_phase(rng, seed, dev, card, large=False):
           f"median {t:.3f} ms (host clock, synchronised), peak "
           f"{peak:.2f} GiB, card: {card}")
     total, ours = profile(tag, "one eval forward + backward", step, t)
-    for name in ("wls_bwd", "densify_bwd", "scatter_rows"):
-        us = sum(r[0] for r in ours if f"{name}_kernel" in r[2])
+    for name in ("wls_bwd", "densify_bwd", "scatter_rows",
+                 "inverse_adjacency"):
+        us = sum(r[0] for r in ours if f"::{name}_kernel" in r[2])
         print(f"[{tag}] {name}: {us / 1e3:.3f} ms, {us / max(total, 1e-9):.4f}"
               f" of the device time, {us / max(sum(r[0] for r in ours), 1e-9):.3f}"
               f" of the port's kernels")

@@ -18,25 +18,54 @@
 // bytes, 36 KB at N=1024, C=9) stays in L1/L2. An index outside
 // [0, Nt) gathers 0, as a one-hot row with no match does on the TPU.
 //
-// Its transpose, the scatter of component-major edge rows:
+// Its transpose, the scatter of edge rows:
 //   out[b, m, c] = sum over (n, k) with idx[b, n, k] == m of g[b, c, k, n]
-// g [B, C, K, N] f32, idx [B, N, K] i32 -> out [B, n_out, C] f32, which
-// the caller zero-fills. Replaces `_scatter_impl` (pallas_call at
+// g [B, C, K, N] f32 with any strides, idx [B, N, K] i32 -> out
+// [B, n_out, C] f32. Replaces `_scatter_impl` (pallas_call at
 // gather_rows.py:292, kernel bodies `_bwd_kernel` and
 // `_bwd_kernel_blocked`): the backward of the gather and of the
-// coefficient-form applies (ops/coef_apply.py), whose feature
-// cotangents are edge-row scatters. The TPU kernel contracted a
-// transposed one-hot matrix with a hi/lo split of g and carried the
-// [N, C] accumulator across its sequential grid, halving the channels
-// while the accumulator crowded VMEM. CUDA blocks run in no order, so
-// each edge value is added to its row with an atomicAdd. A block owns a
-// tile of 32 points and 32 channels and walks the K slots: it reads the
-// tile's [32 channels, 32 points] slab of g (coalesced in n) into shared
-// memory, then adds it transposed (coalesced in c) to the rows its
-// indices name. Bound on the H100: the B*N*K*C atomics in L2 (and the
-// read of g, 1.34 GB for the widest apply of the large-cloud train step).
-// The order of the adds, and so the last bits of a sum, can change from
-// run to run. An index outside [0, n_out) adds nothing.
+// coefficient-form applies (ops/coef_apply.py), whose feature cotangents
+// are edge-row scatters. The TPU kernel contracted a transposed one-hot
+// matrix with a hi/lo split of g and carried the [N, C] accumulator
+// across its sequential grid, so its sums ran in a fixed order. CUDA
+// blocks run in no order; this design keeps a fixed order with no float
+// atomics, destination-major, in two steps:
+//
+// 1. inverse_adjacency (dc_inverse_adjacency): for each cloud b and row
+//    m, the list of edges e = n * K + k with idx[b, n, k] == m, as CSR:
+//    offsets [B, n_out + 1] i32 (row m's list is edges[b, offsets[b, m]
+//    : offsets[b, m + 1]]) and edges [B, N * K] i32, each list in
+//    ascending edge order; an index outside [0, n_out) is listed nowhere
+//    (the cloud's tail past offsets[b, n_out] holds -1, one per such
+//    edge). One kernel, a block per 256-row tile of a cloud: in one pass
+//    over the cloud's idx (each warp a 32nd of it, in order) it counts
+//    its rows' edges and the edges below its first row (its place),
+//    staging its edges in shared memory in edge order; it scans the
+//    counts and each warp writes its edges at their places, so that every
+//    list is ascending with no sort, then writes the lists. No global
+//    atomics; the result does not depend on the order of the
+//    shared-memory ones.
+// 2. scatter_rows (dc_scatter_rows): a group of G lanes (G = 32 from 32
+//    vector slots of channels up) owns one output row (b, m) and a tile
+//    of channels, reads its edges' rows of g through g's strides, 16-byte
+//    float4 loads when the channels are contiguous (c stride 1, as the
+//    coefficient VJPs' edge-major views give them), and sums them in
+//    ascending edge order in f32 registers, four to eight edges' loads in
+//    flight, then writes the row once (a row with no edge is written 0).
+//    Component-major rows (the operator build's [B, 9, K, N] cotangent)
+//    are read through their strides, a 32-byte sector for each 4-byte
+//    value, so that narrow scatter is no faster than the atomic design
+//    it replaces; edge-major rows are this kernel's fast layout.
+//
+// Two calls on the same inputs give the same bits. Bound on the H100: the
+// read of g, each edge row once (1.34 GB for conv3's div cotangent in the
+// large-cloud train step), and the write of out; the inverse adjacency
+// reads idx (once a tile, from L2) and writes 4 + 4 bytes an edge. A
+// row's edges are one group's loop, so a hub row (a point in every
+// neighbour list) is one long loop.
+#include <algorithm>
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -57,38 +86,379 @@ __global__ void gather_rows_kernel(const float* __restrict__ table,
   for (int c = 0; c < C; ++c) dst[c * stride] = ok ? src[c] : 0.0f;
 }
 
-constexpr int kScatterTile = 32;  // points and channels of a block's tile
+// -- inverse adjacency --------------------------------------------------
 
-__global__ void scatter_rows_kernel(const float* __restrict__ g,
-                                    const int* __restrict__ idx,
-                                    float* __restrict__ out, int N, int C,
-                                    int K, int n_out) {
-  __shared__ float tile[kScatterTile][kScatterTile + 1];  // [point][chan]
-  const int n0 = blockIdx.x * kScatterTile;
-  const int c0 = blockIdx.y * kScatterTile;
-  const long long b = blockIdx.z;
-  const int lane = threadIdx.x % kScatterTile;
-  const int rows = blockDim.x / kScatterTile;
-  for (int k = 0; k < K; ++k) {
-    // Load: lanes along n.
-    for (int r = threadIdx.x / kScatterTile; r < kScatterTile; r += rows) {
-      const int c = c0 + r, n = n0 + lane;
-      tile[lane][r] = (c < C && n < N)
-                          ? g[((b * C + c) * K + k) * N + n]
-                          : 0.0f;
-    }
-    __syncthreads();
-    // Add: lanes along c, one point a warp.
-    for (int r = threadIdx.x / kScatterTile; r < kScatterTile; r += rows) {
-      const int n = n0 + r, c = c0 + lane;
-      if (n < N && c < C) {
-        const int j = idx[(b * N + n) * K + k];
-        if ((unsigned)j < (unsigned)n_out)
-          atomicAdd(out + (b * n_out + j) * C + c, tile[r][lane]);
+constexpr int kInvThreads = 1024;
+constexpr int kInvWarps = kInvThreads / 32;
+constexpr int kInvTile = 256;      // rows of a block
+constexpr int kInvUnroll = 4;      // loads of idx in flight a lane
+// Staged edges a warp (shared memory): a warp's share of a cloud's edges
+// points into a 256-row tile about NK / 32 * 256 / n_out times, plus up to
+// 256 more where the share's own points (slot 0, the point itself) lie in
+// the tile.
+constexpr int kInvStage = 512;
+constexpr int kInvWarpMax = 128;   // longer lists are ranked by the block
+// Dynamic shared memory: the staged edges (id and row) and the tile's
+// lists, and each warp's count, then place, of each row of the tile.
+constexpr size_t kInvSmem = (size_t)kInvWarps * kInvStage * (4 + 1 + 4) +
+                            (size_t)kInvWarps * kInvTile * 4;
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int d = 16; d > 0; d /= 2) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
+}
+
+// One pass of warp w over its share of a cloud's edges, edges [start,
+// end) with start = w * span: lane l takes V consecutive edges of each
+// 32 V, kInvUnroll such loads in flight. It counts the edges that point
+// below t0, counts each of the tile's rows in the warp's own counters
+// (cw), and stages the tile's edges (id and row) in ascending edge order
+// in the warp's region, as far as it holds kInvStage; `staged` (warp
+// uniform) counts them all.
+template <int V>
+__device__ __forceinline__ void stage_edges(const int* __restrict__ ib,
+                                            int NK, int t0, int T,
+                                            int& below, int& staged,
+                                            int* __restrict__ cw,
+                                            int* __restrict__ se,
+                                            unsigned char* __restrict__ sr) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int span = ((NK + kInvWarps - 1) / kInvWarps + 32 * V - 1) /
+                   (32 * V) * (32 * V);
+  const int start = warp * span, end = min(NK, start + span);
+  for (int e0 = start; e0 < end; e0 += 32 * V * kInvUnroll) {
+    int j[kInvUnroll][V];
+#pragma unroll
+    for (int u = 0; u < kInvUnroll; ++u) {
+      const int e = e0 + (u * 32 + lane) * V;
+      if constexpr (V == 4) {
+        const int4 q = e < end ? *reinterpret_cast<const int4*>(ib + e)
+                               : make_int4(-1, -1, -1, -1);
+        j[u][0] = q.x; j[u][1] = q.y; j[u][2] = q.z; j[u][3] = q.w;
+      } else {
+        j[u][0] = e < end ? ib[e] : -1;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kInvUnroll; ++u) {
+      int mine = 0;
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        below += (unsigned)j[u][c] < (unsigned)t0;
+        mine += (unsigned)(j[u][c] - t0) < (unsigned)T;
+      }
+      int incl = mine;  // the warp's edges of the tile up to this lane's
+      for (int d = 1; d < 32; d *= 2) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += v;
+      }
+      int at = staged + incl - mine;
+      const int e = e0 + (u * 32 + lane) * V;
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        const int r = j[u][c] - t0;
+        if ((unsigned)r < (unsigned)T) {
+          atomicAdd(cw + r, 1);
+          if (at < kInvStage) {
+            se[at] = e + c;
+            sr[at] = (unsigned char)r;
+          }
+          ++at;
+        }
+      }
+      staged += __shfl_sync(0xffffffffu, incl, 31);
+    }
   }
+}
+
+// Writes list[0, L) to dst in ascending order (the entries are
+// distinct): each entry's place is the number of smaller entries, counted
+// by a warp with shuffles over 32-entry chunks.
+__device__ __forceinline__ void warp_sort_list(const int* list, int L,
+                                               int* __restrict__ dst) {
+  const int lane = threadIdx.x % 32;
+  for (int i0 = 0; i0 < L; i0 += 32) {
+    const int e = i0 + lane < L ? list[i0 + lane] : INT_MAX;
+    int rank = 0;
+    for (int j0 = 0; j0 < L; j0 += 32) {
+      const int other = j0 + lane < L ? list[j0 + lane] : INT_MAX;
+      const int span = min(32, L - j0);
+      for (int s = 0; s < span; ++s)
+        rank += __shfl_sync(0xffffffffu, other, s) < e;
+    }
+    if (i0 + lane < L) dst[rank] = e;
+  }
+}
+
+// A block owns rows [t0, t0 + T) of cloud b and builds their lists:
+// 1. one pass over the cloud's edges, warp w over the w-th 32nd of them
+//    (stage_edges): the edges that point below t0 (the tile's first
+//    place, a block sum), each warp's count of each row, and the tile's
+//    edges staged in each warp's region in ascending edge order;
+// 2. a block scan of the rows' counts gives their offsets, and each
+//    warp's place in each row (the counts of the warps before it);
+// 3. each warp writes its staged edges at their places, in order, so
+//    every list comes out ascending with no sort (shared memory), and
+//    the block writes the tile's lists out.
+// Where a warp's region overflows (a hub row in the tile), the tile reads
+// the cloud's edges a second time, fills its lists in any order in the
+// `scratch` buffer and sorts each (warp_sort_list; lists longer than
+// kInvWarpMax by the whole block). The last tile writes the total and
+// the -1 tail. No global atomics; the result does not depend on the order
+// of the shared-memory ones.
+__global__ void __launch_bounds__(kInvThreads)
+inverse_adjacency_kernel(const int* __restrict__ idx,
+                         int* __restrict__ offsets,
+                         int* __restrict__ scratch, int* __restrict__ edges,
+                         int N, int K, int n_out) {
+  extern __shared__ int smem[];
+  int* stage_e = smem;                                   // [warps][stage]
+  int* lists = smem + kInvWarps * kInvStage;             // [warps * stage]
+  int* cw = smem + 2 * kInvWarps * kInvStage;            // [warps][tile]
+  unsigned char* stage_r = reinterpret_cast<unsigned char*>(
+      cw + kInvWarps * kInvTile);                        // [warps][stage]
+  __shared__ int off[kInvTile + 1];
+  __shared__ int red[kInvWarps];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int NK = N * K;
+  const long long b = blockIdx.y;
+  const int t0 = blockIdx.x * kInvTile;
+  const int T = min(kInvTile, n_out - t0);
+  const int* ib = idx + b * NK;
+  int* eb = edges + b * NK;
+  int* ob = offsets + b * (n_out + 1);
+  int* my_cw = cw + warp * kInvTile;
+  for (int i = tid; i < kInvWarps * kInvTile; i += kInvThreads) cw[i] = 0;
+  __syncthreads();
+  int below = 0, staged = 0;  // staged: warp-uniform
+  if ((reinterpret_cast<uintptr_t>(ib) & 15) == 0 && NK % 4 == 0)
+    stage_edges<4>(ib, NK, t0, T, below, staged, my_cw,
+                   stage_e + warp * kInvStage, stage_r + warp * kInvStage);
+  else
+    stage_edges<1>(ib, NK, t0, T, below, staged, my_cw,
+                   stage_e + warp * kInvStage, stage_r + warp * kInvStage);
+  below = warp_sum(below);
+  if (lane == 0) red[warp] = below;
+  __syncthreads();
+  const int base = warp_sum(red[lane]);
+  // Row tid's count (the warps' counts, which become each warp's place
+  // within the row), then the exclusive scan of the T counts.
+  int c = 0;
+  if (tid < T)
+    for (int w = 0; w < kInvWarps; ++w) {
+      const int n = cw[w * kInvTile + tid];
+      cw[w * kInvTile + tid] = c;
+      c += n;
+    }
+  int incl = c;
+  for (int d = 1; d < 32; d *= 2) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const bool any_long = __syncthreads_or(c > kInvWarpMax);
+  const bool spill = __syncthreads_or(lane == 0 && staged > kInvStage);
+  if (lane == 31) red[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += red[w];
+  incl += before;
+  if (tid < T) {
+    off[tid] = incl - c;
+    ob[t0 + tid] = base + incl - c;
+    for (int w = 0; w < kInvWarps; ++w) cw[w * kInvTile + tid] += incl - c;
+  }
+  if (tid == T - 1) off[T] = incl;
+  if (tid == T - 1 && t0 + T == n_out) ob[n_out] = base + incl;
+  __syncthreads();
+  if (!spill) {
+    const unsigned lower = (1u << lane) - 1u;
+    const int* se = stage_e + warp * kInvStage;
+    const unsigned char* sr = stage_r + warp * kInvStage;
+    for (int p0 = 0; p0 < staged; p0 += 32) {
+      const int p = p0 + lane;
+      const int r = p < staged ? sr[p] : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, r);
+      if (r >= 0) lists[my_cw[r] + __popc(peers & lower)] = se[p];
+      __syncwarp();
+      if (r >= 0 && (peers & lower) == 0) my_cw[r] += __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    for (int i = tid; i < off[T]; i += kInvThreads) eb[base + i] = lists[i];
+  } else {
+    int* sb = scratch + b * NK + base;
+    int* cursor = cw;  // the warps' places are not needed on this path
+    for (int i = tid; i < T; i += kInvThreads) cursor[i] = 0;
+    __syncthreads();
+    for (int e = tid; e < NK; e += kInvThreads) {
+      const int r = ib[e] - t0;
+      if ((unsigned)r < (unsigned)T) sb[off[r] + atomicAdd(cursor + r, 1)] = e;
+    }
+    __syncthreads();  // the scratch lists are written (and visible)
+    for (int r = warp; r < T; r += kInvWarps) {
+      const int L = off[r + 1] - off[r];
+      if (L <= kInvWarpMax)
+        warp_sort_list(sb + off[r], L, eb + base + off[r]);
+    }
+    if (any_long)
+      for (int r = 0; r < T; ++r) {
+        const int L = off[r + 1] - off[r];
+        if (L <= kInvWarpMax) continue;
+        const int* list = sb + off[r];
+        for (int i = tid; i < L; i += kInvThreads) {
+          const int e = list[i];
+          int rank = 0;
+          for (int j = 0; j < L; ++j) rank += list[j] < e;
+          eb[base + off[r] + rank] = e;
+        }
+      }
+  }
+  if (t0 + T == n_out)
+    for (int i = base + off[T] + tid; i < NK; i += kInvThreads) eb[i] = -1;
+}
+
+// -- the destination-major sum ----------------------------------------
+
+template <int V>
+struct Vec {
+  float x[V];
+};
+
+// V floats of channels c..c+V-1 of one edge row at p (channel stride sc;
+// V > 1 only for sc == 1 and V-aligned rows). Each edge row is read
+// once, so the vector loads stream past L1 and L2 (evict first).
+template <int V>
+__device__ __forceinline__ Vec<V> load_row(const float* __restrict__ p,
+                                           int c, long long sc) {
+  Vec<V> v;
+  if constexpr (V == 4) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p + c));
+    v.x[0] = q.x; v.x[1] = q.y; v.x[2] = q.z; v.x[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = __ldcs(reinterpret_cast<const float2*>(p + c));
+    v.x[0] = q.x; v.x[1] = q.y;
+  } else {
+    v.x[0] = p[c * sc];
+  }
+  return v;
+}
+
+constexpr int kSumThreads = 256;
+
+// A group of G = 2^g_log2 lanes per output row (b, m); lane l of the
+// group holds vector slots u * G + l (u < U) of the block's channel
+// tile. The group loads G of its list's edge ids at once (lane l the
+// l-th, which it turns into the edge row's offset in g) and broadcasts
+// the offsets by shuffles; R edges' row loads are in flight together,
+// and their values are added one edge after another.
+template <int V, int U, int R>
+__global__ void __launch_bounds__(kSumThreads)
+scatter_rows_kernel(const float* __restrict__ g,
+                    const int* __restrict__ offsets,
+                    const int* __restrict__ edges, float* __restrict__ out,
+                    long long rows, int NK, int C, int K, int n_out,
+                    int g_log2, long long sb, long long sc, long long sk,
+                    long long sn) {
+  const int G = 1 << g_log2;
+  const long long r =
+      ((long long)blockIdx.x * kSumThreads + threadIdx.x) >> g_log2;
+  if (r >= rows) return;  // the whole group
+  const int lane = threadIdx.x & (G - 1);
+  const unsigned group =
+      (G == 32 ? 0xffffffffu : ((1u << G) - 1u))
+      << ((threadIdx.x % 32) & ~(G - 1));
+  const long long b = r / n_out;
+  const int m = (int)(r - b * n_out);
+  const int* off = offsets + b * (n_out + 1);
+  const int start = off[m], end = off[m + 1];
+  const int* list = edges + b * NK;
+  const float* gb = g + b * sb;
+  int cs[U];
+  bool on[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    cs[u] = blockIdx.y * (G * V * U) + (u * G + lane) * V;
+    on[u] = cs[u] < C;
+  }
+  float acc[U][V];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int t = 0; t < V; ++t) acc[u][t] = 0.0f;
+  for (int i0 = start; i0 < end; i0 += G) {
+    long long mine = 0;  // lane l: the offset of the group's l-th edge row
+    if (i0 + lane < end) {
+      const int e = list[i0 + lane];
+      const int n = e / K;
+      mine = n * sn + (e - n * K) * sk;
+    }
+    const int n_ids = min(G, end - i0);
+    for (int q0 = 0; q0 < n_ids; q0 += R) {
+      Vec<V> v[R][U];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const long long at = __shfl_sync(group, mine, q0 + q, G);
+        if (q0 + q < n_ids) {
+          const float* p = gb + at;
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (on[u]) v[q][u] = load_row<V>(p, cs[u], sc);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q)
+        if (q0 + q < n_ids)
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (on[u])
+#pragma unroll
+              for (int t = 0; t < V; ++t) acc[u][t] += v[q][u].x[t];
+    }
+  }
+  float* o = out + r * C;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (!on[u]) continue;
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(o + cs[u]) =
+          make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+    } else if constexpr (V == 2) {
+      *reinterpret_cast<float2*>(o + cs[u]) =
+          make_float2(acc[u][0], acc[u][1]);
+    } else {
+      o[cs[u]] = acc[u][0];
+    }
+  }
+}
+
+struct ScatterArgs {
+  const float* g;
+  const int* offsets;
+  const int* edges;
+  float* out;
+  long long rows;
+  int NK, C, K, n_out, g_log2;
+  long long sb, sc, sk, sn;
+};
+
+// Edges in flight: 4 rows of 16 floats a lane at the widest, 8 below.
+template <int V, int U>
+void launch_scatter(dim3 grid, cudaStream_t stream, const ScatterArgs& a) {
+  constexpr int R = V * U >= 8 ? 4 : 8;
+  scatter_rows_kernel<V, U, R><<<grid, kSumThreads, 0, stream>>>(
+      a.g, a.offsets, a.edges, a.out, a.rows, a.NK, a.C, a.K, a.n_out,
+      a.g_log2, a.sb, a.sc, a.sk, a.sn);
+}
+
+template <int V>
+void launch_scatter_u(int U, dim3 grid, cudaStream_t stream,
+                      const ScatterArgs& a) {
+  if (U == 1)
+    launch_scatter<V, 1>(grid, stream, a);
+  else if (U == 2)
+    launch_scatter<V, 2>(grid, stream, a);
+  else
+    launch_scatter<V, 4>(grid, stream, a);
 }
 
 }  // namespace
@@ -105,15 +475,68 @@ extern "C" int dc_gather_rows(const void* table, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int dc_scatter_rows(const void* g, const void* idx, void* out,
-                               int B, int N, int C, int K, int n_out,
+// scratch [B, N * K] i32: the unordered lists.
+extern "C" int dc_inverse_adjacency(const void* idx, void* offsets,
+                                    void* scratch, void* edges, int B, int N,
+                                    int K, int n_out, int device,
+                                    void* stream) {
+  DC_SET_DEVICE(device);
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long NK = (long long)N * K;
+  if (B == 0) return (int)cudaGetLastError();
+  if (n_out == 0) {  // every edge out of range
+    cudaError_t err = cudaMemsetAsync(offsets, 0, sizeof(int) * B, st);
+    if (err == cudaSuccess && NK > 0)
+      err = cudaMemsetAsync(edges, 0xff, sizeof(int) * B * NK, st);
+    return err == cudaSuccess ? (int)cudaGetLastError() : (int)err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      inverse_adjacency_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kInvSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned int)((n_out + kInvTile - 1) / kInvTile), B);
+  inverse_adjacency_kernel<<<grid, kInvThreads, kInvSmem, st>>>(
+      (const int*)idx, (int*)offsets, (int*)scratch, (int*)edges, N, K,
+      n_out);
+  return (int)cudaGetLastError();
+}
+
+// g's strides (in floats) for b, c, k, n; out [B, n_out, C] is written
+// whole.
+extern "C" int dc_scatter_rows(const void* g, const void* offsets,
+                               const void* edges, void* out, int B, int N,
+                               int C, int K, int n_out, long long sb,
+                               long long sc, long long sk, long long sn,
                                int device, void* stream) {
   DC_SET_DEVICE(device);
-  if ((long long)B * N * C * K == 0) return (int)cudaGetLastError();
-  const dim3 grid((N + kScatterTile - 1) / kScatterTile,
-                  (C + kScatterTile - 1) / kScatterTile, B);
-  scatter_rows_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (const int*)idx, (float*)out, N, C, K, n_out);
+  const long long rows = (long long)B * n_out;
+  if (rows * C == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  // The widest vector that every edge row's channels allow.
+  const uintptr_t addr = (uintptr_t)g;
+  auto fits = [&](int v) {
+    return sc == 1 && C % v == 0 && sb % v == 0 && sk % v == 0 &&
+           sn % v == 0 && addr % (sizeof(float) * v) == 0;
+  };
+  const int V = fits(4) ? 4 : (fits(2) ? 2 : 1);
+  const int slots = C / V;  // vector slots of a row
+  int g_log2 = 0;
+  while ((1 << g_log2) < std::min(slots, 32)) ++g_log2;
+  const int G = 1 << g_log2;
+  const int need = (slots + G - 1) / G;
+  const int U = need >= 3 ? 4 : need;
+  const dim3 grid(
+      (unsigned int)((rows * G + kSumThreads - 1) / kSumThreads),
+      (unsigned int)((slots + G * U - 1) / (G * U)));
+  const ScatterArgs a{(const float*)g, (const int*)offsets,
+                      (const int*)edges, (float*)out, rows, N * K, C, K,
+                      n_out, g_log2, sb, sc, sk, sn};
+  if (V == 4)
+    launch_scatter_u<4>(U, grid, st, a);
+  else if (V == 2)
+    launch_scatter_u<2>(U, grid, st, a);
+  else
+    launch_scatter_u<1>(U, grid, st, a);
   return (int)cudaGetLastError();
 }
 

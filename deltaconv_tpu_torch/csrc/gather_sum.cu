@@ -6,14 +6,20 @@
 //   counts <= K). Replaces `_adjacency_matrix` (pallas_call at
 //   deltaconv_tpu/ops/gather_sum.py:117, kernel body `_adj_kernel`),
 //   which built each row tile by K select-accumulates over a column iota.
-//   Here a block owns one row (b, n): it zeroes the row in shared memory
-//   (N * 4 bytes, at most 48 KB: N <= 12288), one thread adds the row's
-//   K counts in slot order, and the block writes the row whole, zeros
-//   included, with coalesced stores. No other block writes the row, so
-//   no atomics are needed. Bound on the H100: the stores, N * N * 4
-//   bytes per cloud (128 MB at B=32, N=1024). The forward A @ h and the
-//   backward A^T @ g on the same A are plain batched matmuls
-//   (torch.bmm), as the JAX package leaves them to XLA.
+//   Bound on the H100: the stores, N * N * 4 bytes per cloud (134 MB at
+//   B=32, N=1024); the K indices of a row are a few bytes beside them.
+//   So nothing is staged and nothing is written twice: a warp owns a
+//   row (8 rows a block) and holds its K slots' columns in registers
+//   (lane s, slot s; K > 32 in passes of 32). It writes the row once,
+//   in passes of 32 16-byte float4 chunks (a scalar head and tail where
+//   the row does not start on a 16-byte boundary, N % 4 != 0): a chunk's
+//   four counts come from the slots whose column falls in the pass (a
+//   ballot, then one shuffle a slot), zeros elsewhere. The counts are
+//   small integers, exact in f32 in any order, so the result is bit-equal
+//   to the plain scatter_add_; no shared memory bounds N, no atomics are
+//   needed. The forward A @ h and the backward A^T @ g on the same A are
+//   plain batched matmuls (torch.bmm), as the JAX package
+//   leaves them to XLA.
 //
 // gather_sum: out[b, n, c] = sum over k with mask of h[b, idx[b, n, k], c]
 //   h [B, N, C] f32 -> out [B, N, C] f32, summed in slot order.
@@ -39,22 +45,70 @@
 
 namespace {
 
+constexpr int kAdjWarps = 8;  // rows (warps) a block
+
+__device__ __forceinline__ int adj_column(const int* ir, const uint8_t* mr,
+                                          int k, int K, int N) {
+  if (k >= K) return -1;
+  const int j = ir[k];
+  return (mr[k] && (unsigned)j < (unsigned)N) ? j : -1;
+}
+
 __global__ void adjacency_kernel(const int* __restrict__ idx,
                                  const uint8_t* __restrict__ mask,
-                                 float* __restrict__ adj, int N, int K) {
-  extern __shared__ float s_row[];  // [N]
-  const long long row = (long long)blockIdx.y * N + blockIdx.x;
-  for (int m = threadIdx.x; m < N; m += blockDim.x) s_row[m] = 0.0f;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < K; ++k) {
-      const int j = idx[row * K + k];
-      if (mask[row * K + k] && (unsigned)j < (unsigned)N) s_row[j] += 1.0f;
-    }
-  }
-  __syncthreads();
+                                 float* __restrict__ adj, long long rows,
+                                 int N, int K) {
+  const long long row = (long long)blockIdx.x * kAdjWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // the whole warp
+  const unsigned all = 0xffffffffu;
+  const int* ir = idx + row * K;
+  const uint8_t* mr = mask + row * K;
   float* out = adj + row * N;
-  for (int m = threadIdx.x; m < N; m += blockDim.x) out[m] = s_row[m];
+  // The row's columns: [head) up to the first 16-byte boundary (adj is
+  // 16-byte aligned), nvec float4 chunks from head, the tail from tail0.
+  const int head = min(N, (int)((4 - (row * N) % 4) % 4));
+  const int nvec = (N - head) / 4;
+  const int tail0 = head + 4 * nvec;
+  // Lane s holds slot k0 + s's column (-1 when masked or outside [0, N)),
+  // for K <= 32 the whole row in one register.
+  const int col0 = adj_column(ir, mr, lane, K, N);
+  if (head > 0 || tail0 < N) {  // the scalar columns, lanes 0-3 each
+    float hv = 0.0f, tv = 0.0f;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int c = k0 == 0 ? col0 : adj_column(ir, mr, k0 + lane, K, N);
+      unsigned m = __ballot_sync(all, c >= 0 && (c < head || c >= tail0));
+      while (m) {
+        const int o = __shfl_sync(all, c, __ffs(m) - 1);
+        m &= m - 1;
+        hv += o == lane;
+        tv += o == tail0 + lane;
+      }
+    }
+    if (lane < head) out[lane] = hv;
+    if (tail0 + lane < N) out[tail0 + lane] = tv;
+  }
+  // Chunk v = 32 it + lane of each pass: its four counts from the slots
+  // whose column falls in this pass's 128 columns, one shuffle a slot.
+  float4* body = reinterpret_cast<float4*>(out + head);
+  for (int it = 0; 32 * it < nvec; ++it) {
+    const int v = 32 * it + lane;
+    float q[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int c = k0 == 0 ? col0 : adj_column(ir, mr, k0 + lane, K, N);
+      unsigned m = __ballot_sync(
+          all, c >= head && c < tail0 && ((c - head) >> 7) == it);
+      while (m) {
+        const int r = __shfl_sync(all, c, __ffs(m) - 1) - head;
+        m &= m - 1;
+        if ((r >> 2) == v) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t) q[t] += (r & 3) == t;
+        }
+      }
+    }
+    if (v < nvec) body[v] = make_float4(q[0], q[1], q[2], q[3]);
+  }
 }
 
 __global__ void gather_sum_kernel(const float* __restrict__ h,
@@ -104,12 +158,13 @@ __global__ void gather_sum_bwd_kernel(const int* __restrict__ idx,
 extern "C" int dc_adjacency(const void* idx, const void* mask, void* adj,
                             int B, int N, int K, int device, void* stream) {
   DC_SET_DEVICE(device);
-  if ((long long)B * N == 0) return (int)cudaGetLastError();
-  const int threads = N >= 256 ? 256 : ((N + 31) / 32) * 32;
-  adjacency_kernel<<<dim3(N, B), threads, (size_t)N * sizeof(float),
+  const long long rows = (long long)B * N;
+  if (rows == 0) return (int)cudaGetLastError();
+  const long long blocks = (rows + kAdjWarps - 1) / kAdjWarps;
+  adjacency_kernel<<<(unsigned int)blocks, 32 * kAdjWarps, 0,
                      (cudaStream_t)stream>>>((const int*)idx,
                                              (const uint8_t*)mask,
-                                             (float*)adj, N, K);
+                                             (float*)adj, rows, N, K);
   return (int)cudaGetLastError();
 }
 

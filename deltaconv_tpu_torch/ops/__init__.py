@@ -55,7 +55,8 @@ from .edge_mlp import (edge_delta_mlp, edge_delta_mlp_plain, edge_mlp_bwd,
 from .fused_build import (fused_dense_build, fused_gather_wls,
                           fused_gather_wls_plain)
 from .gather_mlp_max import gather_mlp_max, gather_mlp_max_plain, mlp_chain
-from .gather_rows import (gather_rows, gather_rows_plain, scatter_rows,
+from .gather_rows import (gather_rows, gather_rows_plain, inverse_adjacency,
+                          inverse_adjacency_plain, scatter_rows,
                           scatter_rows_plain)
 from .gather_sum import (adjacency, adjacency_plain, gather_sum,
                          gather_sum_bwd, gather_sum_bwd_plain, gather_sum_fwd,
@@ -90,7 +91,8 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "gather_rows", "gather_rows_plain",
            "gather_sum", "gather_sum_bwd", "gather_sum_bwd_plain",
            "gather_sum_fwd", "gather_sum_fwd_plain", "gather_sum_plain",
-           "int8_quantize", "knn_topk", "knn_topk_bucketed",
+           "int8_quantize", "inverse_adjacency", "inverse_adjacency_plain",
+           "knn_topk", "knn_topk_bucketed",
            "knn_topk_bucketed_plain", "knn_topk_plain", "knn_topk_table",
            "knn_topk_table_plain", "launch_counts",
            "library",

@@ -39,6 +39,7 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # kernel name -> (C entry point, argument types before the trailing
 # device index and stream).
@@ -78,7 +79,8 @@ _KERNELS = {
     "gather_max_int8": ("dc_gather_max_int8", [_P] * 5 + [_I] * 5),
     "gather_matmul_max_int8": ("dc_gather_matmul_max_int8",
                                [_P] * 5 + [_I] * 5),
-    "scatter_rows": ("dc_scatter_rows", [_P] * 3 + [_I] * 5),
+    "inverse_adjacency": ("dc_inverse_adjacency", [_P] * 4 + [_I] * 4),
+    "scatter_rows": ("dc_scatter_rows", [_P] * 4 + [_I] * 5 + [_L] * 4),
     "coef_apply_grad": ("dc_coef_apply_grad", [_P] * 4 + [_I] * 5),
     "coef_apply_div": ("dc_coef_apply_div", [_P] * 4 + [_I] * 5),
     "knn_topk_table": ("dc_knn_topk_table", [_P] * 5 + [_I] * 4),
@@ -210,10 +212,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check_inputs(name: str, specs) -> torch.device:
+def check_inputs(name: str, specs, strided=()) -> torch.device:
     """Validates the CUDA inputs of one kernel call. ``specs`` is a
     sequence of ``(arg_name, tensor, dtype, shape)``; ``shape`` entries
-    of ``None`` are free. Returns the common device."""
+    of ``None`` are free. Every tensor must be contiguous except those
+    named in ``strided``, which the kernel reads through their strides.
+    Returns the common device."""
     device = specs[0][1].device
     if device.type != "cuda":
         raise ValueError(f"{name}: the kernel runs on CUDA tensors (plain "
@@ -228,7 +232,7 @@ def check_inputs(name: str, specs) -> torch.device:
                 s is not None and s != d for s, d in zip(shape, t.shape)):
             raise ValueError(f"{where}: shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
-        if not t.is_contiguous():
+        if arg not in strided and not t.is_contiguous():
             raise ValueError(f"{where}: not contiguous")
         if t.requires_grad:
             raise ValueError(f"{where}: the raw kernel takes no tensor "

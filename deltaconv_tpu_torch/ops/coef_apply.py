@@ -14,10 +14,12 @@ no mask is read. Counterpart of ``deltaconv_tpu/ops/coef_apply.py``; the
 kernels are ``csrc/coef_apply.cu``.
 
 Differentiated, each apply is an autograd Function with the JAX VJP:
-the features' cotangent forms the component-major f32 edge rows
-(``einsum`` into ``[B, C, K, N]``, ``[B, 2C, K, N]`` for div) and
-scatters them with :func:`~.gather_rows.scatter_rows`, cast to the
-features' dtype; the coefficients' cotangent (``gather_rows`` +
+the features' cotangent forms the f32 edge rows edge-major, channels
+fastest (``einsum`` into ``[B, N, K, C]``; for div ``[B, N, K, 2, C]``,
+viewed as ``[B, N, K, 2C]``, the flattened rows of ``v``), and hands
+their ``[B, C, K, N]`` view to :func:`~.gather_rows.scatter_rows`, which
+reads it through its strides (no layout copy), cast to the features'
+dtype; the coefficients' cotangent (``gather_rows`` +
 ``einsum``, f32) is formed only when asked for. No backward kernel runs
 for an input that does not require grad. :func:`coef_apply_grad` and
 :func:`coef_apply_div` run the kernels (forward and backward),
@@ -133,8 +135,9 @@ class _CoefApplyGrad(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # dx[m, c] = sum over edges (n, k) with idx == m of
             #            sum_d coef[n, k, d] * ct[n, d, c]
-            edge = torch.einsum("bnkd,bndc->bckn", coef, ctf).contiguous()
-            dx = ctx.route.scatter_rows(edge, idx, x.shape[1]).to(x.dtype)
+            edge = torch.einsum("bnkd,bndc->bnkc", coef, ctf)
+            dx = ctx.route.scatter_rows(edge.permute(0, 3, 2, 1), idx,
+                                        x.shape[1]).to(x.dtype)
         if ctx.needs_input_grad[1]:
             # dcoef[n, k, d] = sum_c x[idx[n, k], c] * ct[n, d, c]
             xg = ctx.route.gather_rows(x.float().contiguous(), idx)
@@ -163,10 +166,10 @@ class _CoefApplyDiv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # dv[m, d, c] = sum over edges with idx == m of
             #               coef[n, k, d] * ct[n, c]
-            edge = torch.einsum("bnkd,bnc->bdckn", coef, ctf).reshape(
-                b, 2 * c, k, n).contiguous()
-            dv = ctx.route.scatter_rows(edge, idx, n).reshape(
-                b, n, 2, c).to(v.dtype)
+            edge = torch.einsum("bnkd,bnc->bnkdc", coef, ctf).view(
+                b, n, k, 2 * c)
+            dv = ctx.route.scatter_rows(edge.permute(0, 3, 2, 1), idx,
+                                        n).view(b, n, 2, c).to(v.dtype)
         if ctx.needs_input_grad[1]:
             # dcoef[n, k, d] = sum_c v[idx[n, k], d, c] * ct[n, c]
             vg = ctx.route.gather_rows(

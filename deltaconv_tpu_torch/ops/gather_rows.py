@@ -12,9 +12,20 @@ backward is :func:`scatter_rows`.
 ``scatter_rows(g, idx, n_out)``: ``[B, C, K, N] f32, [B, N, K] -> [B,
 n_out, C] f32`` with ``out[b, m, c] = sum over (n, k) with idx[b, n, k]
 == m of g[b, c, k, n]``: the gather's backward, and the feature
-cotangent of the coefficient-form applies (:mod:`.coef_apply`). The
-kernel adds with atomics, so the last bits of a sum can change from run
-to run; an index outside ``[0, n_out)`` adds nothing.
+cotangent of the coefficient-form applies (:mod:`.coef_apply`), which
+hand it edge-major views (``[B, N, K, C]`` rows permuted to ``[B, C, K,
+N]``, channels contiguous). ``g`` may have any strides: the kernel reads
+it through them. It works destination-major: :func:`inverse_adjacency`
+lists each row's edges in ascending edge order, and the kernel sums them
+in that order with no float atomics, so two calls give the same bits. An
+index outside ``[0, n_out)`` adds nothing.
+
+``inverse_adjacency(idx, n_out)``: ``[B, N, K] -> offsets [B, n_out + 1]
+i32, edges [B, N * K] i32``, the CSR of the transposed neighbour lists:
+row ``m`` of cloud ``b`` takes the edges ``e = n * K + k`` listed in
+``edges[b, offsets[b, m]:offsets[b, m + 1]]``, ascending; an edge whose
+index lies outside ``[0, n_out)`` is listed nowhere, and the cloud's
+tail past ``offsets[b, n_out]`` holds one -1 for each.
 
 Counterpart of ``deltaconv_tpu/ops/gather_rows.py``; the kernels are
 ``csrc/gather_rows.cu``.
@@ -28,8 +39,8 @@ import torch
 
 from . import _lib
 
-__all__ = ["gather_rows", "gather_rows_plain", "scatter_rows",
-           "scatter_rows_plain"]
+__all__ = ["gather_rows", "gather_rows_plain", "inverse_adjacency",
+           "inverse_adjacency_plain", "scatter_rows", "scatter_rows_plain"]
 
 
 def _gather_plain(table, idx):
@@ -69,19 +80,63 @@ def scatter_rows_plain(g: torch.Tensor, idx: torch.Tensor,
     return out.scatter_add_(1, flat, rows)
 
 
+def inverse_adjacency_plain(idx: torch.Tensor, n_out: int):
+    """The plain PyTorch version: a stable ``argsort`` of each cloud's
+    destination keys (``n_out`` for an index outside ``[0, n_out)``,
+    which sorts last and is listed as -1)."""
+    b, n, k = idx.shape
+    key = idx.reshape(b, n * k).long()
+    key = torch.where((key >= 0) & (key < n_out), key, n_out)
+    order = torch.argsort(key, dim=1, stable=True)
+    counts = torch.zeros((b, n_out + 1), dtype=torch.long, device=idx.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    offsets = torch.zeros((b, n_out + 1), dtype=torch.int32,
+                          device=idx.device)
+    offsets[:, 1:] = torch.cumsum(counts[:, :n_out], dim=1)
+    edges = torch.where(torch.gather(key, 1, order) < n_out, order, -1)
+    return offsets, edges.to(torch.int32)
+
+
+def _launch_inverse_adjacency(idx, n_out, device):
+    b, n, k = idx.shape
+    offsets = torch.empty((b, n_out + 1), dtype=torch.int32, device=device)
+    scratch, edges = torch.empty((2, b, n * k), dtype=torch.int32,
+                                 device=device)
+    _lib.launch("inverse_adjacency", device, idx.data_ptr(),
+                offsets.data_ptr(), scratch.data_ptr(), edges.data_ptr(), b,
+                n, k, int(n_out))
+    return offsets, edges
+
+
+def inverse_adjacency(idx: torch.Tensor, n_out: int):
+    """Plain version for CPU tensors; the ``inverse_adjacency`` kernel
+    (a block a 256-row tile of a cloud: count, scan, fill, sort) for CUDA
+    tensors."""
+    if idx.device.type == "cpu":
+        return inverse_adjacency_plain(idx, n_out)
+    b, n, k = idx.shape
+    device = _lib.check_inputs("inverse_adjacency", [
+        ("idx", idx, torch.int32, (b, n, k))])
+    return _launch_inverse_adjacency(idx, n_out, device)
+
+
 def scatter_rows(g: torch.Tensor, idx: torch.Tensor,
                  n_out: int) -> torch.Tensor:
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """Plain version for CPU tensors; for CUDA tensors the inverse
+    adjacency and the destination-major ``scatter_rows`` kernel, which
+    reads ``g`` through its strides."""
     if g.device.type == "cpu":
         return scatter_rows_plain(g, idx, n_out)
     b, c, k, n = g.shape
     device = _lib.check_inputs("scatter_rows", [
         ("g", g, torch.float32, (b, c, k, n)),
         ("idx", idx, torch.int32, (b, n, k)),
-    ])
-    out = torch.zeros((b, n_out, c), dtype=torch.float32, device=device)
-    _lib.launch("scatter_rows", device, g.data_ptr(), idx.data_ptr(),
-                out.data_ptr(), b, n, c, k, int(n_out))
+    ], strided=("g",))
+    offsets, edges = _launch_inverse_adjacency(idx, n_out, device)
+    out = torch.empty((b, n_out, c), dtype=torch.float32, device=device)
+    _lib.launch("scatter_rows", device, g.data_ptr(), offsets.data_ptr(),
+                edges.data_ptr(), out.data_ptr(), b, n, c, k, int(n_out),
+                *g.stride())
     return out
 
 
@@ -106,7 +161,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return ctx.route.scatter(g.contiguous(), idx, ctx.n), None, None
+        return ctx.route.scatter(g, idx, ctx.n), None, None
 
 
 def _differentiated(t) -> bool:

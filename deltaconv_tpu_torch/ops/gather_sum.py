@@ -12,9 +12,11 @@ The routes are the JAX package's:
 - differentiated, with ``B * N * N * 2 <= _DENSE_ADJ_MAX_BYTES`` (the
   JAX byte rule, kept although the adjacency is f32 here): the
   ``adjacency`` kernel builds the ``[B, N, N]`` neighbour counts ``A``
-  once; the forward is ``A @ h`` and the backward ``A^T @ g`` on the
-  same saved ``A`` (``torch.bmm``, the plain large products that the
-  JAX package also leaves outside Pallas);
+  once, a warp a row, zeros and counts stored straight from registers
+  (bit-equal to the plain ``scatter_add_``: the counts are exact); the
+  forward is ``A @ h`` and the backward ``A^T @ g`` on the same saved
+  ``A`` (``torch.bmm``, the plain large products that the JAX package
+  also leaves outside Pallas);
 - differentiated above that budget: the streaming ``gather_sum``
   kernel, with the ``gather_sum_bwd`` scatter as its backward;
 - not differentiated: always the streaming forward.
@@ -39,11 +41,6 @@ __all__ = ["adjacency", "adjacency_plain", "gather_sum", "gather_sum_bwd",
 # counts): B=32 x N=1024 (64 MB) and B=16 x N=2048 (128 MB) stay dense.
 # A test may patch it to 0 to run the streaming kernels at a small size.
 _DENSE_ADJ_MAX_BYTES = 256 * 1024 * 1024
-
-
-# The adjacency kernel stages one f32 row in shared memory. The dense
-# route never exceeds it: B * N * N * 2 <= the budget means N <= 11585.
-_ADJ_MAX_N = 48 * 1024 // 4
 
 
 def _dense_path_ok(b: int, n: int) -> bool:
@@ -95,14 +92,12 @@ def _check_graph(name, idx, mask, extra=()):
 
 def adjacency(idx, mask):
     """``[B, N, N]`` f32 counts: plain version for CPU tensors, the
-    ``adjacency`` kernel for CUDA tensors."""
+    ``adjacency`` kernel for CUDA tensors (a warp a row, written from
+    registers: any N)."""
     if idx.device.type == "cpu":
         return adjacency_plain(idx, mask)
     device = _check_graph("adjacency", idx, mask)
     b, n, k = idx.shape
-    if n > _ADJ_MAX_N:
-        raise ValueError(f"adjacency: N={n} > {_ADJ_MAX_N}, the row the "
-                         "kernel stages in 48 KB of shared memory")
     adj = torch.empty((b, n, n), dtype=torch.float32, device=device)
     _lib.launch("adjacency", device, idx.data_ptr(), mask.data_ptr(),
                 adj.data_ptr(), b, n, k)

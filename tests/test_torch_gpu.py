@@ -6,8 +6,11 @@ the card. Skipped where there is no CUDA device. On a GPU machine
 
 Shapes are small and include widths the model never uses (N not a
 multiple of 4, C not a multiple of 32) so that every branch of the
-kernels' indexing runs. The scatters add with atomics in any order, so
-they are held to 1e-5 x max|dh|.
+kernels' indexing runs. The atomic scatters (``gather_max_bwd``,
+``gather_sum_bwd``, ``gather_minmax_bwd``) add in any order, and so does
+``scatter_add_`` on the card, so scatters are held to 1e-5 x max|dh|;
+``scatter_rows`` adds in a fixed order and is also held bit-equal to
+itself across calls.
 """
 
 import dataclasses
@@ -145,6 +148,7 @@ def test_kernel_inputs_are_checked(cuda):
     assert launch_counts()["gather_max_bwd"] == 1
     assert launch_counts()["gather_rows"] == 1
     assert launch_counts()["scatter_rows"] == 1
+    assert launch_counts()["inverse_adjacency"] == 1
     assert hg.grad.shape == h.shape
     with pytest.raises(ValueError, match="requires grad"):
         ops.gather_max_win(hg, idx, mask)
@@ -158,6 +162,9 @@ def test_kernel_inputs_are_checked(cuda):
     with pytest.raises(TypeError):
         ops.scatter_rows(torch.zeros((2, 4, 3, 16), device=cuda).double(),
                          idx, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.scatter_rows(torch.zeros((2, 4, 3, 16), device=cuda),
+                         idx.transpose(1, 2).contiguous().transpose(1, 2), 16)
     # The build's WLS solve and assembly are autograd Functions too (their
     # backward kernels wls_bwd and densify_bwd); the fused eval build is
     # forward only.
@@ -208,6 +215,27 @@ def _rand_graph(rng, n, k, dev):
 def _close_to_max(got, want, rtol):
     tol = rtol * float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("b,n,k", [(2, 100, 9), (2, 150, 9), (2, 1024, 20),
+                                   (2, 1027, 20), (3, 5, 40), (1, 12500, 20)])
+def test_adjacency_kernel_exact(cuda, b, n, k):
+    """Bit-equal to ``scatter_add_`` of the mask (counts are exact): rows
+    that do not start on a 16-byte boundary (N % 4 != 0), repeated and
+    masked slots, more slots than a warp's lanes (K=40 > 32), and an N
+    above 12,288, the row a 48 KB shared-memory design could stage."""
+    rng = np.random.default_rng(60)
+    idx = torch.from_numpy(
+        rng.integers(0, n, (b, n, k)).astype(np.int32)).to(cuda)
+    idx[:, :, 1] = idx[:, :, 0]  # every row counts one column twice
+    mask = torch.from_numpy(rng.random((b, n, k)) > 0.3).to(cuda)
+    mask[0, 4] = False  # no valid neighbour
+    reset_launch_counts()
+    got = ops.adjacency(idx, mask)
+    torch.cuda.synchronize()
+    assert launch_counts()["adjacency"] == 1
+    assert got.shape == (b, n, n) and got.dtype == torch.float32
+    assert torch.equal(got, ops.adjacency_plain(idx, mask))
 
 
 @pytest.mark.parametrize("c", [3, 64, 300])
@@ -968,27 +996,81 @@ def test_coef_apply_kernels_exact(cuda, c, dtype, masked):
                 ops.coef_apply_div_plain(v, dc, idx))
 
 
+def _edge_major(g):
+    """``g [B, C, K, N]`` as the coefficient VJPs hand it: the same values
+    in edge-major rows ``[B, N, K, C]``, viewed as ``[B, C, K, N]``."""
+    return g.permute(0, 3, 2, 1).contiguous().permute(0, 3, 2, 1)
+
+
+def _scatter_held(g, idx, n_out):
+    """``scatter_rows`` on ``g`` and on its edge-major view, each
+    bit-equal across two calls (no float atomics), the two layouts
+    bit-equal (the same sums in the same order), within 1e-5 x max of
+    ``scatter_add_`` (whose atomics on the card add in any order)."""
+    want = ops.scatter_rows_plain(g, idx, n_out)
+    outs = []
+    for layout in (g, _edge_major(g)):
+        reset_launch_counts()
+        got = ops.scatter_rows(layout, idx, n_out)
+        again = ops.scatter_rows(layout, idx, n_out)
+        torch.cuda.synchronize()
+        assert launch_counts()["scatter_rows"] == 2
+        assert launch_counts()["inverse_adjacency"] == 2
+        assert got.shape == (g.shape[0], n_out, g.shape[1])
+        assert torch.equal(got, again)
+        _close_to_max(got, want, 1e-5)
+        outs.append(got)
+    assert torch.equal(*outs)
+
+
 @pytest.mark.parametrize("n_out,c", [(150, 5), (150, 70), (170, 512),
-                                     (120, 33)])
+                                     (120, 33), (150, 9), (150, 12),
+                                     (150, 18), (150, 20)])
 def test_scatter_rows_kernel(cuda, n_out, c):
-    """Within 1e-5 x max of ``scatter_add_`` (atomics add in any order),
-    with repeated indices; indices outside ``[0, n_out)`` add nothing."""
+    """Component-major and edge-major ``g``: the sum's vector widths 1, 2
+    and 4 and lane groups of 8, 16 and 32 lanes a row, with repeated
+    indices and a hub row that takes every point's second slot; indices
+    outside ``[0, n_out)`` add nothing."""
     rng = np.random.default_rng(51)
     n, k = 150, 9
     idx = torch.from_numpy(
         rng.integers(0, 150, (2, n, k)).astype(np.int32)).to(cuda)
     idx[:, :, 1] = 3  # one row takes every point's second slot
     g = torch.randn((2, c, k, n), device=cuda)
-    got = ops.scatter_rows(g, idx, n_out)
+    _scatter_held(g, idx, n_out)
+    # Strides of any kind: a broadcast cotangent (all strides 0).
+    ones = torch.ones((), device=cuda).expand(2, c, k, n)
+    torch.testing.assert_close(ops.scatter_rows(ones, idx, n_out),
+                               ops.scatter_rows_plain(ones, idx, n_out),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,n_out", [(150, 150), (150, 120), (150, 170)])
+def test_inverse_adjacency_kernel_exact(cuda, n, n_out):
+    """Offsets and edge lists equal to the plain stable ``argsort``: each
+    in-range edge listed once, ascending, under its row; a hub row; edges
+    outside ``[0, n_out)`` (negative ones included) listed as -1."""
+    rng = np.random.default_rng(61)
+    idx = torch.from_numpy(
+        rng.integers(-2, 152, (3, n, 9)).astype(np.int32)).to(cuda)
+    idx[:, :, 1] = 3
+    reset_launch_counts()
+    got = ops.inverse_adjacency(idx, n_out)
     torch.cuda.synchronize()
-    assert got.shape == (2, n_out, c)
-    _close_to_max(got, ops.scatter_rows_plain(g, idx, n_out), 1e-5)
+    assert launch_counts()["inverse_adjacency"] == 1
+    want = ops.inverse_adjacency_plain(idx, n_out)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.int32
+        assert torch.equal(a, w)
 
 
 def test_coef_kernels_at_the_large_cloud_shapes(cuda):
     """B=4 clouds of N=8192, K=20 on the clouds' own coefficients: the
     applies bit-equal at conv1's widths (grad 192, div 128), bf16 and f32,
-    the scatter of conv3's div cotangent (512) within 1e-5 x max."""
+    the scatter of conv0's grad cotangent (70) and of conv3's div
+    cotangent (512) held by ``_scatter_held`` on both layouts, then again
+    with a hub row (every point's second slot), and the inverse adjacency
+    equal to its plain version."""
     rng = np.random.default_rng(52)
     pos, nrm = _cloud_batch(rng, 4, 8192, cuda)
     gd = build_operators(pos, 20, nrm, knn_method="approx",
@@ -1000,9 +1082,15 @@ def test_coef_kernels_at_the_large_cloud_shapes(cuda):
                     ops.coef_apply_grad_plain(x, gd.grad_coef, gd.nbr_idx))
         _bits_equal(ops.coef_apply_div(v, gd.div_coef, gd.nbr_idx),
                     ops.coef_apply_div_plain(v, gd.div_coef, gd.nbr_idx))
-    g = torch.randn((4, 512, 20, 8192), device=cuda)
-    _close_to_max(ops.scatter_rows(g, gd.nbr_idx, 8192),
-                  ops.scatter_rows_plain(g, gd.nbr_idx, 8192), 1e-5)
+    hub = gd.nbr_idx.clone()
+    hub[:, :, 1] = 3
+    for idx in (gd.nbr_idx, hub):
+        for a, w in zip(ops.inverse_adjacency(idx, 8192),
+                        ops.inverse_adjacency_plain(idx, 8192)):
+            assert torch.equal(a, w)
+        for c in (70, 512):
+            _scatter_held(torch.randn((4, c, 20, 8192), device=cuda), idx,
+                          8192)
 
 
 def test_coef_backward_launches_only_what_is_asked(cuda):
@@ -1027,6 +1115,7 @@ def test_coef_backward_launches_only_what_is_asked(cuda):
             if fn is ops.coef_apply_grad:
                 assert counts["coef_apply_grad"] == 1, counts
                 assert counts["scatter_rows"] == int(needs_x), counts
+                assert counts["inverse_adjacency"] == int(needs_x), counts
                 assert counts["gather_rows"] == int(needs_c), counts
             else:
                 assert sum(counts.values()) == 0, counts
@@ -1040,6 +1129,7 @@ def test_coef_backward_launches_only_what_is_asked(cuda):
     ops.gather_rows(table, idx).sum().backward()
     assert launch_counts()["gather_rows"] == 1
     assert launch_counts()["scatter_rows"] == 1
+    assert launch_counts()["inverse_adjacency"] == 1
 
 
 def _coef_step(batch, ops_, compute_dtype=None):
@@ -1068,12 +1158,14 @@ def _frob_all(ma, mb):
 @pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
 def test_coef_model_kernels_match_plain(cuda, compute_dtype):
     """A narrow coefficient-form model on the card: one train step through
-    the kernels launches 4 grad and 4 div applies and 6 scatters (the
-    positions' grad and conv0's div of it take no backward) and none of
-    the dense assembly. Against the same step with only the applies (and
-    their scatters) on the plain route: the forward is bit-equal (loss and
-    running statistics equal), and the gradients differ only by the order
-    of the atomic sums (f32: 1e-3 x each tensor's max, as chip_smoke.py's
+    the kernels launches 4 grad and 4 div applies and 6 scatters, each
+    with its inverse adjacency (the positions' grad and conv0's div of it
+    take no backward), and none of the dense assembly. Against the same
+    step with only the applies (and their scatters) on the plain route:
+    the forward is bit-equal (loss and running statistics equal), and the
+    gradients differ only by the order of the sums (``scatter_add_``'s
+    atomics against the kernel's fixed edge order; f32: 1e-3 x each
+    tensor's max, as chip_smoke.py's
     same-build step; bf16, where a one-ulp cast moves a max winner: 2e-2
     relative Frobenius over all tensors). Served, the logits of the kernel
     path and the whole plain path agree within 1e-4 (f32) or 1e-2 (bf16) x
@@ -1090,7 +1182,7 @@ def test_coef_model_kernels_match_plain(cuda, compute_dtype):
         coef_apply_div=ops.coef_apply_div_plain)
     loss_p, model_p = _coef_step(batch, plain_applies, compute_dtype)
     assert counts["coef_apply_grad"] == counts["coef_apply_div"] == 4, counts
-    assert counts["scatter_rows"] == 6, counts
+    assert counts["scatter_rows"] == counts["inverse_adjacency"] == 6, counts
     assert counts["densify"] == counts["densify_bf16"] == 0, counts
     assert loss_k == loss_p
     bufs_p = dict(model_p.named_buffers())

@@ -224,7 +224,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_max_win_bf16": 0, "gather_max_bwd_bf16": 0,
         "gather_matmul_max_win": 0, "gather_max_bf16": 0,
         "gather_mlp_max": 0, "densify_int8": 0, "gather_max_int8": 0,
-        "gather_matmul_max_int8": 0, "scatter_rows": 0,
+        "gather_matmul_max_int8": 0, "inverse_adjacency": 0,
+        "scatter_rows": 0,
         "coef_apply_grad": 0, "coef_apply_div": 0, "knn_topk_table": 0,
         "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
         "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
