@@ -54,7 +54,9 @@ from .edge_mlp import (edge_delta_mlp, edge_delta_mlp_plain, edge_mlp_bwd,
                        edge_mlp_bwd_plain, edge_mlp_fwd, edge_mlp_fwd_plain)
 from .fused_build import (fused_dense_build, fused_gather_wls,
                           fused_gather_wls_plain)
-from .gather_mlp_max import gather_mlp_max, gather_mlp_max_plain, mlp_chain
+from .gather_mlp_max import (gather_max_merge, gather_max_merge_plain,
+                             gather_mlp_max, gather_mlp_max_plain, mlp_chain,
+                             mlp_rows, mlp_rows_plain)
 from .gather_rows import (gather_rows, gather_rows_plain, inverse_adjacency,
                           inverse_adjacency_plain, scatter_rows,
                           scatter_rows_plain)
@@ -87,6 +89,7 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "gather_max_win_plain", "gather_minmax", "gather_minmax_bwd",
            "gather_minmax_bwd_plain", "gather_minmax_plain",
            "gather_minmax_win", "gather_minmax_win_plain",
+           "gather_max_merge", "gather_max_merge_plain",
            "gather_mlp_max", "gather_mlp_max_plain",
            "gather_rows", "gather_rows_plain",
            "gather_sum", "gather_sum_bwd", "gather_sum_bwd_plain",
@@ -96,7 +99,8 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
            "knn_topk_bucketed_plain", "knn_topk_plain", "knn_topk_table",
            "knn_topk_table_plain", "launch_counts",
            "library",
-           "masked_nbr_max", "mlp_chain", "reset_launch_counts",
+           "masked_nbr_max", "mlp_chain", "mlp_rows", "mlp_rows_plain",
+           "reset_launch_counts",
            "scatter_rows", "scatter_rows_plain", "wls", "wls_bwd",
            "wls_bwd_plain", "wls_plain"]
 

@@ -74,7 +74,9 @@ _KERNELS = {
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "gather_matmul_max_win": ("dc_gather_matmul_max_win",
                               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
-    "gather_mlp_max": ("dc_gather_mlp_max", [_P] * 9 + [_I] * 7),
+    "gather_mlp_max": ("dc_gather_mlp_max", [_P] * 9 + [_I] * 6),
+    "mlp_rows": ("dc_mlp_rows", [_P] * 5 + [_I, _L]),
+    "gather_max_merge": ("dc_gather_max_merge", [_P] * 6 + [_I] * 6),
     "densify_int8": ("dc_densify_int8", [_P] * 7 + [_I] * 3),
     "gather_max_int8": ("dc_gather_max_int8", [_P] * 5 + [_I] * 5),
     "gather_matmul_max_int8": ("dc_gather_matmul_max_int8",
@@ -85,8 +87,8 @@ _KERNELS = {
     "coef_apply_div": ("dc_coef_apply_div", [_P] * 4 + [_I] * 5),
     "knn_topk_table": ("dc_knn_topk_table", [_P] * 5 + [_I] * 4),
     "knn_topk_table_q": ("dc_knn_topk_table_q", [_P] * 5 + [_I] * 4),
-    "knn_topk_bucketed": ("dc_knn_topk_bucketed", [_P] * 8 + [_I] * 6),
-    "knn_topk_bucketed_q": ("dc_knn_topk_bucketed_q", [_P] * 8 + [_I] * 6),
+    "knn_topk_bucketed": ("dc_knn_topk_bucketed", [_P] * 9 + [_I] * 7),
+    "knn_topk_bucketed_q": ("dc_knn_topk_bucketed_q", [_P] * 9 + [_I] * 7),
     "edge_delta_mlp": ("dc_edge_mlp_fwd", [_P] * 6 + [_I] * 5),
     "edge_delta_mlp_bwd": ("dc_edge_mlp_bwd", [_P] * 8 + [_I] * 6),
     "gather_minmax": ("dc_gather_minmax", [_P] * 5 + [_I] * 4),
@@ -107,6 +109,9 @@ _KERNELS = {
 _BF16_EVAL = ("it is the eval form (running statistics in the "
               "epilogue); in training the layers take ops.gather_max or "
               "ops.gather_matmul_max_train, whose backward is a kernel")
+_MLP_EVAL = ("it is the eval form (forward only, as the JAX kernel); "
+             "DeepMaxMLP in training takes ops.edge_delta_mlp or the "
+             "per-point and edge-tensor routes")
 _NO_GRAD = {
     "fused_gather_wls": "the fused eval build is forward only, as the JAX "
                         "kernel; differentiate through the unfused build "
@@ -119,10 +124,9 @@ _NO_GRAD = {
     "knn_topk_bucketed_q": "kNN indices carry no gradient",
     "gather_max_affine": _BF16_EVAL,
     "gather_matmul_max": _BF16_EVAL,
-    "gather_mlp_max": "it is the eval form (forward only, as the JAX "
-                      "kernel); DeepMaxMLP in training takes "
-                      "ops.edge_delta_mlp or the per-point and edge-tensor "
-                      "routes",
+    "gather_mlp_max": _MLP_EVAL,
+    "mlp_rows": _MLP_EVAL,
+    "gather_max_merge": _MLP_EVAL,
     "gather_matmul_minmax": "it is forward only, as the JAX function (no "
                             "VJP); differentiate through ops.gather_minmax "
                             "of x @ w",

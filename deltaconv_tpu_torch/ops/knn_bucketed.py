@@ -54,9 +54,11 @@ __all__ = ["knn_topk_bucketed", "knn_topk_bucketed_plain", "last_branch",
            "morton_codes"]
 
 _BIG = 1e30
-_MAX_LIST = 32  # the kernel's per-lane list: K - 1 <= 32
+_MAX_LIST = 32  # the kernel's per-query list: K - 1 <= 32
+_MAX_TILE_Q = 256  # the kernel's threads a block: a query each
 _SMEM_BYTES = 232448  # shared memory a block can use on the H100
 _LANE_BYTES = 20  # a staged candidate lane: x, y, z, |p|^2, id
+_QUEUE_BYTES = 144  # a query's queue of passing candidates
 # Query tiles the plain sweep scores at a time (1024 rows at tile_q=64).
 _TILE_CHUNK_ROWS = 1024
 
@@ -82,11 +84,13 @@ def morton_codes(pos, mn, inv_ext):
             | (_spread3(cells[:, 2]) << 2))
 
 
-def _cand_plain(posq, sqq, srow, comb, perm, cand, ks, marker, quantized):
+def _cand_plain(posq, sqq, srow, comb, perm, cand, box, ks, marker,
+                quantized):
     """The candidate sweep's plain version, ``_TILE_CHUNK_ROWS`` query
     rows at a time: the candidate planes gathered, scored in the kernel's
     order; exact: ks sweeps (best score, lowest id, remove); quantized:
-    the packed keys' ``topk`` (unique keys)."""
+    the packed keys' ``topk`` (unique keys). ``box`` (the buckets' boxes,
+    which let the kernel skip buckets) is not needed here."""
     n_b, _, tile_c = comb.shape
     nqt, m = cand.shape
     tile_q = posq.shape[0] // nqt
@@ -143,19 +147,29 @@ def _cand_plain(posq, sqq, srow, comb, perm, cand, ks, marker, quantized):
             torch.cat(sc_out).reshape(-1, ks))
 
 
-def _cand_kernel(posq, sqq, srow, comb, perm, cand, ks, marker, quantized):
+def _cand_kernel(posq, sqq, srow, comb, perm, cand, box, ks, marker,
+                 quantized):
     """The candidate sweep's CUDA kernel (``knn_topk_bucketed`` or,
-    quantized, ``knn_topk_bucketed_q``)."""
+    quantized, ``knn_topk_bucketed_q``). ``box [n_b, 6]``: each bucket's
+    box over its valid points (min, then max; inf where it has none).
+    Buckets of ``tile_c`` columns not a multiple of 4 are padded here to
+    the kernel's 16-byte copies."""
     n_b, _, tile_c = comb.shape
     nqt, m = cand.shape
     nqp = posq.shape[0]
     if not 0 < ks <= _MAX_LIST:
         raise ValueError(f"knn_topk_bucketed: the kernel takes k - 1 <= "
                          f"{_MAX_LIST}, got k={ks + 1}")
-    if m * tile_c * _LANE_BYTES > _SMEM_BYTES:
-        raise ValueError(f"knn_topk_bucketed: m_tiles * tile_c = "
-                         f"{m * tile_c} candidate lanes exceed the kernel's "
-                         f"shared memory ({_SMEM_BYTES // _LANE_BYTES})")
+    if nqp // nqt > _MAX_TILE_Q:
+        raise ValueError(f"knn_topk_bucketed: the kernel takes tile_q <= "
+                         f"{_MAX_TILE_Q} (a thread a query), got "
+                         f"{nqp // nqt}")
+    ldc = -(-tile_c // 4) * 4
+    max_c = (_SMEM_BYTES - 64 - _QUEUE_BYTES * _MAX_TILE_Q) // _LANE_BYTES
+    if ldc > max_c:
+        raise ValueError(f"knn_topk_bucketed: a bucket of tile_c={tile_c} "
+                         f"columns exceeds the kernel's shared memory "
+                         f"({max_c} columns)")
     name = "knn_topk_bucketed_q" if quantized else "knn_topk_bucketed"
     device = _lib.check_inputs(name, [
         ("posq", posq, torch.float32, (nqp, 3)),
@@ -164,13 +178,19 @@ def _cand_kernel(posq, sqq, srow, comb, perm, cand, ks, marker, quantized):
         ("comb", comb, torch.float32, (n_b, 4, tile_c)),
         ("perm", perm, torch.int32, (n_b * tile_c,)),
         ("cand", cand, torch.int32, (nqt, m)),
+        ("box", box, torch.float32, (n_b, 6)),
     ])
+    if ldc != tile_c:
+        comb = torch.nn.functional.pad(comb, (0, ldc - tile_c))
+        perm = torch.nn.functional.pad(perm.view(n_b, tile_c),
+                                       (0, ldc - tile_c)).reshape(-1)
     idx = torch.empty((nqp, ks), dtype=torch.int32, device=device)
     sc = torch.empty((nqp, ks), dtype=torch.float32, device=device)
     _lib.launch(name, device, posq.data_ptr(), sqq.data_ptr(),
                 srow.data_ptr(), comb.data_ptr(), perm.data_ptr(),
-                cand.data_ptr(), idx.data_ptr(), sc.data_ptr(), nqt,
-                nqp // nqt, tile_c, m, ks, marker)
+                cand.data_ptr(), box.data_ptr(), idx.data_ptr(),
+                sc.data_ptr(), nqt,
+                nqp // nqt, tile_c, ldc, m, ks, marker)
     return idx, sc
 
 
@@ -251,8 +271,9 @@ def _bucketed(pos_q, pos_t, k, row_offset, point_mask, tile_q, tile_c,
     sq_s = torch.where(valid_s, _sq(*pos_s.unbind(-1)), 4.0e30)
     comb = (torch.cat([pos_s, sq_s[:, None]], dim=1).view(n_b, tile_c, 4)
             .transpose(1, 2).contiguous())  # [n_b, 4, tile_c]
+    box = torch.cat([tmin, tmax], dim=1).contiguous()  # [n_b, 6]
     idx_s, sc_s = sweep(posq_s, sqq, srow, comb, perm,
-                        cand.to(torch.int32).contiguous(), ks, n_tp,
+                        cand.to(torch.int32).contiguous(), box, ks, n_tp,
                         quantized)
 
     # --- Un-sort, prepend self ---------------------------------------

@@ -737,25 +737,39 @@ def _mlp_case(rng, widths, n, dev, exact=False):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("widths,centralized", [
-    ((3, 64, 64), True), ((128, 256, 256), False), ((24, 40, 16, 8), False)],
-    ids=["conv0", "conv2", "three-layers"])
+    ((3, 64, 64), True), ((128, 256, 256), False), ((24, 40, 16, 8), False),
+    ((5, 24), True), ((24, 40, 16, 8), True), ((12, 136), False),
+    ((3, 64, 72), True), ((3, 200, 200), True)],
+    ids=["conv0", "conv2", "three-layers", "centralized-one-layer",
+         "centralized-three-layers", "one-layer", "centralized-two-rounds",
+         "centralized-wide"])
 def test_gather_mlp_max_kernel(cuda, widths, centralized, masked):
-    """At the segmentation convs' widths (and a 3-layer MLP of widths
-    that are not multiples of 16): the best values equal to the plain
-    version's on >= 99% of the elements and within 1e-2 x max on all
-    (the tensor cores sum in another order, and a one-ulp product
-    carries through the next layer); bit-equal on two-layer inputs whose
-    sums are exact in any order; the self slot and the epilogue
-    bit-equal to their replay on the kernel's own best values."""
+    """At the segmentation convs' widths, and at depths 1 and 3 with
+    widths that are not multiples of 16 (a centralized last layer wider
+    than one register round of 64 columns, and one whose packed weights,
+    93 KB, are read from L2 instead of shared memory): the best values equal
+    to the plain version's on >= 99% of the elements and within 1e-2 x
+    max on all (the tensor cores sum in another order, and a one-ulp
+    product carries through the next layer); bit-equal on two-layer
+    inputs whose sums are exact in any order; the self slot and the
+    epilogue bit-equal to their replay on the kernel's own best values.
+    B N = 300 is not a multiple of a warp's 16 points or 32 rows; the
+    masked graph has rows with no valid slot. Centralized calls run the
+    fused kernel, the others ``mlp_rows`` and ``gather_max_merge``."""
     rng = np.random.default_rng(20)
     n, k = 150, 9
     pos, _ = _cloud_batch(rng, 2, n, cuda)
     idx, mask = _graph(pos, k, masked)
     x, ws, affines, epi = _mlp_case(rng, widths, n, cuda)
     args = (x, ws, affines, idx, mask, centralized)
+    reset_launch_counts()
     raw = ops.gather_mlp_max(*args, False)
+    counts = launch_counts()
     raw_p = ops.gather_mlp_max_plain(*args, False)
     torch.cuda.synchronize()
+    assert counts["gather_mlp_max"] == int(centralized)
+    assert counts["mlp_rows"] == counts["gather_max_merge"] == int(
+        not centralized)
     live = raw_p > NEG / 2  # rows with a valid slot
     assert torch.equal(raw > NEG / 2, live)
     assert float((raw != raw_p).float().mean()) <= 0.01
@@ -785,12 +799,77 @@ def test_gather_mlp_max_kernel(cuda, widths, centralized, masked):
         assert torch.equal(got.float(), want.float())
 
 
+@pytest.mark.parametrize("widths", [(24, 40), (128, 256, 256),
+                                    (24, 40, 16, 8), (3, 64, 64)],
+                         ids=["one-layer", "conv2", "three-layers", "conv0"])
+def test_mlp_rows_kernel(cuda, widths):
+    """The MLP of every row (300 rows: not a multiple of a warp's 32)
+    against the plain chain: equal on >= 99% of the outputs and within
+    1e-2 x max on all (the tensor cores' sum order, carried through the
+    next layer); bit-equal on inputs whose sums are exact in any
+    order."""
+    rng = np.random.default_rng(22)
+    x, ws, affines, _ = _mlp_case(rng, widths, 150, cuda)
+    reset_launch_counts()
+    got = ops.mlp_rows(x, ws, affines)
+    assert launch_counts()["mlp_rows"] == 1
+    want = ops.mlp_rows_plain(x, ws, affines)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert float((got != want).float().mean()) <= 0.01
+    _close_to_max(got.float(), want.float(), 1e-2)
+    if len(widths) == 3:
+        xe, we, ae, _ = _mlp_case(rng, widths, 150, cuda, exact=True)
+        assert _bits(ops.mlp_rows(xe, we, ae)).equal(
+            _bits(ops.mlp_rows_plain(xe, we, ae)))
+
+
+@pytest.mark.parametrize("c", [24, 64, 256, 520])
+@pytest.mark.parametrize("k0,z0_kind,epilogue", [
+    (0, None, False), (1, None, False), (1, "row", False), (1, "rows", True),
+    (0, "rows", False), (1, "row", True), (1, "bf16-rows", True)])
+def test_gather_max_merge_kernel_exact(cuda, c, k0, z0_kind, epilogue):
+    """The masked max of bf16 rows with the self slot and the epilogue:
+    bit-equal to the plain version, covered slots from k0 = 0 or 1, z0
+    none, a [C] f32 row or [B, N, C] bf16 rows, with and without the
+    epilogue; C = 24 (padded to 8s), 64 (4 points a warp), 256 (a warp a
+    point), 520 (two passes of 256 channels); a masked graph with rows
+    that have no valid slot, B N = 300. The self rows come in f32 (the
+    kernel rounds them to bf16) or bf16."""
+    rng = np.random.default_rng(23)
+    n, k = 150, 9
+    pos, _ = _cloud_batch(rng, 2, n, cuda)
+    idx, mask = _graph(pos, k, True)
+    mask[1, :7, 0] = False  # rows whose self slot is masked
+    rows = torch.randn((2, n, c), device=cuda).to(torch.bfloat16)
+    z0 = {None: None, "row": torch.randn(c, device=cuda),
+          "rows": torch.randn((2, n, c), device=cuda),
+          "bf16-rows": torch.randn((2, n, c), device=cuda).to(
+              torch.bfloat16)}[z0_kind]
+    epi = None
+    if epilogue:
+        inv = torch.randn(c, device=cuda)
+        epi = (torch.where(inv >= 0, 1.0, -1.0), inv,
+               torch.randn(c, device=cuda) * 0.2,
+               torch.randn(c, device=cuda) * 0.2)
+    reset_launch_counts()
+    got = ops.gather_max_merge(rows, idx, mask, k0, z0, epi)
+    assert launch_counts()["gather_max_merge"] == 1
+    want = ops.gather_max_merge_plain(rows, idx, mask, k0, z0, epi)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == (2, n, c)
+    assert _bits(got).equal(_bits(want)) if epilogue else torch.equal(
+        got, want)
+    if not epilogue and z0 is None:
+        assert bool((got[0, n // 2:] == NEG).all())
+
+
 def test_seg_model_kernels_match_plain(cuda):
     """A narrow segmentation model with categories served in f32 and at
     the production config through the kernels and through the plain
     versions on the card, uniform and ragged; every kernel of the bf16
-    path is launched, gather_mlp_max twice a forward (first and last
-    conv)."""
+    path is launched: gather_mlp_max once a forward (the centralized first
+    conv), mlp_rows and gather_max_merge once (the last)."""
     rng = np.random.default_rng(21)
     model = DeltaNetSegmentation(
         6, conv_channels=(8, 16, 136), embedding_size=32, num_neighbors=8,
@@ -815,7 +894,9 @@ def test_seg_model_kernels_match_plain(cuda):
             np.testing.assert_allclose(got, want,
                                        atol=rel * float(np.abs(want).max()))
             if precision:
-                assert counts["gather_mlp_max"] == 2 * 2  # 2 batches
+                for name in ("gather_mlp_max", "mlp_rows",
+                             "gather_max_merge"):
+                    assert counts[name] == 2  # 2 batches
                 assert counts["gather_max_bf16"] > 0
 
 
@@ -1316,6 +1397,93 @@ def test_knn_bucketed_kernel_starved_rows(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, ops.knn_topk_bucketed_plain(*args, **kw))
         assert bool((got[:, 6:] >= 512).all())
+
+
+def _bucketed_case(case, dev):
+    """``(pos_q, pos_t, k, row_offset, point_mask, keywords)`` of a hard
+    case of the candidate sweep."""
+    rng = np.random.default_rng(66)
+    if case == "ties":  # 8 distinct positions: every score ties 375 ways
+        pos = _surface(rng, 8, dev).repeat(375, 1)
+        return pos, pos, 20, 0, None, {}
+    if case == "k33":  # K - 1 = 32, the list's capacity
+        pos = _surface(rng, 3000, dev)
+        # Every bucket visited: no exactness certificate, so no repair by
+        # the table kNN (which takes K <= 32).
+        return pos, pos, 33, 0, None, dict(m_tiles=16)
+    if case == "starved":  # 20 valid points for K - 1 = 32
+        pos = _surface(rng, 3000, dev)
+        pm = torch.zeros(3000, dtype=torch.bool, device=dev)
+        pm[torch.randperm(3000, device=dev)[:20]] = True
+        return pos, pos, 33, 0, pm, dict(m_tiles=16)
+    if case == "one-bucket":  # clusters of 24: winners in the home bucket
+        centres = _surface(rng, 125, dev) * 10.0
+        offs = torch.from_numpy(rng.standard_normal((125, 24, 3)).astype(
+            np.float32)).to(dev) * 1e-3
+        pos = (centres[:, None] + offs).reshape(-1, 3)
+        return pos, pos, 20, 0, None, dict(m_tiles=4)
+    if case == "coarse":  # a 6^3 grid: many equal quantized keys
+        pos = torch.from_numpy(rng.integers(0, 6, (4000, 3)).astype(
+            np.float32)).to(dev)
+        return pos, pos, 20, 0, None, dict(m_tiles=4)
+    # "lane-limit": m * tile_c = 255 * 257 = 65,535 lanes, the quantized
+    # key's limit, in buckets of 257 columns (padded to 260 for the copies)
+    pos = _surface(rng, 65600, dev)
+    return (pos[1000:3048], pos, 20, 1000, None,
+            dict(m_tiles=255, tile_c=257))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("case", ["ties", "k33", "starved", "one-bucket",
+                                  "coarse", "lane-limit"])
+def test_knn_bucketed_kernel_cases(cuda, case, quantized):
+    """The candidate sweep on its hard cases: duplicate points (every
+    score ties: lowest id, or lowest lane, first), K = 33 (K - 1 = 32),
+    rows with fewer valid candidates than K - 1 (marker fillers), rows
+    whose winners all lie in one bucket, equal quantized keys, and m x
+    tile_c = 65,535 candidate lanes in buckets of a width that is not a
+    multiple of 4: ids equal to the plain version's, and two calls give
+    the same bits."""
+    pos_q, pos_t, k, off, pm, kw = _bucketed_case(case, cuda)
+    args = (pos_q, pos_t, k, off, pm)
+    kw = dict(kw, quantized=quantized)
+    got = ops.knn_topk_bucketed(*args, **kw)
+    again = ops.knn_topk_bucketed(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, ops.knn_topk_bucketed_plain(*args, **kw))
+    if case == "starved":
+        assert bool((got[pm[off:off + len(pos_q)]][:, 20:]
+                     >= len(pos_t)).all())
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("cloud", ["uniform", "masked", "shifted", "ties"])
+def test_knn_bucketed_sweep_exact(cuda, cloud, quantized):
+    """The candidate sweep alone on the inputs the bucketed kNN gives it:
+    ids and scores bit-equal to its plain version (the kernel skips
+    buckets by their boxes; a cloud 100 units from the origin stretches
+    the rounding margin of that test, and duplicate points tie)."""
+    from deltaconv_tpu_torch.ops import knn_bucketed as kb
+
+    rng = np.random.default_rng(67)
+    n = 20000
+    pos = _surface(rng, n, cuda, 100.0 if cloud == "shifted" else 0.0)
+    if cloud == "ties":
+        pos = pos[:2500].repeat(8, 1)
+    pm = (torch.rand(n, device=cuda) > 0.1) if cloud == "masked" else None
+    captured = {}
+
+    def spy(*args):
+        captured["args"] = args
+        return kb._cand_kernel(*args)
+
+    kb._bucketed(pos, pos, 20, 0, pm, 64, 256, 24 if quantized else 32,
+                 quantized, 512, spy, ops.knn_topk_table)
+    got = kb._cand_kernel(*captured["args"])
+    want = kb._cand_plain(*captured["args"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("precision", [None, "bfloat16"])

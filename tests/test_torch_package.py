@@ -105,6 +105,13 @@ def test_cpu_tensors_take_the_plain_versions():
         ops.gather_mlp_max(hb, *mlp, idx, mask, True, True, z0, epi),
         ops.gather_mlp_max_plain(hb, *mlp, idx, mask, True, True, z0, epi),
         rtol=0, atol=0)
+    torch.testing.assert_close(ops.mlp_rows(hb, *mlp),
+                               ops.mlp_rows_plain(hb, *mlp), rtol=0, atol=0)
+    rows = torch.randn((2, 32, 7)).to(torch.bfloat16)
+    torch.testing.assert_close(
+        ops.gather_max_merge(rows, idx, mask, 1, rows, epi),
+        ops.gather_max_merge_plain(rows, idx, mask, 1, rows, epi),
+        rtol=0, atol=0)
     gb = torch.randn((2, 32, 7)).to(torch.bfloat16)
     out, win = ops.gather_matmul_max_win(hb, w, idx, mask)
     torch.testing.assert_close(
@@ -223,7 +230,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "knn_topk": 0, "gather_max_affine": 0, "gather_matmul_max": 0,
         "gather_max_win_bf16": 0, "gather_max_bwd_bf16": 0,
         "gather_matmul_max_win": 0, "gather_max_bf16": 0,
-        "gather_mlp_max": 0, "densify_int8": 0, "gather_max_int8": 0,
+        "gather_mlp_max": 0, "mlp_rows": 0, "gather_max_merge": 0,
+        "densify_int8": 0, "gather_max_int8": 0,
         "gather_matmul_max_int8": 0, "inverse_adjacency": 0,
         "scatter_rows": 0,
         "coef_apply_grad": 0, "coef_apply_div": 0, "knn_topk_table": 0,
@@ -313,6 +321,13 @@ def test_kernels_refuse_other_devices():
         ops.gather_max(hb, im, mm)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.gather_mlp_max(hb, [torch.zeros(5, 7, device=meta)], [], im, mm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_mlp_max(hb, [torch.zeros(5, 7, device=meta)], [], im, mm,
+                           True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.mlp_rows(hb, [torch.zeros(5, 7, device=meta)], [])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.gather_max_merge(hb, im, mm, 1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.densify_coefs_int8(im, torch.zeros(2, 32, 6, 2, device=meta),
                                torch.zeros(2, 32, 6, 2, device=meta))

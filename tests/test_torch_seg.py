@@ -7,10 +7,13 @@ through the package's test hook (``_FORCE_FUSED_INTERPRET``), which
 routes their eval branches as on the TPU, as the port does on every
 device.
 
-- ``gather_mlp_max``'s plain version against the JAX function: the best
-  values bit-equal on >= 99% of the elements and never more than 2 bf16
-  ulps apart (the two sum each product in another order, so a rounded
-  product may differ by one ulp and carry through the next layer);
+- ``gather_mlp_max``'s plain version, and the plain versions of the
+  two-phase route its CUDA wrapper takes without centralization
+  (``mlp_rows`` then ``gather_max_merge``), against the JAX function:
+  the best values bit-equal on >= 99% of the elements and never more
+  than 2 bf16 ulps apart (the two sum each product in another order, so
+  a rounded product may differ by one ulp and carry through the next
+  layer);
   outputs with the epilogue within 1e-2 x max (XLA's CPU compiler also
   contracts the affine into an FMA).
 - ``DeepMaxMLP`` and ``DeltaConv(depth=2)``: f32 within 1e-5 (module)
@@ -161,16 +164,29 @@ def _close_bf16(got, want):
 # -- the kernel's plain version -------------------------------------------
 
 
-@pytest.mark.parametrize("centralized,widths,z0_kind,epilogue,skip_slot0", [
-    (True, (12, 24, 32), "const", True, True),
-    (False, (12, 24, 32), "rows", True, True),
-    (False, (12, 24, 32), None, False, False),
-    (True, (16, 24, 40, 32), None, False, True),
-    (False, (16, 24, 40, 32), "rows", True, True),
-], ids=["centralized-const-z0", "rows-z0", "no-z0-every-slot",
-        "centralized-3-layers", "rows-z0-3-layers"])
+@pytest.mark.parametrize(
+    "centralized,widths,z0_kind,epilogue,skip_slot0,two_phase", [
+        (True, (12, 24, 32), "const", True, True, False),
+        (False, (12, 24, 32), "rows", True, True, False),
+        (False, (12, 24, 32), None, False, False, False),
+        (True, (16, 24, 40, 32), None, False, True, False),
+        (False, (16, 24, 40, 32), "rows", True, True, False),
+        (False, (12, 24, 32), "rows", True, True, True),
+        (False, (12, 24, 32), None, False, False, True),
+        (False, (12, 24, 32), None, False, True, True),
+        (False, (16, 24, 40, 32), "rows", True, True, True),
+        (False, (12, 32), "rows", False, True, True),
+    ], ids=["centralized-const-z0", "rows-z0", "no-z0-every-slot",
+            "centralized-3-layers", "rows-z0-3-layers",
+            "two-phase-rows-z0", "two-phase-every-slot",
+            "two-phase-skip-slot0", "two-phase-3-layers",
+            "two-phase-1-layer"])
 def test_gather_mlp_max_plain_matches_jax(centralized, widths, z0_kind,
-                                          epilogue, skip_slot0):
+                                          epilogue, skip_slot0, two_phase):
+    """``two_phase``: the route the CUDA wrapper takes when the MLP is not
+    centralized, the MLP once a point (``mlp_rows``) and then the masked
+    max of those rows (``gather_max_merge``), through their plain
+    versions."""
     rng = np.random.default_rng(30)
     c_in, c_out = widths[0], widths[-1]
     x = _bf16(rng.standard_normal((B, N, c_in)))
@@ -204,11 +220,16 @@ def test_gather_mlp_max_plain_matches_jax(centralized, widths, z0_kind,
         z0=None if z0 is None else jnp.asarray(z0),
         epilogue=None if epi is None else tuple(
             jnp.asarray(v) for v in epi)))(x, idx, mask), np.float32)
-    got = ops.gather_mlp_max(
-        _t(x).to(torch.bfloat16), [_t(w) for w in ws],
-        [tuple(_t(v) for v in ab) for ab in affines], _t(idx), _t(mask),
-        centralized, skip_slot0, None if z0 is None else _t(z0),
-        None if epi is None else tuple(_t(v) for v in epi))
+    args = (_t(x).to(torch.bfloat16), [_t(w) for w in ws],
+            [tuple(_t(v) for v in ab) for ab in affines])
+    z0_t = None if z0 is None else _t(z0)
+    epi_t = None if epi is None else tuple(_t(v) for v in epi)
+    if two_phase:
+        got = ops.gather_max_merge(ops.mlp_rows(*args), _t(idx), _t(mask),
+                                   1 if skip_slot0 else 0, z0_t, epi_t)
+    else:
+        got = ops.gather_mlp_max(*args, _t(idx), _t(mask), centralized,
+                                 skip_slot0, z0_t, epi_t)
     assert got.shape == (B, N, c_out)
     if epilogue:
         assert got.dtype == torch.bfloat16
@@ -221,6 +242,36 @@ def test_gather_mlp_max_plain_matches_jax(centralized, widths, z0_kind,
           f"{int(ulps.max())} bf16 ulps")
     assert float((ulps == 0).mean()) >= 0.99 and int(ulps.max()) <= 2
     assert (got[1, 90:] == NEG).all()
+
+
+def test_mlp_weights_packed_as_mma_fragments():
+    """The CUDA kernels read each weight as packed by ``_pack_b``: lane
+    ``(g, t)`` of k-step ``s`` and column pair ``p`` holds the
+    ``mma.m16n8k16`` B fragments of the pair's two n-tiles (``W[16s + 2t
+    + {0, 1}]`` and ``W[16s + 8 + 2t + {0, 1}]`` at columns ``16p + g``
+    and ``16p + 8 + g``); replaying that map recovers the zero-padded
+    bf16 weight."""
+    from deltaconv_tpu_torch.ops.gather_mlp_max import _pack_b
+
+    rng = np.random.default_rng(31)
+    w = torch.from_numpy(rng.standard_normal((20, 40)).astype(np.float32))
+    rows, cols = 32, 48
+    packed = _pack_b(w, rows, cols,
+                     torch.empty(rows * cols, dtype=torch.bfloat16))
+    packed = packed.view(rows // 16, cols // 16, 32, 8)
+    want = torch.zeros((rows, cols))
+    want[:20, :40] = w.to(torch.bfloat16).float()
+    got = torch.full((rows, cols), float("nan"))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for j in range(2):
+            for h in range(2):
+                for e in range(2):
+                    k = torch.arange(rows // 16)[:, None] * 16 + 8 * h \
+                        + 2 * t + e
+                    n = torch.arange(cols // 16)[None, :] * 16 + 8 * j + g
+                    got[k, n] = packed[:, :, lane, 4 * j + 2 * h + e].float()
+    assert torch.equal(got, want)
 
 
 def test_gather_mlp_max_checks_its_arguments():
