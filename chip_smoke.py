@@ -8,13 +8,17 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the forty-four CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the forty-five CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
    at C = 64 and 128 and 128 -> 256, the bf16 train maxes at C = 64 and
    128, their backward also at 256, the train matmul max at 128 -> 256;
-   knn_topk also at N=4096; segmentation serving's kernels at B=16,
+   knn_topk also at N=4096, and at the three model shapes (B, N, K) =
+   (32, 1024, 20), (16, 2048, 30), (4, 8192, 20), packed and exact, with
+   and without the mean distances, on surface clouds and a tie-heavy
+   grid, bit-equal, and its rounds route (``knn_topk_rounds``, K=80);
+   segmentation serving's kernels at B=16,
    N=2048, K=30: the bf16 max without winners at C=128, gather_mlp_max
    at conv0, 3 -> 64 -> 64 (the fused kernel), and conv2, 128 -> 256 ->
    256 (mlp_rows, then gather_max_merge, each also held alone); int8
@@ -175,8 +179,11 @@ first on ``sys.path``. It
 16. ``[serve-shard-seg-f32]`` and ``[serve-shard-seg-bf16]``: the
     ShapeNet model in coefficient form on one 8192-point cloud with a
     category (the table kNN once a forward): f32 within 1e-4 x
-    max|logit| of ``InferenceEngine.predict``, bf16 within 0.01 of the
-    plain path;
+    max|logit| of the unsharded forward on the same neighbour graph, on
+    6 clouds, the table kNN's winner sets equal to ``matmul`` + ``topk``'s
+    but at near-ties, the deviation from ``InferenceEngine.predict``
+    printed; bf16 within 0.01 of the plain path; the device time of one
+    call;
 17. ``[shard-nccl]``: one bench forward through an initialised 1-rank
     ``nccl`` group (a FileStore in a temporary directory), bit-equal to
     ``group=None``;
@@ -248,7 +255,11 @@ first on ``sys.path``. It
     of gather_minmax a call without grad, of gather_minmax_win and
     gather_minmax_bwd each with grad, of gather_matmul_minmax a matmul
     call (the _bf16 bodies for bf16); then the sharded forms
-    (``ShardedGradDiv``) on a 1-rank ``nccl`` group against the hooks.
+    (``ShardedGradDiv``) on a 1-rank ``nccl`` group against the hooks;
+26. ``[knn-rounds]``: ``geometry.knn`` with 80 neighbours (more than the
+    selection kernel's 64) on 4 clouds of 1024 points: one launch of
+    ``knn_topk_rounds`` and none of ``knn_topk``, ids equal to the plain
+    version.
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -280,7 +291,14 @@ BF16_WIDTHS = (64, 128)  # gather_max_affine: conv0/conv1, conv2
 MM_IN, MM_OUT = 128, 256  # gather_matmul_max: conv3
 TRAIN_BF16_WIDTHS = (64, 128)  # gather_max_win_bf16: conv0/conv1, conv2
 BWD_BF16_WIDTHS = (64, 128, 256)  # gather_max_bwd_bf16, conv3 included
-KNN_BIG_N = 4096  # knn_topk beyond the register path
+KNN_BIG_N = 8200  # knn_topk just above its 8192-point staging tile
+# knn_topk at the model shapes (B, N, K): classification, segmentation,
+# large clouds; the larger ones timed over fewer samples (the plain exact
+# version sweeps a [4, 8192, 8192] score plane K times).
+KNN_SHAPES = ((32, 1024, 20), (16, 2048, 30), (4, 8192, 20))
+KNN_BIG_REPS = 5
+KNN_ROUNDS_K = 80  # above the selection kernel's 64: knn_topk_rounds
+KNN_ROUNDS_SHAPES = ((4, 1024), (1, 1500))  # (B, N) of its checks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, an FMA as 2
 BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
@@ -380,7 +398,8 @@ SHARD_MASK_FRAC = 0.1  # masked share of the masked clouds
 SHARD_CALLS = 3  # timed forwards
 SHARD_REPS = 5  # CUDA-event samples of the point-shard kernels
 SHARD_TIE_REL = 1e-6  # x (1 + |q|^2): near-tie K-th scores
-SHARD_SEG_REL = 1e-4  # f32 sharded vs predict, x max|logit|
+SHARD_SEG_REL = 1e-4  # f32 sharded vs unsharded on one graph, x max|logit|
+SHARD_SEG_CLOUDS = 6  # clouds of that check
 # The exact sweeps' work per (query, column) pair: the score (mul, 2 fma,
 # mul, 2 sub) and one compare-select; the quantized ones do
 # KNN_INSTR_PER_PAIR.
@@ -518,6 +537,8 @@ KERNEL_META = {
                          "deltaconv_tpu/ops/fused_build.py:180"),
     "knn_topk_mean_dist": ("deltaconv_tpu_torch/csrc/knn_topk.cu",
                            "deltaconv_tpu/ops/knn_topk.py:391"),
+    "knn_topk_rounds": ("deltaconv_tpu_torch/csrc/knn_topk.cu",
+                        "deltaconv_tpu/ops/knn_topk.py:391"),
     "gather_minmax": ("deltaconv_tpu_torch/csrc/gather_max.cu",
                       "deltaconv_tpu/ops/gather_max.py:474"),
     "gather_minmax_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
@@ -1880,17 +1901,19 @@ def kernel_phase(rng, dev, card):
         }
         for name, (fk, fp) in per_width.items():
             km, pl = median_ms(fk), median_ms(fp)
-            print(f"  {name} C={c}: kernel {km:.4f} ms, plain {pl:.4f} ms")
+            outs = {
+                "gather_max": (h, idx, nbr_mask, h),
+                "gather_max_win": (h, idx, nbr_mask, h, win),
+                "gather_max_bwd": (idx, win, g, h),
+                "gather_sum": (h, idx, nbr_mask, h),
+                "gather_sum_bwd": (idx, nbr_mask, g, h),
+            }[name]  # inputs, then an output-sized tensor
+            bd = bound(nbytes(*outs))
+            print(f"  {name} C={c}: kernel {km:.4f} ms, plain {pl:.4f} ms, "
+                  f"bound {bd[0]:.4f} ms ({bd[1]})")
             if c == RECORD_WIDTH[name]:
                 res[name]["ms"], res[name]["plain_ms"] = km, pl
-                outs = {
-                    "gather_max": (h, idx, nbr_mask, h),
-                    "gather_max_win": (h, idx, nbr_mask, h, win),
-                    "gather_max_bwd": (idx, win, g, h),
-                    "gather_sum": (h, idx, nbr_mask, h),
-                    "gather_sum_bwd": (idx, nbr_mask, g, h),
-                }[name]  # inputs, then an output-sized tensor
-                res[name]["bound"] = bound(nbytes(*outs))
+                res[name]["bound"] = bd
     # The bf16 bodies of the train step's neighbour max and its backward.
     for c in BWD_BF16_WIDTHS:
         h = torch.randn((B, N, c), device=dev).to(torch.bfloat16)
@@ -1918,6 +1941,7 @@ def kernel_phase(rng, dev, card):
     time_seg_kernels(res, *seg_cases["uniform"][:2], dev, card)
     time_edge_mlp_kernels(res, seg_cases["uniform"][0], dev, card)
     del seg_cases, cases
+    knn_kernel_phase(res, rng, dev, card)
     coef_kernel_phase(res, rng, dev, card)
     shard_kernel_phase(res, rng, card)
     build_bwd_kernel_phase(res, rng, dev, card)
@@ -2947,6 +2971,142 @@ def time_coef_kernels(res, idx, gd, dev, card):
           f"these shapes)")
 
 
+def grid_clouds(rng, b, n, dev):
+    """``[b, n, 3]`` points of a coarse 9^3 grid (steps of 0.25) with many
+    duplicates: equal scores and equal quantized keys abound."""
+    return torch.from_numpy((rng.integers(-4, 5, (b, n, 3)) * 0.25).astype(
+        np.float32)).to(dev)
+
+
+def knn_kernel_phase(res, rng, dev, card):
+    """``[kernels]`` knn_topk at the model shapes (KNN_SHAPES), packed and
+    exact, with and without the mean distances, on ellipsoid clouds and on
+    a tie-heavy grid: ids and distances bit-equal to the plain versions;
+    knn_topk_rounds (K = KNN_ROUNDS_K) at KNN_ROUNDS_SHAPES, the same way.
+    Then each shape's times: kernel, plain version, the library
+    composition (``matmul`` + ``topk``) and the bound (the work the
+    function needs: KNN_INSTR_PER_PAIR issue slots a pair packed,
+    TABLE_INSTR exact); knn_topk_rounds' record at B=4, N=1024. Its clouds
+    come from a generator spawned off ``rng``, which leaves ``rng``'s
+    draws, and so every other phase's data, as they were."""
+    from deltaconv_tpu_torch import ops
+
+    rng = rng.spawn(1)[0]
+
+    def record(name, err):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+
+    def held(name, label, pos, k, quantized):
+        got = ops.knn_topk(pos, k, quantized)
+        idx, md = ops.knn_topk(pos, k, quantized, return_mean_dist=True)
+        want = ops.knn_topk_plain(pos, k, quantized)
+        _, md_p = ops.knn_topk_plain(pos, k, quantized, True)
+        record(name, max_err(got.float(), want.float()))
+        record("knn_topk_mean_dist" if name == "knn_topk" else name,
+               max_err(md, md_p))
+        body = "packed" if quantized else "exact"
+        check(f"{name} {label} {body}",
+              torch.equal(got, want) and torch.equal(idx, want)
+              and torch.equal(md, md_p),
+              f"{int((got != want).sum())} ids differ, mean distances "
+              f"bit-equal {torch.equal(md, md_p)}")
+
+    for b, n, k in KNN_SHAPES:
+        print(f"[kernels] knn_topk B={b} N={n} K={k}", flush=True)
+        clouds, _ = ellipsoid_clouds(rng, [n] * b)
+        for label, pos in (
+                ("ellipsoids", torch.from_numpy(np.stack(clouds)).to(dev)),
+                ("grid", grid_clouds(rng, b, n, dev))):
+            for quantized in (True, False):
+                held("knn_topk", f"B={b} N={n} K={k} {label}", pos, k,
+                     quantized)
+    for b, n in KNN_ROUNDS_SHAPES:
+        print(f"[kernels] knn_topk_rounds B={b} N={n} K={KNN_ROUNDS_K}",
+              flush=True)
+        gauss = torch.from_numpy(rng.standard_normal((b, n, 3)).astype(
+            np.float32)).to(dev)
+        for label, pos in (("gaussian", gauss),
+                           ("grid", grid_clouds(rng, b, n, dev))):
+            for quantized in (True, False):
+                held("knn_topk_rounds", f"B={b} N={n} K={KNN_ROUNDS_K} "
+                     f"{label}", pos, KNN_ROUNDS_K, quantized)
+    torch.cuda.synchronize()
+
+    print(f"[times] knn_topk per call, median of CUDA-event samples of "
+          f"{INNER} calls ({REPS} at N={N}, {KNN_BIG_REPS} above), card: "
+          f"{card}")
+    for b, n, k in KNN_SHAPES:
+        clouds, _ = ellipsoid_clouds(rng, [n] * b)
+        pos = torch.from_numpy(np.stack(clouds)).to(dev)
+        reps = REPS if n <= N else KNN_BIG_REPS
+        lib = median_ms(lambda: torch.topk(
+            2.0 * torch.matmul(pos, pos.transpose(1, 2))
+            - (pos * pos).sum(-1)[:, None, :], k, dim=-1), reps)
+        for quantized in (True, False):
+            for md in (False, True):
+                out = ops.knn_topk(pos, k, quantized, md)
+                km = median_ms(lambda: ops.knn_topk(pos, k, quantized, md),
+                               reps)
+                pl = median_ms(lambda: ops.knn_topk_plain(pos, k, quantized,
+                                                          md), reps)
+                bd = bound(nbytes(pos, *(out if md else (out,))),
+                           float(b) * n * n * (KNN_INSTR_PER_PAIR if quantized
+                                               else TABLE_INSTR),
+                           ISSUE_PER_S)
+                body = "packed" if quantized else "exact"
+                print(f"  knn_topk B={b} N={n} K={k} {body}"
+                      f"{' mean_dist' if md else ''}: kernel {km:.4f} ms, "
+                      f"plain {pl:.4f} ms, library (matmul + topk) "
+                      f"{lib:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), kernel "
+                      f"at {bd[0] / km:.3f} of it", flush=True)
+        del pos
+    b, n = KNN_ROUNDS_SHAPES[0]
+    pos = torch.from_numpy(np.stack(ellipsoid_clouds(rng, [n] * b)[0])).to(
+        dev)
+    r = res["knn_topk_rounds"]
+    r["ms"] = median_ms(lambda: ops.knn_topk(pos, KNN_ROUNDS_K, True))
+    r["plain_ms"] = median_ms(lambda: ops.knn_topk_plain(pos, KNN_ROUNDS_K,
+                                                         True))
+    r["library_ms"] = median_ms(lambda: torch.topk(
+        2.0 * torch.matmul(pos, pos.transpose(1, 2))
+        - (pos * pos).sum(-1)[:, None, :], KNN_ROUNDS_K, dim=-1))
+    r["bound"] = bound(nbytes(pos, ops.knn_topk(pos, KNN_ROUNDS_K, True)),
+                       float(b) * n * n * KNN_INSTR_PER_PAIR, ISSUE_PER_S)
+    print(f"  knn_topk_rounds B={b} N={n} K={KNN_ROUNDS_K} packed: kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+          f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]})", flush=True)
+
+
+def knn_rounds_phase(rng, dev):
+    """``[knn-rounds]``: ``geometry.knn`` (approximate) with KNN_ROUNDS_K
+    neighbours on 4 ellipsoid clouds of N points (from a generator spawned
+    off ``rng``): one launch of knn_topk_rounds, none of knn_topk, ids
+    equal to the plain version."""
+    from deltaconv_tpu_torch import (launch_counts, ops,
+                                     reset_launch_counts)
+    from deltaconv_tpu_torch.geometry import knn
+
+    rng = rng.spawn(1)[0]
+
+    clouds, _ = ellipsoid_clouds(rng, [N] * 4)
+    pos = torch.from_numpy(np.stack(clouds)).to(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    idx, _ = knn(pos, KNN_ROUNDS_K, None, "approx")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"[knn-rounds] launches of one kNN with k={KNN_ROUNDS_K}: "
+          f"{ {n: c for n, c in counts.items() if c} }")
+    check("[knn-rounds] knn_topk_rounds once, knn_topk never",
+          counts["knn_topk_rounds"] == 1 and counts["knn_topk"] == 0,
+          f"{counts['knn_topk_rounds']} and {counts['knn_topk']} launches")
+    want = ops.knn_topk_plain(pos, KNN_ROUNDS_K, True)
+    check("[knn-rounds] ids equal to the plain version",
+          torch.equal(idx, want), f"{int((idx != want).sum())} differ")
+    return counts
+
+
 def coef_kernel_phase(res, rng, dev, card):
     """[kernels] of the large-cloud path: the checks on uniform and masked
     graphs, then times at the uniform shapes."""
@@ -3564,6 +3724,20 @@ def shard_kernel_phase(res, rng, card):
     lm = median_ms(lambda: knn_library(q_rows, pos, K), SHARD_REPS)
     print(f"  knn_topk_table repair form {SHARD_REPAIR_ROWS} x {SHARD_N}: "
           f"kernel {km:.4f} ms, library {lm:.4f} ms")
+    # The table kNN's two kernels: the (row, tile) selection and the merge
+    # of a row's tile lists.
+    for label, fn in (
+            (f"{SHARD_TABLE_N} x {SHARD_TABLE_N}",
+             lambda: ops.knn_topk_table(tab, tab, K)),
+            (f"{SHARD_TABLE_N} x {SHARD_TABLE_N} quantized",
+             lambda: ops.knn_topk_table(tab, tab, K, quantized=True)),
+            (f"repair form {SHARD_REPAIR_ROWS} x {SHARD_N}",
+             lambda: ops.knn_topk_table(q_rows, pos, K, row_ids=rows))):
+        split = kernel_split(fn, ("knn_table_select_kernel",
+                                  "knn_table_merge_kernel"))
+        print(f"  knn_topk_table {label}: device time by kernel (profiler) "
+              + ", ".join(f"{name} {ms:.4f} ms" for name, ms in
+                          split.items()))
 
     # The candidate sweep alone, on the inputs the bucketed kNN gives it.
     for quantized in (False, True):
@@ -3710,11 +3884,59 @@ def serve_shard_phase(rng, seed, dev, card, precision):
     return counts
 
 
+def shard_seg_same_graph(label, engine, cloud, normal, cat, got, dev):
+    """The f32 sharded segmentation forward's logits ``got`` of one cloud
+    held to the unsharded forward of the same model on the same neighbour
+    graph (the table kNN's, built by ``build_grad_div_fused`` and passed
+    as ``operators``) within SHARD_SEG_REL x max|logit|; the table kNN's
+    winner sets held to the library call's except at near-ties
+    (``same_winner_sets``); then the deviation from
+    ``InferenceEngine.predict``, whose exact kNN (``matmul`` + ``topk``)
+    rounds the scores otherwise and so may part from the table kNN at
+    near-ties, printed beside the rows whose neighbour sets differ."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+
+    model = engine.model
+    base = model.deltanet_base
+    k = base.num_neighbors
+    pos = torch.from_numpy(cloud).to(dev)
+    nrm = torch.from_numpy(normal).to(dev)
+    onehot = torch.zeros((1, 16), device=dev)
+    onehot[0, cat] = 1.0
+    with torch.inference_mode():
+        idx = ops.knn_topk_table(pos, pos, k)
+        xb, yb = build_tangent_basis(nrm[None])
+        gd = ops.build_grad_div_fused(
+            pos[None], nrm[None], xb, yb, idx[None],
+            torch.ones((1,) + tuple(idx.shape), dtype=torch.bool,
+                       device=dev),
+            base.grad_kernel_width, base.grad_regularizer)
+        ref = model(pos[None], nrm[None], None, category=onehot,
+                    operators=gd)[0].float().cpu().numpy()
+        graph, _ = knn(pos[None], k, None, "exact")
+    held_to(f"{label} vs the unsharded forward on the table kNN's graph",
+            got, ref, SHARD_SEG_REL, "points")
+    same_winner_sets(f"{label} table kNN", idx, pos, pos, k)
+    pred = engine.predict([cloud], [normal], [cat])[0]
+    moved = (torch.sort(idx.long(), 1).values
+             != torch.sort(graph[0].long(), 1).values).any(1)
+    print(f"  {label} vs InferenceEngine.predict: max_abs_err "
+          f"{float(np.abs(got - pred).max()) / float(np.abs(pred).max()):.3e}"
+          f" x max|logit|, argmax equal on "
+          f"{int((got.argmax(1) == pred.argmax(1)).sum())} of {len(pred)} "
+          f"points; {int(moved.sum())} rows of the table kNN's graph differ "
+          f"from predict's kNN", flush=True)
+
+
 def serve_shard_seg_phase(rng, seed, dev, card, precision):
     """The ShapeNet model in coefficient form, ONE cloud of 8192 points with
     a category through ``predict_sharded`` (the table kNN, once a
-    forward): bf16 against the plain path; f32 (exact kNN) against
-    ``InferenceEngine.predict`` of the same cloud."""
+    forward): bf16 against the plain path; f32 (exact kNN) against the
+    unsharded forward on the same neighbour graph (``shard_seg_same_graph``),
+    on this cloud and on SHARD_SEG_CLOUDS - 1 more from a generator
+    spawned off ``rng`` (``rng``'s draws stay as they were). The device
+    time of one call."""
     from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
                                      launch_counts, reset_launch_counts)
 
@@ -3746,14 +3968,21 @@ def serve_shard_seg_phase(rng, seed, dev, card, precision):
                               **kw).predict_sharded(cloud, normal, cat)
         held_to("kernel vs plain path", got, ref, BF16_PATH_REL, "points")
     else:
-        ref = engine.predict([cloud], [normal], [cat])[0]
-        held_to("vs InferenceEngine.predict (coefficient form)", got, ref,
-                SHARD_SEG_REL, "points")
+        shard_seg_same_graph(f"[{tag}] cloud 0", engine, cloud, normal,
+                             cat, got, dev)
+        more = rng.spawn(1)[0]
+        for i in range(1, SHARD_SEG_CLOUDS):
+            (c,), (nm,) = ellipsoid_clouds(more, [SHARD_SEG_N])
+            ct = int(more.integers(0, 16))
+            shard_seg_same_graph(f"[{tag}] cloud {i}", engine, c, nm, ct,
+                                 engine.predict_sharded(c, nm, ct), dev)
     t = float(np.median(times))
+    dm = device_ms(lambda: engine.predict_sharded(cloud, normal, cat))
     print(f"[{tag}] one cloud of N={SHARD_SEG_N} (K={SEG_K}, ShapeNet "
           f"config, dense_operators=False, precision={precision}): median "
           f"{t * 1e3:.3f} ms per call, {SHARD_SEG_N / t:.0f} points/s (host "
-          f"clock, synchronised), card: {card}")
+          f"clock, synchronised), {dm:.3f} ms of device time (profiler), "
+          f"card: {card}")
     return counts
 
 
@@ -3949,6 +4178,31 @@ def build_bwd_kernel_phase(res, rng, dev, card):
     res["knn_topk_mean_dist"]["library_ms"] = median_ms(knn_library)
     for name in ("densify_bwd", "knn_topk_mean_dist"):
         print(f"  {name}: library call {res[name]['library_ms']:.4f} ms")
+
+
+def kernel_split(fn, names, reps=3) -> dict:
+    """The device time of one call of ``fn`` spent in each kernel whose
+    name contains one of ``names`` (``torch.profiler``, ``reps`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.count:
+            for name in names:
+                if name in evt.key:
+                    out[name] += evt.self_device_time_total / reps / 1e3
+    return out
 
 
 def device_ms(fn, reps=3) -> float:
@@ -4460,6 +4714,8 @@ def main():
     mark("fused eval build")
     minmax = nbr_minmax_phase(rng, dev, card)
     mark("min/max hooks")
+    rounds = knn_rounds_phase(rng, dev)
+    mark("kNN rounds route")
     print("[time] seconds per group of phases: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
@@ -4486,7 +4742,8 @@ def main():
                              (("wls_bwd", "densify_bwd"), pos_grad),
                              (("knn_topk_mean_dist", "fused_gather_wls"),
                               fused_build),
-                             (MINMAX_KERNELS, minmax)):
+                             (MINMAX_KERNELS, minmax),
+                             (("knn_topk_rounds",), rounds)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

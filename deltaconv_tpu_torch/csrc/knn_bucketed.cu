@@ -52,21 +52,18 @@
 // and completed on the stage's mbarrier, so the next buckets load while
 // one is scored; the quantized body streams the buckets twice (the row's
 // range, then the keys). Selection against a threshold: each thread keeps
-// its K - 1 best in a sorted register list (kCap entries, the first
-// kCap - K + 1 of them sentinels, so that the threshold is the list's
-// last entry, a fixed register); a candidate is compared once with it,
-// and only those that pass go to a short per-thread queue in shared
-// memory. When a queue of the warp fills, every
-// lane of the warp merges its queue into its list at once (an insertion
-// is a fully unrolled shift), so the warp pays one merge for up to 32
-// lanes' candidates instead of one per lane. The buckets come nearest
-// first (the home bucket leads), so the threshold tightens in the first
-// bucket; a later bucket whose box shows that none of its candidates can
-// pass (for every query of a warp) is not scored at all, and the range
-// pass skips the buckets whose scores cannot widen the range. The skips
-// change no result: the ids and scores stay bit-equal to the plain
-// version, which scores every lane.
+// its K - 1 best in a sorted register list with the threshold at a fixed
+// last register, and a shared queue batches the warp's insertions
+// (topk_select.cuh, shared with knn_topk.cu and knn_table.cu), so the warp
+// pays one merge for up to 32 lanes' candidates instead of one per lane.
+// The buckets come nearest first (the home bucket leads), so the
+// threshold tightens in the first bucket; a later bucket whose box shows
+// that none of its candidates can pass (for every query of a warp) is not
+// scored at all, and the range pass skips the buckets whose scores cannot
+// widen the range. The skips change no result: the ids and scores stay
+// bit-equal to the plain version, which scores every lane.
 #include "common.cuh"
+#include "topk_select.cuh"
 
 #include <algorithm>
 #include <climits>
@@ -74,11 +71,16 @@
 
 namespace {
 
+using dc_select::kFlushAt;
+using dc_select::kFull;
+using dc_select::kQueue;
+
+template <bool kQuantized, int kCap>
+using Selector = dc_select::Selector<
+    kQuantized ? dc_select::kKeyId : dc_select::kScoreId, kCap>;
+
 constexpr float kBig = 1e30f;
 constexpr float kEmpty = -3.0e38f;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kQueue = 12;      // a lane's queue of passing candidates
-constexpr int kFlushAt = 4;     // merge when a queue holds more (8 a step)
 constexpr int kMaxStages = 4;
 constexpr size_t kStageBudget = 16 * 1024;  // the ring's bytes, many
                                             // blocks an SM
@@ -89,10 +91,6 @@ __device__ __forceinline__ float cand_score(float qx, float qy, float qz,
                                             float pz, float pw) {
   const float dot = __fmaf_rn(qz, pz, __fmaf_rn(qx, px, __fmul_rn(qy, py)));
   return __fsub_rn(__fsub_rn(__fmul_rn(2.0f, dot), pw), sq);
-}
-
-__device__ __forceinline__ bool before(float s, int i, float t, int j) {
-  return s > t || (s == t && i < j);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -138,107 +136,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// Inserts (v, o) into the sorted list (best first); the last entry falls
-// off.
-template <int kCap>
-__device__ __forceinline__ void insert(float (&ls)[kCap], int (&li)[kCap],
-                                       float v, int o) {
-#pragma unroll
-  for (int t = kCap - 1; t > 0; --t) {
-    const bool up = before(v, o, ls[t - 1], li[t - 1]);
-    const bool here = !up && before(v, o, ls[t], li[t]);
-    ls[t] = up ? ls[t - 1] : (here ? v : ls[t]);
-    li[t] = up ? li[t - 1] : (here ? o : li[t]);
-  }
-  if (before(v, o, ls[0], li[0])) {
-    ls[0] = v;
-    li[0] = o;
-  }
-}
-
-// The same for unique int keys, the ids carried along.
-template <int kCap>
-__device__ __forceinline__ void insert(int (&lk)[kCap], int (&li)[kCap],
-                                       int key, int o) {
-#pragma unroll
-  for (int t = kCap - 1; t > 0; --t) {
-    const bool up = key > lk[t - 1];
-    const bool here = !up && key > lk[t];
-    lk[t] = up ? lk[t - 1] : (here ? key : lk[t]);
-    li[t] = up ? li[t - 1] : (here ? o : li[t]);
-  }
-  if (key > lk[0]) {
-    lk[0] = key;
-    li[0] = o;
-  }
-}
-
-// A query's selection: its sorted list in registers (exact: (score, id);
-// quantized: (key, id)) and the queue of candidates that passed its last
-// entry since the last merge, in shared memory (entry u of thread t at u
-// * threads + t). The list holds kCap entries and the first kCap - ks are
-// sentinels that nothing passes, so its last entry is the ks-th best: the
-// threshold sits at a fixed register (an entry picked at a runtime index
-// would put the list in local memory).
-template <bool kQuantized, int kCap>
-struct Selector {
-  float ls[kCap];
-  int lk[kCap], li[kCap];
-  float* qv;
-  int *qk, *qi;
-  int stride, qn;
-  float thr_t;  // quantized: keys below (qs - 1) of the last entry fail
-
-  __device__ __forceinline__ void init(int ks, unsigned char* queue,
-                                       int threads, int tid) {
-#pragma unroll
-    for (int t = 0; t < kCap; ++t) {
-      const bool sentinel = t < kCap - ks;
-      ls[t] = sentinel ? INFINITY : -INFINITY;
-      lk[t] = sentinel ? INT_MAX : INT_MIN;
-      li[t] = sentinel ? -1 : INT_MAX;
-    }
-    stride = threads;
-    qv = reinterpret_cast<float*>(queue) + tid;
-    qk = reinterpret_cast<int*>(queue) + kQueue * threads + tid;
-    qi = reinterpret_cast<int*>(queue) + 2 * kQueue * threads + tid;
-    qn = 0;
-    thr_t = -1.0f;
-  }
-
-  __device__ __forceinline__ bool passes(float v, int key, int o) const {
-    return kQuantized ? key > lk[kCap - 1]
-                      : before(v, o, ls[kCap - 1], li[kCap - 1]);
-  }
-
-  __device__ __forceinline__ void push(float v, int key, int o) {
-    if (kQuantized)
-      qk[qn * stride] = key;
-    else
-      qv[qn * stride] = v;
-    qi[qn * stride] = o;
-    ++qn;
-  }
-
-  // Every lane of the warp merges its queue (the warp's longest sets the
-  // passes).
-  __device__ __forceinline__ void flush() {
-    const int passes = __reduce_max_sync(kFull, qn);
-    for (int u = 0; u < passes; ++u) {
-      if (u < qn) {
-        if (kQuantized)
-          insert<kCap>(lk, li, qk[u * stride], qi[u * stride]);
-        else
-          insert<kCap>(ls, li, qv[u * stride], qi[u * stride]);
-      }
-    }
-    qn = 0;
-    // A key beats the last entry only if its scaled score t reaches that
-    // entry's quantized level - 1 (q = trunc(t) + 1 is monotone in t).
-    thr_t = (float)((lk[kCap - 1] >> 16) + 32768 - 1);
-  }
-};
-
 struct Ring {
   uint64_t* bar;
   unsigned char* stages;
@@ -270,7 +167,7 @@ __device__ __forceinline__ void issue(const Ring& r, int step,
 }
 
 template <bool kQuantized, int kCap>
-__global__ void __launch_bounds__(256) knn_cand_kernel(
+__global__ void __launch_bounds__(256, 1) knn_cand_kernel(
     const float* __restrict__ posq, const float* __restrict__ sqq,
     const int* __restrict__ srow, const float* __restrict__ comb,
     const int* __restrict__ perm, const int* __restrict__ cand,
@@ -351,12 +248,12 @@ __global__ void __launch_bounds__(256) knn_cand_kernel(
       if (range_pass) {
         skip = empty || (smax <= hi && smin >= lo);
       } else if (kQuantized) {
-        const bool full = sel.thr_t >= 0.0f;  // the last key is a valid one
+        const bool full = sel.min_t >= 0.0f;  // the last key is a valid one
         skip = full && (empty || __fmul_rn(__fsub_rn(smax, rmin), scale) <
-                                     sel.thr_t);
+                                     sel.min_t);
       } else {
-        const bool full = sel.ls[kCap - 1] > -1e29f;
-        skip = full && (empty || smax < sel.ls[kCap - 1]);
+        const bool full = sel.thr_s() > -1e29f;
+        skip = full && (empty || smax < sel.thr_s());
       }
     }
     const int span = __all_sync(kFull, skip) ? 0 : tile_c;
@@ -418,9 +315,9 @@ __global__ void __launch_bounds__(256) knn_cand_kernel(
           bool maybe;
           if (kQuantized) {
             t[u] = __fmul_rn(__fsub_rn(v[u], rmin), scale);
-            maybe = !(v[u] > -1e29f) || t[u] >= sel.thr_t;
+            maybe = !(v[u] > -1e29f) || t[u] >= sel.min_t;
           } else {
-            maybe = v[u] >= sel.ls[kCap - 1];
+            maybe = v[u] >= sel.thr_s();
           }
           pass |= (unsigned)(u < lim && maybe) << u;
         }
@@ -513,8 +410,9 @@ int launch_cand(const void* posq, const void* sqq, const void* srow,
   int stages = (int)std::min<size_t>(kMaxStages, kStageBudget / stage);
   stages = std::max(1, std::min(stages, steps));
   const int threads = (tile_q + 31) / 32 * 32;
-  const size_t smem = 16 * kMaxStages + stage * stages +
-                      (size_t)kQueue * 12 * threads;  // + the queues
+  const size_t smem =
+      16 * kMaxStages + stage * stages +
+      (size_t)kQueue * Selector<kQuantized, 32>::kEntryBytes * threads;
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define DC_KNN_CAP(cap)                                                     \

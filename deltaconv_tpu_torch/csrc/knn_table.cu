@@ -8,57 +8,76 @@
 // Replaces the Pallas kernel of deltaconv_tpu/ops/knn_topk.py
 // (`knn_topk_table`, pallas_call at knn_topk.py:326) in both of its bodies.
 // The columns are cut into tiles of `tile_c` (the TPU's 2048; the last
-// tile padded with masked columns Nt, Nt + 1, ...), and every row keeps a
-// running top-K across the tiles:
+// tile padded with masked columns Nt, Nt + 1, ...):
 //
 // * exact (`_table_kernel`): the self column scores +2e30 and a masked
 //   column -2e30; the order is score descending, then column ascending.
-//   The running top-K after the last tile is the top-K of all columns in
-//   that order, which the kernel computes directly: each tile's K rounds
-//   take the best of (the running list, the tile) and remove it.
+//   The TPU kernel's running top-K after the last tile is the top-K of all
+//   columns in that order (for scores above -2e30).
 // * quantized (`_table_kernel_q`): within each tile the row's VALID
 //   scores (unmasked, not self) are mapped linearly onto 1..65534, the
 //   masked columns take 0 (fillers) and the self column 0x7FFF, packed
 //   with the local column as ((q - 32768) << 16) | (65535 - l); the
-//   tile's K best keys are dequantized (self +2e30, fillers -2e30) and
-//   merged with the running list by (score descending, column
-//   ascending). The answer depends on the tiling: it is the TPU kernel's
-//   function at the same tile_c, which the wrapper passes.
+//   tile's K best keys are dequantized (self +2e30, fillers -2e30; a
+//   valid key as fma((q - 1) span, 1 / 65533, rmin), the order in which
+//   XLA evaluates the JAX kernel's rmin + (q - 1) / scale) and merged
+//   across tiles by (score descending, column ascending). The
+//   answer depends on the tiling: it is the TPU kernel's function at the
+//   same tile_c, which the wrapper passes.
 //
 // Every score is computed in the JAX kernel's order with each operation
 // rounded where XLA rounds it: XLA contracts a product into the sum that
 // follows it, so q . p = fma(qz, pz, fma(qx, px, qy py)) and |p|^2 =
 // fma(z, z, fma(y, y, x x)), every other operation rounded on its own
-// (__fmul_rn/__fadd_rn elsewhere), and the indices are bit-equal to the
-// plain version's.
+// (__fmul_rn/__fadd_rn elsewhere; 2 (q . p) is exact, so fma(2, q . p,
+// -|q|^2) rounds as the multiply and subtract do), and the indices are
+// bit-equal to the plain version's.
 //
-// Design: one warp per query row, 8 rows per block. The block stages one
-// tile of the table (x, y, z, |p|^2 and the mask; 34 KB at tile_c=2048)
-// in shared memory, and each lane keeps its 64 scores or keys of the tile
-// in registers; lane r holds entry r of the running list (K <= 32). A
-// round is a scan of the lane's registers, one warp reduction of (score,
-// column) pairs and a removal. The TPU kernel kept the running list in
-// VMEM scratch across its sequential column grid; here the column loop
-// runs inside the block, and nothing of the [Nq, Nt] score plane reaches
-// device memory.
+// Design: two kernels a call. `knn_table_select_kernel` takes one task
+// per (query row, column tile): a block holds 256 query rows and one tile,
+// staged in shared memory as (x, y, z, |p|^2) with a NaN norm on masked
+// and padded columns (32 KB at tile_c=2048), and a thread a task keeps a
+// sorted register list of the tile's best (topk_select.cuh); a candidate
+// is compared once with its threshold, 32 a step into a bit mask, and
+// only those that pass are walked, in step across the warp, queued and
+// inserted. The quantized body makes two passes over the staged tile (the
+// task's range, then the keys, a key passing only if its score reaches a
+// floor derived from the threshold's level). Each task writes its K best,
+// dequantized, to `part` [n_tiles, K, Nq]; `knn_table_merge_kernel`
+// merges a row's n_tiles lists by (score descending, column ascending), a
+// thread a row. The TPU kernel walked the column tiles in sequence with a
+// running list in VMEM scratch; here the tiles are independent tasks (4 a
+// row at Nt = 8192, 32 in the 65,536-column repair form), which fills the
+// card where a thread a row over all tiles would leave it idle.
 //
 // Bound on the H100: instruction issue, not memory. The kernel reads
 // (Nq + Nt) 12 bytes and writes Nq K 4 bytes, but every (row, column)
-// pair needs its score (8 operations) and the selection compares it
-// (K rounds a tile here; the function needs one pass).
+// pair needs its score (6 operations) and a compare, the quantized body
+// the range too.
 #include "common.cuh"
+#include "topk_select.cuh"
 
 #include <climits>
 #include <cmath>
 
 namespace {
 
-constexpr int kRows = 8;          // query rows (warps) a block
-constexpr int kMaxTile = 2048;    // columns of a staged tile
-constexpr int kPerLane = kMaxTile / 32;
+using dc_select::kFull;
+using dc_select::score_floor;
+
+constexpr int kThreads = 256;  // tasks (query rows of a tile) a block
+constexpr int kStep = 32;  // candidates a thread scores a step
+constexpr int kMergeSplit = 4;  // threads a row in the merge
+constexpr int kMergeRows = kThreads / kMergeSplit;
+constexpr int kMaxTile = 2048;
 constexpr float kBig = 1e30f;
-constexpr float kEmpty = -3.0e38f;  // the TPU kernel's empty scratch slot
-constexpr unsigned kFull = 0xffffffffu;
+constexpr float kInvLevels = 1.0f / 65533.0f;
+
+template <bool kQuantized, int kCap>
+using TileSel = dc_select::Selector<
+    kQuantized ? dc_select::kKey : dc_select::kScoreId, kCap>;
+template <int kCap>
+using RowSel = dc_select::Selector<dc_select::kScoreId, kCap, kMergeSplit>;
 
 __device__ __forceinline__ float sq3(float x, float y, float z) {
   return __fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x)));
@@ -67,237 +86,265 @@ __device__ __forceinline__ float sq3(float x, float y, float z) {
 // 2 (q . p) - |q|^2 - |p|^2 in the order of the JAX kernel (knn_topk.py:151);
 // q.w and p.w hold the squared norms.
 __device__ __forceinline__ float table_score(float4 q, float4 p) {
-  const float dot = __fmaf_rn(q.z, p.z, __fmaf_rn(q.x, p.x, __fmul_rn(q.y, p.y)));
-  return __fsub_rn(__fsub_rn(__fmul_rn(2.0f, dot), q.w), p.w);
+  const float dot =
+      __fmaf_rn(q.z, p.z, __fmaf_rn(q.x, p.x, __fmul_rn(q.y, p.y)));
+  return __fsub_rn(__fmaf_rn(2.0f, dot, -q.w), p.w);
 }
 
-// (s, i) comes before (t, j): score descending, then index ascending.
-__device__ __forceinline__ bool before(float s, int i, float t, int j) {
-  return s > t || (s == t && i < j);
-}
-
-__device__ __forceinline__ void warp_best(float& s, int& i) {
-  for (int o = 16; o; o >>= 1) {
-    const float t = __shfl_xor_sync(kFull, s, o);
-    const int j = __shfl_xor_sync(kFull, i, o);
-    if (before(t, j, s, i)) {
-      s = t;
-      i = j;
+template <bool kQuantized, int kCap>
+__global__ void __launch_bounds__(kThreads, 1)
+    knn_table_select_kernel(const float* __restrict__ pos_q,
+                            const float* __restrict__ pos_t,
+                            const unsigned char* __restrict__ mask,
+                            const int* __restrict__ rows,
+                            float* __restrict__ part_s,
+                            int* __restrict__ part_i, int Nq, int Nt, int K,
+                            int tile_c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* pts = reinterpret_cast<float4*>(smem);
+  unsigned char* queue = smem + (size_t)tile_c * sizeof(float4);
+  const int tile = blockIdx.y, c0 = tile * tile_c;
+  for (int l = threadIdx.x; l < tile_c; l += blockDim.x) {
+    const int c = c0 + l;
+    float4 p = make_float4(0.0f, 0.0f, 0.0f, NAN);  // masked or padding
+    if (c < Nt && (mask == nullptr || mask[c])) {
+      p.x = pos_t[3 * c];
+      p.y = pos_t[3 * c + 1];
+      p.z = pos_t[3 * c + 2];
+      p.w = sq3(p.x, p.y, p.z);
     }
+    pts[l] = p;
   }
-}
+  __syncthreads();
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-// The running list (lane r < K holds entry r) merged with `K` entries that
-// each lane offers through `offer`/`take`: K rounds of "best of the
-// union, then remove it", removal by index as in the TPU kernels.
-template <typename Offer, typename Take>
-__device__ __forceinline__ void merge_rounds(float& run_s, int& run_i, int K,
-                                             int lane, Offer offer,
-                                             Take take) {
-  bool run_live = lane < K;
-  float new_s = kEmpty;
-  int new_i = 0;
-  for (int r = 0; r < K; ++r) {
-    float bs = run_live ? run_s : -INFINITY;
-    int bi = run_live ? run_i : INT_MAX;
-    offer(bs, bi);
-    warp_best(bs, bi);
-    if (lane == r) {
-      new_s = bs;
-      new_i = bi;
-    }
-    if (run_live && run_i == bi) run_live = false;
-    take(bi);
-  }
-  run_s = new_s;
-  run_i = new_i;
-}
-
-template <bool kQuantized>
-__global__ void __launch_bounds__(kRows * 32)
-    knn_table_kernel(const float* __restrict__ pos_q,
-                     const float* __restrict__ pos_t,
-                     const unsigned char* __restrict__ mask,
-                     const int* __restrict__ rows, int* __restrict__ out,
-                     int Nq, int Nt, int K, int tile_c, int n_tiles) {
-  __shared__ float4 pts[kMaxTile];
-  __shared__ unsigned char ok[kMaxTile];
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRows + (threadIdx.x >> 5);
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x * kThreads + tid;
+  // A row past Nq runs as row 0 and writes nothing: every lane meets the
+  // warp's votes.
   const bool live = row < Nq;
-  float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  int self = -1;
-  if (live) {
-    q.x = pos_q[3 * row];
-    q.y = pos_q[3 * row + 1];
-    q.z = pos_q[3 * row + 2];
-    q.w = sq3(q.x, q.y, q.z);
-    self = rows[row];
-  }
-  // The TPU kernel's scratch starts at (-3e38, Nt).
-  float run_s = kEmpty;
-  int run_i = Nt;
+  const int rr = live ? row : 0;
+  float4 q;
+  q.x = pos_q[3 * rr];
+  q.y = pos_q[3 * rr + 1];
+  q.z = pos_q[3 * rr + 2];
+  q.w = sq3(q.x, q.y, q.z);
+  // The self column's local index (outside [0, tile_c) when not here).
+  const int sl = rows[rr] - c0;
+  const bool self_here = 0 <= sl && sl < tile_c;
+  // A masked self column is an ordinary masked one in the exact body;
+  // the quantized body keys it as self all the same.
+  const bool self_pinned =
+      self_here && (kQuantized || !isnan(pts[self_here ? sl : 0].w));
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int c0 = t * tile_c;
-    __syncthreads();  // the previous tile is consumed
-    for (int l = threadIdx.x; l < tile_c; l += blockDim.x) {
-      const int c = c0 + l;
-      if (c < Nt) {
-        const float x = pos_t[3 * c], y = pos_t[3 * c + 1],
-                    z = pos_t[3 * c + 2];
-        pts[l] = make_float4(x, y, z, sq3(x, y, z));
-        ok[l] = mask == nullptr ? 1 : mask[c];
-      } else {
-        pts[l] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        ok[l] = 0;
+  TileSel<kQuantized, kCap> sel;
+  sel.init(K, queue, kThreads, tid);
+  float rmin = 0.0f, span = 0.0f, scale = 0.0f;
+  if (kQuantized) {  // the task's range over its valid columns
+    float lo = INFINITY, hi = -INFINITY;
+    for (int base = 0; base < tile_c; base += kStep) {
+      float v[kStep];
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) v[u] = table_score(q, pts[base + u]);
+      // The self column is left out (NaN: fminf/fmaxf ignore it, as they
+      // do the masked columns' NaN scores).
+      const int d = sl - base;
+      if (self_here && 0 <= d && d < kStep) {
+#pragma unroll
+        for (int u = 0; u < kStep; ++u)
+          if (d == u) v[u] = NAN;
+      }
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        lo = fminf(lo, v[u]);
+        hi = fmaxf(hi, v[u]);
       }
     }
-    __syncthreads();
-    if (!live) continue;  // the warp still meets every barrier
+    rmin = isfinite(lo) ? lo : 0.0f;
+    const float rmax = isfinite(hi) ? hi : 0.0f;
+    span = fmaxf(__fsub_rn(rmax, rmin), 1e-30f);
+    scale = __fdiv_rn(65533.0f, span);
+  }
+  // The self loop is pinned: the list starts with it, and the scan skips
+  // it.
+  if (self_pinned)
+    sel.add(2.0f * kBig, 0x7FFF0000 | (65535 - sl), c0 + sl);
+  sel.refresh();
 
-    if (!kQuantized) {
-      float s[kPerLane];
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        const int l = lane + 32 * j;
-        float v = -INFINITY;  // beyond the tile: never selected
-        if (l < tile_c) {
-          v = !ok[l] ? -2.0f * kBig
-                     : (c0 + l == self ? 2.0f * kBig : table_score(q, pts[l]));
-        }
-        s[j] = v;
-      }
-      merge_rounds(
-          run_s, run_i, K, lane,
-          [&](float& bs, int& bi) {
-#pragma unroll
-            for (int j = 0; j < kPerLane; ++j) {
-              const int c = c0 + lane + 32 * j;
-              if (before(s[j], c, bs, bi)) {
-                bs = s[j];
-                bi = c;
-              }
-            }
-          },
-          [&](int bi) {
-#pragma unroll
-            for (int j = 0; j < kPerLane; ++j)
-              if (c0 + lane + 32 * j == bi) s[j] = -INFINITY;
-          });
+  // A necessary condition of passing the threshold: the score reaches
+  // the exact threshold's score, or the floor of the key level that can
+  // pass (q = trunc(t) + 1 >= the last key's level). While the threshold
+  // is at a masked column's -2e30 (or a filler key), every column goes to
+  // the exact compare: a masked column (NaN score) may still pass.
+  float thr;
+  bool starved;
+  auto threshold = [&]() {
+    if (kQuantized) {
+      starved = !(sel.min_t >= 0.0f);
+      thr = score_floor(rmin, scale, sel.min_t);
     } else {
-      // Per-row per-tile quantization over the valid scores.
-      float s[kPerLane];
-      float lo = INFINITY, hi = -INFINITY;
+      starved = !(sel.thr_s() > -2.0f * kBig);
+      thr = sel.thr_s();
+    }
+  };
+  threshold();
+  for (int base = 0; base < tile_c; base += kStep) {
+    unsigned maybe = starved ? ~0u : 0u;
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        const int l = lane + 32 * j;
-        s[j] = 0.0f;
-        if (l < tile_c && ok[l] && c0 + l != self) {
-          s[j] = table_score(q, pts[l]);
-          lo = fminf(lo, s[j]);
-          hi = fmaxf(hi, s[j]);
-        }
-      }
-      lo = warp_min(lo);
-      hi = warp_max(hi);
-      const float rmin = isfinite(lo) ? lo : 0.0f;
-      const float rmax = isfinite(hi) ? hi : 0.0f;
-      const float scale =
-          __fdiv_rn(65533.0f, fmaxf(__fsub_rn(rmax, rmin), 1e-30f));
-      int key[kPerLane];
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        const int l = lane + 32 * j;
-        const int low = 65535 - l;
-        if (l >= tile_c) {
-          key[j] = INT_MIN;
-        } else if (c0 + l == self) {
-          key[j] = 0x7FFF0000 | low;
-        } else if (ok[l]) {
-          int qs = __float2int_rz(__fmul_rn(__fsub_rn(s[j], rmin), scale)) + 1;
-          qs = min(max(qs, 1), 65534);
-          key[j] = (int)((unsigned)(qs - 32768) << 16) | low;
+    for (int u = 0; u < kStep; ++u)
+      maybe |= (table_score(q, pts[base + u]) >= thr ? 1u : 0u) << u;
+    // The rare path, in step across the warp: one candidate a lane at a
+    // time, its score recomputed, the queues merged when one fills.
+    while (__any_sync(kFull, maybe)) {
+      if (maybe) {
+        const int l = base + __ffs(maybe) - 1;
+        maybe &= maybe - 1;
+        const float v = table_score(q, pts[l]);
+        const bool masked = isnan(v);
+        const bool skip = self_pinned && l == sl;
+        if (kQuantized) {
+          int qs = 0;  // a filler's level
+          if (!masked) {
+            const float t = __fmul_rn(__fsub_rn(v, rmin), scale);
+            qs = min(max(__float2int_rz(t) + 1, 1), 65534);
+          }
+          const int key = (int)((unsigned)(qs - 32768) << 16) | (65535 - l);
+          if (!skip && sel.passes(0.0f, key, 0)) sel.push(0.0f, key, 0);
         } else {
-          key[j] = INT_MIN | low;  // a filler, below every valid key
+          const float vs = masked ? -2.0f * kBig : v;
+          if (!skip && sel.passes(vs, 0, c0 + l)) sel.push(vs, 0, c0 + l);
         }
       }
-      // The tile's K best keys, dequantized: lane r holds entry r.
-      float tile_s = kEmpty;
-      int tile_i = Nt;
-      for (int r = 0; r < K; ++r) {
-        int m = INT_MIN;
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) m = max(m, key[j]);
-        m = __reduce_max_sync(kFull, m);
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j)
-          if (key[j] == m) key[j] = INT_MIN;
-        if (lane == r && m != INT_MIN) {
-          const int qb = (m >> 16) + 32768;
-          float st = __fadd_rn(rmin, __fdiv_rn((float)(qb - 1), scale));
-          if (qb == 65535) st = 2.0f * kBig;
-          if (qb == 0) st = -2.0f * kBig;
-          tile_s = st;
-          tile_i = c0 + 65535 - (m & 65535);
-        }
+      if (__any_sync(kFull, sel.qn > dc_select::kFlushAt)) {
+        sel.flush();
+        threshold();
       }
-      bool tile_live = lane < K;
-      merge_rounds(
-          run_s, run_i, K, lane,
-          [&](float& bs, int& bi) {
-            if (tile_live && before(tile_s, tile_i, bs, bi)) {
-              bs = tile_s;
-              bi = tile_i;
-            }
-          },
-          [&](int bi) {
-            if (tile_live && tile_i == bi) tile_live = false;
-          });
     }
   }
-  if (live && lane < K) out[(long long)row * K + lane] = run_i;
+  sel.flush();
+
+  // The task's K best in order, dequantized, to part[tile, r, row].
+  sel.front(K);
+  for (int r = 0; r < K; ++r) {
+    float v = 0.0f;
+    int key = 0, o = 0;
+    sel.take(v, key, o);
+    if (kQuantized) {
+      // rmin + (qb - 1) / scale as XLA evaluates the JAX kernel's: the
+      // division by 65533 / span becomes a product with span, then with
+      // 1 / 65533, fused with the add.
+      const int qb = (key >> 16) + 32768;
+      v = qb == 65535 ? 2.0f * kBig
+                      : (qb == 0 ? -2.0f * kBig
+                                 : __fmaf_rn(__fmul_rn((float)(qb - 1), span),
+                                             kInvLevels, rmin));
+      o = c0 + 65535 - (key & 65535);
+    }
+    if (live) {
+      const long long at = ((long long)tile * K + r) * Nq + row;
+      part_s[at] = v;
+      part_i[at] = o;
+    }
+  }
+}
+
+// A row's n_tiles lists merged by (score descending, column ascending):
+// thread s of the row's 4 inserts the lists of tiles s, s + 4, ... into
+// its own list, and the four lists are walked in order (topk_select.cuh's
+// group: K rounds of "the best head, popped").
+template <int kCap>
+__global__ void __launch_bounds__(kThreads, 1)
+    knn_table_merge_kernel(const float* __restrict__ part_s,
+                           const int* __restrict__ part_i,
+                           int* __restrict__ out, int Nq, int K,
+                           int n_tiles) {
+  const int tid = threadIdx.x, sub = tid % kMergeSplit;
+  const int row = blockIdx.x * kMergeRows + tid / kMergeSplit;
+  const bool live = row < Nq;
+  RowSel<kCap> sel;
+  sel.init(K, nullptr, kThreads, tid);
+  if (live) {
+    for (int t = sub; t < n_tiles; t += kMergeSplit) {
+      for (int r = 0; r < K; ++r) {
+        const long long at = ((long long)t * K + r) * Nq + row;
+        const float v = part_s[at];
+        const int o = part_i[at];
+        if (sel.passes(v, 0, o)) sel.add(v, 0, o);
+      }
+    }
+  }
+  sel.front(K);
+  for (int r = 0; r < K; ++r) {
+    float v = 0.0f;
+    int key = 0, o = 0;
+    sel.take(v, key, o);
+    if (live && r % kMergeSplit == sub) out[(long long)row * K + r] = o;
+  }
+}
+
+template <bool kQuantized, int kCap>
+int launch_cap(const void* pos_q, const void* pos_t, const void* mask,
+               const void* rows, void* part_s, void* part_i, void* idx,
+               int Nq, int Nt, int K, int tile_c, cudaStream_t stream) {
+  auto select = knn_table_select_kernel<kQuantized, kCap>;
+  const size_t smem =
+      (size_t)tile_c * sizeof(float4) +
+      (size_t)dc_select::kQueue * TileSel<kQuantized, kCap>::kEntryBytes *
+          kThreads;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        select, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_tiles = (Nt + tile_c - 1) / tile_c;
+  const int row_blocks = (Nq + kThreads - 1) / kThreads;
+  select<<<dim3(row_blocks, n_tiles), kThreads, smem, stream>>>(
+      (const float*)pos_q, (const float*)pos_t, (const unsigned char*)mask,
+      (const int*)rows, (float*)part_s, (int*)part_i, Nq, Nt, K, tile_c);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  knn_table_merge_kernel<kCap><<<(Nq + kMergeRows - 1) / kMergeRows,
+                                  kThreads, 0, stream>>>(
+      (const float*)part_s, (const int*)part_i, (int*)idx, Nq, K, n_tiles);
+  return (int)cudaGetLastError();
 }
 
 template <bool kQuantized>
 int launch_table(const void* pos_q, const void* pos_t, const void* mask,
-                 const void* rows, void* idx, int Nq, int Nt, int K,
-                 int tile_c, int device, void* stream) {
+                 const void* rows, void* part_s, void* part_i, void* idx,
+                 int Nq, int Nt, int K, int tile_c, int device,
+                 void* stream) {
   DC_SET_DEVICE(device);
+  if (K <= 0 || K > 32 || tile_c < K || tile_c > kMaxTile ||
+      tile_c % kStep != 0 || Nt <= 0)
+    return (int)cudaErrorInvalidValue;
   if (Nq == 0) return (int)cudaGetLastError();
-  const int n_tiles = (Nt + tile_c - 1) / tile_c;
-  const dim3 grid((Nq + kRows - 1) / kRows);
-  knn_table_kernel<kQuantized><<<grid, kRows * 32, 0, (cudaStream_t)stream>>>(
-      (const float*)pos_q, (const float*)pos_t, (const unsigned char*)mask,
-      (const int*)rows, (int*)idx, Nq, Nt, K, tile_c, n_tiles);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K <= 20)
+    return launch_cap<kQuantized, 20>(pos_q, pos_t, mask, rows, part_s,
+                                      part_i, idx, Nq, Nt, K, tile_c, s);
+  return launch_cap<kQuantized, 32>(pos_q, pos_t, mask, rows, part_s,
+                                    part_i, idx, Nq, Nt, K, tile_c, s);
 }
 
 }  // namespace
 
-// The wrapper checks 0 < K <= 32, K <= tile_c <= 2048, tile_c % 32 == 0.
+// The wrapper checks 0 < K <= 32, K <= tile_c <= 2048, tile_c % 32 == 0,
+// and allocates part_s [n_tiles, K, Nq] f32 and part_i [n_tiles, K, Nq]
+// i32, n_tiles = ceil(Nt / tile_c).
 extern "C" int dc_knn_topk_table(const void* pos_q, const void* pos_t,
-                                 const void* mask, const void* rows, void* idx,
+                                 const void* mask, const void* rows,
+                                 void* part_s, void* part_i, void* idx,
                                  int Nq, int Nt, int K, int tile_c, int device,
                                  void* stream) {
-  return launch_table<false>(pos_q, pos_t, mask, rows, idx, Nq, Nt, K, tile_c,
-                             device, stream);
+  return launch_table<false>(pos_q, pos_t, mask, rows, part_s, part_i, idx,
+                             Nq, Nt, K, tile_c, device, stream);
 }
 
 extern "C" int dc_knn_topk_table_q(const void* pos_q, const void* pos_t,
                                    const void* mask, const void* rows,
-                                   void* idx, int Nq, int Nt, int K,
-                                   int tile_c, int device, void* stream) {
-  return launch_table<true>(pos_q, pos_t, mask, rows, idx, Nq, Nt, K, tile_c,
-                            device, stream);
+                                   void* part_s, void* part_i, void* idx,
+                                   int Nq, int Nt, int K, int tile_c,
+                                   int device, void* stream) {
+  return launch_table<true>(pos_q, pos_t, mask, rows, part_s, part_i, idx,
+                            Nq, Nt, K, tile_c, device, stream);
 }

@@ -68,6 +68,7 @@ _KERNELS = {
     "gather_sum_bwd": ("dc_gather_sum_bwd", [_P, _P, _P, _P, _I, _I, _I, _I]),
     "knn_topk": ("dc_knn_topk", [_P, _P, _I, _I, _I, _I]),
     "knn_topk_mean_dist": ("dc_knn_topk_mean_dist", [_P] * 3 + [_I] * 4),
+    "knn_topk_rounds": ("dc_knn_topk_rounds", [_P] * 3 + [_I] * 4),
     "gather_max_affine": ("dc_gather_max_affine",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "gather_matmul_max": ("dc_gather_matmul_max",
@@ -85,8 +86,8 @@ _KERNELS = {
     "scatter_rows": ("dc_scatter_rows", [_P] * 4 + [_I] * 5 + [_L] * 4),
     "coef_apply_grad": ("dc_coef_apply_grad", [_P] * 4 + [_I] * 5),
     "coef_apply_div": ("dc_coef_apply_div", [_P] * 4 + [_I] * 5),
-    "knn_topk_table": ("dc_knn_topk_table", [_P] * 5 + [_I] * 4),
-    "knn_topk_table_q": ("dc_knn_topk_table_q", [_P] * 5 + [_I] * 4),
+    "knn_topk_table": ("dc_knn_topk_table", [_P] * 7 + [_I] * 4),
+    "knn_topk_table_q": ("dc_knn_topk_table_q", [_P] * 7 + [_I] * 4),
     "knn_topk_bucketed": ("dc_knn_topk_bucketed", [_P] * 9 + [_I] * 7),
     "knn_topk_bucketed_q": ("dc_knn_topk_bucketed_q", [_P] * 9 + [_I] * 7),
     "edge_delta_mlp": ("dc_edge_mlp_fwd", [_P] * 6 + [_I] * 5),
@@ -118,6 +119,7 @@ _NO_GRAD = {
                         "(ops.gather_rows, ops.wls, ops.densify_coefs)",
     "knn_topk": "kNN indices carry no gradient",
     "knn_topk_mean_dist": "kNN indices carry no gradient",
+    "knn_topk_rounds": "kNN indices carry no gradient",
     "knn_topk_table": "kNN indices carry no gradient",
     "knn_topk_table_q": "kNN indices carry no gradient",
     "knn_topk_bucketed": "kNN indices carry no gradient",

@@ -23,7 +23,10 @@ takes for its Gaussian bandwidth; the launch is counted as
 
 The scores are computed elementwise in the JAX kernel's order (not as a
 matmul), so the kernel (``csrc/knn_topk.cu``) and the plain version
-give the same indices bit for bit.
+give the same indices bit for bit. Up to K = 64 the kernel selects in
+one pass over each row against a register threshold; above that the
+wrapper routes by shape to the earlier kernel, K rounds of "max, then
+remove" over each row, counted as ``knn_topk_rounds``.
 
 ``knn_topk_table(pos_q, pos_t, k, ...)``: ``pos_q [Nq, 3], pos_t [Nt, 3]
 -> idx [Nq, K]`` int32 table columns, the point-sharded local kNN
@@ -61,8 +64,9 @@ __all__ = ["knn_topk", "knn_topk_plain", "knn_topk_table",
 _BIG = 1e30
 _EMPTY = -3.0e38  # the TPU kernels' empty slot
 _MAX_PACKED_N = 65535  # the column rides in the key's low 16 bits
+_SELECT_MAX_K = 64  # knn_topk's register list; above it the rounds kernel
 _TABLE_MAX_TILE = 2048  # the table kernel stages a tile in shared memory
-_TABLE_MAX_K = 32  # and keeps the running list one entry a lane
+_TABLE_MAX_K = 32  # and keeps each tile's list in registers
 # Query rows the plain table version scores against the whole table at
 # a time ([1024, 65536] f32: 268 MB).
 _ROW_CHUNK = 1024
@@ -142,23 +146,29 @@ def knn_topk_plain(pos, k: int, quantized: bool = False,
 def knn_topk(pos, k: int, quantized: bool = False,
              return_mean_dist: bool = False):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors
-    (``knn_topk``, or ``knn_topk_mean_dist`` with the mean distances)."""
+    (``knn_topk``, or ``knn_topk_mean_dist`` with the mean distances; for
+    k > 64 ``knn_topk_rounds``, either way)."""
     if pos.device.type == "cpu":
         return knn_topk_plain(pos, k, quantized, return_mean_dist)
     _check(pos, k)
     b, n, _ = pos.shape
-    name = "knn_topk_mean_dist" if return_mean_dist else "knn_topk"
+    if k > _SELECT_MAX_K:
+        name = "knn_topk_rounds"
+    else:
+        name = "knn_topk_mean_dist" if return_mean_dist else "knn_topk"
     device = _lib.check_inputs(name, [("pos", pos, torch.float32, (b, n, 3))])
     idx = torch.empty((b, n, k), dtype=torch.int32, device=device)
+    md = (torch.empty((b, n), dtype=torch.float32, device=device)
+          if return_mean_dist else None)
     quantized = int(quantized and n <= _MAX_PACKED_N)
-    if not return_mean_dist:
+    md_ptr = None if md is None else md.data_ptr()
+    if name == "knn_topk":
         _lib.launch(name, device, pos.data_ptr(), idx.data_ptr(), b, n, k,
                     quantized)
-        return idx
-    md = torch.empty((b, n), dtype=torch.float32, device=device)
-    _lib.launch(name, device, pos.data_ptr(), idx.data_ptr(), md.data_ptr(),
-                b, n, k, quantized)
-    return idx, md
+    else:
+        _lib.launch(name, device, pos.data_ptr(), idx.data_ptr(), md_ptr, b,
+                    n, k, quantized)
+    return idx if md is None else (idx, md)
 
 
 def _fma(a, b, c):
@@ -238,7 +248,11 @@ def _table_quantized(s, is_self, valid, k, n_t, tile_c):
                                    -2**31 + low))
     best = torch.topk(keys, k, dim=-1).values  # unique keys: no ties
     qb = (best >> 16) + 32768
-    st = rmin + (qb - 1).to(torch.float32) / scale
+    # The JAX kernel's rmin + (qb - 1) / scale as XLA evaluates it: the
+    # division by 65533 / span becomes a product with span, then with
+    # 1 / 65533 (a constant), fused with the add.
+    st = _fma((qb - 1).to(torch.float32) * span,
+              torch.full_like(span, 1.0 / 65533.0), rmin)
     st = torch.where(qb == 65535, 2.0 * _BIG, st)
     st = torch.where(qb == 0, -2.0 * _BIG, st)
     base = (torch.arange(n_tiles, device=s.device) * tile_c)[:, None]
@@ -310,7 +324,14 @@ def knn_topk_table(pos_q, pos_t, k: int, row_offset=0, point_mask=None,
     name = "knn_topk_table_q" if quantized else "knn_topk_table"
     device = _lib.check_inputs(name, specs)
     idx = torch.empty((n_q, k), dtype=torch.int32, device=device)
+    # Each (row, column tile) task's K best, which the kernel's second
+    # pass merges.
+    n_tiles = -(-n_t // tile_c)
+    part_s = torch.empty((n_tiles, k, n_q), dtype=torch.float32,
+                         device=device)
+    part_i = torch.empty((n_tiles, k, n_q), dtype=torch.int32, device=device)
     _lib.launch(name, device, pos_q.data_ptr(), pos_t.data_ptr(),
                 None if mask is None else mask.data_ptr(), rows.data_ptr(),
-                idx.data_ptr(), n_q, n_t, k, tile_c)
+                part_s.data_ptr(), part_i.data_ptr(), idx.data_ptr(), n_q,
+                n_t, k, tile_c)
     return idx

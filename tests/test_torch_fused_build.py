@@ -104,6 +104,23 @@ def test_knn_topk_mean_dist_matches_jax(quantized, tol):
     assert torch.equal(idx, ops.knn_topk(_t(pos), 10, quantized))
 
 
+@pytest.mark.parametrize("quantized,tol", [(False, 1e-5), (True, 5e-4)],
+                         ids=["exact", "quantized"])
+def test_knn_topk_mean_dist_long_rows_match_jax(quantized, tol):
+    """The mean distances of rows longer than 1024 points (B=1, N=1100,
+    K=30) against the JAX kernel in interpret mode: the same ids, the
+    distances within ``tol`` (as at N=256 above)."""
+    rng = np.random.default_rng(1)
+    pos = rng.standard_normal((1, 1100, 3)).astype(np.float32)
+    want_idx, want_md = jax_knn_topk.knn_topk(
+        jnp.asarray(pos), 30, interpret=True, quantized=quantized,
+        return_mean_dist=True)
+    idx, md = ops.knn_topk(_t(pos), 30, quantized, return_mean_dist=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_allclose(md.numpy(), np.asarray(want_md), rtol=0,
+                               atol=tol)
+
+
 def _fused_inputs(rng, masked):
     pos, nrm = _cloud(rng)
     p = _t(pos)

@@ -347,22 +347,49 @@ def _bits(t):
     return t.view(torch.int16)
 
 
-@pytest.mark.parametrize("n", [77, 1024, 1500])
+def _knn_cloud(rng, b, n, cloud):
+    """``[b, n, 3]`` f32 numpy positions: ``"gauss"`` with a duplicate
+    point (one exact tie), or ``"grid"``, a coarse 9^3 grid with many
+    duplicates, where equal scores and equal quantized keys abound."""
+    if cloud == "grid":
+        return (rng.integers(-4, 5, (b, n, 3)) * 0.25).astype(np.float32)
+    pos = rng.standard_normal((b, n, 3)).astype(np.float32)
+    pos[0, 5 % n] = pos[0, 2 % n]
+    return pos
+
+
+# (B, N, K): the register-path and recomputing shapes of the earlier
+# kernel, the model shapes (N = 1024, 2048, 8192), N just above the
+# kernel's 8192-point staging tile and above two tiles, K = 1, each list
+# capacity (20, 32, 64), and K = 80 (> 64: the rounds route, N <= 1024
+# and above).
+KNN_TOPK_CASES = [(2, 77, 20), (2, 1024, 20), (2, 1500, 20), (2, 2048, 30),
+                  (2, 4096, 20), (1, 8192, 20), (2, 2049, 20), (1, 8193, 30),
+                  (1, 16400, 20), (2, 300, 1), (2, 300, 32), (2, 1100, 64),
+                  (2, 300, 80), (1, 1500, 80)]
+
+
+@pytest.mark.parametrize("cloud", ["gauss", "grid"])
+@pytest.mark.parametrize("b,n,k", KNN_TOPK_CASES)
 @pytest.mark.parametrize("quantized", [True, False])
-def test_knn_topk_kernel_exact(cuda, n, quantized):
-    """Bit-equal indices in the register path (N <= 1024) and the
-    recomputing one (N=1500), self in slot 0, a duplicate point (a tie)
-    included."""
+def test_knn_topk_kernel_exact(cuda, b, n, k, cloud, quantized):
+    """Bit-equal indices, order included, self in slot 0, on a Gaussian
+    cloud with a duplicate point and on a tie-heavy grid; one launch of
+    the selection kernel (``knn_topk``) up to K = 64, of the rounds kernel
+    (``knn_topk_rounds``) above."""
     rng = np.random.default_rng(10)
-    pos = rng.standard_normal((2, n, 3)).astype(np.float32)
-    pos[0, 5] = pos[0, 2]
-    pos = torch.from_numpy(pos).to(cuda)
-    got = ops.knn_topk(pos, 20, quantized)
-    want = ops.knn_topk_plain(pos, 20, quantized)
+    pos = torch.from_numpy(_knn_cloud(rng, b, n, cloud)).to(cuda)
+    reset_launch_counts()
+    got = ops.knn_topk(pos, k, quantized)
     torch.cuda.synchronize()
+    counts = launch_counts()
+    rounds = k > 64
+    assert (counts["knn_topk"], counts["knn_topk_rounds"]) == (
+        (0, 1) if rounds else (1, 0))
+    want = ops.knn_topk_plain(pos, k, quantized)
     assert torch.equal(got, want)
     assert torch.equal(got[:, :, 0].long(),
-                       torch.arange(n, device=cuda).expand(2, n))
+                       torch.arange(n, device=cuda).expand(b, n))
 
 
 @pytest.mark.parametrize("n,masked", [(96, False), (102, True)])
@@ -1309,40 +1336,61 @@ def test_gather_rows_kernel_longer_table(cuda):
     assert torch.equal(got, ops.gather_rows_plain(table, idx))
 
 
+def _table_cloud(rng, n, dev, cloud):
+    """A surface cloud, or a tie-heavy 9^3 grid (``"grid"``)."""
+    if cloud == "grid":
+        return torch.from_numpy(
+            (rng.integers(-4, 5, (n, 3)) * 0.25).astype(np.float32)).to(dev)
+    return _surface(rng, n, dev)
+
+
+@pytest.mark.parametrize("cloud", ["surface", "grid"])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("n_q,n_t,k,tile_c", [
-    (300, 700, 11, 128), (300, 5000, 20, 2048), (8192, 8192, 30, 2048)])
+    (300, 700, 11, 128), (300, 5000, 20, 2048), (8192, 8192, 30, 2048),
+    (8192, 8192, 20, 2048), (100, 2049, 32, 2048), (77, 4100, 1, 1024)])
 def test_knn_table_kernel_exact(cuda, n_q, n_t, k, tile_c, quantized,
-                                masked):
+                                masked, cloud):
     """Ids equal to the plain version (order included), rows offset into
-    the table, 10% of it masked; at the shard shape of the segmentation
-    slice too (N=8192, K=30)."""
+    the table, 10% of it masked, on a surface and on a tie-heavy grid; at
+    the shard shapes (N=8192, K = 20 and 30), at K = 1 and 32, and with
+    Nt not a multiple of tile_c (the last tile padded)."""
     rng = np.random.default_rng(61)
-    pos_t = _surface(rng, n_t, cuda)
+    pos_t = _table_cloud(rng, n_t, cuda, cloud)
     off = (n_t - n_q) // 2
     pm = None
     if masked:
         pm = torch.rand(n_t, device=cuda) > 0.1
         pm[off:off + n_q] = True
     args = (pos_t[off:off + n_q], pos_t, k, off, pm, tile_c, quantized)
+    reset_launch_counts()
     got = ops.knn_topk_table(*args)
     torch.cuda.synchronize()
+    name = "knn_topk_table_q" if quantized else "knn_topk_table"
+    assert launch_counts()[name] == 1
     assert torch.equal(got, ops.knn_topk_table_plain(*args))
     assert torch.equal(got[:, 0].long(),
                        off + torch.arange(n_q, device=cuda))
 
 
+@pytest.mark.parametrize("cloud", ["surface", "grid"])
 @pytest.mark.parametrize("quantized", [False, True])
-def test_knn_table_kernel_starved_and_row_ids(cuda, quantized):
+def test_knn_table_kernel_starved_and_row_ids(cuda, quantized, cloud):
     """Rows with fewer valid columns than K (masked fillers, lowest
-    first) and scattered ``row_ids`` (the repair pass): ids equal."""
+    first), masked query rows (the exact body scores a masked self -2e30,
+    the quantized one keeps it as self), and scattered ``row_ids`` (the
+    repair pass): ids equal."""
     rng = np.random.default_rng(62)
-    pos_t = _surface(rng, 3000, cuda)
+    pos_t = _table_cloud(rng, 3000, cuda, cloud)
     pm = torch.zeros(3000, dtype=torch.bool, device=cuda)
     pm[:5] = True
     pm[100:108] = True
     args = (pos_t[100:108], pos_t, 20, 100, pm, 2048, quantized)
+    got = ops.knn_topk_table(*args)
+    assert torch.equal(got, ops.knn_topk_table_plain(*args))
+    pm = torch.rand(3000, device=cuda) > 0.5
+    args = (pos_t[90:400], pos_t, 20, 90, pm, 1024, quantized)
     got = ops.knn_topk_table(*args)
     assert torch.equal(got, ops.knn_topk_table_plain(*args))
     ids = torch.randperm(3000, device=cuda)[:700].int()
@@ -1352,6 +1400,22 @@ def test_knn_table_kernel_starved_and_row_ids(cuda, quantized):
     assert torch.equal(got, ops.knn_topk_table_plain(pos_t[ids.long()],
                                                       pos_t, 20, **kw))
     assert torch.equal(got[:, 0], ids)
+
+
+@pytest.mark.parametrize("cloud", ["surface", "grid"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_knn_table_kernel_repair_shape(cuda, quantized, cloud):
+    """The bucketed kNN's repair form: 2048 scattered ``row_ids`` against
+    65,536 columns (32 tiles a row), 10% masked: ids equal."""
+    rng = np.random.default_rng(68)
+    pos_t = _table_cloud(rng, 65536, cuda, cloud)
+    pm = torch.rand(65536, device=cuda) > 0.1
+    ids = torch.randperm(65536, device=cuda)[:2048].int()
+    kw = dict(point_mask=pm, row_ids=ids, quantized=quantized)
+    got = ops.knn_topk_table(pos_t[ids.long()], pos_t, 20, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.knn_topk_table_plain(pos_t[ids.long()],
+                                                      pos_t, 20, **kw))
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -1773,22 +1837,27 @@ def test_fused_gather_wls_kernel_matches_plain(cuda, n, k, masked):
     _close_to_max(got[1], d.transpose(2, 3), 1e-5)
 
 
-@pytest.mark.parametrize("n", [77, 1024, 1500])
+@pytest.mark.parametrize("cloud", ["gauss", "grid"])
+@pytest.mark.parametrize("b,n,k", [(2, 77, 20), (2, 1024, 20),
+                                   (2, 1500, 20), (2, 2048, 30),
+                                   (1, 8192, 20), (1, 8193, 20),
+                                   (2, 2049, 1),
+                                   (2, 300, 64), (2, 300, 80)])
 @pytest.mark.parametrize("quantized", [True, False])
-def test_knn_topk_mean_dist_kernel_exact(cuda, n, quantized):
+def test_knn_topk_mean_dist_kernel_exact(cuda, b, n, k, cloud, quantized):
     """The mean distances bit-equal to the plain version's (the same
     rounding of every term, summed in round order) and the ids equal to
-    the kernel without them, in the register path and the recomputing
-    one."""
+    the kernel without them, at the model shapes, K = 1, the largest
+    list (64) and the rounds route (80), on both clouds."""
     rng = np.random.default_rng(54)
-    pos = torch.from_numpy(
-        rng.standard_normal((2, n, 3)).astype(np.float32)).to(cuda)
+    pos = torch.from_numpy(_knn_cloud(rng, b, n, cloud)).to(cuda)
     reset_launch_counts()
-    idx, md = ops.knn_topk(pos, 20, quantized, return_mean_dist=True)
-    assert launch_counts()["knn_topk_mean_dist"] == 1
-    want_idx, want_md = ops.knn_topk_plain(pos, 20, quantized, True)
+    idx, md = ops.knn_topk(pos, k, quantized, return_mean_dist=True)
+    name = "knn_topk_rounds" if k > 64 else "knn_topk_mean_dist"
+    assert launch_counts()[name] == 1
+    want_idx, want_md = ops.knn_topk_plain(pos, k, quantized, True)
     assert torch.equal(idx, want_idx) and torch.equal(md, want_md)
-    assert torch.equal(idx, ops.knn_topk(pos, 20, quantized))
+    assert torch.equal(idx, ops.knn_topk(pos, k, quantized))
 
 
 @pytest.mark.parametrize("dense,train", [(True, False), (True, True),

@@ -362,6 +362,42 @@ def test_knn_topk_plain_matches_pallas_interpret(quantized):
             assert set(got[bi, i].tolist()) == set(idx_e[bi, i].tolist())
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+def test_knn_topk_long_rows_match_pallas_interpret(quantized):
+    """Rows longer than 1024 points (B=1, N=1100, K=30), where the earlier
+    CUDA kernel changed bodies: the same ids, in the same order, as the
+    Pallas kernel in interpret mode."""
+    from deltaconv_tpu.ops.knn_topk import knn_topk as jax_knn_topk
+
+    rng = np.random.default_rng(12)
+    pos = rng.standard_normal((1, 1100, 3)).astype(np.float32)
+    want = np.asarray(jax_knn_topk(jnp.asarray(pos), 30, interpret=True,
+                                   quantized=quantized))
+    got = ops.knn_topk(_t(pos), 30, quantized=quantized)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("quantized,tol", [(False, 1e-5), (True, 5e-4)],
+                         ids=["exact", "quantized"])
+def test_knn_topk_grid_ties_match_pallas_interpret(quantized, tol):
+    """A coarse 9^3 grid of 300 points a cloud, with many duplicates: equal
+    scores and equal quantized keys, broken to the lowest column as the
+    Pallas kernel (interpret mode) breaks them; ids equal, order
+    included, and the mean distances within the tolerances of
+    ``test_knn_topk_mean_dist_matches_jax`` (XLA rounds the dequantized
+    scores otherwise)."""
+    from deltaconv_tpu.ops.knn_topk import knn_topk as jax_knn_topk
+
+    rng = np.random.default_rng(13)
+    pos = (rng.integers(-4, 5, (2, 300, 3)) * 0.25).astype(np.float32)
+    want, want_md = jax_knn_topk(jnp.asarray(pos), 20, interpret=True,
+                                 quantized=quantized, return_mean_dist=True)
+    got, md = ops.knn_topk(_t(pos), 20, quantized, return_mean_dist=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(md.numpy(), np.asarray(want_md), rtol=0,
+                               atol=tol)
+
+
 def _distinct_graph(rng, b, n, k, clamped):
     """Neighbour lists as the kNN makes them: self in slot 0, distinct
     columns, and ``clamped`` trailing slots clamped to self with zero

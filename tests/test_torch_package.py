@@ -223,6 +223,10 @@ def test_cpu_tensors_take_the_plain_versions():
     for got, want in zip(ops.gather_matmul_minmax(hb, w, idx, mask),
                          ops.gather_matmul_minmax_plain(hb, w, idx, mask)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # Above 64 neighbours (the rounds kernel's route on the card).
+    torch.testing.assert_close(ops.knn_topk(pos.repeat(1, 3, 1)[:, :70], 66),
+                               ops.knn_topk_plain(pos.repeat(1, 3, 1)[:, :70],
+                                                  66), rtol=0, atol=0)
     assert launch_counts() == {
         "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
@@ -238,7 +242,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
         "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
         "edge_delta_mlp_bwd": 0, "wls_bwd": 0, "densify_bwd": 0,
-        "fused_gather_wls": 0, "knn_topk_mean_dist": 0, "gather_minmax": 0,
+        "fused_gather_wls": 0, "knn_topk_mean_dist": 0,
+            "knn_topk_rounds": 0, "gather_minmax": 0,
         "gather_minmax_bf16": 0, "gather_minmax_win": 0,
         "gather_minmax_win_bf16": 0, "gather_minmax_bwd": 0,
         "gather_minmax_bwd_bf16": 0, "gather_matmul_minmax": 0}

@@ -157,6 +157,29 @@ def test_table_row_ids_and_starved_rows(quantized):
     assert all(len(set(row)) == k for row in got.tolist())  # distinct
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["exact", "q"])
+def test_table_grid_ties_match_jax(quantized):
+    """A coarse 9^3 grid with many duplicates (equal scores), 30% of it
+    masked, rows 150.. of a 700-point table: ids equal to the JAX
+    kernel's in interpret mode, order included. The quantized body orders
+    equal scores of different tiles by their dequantized values, so these
+    must round as XLA rounds the JAX kernel's."""
+    jt, _ = _knn_jax()
+    import jax.numpy as jnp
+    rng = np.random.default_rng(2)
+    n_t, n_q, k, off = 700, 300, 11, 150
+    pos_t = (rng.integers(-4, 5, (n_t, 3)) * 0.25).astype(np.float32)
+    pm = rng.random(n_t) > 0.3
+    want = np.asarray(jt(jnp.asarray(pos_t[off:off + n_q]),
+                         jnp.asarray(pos_t), k, row_offset=off,
+                         point_mask=jnp.asarray(pm), interpret=True,
+                         quantized=quantized, **TILES))
+    got = ops.knn_topk_table(_t(pos_t[off:off + n_q]), _t(pos_t), k,
+                             row_offset=off, point_mask=_t(pm),
+                             tile_c=TILES["tile_c"], quantized=quantized)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # -- knn_topk_bucketed (#25) -------------------------------------------------
 
 
