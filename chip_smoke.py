@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the forty-five CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the forty-seven CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -37,7 +37,13 @@ first on ``sys.path``. It
    gather_minmax_win at f32 C=256 and bf16 C=128, bit-equal,
    gather_minmax_bwd at C=256 with f32 and bf16 cotangents,
    gather_matmul_minmax at 128 -> 256, within one bf16 ulp or the f32
-   summation bound of the f64 product), uniform and masked, and times
+   summation bound of the f64 product; the bf16 matmul maxes,
+   gather_matmul_max and gather_matmul_max_win, at conv3 of both models
+   that run them, B=32, N=1024 and B=4, N=8192, 128 -> 256, through both
+   routes, the one-product-a-row kernels and the K-fold ones
+   (``_kfold``), exact sums bit-equal, random inputs held and the two
+   routes bit-equal to each other, each timed beside the per-point
+   composition ``x @ w`` then the port's max), uniform and masked, and times
    the kernel, the plain
    version and, where
    PyTorch's library calls compute the same function, those calls with
@@ -76,7 +82,13 @@ first on ``sys.path``. It
    the last conv's max in both forms, for eval (``gather_matmul_max``,
    and ``x @ w`` followed by ``gather_max_affine`` at C=256) and for
    training (``gather_matmul_max_win``, and ``x @ w`` rounded to bf16
-   followed by ``gather_max_win_bf16`` at C=256);
+   followed by ``gather_max_win_bf16`` at C=256), at B=32, N=1024 and
+   B=4, N=8192, by CUDA events and in device time; ``[device-times]``
+   prints the device time of a 32-cloud bf16 classification forward, a
+   bf16 classification step, a 4-cloud large-cloud bf16 forward and a
+   large-cloud bf16 step (each of these paths launches the matmul max's
+   one-product-a-row kernel once a call and its K-fold route never,
+   which their phases check);
 6. trains the f32 model at the reference recipe (B=32 clouds of
    N=1024, SGD lr 0.1, momentum 0.9, weight decay 1e-4, label smoothing
    0.2, dropout 0.5 from a seeded CUDA generator) for 20 steps on one
@@ -259,7 +271,12 @@ first on ``sys.path``. It
 26. ``[knn-rounds]``: ``geometry.knn`` with 80 neighbours (more than the
     selection kernel's 64) on 4 clouds of 1024 points: one launch of
     ``knn_topk_rounds`` and none of ``knn_topk``, ids equal to the plain
-    version.
+    version;
+27. ``[matmul-max-kfold]``: one cloud of 10,100 points (above the
+    one-product-a-row kernels' 10,038 at C_in = 128): gather_matmul_max
+    with the epilogue and gather_matmul_max_train forward and backward
+    launch ``gather_matmul_max_kfold`` and ``gather_matmul_max_win_kfold``
+    once each, exact sums bit-equal to the plain versions.
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -269,6 +286,7 @@ record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import re
@@ -334,6 +352,13 @@ BF16_STATS_RTOL = 1e-3  # x max
 BF16_PARAM_FROB = 2e-2  # relative Frobenius, all parameters at once
 BF16_F32_RATIO = 1.25  # gradients' distance to the f32 step, kernels/plain
 MM_WIN_FRAC = 1e-4  # gather_matmul_max_win: share of 1-ulp values, flips
+# The bf16 matmul maxes at conv3 of both models that run them: (B, N) of
+# classification and of the large clouds (K=20, MM_IN -> MM_OUT); their
+# one-product-a-row kernels take one cloud of up to 10,038 points at
+# C_in = 128 (ops.gather_matmul_max.mm_slice), the K-fold route above.
+MM_SHAPES = ((32, 1024), (4, 8192))
+MM_KFOLD_N = 10100  # [matmul-max-kfold]: one cloud above that limit
+PATH_WARMUP = 5  # [device-times]: calls before each traced one
 # Segmentation serving: the ShapeNet config (experiments/train_shapenet.py,
 # bench.py's seg mode): B=16 clouds of N=2048 points, k=30, conv channels
 # (64, 128, 256), MLP depth 2, 50 part classes, the categorical head.
@@ -489,12 +514,18 @@ KERNEL_META = {
                           "deltaconv_tpu/ops/gather_max.py:666"),
     "gather_matmul_max": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
                           "deltaconv_tpu/ops/gather_max.py:756"),
+    "gather_matmul_max_kfold": (
+        "deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
+        "deltaconv_tpu/ops/gather_max.py:756"),
     "gather_max_win_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
                             "deltaconv_tpu/ops/gather_max.py:230"),
     "gather_max_bwd_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
                             "deltaconv_tpu/ops/gather_max.py:362"),
     "gather_matmul_max_win": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
                               "deltaconv_tpu/ops/gather_max.py:865"),
+    "gather_matmul_max_win_kfold": (
+        "deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
+        "deltaconv_tpu/ops/gather_max.py:865"),
     "gather_max_bf16": ("deltaconv_tpu_torch/csrc/gather_max.cu",
                         "deltaconv_tpu/ops/gather_max.py:230"),
     "gather_mlp_max": ("deltaconv_tpu_torch/csrc/gather_mlp_max.cu",
@@ -801,7 +832,8 @@ def check_bf16_kernels(record, label, pos, idx, nbr_mask, gd, dev):
 def check_bf16_train_kernels(record, idx, nbr_mask, dev):
     """The three kernels of the bf16 train step against their plain
     versions at its shapes: gather_max_win_bf16 (values and winners
-    bit-equal), gather_max_bwd_bf16 (atomics: SCATTER_RTOL x max) and
+    bit-equal), gather_max_bwd_bf16 (f64 sums: bit-equal to plain and
+    across two calls) and
     gather_matmul_max_win (values within one bf16 ulp on at most
     MM_WIN_FRAC of the elements, winners equal on all but MM_WIN_FRAC,
     and where a winner differs the plain products at the two slots are
@@ -823,11 +855,13 @@ def check_bf16_train_kernels(record, idx, nbr_mask, dev):
         g = torch.randn((B, N, c), device=dev).to(torch.bfloat16)
         _, win = ops.gather_max_win_plain(h, idx, nbr_mask)
         dh = ops.gather_max_bwd(idx, win, g, N)
+        again = ops.gather_max_bwd(idx, win, g, N)
         dh_p = ops.gather_max_bwd_plain(idx, win, g, N)
-        err, tol = max_err(dh, dh_p), SCATTER_RTOL * float(dh_p.abs().max())
+        err = max_err(dh, dh_p)
         record("gather_max_bwd_bf16", err)
-        check(f"gather_max_bwd_bf16 C={c}", err <= tol,
-              f"max_abs_err {err} <= {tol}")
+        check(f"gather_max_bwd_bf16 C={c}",
+              torch.equal(dh, dh_p) and torch.equal(dh, again),
+              f"max_abs_err {err}, bit-equal to plain and across two calls")
 
     x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
     w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
@@ -874,6 +908,32 @@ def mm_max_held(got, x, w, idx, mask):
                 f"{float((ulps > 0).float().mean())} of elements differ (f32 "
                 f"sum order), {beyond} beyond one ulp; all within one ulp or "
                 f"the f32 sum bound of the exact max: {ok}")
+
+
+def mm_win_held(out, win, win_p, x, w, idx, mask):
+    """``(ok, detail)``: the train-form matmul max (bf16 ``out`` and its
+    winner slots ``win``) held as :func:`mm_max_held` holds the eval form
+    (its values are the bf16-rounded max), winners equal to the plain
+    version's ``win_p`` on all but MM_WIN_FRAC of the elements, and where
+    one differs the exact (f64) products at the two slots within the f32
+    summation bounds of both plus one bf16 ulp of the larger (two f32
+    sums in another order may rank them either way)."""
+    ok, detail = mm_max_held(out, x, w, idx, mask)
+    xd, wd = x.double(), w.double()
+    y, mag = xd @ wd, xd.abs() @ wd.abs()
+
+    def at(t, winner):
+        return torch.gather(t, 1, torch.gather(idx.long(), 2, winner.long()))
+
+    flip = win != win_p
+    a, a_p = at(y, win)[flip], at(y, win_p)[flip]
+    tol = (x.shape[-1] * 2.0 ** -24 * (at(mag, win) + at(mag, win_p))[flip]
+           + 2.0 ** -7 * torch.maximum(a.abs(), a_p.abs()))
+    share = float(flip.float().mean())
+    near = bool(((a - a_p).abs() <= tol).all())
+    return (ok and share <= MM_WIN_FRAC and near,
+            f"values: {detail}; winners differ on {share} of elements, the "
+            f"exact products at the two slots within the sum bound: {near}")
 
 
 def check_int8_kernels(record, idx, nbr_mask, gd, dev):
@@ -934,7 +994,8 @@ def check_minmax_kernels(record, idx, nbr_mask, dev):
     the classification shapes: gather_minmax and gather_minmax_win at f32
     C=256 and their bf16 bodies at C=128 (values and winners bit-equal: a
     max and a min are exact), gather_minmax_bwd at C=256 with f32 and
-    bf16 cotangents (atomics: SCATTER_RTOL x max), gather_matmul_minmax
+    bf16 cotangents (f64 sums: bit-equal to plain and across two calls),
+    gather_matmul_minmax
     at 128 -> 256 (``mm_minmax_held``: one bf16 ulp, or the f32
     summation bound of the f64 product)."""
     from deltaconv_tpu_torch import ops
@@ -967,11 +1028,13 @@ def check_minmax_kernels(record, idx, nbr_mask, dev):
         gmx, gmn = (torch.randn((B, N, MINMAX_C), device=dev).to(dt)
                     for _ in range(2))
         dh = ops.gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, N)
+        again = ops.gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, N)
         dh_p = ops.gather_minmax_bwd_plain(idx, wmx, gmx, wmn, gmn, N)
-        err, tol = max_err(dh, dh_p), SCATTER_RTOL * float(dh_p.abs().max())
+        err = max_err(dh, dh_p)
         record(f"gather_minmax_bwd{sfx}", err)
-        check(f"gather_minmax_bwd{sfx} C={MINMAX_C}", err <= tol,
-              f"max_abs_err {err} <= {tol}")
+        check(f"gather_minmax_bwd{sfx} C={MINMAX_C}",
+              torch.equal(dh, dh_p) and torch.equal(dh, again),
+              f"max_abs_err {err}, bit-equal to plain and across two calls")
     x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
     w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
     got = ops.gather_matmul_minmax(x, w, idx, nbr_mask)
@@ -1608,6 +1671,158 @@ def time_edge_mlp_kernels(res, idx, dev, card):
               f"{res[name]['bound'][0]:.4f} ms ({res[name]['bound'][1]})")
 
 
+def matmul_max_phase(res, rng, dev, card):
+    """``[kernels]`` of the bf16 matmul maxes at conv3 of both models that
+    run them (MM_SHAPES: B=32, N=1024 and B=4, N=8192; K=20, MM_IN ->
+    MM_OUT), on ellipsoid clouds, uniform and masked graphs, through both
+    routes: the one-product-a-row kernels (the route by shape) and the
+    K-fold kernels (``_kfold``, forced): on exact-sum inputs values,
+    winners and the epilogue bit-equal to the plain versions; on random
+    inputs the eval form held by :func:`mm_max_held`, its epilogue
+    bit-equal to the replay on its own max, the train form by
+    :func:`mm_win_held`, and the two routes bit-equal to each other (the
+    same tensor-core sums in the same order); each call's launches show
+    its route. Then, at each shape, the time of both routes beside the
+    per-point composition (``x @ w``, then the port's ``gather_max_affine``
+    or ``gather_max_win``), the plain versions and the bounds, by CUDA
+    events and in device time (profiler). The records of the ``_kfold``
+    routes are at the classification shape. Its clouds come from a
+    generator spawned off ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import knn
+
+    gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+    rng = rng.spawn(1)[0]
+    names = ("gather_matmul_max", "gather_matmul_max_win")
+
+    def through(route, x, w, idx, mask, aff):
+        """(raw, with the epilogue, out, winners) through ``route`` and
+        the launches they made."""
+        cs = None if route == "rows" else 0
+        reset_launch_counts()
+        got = (gm._gather_matmul_max(x, w, idx, mask, None, cs),
+               gm._gather_matmul_max(x, w, idx, mask, aff, cs),
+               *gm._gather_matmul_max_win(x, w, idx, mask, cs))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        sfx, other = ("", "_kfold") if route == "rows" else ("_kfold", "")
+        check(f"{route} route launches",
+              counts[names[0] + sfx] == 2 and counts[names[1] + sfx] == 1
+              and counts[names[0] + other] + counts[names[1] + other] == 0,
+              f"{ {n: c for n, c in counts.items() if c} }")
+        return got
+
+    def same(a, b):
+        return bits_equal(a, b) if a.dtype == torch.bfloat16 else \
+            torch.equal(a, b)
+
+    timings = {}
+    for b, n in MM_SHAPES:
+        clouds, _ = ellipsoid_clouds(rng, [n] * b)
+        pos = torch.from_numpy(np.stack(clouds)).to(dev)
+        pmask = torch.ones((b, n), dtype=torch.bool, device=dev)
+        pmask[::2, int(0.6 * n):] = False
+        aff = random_affine(MM_OUT, dev)
+        for label, pm in (("uniform", None), ("masked", pmask)):
+            idx, nbr_mask = knn(pos, K, pm)
+            if pm is not None:
+                nbr_mask = nbr_mask & pm[:, :, None]
+            print(f"[kernels] matmul maxes B={b} N={n} K={K} "
+                  f"{MM_IN}->{MM_OUT}, {label}, one-product-a-row slice "
+                  f"{gm.mm_slice(b, n, MM_IN, MM_OUT, K, 132)} columns",
+                  flush=True)
+            xe = (torch.randint(-32, 33, (b, n, MM_IN), device=dev) / 8.0
+                  ).to(torch.bfloat16)
+            we = (torch.randint(-16, 17, (MM_IN, MM_OUT), device=dev) / 16.0
+                  ).to(torch.bfloat16)
+            want = (ops.gather_matmul_max_plain(xe, we, idx, nbr_mask),
+                    ops.gather_matmul_max_plain(xe, we, idx, nbr_mask, aff),
+                    *ops.gather_matmul_max_win_plain(xe, we, idx, nbr_mask))
+            for route in ("rows", "kfold"):
+                got = through(route, xe, we, idx, nbr_mask, aff)
+                check(f"{route} route, exact sums",
+                      all(same(g, v) for g, v in zip(got, want)),
+                      "max, max with the epilogue, train max and winners "
+                      "bit-equal to the plain versions")
+            x = torch.randn((b, n, MM_IN), device=dev).to(torch.bfloat16)
+            w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8
+                 ).to(torch.bfloat16)
+            raw_p = ops.gather_matmul_max_plain(x, w, idx, nbr_mask)
+            out_p, win_p = ops.gather_matmul_max_win_plain(x, w, idx,
+                                                           nbr_mask)
+            valid = nbr_mask.any(dim=-1, keepdim=True)
+            both = {}
+            for route in ("rows", "kfold"):
+                raw, fused, out, win = both[route] = through(
+                    route, x, w, idx, nbr_mask, aff)
+                sfx = "" if route == "rows" else "_kfold"
+                record = res[names[0] + sfx]
+                record["max_abs_err"] = max(record["max_abs_err"], max_err(
+                    raw.float(), raw_p.float()))
+                record = res[names[1] + sfx]
+                record["max_abs_err"] = max(record["max_abs_err"], max_err(
+                    out.float(), out_p.float()))
+                ok, detail = mm_max_held(raw, x, w, idx, nbr_mask)
+                check(f"{route} route, eval form", ok, detail)
+                check(f"{route} route, the epilogue",
+                      bits_equal(fused, ops.bn_lrelu_epilogue(
+                          raw.float(), aff, valid)),
+                      "bit-equal to the epilogue replayed on its own max")
+                ok, detail = mm_win_held(out, win, win_p, x, w, idx,
+                                         nbr_mask)
+                check(f"{route} route, train form", ok, detail)
+            check("the two routes, random inputs",
+                  all(same(g, v) for g, v in zip(both["rows"],
+                                                  both["kfold"])),
+                  "max, max with the epilogue, train max and winners "
+                  "bit-equal")
+            torch.cuda.synchronize()
+            if label == "uniform":
+                timings[(b, n)] = (x, w, idx, nbr_mask, aff)
+
+    print(f"[times] the bf16 matmul maxes, {MM_IN}->{MM_OUT}, K={K}, per "
+          f"call: median of {REPS} CUDA-event samples of {INNER} calls, and "
+          f"device time (profiler); card: {card}")
+    for (b, n), (x, w, idx, nbr_mask, aff) in timings.items():
+        forms = {
+            "gather_matmul_max": (
+                lambda: gm._gather_matmul_max(x, w, idx, nbr_mask, aff),
+                lambda: gm._gather_matmul_max(x, w, idx, nbr_mask, aff, 0),
+                lambda: ops.gather_max_affine(torch.matmul(x, w), idx,
+                                              nbr_mask, aff),
+                lambda: ops.gather_matmul_max_plain(x, w, idx, nbr_mask,
+                                                    aff),
+                (x, w, idx, nbr_mask, torch.stack(aff),
+                 torch.empty((b, n, MM_OUT), dtype=torch.bfloat16,
+                             device=dev))),
+            "gather_matmul_max_win": (
+                lambda: gm._gather_matmul_max_win(x, w, idx, nbr_mask),
+                lambda: gm._gather_matmul_max_win(x, w, idx, nbr_mask, 0),
+                lambda: ops.gather_max_win(torch.matmul(x, w), idx,
+                                           nbr_mask),
+                lambda: ops.gather_matmul_max_win_plain(x, w, idx, nbr_mask),
+                (x, w, idx, nbr_mask,
+                 *ops.gather_matmul_max_win_plain(x, w, idx, nbr_mask))),
+        }
+        for name, (rows, kfold, composed, plain, io) in forms.items():
+            # One product a row: 2 B N C_in C_out operations.
+            bd = bound(nbytes(*io), 2.0 * b * n * MM_IN * MM_OUT,
+                       BF16_TC_OPS_PER_S)
+            t = {label: (median_ms(fn), device_ms(fn, 5)) for label, fn in
+                 (("rows", rows), ("kfold", kfold), ("per point", composed))}
+            pl = median_ms(plain, 5)
+            print(f"  {name} B={b} N={n}: one product a row {t['rows'][0]:.4f}"
+                  f" ms ({t['rows'][1]:.4f} ms of device time); K-fold "
+                  f"{t['kfold'][0]:.4f} ({t['kfold'][1]:.4f}); x @ w then "
+                  f"the port's max {t['per point'][0]:.4f} "
+                  f"({t['per point'][1]:.4f}); plain {pl:.4f}; bound "
+                  f"{bd[0]:.4f} ms ({bd[1]})", flush=True)
+            if (b, n) == (B, N):
+                res[name + "_kfold"].update(
+                    ms=t["kfold"][0], plain_ms=pl, bound=bd,
+                    library_ms=res[name]["library_ms"])
+
+
 def kernel_phase(rng, dev, card):
     """Each kernel against its plain version at the main paths' shapes;
     times, bounds and library-call times at the uniform shapes."""
@@ -1685,12 +1900,14 @@ def kernel_phase(rng, dev, card):
 
             g = torch.randn((B, N, c), device=dev)
             dh = ops.gather_max_bwd(idx, win_p, g, N)
+            again = ops.gather_max_bwd(idx, win_p, g, N)
             dh_p = ops.gather_max_bwd_plain(idx, win_p, g, N)
-            err, tol = max_err(dh, dh_p), SCATTER_RTOL * float(
-                dh_p.abs().max())
+            err = max_err(dh, dh_p)
             record("gather_max_bwd", err)
-            check(f"gather_max_bwd C={c}", err <= tol,
-                  f"max_abs_err {err} <= {tol}")
+            check(f"gather_max_bwd C={c}",
+                  torch.equal(dh, dh_p) and torch.equal(dh, again),
+                  f"max_abs_err {err}, bit-equal to plain and across two "
+                  f"calls")
 
             got = ops.gather_sum_fwd(h, idx, nbr_mask)
             want = ops.gather_sum_fwd_plain(h, idx, nbr_mask)
@@ -1940,6 +2157,7 @@ def kernel_phase(rng, dev, card):
     time_minmax_kernels(res, idx, nbr_mask, dev)
     time_seg_kernels(res, *seg_cases["uniform"][:2], dev, card)
     time_edge_mlp_kernels(res, seg_cases["uniform"][0], dev, card)
+    matmul_max_phase(res, rng, dev, card)
     del seg_cases, cases
     knn_kernel_phase(res, rng, dev, card)
     coef_kernel_phase(res, rng, dev, card)
@@ -2062,6 +2280,15 @@ def held_to(label, got, ref, rel, rows="clouds"):
           f"{len(ref)} decisive {rows} {same}")
 
 
+def matmul_max_once(name, counts, calls, what):
+    """The bf16 matmul max ``name`` (conv3) launched once a forward or
+    step through its one-product-a-row kernel, its K-fold route never."""
+    check(f"{name} once a {what}, {name}_kfold never",
+          counts[name] == calls and counts[f"{name}_kfold"] == 0,
+          f"{counts[name]} and {counts[f'{name}_kfold']} launches in "
+          f"{calls} {what}s")
+
+
 def serve_lowp_phase(clouds, seed, dev, card, precision):
     """The JAX package's production serving configs, approximate kNN on
     the same random weights and clouds: bf16 compute and operators
@@ -2109,6 +2336,8 @@ def serve_lowp_phase(clouds, seed, dev, card, precision):
         for name, per in INT8_PER_FORWARD.items():
             check(f"{name} {per} a forward", counts[name] == per * forwards,
                   f"{counts[name]} launches in {forwards} forwards")
+    else:
+        matmul_max_once("gather_matmul_max", counts, forwards, "forward")
     for label, cl, normals, got in (("uniform", uni, uni_n, logits_u),
                                     ("ragged", rag, rag_n, logits_r)):
         held_to(f"{label} kernel vs plain path", got,
@@ -2345,30 +2574,127 @@ def conv2_seg_forms(dev, card):
 
 
 def conv3_forms(dev, card):
-    """The last conv's max in both forms, at its shapes: gather then
-    matmul (``gather_matmul_max``, the JAX package's TPU choice, K times
-    the products) and matmul then gather (``x @ w``, then
-    ``gather_max_affine`` at C_out)."""
+    """The last conv's max in both forms, for eval and training, at the
+    shapes of both models that run it (MM_SHAPES): the wrappers
+    (``gather_matmul_max`` with the epilogue, ``gather_matmul_max_win``)
+    and matmul then gather (``x @ w``, then ``gather_max_affine`` or
+    ``gather_max_win`` at C_out), by CUDA events and in device time. It
+    calls the public functions only, so that it times another checkout's
+    package too (imported from that checkout's root)."""
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.geometry import knn
 
-    pos = torch.randn((B, N, 3), device=dev)
-    idx, nbr_mask = knn(pos, K)
-    x = torch.randn((B, N, MM_IN), device=dev).to(torch.bfloat16)
-    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    for b, n in MM_SHAPES:
+        pos = torch.randn((b, n, 3), device=dev)
+        idx, nbr_mask = knn(pos, K)
+        x = torch.randn((b, n, MM_IN), device=dev).to(torch.bfloat16)
+        w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+        aff = random_affine(MM_OUT, dev)
+        forms = (
+            ("eval", "gather_matmul_max",
+             lambda: ops.gather_matmul_max(x, w, idx, nbr_mask, aff),
+             "gather_max_affine",
+             lambda: ops.gather_max_affine(torch.matmul(x, w), idx, nbr_mask,
+                                           aff)),
+            ("training forward", "gather_matmul_max_win",
+             lambda: ops.gather_matmul_max_win(x, w, idx, nbr_mask),
+             "gather_max_win_bf16",
+             lambda: ops.gather_max_win(torch.matmul(x, w), idx, nbr_mask)))
+        for what, one, f_one, two, f_two in forms:
+            print(f"[conv3] {what}, {MM_IN}->{MM_OUT}, B={b} N={n} K={K}: "
+                  f"{one} {median_ms(f_one):.4f} ms "
+                  f"({device_ms(f_one, 5):.4f} ms of device time); x @ w "
+                  f"(bf16) then {two} {median_ms(f_two):.4f} ms "
+                  f"({device_ms(f_two, 5):.4f}); card: {card}", flush=True)
+
+
+def path_device_times(seed, dev, card):
+    """``[device-times]``: the device time (profiler, :func:`device_ms`)
+    of one call of each path that runs a bf16 matmul max: a 32-cloud bf16
+    classification forward (``InferenceEngine.predict``, approximate kNN),
+    the bf16 classification train step (reference recipe), a 4-cloud
+    large-cloud bf16 forward (N=8192, coefficient form) and the large-cloud
+    bf16 step, each after PATH_WARMUP calls. Public functions only, as
+    :func:`conv3_forms`."""
+    from deltaconv_tpu_torch import InferenceEngine
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    rng = np.random.default_rng(seed + 15)
+    times = {}
+    for label, b, n, lr, dense in (("classification", B, N, TRAIN_LR, True),
+                                   ("large-cloud", LARGE_B, LARGE_N,
+                                    LARGE_LR, False)):
+        model = random_model(seed, dev, knn_method="approx",
+                             dense_operators=dense)
+        engine = InferenceEngine(model, num_points=n, batch_size=b,
+                                 precision="bfloat16")
+        clouds, normals = ellipsoid_clouds(rng, [n] * b)
+        for _ in range(PATH_WARMUP):
+            engine.predict(clouds, normals)
+        times[f"{label} bf16 forward ({b} clouds)"] = device_ms(
+            lambda: engine.predict(clouds, normals))
+        del engine, model
+        batch = train_batch(rng, dev, [n] * b, n)
+        model = random_model(seed, dev, affine=False, knn_method="approx",
+                             precision="bfloat16", dense_operators=dense)
+        state = create_train_state(model, sgd_momentum(lr))
+        step = make_train_step(model, smoothing=0.2)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for _ in range(PATH_WARMUP):
+            step(state, batch, gen)
+        times[f"{label} bf16 step"] = device_ms(
+            lambda: step(state, batch, gen))
+        del state, step, model, batch
+    print("[device-times] device time of one call (profiler): " + "; ".join(
+        f"{label} {ms:.3f} ms" for label, ms in times.items())
+        + f"; card: {card}", flush=True)
+
+
+def matmul_kfold_phase(rng, dev):
+    """``[matmul-max-kfold]``: one cloud of MM_KFOLD_N points, above the
+    one-product-a-row kernels' limit at C_in = 128: ``gather_matmul_max``
+    with the epilogue and ``gather_matmul_max_train`` (forward and
+    backward) launch the K-fold kernels once each and the
+    one-product-a-row kernels never; exact-sum inputs bit-equal to the
+    plain versions. Its cloud comes from a generator spawned off
+    ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import knn
+
+    rng = rng.spawn(1)[0]
+    clouds, _ = ellipsoid_clouds(rng, [MM_KFOLD_N])
+    idx, nbr_mask = knn(torch.from_numpy(np.stack(clouds)).to(dev), K)
+    x = (torch.randint(-32, 33, (1, MM_KFOLD_N, MM_IN), device=dev) / 8.0
+         ).to(torch.bfloat16)
+    w = (torch.randint(-16, 17, (MM_IN, MM_OUT), device=dev) / 16.0
+         ).to(torch.bfloat16)
     aff = random_affine(MM_OUT, dev)
-    one = median_ms(lambda: ops.gather_matmul_max(x, w, idx, nbr_mask, aff))
-    two = median_ms(lambda: ops.gather_max_affine(torch.matmul(x, w), idx,
-                                                  nbr_mask, aff))
-    print(f"[conv3] {MM_IN}->{MM_OUT}, B={B} N={N} K={K}: gather_matmul_max "
-          f"{one:.4f} ms; x @ w then gather_max_affine {two:.4f} ms; card: "
-          f"{card}")
-    one = median_ms(lambda: ops.gather_matmul_max_win(x, w, idx, nbr_mask))
-    two = median_ms(lambda: ops.gather_max_win(
-        torch.matmul(x, w), idx, nbr_mask))
-    print(f"[conv3] training forward, {MM_IN}->{MM_OUT}: "
-          f"gather_matmul_max_win {one:.4f} ms; x @ w (bf16) then "
-          f"gather_max_win_bf16 {two:.4f} ms; card: {card}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fused = ops.gather_matmul_max(x, w, idx, nbr_mask, aff)
+    xg = x.clone().requires_grad_()
+    out = ops.gather_matmul_max_train(xg, w, idx, nbr_mask)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"[matmul-max-kfold] launches, N={MM_KFOLD_N}: "
+          f"{ {n: c for n, c in counts.items() if c} }")
+    check("[matmul-max-kfold] the K-fold kernels once each, the "
+          "one-product-a-row kernels never",
+          counts["gather_matmul_max_kfold"] == 1
+          and counts["gather_matmul_max_win_kfold"] == 1
+          and counts["gather_matmul_max"] + counts["gather_matmul_max_win"]
+          == 0 and counts["gather_max_bwd_bf16"] == 1,
+          f"{counts['gather_matmul_max_kfold']}, "
+          f"{counts['gather_matmul_max_win_kfold']}, "
+          f"{counts['gather_matmul_max']}, {counts['gather_matmul_max_win']}")
+    check("[matmul-max-kfold] exact sums",
+          bits_equal(fused, ops.gather_matmul_max_plain(x, w, idx, nbr_mask,
+                                                        aff))
+          and bits_equal(out.detach(), ops.gather_matmul_max_win_plain(
+              x, w, idx, nbr_mask)[0]), "bit-equal to the plain versions")
+    return counts
 
 
 def train_batch(rng, dev, sizes, n=N):
@@ -2674,6 +3000,7 @@ def train_bf16_phase(rng, seed, dev, card):
     for name in TRAIN_BF16_KERNELS:
         check(f"{name} launched in bf16 training", counts[name] > 0,
               f"{counts[name]} launches")
+    matmul_max_once("gather_matmul_max_win", counts, TRAIN_STEPS, "step")
     t = float(np.median(times))
     print(f"[train-bf16] B={B} N={N} K={K}, reference width, bf16 compute "
           f"and operators, knn_method=approx: median {t * 1e3:.3f} ms per "
@@ -3177,6 +3504,8 @@ def serve_large_phase(clouds, seed, dev, card, precision):
     for name, per in COEF_PER_FORWARD.items():
         check(f"{name} {per} a forward", counts[name] == per * forwards,
               f"{counts[name]} launches in {forwards} forwards")
+    if precision:
+        matmul_max_once("gather_matmul_max", counts, forwards, "forward")
     check("no dense assembly", counts["densify"] + counts["densify_bf16"]
           == 0, "densify launched 0 times")
     refs = {}
@@ -3335,6 +3664,7 @@ def train_large_phase(rng, seed, dev, card):
     for name in TRAIN_LARGE_KERNELS:
         check(f"{name} launched in large training", counts[name] > 0,
               f"{counts[name]} launches")
+    matmul_max_once("gather_matmul_max_win", counts, LARGE_STEPS, "step")
     per_step = dict(COEF_PER_FORWARD, scatter_rows=SCATTERS_PER_STEP,
                     inverse_adjacency=SCATTERS_PER_STEP)
     for name, per in per_step.items():
@@ -4286,6 +4616,20 @@ def pos_grad_once(batch, seed, dev, ops, train, **config):
     return float(loss), p.grad, q.grad
 
 
+@contextlib.contextmanager
+def deterministic_torch():
+    """PyTorch's deterministic algorithms (its ``scatter_add_`` on the card
+    then sums in a fixed order; an op with no deterministic form raises),
+    restored after."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
 def compare_pos_grads(label, batch, seed, dev, train, per_backward,
                       plain_build, **config):
     """One backward through the kernels, then through the plain versions:
@@ -4295,7 +4639,16 @@ def compare_pos_grads(label, batch, seed, dev, train, per_backward,
     through the plain build (its WLS forward ~1e-6 away, enough to flip
     neighbour-max winners at near-ties): the loss is held and the
     gradients' deviation printed. Counts the kernel side's launches:
-    ``per_backward`` exactly, and returns them."""
+    ``per_backward`` exactly, and returns them.
+
+    Both sides run under :func:`deterministic_torch`, so that in eval
+    mode neither side's sums depend on the order of atomics (the
+    kernels' max backward sums in f64): the normal gradient of a point
+    with a near-duplicate neighbour is a sum of terms ~1/distance that
+    cancel, which amplifies the last bits of such sums, and with
+    atomics in f32 the large-cloud reading changed from run to run
+    (1.3e-4 to 1.1e-3 x max on one batch). In train mode the kernels'
+    ``gather_sum_bwd`` still adds in f32 in any order."""
     from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS, launch_counts,
                                      reset_launch_counts)
     from deltaconv_tpu_torch.ops import (coef_apply_div_plain,
@@ -4310,8 +4663,9 @@ def compare_pos_grads(label, batch, seed, dev, train, per_backward,
         gather_sum=gather_sum_plain, coef_apply_grad=coef_apply_grad_plain,
         coef_apply_div=coef_apply_div_plain)
     reset_launch_counts()
-    lk, gpk, gnk = pos_grad_once(batch, seed, dev, KERNEL_OPS, train,
-                                 **config)
+    with deterministic_torch():
+        lk, gpk, gnk = pos_grad_once(batch, seed, dev, KERNEL_OPS, train,
+                                     **config)
     counts = launch_counts()
     for name, per in per_backward.items():
         check(f"{label} {name} {per} a backward", counts[name] == per,
@@ -4320,8 +4674,9 @@ def compare_pos_grads(label, batch, seed, dev, train, per_backward,
     if plain_build:
         routes.append(("plain build", PLAIN_OPS))
     for route, plain in routes:
-        lp, gpp, gnp = pos_grad_once(batch, seed, dev, plain, train,
-                                     **config)
+        with deterministic_torch():
+            lp, gpp, gnp = pos_grad_once(batch, seed, dev, plain, train,
+                                         **config)
         check(f"{label} loss kernels vs plain ({route})",
               abs(lk - lp) <= LOSS_RTOL * abs(lp),
               f"{lk} vs {lp}, rel {abs(lk - lp) / abs(lp):.3e} <= "
@@ -4683,6 +5038,8 @@ def main():
     apply_times(clouds, dev, card)
     conv3_forms(dev, card)
     mark("serving")
+    path_device_times(args.seed, dev, card)
+    mark("device times")
     train, stream = train_phase(rng, args.seed, dev, card)
     train_bf16 = train_bf16_phase(rng, args.seed, dev, card)
     mark("training")
@@ -4716,6 +5073,8 @@ def main():
     mark("min/max hooks")
     rounds = knn_rounds_phase(rng, dev)
     mark("kNN rounds route")
+    kfold = matmul_kfold_phase(rng, dev)
+    mark("matmul max K-fold route")
     print("[time] seconds per group of phases: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
@@ -4743,7 +5102,9 @@ def main():
                              (("knn_topk_mean_dist", "fused_gather_wls"),
                               fused_build),
                              (MINMAX_KERNELS, minmax),
-                             (("knn_topk_rounds",), rounds)):
+                             (("knn_topk_rounds",), rounds),
+                             (("gather_matmul_max_kfold",
+                               "gather_matmul_max_win_kfold"), kfold)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

@@ -1,7 +1,8 @@
-// The masked gather-then-matmul max on the tensor cores, shared by the
-// bf16 eval and train kernels (gather_max_bf16.cu) and the int8 serving
-// kernel (gather_max_int8.cu), with the helpers of the BatchNorm +
-// LeakyReLU epilogue. The design and its bound are described in
+// The masked gather-then-matmul max on the tensor cores (the K-fold
+// form: a product a gathered slot), shared by the bf16 maxes' route above
+// ~10k points and gather_matmul_minmax (gather_max_bf16.cu) and the int8
+// serving kernel (gather_max_int8.cu), with the helpers of the BatchNorm
+// + LeakyReLU epilogue. The design and its bound are described in
 // gather_max_bf16.cu; the input rows are bf16, or int8 widened to bf16
 // as they are gathered (exact: |v| <= 127).
 #pragma once

@@ -1,0 +1,560 @@
+// The bf16 matmul maxes with one product a row (gather_max_bf16.cu's
+// `gather_matmul_max` and `gather_matmul_max_win`; the design and its
+// bound are described there): a block takes one task, a cloud b and a
+// slice of kCs output columns, computes y = bf16(x[b] @ w[:, slice]) for
+// every row of the cloud into shared memory, then takes each point's
+// masked max over its K slots out of that slice.
+#pragma once
+
+#include "gather_matmul_max.cuh"
+
+namespace {
+
+constexpr int kRowsWarps = 16;
+constexpr int kTileRows = 128;    // x rows a ring stage: 8 m-tiles
+constexpr int kMaxStages = 4;     // x ring stages, as many as fit
+constexpr int kBRegSteps = 8;     // k-steps whose B fragments fit registers
+constexpr int kRowsInFlight = 4;  // y rows a lane reads before its maxes
+constexpr size_t kRowsSmemMax = 232448;  // a block's shared memory, H100
+constexpr unsigned kNegInf2 = 0xFF80FF80u;  // two bf16 -inf
+
+// Row strides in bf16. An x row is padded by 16 bytes, a W-slice row to
+// an odd number of 16-byte chunks, so that the 8 rows of an ldmatrix
+// fall on 8 distinct bank groups.
+__host__ __device__ inline int rows_ldx(int Cin) { return Cin + 8; }
+__host__ __device__ inline int rows_ldw(int Cs) {
+  return Cs >= 16 ? Cs + 8 : Cs;
+}
+
+// Shared memory of a block with `stages` ring stages: the y slice [N + 2,
+// Cs] (row N zeros, the row of a valid slot outside the cloud; row N + 1
+// -inf, the row of a masked slot), the affine slice [4, Cs] f32, the W
+// slice [Cin, Cs] (padded), the x ring [stages][kTileRows, Cin] (padded).
+// ops/gather_max.py (`mm_rows_smem`) mirrors it at two stages to choose
+// the route.
+inline size_t rows_smem_bytes(int N, int Cin, int Cs, int stages) {
+  return (size_t)(N + 2) * Cs * 2 + (size_t)4 * Cs * 4 +
+         (size_t)Cin * rows_ldw(Cs) * 2 +
+         (size_t)stages * kTileRows * rows_ldx(Cin) * 2;
+}
+
+// The y slice keeps row r's 16-byte chunk c (channels 8c .. 8c + 7) at
+// chunk c ^ ((r >> kShift) & (P - 1)) of the row, P = Cs / 8 chunks a
+// row: the 8 rows of one accumulator store then land on 8 distinct bank
+// groups, and a point's group of P lanes still reads its row whole.
+template <int kCs>
+__device__ __forceinline__ int y_chunk(int r, int c) {
+  constexpr int P = kCs / 8;
+  constexpr int kShift = P == 8 ? 0 : P == 4 ? 1 : P == 2 ? 2 : 3;
+  return c ^ ((r >> kShift) & (P - 1));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `stages` - 1 committed groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int stages) {
+  if (stages >= 4)
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  else if (stages == 3)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(unsigned addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1,
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 0xFFFF in each half where a > b (false where either is NaN).
+__device__ __forceinline__ unsigned bf16x2_gt(unsigned a, unsigned b) {
+  unsigned r;
+  asm("set.gt.u32.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ float bf16_half(unsigned word, int h) {
+  return __uint_as_float(h ? (word & 0xFFFF0000u) : (word << 16));
+}
+
+// One slot into the running max of 8 channels (4 bf16 pairs), and with
+// kWinners the slot index beside each (16-bit halves of `win`). Without
+// NaN in the slice: the strict `v > best` of both forms on bf16 pairs, a
+// compare and two selects a pair. With NaN (kNan): the rules of the
+// K-fold kernel, value by value: with winners a NaN is taken with winner
+// 0 and sticks; without, jnp.maximum (a NaN in either wins).
+template <bool kWinners, bool kNan>
+__device__ __forceinline__ void take_slot(unsigned (&best)[4],
+                                          unsigned (&win)[4], uint4 v4,
+                                          int k) {
+  const unsigned v[4] = {v4.x, v4.y, v4.z, v4.w};
+  const unsigned k2 = (unsigned)k * 0x00010001u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (!kNan) {
+      const unsigned gt = bf16x2_gt(v[i], best[i]);
+      best[i] = (v[i] & gt) | (best[i] & ~gt);
+      if (kWinners) win[i] = (k2 & gt) | (win[i] & ~gt);
+      continue;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned lo = 0xFFFFu << (16 * h);
+      const float fv = bf16_half(v[i], h), fb = bf16_half(best[i], h);
+      bool take;
+      unsigned slot = (unsigned)k;
+      if (kWinners) {
+        take = fv != fv ? fb == fb : fv > fb;
+        if (fv != fv) slot = 0u;
+      } else {
+        take = !(fb != fb || fv <= fb);
+      }
+      if (take) {
+        best[i] = (best[i] & ~lo) | (v[i] & lo);
+        if (kWinners) win[i] = (win[i] & ~lo) | ((slot << (16 * h)) & lo);
+      }
+    }
+  }
+}
+
+// The max phase: a group of P = kCs / 8 lanes a point, lane q of the group
+// channels 8q .. 8q + 7 of the slice, 16-byte reads of the y rows (`ys`,
+// the slice's shared-memory address). A warp walks its points' slots in
+// steps of SB; in a step each lane of a group holds PER consecutive slots
+// of the point (idx and mask, loaded once) and passes the row to read round
+// the group by shuffles, kRowsInFlight rows in flight: a masked slot reads
+// row N + 1 (-inf) and a valid one outside the cloud row N (zeros), so
+// every read is unconditional. A step's idx and mask are loaded three
+// steps ahead (three register sets, used in turn).
+template <int kCs, bool kWinners, bool kNan>
+__device__ __forceinline__ void rows_max_phase(
+    unsigned ys, const int* __restrict__ idx,
+    const uint8_t* __restrict__ mask, const float* aff_s,
+    __nv_bfloat16* __restrict__ out, int* __restrict__ winner, int b, int N,
+    int Cout, int K, int col0, unsigned neg2, int warp, int lane) {
+  constexpr int P = kCs / 8, PW = 32 / P;
+  constexpr int SB = P >= kRowsInFlight ? P : kRowsInFlight;  // slots a step
+  constexpr int PER = SB / P;  // slots a lane loads a step
+  const int q = lane % P, gbase = lane - q, gi = lane / P;
+  const int stride = kRowsWarps * PW, first = warp * PW;
+  const int rounds = first < N ? (N - first + stride - 1) / stride : 0;
+  const int nkb = (K + SB - 1) / SB;
+  const int steps = rounds * nkb;  // the same for the whole warp
+
+  // The raw idx and mask of this lane's slots of the next step to fetch,
+  // PER consecutive ones (0, 0 where there is none); fetches run in step
+  // order, three ahead. With K a multiple of PER > 1 and aligned rows
+  // (the same for the whole block) a lane's slots come in one 8- or
+  // 16-byte load of idx and one 2- or 4-byte load of mask.
+  const bool vec = PER > 1 && K % PER == 0 &&
+                   reinterpret_cast<uintptr_t>(idx) % (4 * PER) == 0 &&
+                   reinterpret_cast<uintptr_t>(mask) % PER == 0;
+  int f_it = 0, f_kbi = 0, f_p = first + gi;
+  auto fetch = [&](int (&jv)[PER], int (&mv)[PER]) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) jv[i] = mv[i] = 0;
+    if (f_it++ >= steps) return;
+    const int kb = f_kbi * SB, p = f_p;
+    if (++f_kbi == nkb) {
+      f_kbi = 0;
+      f_p += stride;
+    }
+    if (p >= N) return;
+    const long long at = ((long long)b * N + p) * K + kb + PER * q;
+    if constexpr (PER > 1) {
+      if (vec && kb + PER * (q + 1) <= K) {  // PER slots in one load each
+        if constexpr (PER == 4) {
+          const int4 j4 = *reinterpret_cast<const int4*>(idx + at);
+          const unsigned m = *reinterpret_cast<const unsigned*>(mask + at);
+          jv[0] = j4.x;
+          jv[1] = j4.y;
+          jv[2] = j4.z;
+          jv[3] = j4.w;
+#pragma unroll
+          for (int i = 0; i < PER; ++i) mv[i] = (m >> (8 * i)) & 0xFF;
+        } else {
+          const int2 j2 = *reinterpret_cast<const int2*>(idx + at);
+          const unsigned m =
+              *reinterpret_cast<const unsigned short*>(mask + at);
+          jv[0] = j2.x;
+          jv[1] = j2.y;
+          mv[0] = m & 0xFF;
+          mv[1] = m >> 8;
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      if (kb + PER * q + i < K) {
+        jv[i] = idx[at + i];
+        mv[i] = mask[at + i];
+      }
+    }
+  };
+
+  unsigned best[4], win[4];
+  bool any = false;  // a valid slot among this lane's own
+  int kbi = 0, r = 0;  // the step's slot block and round
+  auto step = [&](int it, const int (&jv)[PER], const int (&mv)[PER]) {
+    if (it >= steps) return;
+    if (kbi == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        best[i] = neg2;
+        win[i] = 0u;
+      }
+      any = false;
+    }
+    int jm[PER];  // the y row of each of this lane's slots
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      any |= mv[i] != 0;
+      jm[i] = mv[i] == 0 ? N + 1 : (unsigned)jv[i] < (unsigned)N ? jv[i] : N;
+    }
+    const int kb = kbi * SB;
+#pragma unroll
+    for (int s0 = 0; s0 < SB; s0 += kRowsInFlight) {
+      // The same for the whole warp (an `if`, not a `break`: the unrolled
+      // loop keeps the slot registers in registers).
+      if (kb + s0 >= K) continue;
+      uint4 v[kRowsInFlight];
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        const int s = s0 + u;
+        const int j = P > 1 ? __shfl_sync(0xffffffffu, jm[s % PER],
+                                          gbase + s / PER)
+                            : jm[s];
+        v[u] = lds128(ys + (unsigned)(j * P + y_chunk<kCs>(j, q)) * 16u);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsInFlight; ++u)
+        take_slot<kWinners, kNan>(best, win, v[u], kb + s0 + u);
+    }
+    if (++kbi < nkb) return;
+    kbi = 0;
+    const int p = first + r * stride + gi;
+    ++r;
+    // The point's rows are valid if any slot of the group is.
+    const bool valid =
+        (__ballot_sync(0xffffffffu, any) >> gbase) & ((1u << P) - 1u);
+    if (p >= N) return;
+    const long long o = ((long long)b * N + p) * Cout + col0 + 8 * q;
+    if (kWinners) {
+      *reinterpret_cast<uint4*>(out + o) =
+          make_uint4(best[0], best[1], best[2], best[3]);
+      int4* wr = reinterpret_cast<int4*>(winner + o);
+      wr[0] = make_int4(win[0] & 0xFFFF, win[0] >> 16, win[1] & 0xFFFF,
+                        win[1] >> 16);
+      wr[1] = make_int4(win[2] & 0xFFFF, win[2] >> 16, win[3] & 0xFFFF,
+                        win[3] >> 16);
+    } else if (aff_s != nullptr) {
+      unsigned packed[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lo = bn_lrelu(bf16_half(best[i], 0), 0.0f, false, valid,
+                                  aff_s, kCs, 8 * q + 2 * i);
+        const float hi = bn_lrelu(bf16_half(best[i], 1), 0.0f, false, valid,
+                                  aff_s, kCs, 8 * q + 2 * i + 1);
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+        packed[i] = *reinterpret_cast<const unsigned*>(&pair);
+      }
+      *reinterpret_cast<uint4*>(out + o) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    } else {
+      *reinterpret_cast<uint4*>(out + o) =
+          make_uint4(best[0], best[1], best[2], best[3]);
+    }
+  };
+
+  int jA[PER], mA[PER], jB[PER], mB[PER], jC[PER], mC[PER];
+  fetch(jA, mA);
+  fetch(jB, mB);
+  fetch(jC, mC);
+  for (int it = 0; it < steps; it += 3) {
+    step(it, jA, mA);
+    fetch(jA, mA);
+    step(it + 1, jB, mB);
+    fetch(jB, mB);
+    step(it + 2, jC, mC);
+    fetch(jC, mC);
+  }
+}
+
+// One block a task (cloud b, slice s of kCs columns). C_in and C_out are
+// multiples of 16, C_out of kCs; x 16-byte and w 32-byte aligned; aff
+// [4, C_out] f32 or null; winner null unless kWinners; `stages` x ring
+// stages (2 to kMaxStages).
+template <int kCs, bool kWinners, bool kBReg>
+__global__ void __launch_bounds__(kRowsWarps * 32, 1)
+    gather_matmul_max_rows_kernel(
+        const __nv_bfloat16* __restrict__ x,
+        const __nv_bfloat16* __restrict__ w, const int* __restrict__ idx,
+        const uint8_t* __restrict__ mask, const float* __restrict__ aff,
+        __nv_bfloat16* __restrict__ out, int* __restrict__ winner, int N,
+        int Cin, int Cout, int K, int stages) {
+  constexpr int P = kCs / 8;  // 16-byte chunks of a y row: n-tiles of 8
+  constexpr int TR = kTileRows, MT = TR / 16;  // rows, m-tiles a stage
+  constexpr int WPM = kRowsWarps / MT;        // warps an m-tile
+  constexpr int NW = P >= WPM ? P / WPM : 1;  // n-tiles a busy warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ldx = rows_ldx(Cin), ldw = rows_ldw(kCs);
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* aff_s = reinterpret_cast<float*>(ys + (size_t)(N + 2) * kCs);
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(aff_s + 4 * kCs);
+  __nv_bfloat16* ring = ws + (size_t)Cin * ldw;
+
+  const int slices = Cout / kCs;
+  const int b = blockIdx.x / slices, col0 = (blockIdx.x % slices) * kCs;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const __nv_bfloat16* xb = x + (long long)b * N * Cin;
+
+  // The W slice and the affine slice, once a task.
+  for (int e = tid; e < Cin * P; e += blockDim.x) {
+    const int r = e / P, c = e % P;
+    reinterpret_cast<uint4*>(ws + r * ldw)[c] = __ldg(
+        reinterpret_cast<const uint4*>(w + (long long)r * Cout + col0) + c);
+  }
+  if (aff != nullptr)
+    for (int e = tid; e < 4 * kCs; e += blockDim.x)
+      aff_s[e] = aff[(e / kCs) * Cout + col0 + e % kCs];
+
+  const int per_row = Cin / 8;
+  const int tiles = (N + TR - 1) / TR;
+  auto load_tile = [&](int t) {
+    if (t >= tiles) return;
+    __nv_bfloat16* dst = ring + (t % stages) * TR * ldx;
+    const int r0 = t * TR;
+    for (int e = tid; e < TR * per_row; e += blockDim.x) {
+      const int r = e / per_row, c = e % per_row;
+      const bool valid = r0 + r < N;
+      cp_async16(dst + r * ldx + c * 8,
+                 xb + (long long)(valid ? r0 + r : 0) * Cin + c * 8, valid);
+    }
+  };
+
+  // Product phase: TR-row tiles through the ring, `stages` - 1 loads in
+  // flight; warp w takes m-tile w % MT and n-tiles w / MT + WPM jj (none
+  // when w / MT >= Cs / 8).
+  const int mt = warp % MT, nsel = warp / MT;
+  const bool busy = nsel < P;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ksteps = Cin / 16;
+  const __nv_bfloat16* b_row = ws + (lane & 15) * ldw + nsel * 8;
+  // The warp's B fragments of k-step ks (ldmatrix.trans of the W slice).
+  auto b_frags = [&](int ks, uint32_t(&bf)[NW][2]) {
+#pragma unroll
+    for (int jj = 0; jj < NW; ++jj)
+      ldsm_x2_trans(bf[jj][0], bf[jj][1],
+                    b_row + ks * 16 * ldw + jj * WPM * 8);
+  };
+  // With C_in <= 128 (kBReg) they stay in registers for the whole task.
+  uint32_t breg[kBReg ? kBRegSteps : 1][NW][2];
+  if (kBReg) {
+    __syncthreads();  // the W slice is staged
+    if (busy) {
+#pragma unroll
+      for (int ks = 0; ks < kBRegSteps; ++ks)
+        if (ks < ksteps) b_frags(ks, breg[ks]);
+    }
+  }
+  bool nan_seen = false;
+  for (int t = 0; t + 1 < stages; ++t) {
+    load_tile(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    load_tile(t + stages - 1);
+    cp_async_commit();
+    cp_async_wait(stages);  // tile t has landed
+    __syncthreads();
+    if (busy) {
+      const __nv_bfloat16* a_row = ring + (t % stages) * TR * ldx +
+                                   (mt * 16 + (lane & 15)) * ldx +
+                                   (lane >> 4) * 8;
+      float acc[NW][4];
+#pragma unroll
+      for (int jj = 0; jj < NW; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jj][e] = 0.0f;
+      // k-step ks + 1's fragments load while ks's products run (two
+      // register sets); each accumulator still sums k in steps of 16.
+      uint32_t a0[4], a1[4];
+      if (kBReg) {
+        ldsm_x4(a0, a_row);
+#pragma unroll
+        for (int ks = 0; ks < kBRegSteps; ks += 2) {
+          if (ks + 1 < ksteps) ldsm_x4(a1, a_row + (ks + 1) * 16);
+          if (ks < ksteps) {
+#pragma unroll
+            for (int jj = 0; jj < NW; ++jj)
+              mma_16816(acc[jj], a0, breg[ks][jj][0], breg[ks][jj][1]);
+          }
+          if (ks + 2 < ksteps) ldsm_x4(a0, a_row + (ks + 2) * 16);
+          if (ks + 1 < ksteps) {
+#pragma unroll
+            for (int jj = 0; jj < NW; ++jj)
+              mma_16816(acc[jj], a1, breg[ks + 1][jj][0],
+                        breg[ks + 1][jj][1]);
+          }
+        }
+      } else {
+        uint32_t b0[NW][2], b1[NW][2];
+        auto frags = [&](int ks, uint32_t(&a)[4], uint32_t(&bf)[NW][2]) {
+          ldsm_x4(a, a_row + ks * 16);
+          b_frags(ks, bf);
+        };
+        auto products = [&](const uint32_t(&a)[4],
+                            const uint32_t(&bf)[NW][2]) {
+#pragma unroll
+          for (int jj = 0; jj < NW; ++jj)
+            mma_16816(acc[jj], a, bf[jj][0], bf[jj][1]);
+        };
+        frags(0, a0, b0);
+        for (int ks = 0; ks < ksteps; ks += 2) {
+          if (ks + 1 < ksteps) frags(ks + 1, a1, b1);
+          products(a0, b0);
+          if (ks + 2 < ksteps) frags(ks + 2, a0, b0);
+          if (ks + 1 < ksteps) products(a1, b1);
+        }
+      }
+      // Rounded to bf16 and stored from the registers into the y slice.
+#pragma unroll
+      for (int jj = 0; jj < NW; ++jj) {
+        const int jn = nsel + WPM * jj;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = t * TR + mt * 16 + g + 8 * h;
+          if (r >= N) continue;
+          const float v0 = acc[jj][2 * h], v1 = acc[jj][2 * h + 1];
+          nan_seen |= v0 != v0 || v1 != v1;
+          *reinterpret_cast<__nv_bfloat162*>(
+              ys + r * kCs + y_chunk<kCs>(r, jn) * 8 + 2 * t4) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+    __syncthreads();  // this stage is read before a later load refills it
+  }
+  // Rows N (zeros) and N + 1 (-inf) for slots that read no row of y.
+  if (tid < 2 * P)
+    reinterpret_cast<uint4*>(ys + (size_t)(N + tid / P) * kCs)[tid % P] =
+        tid < P ? make_uint4(0u, 0u, 0u, 0u)
+                : make_uint4(kNegInf2, kNegInf2, kNegInf2, kNegInf2);
+  // The y slice is whole; a NaN anywhere in it takes the slower max.
+  const bool any_nan = __syncthreads_or(nan_seen) != 0;
+
+  const __nv_bfloat16 neg = __float2bfloat16_rn(kNeg);
+  const unsigned neg_bits = *reinterpret_cast<const unsigned short*>(&neg);
+  const unsigned neg2 = neg_bits | (neg_bits << 16);
+  const unsigned y_addr = smem_addr(ys);
+  const float* aff_p = aff != nullptr ? aff_s : nullptr;
+  if (any_nan)
+    rows_max_phase<kCs, kWinners, true>(y_addr, idx, mask, aff_p, out,
+                                        winner, b, N, Cout, K, col0, neg2,
+                                        warp, lane);
+  else
+    rows_max_phase<kCs, kWinners, false>(y_addr, idx, mask, aff_p, out,
+                                         winner, b, N, Cout, K, col0, neg2,
+                                         warp, lane);
+}
+
+template <int kCs, bool kWinners>
+int launch_rows(const void* x, const void* w, const void* idx,
+                const void* mask, const void* aff, void* out, void* winner,
+                int B, int N, int Cin, int Cout, int K, int stages,
+                size_t smem, cudaStream_t stream) {
+  auto kernel = Cin <= 16 * kBRegSteps
+                    ? gather_matmul_max_rows_kernel<kCs, kWinners, true>
+                    : gather_matmul_max_rows_kernel<kCs, kWinners, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tasks = (long long)B * (Cout / kCs);
+  kernel<<<(unsigned)tasks, kRowsWarps * 32, smem, stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const int*)idx,
+      (const uint8_t*)mask, (const float*)aff, (__nv_bfloat16*)out,
+      (int*)winner, N, Cin, Cout, K, stages);
+  return (int)cudaGetLastError();
+}
+
+// Cs: the slice width the wrapper chose (8, 16, 32 or 64); the ring takes
+// as many stages as fit. A shape whose slice does not fit a block with
+// two stages, or K above the 16-bit winners, is refused.
+template <bool kWinners>
+int launch_matmul_max_rows(const void* x, const void* w, const void* idx,
+                           const void* mask, const void* aff, void* out,
+                           void* winner, int B, int N, int Cin, int Cout,
+                           int K, int Cs, void* stream) {
+  if ((long long)B * N * Cout == 0) return (int)cudaGetLastError();
+  if (Cin % 16 != 0 || Cout % 16 != 0 || Cin == 0 || K <= 0 || K > 0xFFFF ||
+      (Cs != 8 && Cs != 16 && Cs != 32 && Cs != 64) || Cout % Cs != 0)
+    return (int)cudaErrorInvalidValue;
+  int stages = kMaxStages;
+  while (stages > 2 && rows_smem_bytes(N, Cin, Cs, stages) > kRowsSmemMax)
+    --stages;
+  const size_t smem = rows_smem_bytes(N, Cin, Cs, stages);
+  if (smem > kRowsSmemMax) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Cs) {
+    case 8:
+      return launch_rows<8, kWinners>(x, w, idx, mask, aff, out, winner, B,
+                                      N, Cin, Cout, K, stages, smem, s);
+    case 16:
+      return launch_rows<16, kWinners>(x, w, idx, mask, aff, out, winner, B,
+                                       N, Cin, Cout, K, stages, smem, s);
+    case 32:
+      return launch_rows<32, kWinners>(x, w, idx, mask, aff, out, winner, B,
+                                       N, Cin, Cout, K, stages, smem, s);
+    default:
+      return launch_rows<64, kWinners>(x, w, idx, mask, aff, out, winner, B,
+                                       N, Cin, Cout, K, stages, smem, s);
+  }
+}
+
+}  // namespace

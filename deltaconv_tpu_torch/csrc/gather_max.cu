@@ -37,17 +37,25 @@
 // Backward (`gather_max_bwd`, `gather_max_bwd_bf16`):
 //   dh[b, idx[b, n, winner[b, n, c]], c] += g[b, n, c]
 // idx [B, N, K] i32, winner [B, N, C] i32, g [B, N, C] f32 or bf16 ->
-// dh [B, n_out, C] f32, which the caller zero-fills (and casts to h's
-// dtype, as the JAX VJP does at gather_max.py:445). Replaces
+// dh [B, n_out, C] f32 (cast to h's dtype by the caller, as the JAX VJP
+// does at gather_max.py:445), through the caller's scratch acc [B,
+// n_out, C] f64, which the call zero-fills first. Replaces
 // `_pallas_bwd_mm` (pallas_call at gather_max.py:362, kernel body
 // `_bwd_mm_kernel`), which routed the cotangent as a transposed one-hot
 // MXU contraction over a hi/lo split (f32 g) or in one half-width pass
 // (bf16 g, `paired=False`). Here each (b, n, c) adds its one cotangent,
-// widened to f32, with an atomicAdd at its winner's row: B*N*C atomics
-// in all, coalesced over c, spread over the table (a row only collects
-// the channels it won). Bound: the atomics in L2. The order of the adds,
-// and so the last bits of a sum, can change from run to run, as with
-// scatter_add_ on CUDA.
+// widened to f64, with an atomicAdd at its winner's row of acc: B*N*C
+// atomics in all, coalesced over c, spread over the table (a row only
+// collects the channels it won); a second kernel in the same call rounds
+// acc to dh. The f32 (or bf16) addends of one (row, c) sum exactly in
+// f64 unless they span more than 29 (bf16: 45) binary orders, so dh is
+// the exact sum rounded once to f32, whatever order the atomics land in:
+// two calls give the same bits, and so does the plain version. Atomics
+// in f32 gave sums whose last bits changed from run to run, and the
+// normal gradient of a point with a near-duplicate neighbour (a sum of
+// terms ~1/distance that cancel) amplified those bits past 1e-3 x max
+// in some runs. Bound: the atomics in L2, plus the accumulator's fill
+// and read, 16 bytes a (row, c) beyond the function's own.
 //
 // Min and max together (`gather_minmax`, `gather_minmax_bf16`, and with
 // winners `gather_minmax_win`, `gather_minmax_win_bf16`):
@@ -64,9 +72,9 @@
 // Two-map backward (`gather_minmax_bwd`, `gather_minmax_bwd_bf16`):
 //   dh[b, idx[b, n, wmx[b, n, c]], c] += gmx[b, n, c]
 //   dh[b, idx[b, n, wmn[b, n, c]], c] += gmn[b, n, c]
-// into one zero-filled f32 dh, one launch reading idx once for both
-// maps: the counterpart of `_pallas_bwd_mm` called with two (winner, g)
-// pairs (gather_max.py:528-536). Where the max and the min win at the
+// into one f64 acc rounded to f32 dh as above, one launch reading idx
+// once for both maps: the counterpart of `_pallas_bwd_mm` called with
+// two (winner, g) pairs (gather_max.py:528-536). Where the max and the min win at the
 // same (row, c) (one valid slot, or equal values) both cotangents add.
 #include "common.cuh"
 
@@ -187,32 +195,49 @@ __global__ void gather_max_kernel(const T* __restrict__ h,
 // One (winner, g) map routed into dh at channel c of point bn.
 template <typename G>
 __device__ __forceinline__ void route(const int* ir, const int* winner,
-                                      const G* g, float* db, long long bn,
+                                      const G* g, double* db, long long bn,
                                       int c, int C, int K, int n_out) {
   const int w = winner[bn * C + c];
   if ((unsigned)w >= (unsigned)K) return;
   const int j = ir[w];
   if ((unsigned)j >= (unsigned)n_out) return;
-  atomicAdd(db + (long long)j * C + c, to_f32(g[bn * C + c]));
+  atomicAdd(db + (long long)j * C + c, (double)to_f32(g[bn * C + c]));
 }
 
-// kTwo: a second map (winner2, g2) into the same dh.
+// kTwo: a second map (winner2, g2) into the same acc.
 template <typename G, bool kTwo>
 __global__ void gather_max_bwd_kernel(const int* __restrict__ idx,
                                       const int* __restrict__ winner,
                                       const G* __restrict__ g,
                                       const int* __restrict__ winner2,
                                       const G* __restrict__ g2,
-                                      float* __restrict__ dh, int B, int N,
+                                      double* __restrict__ acc, int B, int N,
                                       int C, int K, int n_out) {
   const long long bn = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   if (bn >= (long long)B * N) return;
   const long long b = bn / N;
   const int* ir = idx + bn * K;
-  float* db = dh + b * n_out * C;
+  double* db = acc + b * n_out * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     route<G>(ir, winner, g, db, bn, c, C, K, n_out);
     if (kTwo) route<G>(ir, winner2, g2, db, bn, c, C, K, n_out);
+  }
+}
+
+// dh = acc rounded to f32 (nearest even), two elements a thread (one
+// for the last of an odd count).
+__global__ void round_f64_kernel(const double* __restrict__ acc,
+                                 float* __restrict__ dh, long long total) {
+  const long long pairs = (total + 1) / 2;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < pairs; i += (long long)gridDim.x * blockDim.x) {
+    if (2 * i + 1 < total) {
+      const double2 a = reinterpret_cast<const double2*>(acc)[i];
+      reinterpret_cast<float2*>(dh)[i] =
+          make_float2(__double2float_rn(a.x), __double2float_rn(a.y));
+    } else {
+      dh[2 * i] = __double2float_rn(acc[2 * i]);
+    }
   }
 }
 
@@ -228,15 +253,26 @@ int launch_fwd(const void* h, const void* idx, const void* mask, void* out,
   return (int)cudaGetLastError();
 }
 
+// acc zero-filled, the atomics into it, then acc rounded into dh (16-
+// and 8-byte aligned, as the caller's allocations are).
 template <typename G, bool kTwo = false>
 int launch_bwd(const void* idx, const void* winner, const void* g, void* dh,
-               int B, int N, int C, int K, int n_out, void* stream,
-               const void* winner2 = nullptr, const void* g2 = nullptr) {
+               void* acc, int B, int N, int C, int K, int n_out,
+               void* stream, const void* winner2 = nullptr,
+               const void* g2 = nullptr) {
   const dim3 block = dc_row_block(C);
-  gather_max_bwd_kernel<G, kTwo><<<dc_row_grid(B, N, block), block, 0,
-                                   (cudaStream_t)stream>>>(
-      (const int*)idx, (const int*)winner, (const G*)g, (const int*)winner2,
-      (const G*)g2, (float*)dh, B, N, C, K, n_out);
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long total = (long long)B * n_out * C;
+  const cudaError_t err = cudaMemsetAsync(acc, 0, total * sizeof(double), s);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)B * N * C > 0)
+    gather_max_bwd_kernel<G, kTwo><<<dc_row_grid(B, N, block), block, 0,
+                                     s>>>(
+        (const int*)idx, (const int*)winner, (const G*)g,
+        (const int*)winner2, (const G*)g2, (double*)acc, B, N, C, K, n_out);
+  const long long blocks = ((total + 1) / 2 + 255) / 256;
+  round_f64_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
+      (const double*)acc, (float*)dh, total);
   return (int)cudaGetLastError();
 }
 
@@ -305,21 +341,23 @@ extern "C" int dc_gather_max_win_bf16(const void* h, const void* idx,
 }
 
 extern "C" int dc_gather_max_bwd(const void* idx, const void* winner,
-                                 const void* g, void* dh, int B, int N, int C,
-                                 int K, int n_out, int device, void* stream) {
+                                 const void* g, void* dh, void* acc, int B,
+                                 int N, int C, int K, int n_out, int device,
+                                 void* stream) {
   DC_SET_DEVICE(device);
-  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
-  return launch_bwd<float>(idx, winner, g, dh, B, N, C, K, n_out, stream);
+  if ((long long)B * n_out * C == 0) return (int)cudaGetLastError();
+  return launch_bwd<float>(idx, winner, g, dh, acc, B, N, C, K, n_out,
+                           stream);
 }
 
 extern "C" int dc_gather_max_bwd_bf16(const void* idx, const void* winner,
-                                      const void* g, void* dh, int B, int N,
-                                      int C, int K, int n_out, int device,
-                                      void* stream) {
+                                      const void* g, void* dh, void* acc,
+                                      int B, int N, int C, int K, int n_out,
+                                      int device, void* stream) {
   DC_SET_DEVICE(device);
-  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
-  return launch_bwd<__nv_bfloat16>(idx, winner, g, dh, B, N, C, K, n_out,
-                                   stream);
+  if ((long long)B * n_out * C == 0) return (int)cudaGetLastError();
+  return launch_bwd<__nv_bfloat16>(idx, winner, g, dh, acc, B, N, C, K,
+                                   n_out, stream);
 }
 
 extern "C" int dc_gather_minmax(const void* h, const void* idx,
@@ -365,22 +403,23 @@ extern "C" int dc_gather_minmax_win_bf16(const void* h, const void* idx,
 
 extern "C" int dc_gather_minmax_bwd(const void* idx, const void* wmx,
                                     const void* gmx, const void* wmn,
-                                    const void* gmn, void* dh, int B, int N,
-                                    int C, int K, int n_out, int device,
-                                    void* stream) {
+                                    const void* gmn, void* dh, void* acc,
+                                    int B, int N, int C, int K, int n_out,
+                                    int device, void* stream) {
   DC_SET_DEVICE(device);
-  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
-  return launch_bwd<float, true>(idx, wmx, gmx, dh, B, N, C, K, n_out, stream,
-                                 wmn, gmn);
+  if ((long long)B * n_out * C == 0) return (int)cudaGetLastError();
+  return launch_bwd<float, true>(idx, wmx, gmx, dh, acc, B, N, C, K, n_out,
+                                 stream, wmn, gmn);
 }
 
 extern "C" int dc_gather_minmax_bwd_bf16(const void* idx, const void* wmx,
                                          const void* gmx, const void* wmn,
-                                         const void* gmn, void* dh, int B,
-                                         int N, int C, int K, int n_out,
-                                         int device, void* stream) {
+                                         const void* gmn, void* dh,
+                                         void* acc, int B, int N, int C,
+                                         int K, int n_out, int device,
+                                         void* stream) {
   DC_SET_DEVICE(device);
-  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
-  return launch_bwd<__nv_bfloat16, true>(idx, wmx, gmx, dh, B, N, C, K, n_out,
-                                         stream, wmn, gmn);
+  if ((long long)B * n_out * C == 0) return (int)cudaGetLastError();
+  return launch_bwd<__nv_bfloat16, true>(idx, wmx, gmx, dh, acc, B, N, C, K,
+                                         n_out, stream, wmn, gmn);
 }

@@ -39,11 +39,11 @@
 //   so this equals rounding each slot first); (-3e38, +3e38) on a row
 //   with no valid slot. Replaces the Pallas kernel of `gather_matmul_minmax`
 //   (pallas_call at gather_max.py:792, body `_mm_minmax_kernel`). It is
-//   the template of `gather_matmul_max` in its min/max mode: each lane
-//   keeps a running min beside its running max; no epilogue, no winners.
-//   Bound on the H100: its bytes (x, w, idx/mask and the two bf16 outputs;
-//   one product a row), which this design, paying the K-fold product as
-//   the max does, does not approach.
+//   the K-fold kernel below (gather_matmul_max.cuh) in its min/max mode:
+//   each lane keeps a running min beside its running max; no epilogue, no
+//   winners. Bound on the H100: its bytes (x, w, idx/mask and the two bf16
+//   outputs; one product a row), which this design, paying the K-fold
+//   product, does not approach.
 //
 // Both eval kernels end in `_bn_lrelu_epilogue` (gather_max.py:584),
 // replayed op for op in f32 with every operation rounded on its own (no
@@ -61,23 +61,67 @@
 // Bound on the H100: memory, the K gathered rows coming from L2 (one
 // cloud's table is N * C * 2 bytes, 256 KB at C=128).
 //
-// `gather_matmul_max` design (the kernel is in gather_matmul_max.cuh, which
-// gather_max_int8.cu instantiates on int8 rows too): a block takes 16 points,
-// gathers their K input rows into shared memory slot by slot (16-byte loads;
-// 85 KB at K=20, C_in=128, rows padded by 16 bytes against bank conflicts),
-// and its 8 warps run the product on the tensor cores with WMMA (16x16x16,
-// bf16 in, f32 accumulate), each warp over whole 16-column slices of the
-// output; W is read straight from global memory (L1/L2: 64 KB at 128 x 256),
-// each fragment once for 4 slots. Tile k holds slot k of the 16 points, so
-// after it passes through the warp's shared scratch each lane keeps a running
-// max of its 8 cells in registers. Bound on the H100: the tensor cores, 2 B N
-// K C_in C_out operations (42.9 GFLOP at B=32, N=1024, K=20, 128 -> 256), K
-// times the work of x @ w followed by a gather. `gather_matmul_max_win` is the
-// same kernel with the per-slot bf16 rounding and a winner slot beside each
-// lane's running max; the function it computes is bound by its bytes (x,
-// idx/mask, and the bf16 out plus the i32 winners: ~62 MB, ~0.019 ms at 128 ->
-// 256), which this design, paying the K-fold product, does not approach.
-#include "gather_matmul_max.cuh"
+// `gather_matmul_max` and `gather_matmul_max_win` design (the kernel is
+// in gather_matmul_max_rows.cuh): the function needs one product a row,
+// since row j's x_j @ w is the same whichever point gathers it, and
+// rounding to bf16 before the max is the train form's definition and
+// changes nothing for the eval form (its epilogue rounds the f32 max, and
+// rounding is monotone), so both share one body. A block takes one task,
+// a cloud and a slice of Cs output columns (64, 32, 16 or 8: the widest
+// whose [N, Cs] bf16 slice of y fits the block's shared memory beside
+// the staging buffers, narrowed while twice the tasks still fit one wave
+// of the SMs; the wrapper chooses it, `mm_slice` in ops/gather_max.py).
+// A block is 16 warps (one block an SM: the slice takes most of its
+// shared memory, so the max phase needs the warps to hide its latency).
+// Product phase: the W slice [C_in, Cs] is staged once, and with C_in <=
+// 128 each warp keeps its B fragments (ldmatrix.trans) in registers for
+// the whole task; the cloud's rows of x, contiguous now that nothing is
+// gathered, stream in 128-row tiles through a cp.async ring of as many
+// stages as fit (two to four); mma.sync m16n8k16 (bf16 in, f32
+// accumulate, A by ldmatrix, the next k-step's A loading during this
+// one's products) runs on the tensor cores, k in steps of 16 from zero as
+// the K-fold kernel's WMMA sums it, so the two routes give the same bits;
+// each accumulator is rounded to bf16 and written from the registers into
+// the y slice (its 16-byte chunks XOR-swizzled by row, so a store of 8
+// rows takes 8 bank groups). The product is ~2 GFLOP at the
+// classification shape, a few microseconds at any tensor-core rate, so
+// mma.sync, as mlp_rows has it, over wgmma's warpgroup tiles and
+// shared-memory descriptors. Max phase, after one block barrier: a group
+// of Cs / 8 lanes a point, 8 channels a lane, 16-byte reads of the y rows;
+// the point's idx and mask are loaded once, a slot to a lane, three steps
+// of slots ahead of their use, and the row to read is passed round the
+// group by shuffles (a masked slot reads a constant row of -inf, a valid
+// slot outside the cloud one of zeros: no branch); the running max stays
+// in registers as bf16 pairs (a compare and a select a pair; #14 keeps
+// its 16-bit winner slots beside it, #12 applies the epilogue at the
+// end), and out and the winners are written once. y never goes to device
+// memory. A slice that holds a NaN (a block-wide OR at the barrier) takes
+// a slower max with the K-fold kernel's NaN rules value by value.
+// At Cs = 8 (the large clouds) every task reads its cloud's x from L2,
+// 32 times over at C_out = 256, and the max phase's 16-byte reads of
+// random rows meet in the same banks: the kernel there is about three
+// times its classification time.
+// Bound on the H100: the function's bytes (x, w, idx/mask, the bf16 out,
+// and for the train form the i32 winners: ~62 MB, ~0.019 ms at B=32,
+// N=1024, K=20, 128 -> 256; the eval form ~0.0085 ms); its product, 2 B N
+// C_in C_out operations, 2.1 GFLOP, is 0.002 ms on the tensor cores.
+// Route by shape: above the N at which even an 8-column slice no longer
+// fits (10,038 points at C_in = 128), the wrapper takes the earlier
+// K-fold kernel, counted as `gather_matmul_max_kfold` and
+// `gather_matmul_max_win_kfold`.
+//
+// The K-fold kernel (gather_matmul_max.cuh, which gather_max_int8.cu
+// instantiates on int8 rows and `gather_matmul_minmax` in its min/max
+// mode) is the TPU's gather-then-matmul form: a block takes 16 points,
+// gathers their K input rows into shared memory (85 KB at K=20, C_in=128:
+// two blocks an SM), and its 8 warps run WMMA on every gathered slot,
+// each 16x16 tile passed through a warp's shared scratch into a running
+// max in registers, W fragments read from L2 once for 4 slots. It pays
+// 2 B N K C_in C_out operations (42.9 GFLOP at the classification shape,
+// K times the function's), a scratch round trip per slot and K-fold
+// gathers: 0.5926 ms (eval) and 0.7787 ms (train) on the H100 at that
+// shape, 3.5 and 4.6 times `x @ w` followed by the port's own max.
+#include "gather_matmul_max_rows.cuh"
 
 namespace {
 
@@ -171,8 +215,18 @@ extern "C" int dc_gather_max_affine(const void* h, const void* idx,
 extern "C" int dc_gather_matmul_max(const void* x, const void* w,
                                     const void* idx, const void* mask,
                                     const void* aff, void* out, int B, int N,
-                                    int Cin, int Cout, int K, int device,
-                                    void* stream) {
+                                    int Cin, int Cout, int K, int Cs,
+                                    int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_matmul_max_rows<false>(x, w, idx, mask, aff, out, nullptr,
+                                       B, N, Cin, Cout, K, Cs, stream);
+}
+
+extern "C" int dc_gather_matmul_max_kfold(const void* x, const void* w,
+                                          const void* idx, const void* mask,
+                                          const void* aff, void* out, int B,
+                                          int N, int Cin, int Cout, int K,
+                                          int device, void* stream) {
   DC_SET_DEVICE(device);
   return launch_matmul_max<false, __nv_bfloat16>(
       x, w, idx, mask, aff, out, nullptr, B, N, Cin, Cout, K, stream);
@@ -181,8 +235,19 @@ extern "C" int dc_gather_matmul_max(const void* x, const void* w,
 extern "C" int dc_gather_matmul_max_win(const void* x, const void* w,
                                         const void* idx, const void* mask,
                                         void* out, void* winner, int B, int N,
-                                        int Cin, int Cout, int K, int device,
-                                        void* stream) {
+                                        int Cin, int Cout, int K, int Cs,
+                                        int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_matmul_max_rows<true>(x, w, idx, mask, nullptr, out, winner,
+                                      B, N, Cin, Cout, K, Cs, stream);
+}
+
+extern "C" int dc_gather_matmul_max_win_kfold(const void* x, const void* w,
+                                              const void* idx,
+                                              const void* mask, void* out,
+                                              void* winner, int B, int N,
+                                              int Cin, int Cout, int K,
+                                              int device, void* stream) {
   DC_SET_DEVICE(device);
   return launch_matmul_max<true, __nv_bfloat16>(
       x, w, idx, mask, nullptr, out, winner, B, N, Cin, Cout, K, stream);

@@ -56,13 +56,13 @@ _KERNELS = {
     "gather_max_win": ("dc_gather_max_win",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_max_bwd": ("dc_gather_max_bwd",
-                       [_P, _P, _P, _P, _I, _I, _I, _I, _I]),
+                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "gather_max_bf16": ("dc_gather_max_bf16",
                         [_P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_max_win_bf16": ("dc_gather_max_win_bf16",
                             [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_max_bwd_bf16": ("dc_gather_max_bwd_bf16",
-                            [_P, _P, _P, _P, _I, _I, _I, _I, _I]),
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "adjacency": ("dc_adjacency", [_P, _P, _P, _I, _I, _I]),
     "gather_sum": ("dc_gather_sum", [_P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_sum_bwd": ("dc_gather_sum_bwd", [_P, _P, _P, _P, _I, _I, _I, _I]),
@@ -71,10 +71,13 @@ _KERNELS = {
     "knn_topk_rounds": ("dc_knn_topk_rounds", [_P] * 3 + [_I] * 4),
     "gather_max_affine": ("dc_gather_max_affine",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
-    "gather_matmul_max": ("dc_gather_matmul_max",
-                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "gather_matmul_max": ("dc_gather_matmul_max", [_P] * 6 + [_I] * 6),
+    "gather_matmul_max_kfold": ("dc_gather_matmul_max_kfold",
+                                [_P] * 6 + [_I] * 5),
     "gather_matmul_max_win": ("dc_gather_matmul_max_win",
-                              [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
+                              [_P] * 6 + [_I] * 6),
+    "gather_matmul_max_win_kfold": ("dc_gather_matmul_max_win_kfold",
+                                    [_P] * 6 + [_I] * 5),
     "gather_mlp_max": ("dc_gather_mlp_max", [_P] * 9 + [_I] * 6),
     "mlp_rows": ("dc_mlp_rows", [_P] * 5 + [_I, _L]),
     "gather_max_merge": ("dc_gather_max_merge", [_P] * 6 + [_I] * 6),
@@ -97,9 +100,9 @@ _KERNELS = {
     "gather_minmax_win": ("dc_gather_minmax_win", [_P] * 7 + [_I] * 4),
     "gather_minmax_win_bf16": ("dc_gather_minmax_win_bf16",
                                [_P] * 7 + [_I] * 4),
-    "gather_minmax_bwd": ("dc_gather_minmax_bwd", [_P] * 6 + [_I] * 5),
+    "gather_minmax_bwd": ("dc_gather_minmax_bwd", [_P] * 7 + [_I] * 5),
     "gather_minmax_bwd_bf16": ("dc_gather_minmax_bwd_bf16",
-                               [_P] * 6 + [_I] * 5),
+                               [_P] * 7 + [_I] * 5),
     "gather_matmul_minmax": ("dc_gather_matmul_minmax", [_P] * 6 + [_I] * 5),
 }
 
@@ -126,6 +129,7 @@ _NO_GRAD = {
     "knn_topk_bucketed_q": "kNN indices carry no gradient",
     "gather_max_affine": _BF16_EVAL,
     "gather_matmul_max": _BF16_EVAL,
+    "gather_matmul_max_kfold": _BF16_EVAL,
     "gather_mlp_max": _MLP_EVAL,
     "mlp_rows": _MLP_EVAL,
     "gather_max_merge": _MLP_EVAL,

@@ -62,7 +62,12 @@ in :func:`bn_lrelu_epilogue`:
 
 Both are forward-only (eval). The plain matmul max multiplies per point
 (``x @ w`` in f32, then the gather), which sums the products in another
-order than the kernel: the two agree to one bf16 ulp.
+order than the kernel: the two agree to one bf16 ulp. On CUDA tensors
+the matmul maxes, eval and train, run one product a row (the kernels of
+``csrc/gather_matmul_max_rows.cuh``: a cloud's slice of ``x @ w`` in
+shared memory, then the max out of it) up to the size :func:`mm_slice`
+allows (10,038 points at C_in = 128), and above it the K-fold kernels
+(``_kfold``, a product a gathered slot).
 
 :func:`gather_matmul_max_train` ``(x [B, N, C_in] bf16, w [C_in, C_out]
 bf16, idx, mask) -> [B, N, C_out] bf16`` is the training twin of
@@ -89,13 +94,15 @@ neighbour, which the caller dequantizes.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from . import _lib
 
-__all__ = ["NEG", "bn_lrelu_epilogue", "gather_matmul_max",
+__all__ = ["MM_SLICES", "NEG", "SMEM_MAX", "bn_lrelu_epilogue",
+           "gather_matmul_max",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
            "gather_matmul_max_plain", "gather_matmul_max_train",
            "gather_matmul_max_train_plain", "gather_matmul_max_win",
@@ -106,7 +113,8 @@ __all__ = ["NEG", "bn_lrelu_epilogue", "gather_matmul_max",
            "gather_max_plain", "gather_max_win", "gather_max_win_plain",
            "gather_minmax", "gather_minmax_bwd", "gather_minmax_bwd_plain",
            "gather_minmax_plain", "gather_minmax_win",
-           "gather_minmax_win_plain", "int8_quantize", "masked_nbr_max"]
+           "gather_minmax_win_plain", "int8_quantize", "masked_nbr_max",
+           "mm_rows_smem", "mm_slice"]
 
 NEG = -3.0e38  # ~ -inf in f32, safe to negate and compare
 _I8_NEG = -(2 ** 30)  # "-inf" in the int32 quantized domain
@@ -135,13 +143,22 @@ def gather_max_win_plain(h, idx, mask):
     return out, first.to(torch.int32)
 
 
-def gather_max_bwd_plain(idx, winner, g, n_out: int):
-    """Plain backward: resolve each winner slot to its neighbour with
-    ``idx.gather``, then ``scatter_add_`` the cotangent there."""
-    b, _, c = g.shape
+def _route_f64(acc, idx, winner, g):
+    """Adds each cotangent at its winner's row of the f64 ``acc``: resolve
+    the winner slot to its neighbour with ``idx.gather``, then
+    ``scatter_add_``."""
     src = torch.gather(idx.long(), 2, winner.long())  # [B, N, C]
-    dh = torch.zeros((b, n_out, c), dtype=torch.float32, device=g.device)
-    return dh.scatter_add_(1, src, g.float())
+    return acc.scatter_add_(1, src, g.double())
+
+
+def gather_max_bwd_plain(idx, winner, g, n_out: int):
+    """Plain backward: the cotangents routed to their winners' rows and
+    summed in f64, then rounded once to f32, as the kernel does (the sum
+    of one row and channel is exact in f64 unless its addends span more
+    than 29 binary orders, so the result is the same in any order)."""
+    b, _, c = g.shape
+    acc = torch.zeros((b, n_out, c), dtype=torch.float64, device=g.device)
+    return _route_f64(acc, idx, winner, g).float()
 
 
 def _extremes(h, idx, mask):
@@ -174,10 +191,12 @@ def gather_minmax_win_plain(h, idx, mask):
 
 def gather_minmax_bwd_plain(idx, wmx, gmx, wmn, gmn, n_out: int):
     """Plain backward: both cotangents routed to their winners' rows
-    (JAX's ``_route_cotangent`` twice), summed into one f32 ``dh``."""
-    dh = gather_max_bwd_plain(idx, wmx, gmx, n_out)
-    src = torch.gather(idx.long(), 2, wmn.long())
-    return dh.scatter_add_(1, src, gmn.float())
+    (JAX's ``_route_cotangent`` twice), summed in one f64 accumulator and
+    rounded once to f32, as the kernel does."""
+    b, _, c = gmx.shape
+    acc = torch.zeros((b, n_out, c), dtype=torch.float64, device=gmx.device)
+    _route_f64(acc, idx, wmx, gmx)
+    return _route_f64(acc, idx, wmn, gmn).float()
 
 
 def _body(name, t):
@@ -231,9 +250,17 @@ def gather_max_win(h, idx, mask):
     return out, winner
 
 
+def _bwd_buffers(b, n_out, c, device):
+    """The backward's f32 output and its f64 accumulator (scratch, which
+    the kernel zero-fills)."""
+    return (torch.empty((b, n_out, c), dtype=torch.float32, device=device),
+            torch.empty((b, n_out, c), dtype=torch.float64, device=device))
+
+
 def gather_max_bwd(idx, winner, g, n_out: int):
-    """The winner-routed backward ``dh [B, n_out, C]`` f32: plain version
-    for CPU tensors, the ``gather_max_bwd`` kernel (f32 ``g``) or
+    """The winner-routed backward ``dh [B, n_out, C]`` f32, summed in f64
+    and rounded once (the same bits in any order of the adds): plain
+    version for CPU tensors, the ``gather_max_bwd`` kernel (f32 ``g``) or
     ``gather_max_bwd_bf16`` (bf16 ``g``) for CUDA tensors."""
     if g.device.type == "cpu":
         return gather_max_bwd_plain(idx, winner, g, n_out)
@@ -245,9 +272,10 @@ def gather_max_bwd(idx, winner, g, n_out: int):
         ("winner", winner, torch.int32, (b, n, c)),
         ("g", g, dtype, (b, n, c)),
     ])
-    dh = torch.zeros((b, n_out, c), dtype=torch.float32, device=device)
+    dh, acc = _bwd_buffers(b, n_out, c, device)
     _lib.launch(name, device, idx.data_ptr(), winner.data_ptr(),
-                g.data_ptr(), dh.data_ptr(), b, n, c, k, n_out)
+                g.data_ptr(), dh.data_ptr(), acc.data_ptr(), b, n, c, k,
+                n_out)
     return dh
 
 
@@ -301,10 +329,10 @@ def gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, n_out: int):
         ("wmn", wmn, torch.int32, (b, n, c)),
         ("gmn", gmn, dtype, (b, n, c)),
     ])
-    dh = torch.zeros((b, n_out, c), dtype=torch.float32, device=device)
+    dh, acc = _bwd_buffers(b, n_out, c, device)
     _lib.launch(name, device, idx.data_ptr(), wmx.data_ptr(), gmx.data_ptr(),
-                wmn.data_ptr(), gmn.data_ptr(), dh.data_ptr(), b, n, c, k,
-                n_out)
+                wmn.data_ptr(), gmn.data_ptr(), dh.data_ptr(), acc.data_ptr(),
+                b, n, c, k, n_out)
     return dh
 
 
@@ -493,13 +521,75 @@ def _mm_operands(name, x, w, idx, mask, x_dtype=torch.bfloat16):
     return device, xp, wp
 
 
+# The one-product-a-row kernels (csrc/gather_matmul_max_rows.cuh): a block
+# takes a cloud and a slice of Cs output columns and holds the slice of
+# y = x @ w, [N, Cs] bf16, in shared memory beside its staging buffers.
+SMEM_MAX = 232_448  # a block's shared memory on the H100
+MM_SLICES = (64, 32, 16, 8)
+
+
+def mm_rows_smem(n: int, c_in: int, cs: int) -> int:
+    """Shared memory of one block of the one-product-a-row kernels with
+    the least ring (two stages), as ``rows_smem_bytes`` in the CUDA
+    source counts it: the y slice and its two constant rows, the affine
+    slice, the W slice (rows padded to an odd number of 16-byte chunks)
+    and two stages of 128 x rows (padded by 16 bytes)."""
+    ldw = cs + 8 if cs >= 16 else cs
+    return (2 * (n + 2) * cs + 16 * cs + 2 * c_in * ldw
+            + 2 * 2 * 128 * (c_in + 8))
+
+
+def mm_slice(b: int, n: int, c_in: int, c_out: int, k: int,
+             sms: int) -> int:
+    """The route of the bf16 matmul maxes for padded widths ``c_in``,
+    ``c_out`` (multiples of 16) on a card of ``sms`` SMs: the column
+    slice Cs of the one-product-a-row kernels, or 0 for the K-fold
+    kernels (a route by shape, not a fallback). Cs is the widest of 64,
+    32, 16, 8 that divides ``c_out`` and whose block fits SMEM_MAX,
+    narrowed while twice the tasks (``b * c_out / Cs``) still fit one
+    wave of ``sms``; 0 when no slice fits (above 10,038 points at
+    C_in = 128) or ``k`` exceeds the kernels' 16-bit winner slots."""
+    fits = [cs for cs in MM_SLICES
+            if c_out % cs == 0 and mm_rows_smem(n, c_in, cs) <= SMEM_MAX]
+    if not fits or not 0 < k <= 0xFFFF:
+        return 0
+    i = 0
+    while i + 1 < len(fits) and b * (c_out // fits[i + 1]) <= sms:
+        i += 1
+    return fits[i]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _mm_launch(name, device, args, b, n, c_in, c_out, k, cs):
+    """Launches ``name`` (column slice ``cs``) or, with ``cs`` 0, its
+    K-fold route ``name_kfold``; ``cs`` None: :func:`mm_slice`."""
+    if cs is None:
+        cs = mm_slice(b, n, c_in, c_out, k, _sm_count(device.index or 0))
+    if cs:
+        _lib.launch(name, device, *args, b, n, c_in, c_out, k, cs)
+    else:
+        _lib.launch(f"{name}_kfold", device, *args, b, n, c_in, c_out, k)
+
+
 def gather_matmul_max(x, w, idx, mask, affine=None):
-    """Plain version for CPU tensors; the CUDA kernel (tensor cores) for
-    CUDA tensors. The kernel takes widths that are multiples of 16:
-    other widths are zero-padded here (zero columns add nothing) and the
-    padded outputs dropped."""
+    """Plain version for CPU tensors; for CUDA tensors the
+    ``gather_matmul_max`` kernel (one product a row, the slice of ``x @
+    w`` in shared memory), or above its size the K-fold kernel
+    ``gather_matmul_max_kfold`` (:func:`mm_slice`). The kernels take
+    widths that are multiples of 16: other widths are zero-padded here
+    (zero columns add nothing) and the padded outputs dropped."""
     if x.device.type == "cpu":
         return gather_matmul_max_plain(x, w, idx, mask, affine)
+    return _gather_matmul_max(x, w, idx, mask, affine)
+
+
+def _gather_matmul_max(x, w, idx, mask, affine=None, cs=None):
+    """:func:`gather_matmul_max` on CUDA tensors through the route of
+    column slice ``cs`` (0: the K-fold kernel; None: by shape)."""
     b, n, _ = x.shape
     c_out = w.shape[-1]
     k = idx.shape[-1]
@@ -509,10 +599,10 @@ def gather_matmul_max(x, w, idx, mask, affine=None):
         aff = _pad_last(_affine_rows(affine, c_out).to(device), 16)
     out = torch.empty((b, n, wp.shape[1]), dtype=torch.bfloat16,
                       device=device)
-    _lib.launch("gather_matmul_max", device, xp.data_ptr(), wp.data_ptr(),
-                idx.data_ptr(), mask.data_ptr(),
-                0 if aff is None else aff.data_ptr(), out.data_ptr(), b, n,
-                xp.shape[-1], wp.shape[1], k)
+    _mm_launch("gather_matmul_max", device,
+               (xp.data_ptr(), wp.data_ptr(), idx.data_ptr(),
+                mask.data_ptr(), 0 if aff is None else aff.data_ptr(),
+                out.data_ptr()), b, n, xp.shape[-1], wp.shape[1], k, cs)
     return out[..., :c_out].contiguous() if wp.shape[1] != c_out else out
 
 
@@ -567,12 +657,19 @@ def gather_matmul_max_win_plain(x, w, idx, mask):
 
 def gather_matmul_max_win(x, w, idx, mask):
     """``(out [B, N, C_out] bf16, winner [B, N, C_out] int32)``: plain
-    version for CPU tensors; the ``gather_matmul_max_win`` kernel (tensor
-    cores) for CUDA tensors, with the widths zero-padded to multiples of
-    16 as in :func:`gather_matmul_max` (a padded column is never read
-    back)."""
+    version for CPU tensors; for CUDA tensors the
+    ``gather_matmul_max_win`` kernel, or above its size
+    ``gather_matmul_max_win_kfold``, routed as in
+    :func:`gather_matmul_max`, with the widths zero-padded to multiples
+    of 16 (a padded column is never read back)."""
     if x.device.type == "cpu":
         return gather_matmul_max_win_plain(x, w, idx, mask)
+    return _gather_matmul_max_win(x, w, idx, mask)
+
+
+def _gather_matmul_max_win(x, w, idx, mask, cs=None):
+    """:func:`gather_matmul_max_win` on CUDA tensors through the route of
+    column slice ``cs`` (0: the K-fold kernel; None: by shape)."""
     device, xp, wp = _mm_operands("gather_matmul_max_win", x, w, idx, mask)
     b, n, _ = x.shape
     c_out = w.shape[-1]
@@ -580,10 +677,10 @@ def gather_matmul_max_win(x, w, idx, mask):
                       device=device)
     winner = torch.empty((b, n, wp.shape[1]), dtype=torch.int32,
                          device=device)
-    _lib.launch("gather_matmul_max_win", device, xp.data_ptr(),
-                wp.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                out.data_ptr(), winner.data_ptr(), b, n, xp.shape[-1],
-                wp.shape[1], idx.shape[-1])
+    _mm_launch("gather_matmul_max_win", device,
+               (xp.data_ptr(), wp.data_ptr(), idx.data_ptr(),
+                mask.data_ptr(), out.data_ptr(), winner.data_ptr()), b, n,
+               xp.shape[-1], wp.shape[1], idx.shape[-1], cs)
     if wp.shape[1] != c_out:
         return out[..., :c_out].contiguous(), winner[..., :c_out].contiguous()
     return out, winner

@@ -6,11 +6,13 @@ the card. Skipped where there is no CUDA device. On a GPU machine
 
 Shapes are small and include widths the model never uses (N not a
 multiple of 4, C not a multiple of 32) so that every branch of the
-kernels' indexing runs. The atomic scatters (``gather_max_bwd``,
-``gather_sum_bwd``, ``gather_minmax_bwd``) add in any order, and so does
-``scatter_add_`` on the card, so scatters are held to 1e-5 x max|dh|;
-``scatter_rows`` adds in a fixed order and is also held bit-equal to
-itself across calls.
+kernels' indexing runs. The f32 atomic scatters (``gather_sum_bwd``,
+``edge_delta_mlp_bwd``) add in any order, and so does ``scatter_add_``
+on the card, so they are held to 1e-5 x max|dh|; ``scatter_rows`` adds
+in a fixed order, and the winner-routed ``gather_max_bwd`` and
+``gather_minmax_bwd`` sum exactly in f64 and round once, so these are
+held bit-equal to their plain versions and to themselves across
+calls.
 """
 
 import dataclasses
@@ -217,6 +219,16 @@ def _close_to_max(got, want, rtol):
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
+def _bwd_exact(kernel, plain, args, got=None):
+    """A winner-routed backward bit-equal to its plain version and to a
+    second call of itself."""
+    got = kernel(*args) if got is None else got
+    want = plain(*args)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(kernel(*args), got)
+
+
 @pytest.mark.parametrize("b,n,k", [(2, 100, 9), (2, 150, 9), (2, 1024, 20),
                                    (2, 1027, 20), (3, 5, 40), (1, 12500, 20)])
 def test_adjacency_kernel_exact(cuda, b, n, k):
@@ -241,8 +253,8 @@ def test_adjacency_kernel_exact(cuda, b, n, k):
 @pytest.mark.parametrize("c", [3, 64, 300])
 def test_gather_max_win_and_bwd_kernels(cuda, c):
     """Forward with winners bit-equal (ties from repeated indices and
-    rounded values included); the winner-routed scatter within 1e-5 x
-    max."""
+    rounded values included); the winner-routed scatter bit-equal to the
+    plain version and across two calls."""
     rng = np.random.default_rng(5)
     n, k = 150, 9
     h = torch.from_numpy(np.round(
@@ -253,8 +265,8 @@ def test_gather_max_win_and_bwd_kernels(cuda, c):
     assert torch.equal(out, out_p) and torch.equal(win, win_p)
     assert not win[0, 4].any()
     g = torch.randn((2, n, c), device=cuda)
-    _close_to_max(ops.gather_max_bwd(idx, win, g, n),
-                  ops.gather_max_bwd_plain(idx, win, g, n), 1e-5)
+    _bwd_exact(ops.gather_max_bwd, ops.gather_max_bwd_plain,
+               (idx, win, g, n))
 
 
 @pytest.mark.parametrize("n,c", [(100, 3), (150, 64), (77, 300)])
@@ -568,7 +580,7 @@ def test_gather_max_win_bf16_and_bwd_kernels(cuda, c):
     indices and coarse values included; odd C takes the one-channel
     loads), values as numbers: where +0 and -0 tie the kernel keeps the
     first slot's and the plain ``amax`` either; the bf16-cotangent
-    scatter within 1e-5 x max."""
+    scatter bit-equal to the plain version and across two calls."""
     rng = np.random.default_rng(15)
     n, k = 150, 9
     h = torch.from_numpy(np.round(rng.standard_normal((2, n, c)) * 8).astype(
@@ -582,8 +594,8 @@ def test_gather_max_win_bf16_and_bwd_kernels(cuda, c):
     assert torch.equal(win, win_p), int((win != win_p).sum())
     assert not win[0, 4].any()
     g = torch.randn((2, n, c), device=cuda).to(torch.bfloat16)
-    _close_to_max(ops.gather_max_bwd(idx, win, g, n),
-                  ops.gather_max_bwd_plain(idx, win, g, n), 1e-5)
+    _bwd_exact(ops.gather_max_bwd, ops.gather_max_bwd_plain,
+               (idx, win, g, n))
 
 
 @pytest.mark.parametrize("c_in,c_out", [(128, 256), (24, 40)])
@@ -624,6 +636,228 @@ def test_gather_matmul_max_win_kernel(cuda, c_in, c_out):
     assert not win[0, 4].any()
 
 
+_GM = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+
+
+def _mm_exact(rng, b, n, c_in, c_out, dev):
+    """bf16 inputs whose products and sums are exact in f32 in any order
+    (x in steps of 1/8 up to 4, w in steps of 1/16 up to 1)."""
+    x = torch.from_numpy(rng.integers(-32, 33, (b, n, c_in)) / 8.0)
+    w = torch.from_numpy(rng.integers(-16, 17, (c_in, c_out)) / 16.0)
+    return (x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16))
+
+
+def _mm_random(rng, b, n, c_in, c_out, dev):
+    x = torch.from_numpy(rng.standard_normal((b, n, c_in)).astype(np.float32))
+    w = torch.from_numpy(
+        (rng.standard_normal((c_in, c_out)) / 8).astype(np.float32))
+    return x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16)
+
+
+def _mm_graph(rng, b, n, k, dev):
+    """Random neighbours, 30% masked, and rows with no valid slot: point 4
+    of the first cloud and the last point of every cloud."""
+    idx = torch.from_numpy(
+        rng.integers(0, n, (b, n, k)).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random((b, n, k)) > 0.3).to(dev)
+    mask[0, 4] = False
+    mask[:, -1] = False
+    return idx, mask
+
+
+def _win_held(out, win, win_p, x, w, idx, mask):
+    """The train form on random inputs, held as ``_mm_max_held`` holds the
+    eval form (its values are the bf16-rounded max: rounding is
+    monotone): values within one bf16 ulp of the plain version or, near
+    zero, within the f32 summation bound of the exact max; where a winner
+    differs from the plain version's, the exact (f64) products at the two
+    slots within the summation bounds of both plus one bf16 ulp of the
+    larger (two f32 sums in another order may rank them either way)."""
+    _mm_max_held(out, x, w, idx, mask)
+    xd, wd = x.double(), w.double()
+    y, mag = xd @ wd, xd.abs() @ wd.abs()
+
+    def at(t, winner):
+        return torch.gather(t, 1, torch.gather(idx.long(), 2, winner.long()))
+
+    flip = win != win_p
+    a, a_p = at(y, win)[flip], at(y, win_p)[flip]
+    tol = (x.shape[-1] * 2.0 ** -24 * (at(mag, win) + at(mag, win_p))[flip]
+           + 2.0 ** -7 * torch.maximum(a.abs(), a_p.abs()))
+    assert bool(((a - a_p).abs() <= tol).all())
+
+
+def _mm_both(x, w, idx, mask, aff, cs):
+    """Both bf16 matmul maxes through the route of column slice ``cs``
+    (0: the K-fold kernels), with the launches they made."""
+    reset_launch_counts()
+    raw = _GM._gather_matmul_max(x, w, idx, mask, None, cs)
+    fused = _GM._gather_matmul_max(x, w, idx, mask, aff, cs)
+    out, win = _GM._gather_matmul_max_win(x, w, idx, mask, cs)
+    torch.cuda.synchronize()
+    return raw, fused, out, win, launch_counts()
+
+
+def _route_launched(counts, cs):
+    """The eval form twice and the train form once, on ``cs``'s route."""
+    sfx = "" if cs else "_kfold"
+    other = "_kfold" if cs else ""
+    assert counts[f"gather_matmul_max{sfx}"] == 2, counts
+    assert counts[f"gather_matmul_max_win{sfx}"] == 1, counts
+    assert counts[f"gather_matmul_max{other}"] == 0, counts
+    assert counts[f"gather_matmul_max_win{other}"] == 0, counts
+
+
+@pytest.mark.parametrize("n", [150, 1000])
+@pytest.mark.parametrize("c_in,c_out,cs", [
+    (128, 256, 64), (128, 256, 32), (128, 256, 16), (128, 256, 8),
+    (128, 256, 0), (24, 40, 16), (24, 40, 8), (24, 40, 0), (200, 256, 32),
+    (200, 40, 8)])
+def test_matmul_max_routes(cuda, n, c_in, c_out, cs):
+    """Both bf16 matmul maxes through each route (every column slice of
+    the one-product-a-row kernels, and the K-fold kernels) at ragged N
+    (not a multiple of the 128-row tile), C_out = 40 zero-padded to 48,
+    C_in = 200 (padded to 208: 13 k-steps, above the 8 whose B fragments
+    the kernel keeps in registers), rows with no valid slot: on
+    exact-sum inputs values, winners and the
+    epilogue bit-equal to the plain versions; on random inputs held as
+    ``test_gather_matmul_max_kernel`` and
+    ``test_gather_matmul_max_win_kernel`` hold them; the launches show the
+    route."""
+    rng = np.random.default_rng(30 + n + cs)
+    b, k = 2, 9
+    idx, mask = _mm_graph(rng, b, n, k, cuda)
+    aff = tuple(torch.from_numpy(a).to(cuda) for a in (
+        np.where(rng.standard_normal(c_out) >= 0, 1.0, -1.0).astype(
+            np.float32),
+        rng.standard_normal(c_out).astype(np.float32),
+        rng.standard_normal(c_out).astype(np.float32),
+        rng.standard_normal(c_out).astype(np.float32)))
+    x, w = _mm_exact(rng, b, n, c_in, c_out, cuda)
+    raw, fused, out, win, counts = _mm_both(x, w, idx, mask, aff, cs)
+    _route_launched(counts, cs)
+    assert torch.equal(_bits(raw), _bits(ops.gather_matmul_max_plain(
+        x, w, idx, mask)))
+    assert torch.equal(_bits(fused), _bits(ops.gather_matmul_max_plain(
+        x, w, idx, mask, aff)))
+    out_p, win_p = ops.gather_matmul_max_win_plain(x, w, idx, mask)
+    assert torch.equal(_bits(out), _bits(out_p))
+    assert torch.equal(win, win_p), int((win != win_p).sum())
+    neg = torch.tensor(NEG).to(torch.bfloat16).float()
+    for r in (raw, out):
+        assert bool((r[0, 4].float() == neg).all())
+        assert bool((r[:, -1].float() == neg).all())
+    assert not win[:, -1].any() and not fused[:, -1].float().any()
+
+    x, w = _mm_random(rng, b, n, c_in, c_out, cuda)
+    raw, fused, out, win, _ = _mm_both(x, w, idx, mask, aff, cs)
+    _mm_max_held(raw, x, w, idx, mask)
+    assert torch.equal(_bits(fused), _bits(ops.bn_lrelu_epilogue(
+        raw.float(), aff, mask.any(dim=-1, keepdim=True))))
+    _win_held(out, win, ops.gather_matmul_max_win_plain(x, w, idx, mask)[1],
+              x, w, idx, mask)
+
+
+@pytest.mark.parametrize("cs", [64, 8, 0])
+def test_matmul_max_routes_nan(cuda, cs):
+    """A NaN in x (row 7 of the first cloud: a NaN row of y) takes the
+    NaN rules of the slower max: the max is NaN wherever a valid slot
+    gathers that row, the winner there the plain version's (0), and every
+    other value and winner bit-equal on exact-sum inputs."""
+    rng = np.random.default_rng(41)
+    b, n, k, c_in, c_out = 2, 150, 9, 128, 256
+    idx, mask = _mm_graph(rng, b, n, k, cuda)
+    x, w = _mm_exact(rng, b, n, c_in, c_out, cuda)
+    x[0, 7, 5] = float("nan")
+    raw, _, out, win, counts = _mm_both(x, w, idx, mask, None, cs)
+    _route_launched(counts, cs)
+    raw_p = ops.gather_matmul_max_plain(x, w, idx, mask)
+    out_p, win_p = ops.gather_matmul_max_win_plain(x, w, idx, mask)
+    hit = ((idx[0] == 7) & mask[0]).any(dim=-1)
+    assert bool(hit.any())
+    for got, want in ((raw, raw_p), (out, out_p)):
+        nan = torch.isnan(got.float())
+        assert torch.equal(nan, torch.isnan(want.float()))
+        assert bool(nan[0][hit].all()) and int(nan[0][~hit].sum()) == 0
+        assert not nan[1].any()
+        assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+    assert torch.equal(win, win_p), int((win != win_p).sum())
+
+
+@pytest.mark.parametrize("b,n", [(32, 1024), (4, 8192)])
+def test_matmul_max_model_shapes(cuda, b, n):
+    """The model shapes, 128 -> 256, K=20 (classification conv3 at B=32,
+    N=1024; the large clouds at B=4, N=8192): the route by shape is the
+    one-product-a-row kernels (no K-fold launch), and the K-fold route
+    gives the same bits: exact-sum inputs bit-equal to the plain
+    versions, random inputs held by ``_mm_max_held`` and ``_win_held``
+    and bit-equal across the two routes."""
+    rng = np.random.default_rng(b + n)
+    k, c_in, c_out = 20, 128, 256
+    assert _GM.mm_slice(b, n, c_in, c_out, k, 132) == (64 if n == 1024
+                                                       else 8)
+    idx, mask = _mm_graph(rng, b, n, k, cuda)
+    aff = (torch.ones(c_out, device=cuda),
+           torch.full((c_out,), 0.5, device=cuda),
+           torch.zeros(c_out, device=cuda), torch.zeros(c_out, device=cuda))
+    x, w = _mm_exact(rng, b, n, c_in, c_out, cuda)
+    want = (ops.gather_matmul_max_plain(x, w, idx, mask),
+            ops.gather_matmul_max_plain(x, w, idx, mask, aff),
+            *ops.gather_matmul_max_win_plain(x, w, idx, mask))
+    for cs in (None, 0):
+        *got, counts = _mm_both(x, w, idx, mask, aff, cs)
+        _route_launched(counts, cs is None)
+        for g, v in zip(got, want):
+            assert torch.equal(g.view(torch.int16) if g.dtype ==
+                               torch.bfloat16 else g,
+                               v.view(torch.int16) if v.dtype ==
+                               torch.bfloat16 else v)
+    x, w = _mm_random(rng, b, n, c_in, c_out, cuda)
+    got = _mm_both(x, w, idx, mask, aff, None)[:4]
+    raw, _, out, win = got
+    _mm_max_held(raw, x, w, idx, mask)
+    _win_held(out, win, ops.gather_matmul_max_win_plain(x, w, idx, mask)[1],
+              x, w, idx, mask)
+    # The two routes run the same tensor-core sums in the same order (k in
+    # steps of 16 from zero): the same bits on random inputs too.
+    for g, v in zip(got, _mm_both(x, w, idx, mask, aff, 0)[:4]):
+        assert torch.equal(g.view(torch.int16) if g.dtype == torch.bfloat16
+                           else g, v.view(torch.int16) if v.dtype ==
+                           torch.bfloat16 else v)
+
+
+def test_matmul_max_above_the_rows_limit(cuda):
+    """One cloud above the one-product-a-row kernels' limit (10,038
+    points at C_in = 128, where an 8-column slice of y no longer fits a
+    block beside two ring stages): the wrappers, and
+    ``gather_matmul_max_train`` with its backward, take the K-fold route,
+    bit-equal to the plain versions on exact-sum inputs."""
+    rng = np.random.default_rng(43)
+    b, n, k, c_in, c_out = 1, 10100, 20, 128, 256
+    assert _GM.mm_slice(b, n, c_in, c_out, k, 132) == 0
+    assert _GM.mm_slice(b, 10038, c_in, c_out, k, 132) == 8
+    assert _GM.mm_slice(b, 10039, c_in, c_out, k, 132) == 0
+    idx, mask = _mm_graph(rng, b, n, k, cuda)
+    x, w = _mm_exact(rng, b, n, c_in, c_out, cuda)
+    reset_launch_counts()
+    raw = ops.gather_matmul_max(x, w, idx, mask)
+    out, win = ops.gather_matmul_max_win(x, w, idx, mask)
+    xg = x.clone().requires_grad_()
+    ops.gather_matmul_max_train(xg, w, idx, mask).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["gather_matmul_max_kfold"] == 1, counts
+    assert counts["gather_matmul_max_win_kfold"] == 2, counts
+    assert counts["gather_matmul_max"] == counts[
+        "gather_matmul_max_win"] == 0, counts
+    assert counts["gather_max_bwd_bf16"] == 1, counts
+    assert torch.equal(_bits(raw), _bits(ops.gather_matmul_max_plain(
+        x, w, idx, mask)))
+    out_p, win_p = ops.gather_matmul_max_win_plain(x, w, idx, mask)
+    assert torch.equal(_bits(out), _bits(out_p))
+    assert torch.equal(win, win_p)
+
+
 def test_bf16_autograd_round_trip_launches(cuda):
     """The differentiable bf16 maxes and dense applies on the card: each
     forward and backward launches its kernel once, and the gradients
@@ -652,7 +886,11 @@ def test_bf16_autograd_round_trip_launches(cuda):
         if maxed is ops.gather_max:
             assert counts["gather_max_win_bf16"] == 1, counts
             assert counts["gather_matmul_max_win"] == 1, counts
+            assert counts["gather_matmul_max_win_kfold"] == 0, counts
+            # The backward is unchanged: the winner-routed scatter at
+            # C_out (one launch for each max) and two torch matmuls.
             assert counts["gather_max_bwd_bf16"] == 2, counts
+            assert sum(counts.values()) == 4, counts
         else:
             assert sum(counts.values()) == 0, counts
     for got, want in zip(*grads):
@@ -1940,8 +2178,10 @@ def test_gather_minmax_kernels_exact(cuda, c, dtype):
 @pytest.mark.parametrize("c", [3, 64, 300])
 def test_gather_minmax_bwd_kernel(cuda, c, dtype):
     """The two-map backward (``gather_minmax_bwd``, ``_bf16`` for bf16
-    cotangents) within 1e-5 x max of the plain version (atomics add in any
-    order), and equal to two one-map backwards summed within the same."""
+    cotangents) bit-equal to the plain version and across two calls (the
+    f64 sums do not depend on the atomics' order), and equal to two
+    one-map backwards summed within 1e-5 x max (each of those rounds on
+    its own)."""
     rng = np.random.default_rng(61)
     n, k = 150, 9
     h = torch.from_numpy(np.round(rng.standard_normal((2, n, c)) * 8).astype(
@@ -1955,8 +2195,8 @@ def test_gather_minmax_bwd_kernel(cuda, c, dtype):
     name = "gather_minmax_bwd" + ("_bf16" if dtype == torch.bfloat16 else "")
     assert launch_counts()[name] == 1
     assert dh.dtype == torch.float32
-    want = ops.gather_minmax_bwd_plain(idx, wmx, gmx, wmn, gmn, n)
-    _close_to_max(dh, want, 1e-5)
+    _bwd_exact(ops.gather_minmax_bwd, ops.gather_minmax_bwd_plain,
+               (idx, wmx, gmx, wmn, gmn, n), dh)
     _close_to_max(dh, ops.gather_max_bwd(idx, wmx, gmx, n)
                   + ops.gather_max_bwd(idx, wmn, gmn, n), 1e-5)
 

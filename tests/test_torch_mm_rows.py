@@ -1,0 +1,249 @@
+"""The bf16 matmul maxes of deltaconv_tpu_torch on the CPU: the route
+choice of their CUDA wrappers (pure functions, no card) and their plain
+versions against the JAX package at the shapes the card tests give the
+kernels (ragged N, C_out = 40, rows with no valid neighbour).
+
+On the card ``ops.gather_matmul_max`` and ``ops.gather_matmul_max_win``
+run one product a row (``csrc/gather_matmul_max_rows.cuh``: a cloud's
+slice of Cs columns of ``x @ w`` in shared memory) up to the size
+``mm_slice`` allows, and the K-fold kernels (``_kfold``) above it; the
+kernels themselves are held against these plain versions by
+``tests/test_torch_gpu.py``.
+
+The JAX side: ``gather_matmul_max`` runs its Pallas kernel in interpret
+mode; the train form through ``_mm_train_reference_fwd``, its CPU
+reference path (the TPU kernel takes no interpret flag). Inputs are made
+with numpy from a seed. Tolerances, and why: on inputs whose products
+and sums are exact in f32 in any order, values and winners are
+bit-equal; with the epilogue, XLA's CPU compiler contracts ``(h - mean)
+* inv + bias`` into an FMA, so an element on a bf16 rounding boundary may
+land one bf16 ulp away (at most 1e-3 of the elements); on random inputs
+the f32 sums run in another order: one bf16 ulp.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deltaconv_tpu.ops.gather_max import _mm_train_reference_fwd
+from deltaconv_tpu.ops.gather_max import gather_matmul_max as jax_mm_max
+from deltaconv_tpu_torch import ops
+
+GM = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+NEG_BF16 = float(torch.tensor(GM.NEG).to(torch.bfloat16))
+
+torch.set_num_threads(1)
+
+
+# -- the route: column slice of the one-product-a-row kernels, or K-fold ---
+
+
+@pytest.mark.parametrize("b,n,c_in,c_out,k,sms,want", [
+    (32, 1024, 128, 256, 20, 132, 64),  # classification conv3: one wave
+    (4, 8192, 128, 256, 20, 132, 8),    # the large clouds: 128 tasks
+    (4, 1024, 128, 256, 20, 132, 8),    # narrowed while tasks fit a wave
+    (32, 1024, 128, 256, 20, 16, 64),   # no narrowing on a small card
+    (2, 150, 32, 48, 9, 132, 8),        # C_out = 40 padded to 48
+    (1, 10038, 128, 256, 20, 132, 8),   # the largest cloud at C_in = 128
+    (1, 10039, 128, 256, 20, 132, 0),   # above it: the K-fold route
+    (1, 1024, 4096, 256, 20, 132, 0),   # two x stages do not fit
+    (2, 150, 32, 48, 65535, 132, 8),    # the 16-bit winner slots' limit
+    (2, 150, 32, 48, 65536, 132, 0),
+])
+def test_mm_slice_routes(b, n, c_in, c_out, k, sms, want):
+    """``mm_slice``: the widest of 64, 32, 16, 8 columns that divides
+    C_out and fits a block, narrowed while twice the tasks still fit one
+    wave; 0 (the K-fold kernels) when no slice fits or K exceeds 16
+    bits."""
+    assert GM.mm_slice(b, n, c_in, c_out, k, sms) == want
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_mm_slice_rules_hold(seed):
+    """On random shapes: a slice divides C_out and fits the shared memory
+    (``mm_rows_smem``); every wider slice that divides C_out either does
+    not fit or would have kept the tasks within one wave after halving;
+    0 only where no slice fits or K is out of range."""
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        b = int(rng.integers(1, 65))
+        n = int(rng.integers(8, 20000))
+        c_in = 16 * int(rng.integers(1, 17))
+        c_out = 16 * int(rng.integers(1, 33))
+        k = int(rng.integers(1, 80))
+        sms = int(rng.choice([16, 66, 132]))
+        cs = GM.mm_slice(b, n, c_in, c_out, k, sms)
+        fits = [c for c in GM.MM_SLICES if c_out % c == 0
+                and GM.mm_rows_smem(n, c_in, c) <= GM.SMEM_MAX]
+        if not fits:
+            assert cs == 0
+            continue
+        assert cs in fits
+        for wider in fits[:fits.index(cs)]:
+            assert b * (c_out // (wider // 2)) <= sms
+
+
+def test_mm_rows_smem_counts_the_block():
+    """The shared memory the CUDA launcher asks for at two x stages: the
+    y slice and its two constant rows, the affine and W slices, two
+    stages of 128 padded x rows; the classification slice (64 columns of
+    1024 rows) and the large-cloud one (8 columns of 8192) fit a block,
+    as does the largest cloud at C_in = 128."""
+    assert GM.mm_rows_smem(1024, 128, 64) == (
+        2 * 1026 * 64 + 16 * 64 + 2 * 128 * 72 + 4 * 128 * 136)
+    assert GM.mm_rows_smem(8192, 128, 8) == (
+        2 * 8194 * 8 + 16 * 8 + 2 * 128 * 8 + 4 * 128 * 136)
+    for n, cs in ((1024, 64), (8192, 8), (10038, 8)):
+        assert GM.mm_rows_smem(n, 128, cs) <= GM.SMEM_MAX
+    assert GM.mm_rows_smem(10039, 128, 8) > GM.SMEM_MAX
+
+
+@pytest.mark.parametrize("name", ["gather_matmul_max",
+                                  "gather_matmul_max_win"])
+@pytest.mark.parametrize("n,cs,launched,extra", [
+    (1024, None, "", (64,)),           # route by shape: one product a row
+    (10039, None, "_kfold", ()),       # above the limit: K-fold
+    (1024, 0, "_kfold", ()),           # forced K-fold
+    (1024, 16, "", (16,)),             # a given slice is passed on
+])
+def test_wrapper_launches_the_route(monkeypatch, name, n, cs, launched,
+                                    extra):
+    """``_mm_launch``, the wrappers' last step, launches the kernel of the
+    chosen route: the one-product-a-row kernel with its slice as the last
+    argument, or the ``_kfold`` kernel without it (recorded in place of
+    the launch; no card)."""
+    calls = []
+    monkeypatch.setattr(GM._lib, "launch",
+                        lambda kernel, device, *args: calls.append(
+                            (kernel, args)))
+    monkeypatch.setattr(GM, "_sm_count", lambda index: 132)
+    GM._mm_launch(name, torch.device("cuda", 0), (11, 12), 32, n, 128, 256,
+                  20, cs)
+    assert calls == [(name + launched, (11, 12, 32, n, 128, 256, 20)
+                      + extra)]
+
+
+# -- the plain versions against the JAX package ----------------------------
+
+
+def _bf16(a):
+    """numpy f32 -> (jnp bf16, torch bf16) of the same bf16 values."""
+    j = jnp.asarray(a).astype(jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j, np.float32)).to(torch.bfloat16)
+
+
+def _bf16_ulps(a, b):
+    def ordered(x):
+        u = torch.from_numpy(np.asarray(x, np.float32)).to(
+            torch.bfloat16).view(torch.int16).int() & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _graph(rng, b, n, k):
+    """Random neighbours (self in slot 0, 20% masked); no valid slot on
+    point 3 of the first cloud and on the last point of every cloud."""
+    idx = rng.integers(0, n, (b, n, k)).astype(np.int32)
+    idx[:, :, 0] = np.arange(n)
+    mask = rng.random((b, n, k)) > 0.2
+    mask[:, :, 0] = True
+    mask[0, 3] = False
+    mask[:, -1] = False
+    return idx, mask
+
+
+def _inputs(rng, kind, b, n, c_in, c_out):
+    if kind == "exact":  # products and sums exact in f32 in any order
+        x = rng.integers(-32, 33, (b, n, c_in)) / 8.0
+        w = rng.integers(-16, 17, (c_in, c_out)) / 16.0
+    else:
+        x = rng.standard_normal((b, n, c_in))
+        w = rng.standard_normal((c_in, c_out)) / 4
+    return _bf16(x.astype(np.float32)) + _bf16(w.astype(np.float32))
+
+
+def _affine(rng, c):
+    inv = rng.standard_normal(c).astype(np.float32)
+    return [np.where(inv >= 0, 1.0, -1.0).astype(np.float32), inv,
+            rng.standard_normal(c).astype(np.float32),
+            rng.standard_normal(c).astype(np.float32)]
+
+
+@pytest.mark.parametrize("kind", ["exact", "random"])
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("n", [150, 1000])
+def test_gather_matmul_max_plain_matches_jax(n, affine, kind):
+    """``gather_matmul_max_plain`` against JAX ``gather_matmul_max``
+    (Pallas, interpret mode) at N not a multiple of the kernels' 64-row
+    tiles (nor of the Pallas tile), C_out = 40: bit-equal on exact sums
+    without the epilogue, within one bf16 ulp on 1e-3 of the elements
+    with it (FMA contraction on the JAX side), within one bf16 ulp on
+    random inputs (one ulp of the max through the affine with it); rows
+    with no valid neighbour -3e38, or 0 after the epilogue."""
+    rng = np.random.default_rng(20 + n + affine)
+    b, k, c_in, c_out = 2, 7, 32, 40
+    idx, mask = _graph(rng, b, n, k)
+    aff = _affine(rng, c_out)
+    x_j, x, w_j, w = _inputs(rng, kind, b, n, c_in, c_out)
+    want = np.asarray(jax_mm_max(
+        x_j, w_j, jnp.asarray(idx), jnp.asarray(mask), interpret=True,
+        self_slot0=True,
+        affine=tuple(map(jnp.asarray, aff)) if affine else None),
+        np.float32)
+    got = ops.gather_matmul_max_plain(
+        x, w, torch.from_numpy(idx), torch.from_numpy(mask),
+        tuple(map(torch.from_numpy, aff)) if affine else None)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, n, c_out)
+    ulps = _bf16_ulps(got.float().numpy(), want)
+    if kind == "exact" and not affine:
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    elif kind == "exact" or not affine:
+        assert int(ulps.max()) <= 1
+        if affine:
+            assert float((ulps > 0).float().mean()) <= 1e-3
+    else:
+        tol = 2.0 ** -7 * np.abs(aff[1]).max() * np.abs(want).max() + 2.0 ** -7
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=tol)
+    empty = got[0, 3].float(), got[:, -1].float()
+    for rows in empty:
+        if affine:
+            assert not rows.any()
+        else:
+            assert bool((rows == NEG_BF16).all())
+
+
+@pytest.mark.parametrize("kind", ["exact", "random"])
+@pytest.mark.parametrize("n", [150, 1000])
+def test_gather_matmul_max_win_plain_matches_jax(n, kind):
+    """``gather_matmul_max_win_plain`` against the JAX train form's
+    forward (``_mm_train_reference_fwd``: the bf16 product, then the
+    first-winner max) at ragged N and C_out = 40: values and winners
+    bit-equal on exact sums; on random inputs values within one bf16 ulp
+    and winners equal wherever the values are; rows with no valid
+    neighbour -3e38 with winner 0."""
+    rng = np.random.default_rng(30 + n)
+    b, k, c_in, c_out = 2, 7, 32, 40
+    idx, mask = _graph(rng, b, n, k)
+    x_j, x, w_j, w = _inputs(rng, kind, b, n, c_in, c_out)
+    want, want_win = _mm_train_reference_fwd(x_j, w_j, jnp.asarray(idx),
+                                             jnp.asarray(mask))
+    want = np.asarray(want, np.float32)
+    want_win = np.asarray(want_win)
+    out, win = ops.gather_matmul_max_win_plain(
+        x, w, torch.from_numpy(idx), torch.from_numpy(mask))
+    assert out.dtype == torch.bfloat16 and win.dtype == torch.int32
+    same = out.float().numpy() == want
+    if kind == "exact":
+        assert bool(same.all())
+        np.testing.assert_array_equal(win.numpy(), want_win)
+    else:
+        assert int(_bf16_ulps(out.float().numpy(), want).max()) <= 1
+        np.testing.assert_array_equal(win.numpy()[same], want_win[same])
+    for rows, wins in ((out[0, 3], win[0, 3]), (out[:, -1], win[:, -1])):
+        assert bool((rows.float() == NEG_BF16).all())
+        assert not wins.any()

@@ -263,6 +263,51 @@ def test_gather_max_vjp_matches_jax(masked_max):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("two_maps", [False, True])
+def test_max_bwd_is_the_exact_sum_rounded_once(dtype, two_maps):
+    """The winner-routed backward (one map, and ``gather_minmax``'s two)
+    is each row's exact sum of cotangents rounded once to f32, as the
+    kernels compute it in f64: equal bit for bit to a float64 numpy sum,
+    and to the same backward with the points in another order (the
+    kernels' atomics land in any order). The cotangents span 16 binary
+    orders and collide on 8 rows, so f32 sums in the two orders differ."""
+    rng = np.random.default_rng(31)
+    b, n, k, c, n_out = 2, 200, 6, 16, 8
+    maps = 2 if two_maps else 1
+    idx = rng.integers(0, n_out, (b, n, k)).astype(np.int32)
+    win = [rng.integers(0, k, (b, n, c)).astype(np.int32)
+           for _ in range(maps)]
+    g = [_t(rng.choice([-1.0, 1.0], (b, n, c)) * (1 + rng.random((b, n, c)))
+            * 2.0 ** rng.integers(-8, 8, (b, n, c))).float().to(
+                getattr(torch, dtype)) for _ in range(maps)]
+
+    def bwd(order):
+        p = torch.as_tensor(order)
+        args = [_t(idx)[:, p]]
+        for w, gm in zip(win, g):
+            args += [_t(w)[:, p], gm[:, p]]
+        fn = ops.gather_minmax_bwd if two_maps else ops.gather_max_bwd
+        return fn(*args, n_out)
+
+    got = bwd(np.arange(n))
+    want = np.zeros((b, n_out, c), np.float64)
+    f32 = [torch.zeros((b, n_out, c)) for _ in range(2)]
+    perm = rng.permutation(n)
+    for w, gm in zip(win, g):
+        src = np.take_along_axis(idx, w, axis=2)
+        for bb, ch in np.ndindex(b, c):
+            np.add.at(want[bb, :, ch], src[bb, :, ch],
+                      gm[bb, :, ch].double().numpy())
+        for acc, order in zip(f32, (np.arange(n), perm)):
+            acc.scatter_add_(1, _t(src[:, order]).long(),
+                             gm[:, torch.as_tensor(order)].float())
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+    assert torch.equal(bwd(perm), got)
+    assert not torch.equal(f32[0], f32[1])  # the data tells orders apart
+
+
 def test_adjacency_matches_pallas_interpret():
     rng = np.random.default_rng(9)
     b, n, k = 2, 192, 9

@@ -232,8 +232,10 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
         "adjacency": 0, "gather_sum": 0, "gather_sum_bwd": 0,
         "knn_topk": 0, "gather_max_affine": 0, "gather_matmul_max": 0,
+        "gather_matmul_max_kfold": 0,
         "gather_max_win_bf16": 0, "gather_max_bwd_bf16": 0,
-        "gather_matmul_max_win": 0, "gather_max_bf16": 0,
+        "gather_matmul_max_win": 0, "gather_matmul_max_win_kfold": 0,
+        "gather_max_bf16": 0,
         "gather_mlp_max": 0, "mlp_rows": 0, "gather_max_merge": 0,
         "densify_int8": 0, "gather_max_int8": 0,
         "gather_matmul_max_int8": 0, "inverse_adjacency": 0,
