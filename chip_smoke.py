@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of deltaconv_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--parent DIR]
 
 Run on a machine with a CUDA card and the CUDA toolkit, from any working
 directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the forty-seven CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the fifty-one CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -25,8 +25,14 @@ first on ``sys.path``. It
    serving's densify_int8, gather_max_int8 at C = 64 and 128 (and 128 at the
    segmentation shapes), gather_matmul_max_int8 at 128 -> 256; the
    large-cloud kernels at B=4, N=8192, K=20 on the clouds' own
-   coefficients: coef_apply_grad at C = 3, 70, 192, 256 and coef_apply_div
-   at C = 6, 128, 256, f32 and bf16, bit-equal, scatter_rows at C' = 70,
+   coefficients: the gather plan (coef_plan_order, coef_plan_runs) equal
+   to its plain builder entry by entry, coef_apply_grad at C = 3, 70,
+   192, 256, 301 and coef_apply_div at C = 6, 128, 256, 301, f32 and
+   bf16, bit-equal on route A and on the planned route (the _plan
+   kernels, where the rows are a multiple of 16 bytes of at least 256),
+   each timed on both routes at one forward's widths beside the plain
+   version, ``gather`` + ``einsum`` and ``F.embedding_bag``, with the
+   rows they gather and the plan's build, scatter_rows at C' = 70,
    256, 512 on component-major rows and on the edge-major view that the
    coefficient VJPs pass (within 1e-5 x max of ``scatter_add_``,
    bit-equal across two calls), its inverse adjacency equal to the plain
@@ -85,10 +91,10 @@ first on ``sys.path``. It
    followed by ``gather_max_win_bf16`` at C=256), at B=32, N=1024 and
    B=4, N=8192, by CUDA events and in device time; ``[device-times]``
    prints the device time of a 32-cloud bf16 classification forward, a
-   bf16 classification step, a 4-cloud large-cloud bf16 forward and a
-   large-cloud bf16 step (each of these paths launches the matmul max's
-   one-product-a-row kernel once a call and its K-fold route never,
-   which their phases check);
+   bf16 classification step, a 4-cloud large-cloud bf16 forward, a
+   large-cloud bf16 step and a large-cloud f32 forward (each bf16 path
+   launches the matmul max's one-product-a-row kernel once a call and
+   its K-fold route never, which their phases check);
 6. trains the f32 model at the reference recipe (B=32 clouds of
    N=1024, SGD lr 0.1, momentum 0.9, weight decay 1e-4, label smoothing
    0.2, dropout 0.5 from a seeded CUDA generator) for 20 steps on one
@@ -142,21 +148,24 @@ first on ``sys.path``. It
     reference-width classifier with ``dense_operators=False`` (the JAX
     package's large-cloud coefficient-operator mode, approximate kNN), at
     ``precision="bfloat16"`` and None, counting launches (4 grad and 4
-    div applies a forward, no dense assembly): the kernel path within
+    div applies a forward, each on the route its width selects, the
+    gather plan once, no dense assembly): the kernel path within
     0.01 x max|logit| of the plain path in bf16 (atol 1e-3 in f32), bf16
     within 0.05 x max|logit| of the f32 engine; it prints clouds/s and a
     profile of one call;
 12. ``[coef-vs-dense]``: the same weights served with coefficient-form
     and dense operators, f32, B=32, N=1024, within atol 1e-3; then one
     forward's 8 applies in both forms, f32 and bf16, at N = 1024 to 8192
-    (the dense form with and without its assembly);
+    (the coefficient form with its gather plan and the plan's build, the
+    dense form with and without its assembly);
 13. ``[train-large]``: trains the large-cloud config (``bench.py
     --mode=large-train``: bf16, coefficient form, approximate kNN, B=4,
     N=8192, SGD lr 0.01, smoothing 0.2, dropout 0.5 from a seeded CUDA
     generator) for 8 steps on one batch of class-conditioned ellipsoids:
-    losses finite and falling, 4 + 4 applies and 6 ``scatter_rows`` a
-    step, each with one ``inverse_adjacency``; it prints the median step
-    time, training clouds/s, the peak memory and a profile of one step;
+    losses finite and falling, 4 + 4 applies (by route as in serving)
+    and 6 ``scatter_rows`` a step, each with one ``inverse_adjacency``
+    (one more for ``gather_sum_bwd``); it prints the median step time,
+    training clouds/s, the peak memory and a profile of one step;
     then one step from the same weights through the kernels and through
     the plain versions (same build, dropout 0), uniform and ragged, held
     as step 8 holds the bf16 step (the parameters' deviation printed, not
@@ -276,7 +285,14 @@ first on ``sys.path``. It
     one-product-a-row kernels' 10,038 at C_in = 128): gather_matmul_max
     with the epilogue and gather_matmul_max_train forward and backward
     launch ``gather_matmul_max_kfold`` and ``gather_matmul_max_win_kfold``
-    once each, exact sums bit-equal to the plain versions.
+    once each, exact sums bit-equal to the plain versions;
+28. with ``--parent DIR`` (another checkout's root, e.g. the parent
+    commit unpacked by ``git archive``): ``[coef-applies]`` (one
+    forward's eight applies at B=4, N=8192 in device time, with the
+    gather plan's build where the package has one) and
+    ``[device-times]`` on that checkout's package (this script copied
+    into its root) and on this tree, in turns: parent, this, this,
+    parent, each a process of its own (``--phase compare``).
 
 Any failed phase raises (non-zero exit). The last three lines are a JSON
 record of the kernels, the ``nvidia-smi`` line and ``{"ok": true,
@@ -287,9 +303,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -389,6 +407,10 @@ LARGE_STEPS = 8
 LARGE_UNIFORM, LARGE_RAGGED = 8, 3  # served clouds: 2 uniform batches, 1
 LARGE_MIN_POINTS = 5000  # the ragged clouds' smallest size
 COEF_DIV_WIDTHS = (6, 128, 256)  # coef_apply_div checked at conv0, 1-2, 3
+COEF_ODD_C = 301  # and both applies at an odd width (bf16 without pairs)
+# The planned route (coef_apply_*_plan) takes rows of a multiple of 16
+# bytes and at least this many (ops.coef_apply._PLAN_MIN_ROW_BYTES).
+COEF_PLAN_MIN_ROW_BYTES = 256
 # scatter_rows checked at the grads' 70 (conv0) and 256 (conv2, and the
 # divs' 2 x 128 at conv1-2) and the last div's 512 (conv3).
 SCATTER_WIDTHS = (70, 256, 512)
@@ -398,8 +420,16 @@ SCATTER_NARROW_C = 9
 # Launches on the coefficient-form path: a forward applies 4 grads (the
 # positions', conv0-2) and 4 divs (conv0-3); a train step's backward
 # scatters the cotangents of the 3 grads and 3 divs whose features
-# require grad (not the positions' grad, nor conv0's div of it).
-COEF_PER_FORWARD = {"coef_apply_grad": 4, "coef_apply_div": 4}
+# require grad (not the positions' grad, nor conv0's div of it), each
+# after its inverse adjacency, and the neighbour sum's gather_sum_bwd
+# takes one more inverse adjacency.
+# By route, in f32 and bf16 alike: the grads at C = 3 and 70 and the div
+# at 6 take route A, the grads at 192 and 256 and the divs at 128, 128
+# and 256 the planned route; the gather plan is built once a forward.
+COEF_PER_FORWARD = {"coef_apply_grad": 2, "coef_apply_grad_plan": 2,
+                    "coef_apply_div": 1, "coef_apply_div_plan": 3,
+                    "coef_plan_order": 1, "coef_plan_runs": 1}
+APPLIES_PER_FORWARD = {"coef_apply_grad": 4, "coef_apply_div": 4}
 SCATTERS_PER_STEP = 6
 # Kernels vs plain applies in one large-cloud step: the gradients'
 # relative Frobenius deviation over all tensors (sum order only: the plain
@@ -467,10 +497,12 @@ WLS_FLOPS_PER_EDGE = 180
 WLS_BWD_FLOPS_PER_EDGE = 580
 # Launches on the paths of this slice: one backward through the dense f32
 # build (the gather's VJP scatter_rows once), the coefficient form's (no
-# assembly: no densify_bwd), one forward of the fused eval build.
+# assembly: no densify_bwd; its forward's applies by route and the
+# gather plan as in serving), one forward of the fused eval build.
 POS_GRAD_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 1, "scatter_rows": 1,
                          "inverse_adjacency": 1}
-POS_GRAD_LARGE_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 0}
+POS_GRAD_LARGE_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 0,
+                               **COEF_PER_FORWARD}
 MINMAX_C = 256  # gather_minmax (f32), its backward (f32 and bf16)
 MINMAX_BF16_C = 128  # the bf16 forward bodies
 MINMAX_WIDTHS = (64, 128, 256)  # [nbr-minmax]: the conv widths, f32
@@ -544,6 +576,16 @@ KERNEL_META = {
                         "deltaconv_tpu/ops/coef_apply.py:140"),
     "coef_apply_div": ("deltaconv_tpu_torch/csrc/coef_apply.cu",
                        "deltaconv_tpu/ops/coef_apply.py:173"),
+    "coef_apply_grad_plan": ("deltaconv_tpu_torch/csrc/coef_apply.cu",
+                             "deltaconv_tpu/ops/coef_apply.py:140"),
+    "coef_apply_div_plan": ("deltaconv_tpu_torch/csrc/coef_apply.cu",
+                            "deltaconv_tpu/ops/coef_apply.py:173"),
+    # The gather plan of the planned applies (built once a forward for
+    # both): part of the redesign of the two TPU kernels above.
+    "coef_plan_order": ("deltaconv_tpu_torch/csrc/coef_apply.cu",
+                        "deltaconv_tpu/ops/coef_apply.py:140"),
+    "coef_plan_runs": ("deltaconv_tpu_torch/csrc/coef_apply.cu",
+                       "deltaconv_tpu/ops/coef_apply.py:173"),
     "scatter_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
                      "deltaconv_tpu/ops/gather_rows.py:292"),
     "inverse_adjacency": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
@@ -614,14 +656,15 @@ INT8_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_int8",
 SEG_INT8_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_int8",
                     "gather_max_int8", "gather_mlp_max", "mlp_rows",
                     "gather_max_merge")
+COEF_KERNELS = tuple(COEF_PER_FORWARD)
+# The gather plan's kernels as the profiler names them.
+PLAN_KERNELS = ("plan_sort_kernel", "plan_merge_kernel", "plan_runs_kernel")
 LARGE_KERNELS = {  # the large-cloud paths, by precision
-    "bfloat16": ("knn_topk", "gather_rows", "wls", "coef_apply_grad",
-                 "coef_apply_div", "gather_max_affine", "gather_matmul_max"),
-    None: ("knn_topk", "gather_rows", "wls", "coef_apply_grad",
-           "coef_apply_div", "gather_max")}
-TRAIN_LARGE_KERNELS = ("knn_topk", "gather_rows", "wls", "coef_apply_grad",
-                       "coef_apply_div", "scatter_rows", "inverse_adjacency",
-                       "gather_sum",
+    "bfloat16": ("knn_topk", "gather_rows", "wls", *COEF_KERNELS,
+                 "gather_max_affine", "gather_matmul_max"),
+    None: ("knn_topk", "gather_rows", "wls", *COEF_KERNELS, "gather_max")}
+TRAIN_LARGE_KERNELS = ("knn_topk", "gather_rows", "wls", *COEF_KERNELS,
+                       "scatter_rows", "inverse_adjacency", "gather_sum",
                        "gather_sum_bwd", "gather_max_win_bf16",
                        "gather_max_bwd_bf16", "gather_matmul_max_win")
 # Launches per forward on the int8 paths, as the JAX module code routes
@@ -647,6 +690,7 @@ RECORD_WIDTH = {"gather_max": 256, "gather_max_win": 256,
                 "gather_max_int8": 128,
                 "coef_apply_grad": 256, "coef_apply_div": 256,
                 "scatter_rows": 512}
+RECORD_WIDTH.update(coef_apply_grad_plan=256, coef_apply_div_plan=256)
 
 
 def nbytes(*tensors) -> int:
@@ -1918,11 +1962,12 @@ def kernel_phase(rng, dev, card):
 
             dh = ops.gather_sum_bwd(idx, nbr_mask, g)
             dh_p = ops.gather_sum_bwd_plain(idx, nbr_mask, g)
-            err, tol = max_err(dh, dh_p), SCATTER_RTOL * float(
-                dh_p.abs().max())
+            err = max_err(dh, dh_p)
             record("gather_sum_bwd", err)
-            check(f"gather_sum_bwd C={c}", err <= tol,
-                  f"max_abs_err {err} <= {tol}")
+            check(f"gather_sum_bwd C={c}", bits_equal(dh, dh_p) and
+                  bits_equal(ops.gather_sum_bwd(idx, nbr_mask, g), dh),
+                  f"bit-equal to the plain version (f64 sums rounded "
+                  f"once) and across two calls, max_abs_err {err}")
         check_bf16_kernels(record, label, pos, idx, nbr_mask, gd_p, dev)
         check_bf16_train_kernels(record, idx, nbr_mask, dev)
         check_int8_kernels(record, idx, nbr_mask, gd_p, dev)
@@ -2610,12 +2655,13 @@ def conv3_forms(dev, card):
 
 def path_device_times(seed, dev, card):
     """``[device-times]``: the device time (profiler, :func:`device_ms`)
-    of one call of each path that runs a bf16 matmul max: a 32-cloud bf16
-    classification forward (``InferenceEngine.predict``, approximate kNN),
-    the bf16 classification train step (reference recipe), a 4-cloud
-    large-cloud bf16 forward (N=8192, coefficient form) and the large-cloud
-    bf16 step, each after PATH_WARMUP calls. Public functions only, as
-    :func:`conv3_forms`."""
+    of one call of each path that runs a bf16 matmul max or the
+    coefficient applies: a 32-cloud bf16 classification forward
+    (``InferenceEngine.predict``, approximate kNN), the bf16
+    classification train step (reference recipe), a 4-cloud large-cloud
+    bf16 forward (N=8192, coefficient form), the large-cloud bf16 step and
+    the large-cloud f32 forward, each after PATH_WARMUP calls. Public
+    functions only, as :func:`conv3_forms`."""
     from deltaconv_tpu_torch import InferenceEngine
     from deltaconv_tpu_torch.training import (create_train_state,
                                               make_train_step, sgd_momentum)
@@ -2646,6 +2692,15 @@ def path_device_times(seed, dev, card):
         times[f"{label} bf16 step"] = device_ms(
             lambda: step(state, batch, gen))
         del state, step, model, batch
+    model = random_model(seed, dev, knn_method="approx",
+                         dense_operators=False)
+    engine = InferenceEngine(model, num_points=LARGE_N, batch_size=LARGE_B)
+    clouds, normals = ellipsoid_clouds(rng, [LARGE_N] * LARGE_B)
+    for _ in range(PATH_WARMUP):
+        engine.predict(clouds, normals)
+    times[f"large-cloud f32 forward ({LARGE_B} clouds)"] = device_ms(
+        lambda: engine.predict(clouds, normals))
+    del engine, model
     print("[device-times] device time of one call (profiler): " + "; ".join(
         f"{label} {ms:.3f} ms" for label, ms in times.items())
         + f"; card: {card}", flush=True)
@@ -3086,10 +3141,11 @@ def train_phase(rng, seed, dev, card):
 
 def large_graphs(rng, dev):
     """Uniform and masked kNN graphs at the large-cloud shapes (B=4,
-    N=8192, K=20), each with the clouds' own operator coefficients;
-    masked: the last 40% of the points of every other cloud are padding
-    (their edges carry zero coefficients; slots beyond a point's valid
-    neighbours are clamped to self)."""
+    N=8192, K=20) as ``(idx, operators, pos, point_mask)``: the clouds'
+    own operator coefficients, and the positions and mask that the gather
+    plan needs (``ops.coef_plan``); masked: the last 40% of the points of
+    every other cloud are padding (their edges carry zero coefficients;
+    slots beyond a point's valid neighbours are clamped to self)."""
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
 
@@ -3105,39 +3161,55 @@ def large_graphs(rng, dev):
         if mask is not None:
             nbr_mask = nbr_mask & mask[:, :, None]
         gd = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
-        cases[label] = (idx, gd)
+        cases[label] = (idx, gd, pos, mask)
     return cases
 
 
-def check_coef_kernels(record, idx, gd, dev):
-    """The three kernels of the large-cloud path against their plain
-    versions: coef_apply_grad at C = 3, 70, 192, 256 and coef_apply_div at
-    C = 6, 128, 256, f32 and bf16 features, bit-equal (the same products
-    and sums, each rounded, in the same order); scatter_rows at C' = 70,
+def plan_equal(got, want) -> bool:
+    return got.run == want.run and all(
+        torch.equal(getattr(got, f), getattr(want, f))
+        for f in ("order", "run_rows", "run_count", "local_slot"))
+
+
+def coef_planned(feat) -> bool:
+    """Whether the apply of ``feat`` takes the planned route (rows of a
+    multiple of 16 bytes, at least COEF_PLAN_MIN_ROW_BYTES)."""
+    rb = feat.shape[-1] * feat.element_size()
+    return rb % 16 == 0 and rb >= COEF_PLAN_MIN_ROW_BYTES
+
+
+def check_coef_kernels(record, idx, gd, plan, dev):
+    """The kernels of the large-cloud path against their plain versions:
+    coef_apply_grad at C = 3, 70, 192, 256, 301 and coef_apply_div at C =
+    6, 128, 256, 301, f32 and bf16 features, bit-equal (the same products
+    and sums, each rounded, in the same order) on route A and, with the
+    plan, on the planned route where the rows allow it (route A
+    elsewhere, as the wrapper routes them); scatter_rows at C' = 70,
     256, 512 on component-major and edge-major rows (SCATTER_RTOL x max
     of ``scatter_add_``, bit-equal across two calls); the inverse
     adjacency equal to its plain version."""
     from deltaconv_tpu_torch import ops
 
     for dt in (torch.float32, torch.bfloat16):
-        for c in APPLY_WIDTHS[0]:
-            x = torch.randn((LARGE_B, LARGE_N, c), device=dev).to(dt)
-            got = ops.coef_apply_grad(x, gd.grad_coef, idx)
-            want = ops.coef_apply_grad_plain(x, gd.grad_coef, idx)
-            err = max_err(got.float(), want.float())
-            record("coef_apply_grad", err)
-            check(f"coef_apply_grad C={c} {str(dt)[6:]}",
-                  got.dtype == dt and bits_equal(got, want),
-                  f"bit-equal, max_abs_err {err}")
-        for c in COEF_DIV_WIDTHS:
-            v = torch.randn((LARGE_B, LARGE_N, 2, c), device=dev).to(dt)
-            got = ops.coef_apply_div(v, gd.div_coef, idx)
-            want = ops.coef_apply_div_plain(v, gd.div_coef, idx)
-            err = max_err(got.float(), want.float())
-            record("coef_apply_div", err)
-            check(f"coef_apply_div C={c} {str(dt)[6:]}",
-                  got.dtype == dt and bits_equal(got, want),
-                  f"bit-equal, max_abs_err {err}")
+        for name, widths, shape, kern, plain, coef in (
+                ("coef_apply_grad", APPLY_WIDTHS[0] + (COEF_ODD_C,),
+                 lambda c: (LARGE_B, LARGE_N, c), ops.coef_apply_grad,
+                 ops.coef_apply_grad_plain, gd.grad_coef),
+                ("coef_apply_div", COEF_DIV_WIDTHS + (COEF_ODD_C,),
+                 lambda c: (LARGE_B, LARGE_N, 2, c), ops.coef_apply_div,
+                 ops.coef_apply_div_plain, gd.div_coef)):
+            for c in widths:
+                feat = torch.randn(shape(c), device=dev).to(dt)
+                want = plain(feat, coef, idx)
+                for route, p in (("", None), ("_plan", plan)):
+                    if p is not None and not coef_planned(feat):
+                        continue
+                    got = kern(feat, coef, idx, p)
+                    err = max_err(got.float(), want.float())
+                    record(name + route, err)
+                    check(f"{name + route} C={c} {str(dt)[6:]}",
+                          got.dtype == dt and bits_equal(got, want),
+                          f"bit-equal, max_abs_err {err}")
     for c in SCATTER_WIDTHS:
         g = torch.randn((LARGE_B, c, K, LARGE_N), device=dev)
         want = ops.scatter_rows_plain(g, idx, LARGE_N)
@@ -3183,16 +3255,58 @@ def inverse_adjacency_library(idx, n_out):
     return offsets.int(), torch.where(keys < n_out, order, -1).int()
 
 
-def time_coef_kernels(res, idx, gd, dev, card):
+def embedding_bag_applies(idx, coef_g, coef_d, dtype):
+    """The applies as one ``F.embedding_bag(mode="sum")`` call each (the
+    library column): grad bags ``(n, d)`` over ``idx[n, :]`` weighted by
+    ``coef[n, :, d]`` on the table ``[B N, C]``, straight into ``[B, N,
+    2, C]``; div bags of 2K entries over the table viewed ``[B N 2, C]``
+    with ids ``2 idx + d``. The ids and weights are made once (as the plan
+    is); the weights take the table's dtype, so in bf16 the coefficients
+    round to bf16 and the sums are not the kernels'."""
+    import torch.nn.functional as F
+
+    b, n, k = idx.shape
+    glob = (idx.long() + (torch.arange(b, device=idx.device) * n)[:, None,
+                                                                  None])
+    g_ids = glob[:, :, None, :].expand(b, n, 2, k).reshape(b * n * 2, k)
+    g_w = coef_g.permute(0, 1, 3, 2).reshape(b * n * 2, k).to(dtype)
+    d_ids = (2 * glob[..., None] + torch.arange(2, device=idx.device)
+             ).reshape(b * n, 2 * k)
+    d_w = coef_d.reshape(b * n, 2 * k).to(dtype)
+
+    def grad(x):
+        c = x.shape[-1]
+        return F.embedding_bag(g_ids, x.reshape(b * n, c), mode="sum",
+                               per_sample_weights=g_w).view(b, n, 2, c)
+
+    def div(v):
+        c = v.shape[-1]
+        return F.embedding_bag(d_ids, v.reshape(b * n * 2, c), mode="sum",
+                               per_sample_weights=d_w).view(b, n, c)
+
+    return grad, div
+
+
+def coef_row_bytes(feat, k=K) -> int:
+    """The row bytes that one apply of ``feat`` gathers (K rows a point,
+    each rounded up to whole 32-byte sectors, as L2 serves them)."""
+    b, n = feat.shape[:2]
+    rb = feat[0, 0].numel() * feat.element_size()
+    return b * n * k * -(-rb // 32) * 32
+
+
+def time_coef_kernels(res, idx, gd, plan, pos, dev, card):
     """Times and bounds of the large-cloud kernels at their uniform
-    shapes, beside the library composition that computes the same
-    function, set-up included: ``torch.gather`` of the K neighbour rows
-    and an ``einsum`` with the coefficients (f32 products, cast to the
-    features' dtype) for the applies, the edge rows' layout copy (none for
-    the edge-major view) and ``index_add_`` for the scatter; the scatter
-    on both layouts (the record: edge-major, as the coefficient VJPs pass
-    it) and the inverse adjacency alone."""
+    shapes: both applies at every width of a forward, f32 and bf16, on
+    route A and (where the rows allow it) the planned route, beside the
+    plain versions and two library calls that compute the same function:
+    ``torch.gather`` of the K neighbour rows with an ``einsum`` (set-up
+    included) and ``F.embedding_bag`` (:func:`embedding_bag_applies`);
+    the gather plan's build (its two kernels and the sort between them);
+    the scatter on both layouts (the record: edge-major, as the
+    coefficient VJPs pass it) and the inverse adjacency alone."""
     from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.ops import coef_apply as ca
 
     b, n = LARGE_B, LARGE_N
     print(f"[times] large-cloud shapes B={b} N={n} K={K}, card: {card}")
@@ -3219,40 +3333,107 @@ def time_coef_kernels(res, idx, gd, dev, card):
         out = torch.zeros((b * n, c), device=dev)
         return out.index_add_(0, flat_rows, rows).view(b, n, c)
 
+    from deltaconv_tpu_torch.ops import _lib
+
+    build = median_ms(lambda: ops.coef_plan(pos, idx))
+    build_dev = device_ms(lambda: ops.coef_plan(pos, idx))
+    print("  gather plan's kernels, device time (profiler): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in kernel_split(
+            lambda: ops.coef_plan(pos, idx), PLAN_KERNELS).items()))
+    print(f"  gather plan (order, runs): {build:.4f} ms by events, "
+          f"{build_dev:.4f} ms of device time; run {plan.run} points, "
+          f"{float(plan.run_count.float().mean()):.1f} distinct rows a run "
+          f"(max {int(plan.run_count.max())}) of {plan.run * K} edges")
+    order = torch.empty((b, n), dtype=torch.int32, device=dev)
+    keys = torch.empty((b, -(-n // 1024) * 1024), dtype=torch.int64,
+                       device=dev)
+    for name, kern, plain, nb in (
+            ("coef_plan_order",
+             lambda: _lib.launch("coef_plan_order", dev, pos.data_ptr(), 0,
+                                 keys.data_ptr(), order.data_ptr(), b, n),
+             lambda: torch.sort(ca._morton_codes_plain(pos, None), dim=1,
+                                stable=True),
+             nbytes(pos, order)),
+            ("coef_plan_runs",
+             lambda: _lib.launch(
+                 "coef_plan_runs", dev, idx.data_ptr(),
+                 plan.order.data_ptr(), plan.run_rows.data_ptr(),
+                 plan.run_count.data_ptr(), plan.local_slot.data_ptr(), b, n,
+                 K, plan.run),
+             lambda: ca._plan_runs_plain(idx, plan.order, plan.run),
+             nbytes(idx, plan.order, plan.run_rows, plan.run_count,
+                    plan.local_slot))):
+        km, pm, dm = median_ms(kern), median_ms(plain), device_ms(kern)
+        res[name].update(ms=km, plain_ms=pm, bound=bound(nb))
+        print(f"  {name}: kernel {km:.4f} ms ({dm:.4f} ms of device time), "
+              f"plain {pm:.4f} ms, library none, bound "
+              f"{res[name]['bound'][0]:.4f} ms (bytes)")
+    totals = {}
     for dt in (torch.bfloat16, torch.float32):
-        for name, widths, make, kern, plain, lib, coef in (
+        eb_grad, eb_div = embedding_bag_applies(idx, gc, dc, dt)
+        tot = totals.setdefault(str(dt)[6:], {"A": 0.0, "planned": 0.0})
+        for name, widths, make, kern, plain, lib_fn, eb, coef in (
                 ("coef_apply_grad", APPLY_WIDTHS[0],
                  lambda c: torch.randn((b, n, c), device=dev).to(dt),
                  ops.coef_apply_grad, ops.coef_apply_grad_plain, lib_grad,
-                 gc),
-                ("coef_apply_div", COEF_DIV_WIDTHS,
+                 eb_grad, gc),
+                ("coef_apply_div", APPLY_WIDTHS[1],
                  lambda c: torch.randn((b, n, 2, c), device=dev).to(dt),
-                 ops.coef_apply_div, ops.coef_apply_div_plain, lib_div, dc)):
+                 ops.coef_apply_div, ops.coef_apply_div_plain, lib_div,
+                 eb_div, dc)):
             for c in widths:
                 x = make(c)
                 km = median_ms(lambda: kern(x, coef, idx))
+                planned = coef_planned(x)
+                bm = (median_ms(lambda: kern(x, coef, idx, plan))
+                      if planned else None)
                 pm = median_ms(lambda: plain(x, coef, idx))
-                lm = median_ms(lambda: lib(x))
+                lm = median_ms(lambda: lib_fn(x))
+                em = median_ms(lambda: eb(x))
                 out = kern(x, coef, idx)
-                # The einsum sums in another order: a bf16 ulp, or f32
-                # rounding, of the output's max.
-                rel = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
-                err = max_err(lib(x).float(), out.float())
-                check(f"{name} C={c} {str(dt)[6:]} library composition",
-                      err <= rel * float(out.float().abs().max()),
-                      f"max_abs_err {err:.3e} within {rel:g} x max of the "
-                      f"kernel")
+                # The einsum and embedding_bag sum in another order (and
+                # embedding_bag in bf16 rounds the coefficients): a bf16
+                # ulp, or f32 rounding, of the output's max; bf16
+                # embedding_bag accumulates in bf16: 4 ulps.
+                big = float(out.float().abs().max())
+                for label, fn, rel in (
+                        ("gather + einsum", lib_fn,
+                         2.0 ** -7 if dt == torch.bfloat16 else 1e-5),
+                        ("embedding_bag", eb,
+                         2.0 ** -5 if dt == torch.bfloat16 else 1e-5)):
+                    err = max_err(fn(x).float(), out.float())
+                    check(f"{name} C={c} {str(dt)[6:]} {label}",
+                          err <= rel * big,
+                          f"max_abs_err {err:.3e} within {rel:g} x max of "
+                          f"the kernel")
                 # Each input read once, the output written once; 2 x K
                 # products and as many sums an output element (grad: 2 C
                 # of them a point, div: C).
                 bd = bound(nbytes(x, coef, idx, out),
                            4.0 * b * n * K * c, F32_OPS_PER_S)
-                print(f"  {name} C={c} {str(dt)[6:]}: kernel {km:.4f} ms, "
-                      f"plain {pm:.4f} ms, library {lm:.4f} ms, bound "
-                      f"{bd[0]:.4f} ms ({bd[1]})")
+                rows = coef_row_bytes(x)
+                tot["A"] += km
+                tot["planned"] += bm if planned else km
+                b_txt = (f"planned {bm:.4f} ms" if planned else
+                         "planned: not taken (rows not a multiple of 16 "
+                         f"bytes of at least {COEF_PLAN_MIN_ROW_BYTES})")
+                print(f"  {name} C={c} {str(dt)[6:]}: route A {km:.4f} ms, "
+                      f"{b_txt}, plain {pm:.4f} ms, library gather + "
+                      f"einsum {lm:.4f} ms, embedding_bag {em:.4f} ms, "
+                      f"bound {bd[0]:.4f} ms ({bd[1]}); rows gathered "
+                      f"{rows / 1e6:.1f} MB (route A reads them from L2 "
+                      f"at {rows / km / 1e9:.2f} TB/s)", flush=True)
                 if dt == torch.bfloat16 and c == RECORD_WIDTH[name]:
-                    res[name].update(ms=km, plain_ms=pm, library_ms=lm,
+                    res[name].update(ms=km, plain_ms=pm, library_ms=em,
                                      bound=bd)
+                    res[name + "_plan"].update(ms=bm, plain_ms=pm,
+                                               library_ms=em, bound=bd)
+                del x, out
+    for dt, tot in totals.items():
+        print(f"  one forward's eight applies, {dt}: route A {tot['A']:.4f} "
+              f"ms; with the plan {tot['planned']:.4f} ms + its build "
+              f"{build_dev:.4f} ms (device) = "
+              f"{tot['planned'] + build_dev:.4f} ms")
     inv = res["inverse_adjacency"]
     inv.update(ms=median_ms(lambda: ops.inverse_adjacency(idx, n)),
                plain_ms=median_ms(lambda: ops.inverse_adjacency_plain(idx, n)),
@@ -3293,9 +3474,65 @@ def time_coef_kernels(res, idx, gd, dev, card):
                                            bound=bd)
             del out, rows
         del g
-    print(f"  (the JSON record gives the applies at C=256 on bf16 features, "
-          f"the scatter at C'=512 edge-major, the inverse adjacency at "
-          f"these shapes)")
+    print("  (the JSON record gives the applies at C=256 on bf16 features, "
+          "library_ms embedding_bag's; the scatter at C'=512 edge-major, "
+          "the inverse adjacency and the plan kernels at these shapes)")
+
+
+def coef_apply_table(seed, dev, card):
+    """``[coef-applies]``: one forward's eight applies (``APPLY_WIDTHS``)
+    at B=4, N=8192, K=20 on a surface cloud batch's operators, f32 and
+    bf16, each in device time (:func:`device_ms`) through the package's
+    public ``ops.coef_apply_grad``/``div``, with the gather plan where
+    the package has one (``ops.coef_plan``, and its build; then the
+    eight again without it, route A alone). Public
+    functions only, as :func:`path_device_times`: copied into another
+    checkout's root, it times that checkout's kernels on the same data
+    (the seed's)."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+
+    rng = np.random.default_rng(seed + 16)
+    b, n = LARGE_B, LARGE_N
+    cl, nm = ellipsoid_clouds(rng, [n] * b)
+    pos = torch.from_numpy(np.stack(cl)).to(dev)
+    nrm = torch.from_numpy(np.stack(nm)).to(dev)
+    idx, nbr_mask = knn(pos, K, None, "approx", ops.knn_topk)
+    xb, yb = build_tangent_basis(nrm)
+    gd = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
+    plan = ops.coef_plan(pos, idx) if hasattr(ops, "coef_plan") else None
+    plan_parts = (kernel_split(lambda: ops.coef_plan(pos, idx),
+                               PLAN_KERNELS) if plan else {})
+    build = sum(plan_parts.values())
+    line = []
+    for dt in (torch.bfloat16, torch.float32):
+        total = bare = 0.0
+        parts = []
+        for c_g, c_d in zip(*APPLY_WIDTHS):
+            x = torch.randn((b, n, c_g), device=dev).to(dt)
+            v = torch.randn((b, n, 2, c_d), device=dev).to(dt)
+            args = (plan,) if plan else ()
+            tg = device_ms(lambda: ops.coef_apply_grad(x, gd.grad_coef, idx,
+                                                       *args), 5)
+            td = device_ms(lambda: ops.coef_apply_div(v, gd.div_coef, idx,
+                                                      *args), 5)
+            parts.append(f"grad C={c_g} {tg:.4f}, div C={c_d} {td:.4f}")
+            total += tg + td
+            if plan:  # the same applies without the plan: route A
+                bare += device_ms(lambda: ops.coef_apply_grad(
+                    x, gd.grad_coef, idx), 5)
+                bare += device_ms(lambda: ops.coef_apply_div(
+                    v, gd.div_coef, idx), 5)
+        line.append(f"{str(dt)[6:]}: " + "; ".join(parts)
+                    + f"; the eight {total:.4f} + plan {build:.4f} = "
+                    f"{total + build:.4f} ms"
+                    + (f" (route A alone {bare:.4f} ms)" if plan else ""))
+    plan_txt = (" (no gather plan in this package)" if plan is None else
+                " (the plan's kernels: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in plan_parts.items()) + ")")
+    print(f"[coef-applies] B={b} N={n} K={K}, device time (profiler) of each "
+          f"apply{plan_txt}: " + " | ".join(line) + f"; card: {card}",
+          flush=True)
 
 
 def grid_clouds(rng, b, n, dev):
@@ -3435,18 +3672,33 @@ def knn_rounds_phase(rng, dev):
 
 
 def coef_kernel_phase(res, rng, dev, card):
-    """[kernels] of the large-cloud path: the checks on uniform and masked
-    graphs, then times at the uniform shapes."""
+    """[kernels] of the large-cloud path: the gather plan's kernels equal
+    to the plain builder entry by entry, the applies' and the scatter's
+    checks on uniform and masked graphs, then times at the uniform
+    shapes."""
+    from deltaconv_tpu_torch import ops
+
     cases = large_graphs(rng, dev)
 
     def record(name, err):
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
 
-    for label, (idx, gd) in cases.items():
+    plans = {}
+    for label, (idx, gd, pos, mask) in cases.items():
         print(f"[kernels] large-cloud shapes B={LARGE_B} N={LARGE_N} K={K}, "
               f"{label}", flush=True)
-        check_coef_kernels(record, idx, gd, dev)
-    time_coef_kernels(res, *cases["uniform"], dev, card)
+        plan = ops.coef_plan(pos, idx, mask)
+        same = plan_equal(plan, ops.coef_plan_plain(pos, idx, mask))
+        for name in ("coef_plan_order", "coef_plan_runs"):
+            record(name, 0.0 if same else float("inf"))
+        check("gather plan", same and plan_equal(
+            ops.coef_plan(pos, idx, mask), plan),
+              "order, run rows, counts and local slots equal to the plain "
+              "builder's and across two calls")
+        check_coef_kernels(record, idx, gd, plan, dev)
+        plans[label] = plan
+    idx, gd, pos, _ = cases["uniform"]
+    time_coef_kernels(res, idx, gd, plans["uniform"], pos, dev, card)
 
 
 def large_clouds(rng):
@@ -3457,6 +3709,18 @@ def large_clouds(rng):
                          LARGE_RAGGED - 1).tolist()
     rag, rag_n = ellipsoid_clouds(rng, sizes)
     return uni, uni_n, rag + uni[:1], rag_n + uni_n[:1]
+
+
+def coef_launches_held(counts, calls, what):
+    """Each apply launched 4 times a call, each route as its widths
+    select it (COEF_PER_FORWARD), the gather plan built once a call."""
+    for name, per in COEF_PER_FORWARD.items():
+        check(f"{name} {per} a {what}", counts[name] == per * calls,
+              f"{counts[name]} launches in {calls} {what}s")
+    for name, per in APPLIES_PER_FORWARD.items():
+        got = counts[name] + counts[name + "_plan"]
+        check(f"{name}, both routes, {per} a {what}", got == per * calls,
+              f"{got} launches in {calls} {what}s")
 
 
 def serve_large_phase(clouds, seed, dev, card, precision):
@@ -3501,9 +3765,7 @@ def serve_large_phase(clouds, seed, dev, card, precision):
           and bool(np.isfinite(logits_r).all()), f"shape {logits_r.shape}")
     for name in path:
         check(f"{name} launched", counts[name] > 0, f"{counts[name]} launches")
-    for name, per in COEF_PER_FORWARD.items():
-        check(f"{name} {per} a forward", counts[name] == per * forwards,
-              f"{counts[name]} launches in {forwards} forwards")
+    coef_launches_held(counts, forwards, "forward")
     if precision:
         matmul_max_once("gather_matmul_max", counts, forwards, "forward")
     check("no dense assembly", counts["densify"] + counts["densify_bf16"]
@@ -3537,8 +3799,10 @@ def coef_vs_dense_phase(clouds, seed, dev, card):
     """The same weights served with coefficient-form and with dense
     operators, f32, B=32, N=1024: the logits agree (both apply the same
     coefficients); then one forward's 8 applies (``APPLY_WIDTHS``) in
-    both forms, f32 and bf16, at N = 1024 .. 8192, the dense form with
-    and without its assembly (``densify``), on knn_topk graphs. This
+    both forms, f32 and bf16, at N = 1024 .. 8192, the coefficient form
+    with its gather plan (and the plan's build, once a forward), the dense
+    form with and without its assembly (``densify``), on knn_topk
+    graphs. This
     measures the JAX package's TPU choice (dense below about 4k points)
     on the card; it routes nothing."""
     from deltaconv_tpu_torch import KERNEL_OPS, InferenceEngine, ops
@@ -3563,6 +3827,8 @@ def coef_vs_dense_phase(clouds, seed, dev, card):
         idx, nbr_mask = knn(pos, K, None, "approx", ops.knn_topk)
         xb, yb = build_tangent_basis(nrm)
         gd = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
+        plan_ms = median_ms(lambda: ops.coef_plan(pos, idx), CROSSOVER_REPS)
+        gd = dataclasses.replace(gd, plan=ops.coef_plan(pos, idx))
         line = []
         for dt in (torch.float32, torch.bfloat16):
             dense_dt = None if dt == torch.float32 else dt
@@ -3578,7 +3844,9 @@ def coef_vs_dense_phase(clouds, seed, dev, card):
                                               CROSSOVER_REPS)
                     totals[form] += median_ms(lambda: op.div(v),
                                               CROSSOVER_REPS)
-            line.append(f"{str(dt)[6:]} coef {totals['coef']:.4f}, dense "
+            line.append(f"{str(dt)[6:]} coef {totals['coef']:.4f} (+ plan "
+                        f"{plan_ms:.4f} = {totals['coef'] + plan_ms:.4f}), "
+                        f"dense "
                         f"{totals['dense']:.4f} (+ densify {build:.4f} = "
                         f"{totals['dense'] + build:.4f})")
             del dgd
@@ -3665,8 +3933,9 @@ def train_large_phase(rng, seed, dev, card):
         check(f"{name} launched in large training", counts[name] > 0,
               f"{counts[name]} launches")
     matmul_max_once("gather_matmul_max_win", counts, LARGE_STEPS, "step")
-    per_step = dict(COEF_PER_FORWARD, scatter_rows=SCATTERS_PER_STEP,
-                    inverse_adjacency=SCATTERS_PER_STEP)
+    coef_launches_held(counts, LARGE_STEPS, "step")
+    per_step = dict(scatter_rows=SCATTERS_PER_STEP,
+                    inverse_adjacency=SCATTERS_PER_STEP + 1)
     for name, per in per_step.items():
         check(f"{name} {per} a step", counts[name] == per * LARGE_STEPS,
               f"{counts[name]} launches in {LARGE_STEPS} steps")
@@ -4647,8 +4916,8 @@ def compare_pos_grads(label, batch, seed, dev, train, per_backward,
     with a near-duplicate neighbour is a sum of terms ~1/distance that
     cancel, which amplifies the last bits of such sums, and with
     atomics in f32 the large-cloud reading changed from run to run
-    (1.3e-4 to 1.1e-3 x max on one batch). In train mode the kernels'
-    ``gather_sum_bwd`` still adds in f32 in any order."""
+    (1.3e-4 to 1.1e-3 x max on one batch). The neighbour sum's
+    ``gather_sum_bwd`` (train mode) sums in f64 too."""
     from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS, launch_counts,
                                      reset_launch_counts)
     from deltaconv_tpu_torch.ops import (coef_apply_div_plain,
@@ -4998,15 +5267,63 @@ def nbr_minmax_phase(rng, dev, card):
     return phase
 
 
+def compare_phases(seed, dev, card):
+    """The phases that time one tree against another in one call: the
+    coefficient applies (:func:`coef_apply_table`) and the paths' device
+    times (:func:`path_device_times`)."""
+    coef_apply_table(seed, dev, card)
+    path_device_times(seed, dev, card)
+
+
+def parent_phase(parent, seed, card):
+    """``[parent]``: :func:`compare_phases` on the checkout at ``parent``
+    (this script copied into its root as ``chip_smoke_this.py``, which
+    imports that checkout's package and builds its kernels) and on this
+    tree, in turns: parent, this, this, parent; each run is a process of
+    its own (``--phase compare``), so both sides start from the same
+    state; the lines are printed with ``parent`` or ``this`` in front."""
+    copy = Path(parent).resolve() / "chip_smoke_this.py"
+    shutil.copy(Path(__file__).resolve(), copy)
+
+    def run(tag, script):
+        torch.cuda.empty_cache()
+        out = subprocess.run(
+            [sys.executable, str(script), "--phase", "compare", "--seed",
+             str(seed)], capture_output=True, text=True, timeout=900)
+        check(f"[parent] {tag} tree's phases", out.returncode == 0,
+              f"exit {out.returncode}{out.stderr[-2000:]}")
+        for line in out.stdout.splitlines():
+            if line.startswith(("[coef-applies]", "[device-times]")):
+                print(f"{tag} {line}", flush=True)
+
+    print(f"[parent] {parent}: parent, this tree, this tree, parent; card: "
+          f"{card}", flush=True)
+    for tag, script in (("parent", copy), ("this", Path(__file__).resolve()),
+                        ("this", Path(__file__).resolve()), ("parent", copy)):
+        run(tag, script)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--parent", default=None,
+                        help="root of another checkout (the parent commit) "
+                        "to time in turns with this tree at the end")
+    parser.add_argument("--phase", choices=("compare",), default=None,
+                        help="run only these phases (no record)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check needs a CUDA card")
     from deltaconv_tpu_torch import ops
+
+    if args.phase == "compare":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ops.library()
+        compare_phases(args.seed, torch.device("cuda", 0), card_line())
+        return
 
     # Strict f32 everywhere: TF32 would reorder kNN neighbours and move
     # the logits.
@@ -5075,6 +5392,9 @@ def main():
     mark("kNN rounds route")
     kfold = matmul_kfold_phase(rng, dev)
     mark("matmul max K-fold route")
+    if args.parent:
+        parent_phase(args.parent, args.seed, card)
+        mark("parent tree")
     print("[time] seconds per group of phases: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))

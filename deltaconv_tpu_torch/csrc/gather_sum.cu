@@ -29,15 +29,23 @@
 //   The layout is gather_max.cu's: a block row per point, c fastest,
 //   coalesced loads of h rows from L2. Bound: memory.
 //
-// gather_sum_bwd: dh[b, idx[b, n, k], c] += g[b, n, c] for valid k
-//   idx/mask [B, N, K], g [B, N, C] -> dh [B, N, C] f32, which the
-//   caller zero-fills. Replaces `_gather_sum_bwd` (pallas_call at
+// gather_sum_bwd: dh[b, m, c] = sum of g[b, n, c] over the valid edges
+//   (n, k) with idx[b, n, k] == m; the inverse adjacency of idx
+//   (`ops.inverse_adjacency`: offsets [B, N + 1] and edges [B, N * K],
+//   each row's edges n * K + k ascending), mask [B, N, K], g [B, N, C]
+//   -> dh [B, N, C] f32. Replaces `_gather_sum_bwd` (pallas_call at
 //   gather_sum.py:255, kernel body `_bwd_kernel`), the transposed
 //   adjacency contraction that accumulated over point tiles in a
-//   sequential grid. CUDA blocks run in no order, so each (b, n, c)
-//   adds its cotangent to its K neighbours' rows with atomicAdd: B*N*K*C
-//   atomics, coalesced over c. Bound: the atomics in L2. The order of
-//   the adds, and so the last bits of a sum, can change from run to run.
+//   sequential grid. Here the sum is destination-major, as scatter_rows
+//   (gather_rows.cu): a warp owns a destination row, its lanes hold 32
+//   of the row's edges' source points at a time (-1 when masked) and
+//   walk the channels (4 a lane where C % 4 == 0), issue the loads of 4
+//   edges' g rows before they add them, in list order, in f64, and round
+//   the sums once to f32. The f32 addends of one
+//   (row, c) sum exactly in f64 unless they span more than 29 binary
+//   orders, so dh equals the plain version's f64 sum rounded once, and
+//   two calls give the same bits (an earlier kernel added f32 atomics in
+//   any order). Bound: the gathers of g rows from L2, K a row.
 //
 // An index outside [0, N) contributes nothing, as a one-hot row with no
 // match does on the TPU.
@@ -132,23 +140,67 @@ __global__ void gather_sum_kernel(const float* __restrict__ h,
   }
 }
 
-__global__ void gather_sum_bwd_kernel(const int* __restrict__ idx,
-                                      const uint8_t* __restrict__ mask,
-                                      const float* __restrict__ g,
-                                      float* __restrict__ dh, int B, int N,
-                                      int C, int K) {
-  const long long bn = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  if (bn >= (long long)B * N) return;
-  const long long b = bn / N;
-  const int* ir = idx + bn * K;
-  const uint8_t* mr = mask + bn * K;
-  float* db = dh + b * N * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const float gv = g[bn * C + c];
-    for (int k = 0; k < K; ++k) {
-      const int j = ir[k];
-      if (mr[k] && (unsigned)j < (unsigned)N)
-        atomicAdd(db + (long long)j * C + c, gv);
+constexpr int kBwdWarps = 8;  // destination rows a block
+constexpr int kBwdAhead = 4;  // edges whose loads precede the adds
+
+template <int V>
+__global__ void __launch_bounds__(32 * kBwdWarps)
+    gather_sum_bwd_kernel(const int* __restrict__ offsets,
+                          const int* __restrict__ edges,
+                          const uint8_t* __restrict__ mask,
+                          const float* __restrict__ g,
+                          float* __restrict__ dh, long long rows, int N,
+                          int C, int K) {
+  const long long bm = (long long)blockIdx.x * kBwdWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (bm >= rows) return;  // the whole warp
+  const long long b = bm / N;
+  const int* off = offsets + b * (N + 1) + (bm - b * N);
+  const int e0 = off[0], e1 = off[1];
+  const int* el = edges + b * N * K;
+  const uint8_t* mb = mask + b * N * K;
+  const float* gb = g + b * N * C;
+  for (int p = 0; p * 32 * V < C; ++p) {
+    const int c0 = (p * 32 + lane) * V;
+    const bool on = c0 < C;
+    double acc[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) acc[q] = 0.0;
+    for (int e = e0; e < e1; e += 32) {
+      int src = -1;  // lane l: the source point of edge e + l
+      if (e + lane < e1) {
+        const int edge = el[e + lane];
+        if (mb[edge]) src = edge / K;
+      }
+      const int cnt = min(32, e1 - e);
+      for (int j = 0; j < cnt; j += kBwdAhead) {
+        float v[kBwdAhead][V];
+#pragma unroll
+        for (int u = 0; u < kBwdAhead; ++u) {
+          const int s = __shfl_sync(0xffffffffu, src, (j + u) & 31);
+          const float* row = gb + (long long)s * C + c0;
+          if (on && j + u < cnt && s >= 0) {
+            if constexpr (V == 4) {
+              const float4 f = __ldg(reinterpret_cast<const float4*>(row));
+              v[u][0] = f.x; v[u][1] = f.y; v[u][2] = f.z; v[u][3] = f.w;
+            } else {
+              v[u][0] = __ldg(row);
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < V; ++q) v[u][q] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBwdAhead; ++u) {
+#pragma unroll
+          for (int q = 0; q < V; ++q) acc[q] += (double)v[u][q];
+        }
+      }
+    }
+    if (on) {
+#pragma unroll
+      for (int q = 0; q < V; ++q) dh[bm * C + c0 + q] = __double2float_rn(acc[q]);
     }
   }
 }
@@ -181,15 +233,24 @@ extern "C" int dc_gather_sum(const void* h, const void* idx, const void* mask,
   return (int)cudaGetLastError();
 }
 
-extern "C" int dc_gather_sum_bwd(const void* idx, const void* mask,
-                                 const void* g, void* dh, int B, int N, int C,
-                                 int K, int device, void* stream) {
+extern "C" int dc_gather_sum_bwd(const void* offsets, const void* edges,
+                                 const void* mask, const void* g, void* dh,
+                                 int B, int N, int C, int K, int device,
+                                 void* stream) {
   DC_SET_DEVICE(device);
-  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
-  const dim3 block = dc_row_block(C);
-  gather_sum_bwd_kernel<<<dc_row_grid(B, N, block), block, 0,
-                          (cudaStream_t)stream>>>(
-      (const int*)idx, (const uint8_t*)mask, (const float*)g, (float*)dh, B,
-      N, C, K);
+  const long long rows = (long long)B * N;
+  if (rows * C == 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((rows + kBwdWarps - 1) / kBwdWarps);
+  cudaStream_t s = (cudaStream_t)stream;
+  // Four channels a lane where every g row starts on a 16-byte boundary.
+  if (C % 4 == 0 && (uintptr_t)g % 16 == 0) {
+    gather_sum_bwd_kernel<4><<<blocks, 32 * kBwdWarps, 0, s>>>(
+        (const int*)offsets, (const int*)edges, (const uint8_t*)mask,
+        (const float*)g, (float*)dh, rows, N, C, K);
+  } else {
+    gather_sum_bwd_kernel<1><<<blocks, 32 * kBwdWarps, 0, s>>>(
+        (const int*)offsets, (const int*)edges, (const uint8_t*)mask,
+        (const float*)g, (float*)dh, rows, N, C, K);
+  }
   return (int)cudaGetLastError();
 }

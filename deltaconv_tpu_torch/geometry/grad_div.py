@@ -32,6 +32,9 @@ class GradDiv(NeighborAggregations):
       div_coef: ``[B, N, K, 2]`` f32: ``(div v)[n] = sum_k sum_d
         div_coef[n, k, d] * v[nbr_idx[n, k], d]``.
       ops: ``ops.Ops``.
+      plan: the gather plan of ``nbr_idx`` (``ops.CoefPlan``), or None;
+        ``build_operators`` fills it, and the applies of wide rows take
+        it (the same results, fewer row reads).
     """
 
     nbr_idx: torch.Tensor
@@ -39,13 +42,16 @@ class GradDiv(NeighborAggregations):
     grad_coef: torch.Tensor
     div_coef: torch.Tensor
     ops: object
+    plan: object = None
 
     int8 = False  # no quantized form (the int8 serving mode is dense)
 
     def grad(self, x):
         """``[B, N, C] -> [B, N, 2, C]`` in ``x``'s dtype."""
-        return self.ops.coef_apply_grad(x, self.grad_coef, self.nbr_idx)
+        return self.ops.coef_apply_grad(x, self.grad_coef, self.nbr_idx,
+                                        self.plan)
 
     def div(self, v):
         """``[B, N, 2, C] -> [B, N, C]`` in ``v``'s dtype."""
-        return self.ops.coef_apply_div(v, self.div_coef, self.nbr_idx)
+        return self.ops.coef_apply_div(v, self.div_coef, self.nbr_idx,
+                                       self.plan)

@@ -45,6 +45,7 @@ only), and prebuilt ``operators``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -127,8 +128,11 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
     gd = build_grad_div_fused(pos, normal, x_basis, y_basis, nbr_idx,
                               nbr_mask, kernel_width, regularizer, ops)
     if dense_operators:
-        gd = densify(gd, ops, to_dtype(operator_dtype))
-    return gd
+        return densify(gd, ops, to_dtype(operator_dtype))
+    # The gather plan of the coefficient form: built once here, it serves
+    # the forward's eight applies.
+    return dataclasses.replace(gd, plan=ops.coef_plan(
+        pos.detach(), gd.nbr_idx, point_mask))
 
 
 def build_dense_operators_fused(pos, k: int, normal,

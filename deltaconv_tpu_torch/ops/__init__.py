@@ -7,7 +7,7 @@ its plain PyTorch version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the twenty-one functions the models and the
+and :data:`PLAIN_OPS` bundle the twenty-two functions the models and the
 operator objects' aggregation hooks call so that a caller can run a
 forward, or a whole train step, through the kernels or through the plain
 versions on the same device, which is how the kernel path is checked on
@@ -29,8 +29,9 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from ._lib import launch_counts, library, reset_launch_counts
-from .coef_apply import (coef_apply_div, coef_apply_div_plain,
-                         coef_apply_grad, coef_apply_grad_plain)
+from .coef_apply import (CoefPlan, coef_apply_div, coef_apply_div_plain,
+                         coef_apply_grad, coef_apply_grad_plain, coef_plan,
+                         coef_plan_plain)
 from .densify_op import (densify_bwd, densify_bwd_plain, densify_coefs,
                          densify_coefs_int8, densify_coefs_int8_plain,
                          densify_coefs_plain)
@@ -69,9 +70,10 @@ from .knn_topk import (knn_topk, knn_topk_plain, knn_topk_table,
 from .wls_fused import (build_grad_div_fused, wls, wls_bwd, wls_bwd_plain,
                         wls_plain)
 
-__all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
-           "bn_lrelu_epilogue", "build_grad_div_fused", "coef_apply_div",
-           "coef_apply_div_plain", "coef_apply_grad", "coef_apply_grad_plain",
+__all__ = ["CoefPlan", "KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency",
+           "adjacency_plain", "bn_lrelu_epilogue", "build_grad_div_fused",
+           "coef_apply_div", "coef_apply_div_plain", "coef_apply_grad",
+           "coef_apply_grad_plain", "coef_plan", "coef_plan_plain",
            "densify_bwd", "densify_bwd_plain", "densify_coefs",
            "densify_coefs_int8", "densify_coefs_int8_plain",
            "densify_coefs_plain", "edge_delta_mlp", "edge_delta_mlp_plain",
@@ -106,7 +108,7 @@ __all__ = ["KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency", "adjacency_plain",
 
 
 class Ops(NamedTuple):
-    """The twenty-one kernel-backed functions the models and the
+    """The twenty-two kernel-backed functions the models and the
     aggregation hooks call."""
 
     gather_rows: Callable
@@ -130,6 +132,7 @@ class Ops(NamedTuple):
     fused_gather_wls: Callable
     gather_minmax: Callable
     gather_matmul_minmax: Callable
+    coef_plan: Callable
 
 
 KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
@@ -138,7 +141,7 @@ KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
                  gather_max_int8, gather_matmul_max_int8, coef_apply_grad,
                  coef_apply_div, knn_topk_table, knn_topk_bucketed,
                  edge_delta_mlp, fused_gather_wls, gather_minmax,
-                 gather_matmul_minmax)
+                 gather_matmul_minmax, coef_plan)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_max_plain, gather_sum_plain, knn_topk_plain,
                 gather_max_affine_plain, gather_matmul_max_plain,
@@ -148,4 +151,4 @@ PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 coef_apply_div_plain, knn_topk_table_plain,
                 knn_topk_bucketed_plain, edge_delta_mlp_plain,
                 fused_gather_wls_plain, gather_minmax_plain,
-                gather_matmul_minmax_plain)
+                gather_matmul_minmax_plain, coef_plan_plain)

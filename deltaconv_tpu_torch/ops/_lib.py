@@ -65,7 +65,7 @@ _KERNELS = {
                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "adjacency": ("dc_adjacency", [_P, _P, _P, _I, _I, _I]),
     "gather_sum": ("dc_gather_sum", [_P, _P, _P, _P, _I, _I, _I, _I]),
-    "gather_sum_bwd": ("dc_gather_sum_bwd", [_P, _P, _P, _P, _I, _I, _I, _I]),
+    "gather_sum_bwd": ("dc_gather_sum_bwd", [_P] * 5 + [_I] * 4),
     "knn_topk": ("dc_knn_topk", [_P, _P, _I, _I, _I, _I]),
     "knn_topk_mean_dist": ("dc_knn_topk_mean_dist", [_P] * 3 + [_I] * 4),
     "knn_topk_rounds": ("dc_knn_topk_rounds", [_P] * 3 + [_I] * 4),
@@ -89,6 +89,10 @@ _KERNELS = {
     "scatter_rows": ("dc_scatter_rows", [_P] * 4 + [_I] * 5 + [_L] * 4),
     "coef_apply_grad": ("dc_coef_apply_grad", [_P] * 4 + [_I] * 5),
     "coef_apply_div": ("dc_coef_apply_div", [_P] * 4 + [_I] * 5),
+    "coef_apply_grad_plan": ("dc_coef_apply_grad_plan", [_P] * 7 + [_I] * 7),
+    "coef_apply_div_plan": ("dc_coef_apply_div_plan", [_P] * 7 + [_I] * 7),
+    "coef_plan_order": ("dc_coef_plan_order", [_P] * 4 + [_I] * 2),
+    "coef_plan_runs": ("dc_coef_plan_runs", [_P] * 5 + [_I] * 4),
     "knn_topk_table": ("dc_knn_topk_table", [_P] * 7 + [_I] * 4),
     "knn_topk_table_q": ("dc_knn_topk_table_q", [_P] * 7 + [_I] * 4),
     "knn_topk_bucketed": ("dc_knn_topk_bucketed", [_P] * 9 + [_I] * 7),
@@ -127,6 +131,10 @@ _NO_GRAD = {
     "knn_topk_table_q": "kNN indices carry no gradient",
     "knn_topk_bucketed": "kNN indices carry no gradient",
     "knn_topk_bucketed_q": "kNN indices carry no gradient",
+    "coef_plan_order": "the gather plan orders points and carries no "
+                       "gradient",
+    "coef_plan_runs": "the gather plan orders points and carries no "
+                      "gradient",
     "gather_max_affine": _BF16_EVAL,
     "gather_matmul_max": _BF16_EVAL,
     "gather_matmul_max_kfold": _BF16_EVAL,

@@ -18,7 +18,9 @@ The routes are the JAX package's:
   ``A`` (``torch.bmm``, the plain large products that the JAX package
   also leaves outside Pallas);
 - differentiated above that budget: the streaming ``gather_sum``
-  kernel, with the ``gather_sum_bwd`` scatter as its backward;
+  kernel, with the ``gather_sum_bwd`` kernel as its backward (each row's
+  cotangents summed destination-major over the inverse adjacency, in
+  f64, rounded once);
 - not differentiated: always the streaming forward.
 
 :func:`gather_sum` runs the kernels, :func:`gather_sum_plain` the plain
@@ -32,6 +34,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import _lib
+from .gather_rows import inverse_adjacency
 
 __all__ = ["adjacency", "adjacency_plain", "gather_sum", "gather_sum_bwd",
            "gather_sum_bwd_plain", "gather_sum_fwd", "gather_sum_fwd_plain",
@@ -72,13 +75,15 @@ def gather_sum_fwd_plain(h, idx, mask):
 
 def gather_sum_bwd_plain(idx, mask, g):
     """Plain backward: ``scatter_add_`` of the masked cotangent into the
-    neighbour rows."""
+    neighbour rows, summed in f64 and rounded once to f32, as the kernel
+    does (a row's sum is exact in f64 unless its addends span more than
+    29 binary orders, so the result is the same in any order)."""
     b, n, c = g.shape
     k = idx.shape[-1]
-    src = torch.where(mask[..., None], g[:, :, None, :].float(), 0.0)
+    src = torch.where(mask[..., None], g[:, :, None, :].double(), 0.0)
     index = idx.reshape(b, n * k, 1).long().expand(b, n * k, c)
-    dh = torch.zeros((b, n, c), dtype=torch.float32, device=g.device)
-    return dh.scatter_add_(1, index, src.reshape(b, n * k, c))
+    dh = torch.zeros((b, n, c), dtype=torch.float64, device=g.device)
+    return dh.scatter_add_(1, index, src.reshape(b, n * k, c)).float()
 
 
 def _check_graph(name, idx, mask, extra=()):
@@ -119,16 +124,21 @@ def gather_sum_fwd(h, idx, mask):
 
 
 def gather_sum_bwd(idx, mask, g):
-    """Streaming backward ``dh [B, N, C]``: plain version for CPU
-    tensors, the ``gather_sum_bwd`` kernel for CUDA tensors."""
+    """Streaming backward ``dh [B, N, C]`` f32, each row's sum in f64
+    rounded once (the plain version's bits): plain version for CPU
+    tensors; for CUDA tensors the inverse adjacency of ``idx``
+    (``inverse_adjacency``) and the destination-major ``gather_sum_bwd``
+    kernel over it."""
     if g.device.type == "cpu":
         return gather_sum_bwd_plain(idx, mask, g)
     b, n, c = g.shape
     device = _check_graph("gather_sum_bwd", idx, mask,
                           [("g", g, torch.float32, (b, n, c))])
-    dh = torch.zeros((b, n, c), dtype=torch.float32, device=device)
-    _lib.launch("gather_sum_bwd", device, idx.data_ptr(), mask.data_ptr(),
-                g.data_ptr(), dh.data_ptr(), b, n, c, idx.shape[-1])
+    offsets, edges = inverse_adjacency(idx, n)
+    dh = torch.empty((b, n, c), dtype=torch.float32, device=device)
+    _lib.launch("gather_sum_bwd", device, offsets.data_ptr(),
+                edges.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                dh.data_ptr(), b, n, c, idx.shape[-1])
     return dh
 
 

@@ -32,6 +32,7 @@ Tolerances, and why:
   tests/test_torch_bf16_train.py), each stated where it is used.
 """
 
+import dataclasses
 import importlib
 
 import jax
@@ -284,6 +285,71 @@ def test_grad_div_object_matches_jax(dtype):
                       (gd.nbr_max(x), jgd.nbr_max(xj))):
         assert got.dtype == x.dtype
         _within(got, np.asarray(want, np.float32), rel)
+
+
+@pytest.mark.parametrize("b,n,k,masked", [(2, 100, 7, False),
+                                           (3, 65, 20, True),
+                                           (1, 40, 40, False),
+                                           (2, 33, 1, True)])
+def test_coef_plan_plain(b, n, k, masked):
+    """The gather plan's plain builder: ``order`` a permutation of each
+    cloud with the padded points last, every edge's local slot naming
+    its id in its run's rows (``-1`` for an id outside ``[0, N)``), the
+    ids distinct within a run and ``-1`` after its count, runs of
+    ``run`` points that never cross a cloud (``run * K <= 1024``), and
+    the same plan from a second call."""
+    rng = np.random.default_rng(60)
+    pos = _t(rng.standard_normal((b, n, 3)).astype(np.float32))
+    idx = rng.integers(0, n, (b, n, k)).astype(np.int32)
+    idx[0, 3, 0] = n + 5
+    idx[-1, 4, 0] = -1
+    pm = np.ones((b, n), bool)
+    if masked:
+        pm[-1, n // 2:] = False
+    plan = ops.coef_plan_plain(pos, _t(idx), _t(pm) if masked else None)
+    r = plan.run
+    n_runs = -(-n // r)
+    assert r * k <= 1024 and plan.run_rows.shape == (b * n_runs, r * k)
+    order = plan.order.numpy()
+    local = plan.local_slot.numpy().astype(np.int64)
+    rows = plan.run_rows.numpy()
+    count = plan.run_count.numpy()
+    for bb in range(b):
+        assert sorted(order[bb]) == list(range(n))
+        if masked and bb == b - 1:
+            assert set(order[bb, n // 2:]) == set(range(n // 2, n))
+        place = np.empty(n, np.int64)
+        place[order[bb]] = np.arange(n)
+        run = bb * n_runs + place // r
+        got = rows[run[:, None], local[bb]]
+        want = np.where((idx[bb] >= 0) & (idx[bb] < n), idx[bb], -1)
+        np.testing.assert_array_equal(got, want)
+        assert (local[bb] < count[run][:, None]).all()
+    for row, c in zip(rows, count):
+        assert len(set(row[:c])) == c and (row[c:] == -1).all()
+    again = ops.coef_plan_plain(pos, _t(idx), _t(pm) if masked else None)
+    for a, w in zip(plan[:4], again[:4]):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grad_div_plan_changes_nothing(dtype):
+    """``build_operators(..., dense_operators=False)`` attaches the gather
+    plan of its neighbour lists (ragged clouds: the padded points last),
+    and ``GradDiv.grad``/``div`` give the same bits with it as without
+    it, at a row width that takes the planned route on the card (128
+    channels)."""
+    rng = np.random.default_rng(61)
+    pos, nrm, mask = _clouds(rng, [MODEL_N, 70])
+    gd = build_operators(_t(pos), MODEL_K, _t(nrm), _t(mask),
+                         dense_operators=False)
+    assert isinstance(gd.plan, ops.CoefPlan)
+    assert set(gd.plan.order[1, 70:].tolist()) == set(range(70, MODEL_N))
+    bare = dataclasses.replace(gd, plan=None)
+    _, x = _inputs(rng, (2, MODEL_N, 128), dtype)
+    _, v = _inputs(rng, (2, MODEL_N, 2, 128), dtype)
+    for got, want in ((gd.grad(x), bare.grad(x)), (gd.div(v), bare.div(v))):
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 NARROW = dict(conv_channels=(8, 8, 16, 16), embedding_size=32,

@@ -6,13 +6,13 @@ the card. Skipped where there is no CUDA device. On a GPU machine
 
 Shapes are small and include widths the model never uses (N not a
 multiple of 4, C not a multiple of 32) so that every branch of the
-kernels' indexing runs. The f32 atomic scatters (``gather_sum_bwd``,
-``edge_delta_mlp_bwd``) add in any order, and so does ``scatter_add_``
-on the card, so they are held to 1e-5 x max|dh|; ``scatter_rows`` adds
-in a fixed order, and the winner-routed ``gather_max_bwd`` and
-``gather_minmax_bwd`` sum exactly in f64 and round once, so these are
-held bit-equal to their plain versions and to themselves across
-calls.
+kernels' indexing runs. The f32 atomic scatter ``edge_delta_mlp_bwd``
+adds in any order, and so does ``scatter_add_`` on the card, so it is
+held to 1e-5 x max|dh|; ``scatter_rows`` adds in a fixed order, and the
+winner-routed ``gather_max_bwd`` and ``gather_minmax_bwd`` and the
+neighbour sum's ``gather_sum_bwd`` sum exactly in f64 and round once,
+so these are held bit-equal to their plain versions and to themselves
+across calls.
 """
 
 import dataclasses
@@ -272,8 +272,9 @@ def test_gather_max_win_and_bwd_kernels(cuda, c):
 @pytest.mark.parametrize("n,c", [(100, 3), (150, 64), (77, 300)])
 def test_gather_sum_kernels(cuda, n, c):
     """Adjacency and the streaming sum (both in slot order) bit-equal,
-    its scatter within 1e-5 x max; the differentiable sum on both
-    routes."""
+    its scatter (f64 sums rounded once) bit-equal to the plain version
+    and across two calls; the differentiable sum on both routes (the
+    streaming one bit-equal)."""
     rng = np.random.default_rng(6)
     idx, mask = _rand_graph(rng, n, 9, cuda)
     assert torch.equal(ops.adjacency(idx, mask),
@@ -282,8 +283,7 @@ def test_gather_sum_kernels(cuda, n, c):
     g = torch.randn((2, n, c), device=cuda)
     assert torch.equal(ops.gather_sum_fwd(h, idx, mask),
                        ops.gather_sum_fwd_plain(h, idx, mask))
-    _close_to_max(ops.gather_sum_bwd(idx, mask, g),
-                  ops.gather_sum_bwd_plain(idx, mask, g), 1e-5)
+    _bwd_exact(ops.gather_sum_bwd, ops.gather_sum_bwd_plain, (idx, mask, g))
     gs = importlib.import_module("deltaconv_tpu_torch.ops.gather_sum")
     budget = gs._DENSE_ADJ_MAX_BYTES
     try:
@@ -295,6 +295,8 @@ def test_gather_sum_kernels(cuda, n, c):
                 (fn(hg, idx, mask) * g).sum().backward()
                 grads.append(hg.grad)
             _close_to_max(grads[0], grads[1], 1e-5)
+            if cutoff == 0:
+                assert torch.equal(grads[0], grads[1])
     finally:
         gs._DENSE_ADJ_MAX_BYTES = budget
 
@@ -1324,22 +1326,128 @@ def _bits_equal(got, want):
     assert torch.equal(got, want)
 
 
+def _off_aligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _plan_route(t, plan):
+    """Whether an apply of ``t`` with ``plan`` takes route B."""
+    rb = t.shape[-1] * t.element_size()
+    return (plan is not None and rb % 16 == 0 and rb >= 256
+            and t.data_ptr() % 16 == 0)
+
+
+def _applies_exact(x, v, gc, dc, idx, plan, want_g, want_d):
+    """Both applies through ``plan`` (None: route A) bit-equal to the
+    plain results, each launching the route its shape selects once."""
+    for name, fn, feat, coef, want in (
+            ("coef_apply_grad", ops.coef_apply_grad, x, gc, want_g),
+            ("coef_apply_div", ops.coef_apply_div, v, dc, want_d)):
+        reset_launch_counts()
+        _bits_equal(fn(feat, coef, idx, plan), want)
+        counts = launch_counts()
+        planned = _plan_route(feat, plan)
+        assert counts[name + "_plan"] == int(planned), counts
+        assert counts[name] == int(not planned), counts
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [3, 24, 70, 301])
-def test_coef_apply_kernels_exact(cuda, c, dtype, masked):
+@pytest.mark.parametrize("k", [1, 9, 20, 30])
+@pytest.mark.parametrize("c", [3, 6, 24, 70, 128, 192, 256, 301])
+def test_coef_apply_kernels_exact(cuda, c, k, dtype, masked):
     """Both applies bit-equal to their plain versions (the same f32
-    products and sums, each rounded, slot by slot), at widths the model
-    never uses too (odd C: the bf16 body without channel pairs)."""
+    products and sums, each rounded, slot by slot) on every route: route
+    A on 16-byte aligned tables and on tables one channel off that
+    boundary (narrower vectors), route B with a plan of random positions
+    where the rows allow it (route A elsewhere), at the model's widths
+    (3, 6, 70, 128, 192, 256) and others (24; odd 301: bf16 without
+    channel pairs), K = 1, 9, 20 and 30 (a second chunk of staged
+    slots)."""
     rng = np.random.default_rng(50)
-    n, k = 150, 9
+    n = 150
     idx, gc, dc = _coef_operators(rng, n, k, cuda, masked)
+    plan = ops.coef_plan(torch.randn((2, n, 3), device=cuda), idx)
     x = torch.randn((2, n, c), device=cuda).to(dtype)
     v = torch.randn((2, n, 2, c), device=cuda).to(dtype)
-    _bits_equal(ops.coef_apply_grad(x, gc, idx),
-                ops.coef_apply_grad_plain(x, gc, idx))
-    _bits_equal(ops.coef_apply_div(v, dc, idx),
-                ops.coef_apply_div_plain(v, dc, idx))
+    want_g = ops.coef_apply_grad_plain(x, gc, idx)
+    want_d = ops.coef_apply_div_plain(v, dc, idx)
+    for xs, vs in ((x, v), (_off_aligned(x), _off_aligned(v))):
+        for p in (None, plan):
+            _applies_exact(xs, vs, gc, dc, idx, p, want_g, want_d)
+
+
+@pytest.mark.parametrize("c", [6, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coef_apply_out_of_range_ids_gather_zero(cuda, c, dtype):
+    """An id outside [0, N) gathers 0 on both routes: bit-equal to the
+    plain versions with those slots' coefficients zeroed (adding a
+    signed zero leaves an f32 sum that started at +0 as it was)."""
+    rng = np.random.default_rng(55)
+    n, k = 150, 20
+    idx, gc, dc = _coef_operators(rng, n, k, cuda, False)
+    bad = torch.from_numpy(rng.random((2, n, k)) < 0.1).to(cuda)
+    bad[:, :, 0] = False
+    far = torch.where(torch.rand((2, n, k), device=cuda) < 0.5, -3, n + 7)
+    idx_bad = torch.where(bad, far.int(), idx)
+    keep = (~bad)[..., None]
+    x = torch.randn((2, n, c), device=cuda).to(dtype)
+    v = torch.randn((2, n, 2, c), device=cuda).to(dtype)
+    idx_ok = torch.where(bad, 0, idx)
+    want_g = ops.coef_apply_grad_plain(x, gc * keep, idx_ok)
+    want_d = ops.coef_apply_div_plain(v, dc * keep, idx_ok)
+    plan = ops.coef_plan(torch.randn((2, n, 3), device=cuda), idx_bad)
+    assert int((plan.run_rows == -1).sum()) > 0
+    for p in (None, plan):
+        _applies_exact(x, v, gc, dc, idx_bad, p, want_g, want_d)
+
+
+def _plan_equal(got, want):
+    assert got.run == want.run
+    for name in ("order", "run_rows", "run_count", "local_slot"):
+        a, w = getattr(got, name), getattr(want, name)
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, w), name
+
+
+@pytest.mark.parametrize("b,n,k", [(2, 150, 9), (3, 1000, 20), (1, 77, 30),
+                                   (2, 40, 1), (4, 8192, 20), (1, 10000, 20)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_coef_plan_kernels_exact(cuda, b, n, k, masked):
+    """The gather plan's kernels (the Morton order: chunks of 1024 points
+    sorted, then ranked against each other; then the runs) equal the
+    plain builder entry by entry, on surface clouds with padded points
+    (last in every run order), runs and chunks cut short at a cloud's
+    end (10,000 points), ids outside [0, N) and duplicate ids in a list;
+    the plan is deterministic, and a neighbour list of more than 1024
+    slots has none (its applies take route A)."""
+    rng = np.random.default_rng(56)
+    pos, _ = _cloud_batch(rng, b, n, cuda)
+    pos = pos.contiguous()
+    idx = torch.from_numpy(rng.integers(0, n, (b, n, k)).astype(
+        np.int32)).to(cuda)
+    idx[0, :5, -1] = n + 2
+    pm = None
+    if masked:
+        pm = torch.ones((b, n), dtype=torch.bool, device=cuda)
+        pm[-1, (2 * n) // 3:] = False
+    reset_launch_counts()
+    got = ops.coef_plan(pos, idx, pm)
+    counts = launch_counts()
+    assert counts["coef_plan_order"] == counts["coef_plan_runs"] == 1
+    _plan_equal(got, ops.coef_plan_plain(pos, idx, pm))
+    _plan_equal(ops.coef_plan(pos, idx, pm), got)
+    if masked:
+        tail = got.order[-1, (2 * n) // 3:].long()
+        assert bool((tail >= (2 * n) // 3).all())
+    wide = torch.zeros((1, 8, 1025), dtype=torch.int32, device=cuda)
+    assert ops.coef_plan(pos[:1, :8], wide) is None
+    assert ops.coef_plan_plain(pos[:1, :8], wide) is None
 
 
 def _edge_major(g):
@@ -1413,6 +1521,7 @@ def test_inverse_adjacency_kernel_exact(cuda, n, n_out):
 def test_coef_kernels_at_the_large_cloud_shapes(cuda):
     """B=4 clouds of N=8192, K=20 on the clouds' own coefficients: the
     applies bit-equal at conv1's widths (grad 192, div 128), bf16 and f32,
+    through ``GradDiv`` (route B on its plan) and route A,
     the scatter of conv0's grad cotangent (70) and of conv3's div
     cotangent (512) held by ``_scatter_held`` on both layouts, then again
     with a hub row (every point's second slot), and the inverse adjacency
@@ -1424,10 +1533,17 @@ def test_coef_kernels_at_the_large_cloud_shapes(cuda):
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn((4, 8192, 192), device=cuda).to(dtype)
         v = torch.randn((4, 8192, 2, 128), device=cuda).to(dtype)
+        want_g = ops.coef_apply_grad_plain(x, gd.grad_coef, gd.nbr_idx)
+        want_d = ops.coef_apply_div_plain(v, gd.div_coef, gd.nbr_idx)
         _bits_equal(ops.coef_apply_grad(x, gd.grad_coef, gd.nbr_idx),
-                    ops.coef_apply_grad_plain(x, gd.grad_coef, gd.nbr_idx))
-        _bits_equal(ops.coef_apply_div(v, gd.div_coef, gd.nbr_idx),
-                    ops.coef_apply_div_plain(v, gd.div_coef, gd.nbr_idx))
+                    want_g)
+        _bits_equal(ops.coef_apply_div(v, gd.div_coef, gd.nbr_idx), want_d)
+        reset_launch_counts()
+        _bits_equal(gd.grad(x), want_g)
+        _bits_equal(gd.div(v), want_d)
+        counts = launch_counts()
+        assert counts["coef_apply_grad_plan"] == 1, counts
+        assert counts["coef_apply_div_plan"] == 1, counts
     hub = gd.nbr_idx.clone()
     hub[:, :, 1] = 3
     for idx in (gd.nbr_idx, hub):

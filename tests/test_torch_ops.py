@@ -308,6 +308,44 @@ def test_max_bwd_is_the_exact_sum_rounded_once(dtype, two_maps):
     assert not torch.equal(f32[0], f32[1])  # the data tells orders apart
 
 
+def test_sum_bwd_is_the_exact_sum_rounded_once():
+    """The neighbour sum's streaming backward (``gather_sum_bwd``) is each
+    row's exact sum of the masked cotangents rounded once to f32, as the
+    kernel computes it in f64: equal bit for bit to a float64 numpy sum,
+    and to the same backward with the points in another order (the
+    kernel's atomics land in any order). The cotangents span 16 binary
+    orders and collide on 8 rows, so f32 sums in the two orders differ."""
+    rng = np.random.default_rng(32)
+    b, n, k, c = 2, 200, 6, 16
+    idx = rng.integers(0, 8, (b, n, k)).astype(np.int32)
+    mask = rng.random((b, n, k)) > 0.2
+    g = (rng.choice([-1.0, 1.0], (b, n, c)) * (1 + rng.random((b, n, c)))
+         * 2.0 ** rng.integers(-8, 8, (b, n, c))).astype(np.float32)
+
+    def bwd(order):
+        p = torch.as_tensor(order)
+        return ops.gather_sum_bwd(_t(idx)[:, p], _t(mask)[:, p], _t(g)[:, p])
+
+    got = bwd(np.arange(n))
+    want = np.zeros((b, n, c), np.float64)
+    for bb, kk in np.ndindex(b, k):
+        rows = mask[bb, :, kk]
+        np.add.at(want[bb], idx[bb, rows, kk], g[bb, rows].astype(np.float64))
+    perm = rng.permutation(n)
+    f32 = []
+    for order in (np.arange(n), perm):
+        src = torch.where(_t(mask)[:, order, :, None],
+                          _t(g)[:, order, None, :], 0.0)
+        index = _t(idx)[:, order].reshape(b, n * k, 1).long().expand(
+            b, n * k, c)
+        f32.append(torch.zeros((b, n, c)).scatter_add_(
+            1, index, src.reshape(b, n * k, c)))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+    assert torch.equal(bwd(perm), got)
+    assert not torch.equal(f32[0], f32[1])  # the data tells orders apart
+
+
 def test_adjacency_matches_pallas_interpret():
     rng = np.random.default_rng(9)
     b, n, k = 2, 192, 9

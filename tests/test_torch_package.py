@@ -147,6 +147,13 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(ops.coef_apply_div(v, coef, idx),
                                ops.coef_apply_div_plain(v, coef, idx),
                                rtol=0, atol=0)
+    plan = ops.coef_plan(h[..., :3], idx)
+    for got, want in zip(plan, ops.coef_plan_plain(h[..., :3], idx)):
+        assert got == want if isinstance(got, int) else torch.equal(got,
+                                                                   want)
+    torch.testing.assert_close(ops.coef_apply_grad(h, coef, idx, plan),
+                               ops.coef_apply_grad_plain(h, coef, idx),
+                               rtol=0, atol=0)
     g = torch.randn((2, 5, 6, 32))
     torch.testing.assert_close(ops.scatter_rows(g, idx, 32),
                                ops.scatter_rows_plain(g, idx, 32),
@@ -240,7 +247,9 @@ def test_cpu_tensors_take_the_plain_versions():
         "densify_int8": 0, "gather_max_int8": 0,
         "gather_matmul_max_int8": 0, "inverse_adjacency": 0,
         "scatter_rows": 0,
-        "coef_apply_grad": 0, "coef_apply_div": 0, "knn_topk_table": 0,
+        "coef_apply_grad": 0, "coef_apply_div": 0,
+        "coef_apply_grad_plan": 0, "coef_apply_div_plan": 0,
+        "coef_plan_order": 0, "coef_plan_runs": 0, "knn_topk_table": 0,
         "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
         "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
         "edge_delta_mlp_bwd": 0, "wls_bwd": 0, "densify_bwd": 0,
