@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the fifty-one CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the fifty-six CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -24,6 +24,15 @@ first on ``sys.path``. It
    256 (mlp_rows, then gather_max_merge, each also held alone); int8
    serving's densify_int8, gather_max_int8 at C = 64 and 128 (and 128 at the
    segmentation shapes), gather_matmul_max_int8 at 128 -> 256; the
+   neighbour max's two routes (route S, a cloud's channel slice staged in
+   shared memory, by shape; route D, ``_direct``, forced) at every shape
+   and width where the model paths run them (f32 at C = 64, 128, 256
+   with and without winners, the bf16 step's winners at 64 and 128, bf16
+   segmentation serving at 128, the large clouds' f32 forward and bf16
+   step), values and winners bit-equal, each timed by CUDA events and in
+   device time beside the plain version, the library call and the bound,
+   and the int8 matmul max through its one-product-a-row route and its
+   K-fold route (``_kfold``), bit-equal to each other; the
    large-cloud kernels at B=4, N=8192, K=20 on the clouds' own
    coefficients: the gather plan (coef_plan_order, coef_plan_runs) equal
    to its plain builder entry by entry, coef_apply_grad at C = 3, 70,
@@ -92,9 +101,11 @@ first on ``sys.path``. It
    B=4, N=8192, by CUDA events and in device time; ``[device-times]``
    prints the device time of a 32-cloud bf16 classification forward, a
    bf16 classification step, a 4-cloud large-cloud bf16 forward, a
-   large-cloud bf16 step and a large-cloud f32 forward (each bf16 path
-   launches the matmul max's one-product-a-row kernel once a call and
-   its K-fold route never, which their phases check);
+   large-cloud bf16 step, a large-cloud f32 forward, a 32-cloud f32
+   classification forward, the f32 classification step, a 32-cloud int8
+   classification forward and a 16-cloud bf16 segmentation forward (each
+   bf16 path launches the matmul max's one-product-a-row kernel once a
+   call and its K-fold route never, which their phases check);
 6. trains the f32 model at the reference recipe (B=32 clouds of
    N=1024, SGD lr 0.1, momentum 0.9, weight decay 1e-4, label smoothing
    0.2, dropout 0.5 from a seeded CUDA generator) for 20 steps on one
@@ -211,9 +222,11 @@ first on ``sys.path``. It
 18. ``[kernels]`` at the segmentation train shapes (B=16, N=2048, K=30,
     64 -> 64): ``edge_delta_mlp`` and its backward, uniform and masked,
     the forward within one bf16 ulp of the plain version or within the
-    f32 summation bound of the exact (f64) product, ``dy`` within 1e-5 x
-    max (atomics) plus one bf16 ulp of the largest edge term, ``dw1`` and
-    the affine's sums within 1e-5 x max; both timed beside the plain
+    f32 summation bound of the exact (f64) product, ``dy`` within one
+    bf16 ulp of the largest edge term (the f32 sums of ``dh`` in another
+    order), bit-equal across two calls (f64 sums, rounded once) and, on
+    exact-sum inputs, to the plain version, ``dw1`` and the affine's sums
+    within 1e-5 x max; both timed beside the plain
     version, the library calls (``index`` gather, ``torch.matmul``,
     ``index_add_``) and the bound;
 19. ``[train-seg-bf16]``: trains ``DeltaNetSegmentation`` at the ShapeNet
@@ -281,12 +294,18 @@ first on ``sys.path``. It
     selection kernel's 64) on 4 clouds of 1024 points: one launch of
     ``knn_topk_rounds`` and none of ``knn_topk``, ids equal to the plain
     version;
-27. ``[matmul-max-kfold]``: one cloud of 10,100 points (above the
-    one-product-a-row kernels' 10,038 at C_in = 128): gather_matmul_max
-    with the epilogue and gather_matmul_max_train forward and backward
-    launch ``gather_matmul_max_kfold`` and ``gather_matmul_max_win_kfold``
-    once each, exact sums bit-equal to the plain versions;
-28. with ``--parent DIR`` (another checkout's root, e.g. the parent
+27. ``[matmul-max-kfold]``: one cloud of 10,200 points (above the
+    one-product-a-row kernels' 10,038 at C_in = 128 in bf16 and 10,166 in
+    int8): gather_matmul_max with the epilogue, gather_matmul_max_train
+    forward and backward, and gather_matmul_max_int8 launch
+    ``gather_matmul_max_kfold``, ``gather_matmul_max_win_kfold`` and
+    ``gather_matmul_max_int8_kfold`` once each, exact sums bit-equal to
+    the plain versions;
+28. ``[max-direct]``: one cloud of 14,600 points (above route S's
+    14,526): ``ops.gather_max`` on f32 and bf16 features, without and with
+    grad, launches each body's route D kernel once and route S never,
+    forward and backward bit-equal to the plain versions;
+29. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
     gather plan's build where the package has one) and
@@ -375,7 +394,9 @@ MM_WIN_FRAC = 1e-4  # gather_matmul_max_win: share of 1-ulp values, flips
 # one-product-a-row kernels take one cloud of up to 10,038 points at
 # C_in = 128 (ops.gather_matmul_max.mm_slice), the K-fold route above.
 MM_SHAPES = ((32, 1024), (4, 8192))
-MM_KFOLD_N = 10100  # [matmul-max-kfold]: one cloud above that limit
+# [matmul-max-kfold]: one cloud above that limit, and above the int8
+# form's 10,166.
+MM_KFOLD_N = 10200
 PATH_WARMUP = 5  # [device-times]: calls before each traced one
 # Segmentation serving: the ShapeNet config (experiments/train_shapenet.py,
 # bench.py's seg mode): B=16 clouds of N=2048 points, k=30, conv channels
@@ -438,6 +459,29 @@ COEF_GRAD_FROB = 2e-2
 # coef-vs-dense: (B, N) of the timed forwards' applies.
 CROSSOVER = ((32, 1024), (4, 1024), (4, 2048), (4, 4096), (4, 8192))
 CROSSOVER_REPS = 10
+# The neighbour max at every shape where the model paths run it: (label,
+# B, N, K, dtype, widths, winners): f32 classification forward (conv0-3)
+# and step, the bf16 classification step (conv0-2), bf16 segmentation
+# serving (conv1), the large-cloud f32 forward (through GradDiv.nbr_max)
+# and the large-cloud bf16 step.
+MAX_ROUTE_SHAPES = (
+    ("f32 cls forward", B, N, K, torch.float32, WIDTHS, False),
+    ("f32 cls step", B, N, K, torch.float32, WIDTHS, True),
+    ("bf16 cls step", B, N, K, torch.bfloat16, TRAIN_BF16_WIDTHS, True),
+    ("bf16 seg forward", SEG_B, SEG_N, SEG_K, torch.bfloat16,
+     (SEG_MAX_WIDTH,), False),
+    ("large f32 forward", LARGE_B, LARGE_N, K, torch.float32, WIDTHS,
+     False),
+    ("large bf16 step", LARGE_B, LARGE_N, K, torch.bfloat16,
+     TRAIN_BF16_WIDTHS, True))
+# (B, N, K, C) of each body's record (route S's and route D's).
+MAX_RECORD = {"gather_max": (B, N, K, 256), "gather_max_win": (B, N, K, 256),
+              "gather_max_win_bf16": (B, N, K, 128),
+              "gather_max_bf16": (SEG_B, SEG_N, SEG_K, SEG_MAX_WIDTH)}
+# [max-direct]: one cloud above route S's 14,526 points.
+MAX_DIRECT_N = 14600
+MAX_DIRECT_KERNELS = ("gather_max_direct", "gather_max_win_direct",
+                      "gather_max_bf16_direct", "gather_max_win_bf16_direct")
 
 # Point-sharded serving of ONE large cloud (bench.py --mode=point-shard,
 # bench.py:351-407): 65,536 points, the reference-width classifier in
@@ -530,6 +574,15 @@ KERNEL_META = {
                    "deltaconv_tpu/ops/gather_max.py:230"),
     "gather_max_win": ("deltaconv_tpu_torch/csrc/gather_max.cu",
                        "deltaconv_tpu/ops/gather_max.py:230"),
+    # Route D of the neighbour max (the earlier kernel, a route by shape).
+    "gather_max_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                          "deltaconv_tpu/ops/gather_max.py:230"),
+    "gather_max_win_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                              "deltaconv_tpu/ops/gather_max.py:230"),
+    "gather_max_bf16_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                               "deltaconv_tpu/ops/gather_max.py:230"),
+    "gather_max_win_bf16_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                                   "deltaconv_tpu/ops/gather_max.py:230"),
     "gather_max_bwd": ("deltaconv_tpu_torch/csrc/gather_max.cu",
                        "deltaconv_tpu/ops/gather_max.py:362"),
     "adjacency": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
@@ -572,6 +625,9 @@ KERNEL_META = {
                         "deltaconv_tpu/ops/gather_max.py:1016"),
     "gather_matmul_max_int8": ("deltaconv_tpu_torch/csrc/gather_max_int8.cu",
                                "deltaconv_tpu/ops/gather_max.py:1092"),
+    "gather_matmul_max_int8_kfold": (
+        "deltaconv_tpu_torch/csrc/gather_max_int8.cu",
+        "deltaconv_tpu/ops/gather_max.py:1092"),
     "coef_apply_grad": ("deltaconv_tpu_torch/csrc/coef_apply.cu",
                         "deltaconv_tpu/ops/coef_apply.py:140"),
     "coef_apply_div": ("deltaconv_tpu_torch/csrc/coef_apply.cu",
@@ -1563,6 +1619,24 @@ def edge_inputs(idx, dev):
     return y, a0, b0, w1, z0
 
 
+def edge_exact_inputs(idx, dev):
+    """Edge MLP inputs whose sums are exact in f32 in any order (``y`` in
+    steps of 1/8 up to 4, ``a0`` and ``b0`` in steps of 1/8, ``w1`` in
+    steps of 1/16 up to 1, the integer cotangent ``g`` up to 4): the
+    kernel's and the plain version's ``dh = g @ w1^T`` agree bit for bit,
+    and so do their rounding points."""
+    b, n, k = idx.shape
+
+    def steps(shape, top, step):
+        return (torch.randint(-top, top + 1, shape, device=dev)
+                * step).float()
+
+    return (steps((b, n, EDGE_C), 32, 1 / 8).to(torch.bfloat16),
+            steps((EDGE_C,), 16, 1 / 8), steps((EDGE_C,), 8, 1 / 8),
+            steps((EDGE_C, EDGE_C), 16, 1 / 16),
+            steps((b, k, n, EDGE_C), 4, 1.0).to(torch.bfloat16))
+
+
 def edge_fwd_held(got, y, a0, b0, w1, z0, idx):
     """``(ok, detail)`` of the edge MLP's forward: slot 0 equal to
     ``bf16(z0)``; every other element within one bf16 ulp of the plain
@@ -1592,7 +1666,9 @@ def edge_fwd_held(got, y, a0, b0, w1, z0, idx):
 
 def check_edge_mlp_kernels(record, idx, dev):
     """edge_delta_mlp forward and backward against their plain versions
-    at the segmentation train shapes."""
+    at the segmentation train shapes; the backward's ``dy`` (f64 sums,
+    rounded once) bit-equal across two calls and, on exact-sum inputs,
+    to the plain version."""
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.ops.edge_mlp import _edges
 
@@ -1616,14 +1692,21 @@ def check_edge_mlp_kernels(record, idx, dev):
     del pre, dh
     errs = [max_err(a, b_) for a, b_ in ((dy, dy_p), (dw1, dw1_p),
                                          (dab, dab_p))]
-    tols = [SCATTER_RTOL * float(dy_p.abs().max()) + flip,
-            SCATTER_RTOL * float(dw1_p.abs().max()),
+    tols = [flip, SCATTER_RTOL * float(dw1_p.abs().max()),
             SCATTER_RTOL * float(dab_p.abs().max())]
     record("edge_delta_mlp_bwd", max(errs))
     check("edge_delta_mlp_bwd", all(e <= t for e, t in zip(errs, tols)),
-          f"dy {errs[0]} <= {tols[0]} (atomics, one bf16 ulp of the largest "
-          f"edge term {flip}), dw1 {errs[1]} <= {tols[1]}, dab {errs[2]} <= "
-          f"{tols[2]}")
+          f"dy {errs[0]} <= {tols[0]} (the f32 sums of dh in another order: "
+          f"one bf16 ulp of the largest edge term), dw1 {errs[1]} <= "
+          f"{tols[1]}, dab {errs[2]} <= {tols[2]}")
+    again = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)[0]
+    check("edge_delta_mlp_bwd dy, two calls", torch.equal(dy, again),
+          "bit-equal (f64 sums, rounded once)")
+    ye, a0e, b0e, w1e, ge = edge_exact_inputs(idx, dev)
+    dy = ops.edge_mlp_bwd(ye, a0e, b0e, w1e, idx, ge)[0]
+    dy_p = ops.edge_mlp_bwd_plain(ye, a0e, b0e, w1e, idx, ge)[0]
+    check("edge_delta_mlp_bwd dy, exact-sum inputs", torch.equal(dy, dy_p),
+          f"bit-equal to the plain version, max_abs_err {max_err(dy, dy_p)}")
     torch.cuda.synchronize()
 
 
@@ -1865,6 +1948,192 @@ def matmul_max_phase(res, rng, dev, card):
                 res[name + "_kfold"].update(
                     ms=t["kfold"][0], plain_ms=pl, bound=bd,
                     library_ms=res[name]["library_ms"])
+
+
+def max_routes_phase(res, rng, dev, card):
+    """``[kernels]`` of the neighbour max's two routes at every shape and
+    width where the model paths run it (MAX_ROUTE_SHAPES), on ellipsoid
+    clouds with a uniform kNN graph: route S (by shape, :func:`max_slice`)
+    and route D (``_direct``, forced) bit-equal to the plain version,
+    values and winners, each call's launch on its route; then both timed
+    by CUDA events and in device time, beside the plain version, the
+    library call (``index`` + ``amax``, or ``torch.max`` with winners)
+    and the bound (h, idx, mask read once, out and the winners written
+    once). Route D is the parent tree's kernel, unchanged. Then the int8
+    matmul max at 128 -> 256 through both routes (one product a row, the
+    K-fold kernel ``_kfold``), bit-equal to each other, timed the same
+    way. The records of the ``_direct`` routes are at their bodies'
+    record shapes. Its clouds come from a generator spawned off ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import knn
+
+    gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+    rng = rng.spawn(1)[0]
+    print(f"[times] the neighbour max by route: S (a staged slice, "
+          f"by shape) and D (direct, the parent's kernel); per call, "
+          f"CUDA events (median of {REPS} samples of {INNER} calls) and "
+          f"device time (profiler); card: {card}", flush=True)
+    graphs = {}
+    for label, b, n, k, dt, widths, winners in MAX_ROUTE_SHAPES:
+        if (b, n, k) not in graphs:
+            clouds, _ = ellipsoid_clouds(rng, [n] * b)
+            pos = torch.from_numpy(np.stack(clouds)).to(dev)
+            graphs[(b, n, k)] = knn(pos, k)
+        idx, nbr_mask = graphs[(b, n, k)]
+        bidx = torch.arange(b, device=dev)[:, None, None]
+        idx_l = idx.long()
+        base = "gather_max_win" if winners else "gather_max"
+        name = base + ("_bf16" if dt == torch.bfloat16 else "")
+        for c in widths:
+            h = torch.randn((b, n, c), device=dev).to(dt)
+            cs, splits = gm.max_slice(b, n, c, h.element_size(), k, 132,
+                                      winners)
+
+            def run(route, h=h, idx=idx, nbr_mask=nbr_mask):
+                if winners:
+                    return gm._gather_max_win(h, idx, nbr_mask, route)
+                return (gm._max(h, idx, nbr_mask, route),)
+
+            want = (ops.gather_max_win_plain(h, idx, nbr_mask) if winners
+                    else (ops.gather_max_plain(h, idx, nbr_mask),))
+            for route, sfx in ((None, ""), ((0, 0), "_direct")):
+                reset_launch_counts()
+                got = run(route)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                check(f"[max-routes] {label} C={c} {name}{sfx}",
+                      all(bits_equal(g, v) for g, v in zip(got, want))
+                      and counts[name + sfx] == 1
+                      and sum(counts.values()) == 1,
+                      f"values{' and winners' if winners else ''} "
+                      f"bit-equal to plain, launches "
+                      f"{ {m: v for m, v in counts.items() if v} }")
+                res[name + sfx]["max_abs_err"] = max(
+                    res[name + sfx]["max_abs_err"],
+                    max_err(got[0].float(), want[0].float()))
+            bd = bound(nbytes(h, idx, nbr_mask, *want))
+            t = {sfx: (median_ms(lambda: run(route)),
+                       device_ms(lambda: run(route), 5))
+                 for route, sfx in ((None, "S"), ((0, 0), "D"))}
+            pl = median_ms(lambda: (ops.gather_max_win_plain if winners
+                                    else ops.gather_max_plain)(
+                h, idx, nbr_mask), 5)
+            lib = median_ms((lambda: torch.max(h[bidx, idx_l], dim=2))
+                            if winners else
+                            (lambda: h[bidx, idx_l].amax(dim=2)))
+            print(f"  {label} {name} B={b} N={n} K={k} C={c}: route S "
+                  f"({cs} channels, {splits} blocks a task) "
+                  f"{t['S'][0]:.4f} ms ({t['S'][1]:.4f} ms of device "
+                  f"time); route D {t['D'][0]:.4f} ({t['D'][1]:.4f}); "
+                  f"plain {pl:.4f}; library {lib:.4f}; bound {bd[0]:.4f} "
+                  f"ms ({bd[1]})", flush=True)
+            if (b, n, k, c) == MAX_RECORD[name]:
+                res[name + "_direct"].update(ms=t["D"][0], plain_ms=pl,
+                                             library_ms=lib, bound=bd)
+            # Every slice that fits, one block a task and the chooser's
+            # split for it: the measurements behind max_slice's rule.
+            row, alts = c * h.element_size(), []
+            for rb in gm.MAX_ROW_BYTES:
+                if gm.max_smem(n, rb) > gm.SMEM_MAX or (
+                        rb > 16 and rb // 2 >= row):
+                    continue
+                most = -(-n // gm.MAX_SPLIT_POINTS)
+                fill = max(1, min(132 // (b * -(-row // rb)), most))
+                alts += [(rb // h.element_size(), sp)
+                         for sp in sorted({1, fill})]
+            times = [f"{a} x {sp}: {device_ms(lambda: run((a, sp)), 5):.4f}"
+                     for a, sp in alts]
+            print("    route S by slice (channels x blocks a task: device "
+                  "ms): " + "; ".join(times), flush=True)
+            del h, want
+
+    x = torch.randn((B, N, MM_IN), device=dev)
+    xq, _ = ops.int8_quantize(x)
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+    idx, nbr_mask = graphs[(B, N, K)]
+    got = {}
+    for cs, name in ((None, "gather_matmul_max_int8"),
+                     (0, "gather_matmul_max_int8_kfold")):
+        reset_launch_counts()
+        got[name] = gm._gather_matmul_max_int8(xq, w, idx, nbr_mask, cs)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(f"[max-routes] int8 matmul max route {name}",
+              counts[name] == 1 and sum(counts.values()) == 1,
+              f"launches { {m: v for m, v in counts.items() if v} }")
+    check("[max-routes] int8 matmul max, the two routes",
+          bits_equal(*got.values()), "bit-equal (the same tensor-core sums "
+          "in the same order)")
+    ok, detail = mm_max_held(got["gather_matmul_max_int8_kfold"], xq, w, idx,
+                             nbr_mask)
+    check("[max-routes] gather_matmul_max_int8_kfold", ok, detail)
+    res["gather_matmul_max_int8_kfold"]["max_abs_err"] = max_err(
+        got["gather_matmul_max_int8_kfold"].float(),
+        ops.gather_matmul_max_int8_plain(xq, w, idx, nbr_mask).float())
+    t = {cs: (median_ms(lambda: gm._gather_matmul_max_int8(
+        xq, w, idx, nbr_mask, cs)), device_ms(
+            lambda: gm._gather_matmul_max_int8(xq, w, idx, nbr_mask, cs), 5))
+         for cs in (None, 0)}
+    pl = median_ms(lambda: ops.gather_matmul_max_int8_plain(
+        xq, w, idx, nbr_mask), 5)
+    bd = res["gather_matmul_max_int8"]["bound"]
+    print(f"  gather_matmul_max_int8 B={B} N={N} K={K} {MM_IN}->{MM_OUT}: "
+          f"one product a row (slice "
+          f"{gm.mm_slice(B, N, MM_IN, MM_OUT, K, 132, 1)}) {t[None][0]:.4f} "
+          f"ms ({t[None][1]:.4f} ms of device time); K-fold "
+          f"{t[0][0]:.4f} ({t[0][1]:.4f}); plain {pl:.4f}; bound "
+          f"{bd[0]:.4f} ms ({bd[1]})", flush=True)
+    res["gather_matmul_max_int8_kfold"].update(
+        ms=t[0][0], plain_ms=pl, bound=bd,
+        library_ms=res["gather_matmul_max_int8"]["library_ms"])
+
+
+def max_direct_phase(rng, dev):
+    """``[max-direct]``: one cloud of MAX_DIRECT_N points, above route
+    S's limit (no slice of 16-byte rows fits a block): ``ops.gather_max``
+    on f32 and bf16 features, without grad and with grad (forward and
+    backward), launches each body's route D kernel once and route S
+    never, bit-equal to the plain versions (the backward sums in f64:
+    bit-equal too). Its cloud comes from a generator spawned off
+    ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import knn
+
+    rng = rng.spawn(1)[0]
+    clouds, _ = ellipsoid_clouds(rng, [MAX_DIRECT_N])
+    idx, nbr_mask = knn(torch.from_numpy(np.stack(clouds)).to(dev), K)
+    torch.cuda.synchronize()
+    total = dict.fromkeys(MAX_DIRECT_KERNELS, 0)
+    for dt in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dt == torch.bfloat16 else ""
+        h = torch.randn((1, MAX_DIRECT_N, 64), device=dev).to(dt)
+        g = torch.randn((1, MAX_DIRECT_N, 64), device=dev).to(dt)
+        reset_launch_counts()
+        out = ops.gather_max(h, idx, nbr_mask)
+        hg = h.clone().requires_grad_()
+        out_g = ops.gather_max(hg, idx, nbr_mask)
+        out_g.backward(g)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        hp = h.clone().requires_grad_()
+        want = ops.gather_max_plain(hp, idx, nbr_mask)
+        want.backward(g)
+        print(f"[max-direct] launches, N={MAX_DIRECT_N} {str(dt)[6:]}: "
+              f"{ {n: c for n, c in counts.items() if c} }")
+        check(f"[max-direct] {str(dt)[6:]}: route D once each, route S "
+              f"never", counts[f"gather_max{sfx}_direct"] == 1
+              and counts[f"gather_max_win{sfx}_direct"] == 1
+              and counts[f"gather_max{sfx}"] + counts[f"gather_max_win{sfx}"]
+              == 0, f"{counts[f'gather_max{sfx}_direct']}, "
+              f"{counts[f'gather_max_win{sfx}_direct']}")
+        check(f"[max-direct] {str(dt)[6:]}: bit-equal",
+              bits_equal(out, want.detach())
+              and bits_equal(out_g.detach(), want.detach())
+              and bits_equal(hg.grad, hp.grad),
+              "forward with and without winners, and the backward")
+        for name in MAX_DIRECT_KERNELS:
+            total[name] += counts[name]
+    return total
 
 
 def kernel_phase(rng, dev, card):
@@ -2203,6 +2472,7 @@ def kernel_phase(rng, dev, card):
     time_seg_kernels(res, *seg_cases["uniform"][:2], dev, card)
     time_edge_mlp_kernels(res, seg_cases["uniform"][0], dev, card)
     matmul_max_phase(res, rng, dev, card)
+    max_routes_phase(res, rng, dev, card)
     del seg_cases, cases
     knn_kernel_phase(res, rng, dev, card)
     coef_kernel_phase(res, rng, dev, card)
@@ -2655,19 +2925,28 @@ def conv3_forms(dev, card):
 
 def path_device_times(seed, dev, card):
     """``[device-times]``: the device time (profiler, :func:`device_ms`)
-    of one call of each path that runs a bf16 matmul max or the
-    coefficient applies: a 32-cloud bf16 classification forward
+    of one call of each path that runs a neighbour max, a matmul max or
+    the coefficient applies: a 32-cloud bf16 classification forward
     (``InferenceEngine.predict``, approximate kNN), the bf16
     classification train step (reference recipe), a 4-cloud large-cloud
-    bf16 forward (N=8192, coefficient form), the large-cloud bf16 step and
-    the large-cloud f32 forward, each after PATH_WARMUP calls. Public
-    functions only, as :func:`conv3_forms`."""
+    bf16 forward (N=8192, coefficient form), the large-cloud bf16 step,
+    the large-cloud f32 forward, a 32-cloud f32 classification forward
+    (exact kNN), the f32 classification step (reference recipe), a
+    32-cloud int8 classification forward (approximate kNN) and a 16-cloud
+    bf16 segmentation forward (approximate kNN, categories), each after
+    PATH_WARMUP calls. Public functions only, as :func:`conv3_forms`."""
     from deltaconv_tpu_torch import InferenceEngine
     from deltaconv_tpu_torch.training import (create_train_state,
                                               make_train_step, sgd_momentum)
 
     rng = np.random.default_rng(seed + 15)
     times = {}
+
+    def forward(label, engine, *inputs):
+        for _ in range(PATH_WARMUP):
+            engine.predict(*inputs)
+        times[label] = device_ms(lambda: engine.predict(*inputs))
+
     for label, b, n, lr, dense in (("classification", B, N, TRAIN_LR, True),
                                    ("large-cloud", LARGE_B, LARGE_N,
                                     LARGE_LR, False)):
@@ -2701,6 +2980,32 @@ def path_device_times(seed, dev, card):
     times[f"large-cloud f32 forward ({LARGE_B} clouds)"] = device_ms(
         lambda: engine.predict(clouds, normals))
     del engine, model
+    clouds, normals = ellipsoid_clouds(rng, [N] * B)
+    model = random_model(seed, dev)
+    forward(f"classification f32 forward ({B} clouds)",
+            InferenceEngine(model, num_points=N, batch_size=B), clouds,
+            normals)
+    model = random_model(seed, dev, knn_method="approx")
+    forward(f"classification int8 forward ({B} clouds)",
+            InferenceEngine(model, num_points=N, batch_size=B,
+                            precision="int8"), clouds, normals)
+    batch = train_batch(rng, dev, [N] * B)
+    model = random_model(seed, dev, affine=False)
+    state = create_train_state(model, sgd_momentum(TRAIN_LR))
+    step = make_train_step(model, smoothing=0.2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(PATH_WARMUP):
+        step(state, batch, gen)
+    times["classification f32 step"] = device_ms(
+        lambda: step(state, batch, gen))
+    del state, step, model, batch
+    model = random_seg_model(seed, dev, "approx")
+    (uni, uni_n, uni_c), _ = seg_clouds(rng)
+    forward(f"segmentation bf16 forward ({SEG_B} clouds)",
+            InferenceEngine(model, num_points=SEG_N, batch_size=SEG_B,
+                            precision="bfloat16"),
+            uni[:SEG_B], uni_n[:SEG_B], uni_c[:SEG_B])
+    del model
     print("[device-times] device time of one call (profiler): " + "; ".join(
         f"{label} {ms:.3f} ms" for label, ms in times.items())
         + f"; card: {card}", flush=True)
@@ -2708,12 +3013,12 @@ def path_device_times(seed, dev, card):
 
 def matmul_kfold_phase(rng, dev):
     """``[matmul-max-kfold]``: one cloud of MM_KFOLD_N points, above the
-    one-product-a-row kernels' limit at C_in = 128: ``gather_matmul_max``
-    with the epilogue and ``gather_matmul_max_train`` (forward and
-    backward) launch the K-fold kernels once each and the
-    one-product-a-row kernels never; exact-sum inputs bit-equal to the
-    plain versions. Its cloud comes from a generator spawned off
-    ``rng``."""
+    one-product-a-row kernels' limit at C_in = 128 (bf16 and int8 x):
+    ``gather_matmul_max`` with the epilogue, ``gather_matmul_max_train``
+    (forward and backward) and ``gather_matmul_max_int8`` launch the
+    K-fold kernels once each and the one-product-a-row kernels never;
+    exact-sum weights bit-equal to the plain versions. Its cloud comes
+    from a generator spawned off ``rng``."""
     from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
     from deltaconv_tpu_torch.geometry import knn
 
@@ -2725,12 +3030,15 @@ def matmul_kfold_phase(rng, dev):
     w = (torch.randint(-16, 17, (MM_IN, MM_OUT), device=dev) / 16.0
          ).to(torch.bfloat16)
     aff = random_affine(MM_OUT, dev)
+    xq = torch.randint(-127, 128, (1, MM_KFOLD_N, MM_IN), device=dev,
+                       dtype=torch.int8)
     torch.cuda.synchronize()
     reset_launch_counts()
     fused = ops.gather_matmul_max(x, w, idx, nbr_mask, aff)
     xg = x.clone().requires_grad_()
     out = ops.gather_matmul_max_train(xg, w, idx, nbr_mask)
     out.float().sum().backward()
+    int8 = ops.gather_matmul_max_int8(xq, w, idx, nbr_mask)
     torch.cuda.synchronize()
     counts = launch_counts()
     print(f"[matmul-max-kfold] launches, N={MM_KFOLD_N}: "
@@ -2739,16 +3047,22 @@ def matmul_kfold_phase(rng, dev):
           "one-product-a-row kernels never",
           counts["gather_matmul_max_kfold"] == 1
           and counts["gather_matmul_max_win_kfold"] == 1
+          and counts["gather_matmul_max_int8_kfold"] == 1
           and counts["gather_matmul_max"] + counts["gather_matmul_max_win"]
-          == 0 and counts["gather_max_bwd_bf16"] == 1,
+          + counts["gather_matmul_max_int8"] == 0
+          and counts["gather_max_bwd_bf16"] == 1,
           f"{counts['gather_matmul_max_kfold']}, "
           f"{counts['gather_matmul_max_win_kfold']}, "
-          f"{counts['gather_matmul_max']}, {counts['gather_matmul_max_win']}")
+          f"{counts['gather_matmul_max_int8_kfold']}, "
+          f"{counts['gather_matmul_max']}, {counts['gather_matmul_max_win']}, "
+          f"{counts['gather_matmul_max_int8']}")
     check("[matmul-max-kfold] exact sums",
           bits_equal(fused, ops.gather_matmul_max_plain(x, w, idx, nbr_mask,
                                                         aff))
           and bits_equal(out.detach(), ops.gather_matmul_max_win_plain(
-              x, w, idx, nbr_mask)[0]), "bit-equal to the plain versions")
+              x, w, idx, nbr_mask)[0])
+          and bits_equal(int8, ops.gather_matmul_max_int8_plain(
+              xq, w, idx, nbr_mask)), "bit-equal to the plain versions")
     return counts
 
 
@@ -5392,6 +5706,8 @@ def main():
     mark("kNN rounds route")
     kfold = matmul_kfold_phase(rng, dev)
     mark("matmul max K-fold route")
+    direct = max_direct_phase(rng, dev)
+    mark("neighbour max route D")
     if args.parent:
         parent_phase(args.parent, args.seed, card)
         mark("parent tree")
@@ -5424,7 +5740,9 @@ def main():
                              (MINMAX_KERNELS, minmax),
                              (("knn_topk_rounds",), rounds),
                              (("gather_matmul_max_kfold",
-                               "gather_matmul_max_win_kfold"), kfold)):
+                               "gather_matmul_max_win_kfold",
+                               "gather_matmul_max_int8_kfold"), kfold),
+                             (MAX_DIRECT_KERNELS, direct)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

@@ -11,11 +11,19 @@
 // Backward, from the bf16 cotangent g[b, k, n, :] of slots k >= 1:
 //   dh   = g @ W1^T (f32 sums),  dpre = dh * (pre >= 0 ? 1 : 0.2)
 //   dy0  = dpre * a0
-//   dy[b, j] += bf16(dy0)  (atomics),  dy[b, n] -= sum_k dy0 (unrounded)
+//   dy[b, j] += bf16(dy0),  dy[b, n] -= sum_k dy0 (unrounded)
 //   dW1  = sum h^T g,  da0 = sum dpre * y0,  db0 = sum dpre
 // with y0 recomputed from y. dW1 and (da0, db0)
 // are written as one partial a block ([blocks, C0, C1], [blocks, 2, C0]),
-// which the wrapper sums in a fixed order.
+// which the wrapper sums in a fixed order. dy is the exact sum of its
+// addends rounded once to f32: the edge terms go into an f64 accumulator
+// (the caller's scratch, zero-filled inside the call) by atomics, each
+// point's self term is summed in f64 in slot order by one thread and
+// added to its row once, and a second kernel rounds the accumulator. The
+// f32 (or bf16) addends of one (row, channel) sum exactly in f64 unless
+// they span more than ~29 binary orders, so two calls give the same bits
+// whatever order the atomics land in, and so does the plain version,
+// which sums in f64 too.
 //
 // y [B, N, C0] bf16, idx [B, N, K] i32, ab = (a0, b0) [2, C0] f32, W1
 // [C0, C1] bf16, z0 [C1] f32, g [B, K, N, C1] bf16; C0 and C1 multiples
@@ -43,10 +51,13 @@
 // forms h in shared memory and multiplies it by W1 (shared memory, WMMA
 // 16x16x16), then stores the tile's 16 contiguous output rows with
 // 16-byte stores. The backward's warps form one slot each the same way
-// (the cotangent tile, h, dh = g W1^T), add the edge terms of dy with
-// atomics, keep (da0, db0) a lane per channel, and after each pass of 8
-// slots every warp adds h^T g of all 8 to its own tiles of dW1, kept in
-// registers over all the points the block walks.
+// (the cotangent tile, h, dh = g W1^T), add the edge terms of dy with f64
+// atomics, leave each dy0 in place of its dh, keep (da0, db0) a lane per
+// channel; after each pass of 8 slots the block's threads add the pass's
+// dy0 of each (point, channel) to its self sum in slot order (f64
+// registers, one thread an element), and every warp adds h^T g of all 8
+// to its own tiles of dW1, kept in registers over all the points the
+// block walks.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -57,6 +68,9 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kPoints = 16;   // points a tile: the rows of one WMMA tile
 constexpr int kMaxAcc = 8;    // dW1 tiles a warp: (C0 / 16)(C1 / 16) <= 64
+// Self sums a thread: a tile's kPoints x C0 (C0 <= 128) elements over the
+// block's threads.
+constexpr int kSelfPer = kPoints * 128 / (kWarps * 32);
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -219,7 +233,7 @@ __global__ void __launch_bounds__(kWarps * 32) edge_mlp_fwd_kernel(
 }
 
 struct BwdSmem {
-  size_t yi, g, h, yj, d, self, dab, total;
+  size_t yi, g, h, yj, d, dab, total;
 };
 
 __host__ __device__ inline BwdSmem bwd_smem(int C0, int C1) {
@@ -230,8 +244,7 @@ __host__ __device__ inline BwdSmem bwd_smem(int C0, int C1) {
   m.h = m.g + (size_t)kWarps * kPoints * ld.w1 * 2;
   m.yj = m.h + (size_t)kWarps * kPoints * ld.h0 * 2;
   m.d = m.yj + (size_t)kWarps * kPoints * ld.h0 * 2;
-  m.self = m.d + (size_t)kWarps * kPoints * ld.f0 * 4;
-  m.dab = m.self + (size_t)kPoints * C0 * 4;
+  m.dab = m.d + (size_t)kWarps * kPoints * ld.f0 * 4;
   m.total = m.dab + (size_t)kWarps * 2 * C0 * 4;
   return m;
 }
@@ -239,7 +252,8 @@ __host__ __device__ inline BwdSmem bwd_smem(int C0, int C1) {
 __global__ void __launch_bounds__(kWarps * 32) edge_mlp_bwd_kernel(
     const __nv_bfloat16* __restrict__ y, const int* __restrict__ idx,
     const float* __restrict__ ab, const __nv_bfloat16* __restrict__ w1,
-    const __nv_bfloat16* __restrict__ g, float* __restrict__ dy, float* __restrict__ dw1_part,
+    const __nv_bfloat16* __restrict__ g, double* __restrict__ dy_acc,
+    float* __restrict__ dw1_part,
     float* __restrict__ dab_part, int B, int N, int K, int C0, int C1) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -252,8 +266,8 @@ __global__ void __launch_bounds__(kWarps * 32) edge_mlp_bwd_kernel(
   __nv_bfloat16* hs0 = reinterpret_cast<__nv_bfloat16*>(smem + lay.h);
   __nv_bfloat16* yj = reinterpret_cast<__nv_bfloat16*>(smem + lay.yj) +
                       warp * kPoints * ld.h0;
-  float* ds = reinterpret_cast<float*>(smem + lay.d) + warp * kPoints * ld.f0;
-  float* self = reinterpret_cast<float*>(smem + lay.self);
+  float* ds0 = reinterpret_cast<float*>(smem + lay.d);
+  float* ds = ds0 + warp * kPoints * ld.f0;
   float* wdab = reinterpret_cast<float*>(smem + lay.dab);
   __nv_bfloat16* gs = gs0 + warp * kPoints * ld.w1;
   __nv_bfloat16* hs = hs0 + warp * kPoints * ld.h0;
@@ -263,7 +277,9 @@ __global__ void __launch_bounds__(kWarps * 32) edge_mlp_bwd_kernel(
 #pragma unroll
   for (int i = 0; i < kMaxAcc; ++i) wmma::fill_fragment(acc[i], 0.0f);
   load_w1(w1s, w1, C0, C1, ld.w1);
-  for (int t = threadIdx.x; t < kPoints * C0; t += blockDim.x) self[t] = 0.0f;
+  double self[kSelfPer];  // element threadIdx.x + i blockDim.x of the tile
+#pragma unroll
+  for (int i = 0; i < kSelfPer; ++i) self[i] = 0.0;
   for (int t = threadIdx.x; t < kWarps * 2 * C0; t += blockDim.x)
     wdab[t] = 0.0f;
 
@@ -333,9 +349,9 @@ __global__ void __launch_bounds__(kWarps * 32) edge_mlp_bwd_kernel(
             const float dpre =
                 __fmul_rn(ds[p * ld.f0 + c], pre >= 0.0f ? 1.0f : 0.2f);
             const float dy0 = __fmul_rn(dpre, a0);
-            atomicAdd(dy + ((long long)b * N + nbr(idx, bn, K, k, N)) * C0 + c,
-                      round_bf16(dy0));
-            atomicAdd(self + p * C0 + c, dy0);
+            const long long j = (long long)b * N + nbr(idx, bn, K, k, N);
+            atomicAdd(dy_acc + j * C0 + c, (double)round_bf16(dy0));
+            ds[p * ld.f0 + c] = dy0;  // the self sum's, after the barrier
             da = __fadd_rn(da, __fmul_rn(dpre, y0));
             db = __fadd_rn(db, dpre);
           }
@@ -344,8 +360,18 @@ __global__ void __launch_bounds__(kWarps * 32) edge_mlp_bwd_kernel(
         }
       }
       __syncthreads();
-      // dW1 += h^T g over the pass's slots: h^T is h read column-major.
       const int n_slots = min(kWarps, K - ks0);
+      // The self sums: the pass's dy0 of each element, in slot order.
+#pragma unroll
+      for (int i = 0; i < kSelfPer; ++i) {
+        const int t = threadIdx.x + i * blockDim.x;
+        if (t < rows * C0) {
+          const float* d = ds0 + (t / C0) * ld.f0 + t % C0;
+          for (int s = 0; s < n_slots; ++s)
+            self[i] += (double)d[s * kPoints * ld.f0];
+        }
+      }
+      // dW1 += h^T g over the pass's slots: h^T is h read column-major.
 #pragma unroll
       for (int i = 0; i < kMaxAcc; ++i) {
         const int t = warp + i * kWarps;
@@ -366,9 +392,12 @@ __global__ void __launch_bounds__(kWarps * 32) edge_mlp_bwd_kernel(
       __syncthreads();
     }
     // The self term: minus the unrounded sum over the slots.
-    for (int t = threadIdx.x; t < rows * C0; t += blockDim.x) {
-      atomicAdd(dy + ((long long)b * N + n0) * C0 + t, -self[t]);
-      self[t] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kSelfPer; ++i) {
+      const int t = threadIdx.x + i * blockDim.x;
+      if (t < rows * C0)
+        atomicAdd(dy_acc + ((long long)b * N + n0) * C0 + t, -self[i]);
+      self[i] = 0.0;
     }
     __syncthreads();
   }
@@ -421,24 +450,28 @@ extern "C" int dc_edge_mlp_fwd(const void* y, const void* idx, const void* ab,
   return (int)cudaGetLastError();
 }
 
-// dy [B, N, C0] f32 zero-filled by the caller; blocks: the grid, the rows
-// of the partials.
+// dy [B, N, C0] f32 out; acc [B, N, C0] f64 scratch (zero-filled here,
+// 16-byte aligned); blocks: the grid, the rows of the partials.
 extern "C" int dc_edge_mlp_bwd(const void* y, const void* idx, const void* ab,
                                const void* w1, const void* g, void* dy,
-                               void* dw1_part, void* dab_part, int B, int N,
-                               int K, int C0, int C1, int blocks, int device,
-                               void* stream) {
+                               void* acc, void* dw1_part, void* dab_part,
+                               int B, int N, int K, int C0, int C1,
+                               int blocks, int device, void* stream) {
   DC_SET_DEVICE(device);
   if (K < 1 || blocks < 1 || !widths_ok(C0, C1))
     return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem(C0, C1).total;
-  const cudaError_t err =
+  cudaError_t err =
       set_smem(reinterpret_cast<const void*>(edge_mlp_bwd_kernel), smem);
   if (err != cudaSuccess) return (int)err;
-  edge_mlp_bwd_kernel<<<(unsigned)blocks, kWarps * 32, smem,
-                        (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long total = (long long)B * N * C0;
+  err = cudaMemsetAsync(acc, 0, total * sizeof(double), s);
+  if (err != cudaSuccess) return (int)err;
+  edge_mlp_bwd_kernel<<<(unsigned)blocks, kWarps * 32, smem, s>>>(
       (const __nv_bfloat16*)y, (const int*)idx, (const float*)ab,
-      (const __nv_bfloat16*)w1, (const __nv_bfloat16*)g, (float*)dy,
+      (const __nv_bfloat16*)w1, (const __nv_bfloat16*)g, (double*)acc,
       (float*)dw1_part, (float*)dab_part, B, N, K, C0, C1);
+  if (total > 0) dc_round_f64(acc, dy, total, s);
   return (int)cudaGetLastError();
 }

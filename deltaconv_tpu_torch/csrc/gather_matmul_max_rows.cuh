@@ -1,9 +1,13 @@
-// The bf16 matmul maxes with one product a row (gather_max_bf16.cu's
-// `gather_matmul_max` and `gather_matmul_max_win`; the design and its
-// bound are described there): a block takes one task, a cloud b and a
-// slice of kCs output columns, computes y = bf16(x[b] @ w[:, slice]) for
-// every row of the cloud into shared memory, then takes each point's
-// masked max over its K slots out of that slice.
+// The matmul maxes with one product a row (gather_max_bf16.cu's
+// `gather_matmul_max` and `gather_matmul_max_win`, gather_max_int8.cu's
+// `gather_matmul_max_int8`; the design and its bound are described in
+// gather_max_bf16.cu): a block takes one task, a cloud b and a slice of
+// kCs output columns, computes y = bf16(x[b] @ w[:, slice]) for every row
+// of the cloud into shared memory, then takes each point's masked max
+// over its K slots out of that slice. x is bf16, or int8 (Tin): int8 rows
+// land by cp.async in an int8 ring (half a bf16 stage's bytes) and each
+// tile is widened once, in shared memory, into one bf16 tile (exact:
+// |v| <= 127) before its ldmatrix reads, which take 16-bit elements only.
 #pragma once
 
 #include "gather_matmul_max.cuh"
@@ -17,6 +21,7 @@ constexpr int kBRegSteps = 8;     // k-steps whose B fragments fit registers
 constexpr int kRowsInFlight = 4;  // y rows a lane reads before its maxes
 constexpr size_t kRowsSmemMax = 232448;  // a block's shared memory, H100
 constexpr unsigned kNegInf2 = 0xFF80FF80u;  // two bf16 -inf
+constexpr unsigned kNegInfF32 = 0xFF800000u;  // f32 -inf
 
 // Row strides in bf16. An x row is padded by 16 bytes, a W-slice row to
 // an odd number of 16-byte chunks, so that the 8 rows of an ldmatrix
@@ -29,22 +34,28 @@ __host__ __device__ inline int rows_ldw(int Cs) {
 // Shared memory of a block with `stages` ring stages: the y slice [N + 2,
 // Cs] (row N zeros, the row of a valid slot outside the cloud; row N + 1
 // -inf, the row of a masked slot), the affine slice [4, Cs] f32, the W
-// slice [Cin, Cs] (padded), the x ring [stages][kTileRows, Cin] (padded).
-// ops/gather_max.py (`mm_rows_smem`) mirrors it at two stages to choose
-// the route.
-inline size_t rows_smem_bytes(int N, int Cin, int Cs, int stages) {
+// slice [Cin, Cs] (padded), the x ring [stages][kTileRows, Cin] (padded
+// bf16; for int8 x (in_bytes 1) unpadded int8 stages and one padded bf16
+// tile). ops/gather_max.py (`mm_rows_smem`) mirrors it at two stages to
+// choose the route.
+inline size_t rows_smem_bytes(int N, int Cin, int Cs, int stages,
+                              int in_bytes) {
+  const size_t ring =
+      in_bytes == 2
+          ? (size_t)stages * kTileRows * rows_ldx(Cin) * 2
+          : (size_t)stages * kTileRows * Cin +
+                (size_t)kTileRows * rows_ldx(Cin) * 2;
   return (size_t)(N + 2) * Cs * 2 + (size_t)4 * Cs * 4 +
-         (size_t)Cin * rows_ldw(Cs) * 2 +
-         (size_t)stages * kTileRows * rows_ldx(Cin) * 2;
+         (size_t)Cin * rows_ldw(Cs) * 2 + ring;
 }
 
 // The y slice keeps row r's 16-byte chunk c (channels 8c .. 8c + 7) at
 // chunk c ^ ((r >> kShift) & (P - 1)) of the row, P = Cs / 8 chunks a
 // row: the 8 rows of one accumulator store then land on 8 distinct bank
 // groups, and a point's group of P lanes still reads its row whole.
-template <int kCs>
+// (gather_max.cu's staged slices keep their rows the same way.)
+template <int P>
 __device__ __forceinline__ int y_chunk(int r, int c) {
-  constexpr int P = kCs / 8;
   constexpr int kShift = P == 8 ? 0 : P == 4 ? 1 : P == 2 ? 2 : 3;
   return c ^ ((r >> kShift) & (P - 1));
 }
@@ -59,6 +70,23 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 or 4 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -162,27 +190,76 @@ __device__ __forceinline__ void take_slot(unsigned (&best)[4],
   }
 }
 
-// The max phase: a group of P = kCs / 8 lanes a point, lane q of the group
-// channels 8q .. 8q + 7 of the slice, 16-byte reads of the y rows (`ys`,
-// the slice's shared-memory address). A warp walks its points' slots in
-// steps of SB; in a step each lane of a group holds PER consecutive slots
-// of the point (idx and mask, loaded once) and passes the row to read round
-// the group by shuffles, kRowsInFlight rows in flight: a masked slot reads
-// row N + 1 (-inf) and a valid one outside the cloud row N (zeros), so
-// every read is unconditional. A step's idx and mask are loaded three
-// steps ahead (three register sets, used in turn).
-template <int kCs, bool kWinners, bool kNan>
+// Value h (0 or 1) of a 32-bit word of the running max: a bf16 half, or
+// the f32 word itself (h 0).
+template <typename T>
+__device__ __forceinline__ T value_of(unsigned word, int h);
+template <>
+__device__ __forceinline__ float value_of<float>(unsigned word, int) {
+  return __uint_as_float(word);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 value_of<__nv_bfloat16>(
+    unsigned word, int h) {
+  __nv_bfloat16_raw raw;
+  raw.x = (unsigned short)(h ? word >> 16 : word & 0xFFFFu);
+  return __nv_bfloat16(raw);
+}
+
+// The same for 4 f32 channels (one value a 32-bit word, the winner a
+// whole word), with the rules of gather_max.cu's `take`: without NaN a
+// strict `v > best` and a select; with NaN (kNan) a NaN is taken with
+// winner 0 and sticks.
+template <bool kWinners, bool kNan>
+__device__ __forceinline__ void take_slot_f32(unsigned (&best)[4],
+                                              unsigned (&win)[4], uint4 v4,
+                                              int k) {
+  const unsigned v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float fv = __uint_as_float(v[i]), fb = __uint_as_float(best[i]);
+    bool take = fv > fb;
+    unsigned slot = (unsigned)k;
+    if (kNan && fv != fv) {
+      take = fb == fb;
+      slot = 0u;
+    }
+    best[i] = take ? v[i] : best[i];
+    if (kWinners) win[i] = take ? slot : win[i];
+  }
+}
+
+// The max phase: a group of P lanes a point (P 16-byte pieces a row of the
+// slice), lane q of the group the piece q (8 bf16 or 4 f32 channels of T),
+// 16-byte reads of the rows (`ys`, the slice's shared-memory address). A
+// block's warps (kRowsWarps) walk the points p0 .. p1 - 1 of cloud b; a
+// warp walks its points' slots in steps of SB; in a step each lane of a
+// group holds PER consecutive slots of the point (idx and mask, loaded
+// once) and passes the row to read round the group by shuffles,
+// kRowsInFlight rows in flight: a masked slot reads row N + 1 (-inf) and
+// a valid one outside the cloud row N (zeros), so every read is
+// unconditional. A step's idx and mask are loaded three steps ahead
+// (three register sets, used in turn). The running max starts at `neg`
+// (-3e38 in T, in each word) and its winner at 0; out and winner rows are
+// `ldo` elements apart, the slice at column col0, of which `nvalid`
+// columns are written (whole pieces by 16-byte stores when `vec_out`,
+// else one by one). The rows kernel passes the whole cloud, the bf16 slice
+// and, with `aff_s`, the epilogue; gather_max.cu's staged route a share
+// of the points of a channel slice of h.
+template <typename T, int P, bool kWinners, bool kNan>
 __device__ __forceinline__ void rows_max_phase(
     unsigned ys, const int* __restrict__ idx,
     const uint8_t* __restrict__ mask, const float* aff_s,
-    __nv_bfloat16* __restrict__ out, int* __restrict__ winner, int b, int N,
-    int Cout, int K, int col0, unsigned neg2, int warp, int lane) {
-  constexpr int P = kCs / 8, PW = 32 / P;
+    T* __restrict__ out, int* __restrict__ winner, int b, int N, int p0,
+    int p1, int ldo, int col0, int nvalid, bool vec_out, int K,
+    unsigned neg, int warp, int lane) {
+  constexpr int PW = 32 / P;
+  constexpr int V = 16 / sizeof(T);  // channels a piece
   constexpr int SB = P >= kRowsInFlight ? P : kRowsInFlight;  // slots a step
   constexpr int PER = SB / P;  // slots a lane loads a step
   const int q = lane % P, gbase = lane - q, gi = lane / P;
-  const int stride = kRowsWarps * PW, first = warp * PW;
-  const int rounds = first < N ? (N - first + stride - 1) / stride : 0;
+  const int stride = kRowsWarps * PW, first = p0 + warp * PW;
+  const int rounds = first < p1 ? (p1 - first + stride - 1) / stride : 0;
   const int nkb = (K + SB - 1) / SB;
   const int steps = rounds * nkb;  // the same for the whole warp
 
@@ -204,7 +281,7 @@ __device__ __forceinline__ void rows_max_phase(
       f_kbi = 0;
       f_p += stride;
     }
-    if (p >= N) return;
+    if (p >= p1) return;
     const long long at = ((long long)b * N + p) * K + kb + PER * q;
     if constexpr (PER > 1) {
       if (vec && kb + PER * (q + 1) <= K) {  // PER slots in one load each
@@ -246,7 +323,7 @@ __device__ __forceinline__ void rows_max_phase(
     if (kbi == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        best[i] = neg2;
+        best[i] = neg;
         win[i] = 0u;
       }
       any = false;
@@ -270,11 +347,15 @@ __device__ __forceinline__ void rows_max_phase(
         const int j = P > 1 ? __shfl_sync(0xffffffffu, jm[s % PER],
                                           gbase + s / PER)
                             : jm[s];
-        v[u] = lds128(ys + (unsigned)(j * P + y_chunk<kCs>(j, q)) * 16u);
+        v[u] = lds128(ys + (unsigned)(j * P + y_chunk<P>(j, q)) * 16u);
       }
 #pragma unroll
-      for (int u = 0; u < kRowsInFlight; ++u)
-        take_slot<kWinners, kNan>(best, win, v[u], kb + s0 + u);
+      for (int u = 0; u < kRowsInFlight; ++u) {
+        if constexpr (V == 8)
+          take_slot<kWinners, kNan>(best, win, v[u], kb + s0 + u);
+        else
+          take_slot_f32<kWinners, kNan>(best, win, v[u], kb + s0 + u);
+      }
     }
     if (++kbi < nkb) return;
     kbi = 0;
@@ -283,17 +364,34 @@ __device__ __forceinline__ void rows_max_phase(
     // The point's rows are valid if any slot of the group is.
     const bool valid =
         (__ballot_sync(0xffffffffu, any) >> gbase) & ((1u << P) - 1u);
-    if (p >= N) return;
-    const long long o = ((long long)b * N + p) * Cout + col0 + 8 * q;
+    if (p >= p1 || V * q >= nvalid) return;
+    const long long o = ((long long)b * N + p) * ldo + col0 + V * q;
+    // The piece's winners as V words (bf16: 16-bit halves unpacked).
+    int wv[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      wv[i] = V == 8 ? (int)((win[i / 2] >> (16 * (i % 2))) & 0xFFFF)
+                     : (int)win[i % 4];
+    if (!vec_out) {  // column by column, up to the slice's last valid one
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (V * q + i < nvalid) {
+          out[o + i] = value_of<T>(best[i * 4 / V], V == 8 ? i % 2 : 0);
+          if (kWinners) winner[o + i] = wv[i];
+        }
+      }
+      return;
+    }
     if (kWinners) {
       *reinterpret_cast<uint4*>(out + o) =
           make_uint4(best[0], best[1], best[2], best[3]);
       int4* wr = reinterpret_cast<int4*>(winner + o);
-      wr[0] = make_int4(win[0] & 0xFFFF, win[0] >> 16, win[1] & 0xFFFF,
-                        win[1] >> 16);
-      wr[1] = make_int4(win[2] & 0xFFFF, win[2] >> 16, win[3] & 0xFFFF,
-                        win[3] >> 16);
-    } else if (aff_s != nullptr) {
+#pragma unroll
+      for (int i = 0; i < V / 4; ++i)
+        wr[i] = make_int4(wv[4 * i], wv[4 * i + 1], wv[4 * i + 2],
+                          wv[4 * i + 3]);
+    } else if (V == 8 && aff_s != nullptr) {
+      constexpr int kCs = 8 * P;
       unsigned packed[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -330,10 +428,10 @@ __device__ __forceinline__ void rows_max_phase(
 // multiples of 16, C_out of kCs; x 16-byte and w 32-byte aligned; aff
 // [4, C_out] f32 or null; winner null unless kWinners; `stages` x ring
 // stages (2 to kMaxStages).
-template <int kCs, bool kWinners, bool kBReg>
+template <typename Tin, int kCs, bool kWinners, bool kBReg>
 __global__ void __launch_bounds__(kRowsWarps * 32, 1)
     gather_matmul_max_rows_kernel(
-        const __nv_bfloat16* __restrict__ x,
+        const Tin* __restrict__ x,
         const __nv_bfloat16* __restrict__ w, const int* __restrict__ idx,
         const uint8_t* __restrict__ mask, const float* __restrict__ aff,
         __nv_bfloat16* __restrict__ out, int* __restrict__ winner, int N,
@@ -347,12 +445,18 @@ __global__ void __launch_bounds__(kRowsWarps * 32, 1)
   __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
   float* aff_s = reinterpret_cast<float*>(ys + (size_t)(N + 2) * kCs);
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(aff_s + 4 * kCs);
-  __nv_bfloat16* ring = ws + (size_t)Cin * ldw;
+  constexpr bool kInt8 = sizeof(Tin) == 1;
+  // bf16: the ring of padded bf16 stages; int8: the int8 stages, then the
+  // bf16 tile that each stage is widened into.
+  Tin* ring = reinterpret_cast<Tin*>(ws + (size_t)Cin * ldw);
+  __nv_bfloat16* xt = reinterpret_cast<__nv_bfloat16*>(
+      ring + (size_t)stages * kTileRows * Cin);
+  const int ld_ring = kInt8 ? Cin : ldx;
 
   const int slices = Cout / kCs;
   const int b = blockIdx.x / slices, col0 = (blockIdx.x % slices) * kCs;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const __nv_bfloat16* xb = x + (long long)b * N * Cin;
+  const Tin* xb = x + (long long)b * N * Cin;
 
   // The W slice and the affine slice, once a task.
   for (int e = tid; e < Cin * P; e += blockDim.x) {
@@ -364,17 +468,19 @@ __global__ void __launch_bounds__(kRowsWarps * 32, 1)
     for (int e = tid; e < 4 * kCs; e += blockDim.x)
       aff_s[e] = aff[(e / kCs) * Cout + col0 + e % kCs];
 
-  const int per_row = Cin / 8;
+  constexpr int kPer16 = 16 / sizeof(Tin);  // values a 16-byte copy
+  const int per_row = Cin / kPer16;
   const int tiles = (N + TR - 1) / TR;
   auto load_tile = [&](int t) {
     if (t >= tiles) return;
-    __nv_bfloat16* dst = ring + (t % stages) * TR * ldx;
+    Tin* dst = ring + (t % stages) * TR * ld_ring;
     const int r0 = t * TR;
     for (int e = tid; e < TR * per_row; e += blockDim.x) {
       const int r = e / per_row, c = e % per_row;
       const bool valid = r0 + r < N;
-      cp_async16(dst + r * ldx + c * 8,
-                 xb + (long long)(valid ? r0 + r : 0) * Cin + c * 8, valid);
+      cp_async16(dst + r * ld_ring + c * kPer16,
+                 xb + (long long)(valid ? r0 + r : 0) * Cin + c * kPer16,
+                 valid);
     }
   };
 
@@ -413,9 +519,21 @@ __global__ void __launch_bounds__(kRowsWarps * 32, 1)
     cp_async_commit();
     cp_async_wait(stages);  // tile t has landed
     __syncthreads();
+    const __nv_bfloat16* a_tile;
+    if constexpr (kInt8) {  // widened once, 8 values a thread a step
+      const int8_t* src = ring + (t % stages) * TR * Cin;
+      for (int e = tid; e < TR * (Cin / 8); e += blockDim.x) {
+        const int r = e / (Cin / 8), q = e % (Cin / 8);
+        reinterpret_cast<uint4*>(xt + r * ldx)[q] =
+            load8_bf16(src + r * Cin, q);
+      }
+      __syncthreads();
+      a_tile = xt;
+    } else {
+      a_tile = ring + (t % stages) * TR * ldx;
+    }
     if (busy) {
-      const __nv_bfloat16* a_row = ring + (t % stages) * TR * ldx +
-                                   (mt * 16 + (lane & 15)) * ldx +
+      const __nv_bfloat16* a_row = a_tile + (mt * 16 + (lane & 15)) * ldx +
                                    (lane >> 4) * 8;
       float acc[NW][4];
 #pragma unroll
@@ -474,7 +592,7 @@ __global__ void __launch_bounds__(kRowsWarps * 32, 1)
           const float v0 = acc[jj][2 * h], v1 = acc[jj][2 * h + 1];
           nan_seen |= v0 != v0 || v1 != v1;
           *reinterpret_cast<__nv_bfloat162*>(
-              ys + r * kCs + y_chunk<kCs>(r, jn) * 8 + 2 * t4) =
+              ys + r * kCs + y_chunk<P>(r, jn) * 8 + 2 * t4) =
               __floats2bfloat162_rn(v0, v1);
         }
       }
@@ -495,29 +613,30 @@ __global__ void __launch_bounds__(kRowsWarps * 32, 1)
   const unsigned y_addr = smem_addr(ys);
   const float* aff_p = aff != nullptr ? aff_s : nullptr;
   if (any_nan)
-    rows_max_phase<kCs, kWinners, true>(y_addr, idx, mask, aff_p, out,
-                                        winner, b, N, Cout, K, col0, neg2,
-                                        warp, lane);
+    rows_max_phase<__nv_bfloat16, P, kWinners, true>(
+        y_addr, idx, mask, aff_p, out, winner, b, N, 0, N, Cout, col0, kCs,
+        true, K, neg2, warp, lane);
   else
-    rows_max_phase<kCs, kWinners, false>(y_addr, idx, mask, aff_p, out,
-                                         winner, b, N, Cout, K, col0, neg2,
-                                         warp, lane);
+    rows_max_phase<__nv_bfloat16, P, kWinners, false>(
+        y_addr, idx, mask, aff_p, out, winner, b, N, 0, N, Cout, col0, kCs,
+        true, K, neg2, warp, lane);
 }
 
-template <int kCs, bool kWinners>
+template <typename Tin, int kCs, bool kWinners>
 int launch_rows(const void* x, const void* w, const void* idx,
                 const void* mask, const void* aff, void* out, void* winner,
                 int B, int N, int Cin, int Cout, int K, int stages,
                 size_t smem, cudaStream_t stream) {
-  auto kernel = Cin <= 16 * kBRegSteps
-                    ? gather_matmul_max_rows_kernel<kCs, kWinners, true>
-                    : gather_matmul_max_rows_kernel<kCs, kWinners, false>;
+  auto kernel =
+      Cin <= 16 * kBRegSteps
+          ? gather_matmul_max_rows_kernel<Tin, kCs, kWinners, true>
+          : gather_matmul_max_rows_kernel<Tin, kCs, kWinners, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tasks = (long long)B * (Cout / kCs);
   kernel<<<(unsigned)tasks, kRowsWarps * 32, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const int*)idx,
+      (const Tin*)x, (const __nv_bfloat16*)w, (const int*)idx,
       (const uint8_t*)mask, (const float*)aff, (__nv_bfloat16*)out,
       (int*)winner, N, Cin, Cout, K, stages);
   return (int)cudaGetLastError();
@@ -525,8 +644,9 @@ int launch_rows(const void* x, const void* w, const void* idx,
 
 // Cs: the slice width the wrapper chose (8, 16, 32 or 64); the ring takes
 // as many stages as fit. A shape whose slice does not fit a block with
-// two stages, or K above the 16-bit winners, is refused.
-template <bool kWinners>
+// two stages, or K above the 16-bit winners, is refused. Tin: bf16 or
+// int8 x.
+template <bool kWinners, typename Tin = __nv_bfloat16>
 int launch_matmul_max_rows(const void* x, const void* w, const void* idx,
                            const void* mask, const void* aff, void* out,
                            void* winner, int B, int N, int Cin, int Cout,
@@ -535,25 +655,31 @@ int launch_matmul_max_rows(const void* x, const void* w, const void* idx,
   if (Cin % 16 != 0 || Cout % 16 != 0 || Cin == 0 || K <= 0 || K > 0xFFFF ||
       (Cs != 8 && Cs != 16 && Cs != 32 && Cs != 64) || Cout % Cs != 0)
     return (int)cudaErrorInvalidValue;
+  constexpr int in_bytes = sizeof(Tin);
   int stages = kMaxStages;
-  while (stages > 2 && rows_smem_bytes(N, Cin, Cs, stages) > kRowsSmemMax)
+  while (stages > 2 &&
+         rows_smem_bytes(N, Cin, Cs, stages, in_bytes) > kRowsSmemMax)
     --stages;
-  const size_t smem = rows_smem_bytes(N, Cin, Cs, stages);
+  const size_t smem = rows_smem_bytes(N, Cin, Cs, stages, in_bytes);
   if (smem > kRowsSmemMax) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (Cs) {
     case 8:
-      return launch_rows<8, kWinners>(x, w, idx, mask, aff, out, winner, B,
-                                      N, Cin, Cout, K, stages, smem, s);
+      return launch_rows<Tin, 8, kWinners>(
+          x, w, idx, mask, aff, out, winner, B, N, Cin, Cout, K, stages,
+          smem, s);
     case 16:
-      return launch_rows<16, kWinners>(x, w, idx, mask, aff, out, winner, B,
-                                       N, Cin, Cout, K, stages, smem, s);
+      return launch_rows<Tin, 16, kWinners>(
+          x, w, idx, mask, aff, out, winner, B, N, Cin, Cout, K, stages,
+          smem, s);
     case 32:
-      return launch_rows<32, kWinners>(x, w, idx, mask, aff, out, winner, B,
-                                       N, Cin, Cout, K, stages, smem, s);
+      return launch_rows<Tin, 32, kWinners>(
+          x, w, idx, mask, aff, out, winner, B, N, Cin, Cout, K, stages,
+          smem, s);
     default:
-      return launch_rows<64, kWinners>(x, w, idx, mask, aff, out, winner, B,
-                                       N, Cin, Cout, K, stages, smem, s);
+      return launch_rows<Tin, 64, kWinners>(
+          x, w, idx, mask, aff, out, winner, B, N, Cin, Cout, K, stages,
+          smem, s);
   }
 }
 

@@ -24,15 +24,48 @@
 // read the self slot from its own rows; a CUDA thread loads h directly,
 // so every slot, the self slot included, is an exact load.
 //
-// Bound on the H100: memory. A block row (threadIdx.y) owns one point
-// (b, n) and its threads walk the channels, c fastest (two bf16 channels
-// a thread, one 4-byte load, where C is even): the K loads of a warp are
-// coalesced rows of h, and the warp reads each idx/mask entry as a
-// broadcast. The table of one cloud (N * C * 4 bytes, 1 MB at N=1024,
-// C=256 in f32; half that in bf16) is reused K times from L2. A NaN in a
-// valid slot propagates, as jnp.maximum does (its winner is 0, as the
-// plain version's first-equal search finds no slot equal to NaN); an
-// index outside [0, N) gathers 0, as a one-hot row with no match does.
+// Bound on the H100: memory, h, idx/mask read once and out (and the
+// winners) written once: 0.0210 ms at B=32, N=1024, K=20, f32 C=256
+// (0.0310 with winners). A NaN in a valid slot propagates, as jnp.maximum
+// does (its winner is 0, as the plain version's first-equal search finds
+// no slot equal to NaN); an index outside [0, N) gathers 0, as a one-hot
+// row with no match does.
+//
+// Two routes, chosen by shape in ops/gather_max.py (`max_slice`), the
+// same bits.
+// Route S, staged (`gather_max`, `gather_max_win`, `_bf16`): any point may
+// gather any row of its cloud, so a block takes a task, a cloud b and a
+// slice of Cs channels (16 * P bytes a row, P = 1, 2, 4, 8), and copies
+// the cloud's slice h[b, :, slice] into shared memory once, by cp.async
+// (16, 8 or 4 bytes a copy, the widest the base pointer and the row
+// stride allow; 2-byte loads for bf16 rows of an odd stride), beside two
+// constant rows: zeros (row N, the row of a valid slot outside the cloud)
+// and -inf (row N + 1, the row of a masked slot: -inf never passes the
+// strict > of a running max that starts at -3e38, so an all-masked row
+// keeps -3e38 and winner 0). Then each point's max comes out of shared
+// memory in the max phase of gather_matmul_max_rows.cuh: a group of P
+// lanes a point, a 16-byte piece of the slot's row a lane (16-byte rows,
+// their pieces XOR-swizzled by row, as the matmul maxes' y slice), four
+// slots' reads in flight before the compares, which run in slot order (a
+// strict >, so the first winner), the point's idx and mask read once a
+// task, three steps ahead; winners stay int32 [B, N, C]. A slice that
+// holds a NaN (a block-wide OR after the copy) takes the compares with
+// the NaN rules. The widest slice that fits a block (N + 2 rows), no
+// wider than h's row; where the tasks are fewer than the SMs, a task's
+// points are split over several blocks, each staging the whole slice
+// (on the H100 this beat narrower slices at every model shape). Where
+// h's row is not a multiple of 16 bytes, the outputs are written one by
+// one. Every row of the slice is read from L2 or memory
+// once a task (once a block of a split task), and the K slots of a point
+// from shared memory: at f32 C=256, 33.5 MB staged and 671 MB of
+// shared-memory reads, where route D read the 671 MB from L2.
+// Route D, direct (`gather_max_direct`, `gather_max_win_direct`, `_bf16`
+// bodies), where no slice fits a block (above 14,526 points), or K is 0,
+// or above the bf16 winners' 16 bits: a block row (threadIdx.y) owns one
+// point (b, n) and its threads walk the channels, c fastest (two bf16
+// channels a thread, one 4-byte load, where C is even): the K loads of a
+// warp are coalesced rows of h from L2, and the warp reads each idx/mask
+// entry as a broadcast.
 //
 // Backward (`gather_max_bwd`, `gather_max_bwd_bf16`):
 //   dh[b, idx[b, n, winner[b, n, c]], c] += g[b, n, c]
@@ -60,7 +93,7 @@
 // Min and max together (`gather_minmax`, `gather_minmax_bf16`, and with
 // winners `gather_minmax_win`, `gather_minmax_win_bf16`):
 //   mx[b, n, c] = the masked max above, mn[b, n, c] = the masked min,
-// with the same layout, loads and NaN rule, a running max (strict >) and
+// with route D's layout, loads and NaN rule, a running max (strict >) and
 // a running min (strict <, so a tie also goes to the lowest slot) kept
 // side by side; a row with no valid neighbour gets (-3e38, +3e38) and
 // winners 0. Replaces `_pallas_minmax` (pallas_call at gather_max.py:474,
@@ -76,13 +109,9 @@
 // once for both maps: the counterpart of `_pallas_bwd_mm` called with
 // two (winner, g) pairs (gather_max.py:528-536). Where the max and the min win at the
 // same (row, c) (one valid slot, or equal values) both cotangents add.
-#include "common.cuh"
-
-#include <cuda_bf16.h>
+#include "gather_matmul_max_rows.cuh"
 
 namespace {
-
-constexpr float kNeg = -3.0e38f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -224,23 +253,6 @@ __global__ void gather_max_bwd_kernel(const int* __restrict__ idx,
   }
 }
 
-// dh = acc rounded to f32 (nearest even), two elements a thread (one
-// for the last of an odd count).
-__global__ void round_f64_kernel(const double* __restrict__ acc,
-                                 float* __restrict__ dh, long long total) {
-  const long long pairs = (total + 1) / 2;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < pairs; i += (long long)gridDim.x * blockDim.x) {
-    if (2 * i + 1 < total) {
-      const double2 a = reinterpret_cast<const double2*>(acc)[i];
-      reinterpret_cast<float2*>(dh)[i] =
-          make_float2(__double2float_rn(a.x), __double2float_rn(a.y));
-    } else {
-      dh[2 * i] = __double2float_rn(acc[2 * i]);
-    }
-  }
-}
-
 template <typename T, int V, bool kWinners, bool kMin = false>
 int launch_fwd(const void* h, const void* idx, const void* mask, void* out,
                void* winner, int B, int N, int C, int K, void* stream,
@@ -270,10 +282,181 @@ int launch_bwd(const void* idx, const void* winner, const void* g, void* dh,
                                      s>>>(
         (const int*)idx, (const int*)winner, (const G*)g,
         (const int*)winner2, (const G*)g2, (double*)acc, B, N, C, K, n_out);
-  const long long blocks = ((total + 1) / 2 + 255) / 256;
-  round_f64_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(
-      (const double*)acc, (float*)dh, total);
+  dc_round_f64(acc, dh, total, s);
   return (int)cudaGetLastError();
+}
+
+// True where a 16-byte piece of a slice holds a NaN (4 f32 or 8 bf16).
+__device__ __forceinline__ bool has_nan(uint4 v, float) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  bool nan = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) nan |= (w[i] & 0x7FFFFFFFu) > 0x7F800000u;
+  return nan;
+}
+
+__device__ __forceinline__ bool has_nan(uint4 v, __nv_bfloat16) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  bool nan = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    nan |= (w[i] & 0x7FFFu) > 0x7F80u || ((w[i] >> 16) & 0x7FFFu) > 0x7F80u;
+  return nan;
+}
+
+// Route S: one block a (task, split), a task a cloud b and a slice of
+// kCs = 16 P / sizeof(T) channels; the block stages the slice's N rows
+// (and the two constant rows) in shared memory, then takes the max of
+// its share of the points. copy_bytes: 16, 8, 4 (cp.async) or 2 (bf16
+// loads); vec_out: out (and winner) rows of a multiple of 16 bytes. Two
+// blocks an SM (64 registers) for rows of 32 or 64 bytes; 128- and
+// 16-byte rows spill at 64 registers and take one (their slices at
+// N=1024 and N=8192 leave room for one block anyway).
+template <typename T, int P, bool kWinners>
+__global__ void __launch_bounds__(kRowsWarps * 32,
+                                  (P == 2 || P == 4) ? 2 : 1)
+    gather_max_staged_kernel(const T* __restrict__ h,
+                             const int* __restrict__ idx,
+                             const uint8_t* __restrict__ mask,
+                             T* __restrict__ out, int* __restrict__ winner,
+                             int N, int C, int K, int splits, int copy_bytes,
+                             int vec_out) {
+  constexpr int kRowBytes = 16 * P;
+  constexpr int kCs = kRowBytes / (int)sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int slices = (C + kCs - 1) / kCs;
+  const int task = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int b = task / slices, c0 = (task % slices) * kCs;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const unsigned char* hb = reinterpret_cast<const unsigned char*>(
+      h + (long long)b * N * C + c0);
+  const long long row_bytes = (long long)C * sizeof(T);
+  const int valid_bytes = min(kRowBytes, (C - c0) * (int)sizeof(T));
+
+  // The slice, each row's piece c at piece y_chunk<P>(row, c); bytes past
+  // the last channel zero-filled.
+  const int units = kRowBytes / copy_bytes;
+  for (int e = tid; e < N * units; e += blockDim.x) {
+    const int j = e / units, off = (e % units) * copy_bytes;
+    unsigned char* dst =
+        smem + (j * P + y_chunk<P>(j, off >> 4)) * 16 + (off & 15);
+    const bool ok = off < valid_bytes;
+    const unsigned char* src = hb + j * row_bytes + (ok ? off : 0);
+    if (copy_bytes == 16)
+      cp_async16(dst, src, ok);
+    else if (copy_bytes == 8)
+      cp_async8(dst, src, ok);
+    else if (copy_bytes == 4)
+      cp_async4(dst, src, ok);
+    else
+      *reinterpret_cast<unsigned short*>(dst) =
+          ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
+  }
+  // Rows N (zeros) and N + 1 (-inf).
+  const unsigned neg_inf = sizeof(T) == 4 ? kNegInfF32 : kNegInf2;
+  if (tid < 2 * P)
+    reinterpret_cast<uint4*>(smem)[(N + tid / P) * P + tid % P] =
+        tid < P ? make_uint4(0u, 0u, 0u, 0u)
+                : make_uint4(neg_inf, neg_inf, neg_inf, neg_inf);
+  cp_async_commit();
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  // A NaN anywhere in the slice takes the compares with the NaN rules.
+  const unsigned ys = smem_addr(smem);
+  bool nan_seen = false;
+  for (int e = tid; e < N * P; e += blockDim.x)
+    nan_seen |= has_nan(lds128(ys + (unsigned)e * 16u), T());
+  const bool any_nan = __syncthreads_or(nan_seen) != 0;
+
+  const int chunk = (N + splits - 1) / splits;
+  const int p0 = split * chunk, p1 = min(N, p0 + chunk);
+  const int nvalid = min(kCs, C - c0);
+  unsigned neg;
+  if constexpr (sizeof(T) == 4) {
+    neg = __float_as_uint(kNeg);
+  } else {
+    const __nv_bfloat16 nb = __float2bfloat16_rn(kNeg);
+    const unsigned bits = *reinterpret_cast<const unsigned short*>(&nb);
+    neg = bits | (bits << 16);
+  }
+  if (any_nan)
+    rows_max_phase<T, P, kWinners, true>(ys, idx, mask, nullptr, out,
+                                         winner, b, N, p0, p1, C, c0, nvalid,
+                                         vec_out != 0, K, neg, warp, lane);
+  else
+    rows_max_phase<T, P, kWinners, false>(ys, idx, mask, nullptr, out,
+                                          winner, b, N, p0, p1, C, c0,
+                                          nvalid, vec_out != 0, K, neg, warp,
+                                          lane);
+}
+
+// Shared memory of a route-S block: N + 2 rows of 16 P bytes;
+// ops/gather_max.py (`max_smem`) mirrors it.
+inline size_t staged_smem_bytes(int N, int P) {
+  return (size_t)(N + 2) * 16 * P;
+}
+
+template <typename T, int P, bool kWinners>
+int launch_staged_p(const void* h, const void* idx, const void* mask,
+                    void* out, void* winner, int B, int N, int C, int K,
+                    int splits, int copy_bytes, int vec_out,
+                    cudaStream_t s) {
+  auto kernel = gather_max_staged_kernel<T, P, kWinners>;
+  const size_t smem = staged_smem_bytes(N, P);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kCs = 16 * P / (int)sizeof(T);
+  const long long blocks = (long long)B * ((C + kCs - 1) / kCs) * splits;
+  kernel<<<(unsigned)blocks, kRowsWarps * 32, smem, s>>>(
+      (const T*)h, (const int*)idx, (const uint8_t*)mask, (T*)out,
+      (int*)winner, N, C, K, splits, copy_bytes, vec_out);
+  return (int)cudaGetLastError();
+}
+
+// Cs: the slice's channels the wrapper chose (16, 32, 64 or 128 bytes a
+// row), splits: blocks a task (1 or more). A slice that does not fit a
+// block, K of 0, or K above the bf16 winners' 16 bits, is refused (route
+// D takes those).
+template <typename T, bool kWinners>
+int launch_staged(const void* h, const void* idx, const void* mask,
+                  void* out, void* winner, int B, int N, int C, int K, int Cs,
+                  int splits, void* stream) {
+  if ((long long)B * N * C == 0) return (int)cudaGetLastError();
+  const int row = Cs * (int)sizeof(T);
+  const int P = row / 16;
+  if (Cs <= 0 || row % 16 != 0 || (P != 1 && P != 2 && P != 4 && P != 8) ||
+      splits < 1 || K <= 0 ||
+      (kWinners && sizeof(T) == 2 && K > 0xFFFF) ||
+      staged_smem_bytes(N, P) > kRowsSmemMax)
+    return (int)cudaErrorInvalidValue;
+  int copy_bytes = 16;
+  while (copy_bytes > (int)sizeof(T) &&
+         ((uintptr_t)h % copy_bytes != 0 ||
+          ((long long)C * sizeof(T)) % copy_bytes != 0))
+    copy_bytes /= 2;
+  const int vec_out = ((long long)C * sizeof(T)) % 16 == 0 &&
+                      (uintptr_t)out % 16 == 0 &&
+                      (uintptr_t)winner % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (P) {
+    case 1:
+      return launch_staged_p<T, 1, kWinners>(h, idx, mask, out, winner, B, N,
+                                             C, K, splits, copy_bytes,
+                                             vec_out, s);
+    case 2:
+      return launch_staged_p<T, 2, kWinners>(h, idx, mask, out, winner, B, N,
+                                             C, K, splits, copy_bytes,
+                                             vec_out, s);
+    case 4:
+      return launch_staged_p<T, 4, kWinners>(h, idx, mask, out, winner, B, N,
+                                             C, K, splits, copy_bytes,
+                                             vec_out, s);
+    default:
+      return launch_staged_p<T, 8, kWinners>(h, idx, mask, out, winner, B, N,
+                                             C, K, splits, copy_bytes,
+                                             vec_out, s);
+  }
 }
 
 // Pairs of channels where every pair is 4-byte aligned.
@@ -297,27 +480,64 @@ int launch_minmax_bf16(const void* h, const void* idx, const void* mask,
 }  // namespace
 
 extern "C" int dc_gather_max(const void* h, const void* idx, const void* mask,
-                             void* out, int B, int N, int C, int K,
-                             int device, void* stream) {
+                             void* out, int B, int N, int C, int K, int Cs,
+                             int splits, int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_staged<float, false>(h, idx, mask, out, nullptr, B, N, C, K,
+                                     Cs, splits, stream);
+}
+
+extern "C" int dc_gather_max_win(const void* h, const void* idx,
+                                 const void* mask, void* out, void* winner,
+                                 int B, int N, int C, int K, int Cs,
+                                 int splits, int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_staged<float, true>(h, idx, mask, out, winner, B, N, C, K,
+                                    Cs, splits, stream);
+}
+
+extern "C" int dc_gather_max_bf16(const void* h, const void* idx,
+                                  const void* mask, void* out, int B, int N,
+                                  int C, int K, int Cs, int splits,
+                                  int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_staged<__nv_bfloat16, false>(h, idx, mask, out, nullptr, B,
+                                             N, C, K, Cs, splits, stream);
+}
+
+extern "C" int dc_gather_max_win_bf16(const void* h, const void* idx,
+                                      const void* mask, void* out,
+                                      void* winner, int B, int N, int C,
+                                      int K, int Cs, int splits, int device,
+                                      void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_staged<__nv_bfloat16, true>(h, idx, mask, out, winner, B, N,
+                                            C, K, Cs, splits, stream);
+}
+
+extern "C" int dc_gather_max_direct(const void* h, const void* idx,
+                                    const void* mask, void* out, int B, int N,
+                                    int C, int K, int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   return launch_fwd<float, 1, false>(h, idx, mask, out, nullptr, B, N, C, K,
                                      stream);
 }
 
-extern "C" int dc_gather_max_win(const void* h, const void* idx,
-                                 const void* mask, void* out, void* winner,
-                                 int B, int N, int C, int K, int device,
-                                 void* stream) {
+extern "C" int dc_gather_max_win_direct(const void* h, const void* idx,
+                                        const void* mask, void* out,
+                                        void* winner, int B, int N, int C,
+                                        int K, int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   return launch_fwd<float, 1, true>(h, idx, mask, out, winner, B, N, C, K,
                                     stream);
 }
 
-extern "C" int dc_gather_max_bf16(const void* h, const void* idx,
-                                  const void* mask, void* out, int B, int N,
-                                  int C, int K, int device, void* stream) {
+extern "C" int dc_gather_max_bf16_direct(const void* h, const void* idx,
+                                         const void* mask, void* out, int B,
+                                         int N, int C, int K, int device,
+                                         void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   if (bf16_pairs(h, out, C))
@@ -327,10 +547,11 @@ extern "C" int dc_gather_max_bf16(const void* h, const void* idx,
                                              C, K, stream);
 }
 
-extern "C" int dc_gather_max_win_bf16(const void* h, const void* idx,
-                                      const void* mask, void* out,
-                                      void* winner, int B, int N, int C,
-                                      int K, int device, void* stream) {
+extern "C" int dc_gather_max_win_bf16_direct(const void* h, const void* idx,
+                                             const void* mask, void* out,
+                                             void* winner, int B, int N,
+                                             int C, int K, int device,
+                                             void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   if (bf16_pairs(h, out, C))

@@ -30,11 +30,24 @@
 //   out [B, N, C_out] bf16, -3e38 on a row with no valid slot; f32
 //   accumulation; the caller dequantizes by its positive per-cloud scale.
 // Replaces `gather_matmul_max_int8` (pallas_call at gather_max.py:1092,
-// body `_mm_max_int8_kernel`): the WMMA kernel of the bf16 matmul max
-// (gather_matmul_max.cuh) on int8 rows, widened to bf16 as they are
-// gathered into shared memory (lossless, |v| <= 127), without the
-// epilogue. Its design and bound are gather_max_bf16.cu's.
-#include "gather_matmul_max.cuh"
+// body `_mm_max_int8_kernel`). Design: the one-product-a-row kernel of the
+// bf16 matmul max (gather_matmul_max_rows.cuh, described in
+// gather_max_bf16.cu) on int8 rows: row j's product is the same whichever
+// point gathers it, and rounding to bf16 is monotone, so the slice of
+// bf16(xq[b] @ w) in shared memory holds what every slot reads. The int8
+// rows stream by cp.async into int8 ring stages (half a bf16 stage's
+// bytes, so two stages leave room for 10,166 points at C_in = 128 where
+// bf16 x leaves 10,038) and each 128-row tile is widened once, in shared
+// memory, into a bf16 tile (exact, |v| <= 127) for ldmatrix, which reads
+// 16-bit elements only; no epilogue, no winners. Bound on the H100: the
+// function's bytes (xq, w, idx/mask, the bf16 out: ~0.0073 ms at B=32,
+// N=1024, K=20, 128 -> 256; the product, 2.1 GFLOP, 0.002 ms on the
+// tensor cores). Route by shape (ops/gather_max.py, `mm_slice` with the
+// input's item size): above that size, or with no slice that fits, the
+// earlier kernel, `gather_matmul_max_int8_kfold`: the WMMA kernel of
+// gather_matmul_max.cuh on int8 rows widened as they are gathered, a
+// product a gathered slot (K times the function's).
+#include "gather_matmul_max_rows.cuh"
 
 namespace {
 
@@ -148,8 +161,20 @@ extern "C" int dc_gather_max_int8(const void* hq, const void* idx,
 extern "C" int dc_gather_matmul_max_int8(const void* xq, const void* w,
                                          const void* idx, const void* mask,
                                          void* out, int B, int N, int Cin,
-                                         int Cout, int K, int device,
+                                         int Cout, int K, int Cs, int device,
                                          void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_matmul_max_rows<false, int8_t>(xq, w, idx, mask, nullptr,
+                                               out, nullptr, B, N, Cin, Cout,
+                                               K, Cs, stream);
+}
+
+extern "C" int dc_gather_matmul_max_int8_kfold(const void* xq, const void* w,
+                                               const void* idx,
+                                               const void* mask, void* out,
+                                               int B, int N, int Cin,
+                                               int Cout, int K, int device,
+                                               void* stream) {
   DC_SET_DEVICE(device);
   return launch_matmul_max<false, int8_t>(xq, w, idx, mask, nullptr, out,
                                           nullptr, B, N, Cin, Cout, K,

@@ -52,15 +52,19 @@ _KERNELS = {
     "densify": ("dc_densify", [_P] * 5 + [_I] * 4),
     "densify_bf16": ("dc_densify_bf16", [_P] * 5 + [_I] * 4),
     "densify_bwd": ("dc_densify_bwd", [_P] * 5 + [_I] * 3),
-    "gather_max": ("dc_gather_max", [_P, _P, _P, _P, _I, _I, _I, _I]),
-    "gather_max_win": ("dc_gather_max_win",
-                       [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
+    "gather_max": ("dc_gather_max", [_P] * 4 + [_I] * 6),
+    "gather_max_win": ("dc_gather_max_win", [_P] * 5 + [_I] * 6),
+    "gather_max_direct": ("dc_gather_max_direct", [_P] * 4 + [_I] * 4),
+    "gather_max_win_direct": ("dc_gather_max_win_direct",
+                              [_P] * 5 + [_I] * 4),
     "gather_max_bwd": ("dc_gather_max_bwd",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
-    "gather_max_bf16": ("dc_gather_max_bf16",
-                        [_P, _P, _P, _P, _I, _I, _I, _I]),
-    "gather_max_win_bf16": ("dc_gather_max_win_bf16",
-                            [_P, _P, _P, _P, _P, _I, _I, _I, _I]),
+    "gather_max_bf16": ("dc_gather_max_bf16", [_P] * 4 + [_I] * 6),
+    "gather_max_win_bf16": ("dc_gather_max_win_bf16", [_P] * 5 + [_I] * 6),
+    "gather_max_bf16_direct": ("dc_gather_max_bf16_direct",
+                               [_P] * 4 + [_I] * 4),
+    "gather_max_win_bf16_direct": ("dc_gather_max_win_bf16_direct",
+                                   [_P] * 5 + [_I] * 4),
     "gather_max_bwd_bf16": ("dc_gather_max_bwd_bf16",
                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
     "adjacency": ("dc_adjacency", [_P, _P, _P, _I, _I, _I]),
@@ -84,7 +88,9 @@ _KERNELS = {
     "densify_int8": ("dc_densify_int8", [_P] * 7 + [_I] * 3),
     "gather_max_int8": ("dc_gather_max_int8", [_P] * 5 + [_I] * 5),
     "gather_matmul_max_int8": ("dc_gather_matmul_max_int8",
-                               [_P] * 5 + [_I] * 5),
+                               [_P] * 5 + [_I] * 6),
+    "gather_matmul_max_int8_kfold": ("dc_gather_matmul_max_int8_kfold",
+                                     [_P] * 5 + [_I] * 5),
     "inverse_adjacency": ("dc_inverse_adjacency", [_P] * 4 + [_I] * 4),
     "scatter_rows": ("dc_scatter_rows", [_P] * 4 + [_I] * 5 + [_L] * 4),
     "coef_apply_grad": ("dc_coef_apply_grad", [_P] * 4 + [_I] * 5),
@@ -98,7 +104,7 @@ _KERNELS = {
     "knn_topk_bucketed": ("dc_knn_topk_bucketed", [_P] * 9 + [_I] * 7),
     "knn_topk_bucketed_q": ("dc_knn_topk_bucketed_q", [_P] * 9 + [_I] * 7),
     "edge_delta_mlp": ("dc_edge_mlp_fwd", [_P] * 6 + [_I] * 5),
-    "edge_delta_mlp_bwd": ("dc_edge_mlp_bwd", [_P] * 8 + [_I] * 6),
+    "edge_delta_mlp_bwd": ("dc_edge_mlp_bwd", [_P] * 9 + [_I] * 6),
     "gather_minmax": ("dc_gather_minmax", [_P] * 5 + [_I] * 4),
     "gather_minmax_bf16": ("dc_gather_minmax_bf16", [_P] * 5 + [_I] * 4),
     "gather_minmax_win": ("dc_gather_minmax_win", [_P] * 7 + [_I] * 4),
@@ -146,7 +152,8 @@ _NO_GRAD = {
                             "of x @ w",
 }
 _NO_GRAD.update(dict.fromkeys(
-    ("densify_int8", "gather_max_int8", "gather_matmul_max_int8"),
+    ("densify_int8", "gather_max_int8", "gather_matmul_max_int8",
+     "gather_matmul_max_int8_kfold"),
     "int8 operators serve only, as the JAX package's (forward only: the "
     "rounding has no gradient)"))
 

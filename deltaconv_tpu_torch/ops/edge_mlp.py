@@ -33,9 +33,14 @@ Counterpart of ``deltaconv_tpu/ops/edge_mlp.py`` (``_reference`` and
 every edge (the stash) so that its backward needs no second one-hot
 gather; here the backward gathers the bf16 rows of ``y`` again and
 recomputes ``y0`` bit for bit, which measured faster on the card than a
-stash (PERF.md, section 6). The backward adds ``dy`` with atomics, so its
-last bits can change from run to run; ``dw1`` and the affine's sums
-come from per-block partials added in a fixed order.
+stash (PERF.md, section 6). The backward's ``dy`` is the exact sum of
+its addends (``bf16(dy0)`` at the neighbour rows, ``-dy0`` at the point's
+own) rounded once to f32: the kernel adds them in f64 (atomics into a
+scratch accumulator, which it rounds at the end) and the plain version
+sums in f64 too, so two calls give the same bits, and so do the kernel
+and the plain version where their ``dy0`` agree (the f32 sums of ``dh``
+run in another order); ``dw1`` and the affine's sums come from per-block
+partials added in a fixed order.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import _lib
-from .gather_max import _pad_last
+from .gather_max import _bwd_buffers, _pad_last
 
 __all__ = ["edge_delta_mlp", "edge_delta_mlp_plain", "edge_mlp_bwd",
            "edge_mlp_bwd_plain", "edge_mlp_fwd", "edge_mlp_fwd_plain"]
@@ -96,7 +101,8 @@ def edge_mlp_fwd_plain(y, a0, b0, w1, z0, idx):
 
 def edge_mlp_bwd_plain(y, a0, b0, w1, idx, g):
     """Plain backward of slots ``k >= 1``: ``(dy [B, N, C0] f32, dw1 [C0,
-    C1] f32, dab [2, C0] f32)`` with ``dab = (da0, db0)``."""
+    C1] f32, dab [2, C0] f32)`` with ``dab = (da0, db0)``; ``dy`` summed
+    in f64 and rounded once, as the kernel does."""
     b, n, c0 = y.shape
     k = idx.shape[-1]
     y0, pre = _edges(y, a0, b0, idx)
@@ -109,9 +115,9 @@ def edge_mlp_bwd_plain(y, a0, b0, w1, idx, g):
     dy0 = dy0f.to(torch.bfloat16).float()
     flat = _rows(idx[:, :, 1:], n).reshape(b, n * (k - 1), 1).expand(
         b, n * (k - 1), c0)
-    dy = torch.zeros((b, n, c0), dtype=torch.float32, device=y.device)
-    dy.scatter_add_(1, flat, dy0.reshape(b, n * (k - 1), c0))
-    dy = dy - dy0f.sum(dim=2)
+    acc = torch.zeros((b, n, c0), dtype=torch.float64, device=y.device)
+    acc.scatter_add_(1, flat, dy0.double().reshape(b, n * (k - 1), c0))
+    dy = (acc - dy0f.double().sum(dim=2)).float()
     dw1 = torch.matmul(h.reshape(-1, c0).t(), g1.reshape(-1, g1.shape[-1]))
     dab = torch.stack([(dpre * y0).sum(dim=(0, 1, 2)),
                        dpre.sum(dim=(0, 1, 2))])
@@ -186,15 +192,15 @@ def edge_mlp_bwd(y, a0, b0, w1, idx, g):
     device = _check("edge_delta_mlp_bwd", yp, ab, wp, idx,
                     [("g", gp, torch.bfloat16, (b, k, n, c1p))])
     blocks = min(_BWD_BLOCKS, b * -(-n // 16))
-    dy = torch.zeros((b, n, c0p), dtype=torch.float32, device=device)
+    dy, acc = _bwd_buffers(b, n, c0p, device)
     dw1_part = torch.empty((blocks, c0p, c1p), dtype=torch.float32,
                            device=device)
     dab_part = torch.empty((blocks, 2, c0p), dtype=torch.float32,
                            device=device)
     _lib.launch("edge_delta_mlp_bwd", device, yp.data_ptr(), idx.data_ptr(),
                 ab.data_ptr(), wp.data_ptr(), gp.data_ptr(), dy.data_ptr(),
-                dw1_part.data_ptr(), dab_part.data_ptr(), b, n, k, c0p, c1p,
-                blocks)
+                acc.data_ptr(), dw1_part.data_ptr(), dab_part.data_ptr(), b,
+                n, k, c0p, c1p, blocks)
     dw1 = dw1_part.sum(dim=0)[:c0, :c1]
     dab = dab_part.sum(dim=0)[:, :c0]
     return dy[..., :c0], dw1, dab

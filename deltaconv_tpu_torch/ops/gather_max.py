@@ -9,7 +9,11 @@ give ``-3e38``. :func:`masked_nbr_max`
 turns those into 0, as the scalar-stream aggregation of every DeltaConv
 needs. Counterpart of ``deltaconv_tpu/ops/gather_max.py``
 (``gather_max`` and its custom VJP, ``masked_nbr_max``); the kernels are
-in ``csrc/gather_max.cu``.
+in ``csrc/gather_max.cu``: on CUDA tensors route S (a cloud's channel
+slice staged in shared memory, the max out of it) where
+:func:`max_slice` finds a slice that fits a block (up to 14,526 points),
+else route D (the ``_direct`` kernels, every slot's row from L2); the
+same bits.
 
 Differentiated (``h.requires_grad`` under grad mode), the max is an
 autograd Function: its forward also records, per output element, the
@@ -101,7 +105,8 @@ import torch
 
 from . import _lib
 
-__all__ = ["MM_SLICES", "NEG", "SMEM_MAX", "bn_lrelu_epilogue",
+__all__ = ["MAX_ROW_BYTES", "MM_SLICES", "NEG", "SMEM_MAX",
+           "bn_lrelu_epilogue",
            "gather_matmul_max",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
            "gather_matmul_max_plain", "gather_matmul_max_train",
@@ -114,7 +119,7 @@ __all__ = ["MM_SLICES", "NEG", "SMEM_MAX", "bn_lrelu_epilogue",
            "gather_minmax", "gather_minmax_bwd", "gather_minmax_bwd_plain",
            "gather_minmax_plain", "gather_minmax_win",
            "gather_minmax_win_plain", "int8_quantize", "masked_nbr_max",
-           "mm_rows_smem", "mm_slice"]
+           "max_slice", "max_smem", "mm_rows_smem", "mm_slice"]
 
 NEG = -3.0e38  # ~ -inf in f32, safe to negate and compare
 _I8_NEG = -(2 ** 30)  # "-inf" in the int32 quantized domain
@@ -218,35 +223,107 @@ def _check_fwd(name, h, idx, mask, dtype=torch.float32):
     ])
 
 
-def _max(h, idx, mask):
+SMEM_MAX = 232_448  # a block's shared memory on the H100
+
+# Route S of the neighbour max (csrc/gather_max.cu): a block stages a
+# cloud's slice of h, N + 2 rows of 16, 32, 64 or 128 bytes, in shared
+# memory; a task's points are split over blocks of at least this many
+# points each where the tasks are fewer than the SMs.
+MAX_ROW_BYTES = (128, 64, 32, 16)
+MAX_SPLIT_POINTS = 128
+
+
+def max_smem(n: int, row_bytes: int) -> int:
+    """Shared memory of one route-S block, as ``staged_smem_bytes`` in
+    the CUDA source counts it: the slice's ``n`` rows and its two constant
+    rows (zeros, -inf)."""
+    return (n + 2) * row_bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def max_slice(b: int, n: int, c: int, itemsize: int, k: int, sms: int,
+              winners: bool = False) -> tuple[int, int]:
+    """The route of the neighbour max for ``[b, n, c]`` features of
+    ``itemsize`` bytes (f32 4, bf16 2) and ``k`` slots on a card of
+    ``sms`` SMs: ``(cs, splits)``, route S's slice of ``cs`` channels and
+    the blocks a task's points are split over, or ``(0, 0)`` for route D
+    (a route by shape, not a fallback). The slice's row is the widest of
+    128, 64, 32, 16 bytes whose block fits SMEM_MAX and that one narrower
+    row would not cover whole; where the tasks (``b`` x slices) are fewer
+    than the SMs, ``splits`` fills one wave (at most one block per
+    MAX_SPLIT_POINTS points). On the H100 splitting a task beat narrowing
+    its slice at every model shape (PERF.md, section 6). Route D where no
+    slice fits (above 14,526 points), ``k`` is 0, or the bf16 winners' 16
+    bits do not hold ``k``. Cached: the wrappers ask at every call."""
+    need = c * itemsize
+    fits = [rb for rb in MAX_ROW_BYTES if max_smem(n, rb) <= SMEM_MAX
+            and (rb == 16 or rb // 2 < need)]
+    if (not fits or k <= 0 or c <= 0
+            or (winners and itemsize == 2 and k > 0xFFFF)):
+        return 0, 0
+    tasks = b * -(-need // fits[0])
+    splits = max(1, min(sms // tasks, -(-n // MAX_SPLIT_POINTS)))
+    return fits[0] // itemsize, splits
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _max_launch(name, device, args, h, k, route, winners):
+    """Launches route S of ``name`` (``route = (cs, splits)``) or, with
+    ``cs`` 0, route D, ``name_direct``; ``route`` None:
+    :func:`max_slice`."""
+    b, n, c = h.shape
+    if route is None:
+        route = max_slice(b, n, c, h.element_size(), k,
+                          _sm_count(device.index or 0), winners)
+    cs, splits = route
+    if cs:
+        _lib.launch(name, device, *args, b, n, c, k, cs, splits)
+    else:
+        _lib.launch(f"{name}_direct", device, *args, b, n, c, k)
+
+
+def _max(h, idx, mask, route=None):
     """The forward without winners: plain version for CPU tensors, the
     ``gather_max`` kernel (f32) or ``gather_max_bf16`` (bf16 in, bf16
-    out) for CUDA tensors."""
+    out) for CUDA tensors, on the route :func:`max_slice` picks (route
+    S; route D under the ``_direct`` names); ``route`` forces one."""
     if h.device.type == "cpu":
         return _max_plain(h, idx, mask)
     name, dtype = _body("gather_max", h)
     device = _check_fwd(name, h, idx, mask, dtype)
-    b, n, c = h.shape
     out = torch.empty_like(h)
-    _lib.launch(name, device, h.data_ptr(), idx.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), b, n, c, idx.shape[-1])
+    _max_launch(name, device, (h.data_ptr(), idx.data_ptr(),
+                               mask.data_ptr(), out.data_ptr()), h,
+                idx.shape[-1], route, False)
     return out
 
 
 def gather_max_win(h, idx, mask):
     """The forward with winners ``(out, winner [B, N, C] int32)``: plain
     version for CPU tensors, the ``gather_max_win`` kernel (f32) or
-    ``gather_max_win_bf16`` (bf16 in, bf16 out) for CUDA tensors."""
+    ``gather_max_win_bf16`` (bf16 in, bf16 out) for CUDA tensors, routed
+    as :func:`gather_max`."""
     if h.device.type == "cpu":
         return gather_max_win_plain(h, idx, mask)
+    return _gather_max_win(h, idx, mask)
+
+
+def _gather_max_win(h, idx, mask, route=None):
+    """:func:`gather_max_win` on CUDA tensors through ``route`` (``(cs,
+    splits)``; ``(0, 0)`` route D; None: by shape)."""
     name, dtype = _body("gather_max_win", h)
     device = _check_fwd(name, h, idx, mask, dtype)
     b, n, c = h.shape
     out = torch.empty_like(h)
     winner = torch.empty((b, n, c), dtype=torch.int32, device=device)
-    _lib.launch(name, device, h.data_ptr(), idx.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), winner.data_ptr(), b, n, c,
-                idx.shape[-1])
+    _max_launch(name, device, (h.data_ptr(), idx.data_ptr(),
+                               mask.data_ptr(), out.data_ptr(),
+                               winner.data_ptr()), h, idx.shape[-1], route,
+                True)
     return out, winner
 
 
@@ -524,33 +601,37 @@ def _mm_operands(name, x, w, idx, mask, x_dtype=torch.bfloat16):
 # The one-product-a-row kernels (csrc/gather_matmul_max_rows.cuh): a block
 # takes a cloud and a slice of Cs output columns and holds the slice of
 # y = x @ w, [N, Cs] bf16, in shared memory beside its staging buffers.
-SMEM_MAX = 232_448  # a block's shared memory on the H100
 MM_SLICES = (64, 32, 16, 8)
 
 
-def mm_rows_smem(n: int, c_in: int, cs: int) -> int:
+def mm_rows_smem(n: int, c_in: int, cs: int, itemsize: int = 2) -> int:
     """Shared memory of one block of the one-product-a-row kernels with
     the least ring (two stages), as ``rows_smem_bytes`` in the CUDA
     source counts it: the y slice and its two constant rows, the affine
     slice, the W slice (rows padded to an odd number of 16-byte chunks)
-    and two stages of 128 x rows (padded by 16 bytes)."""
+    and two stages of 128 x rows: bf16 (``itemsize`` 2) padded by 16
+    bytes, or int8 (1) unpadded beside one padded bf16 tile that each
+    stage is widened into."""
     ldw = cs + 8 if cs >= 16 else cs
-    return (2 * (n + 2) * cs + 16 * cs + 2 * c_in * ldw
-            + 2 * 2 * 128 * (c_in + 8))
+    tile = 2 * 128 * (c_in + 8)
+    ring = 2 * tile if itemsize == 2 else 2 * 128 * c_in + tile
+    return 2 * (n + 2) * cs + 16 * cs + 2 * c_in * ldw + ring
 
 
-def mm_slice(b: int, n: int, c_in: int, c_out: int, k: int,
-             sms: int) -> int:
-    """The route of the bf16 matmul maxes for padded widths ``c_in``,
-    ``c_out`` (multiples of 16) on a card of ``sms`` SMs: the column
-    slice Cs of the one-product-a-row kernels, or 0 for the K-fold
-    kernels (a route by shape, not a fallback). Cs is the widest of 64,
-    32, 16, 8 that divides ``c_out`` and whose block fits SMEM_MAX,
-    narrowed while twice the tasks (``b * c_out / Cs``) still fit one
-    wave of ``sms``; 0 when no slice fits (above 10,038 points at
-    C_in = 128) or ``k`` exceeds the kernels' 16-bit winner slots."""
-    fits = [cs for cs in MM_SLICES
-            if c_out % cs == 0 and mm_rows_smem(n, c_in, cs) <= SMEM_MAX]
+@functools.lru_cache(maxsize=1024)
+def mm_slice(b: int, n: int, c_in: int, c_out: int, k: int, sms: int,
+             itemsize: int = 2) -> int:
+    """The route of the matmul maxes for padded widths ``c_in``,
+    ``c_out`` (multiples of 16) and x of ``itemsize`` bytes (bf16 2, int8
+    1) on a card of ``sms`` SMs: the column slice Cs of the
+    one-product-a-row kernels, or 0 for the K-fold kernels (a route by
+    shape, not a fallback). Cs is the widest of 64, 32, 16, 8 that
+    divides ``c_out`` and whose block fits SMEM_MAX, narrowed while twice
+    the tasks (``b * c_out / Cs``) still fit one wave of ``sms``; 0 when
+    no slice fits (above 10,038 points at C_in = 128 in bf16, 10,166 in
+    int8) or ``k`` exceeds the kernels' 16-bit winner slots."""
+    fits = [cs for cs in MM_SLICES if c_out % cs == 0
+            and mm_rows_smem(n, c_in, cs, itemsize) <= SMEM_MAX]
     if not fits or not 0 < k <= 0xFFFF:
         return 0
     i = 0
@@ -559,16 +640,13 @@ def mm_slice(b: int, n: int, c_in: int, c_out: int, k: int,
     return fits[i]
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _mm_launch(name, device, args, b, n, c_in, c_out, k, cs):
+def _mm_launch(name, device, args, b, n, c_in, c_out, k, cs, itemsize=2):
     """Launches ``name`` (column slice ``cs``) or, with ``cs`` 0, its
-    K-fold route ``name_kfold``; ``cs`` None: :func:`mm_slice`."""
+    K-fold route ``name_kfold``; ``cs`` None: :func:`mm_slice` for x of
+    ``itemsize`` bytes."""
     if cs is None:
-        cs = mm_slice(b, n, c_in, c_out, k, _sm_count(device.index or 0))
+        cs = mm_slice(b, n, c_in, c_out, k, _sm_count(device.index or 0),
+                      itemsize)
     if cs:
         _lib.launch(name, device, *args, b, n, c_in, c_out, k, cs)
     else:
@@ -802,19 +880,29 @@ def gather_matmul_max_int8_plain(xq, w, idx, mask):
 
 
 def gather_matmul_max_int8(xq, w, idx, mask):
-    """Plain version for CPU tensors; the CUDA kernel (tensor cores, the
-    int8 rows widened to bf16 as they are gathered) for CUDA tensors,
-    with the widths zero-padded to multiples of 16 as in
+    """Plain version for CPU tensors; for CUDA tensors the
+    ``gather_matmul_max_int8`` kernel (one product a row: the int8 rows
+    widened to bf16 once a tile, the slice of ``xq @ w`` in shared
+    memory), or above its size the K-fold kernel
+    ``gather_matmul_max_int8_kfold`` (:func:`mm_slice` for int8 x), with
+    the widths zero-padded to multiples of 16 as in
     :func:`gather_matmul_max`."""
     if xq.device.type == "cpu":
         return gather_matmul_max_int8_plain(xq, w, idx, mask)
+    return _gather_matmul_max_int8(xq, w, idx, mask)
+
+
+def _gather_matmul_max_int8(xq, w, idx, mask, cs=None):
+    """:func:`gather_matmul_max_int8` on CUDA tensors through the route
+    of column slice ``cs`` (0: the K-fold kernel; None: by shape)."""
     b, n, _ = xq.shape
     c_out = w.shape[-1]
     device, xp, wp = _mm_operands("gather_matmul_max_int8", xq, w, idx, mask,
                                   torch.int8)
     out = torch.empty((b, n, wp.shape[1]), dtype=torch.bfloat16,
                       device=device)
-    _lib.launch("gather_matmul_max_int8", device, xp.data_ptr(),
-                wp.data_ptr(), idx.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                b, n, xp.shape[-1], wp.shape[1], idx.shape[-1])
+    _mm_launch("gather_matmul_max_int8", device,
+               (xp.data_ptr(), wp.data_ptr(), idx.data_ptr(),
+                mask.data_ptr(), out.data_ptr()), b, n, xp.shape[-1],
+               wp.shape[1], idx.shape[-1], cs, itemsize=1)
     return out[..., :c_out].contiguous() if wp.shape[1] != c_out else out

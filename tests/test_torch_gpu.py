@@ -6,13 +6,13 @@ the card. Skipped where there is no CUDA device. On a GPU machine
 
 Shapes are small and include widths the model never uses (N not a
 multiple of 4, C not a multiple of 32) so that every branch of the
-kernels' indexing runs. The f32 atomic scatter ``edge_delta_mlp_bwd``
-adds in any order, and so does ``scatter_add_`` on the card, so it is
-held to 1e-5 x max|dh|; ``scatter_rows`` adds in a fixed order, and the
-winner-routed ``gather_max_bwd`` and ``gather_minmax_bwd`` and the
-neighbour sum's ``gather_sum_bwd`` sum exactly in f64 and round once,
-so these are held bit-equal to their plain versions and to themselves
-across calls.
+kernels' indexing runs. ``scatter_add_`` adds in any order on the
+card, so a scatter against it is held to 1e-5 x max|dh|;
+``scatter_rows`` adds in a fixed order, and the winner-routed
+``gather_max_bwd`` and ``gather_minmax_bwd``, the neighbour sum's
+``gather_sum_bwd`` and ``edge_delta_mlp_bwd``'s ``dy`` sum exactly in
+f64 and round once, so these are held bit-equal to themselves across
+calls and to their plain versions where both see the same addends.
 """
 
 import dataclasses
@@ -1990,7 +1990,9 @@ def test_edge_mlp_kernels_match_plain(cuda, c0, c1, masked):
     """``edge_delta_mlp`` forward (``_edge_fwd_held``) and backward against
     their plain versions at N=150 (a ragged last tile of 16 points) and
     K=11 (two passes of the backward's 8 warps, the second partial): ``dy``
-    within 1e-5 x max (atomics) plus one bf16 ulp of the largest edge term,
+    within 1e-5 x max plus one bf16 ulp of the largest edge term (the f32
+    sums of ``dh`` run in another order, so an edge term may round to its
+    bf16 neighbour),
     ``dw1`` and ``(da0, db0)`` within 1e-5 x max."""
     rng = np.random.default_rng(90 + c0)
     n, k = 150, 11
@@ -2462,3 +2464,193 @@ def test_minmax_hooks_kernels_match_plain(cuda, dense):
                      ops.gather_matmul_minmax_plain(xb, wb, gd.nbr_idx,
                                                     gd.nbr_mask)):
         assert torch.equal(g, wv)
+
+
+# -- the neighbour max's two routes: S (a staged slice), D (direct) -----------
+
+
+def _max_want(h, idx, mask):
+    """The plain max with winners where ids outside [0, N) gather 0: the
+    plain version on ``h`` with a zero row appended (and a point with no
+    valid slot, dropped after), those ids pointed at it."""
+    b, n, c = h.shape
+    k = idx.shape[-1]
+    hp = torch.cat([h, torch.zeros((b, 1, c), dtype=h.dtype,
+                                   device=h.device)], dim=1)
+    ids = torch.where((idx < 0) | (idx >= n), n, idx)
+    ids = torch.cat([ids, torch.zeros((b, 1, k), dtype=idx.dtype,
+                                      device=idx.device)], dim=1)
+    valid = torch.cat([mask, torch.zeros((b, 1, k), dtype=torch.bool,
+                                         device=mask.device)], dim=1)
+    out, win = ops.gather_max_win_plain(hp, ids, valid)
+    return out[:, :n], win[:, :n]
+
+
+def _same_values(got, want):
+    """Equal as numbers (+0 and -0 tie), NaN where the other is NaN."""
+    nan = torch.isnan(got.float())
+    assert torch.equal(nan, torch.isnan(want.float()))
+    assert torch.equal(torch.where(nan, 0.0, got.float()),
+                       torch.where(nan, 0.0, want.float()))
+
+
+# (b, n, c, k, off): widths 1 .. 301, K = 1, 9, 20, 30, views whose data
+# start one element past a 16-byte boundary (off 1), and N at the model
+# shapes and on both sides of each slice boundary: 128-byte rows up to
+# 1814 points, 64 up to 3630, 32 up to 7262, 16 up to 14,526 (route D
+# above).
+MAX_CASES = [
+    (2, 150, 1, 9, 0), (2, 150, 3, 9, 0), (2, 150, 64, 20, 0),
+    (2, 150, 70, 20, 0), (2, 150, 128, 30, 0), (2, 150, 256, 20, 0),
+    (2, 150, 301, 9, 0), (2, 150, 64, 1, 0), (2, 150, 70, 20, 1),
+    (2, 150, 128, 20, 1), (2, 150, 3, 30, 1), (4, 1024, 64, 20, 0),
+    (4, 1024, 256, 20, 0), (1, 1814, 256, 20, 0), (1, 1815, 256, 20, 0),
+    (2, 2048, 128, 30, 0), (1, 3631, 128, 20, 0), (1, 7262, 64, 20, 0),
+    (1, 7263, 64, 20, 0), (1, 8192, 64, 20, 0), (1, 8192, 256, 20, 1),
+    (1, 14526, 64, 20, 0), (1, 14527, 64, 20, 0)]
+
+
+@pytest.mark.parametrize("route", ["shape", "D"])
+@pytest.mark.parametrize("body", ["f32", "f32 winners", "bf16",
+                                  "bf16 winners"])
+@pytest.mark.parametrize("b,n,c,k,off", MAX_CASES)
+def test_gather_max_routes_exact(cuda, b, n, c, k, off, body, route):
+    """Each body of the neighbour max (f32, f32 with winners, bf16, bf16
+    with winners) through the route by shape (route S up to 14,526
+    points) and through route D, bit-equal to the plain version: ties
+    (values on a coarse grid: the first slot wins), a NaN (it propagates
+    with winner 0 and sticks), a row with no valid slot (-3e38, rounded
+    to bf16 in bf16, winner 0), ids outside [0, N) (they gather 0); the
+    launches show the route."""
+    rng = np.random.default_rng(n + c + k + off)
+    dtype = torch.bfloat16 if body.startswith("bf16") else torch.float32
+    winners = body.endswith("winners")
+    vals = torch.from_numpy(np.round(rng.standard_normal((b, n, c)) * 4)
+                            .astype(np.float32)).to(cuda, dtype)
+    store = torch.empty(b * n * c + off, dtype=dtype, device=cuda)
+    h = store[off:].view(b, n, c)
+    h.copy_(vals)
+    h[0, 7, c // 2] = float("nan")
+    idx = torch.from_numpy(
+        rng.integers(0, n, (b, n, k)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((b, n, k)) > 0.3).to(cuda)
+    mask[0, 4] = False  # no valid neighbour
+    idx[0, 5, 0], mask[0, 5, 0] = n + 3, True  # outside the cloud
+    idx[-1, 6, k - 1], mask[-1, 6, k - 1] = -1, True
+    idx[-1, 8], mask[-1, 8, 0] = 7, True  # every slot one row: all tie
+    name = ("gather_max_win" if winners else "gather_max") + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    forced = None if route == "shape" else (0, 0)
+    reset_launch_counts()
+    if winners:
+        out, win = _GM._gather_max_win(h, idx, mask, forced)
+    else:
+        out = _GM._max(h, idx, mask, forced)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    staged = route == "shape" and _GM.max_slice(
+        b, n, c, h.element_size(), k, 132, winners)[0] > 0
+    assert staged == (route == "shape" and n <= 14526)
+    launched = name if staged else f"{name}_direct"
+    other = f"{name}_direct" if staged else name
+    assert counts[launched] == 1 and counts[other] == 0, counts
+    want, want_win = _max_want(h, idx, mask)
+    assert out.dtype == dtype
+    _same_values(out, want)
+    assert bool((out[0, 4].float() == torch.tensor(NEG).to(dtype).float())
+                .all())
+    if winners:
+        assert torch.equal(win, want_win), int((win != want_win).sum())
+        assert not win[0, 4].any() and not win[-1, 8].any()
+
+
+@pytest.mark.parametrize("route", ["shape", "kfold"])
+@pytest.mark.parametrize("b,n,c_in,c_out", [
+    (2, 150, 128, 256), (2, 150, 24, 40), (2, 1000, 200, 256),
+    (32, 1024, 128, 256), (1, 10166, 128, 256), (1, 10167, 128, 256)])
+def test_gather_matmul_max_int8_routes(cuda, b, n, c_in, c_out, route):
+    """The int8 matmul max through the route by shape (one product a row
+    up to 10,166 points at C_in = 128, int8 rows widened once a tile) and
+    through the K-fold route: held by ``_mm_max_held`` on random weights,
+    bit-equal to the plain version on exact-sum weights, the two routes
+    bit-equal to each other (the same tensor-core sums in the same
+    order), -3e38 on rows with no valid slot; the launches show the
+    route."""
+    rng = np.random.default_rng(b + n + c_in)
+    gen = torch.Generator(device=cuda).manual_seed(b + n)
+    k = 20 if n >= 1000 else 9
+    idx, mask = _mm_graph(rng, b, n, k, cuda)
+    xq = torch.randint(-127, 128, (b, n, c_in), device=cuda, generator=gen,
+                       dtype=torch.int8)
+    w = (torch.randn((c_in, c_out), device=cuda, generator=gen) / 64).to(
+        torch.bfloat16)
+    we = (torch.randint(-16, 17, (c_in, c_out), device=cuda, generator=gen)
+          / 16.0).to(torch.bfloat16)
+    cs = None if route == "shape" else 0
+    rows = route == "shape" and _GM.mm_slice(
+        b, n, -(-c_in // 16) * 16, -(-c_out // 16) * 16, k, 132, 1) > 0
+    assert rows == (route == "shape" and n <= 10166)
+    reset_launch_counts()
+    got = _GM._gather_matmul_max_int8(xq, w, idx, mask, cs)
+    exact = _GM._gather_matmul_max_int8(xq, we, idx, mask, cs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    sfx, other = ("", "_kfold") if rows else ("_kfold", "")
+    assert counts[f"gather_matmul_max_int8{sfx}"] == 2, counts
+    assert counts[f"gather_matmul_max_int8{other}"] == 0, counts
+    assert got.dtype == torch.bfloat16 and got.shape == (b, n, c_out)
+    _mm_max_held(got, xq, w, idx, mask)
+    assert torch.equal(_bits(exact), _bits(
+        ops.gather_matmul_max_int8_plain(xq, we, idx, mask)))
+    neg = torch.tensor(NEG).to(torch.bfloat16).float()
+    assert bool((got[0, 4].float() == neg).all())
+    assert bool((got[:, -1].float() == neg).all())
+    if rows:
+        assert torch.equal(_bits(got), _bits(
+            _GM._gather_matmul_max_int8(xq, w, idx, mask, 0)))
+
+
+def _edge_mlp_exact(rng, n, k, c0, c1, masked, dev):
+    """Edge MLP inputs whose sums are exact in f32 in any order: ``y`` in
+    steps of 1/8 up to 4, ``a0`` and ``b0`` in steps of 1/8, ``w1`` in
+    steps of 1/16 up to 1, and the integer cotangent ``g`` up to 4; so
+    ``dh = g @ w1^T`` and every value before a rounding point of the plain
+    version are the kernel's, bit for bit."""
+    *_, idx = _edge_mlp_inputs(rng, n, k, c0, c1, masked, dev)
+
+    def steps(shape, top, step):
+        return torch.from_numpy(
+            rng.integers(-top, top + 1, shape) * step).float().to(dev)
+
+    y = steps((2, n, c0), 32, 1 / 8).to(torch.bfloat16)
+    a0, b0 = steps(c0, 16, 1 / 8), steps(c0, 8, 1 / 8)
+    w1 = steps((c0, c1), 16, 1 / 16)
+    g = steps((2, k, n, c1), 4, 1.0).to(torch.bfloat16)
+    return y, a0, b0, w1, idx, g
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("c0,c1", [(12, 12), (64, 64), (128, 128)])
+def test_edge_mlp_dy_is_repeatable_and_exact(cuda, c0, c1, masked):
+    """``edge_delta_mlp_bwd``'s ``dy`` sums in f64 and rounds once: the
+    same bits in two calls on random inputs, and bit-equal to the plain
+    version (which sums in f64 too) where their rounding points see the
+    same values (exact-sum inputs); at C0 = C1 = 128 the backward's block
+    still fits its shared memory."""
+    rng = np.random.default_rng(97 + c0)
+    n, k = 150, 11
+    y, a0, b0, w1, z0, idx = _edge_mlp_inputs(rng, n, k, c0, c1, masked,
+                                              cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    g = torch.randn((2, k, n, c1), device=cuda, generator=gen).to(
+        torch.bfloat16)
+    first = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
+    again = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
+    torch.cuda.synchronize()
+    for got, want in zip(first, again):
+        assert torch.equal(got, want)
+    y, a0, b0, w1, idx, g = _edge_mlp_exact(rng, n, k, c0, c1, masked, cuda)
+    dy, _, _ = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
+    dy_p, _, _ = ops.edge_mlp_bwd_plain(y, a0, b0, w1, idx, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dy, dy_p), float((dy - dy_p).abs().max())

@@ -126,6 +126,164 @@ def test_wrapper_launches_the_route(monkeypatch, name, n, cs, launched,
                       + extra)]
 
 
+# -- the int8 matmul max: the same kernels on int8 rows ----------------------
+
+
+@pytest.mark.parametrize("b,n,k,want", [
+    (32, 1024, 20, 64),   # classification conv3: one wave
+    (1, 10039, 20, 8),    # above the bf16 limit, within the int8 one
+    (1, 10166, 20, 8),    # the largest cloud at C_in = 128 in int8
+    (1, 10167, 20, 0),    # above it: the K-fold route
+    (2, 150, 65536, 0),   # the 16-bit winner slots' limit holds here too
+])
+def test_mm_slice_routes_int8(b, n, k, want):
+    """``mm_slice`` for int8 x (``itemsize`` 1): the same rule on the
+    block that stages int8 rows (two unpadded int8 stages and one padded
+    bf16 tile in place of two padded bf16 stages), so its size limit at
+    C_in = 128 moves from 10,038 to 10,166 points."""
+    assert GM.mm_slice(b, n, 128, 256, k, 132, 1) == want
+
+
+def test_mm_rows_smem_counts_the_int8_block():
+    """The int8 block: the y slice and its constant rows, the affine and
+    W slices, two int8 stages of 128 rows and the bf16 tile they are
+    widened into; it is smaller than the bf16 block by one padded bf16
+    stage less two int8 ones, and fits the block where the bf16 one
+    does not (10,039 .. 10,166 points)."""
+    assert GM.mm_rows_smem(1024, 128, 64, 1) == (
+        2 * 1026 * 64 + 16 * 64 + 2 * 128 * 72 + 2 * 128 * 128
+        + 2 * 128 * 136)
+    assert (GM.mm_rows_smem(1024, 128, 64, 2)
+            - GM.mm_rows_smem(1024, 128, 64, 1)) == 128 * (2 * 136 - 2 * 128)
+    for n in (10039, 10166):
+        assert GM.mm_rows_smem(n, 128, 8, 2) > GM.SMEM_MAX
+        assert GM.mm_rows_smem(n, 128, 8, 1) <= GM.SMEM_MAX
+    assert GM.mm_rows_smem(10167, 128, 8, 1) > GM.SMEM_MAX
+
+
+@pytest.mark.parametrize("n,cs,launched,extra", [
+    (1024, None, "", (64,)),           # route by shape: one product a row
+    (10166, None, "", (8,)),           # int8's own limit
+    (10167, None, "_kfold", ()),       # above it: K-fold
+    (1024, 0, "_kfold", ()),           # forced K-fold
+])
+def test_int8_wrapper_launches_the_route(monkeypatch, n, cs, launched,
+                                         extra):
+    """``_mm_launch`` with int8 x (``itemsize`` 1, as
+    ``gather_matmul_max_int8`` calls it) launches the route that
+    ``mm_slice`` names for int8 rows: ``gather_matmul_max_int8`` with its
+    slice, or ``gather_matmul_max_int8_kfold`` without it."""
+    calls = []
+    monkeypatch.setattr(GM._lib, "launch",
+                        lambda kernel, device, *args: calls.append(
+                            (kernel, args)))
+    monkeypatch.setattr(GM, "_sm_count", lambda index: 132)
+    name = "gather_matmul_max_int8"
+    GM._mm_launch(name, torch.device("cuda", 0), (11, 12), 32, n, 128, 256,
+                  20, cs, itemsize=1)
+    assert calls == [(name + launched, (11, 12, 32, n, 128, 256, 20)
+                      + extra)]
+
+
+# -- the neighbour max: route S (a staged channel slice) or route D --------
+
+
+@pytest.mark.parametrize("b,n,c,itemsize,k,winners,want", [
+    (32, 1024, 64, 4, 20, False, (32, 2)),   # f32 conv0/conv1: split in two
+    (32, 1024, 128, 4, 20, True, (32, 1)),   # f32 conv2: 128 tasks
+    (32, 1024, 256, 4, 20, True, (32, 1)),   # f32 conv3: 256 tasks
+    (32, 1024, 64, 2, 20, True, (64, 4)),    # bf16 train, conv0/conv1
+    (32, 1024, 128, 2, 20, True, (64, 2)),   # bf16 train, conv2
+    (16, 2048, 128, 2, 30, False, (32, 2)),  # bf16 seg serving: 64-byte rows
+    (4, 8192, 64, 4, 20, False, (4, 2)),     # large f32: 16-byte rows
+    (4, 8192, 256, 4, 20, False, (4, 1)),
+    (4, 8192, 128, 2, 20, True, (8, 2)),     # large bf16 step
+    (2, 150, 3, 4, 9, False, (4, 2)),        # one 16-byte row, two blocks
+    (2, 150, 301, 4, 9, True, (32, 2)),      # an odd width
+    (1, 14526, 64, 4, 20, False, (4, 8)),    # the largest cloud
+    (1, 14527, 64, 4, 20, False, (0, 0)),    # above it: route D
+    (1, 65536, 64, 2, 20, False, (0, 0)),    # a point-shard table
+    (32, 1024, 64, 4, 0, False, (0, 0)),     # no slot: route D
+    (2, 150, 64, 2, 65536, True, (0, 0)),    # above the bf16 winners
+    (2, 150, 64, 4, 65536, True, (32, 2)),   # f32 winners are whole words
+    (32, 1024, 64, 4, 20, False, (32, 2)),
+])
+def test_max_slice_routes(b, n, c, itemsize, k, winners, want):
+    """``max_slice``: route S's slice (channels) and splits at the model
+    shapes in f32 and bf16 (each block within SMEM_MAX), route D where no
+    slice fits or K rules it out."""
+    got = GM.max_slice(b, n, c, itemsize, k, 132, winners)
+    assert got == want
+    if got[0]:
+        assert GM.max_smem(n, got[0] * itemsize) <= GM.SMEM_MAX
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_max_slice_rules_hold(seed):
+    """On random shapes: a route-S row is the widest of MAX_ROW_BYTES
+    whose block fits SMEM_MAX, unless a narrower row covers the features'
+    row whole; the splits keep the blocks within one wave where they
+    exceed one, fill it as far as MAX_SPLIT_POINTS points a block allow,
+    and are 1 where the tasks fill the wave; route D only where no row
+    fits or K rules route S out."""
+    rng = np.random.default_rng(seed)
+    for _ in range(300):
+        b = int(rng.integers(1, 65))
+        n = int(rng.integers(1, 20000))
+        c = int(rng.integers(1, 600))
+        itemsize = int(rng.choice([2, 4]))
+        k = int(rng.integers(0, 80))
+        sms = int(rng.choice([16, 66, 132]))
+        winners = bool(rng.integers(0, 2))
+        cs, splits = GM.max_slice(b, n, c, itemsize, k, sms, winners)
+        need = c * itemsize
+        fits = [rb for rb in GM.MAX_ROW_BYTES
+                if GM.max_smem(n, rb) <= GM.SMEM_MAX
+                and (rb == 16 or rb // 2 < need)]
+        if not fits or k == 0:
+            assert (cs, splits) == (0, 0)
+            continue
+        rb = cs * itemsize
+        assert rb == fits[0] and GM.max_smem(n, rb) <= GM.SMEM_MAX
+        tasks = b * -(-need // rb)
+        most = -(-n // GM.MAX_SPLIT_POINTS)
+        assert splits == max(1, min(sms // tasks, most))
+        if splits > 1:
+            assert tasks * splits <= sms and splits <= most
+
+
+@pytest.mark.parametrize("name", ["gather_max", "gather_max_win",
+                                  "gather_max_bf16", "gather_max_win_bf16"])
+@pytest.mark.parametrize("n,route,launched,extra", [
+    (1024, None, "", None),             # by shape: route S, max_slice's
+    (14527, None, "_direct", ()),       # above every slice: route D
+    (1024, (0, 0), "_direct", ()),      # forced route D
+    (1024, (32, 3), "", (32, 3)),       # a given slice and split
+])
+def test_max_wrapper_launches_the_route(monkeypatch, name, n, route,
+                                        launched, extra):
+    """``_max_launch``, the last step of ``gather_max``'s and
+    ``gather_max_win``'s wrappers, launches the route that ``max_slice``
+    names (its slice and splits the last arguments) or route D's
+    ``_direct`` kernel without them (recorded in place of the launch; no
+    card)."""
+    calls = []
+    monkeypatch.setattr(GM._lib, "launch",
+                        lambda kernel, device, *args: calls.append(
+                            (kernel, args)))
+    monkeypatch.setattr(GM, "_sm_count", lambda index: 132)
+    dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+    c = 64
+    h = torch.empty((32, n, c), dtype=dtype, device="meta")
+    winners = "_win" in name
+    GM._max_launch(name, torch.device("cuda", 0), (11, 12), h, 20, route,
+                   winners)
+    if extra is None:
+        extra = GM.max_slice(32, n, c, h.element_size(), 20, 132, winners)
+        assert extra[0] > 0
+    assert calls == [(name + launched, (11, 12, 32, n, c, 20) + extra)]
+
+
 # -- the plain versions against the JAX package ----------------------------
 
 

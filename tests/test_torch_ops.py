@@ -346,6 +346,62 @@ def test_sum_bwd_is_the_exact_sum_rounded_once():
     assert not torch.equal(f32[0], f32[1])  # the data tells orders apart
 
 
+def test_edge_mlp_dy_is_the_exact_sum_rounded_once():
+    """The edge MLP backward's ``dy`` (``edge_mlp_bwd``: ``bf16(dy0)`` at
+    each neighbour row, ``-dy0`` at the point's own) is each row's exact
+    sum of its addends rounded once to f32, as the kernel computes it in
+    f64: equal bit for bit to a float64 numpy sum, and to the same
+    backward with the points in another order. ``dh = g1 @ w1^T`` is
+    exact in f32 (small dyadic values), the terms span 32 binary orders
+    and collide on 8 rows, so f32 sums in the two orders differ."""
+    from deltaconv_tpu_torch.ops.edge_mlp import _rows
+
+    rng = np.random.default_rng(33)
+    b, n, k, c0, c1 = 2, 200, 6, 16, 16
+    idx = rng.integers(0, 8, (b, n, k)).astype(np.int32)
+    y = _t(rng.standard_normal((b, n, c0))).float().to(torch.bfloat16)
+    a0 = _t(rng.choice([-1.0, 1.0], c0) * (1 + rng.random(c0))
+            * 2.0 ** rng.integers(-8, 8, c0)).float()
+    b0 = _t(0.3 * rng.standard_normal(c0)).float()
+    w1 = _t(rng.integers(-16, 17, (c0, c1)) / 16.0).float()
+    g = _t(rng.integers(-4, 5, (b, k, n, c1))
+           * 2.0 ** rng.integers(-8, 8, (b, k, n, 1))).float().to(
+               torch.bfloat16)
+
+    def bwd(order):
+        p = torch.as_tensor(order)
+        inv = torch.empty_like(p)
+        inv[p] = torch.arange(n)
+        ids = inv[_t(idx)[:, p].long()].int()
+        return ops.edge_mlp_bwd(y[:, p], a0, b0, w1, ids, g[:, :, p])[0]
+
+    got = bwd(np.arange(n))
+    y0 = y.float()[torch.arange(b)[:, None, None], _t(idx).long()] - (
+        y.float()[:, :, None])
+    pre = (y0 * a0 + b0)[:, :, 1:]
+    dh = g[:, 1:].float().permute(0, 2, 1, 3) @ w1.to(
+        torch.bfloat16).float().t()
+    dy0f = dh * torch.where(pre >= 0, 1.0, 0.2) * a0
+    edge = dy0f.to(torch.bfloat16).double().numpy()
+    rows = _rows(_t(idx)[:, :, 1:], n).numpy()
+    want = -dy0f.double().numpy().sum(axis=2)
+    for bb in range(b):
+        np.add.at(want[bb], rows[bb].reshape(-1),
+                  edge[bb].reshape(-1, c0))
+    perm = rng.permutation(n)
+    f32 = []
+    for order in (np.arange(n), perm):
+        acc = torch.zeros((b, n, c0))
+        src = torch.from_numpy(edge).float()[:, order]
+        acc.scatter_add_(1, torch.from_numpy(rows[:, order]).reshape(
+            b, -1, 1).expand(b, n * (k - 1), c0), src.reshape(b, -1, c0))
+        f32.append(acc)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+    assert torch.equal(bwd(perm), got[:, torch.as_tensor(perm)])
+    assert not torch.equal(f32[0], f32[1])  # the data tells orders apart
+
+
 def test_adjacency_matches_pallas_interpret():
     rng = np.random.default_rng(9)
     b, n, k = 2, 192, 9

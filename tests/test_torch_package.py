@@ -237,6 +237,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert launch_counts() == {
         "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
+        "gather_max_direct": 0, "gather_max_win_direct": 0,
+        "gather_max_bf16_direct": 0, "gather_max_win_bf16_direct": 0,
         "adjacency": 0, "gather_sum": 0, "gather_sum_bwd": 0,
         "knn_topk": 0, "gather_max_affine": 0, "gather_matmul_max": 0,
         "gather_matmul_max_kfold": 0,
@@ -245,7 +247,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_max_bf16": 0,
         "gather_mlp_max": 0, "mlp_rows": 0, "gather_max_merge": 0,
         "densify_int8": 0, "gather_max_int8": 0,
-        "gather_matmul_max_int8": 0, "inverse_adjacency": 0,
+        "gather_matmul_max_int8": 0, "gather_matmul_max_int8_kfold": 0,
+        "inverse_adjacency": 0,
         "scatter_rows": 0,
         "coef_apply_grad": 0, "coef_apply_div": 0,
         "coef_apply_grad_plan": 0, "coef_apply_div_plan": 0,
