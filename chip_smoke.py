@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the fifty-six CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the sixty-two CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -23,14 +23,24 @@ first on ``sys.path``. It
    at conv0, 3 -> 64 -> 64 (the fused kernel), and conv2, 128 -> 256 ->
    256 (mlp_rows, then gather_max_merge, each also held alone); int8
    serving's densify_int8, gather_max_int8 at C = 64 and 128 (and 128 at the
-   segmentation shapes), gather_matmul_max_int8 at 128 -> 256; the
+   segmentation shapes) through both routes (route S, by shape: absmax,
+   then the staged max with a quantizing epilogue; route D,
+   ``gather_max_int8_direct``, forced), bit-equal, absmax equal to
+   ``vector_norm(inf)``, gather_matmul_max_int8 at 128 -> 256; the
    neighbour max's two routes (route S, a cloud's channel slice staged in
    shared memory, by shape; route D, ``_direct``, forced) at every shape
    and width where the model paths run them (f32 at C = 64, 128, 256
    with and without winners, the bf16 step's winners at 64 and 128, bf16
    segmentation serving at 128, the large clouds' f32 forward and bf16
    step), values and winners bit-equal, each timed by CUDA events and in
-   device time beside the plain version, the library call and the bound,
+   device time beside the plain version, the library call and the bound;
+   ``[bwd-routes]``: the winner-routed backward's two routes (route S,
+   shared-memory f64 sums, by shape; route D, ``_direct``, forced) at the
+   f32 step's C = 64, 128, 256, the bf16 step's 64, 128, 256 and the
+   large clouds' bf16 step and f32 backward, and the two-map form at
+   C=256, bit-equal to the plain version on exact-sum cotangents and
+   across two calls, timed the same way with every slice that fits, and
+   the int8 max's two routes at its forwards' shapes;
    and the int8 matmul max through its one-product-a-row route and its
    K-fold route (``_kfold``), bit-equal to each other; the
    large-cloud kernels at B=4, N=8192, K=20 on the clouds' own
@@ -302,14 +312,17 @@ first on ``sys.path``. It
     ``gather_matmul_max_int8_kfold`` once each, exact sums bit-equal to
     the plain versions;
 28. ``[max-direct]``: one cloud of 14,600 points (above route S's
-    14,526): ``ops.gather_max`` on f32 and bf16 features, without and with
-    grad, launches each body's route D kernel once and route S never,
-    forward and backward bit-equal to the plain versions;
+    14,526 and the backward's 14,528): ``ops.gather_max`` on f32 and bf16
+    features, without and with grad, ``ops.gather_minmax`` with grad and
+    ``ops.gather_max_int8`` launch each body's route D kernels once and
+    route S never, forward and backward bit-equal to the plain versions;
 29. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
-    gather plan's build where the package has one) and
-    ``[device-times]`` on that checkout's package (this script copied
+    gather plan's build where the package has one), ``[kernel-times]``
+    (``ops.gather_max_int8`` and ``ops.gather_max_bwd`` at their model
+    shapes in device time) and ``[device-times]`` on that checkout's
+    package (this script copied
     into its root) and on this tree, in turns: parent, this, this,
     parent, each a process of its own (``--phase compare``).
 
@@ -478,10 +491,31 @@ MAX_ROUTE_SHAPES = (
 MAX_RECORD = {"gather_max": (B, N, K, 256), "gather_max_win": (B, N, K, 256),
               "gather_max_win_bf16": (B, N, K, 128),
               "gather_max_bf16": (SEG_B, SEG_N, SEG_K, SEG_MAX_WIDTH)}
-# [max-direct]: one cloud above route S's 14,526 points.
+# The winner-routed backward at every shape where the model paths run it:
+# (label, B, N, K, cotangent dtype, widths): the f32 classification step
+# (conv0-3), the bf16 classification step (conv0-2, and conv3's train
+# matmul max), the large-cloud bf16 step and the large-cloud f32
+# backward of the positions' gradients.
+BWD_ROUTE_SHAPES = (
+    ("f32 cls step", B, N, K, torch.float32, WIDTHS),
+    ("bf16 cls step", B, N, K, torch.bfloat16, BWD_BF16_WIDTHS),
+    ("large bf16 step", LARGE_B, LARGE_N, K, torch.bfloat16,
+     BWD_BF16_WIDTHS),
+    ("large f32 backward", LARGE_B, LARGE_N, K, torch.float32, WIDTHS))
+# The int8 max at the int8 forwards' shapes, bf16 features: classification
+# conv0-2 and segmentation conv1.
+INT8_ROUTE_SHAPES = (("int8 cls forward", B, N, K, INT8_WIDTHS),
+                     ("int8 seg forward", SEG_B, SEG_N, SEG_K,
+                      (SEG_MAX_WIDTH,)))
+# [max-direct]: one cloud above route S's 14,526 points (and above the
+# backward's route S: more than four ranges of rows).
 MAX_DIRECT_N = 14600
 MAX_DIRECT_KERNELS = ("gather_max_direct", "gather_max_win_direct",
-                      "gather_max_bf16_direct", "gather_max_win_bf16_direct")
+                      "gather_max_bf16_direct", "gather_max_win_bf16_direct",
+                      "gather_max_bwd_direct", "gather_max_bwd_bf16_direct",
+                      "gather_minmax_bwd_direct",
+                      "gather_minmax_bwd_bf16_direct",
+                      "gather_max_int8_direct")
 
 # Point-sharded serving of ONE large cloud (bench.py --mode=point-shard,
 # bench.py:351-407): 65,536 points, the reference-width classifier in
@@ -585,6 +619,16 @@ KERNEL_META = {
                                    "deltaconv_tpu/ops/gather_max.py:230"),
     "gather_max_bwd": ("deltaconv_tpu_torch/csrc/gather_max.cu",
                        "deltaconv_tpu/ops/gather_max.py:362"),
+    # Route D of the backward (the earlier kernel, a route by shape).
+    "gather_max_bwd_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                              "deltaconv_tpu/ops/gather_max.py:362"),
+    "gather_max_bwd_bf16_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                                   "deltaconv_tpu/ops/gather_max.py:362"),
+    "gather_minmax_bwd_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                                 "deltaconv_tpu/ops/gather_max.py:362"),
+    "gather_minmax_bwd_bf16_direct": (
+        "deltaconv_tpu_torch/csrc/gather_max.cu",
+        "deltaconv_tpu/ops/gather_max.py:362"),
     "adjacency": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
                   "deltaconv_tpu/ops/gather_sum.py:117"),
     "gather_sum": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
@@ -623,6 +667,12 @@ KERNEL_META = {
                      "deltaconv_tpu/ops/densify_op.py:180"),
     "gather_max_int8": ("deltaconv_tpu_torch/csrc/gather_max_int8.cu",
                         "deltaconv_tpu/ops/gather_max.py:1016"),
+    # The per-cloud |h| maximum that route S of the int8 max quantizes
+    # with: part of the redesign of the TPU kernel above.
+    "absmax": ("deltaconv_tpu_torch/csrc/gather_max_int8.cu",
+               "deltaconv_tpu/ops/gather_max.py:1016"),
+    "gather_max_int8_direct": ("deltaconv_tpu_torch/csrc/gather_max_int8.cu",
+                               "deltaconv_tpu/ops/gather_max.py:1016"),
     "gather_matmul_max_int8": ("deltaconv_tpu_torch/csrc/gather_max_int8.cu",
                                "deltaconv_tpu/ops/gather_max.py:1092"),
     "gather_matmul_max_int8_kfold": (
@@ -708,9 +758,9 @@ SEG_BF16_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
                     "gather_max_bf16", "gather_mlp_max", "mlp_rows",
                     "gather_max_merge")
 INT8_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_int8",
-                "gather_max_int8", "gather_matmul_max_int8")
+                "absmax", "gather_max_int8", "gather_matmul_max_int8")
 SEG_INT8_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_int8",
-                    "gather_max_int8", "gather_mlp_max", "mlp_rows",
+                    "absmax", "gather_max_int8", "gather_mlp_max", "mlp_rows",
                     "gather_max_merge")
 COEF_KERNELS = tuple(COEF_PER_FORWARD)
 # The gather plan's kernels as the profiler names them.
@@ -728,11 +778,13 @@ TRAIN_LARGE_KERNELS = ("knn_topk", "gather_rows", "wls", *COEF_KERNELS,
 # int8 matmul max; segmentation conv1 the int8 max, conv0 the fused
 # gather_mlp_max (centralized), conv2 mlp_rows and gather_max_merge; bf16
 # segmentation the same MLP maxes.
-INT8_PER_FORWARD = {"densify_int8": 1, "gather_max_int8": 3,
+INT8_PER_FORWARD = {"densify_int8": 1, "absmax": 3, "gather_max_int8": 3,
+                    "gather_max_int8_direct": 0,
                     "gather_matmul_max_int8": 1}
 SEG_MLP_PER_FORWARD = {"gather_mlp_max": 1, "mlp_rows": 1,
                        "gather_max_merge": 1}
-SEG_INT8_PER_FORWARD = {"densify_int8": 1, "gather_max_int8": 1,
+SEG_INT8_PER_FORWARD = {"densify_int8": 1, "absmax": 1,
+                        "gather_max_int8": 1, "gather_max_int8_direct": 0,
                         **SEG_MLP_PER_FORWARD}
 # Width of the record's time: the widest conv for the max, the first
 # conv's [y, y^2] (2 x 64) for the sum, as the train step calls them;
@@ -1037,12 +1089,17 @@ def mm_win_held(out, win, win_p, x, w, idx, mask):
 
 
 def check_int8_kernels(record, idx, nbr_mask, gd, dev):
-    """The three kernels of int8 serving against their plain versions at
-    the classification shapes: densify_int8 (planes and scales equal),
-    gather_max_int8 at C = 64 and 128, bf16 (the path's) and f32 features
-    (equal), gather_matmul_max_int8 at 128 -> 256 (``mm_max_held``, and
-    bit-equal where the sums are exact in any order)."""
+    """The kernels of int8 serving against their plain versions at the
+    classification shapes: densify_int8 (planes and scales equal),
+    gather_max_int8 at C = 64 and 128, bf16 (the path's) and f32 features,
+    through route S (absmax, then the staged max with the quantizing
+    epilogue) and route D (``gather_max_int8_direct``), each bit-equal to
+    the plain version, absmax equal to ``vector_norm(inf)``,
+    gather_matmul_max_int8 at 128 -> 256 (``mm_max_held``, and bit-equal
+    where the sums are exact in any order)."""
     from deltaconv_tpu_torch import ops
+
+    gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
 
     gc, dc = gd.grad_coef, gd.div_coef
     got = ops.densify_coefs_int8(idx, gc, dc)
@@ -1055,13 +1112,20 @@ def check_int8_kernels(record, idx, nbr_mask, gd, dev):
     for c in INT8_WIDTHS:
         for dt in (torch.bfloat16, torch.float32):
             h = torch.randn((B, N, c), device=dev).to(dt)
-            got = ops.gather_max_int8(h, idx, nbr_mask)
             want = ops.gather_max_int8_plain(h, idx, nbr_mask)
-            err = max_err(got.float(), want.float())
-            record("gather_max_int8", err)
-            check(f"gather_max_int8 C={c} {str(dt)[6:]}",
-                  got.dtype == dt and bits_equal(got, want),
-                  f"max_abs_err {err}")
+            for route, name in ((None, "gather_max_int8"),
+                                ((0, 0), "gather_max_int8_direct")):
+                got = gm._gather_max_int8(h, idx, nbr_mask, route)
+                err = max_err(got.float(), want.float())
+                record(name, err)
+                check(f"{name} C={c} {str(dt)[6:]}",
+                      got.dtype == dt and bits_equal(got, want),
+                      f"bit-equal to plain, max_abs_err {err}")
+            amax = gm.absmax(h)
+            want = gm.absmax_plain(h)
+            record("absmax", max_err(amax, want))
+            check(f"absmax C={c} {str(dt)[6:]}", torch.equal(amax, want),
+                  "equal to vector_norm(inf)")
     xq, _ = ops.int8_quantize(torch.randn((B, N, MM_IN), device=dev))
     w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
     got = ops.gather_matmul_max_int8(xq, w, idx, nbr_mask)
@@ -2088,14 +2152,206 @@ def max_routes_phase(res, rng, dev, card):
         library_ms=res["gather_matmul_max_int8"]["library_ms"])
 
 
+def exact_cotangents(b, n, c, dt, dev):
+    """Cotangents on a 1/16 grid below 8 in magnitude: their sums at a
+    (row, c) are exact in f32 (and the values in bf16) in any order, so a
+    backward in f64 and one in another order give the same bits."""
+    return (torch.randint(-127, 128, (b, n, c), device=dev) / 16.0).to(dt)
+
+
+def bwd_routes_phase(res, rng, dev, card):
+    """``[bwd-routes]``: the winner-routed backward's two routes at every
+    shape and width where the model paths run it (BWD_ROUTE_SHAPES), on
+    ellipsoid clouds with a uniform kNN graph and the plain max's winners:
+    route S (by shape, :func:`bwd_slice`: shared-memory f64 sums) and
+    route D (``_direct``, forced: global f64 atomics into a scratch)
+    bit-equal to the plain version on exact-sum cotangents and to
+    themselves in a second call, each call's launch on its route; both
+    timed by CUDA events and in device time beside the plain version, the
+    library call (``torch.gather`` of the winners' rows + ``scatter_add_``)
+    and the bound (idx, winner, g read once, dh written once), then route
+    S over every slice and range count that fits (the measurements behind
+    ``bwd_slice``). The two-map form at C=MINMAX_C the same way. Then the
+    int8 max at its forwards' shapes (INT8_ROUTE_SHAPES): route S (absmax,
+    then the staged max with the quantizing epilogue) and route D
+    (``gather_max_int8_direct``: the quantization in torch ops, then the
+    earlier kernel) bit-equal to the plain version, timed beside it, the
+    library call and the bound, and absmax alone (its record in device
+    time: its events read its wrapper's host time). Route D of each is the
+    parent tree's kernel, unchanged. Its clouds come from a generator
+    spawned off ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import knn
+
+    gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+    rng = rng.spawn(1)[0]
+    print(f"[times] the winner-routed backward by route: S (shared f64 "
+          f"sums, by shape) and D (global f64 atomics, the parent's "
+          f"kernel); per call, CUDA events (median of {REPS} samples of "
+          f"{INNER} calls) and device time (profiler); card: {card}",
+          flush=True)
+    graphs = {}
+
+    def graph(b, n, k):
+        if (b, n, k) not in graphs:
+            clouds, _ = ellipsoid_clouds(rng, [n] * b)
+            graphs[(b, n, k)] = knn(
+                torch.from_numpy(np.stack(clouds)).to(dev), k)
+        return graphs[(b, n, k)]
+
+    def routes(label, name, hook, plain, args, n, lib, bd, record):
+        """Checks and times one backward (``hook(*args, n, route)``) on
+        both routes; ``record``: this shape fills the ``_direct``
+        record."""
+        want = plain(*args, n)
+        for route, sfx in ((None, ""), ((0, 0), "_direct")):
+            reset_launch_counts()
+            got = hook(*args, n, route)
+            again = hook(*args, n, route)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            check(f"[bwd-routes] {label} {name}{sfx}",
+                  torch.equal(got, want) and torch.equal(again, got)
+                  and counts[name + sfx] == 2 and sum(counts.values()) == 2,
+                  f"bit-equal to plain and across two calls, launches "
+                  f"{ {m: v for m, v in counts.items() if v} }")
+            res[name + sfx]["max_abs_err"] = max(
+                res[name + sfx]["max_abs_err"], max_err(got, want))
+        t = {sfx: (median_ms(lambda: hook(*args, n, route)),
+                   device_ms(lambda: hook(*args, n, route), 5))
+             for route, sfx in ((None, "S"), ((0, 0), "D"))}
+        pl = median_ms(lambda: plain(*args, n), 5)
+        lib_ms = median_ms(lib)
+        print(f"  {label} {name}: route S {gm.bwd_slice(n, args[2].shape[-1])}"
+              f" {t['S'][0]:.4f} ms ({t['S'][1]:.4f} ms of device time); "
+              f"route D {t['D'][0]:.4f} ({t['D'][1]:.4f}); plain {pl:.4f}; "
+              f"library {lib_ms:.4f}; bound {bd[0]:.4f} ms ({bd[1]})",
+              flush=True)
+        if record:
+            res[name + "_direct"].update(ms=t["D"][0], plain_ms=pl,
+                                         library_ms=lib_ms, bound=bd)
+
+    for label, b, n, k, dt, widths in BWD_ROUTE_SHAPES:
+        idx, nbr_mask = graph(b, n, k)
+        idx_l = idx.long()
+        name = "gather_max_bwd" + ("_bf16" if dt == torch.bfloat16 else "")
+        for c in widths:
+            h = torch.randn((b, n, c), device=dev)
+            _, win = ops.gather_max_win_plain(h, idx, nbr_mask)
+            g = exact_cotangents(b, n, c, dt, dev)
+            args = (idx, win, g)
+            bd = bound(nbytes(idx, win, g, h))  # h: dh's f32 bytes
+
+            def lib(b=b, n=n, c=c, idx_l=idx_l, win=win, g=g):
+                return torch.zeros((b, n, c), device=dev).scatter_add_(
+                    1, torch.gather(idx_l, 2, win.long()), g.float())
+
+            routes(f"{label} B={b} N={n} K={k} C={c}", name,
+                   gm._gather_max_bwd, ops.gather_max_bwd_plain, args, n,
+                   lib, bd, (b, n, c) == (B, N, 256))
+            # Each slice over the fewest ranges that fit, and one more.
+            alts = []
+            for cs in gm.BWD_SLICES:
+                r0 = -(-n // (gm.SMEM_MAX // gm.bwd_smem(1, cs)))
+                alts += [(cs, r) for r in (r0, r0 + 1) if r0 <= 4]
+            times = []
+            for cs, r in alts:
+                ms = device_ms(lambda: gm._gather_max_bwd(
+                    idx, win, g, n, (cs, -(-n // r))), 5)
+                times.append(f"{cs} x {r}: {ms:.4f}")
+            print("    route S by slice (channels x ranges: device ms): "
+                  + "; ".join(times), flush=True)
+            del h, win, g
+    idx, nbr_mask = graph(B, N, K)
+    idx_l = idx.long()
+    h = torch.randn((B, N, MINMAX_C), device=dev)
+    _, _, wmx, wmn = ops.gather_minmax_win_plain(h, idx, nbr_mask)
+    for dt in (torch.float32, torch.bfloat16):
+        gmx, gmn = (exact_cotangents(B, N, MINMAX_C, dt, dev)
+                    for _ in range(2))
+
+        def lib(gmx=gmx, gmn=gmn):
+            dh = torch.zeros((B, N, MINMAX_C), device=dev)
+            dh.scatter_add_(1, torch.gather(idx_l, 2, wmx.long()), gmx.float())
+            return dh.scatter_add_(1, torch.gather(idx_l, 2, wmn.long()),
+                                   gmn.float())
+
+        name = "gather_minmax_bwd" + ("_bf16" if dt == torch.bfloat16
+                                      else "")
+        routes(f"two maps B={B} N={N} K={K} C={MINMAX_C}", name,
+               gm._gather_minmax_bwd, ops.gather_minmax_bwd_plain,
+               (idx, wmx, gmx, wmn, gmn), N, lib,
+               bound(nbytes(idx, wmx, gmx, wmn, gmn, h)), True)
+
+    print(f"[times] the int8 max by route: S (absmax, then the staged max "
+          f"with the quantizing epilogue) and D (torch quantization, then "
+          f"the parent's kernel); card: {card}", flush=True)
+    for label, b, n, k, widths in INT8_ROUTE_SHAPES:
+        idx, nbr_mask = graph(b, n, k)
+        bidx = torch.arange(b, device=dev)[:, None, None]
+        idx_l = idx.long()
+        for c in widths:
+            h = torch.randn((b, n, c), device=dev).to(torch.bfloat16)
+            want = ops.gather_max_int8_plain(h, idx, nbr_mask)
+            for route, launched in ((None, ("absmax", "gather_max_int8")),
+                                    ((0, 0), ("gather_max_int8_direct",))):
+                reset_launch_counts()
+                got = gm._gather_max_int8(h, idx, nbr_mask, route)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                check(f"[bwd-routes] {label} C={c} {launched[-1]}",
+                      bits_equal(got, want)
+                      and all(counts[m] == 1 for m in launched)
+                      and sum(counts.values()) == len(launched),
+                      f"bit-equal to plain, launches "
+                      f"{ {m: v for m, v in counts.items() if v} }")
+                res[launched[-1]]["max_abs_err"] = max(
+                    res[launched[-1]]["max_abs_err"],
+                    max_err(got.float(), want.float()))
+            t = {sfx: (median_ms(lambda: gm._gather_max_int8(
+                h, idx, nbr_mask, route)), device_ms(
+                    lambda: gm._gather_max_int8(h, idx, nbr_mask, route), 5))
+                 for route, sfx in ((None, "S"), ((0, 0), "D"))}
+            amax = gm.absmax(h)
+            t_abs = (median_ms(lambda: gm.absmax(h)),
+                     device_ms(lambda: gm.absmax(h), 5))
+            pl = median_ms(lambda: ops.gather_max_int8_plain(
+                h, idx, nbr_mask), 5)
+            lib_ms = median_ms(lambda: int8_library_max(h, bidx, idx_l))
+            bd = bound(nbytes(h, idx, nbr_mask, want))
+            print(f"  {label} gather_max_int8 B={b} N={n} K={k} C={c} bf16: "
+                  f"route S {gm.max_slice(b, n, c, 2, k, 132)} "
+                  f"{t['S'][0]:.4f} ms ({t['S'][1]:.4f} ms of device time; "
+                  f"absmax {t_abs[0]:.4f}, {t_abs[1]:.4f}); route D "
+                  f"{t['D'][0]:.4f} ({t['D'][1]:.4f}); plain {pl:.4f}; "
+                  f"library {lib_ms:.4f}; bound {bd[0]:.4f} ms ({bd[1]})",
+                  flush=True)
+            if (b, n, k, c) == (B, N, K, 128):
+                res["gather_max_int8_direct"].update(
+                    ms=t["D"][0], plain_ms=pl, library_ms=lib_ms, bound=bd)
+                # In device time: one launch, whose wrapper's host time
+                # (~0.04 ms) is all its events read.
+                res["absmax"].update(
+                    ms=t_abs[1], plain_ms=device_ms(lambda: gm.absmax_plain(
+                        h), 5), bound=bound(nbytes(h, amax)),
+                    library_ms=device_ms(lambda: torch.linalg.vector_norm(
+                        h, float("inf"), dim=(1, 2)), 5))
+                print(f"  absmax B={b} N={n} C={c} bf16, device time: kernel "
+                      f"{t_abs[1]:.4f} ms, plain "
+                      f"{res['absmax']['plain_ms']:.4f}, library "
+                      f"{res['absmax']['library_ms']:.4f} (vector_norm of "
+                      f"the bf16 features)", flush=True)
+
+
 def max_direct_phase(rng, dev):
     """``[max-direct]``: one cloud of MAX_DIRECT_N points, above route
-    S's limit (no slice of 16-byte rows fits a block): ``ops.gather_max``
-    on f32 and bf16 features, without grad and with grad (forward and
-    backward), launches each body's route D kernel once and route S
-    never, bit-equal to the plain versions (the backward sums in f64:
-    bit-equal too). Its cloud comes from a generator spawned off
-    ``rng``."""
+    S's limits (no slice of 16-byte rows fits a block; the backward's
+    sums would need more than two ranges of rows): ``ops.gather_max`` on
+    f32 and bf16 features, without grad and with grad (forward and
+    backward), ``ops.gather_minmax`` with grad and ``ops.gather_max_int8``
+    launch each body's route D kernels once and route S never, bit-equal
+    to the plain versions (the backward sums in f64: bit-equal too). Its
+    cloud comes from a generator spawned off ``rng``."""
     from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
     from deltaconv_tpu_torch.geometry import knn
 
@@ -2108,29 +2364,44 @@ def max_direct_phase(rng, dev):
         sfx = "_bf16" if dt == torch.bfloat16 else ""
         h = torch.randn((1, MAX_DIRECT_N, 64), device=dev).to(dt)
         g = torch.randn((1, MAX_DIRECT_N, 64), device=dev).to(dt)
+        g2 = torch.randn((1, MAX_DIRECT_N, 64), device=dev).to(dt)
         reset_launch_counts()
         out = ops.gather_max(h, idx, nbr_mask)
         hg = h.clone().requires_grad_()
         out_g = ops.gather_max(hg, idx, nbr_mask)
         out_g.backward(g)
+        hm = h.clone().requires_grad_()
+        mx, mn = ops.gather_minmax(hm, idx, nbr_mask)
+        torch.autograd.backward((mx, mn), (g, g2))
+        q = ops.gather_max_int8(h, idx, nbr_mask)
         torch.cuda.synchronize()
         counts = launch_counts()
         hp = h.clone().requires_grad_()
         want = ops.gather_max_plain(hp, idx, nbr_mask)
         want.backward(g)
+        hmp = h.clone().requires_grad_()
+        torch.autograd.backward(ops.gather_minmax_plain(hmp, idx, nbr_mask),
+                                (g, g2))
         print(f"[max-direct] launches, N={MAX_DIRECT_N} {str(dt)[6:]}: "
               f"{ {n: c for n, c in counts.items() if c} }")
+        direct = (f"gather_max{sfx}_direct", f"gather_max_win{sfx}_direct",
+                  f"gather_max_bwd{sfx}_direct",
+                  f"gather_minmax_bwd{sfx}_direct", "gather_max_int8_direct")
+        staged = (f"gather_max{sfx}", f"gather_max_win{sfx}",
+                  f"gather_max_bwd{sfx}", f"gather_minmax_bwd{sfx}",
+                  "gather_max_int8", "absmax")
         check(f"[max-direct] {str(dt)[6:]}: route D once each, route S "
-              f"never", counts[f"gather_max{sfx}_direct"] == 1
-              and counts[f"gather_max_win{sfx}_direct"] == 1
-              and counts[f"gather_max{sfx}"] + counts[f"gather_max_win{sfx}"]
-              == 0, f"{counts[f'gather_max{sfx}_direct']}, "
-              f"{counts[f'gather_max_win{sfx}_direct']}")
+              f"never", all(counts[m] == 1 for m in direct)
+              and not any(counts[m] for m in staged),
+              f"{[counts[m] for m in direct]}, {[counts[m] for m in staged]}")
         check(f"[max-direct] {str(dt)[6:]}: bit-equal",
               bits_equal(out, want.detach())
               and bits_equal(out_g.detach(), want.detach())
-              and bits_equal(hg.grad, hp.grad),
-              "forward with and without winners, and the backward")
+              and bits_equal(hg.grad, hp.grad)
+              and bits_equal(hm.grad, hmp.grad)
+              and bits_equal(q, ops.gather_max_int8_plain(h, idx, nbr_mask)),
+              "the max forward with and without winners and its backward, "
+              "the min/max backward, the int8 max")
         for name in MAX_DIRECT_KERNELS:
             total[name] += counts[name]
     return total
@@ -2473,6 +2744,7 @@ def kernel_phase(rng, dev, card):
     time_edge_mlp_kernels(res, seg_cases["uniform"][0], dev, card)
     matmul_max_phase(res, rng, dev, card)
     max_routes_phase(res, rng, dev, card)
+    bwd_routes_phase(res, rng, dev, card)
     del seg_cases, cases
     knn_kernel_phase(res, rng, dev, card)
     coef_kernel_phase(res, rng, dev, card)
@@ -3009,6 +3281,46 @@ def path_device_times(seed, dev, card):
     print("[device-times] device time of one call (profiler): " + "; ".join(
         f"{label} {ms:.3f} ms" for label, ms in times.items())
         + f"; card: {card}", flush=True)
+
+
+def kernel_times(seed, dev, card):
+    """``[kernel-times]``: the device time (profiler, :func:`device_ms`)
+    of one call of the int8 max's and the winner-routed backward's public
+    wrappers, at the shapes
+    where the model paths run them: ``ops.gather_max_int8`` on bf16
+    features (B=32, N=1024, C = 64, 128; B=16, N=2048, C=128) and
+    ``ops.gather_max_bwd`` (B=32, N=1024, f32 and bf16 cotangents at C =
+    64, 128, 256; B=4, N=8192, bf16 at C = 64, 128, 256) on a uniform kNN
+    graph and the plain max's winners. Public functions only, as
+    :func:`path_device_times`, so that the line times another checkout's
+    kernels."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import knn
+
+    rng = np.random.default_rng(seed + 16)
+    parts = []
+    for b, n, k, int8_widths, bwd in (
+            (B, N, K, INT8_WIDTHS, ((torch.float32, WIDTHS),
+                                    (torch.bfloat16, BWD_BF16_WIDTHS))),
+            (SEG_B, SEG_N, SEG_K, (SEG_MAX_WIDTH,), ()),
+            (LARGE_B, LARGE_N, K, (), ((torch.bfloat16,
+                                        BWD_BF16_WIDTHS),))):
+        clouds, _ = ellipsoid_clouds(rng, [n] * b)
+        idx, nbr_mask = knn(torch.from_numpy(np.stack(clouds)).to(dev), k)
+        for c in int8_widths:
+            h = torch.randn((b, n, c), device=dev).to(torch.bfloat16)
+            ms = device_ms(lambda: ops.gather_max_int8(h, idx, nbr_mask), 5)
+            parts.append(f"gather_max_int8 B={b} N={n} C={c} bf16 {ms:.4f}")
+        for dt, widths in bwd:
+            for c in widths:
+                h = torch.randn((b, n, c), device=dev)
+                _, win = ops.gather_max_win_plain(h, idx, nbr_mask)
+                g = torch.randn((b, n, c), device=dev).to(dt)
+                ms = device_ms(lambda: ops.gather_max_bwd(idx, win, g, n), 5)
+                parts.append(f"gather_max_bwd B={b} N={n} C={c} "
+                             f"{str(dt)[6:]} {ms:.4f}")
+    print("[kernel-times] device ms of one call (profiler): "
+          + "; ".join(parts) + f"; card: {card}", flush=True)
 
 
 def matmul_kfold_phase(rng, dev):
@@ -5583,9 +5895,11 @@ def nbr_minmax_phase(rng, dev, card):
 
 def compare_phases(seed, dev, card):
     """The phases that time one tree against another in one call: the
-    coefficient applies (:func:`coef_apply_table`) and the paths' device
-    times (:func:`path_device_times`)."""
+    coefficient applies (:func:`coef_apply_table`), the redesigned
+    kernels (:func:`kernel_times`) and the paths' device times
+    (:func:`path_device_times`)."""
     coef_apply_table(seed, dev, card)
+    kernel_times(seed, dev, card)
     path_device_times(seed, dev, card)
 
 
@@ -5607,7 +5921,8 @@ def parent_phase(parent, seed, card):
         check(f"[parent] {tag} tree's phases", out.returncode == 0,
               f"exit {out.returncode}{out.stderr[-2000:]}")
         for line in out.stdout.splitlines():
-            if line.startswith(("[coef-applies]", "[device-times]")):
+            if line.startswith(("[coef-applies]", "[kernel-times]",
+                                "[device-times]")):
                 print(f"{tag} {line}", flush=True)
 
     print(f"[parent] {parent}: parent, this tree, this tree, parent; card: "

@@ -229,6 +229,18 @@ __device__ __forceinline__ void take_slot_f32(unsigned (&best)[4],
   }
 }
 
+// The int8 form's epilogue (gather_max_int8.cu): the max v of a row's
+// slots quantized as int8_quantize quantizes every feature, q = rint(fl(fl(v
+// / a) * 127)) (round half to even), then dequantized, fl(q * s), in f32;
+// 0 on a row with no valid slot. q goes through an int, so a -0 quotient
+// gives +0, as the int8 value does.
+__device__ __forceinline__ float int8_dequant(float v, float a, float s,
+                                              bool valid) {
+  if (!valid) return 0.0f;
+  const int q = __float2int_rn(__fmul_rn(__fdiv_rn(v, a), 127.0f));
+  return __fmul_rn((float)q, s);
+}
+
 // The max phase: a group of P lanes a point (P 16-byte pieces a row of the
 // slice), lane q of the group the piece q (8 bf16 or 4 f32 channels of T),
 // 16-byte reads of the rows (`ys`, the slice's shared-memory address). A
@@ -245,14 +257,15 @@ __device__ __forceinline__ void take_slot_f32(unsigned (&best)[4],
 // columns are written (whole pieces by 16-byte stores when `vec_out`,
 // else one by one). The rows kernel passes the whole cloud, the bf16 slice
 // and, with `aff_s`, the epilogue; gather_max.cu's staged route a share
-// of the points of a channel slice of h.
-template <typename T, int P, bool kWinners, bool kNan>
+// of the points of a channel slice of h and, with kQuant, the int8
+// epilogue (`int8_dequant`) of the cloud's a and s.
+template <typename T, int P, bool kWinners, bool kNan, bool kQuant = false>
 __device__ __forceinline__ void rows_max_phase(
     unsigned ys, const int* __restrict__ idx,
     const uint8_t* __restrict__ mask, const float* aff_s,
     T* __restrict__ out, int* __restrict__ winner, int b, int N, int p0,
     int p1, int ldo, int col0, int nvalid, bool vec_out, int K,
-    unsigned neg, int warp, int lane) {
+    unsigned neg, int warp, int lane, float qa = 0.0f, float qs = 0.0f) {
   constexpr int PW = 32 / P;
   constexpr int V = 16 / sizeof(T);  // channels a piece
   constexpr int SB = P >= kRowsInFlight ? P : kRowsInFlight;  // slots a step
@@ -366,6 +379,35 @@ __device__ __forceinline__ void rows_max_phase(
         (__ballot_sync(0xffffffffu, any) >> gbase) & ((1u << P) - 1u);
     if (p >= p1 || V * q >= nvalid) return;
     const long long o = ((long long)b * N + p) * ldo + col0 + V * q;
+    if constexpr (kQuant) {
+      float dq[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        dq[i] = int8_dequant(V == 8 ? bf16_half(best[i / 2], i % 2)
+                                    : __uint_as_float(best[i]),
+                             qa, qs, valid);
+      unsigned packed[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (V == 8) {
+          const __nv_bfloat162 pair =
+              __floats2bfloat162_rn(dq[2 * i], dq[2 * i + 1]);
+          packed[i] = *reinterpret_cast<const unsigned*>(&pair);
+        } else {
+          packed[i] = __float_as_uint(dq[i]);
+        }
+      }
+      if (vec_out) {
+        *reinterpret_cast<uint4*>(out + o) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          if (V * q + i < nvalid)
+            out[o + i] = value_of<T>(packed[i * 4 / V], V == 8 ? i % 2 : 0);
+      }
+      return;
+    }
     // The piece's winners as V words (bf16: 16-bit halves unpacked).
     int wv[V];
 #pragma unroll

@@ -71,24 +71,39 @@
 //   dh[b, idx[b, n, winner[b, n, c]], c] += g[b, n, c]
 // idx [B, N, K] i32, winner [B, N, C] i32, g [B, N, C] f32 or bf16 ->
 // dh [B, n_out, C] f32 (cast to h's dtype by the caller, as the JAX VJP
-// does at gather_max.py:445), through the caller's scratch acc [B,
-// n_out, C] f64, which the call zero-fills first. Replaces
-// `_pallas_bwd_mm` (pallas_call at gather_max.py:362, kernel body
-// `_bwd_mm_kernel`), which routed the cotangent as a transposed one-hot
-// MXU contraction over a hi/lo split (f32 g) or in one half-width pass
-// (bf16 g, `paired=False`). Here each (b, n, c) adds its one cotangent,
-// widened to f64, with an atomicAdd at its winner's row of acc: B*N*C
-// atomics in all, coalesced over c, spread over the table (a row only
-// collects the channels it won); a second kernel in the same call rounds
-// acc to dh. The f32 (or bf16) addends of one (row, c) sum exactly in
-// f64 unless they span more than 29 (bf16: 45) binary orders, so dh is
-// the exact sum rounded once to f32, whatever order the atomics land in:
-// two calls give the same bits, and so does the plain version. Atomics
-// in f32 gave sums whose last bits changed from run to run, and the
-// normal gradient of a point with a near-duplicate neighbour (a sum of
-// terms ~1/distance that cancel) amplified those bits past 1e-3 x max
-// in some runs. Bound: the atomics in L2, plus the accumulator's fill
-// and read, 16 bytes a (row, c) beyond the function's own.
+// does at gather_max.py:445); a winner outside [0, K) or a row outside
+// [0, n_out) adds nothing. Replaces `_pallas_bwd_mm` (pallas_call at
+// gather_max.py:362, kernel body `_bwd_mm_kernel`), which routed the
+// cotangent as a transposed one-hot MXU contraction over a hi/lo split
+// (f32 g) or in one half-width pass (bf16 g, `paired=False`). Each (row,
+// c)'s addends are summed in f64 and rounded once to f32: the f32 (or
+// bf16) addends of one (row, c) sum exactly in f64 unless they span more
+// than 29 (bf16: 45) binary orders, so dh is the exact sum rounded once,
+// whatever order the adds land in: two calls give the same bits, and so
+// does the plain version. (Atomics in f32 gave sums whose last bits
+// changed from run to run, and the normal gradient of a point with a
+// near-duplicate neighbour, a sum of terms ~1/distance that cancel,
+// amplified those bits past 1e-3 x max in some runs.) Bound on the H100:
+// memory, idx, winner and g read once and dh written once.
+// Two routes, chosen by shape in ops/gather_max.py (`bwd_slice`), the
+// same bits.
+// Route S, staged (`gather_max_bwd`, `_bf16`): the transpose of the
+// forward's route S. A block takes a task, a cloud b, a slice of Cs
+// channels (4 to 32) and a range of destination rows, and keeps the
+// range's f64 sums, rows x Cs x 8 bytes, in shared memory: it zero-fills
+// them, walks all N points of the cloud over its slice (winner and g rows
+// coalesced, the winner's row j from the point's idx row, L1), adds each
+// g widened to f64 at (j, c) when j lies in its range (a shared-memory
+// f64 atomic), and at the end rounds each sum once and writes its dh
+// rows. No global scratch, no fill, no second pass. `bwd_slice` takes 8
+// channels over one range up to 3,632 rows, then 4 channels over one or
+// two ranges (each range re-reads the slice) up to 14,528 rows.
+// Route D, direct (`gather_max_bwd_direct`, `_bf16_direct`), the earlier
+// kernel: a block row a point, each (b, n, c) adds its cotangent with a
+// global f64 atomicAdd at its winner's row of the caller's scratch acc
+// [B, n_out, C] f64 (B*N*C atomics, coalesced over c), which the call
+// zero-fills first, and a second kernel rounds acc to dh: 16 bytes a
+// (row, c) beyond the function's own.
 //
 // Min and max together (`gather_minmax`, `gather_minmax_bf16`, and with
 // winners `gather_minmax_win`, `gather_minmax_win_bf16`):
@@ -102,13 +117,15 @@
 // load. Bound on the H100: memory, as the max (the same K rows read,
 // two outputs written; four with the winners).
 //
-// Two-map backward (`gather_minmax_bwd`, `gather_minmax_bwd_bf16`):
+// Two-map backward (`gather_minmax_bwd`, `gather_minmax_bwd_bf16`; route D
+// `_direct`):
 //   dh[b, idx[b, n, wmx[b, n, c]], c] += gmx[b, n, c]
 //   dh[b, idx[b, n, wmn[b, n, c]], c] += gmn[b, n, c]
-// into one f64 acc rounded to f32 dh as above, one launch reading idx
-// once for both maps: the counterpart of `_pallas_bwd_mm` called with
-// two (winner, g) pairs (gather_max.py:528-536). Where the max and the min win at the
-// same (row, c) (one valid slot, or equal values) both cotangents add.
+// into one set of f64 sums rounded to f32 dh as above, on the same two
+// routes, one launch for both maps: the counterpart of `_pallas_bwd_mm`
+// called with two (winner, g) pairs (gather_max.py:528-536). Where the max
+// and the min win at the same (row, c) (one valid slot, or equal values)
+// both cotangents add.
 #include "gather_matmul_max_rows.cuh"
 
 namespace {
@@ -286,6 +303,131 @@ int launch_bwd(const void* idx, const void* winner, const void* g, void* dh,
   return (int)cudaGetLastError();
 }
 
+// Route S of the backward: one block a task, a cloud b, a slice of CS
+// channels from c0 and a range of `rows` destination rows from r0 (a
+// task's range index the fastest in blockIdx.x), the range's sums in
+// shared memory, acc [rows, CS] f64. Thread t takes channel t % CS of
+// points t / CS, t / CS + kBwdThreads / CS, ...: a warp's lanes lie on
+// CS channels of 32 / CS points, so one instruction's lanes meet at one
+// (row, c) only where two of its points share a winner's row. kAhead
+// points a thread load their winner and g before their idx lookups and
+// adds. The adds are shared-memory f64 atomics (exact, as in route D:
+// any order gives the same bits).
+constexpr int kBwdThreads = 512;
+constexpr int kAhead = 4;
+
+template <typename G, int CS, bool kTwo>
+__global__ void __launch_bounds__(kBwdThreads)
+    gather_max_bwd_staged_kernel(const int* __restrict__ idx,
+                                 const int* __restrict__ winner,
+                                 const G* __restrict__ g,
+                                 const int* __restrict__ winner2,
+                                 const G* __restrict__ g2,
+                                 float* __restrict__ dh, int N, int C, int K,
+                                 int n_out, int rows, int ranges) {
+  extern __shared__ __align__(16) double acc[];
+  const int slices = (C + CS - 1) / CS;
+  const int range = blockIdx.x % ranges, bs = blockIdx.x / ranges;
+  const int b = bs / slices, c0 = (bs % slices) * CS;
+  const int r0 = range * rows, nr = min(rows, n_out - r0);
+  const int tid = threadIdx.x, c = tid % CS;
+  constexpr int kStride = kBwdThreads / CS;  // points a pass
+  for (int e = tid; e < nr * CS; e += kBwdThreads) acc[e] = 0.0;
+  __syncthreads();
+
+  const bool c_ok = c0 + c < C;
+  const long long pt0 = (long long)b * N;
+  // One (winner, g) map's adds for kAhead points p, p + kStride, ...
+  auto add_map = [&](const int* wm, const G* gm, int p) {
+    int w[kAhead];
+    float v[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int pu = p + u * kStride;
+      const bool ok = c_ok && pu < N;
+      const long long at = (pt0 + pu) * C + c0 + c;
+      w[u] = ok ? __ldg(wm + at) : -1;
+      v[u] = ok ? to_f32(gm[at]) : 0.0f;
+    }
+    int j[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      j[u] = (unsigned)w[u] < (unsigned)K
+                 ? __ldg(idx + (pt0 + p + u * kStride) * K + w[u])
+                 : -1;
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      if ((unsigned)(j[u] - r0) < (unsigned)nr)
+        atomicAdd(acc + (j[u] - r0) * CS + c, (double)v[u]);
+  };
+  for (int p = tid / CS; p < N; p += kStride * kAhead) {
+    add_map(winner, g, p);
+    if (kTwo) add_map(winner2, g2, p);
+  }
+  __syncthreads();
+  for (int e = tid; e < nr * CS; e += kBwdThreads) {
+    const int r = e / CS, cc = e % CS;
+    if (c0 + cc < C)
+      dh[((long long)b * n_out + r0 + r) * C + c0 + cc] =
+          __double2float_rn(acc[e]);
+  }
+}
+
+// Shared memory of a route-S backward block: rows x CS f64;
+// ops/gather_max.py (`bwd_smem`) mirrors it.
+inline size_t bwd_smem_bytes(int rows, int CS) {
+  return (size_t)rows * CS * sizeof(double);
+}
+
+template <typename G, int CS, bool kTwo>
+int launch_bwd_staged_cs(const void* idx, const void* winner, const void* g,
+                         const void* winner2, const void* g2, void* dh,
+                         int B, int N, int C, int K, int n_out, int rows,
+                         cudaStream_t s) {
+  auto kernel = gather_max_bwd_staged_kernel<G, CS, kTwo>;
+  const size_t smem = bwd_smem_bytes(rows, CS);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int ranges = (n_out + rows - 1) / rows;
+  const long long blocks = (long long)B * ((C + CS - 1) / CS) * ranges;
+  kernel<<<(unsigned)blocks, kBwdThreads, smem, s>>>(
+      (const int*)idx, (const int*)winner, (const G*)g, (const int*)winner2,
+      (const G*)g2, (float*)dh, N, C, K, n_out, rows, ranges);
+  return (int)cudaGetLastError();
+}
+
+// Cs: the slice's channels the wrapper chose (4, 8, 16 or 32), rows: the
+// destination rows a block sums (its range); a block that does not fit
+// is refused (route D takes those shapes).
+template <typename G, bool kTwo = false>
+int launch_bwd_staged(const void* idx, const void* winner, const void* g,
+                      void* dh, int B, int N, int C, int K, int n_out, int Cs,
+                      int rows, void* stream, const void* winner2 = nullptr,
+                      const void* g2 = nullptr) {
+  if ((long long)B * n_out * C == 0) return (int)cudaGetLastError();
+  if ((Cs != 4 && Cs != 8 && Cs != 16 && Cs != 32) || rows < 1 ||
+      bwd_smem_bytes(rows, Cs) > kRowsSmemMax)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Cs) {
+    case 4:
+      return launch_bwd_staged_cs<G, 4, kTwo>(idx, winner, g, winner2, g2, dh,
+                                              B, N, C, K, n_out, rows, s);
+    case 8:
+      return launch_bwd_staged_cs<G, 8, kTwo>(idx, winner, g, winner2, g2, dh,
+                                              B, N, C, K, n_out, rows, s);
+    case 16:
+      return launch_bwd_staged_cs<G, 16, kTwo>(idx, winner, g, winner2, g2,
+                                               dh, B, N, C, K, n_out, rows,
+                                               s);
+    default:
+      return launch_bwd_staged_cs<G, 32, kTwo>(idx, winner, g, winner2, g2,
+                                               dh, B, N, C, K, n_out, rows,
+                                               s);
+  }
+}
+
 // True where a 16-byte piece of a slice holds a NaN (4 f32 or 8 bf16).
 __device__ __forceinline__ bool has_nan(uint4 v, float) {
   const unsigned w[4] = {v.x, v.y, v.z, v.w};
@@ -312,7 +454,9 @@ __device__ __forceinline__ bool has_nan(uint4 v, __nv_bfloat16) {
 // blocks an SM (64 registers) for rows of 32 or 64 bytes; 128- and
 // 16-byte rows spill at 64 registers and take one (their slices at
 // N=1024 and N=8192 leave room for one block anyway).
-template <typename T, int P, bool kWinners>
+// kQuant: the int8 form (no winners), its epilogue on the cloud's |h|
+// maximum amax[b] (f32 bits, from dc_absmax).
+template <typename T, int P, bool kWinners, bool kQuant>
 __global__ void __launch_bounds__(kRowsWarps * 32,
                                   (P == 2 || P == 4) ? 2 : 1)
     gather_max_staged_kernel(const T* __restrict__ h,
@@ -320,7 +464,7 @@ __global__ void __launch_bounds__(kRowsWarps * 32,
                              const uint8_t* __restrict__ mask,
                              T* __restrict__ out, int* __restrict__ winner,
                              int N, int C, int K, int splits, int copy_bytes,
-                             int vec_out) {
+                             int vec_out, const unsigned* __restrict__ amax) {
   constexpr int kRowBytes = 16 * P;
   constexpr int kCs = kRowBytes / (int)sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
@@ -372,22 +516,32 @@ __global__ void __launch_bounds__(kRowsWarps * 32,
   const int p0 = split * chunk, p1 = min(N, p0 + chunk);
   const int nvalid = min(kCs, C - c0);
   unsigned neg;
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (kQuant) {  // -inf: the max of the valid slots themselves
+    neg = sizeof(T) == 4 ? kNegInfF32 : kNegInf2;
+  } else if constexpr (sizeof(T) == 4) {
     neg = __float_as_uint(kNeg);
   } else {
     const __nv_bfloat16 nb = __float2bfloat16_rn(kNeg);
     const unsigned bits = *reinterpret_cast<const unsigned short*>(&nb);
     neg = bits | (bits << 16);
   }
+  // The int8 form's a = max(max |h|, 1e-30) (a NaN kept, as torch.clamp
+  // keeps it) and s = a / 127 as torch computes it on the card: a CUDA
+  // tensor divided by a CPU scalar is multiplied by its reciprocal.
+  float qa = 0.0f, qs = 0.0f;
+  if constexpr (kQuant) {
+    const float m = __uint_as_float(amax[b]);
+    qa = m != m ? m : fmaxf(m, 1e-30f);
+    qs = __fmul_rn(qa, 1.0f / 127.0f);
+  }
   if (any_nan)
-    rows_max_phase<T, P, kWinners, true>(ys, idx, mask, nullptr, out,
-                                         winner, b, N, p0, p1, C, c0, nvalid,
-                                         vec_out != 0, K, neg, warp, lane);
+    rows_max_phase<T, P, kWinners, true, kQuant>(
+        ys, idx, mask, nullptr, out, winner, b, N, p0, p1, C, c0, nvalid,
+        vec_out != 0, K, neg, warp, lane, qa, qs);
   else
-    rows_max_phase<T, P, kWinners, false>(ys, idx, mask, nullptr, out,
-                                          winner, b, N, p0, p1, C, c0,
-                                          nvalid, vec_out != 0, K, neg, warp,
-                                          lane);
+    rows_max_phase<T, P, kWinners, false, kQuant>(
+        ys, idx, mask, nullptr, out, winner, b, N, p0, p1, C, c0, nvalid,
+        vec_out != 0, K, neg, warp, lane, qa, qs);
 }
 
 // Shared memory of a route-S block: N + 2 rows of 16 P bytes;
@@ -396,12 +550,12 @@ inline size_t staged_smem_bytes(int N, int P) {
   return (size_t)(N + 2) * 16 * P;
 }
 
-template <typename T, int P, bool kWinners>
+template <typename T, int P, bool kWinners, bool kQuant>
 int launch_staged_p(const void* h, const void* idx, const void* mask,
-                    void* out, void* winner, int B, int N, int C, int K,
-                    int splits, int copy_bytes, int vec_out,
+                    void* out, void* winner, const void* amax, int B, int N,
+                    int C, int K, int splits, int copy_bytes, int vec_out,
                     cudaStream_t s) {
-  auto kernel = gather_max_staged_kernel<T, P, kWinners>;
+  auto kernel = gather_max_staged_kernel<T, P, kWinners, kQuant>;
   const size_t smem = staged_smem_bytes(N, P);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -410,18 +564,19 @@ int launch_staged_p(const void* h, const void* idx, const void* mask,
   const long long blocks = (long long)B * ((C + kCs - 1) / kCs) * splits;
   kernel<<<(unsigned)blocks, kRowsWarps * 32, smem, s>>>(
       (const T*)h, (const int*)idx, (const uint8_t*)mask, (T*)out,
-      (int*)winner, N, C, K, splits, copy_bytes, vec_out);
+      (int*)winner, N, C, K, splits, copy_bytes, vec_out,
+      (const unsigned*)amax);
   return (int)cudaGetLastError();
 }
 
 // Cs: the slice's channels the wrapper chose (16, 32, 64 or 128 bytes a
 // row), splits: blocks a task (1 or more). A slice that does not fit a
 // block, K of 0, or K above the bf16 winners' 16 bits, is refused (route
-// D takes those).
-template <typename T, bool kWinners>
+// D takes those). kQuant: the int8 form, on the cloud maxima amax.
+template <typename T, bool kWinners, bool kQuant = false>
 int launch_staged(const void* h, const void* idx, const void* mask,
                   void* out, void* winner, int B, int N, int C, int K, int Cs,
-                  int splits, void* stream) {
+                  int splits, void* stream, const void* amax = nullptr) {
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   const int row = Cs * (int)sizeof(T);
   const int P = row / 16;
@@ -441,21 +596,21 @@ int launch_staged(const void* h, const void* idx, const void* mask,
   cudaStream_t s = (cudaStream_t)stream;
   switch (P) {
     case 1:
-      return launch_staged_p<T, 1, kWinners>(h, idx, mask, out, winner, B, N,
-                                             C, K, splits, copy_bytes,
-                                             vec_out, s);
+      return launch_staged_p<T, 1, kWinners, kQuant>(
+          h, idx, mask, out, winner, amax, B, N, C, K, splits, copy_bytes,
+          vec_out, s);
     case 2:
-      return launch_staged_p<T, 2, kWinners>(h, idx, mask, out, winner, B, N,
-                                             C, K, splits, copy_bytes,
-                                             vec_out, s);
+      return launch_staged_p<T, 2, kWinners, kQuant>(
+          h, idx, mask, out, winner, amax, B, N, C, K, splits, copy_bytes,
+          vec_out, s);
     case 4:
-      return launch_staged_p<T, 4, kWinners>(h, idx, mask, out, winner, B, N,
-                                             C, K, splits, copy_bytes,
-                                             vec_out, s);
+      return launch_staged_p<T, 4, kWinners, kQuant>(
+          h, idx, mask, out, winner, amax, B, N, C, K, splits, copy_bytes,
+          vec_out, s);
     default:
-      return launch_staged_p<T, 8, kWinners>(h, idx, mask, out, winner, B, N,
-                                             C, K, splits, copy_bytes,
-                                             vec_out, s);
+      return launch_staged_p<T, 8, kWinners, kQuant>(
+          h, idx, mask, out, winner, amax, B, N, C, K, splits, copy_bytes,
+          vec_out, s);
   }
 }
 
@@ -562,19 +717,39 @@ extern "C" int dc_gather_max_win_bf16_direct(const void* h, const void* idx,
 }
 
 extern "C" int dc_gather_max_bwd(const void* idx, const void* winner,
-                                 const void* g, void* dh, void* acc, int B,
-                                 int N, int C, int K, int n_out, int device,
-                                 void* stream) {
+                                 const void* g, void* dh, int B, int N, int C,
+                                 int K, int n_out, int Cs, int rows,
+                                 int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_bwd_staged<float>(idx, winner, g, dh, B, N, C, K, n_out, Cs,
+                                  rows, stream);
+}
+
+extern "C" int dc_gather_max_bwd_bf16(const void* idx, const void* winner,
+                                      const void* g, void* dh, int B, int N,
+                                      int C, int K, int n_out, int Cs,
+                                      int rows, int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_bwd_staged<__nv_bfloat16>(idx, winner, g, dh, B, N, C, K,
+                                          n_out, Cs, rows, stream);
+}
+
+extern "C" int dc_gather_max_bwd_direct(const void* idx, const void* winner,
+                                        const void* g, void* dh, void* acc,
+                                        int B, int N, int C, int K, int n_out,
+                                        int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * n_out * C == 0) return (int)cudaGetLastError();
   return launch_bwd<float>(idx, winner, g, dh, acc, B, N, C, K, n_out,
                            stream);
 }
 
-extern "C" int dc_gather_max_bwd_bf16(const void* idx, const void* winner,
-                                      const void* g, void* dh, void* acc,
-                                      int B, int N, int C, int K, int n_out,
-                                      int device, void* stream) {
+extern "C" int dc_gather_max_bwd_bf16_direct(const void* idx,
+                                             const void* winner,
+                                             const void* g, void* dh,
+                                             void* acc, int B, int N, int C,
+                                             int K, int n_out, int device,
+                                             void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * n_out * C == 0) return (int)cudaGetLastError();
   return launch_bwd<__nv_bfloat16>(idx, winner, g, dh, acc, B, N, C, K,
@@ -624,23 +799,57 @@ extern "C" int dc_gather_minmax_win_bf16(const void* h, const void* idx,
 
 extern "C" int dc_gather_minmax_bwd(const void* idx, const void* wmx,
                                     const void* gmx, const void* wmn,
-                                    const void* gmn, void* dh, void* acc,
-                                    int B, int N, int C, int K, int n_out,
+                                    const void* gmn, void* dh, int B, int N,
+                                    int C, int K, int n_out, int Cs, int rows,
                                     int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_bwd_staged<float, true>(idx, wmx, gmx, dh, B, N, C, K, n_out,
+                                        Cs, rows, stream, wmn, gmn);
+}
+
+extern "C" int dc_gather_minmax_bwd_bf16(const void* idx, const void* wmx,
+                                         const void* gmx, const void* wmn,
+                                         const void* gmn, void* dh, int B,
+                                         int N, int C, int K, int n_out,
+                                         int Cs, int rows, int device,
+                                         void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_bwd_staged<__nv_bfloat16, true>(
+      idx, wmx, gmx, dh, B, N, C, K, n_out, Cs, rows, stream, wmn, gmn);
+}
+
+extern "C" int dc_gather_minmax_bwd_direct(const void* idx, const void* wmx,
+                                           const void* gmx, const void* wmn,
+                                           const void* gmn, void* dh,
+                                           void* acc, int B, int N, int C,
+                                           int K, int n_out, int device,
+                                           void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * n_out * C == 0) return (int)cudaGetLastError();
   return launch_bwd<float, true>(idx, wmx, gmx, dh, acc, B, N, C, K, n_out,
                                  stream, wmn, gmn);
 }
 
-extern "C" int dc_gather_minmax_bwd_bf16(const void* idx, const void* wmx,
-                                         const void* gmx, const void* wmn,
-                                         const void* gmn, void* dh,
-                                         void* acc, int B, int N, int C,
-                                         int K, int n_out, int device,
-                                         void* stream) {
+extern "C" int dc_gather_minmax_bwd_bf16_direct(
+    const void* idx, const void* wmx, const void* gmx, const void* wmn,
+    const void* gmn, void* dh, void* acc, int B, int N, int C, int K,
+    int n_out, int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * n_out * C == 0) return (int)cudaGetLastError();
   return launch_bwd<__nv_bfloat16, true>(idx, wmx, gmx, dh, acc, B, N, C, K,
                                          n_out, stream, wmn, gmn);
+}
+
+// The int8 form's route S (gather_max_int8.cu's `dc_gather_max_int8`):
+// the staged max of h (f32, or bf16 where bf16 is 1) with the quantizing
+// epilogue on amax [B], the clouds' |h| maxima.
+int dc_gather_max_staged_int8(const void* h, const void* idx,
+                              const void* mask, const void* amax, void* out,
+                              int B, int N, int C, int K, int Cs, int splits,
+                              int bf16, void* stream) {
+  if (bf16)
+    return launch_staged<__nv_bfloat16, false, true>(
+        h, idx, mask, out, nullptr, B, N, C, K, Cs, splits, stream, amax);
+  return launch_staged<float, false, true>(h, idx, mask, out, nullptr, B, N,
+                                           C, K, Cs, splits, stream, amax);
 }

@@ -57,16 +57,18 @@ _KERNELS = {
     "gather_max_direct": ("dc_gather_max_direct", [_P] * 4 + [_I] * 4),
     "gather_max_win_direct": ("dc_gather_max_win_direct",
                               [_P] * 5 + [_I] * 4),
-    "gather_max_bwd": ("dc_gather_max_bwd",
-                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "gather_max_bwd": ("dc_gather_max_bwd", [_P] * 4 + [_I] * 7),
+    "gather_max_bwd_direct": ("dc_gather_max_bwd_direct",
+                              [_P] * 5 + [_I] * 5),
     "gather_max_bf16": ("dc_gather_max_bf16", [_P] * 4 + [_I] * 6),
     "gather_max_win_bf16": ("dc_gather_max_win_bf16", [_P] * 5 + [_I] * 6),
     "gather_max_bf16_direct": ("dc_gather_max_bf16_direct",
                                [_P] * 4 + [_I] * 4),
     "gather_max_win_bf16_direct": ("dc_gather_max_win_bf16_direct",
                                    [_P] * 5 + [_I] * 4),
-    "gather_max_bwd_bf16": ("dc_gather_max_bwd_bf16",
-                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "gather_max_bwd_bf16": ("dc_gather_max_bwd_bf16", [_P] * 4 + [_I] * 7),
+    "gather_max_bwd_bf16_direct": ("dc_gather_max_bwd_bf16_direct",
+                                   [_P] * 5 + [_I] * 5),
     "adjacency": ("dc_adjacency", [_P, _P, _P, _I, _I, _I]),
     "gather_sum": ("dc_gather_sum", [_P, _P, _P, _P, _I, _I, _I, _I]),
     "gather_sum_bwd": ("dc_gather_sum_bwd", [_P] * 5 + [_I] * 4),
@@ -86,7 +88,10 @@ _KERNELS = {
     "mlp_rows": ("dc_mlp_rows", [_P] * 5 + [_I, _L]),
     "gather_max_merge": ("dc_gather_max_merge", [_P] * 6 + [_I] * 6),
     "densify_int8": ("dc_densify_int8", [_P] * 7 + [_I] * 3),
-    "gather_max_int8": ("dc_gather_max_int8", [_P] * 5 + [_I] * 5),
+    "absmax": ("dc_absmax", [_P] * 2 + [_I] * 4),
+    "gather_max_int8": ("dc_gather_max_int8", [_P] * 5 + [_I] * 7),
+    "gather_max_int8_direct": ("dc_gather_max_int8_direct",
+                               [_P] * 5 + [_I] * 5),
     "gather_matmul_max_int8": ("dc_gather_matmul_max_int8",
                                [_P] * 5 + [_I] * 6),
     "gather_matmul_max_int8_kfold": ("dc_gather_matmul_max_int8_kfold",
@@ -110,9 +115,13 @@ _KERNELS = {
     "gather_minmax_win": ("dc_gather_minmax_win", [_P] * 7 + [_I] * 4),
     "gather_minmax_win_bf16": ("dc_gather_minmax_win_bf16",
                                [_P] * 7 + [_I] * 4),
-    "gather_minmax_bwd": ("dc_gather_minmax_bwd", [_P] * 7 + [_I] * 5),
+    "gather_minmax_bwd": ("dc_gather_minmax_bwd", [_P] * 6 + [_I] * 7),
     "gather_minmax_bwd_bf16": ("dc_gather_minmax_bwd_bf16",
-                               [_P] * 7 + [_I] * 5),
+                               [_P] * 6 + [_I] * 7),
+    "gather_minmax_bwd_direct": ("dc_gather_minmax_bwd_direct",
+                                 [_P] * 7 + [_I] * 5),
+    "gather_minmax_bwd_bf16_direct": ("dc_gather_minmax_bwd_bf16_direct",
+                                      [_P] * 7 + [_I] * 5),
     "gather_matmul_minmax": ("dc_gather_matmul_minmax", [_P] * 6 + [_I] * 5),
 }
 
@@ -152,8 +161,8 @@ _NO_GRAD = {
                             "of x @ w",
 }
 _NO_GRAD.update(dict.fromkeys(
-    ("densify_int8", "gather_max_int8", "gather_matmul_max_int8",
-     "gather_matmul_max_int8_kfold"),
+    ("densify_int8", "absmax", "gather_max_int8", "gather_max_int8_direct",
+     "gather_matmul_max_int8", "gather_matmul_max_int8_kfold"),
     "int8 operators serve only, as the JAX package's (forward only: the "
     "rounding has no gradient)"))
 

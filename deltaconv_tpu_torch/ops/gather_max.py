@@ -23,7 +23,10 @@ torch's own ``amax`` backward splits ties evenly and would differ on
 every tie. The backward accumulates in f32 and casts ``dh`` to ``h``'s
 dtype, as the JAX VJP does (a bf16 cotangent is read as it is:
 ``gather_max_win_bf16`` and ``gather_max_bwd_bf16`` are the bf16
-bodies). Otherwise the forward runs without winner tracking, as JAX's
+bodies; on CUDA tensors the backward's route S sums a cloud's slice of
+destination rows in shared memory, where :func:`bwd_slice` finds one that
+fits, else route D, ``_direct``, atomics into a global f64 scratch; the
+same bits). Otherwise the forward runs without winner tracking, as JAX's
 primal path does (``gather_max``, or its bf16 body ``gather_max_bf16``).
 :func:`gather_max` runs the kernels, :func:`gather_max_plain` the plain
 versions, with the same routing.
@@ -90,7 +93,12 @@ quantizes symmetrically per cloud (torch ops, XLA in JAX);
 :func:`gather_max_int8` ``(h [B, N, C] f32 or bf16, idx, mask) -> [B, N,
 C]`` in ``h``'s dtype is the masked max of the quantized rows, times the
 cloud's scale, 0 on rows with no valid neighbour (max commutes with the
-positive scale); :func:`gather_matmul_max_int8` ``(xq [B, N, C_in] int8,
+positive scale); on CUDA tensors route S maxes first and quantizes the
+max (the quantization is monotone, so the two orders agree exactly): the
+``absmax`` kernel (:func:`absmax`), then neighbour max's route S with a
+quantizing epilogue; route D (``gather_max_int8_direct``, where
+:func:`max_slice` finds no slice) quantizes first in torch ops;
+:func:`gather_matmul_max_int8` ``(xq [B, N, C_in] int8,
 w [C_in, C_out] bf16, idx, mask) -> [B, N, C_out] bf16`` is the masked max
 of ``xq[idx_k] @ w`` (f32 accumulation), ``-3e38`` on rows with no valid
 neighbour, which the caller dequantizes.
@@ -105,9 +113,9 @@ import torch
 
 from . import _lib
 
-__all__ = ["MAX_ROW_BYTES", "MM_SLICES", "NEG", "SMEM_MAX",
-           "bn_lrelu_epilogue",
-           "gather_matmul_max",
+__all__ = ["BWD_SLICE", "BWD_SLICES", "MAX_ROW_BYTES", "MM_SLICES", "NEG",
+           "SMEM_MAX", "absmax", "absmax_plain", "bn_lrelu_epilogue",
+           "bwd_slice", "bwd_smem", "gather_matmul_max",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
            "gather_matmul_max_plain", "gather_matmul_max_train",
            "gather_matmul_max_train_plain", "gather_matmul_max_win",
@@ -334,13 +342,77 @@ def _bwd_buffers(b, n_out, c, device):
             torch.empty((b, n_out, c), dtype=torch.float64, device=device))
 
 
+# Route S of the winner-routed backward (csrc/gather_max.cu): a block keeps
+# the f64 sums of a range of destination rows over a slice of Cs channels
+# in shared memory, rows x Cs x 8 bytes, and walks every point of its
+# cloud over the slice. The kernel takes slices of BWD_SLICES channels;
+# the chooser takes BWD_SLICE, and 4 where the features have no more.
+BWD_SLICES = (32, 16, 8, 4)
+BWD_SLICE = 8
+BWD_MAX_RANGES = 2  # row ranges a slice may be cut into; route D above
+
+
+def bwd_smem(rows: int, cs: int) -> int:
+    """Shared memory of one route-S backward block, as ``bwd_smem_bytes``
+    in the CUDA source counts it: ``rows`` x ``cs`` f64 sums."""
+    return rows * cs * 8
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_slice(n_out: int, c: int) -> tuple[int, int]:
+    """The route of the winner-routed backward into ``[B, n_out, c]``:
+    ``(cs, rows)``, route S's slice of ``cs`` channels and the destination
+    rows a block sums, or ``(0, 0)`` for route D (a route by shape, not a
+    fallback). A slice of BWD_SLICE channels (4 where ``c`` is at most 4)
+    over all ``n_out`` rows where that block fits SMEM_MAX (up to 3,632
+    rows), else 4 channels over the fewest equal ranges that fit (7,264
+    rows a block), up to BWD_MAX_RANGES of them (14,528 rows); route D
+    above, or where nothing is written. On the H100 these won at every
+    model shape, f32 and bf16 cotangents alike, and route S lost to route
+    D from four ranges on (PERF.md, section 6). Cached: the wrappers ask
+    at every call."""
+    if n_out <= 0 or c <= 0:
+        return 0, 0
+    cs = BWD_SLICE if c > BWD_SLICE // 2 else BWD_SLICE // 2
+    if bwd_smem(n_out, cs) <= SMEM_MAX:
+        return cs, n_out
+    cs = BWD_SLICES[-1]
+    ranges = -(-n_out // (SMEM_MAX // bwd_smem(1, cs)))
+    if ranges > BWD_MAX_RANGES:
+        return 0, 0
+    return cs, -(-n_out // ranges)
+
+
+def _bwd_launch(name, device, args, dh, b, n, c, k, n_out, route):
+    """Launches route S of the backward ``name`` into ``dh`` (``route =
+    (cs, rows)``) or, with ``cs`` 0, route D, ``name_direct``, through an
+    f64 scratch; ``route`` None: :func:`bwd_slice`."""
+    cs, rows = bwd_slice(n_out, c) if route is None else route
+    if cs:
+        _lib.launch(name, device, *args, dh.data_ptr(), b, n, c, k, n_out,
+                    cs, rows)
+    else:
+        acc = torch.empty((b, n_out, c), dtype=torch.float64,
+                          device=dh.device)
+        _lib.launch(f"{name}_direct", device, *args, dh.data_ptr(),
+                    acc.data_ptr(), b, n, c, k, n_out)
+
+
 def gather_max_bwd(idx, winner, g, n_out: int):
     """The winner-routed backward ``dh [B, n_out, C]`` f32, summed in f64
     and rounded once (the same bits in any order of the adds): plain
     version for CPU tensors, the ``gather_max_bwd`` kernel (f32 ``g``) or
-    ``gather_max_bwd_bf16`` (bf16 ``g``) for CUDA tensors."""
+    ``gather_max_bwd_bf16`` (bf16 ``g``) for CUDA tensors, on the route
+    :func:`bwd_slice` picks (route S; route D under the ``_direct``
+    names)."""
     if g.device.type == "cpu":
         return gather_max_bwd_plain(idx, winner, g, n_out)
+    return _gather_max_bwd(idx, winner, g, n_out)
+
+
+def _gather_max_bwd(idx, winner, g, n_out, route=None):
+    """:func:`gather_max_bwd` on CUDA tensors through ``route`` (``(cs,
+    rows)``; ``(0, 0)`` route D; None: by shape)."""
     b, n, c = g.shape
     k = idx.shape[-1]
     name, dtype = _body("gather_max_bwd", g)
@@ -349,10 +421,9 @@ def gather_max_bwd(idx, winner, g, n_out: int):
         ("winner", winner, torch.int32, (b, n, c)),
         ("g", g, dtype, (b, n, c)),
     ])
-    dh, acc = _bwd_buffers(b, n_out, c, device)
-    _lib.launch(name, device, idx.data_ptr(), winner.data_ptr(),
-                g.data_ptr(), dh.data_ptr(), acc.data_ptr(), b, n, c, k,
-                n_out)
+    dh = torch.empty((b, n_out, c), dtype=torch.float32, device=device)
+    _bwd_launch(name, device, (idx.data_ptr(), winner.data_ptr(),
+                               g.data_ptr()), dh, b, n, c, k, n_out, route)
     return dh
 
 
@@ -393,9 +464,15 @@ def gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, n_out: int):
     """The two-map winner-routed backward ``dh [B, n_out, C]`` f32: plain
     version for CPU tensors, one launch of the ``gather_minmax_bwd``
     kernel (f32 cotangents) or ``gather_minmax_bwd_bf16`` (bf16) for
-    CUDA tensors."""
+    CUDA tensors, routed as :func:`gather_max_bwd`."""
     if gmx.device.type == "cpu":
         return gather_minmax_bwd_plain(idx, wmx, gmx, wmn, gmn, n_out)
+    return _gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, n_out)
+
+
+def _gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, n_out, route=None):
+    """:func:`gather_minmax_bwd` on CUDA tensors through ``route`` (as
+    :func:`_gather_max_bwd`)."""
     b, n, c = gmx.shape
     k = idx.shape[-1]
     name, dtype = _body("gather_minmax_bwd", gmx)
@@ -406,10 +483,10 @@ def gather_minmax_bwd(idx, wmx, gmx, wmn, gmn, n_out: int):
         ("wmn", wmn, torch.int32, (b, n, c)),
         ("gmn", gmn, dtype, (b, n, c)),
     ])
-    dh, acc = _bwd_buffers(b, n_out, c, device)
-    _lib.launch(name, device, idx.data_ptr(), wmx.data_ptr(), gmx.data_ptr(),
-                wmn.data_ptr(), gmn.data_ptr(), dh.data_ptr(), acc.data_ptr(),
-                b, n, c, k, n_out)
+    dh = torch.empty((b, n_out, c), dtype=torch.float32, device=device)
+    _bwd_launch(name, device, (idx.data_ptr(), wmx.data_ptr(),
+                               gmx.data_ptr(), wmn.data_ptr(),
+                               gmn.data_ptr()), dh, b, n, c, k, n_out, route)
     return dh
 
 
@@ -854,22 +931,78 @@ def gather_max_int8_plain(h, idx, mask):
     return _dequantized(best, scale, mask, h.dtype)
 
 
+def absmax_plain(h):
+    """Plain version: each cloud's ``max |h|``, f32 ``[B]``
+    (``vector_norm(inf)`` over every axis after the batch, as
+    :func:`int8_quantize` takes it; a NaN propagates)."""
+    return torch.linalg.vector_norm(h.float(), float("inf"),
+                                    dim=tuple(range(1, h.dim())))
+
+
+def absmax(h):
+    """Each cloud's ``max |h|`` of ``h [B, N, C]`` f32 or bf16, f32
+    ``[B]``: plain version for CPU tensors, the ``absmax`` kernel (a
+    reduction of many blocks a cloud into the f32 bits) for CUDA
+    tensors."""
+    if h.device.type == "cpu":
+        return absmax_plain(h)
+    _, dtype = _body("absmax", h)
+    device = _lib.check_inputs("absmax", [("h", h, dtype, (None,) * 3)])
+    return _absmax_launch(device, h)
+
+
+def _absmax_launch(device, h):
+    """Launches ``absmax`` on ``h [B, N, C]`` into a new ``[B]`` f32."""
+    b, n, c = h.shape
+    amax = torch.empty((b,), dtype=torch.float32, device=h.device)
+    _lib.launch("absmax", device, h.data_ptr(), amax.data_ptr(), b, n, c,
+                int(h.dtype == torch.bfloat16))
+    return amax
+
+
 def gather_max_int8(h, idx, mask):
-    """Plain version for CPU tensors; for CUDA tensors the quantization
-    in torch ops, then the ``gather_max_int8`` kernel, which also
-    dequantizes and zeroes the rows with no valid neighbour."""
+    """Plain version for CPU tensors; for CUDA tensors route S (by shape,
+    :func:`max_slice`): the ``absmax`` kernel, then ``gather_max_int8``,
+    the staged max of ``h`` with a quantizing epilogue (the max commutes
+    with the monotone quantization), two launches and no torch ops; route
+    D, ``gather_max_int8_direct``: the quantization in torch ops, then the
+    earlier kernel on the int8 features. Both dequantize and zero the
+    rows with no valid neighbour."""
     if h.device.type == "cpu":
         return gather_max_int8_plain(h, idx, mask)
-    b, n, c = h.shape
-    k = idx.shape[-1]
+    return _gather_max_int8(h, idx, mask)
+
+
+def _gather_max_int8(h, idx, mask, route=None):
+    """:func:`gather_max_int8` on CUDA tensors through ``route`` (``(cs,
+    splits)``; ``(0, 0)`` route D; None: by shape)."""
     _, dtype = _body("gather_max", h)  # f32 or bf16 features
     device = _check_fwd("gather_max_int8", h, idx, mask, dtype)
-    hq, scale = int8_quantize(h)
     out = torch.empty_like(h)
-    _lib.launch("gather_max_int8", device, hq.data_ptr(), idx.data_ptr(),
-                mask.data_ptr(), scale.data_ptr(), out.data_ptr(), b, n, c, k,
-                int(dtype == torch.bfloat16))
+    _int8_launch(device, h, idx, mask, out, route)
     return out
+
+
+def _int8_launch(device, h, idx, mask, out, route):
+    """The launches of :func:`gather_max_int8` into ``out``: ``route``
+    S ``(cs, splits)`` (None: :func:`max_slice`), or ``(0, 0)``, D."""
+    b, n, c = h.shape
+    k = idx.shape[-1]
+    bf16 = int(h.dtype == torch.bfloat16)
+    if route is None:
+        route = max_slice(b, n, c, h.element_size(), k,
+                          _sm_count(device.index or 0))
+    cs, splits = route
+    if cs:
+        amax = _absmax_launch(device, h)
+        _lib.launch("gather_max_int8", device, h.data_ptr(), idx.data_ptr(),
+                    mask.data_ptr(), amax.data_ptr(), out.data_ptr(), b, n, c,
+                    k, cs, splits, bf16)
+    else:
+        hq, scale = int8_quantize(h)
+        _lib.launch("gather_max_int8_direct", device, hq.data_ptr(),
+                    idx.data_ptr(), mask.data_ptr(), scale.data_ptr(),
+                    out.data_ptr(), b, n, c, k, bf16)
 
 
 def gather_matmul_max_int8_plain(xq, w, idx, mask):

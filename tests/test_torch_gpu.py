@@ -2654,3 +2654,166 @@ def test_edge_mlp_dy_is_repeatable_and_exact(cuda, c0, c1, masked):
     dy_p, _, _ = ops.edge_mlp_bwd_plain(y, a0, b0, w1, idx, g)
     torch.cuda.synchronize()
     assert torch.equal(dy, dy_p), float((dy - dy_p).abs().max())
+
+
+# -- the winner-routed backward's two routes: S (shared sums), D (direct) ----
+
+
+def _bwd_case(rng, b, n, n_out, c, k, dtype, maps, dev):
+    """idx rows in ``[0, min(N, n_out))`` and ``maps`` (winner, g) pairs
+    whose sums are exact in f32 in any order (g on a 1/16 grid, |g| <
+    8: exact in bf16 too), so the plain version and both routes see the
+    same sums; the first cloud's winners put a run of points on one
+    row."""
+    idx = torch.from_numpy(rng.integers(0, min(n, n_out), (b, n, k))
+                           .astype(np.int32)).to(dev)
+    idx[0, :40, 0] = 3  # 40 points' slot 0 on row 3
+    args = [idx]
+    for _ in range(maps):
+        win = torch.from_numpy(rng.integers(0, k, (b, n, c)).astype(
+            np.int32)).to(dev)
+        win[0, :40] = 0
+        g = torch.from_numpy((rng.integers(-127, 128, (b, n, c)) / 16.0)
+                             .astype(np.float32)).to(dev, dtype)
+        args += [win, g]
+    return args
+
+
+# (b, N, n_out, C, K): widths 3 .. 301, n_out below and above N, and the
+# model shapes' clouds (1024, 2048, 8192 points: one range or several).
+BWD_CASES = [(2, 150, 150, 3, 9), (2, 150, 150, 64, 9),
+             (2, 150, 150, 301, 9), (2, 1024, 1024, 64, 20),
+             (2, 1024, 1024, 256, 20), (2, 1024, 700, 64, 20),
+             (2, 700, 1024, 70, 20), (2, 2048, 2048, 128, 30),
+             (1, 8192, 8192, 64, 20), (1, 8192, 8192, 256, 20)]
+
+
+@pytest.mark.parametrize("maps", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,n_out,c,k", BWD_CASES)
+def test_max_bwd_routes_exact(cuda, b, n, n_out, c, k, dtype, maps):
+    """``gather_max_bwd`` (one map) and ``gather_minmax_bwd`` (two) through
+    the route by shape (``bwd_slice``), route D and forced slices of 4
+    channels over three ranges and of 32 over one or more: bit-equal to
+    the plain version (f64 sums rounded once, exact-sum inputs) and to
+    themselves in a second call; the launches show the route."""
+    rng = np.random.default_rng(n + c + k + maps)
+    args = _bwd_case(rng, b, n, n_out, c, k, dtype, maps, cuda)
+    if maps == 1:
+        plain, hook, name = (ops.gather_max_bwd_plain, _GM._gather_max_bwd,
+                             "gather_max_bwd")
+    else:
+        plain, hook, name = (ops.gather_minmax_bwd_plain,
+                             _GM._gather_minmax_bwd, "gather_minmax_bwd")
+    if dtype == torch.bfloat16:
+        name += "_bf16"
+    want = plain(*args, n_out)
+    chosen = _GM.bwd_slice(n_out, c)
+    assert chosen[0] > 0  # every case here fits route S
+    routes = [None, (0, 0), (4, -(-n_out // 3)),
+              (32, min(n_out, _GM.SMEM_MAX // (32 * 8)))]
+    for route in routes:
+        reset_launch_counts()
+        got = hook(*args, n_out, route)
+        again = hook(*args, n_out, route)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launched = f"{name}_direct" if route == (0, 0) else name
+        assert counts[launched] == 2 and sum(counts.values()) == 2, counts
+        assert got.dtype == torch.float32 and got.shape == (b, n_out, c)
+        assert torch.equal(got, want), (route, float((got - want).abs()
+                                                     .max()))
+        assert torch.equal(again, got), route
+    assert want[0, 3].abs().sum() > 0
+
+
+@pytest.mark.parametrize("b,n,c,dtype", [
+    (2, 150, 3, torch.float32), (2, 5, 3, torch.bfloat16),
+    (2, 150, 64, torch.bfloat16), (32, 1024, 128, torch.bfloat16),
+    (32, 1024, 64, torch.float32), (4, 8192, 256, torch.float32),
+    (3, 77, 301, torch.bfloat16)])
+def test_absmax_kernel_exact(cuda, b, n, c, dtype):
+    """``absmax``, the int8 max's per-cloud ``max |h|``, equals
+    ``vector_norm(inf)`` (exact: a max), on widths whose clouds start off
+    16 bytes (the one-value loads) and on aligned ones (16-byte loads); a
+    cloud whose largest magnitude is negative; a NaN propagates to its
+    own cloud only."""
+    gen = torch.Generator(device=cuda).manual_seed(b * n + c)
+    h = torch.randn((b, n, c), device=cuda, generator=gen).to(dtype)
+    h[0, n // 2, c - 1] = -1000.0
+    reset_launch_counts()
+    got = _GM.absmax(h)
+    torch.cuda.synchronize()
+    assert launch_counts()["absmax"] == 1
+    want = torch.linalg.vector_norm(h.float(), float("inf"), dim=(1, 2))
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert float(got[0]) == 1000.0
+    h[-1, 0, 0] = float("nan")
+    got = _GM.absmax(h)
+    assert bool(torch.isnan(got[-1])) and not bool(torch.isnan(got[:-1])
+                                                   .any())
+
+
+def _int8_case(rng, b, n, c, k, dtype, dev):
+    """Features on a coarse grid with each cloud's largest magnitude 128,
+    so ``v / a * 127`` hits the half-way points (+-64 -> +-63.5) and maxes
+    tie; masked slots, a row with no valid slot, ids outside [0, N)."""
+    h = torch.from_numpy((np.round(rng.standard_normal((b, n, c)) * 8) / 2)
+                         .astype(np.float32)).to(dev)
+    h = h.clamp(-100.0, 100.0)
+    h[:, 0, 0] = 128.0
+    h[:, 1, :3] = torch.tensor([64.0, -64.0, 0.5])
+    h = h.to(dtype)
+    idx = torch.from_numpy(rng.integers(0, n, (b, n, k)).astype(
+        np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random((b, n, k)) > 0.3).to(dev)
+    mask[0, 4] = False  # no valid neighbour
+    idx[:, 2, 0], mask[:, 2, 0] = 1, True  # gathers the half-way points
+    idx[0, 5, 0], mask[0, 5, 0] = n + 3, True  # outside the cloud
+    idx[-1, 6, k - 1], mask[-1, 6, k - 1] = -1, True
+    return h, idx, mask
+
+
+def _int8_want(h, idx, mask):
+    """The plain version where ids outside [0, N) gather 0: on ``h`` with
+    a zero row appended (its quantization unchanged), those ids pointed
+    at it."""
+    b, n, c = h.shape
+    hp = torch.cat([h, torch.zeros((b, 1, c), dtype=h.dtype,
+                                   device=h.device)], dim=1)
+    ids = torch.where((idx < 0) | (idx >= n), n, idx)
+    ids = torch.cat([ids, torch.zeros_like(ids[:, :1])], dim=1)
+    valid = torch.cat([mask, torch.zeros_like(mask[:, :1])], dim=1)
+    return ops.gather_max_int8_plain(hp, ids, valid)[:, :n]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c,k", [(2, 150, 64, 9), (2, 150, 128, 20),
+                                     (32, 1024, 64, 20),
+                                     (32, 1024, 128, 20), (2, 150, 3, 9),
+                                     (2, 150, 301, 9), (1, 14527, 64, 20)])
+def test_gather_max_int8_routes_exact(cuda, b, n, c, k, dtype):
+    """``gather_max_int8`` through route S (``absmax``, then the staged
+    max with the quantizing epilogue) and route D (the quantization in
+    torch ops, then the earlier kernel): bit-equal to the plain version
+    (quantize, max, dequantize) and to each other, half-way points, ties,
+    masked slots, a row with no valid slot (0) and ids outside the cloud
+    (0) included; above route S's 14,526 points the route by shape is
+    D."""
+    rng = np.random.default_rng(b + n + c + k)
+    h, idx, mask = _int8_case(rng, b, n, c, k, dtype, cuda)
+    want = _int8_want(h, idx, mask)
+    staged = _GM.max_slice(b, n, c, h.element_size(), k, 132)[0] > 0
+    assert staged == (n <= 14526)
+    for route, launched in ((None, ("absmax", "gather_max_int8") if staged
+                             else ("gather_max_int8_direct",)),
+                            ((0, 0), ("gather_max_int8_direct",))):
+        reset_launch_counts()
+        got = _GM._gather_max_int8(h, idx, mask, route)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert all(counts[m] == 1 for m in launched), counts
+        assert sum(counts.values()) == len(launched), counts
+        assert got.dtype == dtype
+        assert torch.equal(got, want), (route, int((got != want).sum()))
+        assert not got[0, 4].float().any()

@@ -218,6 +218,114 @@ def test_gather_max_int8_plain_matches_jax(dtype, self_slot0):
     assert not got[1, 5:9].float().any()
 
 
+def _max_then_quantize(h, idx, mask):
+    """The int8 max as the card's route S computes it, in torch ops
+    inline: the masked max of the features themselves (an id outside [0,
+    N) gathers 0), then the quantization of that max (``a = max(max |h|,
+    1e-30)``, ``rint(fl(fl(v / a) * 127))`` through an int), dequantized
+    (``fl(q * fl(a / 127))``), 0 on a row with no valid slot."""
+    b, n, c = h.shape
+    hf = torch.cat([h.float(), torch.zeros((b, 1, c))], dim=1)
+    ids = torch.where((idx < 0) | (idx >= n), n, idx).long()
+    rows = torch.gather(hf, 1, ids.reshape(b, -1, 1).expand(-1, -1, c))
+    rows = rows.reshape(b, n, -1, c)
+    best = torch.where(mask[..., None], rows, -torch.inf).amax(dim=2)
+    valid = mask.any(dim=-1, keepdim=True)
+    a = torch.clamp(torch.linalg.vector_norm(h.float(), float("inf"),
+                                             dim=(1, 2)), min=1e-30)
+    q = torch.round(torch.where(valid, best, 0.0) / a[:, None, None]
+                    * 127.0).int()
+    out = q.float() * (a / 127.0)[:, None, None]
+    return torch.where(valid, out, 0.0).to(h.dtype)
+
+
+def _zero_row_graph(h, idx, mask):
+    """``h`` with a zero row appended (its quantization unchanged) and
+    the ids outside [0, N) pointed at it: the port's plain version gathers
+    in range only."""
+    b, n, c = h.shape
+    hp = torch.cat([h, torch.zeros((b, 1, c), dtype=h.dtype)], dim=1)
+    ids = torch.where((idx < 0) | (idx >= n), n, idx)
+    ids = torch.cat([ids, torch.zeros_like(ids[:, :1])], dim=1)
+    return hp, ids, torch.cat([mask, torch.zeros_like(mask[:, :1])], dim=1)
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_max_then_quantize_is_the_int8_max(dtype, seed):
+    """The identity the card's route S rests on: correctly rounded
+    division and multiplication by a positive constant and ``rint`` are
+    monotone non-decreasing, so the max of the quantized rows is the
+    quantization of the max. Max-then-quantize in torch ops is bit-equal
+    to ``gather_max_int8_plain`` (quantize first) and to the JAX kernel
+    in interpret mode, on features on a half-step grid whose clouds' |h|
+    maximum is 128 (so ``v / a * 127`` lands on the half-way points +-63.5
+    and rounds half to even), with ties, masked slots, rows with no valid
+    slot and ids outside [0, N)."""
+    rng = np.random.default_rng(60 + seed)
+    a = (np.round(rng.standard_normal((B, N, 24)) * 8) / 2).clip(-100, 100)
+    a[:, 0, 0] = -128.0 if seed else 128.0
+    a[:, 1, :4] = (64.0, -64.0, 0.5, -0.5)
+    h_j, h = _inputs(rng, None, dtype, a.astype(np.float32))
+    idx = rng.integers(0, N, (B, N, 10)).astype(np.int32)
+    idx[:, 2, :2] = 1  # gathers the half-way points, and only them
+    mask = rng.random((B, N, 10)) > 0.3
+    mask[:, 2, :2], mask[:, 2, 2:] = True, False
+    mask[1, 5:9] = False  # no valid neighbour
+    idx[0, 3, 0], mask[0, 3, 0] = N + 5, True  # outside the cloud
+    idx[1, 4, 9], mask[1, 4, 9] = -1, True
+    got = _max_then_quantize(h, _t(idx), _t(mask))
+    plain = ops.gather_max_int8_plain(*_zero_row_graph(h, _t(idx),
+                                                       _t(mask)))[:, :N]
+    want = jax_gm.gather_max_int8(h_j, jnp.asarray(idx), jnp.asarray(mask),
+                                  interpret=True)
+    assert got.dtype == plain.dtype == h.dtype
+    np.testing.assert_array_equal(_np(got), _np(plain))
+    np.testing.assert_array_equal(_np(got), np.asarray(want, np.float32))
+    assert not got[1, 5:9].float().any()
+    # +-63.5 to even, +-0.496 to 0: the steps times 128 / 127, h's dtype.
+    steps = (torch.tensor([64.0, -64.0, 0.0, 0.0])
+             * (torch.tensor(128.0) / 127.0)).to(h.dtype)
+    assert torch.equal(got[:, 2, :4], steps.expand(B, 4))
+    gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+    np.testing.assert_array_equal(gm.absmax(h).numpy(), np.abs(
+        _np(h)).max(axis=(1, 2)))
+
+
+@pytest.mark.parametrize("n,route,launched", [
+    (1024, None, ("absmax", "gather_max_int8")),  # by shape: route S
+    (14527, None, ("gather_max_int8_direct",)),   # above every slice: D
+    (1024, (0, 0), ("gather_max_int8_direct",)),  # forced route D
+    (1024, (32, 3), ("absmax", "gather_max_int8")),
+])
+def test_int8_max_wrapper_launches_the_route(monkeypatch, n, route,
+                                             launched):
+    """``gather_max_int8``'s launches on CUDA tensors (recorded in place
+    of the launch; meta tensors, no card): route S, ``absmax`` and then
+    the staged max with ``max_slice``'s slice and splits and the bf16 flag
+    last; route D, the earlier kernel on the quantized features, after
+    the quantization in torch ops."""
+    gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+    calls = []
+    monkeypatch.setattr(gm._lib, "launch", lambda kernel, device, *args:
+                        calls.append((kernel, args)))
+    monkeypatch.setattr(gm, "_sm_count", lambda index: 132)
+    b, c, k = 32, 128, 20
+    h = torch.empty((b, n, c), dtype=torch.bfloat16, device="meta")
+    idx = torch.empty((b, n, k), dtype=torch.int32, device="meta")
+    mask = torch.empty((b, n, k), dtype=torch.bool, device="meta")
+    out = torch.empty_like(h)
+    gm._int8_launch(torch.device("cuda", 0), h, idx, mask, out, route)
+    assert tuple(name for name, _ in calls) == launched
+    if launched[0] == "absmax":
+        assert calls[0][1][2:] == (b, n, c, 1)
+        want = route or gm.max_slice(b, n, c, 2, k, 132)
+        assert want[0] > 0
+        assert calls[1][1][5:] == (b, n, c, k, *want, 1)
+    else:
+        assert calls[0][1][5:] == (b, n, c, k, 1)
+
+
 def test_gather_matmul_max_int8_plain_matches_jax():
     """Within one bf16 ulp of the JAX kernel in interpret mode; bit-equal
     where the sums are exact in any order (weights in 1/16 steps)."""

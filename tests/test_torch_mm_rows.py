@@ -284,6 +284,83 @@ def test_max_wrapper_launches_the_route(monkeypatch, name, n, route,
     assert calls == [(name + launched, (11, 12, 32, n, c, 20) + extra)]
 
 
+# -- the winner-routed backward: route S (shared f64 sums) or route D ------
+
+
+@pytest.mark.parametrize("n_out,c,want", [
+    (1024, 64, (8, 1024)),    # the cls steps, conv0/conv1: one range
+    (1024, 256, (8, 1024)),   # conv3
+    (2048, 128, (8, 2048)),   # the seg steps
+    (3632, 64, (8, 3632)),    # the most rows of 8 channels
+    (3633, 64, (4, 3633)),    # above: 4 channels, one range
+    (8192, 256, (4, 4096)),   # the large-cloud steps: two ranges
+    (14528, 64, (4, 7264)),   # the most rows of two ranges
+    (14529, 64, (0, 0)),      # above: route D
+    (65536, 64, (0, 0)),      # a point-shard table
+    (150, 3, (4, 150)),       # 3 channels: the narrowest slice
+    (150, 5, (8, 150)),
+    (0, 64, (0, 0)),          # nothing to write
+])
+def test_bwd_slice_routes(n_out, c, want):
+    """``bwd_slice``: route S's slice (channels) and rows a block at the
+    model shapes, each block within SMEM_MAX; route D beyond
+    BWD_MAX_RANGES ranges of rows."""
+    got = GM.bwd_slice(n_out, c)
+    assert got == want
+    if got[0]:
+        assert GM.bwd_smem(got[1], got[0]) <= GM.SMEM_MAX
+        assert got[0] in GM.BWD_SLICES
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bwd_slice_rules_hold(seed):
+    """On random shapes: BWD_SLICE channels (4 for features of at most 4)
+    over one range of all rows where that block fits SMEM_MAX; else 4
+    channels over the fewest equal ranges that fit, each block within
+    SMEM_MAX and the ranges covering every row; route D only beyond
+    BWD_MAX_RANGES ranges."""
+    rng = np.random.default_rng(seed)
+    for _ in range(300):
+        n_out = int(rng.integers(1, 20000))
+        c = int(rng.integers(1, 600))
+        cs, rows = GM.bwd_slice(n_out, c)
+        first = GM.BWD_SLICE if c > GM.BWD_SLICE // 2 else 4
+        if GM.bwd_smem(n_out, first) <= GM.SMEM_MAX:
+            assert (cs, rows) == (first, n_out)
+            continue
+        ranges = -(-n_out // (GM.SMEM_MAX // GM.bwd_smem(1, 4)))
+        if ranges > GM.BWD_MAX_RANGES:
+            assert (cs, rows) == (0, 0)
+            continue
+        assert cs == 4 and GM.bwd_smem(rows, cs) <= GM.SMEM_MAX
+        assert -(-n_out // rows) == ranges
+        if ranges > 1:  # no fewer ranges would fit
+            assert GM.bwd_smem(-(-n_out // (ranges - 1)), cs) > GM.SMEM_MAX
+
+
+def test_bwd_smem_counts_the_cuda_block():
+    """``bwd_smem`` is the CUDA source's ``bwd_smem_bytes`` (rows x Cs
+    f64 sums), the slices are those the launcher takes, and its limit is
+    SMEM_MAX: the expressions read from ``csrc/gather_max.cu`` and
+    ``csrc/gather_matmul_max_rows.cuh``."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(GM.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "gather_max.cu").read_text()
+    body = re.search(r"inline size_t bwd_smem_bytes\(int rows, int CS\) "
+                     r"\{\s*return ([^;]+);", src).group(1)
+    expr = body.replace("(size_t)", "").replace("sizeof(double)", "8")
+    for rows, cs in ((1024, 8), (2048, 4), (150, 32), (2421, 4)):
+        assert eval(expr, {"rows": rows, "CS": cs}) == GM.bwd_smem(rows, cs)
+    taken = re.search(r"if \(\(Cs != (\d+) && Cs != (\d+) && Cs != (\d+) "
+                      r"&& Cs != (\d+)\) \|\| rows < 1", src)
+    assert sorted(int(v) for v in taken.groups()) == sorted(GM.BWD_SLICES)
+    rows_src = (csrc / "gather_matmul_max_rows.cuh").read_text()
+    limit = re.search(r"kRowsSmemMax = (\d+);", rows_src).group(1)
+    assert int(limit) == GM.SMEM_MAX
+
+
 # -- the plain versions against the JAX package ----------------------------
 
 

@@ -308,6 +308,39 @@ def test_max_bwd_is_the_exact_sum_rounded_once(dtype, two_maps):
     assert not torch.equal(f32[0], f32[1])  # the data tells orders apart
 
 
+@pytest.mark.parametrize("name", ["gather_max_bwd", "gather_max_bwd_bf16",
+                                  "gather_minmax_bwd",
+                                  "gather_minmax_bwd_bf16"])
+@pytest.mark.parametrize("n_out,route,launched", [
+    (1024, None, ""),           # by shape: route S, bwd_slice's
+    (65536, None, "_direct"),   # beyond route S's ranges: route D
+    (1024, (0, 0), "_direct"),  # forced route D
+    (1024, (16, 300), ""),      # a given slice and range
+])
+def test_bwd_wrapper_launches_the_route(monkeypatch, name, n_out, route,
+                                        launched):
+    """``_bwd_launch``, the last step of ``gather_max_bwd``'s and
+    ``gather_minmax_bwd``'s wrappers, launches the route that
+    ``bwd_slice`` names (its slice and rows the last arguments, no
+    scratch) or route D's ``_direct`` kernel with its f64 scratch
+    (recorded in place of the launch; meta tensors, no card)."""
+    gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+    calls = []
+    monkeypatch.setattr(gm._lib, "launch", lambda kernel, device, *args:
+                        calls.append((kernel, args)))
+    b, n, c, k = 32, 1024, 64, 20
+    dh = torch.empty((b, n_out, c), device="meta")
+    gm._bwd_launch(name, torch.device("cuda", 0), (11, 12, 13), dh, b, n, c,
+                   k, n_out, route)
+    if launched:
+        assert calls == [(name + launched, (11, 12, 13, 0, 0, b, n, c, k,
+                                            n_out))]
+        return
+    want = route or gm.bwd_slice(n_out, c)
+    assert want[0] > 0
+    assert calls == [(name, (11, 12, 13, 0, b, n, c, k, n_out, *want))]
+
+
 def test_sum_bwd_is_the_exact_sum_rounded_once():
     """The neighbour sum's streaming backward (``gather_sum_bwd``) is each
     row's exact sum of the masked cotangents rounded once to f32, as the

@@ -246,7 +246,10 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_matmul_max_win": 0, "gather_matmul_max_win_kfold": 0,
         "gather_max_bf16": 0,
         "gather_mlp_max": 0, "mlp_rows": 0, "gather_max_merge": 0,
-        "densify_int8": 0, "gather_max_int8": 0,
+        "densify_int8": 0, "absmax": 0, "gather_max_int8": 0,
+        "gather_max_int8_direct": 0, "gather_max_bwd_direct": 0,
+        "gather_max_bwd_bf16_direct": 0, "gather_minmax_bwd_direct": 0,
+        "gather_minmax_bwd_bf16_direct": 0,
         "gather_matmul_max_int8": 0, "gather_matmul_max_int8_kfold": 0,
         "inverse_adjacency": 0,
         "scatter_rows": 0,
