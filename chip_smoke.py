@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the sixty-two CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the sixty-three CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -22,7 +22,10 @@ first on ``sys.path``. It
    N=2048, K=30: the bf16 max without winners at C=128, gather_mlp_max
    at conv0, 3 -> 64 -> 64 (the fused kernel), and conv2, 128 -> 256 ->
    256 (mlp_rows, then gather_max_merge, each also held alone); int8
-   serving's densify_int8, gather_max_int8 at C = 64 and 128 (and 128 at the
+   serving's densify_int8 at both models' shapes (on the clouds' operator
+   coefficients, and with half-way quotients and an all-zero cloud; all
+   four outputs bit-equal, and across two calls), gather_max_int8 at C =
+   64 and 128 (and 128 at the
    segmentation shapes) through both routes (route S, by shape: absmax,
    then the staged max with a quantizing epilogue; route D,
    ``gather_max_int8_direct``, forced), bit-equal, absmax equal to
@@ -40,7 +43,13 @@ first on ``sys.path``. It
    large clouds' bf16 step and f32 backward, and the two-map form at
    C=256, bit-equal to the plain version on exact-sum cotangents and
    across two calls, timed the same way with every slice that fits, and
-   the int8 max's two routes at its forwards' shapes;
+   the int8 max's two routes at its forwards' shapes; ``[affine-routes]``:
+   the bf16 eval max (gather_max_affine) at B=32, N=1024 and B=4,
+   N=8192, C = 64 with and without the self row and 128, through route S
+   (by shape; its affine rows read from device memory) and route D (``gather_max_affine_direct``, forced), on
+   the kNN graph and on hard rows (no valid slot, a masked slot 0, ids
+   outside the cloud, a NaN), bit-equal to the plain version and across
+   two calls, each timed;
    and the int8 matmul max through its one-product-a-row route and its
    K-fold route (``_kfold``), bit-equal to each other; the
    large-cloud kernels at B=4, N=8192, K=20 on the clouds' own
@@ -113,9 +122,11 @@ first on ``sys.path``. It
    bf16 classification step, a 4-cloud large-cloud bf16 forward, a
    large-cloud bf16 step, a large-cloud f32 forward, a 32-cloud f32
    classification forward, the f32 classification step, a 32-cloud int8
-   classification forward and a 16-cloud bf16 segmentation forward (each
-   bf16 path launches the matmul max's one-product-a-row kernel once a
-   call and its K-fold route never, which their phases check);
+   classification forward and 16-cloud bf16 and int8 segmentation
+   forwards (each bf16 classification path launches the matmul max's
+   one-product-a-row kernel once a call and its K-fold route never, and
+   each bf16 forward gather_max_affine three times and its route D never,
+   which their phases check);
 6. trains the f32 model at the reference recipe (B=32 clouds of
    N=1024, SGD lr 0.1, momentum 0.9, weight decay 1e-4, label smoothing
    0.2, dropout 0.5 from a seeded CUDA generator) for 20 steps on one
@@ -315,12 +326,17 @@ first on ``sys.path``. It
     14,526 and the backward's 14,528): ``ops.gather_max`` on f32 and bf16
     features, without and with grad, ``ops.gather_minmax`` with grad and
     ``ops.gather_max_int8`` launch each body's route D kernels once and
-    route S never, forward and backward bit-equal to the plain versions;
+    route S never, ``ops.gather_max_affine`` (bf16, with and without the
+    self row) ``gather_max_affine_direct`` twice, forward and backward
+    bit-equal to the plain versions;
 29. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
     gather plan's build where the package has one), ``[kernel-times]``
-    (``ops.gather_max_int8`` and ``ops.gather_max_bwd`` at their model
+    (``ops.gather_max_affine`` and ``ops.densify_coefs_int8`` at their
+    model shapes in device time and by CUDA events, with their bounds and
+    at the record shapes the plain and library device times;
+    ``ops.gather_max_int8`` and ``ops.gather_max_bwd`` at their model
     shapes in device time) and ``[device-times]`` on that checkout's
     package (this script copied
     into its root) and on this tree, in turns: parent, this, this,
@@ -507,6 +523,13 @@ BWD_ROUTE_SHAPES = (
 INT8_ROUTE_SHAPES = (("int8 cls forward", B, N, K, INT8_WIDTHS),
                      ("int8 seg forward", SEG_B, SEG_N, SEG_K,
                       (SEG_MAX_WIDTH,)))
+# The bf16 eval max (gather_max_affine) where the model paths run it:
+# (label, B, N, K) of the bf16 classification forward and the large-cloud
+# bf16 forward, and (C, sub_self) of conv0 (the self row subtracted),
+# conv1 and conv2.
+AFFINE_SHAPES = (("bf16 cls forward", B, N, K),
+                 ("large bf16 forward", LARGE_B, LARGE_N, K))
+AFFINE_WIDTHS = ((64, True), (64, False), (128, False))
 # [max-direct]: one cloud above route S's 14,526 points (and above the
 # backward's route S: more than four ranges of rows).
 MAX_DIRECT_N = 14600
@@ -515,7 +538,7 @@ MAX_DIRECT_KERNELS = ("gather_max_direct", "gather_max_win_direct",
                       "gather_max_bwd_direct", "gather_max_bwd_bf16_direct",
                       "gather_minmax_bwd_direct",
                       "gather_minmax_bwd_bf16_direct",
-                      "gather_max_int8_direct")
+                      "gather_max_int8_direct", "gather_max_affine_direct")
 
 # Point-sharded serving of ONE large cloud (bench.py --mode=point-shard,
 # bench.py:351-407): 65,536 points, the reference-width classifier in
@@ -641,6 +664,10 @@ KERNEL_META = {
                      "deltaconv_tpu/ops/densify_op.py:249"),
     "gather_max_affine": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
                           "deltaconv_tpu/ops/gather_max.py:666"),
+    # Route D of the bf16 eval max (the earlier kernel, a route by shape).
+    "gather_max_affine_direct": (
+        "deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
+        "deltaconv_tpu/ops/gather_max.py:666"),
     "gather_matmul_max": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
                           "deltaconv_tpu/ops/gather_max.py:756"),
     "gather_matmul_max_kfold": (
@@ -777,13 +804,17 @@ TRAIN_LARGE_KERNELS = ("knn_topk", "gather_rows", "wls", *COEF_KERNELS,
 # them: classification conv0-2 the int8 max, conv3 (lane-narrower) the
 # int8 matmul max; segmentation conv1 the int8 max, conv0 the fused
 # gather_mlp_max (centralized), conv2 mlp_rows and gather_max_merge; bf16
-# segmentation the same MLP maxes.
-INT8_PER_FORWARD = {"densify_int8": 1, "absmax": 3, "gather_max_int8": 3,
+# segmentation the same MLP maxes. absmax: one a route-S int8 max and two
+# a densify_int8 (the grad and the div coefficients).
+INT8_PER_FORWARD = {"densify_int8": 1, "absmax": 5, "gather_max_int8": 3,
                     "gather_max_int8_direct": 0,
                     "gather_matmul_max_int8": 1}
+# The bf16 eval max on the bf16 classification and large-cloud forwards:
+# conv0-2, each on route S.
+BF16_PER_FORWARD = {"gather_max_affine": 3, "gather_max_affine_direct": 0}
 SEG_MLP_PER_FORWARD = {"gather_mlp_max": 1, "mlp_rows": 1,
                        "gather_max_merge": 1}
-SEG_INT8_PER_FORWARD = {"densify_int8": 1, "absmax": 1,
+SEG_INT8_PER_FORWARD = {"densify_int8": 1, "absmax": 3,
                         "gather_max_int8": 1, "gather_max_int8_direct": 0,
                         **SEG_MLP_PER_FORWARD}
 # Width of the record's time: the widest conv for the max, the first
@@ -1088,6 +1119,39 @@ def mm_win_held(out, win, win_p, x, w, idx, mask):
             f"exact products at the two slots within the sum bound: {near}")
 
 
+def densify_int8_held(record, idx, gc, dc):
+    """densify_int8 bit-equal to its plain version in all four outputs,
+    planes and scales, and across two calls: on the clouds' operator
+    coefficients, and on them with cloud 0's grad scale set to 128 and
+    two of its coefficients to +-64 (the quotients +-63.5, half to even)
+    and the last cloud's div coefficients zero (the 1e-30 clamp)."""
+    from deltaconv_tpu_torch import ops
+
+    hard_g, hard_d = gc.clone(), dc.clone()
+    hard_g[0, 0, 0, 0] = 128.0
+    hard_g[0, 1, 1:3, 0] = torch.tensor([64.0, -64.0])
+    hard_d[-1] = 0.0
+    for label, g, d in (("operator coefficients", gc, dc),
+                        ("half-way quotients and a zero cloud", hard_g,
+                         hard_d)):
+        got = ops.densify_coefs_int8(idx, g, d)
+        again = ops.densify_coefs_int8(idx, g, d)
+        want = ops.densify_coefs_int8_plain(idx, g, d)
+        err = max(max_err(a.float(), w.float()) for a, w in zip(got, want))
+        record("densify_int8", err)
+        ok = all(torch.equal(a, w) and torch.equal(a, r)
+                 for a, w, r in zip(got, want, again))
+        if g is hard_g:
+            ok = (ok and int(got[0][0, 0, 1, idx[0, 1, 1]]) == 64
+                  and int(got[0][0, 0, 1, idx[0, 1, 2]]) == -64
+                  and not bool(got[1][-1].any()))
+        check(f"densify_int8 B={idx.shape[0]} N={idx.shape[1]} K="
+              f"{idx.shape[2]}, {label}", ok,
+              f"planes and scales equal to plain and across two calls, "
+              f"max_abs_err {err}")
+        del got, again, want
+
+
 def check_int8_kernels(record, idx, nbr_mask, gd, dev):
     """The kernels of int8 serving against their plain versions at the
     classification shapes: densify_int8 (planes and scales equal),
@@ -1101,14 +1165,7 @@ def check_int8_kernels(record, idx, nbr_mask, gd, dev):
 
     gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
 
-    gc, dc = gd.grad_coef, gd.div_coef
-    got = ops.densify_coefs_int8(idx, gc, dc)
-    want = ops.densify_coefs_int8_plain(idx, gc, dc)
-    err = max(max_err(g.float(), w.float()) for g, w in zip(got, want))
-    record("densify_int8", err)
-    check("densify_int8", all(torch.equal(g, w) for g, w in zip(got, want)),
-          f"planes and scales equal, max_abs_err {err}")
-    del got, want
+    densify_int8_held(record, idx, gd.grad_coef, gd.div_coef)
     for c in INT8_WIDTHS:
         for dt in (torch.bfloat16, torch.float32):
             h = torch.randn((B, N, c), device=dev).to(dt)
@@ -1298,6 +1355,27 @@ def time_library_calls(res, table, idx, nbr_mask, aff128, x, w, aff256, xq,
         print(f"  {name}: library call {res[name]['library_ms']:.4f} ms")
 
 
+def densify_int8_library(idx, gc, dc):
+    """The library composition of densify_int8 as a function of no
+    arguments: the torch quantization, then zero fill, ``scatter_add_``
+    in f32 (both operators as the four planes of one ``[B, 4, N, N]``
+    tensor; the index and the planes' coefficients made here, outside the
+    timed calls), cast to int8."""
+    b, n, k = idx.shape
+    index4 = idx.long()[:, None].expand(b, 4, n, k)
+    coef4 = torch.cat([gc, dc], dim=-1).permute(0, 3, 1, 2).contiguous()
+
+    def run():
+        s_g = torch.clamp(gc.abs().amax(dim=(1, 2, 3)), min=1e-30)
+        s_d = torch.clamp(dc.abs().amax(dim=(1, 2, 3)), min=1e-30)
+        s4 = torch.stack([s_g, s_g, s_d, s_d], dim=1)[:, :, None, None]
+        q = torch.clamp(torch.round(coef4 / s4 * 127.0), -127.0, 127.0)
+        return torch.zeros((b, 4, n, n), device=idx.device).scatter_add_(
+            3, index4, q).to(torch.int8)
+
+    return run
+
+
 def int8_library_max(h, bidx, idx_l):
     """gather_max_int8 by library calls: the per-cloud quantization, the
     ``index`` gather and ``amax`` of the int8 rows, the dequantization."""
@@ -1468,13 +1546,7 @@ def check_seg_kernels(record, idx, nbr_mask, gd, dev):
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.ops.gather_max import NEG
 
-    got = ops.densify_coefs_int8(idx, gd.grad_coef, gd.div_coef)
-    want = ops.densify_coefs_int8_plain(idx, gd.grad_coef, gd.div_coef)
-    err = max(max_err(g.float(), w.float()) for g, w in zip(got, want))
-    record("densify_int8", err)
-    check("densify_int8", all(torch.equal(g, w) for g, w in zip(got, want)),
-          f"planes and scales equal, max_abs_err {err}")
-    del got, want
+    densify_int8_held(record, idx, gd.grad_coef, gd.div_coef)
     h = torch.randn((SEG_B, SEG_N, SEG_MAX_WIDTH),
                     device=dev).to(torch.bfloat16)
     got = ops.gather_max(h, idx, nbr_mask)
@@ -2152,6 +2224,120 @@ def max_routes_phase(res, rng, dev, card):
         library_ms=res["gather_matmul_max_int8"]["library_ms"])
 
 
+def same_values(got, want) -> bool:
+    """Bit-equal but where both are NaN (its payload is not held)."""
+    nan = torch.isnan(got.float())
+    return bool(torch.equal(nan, torch.isnan(want.float()))) and bits_equal(
+        torch.where(nan, 0.0, got.float()).to(got.dtype),
+        torch.where(nan, 0.0, want.float()).to(want.dtype))
+
+
+def affine_want(h, idx, mask, aff, sub_self):
+    """``gather_max_affine_plain`` where ids outside [0, N) gather 0 (the
+    self row's too): on ``h`` with a zero row appended, those ids pointed
+    at it."""
+    from deltaconv_tpu_torch import ops
+
+    b, n, c = h.shape
+    hp = torch.cat([h, torch.zeros((b, 1, c), dtype=h.dtype,
+                                   device=h.device)], dim=1)
+    ids = torch.where((idx < 0) | (idx >= n), n, idx)
+    ids = torch.cat([ids, torch.zeros_like(ids[:, :1])], dim=1)
+    valid = torch.cat([mask, torch.zeros_like(mask[:, :1])], dim=1)
+    return ops.gather_max_affine_plain(hp, ids, valid, aff, sub_self)[:, :n]
+
+
+def affine_routes_phase(res, rng, dev, card):
+    """``[affine-routes]``: the bf16 eval max (``gather_max_affine``) at
+    the shapes and widths where the bf16 forwards run it (AFFINE_SHAPES,
+    AFFINE_WIDTHS), on ellipsoid clouds' kNN graphs and on the same graph
+    with hard rows (no valid slot, a masked slot 0, ids outside the cloud
+    in slot 0 and in a later slot) and a NaN feature: route S (by shape,
+    the affine rows read from device memory) and route D (``gather_max_affine_direct``, forced)
+    bit-equal to the plain version (a NaN's payload aside) and across two
+    calls, each call's launch on its route; then on the kNN graph each
+    timed by CUDA events and in device time beside the plain version, the
+    library composition (``index`` + ``amax``, then the epilogue in torch
+    ops) and the bound (h, idx, mask, aff read once, out written once).
+    Route D is the parent tree's kernel, unchanged. Its clouds come from
+    a generator spawned off ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import knn
+
+    gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+    rng = rng.spawn(1)[0]
+    print(f"[times] the bf16 eval max by route: S (the slice staged, the "
+          f"affine rows from device memory) and D (direct, the parent's "
+          f"kernel); per call, CUDA events (median of {REPS} "
+          f"samples of {INNER} calls) and device time (profiler); card: "
+          f"{card}", flush=True)
+    for label, b, n, k in AFFINE_SHAPES:
+        clouds, _ = ellipsoid_clouds(rng, [n] * b)
+        idx, nbr_mask = knn(torch.from_numpy(np.stack(clouds)).to(dev), k)
+        hidx, hmask = idx.clone(), nbr_mask.clone()
+        hmask[0, 4] = False  # no valid slot
+        hmask[0, 6, 0] = False  # a masked slot 0: still the self row
+        hidx[0, 5, 0] = n + 3  # slot 0 outside the cloud
+        hidx[-1, 9, 0], hmask[-1, 9, 0] = -2, False
+        hidx[-1, 6, k - 1], hmask[-1, 6, k - 1] = -1, True
+        bidx = torch.arange(b, device=dev)[:, None, None]
+        idx_l = idx.long()
+        valid = nbr_mask.any(dim=-1, keepdim=True)
+        for c, sub_self in AFFINE_WIDTHS:
+            h = torch.randn((b, n, c), device=dev).to(torch.bfloat16)
+            hard = h.clone()
+            hard[-1, 7, c // 2] = float("nan")
+            aff = random_affine(c, dev)
+            routes = {"S": None, "D": (0, 0)}
+            for graph, gi, gmk, hh in (("kNN", idx, nbr_mask, h),
+                                       ("hard rows", hidx, hmask, hard)):
+                want = affine_want(hh, gi, gmk, aff, sub_self)
+                for tag, route in routes.items():
+                    name = "gather_max_affine" + ("_direct" if tag == "D"
+                                                  else "")
+                    reset_launch_counts()
+                    got = gm._gather_max_affine(hh, gi, gmk, aff, sub_self,
+                                                route)
+                    again = gm._gather_max_affine(hh, gi, gmk, aff, sub_self,
+                                                  route)
+                    torch.cuda.synchronize()
+                    counts = launch_counts()
+                    check(f"[affine-routes] {label} C={c} sub_self="
+                          f"{sub_self} {graph}, route {tag}",
+                          same_values(got, want) and bits_equal(got, again)
+                          and counts[name] == 2
+                          and sum(counts.values()) == 2,
+                          f"bit-equal to plain and across two calls, launches "
+                          f"{ {m: v for m, v in counts.items() if v} }")
+                    if graph == "kNN":
+                        res[name]["max_abs_err"] = max(
+                            res[name]["max_abs_err"],
+                            max_err(got.float(), want.float()))
+            t = {tag: (median_ms(lambda: gm._gather_max_affine(
+                h, idx, nbr_mask, aff, sub_self, route)), device_ms(
+                    lambda: gm._gather_max_affine(h, idx, nbr_mask, aff,
+                                                  sub_self, route), 5))
+                 for tag, route in routes.items()}
+            pl = median_ms(lambda: ops.gather_max_affine_plain(
+                h, idx, nbr_mask, aff, sub_self), 5)
+            self_rows = h[bidx[:, :, 0], idx_l[..., 0]].float() if sub_self \
+                else None
+            lib = median_ms(lambda: ops.bn_lrelu_epilogue(
+                h[bidx, idx_l].amax(dim=2).float(), aff, valid, self_rows))
+            bd = bound(nbytes(h, idx, nbr_mask, torch.stack(aff), h))
+            cs, splits = gm.max_slice(b, n, c, 2, k, 132)
+            print(f"  {label} B={b} N={n} K={k} C={c} sub_self={sub_self}: "
+                  f"route S ({cs} channels, {splits} blocks a task) "
+                  f"{t['S'][0]:.4f} ms ({t['S'][1]:.4f} ms of device time); "
+                  f"route D {t['D'][0]:.4f} ({t['D'][1]:.4f}); plain "
+                  f"{pl:.4f}; library {lib:.4f}; bound {bd[0]:.4f} ms "
+                  f"({bd[1]})", flush=True)
+            if (b, n, c, sub_self) == (B, N, 128, False):
+                res["gather_max_affine_direct"].update(
+                    ms=t["D"][0], plain_ms=pl, library_ms=lib, bound=bd)
+            del h, hard, want, got, again
+
+
 def exact_cotangents(b, n, c, dt, dev):
     """Cotangents on a 1/16 grid below 8 in magnitude: their sums at a
     (row, c) are exact in f32 (and the values in bf16) in any order, so a
@@ -2349,9 +2535,11 @@ def max_direct_phase(rng, dev):
     sums would need more than two ranges of rows): ``ops.gather_max`` on
     f32 and bf16 features, without grad and with grad (forward and
     backward), ``ops.gather_minmax`` with grad and ``ops.gather_max_int8``
-    launch each body's route D kernels once and route S never, bit-equal
-    to the plain versions (the backward sums in f64: bit-equal too). Its
-    cloud comes from a generator spawned off ``rng``."""
+    launch each body's route D kernels once and route S never, and
+    ``ops.gather_max_affine`` (bf16, with and without the self row)
+    ``gather_max_affine_direct`` twice, bit-equal to the plain versions
+    (the backward sums in f64: bit-equal too). Its cloud comes from a
+    generator spawned off ``rng``."""
     from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
     from deltaconv_tpu_torch.geometry import knn
 
@@ -2374,6 +2562,10 @@ def max_direct_phase(rng, dev):
         mx, mn = ops.gather_minmax(hm, idx, nbr_mask)
         torch.autograd.backward((mx, mn), (g, g2))
         q = ops.gather_max_int8(h, idx, nbr_mask)
+        aff = random_affine(64, dev)
+        eval_max = ([ops.gather_max_affine(h, idx, nbr_mask, aff, sub_self)
+                     for sub_self in (False, True)]
+                    if dt == torch.bfloat16 else [])
         torch.cuda.synchronize()
         counts = launch_counts()
         hp = h.clone().requires_grad_()
@@ -2390,8 +2582,11 @@ def max_direct_phase(rng, dev):
         staged = (f"gather_max{sfx}", f"gather_max_win{sfx}",
                   f"gather_max_bwd{sfx}", f"gather_minmax_bwd{sfx}",
                   "gather_max_int8", "absmax")
+        if eval_max:
+            direct += ("gather_max_affine_direct",) * 2
+            staged += ("gather_max_affine",)
         check(f"[max-direct] {str(dt)[6:]}: route D once each, route S "
-              f"never", all(counts[m] == 1 for m in direct)
+              f"never", all(counts[m] == direct.count(m) for m in direct)
               and not any(counts[m] for m in staged),
               f"{[counts[m] for m in direct]}, {[counts[m] for m in staged]}")
         check(f"[max-direct] {str(dt)[6:]}: bit-equal",
@@ -2399,9 +2594,12 @@ def max_direct_phase(rng, dev):
               and bits_equal(out_g.detach(), want.detach())
               and bits_equal(hg.grad, hp.grad)
               and bits_equal(hm.grad, hmp.grad)
-              and bits_equal(q, ops.gather_max_int8_plain(h, idx, nbr_mask)),
+              and bits_equal(q, ops.gather_max_int8_plain(h, idx, nbr_mask))
+              and all(bits_equal(got, ops.gather_max_affine_plain(
+                  h, idx, nbr_mask, aff, sub_self))
+                      for got, sub_self in zip(eval_max, (False, True))),
               "the max forward with and without winners and its backward, "
-              "the min/max backward, the int8 max")
+              "the min/max backward, the int8 max, the bf16 eval max")
         for name in MAX_DIRECT_KERNELS:
             total[name] += counts[name]
     return total
@@ -2627,16 +2825,8 @@ def kernel_phase(rng, dev, card):
         lambda: torch.zeros((B, 4, N, N), device=dev).scatter_add_(
             3, index4, coef4).to(torch.bfloat16))
 
-    def int8_library():
-        """The torch quantization, then zero fill, scatter_add_, cast."""
-        s_g = torch.clamp(gc.abs().amax(dim=(1, 2, 3)), min=1e-30)
-        s_d = torch.clamp(dc.abs().amax(dim=(1, 2, 3)), min=1e-30)
-        s4 = torch.stack([s_g, s_g, s_d, s_d], dim=1)[:, :, None, None]
-        q = torch.clamp(torch.round(coef4 / s4 * 127.0), -127.0, 127.0)
-        return torch.zeros((B, 4, N, N), device=dev).scatter_add_(
-            3, index4, q).to(torch.int8)
-
-    res["densify_int8"]["library_ms"] = median_ms(int8_library)
+    res["densify_int8"]["library_ms"] = median_ms(
+        densify_int8_library(idx, gc, dc))
     ones = nbr_mask.float()
     idx_l = idx.long()
     res["adjacency"]["library_ms"] = median_ms(
@@ -2744,6 +2934,7 @@ def kernel_phase(rng, dev, card):
     time_edge_mlp_kernels(res, seg_cases["uniform"][0], dev, card)
     matmul_max_phase(res, rng, dev, card)
     max_routes_phase(res, rng, dev, card)
+    affine_routes_phase(res, rng, dev, card)
     bwd_routes_phase(res, rng, dev, card)
     del seg_cases, cases
     knn_kernel_phase(res, rng, dev, card)
@@ -2919,11 +3110,12 @@ def serve_lowp_phase(clouds, seed, dev, card, precision):
     for name in path:
         check(f"{name} launched", counts[name] > 0,
               f"{counts[name]} launches")
-    if precision == "int8":
-        for name, per in INT8_PER_FORWARD.items():
-            check(f"{name} {per} a forward", counts[name] == per * forwards,
-                  f"{counts[name]} launches in {forwards} forwards")
-    else:
+    per_forward = (INT8_PER_FORWARD if precision == "int8"
+                   else BF16_PER_FORWARD)
+    for name, per in per_forward.items():
+        check(f"{name} {per} a forward", counts[name] == per * forwards,
+              f"{counts[name]} launches in {forwards} forwards")
+    if precision != "int8":
         matmul_max_once("gather_matmul_max", counts, forwards, "forward")
     for label, cl, normals, got in (("uniform", uni, uni_n, logits_u),
                                     ("ragged", rag, rag_n, logits_r)):
@@ -3204,9 +3396,10 @@ def path_device_times(seed, dev, card):
     bf16 forward (N=8192, coefficient form), the large-cloud bf16 step,
     the large-cloud f32 forward, a 32-cloud f32 classification forward
     (exact kNN), the f32 classification step (reference recipe), a
-    32-cloud int8 classification forward (approximate kNN) and a 16-cloud
-    bf16 segmentation forward (approximate kNN, categories), each after
-    PATH_WARMUP calls. Public functions only, as :func:`conv3_forms`."""
+    32-cloud int8 classification forward (approximate kNN) and 16-cloud
+    bf16 and int8 segmentation forwards (approximate kNN, categories),
+    each after PATH_WARMUP calls. Public functions only, as
+    :func:`conv3_forms`."""
     from deltaconv_tpu_torch import InferenceEngine
     from deltaconv_tpu_torch.training import (create_train_state,
                                               make_train_step, sgd_momentum)
@@ -3273,10 +3466,11 @@ def path_device_times(seed, dev, card):
     del state, step, model, batch
     model = random_seg_model(seed, dev, "approx")
     (uni, uni_n, uni_c), _ = seg_clouds(rng)
-    forward(f"segmentation bf16 forward ({SEG_B} clouds)",
-            InferenceEngine(model, num_points=SEG_N, batch_size=SEG_B,
-                            precision="bfloat16"),
-            uni[:SEG_B], uni_n[:SEG_B], uni_c[:SEG_B])
+    for precision in ("bfloat16", "int8"):
+        forward(f"segmentation {precision[:4]} forward ({SEG_B} clouds)",
+                InferenceEngine(model, num_points=SEG_N, batch_size=SEG_B,
+                                precision=precision),
+                uni[:SEG_B], uni_n[:SEG_B], uni_c[:SEG_B])
     del model
     print("[device-times] device time of one call (profiler): " + "; ".join(
         f"{label} {ms:.3f} ms" for label, ms in times.items())
@@ -3285,28 +3479,77 @@ def path_device_times(seed, dev, card):
 
 def kernel_times(seed, dev, card):
     """``[kernel-times]``: the device time (profiler, :func:`device_ms`)
-    of one call of the int8 max's and the winner-routed backward's public
-    wrappers, at the shapes
-    where the model paths run them: ``ops.gather_max_int8`` on bf16
-    features (B=32, N=1024, C = 64, 128; B=16, N=2048, C=128) and
+    of one call of the redesigned kernels' public wrappers at the shapes
+    where the model paths run them, and for those of this slice also
+    their time by CUDA events (:func:`median_ms`): ``ops.gather_max_affine``
+    (B=32, N=1024 and B=4, N=8192, C = 64 with the self row, 64, 128),
+    ``ops.densify_coefs_int8`` (the whole call, scales included, on the
+    clouds' operator coefficients at B=32, N=1024, K=20 and B=16, N=2048,
+    K=30), each with its bound, and at the record shapes (C=128; the
+    classification shape) the plain version's and the library
+    composition's device time; ``ops.gather_max_int8`` on bf16 features
+    (B=32, N=1024, C = 64, 128; B=16, N=2048, C=128) and
     ``ops.gather_max_bwd`` (B=32, N=1024, f32 and bf16 cotangents at C =
-    64, 128, 256; B=4, N=8192, bf16 at C = 64, 128, 256) on a uniform kNN
-    graph and the plain max's winners. Public functions only, as
+    64, 128, 256; B=4, N=8192, bf16 at C = 64, 128, 256), on uniform kNN
+    graphs and the plain max's winners. Public functions only, as
     :func:`path_device_times`, so that the line times another checkout's
     kernels."""
     from deltaconv_tpu_torch import ops
-    from deltaconv_tpu_torch.geometry import knn
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
 
     rng = np.random.default_rng(seed + 16)
     parts = []
-    for b, n, k, int8_widths, bwd in (
+    for b, n, k, int8_widths, bwd, dense in (
             (B, N, K, INT8_WIDTHS, ((torch.float32, WIDTHS),
-                                    (torch.bfloat16, BWD_BF16_WIDTHS))),
-            (SEG_B, SEG_N, SEG_K, (SEG_MAX_WIDTH,), ()),
+                                    (torch.bfloat16, BWD_BF16_WIDTHS)),
+             True),
+            (SEG_B, SEG_N, SEG_K, (SEG_MAX_WIDTH,), (), True),
             (LARGE_B, LARGE_N, K, (), ((torch.bfloat16,
-                                        BWD_BF16_WIDTHS),))):
-        clouds, _ = ellipsoid_clouds(rng, [n] * b)
-        idx, nbr_mask = knn(torch.from_numpy(np.stack(clouds)).to(dev), k)
+                                        BWD_BF16_WIDTHS),), False)):
+        clouds, normals = ellipsoid_clouds(rng, [n] * b)
+        pos = torch.from_numpy(np.stack(clouds)).to(dev)
+        idx, nbr_mask = knn(pos, k)
+        bidx = torch.arange(b, device=dev)[:, None, None]
+        idx_l = idx.long()
+        valid = nbr_mask.any(dim=-1, keepdim=True)
+        for c, sub_self in (AFFINE_WIDTHS if k == K else ()):
+            h = torch.randn((b, n, c), device=dev).to(torch.bfloat16)
+            aff = random_affine(c, dev)
+
+            def call(h=h, aff=aff, sub_self=sub_self):
+                return ops.gather_max_affine(h, idx, nbr_mask, aff, sub_self)
+
+            bd = bound(nbytes(h, idx, nbr_mask, torch.stack(aff), h))[0]
+            line = (f"gather_max_affine B={b} N={n} C={c} sub_self="
+                    f"{sub_self} {device_ms(call, 5):.4f} (events "
+                    f"{median_ms(call):.4f}; bound {bd:.4f}")
+            if (b, c) == (B, 128):
+                pl = device_ms(lambda: ops.gather_max_affine_plain(
+                    h, idx, nbr_mask, aff), 5)
+                lib = device_ms(lambda: ops.bn_lrelu_epilogue(
+                    h[bidx, idx_l].amax(dim=2).float(), aff, valid), 5)
+                line += f"; plain {pl:.4f}; library {lib:.4f}"
+            parts.append(line + ")")
+        if dense:
+            nrm = torch.from_numpy(np.stack(normals)).to(dev)
+            gd = ops.build_grad_div_fused(pos, nrm, *build_tangent_basis(nrm),
+                                          idx, nbr_mask)
+            gc, dc = gd.grad_coef, gd.div_coef
+
+            def call(gc=gd.grad_coef, dc=gd.div_coef):
+                return ops.densify_coefs_int8(idx, gc, dc)
+
+            bd = bound(nbytes(idx, gd.grad_coef, gd.div_coef, *call()))[0]
+            line = (f"densify_int8 B={b} N={n} K={k} {device_ms(call, 5):.4f}"
+                    f" (events {median_ms(call):.4f}; bound {bd:.4f}")
+            if b == B:
+                pl = device_ms(lambda: ops.densify_coefs_int8_plain(
+                    idx, gd.grad_coef, gd.div_coef), 3)
+                lib = device_ms(densify_int8_library(idx, gd.grad_coef,
+                                                     gd.div_coef), 3)
+                line += f"; plain {pl:.4f}; library {lib:.4f}"
+            parts.append(line + ")")
+            del gd
         for c in int8_widths:
             h = torch.randn((b, n, c), device=dev).to(torch.bfloat16)
             ms = device_ms(lambda: ops.gather_max_int8(h, idx, nbr_mask), 5)
@@ -4394,6 +4637,9 @@ def serve_large_phase(clouds, seed, dev, card, precision):
     coef_launches_held(counts, forwards, "forward")
     if precision:
         matmul_max_once("gather_matmul_max", counts, forwards, "forward")
+        for name, per in BF16_PER_FORWARD.items():
+            check(f"{name} {per} a forward", counts[name] == per * forwards,
+                  f"{counts[name]} launches in {forwards} forwards")
     check("no dense assembly", counts["densify"] + counts["densify_bf16"]
           == 0, "densify launched 0 times")
     refs = {}

@@ -37,27 +37,46 @@
 // stored vector come from shared memory.
 //
 // `dc_densify_int8`: the int8 serving form. idx, grad_coef, div_coef as
-// above and the per-cloud scales s_grad, s_div [B] f32 (max |coef| of
-// the cloud's grad or div coefficients, at least 1e-30; torch ops in the
-// wrapper) -> w_grad, w_div [B, 2, N, N] int8, each coefficient
-// quantized to clip(rint(coef / s * 127), -127, 127): the IEEE division
-// (__fdiv_rn), then the product (__fmul_rn), rounded half to even
-// (rintf), the order of torch's `round(coef / s * 127)` and of JAX's
-// `_quantize_pack` (densify_op.py:143-162). Replaces the Pallas kernel
-// `densify_coefs_int8` (pallas_call at densify_op.py:180, body
-// `_fwd_kernel_int8`), which packed the four planes' bytes into one int32
-// and ORed them into place because Mosaic could not select below 32
-// bits. Here a block row (threadIdx.y) owns one row (b, n) of the four
-// planes, several rows a block of 256 threads; its threads quantize the
-// row's 4 K values into shared memory, one a thread, then each thread
-// ADDS the quantized values of the slots that land in its 4 columns, in
-// int32, and stores each plane's 4 bytes as one 4-byte word where
-// N % 4 == 0, as the bf16 body does (16 columns a thread, with 16-byte
-// stores, ran slower on the H100). Adding equals the TPU's OR wherever at
-// most one value of a column is nonzero (a clamped padded slot quantizes
-// to 0), and it is the JAX CPU fallback's one-hot sum
-// (geometry/dense.py:265-278) everywhere. Bound: the stores, 4 * N * N
-// bytes per cloud (134 MB at B=32, N=1024).
+// above (not planes) and amax [2, B]: the |coef| maxima of each cloud's
+// grad and div coefficients as f32 bits (gather_max_int8.cu's
+// `dc_absmax`, a launch each, on the coefficients viewed [B, N K, 2])
+// -> w_grad, w_div [B, 2, N, N] int8 and s_grad, s_div [B] f32. The
+// kernel forms s = max(a, 1e-30) (a NaN kept, as torch.clamp keeps it),
+// quantizes each coefficient to clip(rint(coef / s * 127), -127, 127):
+// the IEEE division (__fdiv_rn), then the product (__fmul_rn), rounded
+// half to even (rintf), the order of torch's `round(coef / s * 127)` and
+// of JAX's `_quantize_pack` (densify_op.py:143-162), and writes the
+// scales s / 127 as PyTorch computes them on the card, fl(s * fl(1 /
+// 127)) (a CUDA tensor divided by a CPU scalar is multiplied by its
+// reciprocal). Replaces the Pallas kernel `densify_coefs_int8`
+// (pallas_call at densify_op.py:180, body `_fwd_kernel_int8`), which
+// packed the four planes' bytes into one int32 and ORed them into place
+// because Mosaic could not select below 32 bits, with XLA's maxima and
+// quantization before it.
+// Design: the function writes 4 N^2 bytes a cloud and reads 20 K N
+// (134 MB against 13 MB at B=32, N=1024, K=20), so it is its stores. A
+// block takes a task: R consecutive rows (b, n0 .. n0 + R - 1) and W
+// columns from c0 of the four planes (W = N and R W up to 8192 bytes,
+// above that R = 1 and chunks of 8192 columns; ops/densify_op.py chooses
+// R and W, `densify_int8_block`). The task's rows of one plane are one
+// run of R W bytes of the output (rows n and n + 1 are adjacent when
+// W = N), so the block builds each plane's run in shared memory: it
+// zero-fills the four images, quantizes the task's R K slots (one a
+// thread) into shared memory, then each slot whose column lies in the
+// task's and that is the first of its row to land there ADDS the
+// quantized values of its row's later slots of the same column (in
+// int32, in slot order: a column hit twice sums, as the plain version's
+// scatter_add_; a clamped padded slot adds 0) and stores the low bytes
+// into the images; then it writes each image with 16-byte stores (the
+// bytes before the run's first 16-byte boundary and after its last one
+// stored one by one: any N), each output byte once, no memset pass.
+// Adding equals the TPU's OR wherever at most one value of a column is
+// nonzero, and it is the JAX CPU fallback's one-hot sum
+// (geometry/dense.py:265-278) everywhere. Bound on the H100: memory, the
+// stores, 4 N^2 bytes a cloud, and the coefficients and ids read once
+// (0.0440 ms at B=32, N=1024, K=20); the whole call, `absmax` twice
+// included, takes 0.0655 ms of device time there, the earlier kernel
+// with the maxima in torch ops 0.1789 (PERF.md).
 //
 // `dc_densify_bwd`: the VJP of the f32 and bf16 bodies, idx [B, N, K]
 // i32 and the cotangents dwg, dwd [B, 2, N, N] f32 -> d_grad, d_div
@@ -201,100 +220,149 @@ __device__ __forceinline__ int quantize127(float p, float s) {
   return (int)fminf(fmaxf(v, -127.0f), 127.0f);
 }
 
-// A block row (threadIdx.y) a row (b, n) of the four planes; V columns a
-// thread (4 where N % 4 == 0: one 4-byte store a plane, else 1).
-template <int V>
-__global__ void densify_int8_kernel(const int* __restrict__ idx,
-                                    const float* __restrict__ grad_coef,
-                                    const float* __restrict__ div_coef,
-                                    const float* __restrict__ s_grad,
-                                    const float* __restrict__ s_div,
-                                    int8_t* __restrict__ w_grad,
-                                    int8_t* __restrict__ w_div, int N,
-                                    int K) {
-  extern __shared__ int ismem[];
-  int* s_idx = ismem + threadIdx.y * 5 * K;  // [K]
-  int* s_q = s_idx + K;  // [4, K]: g1, g2, d1, d2 quantized
+constexpr int kDensifyThreads = 256;
+constexpr size_t kDensifySmemMax = 232448;  // a block's shared memory, H100
 
-  const long long n = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  const long long b = blockIdx.y;
-  const long long row = (b * N + n) * K;
-  const bool live = n < N;
-  const float sg = s_grad[b], sd = s_div[b];
-  // One thread a quantized value: s_q[p * K + k] of plane p (g1, g2, d1,
-  // d2) and slot k.
-  for (int t = threadIdx.x; live && t < 5 * K; t += blockDim.x) {
-    if (t >= 4 * K) {
-      s_idx[t - 4 * K] = idx[row + t - 4 * K];
-      continue;
-    }
-    const int p = t / K, k = t - p * K;
-    const float* coef = p < 2 ? grad_coef : div_coef;
-    s_q[t] = quantize127(coef[(row + k) * 2 + (p & 1)], p < 2 ? sg : sd);
+// Shared memory of a densify_int8 block of R rows of W columns: four plane
+// images of R W bytes, each with room for its 16-byte alignment shift,
+// then R K slots (an id and the four quantized values packed in a word).
+// ops/densify_op.py (`densify_int8_smem`) mirrors it.
+inline size_t densify_int8_smem_bytes(int R, int W, int K) {
+  return (size_t)4 * ((size_t)R * W / 16 + 2) * 16 + (size_t)R * K * 8;
+}
+
+// The four quantized values packed in one word, one byte each.
+__device__ __forceinline__ int quant_byte(unsigned word, int p) {
+  return (int)(signed char)((word >> (8 * p)) & 0xFFu);
+}
+
+// One block a task (cloud b, rows n0 .. n0 + R - 1, columns c0 .. c0 + W
+// - 1); amax [2, B] f32 bits (grad, then div).
+__global__ void __launch_bounds__(kDensifyThreads)
+    densify_int8_kernel(const int* __restrict__ idx,
+                        const float* __restrict__ grad_coef,
+                        const float* __restrict__ div_coef,
+                        const unsigned* __restrict__ amax,
+                        float* __restrict__ s_grad,
+                        float* __restrict__ s_div,
+                        int8_t* __restrict__ w_grad,
+                        int8_t* __restrict__ w_div, int B, int N, int K,
+                        int R, int W) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  const int groups = (N + R - 1) / R, chunks = (N + W - 1) / W;
+  const int b = blockIdx.x / (groups * chunks);
+  const int task = blockIdx.x % (groups * chunks);
+  const int n0 = task / chunks * R, c0 = task % chunks * W;
+  const int rows = min(R, N - n0), cols = min(W, N - c0);
+  const int len = rows * cols;  // bytes of a plane's run
+  const int stride = (R * W / 16 + 2) * 16;
+  int* s_idx = reinterpret_cast<int*>(dsmem + 4 * stride);
+  unsigned* s_q = reinterpret_cast<unsigned*>(s_idx + R * K);
+  const int tid = threadIdx.x;
+
+  float s[2];  // the cloud's grad and div scales
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const float a = __uint_as_float(amax[o * B + b]);
+    s[o] = a != a ? a : fmaxf(a, 1e-30f);
+  }
+  if (task == 0 && tid == 0) {
+    s_grad[b] = __fmul_rn(s[0], 1.0f / 127.0f);
+    s_div[b] = __fmul_rn(s[1], 1.0f / 127.0f);
+  }
+  // Plane p's run in the output and its image: image byte i is run byte
+  // i, at shared offset p * stride + shift, so that 16-byte boundaries of
+  // the output fall on 16-byte boundaries of the image.
+  const long long nn = (long long)N * N;
+  int8_t* dst[4];
+  int shift[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    dst[p] = (p < 2 ? w_grad : w_div) + (b * 2 + (p & 1)) * nn +
+             (long long)n0 * N + c0;
+    shift[p] = (int)(reinterpret_cast<uintptr_t>(dst[p]) & 15u);
+  }
+
+  for (int e = tid; e < stride / 4; e += blockDim.x)
+    reinterpret_cast<uint4*>(dsmem)[e] = make_uint4(0u, 0u, 0u, 0u);
+  // The rows' slots are contiguous in idx and the coefficients.
+  const long long first = ((long long)b * N + n0) * K;
+  for (int e = tid; e < rows * K; e += blockDim.x) {
+    const long long at = first + e;
+    s_idx[e] = idx[at];
+    const int q[4] = {quantize127(grad_coef[2 * at], s[0]),
+                      quantize127(grad_coef[2 * at + 1], s[0]),
+                      quantize127(div_coef[2 * at], s[1]),
+                      quantize127(div_coef[2 * at + 1], s[1])};
+    unsigned word = 0u;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) word |= ((unsigned)q[p] & 0xFFu) << (8 * p);
+    s_q[e] = word;
   }
   __syncthreads();
-  if (!live) return;
 
-  const long long nn = (long long)N * N;
-  int8_t* rows[4] = {w_grad + (b * 2 + 0) * nn + n * N,
-                     w_grad + (b * 2 + 1) * nn + n * N,
-                     w_div + (b * 2 + 0) * nn + n * N,
-                     w_div + (b * 2 + 1) * nn + n * N};
-  for (int q = threadIdx.x; q < N / V; q += blockDim.x) {
-    int acc[4][V] = {};
-    for (int k = 0; k < K; ++k) {
-      const int j = s_idx[k] - V * q;
-      if ((unsigned)j < (unsigned)V) {
+  for (int e = tid; e < rows * K; e += blockDim.x) {
+    const int r = e / K, k = e - r * K;
+    const int j = s_idx[e];
+    if ((unsigned)(j - c0) >= (unsigned)cols) continue;
+    const int* ri = s_idx + r * K;
+    bool lead = true;  // the first slot of the row at column j
+    for (int kk = 0; kk < k; ++kk) lead &= ri[kk] != j;
+    if (!lead) continue;
+    int sum[4];
 #pragma unroll
-        for (int c = 0; c < V; ++c)
-          if (j == c)
+    for (int p = 0; p < 4; ++p) sum[p] = quant_byte(s_q[e], p);
+    for (int kk = k + 1; kk < K; ++kk) {
+      if (ri[kk] != j) continue;
 #pragma unroll
-            for (int p = 0; p < 4; ++p) acc[p][c] += s_q[p * K + k];
-      }
+      for (int p = 0; p < 4; ++p) sum[p] += quant_byte(s_q[r * K + kk], p);
     }
+    const int at = r * cols + j - c0;
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      if constexpr (V == 4) {
-        reinterpret_cast<unsigned*>(rows[p])[q] =
-            ((unsigned)acc[p][0] & 0xFFu) |
-            (((unsigned)acc[p][1] & 0xFFu) << 8) |
-            (((unsigned)acc[p][2] & 0xFFu) << 16) |
-            (((unsigned)acc[p][3] & 0xFFu) << 24);
-      } else {
-        rows[p][q] = (int8_t)acc[p][0];
-      }
-    }
+    for (int p = 0; p < 4; ++p)
+      dsmem[p * stride + shift[p] + at] = (unsigned char)(sum[p] & 0xFF);
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const unsigned char* src = dsmem + p * stride + shift[p];
+    const int head = min(len, (16 - shift[p]) & 15);
+    const int body = (len - head) / 16;
+    for (int e = tid; e < body; e += blockDim.x)
+      *reinterpret_cast<uint4*>(dst[p] + head + 16 * e) =
+          *reinterpret_cast<const uint4*>(src + head + 16 * e);
+    if (tid < head) dst[p][tid] = (int8_t)src[tid];
+    const int tail = head + 16 * body;
+    if (tail + tid < len) dst[p][tail + tid] = (int8_t)src[tail + tid];
   }
 }
 
 }  // namespace
 
+// R, W: the rows and columns of a task (`densify_int8_block` in
+// ops/densify_op.py); a block that does not fit is refused.
 extern "C" int dc_densify_int8(const void* idx, const void* grad_coef,
-                               const void* div_coef, const void* s_grad,
-                               const void* s_div, void* w_grad, void* w_div,
-                               int B, int N, int K, int device,
-                               void* stream) {
+                               const void* div_coef, const void* amax,
+                               void* s_grad, void* s_div, void* w_grad,
+                               void* w_div, int B, int N, int K, int R,
+                               int W, int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N == 0) return (int)cudaGetLastError();
-  // One thread per 4 columns (per column where N % 4 != 0) across a row,
-  // whole warps, and as many rows as fill 256 threads.
-  const bool by4 = (N & 3) == 0;
-  const int work = by4 ? N / 4 : N;
-  const int threads = work >= 256 ? 256 : ((work + 31) / 32) * 32;
-  const dim3 block(threads, 256 / threads);
-  const dim3 grid((N + block.y - 1) / block.y, B);
-  const size_t smem = (size_t)block.y * K * 5 * sizeof(int);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (by4)
-    densify_int8_kernel<4><<<grid, block, smem, s>>>(
-        (const int*)idx, (const float*)grad_coef, (const float*)div_coef,
-        (const float*)s_grad, (const float*)s_div, (int8_t*)w_grad,
-        (int8_t*)w_div, N, K);
-  else
-    densify_int8_kernel<1><<<grid, block, smem, s>>>(
-        (const int*)idx, (const float*)grad_coef, (const float*)div_coef,
-        (const float*)s_grad, (const float*)s_div, (int8_t*)w_grad,
-        (int8_t*)w_div, N, K);
+  const size_t smem = densify_int8_smem_bytes(R, W, K);
+  if (R < 1 || W < 1 || (R > 1 && W != N) || smem > kDensifySmemMax)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      densify_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks =
+      (long long)B * ((N + R - 1) / R) * ((N + W - 1) / W);
+  densify_int8_kernel<<<(unsigned)blocks, kDensifyThreads, smem,
+                        (cudaStream_t)stream>>>(
+      (const int*)idx, (const float*)grad_coef, (const float*)div_coef,
+      (const unsigned*)amax, (float*)s_grad, (float*)s_div,
+      (int8_t*)w_grad, (int8_t*)w_div, B, N, K, R, W);
   return (int)cudaGetLastError();
 }
 

@@ -26,12 +26,12 @@ __device__ __forceinline__ float nan_min(float worst, float v) {
   return (worst != worst || v >= worst) ? worst : v;
 }
 
-// `_bn_lrelu_epilogue` for one element; `aff` holds the four [C] rows.
-__device__ __forceinline__ float bn_lrelu(float best, float self_val,
-                                          bool sub_self, bool valid,
-                                          const float* aff, int C, int c) {
-  const float sign = aff[c], inv = aff[C + c], mean = aff[2 * C + c],
-              bias = aff[3 * C + c];
+// `_bn_lrelu_epilogue` for one element of the affine (sign, inv, mean,
+// bias), each operation rounded on its own.
+__device__ __forceinline__ float bn_lrelu_of(float best, float self_val,
+                                             bool sub_self, bool valid,
+                                             float sign, float inv,
+                                             float mean, float bias) {
   float mxb = __bfloat162float(__float2bfloat16_rn(best));
   float h;
   if (sub_self) {
@@ -43,6 +43,14 @@ __device__ __forceinline__ float bn_lrelu(float best, float self_val,
   float o = __fadd_rn(__fmul_rn(__fsub_rn(h, mean), inv), bias);
   o = o >= 0.0f ? o : __fmul_rn(0.2f, o);
   return valid ? o : 0.0f;
+}
+
+// The same; `aff` holds the four [C] rows.
+__device__ __forceinline__ float bn_lrelu(float best, float self_val,
+                                          bool sub_self, bool valid,
+                                          const float* aff, int C, int c) {
+  return bn_lrelu_of(best, self_val, sub_self, valid, aff[c], aff[C + c],
+                     aff[2 * C + c], aff[3 * C + c]);
 }
 
 // Eight consecutive values of a row (vector q), as eight bf16 in one

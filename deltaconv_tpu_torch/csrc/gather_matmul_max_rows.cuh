@@ -256,16 +256,22 @@ __device__ __forceinline__ float int8_dequant(float v, float a, float s,
 // `ldo` elements apart, the slice at column col0, of which `nvalid`
 // columns are written (whole pieces by 16-byte stores when `vec_out`,
 // else one by one). The rows kernel passes the whole cloud, the bf16 slice
-// and, with `aff_s`, the epilogue; gather_max.cu's staged route a share
+// and, with `aff`, the epilogue; gather_max.cu's staged route a share
 // of the points of a channel slice of h and, with kQuant, the int8
-// epilogue (`int8_dequant`) of the cloud's a and s.
+// epilogue (`int8_dequant`) of the cloud's a and s, or, with `aff` (bf16),
+// the BatchNorm + LeakyReLU epilogue, and with `sub_self` the self value
+// subtracted: the point's slot-0 row of the slice (row N, zeros, where
+// that id lies outside [0, N)), whatever its mask. `aff` holds the
+// slice's four rows (sign, inv, mean, bias), `aff_ld` floats apart, from
+// the slice's first column (in shared memory or device memory).
 template <typename T, int P, bool kWinners, bool kNan, bool kQuant = false>
 __device__ __forceinline__ void rows_max_phase(
     unsigned ys, const int* __restrict__ idx,
-    const uint8_t* __restrict__ mask, const float* aff_s,
+    const uint8_t* __restrict__ mask, const float* aff, int aff_ld,
     T* __restrict__ out, int* __restrict__ winner, int b, int N, int p0,
     int p1, int ldo, int col0, int nvalid, bool vec_out, int K,
-    unsigned neg, int warp, int lane, float qa = 0.0f, float qs = 0.0f) {
+    unsigned neg, int warp, int lane, float qa = 0.0f, float qs = 0.0f,
+    bool sub_self = false) {
   constexpr int PW = 32 / P;
   constexpr int V = 16 / sizeof(T);  // channels a piece
   constexpr int SB = P >= kRowsInFlight ? P : kRowsInFlight;  // slots a step
@@ -328,8 +334,23 @@ __device__ __forceinline__ void rows_max_phase(
     }
   };
 
+  // The piece's words as T values h (bf16 halves, or f32 words), stored
+  // whole (16 bytes) when `vec_out`, else the slice's valid ones one by
+  // one.
+  auto store_words = [&](long long o, const unsigned (&w)[4]) {
+    if (vec_out) {
+      *reinterpret_cast<uint4*>(out + o) = make_uint4(w[0], w[1], w[2], w[3]);
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (V * q + i < nvalid)
+        out[o + i] = value_of<T>(w[i * 4 / V], V == 8 ? i % 2 : 0);
+  };
+
   unsigned best[4], win[4];
   bool any = false;  // a valid slot among this lane's own
+  int jself = N;     // the point's self row (its slot 0's), with sub_self
   int kbi = 0, r = 0;  // the step's slot block and round
   auto step = [&](int it, const int (&jv)[PER], const int (&mv)[PER]) {
     if (it >= steps) return;
@@ -340,6 +361,11 @@ __device__ __forceinline__ void rows_max_phase(
         win[i] = 0u;
       }
       any = false;
+      // Slot 0 is the first slot of the group's first lane (the same
+      // for the whole warp: every lane takes the shuffle).
+      if (sub_self)
+        jself = __shfl_sync(0xffffffffu,
+                            (unsigned)jv[0] < (unsigned)N ? jv[0] : N, gbase);
     }
     int jm[PER];  // the y row of each of this lane's slots
 #pragma unroll
@@ -397,15 +423,61 @@ __device__ __forceinline__ void rows_max_phase(
           packed[i] = __float_as_uint(dq[i]);
         }
       }
-      if (vec_out) {
-        *reinterpret_cast<uint4*>(out + o) =
-            make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      } else {
+      store_words(o, packed);
+      return;
+    }
+    if constexpr (V == 8 && !kWinners) {
+      if (aff != nullptr) {  // the BatchNorm + LeakyReLU epilogue
+        unsigned self_w[4] = {0u, 0u, 0u, 0u};
+        if (sub_self) {
+          const uint4 s4 =
+              lds128(ys + (unsigned)(jself * P + y_chunk<P>(jself, q)) * 16u);
+          self_w[0] = s4.x;
+          self_w[1] = s4.y;
+          self_w[2] = s4.z;
+          self_w[3] = s4.w;
+        }
+        // The piece's 8 values of each affine row: two 16-byte loads where
+        // the piece is whole and aligned (always in shared memory), else
+        // the valid ones one by one.
+        float a[4][8];
 #pragma unroll
-        for (int i = 0; i < V; ++i)
-          if (V * q + i < nvalid)
-            out[o + i] = value_of<T>(packed[i * 4 / V], V == 8 ? i % 2 : 0);
+        for (int rr = 0; rr < 4; ++rr) {
+          const float* ap = aff + (long long)rr * aff_ld + 8 * q;
+          if (8 * q + 8 <= nvalid &&
+              (reinterpret_cast<uintptr_t>(ap) & 15u) == 0) {
+            const float4 lo = reinterpret_cast<const float4*>(ap)[0];
+            const float4 hi = reinterpret_cast<const float4*>(ap)[1];
+            const float w8[8] = {lo.x, lo.y, lo.z, lo.w,
+                                 hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i) a[rr][i] = w8[i];
+          } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              a[rr][i] = 8 * q + i < nvalid ? ap[i] : 0.0f;
+          }
+        }
+        unsigned packed[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float v[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * i + h;
+            v[h] = bn_lrelu_of(bf16_half(best[i], h), bf16_half(self_w[i], h),
+                               sub_self, valid, a[0][e], a[1][e], a[2][e],
+                               a[3][e]);
+          }
+          const __nv_bfloat162 pair = __floats2bfloat162_rn(v[0], v[1]);
+          packed[i] = *reinterpret_cast<const unsigned*>(&pair);
+        }
+        store_words(o, packed);
+        return;
       }
+    }
+    if constexpr (!kWinners) {
+      store_words(o, best);
       return;
     }
     // The piece's winners as V words (bf16: 16-bit halves unpacked).
@@ -419,37 +491,18 @@ __device__ __forceinline__ void rows_max_phase(
       for (int i = 0; i < V; ++i) {
         if (V * q + i < nvalid) {
           out[o + i] = value_of<T>(best[i * 4 / V], V == 8 ? i % 2 : 0);
-          if (kWinners) winner[o + i] = wv[i];
+          winner[o + i] = wv[i];
         }
       }
       return;
     }
-    if (kWinners) {
-      *reinterpret_cast<uint4*>(out + o) =
-          make_uint4(best[0], best[1], best[2], best[3]);
-      int4* wr = reinterpret_cast<int4*>(winner + o);
+    *reinterpret_cast<uint4*>(out + o) =
+        make_uint4(best[0], best[1], best[2], best[3]);
+    int4* wr = reinterpret_cast<int4*>(winner + o);
 #pragma unroll
-      for (int i = 0; i < V / 4; ++i)
-        wr[i] = make_int4(wv[4 * i], wv[4 * i + 1], wv[4 * i + 2],
-                          wv[4 * i + 3]);
-    } else if (V == 8 && aff_s != nullptr) {
-      constexpr int kCs = 8 * P;
-      unsigned packed[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float lo = bn_lrelu(bf16_half(best[i], 0), 0.0f, false, valid,
-                                  aff_s, kCs, 8 * q + 2 * i);
-        const float hi = bn_lrelu(bf16_half(best[i], 1), 0.0f, false, valid,
-                                  aff_s, kCs, 8 * q + 2 * i + 1);
-        const __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
-        packed[i] = *reinterpret_cast<const unsigned*>(&pair);
-      }
-      *reinterpret_cast<uint4*>(out + o) =
-          make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    } else {
-      *reinterpret_cast<uint4*>(out + o) =
-          make_uint4(best[0], best[1], best[2], best[3]);
-    }
+    for (int i = 0; i < V / 4; ++i)
+      wr[i] = make_int4(wv[4 * i], wv[4 * i + 1], wv[4 * i + 2],
+                        wv[4 * i + 3]);
   };
 
   int jA[PER], mA[PER], jB[PER], mB[PER], jC[PER], mC[PER];
@@ -656,12 +709,12 @@ __global__ void __launch_bounds__(kRowsWarps * 32, 1)
   const float* aff_p = aff != nullptr ? aff_s : nullptr;
   if (any_nan)
     rows_max_phase<__nv_bfloat16, P, kWinners, true>(
-        y_addr, idx, mask, aff_p, out, winner, b, N, 0, N, Cout, col0, kCs,
-        true, K, neg2, warp, lane);
+        y_addr, idx, mask, aff_p, kCs, out, winner, b, N, 0, N, Cout, col0,
+        kCs, true, K, neg2, warp, lane);
   else
     rows_max_phase<__nv_bfloat16, P, kWinners, false>(
-        y_addr, idx, mask, aff_p, out, winner, b, N, 0, N, Cout, col0, kCs,
-        true, K, neg2, warp, lane);
+        y_addr, idx, mask, aff_p, kCs, out, winner, b, N, 0, N, Cout, col0,
+        kCs, true, K, neg2, warp, lane);
 }
 
 template <typename Tin, int kCs, bool kWinners>

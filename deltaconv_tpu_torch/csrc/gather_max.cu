@@ -33,7 +33,9 @@
 //
 // Two routes, chosen by shape in ops/gather_max.py (`max_slice`), the
 // same bits.
-// Route S, staged (`gather_max`, `gather_max_win`, `_bf16`): any point may
+// Route S, staged (`gather_max`, `gather_max_win`, `_bf16`; with an
+// epilogue, the int8 max's route S in gather_max_int8.cu and the bf16
+// eval max's in gather_max_bf16.cu): any point may
 // gather any row of its cloud, so a block takes a task, a cloud b and a
 // slice of Cs channels (16 * P bytes a row, P = 1, 2, 4, 8), and copies
 // the cloud's slice h[b, :, slice] into shared memory once, by cp.async
@@ -446,6 +448,12 @@ __device__ __forceinline__ bool has_nan(uint4 v, __nv_bfloat16) {
   return nan;
 }
 
+// The staged route's epilogues: none (the max, or with winners), the
+// int8 form's quantization, the BatchNorm + LeakyReLU of the bf16 eval max.
+constexpr int kEpiNone = 0;
+constexpr int kEpiQuant = 1;
+constexpr int kEpiAffine = 2;
+
 // Route S: one block a (task, split), a task a cloud b and a slice of
 // kCs = 16 P / sizeof(T) channels; the block stages the slice's N rows
 // (and the two constant rows) in shared memory, then takes the max of
@@ -453,18 +461,24 @@ __device__ __forceinline__ bool has_nan(uint4 v, __nv_bfloat16) {
 // loads); vec_out: out (and winner) rows of a multiple of 16 bytes. Two
 // blocks an SM (64 registers) for rows of 32 or 64 bytes; 128- and
 // 16-byte rows spill at 64 registers and take one (their slices at
-// N=1024 and N=8192 leave room for one block anyway).
-// kQuant: the int8 form (no winners), its epilogue on the cloud's |h|
-// maximum amax[b] (f32 bits, from dc_absmax).
-template <typename T, int P, bool kWinners, bool kQuant>
-__global__ void __launch_bounds__(kRowsWarps * 32,
-                                  (P == 2 || P == 4) ? 2 : 1)
+// N=1024 and N=8192 leave room for one block anyway), as does every
+// row of the affine form (its epilogue spills at 64).
+// kEpi kEpiQuant: the int8 form (no winners), its epilogue on the cloud's
+// |h| maximum amax[b] (f32 bits, from dc_absmax). kEpiAffine: the bf16
+// eval max (no winners) with the epilogue of aff [4, C] f32, with
+// sub_self the self row subtracted; the slice's four affine rows read
+// from device memory through L1.
+template <typename T, int P, bool kWinners, int kEpi>
+__global__ void __launch_bounds__(
+    kRowsWarps * 32, (P == 2 || P == 4) && kEpi != kEpiAffine ? 2 : 1)
     gather_max_staged_kernel(const T* __restrict__ h,
                              const int* __restrict__ idx,
                              const uint8_t* __restrict__ mask,
                              T* __restrict__ out, int* __restrict__ winner,
                              int N, int C, int K, int splits, int copy_bytes,
-                             int vec_out, const unsigned* __restrict__ amax) {
+                             int vec_out, const unsigned* __restrict__ amax,
+                             const float* __restrict__ aff, int sub_self) {
+  constexpr bool kQuant = kEpi == kEpiQuant;
   constexpr int kRowBytes = 16 * P;
   constexpr int kCs = kRowBytes / (int)sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
@@ -502,6 +516,8 @@ __global__ void __launch_bounds__(kRowsWarps * 32,
     reinterpret_cast<uint4*>(smem)[(N + tid / P) * P + tid % P] =
         tid < P ? make_uint4(0u, 0u, 0u, 0u)
                 : make_uint4(neg_inf, neg_inf, neg_inf, neg_inf);
+  // The affine slice: the device rows from column c0.
+  const float* aff_p = kEpi == kEpiAffine ? aff + c0 : nullptr;
   cp_async_commit();
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
@@ -534,14 +550,15 @@ __global__ void __launch_bounds__(kRowsWarps * 32,
     qa = m != m ? m : fmaxf(m, 1e-30f);
     qs = __fmul_rn(qa, 1.0f / 127.0f);
   }
+  const bool self = kEpi == kEpiAffine && sub_self != 0;
   if (any_nan)
     rows_max_phase<T, P, kWinners, true, kQuant>(
-        ys, idx, mask, nullptr, out, winner, b, N, p0, p1, C, c0, nvalid,
-        vec_out != 0, K, neg, warp, lane, qa, qs);
+        ys, idx, mask, aff_p, C, out, winner, b, N, p0, p1, C, c0,
+        nvalid, vec_out != 0, K, neg, warp, lane, qa, qs, self);
   else
     rows_max_phase<T, P, kWinners, false, kQuant>(
-        ys, idx, mask, nullptr, out, winner, b, N, p0, p1, C, c0, nvalid,
-        vec_out != 0, K, neg, warp, lane, qa, qs);
+        ys, idx, mask, aff_p, C, out, winner, b, N, p0, p1, C, c0,
+        nvalid, vec_out != 0, K, neg, warp, lane, qa, qs, self);
 }
 
 // Shared memory of a route-S block: N + 2 rows of 16 P bytes;
@@ -550,12 +567,13 @@ inline size_t staged_smem_bytes(int N, int P) {
   return (size_t)(N + 2) * 16 * P;
 }
 
-template <typename T, int P, bool kWinners, bool kQuant>
+template <typename T, int P, bool kWinners, int kEpi>
 int launch_staged_p(const void* h, const void* idx, const void* mask,
-                    void* out, void* winner, const void* amax, int B, int N,
-                    int C, int K, int splits, int copy_bytes, int vec_out,
+                    void* out, void* winner, const void* amax,
+                    const void* aff, int sub_self, int B, int N, int C,
+                    int K, int splits, int copy_bytes, int vec_out,
                     cudaStream_t s) {
-  auto kernel = gather_max_staged_kernel<T, P, kWinners, kQuant>;
+  auto kernel = gather_max_staged_kernel<T, P, kWinners, kEpi>;
   const size_t smem = staged_smem_bytes(N, P);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -565,18 +583,21 @@ int launch_staged_p(const void* h, const void* idx, const void* mask,
   kernel<<<(unsigned)blocks, kRowsWarps * 32, smem, s>>>(
       (const T*)h, (const int*)idx, (const uint8_t*)mask, (T*)out,
       (int*)winner, N, C, K, splits, copy_bytes, vec_out,
-      (const unsigned*)amax);
+      (const unsigned*)amax, (const float*)aff, sub_self);
   return (int)cudaGetLastError();
 }
 
 // Cs: the slice's channels the wrapper chose (16, 32, 64 or 128 bytes a
 // row), splits: blocks a task (1 or more). A slice that does not fit a
 // block, K of 0, or K above the bf16 winners' 16 bits, is refused (route
-// D takes those). kQuant: the int8 form, on the cloud maxima amax.
-template <typename T, bool kWinners, bool kQuant = false>
+// D takes those). kEpi kEpiQuant: the int8 form, on the cloud maxima
+// amax; kEpiAffine: the bf16 eval max on aff (sub_self as the kernel
+// takes it).
+template <typename T, bool kWinners, int kEpi = kEpiNone>
 int launch_staged(const void* h, const void* idx, const void* mask,
                   void* out, void* winner, int B, int N, int C, int K, int Cs,
-                  int splits, void* stream, const void* amax = nullptr) {
+                  int splits, void* stream, const void* amax = nullptr,
+                  const void* aff = nullptr, int sub_self = 0) {
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   const int row = Cs * (int)sizeof(T);
   const int P = row / 16;
@@ -596,21 +617,21 @@ int launch_staged(const void* h, const void* idx, const void* mask,
   cudaStream_t s = (cudaStream_t)stream;
   switch (P) {
     case 1:
-      return launch_staged_p<T, 1, kWinners, kQuant>(
-          h, idx, mask, out, winner, amax, B, N, C, K, splits, copy_bytes,
-          vec_out, s);
+      return launch_staged_p<T, 1, kWinners, kEpi>(
+          h, idx, mask, out, winner, amax, aff, sub_self, B, N,
+          C, K, splits, copy_bytes, vec_out, s);
     case 2:
-      return launch_staged_p<T, 2, kWinners, kQuant>(
-          h, idx, mask, out, winner, amax, B, N, C, K, splits, copy_bytes,
-          vec_out, s);
+      return launch_staged_p<T, 2, kWinners, kEpi>(
+          h, idx, mask, out, winner, amax, aff, sub_self, B, N,
+          C, K, splits, copy_bytes, vec_out, s);
     case 4:
-      return launch_staged_p<T, 4, kWinners, kQuant>(
-          h, idx, mask, out, winner, amax, B, N, C, K, splits, copy_bytes,
-          vec_out, s);
+      return launch_staged_p<T, 4, kWinners, kEpi>(
+          h, idx, mask, out, winner, amax, aff, sub_self, B, N,
+          C, K, splits, copy_bytes, vec_out, s);
     default:
-      return launch_staged_p<T, 8, kWinners, kQuant>(
-          h, idx, mask, out, winner, amax, B, N, C, K, splits, copy_bytes,
-          vec_out, s);
+      return launch_staged_p<T, 8, kWinners, kEpi>(
+          h, idx, mask, out, winner, amax, aff, sub_self, B, N,
+          C, K, splits, copy_bytes, vec_out, s);
   }
 }
 
@@ -848,8 +869,20 @@ int dc_gather_max_staged_int8(const void* h, const void* idx,
                               int B, int N, int C, int K, int Cs, int splits,
                               int bf16, void* stream) {
   if (bf16)
-    return launch_staged<__nv_bfloat16, false, true>(
+    return launch_staged<__nv_bfloat16, false, kEpiQuant>(
         h, idx, mask, out, nullptr, B, N, C, K, Cs, splits, stream, amax);
-  return launch_staged<float, false, true>(h, idx, mask, out, nullptr, B, N,
-                                           C, K, Cs, splits, stream, amax);
+  return launch_staged<float, false, kEpiQuant>(
+      h, idx, mask, out, nullptr, B, N, C, K, Cs, splits, stream, amax);
+}
+
+// The bf16 eval max's route S (gather_max_bf16.cu's `dc_gather_max_affine`):
+// the staged max of h bf16 with the BatchNorm + LeakyReLU epilogue of aff
+// [4, C] f32, the self row subtracted where sub_self is 1.
+int dc_gather_max_staged_affine(const void* h, const void* idx,
+                                const void* mask, const void* aff, void* out,
+                                int B, int N, int C, int K, int Cs,
+                                int splits, int sub_self, void* stream) {
+  return launch_staged<__nv_bfloat16, false, kEpiAffine>(
+      h, idx, mask, out, nullptr, B, N, C, K, Cs, splits, stream, nullptr,
+      aff, sub_self);
 }

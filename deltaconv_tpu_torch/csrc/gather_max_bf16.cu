@@ -56,10 +56,39 @@
 // read through idx[., 0], which the kNN sets to the point itself; the TPU
 // kernel read the point's own row.
 //
-// `gather_max_affine` design: one thread per (point, channel pair) with
-// bf16x2 loads, a block row (threadIdx.y) per point, as gather_max.cu.
-// Bound on the H100: memory, the K gathered rows coming from L2 (one
-// cloud's table is N * C * 2 bytes, 256 KB at C=128).
+// `gather_max_affine` design: any point may gather any row of its cloud,
+// so the function reads each row of h once (it is K = 20 times smaller
+// than the gathered rows). Two routes, chosen by shape in
+// ops/gather_max.py (`max_slice`), the same bits.
+// Route S (`gather_max_affine`): gather_max.cu's staged route, the
+// neighbour max's: a block takes a cloud and a slice of Cs channels (16 to
+// 128 bytes of bf16 a row), stages the slice's N rows in shared memory by
+// cp.async beside a row of zeros (row N: a valid id outside [0, N)) and
+// one of -inf (row N + 1: a masked slot), then the max phase of
+// gather_matmul_max_rows.cuh takes each
+// point's max out of shared memory (a group of Cs / 8 lanes a point, 16
+// bytes of a slot's row a lane, the running max in bf16 pairs from
+// bf16(-3e38), a strict > in slot order; a slice holding a NaN takes
+// jnp.maximum's rule value by value, so a NaN propagates) and ends in the
+// epilogue: `valid` from the point's mask row, with `sub_self` the self
+// value read from the slice at the point's slot-0 id (row N where it lies
+// outside [0, N), whatever slot 0's mask, as the one-hot slot-0 gather of
+// the TPU kernel gives), then `bn_lrelu_of` value by value on the slice's
+// four affine rows, read from device memory through L1 (staging them in
+// shared memory measured no faster on the H100), and one 16-byte
+// store of 8 outputs a lane. The slice rows are read from L2 or
+// memory once a task, the K slots of a point from shared memory. Where
+// the tasks are fewer than the SMs a task's points split over blocks, each
+// staging the whole slice.
+// Route D (`gather_max_affine_direct`, the earlier kernel), where no slice
+// fits a block (above 14,526 points) or K is 0: one thread per (point,
+// channel pair) with bf16x2 loads, a block row (threadIdx.y) per point,
+// every slot's row from L2, idx and mask re-read from memory for each
+// pair.
+// Bound on the H100: memory, h, idx, mask and aff read once and out
+// written once: ~0.0060 ms at B=32, N=1024, K=20, C=128 (0.0035 at
+// C=64); route D moves the K gathered rows from L2 instead. Route S takes
+// 0.0250 ms of device time at C=128, route D 0.0750 (PERF.md).
 //
 // `gather_matmul_max` and `gather_matmul_max_win` design (the kernel is
 // in gather_matmul_max_rows.cuh): the function needs one product a row,
@@ -144,9 +173,9 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* hb, int j,
   }
 }
 
-// V = 2 when C is even (4-byte loads and stores), else 1.
+// Route D. V = 2 when C is even (4-byte loads and stores), else 1.
 template <int V>
-__global__ void gather_max_affine_kernel(
+__global__ void gather_max_affine_direct_kernel(
     const __nv_bfloat16* __restrict__ h, const int* __restrict__ idx,
     const uint8_t* __restrict__ mask, const float* __restrict__ aff,
     __nv_bfloat16* __restrict__ out, int B, int N, int C, int K,
@@ -191,10 +220,29 @@ __global__ void gather_max_affine_kernel(
 
 }  // namespace
 
+// gather_max.cu: route S of the neighbour max with the affine epilogue.
+int dc_gather_max_staged_affine(const void* h, const void* idx,
+                                const void* mask, const void* aff, void* out,
+                                int B, int N, int C, int K, int Cs,
+                                int splits, int sub_self, void* stream);
+
+// Route S: Cs channels a slice and `splits` blocks a task, as the
+// neighbour max's route S (`max_slice`).
 extern "C" int dc_gather_max_affine(const void* h, const void* idx,
                                     const void* mask, const void* aff,
                                     void* out, int B, int N, int C, int K,
-                                    int sub_self, int device, void* stream) {
+                                    int Cs, int splits, int sub_self,
+                                    int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return dc_gather_max_staged_affine(h, idx, mask, aff, out, B, N, C, K, Cs,
+                                     splits, sub_self, stream);
+}
+
+extern "C" int dc_gather_max_affine_direct(const void* h, const void* idx,
+                                           const void* mask, const void* aff,
+                                           void* out, int B, int N, int C,
+                                           int K, int sub_self, int device,
+                                           void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
@@ -202,11 +250,11 @@ extern "C" int dc_gather_max_affine(const void* h, const void* idx,
   const dim3 block = dc_row_block((C + V - 1) / V);
   const dim3 grid = dc_row_grid(B, N, block);
   if (V == 2)
-    gather_max_affine_kernel<2><<<grid, block, 0, s>>>(
+    gather_max_affine_direct_kernel<2><<<grid, block, 0, s>>>(
         (const __nv_bfloat16*)h, (const int*)idx, (const uint8_t*)mask,
         (const float*)aff, (__nv_bfloat16*)out, B, N, C, K, sub_self);
   else
-    gather_max_affine_kernel<1><<<grid, block, 0, s>>>(
+    gather_max_affine_direct_kernel<1><<<grid, block, 0, s>>>(
         (const __nv_bfloat16*)h, (const int*)idx, (const uint8_t*)mask,
         (const float*)aff, (__nv_bfloat16*)out, B, N, C, K, sub_self);
   return (int)cudaGetLastError();

@@ -75,8 +75,9 @@ _KERNELS = {
     "knn_topk": ("dc_knn_topk", [_P, _P, _I, _I, _I, _I]),
     "knn_topk_mean_dist": ("dc_knn_topk_mean_dist", [_P] * 3 + [_I] * 4),
     "knn_topk_rounds": ("dc_knn_topk_rounds", [_P] * 3 + [_I] * 4),
-    "gather_max_affine": ("dc_gather_max_affine",
-                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
+    "gather_max_affine": ("dc_gather_max_affine", [_P] * 5 + [_I] * 7),
+    "gather_max_affine_direct": ("dc_gather_max_affine_direct",
+                                 [_P] * 5 + [_I] * 5),
     "gather_matmul_max": ("dc_gather_matmul_max", [_P] * 6 + [_I] * 6),
     "gather_matmul_max_kfold": ("dc_gather_matmul_max_kfold",
                                 [_P] * 6 + [_I] * 5),
@@ -87,7 +88,7 @@ _KERNELS = {
     "gather_mlp_max": ("dc_gather_mlp_max", [_P] * 9 + [_I] * 6),
     "mlp_rows": ("dc_mlp_rows", [_P] * 5 + [_I, _L]),
     "gather_max_merge": ("dc_gather_max_merge", [_P] * 6 + [_I] * 6),
-    "densify_int8": ("dc_densify_int8", [_P] * 7 + [_I] * 3),
+    "densify_int8": ("dc_densify_int8", [_P] * 8 + [_I] * 5),
     "absmax": ("dc_absmax", [_P] * 2 + [_I] * 4),
     "gather_max_int8": ("dc_gather_max_int8", [_P] * 5 + [_I] * 7),
     "gather_max_int8_direct": ("dc_gather_max_int8_direct",
@@ -151,6 +152,7 @@ _NO_GRAD = {
     "coef_plan_runs": "the gather plan orders points and carries no "
                       "gradient",
     "gather_max_affine": _BF16_EVAL,
+    "gather_max_affine_direct": _BF16_EVAL,
     "gather_matmul_max": _BF16_EVAL,
     "gather_matmul_max_kfold": _BF16_EVAL,
     "gather_mlp_max": _MLP_EVAL,

@@ -26,9 +26,12 @@ operator. Per cloud ``s = max(max |coef|, 1e-30)`` over the grad (or
 div) coefficients, each coefficient quantized to ``clip(round(coef / s
 * 127), -127, 127)`` (the division first, then the product, rounded half
 to even), the quantized values of a column ADDED (a clamped padded slot
-adds 0), and the scales returned as ``s / 127``. The per-cloud maxima
-are torch ops (XLA outside the ``pallas_call`` in JAX); the
-quantization and placement are the ``densify_int8`` kernel.
+adds 0), and the scales returned as ``s / 127``. On CUDA tensors three
+launches and no torch op: the ``absmax`` kernel on each coefficient
+tensor (the per-cloud maxima, XLA outside the ``pallas_call`` in JAX),
+then the ``densify_int8`` kernel, which forms the scales, quantizes, and
+builds the rows of the four planes in shared memory, each output byte
+written once by 16-byte stores.
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ import torch
 
 from . import _lib
 
-__all__ = ["densify_bwd", "densify_bwd_plain", "densify_coefs",
-           "densify_coefs_int8", "densify_coefs_int8_plain",
-           "densify_coefs_plain"]
+__all__ = ["DENSIFY_IMAGE", "DENSIFY_SLOTS", "densify_bwd",
+           "densify_bwd_plain", "densify_coefs", "densify_coefs_int8",
+           "densify_coefs_int8_plain", "densify_coefs_plain",
+           "densify_int8_block", "densify_int8_smem"]
 
 _KERNEL = {torch.float32: "densify", torch.bfloat16: "densify_bf16"}
 
@@ -162,7 +166,8 @@ def densify_coefs(idx, grad_coef, div_coef, dtype=torch.float32,
 
 
 def _cloud_scale(coef):
-    """``max(max |coef|, 1e-30)`` of each cloud, ``[B]`` f32."""
+    """``max(max |coef|, 1e-30)`` of each cloud, ``[B]`` f32 (the plain
+    version's; the kernel forms it from ``absmax``'s maxima)."""
     amax = torch.linalg.vector_norm(coef, float("inf"), dim=(1, 2, 3))
     return torch.clamp(amax, min=1e-30)
 
@@ -182,9 +187,38 @@ def densify_coefs_int8_plain(idx, grad_coef, div_coef):
             sg / 127.0, sd / 127.0)
 
 
+# The int8 assembly's tasks (csrc/densify.cu): a block builds R rows of W
+# columns of the four planes in shared memory, at most DENSIFY_IMAGE bytes
+# a plane (W = N up to it, R = 1 and chunks of DENSIFY_IMAGE columns
+# above), R K slots at most DENSIFY_SLOTS where R > 1.
+DENSIFY_IMAGE = 8192
+DENSIFY_SLOTS = 1024
+SMEM_MAX = 232_448  # a block's shared memory on the H100
+
+
+def densify_int8_block(n: int, k: int) -> tuple[int, int]:
+    """``(rows, width)`` of a ``densify_int8`` task for clouds of ``n``
+    points and ``k`` slots: whole rows, as many as DENSIFY_IMAGE bytes and
+    DENSIFY_SLOTS slots allow (8 at N=1024, K=20; 4 at N=2048, K=30), or
+    one row in chunks of DENSIFY_IMAGE columns above that width."""
+    if n > DENSIFY_IMAGE:
+        return 1, DENSIFY_IMAGE
+    return max(1, min(DENSIFY_IMAGE // max(n, 1),
+                      DENSIFY_SLOTS // max(k, 1))), n
+
+
+def densify_int8_smem(rows: int, width: int, k: int) -> int:
+    """Shared memory of one ``densify_int8`` block, as
+    ``densify_int8_smem_bytes`` in the CUDA source counts it: four plane
+    images of ``rows * width`` bytes with room for a 16-byte alignment
+    shift, and ``rows * k`` slots of 8 bytes."""
+    return 4 * (rows * width // 16 + 2) * 16 + rows * k * 8
+
+
 def densify_coefs_int8(idx, grad_coef, div_coef):
-    """Plain version for CPU tensors; for CUDA tensors the per-cloud
-    maxima in torch ops, then the ``densify_int8`` kernel."""
+    """Plain version for CPU tensors; for CUDA tensors ``absmax`` of each
+    coefficient tensor, then the ``densify_int8`` kernel (scales,
+    quantization and the planes' rows built in shared memory)."""
     if idx.device.type == "cpu":
         return densify_coefs_int8_plain(idx, grad_coef, div_coef)
     b, n, k = idx.shape
@@ -193,10 +227,29 @@ def densify_coefs_int8(idx, grad_coef, div_coef):
         ("grad_coef", grad_coef, torch.float32, (b, n, k, 2)),
         ("div_coef", div_coef, torch.float32, (b, n, k, 2)),
     ])
-    sg, sd = _cloud_scale(grad_coef), _cloud_scale(div_coef)
-    w_grad = torch.empty((b, 2, n, n), dtype=torch.int8, device=device)
+    return _densify_int8_launch(device, idx, grad_coef, div_coef)
+
+
+def _densify_int8_launch(device, idx, grad_coef, div_coef):
+    """The launches of :func:`densify_coefs_int8` into new outputs: the
+    clouds' ``|coef|`` maxima of both tensors (viewed ``[B, N K, 2]``)
+    into one ``[2, B]`` buffer, which ``absmax`` zero-fills, then the
+    assembly on the task of :func:`densify_int8_block`."""
+    b, n, k = idx.shape
+    rows, width = densify_int8_block(n, k)
+    if densify_int8_smem(rows, width, k) > SMEM_MAX:
+        raise ValueError(f"densify_int8: {k} slots a row need more shared "
+                         f"memory than a block has")
+    amax = torch.empty((2, b), dtype=torch.float32, device=idx.device)
+    for i, coef in enumerate((grad_coef, div_coef)):
+        _lib.launch("absmax", device, coef.data_ptr(),
+                    amax.data_ptr() + 4 * b * i, b, n * k, 2, 0)
+    w_grad = torch.empty((b, 2, n, n), dtype=torch.int8, device=idx.device)
     w_div = torch.empty_like(w_grad)
+    s_grad = torch.empty((b,), dtype=torch.float32, device=idx.device)
+    s_div = torch.empty_like(s_grad)
     _lib.launch("densify_int8", device, idx.data_ptr(), grad_coef.data_ptr(),
-                div_coef.data_ptr(), sg.data_ptr(), sd.data_ptr(),
-                w_grad.data_ptr(), w_div.data_ptr(), b, n, k)
-    return w_grad, w_div, sg / 127.0, sd / 127.0
+                div_coef.data_ptr(), amax.data_ptr(), s_grad.data_ptr(),
+                s_div.data_ptr(), w_grad.data_ptr(), w_div.data_ptr(), b, n,
+                k, rows, width)
+    return w_grad, w_div, s_grad, s_div

@@ -61,7 +61,10 @@ in :func:`bn_lrelu_epilogue`:
 - :func:`gather_max_affine` ``(h [B, N, C] bf16, idx, mask, affine,
   sub_self) -> [B, N, C] bf16``: the masked max of the neighbour rows;
   with ``sub_self`` (the centralized first conv) the self row
-  ``h[idx[..., 0]]`` is subtracted inside the sign fold.
+  ``h[idx[..., 0]]`` is subtracted inside the sign fold. On CUDA tensors
+  the neighbour max's two routes (:func:`max_slice`): route S with the
+  epilogue (the self row read from the slice), route D
+  ``gather_max_affine_direct``; the same bits.
 - :func:`gather_matmul_max` ``(x [B, N, C_in] bf16, w [C_in, C_out]
   bf16, idx, mask, affine=None) -> [B, N, C_out] bf16``: the masked max
   of ``x[idx_k] @ w`` (f32 accumulation); without ``affine`` the max
@@ -113,8 +116,9 @@ import torch
 
 from . import _lib
 
-__all__ = ["BWD_SLICE", "BWD_SLICES", "MAX_ROW_BYTES", "MM_SLICES", "NEG",
-           "SMEM_MAX", "absmax", "absmax_plain", "bn_lrelu_epilogue",
+__all__ = ["BWD_SLICE", "BWD_SLICES", "MAX_ROW_BYTES",
+           "MM_SLICES", "NEG", "SMEM_MAX", "absmax", "absmax_plain",
+           "bn_lrelu_epilogue",
            "bwd_slice", "bwd_smem", "gather_matmul_max",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",
            "gather_matmul_max_plain", "gather_matmul_max_train",
@@ -264,7 +268,8 @@ def max_slice(b: int, n: int, c: int, itemsize: int, k: int, sms: int,
     slice fits (above 14,526 points), ``k`` is 0, or the bf16 winners' 16
     bits do not hold ``k``. Cached: the wrappers ask at every call."""
     need = c * itemsize
-    fits = [rb for rb in MAX_ROW_BYTES if max_smem(n, rb) <= SMEM_MAX
+    fits = [rb for rb in MAX_ROW_BYTES
+            if max_smem(n, rb) <= SMEM_MAX
             and (rb == 16 or rb // 2 < need)]
     if (not fits or k <= 0 or c <= 0
             or (winners and itemsize == 2 and k > 0xFFFF)):
@@ -279,19 +284,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _max_launch(name, device, args, h, k, route, winners):
+def _max_launch(name, device, args, h, k, route, winners, tail=()):
     """Launches route S of ``name`` (``route = (cs, splits)``) or, with
     ``cs`` 0, route D, ``name_direct``; ``route`` None:
-    :func:`max_slice`."""
+    :func:`max_slice`. ``tail``: both routes' last arguments."""
     b, n, c = h.shape
     if route is None:
         route = max_slice(b, n, c, h.element_size(), k,
                           _sm_count(device.index or 0), winners)
     cs, splits = route
     if cs:
-        _lib.launch(name, device, *args, b, n, c, k, cs, splits)
+        _lib.launch(name, device, *args, b, n, c, k, cs, splits, *tail)
     else:
-        _lib.launch(f"{name}_direct", device, *args, b, n, c, k)
+        _lib.launch(f"{name}_direct", device, *args, b, n, c, k, *tail)
 
 
 def _max(h, idx, mask, route=None):
@@ -617,9 +622,21 @@ def gather_max_affine_plain(h, idx, mask, affine, sub_self: bool = False):
 
 
 def gather_max_affine(h, idx, mask, affine, sub_self: bool = False):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """Plain version for CPU tensors; for CUDA tensors one launch, on the
+    route :func:`max_slice` picks: route S, ``gather_max_affine`` (the
+    neighbour max's staged route with the epilogue: the cloud's channel
+    slice in shared memory, the self value from the slice at the point's
+    slot-0 id), or
+    route D, ``gather_max_affine_direct`` (the earlier kernel, every slot's
+    row from L2), above 14,526 points or at K = 0. The same bits."""
     if h.device.type == "cpu":
         return gather_max_affine_plain(h, idx, mask, affine, sub_self)
+    return _gather_max_affine(h, idx, mask, affine, sub_self)
+
+
+def _gather_max_affine(h, idx, mask, affine, sub_self=False, route=None):
+    """:func:`gather_max_affine` on CUDA tensors through ``route`` (``(cs,
+    splits)``; ``(0, 0)`` route D; None: by shape)."""
     b, n, c = h.shape
     k = idx.shape[-1]
     aff = _affine_rows(affine, c).to(h.device)
@@ -630,9 +647,10 @@ def gather_max_affine(h, idx, mask, affine, sub_self: bool = False):
         ("affine", aff, torch.float32, (4, c)),
     ])
     out = torch.empty_like(h)
-    _lib.launch("gather_max_affine", device, h.data_ptr(), idx.data_ptr(),
-                mask.data_ptr(), aff.data_ptr(), out.data_ptr(), b, n, c, k,
-                int(sub_self))
+    _max_launch("gather_max_affine", device,
+                (h.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                 aff.data_ptr(), out.data_ptr()), h, k, route, False,
+                tail=(int(sub_self),))
     return out
 
 

@@ -1170,48 +1170,90 @@ def test_seg_model_kernels_match_plain(cuda):
 # -- the int8 serving slice ---------------------------------------------------
 
 
-def _knn_like(rng, n, k, masked):
-    """Neighbour lists as the kNN makes them: self in slot 0, distinct
-    columns; ``masked`` clamps the last 3 slots of every row to self
-    (their coefficients are zero)."""
+def _knn_like(rng, n, k, masked, b=2):
+    """Neighbour lists of ``b`` clouds as the kNN makes them: self in
+    slot 0, distinct columns; ``masked`` clamps the last 3 slots of every
+    row to self (their coefficients are zero)."""
     idx = np.stack([np.stack([np.concatenate(
         [[i], rng.permutation(np.delete(np.arange(n), i))[:k - 1]])
-        for i in range(n)]) for _ in range(2)]).astype(np.int32)
+        for i in range(n)]) for _ in range(b)]).astype(np.int32)
     if masked:
         idx[:, :, -3:] = np.arange(n)[None, :, None]
     return idx
 
 
-@pytest.mark.parametrize("n,k,masked", [(96, 8, False), (102, 8, True),
-                                         (128, 8, True), (2048, 30, True)])
-def test_densify_int8_kernel_exact(cuda, n, k, masked):
-    """Bit-equal planes and equal scales: the kernel quantizes as torch
-    does (the division, then the product, rounded half to even; ties at
-    +-63.5 included) and adds a column's quantized values. N=96, 128 and
-    2048 take the 4-byte stores (V=4), N=102 the per-column ones (V=1);
-    N <= 128 puts several rows in a block, N=2048 with K=30 (the
-    segmentation config's) loops twice over a row's columns."""
-    rng = np.random.default_rng(40)
-    idx = _knn_like(rng, n, k, masked)
-    gc = rng.standard_normal((2, n, k, 2)).astype(np.float32)
-    dc = rng.standard_normal((2, n, k, 2)).astype(np.float32)
-    # Cloud 0: scale 128, so p / 128 * 127 is exact and +-64 lands on the
-    # ties +-63.5.
+def _int8_coefs(rng, b, n, k, masked, zero_cloud=False):
+    """Coefficients for ``densify_int8``: cloud 0's grad scale 128 (so
+    ``p / 128 * 127`` is exact and +-64 lands on the ties +-63.5); the
+    last 3 slots zero where ``masked`` (clamped padded slots); with
+    ``zero_cloud`` the last cloud's div coefficients all zero (its scale
+    the 1e-30 floor), the others' random."""
+    gc = rng.standard_normal((b, n, k, 2)).astype(np.float32)
+    dc = rng.standard_normal((b, n, k, 2)).astype(np.float32)
     gc[0] = np.clip(gc[0], -100.0, 100.0)
     gc[0, 0, 0, 0] = 128.0
     gc[0, 1, 1:3, 0] = (64.0, -64.0)
     if masked:
         gc[:, :, -3:] = 0.0
         dc[:, :, -3:] = 0.0
+    if zero_cloud:
+        dc[-1] = 0.0
+    return gc, dc
+
+
+@pytest.mark.parametrize("n,k,masked", [(96, 8, False), (102, 8, True),
+                                         (128, 8, True), (1024, 20, True),
+                                         (2048, 30, True), (77, 30, False)])
+def test_densify_int8_kernel_exact(cuda, n, k, masked):
+    """Bit-equal planes and equal scales, across two calls too: the kernel
+    quantizes as torch does (the division, then the product, rounded half
+    to even; ties at +-63.5 included), adds a column's quantized values
+    (a clamped padded slot adds 0), forms the scales from ``absmax``'s
+    maxima (a third cloud's all-zero div coefficients at the 1e-30
+    floor, beside two random clouds) and writes them as
+    ``s / 127`` on the card. N=96, 128, 1024 and 2048 take whole 16-byte
+    stores, N=102 and 77 also the bytes before and after each run's
+    16-byte boundaries; N <= 1024 puts several rows in a block. Three
+    launches: ``absmax`` twice, ``densify_int8`` once."""
+    rng = np.random.default_rng(40)
+    idx = _knn_like(rng, n, k, masked, b=3)
+    gc, dc = _int8_coefs(rng, 3, n, k, masked, zero_cloud=True)
+    args = [torch.from_numpy(a).to(cuda) for a in (idx, gc, dc)]
+    reset_launch_counts()
+    got = ops.densify_coefs_int8(*args)
+    again = ops.densify_coefs_int8(*args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["absmax"] == 4 and counts["densify_int8"] == 2, counts
+    assert sum(counts.values()) == 6, counts
+    want = ops.densify_coefs_int8_plain(*args)
+    assert got[0].dtype == got[1].dtype == torch.int8
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, g)
+    assert int(got[0][0, 0, 1, idx[0, 1, 1]]) == 64  # 63.5 to even
+    assert int(got[0][0, 0, 1, idx[0, 1, 2]]) == -64
+    assert not got[1][-1].any() and got[1][:-1].any()
+    assert float(got[3][-1]) == float(torch.tensor([1e-30], device=cuda)
+                                      / 127.0)
+
+
+@pytest.mark.parametrize("n,k", [(8200, 4), (16411, 3)])
+def test_densify_int8_kernel_wide_clouds(cuda, n, k):
+    """Above the 8192-byte image a task builds one row in chunks of 8192
+    columns (the last one short, N % 16 != 0 at 16,411): bit-equal to
+    the plain version on random neighbour ids (duplicates in a row sum)
+    and ids that land in every chunk."""
+    rng = np.random.default_rng(n)
+    idx = rng.integers(0, n, (1, n, k)).astype(np.int32)
+    idx[0, :, 0] = np.arange(n)
+    idx[0, :5, 1] = n - 1
+    gc, dc = _int8_coefs(rng, 1, n, k, False)
     args = [torch.from_numpy(a).to(cuda) for a in (idx, gc, dc)]
     got = ops.densify_coefs_int8(*args)
     want = ops.densify_coefs_int8_plain(*args)
     torch.cuda.synchronize()
-    assert got[0].dtype == got[1].dtype == torch.int8
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert int(got[0][0, 0, 1, idx[0, 1, 1]]) == 64  # 63.5 to even
-    assert int(got[0][0, 0, 1, idx[0, 1, 2]]) == -64
 
 
 @pytest.mark.parametrize("c", [3, 64, 128])
@@ -2816,4 +2858,76 @@ def test_gather_max_int8_routes_exact(cuda, b, n, c, k, dtype):
         assert sum(counts.values()) == len(launched), counts
         assert got.dtype == dtype
         assert torch.equal(got, want), (route, int((got != want).sum()))
+        assert not got[0, 4].float().any()
+
+
+# -- the bf16 eval max with the epilogue: route S (staged), route D ----------
+
+
+def _affine_case(rng, b, n, c, k, dev):
+    """bf16 features with a NaN in the last cloud, a graph with masked
+    slots, a row with no valid slot, a masked slot 0 and ids outside the
+    cloud (in slot 0 too), and an affine with slopes of both signs."""
+    h = torch.from_numpy(rng.standard_normal((b, n, c)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    h[-1, 7, c // 2] = float("nan")
+    idx = torch.from_numpy(rng.integers(0, n, (b, n, k)).astype(
+        np.int32)).to(dev)
+    idx[:, :, 0] = torch.arange(n, device=dev, dtype=torch.int32)
+    mask = torch.from_numpy(rng.random((b, n, k)) > 0.3).to(dev)
+    mask[0, 4] = False  # no valid neighbour
+    mask[0, 6, 0] = False  # a masked slot 0: its row still self
+    idx[0, 5, 0], mask[0, 5, 0] = n + 3, True  # outside the cloud
+    idx[-1, 9, 0] = -2
+    idx[-1, 6, k - 1], mask[-1, 6, k - 1] = -1, True
+    inv = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev)
+    aff = (torch.where(inv >= 0, 1.0, -1.0), inv,
+           torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev),
+           torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev))
+    return h, idx, mask, aff
+
+
+def _affine_want(h, idx, mask, aff, sub_self):
+    """The plain version where ids outside [0, N) gather 0 (the self row
+    included): on ``h`` with a zero row appended, those ids pointed at
+    it."""
+    b, n, c = h.shape
+    hp = torch.cat([h, torch.zeros((b, 1, c), dtype=h.dtype,
+                                   device=h.device)], dim=1)
+    ids = torch.where((idx < 0) | (idx >= n), n, idx)
+    ids = torch.cat([ids, torch.zeros_like(ids[:, :1])], dim=1)
+    valid = torch.cat([mask, torch.zeros_like(mask[:, :1])], dim=1)
+    return ops.gather_max_affine_plain(hp, ids, valid, aff, sub_self)[:, :n]
+
+
+@pytest.mark.parametrize("sub_self", [False, True])
+@pytest.mark.parametrize("b,n,c,k", [
+    (2, 150, 3, 9), (2, 150, 64, 20), (2, 150, 70, 20), (2, 150, 301, 9),
+    (32, 1024, 64, 20), (32, 1024, 128, 20), (16, 2048, 128, 30),
+    (4, 8192, 64, 20), (4, 8192, 128, 20), (1, 14526, 64, 20),
+    (1, 14527, 64, 20)])
+def test_gather_max_affine_routes_exact(cuda, b, n, c, k, sub_self):
+    """``gather_max_affine`` through the route by shape (route S up to
+    14,526 points) and route D (forced): bit-equal to the plain version and to itself across two
+    calls, on the model shapes and widths the 16-byte stores do not cover
+    (3, 70, 301): a NaN propagates, a row with no valid slot gives 0, the
+    self row is slot 0's whatever its mask, an id outside the cloud
+    (slot 0's too) gathers 0; the launches show the route."""
+    rng = np.random.default_rng(b + n + c + k)
+    h, idx, mask, aff = _affine_case(rng, b, n, c, k, cuda)
+    want = _affine_want(h, idx, mask, aff, sub_self)
+    cs, _ = _GM.max_slice(b, n, c, 2, k, 132)
+    assert (cs > 0) == (n <= 14526)
+    for route, name in ((None, "gather_max_affine" if cs
+                         else "gather_max_affine_direct"),
+                        ((0, 0), "gather_max_affine_direct")):
+        reset_launch_counts()
+        got = _GM._gather_max_affine(h, idx, mask, aff, sub_self, route)
+        again = _GM._gather_max_affine(h, idx, mask, aff, sub_self, route)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts[name] == 2 and sum(counts.values()) == 2, counts
+        assert got.dtype == torch.bfloat16
+        _same_values(got, want)
+        assert torch.equal(_bits(got), _bits(again))
         assert not got[0, 4].float().any()

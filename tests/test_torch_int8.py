@@ -184,6 +184,111 @@ def test_densify_int8_plain_matches_jax(masked):
         assert torch.equal(g, w)  # the CPU wrapper runs the plain version
 
 
+@pytest.mark.parametrize("zero", ["grad", "div"])
+def test_densify_int8_plain_zero_cloud_matches_jax(zero):
+    """A cloud whose grad (or div) coefficients are all zero takes the
+    1e-30 floor of the scale (its planes 0, its scale 1e-30 / 127), beside
+    a cloud with half-way quotients and clamped padded slots: planes
+    bit-equal and scales equal to the JAX kernel in interpret mode."""
+    idx, gc, dc = _knn_like(np.random.default_rng(53), True)
+    (gc if zero == "grad" else dc)[1] = 0.0
+    got = ops.densify_coefs_int8_plain(_t(idx), _t(gc), _t(dc))
+    want = jax_densify_op.densify_coefs_int8(
+        jnp.asarray(idx), jnp.asarray(gc), jnp.asarray(dc), interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    plane, scale = (got[0], got[2]) if zero == "grad" else (got[1], got[3])
+    assert not plane[1].any()
+    assert float(scale[1]) == float(np.float32(1e-30) / np.float32(127.0))
+    assert int(got[0][0, 0, 1, idx[0, 1, 1]]) == 64  # 63.5, half to even
+
+
+# Torch functions that reduce or compute: the int8 wrappers' kernels do
+# that work, so the wrappers call none of them on CUDA tensors.
+_COMPUTE = {"amax", "amin", "max", "min", "sum", "any", "all", "abs",
+            "linalg_vector_norm", "norm", "clamp", "clamp_min", "div",
+            "__truediv__", "__rtruediv__", "mul", "__mul__", "round",
+            "where"}
+
+
+class _Calls(torch.overrides.TorchFunctionMode):
+    """Records the name of every torch function called under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.names.add(getattr(func, "__name__", str(func)))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("n,k,rows,width", [
+    (1024, 20, 8, 1024),   # classification: 8 rows a block
+    (2048, 30, 4, 2048),   # segmentation
+    (77, 30, 34, 77),      # many short rows: the slots bound them
+    (8192, 20, 1, 8192),   # one row a block
+    (8200, 20, 1, 8192),   # above: chunks of 8192 columns
+])
+def test_densify_int8_wrapper_launches(monkeypatch, n, k, rows, width):
+    """``densify_coefs_int8``'s launches on CUDA tensors (recorded in
+    place of the launch; meta tensors, no card): ``absmax`` on the grad
+    and on the div coefficients viewed ``[B, N K, 2]``, into the two rows
+    of one ``[2, B]`` buffer, then ``densify_int8`` on the task of
+    ``densify_int8_block``; no torch op that reduces or computes."""
+    dens = importlib.import_module("deltaconv_tpu_torch.ops.densify_op")
+    calls = []
+    monkeypatch.setattr(dens._lib, "launch", lambda kernel, device, *args:
+                        calls.append((kernel, args)))
+    b = 3
+    idx = torch.empty((b, n, k), dtype=torch.int32, device="meta")
+    gc = torch.empty((b, n, k, 2), dtype=torch.float32, device="meta")
+    dc = torch.empty_like(gc)
+    assert dens.densify_int8_block(n, k) == (rows, width)
+    with _Calls() as seen:
+        out = dens._densify_int8_launch(torch.device("cuda", 0), idx, gc, dc)
+    assert not seen.names & _COMPUTE, seen.names & _COMPUTE
+    assert [name for name, _ in calls] == ["absmax", "absmax",
+                                           "densify_int8"]
+    (_, g_args), (_, d_args), (_, args) = calls
+    assert g_args[2:] == d_args[2:] == (b, n * k, 2, 0)
+    assert d_args[1] - g_args[1] == 4 * b  # the div row of [2, B]
+    assert args[3] == g_args[1] and args[8:] == (b, n, k, rows, width)
+    assert [tuple(t.shape) for t in out] == [(b, 2, n, n), (b, 2, n, n),
+                                             (b,), (b,)]
+    assert out[0].dtype == out[1].dtype == torch.int8
+
+
+def test_densify_int8_smem_counts_the_cuda_block():
+    """``densify_int8_smem`` is the CUDA source's
+    ``densify_int8_smem_bytes`` (four plane images of R W bytes with room
+    for their alignment shift, R K slots of 8 bytes) and its limit is
+    SMEM_MAX, read from ``csrc/densify.cu``; every task the chooser
+    gives fits a block at the model shapes and well beyond them."""
+    import re
+    from pathlib import Path
+
+    dens = importlib.import_module("deltaconv_tpu_torch.ops.densify_op")
+    src = (Path(dens.__file__).resolve().parent.parent / "csrc"
+           / "densify.cu").read_text()
+    body = re.search(r"inline size_t densify_int8_smem_bytes\(int R, int W, "
+                     r"int K\) \{\s*return ([^;]+);", src).group(1)
+    expr = body.replace("(size_t)", "").replace(" / ", " // ")
+    for r, w, k in ((8, 1024, 20), (4, 2048, 30), (1, 8192, 20),
+                    (34, 77, 30), (3, 1001, 9)):
+        assert eval(expr, {"R": r, "W": w, "K": k}) == dens.densify_int8_smem(
+            r, w, k)
+    limit = re.search(r"kDensifySmemMax = (\d+);", src).group(1)
+    assert int(limit) == dens.SMEM_MAX
+    for n in (1, 16, 77, 1000, 1024, 2048, 4096, 8191, 8192, 8193, 65536):
+        for k in (1, 20, 30, 64, 200):
+            rows, width = dens.densify_int8_block(n, k)
+            assert rows >= 1 and rows * width <= max(dens.DENSIFY_IMAGE, n)
+            assert width == min(n, dens.DENSIFY_IMAGE)
+            assert rows == 1 or rows * k <= dens.DENSIFY_SLOTS
+            assert dens.densify_int8_smem(rows, width, k) <= dens.SMEM_MAX
+
+
 @pytest.mark.parametrize("dtype", [None, "bfloat16"])
 def test_int8_quantize_matches_jax(dtype):
     rng = np.random.default_rng(51)

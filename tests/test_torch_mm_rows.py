@@ -207,6 +207,17 @@ def test_int8_wrapper_launches_the_route(monkeypatch, n, cs, launched,
     (2, 150, 64, 2, 65536, True, (0, 0)),    # above the bf16 winners
     (2, 150, 64, 4, 65536, True, (32, 2)),   # f32 winners are whole words
     (32, 1024, 64, 4, 20, False, (32, 2)),
+    # the bf16 eval max (gather_max_affine, no winners)
+    (32, 1024, 64, 2, 20, False, (64, 4)),   # cls conv0/conv1
+    (32, 1024, 128, 2, 20, False, (64, 2)),  # cls conv2
+    (4, 8192, 64, 2, 20, False, (8, 4)),     # large clouds: 16-byte rows
+    (4, 8192, 128, 2, 20, False, (8, 2)),
+    (1, 14526, 64, 2, 20, False, (8, 16)),   # the largest cloud
+    (1, 14527, 64, 2, 20, False, (0, 0)),    # above it: route D
+    (2, 1814, 64, 2, 9, False, (64, 15)),    # 128-byte rows up to 1,814
+    (2, 1815, 64, 2, 9, False, (32, 15)),
+    (2, 150, 70, 2, 9, False, (64, 2)),      # an odd width
+    (32, 1024, 64, 2, 0, False, (0, 0)),     # no slot: route D
 ])
 def test_max_slice_routes(b, n, c, itemsize, k, winners, want):
     """``max_slice``: route S's slice (channels) and splits at the model
@@ -282,6 +293,67 @@ def test_max_wrapper_launches_the_route(monkeypatch, name, n, route,
         extra = GM.max_slice(32, n, c, h.element_size(), 20, 132, winners)
         assert extra[0] > 0
     assert calls == [(name + launched, (11, 12, 32, n, c, 20) + extra)]
+
+
+# Torch functions that reduce or compute: the affine max's kernels do that
+# work, so its wrapper calls none of them on CUDA tensors beyond the
+# affine rows' stack.
+_COMPUTE = {"amax", "amin", "max", "min", "sum", "any", "all", "abs",
+            "linalg_vector_norm", "clamp", "div", "__truediv__", "sub",
+            "__sub__", "mul", "__mul__", "add", "__add__", "where",
+            "gather"}
+
+
+class _Calls(torch.overrides.TorchFunctionMode):
+    """Records the name of every torch function called under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        self.names.add(getattr(func, "__name__", str(func)))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("n,route,launched,extra", [
+    (1024, None, "", None),          # by shape: route S, max_slice's
+    (8192, None, "", None),          # large clouds: 16-byte rows
+    (14526, None, "", None),         # the largest route-S cloud
+    (14527, None, "_direct", ()),    # above it: route D
+    (1024, (0, 0), "_direct", ()),   # forced route D
+    (1024, (32, 3), "", (32, 3)),    # a given slice and split
+])
+@pytest.mark.parametrize("sub_self", [False, True])
+def test_affine_wrapper_launches_the_route(monkeypatch, n, route, launched,
+                                           extra, sub_self):
+    """``gather_max_affine``'s one launch on CUDA tensors (recorded in
+    place of the launch; meta tensors, no card): route S with
+    ``max_slice``'s slice and splits, or route D's
+    ``gather_max_affine_direct``, each with ``sub_self`` last; no torch
+    op that reduces or computes."""
+    calls = []
+    monkeypatch.setattr(GM._lib, "launch",
+                        lambda kernel, device, *args: calls.append(
+                            (kernel, args)))
+    monkeypatch.setattr(GM._lib, "check_inputs",
+                        lambda name, specs: torch.device("cuda", 0))
+    monkeypatch.setattr(GM, "_sm_count", lambda index: 132)
+    b, c, k = 4, 64, 20
+    h = torch.empty((b, n, c), dtype=torch.bfloat16, device="meta")
+    idx = torch.empty((b, n, k), dtype=torch.int32, device="meta")
+    mask = torch.empty((b, n, k), dtype=torch.bool, device="meta")
+    aff = tuple(torch.empty(c, device="meta") for _ in range(4))
+    with _Calls() as seen:
+        out = GM._gather_max_affine(h, idx, mask, aff, sub_self, route)
+    assert not seen.names & _COMPUTE, seen.names & _COMPUTE
+    assert out.shape == h.shape and out.dtype == torch.bfloat16
+    if extra is None:
+        extra = GM.max_slice(b, n, c, 2, k, 132)
+        assert extra[0] > 0
+    assert [(name, args[5:]) for name, args in calls] == [
+        ("gather_max_affine" + launched, (b, n, c, k) + extra
+         + (int(sub_self),))]
 
 
 # -- the winner-routed backward: route S (shared f64 sums) or route D ------

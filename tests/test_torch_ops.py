@@ -662,6 +662,53 @@ def test_gather_max_affine_plain_matches_pallas_interpret(sub_self):
     assert (np.asarray(aff[0]) < 0).any()  # negative slopes were folded
 
 
+def _zero_row_graph(h, idx, mask):
+    """``h`` with a zero row appended and the ids outside [0, N) pointed
+    at it: the port's plain versions gather in range only."""
+    b, n, c = h.shape
+    hp = torch.cat([h, torch.zeros((b, 1, c), dtype=h.dtype)], dim=1)
+    ids = torch.where((idx < 0) | (idx >= n), n, idx)
+    ids = torch.cat([ids, torch.zeros_like(ids[:, :1])], dim=1)
+    return hp, ids, torch.cat([mask, torch.zeros_like(mask[:, :1])], dim=1)
+
+
+@pytest.mark.parametrize("sub_self", [False, True])
+def test_gather_max_affine_plain_hard_cases_match_pallas_interpret(sub_self):
+    """The rows the card's two routes must agree on, against the JAX
+    kernel in interpret mode (its slot-0 self row through the one-hot
+    gather: N=100 is not a multiple of its tile): a row with no valid
+    slot (0), a masked slot 0 (its row is still the self row), ids
+    outside the cloud in slot 0 (masked and valid: a self row of 0) and
+    in a later slot (it gathers 0). The plain version runs on the graph
+    with a zero row appended for those ids; within one bf16 ulp on 1e-3
+    of the elements (FMA contraction on the JAX side, above)."""
+    from deltaconv_tpu.ops.gather_max import gather_max_affine as jax_fn
+
+    rng = np.random.default_rng(15)
+    b, n, k, c = 2, 100, 7, 24
+    _, h_j, h = _bf16(rng.standard_normal((b, n, c)).astype(np.float32))
+    idx, mask = _self_first_graph(rng, b, n, k)
+    mask[1, 5, 0] = False  # masked slot 0
+    idx[0, 7, 0] = n + 4  # slot 0 outside the cloud, valid
+    idx[0, 9, 0], mask[0, 9, 0] = -3, False  # and masked
+    idx[1, 8, 2], mask[1, 8, 2] = -1, True  # a later slot outside
+    aff = _affine(rng, c)
+    want = np.asarray(jax_fn(h_j, jnp.asarray(idx), jnp.asarray(mask),
+                             tuple(map(jnp.asarray, aff)), sub_self=sub_self,
+                             interpret=True), np.float32)
+    hp, ids, valid = _zero_row_graph(h, _t(idx), _t(mask))
+    got = ops.gather_max_affine_plain(hp, ids, valid, tuple(map(_t, aff)),
+                                      sub_self)[:, :n]
+    assert got.dtype == torch.bfloat16
+    _assert_epilogue_close(got, want)
+    assert not got[0, 3].float().any()
+    if sub_self:  # the slot-0 rows outside the cloud subtract nothing
+        raw = ops.gather_max_affine_plain(hp, ids, valid, tuple(map(
+            _t, aff)), False)[:, :n]
+        assert torch.equal(got[0, 7], raw[0, 7])
+        assert torch.equal(got[0, 9], raw[0, 9])
+
+
 @pytest.mark.parametrize("affine", [False, True])
 def test_gather_matmul_max_plain_matches_pallas_interpret(affine):
     """Random bf16 inputs: within one bf16 ulp (the f32 sums run in

@@ -240,7 +240,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_max_direct": 0, "gather_max_win_direct": 0,
         "gather_max_bf16_direct": 0, "gather_max_win_bf16_direct": 0,
         "adjacency": 0, "gather_sum": 0, "gather_sum_bwd": 0,
-        "knn_topk": 0, "gather_max_affine": 0, "gather_matmul_max": 0,
+        "knn_topk": 0, "gather_max_affine": 0,
+        "gather_max_affine_direct": 0, "gather_matmul_max": 0,
         "gather_matmul_max_kfold": 0,
         "gather_max_win_bf16": 0, "gather_max_bwd_bf16": 0,
         "gather_matmul_max_win": 0, "gather_matmul_max_win_kfold": 0,
