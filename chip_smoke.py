@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the sixty-three CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the sixty-five CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -49,7 +49,13 @@ first on ``sys.path``. It
    (by shape; its affine rows read from device memory) and route D (``gather_max_affine_direct``, forced), on
    the kNN graph and on hard rows (no valid slot, a masked slot 0, ids
    outside the cloud, a NaN), bit-equal to the plain version and across
-   two calls, each timed;
+   two calls, each timed; ``[wls-routes]``: wls at B=32, N=1024, K=20,
+   B=16, N=2048, K=30 and B=4, N=8192, K=20 and wls_bwd at the first and
+   the last, on kNN graphs with a padded cloud, through the split route
+   (by shape) and the direct route (``wls_direct``, ``wls_bwd_direct``,
+   forced), the forward within 1e-5 of the plain version, each VJP
+   plane within 1e-4 x its max, a second call bit-equal, each timed,
+   and the split route at every number of warps that holds K edges;
    and the int8 matmul max through its one-product-a-row route and its
    K-fold route (``_kfold``), bit-equal to each other; the
    large-cloud kernels at B=4, N=8192, K=20 on the clouds' own
@@ -329,7 +335,13 @@ first on ``sys.path``. It
     route S never, ``ops.gather_max_affine`` (bf16, with and without the
     self row) ``gather_max_affine_direct`` twice, forward and backward
     bit-equal to the plain versions;
-29. with ``--parent DIR`` (another checkout's root, e.g. the parent
+29. ``[wls-direct]``: 4 clouds of 1024 points with 48 neighbours (above
+    the WLS split route's 40): ``ops.wls`` on planes that require grad
+    and its backward launch ``wls_direct`` and ``wls_bwd_direct`` once
+    each and the split kernels never, within 1e-5 and 1e-4 x each
+    plane's max of the plain versions; every model path above launched
+    neither;
+30. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
     gather plan's build where the package has one), ``[kernel-times]``
@@ -337,7 +349,10 @@ first on ``sys.path``. It
     model shapes in device time and by CUDA events, with their bounds and
     at the record shapes the plain and library device times;
     ``ops.gather_max_int8`` and ``ops.gather_max_bwd`` at their model
-    shapes in device time) and ``[device-times]`` on that checkout's
+    shapes in device time; ``ops.wls`` at the three forwards' shapes and
+    ``ops.wls_bwd`` at the two backwards', in device time and by events,
+    with their bounds and the plain versions' device time) and
+    ``[device-times]`` on that checkout's
     package (this script copied
     into its root) and on this tree, in turns: parent, this, this,
     parent, each a process of its own (``--phase compare``).
@@ -539,6 +554,15 @@ MAX_DIRECT_KERNELS = ("gather_max_direct", "gather_max_win_direct",
                       "gather_minmax_bwd_direct",
                       "gather_minmax_bwd_bf16_direct",
                       "gather_max_int8_direct", "gather_max_affine_direct")
+# The WLS kernels where the model paths run them: #3 (wls) at the
+# classification, segmentation and large-cloud forwards, #4 (wls_bwd) at
+# the two backwards in the positions; [wls-direct]: K above the split
+# route's 40 edges, on WLS_DIRECT_B clouds of N points.
+WLS_SHAPES = (("cls", B, N, K), ("seg", SEG_B, SEG_N, SEG_K),
+              ("large", LARGE_B, LARGE_N, K))
+WLS_BWD_SHAPES = ((B, N, K), (LARGE_B, LARGE_N, K))
+WLS_DIRECT_K = 48
+WLS_DIRECT_B = 4
 
 # Point-sharded serving of ONE large cloud (bench.py --mode=point-shard,
 # bench.py:351-407): 65,536 points, the reference-width classifier in
@@ -600,10 +624,11 @@ WLS_BWD_FLOPS_PER_EDGE = 580
 # build (the gather's VJP scatter_rows once), the coefficient form's (no
 # assembly: no densify_bwd; its forward's applies by route and the
 # gather plan as in serving), one forward of the fused eval build.
-POS_GRAD_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 1, "scatter_rows": 1,
+POS_GRAD_PER_BACKWARD = {"wls_bwd": 1, "wls_bwd_direct": 0,
+                         "densify_bwd": 1, "scatter_rows": 1,
                          "inverse_adjacency": 1}
-POS_GRAD_LARGE_PER_BACKWARD = {"wls_bwd": 1, "densify_bwd": 0,
-                               **COEF_PER_FORWARD}
+POS_GRAD_LARGE_PER_BACKWARD = {"wls_bwd": 1, "wls_bwd_direct": 0,
+                               "densify_bwd": 0, **COEF_PER_FORWARD}
 MINMAX_C = 256  # gather_minmax (f32), its backward (f32 and bf16)
 MINMAX_BF16_C = 128  # the bf16 forward bodies
 MINMAX_WIDTHS = (64, 128, 256)  # [nbr-minmax]: the conv widths, f32
@@ -625,6 +650,12 @@ KERNEL_META = {
                     "deltaconv_tpu/ops/gather_rows.py:205"),
     "wls": ("deltaconv_tpu_torch/csrc/wls.cu",
             "deltaconv_tpu/ops/wls_fused.py:162"),
+    # The direct route of the WLS forward and its VJP (the earlier
+    # kernels, a route by shape above the split route's edges).
+    "wls_direct": ("deltaconv_tpu_torch/csrc/wls.cu",
+                   "deltaconv_tpu/ops/wls_fused.py:162"),
+    "wls_bwd_direct": ("deltaconv_tpu_torch/csrc/wls.cu",
+                       "deltaconv_tpu/ops/wls_fused.py:212"),
     "densify": ("deltaconv_tpu_torch/csrc/densify.cu",
                 "deltaconv_tpu/ops/densify_op.py:249"),
     "gather_max": ("deltaconv_tpu_torch/csrc/gather_max.cu",
@@ -806,15 +837,20 @@ TRAIN_LARGE_KERNELS = ("knn_topk", "gather_rows", "wls", *COEF_KERNELS,
 # gather_mlp_max (centralized), conv2 mlp_rows and gather_max_merge; bf16
 # segmentation the same MLP maxes. absmax: one a route-S int8 max and two
 # a densify_int8 (the grad and the div coefficients).
-INT8_PER_FORWARD = {"densify_int8": 1, "absmax": 5, "gather_max_int8": 3,
+# The operator build's WLS solve: once a forward, on the split route (its
+# direct route above 40 edges a point, never on a model path).
+WLS_PER_FORWARD = {"wls": 1, "wls_direct": 0}
+INT8_PER_FORWARD = {**WLS_PER_FORWARD, "densify_int8": 1, "absmax": 5,
+                    "gather_max_int8": 3,
                     "gather_max_int8_direct": 0,
                     "gather_matmul_max_int8": 1}
 # The bf16 eval max on the bf16 classification and large-cloud forwards:
 # conv0-2, each on route S.
-BF16_PER_FORWARD = {"gather_max_affine": 3, "gather_max_affine_direct": 0}
+BF16_PER_FORWARD = {**WLS_PER_FORWARD, "gather_max_affine": 3,
+                    "gather_max_affine_direct": 0}
 SEG_MLP_PER_FORWARD = {"gather_mlp_max": 1, "mlp_rows": 1,
                        "gather_max_merge": 1}
-SEG_INT8_PER_FORWARD = {"densify_int8": 1, "absmax": 3,
+SEG_INT8_PER_FORWARD = {**WLS_PER_FORWARD, "densify_int8": 1, "absmax": 3,
                         "gather_max_int8": 1, "gather_max_int8_direct": 0,
                         **SEG_MLP_PER_FORWARD}
 # Width of the record's time: the widest conv for the max, the first
@@ -891,6 +927,42 @@ def ellipsoid_clouds(rng, sizes, axes=None):
         clouds.append(d * ax)
         normals.append(nrm / np.linalg.norm(nrm, axis=1, keepdims=True))
     return clouds, normals
+
+
+def wls_edges(rng, b, n, k, dev, masked=False):
+    """The edge planes ``[b, 12, k, n]`` of ``b`` ellipsoid clouds of
+    ``n`` points on their kNN graph (``masked``: cloud 0's last 40%
+    padded), as the unfused build forms them."""
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+    from deltaconv_tpu_torch.ops.wls_fused import edge_planes
+
+    clouds, normals = ellipsoid_clouds(rng, [n] * b)
+    pos = torch.from_numpy(np.stack(clouds)).to(dev)
+    nrm = torch.from_numpy(np.stack(normals)).to(dev)
+    pm = None
+    if masked:
+        pm = torch.ones((b, n), dtype=torch.bool, device=dev)
+        pm[0, int(0.6 * n):] = False
+    idx, nbr_mask = knn(pos, k, pm)
+    if pm is not None:
+        nbr_mask = nbr_mask & pm[:, :, None]
+    xb, yb = build_tangent_basis(nrm)
+    return edge_planes(pos, nrm, xb, yb, idx, nbr_mask,
+                       nbr_mask.any(dim=2).to(torch.float32))
+
+
+def wls_bound(edges, bwd):
+    """The least time of ``wls`` (``bwd`` False: the planes read once, g
+    and d written once, 180 f32 operations an edge) or ``wls_bwd`` (the
+    planes and both cotangents read once, the planes' cotangents written
+    once, 580 operations an edge)."""
+    b, _, k, n = edges.shape
+    planes = edges.numel() * 4
+    coefs = 2 * b * 2 * k * n * 4
+    if bwd:
+        return bound(2 * planes + coefs, float(b) * n * k
+                     * WLS_BWD_FLOPS_PER_EDGE)
+    return bound(planes + coefs, float(b) * n * k * WLS_FLOPS_PER_EDGE)
 
 
 def median_ms(fn, reps=REPS) -> float:
@@ -2529,6 +2601,131 @@ def bwd_routes_phase(res, rng, dev, card):
                       f"the bf16 features)", flush=True)
 
 
+def wls_routes_phase(res, rng, dev, card):
+    """``[wls-routes]``: the WLS forward (#3) at WLS_SHAPES and its VJP
+    (#4) at WLS_BWD_SHAPES on ellipsoid clouds' kNN graphs (cloud 0 40%
+    padded), through the split route (by shape, ``wls_split``) and the
+    direct route (forced): the forward within WLS_ATOL of the plain
+    version, each VJP plane within WLS_BWD_REL x its max, a second call
+    bit-equal, each call one launch of its route; then both timed by CUDA
+    events and in device time beside the plain version and the bound, and
+    the split route at every number of warps that holds K edges (device
+    time). The direct route is the parent tree's kernel, unchanged; its
+    records are at the classification shape. Its clouds come from a
+    generator spawned off ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+
+    wf = importlib.import_module("deltaconv_tpu_torch.ops.wls_fused")
+    rng = rng.spawn(1)[0]
+    print(f"[wls-routes] the WLS forward and VJP by route: split (by "
+          f"shape) and direct (the parent's kernels); per call, CUDA events "
+          f"(median of {REPS} samples of {INNER} calls) and device time "
+          f"(profiler); card: {card}", flush=True)
+    for label, b, n, k in WLS_SHAPES:
+        edges = wls_edges(rng, b, n, k, dev, masked=True)
+        ctg = torch.randn((b, 2, k, n), device=dev)
+        ctd = torch.randn((b, 2, k, n), device=dev)
+        sides = ((False, True) if (b, n, k) in WLS_BWD_SHAPES
+                 else (False,))
+        for bwd in sides:
+            name = "wls_bwd" if bwd else "wls"
+
+            def run(slices, bwd=bwd, edges=edges, ctg=ctg, ctd=ctd):
+                if bwd:
+                    return (wf._wls_bwd(edges, ctg, ctd, 1.0, 1e-3,
+                                        slices),)
+                return wf._wls_kernel(edges, 1.0, 1e-3, slices)
+
+            def plain(bwd=bwd, edges=edges, ctg=ctg, ctd=ctd):
+                if bwd:
+                    return (ops.wls_bwd_plain(edges, ctg, ctd, 1.0, 1e-3),)
+                return ops.wls_plain(edges, 1.0, 1e-3)
+
+            want = plain()
+            for slices, sfx in ((None, ""), (0, "_direct")):
+                reset_launch_counts()
+                got = run(slices)
+                again = run(slices)
+                torch.cuda.synchronize()
+                counts = {m: v for m, v in launch_counts().items() if v}
+                err = max(max_err(a, w) for a, w in zip(got, want))
+                if bwd:
+                    rel = _plane_rel(got[0], want[0])
+                    ok, what = (rel <= WLS_BWD_REL and bool(
+                        torch.isfinite(got[0]).all()),
+                        f"worst plane {rel:.3e} x its max <= {WLS_BWD_REL}")
+                else:
+                    ok, what = (err <= WLS_ATOL,
+                                f"max_abs_err {err} <= {WLS_ATOL}")
+                same = all(bits_equal(a, r) for a, r in zip(got, again))
+                check(f"[wls-routes] {label} {name}{sfx} B={b} N={n} K={k}",
+                      ok and same and counts == {name + sfx: 2},
+                      f"{what}, a second call bit-equal {same}, launches "
+                      f"{counts}")
+                res[name + sfx]["max_abs_err"] = max(
+                    res[name + sfx]["max_abs_err"], err)
+            t = {sfx: (median_ms(lambda: run(slices)),
+                       device_ms(lambda: run(slices), 5))
+                 for slices, sfx in ((None, "split"), (0, "direct"))}
+            pl = device_ms(plain, 2)
+            bd = wls_bound(edges, bwd)
+            split = wf.wls_split(k)
+            print(f"  {label} {name} B={b} N={n} K={k}: split ({split[0]} "
+                  f"warps of {split[1]} slots) {t['split'][0]:.4f} ms "
+                  f"({t['split'][1]:.4f} ms of device time); direct "
+                  f"{t['direct'][0]:.4f} ({t['direct'][1]:.4f}); plain "
+                  f"{pl:.4f} (device); bound {bd[0]:.4f} ms ({bd[1]})",
+                  flush=True)
+            if (b, n, k) == (B, N, K):
+                res[name + "_direct"].update(ms=t["direct"][0], plain_ms=pl,
+                                             bound=bd)
+            times = [f"{s} x {-(-k // s)}: "
+                     f"{device_ms(lambda: run(s), 5):.4f}"
+                     for s in range(-(-k // wf.WLS_EDGES),
+                                    wf.WLS_MAX_SLICES + 1)]
+            print("    split by warps (warps x slots: device ms): "
+                  + "; ".join(times), flush=True)
+        del edges, ctg, ctd
+
+
+def wls_direct_phase(rng, dev):
+    """``[wls-direct]``: WLS_DIRECT_B clouds of N points with
+    WLS_DIRECT_K neighbours, above the split route's edges: ``ops.wls``
+    on planes that require grad and its backward launch ``wls_direct`` and
+    ``wls_bwd_direct`` once each and the split kernels never, the forward
+    within WLS_ATOL of the plain version and the planes' cotangents each
+    within WLS_BWD_REL x its max. Its clouds come from a generator spawned
+    off ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+
+    rng = rng.spawn(1)[0]
+    edges = wls_edges(rng, WLS_DIRECT_B, N, WLS_DIRECT_K, dev, masked=True)
+    ctg = torch.randn((WLS_DIRECT_B, 2, WLS_DIRECT_K, N), device=dev)
+    ctd = torch.randn_like(ctg)
+    reset_launch_counts()
+    e = edges.clone().requires_grad_()
+    g, d = ops.wls(e, 1.0, 1e-3)
+    torch.autograd.backward((g, d), (ctg, ctd))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"[wls-direct] launches, K={WLS_DIRECT_K}: "
+          f"{ {m: c for m, c in counts.items() if c} }")
+    check(f"[wls-direct] K={WLS_DIRECT_K}: the direct route once each, the "
+          f"split route never",
+          counts["wls_direct"] == 1 and counts["wls_bwd_direct"] == 1
+          and counts["wls"] == 0 and counts["wls_bwd"] == 0,
+          f"{counts['wls_direct']}, {counts['wls_bwd_direct']}, "
+          f"{counts['wls']}, {counts['wls_bwd']}")
+    gp, dp = ops.wls_plain(edges, 1.0, 1e-3)
+    err = max(max_err(g, gp), max_err(d, dp))
+    rel = _plane_rel(e.grad, ops.wls_bwd_plain(edges, ctg, ctd, 1.0, 1e-3))
+    check(f"[wls-direct] K={WLS_DIRECT_K} against the plain versions",
+          err <= WLS_ATOL and rel <= WLS_BWD_REL,
+          f"forward max_abs_err {err} <= {WLS_ATOL}, VJP worst plane "
+          f"{rel:.3e} x its max <= {WLS_BWD_REL}")
+    return counts
+
+
 def max_direct_phase(rng, dev):
     """``[max-direct]``: one cloud of MAX_DIRECT_N points, above route
     S's limits (no slice of 16-byte rows fits a block; the backward's
@@ -2634,9 +2831,12 @@ def kernel_phase(rng, dev, card):
         gp, dp = ops.wls_plain(edges, 1.0, 1e-3)
         err = max(max_err(g, gp), max_err(d, dp))
         scale = float(max(gp.abs().max(), dp.abs().max()))
+        same = all(bits_equal(a, r) for a, r in zip(
+            ops.wls(edges, 1.0, 1e-3), (g, d)))
         record("wls", err)
-        check("wls", err <= WLS_ATOL,
-              f"max_abs_err {err} <= {WLS_ATOL} (max |coef| {scale})")
+        check("wls", err <= WLS_ATOL and same,
+              f"max_abs_err {err} <= {WLS_ATOL} (max |coef| {scale}), a "
+              f"second call bit-equal {same}")
         gd_k = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask)
         gd_p = ops.build_grad_div_fused(pos, nrm, xb, yb, idx, nbr_mask,
                                         ops=ops.PLAIN_OPS)
@@ -2936,6 +3136,7 @@ def kernel_phase(rng, dev, card):
     max_routes_phase(res, rng, dev, card)
     affine_routes_phase(res, rng, dev, card)
     bwd_routes_phase(res, rng, dev, card)
+    wls_routes_phase(res, rng, dev, card)
     del seg_cases, cases
     knn_kernel_phase(res, rng, dev, card)
     coef_kernel_phase(res, rng, dev, card)
@@ -3396,10 +3597,12 @@ def path_device_times(seed, dev, card):
     bf16 forward (N=8192, coefficient form), the large-cloud bf16 step,
     the large-cloud f32 forward, a 32-cloud f32 classification forward
     (exact kNN), the f32 classification step (reference recipe), a
-    32-cloud int8 classification forward (approximate kNN) and 16-cloud
-    bf16 and int8 segmentation forwards (approximate kNN, categories),
-    each after PATH_WARMUP calls. Public functions only, as
-    :func:`conv3_forms`."""
+    32-cloud int8 classification forward (approximate kNN), 16-cloud
+    bf16 and int8 segmentation forwards (approximate kNN, categories), and
+    an f32 eval forward + backward in the positions and normals of 32
+    classification clouds (dense) and of 4 large clouds (coefficient
+    form, approximate kNN), each after PATH_WARMUP calls. Public functions
+    only, as :func:`conv3_forms`."""
     from deltaconv_tpu_torch import InferenceEngine
     from deltaconv_tpu_torch.training import (create_train_state,
                                               make_train_step, sgd_momentum)
@@ -3472,6 +3675,26 @@ def path_device_times(seed, dev, card):
                                 precision=precision),
                 uni[:SEG_B], uni_n[:SEG_B], uni_c[:SEG_B])
     del model
+    # Forward + backward in the positions and normals (eval mode, f32), as
+    # [pos-grad] and [pos-grad-large] run them.
+    for label, b, n, config in (
+            ("classification", B, N, {}),
+            ("large-cloud", LARGE_B, LARGE_N,
+             {"dense_operators": False, "knn_method": "approx"})):
+        batch = train_batch(rng, dev, [n] * b, n)
+        model = random_model(seed, dev, dropout=0.0, **config).eval()
+
+        def fwd_bwd(model=model, batch=batch):
+            p = batch["pos"].clone().requires_grad_()
+            q = batch["normal"].clone().requires_grad_()
+            torch.nn.functional.cross_entropy(
+                model(p, q), batch["label"]).backward()
+
+        for _ in range(PATH_WARMUP):
+            fwd_bwd()
+        times[f"{label} f32 forward + backward in the positions ({b} "
+              f"clouds)"] = device_ms(fwd_bwd)
+        del model, batch
     print("[device-times] device time of one call (profiler): " + "; ".join(
         f"{label} {ms:.3f} ms" for label, ms in times.items())
         + f"; card: {card}", flush=True)
@@ -3491,11 +3714,15 @@ def kernel_times(seed, dev, card):
     (B=32, N=1024, C = 64, 128; B=16, N=2048, C=128) and
     ``ops.gather_max_bwd`` (B=32, N=1024, f32 and bf16 cotangents at C =
     64, 128, 256; B=4, N=8192, bf16 at C = 64, 128, 256), on uniform kNN
-    graphs and the plain max's winners. Public functions only, as
-    :func:`path_device_times`, so that the line times another checkout's
-    kernels."""
+    graphs and the plain max's winners; ``ops.wls`` at the three
+    forwards' shapes (B=32, N=1024, K=20; B=16, N=2048, K=30; B=4, N=8192,
+    K=20) and ``ops.wls_bwd`` at the backwards' (B=32, N=1024 and B=4,
+    N=8192), each also by events, with its bound and the plain version's
+    device time. Public functions only, as :func:`path_device_times`, so
+    that the line times another checkout's kernels."""
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+    from deltaconv_tpu_torch.ops.wls_fused import edge_planes
 
     rng = np.random.default_rng(seed + 16)
     parts = []
@@ -3562,6 +3789,24 @@ def kernel_times(seed, dev, card):
                 ms = device_ms(lambda: ops.gather_max_bwd(idx, win, g, n), 5)
                 parts.append(f"gather_max_bwd B={b} N={n} C={c} "
                              f"{str(dt)[6:]} {ms:.4f}")
+        nrm = torch.from_numpy(np.stack(normals)).to(dev)
+        edges = edge_planes(pos, nrm, *build_tangent_basis(nrm), idx,
+                            nbr_mask, nbr_mask.any(dim=2).to(torch.float32))
+        ctg = torch.randn((b, 2, k, n), device=dev)
+        ctd = torch.randn((b, 2, k, n), device=dev)
+        calls = [("wls", lambda: ops.wls(edges, 1.0, 1e-3),
+                  lambda: ops.wls_plain(edges, 1.0, 1e-3), False)]
+        if (b, n, k) in WLS_BWD_SHAPES:
+            calls.append((
+                "wls_bwd", lambda: ops.wls_bwd(edges, ctg, ctd, 1.0, 1e-3),
+                lambda: ops.wls_bwd_plain(edges, ctg, ctd, 1.0, 1e-3), True))
+        for name, call, plain, is_bwd in calls:
+            parts.append(
+                f"{name} B={b} N={n} K={k} {device_ms(call, 5):.4f} (events "
+                f"{median_ms(call):.4f}; bound "
+                f"{wls_bound(edges, is_bwd)[0]:.4f}; plain "
+                f"{device_ms(plain, 2):.4f})")
+        del edges, ctg, ctd
     print("[kernel-times] device ms of one call (profiler): "
           + "; ".join(parts) + f"; card: {card}", flush=True)
 
@@ -5512,10 +5757,12 @@ def check_build_bwd_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label,
     got = ops.wls_bwd(edges, ctg, ctd, 1.0, 1e-3)
     want = ops.wls_bwd_plain(edges, ctg, ctd, 1.0, 1e-3)
     rel = _plane_rel(got, want)
+    same = bits_equal(ops.wls_bwd(edges, ctg, ctd, 1.0, 1e-3), got)
     record("wls_bwd", max_err(got, want))
     check(f"wls_bwd {label} B={b} N={n}",
-          bool(torch.isfinite(got).all()) and rel <= WLS_BWD_REL,
-          f"worst plane {rel:.3e} x its max <= {WLS_BWD_REL}")
+          bool(torch.isfinite(got).all()) and rel <= WLS_BWD_REL and same,
+          f"worst plane {rel:.3e} x its max <= {WLS_BWD_REL}, a second "
+          f"call bit-equal {same}")
     if n > N:
         return
     dwg = torch.randn((b, 2, n, n), device=dev)
@@ -5892,9 +6139,12 @@ def pos_grad_phase(rng, seed, dev, card, large=False):
           f"median {t:.3f} ms (host clock, synchronised), peak "
           f"{peak:.2f} GiB, card: {card}")
     total, ours = profile(tag, "one eval forward + backward", step, t)
-    for name in ("wls_bwd", "densify_bwd", "scatter_rows",
-                 "inverse_adjacency"):
-        us = sum(r[0] for r in ours if f"::{name}_kernel" in r[2])
+    # Each kernel by the name of its CUDA kernel function in the trace.
+    for name, fn in (("wls_bwd", "wls_split_bwd_kernel"),
+                     ("densify_bwd", "densify_bwd_kernel"),
+                     ("scatter_rows", "scatter_rows_kernel"),
+                     ("inverse_adjacency", "inverse_adjacency_kernel")):
+        us = sum(r[0] for r in ours if f"::{fn}" in r[2])
         print(f"[{tag}] {name}: {us / 1e3:.3f} ms, {us / max(total, 1e-9):.4f}"
               f" of the device time, {us / max(sum(r[0] for r in ours), 1e-9):.3f}"
               f" of the port's kernels")
@@ -6269,12 +6519,30 @@ def main():
     mark("matmul max K-fold route")
     direct = max_direct_phase(rng, dev)
     mark("neighbour max route D")
+    wls_direct = wls_direct_phase(rng, dev)
+    mark("WLS direct route")
     if args.parent:
         parent_phase(args.parent, args.seed, card)
         mark("parent tree")
     print("[time] seconds per group of phases: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
+    for label, counts in (
+            ("serve", serve), ("serve-bf16", serve_bf16),
+            ("serve-int8", serve_int8), ("train", train),
+            ("train streaming", stream), ("train-bf16", train_bf16),
+            ("serve-seg", seg), ("serve-seg-bf16", seg_bf16),
+            ("serve-seg-int8", seg_int8), ("serve-large-bf16", serve_large),
+            ("serve-large-f32", serve_large_f32),
+            ("train-large", train_large), ("serve-shard-bf16", shard_bf16),
+            ("serve-shard-f32", shard_f32), ("serve-shard-seg-f32", shard_seg),
+            ("serve-shard-seg-bf16", shard_seg_bf16),
+            ("train-seg-bf16", seg_train), ("train-seg-f32", seg_train_f32),
+            ("pos-grad", pos_grad), ("serve-fused-build", fused_build)):
+        check(f"[{label}] the WLS direct routes never",
+              counts["wls_direct"] == 0 and counts["wls_bwd_direct"] == 0,
+              f"wls_direct {counts['wls_direct']}, wls_bwd_direct "
+              f"{counts['wls_bwd_direct']}")
 
     def launches(name):
         for path, counts in ((SERVE_KERNELS, serve),
@@ -6303,7 +6571,9 @@ def main():
                              (("gather_matmul_max_kfold",
                                "gather_matmul_max_win_kfold",
                                "gather_matmul_max_int8_kfold"), kfold),
-                             (MAX_DIRECT_KERNELS, direct)):
+                             (MAX_DIRECT_KERNELS, direct),
+                             (("wls_direct", "wls_bwd_direct"),
+                              wls_direct)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

@@ -17,24 +17,52 @@
 // sum. Differences to the JAX math come only from FMA contraction and the
 // order of the K sums.
 //
-// Design: one thread per point (b, n). The TPU kernel put 512 points on
-// the lanes and reduced over K on the sublanes; here the K loop runs in
-// registers (21 sums of the normal equations, the 6x6 Cholesky factor,
-// 6 height coefficients) and each pass over K re-reads the planes. The
-// [B, 12, K, N] layout keeps n fastest, so the loads of a warp are
-// coalesced in every pass. The backward's adjoint is derived by hand
-// (wls::wls_point_bwd): it redoes the fit, then walks the steps in
-// reverse over K in four passes, recomputing each edge's solve instead of
-// storing K of them, with d_edges' planes 0-3 as the scratch between the
-// passes; the reverse Cholesky's accumulators (dL, d inv_d, dA) stay in
-// registers. Bound on the H100: the ~200 flops and one expf per edge and
-// pass against 12 * 4 bytes read per edge -- at B=32, N=1024, K=20 the
-// forward reads 31 MB and writes 10 MB, the backward reads 42 MB and
-// writes 31 MB, and the passes after the first hit L2.
+// Bound on the H100: bytes. The ~180 f32 operations an edge of the fit
+// and ~580 of its VJP take 0.002 and 0.006 ms at B=32, N=1024, K=20,
+// against 0.0125 and 0.0219 ms to read the planes (and cotangents) once
+// and write the outputs once (31 + 10 MB and 42 + 31 MB). What keeps a
+// kernel from that bound is the loads in flight: the TPU kernel put 512
+// points on the lanes and reduced over K on the sublanes; a thread a
+// point walking its K edges in passes issues one edge's 12 dependent
+// loads at a time, and re-reads the planes in every pass.
+//
+// Design (the split route, `dc_wls`, `dc_wls_bwd`): a block takes 32
+// consecutive points of one cloud (the lanes) x S warps (slices); warp s
+// holds edges s, s + S, ... of its lane's point, E = ceil(K / S) slots,
+// and reads each of their planes (and, in the backward, cotangents) once,
+// all up front, into registers: 12E (16E) independent loads a thread,
+// each one 128-byte row of a warp. Every sum over K (the weight sum, the
+// 21 entries of the normal equations, the 6 height coefficients; in the
+// backward c's cotangents, L's and inv_d's, and the weights' dot) is each
+// slice's sum over its slots, then the slices' partials added in slice
+// order out of shared memory after a barrier (SliceSum): the same bits in
+// every slice and in every call. Each slice factors the 6x6 system itself
+// (redundantly: no second barrier to broadcast it). The per-edge steps
+// run in parallel across the slices straight out of registers, and every
+// output plane is written once, coalesced; the backward keeps its scratch
+// between the steps in registers. S is the fewest warps whose slots (at
+// most kMaxEdges) hold K edges, up to kMaxSlices (ops/wls_fused.py
+// `wls_split` mirrors the choice): 4 x 5 at K=20, 6 x 5 at K=30; above,
+// the direct route. The forward is held to 96 registers (5 blocks of 4
+// warps an SM at K=20, no spill); the backward takes what it needs (255
+// at E = 5, 2 blocks an SM: capped, it spills and runs slower;
+// tools/wls_kernel_variants.py).
+//
+// The direct route (`dc_wls_direct`, `dc_wls_bwd_direct`, any K): the
+// earlier kernels, one thread a point over all K edges in passes
+// (wls::wls_point, wls_point_bwd), the backward's scratch in d_edges'
+// planes 0-3.
+#include <type_traits>
+
 #include "common.cuh"
 #include "wls_body.cuh"
 
 namespace {
+
+constexpr int kPoints = 32;     // points of a block, one a lane
+constexpr int kMaxSlices = 8;   // warps of a block at most
+constexpr int kMaxEdges = 5;    // slots of a slice at most
+constexpr int kFwdRegs = 96;    // registers of the forward's threads
 
 // The planes of point n of one cloud: edge k's plane p at p * K * N + k * N.
 struct PlaneSrc {
@@ -49,10 +77,101 @@ struct PlaneSrc {
   }
 };
 
-__global__ void wls_kernel(const float* __restrict__ edges,
-                           float* __restrict__ g, float* __restrict__ d,
-                           int K, int N, float kernel_width,
-                           float regularizer) {
+// The sums over K of the split route: slice s's n partials of its lane's
+// point into shared memory ([S][NA][32] floats), a barrier, then every
+// slice adds the S partials in slice order; a second barrier before the
+// buffer is written again. The loop over the slices stays a loop: unrolled
+// over a runtime S it grew each sum into dozens of branches and loads.
+struct SliceSum {
+  float* buf;
+  int lane, s, S;
+  template <int n>
+  __device__ __forceinline__ void add(float* v) {
+    float* mine = buf + s * wls::NA * kPoints + lane;
+#pragma unroll
+    for (int i = 0; i < n; ++i) mine[i * kPoints] = v[i];
+    __syncthreads();
+    const float* part = buf + lane;
+#pragma unroll
+    for (int i = 0; i < n; ++i) v[i] = part[i * kPoints];
+#pragma unroll 1
+    for (int q = 1; q < S; ++q) {
+      part += wls::NA * kPoints;
+#pragma unroll
+      for (int i = 0; i < n; ++i) v[i] += part[i * kPoints];
+    }
+    __syncthreads();
+  }
+};
+
+inline size_t split_smem(int S) {
+  return (size_t)S * wls::NA * kPoints * sizeof(float);
+}
+
+template <int E>
+__global__ void __maxnreg__(kFwdRegs)
+    wls_split_kernel(const float* __restrict__ edges, float* __restrict__ g,
+                     float* __restrict__ d, int K, int N, float kernel_width,
+                     float regularizer) {
+  extern __shared__ float sums[];
+  const int lane = threadIdx.x, s = threadIdx.y, S = blockDim.y;
+  const int n = blockIdx.x * kPoints + lane;
+  const long long b = blockIdx.y;
+  const bool live = n < N;
+  const long long plane = (long long)K * N;
+  const long long at = b * 12 * plane + (live ? n : 0);
+  const PlaneSrc src{edges + at, plane, N};
+  float* gb = g + b * 2 * plane + n;
+  float* db = d + b * 2 * plane + n;
+  SliceSum sum{sums, lane, s, S};
+  wls::wls_split<E>(src, s, S, K, live, kernel_width, regularizer, sum,
+                    [&](int k, float g1, float g2, float d1, float d2) {
+                      const long long o = (long long)k * N;
+                      gb[o] = g1;
+                      gb[plane + o] = g2;
+                      db[o] = d1;
+                      db[plane + o] = d2;
+                    });
+}
+
+template <int E>
+__global__ void __launch_bounds__(kPoints * kMaxSlices)
+    wls_split_bwd_kernel(const float* __restrict__ edges,
+                         const float* __restrict__ ctg,
+                         const float* __restrict__ ctd,
+                         float* __restrict__ de, int K, int N,
+                         float kernel_width, float regularizer) {
+  extern __shared__ float sums[];
+  const int lane = threadIdx.x, s = threadIdx.y, S = blockDim.y;
+  const int n = blockIdx.x * kPoints + lane;
+  const long long b = blockIdx.y;
+  const bool live = n < N;
+  const long long plane = (long long)K * N;
+  const long long col = live ? n : 0;
+  const PlaneSrc src{edges + b * 12 * plane + col, plane, N};
+  const float* cg = ctg + b * 2 * plane + col;
+  const float* cd = ctd + b * 2 * plane + col;
+  float* out = de + b * 12 * plane + col;
+  SliceSum sum{sums, lane, s, S};
+  wls::wls_split_bwd<E>(
+      src,
+      [&](int k, float& g1, float& g2, float& d1, float& d2) {
+        const long long o = (long long)k * N;
+        g1 = cg[o];
+        g2 = cg[plane + o];
+        d1 = cd[o];
+        d2 = cd[plane + o];
+      },
+      s, S, K, live, kernel_width, regularizer, sum,
+      [&](int p, int k) -> float& {
+        return out[p * plane + (long long)k * N];
+      });
+}
+
+__global__ void wls_direct_kernel(const float* __restrict__ edges,
+                                  float* __restrict__ g,
+                                  float* __restrict__ d, int K, int N,
+                                  float kernel_width, float regularizer) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const long long b = blockIdx.y;
   if (n >= N) return;
@@ -77,10 +196,11 @@ __global__ void wls_kernel(const float* __restrict__ edges,
 }
 
 __global__ void __launch_bounds__(128)
-    wls_bwd_kernel(const float* __restrict__ edges,
-                   const float* __restrict__ ctg,
-                   const float* __restrict__ ctd, float* __restrict__ de,
-                   int K, int N, float kernel_width, float regularizer) {
+    wls_bwd_direct_kernel(const float* __restrict__ edges,
+                          const float* __restrict__ ctg,
+                          const float* __restrict__ ctd,
+                          float* __restrict__ de, int K, int N,
+                          float kernel_width, float regularizer) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const long long b = blockIdx.y;
   if (n >= N) return;
@@ -104,29 +224,75 @@ __global__ void __launch_bounds__(128)
       K, kernel_width, regularizer);
 }
 
+// The split route's launch: S slices, E = ceil(K / S) slots (at most
+// kMaxEdges), else cudaErrorInvalidValue.
+template <class Launch>
+int split_launch(int B, int K, int N, int S, Launch go) {
+  if (S < 1 || S > kMaxSlices) return (int)cudaErrorInvalidValue;
+  const int E = (K + S - 1) / S;
+  if (E > kMaxEdges) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kPoints - 1) / kPoints, B), block(kPoints, S);
+  switch (E) {
+    case 1: go(std::integral_constant<int, 1>(), grid, block); break;
+    case 2: go(std::integral_constant<int, 2>(), grid, block); break;
+    case 3: go(std::integral_constant<int, 3>(), grid, block); break;
+    case 4: go(std::integral_constant<int, 4>(), grid, block); break;
+    default: go(std::integral_constant<int, 5>(), grid, block); break;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dc_wls(const void* edges, void* g, void* d, int B, int K,
-                      int N, float kernel_width, float regularizer,
+                      int N, int S, float kernel_width, float regularizer,
                       int device, void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * K * N == 0) return (int)cudaGetLastError();
+  return split_launch(B, K, N, S, [&](auto e, dim3 grid, dim3 block) {
+    wls_split_kernel<decltype(e)::value>
+        <<<grid, block, split_smem(S), (cudaStream_t)stream>>>(
+            (const float*)edges, (float*)g, (float*)d, K, N, kernel_width,
+            regularizer);
+  });
+}
+
+extern "C" int dc_wls_bwd(const void* edges, const void* ctg, const void* ctd,
+                          void* de, int B, int K, int N, int S,
+                          float kernel_width, float regularizer, int device,
+                          void* stream) {
+  DC_SET_DEVICE(device);
+  if ((long long)B * K * N == 0) return (int)cudaGetLastError();
+  return split_launch(B, K, N, S, [&](auto e, dim3 grid, dim3 block) {
+    wls_split_bwd_kernel<decltype(e)::value>
+        <<<grid, block, split_smem(S), (cudaStream_t)stream>>>(
+            (const float*)edges, (const float*)ctg, (const float*)ctd,
+            (float*)de, K, N, kernel_width, regularizer);
+  });
+}
+
+extern "C" int dc_wls_direct(const void* edges, void* g, void* d, int B,
+                             int K, int N, float kernel_width,
+                             float regularizer, int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * K * N == 0) return (int)cudaGetLastError();
   const int threads = 128;
   const dim3 grid((N + threads - 1) / threads, B);
-  wls_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  wls_direct_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const float*)edges, (float*)g, (float*)d, K, N, kernel_width,
       regularizer);
   return (int)cudaGetLastError();
 }
 
-extern "C" int dc_wls_bwd(const void* edges, const void* ctg, const void* ctd,
-                          void* de, int B, int K, int N, float kernel_width,
-                          float regularizer, int device, void* stream) {
+extern "C" int dc_wls_bwd_direct(const void* edges, const void* ctg,
+                                 const void* ctd, void* de, int B, int K,
+                                 int N, float kernel_width, float regularizer,
+                                 int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * K * N == 0) return (int)cudaGetLastError();
   const int threads = 128;
   const dim3 grid((N + threads - 1) / threads, B);
-  wls_bwd_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  wls_bwd_direct_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const float*)edges, (const float*)ctg, (const float*)ctd, (float*)de,
       K, N, kernel_width, regularizer);
   return (int)cudaGetLastError();

@@ -45,8 +45,10 @@ _L = ctypes.c_longlong
 # device index and stream).
 _KERNELS = {
     "gather_rows": ("dc_gather_rows", [_P, _P, _P, _I, _I, _I, _I, _I]),
-    "wls": ("dc_wls", [_P, _P, _P, _I, _I, _I, _F, _F]),
-    "wls_bwd": ("dc_wls_bwd", [_P] * 4 + [_I] * 3 + [_F] * 2),
+    "wls": ("dc_wls", [_P, _P, _P, _I, _I, _I, _I, _F, _F]),
+    "wls_direct": ("dc_wls_direct", [_P, _P, _P, _I, _I, _I, _F, _F]),
+    "wls_bwd": ("dc_wls_bwd", [_P] * 4 + [_I] * 4 + [_F] * 2),
+    "wls_bwd_direct": ("dc_wls_bwd_direct", [_P] * 4 + [_I] * 3 + [_F] * 2),
     "fused_gather_wls": ("dc_fused_gather_wls",
                          [_P] * 10 + [_I] * 3 + [_F] * 2),
     "densify": ("dc_densify", [_P] * 5 + [_I] * 4),

@@ -5,7 +5,12 @@ pipeline of the grad/div build -- Gaussian weights, the quadratic-basis
 normal equations, the unrolled 6x6 Cholesky solve, the height-field
 partials, the inverse metric, the tangent-vector map and the div row --
 runs as ONE kernel (``csrc/wls.cu``) over twelve ``[B, K, N]`` edge
-planes. The planes come from one gathered ``[B, N, 9]`` neighbour table
+planes. Its route by shape (:func:`wls_split`): up to ``WLS_MAX_SLICES x
+WLS_EDGES`` = 40 edges a point a block takes 32 points x S warps, each
+warp E of a point's edges in registers, the sums over K across the warps
+in a fixed order (``wls``, ``wls_bwd``); above, the direct kernels, a
+thread a point over all its edges (``wls_direct``, ``wls_bwd_direct``).
+The planes come from one gathered ``[B, N, 9]`` neighbour table
 (:func:`~.gather_rows.gather_rows`) and plain elementwise math; the
 per-cloud infinity-norm normalization is a plain epilogue that scales
 grad and div by the same scalar. :func:`build_grad_div_tables` is the
@@ -23,17 +28,56 @@ planes and the normalization through autograd.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..geometry.grad_div import GradDiv
 from . import _lib
 from .gather_rows import gather_rows
 
-__all__ = ["build_grad_div_fused", "build_grad_div_tables", "edge_planes",
+__all__ = ["WLS_EDGES", "WLS_MAX_SLICES", "WLS_POINTS", "WLS_SMEM_MAX",
+           "build_grad_div_fused", "build_grad_div_tables", "edge_planes",
            "edge_planes_tables", "wls", "wls_bwd", "wls_bwd_plain",
-           "wls_plain"]
+           "wls_plain", "wls_smem", "wls_split"]
 
 _EPS = 1e-5
+
+# The split route of the WLS kernels (csrc/wls.cu, its constants of the
+# same meaning): a block takes WLS_POINTS consecutive points of one cloud
+# (a lane each) x S warps; warp s holds edges s, s + S, ... of its
+# lane's point, E = ceil(K / S) of them, at most WLS_EDGES, in
+# registers; S at most WLS_MAX_SLICES. The forward and the backward take
+# the same route. The sums over K pass through wls_smem(S) bytes of
+# dynamic shared memory, under the 48 KB a block gets without opting in.
+WLS_POINTS = 32
+WLS_MAX_SLICES = 8
+WLS_EDGES = 5
+WLS_SMEM_MAX = 48 * 1024
+_WLS_SUMS = 21  # the most sums over K taken at once (a symmetric 6x6)
+
+
+@functools.lru_cache(maxsize=256)
+def wls_split(k: int) -> tuple[int, int]:
+    """The route of the WLS forward and backward for ``k`` edges a point:
+    ``(S, E)``, the split route's warps a block and slots a warp, S the
+    fewest warps whose slots (at most WLS_EDGES) hold ``k`` edges and E
+    the fewest slots for that S (4 x 5 at K=20, 6 x 5 at K=30: on the
+    H100 the fewest warps were the fastest at both, PERF.md section 6); or
+    ``(0, 0)``, the direct route (a route by shape, not a fallback) above
+    ``WLS_MAX_SLICES`` x WLS_EDGES. Cached: the wrappers ask at every
+    call."""
+    s = max(1, -(-k // WLS_EDGES))
+    if s > WLS_MAX_SLICES:
+        return 0, 0
+    return s, max(1, -(-k // s))
+
+
+def wls_smem(s: int) -> int:
+    """Dynamic shared memory of a split-route block of ``s`` warps: each
+    warp's partial sums, up to _WLS_SUMS a point, as ``split_smem`` in
+    the CUDA source counts them."""
+    return s * _WLS_SUMS * WLS_POINTS * 4
 
 
 def _wls_math(planes, kernel_width, regularizer):
@@ -126,17 +170,26 @@ def wls_plain(edges, kernel_width: float, regularizer: float):
     return _wls_math(edges, float(kernel_width), float(regularizer))
 
 
-def _wls_kernel(edges, kernel_width, regularizer):
+def _wls_kernel(edges, kernel_width, regularizer, slices=None):
+    """The forward for CUDA tensors on the split route with ``slices``
+    warps a block, or with 0 on the direct route; None: :func:`wls_split`
+    (plain version for CPU tensors)."""
     if edges.device.type == "cpu":
         return wls_plain(edges, kernel_width, regularizer)
     b, _, k, n = edges.shape
     device = _lib.check_inputs("wls", [
         ("edges", edges, torch.float32, (b, 12, k, n)),
     ])
-    g = torch.empty((b, 2, k, n), dtype=torch.float32, device=device)
+    if slices is None:
+        slices = wls_split(k)[0]
+    g = edges.new_empty((b, 2, k, n))
     d = torch.empty_like(g)
-    _lib.launch("wls", device, edges.data_ptr(), g.data_ptr(), d.data_ptr(),
-                b, k, n, float(kernel_width), float(regularizer))
+    args = (edges.data_ptr(), g.data_ptr(), d.data_ptr(), b, k, n)
+    tail = (float(kernel_width), float(regularizer))
+    if slices:
+        _lib.launch("wls", device, *args, slices, *tail)
+    else:
+        _lib.launch("wls_direct", device, *args, *tail)
     return g, d
 
 
@@ -153,8 +206,15 @@ def wls_bwd_plain(edges, ctg, ctd, kernel_width: float, regularizer: float):
 def wls_bwd(edges, ctg, ctd, kernel_width: float, regularizer: float):
     """The VJP of :func:`wls` with respect to its planes: ``edges [B, 12,
     K, N]`` and the cotangents ``ctg, ctd [B, 2, K, N]`` -> ``[B, 12, K,
-    N]`` f32. Plain version for CPU tensors; the ``wls_bwd`` kernel for
-    CUDA tensors."""
+    N]`` f32. Plain version for CPU tensors; for CUDA tensors the
+    ``wls_bwd`` kernel, or ``wls_bwd_direct`` above the split route's
+    edges (:func:`wls_split`)."""
+    return _wls_bwd(edges, ctg, ctd, kernel_width, regularizer)
+
+
+def _wls_bwd(edges, ctg, ctd, kernel_width, regularizer, slices=None):
+    """:func:`wls_bwd` on the split route with ``slices`` warps a block,
+    or with 0 on the direct route; None: :func:`wls_split`."""
     if edges.device.type == "cpu":
         return wls_bwd_plain(edges, ctg, ctd, kernel_width, regularizer)
     b, _, k, n = edges.shape
@@ -163,10 +223,16 @@ def wls_bwd(edges, ctg, ctd, kernel_width: float, regularizer: float):
         ("ctg", ctg, torch.float32, (b, 2, k, n)),
         ("ctd", ctd, torch.float32, (b, 2, k, n)),
     ])
+    if slices is None:
+        slices = wls_split(k)[0]
     de = torch.empty_like(edges)
-    _lib.launch("wls_bwd", device, edges.data_ptr(), ctg.data_ptr(),
-                ctd.data_ptr(), de.data_ptr(), b, k, n, float(kernel_width),
-                float(regularizer))
+    args = (edges.data_ptr(), ctg.data_ptr(), ctd.data_ptr(), de.data_ptr(),
+            b, k, n)
+    tail = (float(kernel_width), float(regularizer))
+    if slices:
+        _lib.launch("wls_bwd", device, *args, slices, *tail)
+    else:
+        _lib.launch("wls_bwd_direct", device, *args, *tail)
     return de
 
 
@@ -190,8 +256,9 @@ class _Wls(torch.autograd.Function):
 
 def wls(edges, kernel_width: float, regularizer: float):
     """``edges [B, 12, K, N] -> (g, d)`` per-edge grad/div coefficients,
-    each ``[B, 2, K, N]``. Plain version for CPU tensors; the CUDA kernel
-    for CUDA tensors. Differentiable in ``edges`` (its backward is
+    each ``[B, 2, K, N]``. Plain version for CPU tensors; for CUDA tensors
+    the ``wls`` kernel, or ``wls_direct`` above the split route's edges
+    (:func:`wls_split`). Differentiable in ``edges`` (its backward is
     :func:`wls_bwd`)."""
     if edges.requires_grad and torch.is_grad_enabled():
         return _Wls.apply(edges, float(kernel_width), float(regularizer))

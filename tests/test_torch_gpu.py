@@ -2171,6 +2171,104 @@ def test_wls_bwd_kernel_matches_plain(cuda, n, k, masked, flat):
         _close_to_max(got[:, p], want[:, p], 1e-4)
 
 
+def _wls_hard_edges(rng, n, k, case, dev):
+    """Edge planes of two ellipsoid clouds: ``uniform``; ``masked``
+    (cloud 0's second half padded, and cloud 1's point 3 with every edge
+    masked: its weight sum at the 1e-5 clamp); ``duplicate`` (neighbours
+    at distance 0 of their point); ``flat`` (cloud 1 nearly flat)."""
+    pos, nrm = _cloud_batch(rng, 2, n, dev)
+    if case == "flat":
+        pos[1, :, 2] *= 1e-3
+        nrm[1] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    if case == "duplicate":
+        pos[0, 1] = pos[0, 0]
+        pos[1, 5:9] = pos[1, 4]
+    idx, mask = _graph(pos, k, case == "masked")
+    if case == "masked":
+        mask[1, 3] = False
+    xb, yb = build_tangent_basis(nrm)
+    return edge_planes(pos, nrm, xb, yb, idx, mask,
+                       mask.any(dim=2).to(torch.float32))
+
+
+def _wls_held(edges, slices, name):
+    """``wls`` and ``wls_bwd`` through the route of ``slices`` (None: by
+    shape) against their plain versions: the forward within 1e-5, each of
+    the VJP's planes within 1e-4 x its max (a point whose weight sum sits
+    at the clamp, its cotangents ~1 / 1e-5, within 1e-4 x its own), the
+    two calls launching ``name`` and its backward (``wls_bwd`` or
+    ``wls_bwd_direct``) once each, and second calls bit-equal."""
+    wf = importlib.import_module("deltaconv_tpu_torch.ops.wls_fused")
+    b, _, k, n = edges.shape
+    gen = torch.Generator(device=edges.device).manual_seed(0)
+    ctg = torch.randn((b, 2, k, n), device=edges.device, generator=gen)
+    ctd = torch.randn((b, 2, k, n), device=edges.device, generator=gen)
+    bwd_name = name.replace("wls", "wls_bwd")
+    reset_launch_counts()
+    got = wf._wls_kernel(edges, 1.0, 1e-3, slices)
+    de = wf._wls_bwd(edges, ctg, ctd, 1.0, 1e-3, slices)
+    torch.cuda.synchronize()
+    counts = {m: c for m, c in launch_counts().items() if c}
+    assert counts == {name: 1, bwd_name: 1}, counts
+    for a, w in zip(got, ops.wls_plain(edges, 1.0, 1e-3)):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5)
+    want = ops.wls_bwd_plain(edges, ctg, ctd, 1.0, 1e-3)
+    assert bool(torch.isfinite(de).all())
+    clamped = edges[:, 4].sum(dim=1) == 0  # [B, N]: no valid edge
+    for p in range(12):
+        for part in (~clamped, clamped):
+            if part.any():
+                _close_to_max(de[:, p].transpose(1, 2)[part],
+                              want[:, p].transpose(1, 2)[part], 1e-4)
+    again = wf._wls_kernel(edges, 1.0, 1e-3, slices)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+    assert torch.equal(wf._wls_bwd(edges, ctg, ctd, 1.0, 1e-3, slices), de)
+
+
+@pytest.mark.parametrize("n,k,case", [
+    (1024, 20, "uniform"),   # the classification shape
+    (2048, 30, "uniform"),   # segmentation
+    (1000, 20, "masked"),    # N not a multiple of 32, a clamped point
+    (77, 30, "masked"),
+    (150, 13, "uniform"),    # K not a multiple of the warps
+    (200, 7, "uniform"),
+    (96, 1, "uniform"),      # one edge
+    (200, 20, "duplicate"),  # neighbours at distance 0
+    (200, 30, "flat"),
+])
+def test_wls_split_kernels_match_plain(cuda, n, k, case):
+    """The split route (by shape: ``wls_split``) of ``wls`` and
+    ``wls_bwd`` against the plain versions, bit-equal across two calls."""
+    wf = importlib.import_module("deltaconv_tpu_torch.ops.wls_fused")
+    assert wf.wls_split(k)[0]
+    edges = _wls_hard_edges(np.random.default_rng(56), n, k, case, cuda)
+    _wls_held(edges, None, "wls")
+
+
+@pytest.mark.parametrize("k", [20, 30])
+def test_wls_split_every_warp_count(cuda, k):
+    """Every number of warps whose slots hold K edges (E up to the most a
+    warp holds), at the model's K, on a masked graph."""
+    wf = importlib.import_module("deltaconv_tpu_torch.ops.wls_fused")
+    edges = _wls_hard_edges(np.random.default_rng(57), 300, k, "masked",
+                            cuda)
+    for s in range(-(-k // wf.WLS_EDGES), wf.WLS_MAX_SLICES + 1):
+        _wls_held(edges, s, "wls")
+
+
+@pytest.mark.parametrize("k,slices", [(41, None), (64, None), (20, 0)])
+def test_wls_direct_route(cuda, k, slices):
+    """The direct route: by shape above the split route's edges (each
+    call launching ``wls_direct`` and ``wls_bwd_direct`` once, and the
+    split kernels never), and forced at the model's K."""
+    edges = _wls_hard_edges(np.random.default_rng(58), 300, k, "masked",
+                            cuda)
+    _wls_held(edges, slices, "wls_direct")
+    reset_launch_counts()
+    ops.wls(edges, 1.0, 1e-3)
+    assert launch_counts()["wls" if slices == 0 else "wls_direct"] == 1
+
+
 @pytest.mark.parametrize("n,masked", [(96, False), (102, True),
                                       (1024, True)])
 def test_densify_bwd_kernel_exact(cuda, n, masked):

@@ -102,6 +102,101 @@ def test_build_grad_div_fused_matches_jax(masked):
     assert not got.div_coef[~_t(mask)].any()
 
 
+# -- the WLS kernels' launch geometry (csrc/wls.cu's split route) -------------
+
+
+def test_wls_split_routes():
+    """``wls_split``, the Python mirror of the WLS kernels' launch: every
+    K from 1 to 80 gets a route. Up to WLS_MAX_SLICES x the most slots a
+    warp holds, the split route: S the fewest warps whose slots hold K
+    edges, E the fewest slots for that S (no warp without an edge), the
+    block's sums within the shared memory it gets without opting in;
+    above, the direct route. The model shapes take the split route: 4
+    warps of 5 slots at K=20, 6 of 5 at K=30."""
+    wf = importlib.import_module("deltaconv_tpu_torch.ops.wls_fused")
+    most = wf.WLS_EDGES
+    split = 0
+    for k in range(1, 81):
+        s, e = wf.wls_split(k)
+        if k > wf.WLS_MAX_SLICES * most:
+            assert (s, e) == (0, 0), k
+            continue
+        split += 1
+        assert 1 <= s <= wf.WLS_MAX_SLICES and 1 <= e <= most, (k, s, e)
+        assert s * e >= k > s * (e - 1) and (s - 1) * most < k, (k, s, e)
+        assert s <= k  # warp s - 1 holds edge s - 1
+        assert wf.wls_smem(s) <= wf.WLS_SMEM_MAX
+    assert split == wf.WLS_MAX_SLICES * most
+    assert wf.wls_split(20) == (4, 5)
+    assert wf.wls_split(30) == (6, 5)
+    assert wf.wls_split(0) == (1, 1)  # nothing to launch: any route
+
+
+def test_wls_split_constants_match_cuda():
+    """The mirror's constants are ``csrc/wls.cu``'s: the points of a block,
+    the most warps, the most slots a warp holds, and the block's shared
+    memory (``split_smem``: 21 sums of 4 bytes a point
+    and warp)."""
+    import re
+    from pathlib import Path
+
+    wf = importlib.import_module("deltaconv_tpu_torch.ops.wls_fused")
+    src = (Path(wf.__file__).resolve().parent.parent / "csrc"
+           / "wls.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kPoints") == wf.WLS_POINTS
+    assert const("kMaxSlices") == wf.WLS_MAX_SLICES
+    assert const("kMaxEdges") == wf.WLS_EDGES
+    body = re.search(r"inline size_t split_smem\(int S\) \{\s*return "
+                     r"([^;]+);", src).group(1)
+    expr = (body.replace("(size_t)", "").replace("wls::NA", "21")
+            .replace("sizeof(float)", "4"))
+    for s in range(1, wf.WLS_MAX_SLICES + 1):
+        assert eval(expr, {"S": s, "kPoints": wf.WLS_POINTS}) == wf.wls_smem(s)
+
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["wls", "wls_bwd"])
+@pytest.mark.parametrize("k,slices,launched", [
+    (20, None, ""),          # the classification shapes: split, by shape
+    (30, None, ""),          # segmentation
+    (7, None, ""),
+    (41, None, "_direct"),   # above the split route's edges
+    (80, None, "_direct"),
+    (20, 0, "_direct"),      # forced direct route
+    (20, 7, ""),             # a given number of warps
+])
+def test_wls_wrapper_launches_the_route(monkeypatch, bwd, k, slices,
+                                        launched):
+    """The WLS wrappers' one launch on CUDA tensors (recorded in place of
+    the launch; meta tensors, no card): the split kernel with
+    ``wls_split``'s warps before the two floats, or the direct kernel
+    without them."""
+    wf = importlib.import_module("deltaconv_tpu_torch.ops.wls_fused")
+    calls = []
+    monkeypatch.setattr(wf._lib, "launch", lambda kernel, device, *args:
+                        calls.append((kernel, args)))
+    monkeypatch.setattr(wf._lib, "check_inputs",
+                        lambda name, specs: torch.device("cuda", 0))
+    b, n = 2, 70
+    edges = torch.empty((b, 12, k, n), device="meta")
+    ct = torch.empty((b, 2, k, n), device="meta")
+    if bwd:
+        out = wf._wls_bwd(edges, ct, ct, 1.0, 1e-3, slices)
+        assert out.shape == edges.shape
+        name, ptrs = "wls_bwd", 4
+    else:
+        g, d = wf._wls_kernel(edges, 1.0, 1e-3, slices)
+        assert g.shape == d.shape == (b, 2, k, n)
+        name, ptrs = "wls", 3
+    want = slices if slices is not None else wf.wls_split(k)[0]
+    assert [(kernel, args[ptrs:]) for kernel, args in calls] == [
+        (name + launched, (b, k, n) + ((want,) if want else ())
+         + (1.0, 1e-3))]
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_densify_plain_matches_pallas_interpret(masked):
     """Duplicate columns sum. Masked: the last slots are clamped to self

@@ -235,7 +235,8 @@ def test_cpu_tensors_take_the_plain_versions():
                                ops.knn_topk_plain(pos.repeat(1, 3, 1)[:, :70],
                                                   66), rtol=0, atol=0)
     assert launch_counts() == {
-        "gather_rows": 0, "wls": 0, "densify": 0, "densify_bf16": 0,
+        "gather_rows": 0, "wls": 0, "wls_direct": 0, "densify": 0,
+        "densify_bf16": 0,
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
         "gather_max_direct": 0, "gather_max_win_direct": 0,
         "gather_max_bf16_direct": 0, "gather_max_win_bf16_direct": 0,
@@ -259,7 +260,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "coef_plan_order": 0, "coef_plan_runs": 0, "knn_topk_table": 0,
         "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
         "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
-        "edge_delta_mlp_bwd": 0, "wls_bwd": 0, "densify_bwd": 0,
+        "edge_delta_mlp_bwd": 0, "wls_bwd": 0, "wls_bwd_direct": 0,
+        "densify_bwd": 0,
         "fused_gather_wls": 0, "knn_topk_mean_dist": 0,
             "knn_topk_rounds": 0, "gather_minmax": 0,
         "gather_minmax_bf16": 0, "gather_minmax_win": 0,
