@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the sixty-five CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the sixty-seven CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -278,10 +278,24 @@ first on ``sys.path``. It
     build: wls_bwd (B=32, N=1024 and B=4, N=8192, K=20, uniform and
     masked; each of the 12 planes within 1e-4 x its max of autograd
     through the plain WLS math), densify_bwd (bit-equal to
-    ``torch.gather``), fused_gather_wls (within 1e-5 x max of its plain
-    version and of ``gather_rows`` + planes + ``wls``, unnormalized) and
+    ``torch.gather``), fused_gather_wls through its split route (by
+    shape) and its direct route (``fused_gather_wls_direct``, forced),
+    also at B=16, N=2048, K=30 (each within 1e-5 x max of its plain
+    version and of ``gather_rows`` + planes + ``wls``, unnormalized, a
+    second call bit-equal, one launch of its route a call) and
     knn_topk's mean distances, both bodies (ids equal, distances
     bit-equal), each timed beside its bound and library call;
+    ``[fused-routes]``: both routes of fused_gather_wls timed at B=32,
+    N=1024, K=20 and B=16, N=2048, K=30 (CUDA events and device time,
+    the plain version, the bound, the split route at every number of
+    warps that holds K edges); ``[sum-routes]``: the streaming neighbour
+    sum at B=4, N=8192 and B=32, N=1024, K=20, C=128, uniform and masked
+    kNN graphs, through route S (by shape) and route D
+    (``gather_sum_direct``, forced), each bit-equal to the plain version
+    and to a second call with one launch of its route a call, timed by
+    CUDA events and in device time beside the plain version, the library
+    call (``index`` + ``sum``) and the bound, with every slice that
+    fits;
 22. ``[pos-grad]``: the reference classifier in f32 at B=32, N=1024, 32
     uniform clouds and 11 ragged, eval and train mode (dropout 0):
     ``pos.requires_grad_()``, ``normal.requires_grad_()``, the cross
@@ -302,8 +316,8 @@ first on ``sys.path``. It
     fused route through the kernels within 0.01 x max|logit| of the plain
     versions and of the unfused route, argmax equal where decisive;
     knn_topk_mean_dist, fused_gather_wls and densify_bf16 once a forward,
-    gather_rows and wls never; the build's device time on both routes and
-    clouds/s of both;
+    gather_rows and wls never; the build's and one 32-cloud forward's
+    device time on both routes and clouds/s of both;
 25. ``[nbr-minmax]``: the neighbour min/max hooks of the operator object
     that the reference classifier builds (k=20, dense f32) for 32 uniform
     clouds of 1024 points and 11 ragged ones: ``gd.nbr_minmax`` at C =
@@ -333,14 +347,19 @@ first on ``sys.path``. It
     features, without and with grad, ``ops.gather_minmax`` with grad and
     ``ops.gather_max_int8`` launch each body's route D kernels once and
     route S never, ``ops.gather_max_affine`` (bf16, with and without the
-    self row) ``gather_max_affine_direct`` twice, forward and backward
-    bit-equal to the plain versions;
+    self row) ``gather_max_affine_direct`` twice and ``ops.gather_sum``
+    (f32, without and with grad: the streaming route)
+    ``gather_sum_direct`` twice, forward and backward bit-equal to the
+    plain versions;
 29. ``[wls-direct]``: 4 clouds of 1024 points with 48 neighbours (above
     the WLS split route's 40): ``ops.wls`` on planes that require grad
     and its backward launch ``wls_direct`` and ``wls_bwd_direct`` once
     each and the split kernels never, within 1e-5 and 1e-4 x each
-    plane's max of the plain versions; every model path above launched
-    neither;
+    plane's max of the plain versions, and ``ops.fused_gather_wls`` at
+    the same K ``fused_gather_wls_direct`` once (within 1e-5 x max);
+    every model path above launched none of these direct routes, nor
+    ``gather_sum_direct`` (the large-cloud step ``gather_sum`` once a
+    step);
 30. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
@@ -351,7 +370,10 @@ first on ``sys.path``. It
     ``ops.gather_max_int8`` and ``ops.gather_max_bwd`` at their model
     shapes in device time; ``ops.wls`` at the three forwards' shapes and
     ``ops.wls_bwd`` at the two backwards', in device time and by events,
-    with their bounds and the plain versions' device time) and
+    with their bounds and the plain versions' device time;
+    ``ops.gather_sum_fwd`` at C=128 (B=32, N=1024; B=4, N=8192) and
+    ``ops.fused_gather_wls`` (B=32, N=1024, K=20; B=16, N=2048, K=30) in
+    device time and by events, with their bounds) and
     ``[device-times]`` on that checkout's
     package (this script copied
     into its root) and on this tree, in turns: parent, this, this,
@@ -553,7 +575,8 @@ MAX_DIRECT_KERNELS = ("gather_max_direct", "gather_max_win_direct",
                       "gather_max_bwd_direct", "gather_max_bwd_bf16_direct",
                       "gather_minmax_bwd_direct",
                       "gather_minmax_bwd_bf16_direct",
-                      "gather_max_int8_direct", "gather_max_affine_direct")
+                      "gather_max_int8_direct", "gather_max_affine_direct",
+                      "gather_sum_direct")
 # The WLS kernels where the model paths run them: #3 (wls) at the
 # classification, segmentation and large-cloud forwards, #4 (wls_bwd) at
 # the two backwards in the positions; [wls-direct]: K above the split
@@ -563,6 +586,15 @@ WLS_SHAPES = (("cls", B, N, K), ("seg", SEG_B, SEG_N, SEG_K),
 WLS_BWD_SHAPES = ((B, N, K), (LARGE_B, LARGE_N, K))
 WLS_DIRECT_K = 48
 WLS_DIRECT_B = 4
+# The streaming neighbour sum (#19) where it runs: the large-cloud step's
+# [y, y^2] table of conv0 (B=4, N=8192, C = 2 x 64) on every large step,
+# and the classification shape (its train step's streaming route with the
+# adjacency budget at 0); [sum-routes] holds and times both routes there.
+SUM_SHAPES = (("large step", LARGE_B, LARGE_N, K), ("cls", B, N, K))
+SUM_C = 128
+# The fused eval build (#26) at the classification forward's K=20 and the
+# segmentation shape's K=30: (label, B, N, K) of its route checks and times.
+FUSED_SHAPES = (("cls", B, N, K), ("seg", SEG_B, SEG_N, SEG_K))
 
 # Point-sharded serving of ONE large cloud (bench.py --mode=point-shard,
 # bench.py:351-407): 65,536 points, the reference-width classifier in
@@ -642,8 +674,8 @@ MINMAX_KERNELS = ("gather_minmax", "gather_minmax_bf16", "gather_minmax_win",
                   "gather_minmax_win_bf16", "gather_minmax_bwd",
                   "gather_minmax_bwd_bf16", "gather_matmul_minmax")
 FUSED_PER_FORWARD = {"knn_topk_mean_dist": 1, "fused_gather_wls": 1,
-                     "densify_bf16": 1, "knn_topk": 0, "gather_rows": 0,
-                     "wls": 0}
+                     "fused_gather_wls_direct": 0, "densify_bf16": 1,
+                     "knn_topk": 0, "gather_rows": 0, "wls": 0}
 
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
@@ -687,6 +719,9 @@ KERNEL_META = {
                   "deltaconv_tpu/ops/gather_sum.py:117"),
     "gather_sum": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
                    "deltaconv_tpu/ops/gather_sum.py:201"),
+    # Route D of the streaming sum (the earlier kernel, a route by shape).
+    "gather_sum_direct": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
+                          "deltaconv_tpu/ops/gather_sum.py:201"),
     "gather_sum_bwd": ("deltaconv_tpu_torch/csrc/gather_sum.cu",
                        "deltaconv_tpu/ops/gather_sum.py:255"),
     "knn_topk": ("deltaconv_tpu_torch/csrc/knn_topk.cu",
@@ -772,6 +807,10 @@ KERNEL_META = {
                     "deltaconv_tpu/ops/densify_op.py:281"),
     "fused_gather_wls": ("deltaconv_tpu_torch/csrc/fused_build.cu",
                          "deltaconv_tpu/ops/fused_build.py:180"),
+    # The direct route of the fused build (the earlier kernel, a route by
+    # shape above the split route's 40 edges).
+    "fused_gather_wls_direct": ("deltaconv_tpu_torch/csrc/fused_build.cu",
+                                "deltaconv_tpu/ops/fused_build.py:180"),
     "knn_topk_mean_dist": ("deltaconv_tpu_torch/csrc/knn_topk.cu",
                            "deltaconv_tpu/ops/knn_topk.py:391"),
     "knn_topk_rounds": ("deltaconv_tpu_torch/csrc/knn_topk.cu",
@@ -860,7 +899,8 @@ SEG_INT8_PER_FORWARD = {**WLS_PER_FORWARD, "densify_int8": 1, "absmax": 3,
 # convs where each runs).
 RECORD_WIDTH = {"gather_max": 256, "gather_max_win": 256,
                 "gather_max_bwd": 256, "gather_sum": 128,
-                "gather_sum_bwd": 128, "gather_max_win_bf16": 128,
+                "gather_sum_direct": SUM_C, "gather_sum_bwd": 128,
+                "gather_max_win_bf16": 128,
                 "gather_max_bwd_bf16": 256, "gather_max_bf16": SEG_MAX_WIDTH,
                 "gather_max_int8": 128,
                 "coef_apply_grad": 256, "coef_apply_div": 256,
@@ -2688,24 +2728,141 @@ def wls_routes_phase(res, rng, dev, card):
         del edges, ctg, ctd
 
 
+def sum_routes_phase(res, rng, dev, card):
+    """``[sum-routes]``: the streaming neighbour sum (#19) at SUM_SHAPES,
+    C=SUM_C, on ellipsoid clouds' kNN graphs, uniform and masked (every
+    other cloud's last 40% of points padded): route S (by shape,
+    ``sum_slice``) and route D (``gather_sum_direct``, forced), each
+    bit-equal to ``gather_sum_fwd_plain`` and to a second call, one launch
+    of its route a call; then, on the uniform graph, both timed by CUDA
+    events and in device time beside the plain version, the library call
+    (``index`` + ``sum``) and the bound (h, idx, mask read once, out
+    written once). Route D is the parent tree's kernel, unchanged; its
+    record is at the classification shape. Its clouds come from a
+    generator spawned off ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import knn
+
+    gs = importlib.import_module("deltaconv_tpu_torch.ops.gather_sum")
+    rng = rng.spawn(1)[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[sum-routes] the streaming neighbour sum by route: S (a staged "
+          f"slice, by shape) and D (direct, the parent's kernel); per call, "
+          f"CUDA events (median of {REPS} samples of {INNER} calls) and "
+          f"device time (profiler); card: {card}", flush=True)
+    for label, b, n, k in SUM_SHAPES:
+        clouds, _ = ellipsoid_clouds(rng, [n] * b)
+        pos = torch.from_numpy(np.stack(clouds)).to(dev)
+        pmask = torch.ones((b, n), dtype=torch.bool, device=dev)
+        pmask[::2, int(0.6 * n):] = False
+        h = torch.randn((b, n, SUM_C), device=dev)
+        for graph, pm in (("masked", pmask), ("uniform", None)):
+            idx, nbr_mask = knn(pos, k, pm)
+            if pm is not None:
+                nbr_mask = nbr_mask & pm[:, :, None]
+            want = ops.gather_sum_fwd_plain(h, idx, nbr_mask)
+            for route, sfx in ((None, ""), ((0, 0), "_direct")):
+                reset_launch_counts()
+                got = gs._gather_sum_fwd(h, idx, nbr_mask, route)
+                again = gs._gather_sum_fwd(h, idx, nbr_mask, route)
+                torch.cuda.synchronize()
+                counts = {m: v for m, v in launch_counts().items() if v}
+                same = bits_equal(got, want) and bits_equal(again, got)
+                check(f"[sum-routes] {label} {graph} gather_sum{sfx} B={b} "
+                      f"N={n} K={k} C={SUM_C}",
+                      same and counts == {"gather_sum" + sfx: 2},
+                      f"bit-equal to the plain version and across two calls "
+                      f"{same}, launches {counts}")
+                res["gather_sum" + sfx]["max_abs_err"] = max(
+                    res["gather_sum" + sfx]["max_abs_err"],
+                    max_err(got, want))
+            del want, got, again
+        # The uniform graph: every slot valid, the library call's case.
+        bidx = torch.arange(b, device=dev)[:, None, None]
+        idx_l = idx.long()
+
+        def run(route, idx=idx, nbr_mask=nbr_mask, h=h):
+            return gs._gather_sum_fwd(h, idx, nbr_mask, route)
+
+        def plain(idx=idx, nbr_mask=nbr_mask, h=h):
+            return ops.gather_sum_fwd_plain(h, idx, nbr_mask)
+
+        def library(idx_l=idx_l, bidx=bidx, h=h):
+            return h[bidx, idx_l].sum(dim=2)
+
+        t = {sfx: (median_ms(lambda: run(route)),
+                   device_ms(lambda: run(route), 5))
+             for route, sfx in ((None, "S"), ((0, 0), "D"))}
+        pl = (median_ms(plain, 5), device_ms(plain, 2))
+        lib = (median_ms(library), device_ms(library, 5))
+        bd = bound(nbytes(h, idx, nbr_mask, h))
+        cs, splits = gs.sum_slice(b, n, SUM_C, k, sms)
+        print(f"  {label} gather_sum B={b} N={n} K={k} C={SUM_C}: route S "
+              f"({cs} channels, {splits} blocks a task) {t['S'][0]:.4f} ms "
+              f"({t['S'][1]:.4f} ms of device time); route D (the parent's "
+              f"kernel) {t['D'][0]:.4f} ({t['D'][1]:.4f}); plain "
+              f"{pl[0]:.4f} ({pl[1]:.4f}); library {lib[0]:.4f} "
+              f"({lib[1]:.4f}); bound {bd[0]:.4f} ms ({bd[1]})", flush=True)
+        if (b, n, k, SUM_C) == (B, N, K, RECORD_WIDTH["gather_sum_direct"]):
+            res["gather_sum_direct"].update(ms=t["D"][0], plain_ms=pl[0],
+                                            library_ms=lib[0], bound=bd)
+        # Every slice that fits, one block a task and the chooser's split
+        # for it: the measurements behind sum_slice's rule.
+        gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+        alts = []
+        for rb in gm.MAX_ROW_BYTES:
+            if gm.max_smem(n, rb) > gm.SMEM_MAX or (
+                    rb > 16 and rb // 2 >= SUM_C * 4):
+                continue
+            most = -(-n // gm.MAX_SPLIT_POINTS)
+            fill = max(1, min(sms // (b * -(-SUM_C * 4 // rb)), most))
+            alts += [(rb // 4, sp) for sp in sorted({1, fill})]
+        times = [f"{a} x {sp}: {device_ms(lambda: run((a, sp)), 5):.4f}"
+                 for a, sp in alts]
+        print("    route S by slice (channels x blocks a task: device ms): "
+              + "; ".join(times), flush=True)
+        # The same bytes of idx and mask, every slot the point itself:
+        # consecutive lanes read consecutive rows, no bank conflict.
+        ident = torch.arange(n, dtype=torch.int32, device=dev)[
+            None, :, None].expand(b, n, k).contiguous()
+        t_id = device_ms(lambda: run(None, ident, nbr_mask), 5)
+        print(f"    route S on the identity graph (every slot the point "
+              f"itself; the kNN graph's bank conflicts gone): {t_id:.4f} "
+              f"ms of device time", flush=True)
+        del h, pos, idx, nbr_mask, ident
+
+
 def wls_direct_phase(rng, dev):
     """``[wls-direct]``: WLS_DIRECT_B clouds of N points with
     WLS_DIRECT_K neighbours, above the split route's edges: ``ops.wls``
     on planes that require grad and its backward launch ``wls_direct`` and
     ``wls_bwd_direct`` once each and the split kernels never, the forward
     within WLS_ATOL of the plain version and the planes' cotangents each
-    within WLS_BWD_REL x its max. Its clouds come from a generator spawned
-    off ``rng``."""
+    within WLS_BWD_REL x its max; and ``ops.fused_gather_wls`` at the same
+    K (its neighbour mask 20% masked, slot 0 kept) launches
+    ``fused_gather_wls_direct`` once and the split route never, within
+    FUSED_REL x max of its plain version. Its clouds come from generators
+    spawned off ``rng``."""
     from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import build_tangent_basis
 
-    rng = rng.spawn(1)[0]
+    rng, frng = rng.spawn(2)
     edges = wls_edges(rng, WLS_DIRECT_B, N, WLS_DIRECT_K, dev, masked=True)
     ctg = torch.randn((WLS_DIRECT_B, 2, WLS_DIRECT_K, N), device=dev)
     ctd = torch.randn_like(ctg)
+    clouds, normals = ellipsoid_clouds(frng, [N] * WLS_DIRECT_B)
+    pos = torch.from_numpy(np.stack(clouds)).to(dev)
+    nrm = torch.from_numpy(np.stack(normals)).to(dev)
+    idx, md = ops.knn_topk(pos, WLS_DIRECT_K, True, return_mean_dist=True)
+    fmask = torch.from_numpy(frng.random(idx.shape) > 0.2).to(dev)
+    fmask[:, :, 0] = True
+    fused_args = (pos, nrm, *build_tangent_basis(nrm), idx, fmask,
+                  md.mean(dim=1).contiguous())
     reset_launch_counts()
     e = edges.clone().requires_grad_()
     g, d = ops.wls(e, 1.0, 1e-3)
     torch.autograd.backward((g, d), (ctg, ctd))
+    fused = ops.fused_gather_wls(*fused_args)
     torch.cuda.synchronize()
     counts = launch_counts()
     print(f"[wls-direct] launches, K={WLS_DIRECT_K}: "
@@ -2723,6 +2880,15 @@ def wls_direct_phase(rng, dev):
           err <= WLS_ATOL and rel <= WLS_BWD_REL,
           f"forward max_abs_err {err} <= {WLS_ATOL}, VJP worst plane "
           f"{rel:.3e} x its max <= {WLS_BWD_REL}")
+    want = ops.fused_gather_wls_plain(*fused_args)
+    rel = max(max_err(a, r) / max(float(r.abs().max()), 1e-30)
+              for a, r in zip(fused, want))
+    check(f"[wls-direct] K={WLS_DIRECT_K}: fused_gather_wls on the direct "
+          f"route once, the split route never, against the plain version",
+          counts["fused_gather_wls_direct"] == 1
+          and counts["fused_gather_wls"] == 0 and rel <= FUSED_REL,
+          f"{counts['fused_gather_wls_direct']}, "
+          f"{counts['fused_gather_wls']}, {rel:.3e} x max <= {FUSED_REL}")
     return counts
 
 
@@ -2734,9 +2900,11 @@ def max_direct_phase(rng, dev):
     backward), ``ops.gather_minmax`` with grad and ``ops.gather_max_int8``
     launch each body's route D kernels once and route S never, and
     ``ops.gather_max_affine`` (bf16, with and without the self row)
-    ``gather_max_affine_direct`` twice, bit-equal to the plain versions
-    (the backward sums in f64: bit-equal too). Its cloud comes from a
-    generator spawned off ``rng``."""
+    ``gather_max_affine_direct`` twice, and ``ops.gather_sum`` (f32) without
+    and with grad (the streaming route: above the adjacency budget)
+    ``gather_sum_direct`` twice and its route S never, bit-equal to the
+    plain versions (the backwards sum in f64: bit-equal too). Its cloud
+    comes from a generator spawned off ``rng``."""
     from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
     from deltaconv_tpu_torch.geometry import knn
 
@@ -2763,6 +2931,12 @@ def max_direct_phase(rng, dev):
         eval_max = ([ops.gather_max_affine(h, idx, nbr_mask, aff, sub_self)
                      for sub_self in (False, True)]
                     if dt == torch.bfloat16 else [])
+        sums = []
+        if dt == torch.float32:
+            hs = h.clone().requires_grad_()
+            sums = [ops.gather_sum(h, idx, nbr_mask),
+                    ops.gather_sum(hs, idx, nbr_mask)]
+            sums[1].backward(g)
         torch.cuda.synchronize()
         counts = launch_counts()
         hp = h.clone().requires_grad_()
@@ -2782,6 +2956,16 @@ def max_direct_phase(rng, dev):
         if eval_max:
             direct += ("gather_max_affine_direct",) * 2
             staged += ("gather_max_affine",)
+        sums_ok = True
+        if sums:
+            direct += ("gather_sum_direct",) * 2
+            staged += ("gather_sum",)
+            hsp = h.clone().requires_grad_()
+            ops.gather_sum_plain(hsp, idx, nbr_mask).backward(g)
+            want_sum = ops.gather_sum_fwd_plain(h, idx, nbr_mask)
+            sums_ok = (bits_equal(sums[0], want_sum)
+                       and bits_equal(sums[1].detach(), want_sum)
+                       and bits_equal(hs.grad, hsp.grad))
         check(f"[max-direct] {str(dt)[6:]}: route D once each, route S "
               f"never", all(counts[m] == direct.count(m) for m in direct)
               and not any(counts[m] for m in staged),
@@ -2794,9 +2978,11 @@ def max_direct_phase(rng, dev):
               and bits_equal(q, ops.gather_max_int8_plain(h, idx, nbr_mask))
               and all(bits_equal(got, ops.gather_max_affine_plain(
                   h, idx, nbr_mask, aff, sub_self))
-                      for got, sub_self in zip(eval_max, (False, True))),
+                      for got, sub_self in zip(eval_max, (False, True)))
+              and sums_ok,
               "the max forward with and without winners and its backward, "
-              "the min/max backward, the int8 max, the bf16 eval max")
+              "the min/max backward, the int8 max, the bf16 eval max, the "
+              "neighbour sum and its backward")
         for name in MAX_DIRECT_KERNELS:
             total[name] += counts[name]
     return total
@@ -3142,6 +3328,7 @@ def kernel_phase(rng, dev, card):
     coef_kernel_phase(res, rng, dev, card)
     shard_kernel_phase(res, rng, card)
     build_bwd_kernel_phase(res, rng, dev, card)
+    sum_routes_phase(res, rng, dev, card)
     print(f"  (the JSON record gives each at its width: {RECORD_WIDTH}, "
           f"gather_max_affine at C=128, gather_matmul_max, "
           f"gather_matmul_max_win, gather_matmul_max_int8 and "
@@ -3592,7 +3779,8 @@ def path_device_times(seed, dev, card):
     """``[device-times]``: the device time (profiler, :func:`device_ms`)
     of one call of each path that runs a neighbour max, a matmul max or
     the coefficient applies: a 32-cloud bf16 classification forward
-    (``InferenceEngine.predict``, approximate kNN), the bf16
+    (``InferenceEngine.predict``, approximate kNN; then the same engine
+    with its backbone's ``fused_eval_build`` on), the bf16
     classification train step (reference recipe), a 4-cloud large-cloud
     bf16 forward (N=8192, coefficient form), the large-cloud bf16 step,
     the large-cloud f32 forward, a 32-cloud f32 classification forward
@@ -3627,6 +3815,12 @@ def path_device_times(seed, dev, card):
             engine.predict(clouds, normals)
         times[f"{label} bf16 forward ({b} clouds)"] = device_ms(
             lambda: engine.predict(clouds, normals))
+        if dense:  # the same engine with its backbone's fused eval build
+            engine.model.deltanet_base.fused_eval_build = True
+            for _ in range(PATH_WARMUP):
+                engine.predict(clouds, normals)
+            times[f"{label} bf16 forward, fused eval build ({b} clouds)"] = (
+                device_ms(lambda: engine.predict(clouds, normals)))
         del engine, model
         batch = train_batch(rng, dev, [n] * b, n)
         model = random_model(seed, dev, affine=False, knn_method="approx",
@@ -3714,7 +3908,10 @@ def kernel_times(seed, dev, card):
     (B=32, N=1024, C = 64, 128; B=16, N=2048, C=128) and
     ``ops.gather_max_bwd`` (B=32, N=1024, f32 and bf16 cotangents at C =
     64, 128, 256; B=4, N=8192, bf16 at C = 64, 128, 256), on uniform kNN
-    graphs and the plain max's winners; ``ops.wls`` at the three
+    graphs and the plain max's winners; ``ops.gather_sum_fwd`` at C=SUM_C
+    (B=32, N=1024; B=4, N=8192) and ``ops.fused_gather_wls`` (B=32,
+    N=1024, K=20; B=16, N=2048, K=30), each also by events, with its
+    bound; ``ops.wls`` at the three
     forwards' shapes (B=32, N=1024, K=20; B=16, N=2048, K=30; B=4, N=8192,
     K=20) and ``ops.wls_bwd`` at the backwards' (B=32, N=1024 and B=4,
     N=8192), each also by events, with its bound and the plain version's
@@ -3781,6 +3978,30 @@ def kernel_times(seed, dev, card):
             h = torch.randn((b, n, c), device=dev).to(torch.bfloat16)
             ms = device_ms(lambda: ops.gather_max_int8(h, idx, nbr_mask), 5)
             parts.append(f"gather_max_int8 B={b} N={n} C={c} bf16 {ms:.4f}")
+        if k == K:
+            h = torch.randn((b, n, SUM_C), device=dev)
+
+            def call(h=h):
+                return ops.gather_sum_fwd(h, idx, nbr_mask)
+
+            bd = bound(nbytes(h, idx, nbr_mask, h))[0]
+            parts.append(f"gather_sum B={b} N={n} C={SUM_C} "
+                         f"{device_ms(call, 5):.4f} (events "
+                         f"{median_ms(call):.4f}; bound {bd:.4f})")
+        if dense:
+            nrm = torch.from_numpy(np.stack(normals)).to(dev)
+            _, md = ops.knn_topk(pos, k, True, return_mean_dist=True)
+            fused = (pos, nrm, *build_tangent_basis(nrm), idx, nbr_mask,
+                     md.mean(dim=1).contiguous())
+
+            def call(fused=fused):
+                return ops.fused_gather_wls(*fused)
+
+            bd = bound(nbytes(*fused, *call()),
+                       float(b) * n * k * WLS_FLOPS_PER_EDGE)[0]
+            parts.append(f"fused_gather_wls B={b} N={n} K={k} "
+                         f"{device_ms(call, 5):.4f} (events "
+                         f"{median_ms(call):.4f}; bound {bd:.4f})")
         for dt, widths in bwd:
             for c in widths:
                 h = torch.randn((b, n, c), device=dev)
@@ -4250,6 +4471,9 @@ def train_phase(rng, seed, dev, card):
     for name in STREAM_KERNELS:
         check(f"{name} launched in the streaming route", stream[name] > 0,
               f"{stream[name]} launches")
+    check("the streaming sum on route S", stream["gather_sum_direct"] == 0,
+          f"gather_sum {stream['gather_sum']}, gather_sum_direct "
+          f"{stream['gather_sum_direct']} launches")
     return counts, stream
 
 
@@ -5051,8 +5275,10 @@ def train_large_phase(rng, seed, dev, card):
               f"{counts[name]} launches")
     matmul_max_once("gather_matmul_max_win", counts, LARGE_STEPS, "step")
     coef_launches_held(counts, LARGE_STEPS, "step")
+    # conv0's edge moments: one streaming sum a step, on route S.
     per_step = dict(scatter_rows=SCATTERS_PER_STEP,
-                    inverse_adjacency=SCATTERS_PER_STEP + 1)
+                    inverse_adjacency=SCATTERS_PER_STEP + 1, gather_sum=1,
+                    gather_sum_direct=0)
     for name, per in per_step.items():
         check(f"{name} {per} a step", counts[name] == per * LARGE_STEPS,
               f"{counts[name]} launches in {LARGE_STEPS} steps")
@@ -5739,13 +5965,52 @@ def _plane_rel(got, want):
                for p in range(got.shape[1]))
 
 
+def check_fused_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label):
+    """fused_gather_wls on both routes, the split route (by shape,
+    ``wls_split``) and the direct route (``fused_gather_wls_direct``,
+    forced): each within FUSED_REL x max of its plain version and of the
+    unfused build (``gather_rows`` + planes + ``wls``) with the same
+    ``avg``, a second call bit-equal, one launch of its route a call."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.ops.wls_fused import edge_planes
+
+    fb = importlib.import_module("deltaconv_tpu_torch.ops.fused_build")
+    b, n, k = idx.shape
+    pm = nbr_mask.any(dim=2).to(torch.float32)
+    edges = edge_planes(pos, nrm, xb, yb, idx, nbr_mask, pm, ops.gather_rows)
+    avg = edges[:, 11, 0, 0].contiguous()
+    want = ops.fused_gather_wls_plain(pos, nrm, xb, yb, idx, nbr_mask, avg)
+    g, d = ops.wls(edges, 1.0, 1e-3)
+    s = g.abs().sum(dim=2)
+    unfused = (g.transpose(2, 3), d.transpose(2, 3),
+               torch.sqrt(s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1]))
+    del edges
+    for slices, sfx in ((None, ""), (0, "_direct")):
+        name = "fused_gather_wls" + sfx
+        reset_launch_counts()
+        got = fb._fused_gather_wls(pos, nrm, xb, yb, idx, nbr_mask, avg,
+                                   slices=slices)
+        again = fb._fused_gather_wls(pos, nrm, xb, yb, idx, nbr_mask, avg,
+                                     slices=slices)
+        torch.cuda.synchronize()
+        counts = {m: v for m, v in launch_counts().items() if v}
+        same = all(bits_equal(a, r) for a, r in zip(got, again))
+        record(name, max(max_err(a, r) for a, r in zip(got, want)))
+        for what, ref in (("plain", want), ("unfused", unfused)):
+            rel = max(max_err(a, r) / max(float(r.abs().max()), 1e-30)
+                      for a, r in zip(got, ref))
+            check(f"{name} {label} B={b} N={n} K={k} vs {what}",
+                  rel <= FUSED_REL and same and counts == {name: 2},
+                  f"{rel:.3e} x max <= {FUSED_REL}, a second call bit-equal "
+                  f"{same}, launches {counts}")
+
+
 def check_build_bwd_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label,
                             dev):
     """wls_bwd against autograd through the plain WLS math (each plane
     within WLS_BWD_REL x its max); densify_bwd bit-equal to
-    ``torch.gather``; fused_gather_wls within FUSED_REL x max of its plain
-    version and of the unfused build (``gather_rows`` + planes + ``wls``)
-    with the same ``avg``."""
+    ``torch.gather``; fused_gather_wls on both routes
+    (:func:`check_fused_kernels`)."""
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.ops.wls_fused import edge_planes
 
@@ -5774,30 +6039,20 @@ def check_build_bwd_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label,
     check(f"densify_bwd {label}",
           all(torch.equal(g, w) for g, w in zip(got, want)),
           f"bit-equal, max_abs_err {err}")
-    del dwg, dwd
-    avg = edges[:, 11, 0, 0].contiguous()
-    got = ops.fused_gather_wls(pos, nrm, xb, yb, idx, nbr_mask, avg)
-    want = ops.fused_gather_wls_plain(pos, nrm, xb, yb, idx, nbr_mask, avg)
-    g, d = ops.wls(edges, 1.0, 1e-3)
-    s = g.abs().sum(dim=2)
-    unfused = (g.transpose(2, 3), d.transpose(2, 3),
-               torch.sqrt(s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1]))
-    for what, ref in (("plain", want), ("unfused", unfused)):
-        rel = max(max_err(a, r) / max(float(r.abs().max()), 1e-30)
-                  for a, r in zip(got, ref))
-        if what == "plain":
-            record("fused_gather_wls", max(max_err(a, r)
-                                           for a, r in zip(got, ref)))
-        check(f"fused_gather_wls {label} vs {what}", rel <= FUSED_REL,
-              f"{rel:.3e} x max <= {FUSED_REL}")
+    del dwg, dwd, edges
+    check_fused_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label)
 
 
 def build_bwd_kernel_phase(res, rng, dev, card):
     """``[kernels]`` of the operator build's backward and the fused eval
     build: wls_bwd at B=32, N=1024 and B=4, N=8192 (K=20), densify_bwd,
-    fused_gather_wls and knn_topk's mean distances (both bodies) at
-    B=32, N=1024, uniform and masked (the kNN uniform only: it takes no
-    mask); then times, bounds and library calls at the uniform shapes."""
+    fused_gather_wls (both routes) and knn_topk's mean distances (both
+    bodies) at B=32, N=1024, uniform and masked (the kNN uniform only: it
+    takes no mask), and fused_gather_wls's routes at B=16, N=2048, K=30;
+    then times, bounds and library calls at the uniform shapes, and both
+    routes of fused_gather_wls timed at FUSED_SHAPES (the split route also
+    at every number of warps that holds K edges). The K=30 clouds come
+    from a generator spawned off ``rng``."""
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
     from deltaconv_tpu_torch.ops.wls_fused import edge_planes
@@ -5833,6 +6088,21 @@ def build_bwd_kernel_phase(res, rng, dev, card):
         check_build_bwd_kernels(record, lpos, lnrm, lxb, lyb, idx, nbr_mask,
                                 label, dev)
     del lpos, lnrm, lxb, lyb, pmask
+    fused_inputs = {"cls": (pos, nrm, xb, yb)}
+    for label, b, n, k in FUSED_SHAPES[1:]:
+        sc, sn = ellipsoid_clouds(rng.spawn(1)[0], [n] * b)
+        spos = torch.from_numpy(np.stack(sc)).to(dev)
+        snrm = torch.from_numpy(np.stack(sn)).to(dev)
+        fused_inputs[label] = (spos, snrm, *build_tangent_basis(snrm))
+        pmask = torch.ones((b, n), dtype=torch.bool, device=dev)
+        pmask[::2, int(0.6 * n):] = False
+        for graph, mask in (("uniform", None), ("masked", pmask)):
+            print(f"[kernels] fused build, {label} {graph}", flush=True)
+            idx, nbr_mask = knn(spos, k, mask)
+            if mask is not None:
+                nbr_mask = nbr_mask & mask[:, :, None]
+            check_fused_kernels(record, *fused_inputs[label], idx, nbr_mask,
+                                f"{label} {graph}")
 
     idx, nbr_mask = cases["uniform"]
     pm = nbr_mask.any(dim=2).to(torch.float32)
@@ -5896,6 +6166,53 @@ def build_bwd_kernel_phase(res, rng, dev, card):
     res["knn_topk_mean_dist"]["library_ms"] = median_ms(knn_library)
     for name in ("densify_bwd", "knn_topk_mean_dist"):
         print(f"  {name}: library call {res[name]['library_ms']:.4f} ms")
+    time_fused_routes(res, fused_inputs, dev, card)
+
+
+def time_fused_routes(res, inputs, dev, card):
+    """fused_gather_wls on both routes at FUSED_SHAPES (``inputs``: each
+    shape's positions, normals and frames), uniform kNN graphs with every
+    slot valid: the split route (by shape) and the direct route (the
+    parent's kernel), by CUDA events and in device time, beside the plain
+    version's device time and the bound; the split route at every number
+    of warps that holds K edges (device time). The direct route's record
+    is at the classification shape."""
+    from deltaconv_tpu_torch import ops
+
+    fb = importlib.import_module("deltaconv_tpu_torch.ops.fused_build")
+    wf = importlib.import_module("deltaconv_tpu_torch.ops.wls_fused")
+    print(f"[fused-routes] fused_gather_wls by route: split (by shape) and "
+          f"direct (the parent's kernel); per call, CUDA events (median of "
+          f"{REPS} samples of {INNER} calls) and device time (profiler); "
+          f"card: {card}", flush=True)
+    for label, b, n, k in FUSED_SHAPES:
+        pos, nrm, xb, yb = inputs[label]
+        idx, md = ops.knn_topk(pos, k, True, return_mean_dist=True)
+        ones = torch.ones(idx.shape, dtype=torch.bool, device=dev)
+        args = (pos, nrm, xb, yb, idx, ones, md.mean(dim=1).contiguous())
+
+        def run(slices, args=args):
+            return fb._fused_gather_wls(*args, slices=slices)
+
+        t = {sfx: (median_ms(lambda: run(sl)), device_ms(lambda: run(sl), 5))
+             for sl, sfx in ((None, "split"), (0, "direct"))}
+        pl = device_ms(lambda: ops.fused_gather_wls_plain(*args), 2)
+        bd = bound(nbytes(*args, *run(None)),
+                   float(b) * n * k * WLS_FLOPS_PER_EDGE)
+        split = wf.wls_split(k)
+        print(f"  {label} fused_gather_wls B={b} N={n} K={k}: split "
+              f"({split[0]} warps of {split[1]} slots) {t['split'][0]:.4f} ms "
+              f"({t['split'][1]:.4f} ms of device time); direct "
+              f"{t['direct'][0]:.4f} ({t['direct'][1]:.4f}); plain {pl:.4f} "
+              f"(device); bound {bd[0]:.4f} ms ({bd[1]})", flush=True)
+        times = [f"{s} x {-(-k // s)}: {device_ms(lambda: run(s), 5):.4f}"
+                 for s in range(-(-k // wf.WLS_EDGES), wf.WLS_MAX_SLICES + 1)]
+        print("    split by warps (warps x slots: device ms): "
+              + "; ".join(times), flush=True)
+        if (b, n, k) == (B, N, K):
+            res["fused_gather_wls_direct"].update(
+                ms=t["direct"][0], bound=bd,
+                plain_ms=res["fused_gather_wls"]["plain_ms"])
 
 
 def kernel_split(fn, names, reps=3) -> dict:
@@ -6159,8 +6476,8 @@ def serve_fused_build_phase(clouds, seed, dev, card):
     route through the kernels within FUSED_PATH_REL x max|logit| of the
     same route through the plain versions and of the unfused route, the
     argmax equal where decisive; launches per forward as
-    FUSED_PER_FORWARD. Prints the build's device time on both routes and
-    clouds/s of both engines."""
+    FUSED_PER_FORWARD. Prints the build's and one forward's device time
+    on both routes and clouds/s of both engines."""
     from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine, KERNEL_OPS,
                                      launch_counts, reset_launch_counts)
     from deltaconv_tpu_torch.models import (build_dense_operators_fused,
@@ -6234,6 +6551,11 @@ def serve_fused_build_phase(clouds, seed, dev, card):
           f"{ms[False][0]:.4f} and {ms[False][1]:.4f} ms (knn_topk, frames, "
           f"gather_rows, planes, wls, normalization, densify_bf16); card: "
           f"{card}")
+    fwd = {f: device_ms(lambda f=f: engines[f, "kernels"].predict(
+        uni[:B], uni_n[:B])) for f in (False, True)}
+    print(f"[serve-fused-build] one {B}-cloud forward (predict), device time "
+          f"(profiler): fused {fwd[True]:.4f} ms, unfused {fwd[False]:.4f} "
+          f"ms; card: {card}")
     for fused in (False, True):
         t = times[fused]
         print(f"[serve-fused-build] fused_eval_build={fused}: 64 uniform "
@@ -6539,10 +6861,15 @@ def main():
             ("serve-shard-seg-bf16", shard_seg_bf16),
             ("train-seg-bf16", seg_train), ("train-seg-f32", seg_train_f32),
             ("pos-grad", pos_grad), ("serve-fused-build", fused_build)):
-        check(f"[{label}] the WLS direct routes never",
-              counts["wls_direct"] == 0 and counts["wls_bwd_direct"] == 0,
+        check(f"[{label}] the WLS and fused-build direct routes and the "
+              f"sum's route D never",
+              counts["wls_direct"] == 0 and counts["wls_bwd_direct"] == 0
+              and counts["fused_gather_wls_direct"] == 0
+              and counts["gather_sum_direct"] == 0,
               f"wls_direct {counts['wls_direct']}, wls_bwd_direct "
-              f"{counts['wls_bwd_direct']}")
+              f"{counts['wls_bwd_direct']}, fused_gather_wls_direct "
+              f"{counts['fused_gather_wls_direct']}, gather_sum_direct "
+              f"{counts['gather_sum_direct']}")
 
     def launches(name):
         for path, counts in ((SERVE_KERNELS, serve),
@@ -6572,8 +6899,8 @@ def main():
                                "gather_matmul_max_win_kfold",
                                "gather_matmul_max_int8_kfold"), kfold),
                              (MAX_DIRECT_KERNELS, direct),
-                             (("wls_direct", "wls_bwd_direct"),
-                              wls_direct)):
+                             (("wls_direct", "wls_bwd_direct",
+                               "fused_gather_wls_direct"), wls_direct)):
             if name in path:
                 return counts[name]
         raise KeyError(name)

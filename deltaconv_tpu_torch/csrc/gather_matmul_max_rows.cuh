@@ -229,6 +229,17 @@ __device__ __forceinline__ void take_slot_f32(unsigned (&best)[4],
   }
 }
 
+// One slot added into the running sums of 4 f32 channels (the neighbour
+// sum's mode of the phase): one rounded f32 add a channel, so the slots
+// add in the order they are passed.
+__device__ __forceinline__ void add_slot_f32(unsigned (&acc)[4], uint4 v4) {
+  const unsigned v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    acc[i] = __float_as_uint(__fadd_rn(__uint_as_float(acc[i]),
+                                       __uint_as_float(v[i])));
+}
+
 // The int8 form's epilogue (gather_max_int8.cu): the max v of a row's
 // slots quantized as int8_quantize quantizes every feature, q = rint(fl(fl(v
 // / a) * 127)) (round half to even), then dequantized, fl(q * s), in f32;
@@ -264,7 +275,13 @@ __device__ __forceinline__ float int8_dequant(float v, float a, float s,
 // that id lies outside [0, N)), whatever its mask. `aff` holds the
 // slice's four rows (sign, inv, mean, bias), `aff_ld` floats apart, from
 // the slice's first column (in shared memory or device memory).
-template <typename T, int P, bool kWinners, bool kNan, bool kQuant = false>
+// With kSum (f32, no winners; gather_max.cu's neighbour sum) the phase
+// sums in place of the max: the running value starts at `neg` (+0.0), a
+// masked slot reads row N (zeros) like a valid one outside the cloud, and
+// each slot's row is added in slot order (`add_slot_f32`), so a point's sum
+// is the same chain of f32 adds as the plain version's.
+template <typename T, int P, bool kWinners, bool kNan, bool kQuant = false,
+          bool kSum = false>
 __device__ __forceinline__ void rows_max_phase(
     unsigned ys, const int* __restrict__ idx,
     const uint8_t* __restrict__ mask, const float* aff, int aff_ld,
@@ -272,6 +289,8 @@ __device__ __forceinline__ void rows_max_phase(
     int p1, int ldo, int col0, int nvalid, bool vec_out, int K,
     unsigned neg, int warp, int lane, float qa = 0.0f, float qs = 0.0f,
     bool sub_self = false) {
+  static_assert(!kSum || (sizeof(T) == 4 && !kWinners && !kQuant),
+                "the sum mode takes f32 rows without winners");
   constexpr int PW = 32 / P;
   constexpr int V = 16 / sizeof(T);  // channels a piece
   constexpr int SB = P >= kRowsInFlight ? P : kRowsInFlight;  // slots a step
@@ -371,7 +390,8 @@ __device__ __forceinline__ void rows_max_phase(
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       any |= mv[i] != 0;
-      jm[i] = mv[i] == 0 ? N + 1 : (unsigned)jv[i] < (unsigned)N ? jv[i] : N;
+      jm[i] = mv[i] == 0 ? (kSum ? N : N + 1)
+                         : (unsigned)jv[i] < (unsigned)N ? jv[i] : N;
     }
     const int kb = kbi * SB;
 #pragma unroll
@@ -390,7 +410,9 @@ __device__ __forceinline__ void rows_max_phase(
       }
 #pragma unroll
       for (int u = 0; u < kRowsInFlight; ++u) {
-        if constexpr (V == 8)
+        if constexpr (kSum)
+          add_slot_f32(best, v[u]);
+        else if constexpr (V == 8)
           take_slot<kWinners, kNan>(best, win, v[u], kb + s0 + u);
         else
           take_slot_f32<kWinners, kNan>(best, win, v[u], kb + s0 + u);

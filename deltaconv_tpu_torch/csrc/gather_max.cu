@@ -35,7 +35,8 @@
 // same bits.
 // Route S, staged (`gather_max`, `gather_max_win`, `_bf16`; with an
 // epilogue, the int8 max's route S in gather_max_int8.cu and the bf16
-// eval max's in gather_max_bf16.cu): any point may
+// eval max's in gather_max_bf16.cu; in its sum mode, the neighbour sum's
+// route S in gather_sum.cu): any point may
 // gather any row of its cloud, so a block takes a task, a cloud b and a
 // slice of Cs channels (16 * P bytes a row, P = 1, 2, 4, 8), and copies
 // the cloud's slice h[b, :, slice] into shared memory once, by cp.async
@@ -449,10 +450,12 @@ __device__ __forceinline__ bool has_nan(uint4 v, __nv_bfloat16) {
 }
 
 // The staged route's epilogues: none (the max, or with winners), the
-// int8 form's quantization, the BatchNorm + LeakyReLU of the bf16 eval max.
+// int8 form's quantization, the BatchNorm + LeakyReLU of the bf16 eval max;
+// and its sum mode (gather_sum.cu's route S: f32, no winners).
 constexpr int kEpiNone = 0;
 constexpr int kEpiQuant = 1;
 constexpr int kEpiAffine = 2;
+constexpr int kEpiSum = 3;
 
 // Route S: one block a (task, split), a task a cloud b and a slice of
 // kCs = 16 P / sizeof(T) channels; the block stages the slice's N rows
@@ -467,7 +470,9 @@ constexpr int kEpiAffine = 2;
 // |h| maximum amax[b] (f32 bits, from dc_absmax). kEpiAffine: the bf16
 // eval max (no winners) with the epilogue of aff [4, C] f32, with
 // sub_self the self row subtracted; the slice's four affine rows read
-// from device memory through L1.
+// from device memory through L1. kEpiSum: the neighbour sum (f32, no
+// winners), each point's slots added in slot order from +0.0, a masked
+// slot read from the zero row; no NaN scan (a sum needs no NaN rule).
 template <typename T, int P, bool kWinners, int kEpi>
 __global__ void __launch_bounds__(
     kRowsWarps * 32, (P == 2 || P == 4) && kEpi != kEpiAffine ? 2 : 1)
@@ -479,6 +484,7 @@ __global__ void __launch_bounds__(
                              int vec_out, const unsigned* __restrict__ amax,
                              const float* __restrict__ aff, int sub_self) {
   constexpr bool kQuant = kEpi == kEpiQuant;
+  constexpr bool kSum = kEpi == kEpiSum;
   constexpr int kRowBytes = 16 * P;
   constexpr int kCs = kRowBytes / (int)sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
@@ -521,18 +527,23 @@ __global__ void __launch_bounds__(
   cp_async_commit();
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  // A NaN anywhere in the slice takes the compares with the NaN rules.
   const unsigned ys = smem_addr(smem);
-  bool nan_seen = false;
-  for (int e = tid; e < N * P; e += blockDim.x)
-    nan_seen |= has_nan(lds128(ys + (unsigned)e * 16u), T());
-  const bool any_nan = __syncthreads_or(nan_seen) != 0;
-
   const int chunk = (N + splits - 1) / splits;
   const int p0 = split * chunk, p1 = min(N, p0 + chunk);
   const int nvalid = min(kCs, C - c0);
+  // A NaN anywhere in the slice takes the compares with the NaN rules.
+  bool any_nan = false;
+  if constexpr (!kSum) {
+    bool nan_seen = false;
+    for (int e = tid; e < N * P; e += blockDim.x)
+      nan_seen |= has_nan(lds128(ys + (unsigned)e * 16u), T());
+    any_nan = __syncthreads_or(nan_seen) != 0;
+  }
+
   unsigned neg;
-  if constexpr (kQuant) {  // -inf: the max of the valid slots themselves
+  if constexpr (kSum) {  // +0.0 in every word
+    neg = 0u;
+  } else if constexpr (kQuant) {  // -inf: the max of the valid slots
     neg = sizeof(T) == 4 ? kNegInfF32 : kNegInf2;
   } else if constexpr (sizeof(T) == 4) {
     neg = __float_as_uint(kNeg);
@@ -551,7 +562,11 @@ __global__ void __launch_bounds__(
     qs = __fmul_rn(qa, 1.0f / 127.0f);
   }
   const bool self = kEpi == kEpiAffine && sub_self != 0;
-  if (any_nan)
+  if constexpr (kSum)
+    rows_max_phase<T, P, false, false, false, true>(
+        ys, idx, mask, nullptr, 0, out, nullptr, b, N, p0, p1, C, c0, nvalid,
+        vec_out != 0, K, neg, warp, lane);
+  else if (any_nan)
     rows_max_phase<T, P, kWinners, true, kQuant>(
         ys, idx, mask, aff_p, C, out, winner, b, N, p0, p1, C, c0,
         nvalid, vec_out != 0, K, neg, warp, lane, qa, qs, self);
@@ -873,6 +888,15 @@ int dc_gather_max_staged_int8(const void* h, const void* idx,
         h, idx, mask, out, nullptr, B, N, C, K, Cs, splits, stream, amax);
   return launch_staged<float, false, kEpiQuant>(
       h, idx, mask, out, nullptr, B, N, C, K, Cs, splits, stream, amax);
+}
+
+// The neighbour sum's route S (gather_sum.cu's `dc_gather_sum`): the
+// staged slice of h f32, each point's slots summed in slot order.
+int dc_gather_sum_staged(const void* h, const void* idx, const void* mask,
+                         void* out, int B, int N, int C, int K, int Cs,
+                         int splits, void* stream) {
+  return launch_staged<float, false, kEpiSum>(h, idx, mask, out, nullptr, B,
+                                              N, C, K, Cs, splits, stream);
 }
 
 // The bf16 eval max's route S (gather_max_bf16.cu's `dc_gather_max_affine`):

@@ -22,12 +22,31 @@
 //   leaves them to XLA.
 //
 // gather_sum: out[b, n, c] = sum over k with mask of h[b, idx[b, n, k], c]
-//   h [B, N, C] f32 -> out [B, N, C] f32, summed in slot order.
+//   h [B, N, C] f32 -> out [B, N, C] f32, summed in slot order from +0.0.
 //   Replaces the streaming `_fwd_with_adj` (pallas_call at
 //   gather_sum.py:201, kernel body `_fwd_kernel`), which rebuilt the
 //   adjacency tile and contracted it on the MXU over a hi/lo split.
-//   The layout is gather_max.cu's: a block row per point, c fastest,
-//   coalesced loads of h rows from L2. Bound: memory.
+//   Bound: memory, h, idx and mask read once and out written once.
+//   Two routes, chosen by shape in ops/gather_sum.py (`sum_slice`, the
+//   neighbour max's `max_slice`), the same bits.
+//   Route S (`gather_sum`): the sum mode of the neighbour max's staged
+//   route (gather_max.cu, `dc_gather_sum_staged`). A block takes a cloud
+//   and a slice of Cs channels (rows of 16 P bytes: 4 channels at B=4,
+//   N=8192, C=128; 32 at N=1024), copies the slice into shared memory
+//   once by cp.async beside a zero row (row N), then a group of P lanes
+//   owns a point: its idx and mask are read once a task, four slots'
+//   16-byte rows are read from shared memory before their adds, and the
+//   adds run in slot order from +0.0. A masked slot and an index outside
+//   [0, N) read the zero row; the sum starts at +0.0 and under
+//   round-to-nearest never becomes -0.0, so adding +0.0 changes no bit
+//   and the result equals the plain version's (every slot added, masked
+//   ones as 0.0) bit for bit. Each row of h is read from L2 or memory once
+//   a task, where route D read K rows a point from L2 (335 MB for 16.8 MB
+//   of h at B=4, N=8192, K=20, C=128).
+//   Route D (`gather_sum_direct`, the earlier kernel), where no slice fits
+//   a block (above 14,526 points) or K is 0: gather_max.cu's direct
+//   layout, a block row per point, c fastest, each slot's idx and mask
+//   read from global memory and its h row from L2.
 //
 // gather_sum_bwd: dh[b, m, c] = sum of g[b, n, c] over the valid edges
 //   (n, k) with idx[b, n, k] == m; the inverse adjacency of idx
@@ -220,9 +239,26 @@ extern "C" int dc_adjacency(const void* idx, const void* mask, void* adj,
   return (int)cudaGetLastError();
 }
 
+// gather_max.cu: the staged route's sum mode.
+int dc_gather_sum_staged(const void* h, const void* idx, const void* mask,
+                         void* out, int B, int N, int C, int K, int Cs,
+                         int splits, void* stream);
+
+// Route S: Cs channels a slice (16, 32, 64 or 128 bytes a row) and splits
+// blocks a task, as ops/gather_sum.py chose them; a shape that does not
+// fit is refused (route D takes it).
 extern "C" int dc_gather_sum(const void* h, const void* idx, const void* mask,
-                             void* out, int B, int N, int C, int K,
-                             int device, void* stream) {
+                             void* out, int B, int N, int C, int K, int Cs,
+                             int splits, int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return dc_gather_sum_staged(h, idx, mask, out, B, N, C, K, Cs, splits,
+                              stream);
+}
+
+extern "C" int dc_gather_sum_direct(const void* h, const void* idx,
+                                    const void* mask, void* out, int B,
+                                    int N, int C, int K, int device,
+                                    void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   const dim3 block = dc_row_block(C);

@@ -35,12 +35,13 @@
 // 21 entries of the normal equations, the 6 height coefficients; in the
 // backward c's cotangents, L's and inv_d's, and the weights' dot) is each
 // slice's sum over its slots, then the slices' partials added in slice
-// order out of shared memory after a barrier (SliceSum): the same bits in
-// every slice and in every call. Each slice factors the 6x6 system itself
-// (redundantly: no second barrier to broadcast it). The per-edge steps
-// run in parallel across the slices straight out of registers, and every
-// output plane is written once, coalesced; the backward keeps its scratch
-// between the steps in registers. S is the fewest warps whose slots (at
+// order out of shared memory after a barrier (SliceSum, wls_split.cuh):
+// the same bits in every slice and in every call. Each slice factors the
+// 6x6 system itself (redundantly: no second barrier to broadcast it). The
+// per-edge steps run in parallel across the slices straight out of
+// registers, and every output plane is written once, coalesced; the
+// backward keeps its scratch between the steps in registers. S is the
+// fewest warps whose slots (at
 // most kMaxEdges) hold K edges, up to kMaxSlices (ops/wls_fused.py
 // `wls_split` mirrors the choice): 4 x 5 at K=20, 6 x 5 at K=30; above,
 // the direct route. The forward is held to 96 registers (5 blocks of 4
@@ -52,17 +53,9 @@
 // earlier kernels, one thread a point over all K edges in passes
 // (wls::wls_point, wls_point_bwd), the backward's scratch in d_edges'
 // planes 0-3.
-#include <type_traits>
-
-#include "common.cuh"
-#include "wls_body.cuh"
+#include "wls_split.cuh"
 
 namespace {
-
-constexpr int kPoints = 32;     // points of a block, one a lane
-constexpr int kMaxSlices = 8;   // warps of a block at most
-constexpr int kMaxEdges = 5;    // slots of a slice at most
-constexpr int kFwdRegs = 96;    // registers of the forward's threads
 
 // The planes of point n of one cloud: edge k's plane p at p * K * N + k * N.
 struct PlaneSrc {
@@ -76,37 +69,6 @@ struct PlaneSrc {
             p[8 * plane], p[9 * plane], p[10 * plane], p[11 * plane]};
   }
 };
-
-// The sums over K of the split route: slice s's n partials of its lane's
-// point into shared memory ([S][NA][32] floats), a barrier, then every
-// slice adds the S partials in slice order; a second barrier before the
-// buffer is written again. The loop over the slices stays a loop: unrolled
-// over a runtime S it grew each sum into dozens of branches and loads.
-struct SliceSum {
-  float* buf;
-  int lane, s, S;
-  template <int n>
-  __device__ __forceinline__ void add(float* v) {
-    float* mine = buf + s * wls::NA * kPoints + lane;
-#pragma unroll
-    for (int i = 0; i < n; ++i) mine[i * kPoints] = v[i];
-    __syncthreads();
-    const float* part = buf + lane;
-#pragma unroll
-    for (int i = 0; i < n; ++i) v[i] = part[i * kPoints];
-#pragma unroll 1
-    for (int q = 1; q < S; ++q) {
-      part += wls::NA * kPoints;
-#pragma unroll
-      for (int i = 0; i < n; ++i) v[i] += part[i * kPoints];
-    }
-    __syncthreads();
-  }
-};
-
-inline size_t split_smem(int S) {
-  return (size_t)S * wls::NA * kPoints * sizeof(float);
-}
 
 template <int E>
 __global__ void __maxnreg__(kFwdRegs)
@@ -222,24 +184,6 @@ __global__ void __launch_bounds__(128)
         return out[p * plane + (long long)k * N];
       },
       K, kernel_width, regularizer);
-}
-
-// The split route's launch: S slices, E = ceil(K / S) slots (at most
-// kMaxEdges), else cudaErrorInvalidValue.
-template <class Launch>
-int split_launch(int B, int K, int N, int S, Launch go) {
-  if (S < 1 || S > kMaxSlices) return (int)cudaErrorInvalidValue;
-  const int E = (K + S - 1) / S;
-  if (E > kMaxEdges) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kPoints - 1) / kPoints, B), block(kPoints, S);
-  switch (E) {
-    case 1: go(std::integral_constant<int, 1>(), grid, block); break;
-    case 2: go(std::integral_constant<int, 2>(), grid, block); break;
-    case 3: go(std::integral_constant<int, 3>(), grid, block); break;
-    case 4: go(std::integral_constant<int, 4>(), grid, block); break;
-    default: go(std::integral_constant<int, 5>(), grid, block); break;
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

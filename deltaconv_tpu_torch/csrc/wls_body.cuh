@@ -31,7 +31,9 @@
 //   order by the caller's `sum` (wls.cu: shared memory and a barrier).
 //
 // GatherSrc is the edge source of the fused eval build: it gathers each
-// edge's neighbour rows and forms the planes on the fly.
+// edge's neighbour rows and forms the planes on the fly (`gather_src`
+// makes one for a point); `fused_split` is the fused build's split walker,
+// wls_split on those edges with the row norm beside it.
 //
 // Host and device: the functions compile for the card and, without
 // __CUDACC__, as plain C++.
@@ -93,6 +95,21 @@ struct GatherSrc {
     return e;
   }
 };
+
+// The edge source of one point: the cloud's [N, 3] rows, the point's
+// idx and mask rows [K], centred on slot 0's rows (clamped into the cloud).
+WLS_FN GatherSrc gather_src(const float* pos, const float* normal,
+                            const float* xb, const float* yb, const int* idx,
+                            const unsigned char* mask, int N, float avg) {
+  int c = idx[0];
+  c = c < 0 ? 0 : (c >= N ? N - 1 : c);
+  const float* p = pos + 3 * c;
+  const float* q = normal + 3 * c;
+  const float* x = xb + 3 * c;
+  const float* y = yb + 3 * c;
+  return {pos,  xb,   yb,   idx,  mask, N,    avg,  p[0], p[1], p[2],
+          q[0], q[1], q[2], x[0], x[1], x[2], y[0], y[1], y[2]};
+}
 
 // One neighbourhood's fit.
 struct Fit {
@@ -644,6 +661,26 @@ WLS_FN void wls_split(const Src& src, int s, int S, int K, bool live,
     div_row(r, g1[j], g2[j], d1, d2);
     out(s + j * S, g1[j], g2[j], d1, d2);
   }
+}
+
+// The fused eval build over slice s's slots: wls_split on the gathered
+// edges, out(k, g1, g2, d1, d2) as there; returns the point's row norm
+// sqrt(s1^2 + s2^2), s_d = sum_k |g_d|, each sum the slice's over its
+// slots in order and then across the slices by `sum` (the same bits in
+// every call).
+template <int E, class Sum, class Out>
+WLS_FN float fused_split(const GatherSrc& src, int s, int S, int K, bool live,
+                         float kernel_width, float regularizer, Sum& sum,
+                         Out out) {
+  float sa[2] = {0.0f, 0.0f};
+  wls_split<E>(src, s, S, K, live, kernel_width, regularizer, sum,
+               [&](int k, float g1, float g2, float d1, float d2) {
+                 sa[0] += fabsf(g1);
+                 sa[1] += fabsf(g2);
+                 out(k, g1, g2, d1, d2);
+               });
+  sum.template add<2>(sa);
+  return sqrtf(sa[0] * sa[0] + sa[1] * sa[1]);
 }
 
 // The VJP over slice s's slots: `cot(k, ctg1, ctg2, ctd1, ctd2)` gives

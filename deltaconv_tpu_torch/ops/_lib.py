@@ -50,7 +50,9 @@ _KERNELS = {
     "wls_bwd": ("dc_wls_bwd", [_P] * 4 + [_I] * 4 + [_F] * 2),
     "wls_bwd_direct": ("dc_wls_bwd_direct", [_P] * 4 + [_I] * 3 + [_F] * 2),
     "fused_gather_wls": ("dc_fused_gather_wls",
-                         [_P] * 10 + [_I] * 3 + [_F] * 2),
+                         [_P] * 10 + [_I] * 4 + [_F] * 2),
+    "fused_gather_wls_direct": ("dc_fused_gather_wls_direct",
+                                [_P] * 10 + [_I] * 3 + [_F] * 2),
     "densify": ("dc_densify", [_P] * 5 + [_I] * 4),
     "densify_bf16": ("dc_densify_bf16", [_P] * 5 + [_I] * 4),
     "densify_bwd": ("dc_densify_bwd", [_P] * 5 + [_I] * 3),
@@ -72,7 +74,8 @@ _KERNELS = {
     "gather_max_bwd_bf16_direct": ("dc_gather_max_bwd_bf16_direct",
                                    [_P] * 5 + [_I] * 5),
     "adjacency": ("dc_adjacency", [_P, _P, _P, _I, _I, _I]),
-    "gather_sum": ("dc_gather_sum", [_P, _P, _P, _P, _I, _I, _I, _I]),
+    "gather_sum": ("dc_gather_sum", [_P] * 4 + [_I] * 6),
+    "gather_sum_direct": ("dc_gather_sum_direct", [_P] * 4 + [_I] * 4),
     "gather_sum_bwd": ("dc_gather_sum_bwd", [_P] * 5 + [_I] * 4),
     "knn_topk": ("dc_knn_topk", [_P, _P, _I, _I, _I, _I]),
     "knn_topk_mean_dist": ("dc_knn_topk_mean_dist", [_P] * 3 + [_I] * 4),

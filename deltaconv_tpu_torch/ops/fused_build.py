@@ -15,7 +15,13 @@ operators' ``scale`` (``geometry/dense.py``), and ``row_norm = sqrt(s1^2
 
 The kernel (``csrc/fused_build.cu``) gathers each edge's neighbour rows
 directly in f32 and builds the eleven planes in registers; nothing of
-the ``[B, 12, K, N]`` plane tensor reaches device memory. The JAX kernel
+the ``[B, 12, K, N]`` plane tensor reaches device memory. Two routes on
+CUDA tensors, chosen by shape as the WLS forward's
+(:func:`~.wls_fused.wls_split`): the split route ``fused_gather_wls`` (a
+point's K edges over S warps, each warp's edges gathered once into
+registers, every sum over K in a fixed order) up to 40 edges a point, and
+the direct route ``fused_gather_wls_direct`` (one thread a point over all
+K edges in each pass) above. The JAX kernel
 gathered the table as bf16 ``hi + lo`` halves by one-hot products (about
 16 mantissa bits), a TPU artifact the port does not copy.
 :func:`fused_dense_build` then assembles the bf16 dense operators with
@@ -28,7 +34,7 @@ import torch
 
 from . import _lib
 from .gather_rows import gather_rows_plain
-from .wls_fused import edge_planes_tables, wls_plain
+from .wls_fused import edge_planes_tables, wls_plain, wls_split
 
 __all__ = ["fused_dense_build", "fused_gather_wls", "fused_gather_wls_plain"]
 
@@ -69,11 +75,21 @@ def fused_gather_wls_plain(pos, normal, x_basis, y_basis, idx, mask, avg,
 
 def fused_gather_wls(pos, normal, x_basis, y_basis, idx, mask, avg,
                      kernel_width: float = 1.0, regularizer: float = 0.001):
-    """Plain version for CPU tensors; the ``fused_gather_wls`` kernel for
-    CUDA tensors."""
+    """Plain version for CPU tensors; for CUDA tensors the split route
+    (``fused_gather_wls``) or, above 40 edges a point, the direct route
+    (``fused_gather_wls_direct``)."""
     if pos.device.type == "cpu":
         return fused_gather_wls_plain(pos, normal, x_basis, y_basis, idx,
                                       mask, avg, kernel_width, regularizer)
+    return _fused_gather_wls(pos, normal, x_basis, y_basis, idx, mask, avg,
+                             kernel_width, regularizer)
+
+
+def _fused_gather_wls(pos, normal, x_basis, y_basis, idx, mask, avg,
+                      kernel_width=1.0, regularizer=0.001, slices=None):
+    """:func:`fused_gather_wls` on CUDA tensors, on the split route with
+    ``slices`` warps a block (None: :func:`~.wls_fused.wls_split`'s; 0:
+    the direct route)."""
     _check(pos, idx, avg)
     b, n, _ = pos.shape
     k = idx.shape[-1]
@@ -90,11 +106,17 @@ def fused_gather_wls(pos, normal, x_basis, y_basis, idx, mask, avg,
     gc = torch.empty((b, 2, n, k), dtype=torch.float32, device=device)
     dc = torch.empty_like(gc)
     rn = torch.empty((b, n), dtype=torch.float32, device=device)
-    _lib.launch("fused_gather_wls", device, pos.data_ptr(),
-                normal.data_ptr(), x_basis.data_ptr(), y_basis.data_ptr(),
-                idx.data_ptr(), mask_u8.data_ptr(), avg.data_ptr(),
-                gc.data_ptr(), dc.data_ptr(), rn.data_ptr(), b, n, k,
-                float(kernel_width), float(regularizer))
+    if slices is None:
+        slices = wls_split(k)[0]
+    args = (pos.data_ptr(), normal.data_ptr(), x_basis.data_ptr(),
+            y_basis.data_ptr(), idx.data_ptr(), mask_u8.data_ptr(),
+            avg.data_ptr(), gc.data_ptr(), dc.data_ptr(), rn.data_ptr(), b, n,
+            k)
+    tail = (float(kernel_width), float(regularizer))
+    if slices:
+        _lib.launch("fused_gather_wls", device, *args, slices, *tail)
+    else:
+        _lib.launch("fused_gather_wls_direct", device, *args, *tail)
     return gc, dc, rn
 
 

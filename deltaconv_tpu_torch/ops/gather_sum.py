@@ -17,11 +17,17 @@ The routes are the JAX package's:
   forward is ``A @ h`` and the backward ``A^T @ g`` on the same saved
   ``A`` (``torch.bmm``, the plain large products that the JAX package
   also leaves outside Pallas);
-- differentiated above that budget: the streaming ``gather_sum``
-  kernel, with the ``gather_sum_bwd`` kernel as its backward (each row's
-  cotangents summed destination-major over the inverse adjacency, in
-  f64, rounded once);
+- differentiated above that budget: the streaming forward, with the
+  ``gather_sum_bwd`` kernel as its backward (each row's cotangents summed
+  destination-major over the inverse adjacency, in f64, rounded once);
 - not differentiated: always the streaming forward.
+
+The streaming forward has two routes on CUDA tensors, chosen by shape
+(:func:`sum_slice`), the same bits: route S, ``gather_sum`` (a block
+stages a cloud's channel slice of ``h`` in shared memory and sums each
+point's slots out of it: the neighbour max's staged kernel in its sum
+mode), where a slice fits a block (up to 14,526 points); route D,
+``gather_sum_direct`` (every slot's row from L2), above that or at K=0.
 
 :func:`gather_sum` runs the kernels, :func:`gather_sum_plain` the plain
 versions, on the same routes.
@@ -34,11 +40,12 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import _lib
+from .gather_max import _sm_count, max_slice
 from .gather_rows import inverse_adjacency
 
 __all__ = ["adjacency", "adjacency_plain", "gather_sum", "gather_sum_bwd",
            "gather_sum_bwd_plain", "gather_sum_fwd", "gather_sum_fwd_plain",
-           "gather_sum_plain"]
+           "gather_sum_plain", "sum_slice"]
 
 # Budget of the saved adjacency, in the JAX package's bytes (bf16
 # counts): B=32 x N=1024 (64 MB) and B=16 x N=2048 (128 MB) stay dense.
@@ -109,17 +116,42 @@ def adjacency(idx, mask):
     return adj
 
 
+def sum_slice(b: int, n: int, c: int, k: int, sms: int) -> tuple[int, int]:
+    """The route of the streaming forward for ``[b, n, c]`` f32 features
+    and ``k`` slots on a card of ``sms`` SMs, by the neighbour max's rules
+    (:func:`~.gather_max.max_slice` at 4 bytes an element, no winners):
+    ``(cs, splits)`` for route S, or ``(0, 0)`` for route D (above 14,526
+    points, or ``k`` 0). At B=4, N=8192, C=128: 4 channels a slice (8,194
+    rows of 16 bytes, 131 KB), 128 tasks, one block each."""
+    return max_slice(b, n, c, 4, k, sms)
+
+
 def gather_sum_fwd(h, idx, mask):
-    """Streaming forward: plain version for CPU tensors, the
-    ``gather_sum`` kernel for CUDA tensors."""
+    """Streaming forward: plain version for CPU tensors; for CUDA
+    tensors ``gather_sum`` (route S) or ``gather_sum_direct`` (route D),
+    by :func:`sum_slice`."""
     if h.device.type == "cpu":
         return gather_sum_fwd_plain(h, idx, mask)
+    return _gather_sum_fwd(h, idx, mask)
+
+
+def _gather_sum_fwd(h, idx, mask, route=None):
+    """:func:`gather_sum_fwd` on CUDA tensors through ``route`` (``(cs,
+    splits)``; ``(0, 0)`` route D; None: by shape)."""
     b, n, c = h.shape
+    k = idx.shape[-1]
     device = _check_graph("gather_sum", idx, mask,
                           [("h", h, torch.float32, (b, n, c))])
+    if route is None:
+        route = sum_slice(b, n, c, k, _sm_count(device.index or 0))
+    cs, splits = route
     out = torch.empty_like(h)
-    _lib.launch("gather_sum", device, h.data_ptr(), idx.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), b, n, c, idx.shape[-1])
+    args = (h.data_ptr(), idx.data_ptr(), mask.data_ptr(), out.data_ptr(), b,
+            n, c, k)
+    if cs:
+        _lib.launch("gather_sum", device, *args, cs, splits)
+    else:
+        _lib.launch("gather_sum_direct", device, *args)
     return out
 
 

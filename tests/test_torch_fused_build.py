@@ -282,3 +282,35 @@ def test_fused_eval_build_changes_nothing_on_the_cpu():
             outs.append((base.state_dict(), base(_t(pos), _t(nrm))))
     for a, b in zip(outs[0][1], outs[1][1]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k,slices,launched,extra", [
+    (20, None, "fused_gather_wls", (4,)),         # by shape: 4 warps of 5
+    (30, None, "fused_gather_wls", (6,)),         # 6 warps of 5
+    (40, None, "fused_gather_wls", (8,)),         # the most edges split
+    (48, None, "fused_gather_wls_direct", ()),    # above: the direct route
+    (20, 0, "fused_gather_wls_direct", ()),       # forced direct route
+    (20, 7, "fused_gather_wls", (7,)),            # a given warp count
+])
+def test_fused_wrapper_launches_the_route(monkeypatch, k, slices, launched,
+                                          extra):
+    """The fused build's one launch on CUDA tensors (recorded in place of
+    the launch; meta tensors, no card): the split route with
+    ``wls_split``'s warps a block before the two floats, or the direct
+    route without them."""
+    fb = importlib.import_module("deltaconv_tpu_torch.ops.fused_build")
+    calls = []
+    monkeypatch.setattr(fb._lib, "launch",
+                        lambda kernel, device, *args: calls.append(
+                            (kernel, args)))
+    monkeypatch.setattr(fb._lib, "check_inputs",
+                        lambda name, specs: torch.device("meta"))
+    rows = [torch.empty((B, N, 3), device="meta") for _ in range(4)]
+    idx = torch.empty((B, N, k), dtype=torch.int32, device="meta")
+    mask = torch.empty((B, N, k), dtype=torch.bool, device="meta")
+    avg = torch.empty((B,), device="meta")
+    gc, dc, rn = fb._fused_gather_wls(*rows, idx, mask, avg, 1.0, 1e-3,
+                                      slices)
+    assert gc.shape == dc.shape == (B, 2, N, k) and rn.shape == (B, N)
+    assert [(name, args[10:]) for name, args in calls] == [
+        (launched, (B, N, k) + extra + (1.0, 1e-3))]

@@ -281,8 +281,10 @@ def test_gather_sum_kernels(cuda, n, c):
                        ops.adjacency_plain(idx, mask))
     h = torch.randn((2, n, c), device=cuda)
     g = torch.randn((2, n, c), device=cuda)
+    reset_launch_counts()
     assert torch.equal(ops.gather_sum_fwd(h, idx, mask),
                        ops.gather_sum_fwd_plain(h, idx, mask))
+    assert launch_counts()["gather_sum"] == 1  # route S at these shapes
     _bwd_exact(ops.gather_sum_bwd, ops.gather_sum_bwd_plain, (idx, mask, g))
     gs = importlib.import_module("deltaconv_tpu_torch.ops.gather_sum")
     budget = gs._DENSE_ADJ_MAX_BYTES
@@ -299,6 +301,51 @@ def test_gather_sum_kernels(cuda, n, c):
                 assert torch.equal(grads[0], grads[1])
     finally:
         gs._DENSE_ADJ_MAX_BYTES = budget
+
+
+@pytest.mark.parametrize("b,n,c,k,route", [
+    (2, 100, 3, 9, None), (2, 150, 64, 9, None), (2, 77, 300, 9, None),
+    (4, 8192, 128, 20, None),        # the large-cloud step: 16-byte rows
+    (32, 1024, 128, 20, None),       # 128-byte rows
+    (1, 14527, 16, 20, None),        # above every slice: route D
+    (2, 150, 8, 0, None),            # no slot: route D
+    (4, 8192, 128, 20, (0, 0)),      # forced route D
+    (2, 150, 64, 9, (0, 0)),
+    (2, 150, 64, 9, (4, 3)),         # every row width, split tasks
+    (2, 150, 64, 9, (8, 1)), (2, 150, 64, 9, (16, 2)),
+    (2, 77, 301, 9, (32, 5)),        # an odd width: outputs one by one
+])
+def test_gather_sum_routes_exact(cuda, b, n, c, k, route):
+    """The streaming forward's two routes (S, the staged slice, by shape or
+    forced; D, ``gather_sum_direct``) bit-equal to the plain version (slots
+    summed in slot order from +0.0) and to a second call, one launch of the
+    route each; a masked slot, an id outside [0, N) and a row with no valid
+    slot add nothing."""
+    gs = importlib.import_module("deltaconv_tpu_torch.ops.gather_sum")
+    rng = np.random.default_rng(60)
+    idx = torch.from_numpy(
+        rng.integers(0, n, (b, n, k)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((b, n, k)) > 0.3).to(cuda)
+    if k:
+        mask[0, 4] = False  # no valid neighbour
+        idx[0, 5, 0], idx[-1, 6, k - 1] = -1, n  # outside the cloud
+        mask[0, 5, 0] = mask[-1, 6, k - 1] = True
+    h = torch.randn((b, n, c), device=cuda)
+    inside = (idx >= 0) & (idx < n)
+    want = ops.gather_sum_fwd_plain(h, torch.where(inside, idx, 0),
+                                    mask & inside)
+    if route is None:
+        cs = gs.sum_slice(b, n, c, k, torch.cuda.get_device_properties(
+            0).multi_processor_count)[0]
+    else:
+        cs = route[0]
+    name = "gather_sum" if cs else "gather_sum_direct"
+    reset_launch_counts()
+    got = gs._gather_sum_fwd(h, idx, mask, route)
+    again = gs._gather_sum_fwd(h, idx, mask, route)
+    torch.cuda.synchronize()
+    assert {m: v for m, v in launch_counts().items() if v} == {name: 2}
+    assert torch.equal(got, want) and torch.equal(again, got)
 
 
 def _train_step_params(batch, ops_, seed=0):
@@ -2302,13 +2349,17 @@ def test_densify_planes_layout_exact(cuda, dtype):
         assert torch.equal(g.float(), w.float())
 
 
+@pytest.mark.parametrize("slices", [None, 0], ids=["split", "direct"])
 @pytest.mark.parametrize("n,k,masked", [(128, 12, False), (256, 20, True),
-                                        (1024, 20, False)])
-def test_fused_gather_wls_kernel_matches_plain(cuda, n, k, masked):
-    """Coefficients within 1e-5 x max and row norms within 1e-5 relative of
-    the plain version (the same f32 gather; FMA contraction and the K sums'
-    order), and of the unfused ``edge_planes`` + ``wls`` with the same
-    ``avg``, unnormalized."""
+                                        (1024, 20, False), (1000, 30, True),
+                                        (2048, 30, False), (77, 40, True)])
+def test_fused_gather_wls_kernel_matches_plain(cuda, n, k, masked, slices):
+    """Both routes (split, by shape; direct, forced): coefficients within
+    1e-5 x max and row norms within 1e-5 relative of the plain version (the
+    same f32 gather; FMA contraction and the K sums' order), and of the
+    unfused ``edge_planes`` + ``wls`` with the same ``avg``, unnormalized;
+    a second call bit-equal; one launch of the route a call."""
+    fb = importlib.import_module("deltaconv_tpu_torch.ops.fused_build")
     rng = np.random.default_rng(53)
     pos, nrm = _cloud_batch(rng, 2, n, cuda)
     xb, yb = build_tangent_basis(nrm)
@@ -2319,8 +2370,14 @@ def test_fused_gather_wls_kernel_matches_plain(cuda, n, k, masked):
                                          device=cuda) > 0.3
     avg = md.mean(dim=1)
     reset_launch_counts()
-    got = ops.fused_gather_wls(pos, nrm, xb, yb, idx, mask, avg)
-    assert launch_counts()["fused_gather_wls"] == 1
+    got = fb._fused_gather_wls(pos, nrm, xb, yb, idx, mask, avg,
+                               slices=slices)
+    again = fb._fused_gather_wls(pos, nrm, xb, yb, idx, mask, avg,
+                                 slices=slices)
+    torch.cuda.synchronize()
+    name = "fused_gather_wls" + ("_direct" if slices == 0 else "")
+    assert {m: v for m, v in launch_counts().items() if v} == {name: 2}
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
     want = ops.fused_gather_wls_plain(pos, nrm, xb, yb, idx, mask, avg)
     for g, w in zip(got[:2], want[:2]):
         _close_to_max(g, w, 1e-5)

@@ -316,6 +316,59 @@ class _Calls(torch.overrides.TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+GS = importlib.import_module("deltaconv_tpu_torch.ops.gather_sum")
+
+
+@pytest.mark.parametrize("b,n,c,k,want", [
+    (4, 8192, 128, 20, (4, 1)),      # large-cloud step: 16-byte rows
+    (32, 1024, 128, 20, (32, 1)),    # the streaming route at B=32
+    (32, 1024, 64, 20, (32, 2)),     # conv widths below: two blocks a task
+    (1, 14526, 128, 20, (4, 4)),     # the largest route-S cloud
+    (1, 14527, 128, 20, (0, 0)),     # above it: route D
+    (4, 8192, 128, 0, (0, 0)),       # no slot: route D
+])
+def test_sum_slice_routes(b, n, c, k, want):
+    """``sum_slice``: the neighbour sum's route S (the staged slice and its
+    splits, by ``max_slice``'s rules for f32 rows without winners) at the
+    large-cloud shape, route D above 14,526 points and at K=0."""
+    got = GS.sum_slice(b, n, c, k, 132)
+    assert got == want == GM.max_slice(b, n, c, 4, k, 132)
+    if got[0]:
+        assert GM.max_smem(n, got[0] * 4) <= GM.SMEM_MAX
+
+
+@pytest.mark.parametrize("n,k,route,launched,extra", [
+    (8192, 20, None, "", (4, 1)),       # by shape: route S
+    (14527, 20, None, "_direct", ()),   # above every slice: route D
+    (8192, 0, None, "_direct", ()),     # no slot: route D
+    (8192, 20, (0, 0), "_direct", ()),  # forced route D
+    (1024, 20, (32, 3), "", (32, 3)),   # a given slice and split
+])
+def test_sum_wrapper_launches_the_route(monkeypatch, n, k, route, launched,
+                                        extra):
+    """The streaming forward's one launch on CUDA tensors (recorded in
+    place of the launch; meta tensors, no card): ``gather_sum`` with the
+    slice and splits last, or ``gather_sum_direct`` without them; no torch
+    op that reduces or computes."""
+    calls = []
+    monkeypatch.setattr(GS._lib, "launch",
+                        lambda kernel, device, *args: calls.append(
+                            (kernel, args)))
+    monkeypatch.setattr(GS._lib, "check_inputs",
+                        lambda name, specs: torch.device("meta"))
+    monkeypatch.setattr(GS, "_sm_count", lambda index: 132)
+    b, c = 4, 128
+    h = torch.empty((b, n, c), device="meta")
+    idx = torch.empty((b, n, k), dtype=torch.int32, device="meta")
+    mask = torch.empty((b, n, k), dtype=torch.bool, device="meta")
+    with _Calls() as seen:
+        out = GS._gather_sum_fwd(h, idx, mask, route)
+    assert not seen.names & _COMPUTE, seen.names & _COMPUTE
+    assert out.shape == h.shape and out.dtype == torch.float32
+    assert [(name, args[4:]) for name, args in calls] == [
+        ("gather_sum" + launched, (b, n, c, k) + extra)]
+
+
 @pytest.mark.parametrize("n,route,launched,extra", [
     (1024, None, "", None),          # by shape: route S, max_slice's
     (8192, None, "", None),          # large clouds: 16-byte rows

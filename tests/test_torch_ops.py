@@ -133,16 +133,18 @@ def test_wls_split_routes():
 
 
 def test_wls_split_constants_match_cuda():
-    """The mirror's constants are ``csrc/wls.cu``'s: the points of a block,
+    """The mirror's constants are the split route's (``csrc/wls_split.cuh``,
+    shared by ``wls.cu`` and ``fused_build.cu``): the points of a block,
     the most warps, the most slots a warp holds, and the block's shared
-    memory (``split_smem``: 21 sums of 4 bytes a point
-    and warp)."""
+    memory (``split_smem``: 21 sums of 4 bytes a point and warp); the fused
+    build's block (``fused_smem``: those sums and its [4][32][K] output
+    tile) within the default 48 KB at every K the split route takes."""
     import re
     from pathlib import Path
 
     wf = importlib.import_module("deltaconv_tpu_torch.ops.wls_fused")
-    src = (Path(wf.__file__).resolve().parent.parent / "csrc"
-           / "wls.cu").read_text()
+    csrc = Path(wf.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "wls_split.cuh").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
@@ -156,6 +158,14 @@ def test_wls_split_constants_match_cuda():
             .replace("sizeof(float)", "4"))
     for s in range(1, wf.WLS_MAX_SLICES + 1):
         assert eval(expr, {"S": s, "kPoints": wf.WLS_POINTS}) == wf.wls_smem(s)
+    fused = re.search(r"inline size_t fused_smem\(int S, int K\) \{\s*"
+                      r"return split_smem\(S\) \+ ([^;]+);",
+                      (csrc / "fused_build.cu").read_text()).group(1)
+    tile = (fused.replace("(size_t)", "").replace("sizeof(float)", "4"))
+    for k in range(1, wf.WLS_MAX_SLICES * wf.WLS_EDGES + 1):
+        s = wf.wls_split(k)[0]
+        assert s and wf.wls_smem(s) + eval(
+            tile, {"K": k, "kPoints": wf.WLS_POINTS}) <= wf.WLS_SMEM_MAX
 
 
 @pytest.mark.parametrize("bwd", [False, True], ids=["wls", "wls_bwd"])

@@ -240,8 +240,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "gather_max": 0, "gather_max_win": 0, "gather_max_bwd": 0,
         "gather_max_direct": 0, "gather_max_win_direct": 0,
         "gather_max_bf16_direct": 0, "gather_max_win_bf16_direct": 0,
-        "adjacency": 0, "gather_sum": 0, "gather_sum_bwd": 0,
-        "knn_topk": 0, "gather_max_affine": 0,
+        "adjacency": 0, "gather_sum": 0, "gather_sum_direct": 0,
+        "gather_sum_bwd": 0, "knn_topk": 0, "gather_max_affine": 0,
         "gather_max_affine_direct": 0, "gather_matmul_max": 0,
         "gather_matmul_max_kfold": 0,
         "gather_max_win_bf16": 0, "gather_max_bwd_bf16": 0,
@@ -262,7 +262,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
         "edge_delta_mlp_bwd": 0, "wls_bwd": 0, "wls_bwd_direct": 0,
         "densify_bwd": 0,
-        "fused_gather_wls": 0, "knn_topk_mean_dist": 0,
+        "fused_gather_wls": 0, "fused_gather_wls_direct": 0,
+        "knn_topk_mean_dist": 0,
             "knn_topk_rounds": 0, "gather_minmax": 0,
         "gather_minmax_bf16": 0, "gather_minmax_win": 0,
         "gather_minmax_win_bf16": 0, "gather_minmax_bwd": 0,

@@ -13,7 +13,12 @@ batch of edge planes:
   edges over S slices of E slots: S host threads, each one slice of every
   point in turn, their sums over K passed through a shared buffer between
   two barriers (``std::barrier``), as the kernel's warps pass them through
-  shared memory between two ``__syncthreads``.
+  shared memory between two ``__syncthreads``;
+- the fused eval build's walkers on ``GatherSrc`` (each edge's neighbour
+  rows gathered from the cloud's ``[N, 3]`` rows, its planes formed on the
+  fly): ``fused_split`` over S host threads as above (the row norm's sums
+  too), and ``wls_point`` over all K edges (the direct route), held
+  against ``fused_gather_wls_plain``.
 
 Tolerances, as on the card: the forward within 1e-5 absolute of
 ``wls_plain`` (FMA contraction and the K sums' order), the VJP's planes
@@ -144,6 +149,101 @@ extern "C" int host_wls_split(const float* edges, const float* ctg,
   return 0;
 }
 
+namespace {
+
+template <int E>
+void fused(const float* pos, const float* nrm, const float* xb,
+           const float* yb, const int* idx, const unsigned char* mask,
+           const float* avg, float* gc, float* dc, float* rn, int B, int N,
+           int K, int S, float kw, float reg) {
+  const long long plane = (long long)N * K;
+  std::vector<float> buf(S * wls::NA);
+  std::barrier<> bar(S);
+  std::vector<std::thread> slices;
+  for (int s = 0; s < S; ++s)
+    slices.emplace_back([&, s] {
+      HostSum sum{buf.data(), s, S, &bar};
+      for (int b = 0; b < B; ++b)
+        for (int n = 0; n < N; ++n) {
+          const long long cloud = (long long)b * N * 3;
+          const long long row = ((long long)b * N + n) * K;
+          const wls::GatherSrc src =
+              wls::gather_src(pos + cloud, nrm + cloud, xb + cloud,
+                              yb + cloud, idx + row, mask + row, N, avg[b]);
+          float* g = gc + b * 2 * plane + (long long)n * K;
+          float* d = dc + b * 2 * plane + (long long)n * K;
+          const float r = wls::fused_split<E>(
+              src, s, S, K, true, kw, reg, sum,
+              [&](int k, float g1, float g2, float d1, float d2) {
+                g[k] = g1;
+                g[plane + k] = g2;
+                d[k] = d1;
+                d[plane + k] = d2;
+              });
+          if (s == 0) rn[(long long)b * N + n] = r;
+        }
+    });
+  for (auto& t : slices) t.join();
+}
+
+}  // namespace
+
+// The fused eval build over S slices, or with S 0 through wls_point (the
+// direct route: one walker over all K edges, the row norm's sums in edge
+// order).
+extern "C" int host_fused(const float* pos, const float* nrm,
+                          const float* xb, const float* yb, const int* idx,
+                          const unsigned char* mask, const float* avg,
+                          float* gc, float* dc, float* rn, int B, int N, int K,
+                          int S, float kw, float reg) {
+  if (S > 0) {
+    switch ((K + S - 1) / S) {
+      case 1: fused<1>(pos, nrm, xb, yb, idx, mask, avg, gc, dc, rn, B, N, K,
+                       S, kw, reg); break;
+      case 2: fused<2>(pos, nrm, xb, yb, idx, mask, avg, gc, dc, rn, B, N, K,
+                       S, kw, reg); break;
+      case 3: fused<3>(pos, nrm, xb, yb, idx, mask, avg, gc, dc, rn, B, N, K,
+                       S, kw, reg); break;
+      case 4: fused<4>(pos, nrm, xb, yb, idx, mask, avg, gc, dc, rn, B, N, K,
+                       S, kw, reg); break;
+      case 5: fused<5>(pos, nrm, xb, yb, idx, mask, avg, gc, dc, rn, B, N, K,
+                       S, kw, reg); break;
+      default: return 1;
+    }
+    return 0;
+  }
+  const long long plane = (long long)N * K;
+  for (int b = 0; b < B; ++b)
+    for (int n = 0; n < N; ++n) {
+      const long long cloud = (long long)b * N * 3;
+      const long long row = ((long long)b * N + n) * K;
+      const wls::GatherSrc src =
+          wls::gather_src(pos + cloud, nrm + cloud, xb + cloud, yb + cloud,
+                          idx + row, mask + row, N, avg[b]);
+      float* g = gc + b * 2 * plane + (long long)n * K;
+      float* d = dc + b * 2 * plane + (long long)n * K;
+      float s1 = 0.0f, s2 = 0.0f;
+      wls::wls_point(
+          src, K, kw, reg,
+          [&](int k, float g1, float g2) {
+            g[k] = g1;
+            g[plane + k] = g2;
+            s1 += fabsf(g1);
+            s2 += fabsf(g2);
+          },
+          [&](int k, float& g1, float& g2) {
+            g1 = g[k];
+            g2 = g[plane + k];
+          },
+          [&](int k, float, float, float d1, float d2) {
+            d[k] = d1;
+            d[plane + k] = d2;
+          });
+      rn[(long long)b * N + n] = sqrtf(s1 * s1 + s2 * s2);
+    }
+  return 0;
+}
+
 extern "C" void host_wls_point(const float* edges, const float* ctg,
                                const float* ctd, float* g, float* d,
                                float* de, int B, int K, int N, float kw,
@@ -212,6 +312,8 @@ def harness(tmp_path_factory):
     so.host_wls_split.restype = _I
     so.host_wls_point.argtypes = [_P] * 6 + [_I] * 3 + [_F] * 2
     so.host_wls_point.restype = None
+    so.host_fused.argtypes = [_P] * 10 + [_I] * 4 + [_F] * 2
+    so.host_fused.restype = _I
     return so
 
 
@@ -235,13 +337,13 @@ def _run(so, edges, ctg=None, ctd=None, slices=0):
     return (g, d) if ctg is None else de
 
 
-def _edges(case, k, n=70, b=2, seed=0):
-    """Edge planes of ``b`` ellipsoid clouds of ``n`` points with their
-    normals, ``k`` neighbours: ``uniform``; ``masked`` (cloud 0's second
-    half padded, and one point whose every edge is masked, its weight sum
-    at the 1e-5 clamp);
-    ``duplicate`` (a neighbour at distance 0 of its point); ``flat`` (cloud
-    1 nearly flat, its normals up)."""
+def _cloud(case, k, n=70, b=2, seed=0):
+    """``b`` ellipsoid clouds of ``n`` points with their normals and
+    tangent frames and a kNN graph of ``k`` neighbours, as ``(pos, normal,
+    x_basis, y_basis, idx, mask)``: ``uniform``; ``masked`` (cloud 0's
+    second half padded, and one point whose every edge is masked, its
+    weight sum at the 1e-5 clamp); ``duplicate`` (a neighbour at distance 0
+    of its point); ``flat`` (cloud 1 nearly flat, its normals up)."""
     rng = np.random.default_rng(seed)
     pos = rng.standard_normal((b, n, 3)).astype(np.float32)
     pos /= np.linalg.norm(pos, axis=-1, keepdims=True)
@@ -265,6 +367,12 @@ def _edges(case, k, n=70, b=2, seed=0):
         mask = mask & pm[:, :, None]
         mask[1, 3] = False  # a point with no valid edge
     xb, yb = build_tangent_basis(nrm)
+    return pos, nrm, xb, yb, idx, mask
+
+
+def _edges(case, k, n=70, b=2, seed=0):
+    """The edge planes of :func:`_cloud`'s clouds."""
+    pos, nrm, xb, yb, idx, mask = _cloud(case, k, n, b, seed)
     return edge_planes(pos, nrm, xb, yb, idx, mask,
                        mask.any(dim=2).to(torch.float32)).contiguous()
 
@@ -341,3 +449,47 @@ def test_wls_split_fully_masked_point(harness):
     de = _run(harness, edges, ctg, ctd, 4)
     want = ops.wls_bwd_plain(edges, ctg, ctd, 1.0, 1e-3)
     _planes_close(de[1:, :, :, 3:4], want[1:, :, :, 3:4], 1e-4)
+
+
+def _fused(so, pos, nrm, xb, yb, idx, mask, avg, slices):
+    """The fused eval build of the header's walkers on ``GatherSrc``:
+    ``fused_split`` over ``slices`` slices, or ``wls_point`` (0)."""
+    b, n, k = idx.shape
+    gc = torch.full((b, 2, n, k), float("nan"))
+    dc = torch.full_like(gc, float("nan"))
+    rn = torch.full((b, n), float("nan"))
+    mask_u8 = mask.contiguous().view(torch.uint8)
+    assert so.host_fused(*(_ptr(t) for t in (pos, nrm, xb, yb, idx, mask_u8,
+                                             avg, gc, dc, rn)),
+                         b, n, k, slices, 1.0, 1e-3) == 0
+    return gc, dc, rn
+
+
+# (case, K, S): the fused build's split route at the model shapes (K=20 on
+# 4 slices, K=30 on 6), masked clouds at both, a hard neighbourhood, K not
+# a multiple of S, and the direct route (S 0) at K=20 and K=30.
+_FUSED_CASES = [("uniform", 20, 4), ("masked", 20, 4), ("uniform", 30, 6),
+                ("masked", 30, 6), ("duplicate", 20, 4), ("uniform", 13, 3),
+                ("masked", 20, 0), ("masked", 30, 0)]
+
+
+@pytest.mark.parametrize("case,k,slices", _FUSED_CASES)
+def test_fused_gather_split_matches_plain(harness, case, k, slices):
+    """The fused build's walker on gathered rows (``GatherSrc``) against
+    ``fused_gather_wls_plain``: the coefficients within 1e-5 absolute, the
+    row norms (sums of K |g| of up to ~10) within 1e-5 relative, as on the
+    card; a second call bit-equal."""
+    pos, nrm, xb, yb, idx, mask = _cloud(case, k)
+    valid = mask.float()
+    dist = (pos[:, :, None] - torch.gather(
+        pos[:, None].expand(-1, pos.shape[1], -1, -1), 2,
+        idx.long()[..., None].expand(-1, -1, -1, 3))).norm(dim=-1)
+    avg = ((dist * valid).sum(dim=(1, 2))
+           / valid.sum(dim=(1, 2)).clamp(min=1.0)).contiguous()
+    want = ops.fused_gather_wls_plain(pos, nrm, xb, yb, idx, mask, avg)
+    got = _fused(harness, pos, nrm, xb, yb, idx, mask, avg, slices)
+    for a, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    again = _fused(harness, pos, nrm, xb, yb, idx, mask, avg, slices)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

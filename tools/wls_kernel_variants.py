@@ -1,17 +1,21 @@
 """Design variants of the WLS split kernels (``deltaconv_tpu_torch/csrc/
-wls.cu``), built and timed side by side on one CUDA card.
+wls.cu``) and of the fused eval build's split kernel (``fused_build.cu``),
+built and timed side by side on one CUDA card.
 
-Each variant is the checkout's ``wls.cu`` and ``wls_body.cuh`` with a few
-text substitutions, compiled by ``nvcc`` into a library of its own under
+Each variant is the checkout's ``wls.cu``, ``fused_build.cu``,
+``wls_split.cuh`` and ``wls_body.cuh`` with a few text substitutions,
+compiled by ``nvcc`` into a library of its own under
 ``deltaconv_tpu_torch/_build/variants/`` and called through its C entry
-points (``dc_wls``, ``dc_wls_bwd``) on the same inputs. For each it prints
-the registers and spills that ``ptxas -v`` reports for every instance of
-the split kernels and their SASS instruction counts (``cuobjdump``),
-then, at the model shapes (B=32, N=1024, K=20; B=16, N=2048, K=30; B=4,
-N=8192, K=20; ellipsoid clouds, kNN graphs, cloud 0 40% padded), the
-device time of one call of each kernel (``chip_smoke.device_ms``) on the
-split route's warps and the deviation from the plain versions (forward:
-max abs error; VJP: the worst plane's error over its max).
+points (``dc_wls``, ``dc_wls_bwd``, ``dc_fused_gather_wls``) on the same
+inputs. For each it prints the registers and spills that ``ptxas -v``
+reports for every instance of the split kernels and their SASS
+instruction counts (``cuobjdump``), then, at the model shapes (B=32,
+N=1024, K=20; B=16, N=2048, K=30; B=4, N=8192, K=20; ellipsoid clouds,
+kNN graphs, cloud 0 40% padded), the device time of one call of each
+kernel (``chip_smoke.device_ms``) on the split route's warps and the
+deviation from the plain versions (forward: max abs error; VJP: the worst
+plane's error over its max; fused build: the worst output's error over
+its max, on the same clouds' packed kNN graph with every slot valid).
 
 Variants:
   this          the sources as they are;
@@ -20,7 +24,13 @@ Variants:
   bwd-rolled    the backward's loops over its slots not unrolled (its
                 per-slot arrays in local memory);
   bwd-168, bwd-128  the backward held to 168 or 128 registers;
-  fwd-free      the forward's register limit lifted.
+  fwd-free      the forward's register limit lifted;
+  fused-96      the fused build's split kernel held to the forward's 96
+                registers;
+  fused-direct-stores  the fused build's split kernel storing each
+                coefficient straight to its place in device memory (a
+                lane's K values contiguous, lanes K floats apart) in place
+                of the block's shared-memory tile and its row writes.
 
     python3 tools/wls_kernel_variants.py [variant ...]
 
@@ -50,6 +60,7 @@ OUT = ROOT / "deltaconv_tpu_torch" / "_build" / "variants"
 NVCC = "/usr/local/cuda/bin/nvcc"
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 FWD = "__maxnreg__(kFwdRegs)\n    wls_split_kernel"
+FUSED = "__launch_bounds__(kPoints * kMaxSlices)\n    fused_gather_wls_kernel("
 BWD = "__launch_bounds__(kPoints * kMaxSlices)\n    wls_split_bwd_kernel"
 # The slices' sums as first written: for each entry a loop over the
 # slices, which the compiler unrolled over the runtime S.
@@ -80,7 +91,27 @@ def _bwd_rolled(body: str) -> str:
         SLOT_LOOP, SLOT_LOOP.replace("unroll", "unroll 1"))
 
 
-# name -> (substitutions in wls.cu, transform of wls_body.cuh)
+# The fused split kernel's stores through its tile, and straight to memory.
+TILE_STORES = (
+    "      [&](int k, float g1, float g2, float d1, float d2) {\n"
+    "        mine[k] = g1;\n"
+    "        mine[tk + k] = g2;\n"
+    "        mine[2 * tk + k] = d1;\n"
+    "        mine[3 * tk + k] = d2;\n"
+    "      });\n")
+DIRECT_STORES = (
+    "      [&](int k, float g1, float g2, float d1, float d2) {\n"
+    "        const long long o = (b * 2 * N + n) * (long long)K + k;\n"
+    "        grad_coef[o] = g1;\n"
+    "        grad_coef[o + (long long)N * K] = g2;\n"
+    "        div_coef[o] = d1;\n"
+    "        div_coef[o + (long long)N * K] = d2;\n"
+    "      });\n")
+TILE_LOOP = "  for (int e = s * kPoints + lane; e < count; e += S * kPoints) {"
+NO_LOOP = "  for (int e = count; e < count; ++e) {"
+
+# name -> (substitutions in wls.cu, fused_build.cu or wls_split.cuh,
+# transform of wls_body.cuh)
 VARIANTS = {
     "this": ([], None),
     "sums-unrolled": ([(SUMS, SUMS_FIRST)], None),
@@ -89,7 +120,13 @@ VARIANTS = {
     "bwd-128": ([(BWD, "__maxnreg__(128)\n    wls_split_bwd_kernel")], None),
     "fwd-free": ([(FWD, "__launch_bounds__(kPoints * kMaxSlices)\n"
                         "    wls_split_kernel")], None),
+    "fused-96": ([(FUSED, "__maxnreg__(kFwdRegs)\n"
+                          "    fused_gather_wls_kernel(")], None),
+    "fused-direct-stores": ([(TILE_STORES, DIRECT_STORES),
+                             (TILE_LOOP, NO_LOOP)], None),
 }
+SOURCES = ("wls.cu", "fused_build.cu", "wls_split.cuh")
+KERNELS = r"(wls_split(?:_bwd)?_kernel|fused_gather_wls_kernel)ILi(\d)"
 SHAPES = (("cls", 32, 1024, 20), ("seg", 16, 2048, 30),
           ("large", 4, 8192, 20))
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -101,25 +138,26 @@ def build(name: str):
     subs, body_fn = VARIANTS[name]
     d = OUT / name
     d.mkdir(parents=True, exist_ok=True)
-    src = (CSRC / "wls.cu").read_text()
+    srcs = {f: (CSRC / f).read_text() for f in SOURCES}
     for old, new in subs:
-        if old not in src:
-            raise ValueError(f"{name}: {old!r} not in wls.cu")
-        src = src.replace(old, new)
+        where = [f for f, text in srcs.items() if old in text]
+        if len(where) != 1:
+            raise ValueError(f"{name}: {old!r} in {where}, not in one source")
+        srcs[where[0]] = srcs[where[0]].replace(old, new)
     body = (CSRC / "wls_body.cuh").read_text()
-    (d / "wls.cu").write_text(src)
+    for f, text in srcs.items():
+        (d / f).write_text(text)
     (d / "wls_body.cuh").write_text(body_fn(body) if body_fn else body)
     (d / "common.cuh").write_text((CSRC / "common.cuh").read_text())
     lib = d / "libwls.so"
     out = subprocess.run(
         [NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
-         str(lib), str(d / "wls.cu")], capture_output=True, text=True,
-        check=True)
+         str(lib), str(d / "wls.cu"), str(d / "fused_build.cu")],
+        capture_output=True, text=True, check=True)
     kernel, regs = None, []
     for line in out.stderr.splitlines():
-        m = re.search(r"Compiling entry function '\S*?"
-                      r"(wls_split(?:_bwd)?_kernel)ILi(\d)", line)
+        m = re.search(r"Compiling entry function '\S*?" + KERNELS, line)
         if m:
             kernel, spill = f"{m.group(1)}<{m.group(2)}>", 0
         elif "Compiling entry" in line:
@@ -135,8 +173,7 @@ def build(name: str):
                           text=True, check=True).stdout
     sizes, fn = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*?(wls_split(?:_bwd)?_kernel)ILi(\d)",
-                      line)
+        m = re.search(r"Function : \S*?" + KERNELS, line)
         if m:
             fn = f"{m.group(1)}<{m.group(2)}>"
             sizes[fn] = 0
@@ -150,7 +187,24 @@ def build(name: str):
     so = ctypes.CDLL(str(lib))
     so.dc_wls.argtypes = [_P] * 3 + [_I] * 4 + [_F] * 2 + [_I, _P]
     so.dc_wls_bwd.argtypes = [_P] * 4 + [_I] * 4 + [_F] * 2 + [_I, _P]
+    so.dc_fused_gather_wls.argtypes = [_P] * 10 + [_I] * 4 + [_F] * 2 + [
+        _I, _P]
     return so
+
+
+def fused_inputs(rng, b, n, k, dev):
+    """The fused build's inputs on ``b`` ellipsoid clouds of ``n`` points:
+    positions, normals, frames, the packed kNN graph (every slot valid)
+    and the clouds' mean neighbour distances."""
+    from deltaconv_tpu_torch.geometry import build_tangent_basis
+
+    clouds, normals = cs.ellipsoid_clouds(rng, [n] * b)
+    pos = torch.from_numpy(np.stack(clouds)).to(dev)
+    nrm = torch.from_numpy(np.stack(normals)).to(dev)
+    idx, md = ops.knn_topk(pos, k, True, return_mean_dist=True)
+    mask = torch.ones(idx.shape, dtype=torch.uint8, device=dev)
+    return (pos, nrm, *build_tangent_basis(nrm), idx, mask,
+            md.mean(dim=1).contiguous())
 
 
 def main(names):
@@ -159,8 +213,12 @@ def main(names):
     print(f"card: {cs.card_line()}", flush=True)
     libs = {name: build(name) for name in names}
     rng = np.random.default_rng(0)
+    frng = np.random.default_rng(1)  # the fused build's clouds
     wf = ops.wls_fused
     for label, b, n, k in SHAPES:
+        fused = fused_inputs(frng, b, n, k, dev)
+        fused_want = ops.fused_gather_wls_plain(*fused)
+        fused_out = tuple(torch.empty_like(t) for t in fused_want)
         edges = cs.wls_edges(rng, b, n, k, dev, masked=True)
         ctg = torch.randn((b, 2, k, n), device=dev)
         ctd = torch.randn((b, 2, k, n), device=dev)
@@ -191,6 +249,19 @@ def main(names):
                 parts.append(f"{'wls_bwd' if bwd else 'wls'} (S={s}) "
                              f"{cs.device_ms(call, 10):.4f} ms (error "
                              f"{err:.2e})")
+
+            def call(s=wf.wls_split(k)[0], so=so):
+                return so.dc_fused_gather_wls(
+                    *(t.data_ptr() for t in fused + fused_out), b, n, k, s,
+                    1.0, 1e-3, 0, stream)
+
+            if call():
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            err = max(cs.max_err(a, w) / float(w.abs().max())
+                      for a, w in zip(fused_out, fused_want))
+            parts.append(f"fused_gather_wls {cs.device_ms(call, 10):.4f} ms "
+                         f"(error {err:.2e} x max)")
             print(f"[{name}] {label} B={b} N={n} K={k}: " + "; ".join(parts),
                   flush=True)
 
