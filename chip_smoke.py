@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the sixty-seven CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the sixty-eight CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -277,7 +277,18 @@ first on ``sys.path``. It
 21. ``[kernels]`` of the operator build's backward and the fused eval
     build: wls_bwd (B=32, N=1024 and B=4, N=8192, K=20, uniform and
     masked; each of the 12 planes within 1e-4 x its max of autograd
-    through the plain WLS math), densify_bwd (bit-equal to
+    through the plain WLS math), coef_cotangent (the coefficients'
+    cotangent of every apply, a sampled product) at the same shapes and
+    graphs in both modes at one forward's apply widths (grad C = 3, 70,
+    192, 256; div 6, 128, 256), each entry within one f32 ulp of the
+    plain version or the f64 summation bound of the two f64 orders, a
+    second call bit-equal, the grad mode read through the strides of a
+    transposed cotangent bit-equal to its contiguous copy; ``[cotangent]``
+    times it at every one of those widths and shapes (CUDA events, device
+    time, bound) beside the parent's route for the same function (dense:
+    ``torch.matmul`` of the ``[B, 2, N, N]`` operator cotangent, then
+    densify_bwd; coefficient form: gather_rows + ``einsum``);
+    densify_bwd (bit-equal to
     ``torch.gather``), fused_gather_wls through its split route (by
     shape) and its direct route (``fused_gather_wls_direct``, forced),
     also at B=16, N=2048, K=30 (each within 1e-5 x max of its plain
@@ -304,12 +315,16 @@ first on ``sys.path``. It
     1e-5 and ``pos.grad``, ``normal.grad`` within 1e-3 x max; through the
     plain build the loss held and the gradients' deviation printed (the
     ~1e-6 WLS difference flips neighbour-max winners at near-ties);
-    wls_bwd, densify_bwd, scatter_rows and inverse_adjacency once a
-    backward (the plain build
+    gather_rows, wls_bwd, scatter_rows and inverse_adjacency once a
+    forward + backward, coef_cotangent once an apply (8) and densify_bwd
+    never: W carries no graph (the plain build
     only on the first batch and mode); the device and host time of forward
     + backward, the backward kernels' share and the peak memory;
 23. ``[pos-grad-large]``: the same in coefficient form at B=4, N=8192
-    with approximate kNN (wls_bwd once a backward, densify_bwd never);
+    with approximate kNN (gather_rows and wls_bwd once, coef_cotangent 8
+    times, densify_bwd never); then ``[densify-vjp]``: ``ops.densify_coefs``
+    differentiated alone (B=32, N=1024), densify_bwd once, bit-equal to its
+    plain version;
 24. ``[serve-fused-build]``: the production bf16 classifier served at
     B=32, N=1024 with its backbone's ``fused_eval_build`` on and off (a
     measurement of the backbone's route; the heads take no switch): the
@@ -373,8 +388,12 @@ first on ``sys.path``. It
     with their bounds and the plain versions' device time;
     ``ops.gather_sum_fwd`` at C=128 (B=32, N=1024; B=4, N=8192) and
     ``ops.fused_gather_wls`` (B=32, N=1024, K=20; B=16, N=2048, K=30) in
-    device time and by events, with their bounds) and
-    ``[device-times]`` on that checkout's
+    device time and by events, with their bounds; ``ops.gather_rows`` at
+    the build's [B, 9, K, N] (B=32, N=1024; B=16, N=2048, K=30; B=4,
+    N=8192), seg conv0's C=3 and a 4-rank shard's 16,384 rows against the
+    65,536-point table, in device time and by events, with their bounds)
+    and ``[device-times]`` (with the peak memory of the positions'
+    forward + backward) on that checkout's
     package (this script copied
     into its root) and on this tree, in turns: parent, this, this,
     parent, each a process of its own (``--phase compare``).
@@ -423,6 +442,7 @@ KNN_ROUNDS_SHAPES = ((4, 1024), (1, 1500))  # (B, N) of its checks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, an FMA as 2
 BF16_TC_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
+F64_OPS_PER_S = 34e12  # f64 outside the tensor cores (data sheet), FMA as 2
 # Thread instructions issued per second: 4 schedulers x 32 lanes per SM,
 # the same 128 lanes x 132 SMs x clock that gives 67 TFLOP/s as FMAs.
 # Any instruction (f32 add, integer, compare-select) takes one slot.
@@ -440,7 +460,8 @@ REPS = 30
 INNER = 5  # calls per timed sample
 SPIN_CYCLES = 2_000_000  # ~1 ms: the spin kernel that opens a traced window
 PROFILE_CALLS = 2  # calls of a profiled function in one traced window
-TRACE_TRIES = 3  # traces of device_ms before a trace with no kernel fails
+TRACE_TRIES = 6  # traces of device_ms before a trace with no kernel fails
+TRACE_PAUSE_S = 1.0  # between two such traces
 LOGIT_ATOL = 1e-3
 WLS_ATOL = 1e-5  # FMA contraction and K-sum order
 DENSIFY_ATOL = 1e-6  # duplicate columns may sum in another order
@@ -656,11 +677,27 @@ WLS_BWD_FLOPS_PER_EDGE = 580
 # build (the gather's VJP scatter_rows once), the coefficient form's (no
 # assembly: no densify_bwd; its forward's applies by route and the
 # gather plan as in serving), one forward of the fused eval build.
+# Every apply, dense or coefficient form, gives its coefficients their
+# cotangent by coef_cotangent (4 grads and 4 divs a forward); the dense
+# assembly's own VJP, densify_bwd, runs on no model path.
+APPLIES_PER_BACKWARD = {"coef_cotangent": 8, "densify_bwd": 0,
+                        "gather_rows": 1}
 POS_GRAD_PER_BACKWARD = {"wls_bwd": 1, "wls_bwd_direct": 0,
-                         "densify_bwd": 1, "scatter_rows": 1,
-                         "inverse_adjacency": 1}
+                         "scatter_rows": 1, "inverse_adjacency": 1,
+                         **APPLIES_PER_BACKWARD}
 POS_GRAD_LARGE_PER_BACKWARD = {"wls_bwd": 1, "wls_bwd_direct": 0,
-                               "densify_bwd": 0, **COEF_PER_FORWARD}
+                               **APPLIES_PER_BACKWARD, **COEF_PER_FORWARD}
+# coef_cotangent's record: its mode and width, on the dense shape.
+COT_RECORD = ("grad", 256)
+# gather_rows (#1) under --parent: (label, B, N, Nt, K, C), the model
+# paths' shapes: the operator build's [B, 9, K, N] at the classification,
+# segmentation and large-cloud shapes, seg conv0's edge tensor at C=3,
+# and a 4-rank shard's rows against the 65,536-point table.
+ROWS_SHAPES = (("cls build", B, N, N, K, 9),
+               ("seg build", SEG_B, SEG_N, SEG_N, SEG_K, 9),
+               ("seg conv0", SEG_B, SEG_N, SEG_N, SEG_K, 3),
+               ("large build", LARGE_B, LARGE_N, LARGE_N, K, 9),
+               ("shard table", 1, SHARD_N // 4, SHARD_N, K, 9))
 MINMAX_C = 256  # gather_minmax (f32), its backward (f32 and bf16)
 MINMAX_BF16_C = 128  # the bf16 forward bodies
 MINMAX_WIDTHS = (64, 128, 256)  # [nbr-minmax]: the conv widths, f32
@@ -805,6 +842,11 @@ KERNEL_META = {
                 "deltaconv_tpu/ops/wls_fused.py:212"),
     "densify_bwd": ("deltaconv_tpu_torch/csrc/densify.cu",
                     "deltaconv_tpu/ops/densify_op.py:281"),
+    # The sampled product that takes #6's place on the model paths (the
+    # dense applies' and the coefficient form's coefficient cotangent):
+    # its redesign, as absmax is #15's.
+    "coef_cotangent": ("deltaconv_tpu_torch/csrc/coef_cotangent.cu",
+                       "deltaconv_tpu/ops/densify_op.py:281"),
     "fused_gather_wls": ("deltaconv_tpu_torch/csrc/fused_build.cu",
                          "deltaconv_tpu/ops/fused_build.py:180"),
     # The direct route of the fused build (the earlier kernel, a route by
@@ -834,7 +876,8 @@ KERNEL_META = {
 # kernel outside any aten op (the profiler books it to them).
 AUTOGRAD_FUNCTIONS = ("_GatherMax", "_GatherMatmulMax", "_GatherSum",
                       "_GatherRows", "_CoefApplyGrad", "_CoefApplyDiv",
-                      "_EdgeDeltaMlp", "_Wls", "_Densify",
+                      "_EdgeDeltaMlp", "_Wls", "_Densify", "_GradApply",
+                      "_DivApply", "_GradApplyBackward", "_DivApplyBackward",
                       "_GatherMaxBackward", "_GatherMatmulMaxBackward",
                       "_GatherSumBackward", "_GatherRowsBackward",
                       "_CoefApplyGradBackward", "_CoefApplyDivBackward",
@@ -3796,7 +3839,7 @@ def path_device_times(seed, dev, card):
                                               make_train_step, sgd_momentum)
 
     rng = np.random.default_rng(seed + 15)
-    times = {}
+    times, peaks = {}, {}
 
     def forward(label, engine, *inputs):
         for _ in range(PATH_WARMUP):
@@ -3886,12 +3929,20 @@ def path_device_times(seed, dev, card):
 
         for _ in range(PATH_WARMUP):
             fwd_bwd()
-        times[f"{label} f32 forward + backward in the positions ({b} "
-              f"clouds)"] = device_ms(fwd_bwd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        what = (f"{label} f32 forward + backward in the positions ({b} "
+                f"clouds)")
+        times[what] = device_ms(fwd_bwd)
+        peaks[what] = peak
         del model, batch
     print("[device-times] device time of one call (profiler): " + "; ".join(
-        f"{label} {ms:.3f} ms" for label, ms in times.items())
-        + f"; card: {card}", flush=True)
+        f"{label} {ms:.3f} ms" + (f" (peak {peaks[label]:.3f} GiB)"
+                                  if label in peaks else "")
+        for label, ms in times.items()) + f"; card: {card}", flush=True)
 
 
 def kernel_times(seed, dev, card):
@@ -4028,8 +4079,66 @@ def kernel_times(seed, dev, card):
                 f"{wls_bound(edges, is_bwd)[0]:.4f}; plain "
                 f"{device_ms(plain, 2):.4f})")
         del edges, ctg, ctd
+    parts += gather_rows_times(rng, dev)
     print("[kernel-times] device ms of one call (profiler): "
           + "; ".join(parts) + f"; card: {card}", flush=True)
+
+
+def rows_inputs(rng, dev):
+    """``(label, table, idx)`` at each of ROWS_SHAPES: a kNN graph of
+    ellipsoid clouds (the shard's rows from the quantized bucketed kNN of
+    a 65,536-point cloud) and a random table."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.geometry import knn
+
+    for label, b, n, n_t, k, c in ROWS_SHAPES:
+        clouds, _ = ellipsoid_clouds(rng, [n_t] * b)
+        pos = torch.from_numpy(np.stack(clouds)).to(dev)
+        if n_t == n:
+            idx, _ = knn(pos, k)
+        else:
+            idx = ops.knn_topk_bucketed(pos[0], pos[0], k,
+                                        quantized=True)[None, :n]
+            idx = idx.contiguous()
+        yield label, torch.randn((b, n_t, c), device=dev), idx
+
+
+def check_rows_shapes(res, rng, dev):
+    """gather_rows bit-equal to its plain version at every one of
+    ROWS_SHAPES (:func:`rows_inputs`), and a second call too."""
+    from deltaconv_tpu_torch import ops
+
+    for label, table, idx in rows_inputs(rng, dev):
+        got = ops.gather_rows(table, idx)
+        err = max_err(got, ops.gather_rows_plain(table, idx))
+        res["gather_rows"]["max_abs_err"] = max(
+            res["gather_rows"]["max_abs_err"], err)
+        check(f"gather_rows {label} {tuple(table.shape)} K={idx.shape[-1]} "
+              f"rows={idx.shape[1]}",
+              torch.equal(got, ops.gather_rows_plain(table, idx))
+              and bits_equal(ops.gather_rows(table, idx), got),
+              f"bit-equal, and a second call, max_abs_err {err}")
+
+
+def gather_rows_times(rng, dev):
+    """``ops.gather_rows`` at ROWS_SHAPES (:func:`rows_inputs`): device
+    time, CUDA events and the bound (the table, idx and the output each
+    moved once), as ``[kernel-times]`` entries."""
+    from deltaconv_tpu_torch import ops
+
+    parts = []
+    for label, table, idx in rows_inputs(rng, dev):
+        (b, n_t, c), (_, n, k) = table.shape, idx.shape
+
+        def call(table=table, idx=idx):
+            return ops.gather_rows(table, idx)
+
+        bd = bound(nbytes(table, idx, call()))[0]
+        parts.append(f"gather_rows {label} B={b} N={n} Nt={n_t} K={k} C={c} "
+                     f"{device_ms(call, 5):.4f} (events {median_ms(call):.4f}"
+                     f"; bound {bd:.4f})")
+        del idx, table
+    return parts
 
 
 def matmul_kfold_phase(rng, dev):
@@ -6005,10 +6114,62 @@ def check_fused_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label):
                   f"{same}, launches {counts}")
 
 
+def cotangent_held(got, feat, ct, idx):
+    """``(held, entries that differ, worst ratio)`` of coef_cotangent's
+    output against its plain version: each entry within one f32 ulp of
+    the plain value or the f64 summation bound ``C 2^-52 sum_c |x_c
+    ct_c|`` (the kernel's f64 order against the einsum's), finite."""
+    from deltaconv_tpu_torch import ops
+
+    want = ops.coef_cotangent_plain(feat, ct, idx).double()
+    scale = ops.coef_cotangent_plain(feat.abs(), ct.abs(), idx).double()
+    ulp = torch.nextafter(want.abs().float(), torch.tensor(
+        float("inf"), device=want.device)).double() - want.abs()
+    tol = ulp + feat.shape[-1] * 2.0 ** -52 * scale
+    err = (got.double() - want).abs()
+    held = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    return (held, int((got.double() != want).sum()),
+            float((err / tol.clamp(min=1e-300)).max()))
+
+
+def check_cotangent_kernels(record, idx, label, dev):
+    """coef_cotangent in both modes at one forward's apply widths on this
+    graph (random f32 rows and cotangents): held by
+    :func:`cotangent_held`, a second call bit-equal, and the grad mode on
+    the transposed view of a ``[B, 2, N, C]`` cotangent (the dense
+    grad's, read through its strides) bit-equal to its contiguous copy."""
+    from deltaconv_tpu_torch import ops
+
+    b, n, _ = idx.shape
+    for mode, widths in zip(("grad", "div"), APPLY_WIDTHS):
+        for c in sorted(set(widths)):
+            fshape = (b, n, c) if mode == "grad" else (b, n, 2, c)
+            feat = torch.randn(fshape, device=dev)
+            planes = torch.randn((b, 2, n, c) if mode == "grad"
+                                 else (b, n, c), device=dev)
+            ct = planes.transpose(1, 2) if mode == "grad" else planes
+            got = ops.coef_cotangent(feat, ct, idx)
+            held, diff, worst = cotangent_held(got, feat, ct, idx)
+            same = bits_equal(ops.coef_cotangent(feat, ct, idx), got)
+            if mode == "grad":
+                same = same and bits_equal(
+                    ops.coef_cotangent(feat, ct.contiguous(), idx), got)
+            record("coef_cotangent", max_err(
+                got, ops.coef_cotangent_plain(feat, ct, idx)))
+            check(f"coef_cotangent {mode} {label} B={b} N={n} C={c}",
+                  held and same,
+                  f"{diff} of {got.numel()} entries differ from the plain "
+                  f"version, worst {worst:.3f} x (one f32 ulp + the f64 "
+                  f"summation bound); a second call and the contiguous "
+                  f"cotangent bit-equal {same}")
+            del feat, planes, ct, got
+
+
 def check_build_bwd_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label,
                             dev):
     """wls_bwd against autograd through the plain WLS math (each plane
-    within WLS_BWD_REL x its max); densify_bwd bit-equal to
+    within WLS_BWD_REL x its max); coef_cotangent
+    (:func:`check_cotangent_kernels`); densify_bwd bit-equal to
     ``torch.gather``; fused_gather_wls on both routes
     (:func:`check_fused_kernels`)."""
     from deltaconv_tpu_torch import ops
@@ -6028,6 +6189,8 @@ def check_build_bwd_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label,
           bool(torch.isfinite(got).all()) and rel <= WLS_BWD_REL and same,
           f"worst plane {rel:.3e} x its max <= {WLS_BWD_REL}, a second "
           f"call bit-equal {same}")
+    del edges, ctg, ctd
+    check_cotangent_kernels(record, idx, label, dev)
     if n > N:
         return
     dwg = torch.randn((b, 2, n, n), device=dev)
@@ -6039,7 +6202,7 @@ def check_build_bwd_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label,
     check(f"densify_bwd {label}",
           all(torch.equal(g, w) for g, w in zip(got, want)),
           f"bit-equal, max_abs_err {err}")
-    del dwg, dwd, edges
+    del dwg, dwd
     check_fused_kernels(record, pos, nrm, xb, yb, idx, nbr_mask, label)
 
 
@@ -6085,6 +6248,8 @@ def build_bwd_kernel_phase(res, rng, dev, card):
         idx, nbr_mask = knn(lpos, K, mask)
         if mask is not None:
             nbr_mask = nbr_mask & mask[:, :, None]
+        else:
+            lidx = idx
         check_build_bwd_kernels(record, lpos, lnrm, lxb, lyb, idx, nbr_mask,
                                 label, dev)
     del lpos, lnrm, lxb, lyb, pmask
@@ -6166,7 +6331,105 @@ def build_bwd_kernel_phase(res, rng, dev, card):
     res["knn_topk_mean_dist"]["library_ms"] = median_ms(knn_library)
     for name in ("densify_bwd", "knn_topk_mean_dist"):
         print(f"  {name}: library call {res[name]['library_ms']:.4f} ms")
+    del dwg, dwd, index
+    time_cotangent(res, idx, lidx, dev, card)
     time_fused_routes(res, fused_inputs, dev, card)
+
+
+def cotangent_bound(feat, ct, idx):
+    """coef_cotangent's bound: ``feat``, ``ct``, ``idx`` read once and the
+    ``[B, N, K, 2]`` f32 output written once; 2 C f64 FMAs an edge."""
+    b, n, k = idx.shape
+    c = feat.shape[-1]
+    return bound(nbytes(feat, ct, idx) + b * n * k * 2 * 4,
+                 4.0 * c * b * n * k, F64_OPS_PER_S)
+
+
+def time_cotangent(res, idx, lidx, dev, card):
+    """``[cotangent]``: coef_cotangent at one forward's apply widths, both
+    modes, at the dense path's shape (``idx``: B=32, N=1024) and the
+    coefficient form's (``lidx``: B=4, N=8192), contiguous cotangents, the
+    points in index order, by CUDA events and in
+    device time, beside its bound and the parent's route for the same
+    function: on the dense shape the product ``dW = ct @ x^T`` (the
+    ``[B, 2, N, N]`` cotangent, ``torch.matmul``) then ``densify_bwd``
+    (which gathers two such cotangents, as once a backward it did), on the
+    coefficient form's ``gather_rows`` of the f32 rows then the
+    ``einsum``. The record (COT_RECORD, dense shape) also takes the plain
+    version's time."""
+    from deltaconv_tpu_torch import ops
+
+    print(f"[cotangent] coef_cotangent per call: CUDA events (median of "
+          f"{REPS} samples of {INNER} calls), device time (profiler), "
+          f"bound; the parent's route for the same function; card: {card}",
+          flush=True)
+    for label, ix in (("dense", idx), ("large", lidx)):
+        b, n, k = ix.shape
+        for mode, widths in zip(("grad", "div"), APPLY_WIDTHS):
+            for c in sorted(set(widths)):
+                feat = torch.randn((b, n, c) if mode == "grad"
+                                   else (b, n, 2, c), device=dev)
+                planes = torch.randn((b, 2, n, c) if mode == "grad"
+                                     else (b, n, c), device=dev)
+                # Contiguous, as the model paths' cotangents come.
+                ct = (planes.transpose(1, 2).contiguous() if mode == "grad"
+                      else planes)
+
+                def call(feat=feat, ct=ct, ix=ix):
+                    return ops.coef_cotangent(feat, ct, ix)
+
+                ms, dms = median_ms(call), device_ms(call, 5)
+                bd = cotangent_bound(feat, ct, ix)
+                if label == "dense":
+                    parent = dense_cotangent_route(feat, planes, ix, mode)
+                else:
+                    parent = coef_cotangent_route(feat, ct, ix, mode)
+                pms = median_ms(parent, 10)
+                print(f"  {label} {mode} B={b} N={n} K={k} C={c}: {ms:.4f} "
+                      f"ms ({dms:.4f} device); bound {bd[0]:.4f} ms "
+                      f"({bd[1]}), {bd[0] / dms:.2f} of it; parent's route "
+                      f"{pms:.4f} ms", flush=True)
+                if label == "dense" and (mode, c) == COT_RECORD:
+                    res["coef_cotangent"].update(
+                        ms=ms, bound=bd, library_ms=pms,
+                        plain_ms=median_ms(lambda: ops.coef_cotangent_plain(
+                            feat, ct, ix), 5))
+                del feat, planes, ct, parent
+
+
+def dense_cotangent_route(feat, planes, idx, mode):
+    """The parent's dense route for coef_cotangent's function: the
+    apply's operator cotangent ``[B, 2, N, N]`` by ``torch.matmul`` (grad
+    ``ct_e @ x^T``; div ``ct @ v_e^T``), then ``densify_bwd`` of it."""
+    from deltaconv_tpu_torch import ops
+
+    if mode == "grad":
+        def call():
+            dw = torch.matmul(planes, feat.transpose(1, 2)[:, None])
+            return ops.densify_bwd(idx, dw, dw)
+    else:
+        vt = feat.permute(0, 2, 3, 1)  # [B, 2, C, N]
+
+        def call():
+            dw = torch.matmul(planes[:, None], vt)
+            return ops.densify_bwd(idx, dw, dw)
+    return call
+
+
+def coef_cotangent_route(feat, ct, idx, mode):
+    """The parent's coefficient-form route: ``gather_rows`` of the f32
+    rows (``[B, C', K, N]``), then the ``einsum`` with the cotangent."""
+    from deltaconv_tpu_torch import ops
+
+    b, n, k = idx.shape
+    c = feat.shape[-1]
+    if mode == "grad":
+        return lambda: torch.einsum("bckn,bndc->bnkd",
+                                    ops.gather_rows(feat, idx), ct)
+    flat = feat.reshape(b, n, 2 * c)
+    return lambda: torch.einsum(
+        "bdckn,bnc->bnkd", ops.gather_rows(flat, idx).view(b, 2, c, k, n),
+        ct)
 
 
 def time_fused_routes(res, inputs, dev, card):
@@ -6255,9 +6518,12 @@ def device_ms(fn, reps=3) -> float:
 
     fn()
     torch.cuda.synchronize()
-    # A trace that recorded no kernel at all (seen once on the card) is a
-    # failed trace, not a measurement: trace again.
-    for _ in range(TRACE_TRIES):
+    # A trace that recorded no kernel at all (seen on the card, three in a
+    # row once) is a failed trace, not a measurement: trace again, after a
+    # pause.
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            time.sleep(TRACE_PAUSE_S)
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(SPIN_CYCLES)
@@ -6358,6 +6624,7 @@ def compare_pos_grads(label, batch, seed, dev, train, per_backward,
                                      reset_launch_counts)
     from deltaconv_tpu_torch.ops import (coef_apply_div_plain,
                                          coef_apply_grad_plain,
+                                         coef_cotangent_plain,
                                          densify_coefs_plain,
                                          gather_max_plain, gather_rows_plain,
                                          gather_sum_plain)
@@ -6366,7 +6633,8 @@ def compare_pos_grads(label, batch, seed, dev, train, per_backward,
         gather_rows=gather_rows_plain, wls=_plain_vjp_wls(),
         densify_coefs=densify_coefs_plain, gather_max=gather_max_plain,
         gather_sum=gather_sum_plain, coef_apply_grad=coef_apply_grad_plain,
-        coef_apply_div=coef_apply_div_plain)
+        coef_apply_div=coef_apply_div_plain,
+        coef_cotangent=coef_cotangent_plain)
     reset_launch_counts()
     with deterministic_torch():
         lk, gpk, gnk = pos_grad_once(batch, seed, dev, KERNEL_OPS, train,
@@ -6458,13 +6726,51 @@ def pos_grad_phase(rng, seed, dev, card, large=False):
     total, ours = profile(tag, "one eval forward + backward", step, t)
     # Each kernel by the name of its CUDA kernel function in the trace.
     for name, fn in (("wls_bwd", "wls_split_bwd_kernel"),
-                     ("densify_bwd", "densify_bwd_kernel"),
+                     ("coef_cotangent", "cotangent_"),
+                     ("gather_rows", "gather_rows_kernel"),
                      ("scatter_rows", "scatter_rows_kernel"),
                      ("inverse_adjacency", "inverse_adjacency_kernel")):
         us = sum(r[0] for r in ours if f"::{fn}" in r[2])
         print(f"[{tag}] {name}: {us / 1e3:.3f} ms, {us / max(total, 1e-9):.4f}"
               f" of the device time, {us / max(sum(r[0] for r in ours), 1e-9):.3f}"
               f" of the port's kernels")
+    return counts
+
+
+def densify_vjp_phase(rng, dev):
+    """``[densify-vjp]``: the f32 dense assembly's VJP, which no model path
+    runs since the dense applies differentiate their coefficients by
+    ``coef_cotangent``: ``ops.densify_coefs`` of the reference
+    classifier's operator coefficients (B=32, N=1024, K=20, a kNN graph)
+    that require grad, backward with random ``[B, 2, N, N]`` cotangents:
+    ``densify`` and ``densify_bwd`` once each, the coefficients' gradients
+    bit-equal to ``densify_bwd_plain``. Its clouds come from a generator
+    spawned off ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import build_tangent_basis, knn
+
+    (rng,) = rng.spawn(1)
+    clouds, normals = ellipsoid_clouds(rng, [N] * B)
+    pos = torch.from_numpy(np.stack(clouds)).to(dev)
+    nrm = torch.from_numpy(np.stack(normals)).to(dev)
+    idx, nbr_mask = knn(pos, K)
+    gd = ops.build_grad_div_fused(pos, nrm, *build_tangent_basis(nrm), idx,
+                                  nbr_mask)
+    gc = gd.grad_coef.clone().requires_grad_()
+    dc = gd.div_coef.clone().requires_grad_()
+    dwg = torch.randn((B, 2, N, N), device=dev)
+    dwd = torch.randn((B, 2, N, N), device=dev)
+    reset_launch_counts()
+    torch.autograd.backward(ops.densify_coefs(idx, gc, dc), (dwg, dwd))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check("[densify-vjp] densify and densify_bwd once each",
+          counts["densify"] == 1 and counts["densify_bwd"] == 1,
+          f"{counts['densify']}, {counts['densify_bwd']}")
+    want = ops.densify_bwd_plain(idx, dwg, dwd)
+    check("[densify-vjp] the coefficients' gradients against the plain "
+          "version", torch.equal(gc.grad, want[0])
+          and torch.equal(dc.grad, want[1]), "bit-equal")
     return counts
 
 
@@ -6794,6 +7100,7 @@ def main():
         marks.append((name, time.perf_counter()))
 
     res = kernel_phase(rng, dev, card)
+    check_rows_shapes(res, rng.spawn(1)[0], dev)
     mark("kernels")
     serve = serve_phase(rng, args.seed, dev, card)
     clouds = serving_clouds(rng)  # the same for bf16 and int8 serving
@@ -6830,6 +7137,7 @@ def main():
     mark("segmentation training")
     pos_grad = pos_grad_phase(rng, args.seed, dev, card)
     pos_grad_phase(rng, args.seed, dev, card, large=True)
+    densify_vjp = densify_vjp_phase(rng, dev)
     mark("positions' gradients")
     fused_build = serve_fused_build_phase(clouds, args.seed, dev, card)
     mark("fused eval build")
@@ -6890,7 +7198,8 @@ def main():
                              (("knn_topk_table_q",), shard_seg_bf16),
                              (SEG_TRAIN_KERNELS, seg_train),
                              (SEG_TRAIN_F32_KERNELS, seg_train_f32),
-                             (("wls_bwd", "densify_bwd"), pos_grad),
+                             (("wls_bwd", "coef_cotangent"), pos_grad),
+                             (("densify_bwd",), densify_vjp),
                              (("knn_topk_mean_dist", "fused_gather_wls"),
                               fused_build),
                              (MINMAX_KERNELS, minmax),

@@ -11,12 +11,30 @@
 // point tile to 128 lanes; a CUDA thread loads the f32 row entry
 // directly, so the gather is exact and needs no padding.
 //
-// Bound on the H100: memory. A thread owns one (b, k, n) and writes its
-// C outputs, with n the fastest index across the warp, so every store
-// of a warp is coalesced; it reads its index once and the C contiguous
-// floats of the neighbour's row. The table of one cloud (N * C * 4
-// bytes, 36 KB at N=1024, C=9) stays in L1/L2. An index outside
-// [0, Nt) gathers 0, as a one-hot row with no match does on the TPU.
+// Bound on the H100: memory, the write of out (23.6 MB of the 27 MB the
+// operator build's gather moves at B=32, N=1024, K=20, C=9). Its rows are
+// narrow (C = 9 for the build, 3 for conv0's centralized edge tensor), so
+// what costs is the reads: a thread a (b, k, n) read idx at a stride of K
+// ints (4 useful bytes a 32-byte sector, each sector re-read by K blocks)
+// and its neighbour's row as C scalar loads from L1, 32 rows a warp load.
+// Here a block takes one cloud and a tile of 128 consecutive points:
+// 1. it reads the tile's [128, K] indices once, coalesced (16-byte loads
+//    where aligned), into shared memory transposed to [K][128 + 4];
+// 2. where the cloud's table fits (Nt * C * 4 bytes up to 96 KB: 36 KB at
+//    N=1024, C=9; 24 KB at N=2048, C=3), it stages it in shared memory by
+//    cp.async (16 bytes a thread where aligned), so that the rows' random
+//    reads cost shared-memory bank conflicts, not L1 lines;
+// 3. a warp takes a slot k, a lane 4 consecutive points: it reads their
+//    4 indices as one 16-byte shared load, loads 16 channels of their 4
+//    rows, then writes each channel's 4 outputs out[b, c, k, n : n + 4]
+//    as one 16-byte store (scalar stores where N % 4 != 0), so a warp
+//    writes 512 contiguous bytes a channel.
+// A table above 96 KB (N=8192's build, 295 KB; the point-shard table)
+// takes the direct route, the earlier kernel: a thread a (b, k, n), its
+// row read through L1/L2. A form of the tile kernel that read such rows
+// through the read-only path was tried and was not faster there.
+// An index outside [0, Nt) gathers 0, as a one-hot row with no match does
+// on the TPU. Bit-equal to the plain version: it copies values.
 //
 // Its transpose, the scatter of edge rows:
 //   out[b, m, c] = sum over (n, k) with idx[b, n, k] == m of g[b, c, k, n]
@@ -70,10 +88,131 @@
 
 namespace {
 
-__global__ void gather_rows_kernel(const float* __restrict__ table,
-                                   const int* __restrict__ idx,
-                                   float* __restrict__ out, int N, int Nt,
-                                   int C, int K) {
+constexpr int kRowsTile = 128;     // points a block
+constexpr int kRowsThreads = 256;  // a warp a slot at a time, 4 points a lane
+constexpr int kRowsChans = 16;  // channels whose loads precede their stores
+constexpr int kRowsLd = kRowsTile + 4;  // ints a slot of the staged indices
+constexpr int kRowsStageMax = 96 * 1024;  // bytes of a staged table
+constexpr size_t kRowsSmemMax = 227 * 1024;  // a block's shared memory
+
+__device__ __forceinline__ void rows_cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void rows_cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Shared memory of a block: the tile's indices, then the staged table.
+inline size_t gather_rows_smem(int K, int Nt, int C) {
+  return ((size_t)K * kRowsLd * 4 + 15) / 16 * 16 + (size_t)Nt * C * 4;
+}
+
+// The staged route: kVec: N % 4 == 0 (every output row 16-byte aligned).
+template <bool kVec>
+__global__ void __launch_bounds__(kRowsThreads)
+    gather_rows_kernel(const float* __restrict__ table,
+                       const int* __restrict__ idx, float* __restrict__ out,
+                       int N, int Nt, int C, int K) {
+  extern __shared__ __align__(16) unsigned char rows_smem[];
+  int* s_idx = reinterpret_cast<int*>(rows_smem);  // [K][kRowsLd]
+  float* s_tab = reinterpret_cast<float*>(
+      rows_smem + ((size_t)K * kRowsLd * 4 + 15) / 16 * 16);
+  const long long b = blockIdx.y;
+  const int n0 = blockIdx.x * kRowsTile;
+  const int T = min(kRowsTile, N - n0);
+  const float* tb = table + b * Nt * C;
+  const int total = Nt * C;
+  if (((uintptr_t)tb & 15) == 0) {
+    const int v4 = total / 4;
+    for (int i = threadIdx.x; i < v4; i += kRowsThreads)
+      rows_cp_async16(s_tab + 4 * i, tb + 4 * i);
+    for (int i = 4 * v4 + threadIdx.x; i < total; i += kRowsThreads)
+      s_tab[i] = tb[i];
+  } else {
+    for (int i = threadIdx.x; i < total; i += kRowsThreads) s_tab[i] = tb[i];
+  }
+  // The tile's indices, [T, K] contiguous in idx, transposed.
+  const int* ib = idx + (b * N + n0) * K;
+  const int TK = T * K;
+  if (((uintptr_t)ib & 15) == 0) {
+    const int v4 = TK / 4;
+    for (int i = threadIdx.x; i < v4; i += kRowsThreads) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(ib) + i);
+      const int v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = 4 * i + u, n = e / K;
+        s_idx[(e - n * K) * kRowsLd + n] = v[u];
+      }
+    }
+    for (int e = 4 * v4 + threadIdx.x; e < TK; e += kRowsThreads) {
+      const int n = e / K;
+      s_idx[(e - n * K) * kRowsLd + n] = __ldg(ib + e);
+    }
+  } else {
+    for (int e = threadIdx.x; e < TK; e += kRowsThreads) {
+      const int n = e / K;
+      s_idx[(e - n * K) * kRowsLd + n] = __ldg(ib + e);
+    }
+  }
+  rows_cp_async_wait_all();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = 4 * lane;  // this lane's first point of the tile
+  if (n >= T) return;
+  const int np = min(4, T - n);
+  const long long plane = (long long)K * N;  // floats between channels
+  for (int k = warp; k < K; k += kRowsThreads / 32) {
+    int j[4];
+    if (np == 4) {
+      const int4 q = *reinterpret_cast<const int4*>(s_idx + k * kRowsLd + n);
+      j[0] = q.x; j[1] = q.y; j[2] = q.z; j[3] = q.w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        j[u] = u < np ? s_idx[k * kRowsLd + n + u] : -1;
+    }
+    bool ok[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) ok[u] = (unsigned)j[u] < (unsigned)Nt;
+    float* dst = out + (b * C * K + k) * N + n0 + n;  // + c * plane
+    // kRowsChans channels at a time: all their loads, then the stores.
+    for (int c0 = 0; c0 < C; c0 += kRowsChans) {
+      float v[kRowsChans][4];
+#pragma unroll
+      for (int cc = 0; cc < kRowsChans; ++cc) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[cc][u] = ok[u] && c0 + cc < C ? s_tab[j[u] * C + c0 + cc] : 0.0f;
+      }
+#pragma unroll
+      for (int cc = 0; cc < kRowsChans; ++cc) {
+        if (c0 + cc >= C) break;
+        float* d = dst + (c0 + cc) * plane;
+        if (kVec && np == 4) {
+          *reinterpret_cast<float4*>(d) =
+              make_float4(v[cc][0], v[cc][1], v[cc][2], v[cc][3]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (u < np) d[u] = v[cc][u];
+        }
+      }
+    }
+  }
+}
+
+// The direct route (the earlier kernel), for tables above kRowsStageMax:
+// a thread a (b, k, n), n fastest across the warp, its row's C floats
+// through L1/L2.
+__global__ void gather_rows_direct_kernel(const float* __restrict__ table,
+                                          const int* __restrict__ idx,
+                                          float* __restrict__ out, int N,
+                                          int Nt, int C, int K) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const int k = blockIdx.y;
   const long long b = blockIdx.z;
@@ -84,6 +223,22 @@ __global__ void gather_rows_kernel(const float* __restrict__ table,
   float* dst = out + (b * C * K + k) * N + n;  // + c * K * N
   const long long stride = (long long)K * N;
   for (int c = 0; c < C; ++c) dst[c * stride] = ok ? src[c] : 0.0f;
+}
+
+template <bool kVec>
+int launch_gather_rows(const float* table, const int* idx, float* out, int B,
+                       int N, int Nt, int C, int K, size_t smem,
+                       cudaStream_t st) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gather_rows_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((N + kRowsTile - 1) / kRowsTile, B);
+  gather_rows_kernel<kVec><<<grid, kRowsThreads, smem, st>>>(table, idx, out,
+                                                             N, Nt, C, K);
+  return (int)cudaGetLastError();
 }
 
 // -- inverse adjacency --------------------------------------------------
@@ -468,10 +623,20 @@ extern "C" int dc_gather_rows(const void* table, const void* idx, void* out,
                               void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C * K == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* t = (const float*)table;
+  const int* ix = (const int*)idx;
+  float* o = (float*)out;
+  const size_t smem = gather_rows_smem(K, Nt, C);
+  if ((long long)Nt * C * 4 <= kRowsStageMax && smem <= kRowsSmemMax) {
+    return N % 4 == 0 && ((uintptr_t)out & 15) == 0
+               ? launch_gather_rows<true>(t, ix, o, B, N, Nt, C, K, smem, st)
+               : launch_gather_rows<false>(t, ix, o, B, N, Nt, C, K, smem,
+                                           st);
+  }
   const int threads = 128;
   const dim3 grid((N + threads - 1) / threads, K, B);
-  gather_rows_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)table, (const int*)idx, (float*)out, N, Nt, C, K);
+  gather_rows_direct_kernel<<<grid, threads, 0, st>>>(t, ix, o, N, Nt, C, K);
   return (int)cudaGetLastError();
 }
 

@@ -35,6 +35,17 @@ in the quantized domain: ``nbr_max`` through ``gather_max_int8``,
 ``nbr_matmul_max`` through ``int8_quantize``, ``gather_matmul_max_int8``
 and the dequantization, without the epilogue.
 
+Differentiated in their coefficients (gradients for positions and
+normals, f32 only: the model refuses bf16 and int8 there), the f32
+applies are autograd Functions of their input and the coefficients:
+:func:`densify` builds ``W`` without a graph and keeps the coefficients
+(``grad_coef``, ``div_coef``); the forward is the same ``torch.matmul``
+on ``W``, the input's cotangent ``W^T @ ct`` by ``torch.matmul``, and
+the coefficients' cotangent ``ops.coef_cotangent`` of the input and the
+cotangent, a sampled product that forms only the edges' entries: no
+``[B, 2, N, N]`` cotangent is formed, added or copied. Every apply's
+``[B, N, K, 2]`` cotangent reaches the coefficients through autograd.
+
 ``scale`` (``[B]`` f32, or None) is the fused eval build's deferred
 per-cloud normalization (its operators are unnormalized): ``grad`` and
 ``div`` multiply their input by the cloud's scale in f32 and cast it
@@ -53,6 +64,55 @@ from .grad_div import GradDiv
 from .nbr_ops import NeighborAggregations
 
 __all__ = ["DenseGradDiv", "densify"]
+
+
+class _GradApply(torch.autograd.Function):
+    """``grad`` on f32 operators differentiated in the coefficients:
+    ``x [B, N, C] -> [B, N, 2, C]``; the backward gives ``x`` the
+    products ``W[:, d]^T @ ct[:, :, d]`` summed over ``d`` and the
+    coefficients ``ops.coef_cotangent(x, ct, idx)``."""
+
+    @staticmethod
+    def forward(ctx, x, coef, w, idx, ops):
+        x = x.detach()
+        ctx.save_for_backward(x, w, idx)
+        ctx.ops = ops
+        return torch.matmul(w, x[:, None]).transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w, idx = ctx.saved_tensors
+        dx = dc = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(w.transpose(2, 3), ct.transpose(1, 2)).sum(1)
+        if ctx.needs_input_grad[1]:
+            dc = ctx.ops.coef_cotangent(x, ct, idx)
+        return dx, dc, None, None, None
+
+
+class _DivApply(torch.autograd.Function):
+    """``div`` on f32 operators differentiated in the coefficients:
+    ``v [B, N, 2, C] -> [B, N, C]``; the backward gives ``v`` the
+    products ``W[:, d]^T @ ct`` and the coefficients
+    ``ops.coef_cotangent(v, ct, idx)``."""
+
+    @staticmethod
+    def forward(ctx, v, coef, w, idx, ops):
+        v = v.detach()
+        ctx.save_for_backward(v, w, idx)
+        ctx.ops = ops
+        return torch.matmul(w[:, 0], v[:, :, 0]) + torch.matmul(w[:, 1],
+                                                                v[:, :, 1])
+
+    @staticmethod
+    def backward(ctx, ct):
+        v, w, idx = ctx.saved_tensors
+        dv = dc = None
+        if ctx.needs_input_grad[0]:
+            dv = torch.matmul(w.transpose(2, 3), ct[:, None]).transpose(1, 2)
+        if ctx.needs_input_grad[1]:
+            dc = ctx.ops.coef_cotangent(v, ct, idx)
+        return dv, dc, None, None, None
 
 
 def _bmm_f32(a, b):
@@ -105,7 +165,9 @@ class DenseGradDiv(NeighborAggregations):
     scalar-stream max aggregations and the train-mode edge sums, which
     stay gathers) and the ``ops`` (kernels or plain versions) they go
     through; on the int8 form also the per-cloud dequantization scales
-    (``W ~= W_q * op_scale``), None otherwise."""
+    (``W ~= W_q * op_scale``), None otherwise; on a build differentiated
+    in its coefficients (f32) the coefficients, None otherwise, whose
+    cotangents the applies form without one of ``W``."""
 
     nbr_idx: torch.Tensor  # [B, N, K] int32
     nbr_mask: torch.Tensor  # [B, N, K] bool
@@ -115,6 +177,8 @@ class DenseGradDiv(NeighborAggregations):
     op_scale_grad: torch.Tensor = None  # [B] f32 (int8 form) or None
     op_scale_div: torch.Tensor = None  # [B] f32 (int8 form) or None
     scale: torch.Tensor = None  # [B] f32 deferred normalization, or None
+    grad_coef: torch.Tensor = None  # [B, N, K, 2] f32 with a graph, or None
+    div_coef: torch.Tensor = None  # [B, N, K, 2] f32 with a graph, or None
 
     def _scaled(self, x):
         """``x * scale`` per cloud, in f32, cast back to ``x``'s dtype."""
@@ -163,6 +227,9 @@ class DenseGradDiv(NeighborAggregations):
             s = self.op_scale_grad * sx
             out = acc.float() * s[:, None, None]
             return out.view(b, 2, n, -1).transpose(1, 2).to(x.dtype)
+        if _differentiated(self.grad_coef):
+            return _GradApply.apply(x, self.grad_coef, self.w_grad,
+                                    self.nbr_idx, self.ops)
         if self.w_grad.dtype == torch.float32:
             out = torch.matmul(self.w_grad, x[:, None].float())
             return out.transpose(1, 2).to(x.dtype)  # [B, N, 2, C]
@@ -181,6 +248,9 @@ class DenseGradDiv(NeighborAggregations):
                    + _int8_products(w[:, 1], vq[:, 1]))
             s = self.op_scale_div * sv
             return (acc.float() * s[:, None, None]).to(v.dtype)
+        if _differentiated(self.div_coef):
+            return _DivApply.apply(v, self.div_coef, w, self.nbr_idx,
+                                   self.ops)
         if w.dtype == torch.float32:
             vf = v.float()
             out = (torch.matmul(w[:, 0], vf[:, :, 0])
@@ -204,7 +274,21 @@ def densify(gd: GradDiv, ops, dtype=None) -> DenseGradDiv:
         return DenseGradDiv(nbr_idx=gd.nbr_idx, nbr_mask=gd.nbr_mask,
                             w_grad=w_grad, w_div=w_div, ops=ops,
                             op_scale_grad=s_grad, op_scale_div=s_div)
+    if dtype in (None, torch.float32) and _differentiated(gd.grad_coef,
+                                                         gd.div_coef):
+        # The applies differentiate the coefficients themselves (the
+        # sampled product); W carries no graph.
+        w_grad, w_div = ops.densify_coefs(gd.nbr_idx, gd.grad_coef.detach(),
+                                          gd.div_coef.detach(), dtype)
+        return DenseGradDiv(nbr_idx=gd.nbr_idx, nbr_mask=gd.nbr_mask,
+                            w_grad=w_grad, w_div=w_div, ops=ops,
+                            grad_coef=gd.grad_coef, div_coef=gd.div_coef)
     w_grad, w_div = ops.densify_coefs(gd.nbr_idx, gd.grad_coef, gd.div_coef,
                                       dtype)
     return DenseGradDiv(nbr_idx=gd.nbr_idx, nbr_mask=gd.nbr_mask,
                         w_grad=w_grad, w_div=w_div, ops=ops)
+
+
+def _differentiated(*coefs) -> bool:
+    return torch.is_grad_enabled() and any(
+        c is not None and c.requires_grad for c in coefs)

@@ -33,9 +33,10 @@ operators raises.
 Gradients for positions and normals (``pos.requires_grad_()``, as
 ``jax.grad`` of a loss in ``pos`` or ``normal``): in f32, dense or in
 coefficient form, the build runs under autograd, through the VJPs of its
-kernels (``scatter_rows`` for the gather, ``wls_bwd``, ``densify_bwd``),
-and the operators take their cotangents from the applies. The kNN runs on
-detached positions (its indices carry no gradient, as XLA's ``top_k``).
+kernels (``scatter_rows`` for the gather, ``wls_bwd``), and the
+coefficients take their cotangents from the applies (``coef_cotangent``,
+a sampled product; the dense operators themselves carry no graph). The
+kNN runs on detached positions (its indices carry no gradient, as XLA's ``top_k``).
 When neither input requires grad (or grad mode is off), the build keeps
 no autograd graph. Routes whose forward has no VJP raise instead of
 returning a partial gradient: bf16 or int8 operators or compute (the bf16

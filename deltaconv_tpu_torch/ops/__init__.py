@@ -7,7 +7,7 @@ its plain PyTorch version.
 
 Every kernel wrapper takes its plain version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises). :data:`KERNEL_OPS`
-and :data:`PLAIN_OPS` bundle the twenty-two functions the models and the
+and :data:`PLAIN_OPS` bundle the twenty-three functions the models and the
 operator objects' aggregation hooks call so that a caller can run a
 forward, or a whole train step, through the kernels or through the plain
 versions on the same device, which is how the kernel path is checked on
@@ -21,7 +21,9 @@ slot, the build's gather, WLS solve and dense assembly in the positions
 and frames (their backward kernels, ``scatter_rows``, ``wls_bwd`` and
 ``densify_bwd``, are reached through these Functions, as the max's
 ``gather_max_bwd`` and the min/max's ``gather_minmax_bwd`` are), with the
-same gradient routing on both.
+same gradient routing on both. The coefficients' cotangent of every
+apply, dense or coefficient form, is ``coef_cotangent``, a sampled
+product that forms only the edges' entries.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ._lib import launch_counts, library, reset_launch_counts
 from .coef_apply import (CoefPlan, coef_apply_div, coef_apply_div_plain,
                          coef_apply_grad, coef_apply_grad_plain, coef_plan,
                          coef_plan_plain)
+from .coef_cotangent import coef_cotangent, coef_cotangent_plain
 from .densify_op import (densify_bwd, densify_bwd_plain, densify_coefs,
                          densify_coefs_int8, densify_coefs_int8_plain,
                          densify_coefs_plain)
@@ -73,7 +76,8 @@ from .wls_fused import (build_grad_div_fused, wls, wls_bwd, wls_bwd_plain,
 __all__ = ["CoefPlan", "KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency",
            "adjacency_plain", "bn_lrelu_epilogue", "build_grad_div_fused",
            "coef_apply_div", "coef_apply_div_plain", "coef_apply_grad",
-           "coef_apply_grad_plain", "coef_plan", "coef_plan_plain",
+           "coef_apply_grad_plain", "coef_cotangent", "coef_cotangent_plain",
+           "coef_plan", "coef_plan_plain",
            "densify_bwd", "densify_bwd_plain", "densify_coefs",
            "densify_coefs_int8", "densify_coefs_int8_plain",
            "densify_coefs_plain", "edge_delta_mlp", "edge_delta_mlp_plain",
@@ -108,7 +112,7 @@ __all__ = ["CoefPlan", "KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency",
 
 
 class Ops(NamedTuple):
-    """The twenty-two kernel-backed functions the models and the
+    """The twenty-three kernel-backed functions the models and the
     aggregation hooks call."""
 
     gather_rows: Callable
@@ -133,6 +137,7 @@ class Ops(NamedTuple):
     gather_minmax: Callable
     gather_matmul_minmax: Callable
     coef_plan: Callable
+    coef_cotangent: Callable
 
 
 KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
@@ -141,7 +146,7 @@ KERNEL_OPS = Ops(gather_rows, wls, densify_coefs, gather_max, gather_sum,
                  gather_max_int8, gather_matmul_max_int8, coef_apply_grad,
                  coef_apply_div, knn_topk_table, knn_topk_bucketed,
                  edge_delta_mlp, fused_gather_wls, gather_minmax,
-                 gather_matmul_minmax, coef_plan)
+                 gather_matmul_minmax, coef_plan, coef_cotangent)
 PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 gather_max_plain, gather_sum_plain, knn_topk_plain,
                 gather_max_affine_plain, gather_matmul_max_plain,
@@ -151,4 +156,5 @@ PLAIN_OPS = Ops(gather_rows_plain, wls_plain, densify_coefs_plain,
                 coef_apply_div_plain, knn_topk_table_plain,
                 knn_topk_bucketed_plain, edge_delta_mlp_plain,
                 fused_gather_wls_plain, gather_minmax_plain,
-                gather_matmul_minmax_plain, coef_plan_plain)
+                gather_matmul_minmax_plain, coef_plan_plain,
+                coef_cotangent_plain)

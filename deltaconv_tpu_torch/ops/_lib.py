@@ -110,6 +110,7 @@ _KERNELS = {
     "coef_apply_div_plan": ("dc_coef_apply_div_plan", [_P] * 7 + [_I] * 7),
     "coef_plan_order": ("dc_coef_plan_order", [_P] * 4 + [_I] * 2),
     "coef_plan_runs": ("dc_coef_plan_runs", [_P] * 5 + [_I] * 4),
+    "coef_cotangent": ("dc_coef_cotangent", [_P] * 5 + [_I] * 5 + [_L] * 3),
     "knn_topk_table": ("dc_knn_topk_table", [_P] * 7 + [_I] * 4),
     "knn_topk_table_q": ("dc_knn_topk_table_q", [_P] * 7 + [_I] * 4),
     "knn_topk_bucketed": ("dc_knn_topk_bucketed", [_P] * 9 + [_I] * 7),
@@ -286,7 +287,8 @@ def no_grad_reason(name: str) -> str:
     differentiate through instead."""
     return _NO_GRAD.get(
         name, "differentiate through ops.gather_rows, ops.wls, "
-        "ops.densify_coefs, ops.coef_apply_grad, ops.coef_apply_div, "
+        "ops.densify_coefs, ops.coef_apply_grad, ops.coef_apply_div "
+        "(whose coefficients' cotangent is ops.coef_cotangent), "
         "ops.gather_max, ops.gather_minmax, "
         "ops.gather_sum, ops.gather_matmul_max_train or "
         "ops.edge_delta_mlp, whose backward is a kernel")

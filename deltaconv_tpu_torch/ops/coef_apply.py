@@ -19,8 +19,10 @@ fastest (``einsum`` into ``[B, N, K, C]``; for div ``[B, N, K, 2, C]``,
 viewed as ``[B, N, K, 2C]``, the flattened rows of ``v``), and hands
 their ``[B, C, K, N]`` view to :func:`~.gather_rows.scatter_rows`, which
 reads it through its strides (no layout copy), cast to the features'
-dtype; the coefficients' cotangent (``gather_rows`` +
-``einsum``, f32) is formed only when asked for. No backward kernel runs
+dtype; the coefficients' cotangent, the sampled product
+:func:`~.coef_cotangent.coef_cotangent` (f64 dots rounded to f32, no
+edge tensor, the points walked in the gather plan's Morton order where a
+plan is given), is formed only when asked for. No backward kernel runs
 for an input that does not require grad. :func:`coef_apply_grad` and
 :func:`coef_apply_div` run the kernels (forward and backward),
 ``*_plain`` the plain versions.
@@ -45,8 +47,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import _lib
-from .gather_rows import (gather_rows, gather_rows_plain, scatter_rows,
-                          scatter_rows_plain)
+from .coef_cotangent import coef_cotangent, coef_cotangent_plain
+from .gather_rows import scatter_rows, scatter_rows_plain
 
 __all__ = ["CoefPlan", "coef_apply_div", "coef_apply_div_plain",
            "coef_apply_grad", "coef_apply_grad_plain", "coef_plan",
@@ -305,12 +307,12 @@ def _div_plain_route(v, coef, idx, plan=None):
 class _Route(NamedTuple):
     grad: Callable
     div: Callable
-    gather_rows: Callable
+    cotangent: Callable
     scatter_rows: Callable
 
 
-_KERNELS = _Route(_grad_kernel, _div_kernel, gather_rows, scatter_rows)
-_PLAIN = _Route(_grad_plain_route, _div_plain_route, gather_rows_plain,
+_KERNELS = _Route(_grad_kernel, _div_kernel, coef_cotangent, scatter_rows)
+_PLAIN = _Route(_grad_plain_route, _div_plain_route, coef_cotangent_plain,
                 scatter_rows_plain)
 
 
@@ -321,7 +323,9 @@ class _CoefApplyGrad(torch.autograd.Function):
     def forward(ctx, x, coef, idx, route, plan):
         x, coef = x.detach(), coef.detach()
         ctx.save_for_backward(x, coef, idx)
-        ctx.route = route
+        # The cotangent walks the points in the plan's Morton order:
+        # neighbouring points share their rows in L1.
+        ctx.route, ctx.order = route, None if plan is None else plan.order
         return route.grad(x, coef, idx, plan)
 
     @staticmethod
@@ -337,8 +341,7 @@ class _CoefApplyGrad(torch.autograd.Function):
                                         x.shape[1]).to(x.dtype)
         if ctx.needs_input_grad[1]:
             # dcoef[n, k, d] = sum_c x[idx[n, k], c] * ct[n, d, c]
-            xg = ctx.route.gather_rows(x.float().contiguous(), idx)
-            dc = torch.einsum("bckn,bndc->bnkd", xg, ctf)
+            dc = ctx.route.cotangent(x.float(), ctf, idx, ctx.order)
         return dx, dc, None, None, None
 
 
@@ -350,7 +353,7 @@ class _CoefApplyDiv(torch.autograd.Function):
     def forward(ctx, v, coef, idx, route, plan):
         v, coef = v.detach(), coef.detach()
         ctx.save_for_backward(v, coef, idx)
-        ctx.route = route
+        ctx.route, ctx.order = route, None if plan is None else plan.order
         return route.div(v, coef, idx, plan)
 
     @staticmethod
@@ -369,10 +372,7 @@ class _CoefApplyDiv(torch.autograd.Function):
                                         n).view(b, n, 2, c).to(v.dtype)
         if ctx.needs_input_grad[1]:
             # dcoef[n, k, d] = sum_c v[idx[n, k], d, c] * ct[n, c]
-            vg = ctx.route.gather_rows(
-                v.reshape(b, n, 2 * c).float().contiguous(), idx)
-            dc = torch.einsum("bdckn,bnc->bnkd", vg.reshape(b, 2, c, k, n),
-                              ctf)
+            dc = ctx.route.cotangent(v.float(), ctf, idx, ctx.order)
         return dv, dc, None, None, None
 
 

@@ -17,7 +17,11 @@ Differentiable in the coefficients, as the JAX ``custom_vjp`` is: the
 VJP is a row-local gather, ``d_coef[b, n, k, d] = dW[b, d, n, idx[b, n,
 k]]`` (:func:`densify_bwd`, the ``densify_bwd`` kernel, counterpart of
 ``_densify_bwd``), the cotangents read as f32 and the result returned in
-the coefficients' dtype.
+the coefficients' dtype. The models' dense applies do not take this
+route: on a build differentiated in its coefficients :func:`densify`
+(``geometry/dense.py``) assembles ``W`` without a graph and each apply
+gives the coefficients their cotangent by ``ops.coef_cotangent``, so no
+``[B, 2, N, N]`` cotangent is formed.
 
 ``densify_coefs_int8(idx, grad_coef, div_coef)`` -> ``(w_grad, w_div,
 s_grad, s_div)``: the int8 serving form (``densify_coefs_int8`` of the

@@ -186,9 +186,10 @@ def test_coef_apply_vjp_matches_jax(op, dtype):
 
 @pytest.mark.parametrize("op", ["grad", "div"])
 def test_coef_cotangent_only_when_asked(op, monkeypatch):
-    """The coefficients' cotangent (its gather) is formed only when the
-    coefficients require grad, and the features' (its scatter) only when
-    the features do; no backward runs for an input that requires none."""
+    """The coefficients' cotangent (the sampled product) is formed only
+    when the coefficients require grad, and the features' (its scatter)
+    only when the features do; no backward runs for an input that requires
+    none."""
     rng = np.random.default_rng(2)
     idx, coef = _operators(rng)
     _, x = _inputs(rng, _shape(op, 8), "float32")
@@ -200,7 +201,7 @@ def test_coef_cotangent_only_when_asked(op, monkeypatch):
     plain = coef_mod._PLAIN
     for needs_x, needs_c in ((True, False), (False, True)):
         route = plain._replace(
-            gather_rows=plain.gather_rows if needs_c else forbidden,
+            cotangent=plain.cotangent if needs_c else forbidden,
             scatter_rows=plain.scatter_rows if needs_x else forbidden)
         monkeypatch.setattr(coef_mod, "_PLAIN", route)
         xg = x.clone().requires_grad_(needs_x)

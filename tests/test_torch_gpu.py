@@ -66,11 +66,16 @@ def _graph(pos, k, masked):
     return idx, mask
 
 
-@pytest.mark.parametrize("n", [100, 256])
-def test_gather_rows_kernel_exact(cuda, n):
+@pytest.mark.parametrize("c", [9, 3])
+@pytest.mark.parametrize("n", [100, 101, 256, 8195])
+def test_gather_rows_kernel_exact(cuda, n, c):
+    """Bit-equal to the plain version with the table staged in shared
+    memory (N up to 256) or read through the read-only path (N=8195, a
+    table above 96 KB), N % 4 != 0 (scalar stores) and a last partial
+    tile."""
     rng = np.random.default_rng(0)
     table = torch.from_numpy(
-        rng.standard_normal((2, n, 9)).astype(np.float32)).to(cuda)
+        rng.standard_normal((2, n, c)).astype(np.float32)).to(cuda)
     idx = torch.from_numpy(
         rng.integers(0, n, (2, n, 7)).astype(np.int32)).to(cuda)
     got = ops.gather_rows(table, idx)
@@ -1647,9 +1652,10 @@ def test_coef_kernels_at_the_large_cloud_shapes(cuda):
 def test_coef_backward_launches_only_what_is_asked(cuda):
     """Differentiated applies launch their forward kernel once and, in the
     backward, ``scatter_rows`` only for features that require grad and
-    ``gather_rows`` only for coefficients that do; the gradients equal
-    the plain route's (the scatter within 1e-5 x max). The differentiable
-    gather's backward is one ``scatter_rows``."""
+    ``coef_cotangent`` only for coefficients that do; the gradients equal
+    the plain route's (the scatter within 1e-5 x max; the coefficients'
+    within one f32 ulp, two f64 sum orders). The differentiable gather's
+    backward is one ``scatter_rows``."""
     rng = np.random.default_rng(53)
     n, k, c = 128, 8, 24
     idx, gc, _ = _coef_operators(rng, n, k, cuda, True)
@@ -1667,7 +1673,8 @@ def test_coef_backward_launches_only_what_is_asked(cuda):
                 assert counts["coef_apply_grad"] == 1, counts
                 assert counts["scatter_rows"] == int(needs_x), counts
                 assert counts["inverse_adjacency"] == int(needs_x), counts
-                assert counts["gather_rows"] == int(needs_c), counts
+                assert counts["coef_cotangent"] == int(needs_c), counts
+                assert counts["gather_rows"] == 0, counts
             else:
                 assert sum(counts.values()) == 0, counts
             grads.append((xg.grad, cg.grad))
@@ -1681,6 +1688,64 @@ def test_coef_backward_launches_only_what_is_asked(cuda):
     assert launch_counts()["gather_rows"] == 1
     assert launch_counts()["scatter_rows"] == 1
     assert launch_counts()["inverse_adjacency"] == 1
+
+
+def _cotangent_held(got, feat, ct, idx):
+    """Each entry within one f32 ulp of the plain version or the f64
+    summation bound ``C 2^-52 sum_c |x_c ct_c|`` (the kernel's f64 order
+    against the einsum's); returns how many entries differ at all."""
+    want = ops.coef_cotangent_plain(feat, ct, idx).double()
+    scale = ops.coef_cotangent_plain(feat.abs(), ct.abs(), idx).double()
+    w32 = want.abs().float()
+    ulp = (torch.nextafter(w32, torch.full_like(w32, float("inf")))
+           - w32).double()
+    err = (got.double() - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= ulp + feat.shape[-1] * 2.0 ** -52 * scale).all())
+    return int((got.double() != want).sum())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,n", [(32, 1024), (4, 8192), (2, 77)])
+@pytest.mark.parametrize("mode", ["grad", "div"])
+def test_coef_cotangent_kernel(cuda, mode, b, n, masked):
+    """``coef_cotangent`` against its plain version at the dense path's
+    shape (B=32, N=1024), the coefficient form's (B=4, N=8192) and a
+    small one, on kNN graphs (``masked``: half of the first cloud's points
+    padded) and at one forward's apply widths, both routes (narrow rows:
+    grad C=3, div C=6; wide: the rest, C not a multiple of 4 included):
+    held by :func:`_cotangent_held`, a second call bit-equal; the grad
+    mode read through the strides of the transposed ``[B, 2, N, C]``
+    cotangent bit-equal to its contiguous copy, and the points walked in
+    another order (``order``, a permutation of each cloud's) bit-equal;
+    indices outside ``[0, N)`` give 0; one launch a call."""
+    rng = np.random.default_rng(61)
+    pos, _ = _cloud_batch(rng, b, n, cuda)
+    idx, _ = _graph(pos, 20, masked)
+    order = torch.argsort(torch.rand((b, n), device=cuda), dim=1).int()
+    widths = (3, 70, 192, 256) if mode == "grad" else (6, 70, 128, 256)
+    for c in widths:
+        feat = torch.randn((b, n, c) if mode == "grad" else (b, n, 2, c),
+                           device=cuda)
+        planes = torch.randn((b, 2, n, c) if mode == "grad" else (b, n, c),
+                             device=cuda)
+        ct = planes.transpose(1, 2) if mode == "grad" else planes
+        reset_launch_counts()
+        got = ops.coef_cotangent(feat, ct, idx)
+        torch.cuda.synchronize()
+        assert launch_counts()["coef_cotangent"] == 1
+        _cotangent_held(got, feat, ct, idx)
+        _bits_equal(ops.coef_cotangent(feat, ct, idx), got)
+        _bits_equal(ops.coef_cotangent(feat, ct, idx, order), got)
+        if mode == "grad":
+            _bits_equal(ops.coef_cotangent(feat, ct.contiguous(), idx), got)
+    bad = idx.clone()
+    bad[:, ::3, 1] = -1
+    bad[:, 1::3, 2] = n
+    got = ops.coef_cotangent(feat, ct, bad)
+    _cotangent_held(got, feat, ct, bad)
+    assert bool((got[:, ::3, 1] == 0).all())
+    assert bool((got[:, 1::3, 2] == 0).all())
 
 
 def _coef_step(batch, ops_, compute_dtype=None):
@@ -1766,16 +1831,20 @@ def _surface(rng, n, dev, shift=0.0):
     return pos[0] + shift
 
 
-def test_gather_rows_kernel_longer_table(cuda):
-    """A table longer than the query rows (the sharded build's)."""
+@pytest.mark.parametrize("c", [9, 3])
+@pytest.mark.parametrize("n_t,n", [(300, 77), (300, 80), (65536, 1001)])
+def test_gather_rows_kernel_longer_table(cuda, n_t, n, c):
+    """A table longer than the query rows (the sharded build's): staged
+    (300 rows) or read through the read-only path (65,536), N % 4 != 0
+    and not."""
     rng = np.random.default_rng(60)
     table = torch.from_numpy(
-        rng.standard_normal((1, 300, 9)).astype(np.float32)).to(cuda)
+        rng.standard_normal((1, n_t, c)).astype(np.float32)).to(cuda)
     idx = torch.from_numpy(
-        rng.integers(0, 300, (1, 77, 10)).astype(np.int32)).to(cuda)
+        rng.integers(0, n_t, (1, n, 10)).astype(np.int32)).to(cuda)
     got = ops.gather_rows(table, idx)
     torch.cuda.synchronize()
-    assert got.shape == (1, 9, 10, 77)
+    assert got.shape == (1, c, 10, n)
     assert torch.equal(got, ops.gather_rows_plain(table, idx))
 
 
@@ -2419,8 +2488,9 @@ def test_position_gradients_kernels_match_plain(cuda, dense, train):
     """``d loss / d pos`` and ``d loss / d normal`` of a narrow f32 model
     through the kernels and through the plain versions on the card, within
     1e-3 x max (the train steps' gradient bound), the loss at rtol 1e-5;
-    the build's backward kernels launch once each (``densify_bwd`` only
-    with dense operators)."""
+    the build's backward kernels launch once each and ``coef_cotangent``
+    once an apply (8), dense or coefficient form; ``densify_bwd`` never
+    (the dense operators carry no graph)."""
     rng = np.random.default_rng(55)
     model = DeltaNetClassification(
         5, conv_channels=(8, 8, 16, 16), embedding_size=32, num_neighbors=8,
@@ -2441,7 +2511,8 @@ def test_position_gradients_kernels_match_plain(cuda, dense, train):
                                     launch_counts())
     loss, gp, gn, counts = out[True]
     assert counts["wls_bwd"] == 1
-    assert counts["densify_bwd"] == int(dense)
+    assert counts["coef_cotangent"] == 8
+    assert counts["densify_bwd"] == 0
     assert sum(out[False][3].values()) == 0
     assert loss == pytest.approx(out[False][0], rel=1e-5)
     _close_to_max(gp, out[False][1], 1e-3)

@@ -211,6 +211,11 @@ def test_cpu_tensors_take_the_plain_versions():
     for got, want in zip(ops.densify_bwd(idx, dw[0], dw[1]),
                          ops.densify_bwd_plain(idx, dw[0], dw[1])):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for feat, ct_rows in ((h, torch.randn((2, 32, 2, 5))),
+                          (torch.randn((2, 32, 2, 5)), h)):
+        torch.testing.assert_close(
+            ops.coef_cotangent(feat, ct_rows, idx),
+            ops.coef_cotangent_plain(feat, ct_rows, idx), rtol=0, atol=0)
     for t in (h, hb):
         for got, want in zip(ops.gather_minmax(t, idx, mask),
                              ops.gather_minmax_plain(t, idx, mask)):
@@ -261,7 +266,7 @@ def test_cpu_tensors_take_the_plain_versions():
         "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
         "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
         "edge_delta_mlp_bwd": 0, "wls_bwd": 0, "wls_bwd_direct": 0,
-        "densify_bwd": 0,
+        "densify_bwd": 0, "coef_cotangent": 0,
         "fused_gather_wls": 0, "fused_gather_wls_direct": 0,
         "knn_topk_mean_dist": 0,
             "knn_topk_rounds": 0, "gather_minmax": 0,

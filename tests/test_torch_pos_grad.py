@@ -417,7 +417,9 @@ def test_build_keeps_no_graph_without_differentiated_inputs(dense):
     """With no input requiring grad (or grad mode off) the build keeps no
     autograd graph: the operators have no ``grad_fn`` and the parameter
     train step differentiates the parameters only; with ``pos`` requiring
-    grad, they have one."""
+    grad, they have one: the coefficients, and on the dense form not ``W``
+    (its applies differentiate the coefficients by the sampled product,
+    ``ops.coef_cotangent``)."""
     rng = np.random.default_rng(7)
     pos, nrm, _ = _clouds(rng, [MODEL_N] * 2)
     seen = []
@@ -438,4 +440,8 @@ def test_build_keeps_no_graph_without_differentiated_inputs(dense):
         lambda gd: (gd.grad_coef, gd.div_coef))
     assert len(seen) == 3
     assert all(t.grad_fn is None for gd in seen[:2] for t in ops_of(gd))
-    assert all(t.grad_fn is not None for t in ops_of(seen[2]))
+    coefs = (seen[2].grad_coef, seen[2].div_coef)
+    assert all(t.grad_fn is not None for t in coefs)
+    if dense:
+        assert all(t.grad_fn is None and not t.requires_grad
+                   for t in ops_of(seen[2]))
