@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the sixty-eight CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the sixty-nine CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -247,15 +247,22 @@ first on ``sys.path``. It
     ``nccl`` group (a FileStore in a temporary directory), bit-equal to
     ``group=None``;
 18. ``[kernels]`` at the segmentation train shapes (B=16, N=2048, K=30,
-    64 -> 64): ``edge_delta_mlp`` and its backward, uniform and masked,
-    the forward within one bf16 ulp of the plain version or within the
-    f32 summation bound of the exact (f64) product, ``dy`` within one
-    bf16 ulp of the largest edge term (the f32 sums of ``dh`` in another
-    order), bit-equal across two calls (f64 sums, rounded once) and, on
-    exact-sum inputs, to the plain version, ``dw1`` and the affine's sums
-    within 1e-5 x max; both timed beside the plain
-    version, the library calls (``index`` gather, ``torch.matmul``,
-    ``index_add_``) and the bound;
+    64 -> 64): ``edge_delta_mlp`` and its backward's two kernels, uniform
+    and masked (``check_edge_mlp_kernels``): the forward within one bf16
+    ulp of the plain version or within the f32 summation bound of the
+    exact (f64) product, slot 0 bit-equal; phase 1
+    (``edge_delta_mlp_bwd``) its edge tensor held the same way, its f64
+    self rows, ``dw1`` and the affine's sums within 1e-5 x max, and on
+    exact-sum inputs edge tensor and self rows bit-equal; phase 2
+    (``edge_delta_mlp_bwd_sum``, over the inverse adjacency of the clamped
+    indices) bit-equal to its plain version on the same edge tensor; the
+    whole backward's ``dy`` within one bf16 ulp of the largest edge term
+    (the f32 sums of ``dh`` in another order), bit-equal across two calls
+    (f64 sums, rounded once, no float atomics) and, on exact-sum inputs,
+    to the plain version; each kernel and the whole backward timed in
+    device time and by CUDA events beside the plain version, the library
+    calls (``index`` gather, ``torch.matmul``, ``index_add_``), the bound
+    and the backward design's byte floor (``[times] edge MLP``);
 19. ``[train-seg-bf16]``: trains ``DeltaNetSegmentation`` at the ShapeNet
     config at ``bench.py``'s seg train config (``bench.py:233-265``: B=16,
     N=2048, bf16, approximate kNN, ``sgd_momentum(0.01)``, smoothing 0,
@@ -263,7 +270,8 @@ first on ``sys.path``. It
     follow the category and the point's octant) for 20 steps, once with
     ``_EDGE_FUSED_TRAIN`` off (the JAX default: the first conv's edge
     tensor) and once on (``edge_delta_mlp``): losses finite and falling,
-    the edge MLP 1 + 1 launches a step with the switch on and none off;
+    the edge MLP's three kernels once a step each with the switch on and
+    never off;
     it prints the median ``seg_train_step_ms``, training clouds/s, peak
     memory and a profile of one step (its device time) for each branch;
     then one step from the same weights through the kernels and through
@@ -652,7 +660,11 @@ BRANCH_TOL = 5e-2  # fused vs reference conv0, the JAX package's bound
 SEG_TRAIN_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
                      "adjacency", "gather_max_win_bf16",
                      "gather_max_bwd_bf16", "edge_delta_mlp",
-                     "edge_delta_mlp_bwd")
+                     "edge_delta_mlp_bwd", "edge_delta_mlp_bwd_sum",
+                     "inverse_adjacency")
+# The fused branch's edge MLP kernels: each once a step with the switch on.
+EDGE_STEP_KERNELS = ("edge_delta_mlp", "edge_delta_mlp_bwd",
+                     "edge_delta_mlp_bwd_sum")
 SEG_TRAIN_REF_KERNELS = ("knn_topk", "gather_rows", "wls", "densify_bf16",
                          "gather_max_win_bf16", "gather_max_bwd_bf16")
 SEG_TRAIN_F32_KERNELS = ("gather_rows", "wls", "densify", "gather_max_win",
@@ -838,6 +850,9 @@ KERNEL_META = {
                        "deltaconv_tpu/ops/edge_mlp.py:192"),
     "edge_delta_mlp_bwd": ("deltaconv_tpu_torch/csrc/edge_mlp.cu",
                            "deltaconv_tpu/ops/edge_mlp.py:244"),
+    # #28's phase 2 (PR 23): the destination-major sum of its edge tensor.
+    "edge_delta_mlp_bwd_sum": ("deltaconv_tpu_torch/csrc/edge_mlp.cu",
+                               "deltaconv_tpu/ops/edge_mlp.py:244"),
     "wls_bwd": ("deltaconv_tpu_torch/csrc/wls.cu",
                 "deltaconv_tpu/ops/wls_fused.py:212"),
     "densify_bwd": ("deltaconv_tpu_torch/csrc/densify.cu",
@@ -1955,11 +1970,53 @@ def edge_fwd_held(got, y, a0, b0, w1, z0, idx):
         f"{max_err(got.float(), want.float())}")
 
 
+def edge_terms_held(e, y, a0, b0, w1, idx, g):
+    """``(ok, detail)`` of the backward's edge tensor ``e`` (phase 1,
+    ``edge_delta_mlp_bwd``), held as the forward is (:func:`edge_fwd_held`):
+    each ``bf16(dy0)`` of slots >= 1 within one bf16 ulp of the plain
+    version's, or within the f32 summation bound of ``dh = g @ w1^T``,
+    ``C1 * 2^-24 * (|g| @ |w1|^T)`` times ``|dpre / dh| |a0|``, plus one
+    bf16 ulp, of the exact (f64) term of the same inputs (where ``dh``
+    cancels, its f32 sums in another order move the term by more than an
+    ulp of itself)."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.ops.edge_mlp import _edges
+
+    want = ops.edge_mlp_bwd_edges_plain(y, a0, b0, w1, idx, g)[0][:, 1:]
+    far = bf16_ulps(e[:, 1:], want) > 1
+    n_far = int(far.sum())
+    del want
+    _, pre = _edges(y, a0, b0, idx)
+    scale = (torch.where(pre[:, :, 1:] >= 0, 1.0, 0.2) * a0).double()
+    del pre
+    g1 = g[:, 1:].double().permute(0, 2, 1, 3)
+    wd = w1.to(torch.bfloat16).double()
+    exact = ((g1 @ wd.t()) * scale).permute(0, 2, 1, 3)
+    mag = ((g1.abs() @ wd.abs().t()) * scale.abs()).permute(0, 2, 1, 3)
+    del g1, scale
+    got = e[:, 1:].double()
+    tol = w1.shape[1] * 2.0 ** -24 * mag + 2.0 ** -8 * got.abs()
+    n_beyond = int((far & ((got - exact).abs() > tol)).sum())
+    return n_beyond == 0, (f"{n_far} elements beyond one bf16 ulp, "
+                           f"{n_beyond} of them beyond the f32 summation "
+                           f"bound")
+
+
 def check_edge_mlp_kernels(record, idx, dev):
-    """edge_delta_mlp forward and backward against their plain versions
-    at the segmentation train shapes; the backward's ``dy`` (f64 sums,
-    rounded once) bit-equal across two calls and, on exact-sum inputs,
-    to the plain version."""
+    """The edge MLP's three kernels against their plain versions at the
+    segmentation train shapes: the forward (``edge_delta_mlp``) by
+    :func:`edge_fwd_held` (slot 0 bit-equal); phase 1 of the backward
+    (``edge_delta_mlp_bwd``) by :func:`edge_terms_held` for the edge
+    tensor, its f64 self rows, ``dw1`` and the affine's sums within
+    SCATTER_RTOL x max, and on exact-sum inputs (:func:`edge_exact_inputs`)
+    the edge tensor and the self rows bit-equal; phase 2
+    (``edge_delta_mlp_bwd_sum``, after the inverse adjacency of the
+    clamped indices) bit-equal to its plain version on the plain phase 1's
+    outputs (both add the same addends in f64 and round once; slot 0 of
+    the edge tensor NaN, never read); the whole backward's ``dy`` within
+    one bf16 ulp of the largest edge term of the plain backward's (the f32
+    sums of ``dh`` run in another order), bit-equal across two calls, and
+    on exact-sum inputs bit-equal to the plain version."""
     from deltaconv_tpu_torch import ops
     from deltaconv_tpu_torch.ops.edge_mlp import _edges
 
@@ -1973,44 +2030,74 @@ def check_edge_mlp_kernels(record, idx, dev):
     del out
     b, n, k = idx.shape
     g = torch.randn((b, k, n, EDGE_C), device=dev).to(torch.bfloat16)
+
+    e, s, dw1, dab = ops.edge_mlp_bwd_edges(y, a0, b0, w1, idx, g)
+    e_p, s_p, dw1_p, dab_p = ops.edge_mlp_bwd_edges_plain(y, a0, b0, w1,
+                                                          idx, g)
+    ok, detail = edge_terms_held(e, y, a0, b0, w1, idx, g)
+    errs = [max_err(a, b_) for a, b_ in ((s, s_p), (dw1, dw1_p),
+                                         (dab, dab_p))]
+    tols = [SCATTER_RTOL * float(t.abs().max()) for t in (s_p, dw1_p, dab_p)]
+    record("edge_delta_mlp_bwd", max(max_err(e[:, 1:].float(),
+                                             e_p[:, 1:].float()), *errs))
+    check("edge_delta_mlp_bwd (phase 1: edge tensor, self rows, partials)",
+          ok and all(x <= t for x, t in zip(errs, tols)),
+          f"edge tensor: {detail}; self rows {errs[0]} <= {tols[0]}, dw1 "
+          f"{errs[1]} <= {tols[1]}, dab {errs[2]} <= {tols[2]}")
+    del e, s
+    e_p[:, 0] = float("nan")
+    dy = ops.edge_mlp_bwd_sum(e_p, s_p, idx)
+    dy_w = ops.edge_mlp_bwd_sum_plain(e_p, s_p, idx)
+    record("edge_delta_mlp_bwd_sum", max_err(dy, dy_w))
+    check("edge_delta_mlp_bwd_sum (phase 2)", bits_equal(dy, dy_w),
+          f"bit-equal to the plain version on the same edge tensor and "
+          f"self rows, max_abs_err {max_err(dy, dy_w)}")
+    del e_p, s_p, dy_w
+
     dy, dw1, dab = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
-    dy_p, dw1_p, dab_p = ops.edge_mlp_bwd_plain(y, a0, b0, w1, idx, g)
+    dy_p = ops.edge_mlp_bwd_plain(y, a0, b0, w1, idx, g)[0]
     _, pre = _edges(y, a0, b0, idx)
     dh = g[:, 1:].float().permute(0, 2, 1, 3) @ w1.to(
         torch.bfloat16).float().t()
     flip = 2.0 ** -8 * float((dh * torch.where(pre[:, :, 1:] >= 0, 1.0, 0.2)
                               * a0).abs().max())
     del pre, dh
-    errs = [max_err(a, b_) for a, b_ in ((dy, dy_p), (dw1, dw1_p),
-                                         (dab, dab_p))]
-    tols = [flip, SCATTER_RTOL * float(dw1_p.abs().max()),
-            SCATTER_RTOL * float(dab_p.abs().max())]
-    record("edge_delta_mlp_bwd", max(errs))
-    check("edge_delta_mlp_bwd", all(e <= t for e, t in zip(errs, tols)),
-          f"dy {errs[0]} <= {tols[0]} (the f32 sums of dh in another order: "
-          f"one bf16 ulp of the largest edge term), dw1 {errs[1]} <= "
-          f"{tols[1]}, dab {errs[2]} <= {tols[2]}")
+    err = max_err(dy, dy_p)
+    check("edge MLP backward dy", err <= flip,
+          f"{err} <= {flip} (the f32 sums of dh in another order: one bf16 "
+          f"ulp of the largest edge term)")
     again = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)[0]
-    check("edge_delta_mlp_bwd dy, two calls", torch.equal(dy, again),
+    check("edge MLP backward dy, two calls", torch.equal(dy, again),
           "bit-equal (f64 sums, rounded once)")
     ye, a0e, b0e, w1e, ge = edge_exact_inputs(idx, dev)
+    e, s, _, _ = ops.edge_mlp_bwd_edges(ye, a0e, b0e, w1e, idx, ge)
+    e_p, s_p, _, _ = ops.edge_mlp_bwd_edges_plain(ye, a0e, b0e, w1e, idx,
+                                                  ge)
+    check("edge_delta_mlp_bwd (phase 1), exact-sum inputs",
+          bits_equal(e[:, 1:], e_p[:, 1:]) and torch.equal(s, s_p),
+          "edge tensor and self rows bit-equal to the plain version")
+    del e, s, e_p, s_p
     dy = ops.edge_mlp_bwd(ye, a0e, b0e, w1e, idx, ge)[0]
     dy_p = ops.edge_mlp_bwd_plain(ye, a0e, b0e, w1e, idx, ge)[0]
-    check("edge_delta_mlp_bwd dy, exact-sum inputs", torch.equal(dy, dy_p),
+    check("edge MLP backward dy, exact-sum inputs", torch.equal(dy, dy_p),
           f"bit-equal to the plain version, max_abs_err {max_err(dy, dy_p)}")
     torch.cuda.synchronize()
 
 
 def edge_library(y, a0, b0, w1, z0, idx, g):
-    """The edge MLP's forward and backward as PyTorch library calls, set-up
-    included: the ``index`` gather of the rows, the elementwise affine, a
-    bf16 ``torch.matmul``; backward the bf16 products, ``index_add_`` of
-    the edge terms and the sums. Timed as a yardstick, used nowhere."""
+    """The edge MLP as PyTorch library calls, set-up included: the forward
+    (the ``index`` gather of the rows, the elementwise affine, a bf16
+    ``torch.matmul``); the backward's phase 1 (the same, the bf16
+    products, the edge terms' cast and the sums), its phase 2
+    (``index_add_`` of the edge tensor's rows into the negated self rows)
+    and the whole backward (``index_add_`` of the edge terms). Timed as a
+    yardstick, used nowhere."""
     b, n, c0 = y.shape
     k = idx.shape[-1]
     w1b = w1.to(torch.bfloat16)
     rows = idx.transpose(1, 2)[:, 1:].long()  # [B, K - 1, N]
     bidx = torch.arange(b, device=y.device)[:, None, None]
+    flat = (rows + bidx * n).reshape(-1)
 
     def pre_of():
         y0 = y[bidx, rows].float() - y.float()[:, None]
@@ -2025,68 +2112,111 @@ def edge_library(y, a0, b0, w1, z0, idx, g):
         out[:, 1:] = torch.matmul(h, w1b)
         return out
 
-    def bwd():
+    def terms():
         y0, pre = pre_of()
         h = torch.where(pre >= 0, pre, 0.2 * pre).to(torch.bfloat16)
         g1 = g[:, 1:]
         dpre = torch.matmul(g1, w1b.t()).float() * torch.where(
             pre >= 0, 1.0, 0.2)
-        dy0 = dpre * a0
-        flat = (rows + bidx * n).reshape(-1)
+        dw1 = torch.matmul(h.reshape(-1, c0).t(), g1.reshape(-1, g1.shape[-1]))
+        return (y0, dpre, dpre * a0, dw1, (dpre * y0).sum(dim=(0, 1, 2)),
+                dpre.sum(dim=(0, 1, 2)))
+
+    def bwd_edges():
+        _, _, dy0, dw1, da0, db0 = terms()
+        return (dy0.to(torch.bfloat16), dy0.double().sum(dim=1), dw1, da0,
+                db0)
+
+    e_rows, self_rows = bwd_edges()[:2]
+
+    def bwd_sum():
+        dy = (-self_rows).reshape(b * n, c0)
+        dy.index_add_(0, flat, e_rows.reshape(-1, c0).double())
+        return dy.float()
+
+    def bwd():
+        _, _, dy0, dw1, da0, db0 = terms()
         dy = torch.zeros((b * n, c0), device=y.device).index_add_(
             0, flat, dy0.to(torch.bfloat16).float().reshape(-1, c0))
-        dy = dy.reshape(b, n, c0) - dy0.sum(dim=1)
-        dw1 = torch.matmul(h.reshape(-1, c0).t(), g1.reshape(-1, g1.shape[-1]))
-        return dy, dw1, (dpre * y0).sum(dim=(0, 1, 2)), dpre.sum(dim=(0, 1, 2))
+        return dy.reshape(b, n, c0) - dy0.sum(dim=1), dw1, da0, db0
 
-    return fwd, bwd
+    return fwd, bwd_edges, bwd_sum, bwd
 
 
 def time_edge_mlp_kernels(res, idx, dev, card):
-    """Times of the edge MLP at the segmentation train shapes: the kernels,
-    the plain versions and the library calls, and the bounds: the forward writes
-    y1 and the backward reads g (each input read once, each output
-    written once), ``2 E C0 C1`` (forward) and ``4 E C0 C1`` (backward)
-    bf16 tensor-core operations over the E = B N (K - 1) edges."""
+    """Times of the edge MLP at the segmentation train shapes, in device
+    time (profiler) and by CUDA events: the forward (#27), the backward's
+    phase 1 and phase 2 (the inverse adjacency of the clamped indices and
+    the sum) and the whole backward (#28: phase 1, the inverse adjacency,
+    phase 2 and the sums of the partials), each beside its plain version,
+    the library calls (:func:`edge_library`) and its bound (each input
+    read once, each output written once; ``2 E C0 C1`` bf16 tensor-core
+    operations in the forward and ``4 E C0 C1`` in phase 1 over the E = B N
+    (K - 1) edges); and the backward design's own byte floor (g read, the
+    edge tensor written and read, the self rows written and read, dy, idx
+    and the adjacency). The parent's kernels are timed by
+    ``[kernel-times]`` under ``--parent``."""
     from deltaconv_tpu_torch import ops
 
     y, a0, b0, w1, z0 = edge_inputs(idx, dev)
     b, n, k = idx.shape
     g = torch.randn((b, k, n, EDGE_C), device=dev).to(torch.bfloat16)
     out = ops.edge_mlp_fwd(y, a0, b0, w1, z0, idx)
-    lib_fwd, lib_bwd = edge_library(y, a0, b0, w1, z0, idx, g)
+    e, s, dw1, dab = ops.edge_mlp_bwd_edges(y, a0, b0, w1, idx, g)
+    dy = ops.edge_mlp_bwd_sum(e, s, idx)
+    off, lst = ops.inverse_adjacency(idx, n, clamp=True)
+    lib_fwd, lib_edges, lib_sum, lib_bwd = edge_library(y, a0, b0, w1, z0,
+                                                        idx, g)
     edges = float(b * n * (k - 1))
     ab = torch.stack([a0, b0])
     w1b = w1.to(torch.bfloat16)
-    dy, dw1, dab = ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
-    times = {
-        "fwd": median_ms(lambda: ops.edge_mlp_fwd(y, a0, b0, w1, z0, idx)),
-        "fwd_plain": median_ms(lambda: ops.edge_mlp_fwd_plain(
-            y, a0, b0, w1, z0, idx)),
-        "fwd_library": median_ms(lib_fwd),
-        "bwd": median_ms(lambda: ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)),
-        "bwd_plain": median_ms(lambda: ops.edge_mlp_bwd_plain(
-            y, a0, b0, w1, idx, g)),
-        "bwd_library": median_ms(lib_bwd),
+    flops = 2.0 * edges * EDGE_C * EDGE_C
+    calls = {
+        "edge_delta_mlp": (
+            lambda: ops.edge_mlp_fwd(y, a0, b0, w1, z0, idx),
+            lambda: ops.edge_mlp_fwd_plain(y, a0, b0, w1, z0, idx), lib_fwd,
+            bound(nbytes(y, idx, ab, w1b, z0, out), flops,
+                  BF16_TC_OPS_PER_S)),
+        "edge_delta_mlp_bwd": (
+            lambda: ops.edge_mlp_bwd_edges(y, a0, b0, w1, idx, g),
+            lambda: ops.edge_mlp_bwd_edges_plain(y, a0, b0, w1, idx, g),
+            lib_edges,
+            bound(nbytes(y, idx, ab, w1b, g[:, 1:], e[:, 1:], s, dw1, dab),
+                  2 * flops, BF16_TC_OPS_PER_S)),
+        "edge_delta_mlp_bwd_sum": (
+            lambda: ops.edge_mlp_bwd_sum(e, s, idx),
+            lambda: ops.edge_mlp_bwd_sum_plain(e, s, idx), lib_sum,
+            bound(nbytes(e[:, 1:], s, idx, dy))),
     }
-    res["edge_delta_mlp"].update(
-        ms=times["fwd"], plain_ms=times["fwd_plain"],
-        library_ms=times["fwd_library"],
-        bound=bound(nbytes(y, idx, ab, w1b, z0, out),
-                    2.0 * edges * EDGE_C * EDGE_C, BF16_TC_OPS_PER_S))
-    res["edge_delta_mlp_bwd"].update(
-        ms=times["bwd"], plain_ms=times["bwd_plain"],
-        library_ms=times["bwd_library"],
-        bound=bound(nbytes(y, idx, ab, w1b, g, dy, dw1, dab),
-                    4.0 * edges * EDGE_C * EDGE_C, BF16_TC_OPS_PER_S))
-    print(f"[times] edge MLP, B={b} N={n} K={k} {EDGE_C}->{EDGE_C}, card: "
-          f"{card}")
-    for part in ("fwd", "bwd"):
-        name = "edge_delta_mlp" if part == "fwd" else "edge_delta_mlp_bwd"
-        print(f"  {name}: kernel {times[part]:.4f} ms, plain "
-              f"{times[part + '_plain']:.4f} ms, library "
-              f"{times[part + '_library']:.4f} ms, bound "
-              f"{res[name]['bound'][0]:.4f} ms ({res[name]['bound'][1]})")
+    print(f"[times] edge MLP, B={b} N={n} K={k} {EDGE_C}->{EDGE_C}, device "
+          f"time of one call (CUDA events in brackets), card: {card}",
+          flush=True)
+    for name, (kernel, plain, lib, bd) in calls.items():
+        res[name].update(ms=device_ms(kernel, 5), plain_ms=device_ms(plain),
+                         library_ms=device_ms(lib), bound=bd)
+        r = res[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms [{median_ms(kernel):.4f}]"
+              f", plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), "
+              f"{bd[0] / r['ms']:.2f} of it", flush=True)
+    def whole():
+        return ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
+
+    split = kernel_split(whole, ("edge_mlp_bwd_edges", "inverse_adjacency",
+                                 "edge_mlp_bwd_sum"), 5)
+    fn_bound = bound(nbytes(y, idx, ab, w1b, g[:, 1:], dy, dw1, dab),
+                     2 * flops, BF16_TC_OPS_PER_S)
+    floor = bound(nbytes(g[:, 1:], e[:, 1:], e[:, 1:], s, s, dy, idx, off,
+                         lst))
+    print(f"  the whole backward (#28): {device_ms(whole, 5):.4f} ms "
+          f"[{median_ms(whole):.4f}] (kernels: phase 1 "
+          f"{split['edge_mlp_bwd_edges']:.4f}, inverse adjacency "
+          f"{split['inverse_adjacency']:.4f}, phase 2 "
+          f"{split['edge_mlp_bwd_sum']:.4f}), plain "
+          f"{device_ms(lambda: ops.edge_mlp_bwd_plain(y, a0, b0, w1, idx, g)):.4f}"
+          f" ms, library {device_ms(lib_bwd):.4f} ms; the function's bound "
+          f"{fn_bound[0]:.4f} ms ({fn_bound[1]}), the design's byte floor "
+          f"{floor[0]:.4f} ms", flush=True)
 
 
 def matmul_max_phase(res, rng, dev, card):
@@ -3828,8 +3958,11 @@ def path_device_times(seed, dev, card):
     bf16 forward (N=8192, coefficient form), the large-cloud bf16 step,
     the large-cloud f32 forward, a 32-cloud f32 classification forward
     (exact kNN), the f32 classification step (reference recipe), a
-    32-cloud int8 classification forward (approximate kNN), 16-cloud
-    bf16 and int8 segmentation forwards (approximate kNN, categories), and
+    32-cloud int8 classification forward (approximate kNN), the bf16
+    segmentation train step (bench.py's seg train config) with conv0 on
+    each branch (``_EDGE_FUSED_TRAIN`` on: the edge MLP; off: the edge
+    tensor) with its peak memory, 16-cloud bf16 and int8 segmentation
+    forwards (approximate kNN, categories), and
     an f32 eval forward + backward in the positions and normals of 32
     classification clouds (dense) and of 4 large clouds (coefficient
     form, approximate kNN), each after PATH_WARMUP calls. Public functions
@@ -3904,6 +4037,33 @@ def path_device_times(seed, dev, card):
     times["classification f32 step"] = device_ms(
         lambda: step(state, batch, gen))
     del state, step, model, batch
+    # The bf16 segmentation step, conv0 on each branch (the edge MLP,
+    # #27 + #28, with _EDGE_FUSED_TRAIN; its edge tensor without), with its
+    # peak memory.
+    dc = importlib.import_module("deltaconv_tpu_torch.nn.deltaconv")
+    batch = seg_train_batch(rng, dev, [SEG_N] * SEG_B)
+    try:
+        for fused in (True, False):
+            dc._EDGE_FUSED_TRAIN = fused
+            model = random_seg_model(seed, dev, "approx", affine=False,
+                                     precision="bfloat16")
+            state = create_train_state(model, sgd_momentum(SEG_LR))
+            step = make_train_step(model, smoothing=0.0, per_point=True)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            for _ in range(PATH_WARMUP):
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            what = (f"segmentation bf16 step, conv0 "
+                    f"{'fused' if fused else 'reference'} ({SEG_B} clouds)")
+            peaks[what] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            times[what] = device_ms(lambda: step(state, batch, gen))
+            del state, step, model
+    finally:
+        dc._EDGE_FUSED_TRAIN = False
+    del batch
     model = random_seg_model(seed, dev, "approx")
     (uni, uni_n, uni_c), _ = seg_clouds(rng)
     for precision in ("bfloat16", "int8"):
@@ -3945,6 +4105,38 @@ def path_device_times(seed, dev, card):
         for label, ms in times.items()) + f"; card: {card}", flush=True)
 
 
+def edge_mlp_times(idx, dev):
+    """``[kernel-times]`` parts of the edge MLP at the segmentation train
+    shape (64 -> 64): ``ops.edge_mlp_fwd`` (#27) and ``ops.edge_mlp_bwd``
+    (#28, the whole backward), each in device time and by CUDA events,
+    with its bound. Public functions only (both trees have them)."""
+    from deltaconv_tpu_torch import ops
+
+    y, a0, b0, w1, z0 = edge_inputs(idx, dev)
+    b, n, k = idx.shape
+    g = torch.randn((b, k, n, EDGE_C), device=dev).to(torch.bfloat16)
+    edges = float(b * n * (k - 1))
+    ab, w1b = torch.stack([a0, b0]), w1.to(torch.bfloat16)
+
+    def fwd():
+        return ops.edge_mlp_fwd(y, a0, b0, w1, z0, idx)
+
+    def bwd():
+        return ops.edge_mlp_bwd(y, a0, b0, w1, idx, g)
+
+    flops = 2.0 * edges * EDGE_C * EDGE_C
+    bounds = (bound(nbytes(y, idx, ab, w1b, z0, fwd()), flops,
+                    BF16_TC_OPS_PER_S)[0],
+              bound(nbytes(y, idx, ab, w1b, g[:, 1:], *bwd()), 2 * flops,
+                    BF16_TC_OPS_PER_S)[0])
+    return [f"{name} B={b} N={n} K={k} {EDGE_C}->{EDGE_C} "
+            f"{device_ms(fn, 5):.4f} (events {median_ms(fn):.4f}; bound "
+            f"{bd:.4f})"
+            for name, fn, bd in (("edge_delta_mlp", fwd, bounds[0]),
+                                 ("edge_delta_mlp_bwd (whole backward)", bwd,
+                                  bounds[1]))]
+
+
 def kernel_times(seed, dev, card):
     """``[kernel-times]``: the device time (profiler, :func:`device_ms`)
     of one call of the redesigned kernels' public wrappers at the shapes
@@ -3962,7 +4154,8 @@ def kernel_times(seed, dev, card):
     graphs and the plain max's winners; ``ops.gather_sum_fwd`` at C=SUM_C
     (B=32, N=1024; B=4, N=8192) and ``ops.fused_gather_wls`` (B=32,
     N=1024, K=20; B=16, N=2048, K=30), each also by events, with its
-    bound; ``ops.wls`` at the three
+    bound; the edge MLP at B=16, N=2048, K=30 (:func:`edge_mlp_times`);
+    ``ops.wls`` at the three
     forwards' shapes (B=32, N=1024, K=20; B=16, N=2048, K=30; B=4, N=8192,
     K=20) and ``ops.wls_bwd`` at the backwards' (B=32, N=1024 and B=4,
     N=8192), each also by events, with its bound and the plain version's
@@ -4079,6 +4272,8 @@ def kernel_times(seed, dev, card):
                 f"{wls_bound(edges, is_bwd)[0]:.4f}; plain "
                 f"{device_ms(plain, 2):.4f})")
         del edges, ctg, ctd
+        if (b, n, k) == (SEG_B, SEG_N, SEG_K):
+            parts += edge_mlp_times(idx, dev)
     parts += gather_rows_times(rng, dev)
     print("[kernel-times] device ms of one call (profiler): "
           + "; ".join(parts) + f"; card: {card}", flush=True)
@@ -5528,7 +5723,7 @@ def train_seg_bf16_phase(rng, seed, dev, card):
                   f"mean of last 5 {last:.4f} < mean of first 5 {first:.4f}")
             for name in path:
                 check(f"{name} launched", c[name] > 0, f"{c[name]} launches")
-            for name in ("edge_delta_mlp", "edge_delta_mlp_bwd"):
+            for name in EDGE_STEP_KERNELS:
                 per = int(fused)
                 check(f"{name} {per} a step", c[name] == per * SEG_TRAIN_STEPS,
                       f"{c[name]} launches in {SEG_TRAIN_STEPS} steps")

@@ -35,7 +35,7 @@ namespace {
 
 // dh = acc rounded to f32 (nearest even), two elements a thread (one
 // for the last of an odd count): the last step of the backward kernels
-// that sum in an f64 accumulator (gather_max.cu, edge_mlp.cu).
+// that sum in an f64 accumulator (gather_max.cu).
 __global__ void round_f64_kernel(const double* __restrict__ acc,
                                  float* __restrict__ dh, long long total) {
   const long long pairs = (total + 1) / 2;

@@ -62,7 +62,10 @@
 //    counts and each warp writes its edges at their places, so that every
 //    list is ascending with no sort, then writes the lists. No global
 //    atomics; the result does not depend on the order of the
-//    shared-memory ones.
+//    shared-memory ones. In its clamp mode (the edge MLP's backward,
+//    edge_mlp.cu) an index is read as JAX's indexing reads it: a negative
+//    one counts from the end (+ n_out), then it is clamped to [0, n_out),
+//    so every edge is listed.
 // 2. scatter_rows (dc_scatter_rows): a group of G lanes (G = 32 from 32
 //    vector slots of channels up) owns one output row (b, m) and a tile
 //    of channels, reads its edges' rows of g through g's strides, 16-byte
@@ -263,6 +266,16 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// Row of an index: itself, or in the clamp mode JAX's reading of it.
+template <bool kClamp>
+__device__ __forceinline__ int inv_row(int j, int n_out) {
+  if constexpr (kClamp) {
+    if (j < 0) j += n_out;
+    return j < 0 ? 0 : (j >= n_out ? n_out - 1 : j);
+  }
+  return j;
+}
+
 // One pass of warp w over its share of a cloud's edges, edges [start,
 // end) with start = w * span: lane l takes V consecutive edges of each
 // 32 V, kInvUnroll such loads in flight. It counts the edges that point
@@ -270,9 +283,9 @@ __device__ __forceinline__ int warp_sum(int v) {
 // (cw), and stages the tile's edges (id and row) in ascending edge order
 // in the warp's region, as far as it holds kInvStage; `staged` (warp
 // uniform) counts them all.
-template <int V>
+template <int V, bool kClamp>
 __device__ __forceinline__ void stage_edges(const int* __restrict__ ib,
-                                            int NK, int t0, int T,
+                                            int NK, int n_out, int t0, int T,
                                             int& below, int& staged,
                                             int* __restrict__ cw,
                                             int* __restrict__ se,
@@ -297,6 +310,9 @@ __device__ __forceinline__ void stage_edges(const int* __restrict__ ib,
 #pragma unroll
     for (int u = 0; u < kInvUnroll; ++u) {
       int mine = 0;
+      if (e0 + (u * 32 + lane) * V < end)  // not the -1 past the share
+#pragma unroll
+        for (int c = 0; c < V; ++c) j[u][c] = inv_row<kClamp>(j[u][c], n_out);
 #pragma unroll
       for (int c = 0; c < V; ++c) {
         below += (unsigned)j[u][c] < (unsigned)t0;
@@ -361,6 +377,7 @@ __device__ __forceinline__ void warp_sort_list(const int* list, int L,
 // kInvWarpMax by the whole block). The last tile writes the total and
 // the -1 tail. No global atomics; the result does not depend on the order
 // of the shared-memory ones.
+template <bool kClamp>
 __global__ void __launch_bounds__(kInvThreads)
 inverse_adjacency_kernel(const int* __restrict__ idx,
                          int* __restrict__ offsets,
@@ -387,11 +404,13 @@ inverse_adjacency_kernel(const int* __restrict__ idx,
   __syncthreads();
   int below = 0, staged = 0;  // staged: warp-uniform
   if ((reinterpret_cast<uintptr_t>(ib) & 15) == 0 && NK % 4 == 0)
-    stage_edges<4>(ib, NK, t0, T, below, staged, my_cw,
-                   stage_e + warp * kInvStage, stage_r + warp * kInvStage);
+    stage_edges<4, kClamp>(ib, NK, n_out, t0, T, below, staged, my_cw,
+                           stage_e + warp * kInvStage,
+                           stage_r + warp * kInvStage);
   else
-    stage_edges<1>(ib, NK, t0, T, below, staged, my_cw,
-                   stage_e + warp * kInvStage, stage_r + warp * kInvStage);
+    stage_edges<1, kClamp>(ib, NK, n_out, t0, T, below, staged, my_cw,
+                           stage_e + warp * kInvStage,
+                           stage_r + warp * kInvStage);
   below = warp_sum(below);
   if (lane == 0) red[warp] = below;
   __syncthreads();
@@ -446,7 +465,7 @@ inverse_adjacency_kernel(const int* __restrict__ idx,
     for (int i = tid; i < T; i += kInvThreads) cursor[i] = 0;
     __syncthreads();
     for (int e = tid; e < NK; e += kInvThreads) {
-      const int r = ib[e] - t0;
+      const int r = inv_row<kClamp>(ib[e], n_out) - t0;
       if ((unsigned)r < (unsigned)T) sb[off[r] + atomicAdd(cursor + r, 1)] = e;
     }
     __syncthreads();  // the scratch lists are written (and visible)
@@ -640,10 +659,30 @@ extern "C" int dc_gather_rows(const void* table, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// scratch [B, N * K] i32: the unordered lists.
+namespace {
+
+template <bool kClamp>
+int launch_inverse_adjacency(const int* idx, int* offsets, int* scratch,
+                             int* edges, int B, int N, int K, int n_out,
+                             cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      inverse_adjacency_kernel<kClamp>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kInvSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned int)((n_out + kInvTile - 1) / kInvTile), B);
+  inverse_adjacency_kernel<kClamp><<<grid, kInvThreads, kInvSmem, st>>>(
+      idx, offsets, scratch, edges, N, K, n_out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// scratch [B, N * K] i32: the unordered lists; clamp: read each index as
+// JAX's indexing does (a negative one from the end, then clamped), so
+// that every edge is listed.
 extern "C" int dc_inverse_adjacency(const void* idx, void* offsets,
                                     void* scratch, void* edges, int B, int N,
-                                    int K, int n_out, int device,
+                                    int K, int n_out, int clamp, int device,
                                     void* stream) {
   DC_SET_DEVICE(device);
   cudaStream_t st = (cudaStream_t)stream;
@@ -655,15 +694,12 @@ extern "C" int dc_inverse_adjacency(const void* idx, void* offsets,
       err = cudaMemsetAsync(edges, 0xff, sizeof(int) * B * NK, st);
     return err == cudaSuccess ? (int)cudaGetLastError() : (int)err;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      inverse_adjacency_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kInvSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned int)((n_out + kInvTile - 1) / kInvTile), B);
-  inverse_adjacency_kernel<<<grid, kInvThreads, kInvSmem, st>>>(
-      (const int*)idx, (int*)offsets, (int*)scratch, (int*)edges, N, K,
-      n_out);
-  return (int)cudaGetLastError();
+  return clamp ? launch_inverse_adjacency<true>(
+                     (const int*)idx, (int*)offsets, (int*)scratch,
+                     (int*)edges, B, N, K, n_out, st)
+               : launch_inverse_adjacency<false>(
+                     (const int*)idx, (int*)offsets, (int*)scratch,
+                     (int*)edges, B, N, K, n_out, st);
 }
 
 // g's strides (in floats) for b, c, k, n; out [B, n_out, C] is written

@@ -55,7 +55,10 @@ from .gather_max import (bn_lrelu_epilogue, gather_matmul_max,
                          gather_minmax_win_plain, int8_quantize,
                          masked_nbr_max)
 from .edge_mlp import (edge_delta_mlp, edge_delta_mlp_plain, edge_mlp_bwd,
-                       edge_mlp_bwd_plain, edge_mlp_fwd, edge_mlp_fwd_plain)
+                       edge_mlp_bwd_edges, edge_mlp_bwd_edges_plain,
+                       edge_mlp_bwd_plain, edge_mlp_bwd_sum,
+                       edge_mlp_bwd_sum_plain, edge_mlp_fwd,
+                       edge_mlp_fwd_plain)
 from .fused_build import (fused_dense_build, fused_gather_wls,
                           fused_gather_wls_plain)
 from .gather_mlp_max import (gather_max_merge, gather_max_merge_plain,
@@ -81,7 +84,9 @@ __all__ = ["CoefPlan", "KERNEL_OPS", "PLAIN_OPS", "Ops", "adjacency",
            "densify_bwd", "densify_bwd_plain", "densify_coefs",
            "densify_coefs_int8", "densify_coefs_int8_plain",
            "densify_coefs_plain", "edge_delta_mlp", "edge_delta_mlp_plain",
-           "edge_mlp_bwd", "edge_mlp_bwd_plain", "edge_mlp_fwd",
+           "edge_mlp_bwd", "edge_mlp_bwd_edges", "edge_mlp_bwd_edges_plain",
+           "edge_mlp_bwd_plain", "edge_mlp_bwd_sum", "edge_mlp_bwd_sum_plain",
+           "edge_mlp_fwd",
            "edge_mlp_fwd_plain", "fused_dense_build", "fused_gather_wls",
            "fused_gather_wls_plain", "gather_matmul_max",
            "gather_matmul_max_int8", "gather_matmul_max_int8_plain",

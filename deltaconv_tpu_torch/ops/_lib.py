@@ -102,7 +102,7 @@ _KERNELS = {
                                [_P] * 5 + [_I] * 6),
     "gather_matmul_max_int8_kfold": ("dc_gather_matmul_max_int8_kfold",
                                      [_P] * 5 + [_I] * 5),
-    "inverse_adjacency": ("dc_inverse_adjacency", [_P] * 4 + [_I] * 4),
+    "inverse_adjacency": ("dc_inverse_adjacency", [_P] * 4 + [_I] * 5),
     "scatter_rows": ("dc_scatter_rows", [_P] * 4 + [_I] * 5 + [_L] * 4),
     "coef_apply_grad": ("dc_coef_apply_grad", [_P] * 4 + [_I] * 5),
     "coef_apply_div": ("dc_coef_apply_div", [_P] * 4 + [_I] * 5),
@@ -116,7 +116,8 @@ _KERNELS = {
     "knn_topk_bucketed": ("dc_knn_topk_bucketed", [_P] * 9 + [_I] * 7),
     "knn_topk_bucketed_q": ("dc_knn_topk_bucketed_q", [_P] * 9 + [_I] * 7),
     "edge_delta_mlp": ("dc_edge_mlp_fwd", [_P] * 6 + [_I] * 5),
-    "edge_delta_mlp_bwd": ("dc_edge_mlp_bwd", [_P] * 9 + [_I] * 6),
+    "edge_delta_mlp_bwd": ("dc_edge_mlp_bwd_edges", [_P] * 9 + [_I] * 6),
+    "edge_delta_mlp_bwd_sum": ("dc_edge_mlp_bwd_sum", [_P] * 5 + [_I] * 4),
     "gather_minmax": ("dc_gather_minmax", [_P] * 5 + [_I] * 4),
     "gather_minmax_bf16": ("dc_gather_minmax_bf16", [_P] * 5 + [_I] * 4),
     "gather_minmax_win": ("dc_gather_minmax_win", [_P] * 7 + [_I] * 4),

@@ -20,12 +20,15 @@ lists each row's edges in ascending edge order, and the kernel sums them
 in that order with no float atomics, so two calls give the same bits. An
 index outside ``[0, n_out)`` adds nothing.
 
-``inverse_adjacency(idx, n_out)``: ``[B, N, K] -> offsets [B, n_out + 1]
-i32, edges [B, N * K] i32``, the CSR of the transposed neighbour lists:
-row ``m`` of cloud ``b`` takes the edges ``e = n * K + k`` listed in
-``edges[b, offsets[b, m]:offsets[b, m + 1]]``, ascending; an edge whose
-index lies outside ``[0, n_out)`` is listed nowhere, and the cloud's
-tail past ``offsets[b, n_out]`` holds one -1 for each.
+``inverse_adjacency(idx, n_out, clamp=False)``: ``[B, N, K] -> offsets
+[B, n_out + 1] i32, edges [B, N * K] i32``, the CSR of the transposed
+neighbour lists: row ``m`` of cloud ``b`` takes the edges ``e = n * K +
+k`` listed in ``edges[b, offsets[b, m]:offsets[b, m + 1]]``, ascending;
+an edge whose index lies outside ``[0, n_out)`` is listed nowhere, and
+the cloud's tail past ``offsets[b, n_out]`` holds one -1 for each. With
+``clamp`` an index is read as JAX's indexing reads it (a negative one
+counts from the end, then it is clamped to ``[0, n_out)``), so every
+edge is listed: the edge MLP's backward (:mod:`.edge_mlp`).
 
 Counterpart of ``deltaconv_tpu/ops/gather_rows.py``; the kernels are
 ``csrc/gather_rows.cu``.
@@ -80,12 +83,16 @@ def scatter_rows_plain(g: torch.Tensor, idx: torch.Tensor,
     return out.scatter_add_(1, flat, rows)
 
 
-def inverse_adjacency_plain(idx: torch.Tensor, n_out: int):
+def inverse_adjacency_plain(idx: torch.Tensor, n_out: int,
+                            clamp: bool = False):
     """The plain PyTorch version: a stable ``argsort`` of each cloud's
     destination keys (``n_out`` for an index outside ``[0, n_out)``,
-    which sorts last and is listed as -1)."""
+    which sorts last and is listed as -1; with ``clamp`` the index as JAX
+    reads it)."""
     b, n, k = idx.shape
     key = idx.reshape(b, n * k).long()
+    if clamp:
+        key = torch.where(key < 0, key + n_out, key).clamp(0, n_out - 1)
     key = torch.where((key >= 0) & (key < n_out), key, n_out)
     order = torch.argsort(key, dim=1, stable=True)
     counts = torch.zeros((b, n_out + 1), dtype=torch.long, device=idx.device)
@@ -97,27 +104,27 @@ def inverse_adjacency_plain(idx: torch.Tensor, n_out: int):
     return offsets, edges.to(torch.int32)
 
 
-def _launch_inverse_adjacency(idx, n_out, device):
+def _launch_inverse_adjacency(idx, n_out, device, clamp=False):
     b, n, k = idx.shape
     offsets = torch.empty((b, n_out + 1), dtype=torch.int32, device=device)
     scratch, edges = torch.empty((2, b, n * k), dtype=torch.int32,
                                  device=device)
     _lib.launch("inverse_adjacency", device, idx.data_ptr(),
                 offsets.data_ptr(), scratch.data_ptr(), edges.data_ptr(), b,
-                n, k, int(n_out))
+                n, k, int(n_out), int(clamp))
     return offsets, edges
 
 
-def inverse_adjacency(idx: torch.Tensor, n_out: int):
+def inverse_adjacency(idx: torch.Tensor, n_out: int, clamp: bool = False):
     """Plain version for CPU tensors; the ``inverse_adjacency`` kernel
     (a block a 256-row tile of a cloud: count, scan, fill, sort) for CUDA
     tensors."""
     if idx.device.type == "cpu":
-        return inverse_adjacency_plain(idx, n_out)
+        return inverse_adjacency_plain(idx, n_out, clamp)
     b, n, k = idx.shape
     device = _lib.check_inputs("inverse_adjacency", [
         ("idx", idx, torch.int32, (b, n, k))])
-    return _launch_inverse_adjacency(idx, n_out, device)
+    return _launch_inverse_adjacency(idx, n_out, device, clamp)
 
 
 def scatter_rows(g: torch.Tensor, idx: torch.Tensor,

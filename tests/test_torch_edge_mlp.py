@@ -24,6 +24,10 @@ Tolerances, and why:
   the same, with ``dy`` rounded to bf16 on both sides, so one bf16 ulp of
   an element more.
 - The masked maxes: bit-equal values and gradients (selections).
+- The backward's two phases (edge tensor and self rows, then the
+  destination-major sum): composed, bit-equal to the one-piece plain
+  backward (both add the same addends exactly in f64 and round once);
+  against numpy on exact-sum inputs, bit-equal; against JAX as above.
 """
 
 import importlib
@@ -237,6 +241,139 @@ def test_edge_mlp_pads_odd_widths_and_clamps_indices():
     got = ops.edge_mlp_fwd(*_targs(y, a0, b0, w1, z0), _t(idx))
     assert int(_bf16_ulps(got.float().numpy(),
                           np.asarray(want, np.float32)).max()) <= 1
+
+
+def _out_of_range(rng, idx):
+    """``idx`` with some slots >= 1 outside [0, N): negative ones (read
+    from the end, then clamped) and ones from N up (clamped)."""
+    idx = idx.copy()
+    sel = rng.random(idx.shape) < 0.1
+    sel[..., 0] = False
+    far = rng.integers(-2 * N, 2 * N, idx.shape).astype(np.int32)
+    idx[sel] = np.where((far >= 0) & (far < N), far + N, far)[sel]
+    return idx
+
+
+def _exact(rng, c0, c1):
+    """Inputs whose f32 sums are exact in any order (values on coarse
+    grids): every term of the backward is the same in any summation
+    order, so an independent numpy computation gives the same bits."""
+    def steps(shape, top, step):
+        return (rng.integers(-top, top + 1, shape) * step).astype(np.float32)
+
+    return (steps((B, N, c0), 32, 1 / 8), steps(c0, 16, 1 / 8),
+            steps(c0, 8, 1 / 8), steps((c0, c1), 16, 1 / 16),
+            steps((B, K, N, c1), 4, 1.0))
+
+
+def _clamped(idx):
+    return np.clip(np.where(idx < 0, idx + N, idx), 0, N - 1)
+
+
+@pytest.mark.parametrize("masked", GRAPHS, ids=["uniform", "masked"])
+@pytest.mark.parametrize("c0,c1", WIDTHS, ids=["12-12", "64-64"])
+def test_edge_mlp_bwd_phases_compose_to_the_model(c0, c1, masked):
+    """The backward's two plain phases (``edge_mlp_bwd_edges_plain``, then
+    ``edge_mlp_bwd_sum_plain`` over the inverse adjacency of the clamped
+    indices) give ``edge_mlp_bwd_plain``'s ``dy``, ``dw1`` and ``(da0,
+    db0)`` bit for bit, on indices that are negative or >= N too; slot 0
+    of the edge tensor is never read (NaN there changes nothing); the
+    kernel wrappers take the plain versions on CPU tensors."""
+    rng = np.random.default_rng(140 + c0 + masked)
+    y, a0, b0, w1, z0, idx = _data(rng, c0, c1, masked)
+    idx = _out_of_range(rng, idx)
+    g = rng.standard_normal((B, K, N, c1)).astype(np.float32)
+    args = (*_targs(y, a0, b0, w1, z0)[:4], _t(idx),
+            _t(g).to(torch.bfloat16))
+    dy, dw1, dab = ops.edge_mlp_bwd_plain(*args)
+    e, s, dw1_e, dab_e = ops.edge_mlp_bwd_edges_plain(*args)
+    assert e.dtype == torch.bfloat16 and e.shape == (B, K, N, c0)
+    assert s.dtype == torch.float64 and s.shape == (B, N, c0)
+    assert not bool(e[:, 0].any())
+    e[:, 0] = float("nan")
+    got = ops.edge_mlp_bwd_sum_plain(e, s, args[4])
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), dy.view(torch.int32))
+    assert torch.equal(dw1_e, dw1) and torch.equal(dab_e, dab)
+    assert torch.equal(ops.edge_mlp_bwd_sum(e, s, args[4]), got)
+    for a_, b_ in zip(ops.edge_mlp_bwd_edges(*args),
+                      (e, s, dw1_e, dab_e)):
+        assert torch.equal(a_[:, 1:] if a_.dim() == 4 else a_,
+                           b_[:, 1:] if b_.dim() == 4 else b_)
+
+
+@pytest.mark.parametrize("c0,c1", WIDTHS, ids=["12-12", "64-64"])
+def test_edge_tensor_and_self_rows_are_the_edge_terms(c0, c1):
+    """Phase 1's outputs against an independent numpy computation on
+    exact-sum inputs, indices outside [0, N) included: the edge tensor's
+    slot k >= 1 at point n is ``bf16(dy0)`` of edge (n, k) (``dy0 = dh
+    LeakyReLU'(pre) a0``, ``dh = g @ bf16(w1)^T``), slot 0 zero; the self
+    rows are each point's f64 sum of its unrounded ``dy0``."""
+    rng = np.random.default_rng(150 + c0)
+    idx = _out_of_range(rng, _graph(rng, True))
+    y, a0, b0, w1, g = _exact(rng, c0, c1)
+    e, s, _, _ = ops.edge_mlp_bwd_edges_plain(
+        _t(y).to(torch.bfloat16), _t(a0), _t(b0), _t(w1), _t(idx),
+        _t(g).to(torch.bfloat16))
+    nb = _clamped(idx)[:, :, 1:]
+    y0 = y[np.arange(B)[:, None, None], nb] - y[:, :, None, :]
+    pre = y0 * a0 + b0
+    dh = np.moveaxis(g[:, 1:], 1, 2) @ w1.T  # exact: grid values
+    dy0 = (dh * np.where(pre >= 0, 1.0, 0.2).astype(np.float32)
+           * a0).astype(np.float32)
+    want = np.asarray(jnp.asarray(dy0).astype(jnp.bfloat16), np.float32)
+    np.testing.assert_array_equal(e[:, 1:].float().numpy(),
+                                  np.moveaxis(want, 2, 1))
+    assert not bool(e[:, 0].float().any())
+    np.testing.assert_array_equal(s.numpy(),
+                                  dy0.astype(np.float64).sum(axis=2))
+
+
+@pytest.mark.parametrize("c0,c1", WIDTHS, ids=["12-12", "64-64"])
+def test_edge_mlp_bwd_phases_match_jax(c0, c1):
+    """The two plain phases composed against the JAX backward
+    (``_reference_bwd`` and the interpret ``_pallas_bwd``): ``dy`` within
+    BWD_REL x max plus one bf16 ulp of the largest edge term, as
+    ``test_edge_mlp_backward_matches_jax`` holds the one-piece backward,
+    on a masked graph (indices in [0, N): JAX's scatter drops the updates
+    of indices from N up, where its gather clamps them; the port clamps
+    both, as the composition tests above check)."""
+    rng = np.random.default_rng(160 + c0)
+    y, a0, b0, w1, z0, idx = _data(rng, c0, c1, True)
+    g = np.asarray(jnp.asarray(rng.standard_normal((B, K, N, c1)).astype(
+        np.float32)).astype(jnp.bfloat16), np.float32)
+    jy, ja0, jb0, jw1, jz0 = _jargs(y, a0, b0, w1, z0)
+    jidx, jg = jnp.asarray(idx), jnp.asarray(g).astype(jnp.bfloat16)
+    ref = jax.jit(em._reference_bwd)(jy, ja0, jb0, jw1, jidx, jg)[0]
+    _, y0 = jax.jit(lambda *a: em._pallas_fwd(*a, jidx, TILE, True))(
+        jy, ja0, jb0, jw1, jz0)
+    interp = jax.jit(lambda st: em._pallas_bwd(st, ja0, jb0, jw1, jidx, jg,
+                                               N, TILE, True))(y0)[0]
+    targs = (*_targs(y, a0, b0, w1, z0)[:4], _t(idx),
+             _t(g).to(torch.bfloat16))
+    e, s, _, _ = ops.edge_mlp_bwd_edges_plain(*targs)
+    dy = ops.edge_mlp_bwd_sum_plain(e, s, targs[4]).numpy()
+    flip = _dy0_ulp(y, a0, b0, w1, idx, g)
+    for tag, want in (("reference", ref), ("interpret kernel", interp)):
+        _within(dy, want, BWD_REL, f"{tag} dy", flip)
+
+
+def test_inverse_adjacency_plain_clamp_mode():
+    """``inverse_adjacency_plain(..., clamp=True)`` against lists built
+    edge by edge from the indices as JAX reads them: every edge listed
+    once, under its clamped row, ascending."""
+    rng = np.random.default_rng(170)
+    idx = rng.integers(-2 * N, 2 * N, (B, N, K)).astype(np.int32)
+    offsets, edges = ops.inverse_adjacency_plain(_t(idx), N, clamp=True)
+    rows = _clamped(idx).reshape(B, N * K)
+    for b in range(B):
+        lists = [[] for _ in range(N)]
+        for e_, m in enumerate(rows[b]):
+            lists[m].append(e_)
+        want_off = np.cumsum([0] + [len(x) for x in lists])
+        np.testing.assert_array_equal(offsets[b].numpy(), want_off)
+        np.testing.assert_array_equal(edges[b].numpy(),
+                                      np.concatenate(lists))
 
 
 def _ties(rng, shape, dtype):

@@ -2147,7 +2147,8 @@ def _dy0_ulp(y, a0, b0, w1, idx, g):
 def test_edge_mlp_kernels_match_plain(cuda, c0, c1, masked):
     """``edge_delta_mlp`` forward (``_edge_fwd_held``) and backward against
     their plain versions at N=150 (a ragged last tile of 16 points) and
-    K=11 (two passes of the backward's 8 warps, the second partial): ``dy``
+    K=11 (the forward's 4 warps over 10 slots, 2 of them with one fewer):
+    ``dy``
     within 1e-5 x max plus one bf16 ulp of the largest edge term (the f32
     sums of ``dh`` run in another order, so an edge term may round to its
     bf16 neighbour),
@@ -2922,6 +2923,159 @@ def test_edge_mlp_dy_is_repeatable_and_exact(cuda, c0, c1, masked):
     dy_p, _, _ = ops.edge_mlp_bwd_plain(y, a0, b0, w1, idx, g)
     torch.cuda.synchronize()
     assert torch.equal(dy, dy_p), float((dy - dy_p).abs().max())
+
+
+# The redesigned edge MLP's kernels one by one: the forward, the backward's
+# phase 1 (edge tensor, self rows, partials) and phase 2 (the sum over the
+# inverse adjacency of the clamped indices).
+EDGE_WIDTHS = [(12, 12), (64, 64), (128, 128)]
+EDGE_N = 77  # a last tile of 13 points
+
+
+def _out_of_range(rng, idx, n):
+    """``idx`` with a tenth of its slots >= 1 moved outside ``[0, N)``:
+    negative ones (read from the end, then clamped) and ones from N up
+    (clamped)."""
+    k = idx.shape[-1]
+    if k == 1:
+        return idx
+    sel = rng.random(tuple(idx.shape)) < 0.1
+    sel[..., 0] = False
+    far = rng.integers(-2 * n, 2 * n, tuple(idx.shape)).astype(np.int32)
+    far = np.where((far >= 0) & (far < n), far + n, far)
+    return torch.where(torch.from_numpy(sel).to(idx.device),
+                       torch.from_numpy(far).to(idx.device), idx)
+
+
+@pytest.mark.parametrize("k", [1, 30])
+@pytest.mark.parametrize("c0,c1", EDGE_WIDTHS)
+def test_edge_mlp_fwd_kernel_shapes(cuda, c0, c1, k):
+    """The forward at N=77 (a last tile of 13 points), K=1 (slot 0 alone)
+    and K=30, widths 12 (padded to 16), 64 and 128, indices outside [0, N):
+    one launch, held by ``_edge_fwd_held`` (slot 0 bit-equal to
+    ``bf16(z0)``)."""
+    rng = np.random.default_rng(110 + c0 + k)
+    y, a0, b0, w1, z0, idx = _edge_mlp_inputs(rng, EDGE_N, k, c0, c1, True,
+                                              cuda)
+    idx = _out_of_range(rng, idx, EDGE_N)
+    reset_launch_counts()
+    out = ops.edge_mlp_fwd(y, a0, b0, w1, z0, idx)
+    torch.cuda.synchronize()
+    assert launch_counts()["edge_delta_mlp"] == 1
+    assert out.dtype == torch.bfloat16 and out.shape == (2, k, EDGE_N, c1)
+    _edge_fwd_held(out, y, a0, b0, w1, z0, idx)
+
+
+def _edge_terms_held(e, y, a0, b0, w1, idx, g):
+    """Phase 1's edge tensor held element by element as the forward's
+    output is (``_edge_fwd_held``): each ``bf16(dy0)`` of slots >= 1
+    within one bf16 ulp of the plain version's, or within the f32
+    summation bound of ``dh = g @ w1^T``, ``C1 * 2^-24 * (|g| @ |w1|^T)``
+    times ``|dpre / dh| |a0|``, plus one bf16 ulp, of the exact (f64) term
+    of the same inputs (where ``dh`` cancels, its f32 sums in another order
+    move the term by more than an ulp of itself)."""
+    from deltaconv_tpu_torch.ops.edge_mlp import _edges
+
+    want = ops.edge_mlp_bwd_edges_plain(y, a0, b0, w1, idx, g)[0][:, 1:]
+    _, pre = _edges(y, a0, b0, idx)
+    scale = (torch.where(pre[:, :, 1:] >= 0, 1.0, 0.2) * a0).double()
+    g1 = g[:, 1:].double().permute(0, 2, 1, 3)
+    wd = w1.to(torch.bfloat16).double()
+    exact = ((g1 @ wd.t()) * scale).permute(0, 2, 1, 3)
+    mag = ((g1.abs() @ wd.abs().t()) * scale.abs()).permute(0, 2, 1, 3)
+    got = e[:, 1:].double()
+    tol = w1.shape[1] * 2.0 ** -24 * mag + 2.0 ** -8 * got.abs()
+    held = (_bf16_ulps(e[:, 1:], want) <= 1) | ((got - exact).abs() <= tol)
+    assert bool(held.all()), f"{int((~held).sum())} elements beyond both"
+
+
+@pytest.mark.parametrize("k", [1, 30])
+@pytest.mark.parametrize("c0,c1", EDGE_WIDTHS)
+def test_edge_mlp_bwd_edges_kernel(cuda, c0, c1, k):
+    """Phase 1 (``edge_delta_mlp_bwd``: the edge tensor ``e``, the f64
+    self rows, the partials of ``dw1`` and ``(da0, db0)``) against its
+    plain version at N=77, K=1 and 30, indices outside [0, N). Random
+    inputs: ``e``'s slots >= 1 held by ``_edge_terms_held`` (the f32 sums
+    of ``dh`` run in another order), the self rows, ``dw1`` and ``(da0,
+    db0)`` within 1e-5 x max. Exact-sum
+    inputs (``_edge_mlp_exact``): ``e`` and the self rows bit-equal."""
+    rng = np.random.default_rng(120 + c0 + k)
+    y, a0, b0, w1, _, idx = _edge_mlp_inputs(rng, EDGE_N, k, c0, c1, True,
+                                             cuda)
+    idx = _out_of_range(rng, idx, EDGE_N)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    g = torch.randn((2, k, EDGE_N, c1), device=cuda, generator=gen).to(
+        torch.bfloat16)
+    reset_launch_counts()
+    e, s, dw1, dab = ops.edge_mlp_bwd_edges(y, a0, b0, w1, idx, g)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["edge_delta_mlp_bwd"] == 1, counts
+    assert counts["edge_delta_mlp_bwd_sum"] == 0, counts
+    e_p, s_p, dw1_p, dab_p = ops.edge_mlp_bwd_edges_plain(y, a0, b0, w1, idx,
+                                                          g)
+    assert e.dtype == torch.bfloat16 and e.shape == (2, k, EDGE_N, c0)
+    assert s.dtype == torch.float64 and s.shape == (2, EDGE_N, c0)
+    _edge_terms_held(e, y, a0, b0, w1, idx, g)
+    _close_to_max(s, s_p, 1e-5)
+    _close_to_max(dw1, dw1_p, 1e-5)
+    _close_to_max(dab, dab_p, 1e-5)
+
+    y, a0, b0, w1, _, g = _edge_mlp_exact(rng, EDGE_N, k, c0, c1, True, cuda)
+    e, s, _, _ = ops.edge_mlp_bwd_edges(y, a0, b0, w1, idx, g)
+    e_p, s_p, _, _ = ops.edge_mlp_bwd_edges_plain(y, a0, b0, w1, idx, g)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(e[:, 1:]), _bits(e_p[:, 1:]))
+    assert torch.equal(s, s_p)
+
+
+@pytest.mark.parametrize("k", [1, 30])
+@pytest.mark.parametrize("c0", [12, 64, 128])
+def test_edge_mlp_bwd_sum_kernel(cuda, c0, k):
+    """Phase 2 (the inverse adjacency in its clamp mode, then
+    ``edge_delta_mlp_bwd_sum``) against its plain version on the same
+    ``e`` and self rows (f32 values, so every sum is exact in f64): ``dy``
+    bit-equal, and the same bits in a second call; indices outside [0, N);
+    slot 0 of ``e`` is never read (NaN there)."""
+    rng = np.random.default_rng(130 + c0 + k)
+    *_, idx = _edge_mlp_inputs(rng, EDGE_N, k, c0, c0, True, cuda)
+    idx = _out_of_range(rng, idx, EDGE_N)
+    e = torch.from_numpy(rng.standard_normal((2, k, EDGE_N, c0)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    e[:, 0] = float("nan")
+    s = torch.from_numpy(rng.standard_normal((2, EDGE_N, c0)).astype(
+        np.float32)).double().to(cuda)
+    reset_launch_counts()
+    dy = ops.edge_mlp_bwd_sum(e, s, idx)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["edge_delta_mlp_bwd_sum"] == 1, counts
+    assert counts["inverse_adjacency"] == 1, counts
+    want = ops.edge_mlp_bwd_sum_plain(e.cpu(), s.cpu(), idx.cpu())
+    assert dy.dtype == torch.float32 and dy.shape == (2, EDGE_N, c0)
+    assert torch.equal(dy.cpu(), want), float((dy.cpu() - want).abs().max())
+    assert torch.equal(ops.edge_mlp_bwd_sum(e, s, idx), dy)
+
+
+def test_inverse_adjacency_clamp_mode_exact(cuda):
+    """The inverse adjacency's clamp mode (the edge MLP's): indices read as
+    JAX reads them (a negative one from the end, then clamped), so every
+    edge is listed, ascending, under its row; equal to the plain version
+    with ``clamp``, a hub row included."""
+    rng = np.random.default_rng(62)
+    n = 150
+    idx = torch.from_numpy(
+        rng.integers(-2 * n, 2 * n, (3, n, 9)).astype(np.int32)).to(cuda)
+    idx[:, :, 1] = 3
+    reset_launch_counts()
+    got = ops.inverse_adjacency(idx, n, clamp=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["inverse_adjacency"] == 1
+    want = ops.inverse_adjacency_plain(idx, n, clamp=True)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.int32
+        assert torch.equal(a, w)
+    assert bool((got[1] >= 0).all()) and bool((got[0][:, -1] == n * 9).all())
 
 
 # -- the winner-routed backward's two routes: S (shared sums), D (direct) ----

@@ -265,7 +265,7 @@ def test_cpu_tensors_take_the_plain_versions():
         "coef_plan_order": 0, "coef_plan_runs": 0, "knn_topk_table": 0,
         "knn_topk_table_q": 0, "knn_topk_bucketed": 0,
         "knn_topk_bucketed_q": 0, "edge_delta_mlp": 0,
-        "edge_delta_mlp_bwd": 0, "wls_bwd": 0, "wls_bwd_direct": 0,
+        "edge_delta_mlp_bwd": 0, "edge_delta_mlp_bwd_sum": 0, "wls_bwd": 0, "wls_bwd_direct": 0,
         "densify_bwd": 0, "coef_cotangent": 0,
         "fused_gather_wls": 0, "fused_gather_wls_direct": 0,
         "knn_topk_mean_dist": 0,
