@@ -8,7 +8,7 @@ directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
 
 1. requires a card and prints its ``nvidia-smi`` name and power limit;
-2. builds the sixty-nine CUDA kernels from ``deltaconv_tpu_torch/csrc``;
+2. builds the seventy-four CUDA kernels from ``deltaconv_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes of the serving paths and the train steps (B=32, N=1024,
    K=20; C = 64, 128, 256 for the neighbour max and sum; the bf16 maxes
@@ -49,7 +49,18 @@ first on ``sys.path``. It
    (by shape; its affine rows read from device memory) and route D (``gather_max_affine_direct``, forced), on
    the kNN graph and on hard rows (no valid slot, a masked slot 0, ids
    outside the cloud, a NaN), bit-equal to the plain version and across
-   two calls, each timed; ``[wls-routes]``: wls at B=32, N=1024, K=20,
+   two calls, each timed; ``[minmax-routes]``: the neighbour min/max
+   (gather_minmax, with winners gather_minmax_win, f32 at C = 64, 128,
+   256 and bf16 at 64, 128) at B=32, N=1024 and B=4, N=8192 through
+   route S (by shape: the staged min/max) and route D (``_direct``,
+   forced), on the kNN graph and on hard rows, values and winners
+   bit-equal to the plain version and across two calls, each timed by
+   CUDA events and in device time beside the plain version, the library
+   call and the bound, and gather_matmul_minmax (128 -> 256) at both
+   shapes through the one-product-a-row route and the K-fold route
+   (``gather_matmul_minmax_kfold``), bit-equal to each other and on
+   exact sums to the plain version, each timed; ``[wls-routes]``: wls at
+   B=32, N=1024, K=20,
    B=16, N=2048, K=30 and B=4, N=8192, K=20 and wls_bwd at the first and
    the last, on kNN graphs with a padded cloud, through the split route
    (by shape) and the direct route (``wls_direct``, ``wls_bwd_direct``,
@@ -361,19 +372,19 @@ first on ``sys.path``. It
 27. ``[matmul-max-kfold]``: one cloud of 10,200 points (above the
     one-product-a-row kernels' 10,038 at C_in = 128 in bf16 and 10,166 in
     int8): gather_matmul_max with the epilogue, gather_matmul_max_train
-    forward and backward, and gather_matmul_max_int8 launch
-    ``gather_matmul_max_kfold``, ``gather_matmul_max_win_kfold`` and
-    ``gather_matmul_max_int8_kfold`` once each, exact sums bit-equal to
-    the plain versions;
+    forward and backward, gather_matmul_max_int8 and gather_matmul_minmax
+    launch ``gather_matmul_max_kfold``, ``gather_matmul_max_win_kfold``,
+    ``gather_matmul_max_int8_kfold`` and ``gather_matmul_minmax_kfold``
+    once each, exact sums bit-equal to the plain versions;
 28. ``[max-direct]``: one cloud of 14,600 points (above route S's
     14,526 and the backward's 14,528): ``ops.gather_max`` on f32 and bf16
-    features, without and with grad, ``ops.gather_minmax`` with grad and
-    ``ops.gather_max_int8`` launch each body's route D kernels once and
-    route S never, ``ops.gather_max_affine`` (bf16, with and without the
-    self row) ``gather_max_affine_direct`` twice and ``ops.gather_sum``
-    (f32, without and with grad: the streaming route)
-    ``gather_sum_direct`` twice, forward and backward bit-equal to the
-    plain versions;
+    features, without and with grad, ``ops.gather_minmax`` without and
+    with grad and ``ops.gather_max_int8`` launch each body's route D
+    kernels once and route S never, ``ops.gather_max_affine`` (bf16,
+    with and without the self row) ``gather_max_affine_direct`` twice
+    and ``ops.gather_sum`` (f32, without and with grad: the streaming
+    route) ``gather_sum_direct`` twice, forward and backward bit-equal to
+    the plain versions;
 29. ``[wls-direct]``: 4 clouds of 1024 points with 48 neighbours (above
     the WLS split route's 40): ``ops.wls`` on planes that require grad
     and its backward launch ``wls_direct`` and ``wls_bwd_direct`` once
@@ -399,8 +410,11 @@ first on ``sys.path``. It
     device time and by events, with their bounds; ``ops.gather_rows`` at
     the build's [B, 9, K, N] (B=32, N=1024; B=16, N=2048, K=30; B=4,
     N=8192), seg conv0's C=3 and a 4-rank shard's 16,384 rows against the
-    65,536-point table, in device time and by events, with their bounds)
-    and ``[device-times]`` (with the peak memory of the positions'
+    65,536-point table, in device time and by events, with their bounds;
+    ``ops.gather_minmax`` and ``ops.gather_minmax_win`` at f32 C=256 and
+    bf16 C=128 and ``ops.gather_matmul_minmax`` at 128 -> 256, B=32,
+    N=1024 and B=4, N=8192, in device time and by events, with their
+    bounds) and ``[device-times]`` (with the peak memory of the positions'
     forward + backward) on that checkout's
     package (this script copied
     into its root) and on this tree, in turns: parent, this, this,
@@ -601,6 +615,9 @@ AFFINE_WIDTHS = ((64, True), (64, False), (128, False))
 MAX_DIRECT_N = 14600
 MAX_DIRECT_KERNELS = ("gather_max_direct", "gather_max_win_direct",
                       "gather_max_bf16_direct", "gather_max_win_bf16_direct",
+                      "gather_minmax_direct", "gather_minmax_bf16_direct",
+                      "gather_minmax_win_direct",
+                      "gather_minmax_win_bf16_direct",
                       "gather_max_bwd_direct", "gather_max_bwd_bf16_direct",
                       "gather_minmax_bwd_direct",
                       "gather_minmax_bwd_bf16_direct",
@@ -722,6 +739,10 @@ MINMAX_RAGGED = 11  # ragged clouds of the [nbr-minmax] phase
 MINMAX_KERNELS = ("gather_minmax", "gather_minmax_bf16", "gather_minmax_win",
                   "gather_minmax_win_bf16", "gather_minmax_bwd",
                   "gather_minmax_bwd_bf16", "gather_matmul_minmax")
+# [minmax-routes]: the min/max's two routes (and the matmul form's) at the
+# classification shape of [nbr-minmax] and at the large clouds' (label, B,
+# N, K); the _direct routes' and the K-fold route's records at the first.
+MINMAX_ROUTE_SHAPES = (("cls", B, N, K), ("large", LARGE_B, LARGE_N, K))
 FUSED_PER_FORWARD = {"knn_topk_mean_dist": 1, "fused_gather_wls": 1,
                      "fused_gather_wls_direct": 0, "densify_bf16": 1,
                      "knn_topk": 0, "gather_rows": 0, "wls": 0}
@@ -886,6 +907,20 @@ KERNEL_META = {
                                "deltaconv_tpu/ops/gather_max.py:362"),
     "gather_matmul_minmax": ("deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
                              "deltaconv_tpu/ops/gather_max.py:792"),
+    # Route D of the min/max (the earlier kernel, a route by shape) and the
+    # matmul min/max's K-fold route above the rows kernel's limit.
+    "gather_minmax_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                             "deltaconv_tpu/ops/gather_max.py:474"),
+    "gather_minmax_bf16_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                                  "deltaconv_tpu/ops/gather_max.py:474"),
+    "gather_minmax_win_direct": ("deltaconv_tpu_torch/csrc/gather_max.cu",
+                                 "deltaconv_tpu/ops/gather_max.py:474"),
+    "gather_minmax_win_bf16_direct": (
+        "deltaconv_tpu_torch/csrc/gather_max.cu",
+        "deltaconv_tpu/ops/gather_max.py:474"),
+    "gather_matmul_minmax_kfold": (
+        "deltaconv_tpu_torch/csrc/gather_max_bf16.cu",
+        "deltaconv_tpu/ops/gather_max.py:792"),
 }
 # The port's autograd Functions, whose forward or backward launches a
 # kernel outside any aten op (the profiler books it to them).
@@ -993,6 +1028,14 @@ def bits_equal(a, b) -> bool:
     if a.dtype == torch.bfloat16:
         return torch.equal(a.view(torch.int16), b.view(torch.int16))
     return torch.equal(a, b)
+
+
+def raw_equal(a, b) -> bool:
+    """The same bits, NaN payloads included (f32 and bf16 viewed as
+    integers)."""
+    raw = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return torch.equal(a.view(raw.get(a.dtype, a.dtype)),
+                       b.view(raw.get(b.dtype, b.dtype)))
 
 
 def random_affine(gen_shape, dev):
@@ -2517,19 +2560,26 @@ def same_values(got, want) -> bool:
         torch.where(nan, 0.0, want.float()).to(want.dtype))
 
 
-def affine_want(h, idx, mask, aff, sub_self):
-    """``gather_max_affine_plain`` where ids outside [0, N) gather 0 (the
-    self row's too): on ``h`` with a zero row appended, those ids pointed
-    at it."""
-    from deltaconv_tpu_torch import ops
-
+def zero_row_inputs(h, idx, mask):
+    """``(h, idx, mask)`` for a plain version where ids outside [0, N)
+    gather 0: ``h`` with a zero row appended, those ids pointed at it,
+    and a point with no valid slot (its outputs dropped after)."""
     b, n, c = h.shape
     hp = torch.cat([h, torch.zeros((b, 1, c), dtype=h.dtype,
                                    device=h.device)], dim=1)
     ids = torch.where((idx < 0) | (idx >= n), n, idx)
     ids = torch.cat([ids, torch.zeros_like(ids[:, :1])], dim=1)
     valid = torch.cat([mask, torch.zeros_like(mask[:, :1])], dim=1)
-    return ops.gather_max_affine_plain(hp, ids, valid, aff, sub_self)[:, :n]
+    return hp, ids, valid
+
+
+def affine_want(h, idx, mask, aff, sub_self):
+    """``gather_max_affine_plain`` where ids outside [0, N) gather 0 (the
+    self row's too; :func:`zero_row_inputs`)."""
+    from deltaconv_tpu_torch import ops
+
+    return ops.gather_max_affine_plain(*zero_row_inputs(h, idx, mask), aff,
+                                       sub_self)[:, :h.shape[1]]
 
 
 def affine_routes_phase(res, rng, dev, card):
@@ -2621,6 +2671,198 @@ def affine_routes_phase(res, rng, dev, card):
                 res["gather_max_affine_direct"].update(
                     ms=t["D"][0], plain_ms=pl, library_ms=lib, bound=bd)
             del h, hard, want, got, again
+
+
+def minmax_want(h, idx, mask):
+    """``gather_minmax_win_plain`` where ids outside [0, N) gather 0
+    (:func:`zero_row_inputs`)."""
+    from deltaconv_tpu_torch import ops
+
+    return tuple(o[:, :h.shape[1]] for o in ops.gather_minmax_win_plain(
+        *zero_row_inputs(h, idx, mask)))
+
+
+def minmax_routes_phase(res, rng, dev, card):
+    """``[minmax-routes]``: the neighbour min/max (#10) at the widths of
+    its hook (f32 C = 64, 128, 256, bf16 64, 128, without and with
+    winners) at MINMAX_ROUTE_SHAPES, on ellipsoid clouds' kNN graphs and
+    on the same graph with hard rows (no valid slot, a masked slot 0, ids
+    outside the cloud in slot 0 and in the last slot, a row whose slots
+    all read one row) and a NaN feature: route S (by shape, the staged
+    min/max) and route D (``_direct``, forced), values and winners
+    bit-equal to the plain version (a NaN's payload aside) and across two
+    calls, each call's launch on its route; then on the kNN graph each
+    timed by CUDA events and in device time beside the plain version, the
+    library call (``index`` + ``aminmax``; with winners ``torch.max`` and
+    ``torch.min``) and the bound (h, idx, mask read once, the outputs
+    written once). Then the matmul min/max (#13) at 128 -> 256 at both
+    shapes through the one-product-a-row route (by shape) and the K-fold
+    route (``gather_matmul_minmax_kfold``, forced): held by
+    ``mm_minmax_held``, the two routes bit-equal, exact sums bit-equal to
+    the plain version, each timed the same way (the library call: a bf16
+    ``matmul``, ``index``, ``aminmax``). Route D and the K-fold route are
+    the parent tree's kernels. Its clouds come from a generator spawned
+    off ``rng``."""
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import knn
+
+    gm = importlib.import_module("deltaconv_tpu_torch.ops.gather_max")
+    rng = rng.spawn(1)[0]
+    print(f"[times] the neighbour min/max by route: S (the staged min/max, "
+          f"by shape) and D (direct, the parent's kernel), and the matmul "
+          f"min/max by route (one product a row, by shape; K-fold, the "
+          f"parent's kernel); per call, CUDA events (median of {REPS} "
+          f"samples of {INNER} calls) and device time (profiler); card: "
+          f"{card}", flush=True)
+    routes = {"S": None, "D": (0, 0)}
+    graphs = {}
+    for label, b, n, k in MINMAX_ROUTE_SHAPES:
+        clouds, _ = ellipsoid_clouds(rng, [n] * b)
+        idx, nbr_mask = knn(torch.from_numpy(np.stack(clouds)).to(dev), k)
+        graphs[label] = idx, nbr_mask
+        hidx, hmask = idx.clone(), nbr_mask.clone()
+        hmask[0, 4] = False  # no valid slot
+        hmask[0, 6, 0] = False  # a masked slot 0
+        hidx[0, 5, 0] = n + 3  # valid, outside the cloud
+        hidx[-1, 6, k - 1], hmask[-1, 6, k - 1] = -1, True
+        hidx[-1, 8], hmask[-1, 8] = 7, True  # every slot one row: all tie
+        bidx = torch.arange(b, device=dev)[:, None, None]
+        idx_l = idx.long()
+        for dt, widths in ((torch.float32, MINMAX_WIDTHS),
+                           (torch.bfloat16, MINMAX_BF16_WIDTHS)):
+            sfx = "_bf16" if dt == torch.bfloat16 else ""
+            for c in widths:
+                h = torch.randn((b, n, c), device=dev).to(dt)
+                hard = h.clone()
+                hard[-1, 7, c // 2] = float("nan")
+                for winners in (False, True):
+                    name = f"gather_minmax{'_win' if winners else ''}{sfx}"
+                    n_out = 4 if winners else 2
+
+                    def run(route, hh=h, gi=idx, gmk=nbr_mask,
+                            winners=winners):
+                        if winners:
+                            return gm._gather_minmax_win(hh, gi, gmk, route)
+                        return gm._minmax(hh, gi, gmk, route)
+
+                    for graph, gi, gmk, hh in (("kNN", idx, nbr_mask, h),
+                                               ("hard rows", hidx, hmask,
+                                                hard)):
+                        want = minmax_want(hh, gi, gmk)[:n_out]
+                        for tag, route in routes.items():
+                            kname = name + ("_direct" if tag == "D" else "")
+                            reset_launch_counts()
+                            got = run(route, hh, gi, gmk)
+                            again = run(route, hh, gi, gmk)
+                            torch.cuda.synchronize()
+                            counts = launch_counts()
+                            check(f"[minmax-routes] {label} {kname} C={c} "
+                                  f"{graph}, route {tag}",
+                                  all(same_values(g, v) for g, v in
+                                      zip(got[:2], want[:2]))
+                                  and all(torch.equal(g, v) for g, v in
+                                          zip(got[2:], want[2:]))
+                                  and all(raw_equal(g, a)
+                                          for g, a in zip(got, again))
+                                  and counts[kname] == 2
+                                  and sum(counts.values()) == 2,
+                                  f"values{' and winners' if winners else ''}"
+                                  f" bit-equal to plain and across two "
+                                  f"calls, launches "
+                                  f"{ {m: v for m, v in counts.items()
+                                       if v} }")
+                            if graph == "kNN":
+                                res[kname]["max_abs_err"] = max(
+                                    res[kname]["max_abs_err"],
+                                    *(max_err(g.float(), v.float())
+                                      for g, v in zip(got[:2], want[:2])))
+                    want = minmax_want(h, idx, nbr_mask)[:n_out]
+                    t = {tag: (median_ms(lambda: run(route)),
+                               device_ms(lambda: run(route), 5))
+                         for tag, route in routes.items()}
+                    pl = median_ms(lambda: (
+                        ops.gather_minmax_win_plain if winners
+                        else ops.gather_minmax_plain)(h, idx, nbr_mask), 5)
+                    if winners:
+                        def library():
+                            g = h[bidx, idx_l]
+                            return torch.max(g, dim=2), torch.min(g, dim=2)
+                    else:
+                        def library():
+                            return torch.aminmax(h[bidx, idx_l], dim=2)
+                    lib = median_ms(library)
+                    bd = bound(nbytes(h, idx, nbr_mask, *want))
+                    cs, splits = gm.max_slice(b, n, c, h.element_size(), k,
+                                              132, winners)
+                    print(f"  {label} {name} B={b} N={n} K={k} C={c}: route "
+                          f"S ({cs} channels, {splits} blocks a task) "
+                          f"{t['S'][0]:.4f} ms ({t['S'][1]:.4f} ms of device "
+                          f"time); route D {t['D'][0]:.4f} ({t['D'][1]:.4f}); "
+                          f"plain {pl:.4f}; library {lib:.4f}; bound "
+                          f"{bd[0]:.4f} ms ({bd[1]})", flush=True)
+                    if (b, n, c) == (B, N, MINMAX_BF16_C if sfx
+                                     else MINMAX_C):
+                        res[name + "_direct"].update(
+                            ms=t["D"][0], plain_ms=pl, library_ms=lib,
+                            bound=bd)
+                del h, hard
+
+    for label, b, n, k in MINMAX_ROUTE_SHAPES:
+        idx, nbr_mask = graphs[label]
+        bidx = torch.arange(b, device=dev)[:, None, None]
+        idx_l = idx.long()
+        x = torch.randn((b, n, MM_IN), device=dev).to(torch.bfloat16)
+        w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+        xe = (torch.randint(-32, 33, (b, n, MM_IN), device=dev) / 8.0
+              ).to(torch.bfloat16)
+        we = (torch.randint(-16, 17, (MM_IN, MM_OUT), device=dev) / 16.0
+              ).to(torch.bfloat16)
+        want_e = ops.gather_matmul_minmax_plain(xe, we, idx, nbr_mask)
+        got = {}
+        for cs, kname in ((None, "gather_matmul_minmax"),
+                          (0, "gather_matmul_minmax_kfold")):
+            reset_launch_counts()
+            got[cs] = gm._gather_matmul_minmax(x, w, idx, nbr_mask, cs)
+            again = gm._gather_matmul_minmax(x, w, idx, nbr_mask, cs)
+            exact = gm._gather_matmul_minmax(xe, we, idx, nbr_mask, cs)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            ok, detail = mm_minmax_held(got[cs], x, w, idx, nbr_mask)
+            check(f"[minmax-routes] {label} {kname} {MM_IN}->{MM_OUT}",
+                  ok and all(bits_equal(g, a) for g, a in zip(got[cs], again))
+                  and all(bits_equal(g, v) for g, v in zip(exact, want_e))
+                  and counts[kname] == 3 and sum(counts.values()) == 3,
+                  f"{detail}; a second call and exact sums bit-equal, "
+                  f"launches { {m: v for m, v in counts.items() if v} }")
+            res[kname]["max_abs_err"] = max(
+                res[kname]["max_abs_err"],
+                *(max_err(g.float(), v.float())
+                  for g, v in zip(exact, want_e)))
+        check(f"[minmax-routes] {label} gather_matmul_minmax, the two routes",
+              all(bits_equal(a, kf) for a, kf in zip(got[None], got[0])),
+              "bit-equal (the same tensor-core sums in the same order)")
+        t = {cs: (median_ms(lambda: gm._gather_matmul_minmax(
+            x, w, idx, nbr_mask, cs)), device_ms(
+                lambda: gm._gather_matmul_minmax(x, w, idx, nbr_mask, cs), 5))
+             for cs in (None, 0)}
+        pl = median_ms(lambda: ops.gather_matmul_minmax_plain(
+            x, w, idx, nbr_mask), 5)
+        lib = median_ms(lambda: torch.aminmax(torch.matmul(x, w)[bidx, idx_l],
+                                              dim=2))
+        # One product a row, as gather_matmul_max's bound counts.
+        bd = bound(nbytes(x, w, idx, nbr_mask, *got[None]),
+                   2.0 * b * n * MM_IN * MM_OUT, BF16_TC_OPS_PER_S)
+        print(f"  {label} gather_matmul_minmax B={b} N={n} K={k} "
+              f"{MM_IN}->{MM_OUT}: one product a row (slice "
+              f"{gm.mm_slice(b, n, MM_IN, MM_OUT, k, 132)}) "
+              f"{t[None][0]:.4f} ms ({t[None][1]:.4f} ms of device time); "
+              f"K-fold {t[0][0]:.4f} ({t[0][1]:.4f}); plain {pl:.4f}; "
+              f"library {lib:.4f}; bound {bd[0]:.4f} ms ({bd[1]})",
+              flush=True)
+        if b == B:
+            res["gather_matmul_minmax_kfold"].update(
+                ms=t[0][0], plain_ms=pl, library_ms=lib, bound=bd)
+        del x, xe
 
 
 def exact_cotangents(b, n, c, dt, dev):
@@ -3070,8 +3312,9 @@ def max_direct_phase(rng, dev):
     S's limits (no slice of 16-byte rows fits a block; the backward's
     sums would need more than two ranges of rows): ``ops.gather_max`` on
     f32 and bf16 features, without grad and with grad (forward and
-    backward), ``ops.gather_minmax`` with grad and ``ops.gather_max_int8``
-    launch each body's route D kernels once and route S never, and
+    backward), ``ops.gather_minmax`` without grad and with grad (forward
+    and backward) and ``ops.gather_max_int8`` launch each body's route D
+    kernels once and route S never, and
     ``ops.gather_max_affine`` (bf16, with and without the self row)
     ``gather_max_affine_direct`` twice, and ``ops.gather_sum`` (f32) without
     and with grad (the streaming route: above the adjacency budget)
@@ -3096,6 +3339,7 @@ def max_direct_phase(rng, dev):
         hg = h.clone().requires_grad_()
         out_g = ops.gather_max(hg, idx, nbr_mask)
         out_g.backward(g)
+        minmax = ops.gather_minmax(h, idx, nbr_mask)
         hm = h.clone().requires_grad_()
         mx, mn = ops.gather_minmax(hm, idx, nbr_mask)
         torch.autograd.backward((mx, mn), (g, g2))
@@ -3122,9 +3366,12 @@ def max_direct_phase(rng, dev):
               f"{ {n: c for n, c in counts.items() if c} }")
         direct = (f"gather_max{sfx}_direct", f"gather_max_win{sfx}_direct",
                   f"gather_max_bwd{sfx}_direct",
+                  f"gather_minmax{sfx}_direct",
+                  f"gather_minmax_win{sfx}_direct",
                   f"gather_minmax_bwd{sfx}_direct", "gather_max_int8_direct")
         staged = (f"gather_max{sfx}", f"gather_max_win{sfx}",
-                  f"gather_max_bwd{sfx}", f"gather_minmax_bwd{sfx}",
+                  f"gather_max_bwd{sfx}", f"gather_minmax{sfx}",
+                  f"gather_minmax_win{sfx}", f"gather_minmax_bwd{sfx}",
                   "gather_max_int8", "absmax")
         if eval_max:
             direct += ("gather_max_affine_direct",) * 2
@@ -3148,14 +3395,18 @@ def max_direct_phase(rng, dev):
               and bits_equal(out_g.detach(), want.detach())
               and bits_equal(hg.grad, hp.grad)
               and bits_equal(hm.grad, hmp.grad)
+              and all(bits_equal(a, v) for a, v in zip(
+                  minmax + (mx.detach(), mn.detach()),
+                  2 * ops.gather_minmax_plain(h, idx, nbr_mask)))
               and bits_equal(q, ops.gather_max_int8_plain(h, idx, nbr_mask))
               and all(bits_equal(got, ops.gather_max_affine_plain(
                   h, idx, nbr_mask, aff, sub_self))
                       for got, sub_self in zip(eval_max, (False, True)))
               and sums_ok,
               "the max forward with and without winners and its backward, "
-              "the min/max backward, the int8 max, the bf16 eval max, the "
-              "neighbour sum and its backward")
+              "the min/max forward with and without winners and its "
+              "backward, the int8 max, the bf16 eval max, the neighbour sum "
+              "and its backward")
         for name in MAX_DIRECT_KERNELS:
             total[name] += counts[name]
     return total
@@ -3494,6 +3745,7 @@ def kernel_phase(rng, dev, card):
     matmul_max_phase(res, rng, dev, card)
     max_routes_phase(res, rng, dev, card)
     affine_routes_phase(res, rng, dev, card)
+    minmax_routes_phase(res, rng, dev, card)
     bwd_routes_phase(res, rng, dev, card)
     wls_routes_phase(res, rng, dev, card)
     del seg_cases, cases
@@ -4154,7 +4406,10 @@ def kernel_times(seed, dev, card):
     graphs and the plain max's winners; ``ops.gather_sum_fwd`` at C=SUM_C
     (B=32, N=1024; B=4, N=8192) and ``ops.fused_gather_wls`` (B=32,
     N=1024, K=20; B=16, N=2048, K=30), each also by events, with its
-    bound; the edge MLP at B=16, N=2048, K=30 (:func:`edge_mlp_times`);
+    bound; ``ops.gather_minmax`` and ``ops.gather_minmax_win`` (f32 C=256,
+    bf16 C=128) and ``ops.gather_matmul_minmax`` (128 -> 256) at B=32,
+    N=1024 and B=4, N=8192, each also by events, with its bound; the edge
+    MLP at B=16, N=2048, K=30 (:func:`edge_mlp_times`);
     ``ops.wls`` at the three
     forwards' shapes (B=32, N=1024, K=20; B=16, N=2048, K=30; B=4, N=8192,
     K=20) and ``ops.wls_bwd`` at the backwards' (B=32, N=1024 and B=4,
@@ -4246,6 +4501,8 @@ def kernel_times(seed, dev, card):
             parts.append(f"fused_gather_wls B={b} N={n} K={k} "
                          f"{device_ms(call, 5):.4f} (events "
                          f"{median_ms(call):.4f}; bound {bd:.4f})")
+        if k == K:
+            parts += minmax_times(b, n, idx, nbr_mask, dev)
         for dt, widths in bwd:
             for c in widths:
                 h = torch.randn((b, n, c), device=dev)
@@ -4277,6 +4534,38 @@ def kernel_times(seed, dev, card):
     parts += gather_rows_times(rng, dev)
     print("[kernel-times] device ms of one call (profiler): "
           + "; ".join(parts) + f"; card: {card}", flush=True)
+
+
+def minmax_times(b, n, idx, nbr_mask, dev):
+    """``[kernel-times]`` entries of the min/max hooks' kernels on one kNN
+    graph: ``ops.gather_minmax`` and ``ops.gather_minmax_win`` at f32
+    C=MINMAX_C and bf16 C=MINMAX_BF16_C, ``ops.gather_matmul_minmax`` at
+    MM_IN -> MM_OUT: device time, CUDA events and the bound."""
+    from deltaconv_tpu_torch import ops
+
+    parts = []
+    for dt, c in ((torch.float32, MINMAX_C), (torch.bfloat16, MINMAX_BF16_C)):
+        h = torch.randn((b, n, c), device=dev).to(dt)
+        for fn in (ops.gather_minmax, ops.gather_minmax_win):
+            def call(fn=fn, h=h):
+                return fn(h, idx, nbr_mask)
+
+            bd = bound(nbytes(h, idx, nbr_mask, *call()))[0]
+            parts.append(f"{fn.__name__} B={b} N={n} C={c} {str(dt)[6:]} "
+                         f"{device_ms(call, 5):.4f} (events "
+                         f"{median_ms(call):.4f}; bound {bd:.4f})")
+    x = torch.randn((b, n, MM_IN), device=dev).to(torch.bfloat16)
+    w = (torch.randn((MM_IN, MM_OUT), device=dev) / 8).to(torch.bfloat16)
+
+    def call():
+        return ops.gather_matmul_minmax(x, w, idx, nbr_mask)
+
+    bd = bound(nbytes(x, w, idx, nbr_mask, *call()),
+               2.0 * b * n * MM_IN * MM_OUT, BF16_TC_OPS_PER_S)[0]
+    parts.append(f"gather_matmul_minmax B={b} N={n} {MM_IN}->{MM_OUT} "
+                 f"{device_ms(call, 5):.4f} (events {median_ms(call):.4f}; "
+                 f"bound {bd:.4f})")
+    return parts
 
 
 def rows_inputs(rng, dev):
@@ -4340,9 +4629,10 @@ def matmul_kfold_phase(rng, dev):
     """``[matmul-max-kfold]``: one cloud of MM_KFOLD_N points, above the
     one-product-a-row kernels' limit at C_in = 128 (bf16 and int8 x):
     ``gather_matmul_max`` with the epilogue, ``gather_matmul_max_train``
-    (forward and backward) and ``gather_matmul_max_int8`` launch the
-    K-fold kernels once each and the one-product-a-row kernels never;
-    exact-sum weights bit-equal to the plain versions. Its cloud comes
+    (forward and backward), ``gather_matmul_max_int8`` and
+    ``gather_matmul_minmax`` launch the K-fold kernels once each and the
+    one-product-a-row kernels never; exact-sum weights bit-equal to the
+    plain versions. Its cloud comes
     from a generator spawned off ``rng``."""
     from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
     from deltaconv_tpu_torch.geometry import knn
@@ -4364,6 +4654,7 @@ def matmul_kfold_phase(rng, dev):
     out = ops.gather_matmul_max_train(xg, w, idx, nbr_mask)
     out.float().sum().backward()
     int8 = ops.gather_matmul_max_int8(xq, w, idx, nbr_mask)
+    minmax = ops.gather_matmul_minmax(x, w, idx, nbr_mask)
     torch.cuda.synchronize()
     counts = launch_counts()
     print(f"[matmul-max-kfold] launches, N={MM_KFOLD_N}: "
@@ -4373,21 +4664,28 @@ def matmul_kfold_phase(rng, dev):
           counts["gather_matmul_max_kfold"] == 1
           and counts["gather_matmul_max_win_kfold"] == 1
           and counts["gather_matmul_max_int8_kfold"] == 1
+          and counts["gather_matmul_minmax_kfold"] == 1
           and counts["gather_matmul_max"] + counts["gather_matmul_max_win"]
-          + counts["gather_matmul_max_int8"] == 0
+          + counts["gather_matmul_max_int8"]
+          + counts["gather_matmul_minmax"] == 0
           and counts["gather_max_bwd_bf16"] == 1,
           f"{counts['gather_matmul_max_kfold']}, "
           f"{counts['gather_matmul_max_win_kfold']}, "
           f"{counts['gather_matmul_max_int8_kfold']}, "
+          f"{counts['gather_matmul_minmax_kfold']}, "
           f"{counts['gather_matmul_max']}, {counts['gather_matmul_max_win']}, "
-          f"{counts['gather_matmul_max_int8']}")
+          f"{counts['gather_matmul_max_int8']}, "
+          f"{counts['gather_matmul_minmax']}")
     check("[matmul-max-kfold] exact sums",
           bits_equal(fused, ops.gather_matmul_max_plain(x, w, idx, nbr_mask,
                                                         aff))
           and bits_equal(out.detach(), ops.gather_matmul_max_win_plain(
               x, w, idx, nbr_mask)[0])
           and bits_equal(int8, ops.gather_matmul_max_int8_plain(
-              xq, w, idx, nbr_mask)), "bit-equal to the plain versions")
+              xq, w, idx, nbr_mask))
+          and all(bits_equal(a, v) for a, v in zip(
+              minmax, ops.gather_matmul_minmax_plain(x, w, idx, nbr_mask))),
+          "bit-equal to the plain versions")
     return counts
 
 
@@ -7401,7 +7699,8 @@ def main():
                              (("knn_topk_rounds",), rounds),
                              (("gather_matmul_max_kfold",
                                "gather_matmul_max_win_kfold",
-                               "gather_matmul_max_int8_kfold"), kfold),
+                               "gather_matmul_max_int8_kfold",
+                               "gather_matmul_minmax_kfold"), kfold),
                              (MAX_DIRECT_KERNELS, direct),
                              (("wls_direct", "wls_bwd_direct",
                                "fused_gather_wls_direct"), wls_direct)):

@@ -1,8 +1,8 @@
 // The masked gather-then-matmul max on the tensor cores (the K-fold
-// form: a product a gathered slot), shared by the bf16 maxes' route above
-// ~10k points and gather_matmul_minmax (gather_max_bf16.cu) and the int8
-// serving kernel (gather_max_int8.cu), with the helpers of the BatchNorm
-// + LeakyReLU epilogue. The design and its bound are described in
+// form: a product a gathered slot), shared by the bf16 maxes' and
+// gather_matmul_minmax's route above ~10k points (gather_max_bf16.cu) and
+// the int8 serving kernel's (gather_max_int8.cu), with the helpers of the
+// BatchNorm + LeakyReLU epilogue. The design and its bound are described in
 // gather_max_bf16.cu; the input rows are bf16, or int8 widened to bf16
 // as they are gathered (exact: |v| <= 127).
 #pragma once
@@ -99,7 +99,7 @@ inline size_t mm_smem_bytes(int K, int Cin) {
 // kWinners: the train-mode form (bf16-rounded products, winner slots, no
 // epilogue: `aff` is null).
 // kMinMax: also the running min of each lane's cells, into `out_min`
-// (`gather_matmul_minmax`: no winners, no epilogue).
+// (`gather_matmul_minmax_kfold`: no winners, no epilogue).
 template <bool kWinners, typename Tin, bool kMinMax = false>
 __global__ void __launch_bounds__(kMmWarps * 32) gather_matmul_max_kernel(
     const Tin* __restrict__ x, const __nv_bfloat16* __restrict__ w,

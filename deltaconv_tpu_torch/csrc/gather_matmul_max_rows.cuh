@@ -146,6 +146,13 @@ __device__ __forceinline__ unsigned bf16x2_gt(unsigned a, unsigned b) {
   return r;
 }
 
+// 0xFFFF in each half where a < b (false where either is NaN).
+__device__ __forceinline__ unsigned bf16x2_lt(unsigned a, unsigned b) {
+  unsigned r;
+  asm("set.lt.u32.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
 __device__ __forceinline__ float bf16_half(unsigned word, int h) {
   return __uint_as_float(h ? (word & 0xFFFF0000u) : (word << 16));
 }
@@ -156,16 +163,21 @@ __device__ __forceinline__ float bf16_half(unsigned word, int h) {
 // compare and two selects a pair. With NaN (kNan): the rules of the
 // K-fold kernel, value by value: with winners a NaN is taken with winner
 // 0 and sticks; without, jnp.maximum (a NaN in either wins).
-template <bool kWinners, bool kNan>
+// kMin: the running min instead (strict `v < best`; without winners
+// jnp.minimum's NaN rule), and the slot is taken only where `ok` (false
+// for a masked slot, whose constant row of -inf would win every `<`).
+template <bool kWinners, bool kNan, bool kMin = false>
 __device__ __forceinline__ void take_slot(unsigned (&best)[4],
                                           unsigned (&win)[4], uint4 v4,
-                                          int k) {
+                                          int k, bool ok = true) {
   const unsigned v[4] = {v4.x, v4.y, v4.z, v4.w};
   const unsigned k2 = (unsigned)k * 0x00010001u;
+  const unsigned okm = kMin && !ok ? 0u : 0xFFFFFFFFu;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (!kNan) {
-      const unsigned gt = bf16x2_gt(v[i], best[i]);
+      const unsigned gt =
+          (kMin ? bf16x2_lt(v[i], best[i]) : bf16x2_gt(v[i], best[i])) & okm;
       best[i] = (v[i] & gt) | (best[i] & ~gt);
       if (kWinners) win[i] = (k2 & gt) | (win[i] & ~gt);
       continue;
@@ -177,12 +189,12 @@ __device__ __forceinline__ void take_slot(unsigned (&best)[4],
       bool take;
       unsigned slot = (unsigned)k;
       if (kWinners) {
-        take = fv != fv ? fb == fb : fv > fb;
+        take = fv != fv ? fb == fb : kMin ? fv < fb : fv > fb;
         if (fv != fv) slot = 0u;
       } else {
-        take = !(fb != fb || fv <= fb);
+        take = !(fb != fb || (kMin ? fv >= fb : fv <= fb));
       }
-      if (take) {
+      if (take && (!kMin || ok)) {
         best[i] = (best[i] & ~lo) | (v[i] & lo);
         if (kWinners) win[i] = (win[i] & ~lo) | ((slot << (16 * h)) & lo);
       }
@@ -208,22 +220,23 @@ __device__ __forceinline__ __nv_bfloat16 value_of<__nv_bfloat16>(
 
 // The same for 4 f32 channels (one value a 32-bit word, the winner a
 // whole word), with the rules of gather_max.cu's `take`: without NaN a
-// strict `v > best` and a select; with NaN (kNan) a NaN is taken with
-// winner 0 and sticks.
-template <bool kWinners, bool kNan>
+// strict `v > best` (kMin: `v < best`, only where `ok`) and a select;
+// with NaN (kNan) a NaN is taken with winner 0 and sticks.
+template <bool kWinners, bool kNan, bool kMin = false>
 __device__ __forceinline__ void take_slot_f32(unsigned (&best)[4],
                                               unsigned (&win)[4], uint4 v4,
-                                              int k) {
+                                              int k, bool ok = true) {
   const unsigned v[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float fv = __uint_as_float(v[i]), fb = __uint_as_float(best[i]);
-    bool take = fv > fb;
+    bool take = kMin ? fv < fb : fv > fb;
     unsigned slot = (unsigned)k;
     if (kNan && fv != fv) {
       take = fb == fb;
       slot = 0u;
     }
+    if (kMin) take = take && ok;
     best[i] = take ? v[i] : best[i];
     if (kWinners) win[i] = take ? slot : win[i];
   }
@@ -280,17 +293,29 @@ __device__ __forceinline__ float int8_dequant(float v, float a, float s,
 // masked slot reads row N (zeros) like a valid one outside the cloud, and
 // each slot's row is added in slot order (`add_slot_f32`), so a point's sum
 // is the same chain of f32 adds as the plain version's.
+// With kMinMax (no epilogue; gather_max.cu's `gather_minmax` bodies and
+// the rows kernel's `gather_matmul_minmax`) the phase also keeps a running
+// min (strict <, from `neg` with its sign flipped: +3e38) and with
+// kWinners its winner beside the max, in registers, and writes it to
+// out_min (and winner_min) as out (and winner). A masked slot reads row N
+// + 1 (-inf), which no strict > takes but every strict < would: the min
+// skips a slot whose row id is N + 1, a compare on the id the lane holds.
 template <typename T, int P, bool kWinners, bool kNan, bool kQuant = false,
-          bool kSum = false>
+          bool kSum = false, bool kMinMax = false>
 __device__ __forceinline__ void rows_max_phase(
     unsigned ys, const int* __restrict__ idx,
     const uint8_t* __restrict__ mask, const float* aff, int aff_ld,
     T* __restrict__ out, int* __restrict__ winner, int b, int N, int p0,
     int p1, int ldo, int col0, int nvalid, bool vec_out, int K,
     unsigned neg, int warp, int lane, float qa = 0.0f, float qs = 0.0f,
-    bool sub_self = false) {
+    bool sub_self = false, T* __restrict__ out_min = nullptr,
+    int* __restrict__ winner_min = nullptr) {
   static_assert(!kSum || (sizeof(T) == 4 && !kWinners && !kQuant),
                 "the sum mode takes f32 rows without winners");
+  static_assert(!kMinMax || (!kSum && !kQuant),
+                "the min/max mode has no epilogue");
+  // The sign bit of each value of a word: -3e38 to +3e38.
+  constexpr unsigned kSignBits = sizeof(T) == 4 ? 0x80000000u : 0x80008000u;
   constexpr int PW = 32 / P;
   constexpr int V = 16 / sizeof(T);  // channels a piece
   constexpr int SB = P >= kRowsInFlight ? P : kRowsInFlight;  // slots a step
@@ -354,20 +379,49 @@ __device__ __forceinline__ void rows_max_phase(
   };
 
   // The piece's words as T values h (bf16 halves, or f32 words), stored
-  // whole (16 bytes) when `vec_out`, else the slice's valid ones one by
-  // one.
-  auto store_words = [&](long long o, const unsigned (&w)[4]) {
+  // into `dst` whole (16 bytes) when `vec_out`, else the slice's valid
+  // ones one by one.
+  auto store_words = [&](T* dst, long long o, const unsigned (&w)[4]) {
     if (vec_out) {
-      *reinterpret_cast<uint4*>(out + o) = make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(dst + o) = make_uint4(w[0], w[1], w[2], w[3]);
       return;
     }
 #pragma unroll
     for (int i = 0; i < V; ++i)
       if (V * q + i < nvalid)
-        out[o + i] = value_of<T>(w[i * 4 / V], V == 8 ? i % 2 : 0);
+        dst[o + i] = value_of<T>(w[i * 4 / V], V == 8 ? i % 2 : 0);
+  };
+  // The piece's values and their winners (bf16: 16-bit halves unpacked
+  // into V words) into `dst` and `wdst`.
+  auto store_winners = [&](T* dst, int* wdst, long long o,
+                           const unsigned (&vals)[4],
+                           const unsigned (&wins)[4]) {
+    int wv[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      wv[i] = V == 8 ? (int)((wins[i / 2] >> (16 * (i % 2))) & 0xFFFF)
+                     : (int)wins[i % 4];
+    if (!vec_out) {  // column by column, up to the slice's last valid one
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (V * q + i < nvalid) {
+          dst[o + i] = value_of<T>(vals[i * 4 / V], V == 8 ? i % 2 : 0);
+          wdst[o + i] = wv[i];
+        }
+      }
+      return;
+    }
+    *reinterpret_cast<uint4*>(dst + o) =
+        make_uint4(vals[0], vals[1], vals[2], vals[3]);
+    int4* wr = reinterpret_cast<int4*>(wdst + o);
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i)
+      wr[i] = make_int4(wv[4 * i], wv[4 * i + 1], wv[4 * i + 2],
+                        wv[4 * i + 3]);
   };
 
   unsigned best[4], win[4];
+  unsigned worst[4], wmn[4];  // the running min and its winners (kMinMax)
   bool any = false;  // a valid slot among this lane's own
   int jself = N;     // the point's self row (its slot 0's), with sub_self
   int kbi = 0, r = 0;  // the step's slot block and round
@@ -378,6 +432,10 @@ __device__ __forceinline__ void rows_max_phase(
       for (int i = 0; i < 4; ++i) {
         best[i] = neg;
         win[i] = 0u;
+        if (kMinMax) {
+          worst[i] = neg ^ kSignBits;
+          wmn[i] = 0u;
+        }
       }
       any = false;
       // Slot 0 is the first slot of the group's first lane (the same
@@ -400,22 +458,30 @@ __device__ __forceinline__ void rows_max_phase(
       // loop keeps the slot registers in registers).
       if (kb + s0 >= K) continue;
       uint4 v[kRowsInFlight];
+      bool ok[kRowsInFlight];  // not a masked slot (for the min)
 #pragma unroll
       for (int u = 0; u < kRowsInFlight; ++u) {
         const int s = s0 + u;
         const int j = P > 1 ? __shfl_sync(0xffffffffu, jm[s % PER],
                                           gbase + s / PER)
                             : jm[s];
+        ok[u] = j != N + 1;
         v[u] = lds128(ys + (unsigned)(j * P + y_chunk<P>(j, q)) * 16u);
       }
 #pragma unroll
       for (int u = 0; u < kRowsInFlight; ++u) {
-        if constexpr (kSum)
+        const int k = kb + s0 + u;
+        if constexpr (kSum) {
           add_slot_f32(best, v[u]);
-        else if constexpr (V == 8)
-          take_slot<kWinners, kNan>(best, win, v[u], kb + s0 + u);
-        else
-          take_slot_f32<kWinners, kNan>(best, win, v[u], kb + s0 + u);
+        } else if constexpr (V == 8) {
+          take_slot<kWinners, kNan>(best, win, v[u], k);
+          if (kMinMax) take_slot<kWinners, kNan, true>(worst, wmn, v[u], k,
+                                                       ok[u]);
+        } else {
+          take_slot_f32<kWinners, kNan>(best, win, v[u], k);
+          if (kMinMax)
+            take_slot_f32<kWinners, kNan, true>(worst, wmn, v[u], k, ok[u]);
+        }
       }
     }
     if (++kbi < nkb) return;
@@ -445,7 +511,7 @@ __device__ __forceinline__ void rows_max_phase(
           packed[i] = __float_as_uint(dq[i]);
         }
       }
-      store_words(o, packed);
+      store_words(out, o, packed);
       return;
     }
     if constexpr (V == 8 && !kWinners) {
@@ -494,37 +560,17 @@ __device__ __forceinline__ void rows_max_phase(
           const __nv_bfloat162 pair = __floats2bfloat162_rn(v[0], v[1]);
           packed[i] = *reinterpret_cast<const unsigned*>(&pair);
         }
-        store_words(o, packed);
+        store_words(out, o, packed);
         return;
       }
     }
     if constexpr (!kWinners) {
-      store_words(o, best);
+      store_words(out, o, best);
+      if constexpr (kMinMax) store_words(out_min, o, worst);
       return;
     }
-    // The piece's winners as V words (bf16: 16-bit halves unpacked).
-    int wv[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i)
-      wv[i] = V == 8 ? (int)((win[i / 2] >> (16 * (i % 2))) & 0xFFFF)
-                     : (int)win[i % 4];
-    if (!vec_out) {  // column by column, up to the slice's last valid one
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        if (V * q + i < nvalid) {
-          out[o + i] = value_of<T>(best[i * 4 / V], V == 8 ? i % 2 : 0);
-          winner[o + i] = wv[i];
-        }
-      }
-      return;
-    }
-    *reinterpret_cast<uint4*>(out + o) =
-        make_uint4(best[0], best[1], best[2], best[3]);
-    int4* wr = reinterpret_cast<int4*>(winner + o);
-#pragma unroll
-    for (int i = 0; i < V / 4; ++i)
-      wr[i] = make_int4(wv[4 * i], wv[4 * i + 1], wv[4 * i + 2],
-                        wv[4 * i + 3]);
+    store_winners(out, winner, o, best, win);
+    if constexpr (kMinMax) store_winners(out_min, winner_min, o, worst, wmn);
   };
 
   int jA[PER], mA[PER], jB[PER], mB[PER], jC[PER], mC[PER];
@@ -544,15 +590,18 @@ __device__ __forceinline__ void rows_max_phase(
 // One block a task (cloud b, slice s of kCs columns). C_in and C_out are
 // multiples of 16, C_out of kCs; x 16-byte and w 32-byte aligned; aff
 // [4, C_out] f32 or null; winner null unless kWinners; `stages` x ring
-// stages (2 to kMaxStages).
-template <typename Tin, int kCs, bool kWinners, bool kBReg>
+// stages (2 to kMaxStages). kMinMax (no winners, aff null): also the
+// running min of the same bf16 y rows, into out_min.
+template <typename Tin, int kCs, bool kWinners, bool kBReg,
+          bool kMinMax = false>
 __global__ void __launch_bounds__(kRowsWarps * 32, 1)
     gather_matmul_max_rows_kernel(
         const Tin* __restrict__ x,
         const __nv_bfloat16* __restrict__ w, const int* __restrict__ idx,
         const uint8_t* __restrict__ mask, const float* __restrict__ aff,
         __nv_bfloat16* __restrict__ out, int* __restrict__ winner, int N,
-        int Cin, int Cout, int K, int stages) {
+        int Cin, int Cout, int K, int stages,
+        __nv_bfloat16* __restrict__ out_min) {
   constexpr int P = kCs / 8;  // 16-byte chunks of a y row: n-tiles of 8
   constexpr int TR = kTileRows, MT = TR / 16;  // rows, m-tiles a stage
   constexpr int WPM = kRowsWarps / MT;        // warps an m-tile
@@ -730,24 +779,25 @@ __global__ void __launch_bounds__(kRowsWarps * 32, 1)
   const unsigned y_addr = smem_addr(ys);
   const float* aff_p = aff != nullptr ? aff_s : nullptr;
   if (any_nan)
-    rows_max_phase<__nv_bfloat16, P, kWinners, true>(
+    rows_max_phase<__nv_bfloat16, P, kWinners, true, false, false, kMinMax>(
         y_addr, idx, mask, aff_p, kCs, out, winner, b, N, 0, N, Cout, col0,
-        kCs, true, K, neg2, warp, lane);
+        kCs, true, K, neg2, warp, lane, 0.0f, 0.0f, false, out_min);
   else
-    rows_max_phase<__nv_bfloat16, P, kWinners, false>(
+    rows_max_phase<__nv_bfloat16, P, kWinners, false, false, false, kMinMax>(
         y_addr, idx, mask, aff_p, kCs, out, winner, b, N, 0, N, Cout, col0,
-        kCs, true, K, neg2, warp, lane);
+        kCs, true, K, neg2, warp, lane, 0.0f, 0.0f, false, out_min);
 }
 
-template <typename Tin, int kCs, bool kWinners>
+template <typename Tin, int kCs, bool kWinners, bool kMinMax>
 int launch_rows(const void* x, const void* w, const void* idx,
                 const void* mask, const void* aff, void* out, void* winner,
                 int B, int N, int Cin, int Cout, int K, int stages,
-                size_t smem, cudaStream_t stream) {
+                size_t smem, cudaStream_t stream, void* out_min) {
   auto kernel =
       Cin <= 16 * kBRegSteps
-          ? gather_matmul_max_rows_kernel<Tin, kCs, kWinners, true>
-          : gather_matmul_max_rows_kernel<Tin, kCs, kWinners, false>;
+          ? gather_matmul_max_rows_kernel<Tin, kCs, kWinners, true, kMinMax>
+          : gather_matmul_max_rows_kernel<Tin, kCs, kWinners, false,
+                                          kMinMax>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -755,19 +805,22 @@ int launch_rows(const void* x, const void* w, const void* idx,
   kernel<<<(unsigned)tasks, kRowsWarps * 32, smem, stream>>>(
       (const Tin*)x, (const __nv_bfloat16*)w, (const int*)idx,
       (const uint8_t*)mask, (const float*)aff, (__nv_bfloat16*)out,
-      (int*)winner, N, Cin, Cout, K, stages);
+      (int*)winner, N, Cin, Cout, K, stages, (__nv_bfloat16*)out_min);
   return (int)cudaGetLastError();
 }
 
 // Cs: the slice width the wrapper chose (8, 16, 32 or 64); the ring takes
 // as many stages as fit. A shape whose slice does not fit a block with
 // two stages, or K above the 16-bit winners, is refused. Tin: bf16 or
-// int8 x.
-template <bool kWinners, typename Tin = __nv_bfloat16>
+// int8 x. kMinMax: the min/max mode (no winners, aff null), the min into
+// out_min.
+template <bool kWinners, typename Tin = __nv_bfloat16, bool kMinMax = false>
 int launch_matmul_max_rows(const void* x, const void* w, const void* idx,
                            const void* mask, const void* aff, void* out,
                            void* winner, int B, int N, int Cin, int Cout,
-                           int K, int Cs, void* stream) {
+                           int K, int Cs, void* stream,
+                           void* out_min = nullptr) {
+  static_assert(!kMinMax || !kWinners, "the min/max mode has no winners");
   if ((long long)B * N * Cout == 0) return (int)cudaGetLastError();
   if (Cin % 16 != 0 || Cout % 16 != 0 || Cin == 0 || K <= 0 || K > 0xFFFF ||
       (Cs != 8 && Cs != 16 && Cs != 32 && Cs != 64) || Cout % Cs != 0)
@@ -782,21 +835,21 @@ int launch_matmul_max_rows(const void* x, const void* w, const void* idx,
   cudaStream_t s = (cudaStream_t)stream;
   switch (Cs) {
     case 8:
-      return launch_rows<Tin, 8, kWinners>(
+      return launch_rows<Tin, 8, kWinners, kMinMax>(
           x, w, idx, mask, aff, out, winner, B, N, Cin, Cout, K, stages,
-          smem, s);
+          smem, s, out_min);
     case 16:
-      return launch_rows<Tin, 16, kWinners>(
+      return launch_rows<Tin, 16, kWinners, kMinMax>(
           x, w, idx, mask, aff, out, winner, B, N, Cin, Cout, K, stages,
-          smem, s);
+          smem, s, out_min);
     case 32:
-      return launch_rows<Tin, 32, kWinners>(
+      return launch_rows<Tin, 32, kWinners, kMinMax>(
           x, w, idx, mask, aff, out, winner, B, N, Cin, Cout, K, stages,
-          smem, s);
+          smem, s, out_min);
     default:
-      return launch_rows<Tin, 64, kWinners>(
+      return launch_rows<Tin, 64, kWinners, kMinMax>(
           x, w, idx, mask, aff, out, winner, B, N, Cin, Cout, K, stages,
-          smem, s);
+          smem, s, out_min);
   }
 }
 

@@ -111,14 +111,26 @@
 // Min and max together (`gather_minmax`, `gather_minmax_bf16`, and with
 // winners `gather_minmax_win`, `gather_minmax_win_bf16`):
 //   mx[b, n, c] = the masked max above, mn[b, n, c] = the masked min,
-// with route D's layout, loads and NaN rule, a running max (strict >) and
-// a running min (strict <, so a tie also goes to the lowest slot) kept
-// side by side; a row with no valid neighbour gets (-3e38, +3e38) and
-// winners 0. Replaces `_pallas_minmax` (pallas_call at gather_max.py:474,
-// kernel body `_minmax_kernel`), which gathered through the same one-hot
-// MXU product on a hi/lo split as the max; here every slot is a direct
-// load. Bound on the H100: memory, as the max (the same K rows read,
-// two outputs written; four with the winners).
+// a running max (strict >) and a running min (strict <, so a tie also
+// goes to the lowest slot) kept side by side, the NaN rule of the max for
+// both (a NaN in a valid slot propagates, takes winner 0 and sticks); a
+// row with no valid neighbour gets (-3e38, +3e38) and winners 0.
+// Replaces `_pallas_minmax` (pallas_call at gather_max.py:474, kernel body
+// `_minmax_kernel`), which gathered through the same one-hot MXU product
+// on a hi/lo split as the max. Bound on the H100: memory, as the max (h,
+// idx, mask read once, two outputs written; four with the winners: 0.0310
+// ms at B=32, N=1024, K=20, f32 C=256, 0.0511 with winners). The max's two
+// routes, chosen by `max_slice` as for the max, the same bits.
+// Route S (`gather_minmax`, `gather_minmax_win`, `_bf16`): the staged
+// kernel in its min/max mode (kEpiMinMax): the slice and its two constant
+// rows as for the max, then the max phase keeps the running min (and its
+// winners) in registers beside the max's and writes both (all four with
+// winners) as whole 16-byte pieces where the rows allow. A masked slot
+// reads the -inf row, which never passes the max's > but would win every
+// <: the min skips a slot whose row id is N + 1, the id the lane already
+// holds, so the min costs no extra shared-memory read. One block an SM.
+// Route D (`_direct` bodies, the earlier kernel): route D's layout and
+// loads above, every slot's row from L2.
 //
 // Two-map backward (`gather_minmax_bwd`, `gather_minmax_bwd_bf16`; route D
 // `_direct`):
@@ -451,11 +463,13 @@ __device__ __forceinline__ bool has_nan(uint4 v, __nv_bfloat16) {
 
 // The staged route's epilogues: none (the max, or with winners), the
 // int8 form's quantization, the BatchNorm + LeakyReLU of the bf16 eval max;
-// and its sum mode (gather_sum.cu's route S: f32, no winners).
+// its sum mode (gather_sum.cu's route S: f32, no winners) and its min/max
+// mode (`gather_minmax`: the max and the min, with or without winners).
 constexpr int kEpiNone = 0;
 constexpr int kEpiQuant = 1;
 constexpr int kEpiAffine = 2;
 constexpr int kEpiSum = 3;
+constexpr int kEpiMinMax = 4;
 
 // Route S: one block a (task, split), a task a cloud b and a slice of
 // kCs = 16 P / sizeof(T) channels; the block stages the slice's N rows
@@ -473,18 +487,28 @@ constexpr int kEpiSum = 3;
 // from device memory through L1. kEpiSum: the neighbour sum (f32, no
 // winners), each point's slots added in slot order from +0.0, a masked
 // slot read from the zero row; no NaN scan (a sum needs no NaN rule).
+// kEpiMinMax: the min beside the max (strict <, a masked slot skipped by
+// its row id), into out_min and, with winners, winner_min; one block an SM
+// at every row width (kMinMaxBlocks), its state twice the max's.
+constexpr int kMinMaxBlocks = 1;
+
 template <typename T, int P, bool kWinners, int kEpi>
 __global__ void __launch_bounds__(
-    kRowsWarps * 32, (P == 2 || P == 4) && kEpi != kEpiAffine ? 2 : 1)
+    kRowsWarps * 32,
+    kEpi == kEpiMinMax ? kMinMaxBlocks
+                       : (P == 2 || P == 4) && kEpi != kEpiAffine ? 2 : 1)
     gather_max_staged_kernel(const T* __restrict__ h,
                              const int* __restrict__ idx,
                              const uint8_t* __restrict__ mask,
                              T* __restrict__ out, int* __restrict__ winner,
                              int N, int C, int K, int splits, int copy_bytes,
                              int vec_out, const unsigned* __restrict__ amax,
-                             const float* __restrict__ aff, int sub_self) {
+                             const float* __restrict__ aff, int sub_self,
+                             T* __restrict__ out_min,
+                             int* __restrict__ winner_min) {
   constexpr bool kQuant = kEpi == kEpiQuant;
   constexpr bool kSum = kEpi == kEpiSum;
+  constexpr bool kMinMax = kEpi == kEpiMinMax;
   constexpr int kRowBytes = 16 * P;
   constexpr int kCs = kRowBytes / (int)sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
@@ -567,13 +591,15 @@ __global__ void __launch_bounds__(
         ys, idx, mask, nullptr, 0, out, nullptr, b, N, p0, p1, C, c0, nvalid,
         vec_out != 0, K, neg, warp, lane);
   else if (any_nan)
-    rows_max_phase<T, P, kWinners, true, kQuant>(
+    rows_max_phase<T, P, kWinners, true, kQuant, false, kMinMax>(
         ys, idx, mask, aff_p, C, out, winner, b, N, p0, p1, C, c0,
-        nvalid, vec_out != 0, K, neg, warp, lane, qa, qs, self);
+        nvalid, vec_out != 0, K, neg, warp, lane, qa, qs, self, out_min,
+        winner_min);
   else
-    rows_max_phase<T, P, kWinners, false, kQuant>(
+    rows_max_phase<T, P, kWinners, false, kQuant, false, kMinMax>(
         ys, idx, mask, aff_p, C, out, winner, b, N, p0, p1, C, c0,
-        nvalid, vec_out != 0, K, neg, warp, lane, qa, qs, self);
+        nvalid, vec_out != 0, K, neg, warp, lane, qa, qs, self, out_min,
+        winner_min);
 }
 
 // Shared memory of a route-S block: N + 2 rows of 16 P bytes;
@@ -587,7 +613,7 @@ int launch_staged_p(const void* h, const void* idx, const void* mask,
                     void* out, void* winner, const void* amax,
                     const void* aff, int sub_self, int B, int N, int C,
                     int K, int splits, int copy_bytes, int vec_out,
-                    cudaStream_t s) {
+                    cudaStream_t s, void* out_min, void* winner_min) {
   auto kernel = gather_max_staged_kernel<T, P, kWinners, kEpi>;
   const size_t smem = staged_smem_bytes(N, P);
   const cudaError_t err = cudaFuncSetAttribute(
@@ -598,7 +624,8 @@ int launch_staged_p(const void* h, const void* idx, const void* mask,
   kernel<<<(unsigned)blocks, kRowsWarps * 32, smem, s>>>(
       (const T*)h, (const int*)idx, (const uint8_t*)mask, (T*)out,
       (int*)winner, N, C, K, splits, copy_bytes, vec_out,
-      (const unsigned*)amax, (const float*)aff, sub_self);
+      (const unsigned*)amax, (const float*)aff, sub_self, (T*)out_min,
+      (int*)winner_min);
   return (int)cudaGetLastError();
 }
 
@@ -607,12 +634,13 @@ int launch_staged_p(const void* h, const void* idx, const void* mask,
 // block, K of 0, or K above the bf16 winners' 16 bits, is refused (route
 // D takes those). kEpi kEpiQuant: the int8 form, on the cloud maxima
 // amax; kEpiAffine: the bf16 eval max on aff (sub_self as the kernel
-// takes it).
+// takes it); kEpiMinMax: the min too, into out_min (and winner_min).
 template <typename T, bool kWinners, int kEpi = kEpiNone>
 int launch_staged(const void* h, const void* idx, const void* mask,
                   void* out, void* winner, int B, int N, int C, int K, int Cs,
                   int splits, void* stream, const void* amax = nullptr,
-                  const void* aff = nullptr, int sub_self = 0) {
+                  const void* aff = nullptr, int sub_self = 0,
+                  void* out_min = nullptr, void* winner_min = nullptr) {
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   const int row = Cs * (int)sizeof(T);
   const int P = row / 16;
@@ -628,25 +656,27 @@ int launch_staged(const void* h, const void* idx, const void* mask,
     copy_bytes /= 2;
   const int vec_out = ((long long)C * sizeof(T)) % 16 == 0 &&
                       (uintptr_t)out % 16 == 0 &&
-                      (uintptr_t)winner % 16 == 0;
+                      (uintptr_t)winner % 16 == 0 &&
+                      (uintptr_t)out_min % 16 == 0 &&
+                      (uintptr_t)winner_min % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (P) {
     case 1:
       return launch_staged_p<T, 1, kWinners, kEpi>(
           h, idx, mask, out, winner, amax, aff, sub_self, B, N,
-          C, K, splits, copy_bytes, vec_out, s);
+          C, K, splits, copy_bytes, vec_out, s, out_min, winner_min);
     case 2:
       return launch_staged_p<T, 2, kWinners, kEpi>(
           h, idx, mask, out, winner, amax, aff, sub_self, B, N,
-          C, K, splits, copy_bytes, vec_out, s);
+          C, K, splits, copy_bytes, vec_out, s, out_min, winner_min);
     case 4:
       return launch_staged_p<T, 4, kWinners, kEpi>(
           h, idx, mask, out, winner, amax, aff, sub_self, B, N,
-          C, K, splits, copy_bytes, vec_out, s);
+          C, K, splits, copy_bytes, vec_out, s, out_min, winner_min);
     default:
       return launch_staged_p<T, 8, kWinners, kEpi>(
           h, idx, mask, out, winner, amax, aff, sub_self, B, N,
-          C, K, splits, copy_bytes, vec_out, s);
+          C, K, splits, copy_bytes, vec_out, s, out_min, winner_min);
   }
 }
 
@@ -792,41 +822,86 @@ extern "C" int dc_gather_max_bwd_bf16_direct(const void* idx,
                                    n_out, stream);
 }
 
+// Route S of the min/max: the staged slice of h (Cs channels, `splits`
+// blocks a task), the max and the min out of it.
 extern "C" int dc_gather_minmax(const void* h, const void* idx,
                                 const void* mask, void* mx, void* mn, int B,
-                                int N, int C, int K, int device,
-                                void* stream) {
+                                int N, int C, int K, int Cs, int splits,
+                                int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_staged<float, false, kEpiMinMax>(
+      h, idx, mask, mx, nullptr, B, N, C, K, Cs, splits, stream, nullptr,
+      nullptr, 0, mn, nullptr);
+}
+
+extern "C" int dc_gather_minmax_bf16(const void* h, const void* idx,
+                                     const void* mask, void* mx, void* mn,
+                                     int B, int N, int C, int K, int Cs,
+                                     int splits, int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_staged<__nv_bfloat16, false, kEpiMinMax>(
+      h, idx, mask, mx, nullptr, B, N, C, K, Cs, splits, stream, nullptr,
+      nullptr, 0, mn, nullptr);
+}
+
+extern "C" int dc_gather_minmax_win(const void* h, const void* idx,
+                                    const void* mask, void* mx, void* mn,
+                                    void* wmx, void* wmn, int B, int N, int C,
+                                    int K, int Cs, int splits, int device,
+                                    void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_staged<float, true, kEpiMinMax>(
+      h, idx, mask, mx, wmx, B, N, C, K, Cs, splits, stream, nullptr,
+      nullptr, 0, mn, wmn);
+}
+
+extern "C" int dc_gather_minmax_win_bf16(const void* h, const void* idx,
+                                         const void* mask, void* mx, void* mn,
+                                         void* wmx, void* wmn, int B, int N,
+                                         int C, int K, int Cs, int splits,
+                                         int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_staged<__nv_bfloat16, true, kEpiMinMax>(
+      h, idx, mask, mx, wmx, B, N, C, K, Cs, splits, stream, nullptr,
+      nullptr, 0, mn, wmn);
+}
+
+// Route D of the min/max (the earlier kernel).
+extern "C" int dc_gather_minmax_direct(const void* h, const void* idx,
+                                       const void* mask, void* mx, void* mn,
+                                       int B, int N, int C, int K, int device,
+                                       void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   return launch_fwd<float, 1, false, true>(h, idx, mask, mx, nullptr, B, N, C,
                                            K, stream, mn, nullptr);
 }
 
-extern "C" int dc_gather_minmax_bf16(const void* h, const void* idx,
-                                     const void* mask, void* mx, void* mn,
-                                     int B, int N, int C, int K, int device,
-                                     void* stream) {
+extern "C" int dc_gather_minmax_bf16_direct(const void* h, const void* idx,
+                                            const void* mask, void* mx,
+                                            void* mn, int B, int N, int C,
+                                            int K, int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   return launch_minmax_bf16<false>(h, idx, mask, mx, mn, nullptr, nullptr, B,
                                    N, C, K, stream);
 }
 
-extern "C" int dc_gather_minmax_win(const void* h, const void* idx,
-                                    const void* mask, void* mx, void* mn,
-                                    void* wmx, void* wmn, int B, int N, int C,
-                                    int K, int device, void* stream) {
+extern "C" int dc_gather_minmax_win_direct(const void* h, const void* idx,
+                                           const void* mask, void* mx,
+                                           void* mn, void* wmx, void* wmn,
+                                           int B, int N, int C, int K,
+                                           int device, void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   return launch_fwd<float, 1, true, true>(h, idx, mask, mx, wmx, B, N, C, K,
                                           stream, mn, wmn);
 }
 
-extern "C" int dc_gather_minmax_win_bf16(const void* h, const void* idx,
-                                         const void* mask, void* mx, void* mn,
-                                         void* wmx, void* wmn, int B, int N,
-                                         int C, int K, int device,
-                                         void* stream) {
+extern "C" int dc_gather_minmax_win_bf16_direct(
+    const void* h, const void* idx, const void* mask, void* mx, void* mn,
+    void* wmx, void* wmn, int B, int N, int C, int K, int device,
+    void* stream) {
   DC_SET_DEVICE(device);
   if ((long long)B * N * C == 0) return (int)cudaGetLastError();
   return launch_minmax_bf16<true>(h, idx, mask, mx, mn, wmx, wmn, B, N, C, K,

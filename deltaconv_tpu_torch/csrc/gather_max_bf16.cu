@@ -38,12 +38,23 @@
 //   bf16, the f32 max and min each rounded to bf16 (rounding is monotone,
 //   so this equals rounding each slot first); (-3e38, +3e38) on a row
 //   with no valid slot. Replaces the Pallas kernel of `gather_matmul_minmax`
-//   (pallas_call at gather_max.py:792, body `_mm_minmax_kernel`). It is
-//   the K-fold kernel below (gather_matmul_max.cuh) in its min/max mode:
-//   each lane keeps a running min beside its running max; no epilogue, no
-//   winners. Bound on the H100: its bytes (x, w, idx/mask and the two bf16
-//   outputs; one product a row), which this design, paying the K-fold
-//   product, does not approach.
+//   (pallas_call at gather_max.py:792, body `_mm_minmax_kernel`), which
+//   gathered x through a one-hot MXU product on a hi/lo split and ran the
+//   layer on every gathered slot. Here it is the one-product-a-row kernel
+//   of `gather_matmul_max` below in its min/max mode: y = bf16(x[b] @ w[:,
+//   slice]) once a row into shared memory, then the max phase keeps a
+//   running min (bf16 pairs, a strict <, from +3e38) beside its running
+//   max and writes both, 16 bytes a lane; no epilogue, no winners. The
+//   masked slot's constant row (-inf) would win every <, so the min skips
+//   a slot whose row id is N + 1 (the lane holds the id: no extra read).
+//   Rounding y to bf16 before the extremes gives the bits of rounding the
+//   f32 extremes after (monotone rounding), so the plain version rounds
+//   after. Bound on the H100: its bytes (x, w, idx/mask and the two bf16
+//   outputs: ~0.0135 ms at B=32, N=1024, K=20, 128 -> 256); its one product
+//   a row, 2.1 GFLOP, is 0.002 ms on the tensor cores. Routed by
+//   `mm_slice` as `gather_matmul_max`; above its limit (10,038 points at
+//   C_in = 128) the K-fold kernel (gather_matmul_max.cuh) in its min/max
+//   mode, `gather_matmul_minmax_kfold`, which pays K products a row.
 //
 // Both eval kernels end in `_bn_lrelu_epilogue` (gather_max.py:584),
 // replayed op for op in f32 with every operation rounded on its own (no
@@ -140,12 +151,12 @@
 // `gather_matmul_max_win_kfold`.
 //
 // The K-fold kernel (gather_matmul_max.cuh, which gather_max_int8.cu
-// instantiates on int8 rows and `gather_matmul_minmax` in its min/max
-// mode) is the TPU's gather-then-matmul form: a block takes 16 points,
-// gathers their K input rows into shared memory (85 KB at K=20, C_in=128:
-// two blocks an SM), and its 8 warps run WMMA on every gathered slot,
-// each 16x16 tile passed through a warp's shared scratch into a running
-// max in registers, W fragments read from L2 once for 4 slots. It pays
+// instantiates on int8 rows and `gather_matmul_minmax_kfold` in its
+// min/max mode) is the TPU's gather-then-matmul form: a block takes 16
+// points, gathers their K input rows into shared memory (85 KB at K=20,
+// C_in=128: two blocks an SM), and its 8 warps run WMMA on every gathered
+// slot, each 16x16 tile passed through a warp's shared scratch into a
+// running max in registers, W fragments read from L2 once for 4 slots. It pays
 // 2 B N K C_in C_out operations (42.9 GFLOP at the classification shape,
 // K times the function's), a scratch round trip per slot and K-fold
 // gathers: 0.5926 ms (eval) and 0.7787 ms (train) on the H100 at that
@@ -304,8 +315,20 @@ extern "C" int dc_gather_matmul_max_win_kfold(const void* x, const void* w,
 extern "C" int dc_gather_matmul_minmax(const void* x, const void* w,
                                        const void* idx, const void* mask,
                                        void* mx, void* mn, int B, int N,
-                                       int Cin, int Cout, int K, int device,
-                                       void* stream) {
+                                       int Cin, int Cout, int K, int Cs,
+                                       int device, void* stream) {
+  DC_SET_DEVICE(device);
+  return launch_matmul_max_rows<false, __nv_bfloat16, true>(
+      x, w, idx, mask, nullptr, mx, nullptr, B, N, Cin, Cout, K, Cs, stream,
+      mn);
+}
+
+extern "C" int dc_gather_matmul_minmax_kfold(const void* x, const void* w,
+                                             const void* idx,
+                                             const void* mask, void* mx,
+                                             void* mn, int B, int N, int Cin,
+                                             int Cout, int K, int device,
+                                             void* stream) {
   DC_SET_DEVICE(device);
   return launch_matmul_max<false, __nv_bfloat16, true>(
       x, w, idx, mask, nullptr, mx, nullptr, B, N, Cin, Cout, K, stream, mn);

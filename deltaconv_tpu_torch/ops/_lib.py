@@ -118,11 +118,18 @@ _KERNELS = {
     "edge_delta_mlp": ("dc_edge_mlp_fwd", [_P] * 6 + [_I] * 5),
     "edge_delta_mlp_bwd": ("dc_edge_mlp_bwd_edges", [_P] * 9 + [_I] * 6),
     "edge_delta_mlp_bwd_sum": ("dc_edge_mlp_bwd_sum", [_P] * 5 + [_I] * 4),
-    "gather_minmax": ("dc_gather_minmax", [_P] * 5 + [_I] * 4),
-    "gather_minmax_bf16": ("dc_gather_minmax_bf16", [_P] * 5 + [_I] * 4),
-    "gather_minmax_win": ("dc_gather_minmax_win", [_P] * 7 + [_I] * 4),
+    "gather_minmax": ("dc_gather_minmax", [_P] * 5 + [_I] * 6),
+    "gather_minmax_bf16": ("dc_gather_minmax_bf16", [_P] * 5 + [_I] * 6),
+    "gather_minmax_win": ("dc_gather_minmax_win", [_P] * 7 + [_I] * 6),
     "gather_minmax_win_bf16": ("dc_gather_minmax_win_bf16",
-                               [_P] * 7 + [_I] * 4),
+                               [_P] * 7 + [_I] * 6),
+    "gather_minmax_direct": ("dc_gather_minmax_direct", [_P] * 5 + [_I] * 4),
+    "gather_minmax_bf16_direct": ("dc_gather_minmax_bf16_direct",
+                                  [_P] * 5 + [_I] * 4),
+    "gather_minmax_win_direct": ("dc_gather_minmax_win_direct",
+                                 [_P] * 7 + [_I] * 4),
+    "gather_minmax_win_bf16_direct": ("dc_gather_minmax_win_bf16_direct",
+                                      [_P] * 7 + [_I] * 4),
     "gather_minmax_bwd": ("dc_gather_minmax_bwd", [_P] * 6 + [_I] * 7),
     "gather_minmax_bwd_bf16": ("dc_gather_minmax_bwd_bf16",
                                [_P] * 6 + [_I] * 7),
@@ -130,7 +137,9 @@ _KERNELS = {
                                  [_P] * 7 + [_I] * 5),
     "gather_minmax_bwd_bf16_direct": ("dc_gather_minmax_bwd_bf16_direct",
                                       [_P] * 7 + [_I] * 5),
-    "gather_matmul_minmax": ("dc_gather_matmul_minmax", [_P] * 6 + [_I] * 5),
+    "gather_matmul_minmax": ("dc_gather_matmul_minmax", [_P] * 6 + [_I] * 6),
+    "gather_matmul_minmax_kfold": ("dc_gather_matmul_minmax_kfold",
+                                   [_P] * 6 + [_I] * 5),
 }
 
 # Why a raw kernel takes no tensor that requires grad: the differentiable
@@ -165,10 +174,11 @@ _NO_GRAD = {
     "gather_mlp_max": _MLP_EVAL,
     "mlp_rows": _MLP_EVAL,
     "gather_max_merge": _MLP_EVAL,
-    "gather_matmul_minmax": "it is forward only, as the JAX function (no "
-                            "VJP); differentiate through ops.gather_minmax "
-                            "of x @ w",
 }
+_NO_GRAD.update(dict.fromkeys(
+    ("gather_matmul_minmax", "gather_matmul_minmax_kfold"),
+    "it is forward only, as the JAX function (no VJP); differentiate "
+    "through ops.gather_minmax of x @ w"))
 _NO_GRAD.update(dict.fromkeys(
     ("densify_int8", "absmax", "gather_max_int8", "gather_max_int8_direct",
      "gather_matmul_max_int8", "gather_matmul_max_int8_kfold"),

@@ -45,13 +45,20 @@ The neighbour max AND min of the ``NeighborAggregations`` hooks
   launch for both maps), cast to ``h``'s dtype. A row with no valid
   neighbour keeps winner 0, so its cotangents go to ``idx[..., 0]``'s
   row, as JAX's. Otherwise ``gather_minmax`` runs without winners.
-  Kernels in ``csrc/gather_max.cu`` (``_bf16`` bodies for bf16).
+  Kernels in ``csrc/gather_max.cu`` (``_bf16`` bodies for bf16), on the
+  neighbour max's two routes (:func:`max_slice`): route S, the staged
+  kernel in its min/max mode (a running min beside the max, a masked slot
+  skipped by its row id), and route D above 14,526 points (the ``_direct``
+  kernels); the same bits.
 - :func:`gather_matmul_minmax` ``(x [B, N, C_in] bf16, w [C_in, C_out]
   bf16, idx, mask) -> (mx, mn)`` ``[B, N, C_out]`` bf16: the masked max
   and min of ``x[idx_k] @ w`` (f32 accumulation), rounded to bf16;
   forward only (JAX's has no VJP), so it raises on a tensor that
-  requires grad. The kernel is the WMMA matmul max of
-  ``csrc/gather_matmul_max.cuh`` in its min/max mode.
+  requires grad. The kernel is the one-product-a-row kernel of
+  ``csrc/gather_matmul_max_rows.cuh`` in its min/max mode, routed by
+  :func:`mm_slice` as :func:`gather_matmul_max`: above its size the
+  WMMA K-fold kernel of ``csrc/gather_matmul_max.cuh``
+  (``gather_matmul_minmax_kfold``).
 
 The bf16 eval maxes (``csrc/gather_max_bf16.cu``), counterparts of
 ``gather_max_affine`` and ``gather_matmul_max`` of the JAX module, take
@@ -432,36 +439,45 @@ def _gather_max_bwd(idx, winner, g, n_out, route=None):
     return dh
 
 
-def _minmax(h, idx, mask):
+def _minmax(h, idx, mask, route=None):
     """The min/max forward without winners: plain version for CPU
     tensors, the ``gather_minmax`` kernel (f32) or ``gather_minmax_bf16``
-    (bf16 in, bf16 out) for CUDA tensors."""
+    (bf16 in, bf16 out) for CUDA tensors, on the route :func:`max_slice`
+    picks (route S; route D under the ``_direct`` names); ``route``
+    forces one."""
     if h.device.type == "cpu":
         return _minmax_plain(h, idx, mask)
     name, dtype = _body("gather_minmax", h)
     device = _check_fwd(name, h, idx, mask, dtype)
-    b, n, c = h.shape
     mx, mn = torch.empty_like(h), torch.empty_like(h)
-    _lib.launch(name, device, h.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                mx.data_ptr(), mn.data_ptr(), b, n, c, idx.shape[-1])
+    _max_launch(name, device, (h.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                               mx.data_ptr(), mn.data_ptr()), h,
+                idx.shape[-1], route, False)
     return mx, mn
 
 
 def gather_minmax_win(h, idx, mask):
     """The min/max forward with winners ``(mx, mn, wmx [B, N, C] int32,
     wmn)``: plain version for CPU tensors, the ``gather_minmax_win``
-    kernel (f32) or ``gather_minmax_win_bf16`` for CUDA tensors."""
+    kernel (f32) or ``gather_minmax_win_bf16`` for CUDA tensors, routed
+    as :func:`gather_minmax`."""
     if h.device.type == "cpu":
         return gather_minmax_win_plain(h, idx, mask)
+    return _gather_minmax_win(h, idx, mask)
+
+
+def _gather_minmax_win(h, idx, mask, route=None):
+    """:func:`gather_minmax_win` on CUDA tensors through ``route`` (``(cs,
+    splits)``; ``(0, 0)`` route D; None: by shape)."""
     name, dtype = _body("gather_minmax_win", h)
     device = _check_fwd(name, h, idx, mask, dtype)
     b, n, c = h.shape
     mx, mn = torch.empty_like(h), torch.empty_like(h)
     wmx, wmn = (torch.empty((b, n, c), dtype=torch.int32, device=device)
                 for _ in range(2))
-    _lib.launch(name, device, h.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                mx.data_ptr(), mn.data_ptr(), wmx.data_ptr(), wmn.data_ptr(),
-                b, n, c, idx.shape[-1])
+    _max_launch(name, device, (h.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                               mx.data_ptr(), mn.data_ptr(), wmx.data_ptr(),
+                               wmn.data_ptr()), h, idx.shape[-1], route, True)
     return mx, mn, wmx, wmn
 
 
@@ -799,20 +815,29 @@ def gather_matmul_minmax_plain(x, w, idx, mask):
 
 
 def gather_matmul_minmax(x, w, idx, mask):
-    """``(mx, mn)``: plain version for CPU tensors; the
-    ``gather_matmul_minmax`` kernel (tensor cores) for CUDA tensors, with
-    the widths zero-padded to multiples of 16 as in
-    :func:`gather_matmul_max`. Forward only."""
+    """``(mx, mn)``: plain version for CPU tensors; for CUDA tensors the
+    ``gather_matmul_minmax`` kernel (one product a row, the slice of ``x @
+    w`` in shared memory, the max and the min out of it), or above its
+    size the K-fold kernel ``gather_matmul_minmax_kfold``
+    (:func:`mm_slice`), with the widths zero-padded to multiples of 16 as
+    in :func:`gather_matmul_max`. Forward only."""
     if x.device.type == "cpu":
         return gather_matmul_minmax_plain(x, w, idx, mask)
+    return _gather_matmul_minmax(x, w, idx, mask)
+
+
+def _gather_matmul_minmax(x, w, idx, mask, cs=None):
+    """:func:`gather_matmul_minmax` on CUDA tensors through the route of
+    column slice ``cs`` (0: the K-fold kernel; None: by shape)."""
     device, xp, wp = _mm_operands("gather_matmul_minmax", x, w, idx, mask)
     b, n, _ = x.shape
     c_out = w.shape[-1]
     mx, mn = (torch.empty((b, n, wp.shape[1]), dtype=torch.bfloat16,
                           device=device) for _ in range(2))
-    _lib.launch("gather_matmul_minmax", device, xp.data_ptr(), wp.data_ptr(),
-                idx.data_ptr(), mask.data_ptr(), mx.data_ptr(), mn.data_ptr(),
-                b, n, xp.shape[-1], wp.shape[1], idx.shape[-1])
+    _mm_launch("gather_matmul_minmax", device,
+               (xp.data_ptr(), wp.data_ptr(), idx.data_ptr(),
+                mask.data_ptr(), mx.data_ptr(), mn.data_ptr()), b, n,
+               xp.shape[-1], wp.shape[1], idx.shape[-1], cs)
     if wp.shape[1] != c_out:
         return mx[..., :c_out].contiguous(), mn[..., :c_out].contiguous()
     return mx, mn

@@ -2735,13 +2735,150 @@ def test_minmax_hooks_kernels_match_plain(cuda, dense):
         assert torch.equal(g, wv)
 
 
+# -- the min/max's routes: #10's S and D, #13's rows and K-fold ---------------
+
+
+# (b, n, c, k, off, dtype): the hooks' widths at the classification shape
+# (f32 C = 64, 128, 256; bf16 64, 128: 128-byte rows, split tasks at C=64),
+# odd widths (one-by-one stores), a view one element past a 16-byte
+# boundary (narrower copies), the large clouds' 16-byte rows, and both
+# sides of route S's last cloud (14,526 points).
+MINMAX_ROUTE_CASES = [
+    (4, 1024, 64, 20, 0, torch.float32), (4, 1024, 128, 20, 0, torch.float32),
+    (4, 1024, 256, 20, 0, torch.float32), (4, 1024, 64, 20, 0, torch.bfloat16),
+    (4, 1024, 128, 20, 0, torch.bfloat16), (2, 150, 3, 9, 0, torch.float32),
+    (2, 150, 301, 9, 0, torch.bfloat16), (2, 150, 70, 20, 1, torch.float32),
+    (2, 150, 70, 30, 1, torch.bfloat16), (1, 8192, 64, 20, 0, torch.float32),
+    (1, 14526, 64, 20, 0, torch.bfloat16),
+    (1, 14527, 64, 20, 0, torch.float32)]
+
+
+@pytest.mark.parametrize("graph", ["knn", "hard"])
+@pytest.mark.parametrize("winners", [False, True])
+@pytest.mark.parametrize("b,n,c,k,off,dtype", MINMAX_ROUTE_CASES)
+def test_gather_minmax_routes_exact(cuda, b, n, c, k, off, dtype, winners,
+                                    graph):
+    """``gather_minmax`` (and with winners ``gather_minmax_win``) through
+    the route by shape (route S, the staged min/max, up to 14,526 points)
+    and route D (forced), on a kNN graph and on hard rows (no valid slot, a
+    masked slot 0, valid ids outside the cloud in slot 0 and in the last
+    slot, a row whose slots all read one row, a NaN feature): values and
+    winners bit-equal to the plain version (a NaN's payload aside), route
+    S to route D, and a second call to the first; (-3e38, +3e38) and
+    winners 0 where no slot is valid; the launches show the route."""
+    rng = np.random.default_rng(n + c + k + off)
+    pos, _ = _cloud_batch(rng, b, n, cuda)
+    idx, mask = knn(pos, k)
+    vals = torch.from_numpy(np.round(rng.standard_normal((b, n, c)) * 4)
+                            .astype(np.float32)).to(cuda, dtype)
+    store = torch.empty(b * n * c + off, dtype=dtype, device=cuda)
+    h = store[off:].view(b, n, c)
+    h.copy_(vals)
+    if graph == "hard":
+        mask[0, 4] = False  # no valid slot
+        mask[0, 6, 0] = False  # a masked slot 0
+        idx[0, 5, 0] = n + 3  # valid, outside the cloud
+        idx[-1, 6, k - 1], mask[-1, 6, k - 1] = -1, True
+        idx[-1, 8], mask[-1, 8] = 7, True  # every slot one row: all tie
+        h[0, 7, c // 2] = float("nan")
+    name = ("gather_minmax_win" if winners else "gather_minmax") + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    staged = _GM.max_slice(b, n, c, h.element_size(), k, 132, winners)[0] > 0
+    assert staged == (n <= 14526)
+    want = _zero_row_want(ops.gather_minmax_win_plain, h, idx, mask)
+    got = {}
+    for route, launched in ((None, name if staged else f"{name}_direct"),
+                            ((0, 0), f"{name}_direct")):
+        runs = []
+        for _ in range(2):
+            reset_launch_counts()
+            runs.append(_GM._gather_minmax_win(h, idx, mask, route)
+                        if winners else _GM._minmax(h, idx, mask, route))
+            torch.cuda.synchronize()
+            counts = {m: v for m, v in launch_counts().items() if v}
+            assert counts == {launched: 1}, counts
+        for first, again in zip(*runs):  # the same bits, NaN included
+            raw = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+            assert torch.equal(first.view(raw.get(first.dtype, first.dtype)),
+                               again.view(raw.get(again.dtype, again.dtype)))
+        got[route] = runs[0]
+    for outs in got.values():
+        assert len(outs) == (4 if winners else 2)
+        for o, w in zip(outs[:2], want[:2]):
+            assert o.dtype == dtype
+            _same_values(o, w)
+        if winners:
+            assert torch.equal(outs[2], want[2]), int((outs[2] != want[2])
+                                                      .sum())
+            assert torch.equal(outs[3], want[3]), int((outs[3] != want[3])
+                                                      .sum())
+    for s_out, d_out in zip(*got.values()):
+        _same_values(s_out, d_out)
+    mx, mn = got[None][:2]
+    sentinels = torch.tensor([NEG, -NEG]).to(dtype).float()
+    if graph == "hard":
+        assert bool((mx[0, 4].float() == sentinels[0]).all())
+        assert bool((mn[0, 4].float() == sentinels[1]).all())
+        if winners:
+            wmx, wmn = got[None][2:]
+            assert not wmx[0, 4].any() and not wmn[0, 4].any()
+            assert not wmx[-1, 8].any() and not wmn[-1, 8].any()
+            num = ~torch.isnan(mx[0, 6].float())  # the NaN's winner is 0
+            assert bool((wmx[0, 6][num] > 0).all())
+            assert bool((wmn[0, 6][num] > 0).all())
+
+
+@pytest.mark.parametrize("b,n,c_in,c_out", [
+    (2, 150, 128, 256), (2, 150, 24, 40), (2, 1000, 200, 256),
+    (32, 1024, 128, 256), (1, 10038, 128, 256), (1, 10039, 128, 256)])
+def test_gather_matmul_minmax_routes(cuda, b, n, c_in, c_out):
+    """The matmul min/max through the route by shape (one product a row up
+    to 10,038 points at C_in = 128) and through the K-fold route
+    (``gather_matmul_minmax_kfold``): both outputs held by
+    ``_mm_minmax_held`` on random inputs, bit-equal to the plain version
+    on exact-sum inputs, the two routes bit-equal to each other (the same
+    tensor-core sums in the same order), (-3e38, +3e38) in bf16 on rows
+    with no valid slot, a second call bit-equal; the launches show the
+    route."""
+    rng = np.random.default_rng(b + n + c_in + 1)
+    k = 20 if n >= 1000 else 9
+    idx, mask = _mm_graph(rng, b, n, k, cuda)
+    x, w = _mm_random(rng, b, n, c_in, c_out, cuda)
+    xe, we = _mm_exact(rng, b, n, c_in, c_out, cuda)
+    rows = _GM.mm_slice(b, n, -(-c_in // 16) * 16, -(-c_out // 16) * 16, k,
+                        132) > 0
+    assert rows == (n <= 10038)
+    got = {}
+    for cs, launched in ((None, "" if rows else "_kfold"), (0, "_kfold")):
+        reset_launch_counts()
+        got[cs] = _GM._gather_matmul_minmax(x, w, idx, mask, cs)
+        again = _GM._gather_matmul_minmax(x, w, idx, mask, cs)
+        exact = _GM._gather_matmul_minmax(xe, we, idx, mask, cs)
+        torch.cuda.synchronize()
+        counts = {m: v for m, v in launch_counts().items() if v}
+        assert counts == {f"gather_matmul_minmax{launched}": 3}, counts
+        for g, a in zip(got[cs], again):
+            assert g.dtype == torch.bfloat16 and g.shape == (b, n, c_out)
+            assert torch.equal(_bits(g), _bits(a))
+        _mm_minmax_held(got[cs], x, w, idx, mask)
+        for g, wv in zip(exact, ops.gather_matmul_minmax_plain(xe, we, idx,
+                                                               mask)):
+            assert torch.equal(_bits(g), _bits(wv))
+        sentinels = torch.tensor([NEG, -NEG], device=cuda).to(torch.bfloat16)
+        for o, sent in zip(got[cs], sentinels):
+            assert bool((o[0, 4] == sent).all())
+            assert bool((o[:, -1] == sent).all())
+    for a, kf in zip(got[None], got[0]):
+        assert torch.equal(_bits(a), _bits(kf))
+
+
 # -- the neighbour max's two routes: S (a staged slice), D (direct) -----------
 
 
-def _max_want(h, idx, mask):
-    """The plain max with winners where ids outside [0, N) gather 0: the
-    plain version on ``h`` with a zero row appended (and a point with no
-    valid slot, dropped after), those ids pointed at it."""
+def _zero_row_want(plain, h, idx, mask):
+    """``plain(h, idx, mask)`` where ids outside [0, N) gather 0: the plain
+    version on ``h`` with a zero row appended (and a point with no valid
+    slot, dropped after), those ids pointed at it."""
     b, n, c = h.shape
     k = idx.shape[-1]
     hp = torch.cat([h, torch.zeros((b, 1, c), dtype=h.dtype,
@@ -2751,8 +2888,7 @@ def _max_want(h, idx, mask):
                                       device=idx.device)], dim=1)
     valid = torch.cat([mask, torch.zeros((b, 1, k), dtype=torch.bool,
                                          device=mask.device)], dim=1)
-    out, win = ops.gather_max_win_plain(hp, ids, valid)
-    return out[:, :n], win[:, :n]
+    return tuple(o[:, :n] for o in plain(hp, ids, valid))
 
 
 def _same_values(got, want):
@@ -2823,7 +2959,7 @@ def test_gather_max_routes_exact(cuda, b, n, c, k, off, body, route):
     launched = name if staged else f"{name}_direct"
     other = f"{name}_direct" if staged else name
     assert counts[launched] == 1 and counts[other] == 0, counts
-    want, want_win = _max_want(h, idx, mask)
+    want, want_win = _zero_row_want(ops.gather_max_win_plain, h, idx, mask)
     assert out.dtype == dtype
     _same_values(out, want)
     assert bool((out[0, 4].float() == torch.tensor(NEG).to(dtype).float())

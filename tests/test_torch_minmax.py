@@ -104,58 +104,157 @@ def _f32(t):
             else np.asarray(t, np.float32))
 
 
+def _gathered(h, idx):
+    """``[B, N, K, C]`` rows of ``h`` at ``idx``, a zero row at an id
+    outside [0, N)."""
+    b, n, c = h.shape
+    hp = np.concatenate([h, np.zeros((b, 1, c), h.dtype)], axis=1)
+    ids = np.where((idx < 0) | (idx >= n), n, idx)
+    return hp[np.arange(b)[:, None, None], ids]
+
+
 def _numpy_minmax(h, idx, mask):
-    """Masked max and min and their first winners, in numpy."""
-    b = h.shape[0]
-    g = h[np.arange(b)[:, None, None], idx]  # [B, N, K, C]
+    """Masked max and min and their first winners, in numpy; a valid id
+    outside [0, N) gathers a zero row."""
+    g = _gathered(h, idx)
     m = mask[..., None]
     vmax = np.where(m, g, NEG)
     vmin = np.where(m, g, -NEG)
     return (vmax.max(2), vmin.min(2), vmax.argmax(2), vmin.argmin(2))
 
 
+def _harden(idx, mask, n):
+    """The masked graph's hard rows: slot 0 masked on a row with later
+    valid slots (0, 9); a second row with no valid slot (1, 3); valid ids
+    outside the cloud, which gather a zero row: past its end, the only
+    valid slot of (0, 11), and negative, slot 0 of (1, 12); a row whose
+    valid slots all read one row, from slot 1 on (1, 14: the max and the
+    min win at the same slot)."""
+    idx, mask = idx.copy(), mask.copy()
+    mask[0, 9, 0], mask[0, 9, 1:4] = False, True
+    mask[1, 3] = False
+    mask[0, 11] = False
+    idx[0, 11, 2], mask[0, 11, 2] = n + 3, True
+    idx[1, 12, 0], mask[1, 12, 0] = -2, True
+    idx[1, 14], mask[1, 14, 0], mask[1, 14, 1:] = 7, False, True
+    return idx, mask
+
+
+def _zero_row(fn, h, idx, mask):
+    """``fn(h, idx, mask)`` where valid ids outside [0, N) gather 0: on
+    ``h`` with a zero row appended (and a point with no valid slot,
+    dropped after), those ids pointed at it; the torch plain versions
+    index ``h`` directly."""
+    b, n, c = h.shape
+    k = idx.shape[-1]
+    hp = torch.cat([h, torch.zeros((b, 1, c), dtype=h.dtype)], dim=1)
+    ids = torch.where((idx < 0) | (idx >= n), n, idx)
+    ids = torch.cat([ids, torch.zeros((b, 1, k), dtype=idx.dtype)], dim=1)
+    valid = torch.cat([mask, torch.zeros((b, 1, k), dtype=torch.bool)], dim=1)
+    return tuple(o[:, :n] for o in fn(hp, ids, valid))
+
+
 # -- gather_minmax (#10) ---------------------------------------------------
 
 
-@pytest.mark.parametrize("masked", [False, True], ids=["uniform", "masked"])
+@pytest.mark.parametrize("graph", ["uniform", "masked", "hard"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gather_minmax_matches_pallas_interpret(dtype, masked):
+def test_gather_minmax_matches_pallas_interpret(dtype, graph):
     """Values equal to JAX's ``gather_minmax`` (interpret) and, with
     winners, values and first winners equal to ``_pallas_minmax(...,
     winners=True)``, through the wrapper (CPU: the plain versions) and
     the plain bundle; bf16 in, bf16 out; a row with no valid neighbour
-    gives (-3e38, +3e38) as JAX rounds them, winners 0."""
+    gives (-3e38, +3e38) as JAX rounds them, winners 0. The hard rows
+    (``_harden``): a masked slot 0, two rows with no valid slot, valid ids
+    outside the cloud (JAX's one-hot row has no match: a zero row, which
+    the port's kernels read too; its plain versions take ``h`` with a zero
+    row appended, ``_zero_row``), and rows where the max and the min win
+    at the same slot."""
     import jax.numpy as jnp
     gm = _gm()
     rng = np.random.default_rng(20)
-    h, hj, ht, idx, mask = _inputs(rng, dtype, masked)
+    h, hj, ht, idx, mask = _inputs(rng, dtype, graph != "uniform")
+    if graph == "hard":
+        idx, mask = _harden(idx, mask, h.shape[1])
     args_j = (hj, jnp.asarray(idx), jnp.asarray(mask))
     want = gm.gather_minmax(*args_j, True)
     want_w = gm._pallas_minmax(*args_j, tile=128, interpret=True,
                                winners=True)
+
+    def port(fn):
+        if graph == "hard":
+            return _zero_row(fn, ht, _t(idx), _t(mask))
+        return fn(ht, _t(idx), _t(mask))
+
     for fn in (ops.gather_minmax, ops.gather_minmax_plain,
                KERNEL_OPS.gather_minmax, PLAIN_OPS.gather_minmax):
-        got = fn(ht, _t(idx), _t(mask))
+        got = port(fn)
         for g, w in zip(got, want):
             assert g.dtype == ht.dtype
             np.testing.assert_array_equal(_f32(g).numpy(), _f32(w))
-    got_w = ops.gather_minmax_win(ht, _t(idx), _t(mask))
+    got_w = port(ops.gather_minmax_win)
     for g, w in zip(got_w, want_w):
         np.testing.assert_array_equal(_f32(g).numpy(), _f32(w))
     assert got_w[2].dtype == got_w[3].dtype == torch.int32
     mx, mn, wmx, wmn = _numpy_minmax(h, idx, mask)
     np.testing.assert_array_equal(got_w[2].numpy(), wmx)
     np.testing.assert_array_equal(got_w[3].numpy(), wmn)
-    vals = np.where(mask[..., None], h[np.arange(2)[:, None, None], idx],
-                    np.nan)
+    vals = np.where(mask[..., None], _gathered(h, idx), np.nan)
     ties = ((vals == mx[:, :, None]).sum(2) > 1).sum()
     assert ties > 20  # the first-winner rule decided these
-    if masked:
-        assert not got_w[2][0, 5].any() and not got_w[3][0, 5].any()
-        sentinels = torch.tensor([NEG, -NEG]).to(ht.dtype)
-        assert bool((got_w[0][0, 5] == sentinels[0]).all())
-        assert bool((got_w[1][0, 5] == sentinels[1]).all())
-        assert torch.equal(got_w[2][1, 7], got_w[3][1, 7])  # one valid slot
+    if graph == "uniform":
+        return
+    sentinels = torch.tensor([NEG, -NEG]).to(ht.dtype)
+    empty = ((0, 5), (1, 3)) if graph == "hard" else ((0, 5),)
+    for row in empty:
+        assert not got_w[2][row].any() and not got_w[3][row].any()
+        assert bool((got_w[0][row] == sentinels[0]).all())
+        assert bool((got_w[1][row] == sentinels[1]).all())
+    assert torch.equal(got_w[2][1, 7], got_w[3][1, 7])  # one valid slot
+    if graph == "hard":
+        assert bool((got_w[2][1, 14] == 1).all())  # every slot one row
+        assert bool((got_w[3][1, 14] == 1).all())
+        assert bool((got_w[2][0, 9] > 0).all())  # slot 0 masked
+        assert bool((got_w[3][0, 9] > 0).all())
+        # The zero row of the id past the end, its only valid slot.
+        assert not bool(got_w[0][0, 11].any() or got_w[1][0, 11].any())
+        assert bool((got_w[2][0, 11] == 2).all())
+        assert bool((got_w[3][0, 11] == 2).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_minmax_nan_rule(dtype):
+    """The NaN rule, against the port's plain versions only (the TPU
+    kernel's one-hot product spreads a NaN across its tile, so JAX is no
+    reference there): a NaN in a valid slot propagates to the max and the
+    min of its channel, with winner 0 (no slot equals it); a NaN in a
+    masked slot changes nothing; the winners of the other channels stay
+    the first slot that holds the extreme."""
+    rng = np.random.default_rng(26)
+    h, _, ht, idx, mask = _inputs(rng, dtype, True, n=64, k=6, c=8)
+    row = idx[0, 2, 1]
+    mask[0, 2, :3] = True
+    ht[0, row, 3] = float("nan")  # read by (0, 2)'s valid slot 1
+    gone = idx[0, 4][~mask[0, 4]]
+    if gone.size:
+        ht[0, gone[0], 5] = float("nan")  # read by (0, 4) only where masked
+    mx, mn, wmx, wmn = ops.gather_minmax_win(ht, _t(idx), _t(mask))
+    got = ops.gather_minmax(ht, _t(idx), _t(mask))
+    for a, b in zip(got, (mx, mn)):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+    readers = (_t(idx)[..., None] == row) & _t(mask)[..., None]
+    nan_rows = readers[0].any(1)[:, 0]  # points of cloud 0 that read it
+    assert bool(torch.isnan(mx[0, nan_rows, 3]).all())
+    assert bool(torch.isnan(mn[0, nan_rows, 3]).all())
+    assert not bool(wmx[0, nan_rows, 3].any())
+    assert not bool(wmn[0, nan_rows, 3].any())
+    h_nan = _f32(ht).numpy()
+    finite = ~np.isnan(_f32(mx).numpy())
+    want = _numpy_minmax(np.nan_to_num(h_nan, nan=0.0), idx, mask)
+    want = [_f32(_t(w).to(ht.dtype)).numpy() for w in want[:2]] + list(
+        want[2:])  # the sentinels as the dtype rounds them
+    for g, w in zip((mx, mn, wmx, wmn), want):
+        np.testing.assert_array_equal(_f32(g).numpy()[finite], w[finite])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -409,6 +409,92 @@ def test_affine_wrapper_launches_the_route(monkeypatch, n, route, launched,
          + (int(sub_self),))]
 
 
+# -- the neighbour min/max (#10) and the matmul min/max (#13) ----------------
+
+
+@pytest.mark.parametrize("body", ["gather_minmax", "gather_minmax_bf16",
+                                  "gather_minmax_win",
+                                  "gather_minmax_win_bf16"])
+@pytest.mark.parametrize("n,route,launched,extra", [
+    (1024, None, "", None),          # by shape: route S, max_slice's
+    (8192, None, "", None),          # large clouds: 16-byte rows
+    (14526, None, "", None),         # the largest route-S cloud
+    (14527, None, "_direct", ()),    # above it: route D
+    (1024, (0, 0), "_direct", ()),   # forced route D
+    (1024, (32, 3), "", (32, 3)),    # a given slice and split
+])
+def test_minmax_wrapper_launches_the_route(monkeypatch, body, n, route,
+                                           launched, extra):
+    """The min/max forwards' one launch on CUDA tensors (``_minmax``
+    without winners, ``_gather_minmax_win`` with them; recorded in place
+    of the launch, meta tensors, no card): route S, the staged min/max
+    with ``max_slice``'s slice and splits (the max's rule: bf16 winners
+    and all), up to 14,526 points, or route D's ``_direct`` kernel above
+    them; its outputs (two, or four with the winners) after h, idx and
+    mask; no torch op that reduces or computes."""
+    calls = []
+    monkeypatch.setattr(GM._lib, "launch",
+                        lambda kernel, device, *args: calls.append(
+                            (kernel, args)))
+    monkeypatch.setattr(GM._lib, "check_inputs",
+                        lambda name, specs: torch.device("meta"))
+    monkeypatch.setattr(GM, "_sm_count", lambda index: 132)
+    b, c, k = 4, 64, 20
+    dtype = torch.bfloat16 if body.endswith("bf16") else torch.float32
+    winners = "_win" in body
+    h = torch.empty((b, n, c), dtype=dtype, device="meta")
+    idx = torch.empty((b, n, k), dtype=torch.int32, device="meta")
+    mask = torch.empty((b, n, k), dtype=torch.bool, device="meta")
+    with _Calls() as seen:
+        outs = (GM._gather_minmax_win(h, idx, mask, route) if winners
+                else GM._minmax(h, idx, mask, route))
+    assert not seen.names & _COMPUTE, seen.names & _COMPUTE
+    assert len(outs) == (4 if winners else 2)
+    assert [o.dtype for o in outs] == [dtype] * 2 + [torch.int32] * (
+        len(outs) - 2)
+    assert all(o.shape == h.shape for o in outs)
+    if extra is None:
+        extra = GM.max_slice(b, n, c, h.element_size(), k, 132, winners)
+        assert extra[0] > 0
+    pointers = 3 + len(outs)
+    assert [(name, len(args), args[pointers:]) for name, args in calls] == [
+        (body + launched, pointers + 4 + len(extra), (b, n, c, k) + extra)]
+
+
+@pytest.mark.parametrize("n,cs,launched,extra", [
+    (1024, None, "", (64,)),           # route by shape: one product a row
+    (10038, None, "", (8,)),           # the largest cloud at C_in = 128
+    (10039, None, "_kfold", ()),       # above the limit: K-fold
+    (1024, 0, "_kfold", ()),           # forced K-fold
+    (1024, 16, "", (16,)),             # a given slice is passed on
+])
+def test_matmul_minmax_wrapper_launches_the_route(monkeypatch, n, cs,
+                                                  launched, extra):
+    """``gather_matmul_minmax``'s one launch on CUDA tensors (recorded in
+    place of the launch; meta tensors, no card): the one-product-a-row
+    kernel ``gather_matmul_minmax`` with ``mm_slice``'s slice last, up to
+    10,038 points at C_in = 128, or the K-fold kernel
+    ``gather_matmul_minmax_kfold`` without it; two bf16 outputs."""
+    calls = []
+    monkeypatch.setattr(GM._lib, "launch",
+                        lambda kernel, device, *args: calls.append(
+                            (kernel, args)))
+    monkeypatch.setattr(GM._lib, "check_inputs",
+                        lambda name, specs: torch.device("meta"))
+    monkeypatch.setattr(GM, "_sm_count", lambda index: 132)
+    b, c_in, c_out, k = 32 if n == 1024 else 1, 128, 256, 20
+    x = torch.empty((b, n, c_in), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((c_in, c_out), dtype=torch.bfloat16, device="meta")
+    idx = torch.empty((b, n, k), dtype=torch.int32, device="meta")
+    mask = torch.empty((b, n, k), dtype=torch.bool, device="meta")
+    mx, mn = GM._gather_matmul_minmax(x, w, idx, mask, cs)
+    assert mx.shape == mn.shape == (b, n, c_out)
+    assert mx.dtype == mn.dtype == torch.bfloat16
+    assert [(name, args[6:]) for name, args in calls] == [
+        ("gather_matmul_minmax" + launched,
+         (b, n, c_in, c_out, k) + extra)]
+
+
 # -- the winner-routed backward: route S (shared f64 sums) or route D ------
 
 

@@ -272,7 +272,10 @@ def test_cpu_tensors_take_the_plain_versions():
             "knn_topk_rounds": 0, "gather_minmax": 0,
         "gather_minmax_bf16": 0, "gather_minmax_win": 0,
         "gather_minmax_win_bf16": 0, "gather_minmax_bwd": 0,
-        "gather_minmax_bwd_bf16": 0, "gather_matmul_minmax": 0}
+        "gather_minmax_bwd_bf16": 0, "gather_matmul_minmax": 0,
+        "gather_minmax_direct": 0, "gather_minmax_bf16_direct": 0,
+        "gather_minmax_win_direct": 0, "gather_minmax_win_bf16_direct": 0,
+        "gather_matmul_minmax_kfold": 0}
     assert KERNEL_OPS.gather_max is ops.gather_max
     assert PLAIN_OPS.gather_max is ops.gather_max_plain
     assert KERNEL_OPS.gather_sum is ops.gather_sum
