@@ -394,7 +394,46 @@ first on ``sys.path``. It
     every model path above launched none of these direct routes, nor
     ``gather_sum_direct`` (the large-cloud step ``gather_sum`` once a
     step);
-30. with ``--parent DIR`` (another checkout's root, e.g. the parent
+30. ``[knn-k10]`` (run right after the first ``[kernels]`` group): the
+    normal graph of clouds without normals, K=10: knn_topk at B=32,
+    N=1024 (packed and exact, ellipsoids and a tie-heavy grid),
+    knn_topk_table at Nq = Nt = 8192 and knn_topk_bucketed at N=65,536
+    (exact and quantized, uniform and 10% masked): ids equal to the
+    plain versions, the exact bodies' winner sets equal to ``matmul`` +
+    ``topk``'s but at near-ties; each timed beside its plain version,
+    library call and bound (the bucketed kNN by its candidate sweep, and
+    the whole call);
+31. ``[fps]``: the port's geodesic FPS library built by ``g++`` from
+    ``deltaconv_tpu_torch/cpp`` at first use, and ``GeodesicFPS(1024)``
+    (the ScanObjectNN recipe's pre-transform) of one 2048-point cloud:
+    1024 distinct points, normals subsampled with them, the same samples
+    from the same seed;
+32. ``[serve-no-normals]`` and ``[serve-no-normals-bf16]``: the
+    ScanObjectNN recipe's classifier (15 classes, conv channels (64, 64,
+    64, 128), k=20, lambda 0.01; seeded weights, randomized BatchNorm) on
+    64 uniform and 11 ragged clouds WITHOUT normals (frames estimated on
+    a 10-NN graph), f32 with exact kNN and bf16 with approximate kNN:
+    f32 within atol 1e-3 of the plain path with the argmax equal, bf16
+    within 0.01 x max|logit| of it, a full cloud the same ragged or
+    uniform, wls once a forward, knn_topk twice a uniform bf16 forward;
+    clouds/s, one 32-cloud forward's device time with estimated and with
+    given normals, and (f32) the frames alone: device time, device
+    launches and host time of a call;
+33. ``[vote]``: ``predict_voting``, 3 votes of the default augmentation
+    on 32 clouds without normals (the recipe's f32 model), through the
+    kernels and the plain versions from one seed: within 3 x 1e-3 and the
+    argmax equal, different from 3 single passes; ms a vote;
+34. ``[train-no-normals]``: 3 f32 SGD steps of the recipe at B=32,
+    N=1024 on batches without normals, uniform and ragged, kernels
+    against plain versions from the same weights, held as step 7 holds
+    one step (loss, gradients, parameters and statistics on the same
+    build; loss and statistics through the plain build, one step);
+35. ``[shard-no-normals]``: ``predict_sharded`` of ONE 65,536-point
+    cloud without normals at ``[serve-shard-bf16]``'s config: the
+    quantized bucketed kNN twice a forward, no table kNN, the kernel path
+    within 0.01 x max|logit| of the plain path and within 0.05 of the f32
+    sharded engine; host ms a call beside the cloud with its normals;
+36. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
     gather plan's build where the package has one), ``[kernel-times]``
@@ -430,6 +469,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import importlib
 import json
 import re
@@ -746,6 +786,27 @@ MINMAX_ROUTE_SHAPES = (("cls", B, N, K), ("large", LARGE_B, LARGE_N, K))
 FUSED_PER_FORWARD = {"knn_topk_mean_dist": 1, "fused_gather_wls": 1,
                      "fused_gather_wls_direct": 0, "densify_bf16": 1,
                      "knn_topk": 0, "gather_rows": 0, "wls": 0}
+# Clouds without normals: the ScanObjectNN recipe
+# (experiments/train_scanobjectnn.py: 15 classes, conv channels (64, 64,
+# 64, 128), k=20, lambda 0.01, N=1024, B=32), whose frames the model
+# estimates on a NORMAL_K-NN graph (the kNN route of the model's
+# knn_method, then torch ops).
+RECIPE = {"num_classes": 15, "conv_channels": (64, 64, 64, 128),
+          "grad_regularizer": 0.01}
+NORMAL_K = 10
+NO_NORMALS_KERNELS = {None: ("gather_rows", "wls", "densify", "gather_max"),
+                      "bfloat16": ("knn_topk", "gather_rows", "wls",
+                                   "densify_bf16", "gather_max_affine")}
+NO_NORMALS_TRAIN_KERNELS = ("gather_rows", "wls", "densify", "gather_max_win",
+                            "gather_max_bwd", "adjacency")
+NO_NORMALS_STEPS = 3
+VOTES = 3
+# x max|votes|: the least that VOTES augmented passes must move the sum of
+# VOTES plain ones (f32 rounding moves it ~1e-7 x).
+VOTE_MOVED = 1e-4
+FPS_N, FPS_SAMPLES = 2048, 1024  # GeodesicFPS: the recipe's pre-transform
+FPS_CHECK = (300, 64)  # points, samples: native against the Python version
+FRAMES_HOST_REPS = 20  # host-clock samples of the frames' enqueue
 
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
@@ -3769,20 +3830,20 @@ def kernel_phase(rng, dev, card):
 
 
 def random_model(seed, dev, dropout=0.5, affine=True, knn_method="exact",
-                 precision=None, dense_operators=True):
+                 precision=None, dense_operators=True, **arch):
     """The reference-width classifier with seeded weights and randomized
     BatchNorm statistics and, when ``affine``, scales (both signs) and
     biases; ``precision`` ("bfloat16") sets both dtypes;
     ``dense_operators=False`` is the large-cloud coefficient form (the
-    same weights)."""
+    same weights); ``arch``: other constructor arguments (``RECIPE``)."""
     from deltaconv_tpu_torch import DeltaNetClassification
     from deltaconv_tpu_torch.nn import BatchNorm
 
     gen = torch.Generator().manual_seed(seed)
-    model = DeltaNetClassification(num_classes=NUM_CLASSES, dropout=dropout,
-                                   knn_method=knn_method,
+    arch = {"num_classes": NUM_CLASSES, **arch}
+    model = DeltaNetClassification(dropout=dropout, knn_method=knn_method,
                                    dense_operators=dense_operators,
-                                   generator=gen)
+                                   generator=gen, **arch)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, BatchNorm):
@@ -6139,6 +6200,37 @@ def shard_cloud(rng, n, masked=False, shift=0.0):
     return pos, torch.from_numpy(nrm).cuda(), pm
 
 
+def sweep_args(pos, k, quantized):
+    """The arguments that ``knn_topk_bucketed`` gives its candidate sweep
+    on the uniform cloud ``pos`` (default buckets a query tile)."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.ops import knn_bucketed as kb
+
+    captured = {}
+
+    def spy(*args):
+        captured["args"] = args
+        return kb._cand_kernel(*args)
+
+    kb._bucketed(pos, pos, k, 0, None, 64, 256, 24 if quantized else 32,
+                 quantized, 2048, spy, ops.knn_topk_table)
+    return captured["args"]
+
+
+def sweep_library(args):
+    """The candidate sweep's library call: gather the candidate planes,
+    score them with one ``bmm``, pin self out, ``torch.topk``."""
+    posq, sqq, srow, comb, perm, cand, _, ks, _, _ = args
+    nqt = cand.shape[0]
+    planes = comb[cand.long()].permute(0, 2, 1, 3).reshape(nqt, 4, -1)
+    orig = perm.view(-1, comb.shape[-1])[cand.long()].reshape(nqt, 1, -1)
+    q = posq.view(nqt, -1, 3)
+    qa = torch.cat([2.0 * q, -torch.ones_like(q[..., :1])], -1)
+    s = torch.bmm(qa, planes) - sqq.view(nqt, -1, 1)
+    s = torch.where(orig == srow.view(nqt, -1, 1), -3e38, s)
+    return torch.topk(s, ks, dim=-1)
+
+
 def shard_kernel_phase(res, rng, card):
     """[kernels] of the point-sharded path at its shapes: knn_topk_table
     (exact and quantized) at Nq = Nt = 8192 (K=20 and the segmentation
@@ -6286,16 +6378,8 @@ def shard_kernel_phase(res, rng, card):
     # The candidate sweep alone, on the inputs the bucketed kNN gives it.
     for quantized in (False, True):
         name = "knn_topk_bucketed_q" if quantized else "knn_topk_bucketed"
-        captured = {}
-
-        def spy(*args):
-            captured["args"] = args
-            return kb._cand_kernel(*args)
-
-        kb._bucketed(pos, pos, K, 0, None, 64, 256, 24 if quantized else 32,
-                     quantized, 2048, spy, ops.knn_topk_table)
-        args = captured["args"]
-        posq, sqq, srow, comb, perm, cand, box, ks, marker, _ = args
+        args = sweep_args(pos, K, quantized)
+        posq, sqq, srow, comb, perm, cand, box, _, _, _ = args
         ik, sk = kb._cand_kernel(*args)
         ip, sp = kb._cand_plain(*args)
         check(f"{name} candidate sweep alone", torch.equal(ik, ip)
@@ -6304,21 +6388,7 @@ def shard_kernel_phase(res, rng, card):
         km = median_ms(lambda: kb._cand_kernel(*args), SHARD_REPS)
         pm_ = median_ms(lambda: kb._cand_plain(*args), SHARD_REPS)
 
-        def lib_sweep():
-            """Gather the candidate planes, score them with one bmm, pin
-            self out, torch.topk."""
-            nqt, m = cand.shape
-            planes = comb[cand.long()].permute(0, 2, 1, 3).reshape(
-                nqt, 4, -1)
-            orig = perm.view(-1, comb.shape[-1])[cand.long()].reshape(
-                nqt, 1, -1)
-            q = posq.view(nqt, -1, 3)
-            qa = torch.cat([2.0 * q, -torch.ones_like(q[..., :1])], -1)
-            s = torch.bmm(qa, planes) - sqq.view(nqt, -1, 1)
-            s = torch.where(orig == srow.view(nqt, -1, 1), -3e38, s)
-            return torch.topk(s, ks, dim=-1)
-
-        lm = median_ms(lib_sweep, SHARD_REPS)
+        lm = median_ms(lambda: sweep_library(args), SHARD_REPS)
         whole = median_ms(lambda: ops.knn_topk_bucketed(
             pos, pos, K, quantized=quantized), SHARD_REPS)
         idx, sc = kb._cand_kernel(*args)
@@ -7011,26 +7081,35 @@ def device_ms(fn, reps=3) -> float:
 
     fn()
     torch.cuda.synchronize()
-    # A trace that recorded no kernel at all (seen on the card, three in a
-    # row once) is a failed trace, not a measurement: trace again, after a
-    # pause.
+    # A trace that recorded no kernel at all (seen on the card, up to ten
+    # in a row for one call) is a failed trace, not a measurement: trace
+    # again after a pause, with twice the calls each time, and say so.
     for attempt in range(TRACE_TRIES):
         if attempt:
             time.sleep(TRACE_PAUSE_S)
+            torch.cuda.empty_cache()
+        calls = reps << attempt
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        events = prof.key_averages()
         total = sum(evt.self_device_time_total / evt.count
-                    * max(1, round(evt.count / reps))
-                    for evt in prof.key_averages()
+                    * max(1, round(evt.count / calls))
+                    for evt in events
                     if evt.device_type == DeviceType.CUDA and evt.count
                     and "spin_kernel" not in evt.key) / 1e3
         if total > 0:
             return total
+        device = sum(evt.count for evt in events
+                     if evt.device_type == DeviceType.CUDA)
+        print(f"  [trace] {calls} calls recorded no device time ({device} "
+              f"device events, the spin kernel's included; "
+              f"{sum(evt.count for evt in events) - device} host events)",
+              flush=True)
     raise RuntimeError(f"device_ms: {TRACE_TRIES} traces recorded no "
                        f"device time")
 
@@ -7510,6 +7589,480 @@ def nbr_minmax_phase(rng, dev, card):
     return phase
 
 
+# -- clouds without normals -------------------------------------------------------
+
+
+def knn_k10_phase(res, seed, dev, card):
+    """``[knn-k10]``: the three kNN kernels at K = NORMAL_K, the normal
+    graph of a cloud without normals: knn_topk (#23) at B=32, N=1024,
+    packed and exact, on ellipsoids and on a tie-heavy grid;
+    knn_topk_table (#24) at Nq = Nt = 8192 and knn_topk_bucketed (#25) at
+    N=65,536, exact and quantized, uniform and 10% masked: ids equal to
+    the plain versions, the exact bodies' winner sets equal to the
+    library call's (near ties exempt). Then each is timed beside its
+    plain version, its library call and its bound, as at K=20 (the
+    bucketed kNN by its candidate sweep, and the whole call). Its clouds
+    come from a generator of its own."""
+    from deltaconv_tpu_torch import ops
+    from deltaconv_tpu_torch.ops import knn_bucketed as kb
+
+    rng = np.random.default_rng([seed, NORMAL_K])
+    k = NORMAL_K
+
+    def held(name, label, got, want):
+        err = float((got.long() - want.long()).abs().max())
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        check(f"[knn-k10] {name} {label}", torch.equal(got, want),
+              f"ids equal to the plain version, max |diff| {err}")
+
+    def body(quantized):
+        return "packed" if quantized else "exact"
+
+    print(f"[knn-k10] K={k}: knn_topk B={B} N={N}, knn_topk_table "
+          f"{SHARD_TABLE_N} x {SHARD_TABLE_N}, knn_topk_bucketed N={SHARD_N}",
+          flush=True)
+    ell = torch.from_numpy(np.stack(ellipsoid_clouds(rng, [N] * B)[0])).to(
+        dev)
+    for label, pos in (("ellipsoids", ell),
+                       ("grid", grid_clouds(rng, B, N, dev))):
+        for quantized in (True, False):
+            held("knn_topk", f"{label} {body(quantized)}",
+                 ops.knn_topk(pos, k, quantized),
+                 ops.knn_topk_plain(pos, k, quantized))
+    clouds = {}
+    for n, fn, plain, label in (
+            (SHARD_TABLE_N, ops.knn_topk_table, ops.knn_topk_table_plain,
+             "knn_topk_table"),
+            (SHARD_N, ops.knn_topk_bucketed, ops.knn_topk_bucketed_plain,
+             "knn_topk_bucketed")):
+        bucketed = label == "knn_topk_bucketed"
+        for masked in (False, True):
+            pos, _, pm = shard_cloud(rng, n, masked)
+            clouds[label, masked] = pos
+            for quantized in (False, True):
+                name = label + ("_q" if quantized else "")
+                got = fn(pos, pos, k, 0, pm, quantized=quantized)
+                branch = dict(kb.last_branch) if bucketed else {}
+                held(name, f"masked={masked}" + (
+                    f", exact mode's branch {branch}" if branch else ""),
+                    got, plain(pos, pos, k, 0, pm, quantized=quantized))
+                if not quantized:
+                    # A masked query row keeps its own column in slot 0 in
+                    # the bucketed kNN (the library's masks it): valid rows.
+                    same_winner_sets(
+                        f"[knn-k10] {name} masked={masked}", got, pos, pos,
+                        k, 0, pm, pm if bucketed else None)
+    torch.cuda.synchronize()
+
+    print(f"[knn-k10] times at K={k}, median of CUDA-event samples of "
+          f"{INNER} calls ({REPS} for knn_topk, {SHARD_REPS} above; the "
+          f"plain sweep 1), card: {card}")
+    lib = median_ms(lambda: torch.topk(
+        2.0 * torch.matmul(ell, ell.transpose(1, 2))
+        - (ell * ell).sum(-1)[:, None, :], k, dim=-1))
+    for quantized in (True, False):
+        out = ops.knn_topk(ell, k, quantized)
+        km = median_ms(lambda: ops.knn_topk(ell, k, quantized))
+        pl = median_ms(lambda: ops.knn_topk_plain(ell, k, quantized))
+        bd = bound(nbytes(ell, out), float(B) * N * N * (
+            KNN_INSTR_PER_PAIR if quantized else TABLE_INSTR), ISSUE_PER_S)
+        print(f"  knn_topk B={B} N={N} K={k} {body(quantized)}: kernel "
+              f"{km:.4f} ms, plain {pl:.4f} ms, library (matmul + topk) "
+              f"{lib:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), kernel at "
+              f"{bd[0] / km:.3f} of it", flush=True)
+    tab = clouds["knn_topk_table", False]
+    lib = median_ms(lambda: knn_library(tab, tab, k), SHARD_REPS)
+    for quantized in (False, True):
+        name = "knn_topk_table" + ("_q" if quantized else "")
+        out = ops.knn_topk_table(tab, tab, k, quantized=quantized)
+        km = median_ms(lambda: ops.knn_topk_table(tab, tab, k,
+                                                  quantized=quantized),
+                       SHARD_REPS)
+        pl = median_ms(lambda: ops.knn_topk_table_plain(
+            tab, tab, k, quantized=quantized), SHARD_REPS)
+        bd = bound(nbytes(tab, tab, out), float(SHARD_TABLE_N) ** 2 * (
+            KNN_INSTR_PER_PAIR if quantized else TABLE_INSTR), ISSUE_PER_S)
+        print(f"  {name} {SHARD_TABLE_N} x {SHARD_TABLE_N} K={k}: kernel "
+              f"{km:.4f} ms, plain {pl:.4f} ms, library (chunked matmul + "
+              f"topk) {lib:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}), kernel "
+              f"at {bd[0] / km:.3f} of it", flush=True)
+    pos = clouds["knn_topk_bucketed", False]
+    for quantized in (False, True):
+        name = "knn_topk_bucketed" + ("_q" if quantized else "")
+        args = sweep_args(pos, k, quantized)
+        posq, sqq, srow, comb, perm, cand, box, _, _, _ = args
+        km = median_ms(lambda: kb._cand_kernel(*args), SHARD_REPS)
+        pl = median_ms(lambda: kb._cand_plain(*args), 1)
+        lm = median_ms(lambda: sweep_library(args), SHARD_REPS)
+        whole = median_ms(lambda: ops.knn_topk_bucketed(
+            pos, pos, k, quantized=quantized), SHARD_REPS)
+        idx, sc = kb._cand_kernel(*args)
+        pairs = float(posq.shape[0]) * cand.shape[1] * comb.shape[-1]
+        bd = bound(nbytes(posq, sqq, srow, comb, perm, cand, box, idx, sc),
+                   pairs * (KNN_INSTR_PER_PAIR if quantized else
+                            TABLE_INSTR), ISSUE_PER_S)
+        print(f"  {name} candidate sweep N={SHARD_N} K={k}, m={cand.shape[1]}"
+              f" buckets of {comb.shape[-1]}: kernel {km:.4f} ms, plain "
+              f"{pl:.4f} ms, library (gather + bmm + topk) {lm:.4f} ms, bound "
+              f"{bd[0]:.4f} ms ({bd[1]}), kernel at {bd[0] / km:.3f} of it; "
+              f"the whole knn_topk_bucketed call {whole:.4f} ms", flush=True)
+    # What the plain versions' score blocks leave in the caching allocator
+    # is released before the serving phases.
+    reserved = torch.cuda.memory_reserved() / 2**30
+    del args, clouds, ell, tab, pos, posq, sqq, srow, comb, perm, cand, box
+    del idx, sc
+    torch.cuda.empty_cache()
+    print(f"[knn-k10] the caching allocator held {reserved:.2f} GiB, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} after empty_cache",
+          flush=True)
+
+
+def fps_phase(seed, card):
+    """``[fps]``: the ScanObjectNN recipe's pre-transform on this machine:
+    the port's geodesic FPS library built by ``g++`` from the checkout's
+    ``deltaconv_tpu_torch/cpp`` into ``deltaconv_tpu_torch/_build`` (not
+    the JAX package's), and ``GeodesicFPS(FPS_SAMPLES)`` of one
+    FPS_N-point cloud: FPS_SAMPLES distinct points, the normals
+    subsampled with them, the same again from the same seed."""
+    from deltaconv_tpu_torch.cpp import build as cpp_build
+    from deltaconv_tpu_torch.data import Cloud
+    from deltaconv_tpu_torch.transforms import GeodesicFPS
+
+    rng = np.random.default_rng([seed, FPS_N])
+    t0 = time.perf_counter()
+    lib = cpp_build.load_library()
+    built = time.perf_counter() - t0
+    check("[fps] the port's library, built from its own source",
+          lib is not None and Path(lib._name) == cpp_build._SO,
+          f"{None if lib is None else lib._name} in {built:.2f} s")
+    (cloud,), (normal,) = ellipsoid_clouds(rng, [FPS_N])
+    t0 = time.perf_counter()
+    out = GeodesicFPS(FPS_SAMPLES, seed=seed)(Cloud(pos=cloud, normal=normal))
+    ms = (time.perf_counter() - t0) * 1e3
+    idx = out.sample_idx
+    check("[fps] GeodesicFPS subsamples the cloud",
+          out.pos.shape == (FPS_SAMPLES, 3)
+          and len(np.unique(idx)) == FPS_SAMPLES
+          and np.array_equal(out.pos, cloud[idx])
+          and np.array_equal(out.normal, normal[idx]),
+          f"{out.pos.shape}, {len(np.unique(idx))} distinct points")
+    again = GeodesicFPS(FPS_SAMPLES, seed=seed)(Cloud(pos=cloud))
+    check("[fps] the same samples from the same seed",
+          np.array_equal(again.sample_idx, idx), "sample_idx equal")
+    print(f"[fps] GeodesicFPS({FPS_SAMPLES}) of one {FPS_N}-point cloud: "
+          f"{ms:.1f} ms (host clock, this machine's CPU); g++ built the "
+          f"library in {built:.2f} s; card: {card}")
+
+
+def kernel_launches(fn, reps=3) -> float:
+    """Device operations (kernels, copies, fills) one call of ``fn``
+    launches, from ``torch.profiler`` over ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(evt.count for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA
+               and "spin_kernel" not in evt.key) / reps
+
+
+def frames_costs(tag, pos, forward_ms, card):
+    """The frames of 32 clouds without normals alone: ``estimate_basis``
+    on their NORMAL_K-NN graph (exact), its device time and share of one
+    forward's, its device launches and its host time a call (the enqueue,
+    no synchronisation inside)."""
+    from deltaconv_tpu_torch.geometry import estimate_basis, knn
+
+    idx, mask = knn(pos, NORMAL_K)
+
+    def frames():
+        with torch.inference_mode():
+            return estimate_basis(pos, idx, mask, orientation=pos)
+
+    ms = device_ms(frames)
+    launches = kernel_launches(frames)
+    host = []
+    for _ in range(FRAMES_HOST_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    print(f"[{tag}] the frames alone (estimate_basis, B={B}, N={N}, "
+          f"K={NORMAL_K}): {ms:.4f} ms of device time, {ms / forward_ms:.3f} "
+          f"of the forward's {forward_ms:.3f}; {launches:g} device launches "
+          f"a call; host {np.median(host) * 1e3:.3f} ms a call (median of "
+          f"{FRAMES_HOST_REPS}); card: {card}")
+
+
+def serve_no_normals_phase(seed, dev, card, precision):
+    """``[serve-no-normals]`` (f32, exact kNN) and
+    ``[serve-no-normals-bf16]`` (``precision="bfloat16"``, approximate
+    kNN): the ScanObjectNN recipe's model (RECIPE, seeded weights,
+    randomized BatchNorm) on 64 uniform and 11 ragged clouds WITHOUT
+    normals: finite logits of the right shapes; the kernel path against
+    the plain path on the card (f32 atol 1e-3 and the argmax equal; bf16
+    within 0.01 x max|logit|, the argmax equal where decisive), a full
+    cloud the same served ragged or uniform; the path's kernels
+    launched, wls once a forward, knn_topk twice a uniform bf16 forward
+    (the K=20 graph and the normal graph) and never otherwise; clouds/s;
+    the device time of one 32-cloud forward with estimated normals and
+    with the clouds' own; in f32 also the frames alone
+    (:func:`frames_costs`)."""
+    from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS, InferenceEngine,
+                                     launch_counts, reset_launch_counts)
+
+    tag = "serve-no-normals" + ("-bf16" if precision else "")
+    knn_method = "approx" if precision else "exact"
+    rng = np.random.default_rng([seed, RECIPE["num_classes"]])
+    model = random_model(seed, dev, knn_method=knn_method, **RECIPE)
+    kw = dict(num_points=N, batch_size=B, precision=precision)
+    engine = InferenceEngine(model, **kw)
+    plain = InferenceEngine(model, ops=PLAIN_OPS, **kw)
+    uni, uni_n, rag, _ = serving_clouds(rng)
+    engine.predict(uni[:B])  # warm-up
+    engine.predict(rag[:3])
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits_u = engine.predict(uni)
+        times.append(time.perf_counter() - t0)
+    logits_r = engine.predict(rag)
+    counts = launch_counts()
+    uniform = 3 * (len(uni) // B)
+    print(f"[{tag}] launches during serving ({uniform} uniform forwards, 1 "
+          f"ragged): { {n: c for n, c in counts.items() if c} }")
+    print(f"[{tag}] checks")
+    classes = RECIPE["num_classes"]
+    check("uniform logits", logits_u.shape == (64, classes)
+          and bool(np.isfinite(logits_u).all()), f"shape {logits_u.shape}")
+    check("ragged logits", logits_r.shape == (11, classes)
+          and bool(np.isfinite(logits_r).all()), f"shape {logits_r.shape}")
+    for name in NO_NORMALS_KERNELS[precision]:
+        check(f"{name} launched", counts[name] > 0, f"{counts[name]} launches")
+    per = 2 if precision else 0
+    check(f"knn_topk {per} a uniform forward, 0 a ragged one",
+          counts["knn_topk"] == per * uniform,
+          f"{counts['knn_topk']} launches in {uniform} uniform forwards")
+    check("wls once a forward", counts["wls"] == uniform + 1,
+          f"{counts['wls']} launches in {uniform + 1} forwards")
+    for label, cl, got in (("uniform", uni, logits_u),
+                           ("ragged", rag, logits_r)):
+        ref = plain.predict(cl)
+        if precision:
+            held_to(f"{label} kernel vs plain path", got, ref, BF16_PATH_REL)
+        else:
+            err = float(np.abs(got - ref).max())
+            same = bool((got.argmax(1) == ref.argmax(1)).all())
+            check(f"{label} kernel vs plain path", err <= LOGIT_ATOL and same,
+                  f"max_abs_err {err} <= {LOGIT_ATOL}, argmax equal {same}")
+    if precision:
+        held_to("full cloud ragged (exact kNN) vs uniform (knn_topk)",
+                logits_r[-1:], logits_u[:1], BF16_REL)
+    else:
+        err = float(np.abs(logits_r[-1] - logits_u[0]).max())
+        check("full cloud ragged vs uniform", err <= LOGIT_ATOL,
+              f"max_abs_err {err} <= {LOGIT_ATOL}")
+    t = float(np.median(times))
+    print(f"[{tag}] 64 uniform clouds without normals (N={N}, batch {B}, "
+          f"knn_method={knn_method}, precision={precision}): median "
+          f"{t * 1e3:.3f} ms per call of 2 batches, {64 / t:.1f} clouds/s "
+          f"(host clock, synchronised), card: {card}")
+
+    pos = torch.from_numpy(np.stack(uni[:B])).to(dev)
+    nrm = torch.from_numpy(np.stack(uni_n[:B])).to(dev)
+
+    def forward(normal):
+        with torch.inference_mode():
+            return engine.model(pos, normal, None, ops=KERNEL_OPS)
+
+    est = device_ms(lambda: forward(None))
+    given = device_ms(lambda: forward(nrm))
+    print(f"[{tag}] one {B}-cloud forward's device time: estimated normals "
+          f"{est:.3f} ms, the clouds' own normals {given:.3f} ms "
+          f"(+{est - given:.3f}); card: {card}")
+    if precision is None:
+        frames_costs(tag, pos, est, card)
+    return counts
+
+
+def vote_phase(seed, dev, card):
+    """``[vote]``: ``InferenceEngine.predict_voting`` of the recipe's f32
+    model (exact kNN), VOTES votes of the default augmentation
+    (RandomScale 4/5..5/4, then RandomTranslateGlobal 0.1) on 32 clouds
+    without normals, through the kernels and through the plain versions
+    from one seed, hence the same draws (the generator is on the card and
+    only the augmentation draws from it): finite, within VOTES x 1e-3 and
+    the argmax equal; wls once a vote; the votes differ from VOTES
+    single passes by more than VOTE_MOVED x max|votes| (the augmentation
+    ran); host ms a vote."""
+    from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
+                                     launch_counts, reset_launch_counts)
+
+    rng = np.random.default_rng([seed, VOTES])
+    model = random_model(seed, dev, **RECIPE)
+    engine = InferenceEngine(model, num_points=N, batch_size=B)
+    plain = InferenceEngine(model, num_points=N, batch_size=B,
+                            ops=PLAIN_OPS)
+    clouds, _ = ellipsoid_clouds(rng, [N] * B)
+    engine.predict_voting(clouds, num_votes=1, seed=seed)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = engine.predict_voting(clouds, num_votes=VOTES, seed=seed)
+    t = time.perf_counter() - t0
+    counts = launch_counts()
+    print("[vote] checks")
+    check("votes", got.shape == (B, RECIPE["num_classes"])
+          and bool(np.isfinite(got).all()), f"shape {got.shape}")
+    check("wls once a vote", counts["wls"] == VOTES,
+          f"{counts['wls']} launches in {VOTES} votes")
+    want = plain.predict_voting(clouds, num_votes=VOTES, seed=seed)
+    err = float(np.abs(got - want).max())
+    same = bool((got.argmax(1) == want.argmax(1)).all())
+    check("kernel vs plain path, the same draws",
+          err <= VOTES * LOGIT_ATOL and same,
+          f"max_abs_err {err} <= {VOTES * LOGIT_ATOL}, argmax equal {same}")
+    moved = float(np.abs(got - VOTES * engine.predict(clouds)).max())
+    floor = VOTE_MOVED * float(np.abs(got).max())
+    check("the augmentation moved the logits", moved > floor,
+          f"max |votes - {VOTES} x predict| {moved} > {floor}")
+    print(f"[vote] {VOTES} votes on {B} clouds without normals: "
+          f"{t * 1e3:.3f} ms a call, {t * 1e3 / VOTES:.3f} ms a vote (host "
+          f"clock, synchronised), card: {card}")
+    return counts
+
+
+def recipe_steps(batch, seed, dev, ops, steps=NO_NORMALS_STEPS):
+    """``steps`` steps of a fresh recipe model (dropout 0) through ``ops``:
+    the last loss and the model (:func:`compare_steps`' ``once``)."""
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    model = random_model(seed, dev, dropout=0.0, affine=False, **RECIPE)
+    state = create_train_state(model, sgd_momentum(TRAIN_LR))
+    step = make_train_step(model, ops=ops)
+    losses = [float(step(state, batch, None)["loss"]) for _ in range(steps)]
+    check("[train-no-normals] losses finite", bool(np.isfinite(losses).all()),
+          f"{losses}")
+    return losses[-1], model
+
+
+def train_no_normals_phase(seed, dev, card):
+    """``[train-no-normals]``: NO_NORMALS_STEPS f32 SGD steps of the
+    recipe's model (exact kNN) at B=32, N=1024 on batches without
+    ``normal``, uniform and ragged, through the kernels and through the
+    plain versions from the same weights, held as :func:`compare_steps`
+    holds a step: on the same build the loss, every gradient and
+    parameter and the running statistics after the last step; through
+    the plain build (uniform, one step) the loss and the statistics. The
+    kernels' steps launch the f32 step's kernels."""
+    from deltaconv_tpu_torch import (KERNEL_OPS, launch_counts,
+                                     reset_launch_counts)
+
+    rng = np.random.default_rng([seed, NO_NORMALS_STEPS])
+    batches = {}
+    for label, sizes in (("uniform", [N] * B), ("ragged", rng.integers(
+            N * 600 // 1024, N + 1, B).tolist())):
+        batch = train_batch(rng, dev, sizes)
+        del batch["normal"]
+        batch["label"] = batch["label"] % RECIPE["num_classes"]
+        batches[label] = batch
+    recipe_steps(batches["uniform"], seed + 1, dev, KERNEL_OPS)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    recipe_steps(batches["uniform"], seed, dev, KERNEL_OPS)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    counts = launch_counts()
+    print(f"[train-no-normals] launches in {NO_NORMALS_STEPS} steps: "
+          f"{ {n: c for n, c in counts.items() if c} }")
+    for name in NO_NORMALS_TRAIN_KERNELS:
+        check(f"[train-no-normals] {name} launched", counts[name] > 0,
+              f"{counts[name]} launches")
+    print(f"[train-no-normals] {NO_NORMALS_STEPS} steps of a fresh model, "
+          f"B={B} N={N}: {t * 1e3:.3f} ms with the model's set-up (host "
+          f"clock, synchronised), card: {card}")
+    for label, batch in batches.items():
+        compare_steps(f"[train-no-normals] {label}, same build", batch, seed,
+                      dev, True, once=recipe_steps)
+    # Through the plain build, one step, as compare_steps holds it: the
+    # builds' ~1e-6 flips neighbour-max winners, and later steps carry
+    # the flips into the loss (2.1e-4 rel at step 3 on an H100).
+    compare_steps("[train-no-normals] uniform, plain build, one step",
+                  batches["uniform"], seed, dev, False,
+                  once=functools.partial(recipe_steps, steps=1))
+    return counts
+
+
+def shard_no_normals_phase(seed, dev, card):
+    """``[shard-no-normals]``: ``predict_sharded`` of ONE 65,536-point
+    cloud WITHOUT normals at ``[serve-shard-bf16]``'s config (reference
+    width, coefficient operators, bf16, approximate kNN) on one card: the
+    quantized bucketed kNN twice a forward (the K=20 graph and the normal
+    graph) and no table kNN; the kernel path within 0.01 x max|logit| of
+    the plain path and within 0.05 x max|logit| of the f32 sharded
+    engine; host ms a call beside the same cloud with its normals."""
+    from deltaconv_tpu_torch import (PLAIN_OPS, InferenceEngine,
+                                     launch_counts, reset_launch_counts)
+
+    rng = np.random.default_rng([seed, SHARD_N])
+    model = shard_model(seed, dev, None, "approx")
+    kw = dict(num_points=SHARD_N, batch_size=1)
+    engine = InferenceEngine(model, precision="bfloat16", **kw)
+    plain = InferenceEngine(model, precision="bfloat16", ops=PLAIN_OPS, **kw)
+    (cloud,), (normal,) = ellipsoid_clouds(rng, [SHARD_N])
+    engine.predict_sharded(cloud)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times = []
+    for _ in range(SHARD_CALLS):
+        t0 = time.perf_counter()
+        got = engine.predict_sharded(cloud)
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    print(f"[shard-no-normals] launches during {SHARD_CALLS} forwards: "
+          f"{ {n: c for n, c in counts.items() if c} }")
+    print("[shard-no-normals] checks")
+    check("logits", got.shape == (NUM_CLASSES,)
+          and bool(np.isfinite(got).all()), f"shape {got.shape}")
+    for name in SHARD_BF16_KERNELS:
+        check(f"{name} launched", counts[name] > 0, f"{counts[name]} launches")
+    for name, per in (("knn_topk_bucketed_q", 2), ("knn_topk_bucketed", 0),
+                      ("knn_topk_table", 0), ("knn_topk_table_q", 0)):
+        check(f"{name} {per} a forward", counts[name] == per * SHARD_CALLS,
+              f"{counts[name]} launches in {SHARD_CALLS} forwards")
+    held_to("kernel vs plain path", got[None],
+            plain.predict_sharded(cloud)[None], BF16_PATH_REL)
+    held_to("bfloat16 vs the f32 sharded engine", got[None],
+            InferenceEngine(model, **kw).predict_sharded(cloud)[None],
+            BF16_REL)
+    t = float(np.median(times))
+    given = []
+    for _ in range(SHARD_CALLS):
+        t0 = time.perf_counter()
+        engine.predict_sharded(cloud, normal)
+        given.append(time.perf_counter() - t0)
+    print(f"[shard-no-normals] one cloud of N={SHARD_N} without normals "
+          f"(bf16, knn_method=approx): median {t * 1e3:.3f} ms per "
+          f"predict_sharded call against {np.median(given) * 1e3:.3f} ms "
+          f"with its normals (host clock, synchronised), card: {card}")
+    return counts
+
+
 def compare_phases(seed, dev, card):
     """The phases that time one tree against another in one call: the
     coefficient applies (:func:`coef_apply_table`), the redesigned
@@ -7594,6 +8147,7 @@ def main():
 
     res = kernel_phase(rng, dev, card)
     check_rows_shapes(res, rng.spawn(1)[0], dev)
+    knn_k10_phase(res, args.seed, dev, card)
     mark("kernels")
     serve = serve_phase(rng, args.seed, dev, card)
     clouds = serving_clouds(rng)  # the same for bf16 and int8 serving
@@ -7644,6 +8198,14 @@ def main():
     mark("neighbour max route D")
     wls_direct = wls_direct_phase(rng, dev)
     mark("WLS direct route")
+    fps_phase(args.seed, card)
+    no_normals = serve_no_normals_phase(args.seed, dev, card, None)
+    no_normals_bf16 = serve_no_normals_phase(args.seed, dev, card,
+                                             "bfloat16")
+    vote = vote_phase(args.seed, dev, card)
+    train_no_normals = train_no_normals_phase(args.seed, dev, card)
+    shard_no_normals = shard_no_normals_phase(args.seed, dev, card)
+    mark("clouds without normals")
     if args.parent:
         parent_phase(args.parent, args.seed, card)
         mark("parent tree")
@@ -7661,7 +8223,11 @@ def main():
             ("serve-shard-f32", shard_f32), ("serve-shard-seg-f32", shard_seg),
             ("serve-shard-seg-bf16", shard_seg_bf16),
             ("train-seg-bf16", seg_train), ("train-seg-f32", seg_train_f32),
-            ("pos-grad", pos_grad), ("serve-fused-build", fused_build)):
+            ("pos-grad", pos_grad), ("serve-fused-build", fused_build),
+            ("serve-no-normals", no_normals),
+            ("serve-no-normals-bf16", no_normals_bf16), ("vote", vote),
+            ("train-no-normals", train_no_normals),
+            ("shard-no-normals", shard_no_normals)):
         check(f"[{label}] the WLS and fused-build direct routes and the "
               f"sum's route D never",
               counts["wls_direct"] == 0 and counts["wls_bwd_direct"] == 0

@@ -1,8 +1,11 @@
 """deltaconv_tpu_torch: the DeltaConv serving paths (classification and
 segmentation, f32, and bf16 with approximate kNN; one large cloud
-point-sharded, ``InferenceEngine.predict_sharded``) and the
-classification train step (f32 and bf16) in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+point-sharded, ``InferenceEngine.predict_sharded``; voting,
+``InferenceEngine.predict_voting``) and the train steps (f32 and bf16) in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+Clouds with or without normals (the frames are then estimated), the
+ScanObjectNN recipe's data pipeline (``data``, ``transforms``: its reader,
+the loader, geodesic FPS, the augmentations) and its metrics.
 
 A port of ``deltaconv_tpu`` (JAX, TPU), which stays the reference. This
 package imports neither JAX nor ``deltaconv_tpu``. Its kernels

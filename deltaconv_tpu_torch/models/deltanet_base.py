@@ -1,19 +1,20 @@
 """DeltaNet backbone: operator construction + stacked DeltaConvs
-(counterpart of ``deltaconv_tpu/models/deltanet_base.py``, given
-normals).
+(counterpart of ``deltaconv_tpu/models/deltanet_base.py``).
 
 The kNN graph and the grad/div operators are rebuilt on every forward
 from the positions, so operator construction is part of the serving
 path: kNN (``torch.topk``, or the ``knn_topk`` kernel for
-``knn_method="approx"``), tangent frames, the edge-plane gather and the
-WLS solve (two kernels), and, with ``dense_operators=True`` (the
-default), the dense assembly (a kernel, f32, bf16 or int8). With
-``dense_operators=False``, the JAX package's large-cloud mode, the convs
-apply the coefficient-form operators as they are (two kernels,
-``coef_apply_grad`` and ``coef_apply_div``, ``O(N K)`` where the dense
-``[B, 2, N, N]`` matrices are ``O(N^2)``). Then the convs' neighbour
-maxes; in training the first conv's edge statistics add the neighbour
-sum. ``fused_eval_build=True`` (off by default, as in JAX) routes bf16
+``knn_method="approx"``), tangent frames (from given normals, or, for
+clouds without normals, estimated from a ``normal_k``-NN graph by
+``estimate_basis``: the same kNN route at K=10, then torch ops in f32),
+the edge-plane gather and the WLS solve (two kernels), and, with
+``dense_operators=True`` (the default), the dense assembly (a kernel,
+f32, bf16 or int8). With ``dense_operators=False``, the JAX package's
+large-cloud mode, the convs apply the coefficient-form operators as
+they are (two kernels, ``coef_apply_grad`` and ``coef_apply_div``,
+``O(N K)`` where the dense ``[B, 2, N, N]`` matrices are ``O(N^2)``).
+Then the convs' neighbour maxes; in training the first conv's edge
+statistics add the neighbour sum. ``fused_eval_build=True`` (off by default, as in JAX) routes bf16
 eval forwards of uniform batches on the card through
 :func:`build_dense_operators_fused`: ``knn_topk`` with its mean
 distances, the ``fused_gather_wls`` kernel and the bf16 assembly, the
@@ -53,7 +54,7 @@ import torch
 from torch import nn
 
 from ..geometry.dense import DenseGradDiv, densify
-from ..geometry.frames import build_tangent_basis
+from ..geometry.frames import build_tangent_basis, estimate_basis
 from ..geometry.grad_div import GradDiv
 from ..geometry.knn import knn
 from ..nn.deltaconv import DeltaConv
@@ -89,15 +90,17 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
                     kernel_width: float = 1.0, regularizer: float = 0.001,
                     ops: Ops = KERNEL_OPS, operator_dtype=None,
                     knn_method: str = "exact",
-                    dense_operators: bool = True) -> DenseGradDiv | GradDiv:
+                    dense_operators: bool = True,
+                    normal_k: int = 10) -> DenseGradDiv | GradDiv:
     """Builds the grad/div operators of a batch of clouds, dense or in
     coefficient form.
 
     Args:
       pos: ``[B, N, 3]`` positions.
       k: neighbours of the operator graph (self loop in slot 0).
-      normal: ``[B, N, 3]`` unit normals. Estimating them from the
-        cloud (``estimate_basis``) is not ported yet.
+      normal: ``[B, N, 3]`` unit normals, or None: the frames are then
+        estimated from a ``normal_k``-NN graph of the same ``knn_method``
+        (``estimate_basis``, oriented by ``pos``).
       point_mask: optional ``[B, N]`` bool validity.
       kernel_width, regularizer: WLS parameters.
       ops: the kernels (default) or their plain versions.
@@ -107,15 +110,12 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
       knn_method: ``"exact"`` or ``"approx"`` (``geometry.knn``).
       dense_operators: densify (:class:`DenseGradDiv`), or return the
         coefficient form (:class:`GradDiv`, the large-cloud path).
+      normal_k: neighbours of the normal graph when ``normal`` is None.
 
-    The build is differentiable in ``pos`` and ``normal`` (f32 and bf16
-    operators; the kNN runs on detached positions); int8 operators raise
-    on inputs that require grad.
+    The build is differentiable in ``pos`` (through estimated frames
+    too) and ``normal`` (f32 and bf16 operators; the kNN runs on detached
+    positions); int8 operators raise on inputs that require grad.
     """
-    if normal is None:
-        raise NotImplementedError(
-            "normal estimation (estimate_basis, geometry/linalg.py) is not "
-            "ported yet (ROADMAP: port queue); pass normals")
     if (dense_operators and to_dtype(operator_dtype) == torch.int8
             and _requires_grad(pos, normal)):
         raise NotImplementedError(
@@ -123,7 +123,13 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
             "package); differentiate positions or normals in f32")
     nbr_idx, nbr_mask = knn(pos.detach(), k, point_mask, knn_method,
                             ops.knn_topk)
-    x_basis, y_basis = build_tangent_basis(normal)
+    if normal is None:
+        nbr_n, mask_n = knn(pos.detach(), normal_k, point_mask, knn_method,
+                            ops.knn_topk)
+        normal, x_basis, y_basis = estimate_basis(pos, nbr_n, mask_n,
+                                                  orientation=pos)
+    else:
+        x_basis, y_basis = build_tangent_basis(normal)
     if point_mask is not None:
         nbr_mask = nbr_mask & point_mask[:, :, None]
     gd = build_grad_div_fused(pos, normal, x_basis, y_basis, nbr_idx,

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.dense import _bmm_f32
-from ..geometry.frames import build_tangent_basis
+from ..geometry.frames import build_tangent_basis, estimate_basis
 from ..geometry.grad_div import GradDiv
 from ..ops import KERNEL_OPS, Ops
 from ..ops.wls_fused import build_grad_div_tables
@@ -230,25 +230,38 @@ def pad_cloud(pos, n_devices, normal=None):
     return pos, normal, mask
 
 
+def _local_graph(pos, pos_full, k, offset, pm_full, knn_method, ops):
+    """This rank's rows' ``(idx, mask)`` against the whole table: fillers
+    beyond the table (>= N) and masked columns are invalid."""
+    idx = _local_knn(pos, pos_full, k, offset, pm_full,
+                     quantized=knn_method == "approx", ops=ops)
+    n_full = pos_full.shape[0]
+    mask = idx < n_full
+    if pm_full is not None:
+        mask &= pm_full[torch.clamp(idx, max=n_full - 1).long()]
+    return idx, mask
+
+
 def _build_local(pos, normal, point_mask, k, group, kernel_width,
-                 regularizer, knn_method, ops):
-    """The operators of this rank's rows (the JAX ``shard_map`` body)."""
-    if normal is None:
-        raise NotImplementedError(
-            "normal estimation (estimate_basis) is not ported yet (ROADMAP: "
-            "port queue); pass normals")
+                 regularizer, knn_method, ops, normal_k=10):
+    """The operators of this rank's rows (the JAX ``shard_map`` body);
+    without ``normal`` the frames are estimated from a ``normal_k``-NN
+    graph against the whole table, as the unsharded build does."""
     rank, _ = rank_and_size(group)
-    n_local = pos.shape[0]
+    offset = rank * pos.shape[0]
     pos_full = all_gather(pos, group)
     pm_full = None if point_mask is None else all_gather(point_mask, group)
-    idx = _local_knn(pos, pos_full, k, rank * n_local, pm_full,
-                     quantized=knn_method == "approx", ops=ops)
-    # Fillers beyond the table (>= N) and masked columns are invalid.
-    n_full = pos_full.shape[0]
-    nbr_mask = idx < n_full
-    if pm_full is not None:
-        nbr_mask &= pm_full[torch.clamp(idx, max=n_full - 1).long()]
-    xb, yb = build_tangent_basis(normal)
+    idx, nbr_mask = _local_graph(pos, pos_full, k, offset, pm_full,
+                                 knn_method, ops)
+    if normal is None:
+        nbr_n, mask_n = _local_graph(pos, pos_full, normal_k, offset,
+                                     pm_full, knn_method, ops)
+        nbr_n = torch.clamp(nbr_n, max=pos_full.shape[0] - 1)
+        normal, xb, yb = (t[0] for t in estimate_basis(
+            pos[None], nbr_n[None], mask_n[None], orientation=pos[None],
+            table=pos_full[None]))
+    else:
+        xb, yb = build_tangent_basis(normal)
     table = torch.cat([pos_full, all_gather(xb, group),
                        all_gather(yb, group)], dim=-1)
 
@@ -269,8 +282,8 @@ def point_sharded_operators(pos, k: int, normal=None, point_mask=None,
                             ops: Ops = KERNEL_OPS) -> GradDiv:
     """The operators of this rank's rows ``pos [n_l, 3]`` (with ``normal``
     and ``point_mask`` ``[n_l]``): a batch of one :class:`GradDiv` whose
-    ``nbr_idx`` hold GLOBAL rows. Normals are required (estimating them is
-    not ported yet)."""
+    ``nbr_idx`` hold GLOBAL rows. Without ``normal`` the frames are
+    estimated (a 10-NN graph against the whole cloud)."""
     return _build_local(pos, normal, point_mask, k, group, kernel_width,
                         regularizer, knn_method, ops)
 
@@ -303,7 +316,8 @@ def _forward(model, pos, normal, point_mask, group, ops, **kwargs):
                       base.grad_kernel_width, base.grad_regularizer,
                       base.knn_method, ops)
     pm = None if point_mask is None else point_mask[None]
-    return model(pos[None], normal[None], pm, ops=ops,
+    nrm = None if normal is None else normal[None]
+    return model(pos[None], nrm, pm, ops=ops,
                  operators=ShardedGradDiv(gd, group), group=group,
                  **kwargs)[0]
 

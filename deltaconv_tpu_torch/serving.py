@@ -50,6 +50,18 @@ ONE cloud too large for a batch serves point-sharded
     engine = InferenceEngine(model, num_points=65536, batch_size=1,
                              precision="bfloat16")
     logits = engine.predict_sharded(cloud, normal)   # [40] f32
+
+Clouds without normals (ScanObjectNN's real scans) serve with
+``normals=None`` on every entry point: the model estimates each point's
+frame from its 10 nearest neighbours (``geometry.estimate_basis``).
+:meth:`InferenceEngine.predict_voting` is the reference's voting
+protocol: the logits of ``num_votes`` randomly augmented passes, summed::
+
+    model = DeltaNetClassification(num_classes=15,
+                                   conv_channels=(64, 64, 64, 128),
+                                   grad_regularizer=0.01)
+    engine = InferenceEngine(model, num_points=1024)
+    logits = engine.predict_voting(clouds, num_votes=10, seed=0)  # [M, 15]
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ from .models.deltanet_segmentation import NUM_CATEGORIES
 from .ops import KERNEL_OPS, Ops
 from .parallel import (all_gather, pad_cloud, point_sharded_classification,
                        point_sharded_segmentation, rank_and_size, shard_rows)
+from .transforms.augment import augment_classification
 from .utils.device import resolve_device
 
 __all__ = ["InferenceEngine", "apply_precision"]
@@ -197,7 +210,8 @@ class InferenceEngine:
     def predict(self, clouds: Sequence, normals: Optional[Sequence] = None,
                 categories: Optional[Sequence] = None):
         """Runs the model on ``clouds`` (sequence of ``[N_i, 3]`` arrays,
-        ragged ``N_i`` allowed) with matching ``normals``.
+        ragged ``N_i`` allowed) with matching ``normals`` (all or none:
+        without them the model estimates every cloud's frames).
         ``categories``: one object category a cloud, for a segmentation
         model with ``categorical_vector=True``: int ids are one-hot
         encoded to the ShapeNet-convention 16 (ids outside 0..15 are
@@ -211,14 +225,63 @@ class InferenceEngine:
             raise ValueError(f"{len(categories)} categories for "
                              f"{len(clouds)} clouds; give one a cloud")
         batches, sizes = self._assemble(clouds, normals, categories)
-        outs = []
         with torch.inference_mode():
-            for pos, normal, mask, cat, keep in batches:
-                kwargs = {} if cat is None else {"category": cat}
-                logits = self.model(pos, normal, mask, ops=self.ops,
-                                    **kwargs)
-                outs.append(logits[:keep].float().cpu().numpy())
-        logits = np.concatenate(outs, axis=0)
+            logits = self._run(batches)
+        return self._output(logits, sizes)
+
+    def predict_voting(self, clouds: Sequence,
+                       normals: Optional[Sequence] = None,
+                       categories: Optional[Sequence] = None,
+                       num_votes: int = 10, augment=None, seed: int = 0):
+        """The reference voting protocol (test_shapenet.py:79-96):
+        ``num_votes`` randomly augmented forward passes, their logits
+        summed in f32. ``augment``: ``(generator, pos, normal) -> (pos,
+        normal)`` on the padded ``[B, N, 3]`` batches (``normal`` None for
+        clouds without normals; a returned None keeps the batch's), by
+        default :func:`~.transforms.augment.augment_classification`
+        (RandomScale 4/5..5/4, then RandomTranslateGlobal 0.1). The clouds
+        are padded, stacked and uploaded once; every (vote, batch) draws
+        from one ``torch.Generator`` on the engine's device seeded with
+        ``seed``. Returns what :meth:`predict` returns."""
+        if num_votes < 1:
+            raise ValueError(f"num_votes must be >= 1, got {num_votes}")
+        if len(clouds) == 0:
+            return []
+        if categories is not None and len(categories) != len(clouds):
+            raise ValueError(f"{len(categories)} categories for "
+                             f"{len(clouds)} clouds; give one a cloud")
+        augment = augment_classification if augment is None else augment
+        batches, sizes = self._assemble(clouds, normals, categories)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        def augmented(pos, normal):
+            p, n = augment(generator, pos, normal)
+            return p, normal if n is None else n
+
+        total = None
+        with torch.inference_mode():
+            for _ in range(num_votes):
+                logits = self._run(batches, augmented)
+                total = logits if total is None else total + logits
+        return self._output(total, sizes)
+
+    def _run(self, batches, augmented=None):
+        """The f32 logits of every batch, filler rows dropped, on the
+        engine's device; ``augmented(pos, normal)`` first, if given."""
+        outs = []
+        for pos, normal, mask, cat, keep in batches:
+            if augmented is not None:
+                pos, normal = augmented(pos, normal)
+            kwargs = {} if cat is None else {"category": cat}
+            logits = self.model(pos, normal, mask, ops=self.ops, **kwargs)
+            outs.append(logits[:keep].float())
+        return torch.cat(outs, dim=0)
+
+    @staticmethod
+    def _output(logits, sizes):
+        """Host logits: ``[M, classes]``, or a list of each cloud's trimmed
+        ``[N_i, classes]`` (segmentation)."""
+        logits = logits.cpu().numpy()
         if logits.ndim == 3:  # segmentation: trim the padding per cloud
             return [logits[i, :n] for i, n in enumerate(sizes)]
         return logits
@@ -227,7 +290,7 @@ class InferenceEngine:
                         group=None):
         """Serves ONE cloud ``[N, 3]`` (with ``normal [N, 3]``) spread over
         the ranks of ``group`` (``parallel.point_sharding``; None: this
-        process alone). Every rank passes the whole cloud: it is padded to
+        process alone); without ``normal`` the frames are estimated. Every rank passes the whole cloud: it is padded to
         a multiple of the group's size (a point mask hides the padding),
         each rank builds the operators of its row block and runs the conv
         stack on it, and the gathers and pools complete with collectives.

@@ -428,11 +428,12 @@ def _knn_cloud(rng, b, n, cloud):
 # kernel, the model shapes (N = 1024, 2048, 8192), N just above the
 # kernel's 8192-point staging tile and above two tiles, K = 1, each list
 # capacity (20, 32, 64), and K = 80 (> 64: the rounds route, N <= 1024
-# and above).
+# and above); K = 10, the normal graph of a cloud without normals, at the
+# ScanObjectNN recipe's B=32, N=1024 and at a ragged N.
 KNN_TOPK_CASES = [(2, 77, 20), (2, 1024, 20), (2, 1500, 20), (2, 2048, 30),
                   (2, 4096, 20), (1, 8192, 20), (2, 2049, 20), (1, 8193, 30),
                   (1, 16400, 20), (2, 300, 1), (2, 300, 32), (2, 1100, 64),
-                  (2, 300, 80), (1, 1500, 80)]
+                  (2, 300, 80), (1, 1500, 80), (32, 1024, 10), (2, 77, 10)]
 
 
 @pytest.mark.parametrize("cloud", ["gauss", "grid"])
@@ -623,6 +624,36 @@ def test_bf16_model_kernels_match_plain(cuda):
     reset_launch_counts()
     engine.predict([p.numpy() for p in pos], [q.numpy() for q in nrm])
     assert launch_counts()["knn_topk"] > 0
+
+
+@pytest.mark.parametrize("precision", [None, "bfloat16"])
+def test_model_without_normals_kernels_match_plain(cuda, precision):
+    """The narrow model on clouds without normals (frames estimated on a
+    10-NN graph), served through the kernels and through the plain
+    versions on the card, uniform and ragged; a uniform approximate
+    forward launches knn_topk twice (the K=8 graph and the normal
+    graph)."""
+    rng = np.random.default_rng(16)
+    model = DeltaNetClassification(
+        5, conv_channels=(8, 16, 16, 136), embedding_size=32,
+        num_neighbors=8, knn_method="approx",
+        generator=torch.Generator().manual_seed(0))
+    kw = dict(num_points=128, batch_size=4, precision=precision)
+    engine = InferenceEngine(model, **kw)
+    plain = InferenceEngine(model, ops=PLAIN_OPS, **kw)
+    pos, _ = _cloud_batch(rng, 4, 128, "cpu")
+    for sizes in ([128] * 4, [128, 90, 128, 60]):
+        clouds = [p[:s].numpy() for p, s in zip(pos, sizes)]
+        reset_launch_counts()
+        got = engine.predict(clouds)
+        counts = launch_counts()
+        want = plain.predict(clouds)
+        assert np.isfinite(got).all()
+        rel = 1e-3 if precision is None else 1e-2
+        np.testing.assert_allclose(got, want,
+                                   atol=rel * float(np.abs(want).max()))
+        assert counts["knn_topk"] == (2 if sizes[1] == 128 else 0)
+        assert counts["wls"] == 1 and counts["gather_rows"] > 0
 
 
 # -- the bf16 train slice -------------------------------------------------------
@@ -1861,7 +1892,8 @@ def _table_cloud(rng, n, dev, cloud):
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("n_q,n_t,k,tile_c", [
     (300, 700, 11, 128), (300, 5000, 20, 2048), (8192, 8192, 30, 2048),
-    (8192, 8192, 20, 2048), (100, 2049, 32, 2048), (77, 4100, 1, 1024)])
+    (8192, 8192, 20, 2048), (100, 2049, 32, 2048), (77, 4100, 1, 1024),
+    (8192, 8192, 10, 2048)])
 def test_knn_table_kernel_exact(cuda, n_q, n_t, k, tile_c, quantized,
                                 masked, cloud):
     """Ids equal to the plain version (order included), rows offset into
@@ -1928,6 +1960,30 @@ def test_knn_table_kernel_repair_shape(cuda, quantized, cloud):
     torch.cuda.synchronize()
     assert torch.equal(got, ops.knn_topk_table_plain(pos_t[ids.long()],
                                                       pos_t, 20, **kw))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_knn_bucketed_kernel_normal_graph(cuda, masked, quantized):
+    """K = 10, the sharded normal graph of a cloud without normals, at the
+    bench's N=65,536 (10% masked or none): ids equal to the plain
+    version's, self first, masked columns never taken."""
+    rng = np.random.default_rng(69)
+    pos = _surface(rng, 65536, cuda)
+    pm = torch.rand(65536, device=cuda) > 0.1 if masked else None
+    args = (pos, pos, 10, 0, pm)
+    kw = dict(quantized=quantized)
+    reset_launch_counts()
+    got = ops.knn_topk_bucketed(*args, **kw)
+    torch.cuda.synchronize()
+    name = "knn_topk_bucketed_q" if quantized else "knn_topk_bucketed"
+    assert launch_counts()[name] == 1
+    assert torch.equal(got, ops.knn_topk_bucketed_plain(*args, **kw))
+    rows = torch.arange(65536, device=cuda)
+    valid = rows >= 0 if pm is None else pm
+    assert torch.equal(got[valid, 0].long(), rows[valid])
+    if masked:
+        assert bool(pm[got[valid].long()].all())
 
 
 @pytest.mark.parametrize("quantized", [False, True])

@@ -527,9 +527,18 @@ def test_engine_rejects_oversized_and_mismatched_clouds():
 
 
 def test_normal_estimation_not_ported():
-    pos = torch.zeros((1, 8, 3))
-    with pytest.raises(NotImplementedError, match="estimate_basis"):
-        build_operators(pos, 4)
+    """Kept under its old name: normal estimation is ported now, so a
+    build without normals returns finite operators (dense and in
+    coefficient form) on frames estimated from the cloud."""
+    gen = torch.Generator().manual_seed(0)
+    pos = torch.randn((2, 24, 3), generator=gen)
+    gd = build_operators(pos, 4)
+    assert gd.w_grad.shape == (2, 2, 24, 24)
+    assert bool(torch.isfinite(gd.w_grad).all())
+    assert bool(torch.isfinite(gd.w_div).all())
+    coef = build_operators(pos, 4, dense_operators=False)
+    assert bool(torch.isfinite(coef.grad_coef).all())
+    assert bool(torch.isfinite(coef.div_coef).all())
 
 
 def _run_smoke(args, cwd):

@@ -443,7 +443,8 @@ def _rank_main(rank, world, store, job, out):
 
 
 def _run_case(case, group):
-    pos, nrm = _t(case["pos"]), _t(case["normal"])
+    pos = _t(case["pos"])
+    nrm = None if case["normal"] is None else _t(case["normal"])
     if case["kind"] == "operators":
         p, n, m = pad_cloud(pos, dist.get_world_size(group), nrm)
         p, n, m = (shard_rows(t, group) for t in (p, n, m))
@@ -547,3 +548,31 @@ def test_two_ranks_forwards(tmp_path, monkeypatch):
                 else BF16_REL, f"{name}, 2 ranks vs JAX")
     _within(got["seg-bfloat16"], single, RANKS_REL,
             "seg-bfloat16, 2 ranks vs 1")
+
+
+def test_two_ranks_forward_without_normals(tmp_path):
+    """``predict_sharded`` of a cloud without normals (255 points, padded
+    to 256, f32): each rank estimates its rows' frames on a 10-NN graph
+    against the whole table. 2 ranks within 1e-4 x max|logit| of 1 rank;
+    the 1-rank forward within 1e-4 of JAX's sharded forward without
+    normals on a 1-device mesh and of the port's own ``predict``."""
+    jax, jnp, Mesh, jps = _jax()
+    rng = np.random.default_rng(10)
+    n = 255
+    pos, _ = _ellipsoid(rng, n)
+    model, variables, port = _model_pair(rng, False)
+    engine = InferenceEngine(port, num_points=n, batch_size=1, device="cpu")
+    single = engine.predict_sharded(pos)
+    assert single.shape == (4,) and np.isfinite(single).all()
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("points",))
+    p, _, m = jps.pad_cloud(jnp.asarray(pos), 1)
+    want = np.asarray(jax.jit(
+        lambda v, p, m: jps.point_sharded_classification(
+            mesh, model, v, p, normal=None, point_mask=m))(variables, p, m))
+    _within(single, want, F32_REL, "no normals, 1 rank vs JAX")
+    _within(single, engine.predict([pos])[0], F32_REL,
+            "no normals, predict_sharded vs predict")
+    got = _spawn(tmp_path, {"cls": dict(
+        kind="model", seg=False, pos=pos, normal=None,
+        state=port.state_dict(), widths=NARROW)})["cls"]
+    _within(got, single, F32_REL, "no normals, 2 ranks vs 1")
