@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of deltaconv_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--seed S] [--parent DIR]
+    python3 chip_smoke.py [--seed S] [--parent DIR] [--phase fit]
 
 Run on a machine with a CUDA card and the CUDA toolkit, from any working
 directory: the script puts its own directory (the root of a checkout)
@@ -433,7 +433,40 @@ first on ``sys.path``. It
     quantized bucketed kNN twice a forward, no table kNN, the kernel path
     within 0.01 x max|logit| of the plain path and within 0.05 of the f32
     sharded engine; host ms a call beside the cloud with its normals;
-36. with ``--parent DIR`` (another checkout's root, e.g. the parent
+36. ``[knn-ties]``: the exact kNN's selection (XLA ``top_k``'s answer:
+    equal scores lowest index first) at B=32, N=1024, K = 20 and 10 on
+    square planar grids, a 9^3 grid with duplicates (both also 10%
+    masked) and ellipsoids: ids bit-equal to numpy's stable ``argsort``
+    of the card's own scores, copied to the host, and across two calls;
+    the route timed beside the parent's ``matmul`` + ``torch.topk``, the
+    selection beside ``torch.topk`` and ``torch.topk`` of unique int64
+    keys;
+37. ``[fit-scanobjectnn]``: ``deltaconv_tpu_torch.experiments.
+    train_scanobjectnn.main`` on the card at the recipe's full width
+    (15 classes, (64, 64, 64, 128), k=20, lambda 0.01), B=32, N=1024 and
+    the CLI defaults (bf16 dense operators under the f32 conv stack,
+    exact kNN), on a fixture it writes (64 train and 32 test clouds of
+    2048 points: the h5 files where ``h5py`` is installed, else the
+    processed cache that the reader writes from them, the recipe's
+    geodesic FPS run by the phase): the datasets' builds timed,
+    2 epochs (4 steps): gather_rows, wls, densify_bf16, gather_max_win,
+    gather_max_bwd and the edge sum's adjacency or gather_sum launched,
+    the median host ms of a step (synchronised) beside one step's device
+    time; the checkpoint's bytes, its save and restore ms, restored
+    bit-equal; 1 epoch, then ``--resume`` to 2 in further ``main`` calls:
+    parameters, running statistics, optimizer state, lr and step
+    bit-equal to the uninterrupted run, the test accuracy equal;
+    ``InferenceEngine.from_checkpoint`` of the run's checkpoints and
+    ``warmup``: the warmup's seconds and the first ``predict``'s ms, the
+    logits on the 32 test clouds with the eval step's argmax and within
+    1e-4 x max|logit| of it;
+38. ``[fit-modelnet]``: the same through ``train_modelnet.main`` at the
+    reference classification config (40 classes, (64, 64, 128, 256),
+    k=20, normals from ``SamplePoints``) on a ModelNet tree of OFF meshes
+    it writes (64 train and 32 test closed meshes: icospheres, boxes and
+    capped cylinders, stretched and rotated; NormalizeScale,
+    SamplePoints(8192), GeodesicFPS(1024) once a mesh);
+39. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
     gather plan's build where the package has one), ``[kernel-times]``
@@ -807,6 +840,18 @@ VOTE_MOVED = 1e-4
 FPS_N, FPS_SAMPLES = 2048, 1024  # GeodesicFPS: the recipe's pre-transform
 FPS_CHECK = (300, 64)  # points, samples: native against the Python version
 FRAMES_HOST_REPS = 20  # host-clock samples of the frames' enqueue
+# Training loop and checkpoints: the CLIs' fixtures (FIT_TRAIN / B steps an
+# epoch), the kNN tie check's K and its generator's tag.
+FIT_EPOCHS = 2
+FIT_TRAIN, FIT_TEST = 64, 32
+SONN_POINTS = 2048  # a ScanObjectNN object's points before the FPS
+MODELNET_KINDS = ("sphere", "box", "cylinder")
+FIT_KERNELS = ("gather_rows", "wls", "densify_bf16", "gather_max_win",
+               "gather_max_bwd")
+SERVE_CKPT_REL = 1e-4  # x max|logit|: the engine against the eval step
+CKPT_REPS = 3  # timed saves, restores and later predicts
+TIE_KS = (20, 10)
+TIE_TAG = 31  # the planar grids' 2/31 steps
 
 KERNEL_META = {
     "gather_rows": ("deltaconv_tpu_torch/csrc/gather_rows.cu",
@@ -8063,6 +8108,531 @@ def shard_no_normals_phase(seed, dev, card):
     return counts
 
 
+# -- training loop and checkpoints ---------------------------------------------
+
+
+def _sortable(scores):
+    """f32 scores' bits as int64 keys in XLA's total order (-0.0 below
+    +0.0)."""
+    bits = scores.view(np.int32)
+    return np.where(bits < 0, bits ^ 0x7FFFFFFF, bits).astype(np.int64)
+
+
+def unique_key_top_k(s, k):
+    """The other exact form of XLA's ``top_k`` (timed in ``[knn-ties]``
+    beside the port's stable sort): ``torch.topk`` of unique int64 keys,
+    the score's ordered bits above the complemented column."""
+    m = s.shape[-1]
+    bits = s.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    col = torch.arange(m - 1, -1, -1, device=s.device, dtype=torch.int64)
+    top = torch.topk((key << 32) | col, k, dim=-1).values
+    return (m - 1) - (top & 0xFFFFFFFF)
+
+
+def planar_grids(b, n, dev):
+    """``[b, n, 3]`` square grids (n a square: 32 x 32 at N=1024) in the
+    plane z = 0, steps of 2 / (side - 1) (so one-ulp near-ties beside the
+    exact ones), each cloud's points in another order."""
+    side = int(round(n ** 0.5))
+    assert side * side == n
+    h = np.float32(2.0 / (side - 1))
+    u, v = np.meshgrid(np.arange(side, dtype=np.float32) * h - 1.0,
+                       np.arange(side, dtype=np.float32) * h - 1.0)
+    grid = np.stack([u.ravel(), v.ravel(), np.zeros(n, np.float32)], -1)
+    rng = np.random.default_rng(b)
+    return torch.from_numpy(np.stack([grid[rng.permutation(n)]
+                                      for _ in range(b)])).to(dev)
+
+
+def knn_ties_phase(seed, dev, card):
+    """``[knn-ties]``: the exact kNN's selection (``geometry.knn.top_k``:
+    XLA ``top_k``'s answer, equal scores lowest index first) at B=32,
+    N=1024, K = 20 and 10, on square planar grids, on a tie-heavy 9^3
+    grid with duplicates and on ellipsoids, uniform and (the grids) 10%
+    masked: the ids bit-equal to the rule computed on the host from the
+    same f32 scores copied off the card (numpy's stable ``argsort`` of
+    the negated keys, masked slots clamped to self as the route does)
+    and across two calls. Then the route timed beside the parent's
+    ``matmul`` + ``torch.topk``, and the selection alone beside
+    ``torch.topk`` and ``torch.topk`` of unique int64 keys (the other
+    exact form)."""
+    from deltaconv_tpu_torch.geometry import knn
+    from deltaconv_tpu_torch.geometry.knn import exact_scores, top_k
+
+    rng = np.random.default_rng([seed, TIE_TAG])
+    ell = torch.from_numpy(np.stack(ellipsoid_clouds(rng, [N] * B)[0])).to(
+        dev)
+    pm = torch.from_numpy(rng.random((B, N)) >= SHARD_MASK_FRAC).to(dev)
+    cases = (("planar grids", planar_grids(B, N, dev), None),
+             ("planar grids, masked", planar_grids(B, N, dev), pm),
+             ("9^3 grid", grid_clouds(rng, B, N, dev), None),
+             ("9^3 grid, masked", grid_clouds(rng, B, N, dev), pm),
+             ("ellipsoids", ell, None))
+    print(f"[knn-ties] exact kNN ids against the host's stable sort of the "
+          f"card's scores, B={B} N={N} K={TIE_KS}", flush=True)
+    for label, pos, mask in cases:
+        order = np.argsort(-_sortable(exact_scores(pos, mask).cpu().numpy()),
+                           axis=-1, kind="stable")
+        valid = (None if mask is None else
+                 np.take_along_axis(mask.cpu().numpy()[:, None, :], order[
+                     ..., :max(TIE_KS)], axis=-1))
+        for k in TIE_KS:
+            want = order[..., :k]
+            if valid is not None:
+                want = np.where(valid[..., :k], want,
+                                np.arange(N)[None, :, None])
+            got = knn(pos, k, mask)[0]
+            again = knn(pos, k, mask)[0]
+            diff = int((got.cpu().numpy() != want).any(-1).sum())
+            check(f"[knn-ties] {label} K={k}",
+                  diff == 0 and torch.equal(got, again),
+                  f"{diff} rows differ from the stable sort, two calls "
+                  f"equal {torch.equal(got, again)}")
+        del order, valid
+    torch.cuda.synchronize()
+    sq = (ell * ell).sum(-1)
+    scores = exact_scores(ell)
+    print(f"[knn-ties] times on ellipsoids, median of {REPS} CUDA-event "
+          f"samples of {INNER} calls; card: {card}")
+    for k in TIE_KS:
+        route = median_ms(lambda: knn(ell, k))
+        parent = median_ms(lambda: torch.topk(
+            2.0 * torch.matmul(ell, ell.transpose(1, 2)) - sq[:, None, :],
+            k, dim=-1))
+        sel = median_ms(lambda: top_k(scores, k))
+        sel_topk = median_ms(lambda: torch.topk(scores, k, dim=-1))
+        sel_keys = median_ms(lambda: unique_key_top_k(scores, k))
+        print(f"  K={k}: the exact route (scores + XLA-order selection) "
+              f"{route:.4f} ms, the parent's matmul + topk {parent:.4f} ms "
+              f"(+{route - parent:.4f}); the selection alone (stable sort "
+              f"of the ordered bits) {sel:.4f} ms, torch.topk {sel_topk:.4f}"
+              f" ms, torch.topk of unique int64 keys {sel_keys:.4f} ms; "
+              f"card: {card}", flush=True)
+    del scores
+    torch.cuda.empty_cache()
+
+
+def write_scanobjectnn(root, rng, args) -> str:
+    """A ScanObjectNN fixture of FIT_TRAIN and FIT_TEST clouds of
+    SONN_POINTS points on ellipsoids, 15 classes: the h5 files of the
+    ``main_split_nobg`` layout (the keys of
+    ``tests/training/test_cli_smoke.py``) where ``h5py`` is installed;
+    else (the reader needs ``h5py``) the processed cache that
+    ``ScanObjectNN.process`` writes from them, the CLI's
+    ``GeodesicFPS`` pre-transform run here as ``process`` runs it.
+    Returns which."""
+    import importlib.util
+
+    from deltaconv_tpu_torch.data import Cloud, CloudDataset, ScanObjectNN
+    from deltaconv_tpu_torch.transforms import GeodesicFPS
+
+    splits = {}
+    for split, count in (("train", FIT_TRAIN), ("test", FIT_TEST)):
+        splits[split] = (np.stack(ellipsoid_clouds(
+            rng, [SONN_POINTS] * count)[0]).astype(np.float32),
+            rng.integers(0, RECIPE["num_classes"], count))
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        raw = Path(root) / "raw" / "main_split_nobg"
+        raw.mkdir(parents=True)
+        for split, fn in zip(("train", "test"),
+                             ScanObjectNN.raw_file_dict[None]):
+            with h5py.File(raw / fn, "w") as f:
+                f["data"], f["label"] = splits[split]
+        return "h5 files (main_split_nobg)"
+    pre = GeodesicFPS(args.num_points, seed=args.seed)
+    for split, (data, labels) in splits.items():
+        CloudDataset._save(
+            str(Path(root) / "processed" / f"scanobjectnn_nobg_vanilla_"
+                f"{split}.npz"),
+            [pre(Cloud(pos=p, y=np.int64(y))) for p, y in zip(data, labels)])
+    return ("the processed cache (no h5py here: GeodesicFPS run by the "
+            "phase as ScanObjectNN.process runs it)")
+
+
+def _closed_mesh(kind, rng):
+    """A closed triangle mesh ``(verts [V, 3], faces [F, 3])`` of one
+    category: an icosphere (subdivided twice), a box (each face 4 x 4
+    squares) or a capped cylinder (32 sides, 8 rings), randomly stretched
+    and rotated."""
+    if kind == "sphere":
+        t = (1.0 + 5 ** 0.5) / 2
+        v = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+             (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+             (-t, 0, -1), (-t, 0, 1)]
+        f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+        v = [np.asarray(p, float) / np.linalg.norm(p) for p in v]
+        for _ in range(2):
+            mid, nf = {}, []
+
+            def middle(a, b):
+                key = (min(a, b), max(a, b))
+                if key not in mid:
+                    p = v[a] + v[b]
+                    v.append(p / np.linalg.norm(p))
+                    mid[key] = len(v) - 1
+                return mid[key]
+
+            for a, b, c in f:
+                ab, bc, ca = middle(a, b), middle(b, c), middle(c, a)
+                nf += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+            f = nf
+        verts, faces = np.asarray(v), np.asarray(f)
+    elif kind == "box":
+        s = 4
+        verts, faces, index = [], [], {}
+
+        def vid(p):
+            key = tuple(np.round(p, 6))
+            if key not in index:
+                index[key] = len(verts)
+                verts.append(p)
+            return index[key]
+
+        for axis in range(3):
+            for sign in (-1.0, 1.0):
+                u_ax, v_ax = [a for a in range(3) if a != axis]
+                for i in range(s):
+                    for j in range(s):
+                        quad = []
+                        for di, dj in ((0, 0), (1, 0), (1, 1), (0, 1)):
+                            p = np.zeros(3)
+                            p[axis] = sign
+                            p[u_ax] = -1 + 2 * (i + di) / s
+                            p[v_ax] = -1 + 2 * (j + dj) / s
+                            quad.append(vid(p))
+                        a, b, c, d = quad if sign > 0 else quad[::-1]
+                        faces += [(a, b, c), (a, c, d)]
+        verts, faces = np.asarray(verts), np.asarray(faces)
+    else:  # cylinder
+        sides, rings = 32, 8
+        ang = np.arange(sides) * 2 * np.pi / sides
+        verts = [np.array([np.cos(a), np.sin(a), -1 + 2 * r / rings])
+                 for r in range(rings + 1) for a in ang]
+        verts += [np.array([0.0, 0.0, -1.0]), np.array([0.0, 0.0, 1.0])]
+        faces = []
+        for r in range(rings):
+            for i in range(sides):
+                a, b = r * sides + i, r * sides + (i + 1) % sides
+                faces += [(a, b, b + sides), (a, b + sides, a + sides)]
+        bottom, top = len(verts) - 2, len(verts) - 1
+        for i in range(sides):
+            faces.append((bottom, (i + 1) % sides, i))
+            faces.append((top, rings * sides + i,
+                          rings * sides + (i + 1) % sides))
+        verts, faces = np.asarray(verts), np.asarray(faces)
+    q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    return (verts * rng.uniform(0.5, 1.5, 3)) @ q, faces
+
+
+def write_modelnet(root, rng, args) -> str:
+    """A ModelNet raw tree of OFF meshes: MODELNET_KINDS categories,
+    FIT_TRAIN and FIT_TEST closed meshes in turn over them, and the
+    extraction marker (so nothing is downloaded). Returns what it
+    wrote."""
+    del args
+    raw = Path(root) / "raw"
+    for split, count in (("train", FIT_TRAIN), ("test", FIT_TEST)):
+        for i in range(count):
+            kind = MODELNET_KINDS[i % len(MODELNET_KINDS)]
+            d = raw / kind / split
+            d.mkdir(parents=True, exist_ok=True)
+            v, f = _closed_mesh(kind, rng)
+            with open(d / f"{kind}_{i:04d}.off", "w") as fh:
+                fh.write(f"OFF\n{len(v)} {len(f)} 0\n")
+                fh.writelines(" ".join(f"{c:.6f}" for c in p) + "\n"
+                              for p in v)
+                fh.writelines("3 " + " ".join(map(str, t)) + "\n"
+                              for t in f)
+    (raw / ".extracted").touch()
+    return (f"{FIT_TRAIN + FIT_TEST} OFF meshes of {len(MODELNET_KINDS)} "
+            "categories")
+
+
+def _states_bit_equal(a, b) -> str:
+    """'' when two train states hold the same bits (model, optimizer
+    state, lr, step), else the first difference."""
+    for key, value in a.model.state_dict().items():
+        if not raw_equal(value, b.model.state_dict()[key]):
+            return f"model {key}"
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if sa["param_groups"] != sb["param_groups"]:
+        return "param_groups"
+    for i, entry in sa["state"].items():
+        for name, value in entry.items():
+            if not raw_equal(torch.as_tensor(value),
+                             torch.as_tensor(sb["state"][i][name])):
+                return f"optimizer state {i} {name}"
+    if a.step != b.step:
+        return f"step {a.step} != {b.step}"
+    return ""
+
+
+@contextlib.contextmanager
+def timed_fit_steps(times):
+    """Wraps the train step that ``training.loop.fit`` builds: each call's
+    host time, synchronised, goes to ``times``."""
+    from deltaconv_tpu_torch.training import loop
+
+    make = loop.make_train_step
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(state, batch, generator):
+            t0 = time.perf_counter()
+            out = step(state, batch, generator)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            timed.last = (state, batch)
+            return out
+
+        timed_make.step = timed
+        return timed
+
+    loop.make_train_step = timed_make
+    try:
+        yield timed_make
+    finally:
+        loop.make_train_step = make
+
+
+def cold_serve(spec):
+    """``--cold-serve``: in a fresh process (the kernel library built on
+    disk but not loaded), ``InferenceEngine.from_checkpoint`` of the
+    run's checkpoints, ``warmup`` if ``spec["warmup"]``, then the first
+    ``predict`` of the test clouds; prints one JSON line of host times."""
+    from deltaconv_tpu_torch import InferenceEngine
+
+    cli = importlib.import_module(
+        f"deltaconv_tpu_torch.experiments.{spec['cli']}")
+    args = cli.build_parser().parse_args(spec["argv"])
+    _, test_ds = cli.build_datasets(args)
+    clouds = [c.pos for c in test_ds]
+    normals = ([c.normal for c in test_ds]
+               if test_ds[0].normal is not None else None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.init()
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_checkpoint(
+        cli.build_model(args), spec["checkpoint"],
+        num_points=args.num_points, batch_size=args.batch_size)
+    out = {"from_checkpoint_s": time.perf_counter() - t0, "warmup_s": None}
+    if spec["warmup"]:
+        t0 = time.perf_counter()
+        engine.warmup(has_normal=normals is not None)
+        out["warmup_s"] = time.perf_counter() - t0
+    for key in ("first_ms", "second_ms"):
+        t0 = time.perf_counter()
+        engine.predict(clouds, normals)
+        out[key] = (time.perf_counter() - t0) * 1e3
+    print("[cold-serve] " + json.dumps(out), flush=True)
+
+
+def fit_phase(tag, cli, write, seed, dev, card):
+    """``[fit-scanobjectnn]`` and ``[fit-modelnet]``: the port's CLI
+    ``main`` on the card at its recipe's full width, B=32, N=1024 and its
+    defaults (bf16 dense operators under the f32 conv stack, exact kNN)
+    on a fixture written to a temporary directory: the dataset built
+    (first, then from its cache), FIT_EPOCHS epochs (the train step's
+    kernels launched, host ms a step beside one step's device time), the
+    checkpoint's bytes and save and restore ms, then 1 epoch and
+    ``--resume`` to FIT_EPOCHS in further ``main`` calls, bit-equal to the
+    uninterrupted run; then ``InferenceEngine.from_checkpoint`` and
+    ``warmup`` of the run's checkpoints (warmup s, the first ``predict``'s
+    ms), its logits on the test clouds with the eval step's argmax and
+    within SERVE_CKPT_REL x max|logit| of it."""
+    import copy
+    import tempfile
+
+    from deltaconv_tpu_torch import (InferenceEngine, launch_counts,
+                                     reset_launch_counts)
+    from deltaconv_tpu_torch.data import BatchLoader
+    from deltaconv_tpu_torch.training import (make_eval_step,
+                                              make_train_step, restore_any,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+
+    rng = np.random.default_rng([seed, FIT_EPOCHS, len(tag)])
+    tmp = tempfile.mkdtemp(prefix="fit-")
+    try:
+        root = Path(tmp) / "data"
+        base = ["--data_root", str(root), "--seed", str(seed + 1)]
+        args = cli.build_parser().parse_args(base)
+        defaults = (f"{args.operator_dtype} operators, {args.knn_method} "
+                    f"kNN, k={args.k}, lr {args.lr} x 100, B="
+                    f"{args.batch_size}, N={args.num_points}")
+        t0 = time.perf_counter()
+        wrote = write(root, rng, args)
+        written = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_ds, test_ds = cli.build_datasets(args)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_ds, test_ds = cli.build_datasets(args)
+        cached = time.perf_counter() - t0
+        print(f"[{tag}] fixture: {wrote}, written in {written:.2f} s; "
+              f"{len(train_ds)} train and {len(test_ds)} test clouds; the "
+              f"datasets' first build {first:.2f} s, then {cached:.3f} s "
+              f"from their cache (host clock); {defaults}; card: {card}",
+              flush=True)
+
+        times = []
+        reset_launch_counts()
+        with timed_fit_steps(times) as made:
+            full, scalars = cli.main(base + ["--epochs", str(FIT_EPOCHS),
+                                             "--logdir", f"{tmp}/full"])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"[{tag}] launches in {FIT_EPOCHS} epochs with their evals: "
+              f"{ {n: c for n, c in counts.items() if c} }")
+        for name in FIT_KERNELS:
+            check(f"[{tag}] {name} launched", counts[name] > 0,
+                  f"{counts[name]} launches")
+        check(f"[{tag}] the edge sum's adjacency or gather_sum launched",
+              counts["adjacency"] + counts["gather_sum"] > 0,
+              f"adjacency {counts['adjacency']}, gather_sum "
+              f"{counts['gather_sum']}")
+        steps = len(times)
+        check(f"[{tag}] {steps} steps of {FIT_EPOCHS} epochs",
+              full.step == steps == FIT_EPOCHS * (FIT_TRAIN // B),
+              f"state.step {full.step}")
+        state, batch = made.step.last
+        scratch = copy.deepcopy(state)
+        step = make_train_step(scratch.model, smoothing=cli.RECIPE[
+            "smoothing"])
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dev_ms = device_ms(lambda: step(scratch, batch, gen))
+        del scratch
+        print(f"[{tag}] fit: median {np.median(times[1:]) * 1e3:.3f} ms a "
+              f"step on the host clock (synchronised; {steps} steps, the "
+              f"first {times[0] * 1e3:.1f} ms left out) against "
+              f"{dev_ms:.3f} ms of device time a step; test accuracy "
+              f"{scalars['test accuracy']}; card: {card}", flush=True)
+
+        ckpt = Path(tmp) / "ckpt"
+        save_ms, restore_ms = [], []
+        for _ in range(CKPT_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save_checkpoint(str(ckpt), full)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            target = copy.deepcopy(full)
+            t0 = time.perf_counter()
+            restore_checkpoint(str(ckpt), target)
+            torch.cuda.synchronize()
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        size = (Path(path) / "checkpoint.pt").stat().st_size
+        check(f"[{tag}] the checkpoint restores bit-equal",
+              _states_bit_equal(full, target) == "", "model, optimizer, "
+              "lr and step")
+        del target
+        print(f"[{tag}] checkpoint: {size} bytes (model, optimizer, "
+              f"scheduler, step), save {np.median(save_ms):.2f} ms, restore "
+              f"{np.median(restore_ms):.2f} ms (medians of {CKPT_REPS}, host "
+              f"clock, synchronised, a warm local disk); card: {card}",
+              flush=True)
+
+        part = f"{tmp}/part"
+        cli.main(base + ["--epochs", "1", "--logdir", part])
+        (run,) = list(Path(part, "runs").glob("*/*"))
+        resumed, again = cli.main(base + ["--epochs", str(FIT_EPOCHS),
+                                          "--logdir", part,
+                                          "--resume", str(run)])
+        diff = _states_bit_equal(full, resumed)
+        check(f"[{tag}] 1 epoch, then --resume to {FIT_EPOCHS}: bit-equal "
+              f"to the uninterrupted run", diff == "" and again == scalars,
+              f"first difference: {diff or 'none'}; test accuracy "
+              f"{again['test accuracy']} and {scalars['test accuracy']}")
+
+        ckpts = Path(tmp) / "full" / "runs"
+        (ckpts,) = list(ckpts.glob("*/*/checkpoints"))
+        model = cli.build_model(args)
+        t0 = time.perf_counter()
+        engine = InferenceEngine.from_checkpoint(
+            model, str(ckpts), num_points=args.num_points,
+            batch_size=args.batch_size)
+        loaded = time.perf_counter() - t0
+        has_normal = test_ds[0].normal is not None
+        t0 = time.perf_counter()
+        engine.warmup(has_normal=has_normal)
+        warm = time.perf_counter() - t0
+        clouds = [c.pos for c in test_ds]
+        normals = [c.normal for c in test_ds] if has_normal else None
+        t0 = time.perf_counter()
+        got = engine.predict(clouds, normals)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        later = []
+        for _ in range(CKPT_REPS):
+            t0 = time.perf_counter()
+            engine.predict(clouds, normals)
+            later.append((time.perf_counter() - t0) * 1e3)
+        target = copy.deepcopy(full)
+        restore_any(str(ckpts), target)
+        evaluate = make_eval_step(target.model)
+        loader = BatchLoader(test_ds, args.batch_size, drop_last=False)
+        want = np.concatenate([evaluate(target, {
+            k: torch.from_numpy(v).to(dev) for k, v in b.items()
+            if k != "label"}).float().cpu().numpy() for b in loader])
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        check(f"[{tag}] the served checkpoint against the eval step",
+              got.shape == want.shape and bool(np.isfinite(got).all())
+              and err <= SERVE_CKPT_REL * scale
+              and bool((got.argmax(1) == want.argmax(1)).all()),
+              f"max |diff| {err} <= {SERVE_CKPT_REL} x {scale}, argmax "
+              f"equal on {len(clouds)} clouds")
+        print(f"[{tag}] in this process: from_checkpoint {loaded * 1e3:.1f}"
+              f" ms, warmup {warm:.3f} s (the kernels were loaded at [build]"
+              f" and every variant ran in the fits), then the first predict "
+              f"of {len(clouds)} clouds {first_ms:.3f} ms, later ones "
+              f"{np.median(later):.3f} ms (host clock, synchronised); card: "
+              f"{card}", flush=True)
+        for warmup in (False, True):
+            spec = {"cli": cli.__name__.rsplit(".", 1)[1], "argv": base,
+                    "checkpoint": str(ckpts), "warmup": warmup}
+            run = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--cold-serve", json.dumps(spec)], capture_output=True,
+                text=True, timeout=600)
+            lines = [line for line in run.stdout.splitlines()
+                     if line.startswith("[cold-serve] ")]
+            check(f"[{tag}] a fresh process serves the checkpoint "
+                  f"(warmup {warmup})", run.returncode == 0 and lines,
+                  f"exit {run.returncode}{run.stderr[-2000:]}")
+            cold = json.loads(lines[0][len("[cold-serve] "):])
+            print(f"[{tag}] a fresh process (the kernel library built on "
+                  f"disk, not loaded): from_checkpoint "
+                  f"{cold['from_checkpoint_s'] * 1e3:.1f} ms, " + (
+                      f"warmup {cold['warmup_s']:.3f} s, " if warmup else
+                      "no warmup, ") + f"the first predict "
+                  f"{cold['first_ms']:.3f} ms, the second "
+                  f"{cold['second_ms']:.3f} ms (host clock, synchronised);"
+                  f" card: {card}", flush=True)
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fit_phases(seed, dev, card):
+    """The group "training loop and checkpoints": ``[knn-ties]``, then
+    ``[fit-scanobjectnn]`` and ``[fit-modelnet]``; returns the two fits'
+    launch counts."""
+    from deltaconv_tpu_torch.experiments import (train_modelnet,
+                                                 train_scanobjectnn)
+
+    knn_ties_phase(seed, dev, card)
+    return (fit_phase("fit-scanobjectnn", train_scanobjectnn,
+                      write_scanobjectnn, seed, dev, card),
+            fit_phase("fit-modelnet", train_modelnet, write_modelnet, seed,
+                      dev, card))
+
+
 def compare_phases(seed, dev, card):
     """The phases that time one tree against another in one call: the
     coefficient applies (:func:`coef_apply_table`), the redesigned
@@ -8108,20 +8678,29 @@ def main():
     parser.add_argument("--parent", default=None,
                         help="root of another checkout (the parent commit) "
                         "to time in turns with this tree at the end")
-    parser.add_argument("--phase", choices=("compare",), default=None,
-                        help="run only these phases (no record)")
+    parser.add_argument("--phase", choices=("compare", "fit"), default=None,
+                        help="run only these phases (no record): the "
+                        "timed comparisons, or the training loop and "
+                        "checkpoints group")
+    parser.add_argument("--cold-serve", default=None, metavar="JSON",
+                        help="(used by [fit-*]) serve a run's checkpoint "
+                        "in this fresh process and print its times")
     args = parser.parse_args()
+    if args.cold_serve is not None:
+        cold_serve(json.loads(args.cold_serve))
+        return
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check needs a CUDA card")
     from deltaconv_tpu_torch import ops
 
-    if args.phase == "compare":
+    if args.phase is not None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         ops.library()
-        compare_phases(args.seed, torch.device("cuda", 0), card_line())
+        phases = {"compare": compare_phases, "fit": fit_phases}[args.phase]
+        phases(args.seed, torch.device("cuda", 0), card_line())
         return
 
     # Strict f32 everywhere: TF32 would reorder kNN neighbours and move
@@ -8206,6 +8785,8 @@ def main():
     train_no_normals = train_no_normals_phase(args.seed, dev, card)
     shard_no_normals = shard_no_normals_phase(args.seed, dev, card)
     mark("clouds without normals")
+    fit_sonn, fit_modelnet = fit_phases(args.seed, dev, card)
+    mark("training loop and checkpoints")
     if args.parent:
         parent_phase(args.parent, args.seed, card)
         mark("parent tree")
@@ -8227,7 +8808,8 @@ def main():
             ("serve-no-normals", no_normals),
             ("serve-no-normals-bf16", no_normals_bf16), ("vote", vote),
             ("train-no-normals", train_no_normals),
-            ("shard-no-normals", shard_no_normals)):
+            ("shard-no-normals", shard_no_normals),
+            ("fit-scanobjectnn", fit_sonn), ("fit-modelnet", fit_modelnet)):
         check(f"[{label}] the WLS and fused-build direct routes and the "
               f"sum's route D never",
               counts["wls_direct"] == 0 and counts["wls_bwd_direct"] == 0

@@ -1,0 +1,8 @@
+"""The port's experiment CLIs (counterparts of the JAX package's
+``experiments/*.py``): the same flags and defaults, plus ``--device``.
+Run as modules from the root of a checkout::
+
+    python -m deltaconv_tpu_torch.experiments.train_scanobjectnn \\
+        --data_root experiments/data/ScanObjectNN
+    python -m deltaconv_tpu_torch.experiments.train_modelnet
+"""

@@ -2,15 +2,24 @@
 ``deltaconv_tpu/geometry/knn.py``).
 
 ``method="exact"``: the scores are one batched ``[N, 3] @ [3, N]``
-product plus rank-1 terms, then ``torch.topk`` per row, as the JAX
-package uses XLA's ``top_k``. The product must run in full f32 (no
-TF32): a coarser product reorders near-tied neighbours.
+product plus rank-1 terms, then a selection with the answer of XLA's
+``top_k``, which the JAX package uses: the K largest scores in
+descending order, equal scores lowest index first, under the total
+order of the f32 bits (-0.0 below +0.0). ``torch.topk`` promises no
+order among equal scores, so the route sorts the scores' ordered bits
+stably (:func:`top_k`).
+The product must run in full f32 (no TF32): a coarser product reorders
+near-tied neighbours. The squared norms round as XLA's CPU compiler
+rounds JAX's ``jnp.sum(p * p, -1)``, contracted into
+``fma(z, z, fma(y, y, x x))`` (:func:`squared_norms`): with the same
+product and the same selection the scores, and so the ids, are JAX's
+on the CPU, near-ties of one ulp on a grid included.
 
 ``method="approx"`` takes the JAX package's TPU route: uniform batches
 (no mask, N >= k) go through the fused ``knn_topk`` kernel with packed
 keys (order exact to the row's score range / 65534); masked batches,
 where the JAX package takes XLA's ``approx_max_k`` (recall >= 0.95),
-take the exact ``torch.topk`` route, which meets that contract.
+take the exact route, which meets that contract.
 """
 
 from __future__ import annotations
@@ -19,9 +28,38 @@ import torch
 
 from ..ops.knn_topk import knn_topk
 
-__all__ = ["knn"]
+__all__ = ["exact_scores", "knn", "squared_norms", "top_k"]
 
 _BIG = 1e30
+
+
+def squared_norms(pos):
+    """``|p|^2`` of ``pos [..., 3]`` f32 as ``fma(z, z, fma(y, y, x x))``,
+    XLA's contraction of ``jnp.sum(p * p, -1)`` on the CPU, each fused
+    step computed in f64 (the product exact) and rounded to f32."""
+    p = pos.double()
+    acc = (p[..., 0] * p[..., 0]).float()
+    for d in (1, 2):
+        acc = (p[..., d] * p[..., d] + acc.double()).float()
+    return acc
+
+
+def top_k(s, k: int):
+    """XLA's ``top_k`` of ``s [..., M]`` f32 along the last axis:
+    ``(values, indices [..., k] int64)``, the k largest in descending
+    order, equal scores lowest index first, -0.0 below +0.0 (the order
+    of XLA's CPU and TPU ``top_k``). A score's int32 key is its f32 bits
+    made monotone (a negative score's magnitude bits flipped); a stable
+    descending sort of the keys keeps equal ones in column order. (On an
+    H100 the sort of ``[32, 1024, 1024]`` keys costs about what
+    ``torch.topk`` of the scores does, and ``torch.topk`` of unique int64
+    keys, the other exact form, 2.8 times that: ``chip_smoke.py``'s
+    ``[knn-ties]``.)"""
+    bits = s.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[
+        ..., :k]
+    return torch.gather(s, -1, idx), idx
 
 
 def knn(pos, k: int, point_mask=None, method: str = "exact",
@@ -51,25 +89,32 @@ def knn(pos, k: int, point_mask=None, method: str = "exact",
         return idx, torch.ones(idx.shape, dtype=torch.bool,
                                device=pos.device)
 
-    sq = (pos * pos).sum(dim=-1)  # [B, N]
-    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
-    dot = torch.matmul(pos, pos.transpose(1, 2))  # [B, N, N]
-
-    if point_mask is None and n >= k:
-        # score = 2 xi.xj - |xj|^2 = |xi|^2 - d^2 (the row-constant |xi|^2
-        # does not change the order); the self loop is pinned on top.
-        s = 2.0 * dot - sq[:, None, :]
-        s = s + torch.where(eye, 2.0 * _BIG, 0.0)
-        idx = torch.topk(s, k, dim=-1).indices
+    uniform = point_mask is None and n >= k
+    scores = exact_scores(pos, None if uniform else point_mask)
+    if uniform:
+        idx = top_k(scores, k)[1]
         return idx.to(torch.int32), torch.ones(idx.shape, dtype=torch.bool,
                                                device=pos.device)
-
-    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * dot
-    if point_mask is not None:
-        d2 = torch.where(point_mask.to(torch.bool)[:, None, :], d2, _BIG)
-    d2 = d2 - torch.where(eye, 2.0 * _BIG, 0.0)
-    neg_d, idx = torch.topk(-d2, k, dim=-1)
+    neg_d, idx = top_k(scores, k)
     nbr_mask = neg_d > -_BIG / 2
     self_idx = torch.arange(n, device=pos.device)[None, :, None]
     idx = torch.where(nbr_mask, idx, self_idx)
     return idx.to(torch.int32), nbr_mask
+
+
+def exact_scores(pos, point_mask=None):
+    """The ``[B, N, N]`` f32 scores the exact route selects the top k of
+    (JAX's, term for term). Without ``point_mask``: ``2 xi.xj - |xj|^2``
+    (``|xi|^2 - d^2``: the row-constant ``|xi|^2`` does not change the
+    order), the self loop pinned on top. With it: ``-d^2``, masked
+    columns at ``-1e30``, the self loop pinned on top."""
+    n = pos.shape[1]
+    sq = squared_norms(pos)  # [B, N]
+    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    dot = torch.matmul(pos, pos.transpose(1, 2))  # [B, N, N]
+    if point_mask is None:
+        s = 2.0 * dot - sq[:, None, :]
+        return s + torch.where(eye, 2.0 * _BIG, 0.0)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * dot
+    d2 = torch.where(point_mask.to(torch.bool)[:, None, :], d2, _BIG)
+    return -(d2 - torch.where(eye, 2.0 * _BIG, 0.0))

@@ -3,9 +3,10 @@
 
 The kNN graph and the grad/div operators are rebuilt on every forward
 from the positions, so operator construction is part of the serving
-path: kNN (``torch.topk``, or the ``knn_topk`` kernel for
-``knn_method="approx"``), tangent frames (from given normals, or, for
-clouds without normals, estimated from a ``normal_k``-NN graph by
+path: kNN (``geometry.knn``'s exact route in XLA ``top_k``'s order, or
+the ``knn_topk`` kernel for ``knn_method="approx"``), tangent frames
+(from given normals, or, for clouds without normals, estimated from a
+``normal_k``-NN graph by
 ``estimate_basis``: the same kNN route at K=10, then torch ops in f32),
 the edge-plane gather and the WLS solve (two kernels), and, with
 ``dense_operators=True`` (the default), the dense assembly (a kernel,

@@ -62,6 +62,19 @@ protocol: the logits of ``num_votes`` randomly augmented passes, summed::
                                    grad_regularizer=0.01)
     engine = InferenceEngine(model, num_points=1024)
     logits = engine.predict_voting(clouds, num_votes=10, seed=0)  # [M, 15]
+
+A trained run serves from its checkpoint (a checkpoint root, its latest
+step; a ``step_<N>`` directory; or a release ``.pt``), after a warm-up
+that builds and loads the kernels and runs one forward of each variant,
+so the first request pays no build::
+
+    engine = InferenceEngine.from_checkpoint(
+        DeltaNetClassification(num_classes=15,
+                               conv_channels=(64, 64, 64, 128)),
+        "experiments/runs/scanobjectnn/<time>/checkpoints",
+        num_points=1024)
+    engine.warmup(has_normal=False)
+    logits = engine.predict(clouds)
 """
 
 from __future__ import annotations
@@ -73,13 +86,14 @@ import numpy as np
 import torch
 
 from .models.deltanet_segmentation import NUM_CATEGORIES
-from .ops import KERNEL_OPS, Ops
+from .ops import KERNEL_OPS, Ops, library
 from .parallel import (all_gather, pad_cloud, point_sharded_classification,
                        point_sharded_segmentation, rank_and_size, shard_rows)
+from .training.checkpoint import checkpoint_file, load_state_dict_file
 from .transforms.augment import augment_classification
 from .utils.device import resolve_device
 
-__all__ = ["InferenceEngine", "apply_precision"]
+__all__ = ["InferenceEngine", "apply_precision", "load_variables"]
 
 # Unit-z padding normal keeps build_tangent_basis well-defined on padded
 # rows (they are masked out of every statistic downstream).
@@ -88,6 +102,17 @@ _PAD_NORMAL = np.asarray([0.0, 0.0, 1.0], np.float32)
 # Serving precision -> (compute_dtype, operator_dtype).
 _PRECISIONS = {"float32": (None, None), "bfloat16": ("bfloat16", "bfloat16"),
                "int8": ("bfloat16", "int8")}
+
+
+def load_variables(path: str, device="cpu"):
+    """The model ``state_dict`` (parameters and running statistics) of a
+    checkpoint root (its latest step), a ``step_<N>`` directory, or a
+    release ``.pt``/``.pth`` in any of its four forms
+    (:func:`~.training.checkpoint.load_state_dict_file`). No model or
+    train state is needed to read it."""
+    if not path.endswith((".pt", ".pth")):
+        path = checkpoint_file(path)
+    return load_state_dict_file(path, device)
 
 
 def _encode_category(c):
@@ -155,6 +180,50 @@ class InferenceEngine:
         self.num_points = int(num_points)
         self.batch_size = int(batch_size)
         self.ops = ops
+
+    @classmethod
+    def from_checkpoint(cls, model, path: str, *, num_points: int,
+                        batch_size: int = 32,
+                        precision: Optional[str] = None,
+                        ops: Ops = KERNEL_OPS, device="cuda"):
+        """An engine serving ``model``'s architecture with the weights at
+        ``path`` (:func:`load_variables`; ``strict`` keys); the caller's
+        model is left as it was."""
+        engine = cls(model, num_points=num_points, batch_size=batch_size,
+                     precision=precision, ops=ops, device=device)
+        engine.model.load_state_dict(load_variables(path, engine.device),
+                                     strict=True)
+        return engine
+
+    def warmup(self, masked: Optional[bool] = None, has_normal: bool = True,
+               has_category: bool = False):
+        """Builds and loads the kernels (on the card, with the kernel
+        ops) and runs one forward of each variant outside the serving
+        path, so the first :meth:`predict` pays neither the build nor a
+        first launch. ``masked=None`` runs both the uniform (every cloud
+        exactly ``num_points``) and the ragged (point mask, exact kNN)
+        forward, which ``predict`` picks between per request;
+        ``has_normal=False`` the forward that estimates the frames;
+        ``has_category=True`` a segmentation model's categorical
+        forward."""
+        if self.device.type == "cuda" and self.ops is KERNEL_OPS:
+            library()
+        b, n = self.batch_size, self.num_points
+        pos = torch.zeros((b, n, 3), device=self.device)
+        pos[:, :, 2] = torch.linspace(0.0, 1.0, n, device=self.device)
+        normal = (torch.from_numpy(_PAD_NORMAL).to(self.device).expand(
+            b, n, 3).contiguous() if has_normal else None)
+        mask = torch.ones((b, n), dtype=torch.bool, device=self.device)
+        kwargs = {}
+        if has_category:
+            kwargs["category"] = torch.from_numpy(
+                _encode_category(0)).to(self.device).expand(b, -1)
+        with torch.inference_mode():
+            for m in ((False, True) if masked is None else (masked,)):
+                self.model(pos, normal, mask if m else None, ops=self.ops,
+                           **kwargs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _pad_one(self, pos, normal):
         pos = np.asarray(pos, np.float32)

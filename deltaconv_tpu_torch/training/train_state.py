@@ -6,7 +6,10 @@ lr ``100 * lr`` annealed by a per-epoch cosine down to ``eta_min``.
 optax's ``add_decayed_weights`` before ``sgd(momentum)`` is torch's
 coupled decay, so the optimizer is ``torch.optim.SGD`` itself; the
 schedule is step-indexed and applied after every step by ``LambdaLR``
-on a base lr of 1.
+on a base lr of 1. The ShapeSeg recipe's Adam with a per-epoch StepLR
+(:func:`adam_steplr`) is ``torch.optim.Adam`` the same way: optax's
+``adam`` and torch's both correct the moments' bias and add eps outside
+the square root.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ from torch import nn
 
 from ..utils.device import resolve_device
 
-__all__ = ["TrainState", "cosine_epoch_schedule", "create_train_state",
-           "sgd_momentum"]
+__all__ = ["TrainState", "adam_steplr", "cosine_epoch_schedule",
+           "create_train_state", "sgd_momentum"]
 
 
 @dataclass
@@ -60,6 +63,24 @@ def sgd_momentum(learning_rate: Union[float, Callable[[int], float]],
     def make(params):
         opt = torch.optim.SGD(params, lr=1.0, momentum=momentum,
                               weight_decay=weight_decay, nesterov=False)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+
+    return make
+
+
+def adam_steplr(base_lr: float, step_size: int, gamma: float,
+                steps_per_epoch: int):
+    """Adam (betas 0.9, 0.999, eps 1e-8, no weight decay) with a
+    per-epoch StepLR decay, ``base_lr * gamma ** (epoch // step_size)``
+    (train_shapeseg.py:82-83), stepped once per step. Returns a factory
+    as :func:`sgd_momentum` does."""
+
+    def schedule(step: int) -> float:
+        epoch = step // steps_per_epoch
+        return base_lr * gamma ** (epoch // step_size)
+
+    def make(params):
+        opt = torch.optim.Adam(params, lr=1.0)
         return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
 
     return make

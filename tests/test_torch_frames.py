@@ -38,8 +38,6 @@ import torch
 import deltaconv_tpu.nn.deltaconv as jax_dc
 from deltaconv_tpu.geometry.dense import densify as jax_densify
 from deltaconv_tpu.geometry.frames import estimate_basis as jax_estimate
-from deltaconv_tpu.geometry.grad_div import \
-    build_grad_div as jax_build_grad_div
 from deltaconv_tpu.geometry.knn import knn as jax_knn
 from deltaconv_tpu.geometry.linalg import chol_solve as jax_chol_solve
 from deltaconv_tpu.geometry.linalg import eigh3x3 as jax_eigh3x3
@@ -54,6 +52,7 @@ from deltaconv_tpu_torch import (DeltaNetClassification, InferenceEngine,
                                  ops, state_dict_from_flax)
 from deltaconv_tpu_torch.geometry import chol_solve, eigh3x3, estimate_basis
 from deltaconv_tpu_torch.geometry import knn
+from deltaconv_tpu_torch.geometry.knn import squared_norms, top_k
 from deltaconv_tpu_torch.models import build_operators, deltanet_base
 from deltaconv_tpu_torch.training import (create_train_state,
                                           make_eval_step, make_train_step,
@@ -345,39 +344,75 @@ def test_logits_match_jax_apply(pair, clouds):
     _within(got, want, 1e-4, clouds)
 
 
+@pytest.mark.parametrize("k", [K, NORMAL_K, 20])
+@pytest.mark.parametrize("masked", [False, True])
+def test_exact_knn_ids_equal_jax_on_ties(k, masked):
+    """The exact kNN's ids equal JAX's (jitted, as the models run it)
+    element by element on the tie grid, unmasked and with a point mask
+    (the masked route: the first 100 points valid, then every third
+    one too, so a row's ties straddle masked columns): the selection is
+    XLA ``top_k``'s (lowest index first among equal scores) and the
+    squared norms round as XLA's contraction."""
+    grid = _grid()
+    pm = (np.arange(N) < 100) | (np.arange(N) % 3 == 0) if masked else None
+    idx, mask = knn(_t(grid)[None], k, None if pm is None
+                    else _t(pm)[None])
+    fn = jax.jit(lambda p, m: jax_knn(p, k, point_mask=m))
+    want_idx, want_mask = fn(jnp.asarray(grid),
+                             None if pm is None else jnp.asarray(pm))
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(mask[0].numpy(), np.asarray(want_mask))
+
+
+def test_top_k_and_squared_norms_are_xla_s():
+    """``top_k`` against ``lax.top_k`` on rows of exact ties, signed
+    zeros and infinities (-0.0 below +0.0, as XLA orders them), and
+    ``squared_norms`` bit-equal to JAX's jitted ``jnp.sum(p * p, -1)``."""
+    rng = np.random.default_rng(9)
+    s = rng.integers(-3, 4, (64, 40)).astype(np.float32)
+    s[:, ::7] = -0.0
+    s[:, 3] = np.inf
+    s[1::2, 5] = -np.inf
+    for k in (1, 8, 40):
+        values, idx = top_k(_t(s), k)
+        want_v, want_i = jax.lax.top_k(jnp.asarray(s), k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(np.signbit(values.numpy()),
+                                      np.signbit(np.asarray(want_v)))
+        np.testing.assert_array_equal(values.numpy(), np.asarray(want_v))
+    p = rng.standard_normal((3, 500, 3)).astype(np.float32)
+    want = jax.jit(lambda x: jnp.sum(x * x, -1))(jnp.asarray(p))
+    np.testing.assert_array_equal(squared_norms(_t(p)).numpy(),
+                                  np.asarray(want))
+
+
 def test_grid_logits_match_jax_on_the_same_graphs(pair):
-    """A planar grid beside an ellipsoid. The grid's kNN has exact ties
-    (equidistant points), which the port's ``torch.topk`` and XLA's
-    ``top_k`` break differently: the frames that each package estimates
-    on its own normal graph then differ by a quarter turn on some rows
-    (both are right: the tie leaves the in-plane axis free), and the
-    graphs alone move the grid's logits by ~7e-4 x max. So the JAX side
-    builds its operators on the port's two graphs (its own
-    ``estimate_basis`` and ``build_grad_div``), and the logits agree
-    within 1e-4 x max|logit|."""
+    """A planar grid beside an ellipsoid. The grid's kNN has exact and
+    one-ulp ties (equidistant points), which pick the in-plane axis of
+    the frames (a tie leaves it free). The exact kNN selects as XLA's
+    ``top_k`` (lowest index first) on scores rounded as JAX's, so each
+    package now builds the same graphs on its own: the estimated x axes
+    agree on every row, and the logits of each package's own forward
+    within 1e-4 x max|logit|. (Before the port broke ties so,
+    ``torch.topk`` took other tied neighbours, the axes differed by a
+    quarter turn on some rows and the logits by 7.1e-4 x max; the test
+    then handed the port's graphs to JAX.)"""
     model, variables, port = pair
     pos, _ = _ellipsoids(np.random.default_rng(7), [N, N])
     pos[1] = _grid()
-    idx, mask = knn(_t(pos), K)
+    for k in (K, NORMAL_K):
+        want = np.stack([np.asarray(jax_knn(jnp.asarray(p), k)[0])
+                         for p in pos])
+        np.testing.assert_array_equal(knn(_t(pos), k)[0].numpy(), want)
     idx_n, mask_n = knn(_t(pos), NORMAL_K)
     grid = jnp.asarray(pos[1])
     own = jax_knn(grid, NORMAL_K)
     x_jax = np.asarray(jax_estimate(grid, *own, orientation=grid)[1])
     x_port = estimate_basis(_t(pos), idx_n, mask_n,
                             orientation=_t(pos))[1][1].numpy()
-    assert (np.abs((x_jax * x_port).sum(-1)) < 0.5).any()  # ties exercised
-    per_cloud = []
-    for b in range(B):
-        p = jnp.asarray(pos[b])
-        n, xb, yb = jax_estimate(p, jnp.asarray(idx_n[b].numpy()),
-                                 jnp.asarray(mask_n[b].numpy()),
-                                 orientation=p)
-        per_cloud.append(jax_build_grad_div(
-            p, n, xb, yb, jnp.asarray(idx[b].numpy()),
-            jnp.asarray(mask[b].numpy())))
-    gd = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *per_cloud)
-    want = np.asarray(model.apply(variables, jnp.asarray(pos), train=False,
-                                  operators=jax_densify(gd)))
+    assert ((x_jax * x_port).sum(-1) > 1.0 - 1e-5).all()  # the axes agree
+    want = np.asarray(jax.jit(lambda v, p: model.apply(v, p, train=False))(
+        variables, jnp.asarray(pos)))
     with torch.inference_mode():
         got = port(_t(pos)).numpy()
     assert np.isfinite(got).all()

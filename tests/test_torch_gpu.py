@@ -3503,3 +3503,48 @@ def test_gather_max_affine_routes_exact(cuda, b, n, c, k, sub_self):
         _same_values(got, want)
         assert torch.equal(_bits(got), _bits(again))
         assert not got[0, 4].float().any()
+
+
+def _stable_top_k(scores, k):
+    """XLA ``top_k`` on the host: the f32 scores' bits in their total
+    order (-0.0 below +0.0), a stable argsort of their negation (equal
+    scores lowest index first), cut to k."""
+    bits = scores.view(np.int32)
+    keys = np.where(bits < 0, bits ^ 0x7FFFFFFF, bits).astype(np.int64)
+    return np.argsort(-keys, axis=-1, kind="stable")[..., :k]
+
+
+@pytest.mark.parametrize("k", [8, 10, 20])
+@pytest.mark.parametrize("masked", [False, True])
+def test_exact_knn_breaks_ties_as_xla(cuda, k, masked):
+    """The exact kNN on square grids (exact distance ties on every row):
+    the ids equal the stable-sort rule on the card's own scores, bit for
+    bit, and two calls agree."""
+    from deltaconv_tpu_torch.geometry.knn import exact_scores
+
+    h = np.float32(2.0 / 31.0)
+    u, v = np.meshgrid(np.arange(32, dtype=np.float32) * h - 1.0,
+                       np.arange(32, dtype=np.float32) * h - 1.0)
+    grid = np.stack([u.ravel(), v.ravel(), np.zeros(1024, np.float32)], -1)
+    pos = torch.from_numpy(np.stack([grid, grid[::-1].copy()])).to(cuda)
+    pm = None
+    if masked:
+        pm = torch.ones((2, 1024), dtype=torch.bool, device=cuda)
+        pm[:, 700:] = False
+        pm[:, ::5] = True
+    idx, _ = knn(pos, k, pm)
+    again, _ = knn(pos, k, pm)
+    assert torch.equal(idx, again)
+    want = _stable_top_k(exact_scores(pos, pm).cpu().numpy(), k)
+    np.testing.assert_array_equal(np.where(
+        _graph_valid(want, pm), want, np.arange(1024)[None, :, None]),
+        idx.cpu().numpy())
+
+
+def _graph_valid(ids, pm):
+    """The slots a masked kNN keeps (the others are clamped to self)."""
+    if pm is None:
+        return np.ones(ids.shape, bool)
+    valid = pm.cpu().numpy()
+    return np.take_along_axis(valid[:, None, :].repeat(ids.shape[1], 1),
+                              ids, axis=-1)

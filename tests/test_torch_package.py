@@ -32,6 +32,11 @@ names = [m.name for m in pkgutil.walk_packages(
     deltaconv_tpu_torch.__path__, "deltaconv_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("data.io", "data.modelnet", "data.shapenet", "data.shapeseg",
+             "data.shrec", "utils.ply_export", "training.logging",
+             "training.checkpoint", "training.loop", "experiments.common",
+             "experiments.train_scanobjectnn", "experiments.train_modelnet"):
+    assert "deltaconv_tpu_torch." + name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "flax", "deltaconv_tpu")
                for m, mod in sys.modules.items() if mod is not None)
