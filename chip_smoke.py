@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed S] [--parent DIR] [--phase fit]
 
+(``--phase fit`` runs only the group "training loop, checkpoints and
+CLIs", items 36 to 42.)
+
 Run on a machine with a CUDA card and the CUDA toolkit, from any working
 directory: the script puts its own directory (the root of a checkout)
 first on ``sys.path``. It
@@ -466,7 +469,46 @@ first on ``sys.path``. It
     it writes (64 train and 32 test closed meshes: icospheres, boxes and
     capped cylinders, stretched and rotated; NormalizeScale,
     SamplePoints(8192), GeodesicFPS(1024) once a mesh);
-39. with ``--parent DIR`` (another checkout's root, e.g. the parent
+39. ``[fit-shrec]``: the same through ``train_shrec.main`` at the SHREC
+    recipe (30 classes, (32, 32, 32, 32), k=20, B=16, N=2048, 100-epoch
+    cosine cut to 2 epochs) on a SHREC zip of OBJ meshes it writes (4
+    classes of 12 training meshes, 10 kept by the split, and 2 test
+    meshes; NormalizeScale, SamplePoints(16384), GeodesicFPS(2048)), 2
+    steps of 16 an epoch; no fresh-process serve;
+40. ``[fit-shapenet]``: the same through ``train_shapenet.main`` at the
+    ShapeNet recipe (DeltaNetSegmentation, (64, 128, 256), depth 2,
+    embedding 1024, the categorical head, k=30, B=16, N=2048, no
+    smoothing, per-point steps; the instance mIoU each epoch) on a
+    ShapeNet tree it writes (36 trainval and 16 test clouds of 2600
+    points with normals over Airplane, Bag and Cap, their part labels;
+    NormalizeScale, GeodesicFPS(2048)); gather_rows, wls, densify_bf16,
+    gather_max_win and gather_max_bwd launched; the served checkpoint
+    with the test clouds' categories held per point (every point's
+    argmax); then ``[vote-shapenet]``: ``test_shapenet.main`` on the
+    run's checkpoints with ``--num_votes 3``, twice: the same mIoU and
+    per-category IoUs, equal to ``evaluate_voting``'s on the restored
+    weights, the host ms of a call;
+41. ``[fit-shapeseg]``: ``train_shapeseg.main`` at the ShapeSeg recipe
+    (8 classes, (128,) x 8, depth 1, embedding 512, Adam with StepLR,
+    B=8, N=1024, k=20) on the composite ShapeSeg zip it writes (the
+    loader's fixed counts: 214 training meshes, cut 90/10, and 18 test
+    meshes; icospheres labelled by octant; NormalizeArea, NormalizeAxes,
+    SamplePoints(8192, labels), GeodesicFPS(1024)), 2 epochs of 24 steps
+    with a validation and a test pass each: the classifiers' kernels
+    launched, host ms a step beside its device time; the best
+    validation epoch's state saved as step 0 and restored bit-equal to
+    it, its evaluate-only run repeating that epoch's test accuracy;
+42. ``[geometry-single]``: at one cloud of N=1024 and one of N=8192
+    points (K=20) on a quadratic height field, ``geometry.build_grad_div``
+    through ``gather_rows`` and ``wls`` (once each) against the torch math
+    on the card, ``normalized`` True and False, within 1e-4 x max|coef|,
+    both timed; the de Rham checks of ``tests/geometry/test_grad_div.py``
+    on the kernels' operators (N=1024); ``DeltaConv`` of one cloud (f32
+    and bf16, eval and train) bit-equal to the batch of one; then
+    ``geometry.knn_tiled`` of one 65,536-point cloud (K=20, tiles of
+    2048) against ``knn_topk``'s exact body, row-wise sets equal or
+    parted only at near-ties, both timed;
+43. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
     gather plan's build where the package has one), ``[kernel-times]``
@@ -848,7 +890,32 @@ SONN_POINTS = 2048  # a ScanObjectNN object's points before the FPS
 MODELNET_KINDS = ("sphere", "box", "cylinder")
 FIT_KERNELS = ("gather_rows", "wls", "densify_bf16", "gather_max_win",
                "gather_max_bwd")
+# A depth-2 model (ShapeNet's): its centralized conv gathers its edge tensor
+# (gather_rows, one a forward beside the build's) and takes that tensor's max
+# itself, so its edge statistics need no edge sum.
+FIT_KERNELS_DEPTH2 = FIT_KERNELS + ("gather_max",)
 SERVE_CKPT_REL = 1e-4  # x max|logit|: the engine against the eval step
+# The last four CLIs' fixtures (2 steps an epoch at their batch of 16).
+SHREC_KINDS = ("sphere", "box", "cylinder", "sphere")
+SHREC_TRAIN, SHREC_TEST = 12, 2  # meshes a class (10 train kept)
+SHAPENET_PARTS = {"02691156": (0, 4), "02773838": (4, 2),
+                  "02954340": (6, 2)}  # Airplane, Bag, Cap: first part, parts
+SHAPENET_TRAIN, SHAPENET_TEST = 36, 16
+SHAPENET_RAW_POINTS = 2600  # a raw cloud's points before the FPS to 2048
+# [geometry-single]: one cloud's (N, K), the coefficients' bound against
+# the torch math (x max|coef|), timing samples, the tiled kNN's shape.
+GEO_SHAPES = ((1024, 20), (8192, 20))
+GEO_COEF_REL = 1e-4
+GEO_REPS = 5
+# The de Rham checks: the JAX test's bound on each rule, and how much farther
+# from the f64 torch math the kernels' coefficients may lie than the f32
+# torch math's (both round the same ill-conditioned fit in f32).
+DERHAM_TOL = 1e-2
+DERHAM_F32_RATIO = 2.0
+GEO_TAG = 27
+TILED_N, TILED_K, TILED_TILE = 65536, 20, 2048
+TILED_REPS = 3
+TIE_ULPS = 8  # knn_tiled against knn_topk: f32 ulps of 2 max|p|^2
 CKPT_REPS = 3  # timed saves, restores and later predicts
 TIE_KS = (20, 10)
 TIE_TAG = 31  # the planar grids' 2/31 steps
@@ -8252,37 +8319,43 @@ def write_scanobjectnn(root, rng, args) -> str:
             "phase as ScanObjectNN.process runs it)")
 
 
+def _icosphere():
+    """The unit icosphere subdivided twice: ``(verts [162, 3], faces
+    [320, 3])``."""
+    t = (1.0 + 5 ** 0.5) / 2
+    v = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+         (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+         (-t, 0, -1), (-t, 0, 1)]
+    f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+         (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+         (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+         (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    v = [np.asarray(p, float) / np.linalg.norm(p) for p in v]
+    for _ in range(2):
+        mid, nf = {}, []
+
+        def middle(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                p = v[a] + v[b]
+                v.append(p / np.linalg.norm(p))
+                mid[key] = len(v) - 1
+            return mid[key]
+
+        for a, b, c in f:
+            ab, bc, ca = middle(a, b), middle(b, c), middle(c, a)
+            nf += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        f = nf
+    return np.asarray(v), np.asarray(f)
+
+
 def _closed_mesh(kind, rng):
     """A closed triangle mesh ``(verts [V, 3], faces [F, 3])`` of one
     category: an icosphere (subdivided twice), a box (each face 4 x 4
     squares) or a capped cylinder (32 sides, 8 rings), randomly stretched
     and rotated."""
     if kind == "sphere":
-        t = (1.0 + 5 ** 0.5) / 2
-        v = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
-             (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
-             (-t, 0, -1), (-t, 0, 1)]
-        f = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
-             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
-             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
-             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
-        v = [np.asarray(p, float) / np.linalg.norm(p) for p in v]
-        for _ in range(2):
-            mid, nf = {}, []
-
-            def middle(a, b):
-                key = (min(a, b), max(a, b))
-                if key not in mid:
-                    p = v[a] + v[b]
-                    v.append(p / np.linalg.norm(p))
-                    mid[key] = len(v) - 1
-                return mid[key]
-
-            for a, b, c in f:
-                ab, bc, ca = middle(a, b), middle(b, c), middle(c, a)
-                nf += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
-            f = nf
-        verts, faces = np.asarray(v), np.asarray(f)
+        verts, faces = _icosphere()
     elif kind == "box":
         s = 4
         verts, faces, index = [], [], {}
@@ -8412,7 +8485,7 @@ def cold_serve(spec):
     cli = importlib.import_module(
         f"deltaconv_tpu_torch.experiments.{spec['cli']}")
     args = cli.build_parser().parse_args(spec["argv"])
-    _, test_ds = cli.build_datasets(args)
+    _, test_ds, num_classes = cli_datasets(cli, args)
     clouds = [c.pos for c in test_ds]
     normals = ([c.normal for c in test_ds]
                if test_ds[0].normal is not None else None)
@@ -8420,7 +8493,7 @@ def cold_serve(spec):
     torch.cuda.init()
     t0 = time.perf_counter()
     engine = InferenceEngine.from_checkpoint(
-        cli.build_model(args), spec["checkpoint"],
+        cli_model(cli, args, num_classes), spec["checkpoint"],
         num_points=args.num_points, batch_size=args.batch_size)
     out = {"from_checkpoint_s": time.perf_counter() - t0, "warmup_s": None}
     if spec["warmup"]:
@@ -8434,19 +8507,45 @@ def cold_serve(spec):
     print("[cold-serve] " + json.dumps(out), flush=True)
 
 
-def fit_phase(tag, cli, write, seed, dev, card):
-    """``[fit-scanobjectnn]`` and ``[fit-modelnet]``: the port's CLI
-    ``main`` on the card at its recipe's full width, B=32, N=1024 and its
-    defaults (bf16 dense operators under the f32 conv stack, exact kNN)
-    on a fixture written to a temporary directory: the dataset built
-    (first, then from its cache), FIT_EPOCHS epochs (the train step's
-    kernels launched, host ms a step beside one step's device time), the
-    checkpoint's bytes and save and restore ms, then 1 epoch and
-    ``--resume`` to FIT_EPOCHS in further ``main`` calls, bit-equal to the
-    uninterrupted run; then ``InferenceEngine.from_checkpoint`` and
-    ``warmup`` of the run's checkpoints (warmup s, the first ``predict``'s
-    ms), its logits on the test clouds with the eval step's argmax and
-    within SERVE_CKPT_REL x max|logit| of it."""
+def cli_datasets(cli, args):
+    """``(train, test, num_classes)`` of a CLI: ``build_datasets_and_
+    classes`` where it has one (ShapeNet), else ``build_datasets``' two
+    splits and None (the model's own)."""
+    if hasattr(cli, "build_datasets_and_classes"):
+        return cli.build_datasets_and_classes(args)
+    train, test = cli.build_datasets(args)
+    return train, test, None
+
+
+def cli_model(cli, args, num_classes):
+    """The CLI's model: ``shapenet_model(args, num_classes)`` (ShapeNet)
+    or ``build_model(args)``."""
+    if hasattr(cli, "shapenet_model"):
+        return cli.shapenet_model(args, num_classes)
+    return cli.build_model(args)
+
+
+def fit_phase(tag, cli, write, seed, dev, card, kernels=FIT_KERNELS,
+              edges="sum", cold=True, after=None):
+    """``[fit-<dataset>]``: the port's CLI ``main`` on the card at its
+    recipe's full width and its parser defaults (bf16 dense operators
+    under the f32 conv stack, exact kNN) on a fixture ``write`` puts in a
+    temporary directory: the dataset built (first, then from its cache),
+    FIT_EPOCHS epochs of 2 steps (``kernels`` launched, and the edge
+    aggregation of the model's centralized conv: ``edges="sum"``, the
+    edge sum's adjacency or gather_sum; ``"gather"``, a depth-2 conv's
+    edge tensor, gather_rows twice a forward, once for the build and once
+    for the edges; host ms a step beside one step's device time), the checkpoint's bytes and save and
+    restore ms, then 1 epoch and ``--resume`` to FIT_EPOCHS in further
+    ``main`` calls, bit-equal to the uninterrupted run; then
+    ``InferenceEngine.from_checkpoint`` and ``warmup`` of the run's
+    checkpoints (warmup s, the first ``predict``'s ms), its logits on the
+    test clouds (with their categories, per point for a segmentation
+    CLI) with the eval step's argmax and within SERVE_CKPT_REL x
+    max|logit| of it; with ``cold`` the same served by fresh processes
+    (``--cold-serve``, without and with ``warmup``); ``after(args, base,
+    checkpoints)`` runs before the temporary directory goes. Returns the
+    fit's launch counts."""
     import copy
     import tempfile
 
@@ -8471,10 +8570,10 @@ def fit_phase(tag, cli, write, seed, dev, card):
         wrote = write(root, rng, args)
         written = time.perf_counter() - t0
         t0 = time.perf_counter()
-        train_ds, test_ds = cli.build_datasets(args)
+        train_ds, test_ds, num_classes = cli_datasets(cli, args)
         first = time.perf_counter() - t0
         t0 = time.perf_counter()
-        train_ds, test_ds = cli.build_datasets(args)
+        train_ds, test_ds, num_classes = cli_datasets(cli, args)
         cached = time.perf_counter() - t0
         print(f"[{tag}] fixture: {wrote}, written in {written:.2f} s; "
               f"{len(train_ds)} train and {len(test_ds)} test clouds; the "
@@ -8491,29 +8590,38 @@ def fit_phase(tag, cli, write, seed, dev, card):
         counts = launch_counts()
         print(f"[{tag}] launches in {FIT_EPOCHS} epochs with their evals: "
               f"{ {n: c for n, c in counts.items() if c} }")
-        for name in FIT_KERNELS:
+        for name in kernels:
             check(f"[{tag}] {name} launched", counts[name] > 0,
                   f"{counts[name]} launches")
-        check(f"[{tag}] the edge sum's adjacency or gather_sum launched",
-              counts["adjacency"] + counts["gather_sum"] > 0,
-              f"adjacency {counts['adjacency']}, gather_sum "
-              f"{counts['gather_sum']}")
+        if edges == "sum":
+            check(f"[{tag}] the edge sum's adjacency or gather_sum launched",
+                  counts["adjacency"] + counts["gather_sum"] > 0,
+                  f"adjacency {counts['adjacency']}, gather_sum "
+                  f"{counts['gather_sum']}")
+        else:
+            check(f"[{tag}] the depth-2 conv's edge gathers: gather_rows "
+                  f"twice a build (wls)",
+                  counts["gather_rows"] == 2 * counts["wls"] > 0,
+                  f"gather_rows {counts['gather_rows']}, wls "
+                  f"{counts['wls']}")
         steps = len(times)
+        per_epoch = len(train_ds) // args.batch_size
         check(f"[{tag}] {steps} steps of {FIT_EPOCHS} epochs",
-              full.step == steps == FIT_EPOCHS * (FIT_TRAIN // B),
-              f"state.step {full.step}")
+              full.step == steps == FIT_EPOCHS * per_epoch == 2 * FIT_EPOCHS,
+              f"state.step {full.step}, {per_epoch} steps an epoch")
         state, batch = made.step.last
+        per_point = batch["label"].dim() == 2
         scratch = copy.deepcopy(state)
         step = make_train_step(scratch.model, smoothing=cli.RECIPE[
-            "smoothing"])
+            "smoothing"], per_point=per_point)
         gen = torch.Generator(device=dev).manual_seed(seed)
         dev_ms = device_ms(lambda: step(scratch, batch, gen))
         del scratch
         print(f"[{tag}] fit: median {np.median(times[1:]) * 1e3:.3f} ms a "
               f"step on the host clock (synchronised; {steps} steps, the "
               f"first {times[0] * 1e3:.1f} ms left out) against "
-              f"{dev_ms:.3f} ms of device time a step; test accuracy "
-              f"{scalars['test accuracy']}; card: {card}", flush=True)
+              f"{dev_ms:.3f} ms of device time a step; {scalars}; card: "
+              f"{card}", flush=True)
 
         ckpt = Path(tmp) / "ckpt"
         save_ms, restore_ms = [], []
@@ -8547,34 +8655,37 @@ def fit_phase(tag, cli, write, seed, dev, card):
         diff = _states_bit_equal(full, resumed)
         check(f"[{tag}] 1 epoch, then --resume to {FIT_EPOCHS}: bit-equal "
               f"to the uninterrupted run", diff == "" and again == scalars,
-              f"first difference: {diff or 'none'}; test accuracy "
-              f"{again['test accuracy']} and {scalars['test accuracy']}")
+              f"first difference: {diff or 'none'}; {again} and {scalars}")
 
         ckpts = Path(tmp) / "full" / "runs"
         (ckpts,) = list(ckpts.glob("*/*/checkpoints"))
-        model = cli.build_model(args)
+        model = cli_model(cli, args, num_classes)
         t0 = time.perf_counter()
         engine = InferenceEngine.from_checkpoint(
             model, str(ckpts), num_points=args.num_points,
             batch_size=args.batch_size)
         loaded = time.perf_counter() - t0
         has_normal = test_ds[0].normal is not None
+        categories = ([c.category for c in test_ds]
+                      if test_ds[0].category is not None else None)
         t0 = time.perf_counter()
-        engine.warmup(has_normal=has_normal)
+        engine.warmup(has_normal=has_normal,
+                      has_category=categories is not None)
         warm = time.perf_counter() - t0
         clouds = [c.pos for c in test_ds]
         normals = [c.normal for c in test_ds] if has_normal else None
         t0 = time.perf_counter()
-        got = engine.predict(clouds, normals)
+        got = engine.predict(clouds, normals, categories)
         first_ms = (time.perf_counter() - t0) * 1e3
         later = []
         for _ in range(CKPT_REPS):
             t0 = time.perf_counter()
-            engine.predict(clouds, normals)
+            engine.predict(clouds, normals, categories)
             later.append((time.perf_counter() - t0) * 1e3)
+        got = np.stack(got) if per_point else got
         target = copy.deepcopy(full)
         restore_any(str(ckpts), target)
-        evaluate = make_eval_step(target.model)
+        evaluate = make_eval_step(target.model, per_point=per_point)
         loader = BatchLoader(test_ds, args.batch_size, drop_last=False)
         want = np.concatenate([evaluate(target, {
             k: torch.from_numpy(v).to(dev) for k, v in b.items()
@@ -8584,16 +8695,17 @@ def fit_phase(tag, cli, write, seed, dev, card):
         check(f"[{tag}] the served checkpoint against the eval step",
               got.shape == want.shape and bool(np.isfinite(got).all())
               and err <= SERVE_CKPT_REL * scale
-              and bool((got.argmax(1) == want.argmax(1)).all()),
+              and bool((got.argmax(-1) == want.argmax(-1)).all()),
               f"max |diff| {err} <= {SERVE_CKPT_REL} x {scale}, argmax "
-              f"equal on {len(clouds)} clouds")
+              f"equal on {len(clouds)} clouds"
+              + (" at every point" if per_point else ""))
         print(f"[{tag}] in this process: from_checkpoint {loaded * 1e3:.1f}"
               f" ms, warmup {warm:.3f} s (the kernels were loaded at [build]"
               f" and every variant ran in the fits), then the first predict "
               f"of {len(clouds)} clouds {first_ms:.3f} ms, later ones "
               f"{np.median(later):.3f} ms (host clock, synchronised); card: "
               f"{card}", flush=True)
-        for warmup in (False, True):
+        for warmup in ((False, True) if cold else ()):
             spec = {"cli": cli.__name__.rsplit(".", 1)[1], "argv": base,
                     "checkpoint": str(ckpts), "warmup": warmup}
             run = subprocess.run(
@@ -8605,32 +8717,620 @@ def fit_phase(tag, cli, write, seed, dev, card):
             check(f"[{tag}] a fresh process serves the checkpoint "
                   f"(warmup {warmup})", run.returncode == 0 and lines,
                   f"exit {run.returncode}{run.stderr[-2000:]}")
-            cold = json.loads(lines[0][len("[cold-serve] "):])
+            cold_times = json.loads(lines[0][len("[cold-serve] "):])
             print(f"[{tag}] a fresh process (the kernel library built on "
                   f"disk, not loaded): from_checkpoint "
-                  f"{cold['from_checkpoint_s'] * 1e3:.1f} ms, " + (
-                      f"warmup {cold['warmup_s']:.3f} s, " if warmup else
-                      "no warmup, ") + f"the first predict "
-                  f"{cold['first_ms']:.3f} ms, the second "
-                  f"{cold['second_ms']:.3f} ms (host clock, synchronised);"
-                  f" card: {card}", flush=True)
+                  f"{cold_times['from_checkpoint_s'] * 1e3:.1f} ms, " + (
+                      f"warmup {cold_times['warmup_s']:.3f} s, " if warmup
+                      else "no warmup, ") + f"the first predict "
+                  f"{cold_times['first_ms']:.3f} ms, the second "
+                  f"{cold_times['second_ms']:.3f} ms (host clock, "
+                  f"synchronised); card: {card}", flush=True)
+        if after is not None:
+            after(args, base, ckpts)
         return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _obj_text(v, f) -> str:
+    return "".join(f"v {a:.6f} {b:.6f} {c:.6f}\n" for a, b, c in v) + "".join(
+        f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f)
+
+
+def _ply_text(v, f) -> bytes:
+    head = ["ply", "format ascii 1.0", f"element vertex {len(v)}",
+            "property float x", "property float y", "property float z",
+            f"element face {len(f)}",
+            "property list uchar int vertex_indices", "end_header"]
+    return "\n".join(head + [" ".join(f"{c:.6f}" for c in p) for p in v]
+                     + ["3 " + " ".join(map(str, t)) for t in f]).encode() \
+        + b"\n"
+
+
+def write_shrec(root, rng, args) -> str:
+    """A SHREC zip (``raw/shrec_16.zip`` in the ``shrec_16/<class>/<split>``
+    layout of OBJ meshes): the first len(SHREC_KINDS) classes of
+    ``SHREC.class_names``, SHREC_TRAIN training meshes each (10 kept by
+    ``--split_seed``: 2 steps of 16 an epoch) and SHREC_TEST test
+    meshes, closed meshes of one kind a class, stretched and rotated
+    (the CLI's NormalizeScale, SamplePoints(16384), GeodesicFPS(2048) run
+    on them). Returns what it wrote."""
+    import zipfile
+
+    from deltaconv_tpu_torch.data import SHREC
+
+    del args
+    raw = Path(root) / "raw"
+    raw.mkdir(parents=True)
+    with zipfile.ZipFile(raw / "shrec_16.zip", "w") as z:
+        for name, kind in zip(SHREC.class_names, SHREC_KINDS):
+            for split, count in (("train", SHREC_TRAIN),
+                                 ("test", SHREC_TEST)):
+                for i in range(count):
+                    z.writestr(f"shrec_16/{name}/{split}/T{i}.obj",
+                               _obj_text(*_closed_mesh(kind, rng)))
+    return (f"{len(SHREC_KINDS) * (SHREC_TRAIN + SHREC_TEST)} OBJ meshes of "
+            f"{len(SHREC_KINDS)} classes in a zip")
+
+
+def write_shapenet(root, rng, args) -> str:
+    """A ShapeNet tree (``raw/<category id>/<name>.txt`` rows ``x y z nx ny
+    nz part``, the train/val/test lists, the extraction marker):
+    SHAPENET_TRAIN trainval (train and val) and SHAPENET_TEST test clouds
+    of SHAPENET_RAW_POINTS points in turn over the categories of
+    SHAPENET_PARTS, on stretched ellipsoids with their normals, the part
+    labels of the category by the signs of the coordinates (the CLI's
+    NormalizeScale and GeodesicFPS(2048) run on them). Returns what it
+    wrote."""
+    del args
+    raw = Path(root) / "raw"
+    cats = list(SHAPENET_PARTS)
+    names = []
+    total = SHAPENET_TRAIN + SHAPENET_TEST
+    clouds, normals = ellipsoid_clouds(rng, [SHAPENET_RAW_POINTS] * total)
+    for i, (p, nrm) in enumerate(zip(clouds, normals)):
+        cid = cats[i % len(cats)]
+        first, count = SHAPENET_PARTS[cid]
+        part = first + ((p[:, 0] > 0).astype(int) + 2 * (p[:, 1] > 0)) % count
+        (raw / cid).mkdir(parents=True, exist_ok=True)
+        np.savetxt(raw / cid / f"m{i:04d}.txt",
+                   np.concatenate([p, nrm, part[:, None]], 1), fmt="%.6f")
+        names.append(f"shape_data/{cid}/m{i:04d}")
+    split_dir = raw / "train_test_split"
+    split_dir.mkdir()
+    n_val = SHAPENET_TRAIN // 4
+    for split, sel in (("train", names[:SHAPENET_TRAIN - n_val]),
+                       ("val", names[SHAPENET_TRAIN - n_val:SHAPENET_TRAIN]),
+                       ("test", names[SHAPENET_TRAIN:])):
+        with open(split_dir / f"shuffled_{split}_file_list.json", "w") as f:
+            json.dump(sel, f)
+    (raw / ".extracted").touch()
+    return (f"{total} text clouds of {SHAPENET_RAW_POINTS} points with "
+            f"normals over {len(cats)} categories")
+
+
+def write_shapeseg(root, rng, args) -> str:
+    """``raw/shapeseg.zip`` in the composite layout that
+    ``ShapeSeg.process`` reads, with its fixed member counts (Adobe 41,
+    FAUST 100, MIT 2 and SCAPE 71 training meshes, SHREC 18 test meshes):
+    icospheres (162 vertices), stretched and rotated, as ASCII PLY (OBJ
+    for MIT), labelled by the octant of the unrotated sphere (per-vertex
+    ``.pt`` blobs, one shared by FAUST's and one by SCAPE's meshes; MIT's
+    per-edge ``.eseg`` in MeshCNN's edge order, 1-based). The CLI's
+    NormalizeArea, NormalizeAxes, SamplePoints(8192, labels) and
+    GeodesicFPS(1024) run on them. Returns what it wrote."""
+    import io
+    import zipfile
+
+    del args
+    sphere, faces = _icosphere()
+    octant = ((sphere[:, 0] > 0) + 2 * (sphere[:, 1] > 0)
+              + 4 * (sphere[:, 2] > 0)).astype(np.int64)
+
+    def mesh():
+        q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        return (sphere * rng.uniform(0.5, 1.5, 3)) @ q
+
+    def pt(arr):
+        buf = io.BytesIO()
+        torch.save(torch.as_tensor(arr), buf)
+        return buf.getvalue()
+
+    def inner(entries):
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w") as z:
+            for name, payload in entries:
+                z.writestr(name, payload)
+        return buf.getvalue()
+
+    seen, edges = set(), []
+    for a, b, c in faces:  # MeshCNN's edge order
+        for e in ((a, b), (b, c), (a, c)):
+            key = (min(e), max(e))
+            if key not in seen:
+                seen.add(key)
+                edges.append(key)
+    eseg = "\n".join(str(octant[a] + 1) for a, _ in edges) + "\n"
+    adobe = [e for i in range(41) for e in (
+        (f"meshes/{i}.ply", _ply_text(mesh(), faces)),
+        (f"segs/{i}.pt", pt(octant)))]
+    faust = [(f"meshes/tr_reg_{i:03d}.ply", _ply_text(mesh(), faces))
+             for i in range(100)] + [("segs/faust_seg.pt", pt(octant))]
+    mit = [e for name in ("crane0", "march10") for e in (
+        (f"meshes/{name}.obj", _obj_text(mesh(), faces)),
+        (f"segs/{name}.eseg", eseg))]
+    scape = [(f"meshes/{i}.ply", _ply_text(mesh(), faces))
+             for i in range(71)] + [("segs/scape_seg.pt", pt(octant))]
+    shrec = [e for i in range(18) for e in (
+        (f"meshes/{i}.ply", _ply_text(mesh(), faces)),
+        (f"segs/{i}.pt", pt(octant)))]
+    raw = Path(root) / "raw"
+    raw.mkdir(parents=True)
+    with zipfile.ZipFile(raw / "shapeseg.zip", "w") as z:
+        for name, entries in (("Adobe/raw/adobe.zip", adobe),
+                              ("FAUST/raw/faust.zip", faust),
+                              ("MIT/raw/mit.zip", mit),
+                              ("SCAPE/raw/scape.zip", scape),
+                              ("SHREC/raw/shrec.zip", shrec)):
+            z.writestr("ShapeSeg/" + name, inner(entries))
+    return "the composite zip of 214 training and 18 test icosphere meshes"
+
+
+def vote_shapenet_phase(args, base, ckpts, card):
+    """``[vote-shapenet]``: ``test_shapenet.main`` on ``[fit-shapenet]``'s
+    checkpoints with ``--num_votes`` VOTES, twice: the instance mIoU (and
+    every category's IoU) the same across the calls and equal to
+    ``evaluate_voting``'s on the restored weights (the same generator
+    draws), the kernels launched; the host time of a call."""
+    from deltaconv_tpu_torch import launch_counts, reset_launch_counts
+    from deltaconv_tpu_torch.data import BatchLoader
+    from deltaconv_tpu_torch.experiments import test_shapenet, train_shapenet
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              evaluate_voting, restore_any,
+                                              sgd_momentum)
+
+    argv = base + ["--checkpoint", str(ckpts), "--num_votes", str(VOTES)]
+    results, times = [], []
+    for _ in range(2):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, scalars = test_shapenet.main(argv)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        results.append(scalars)
+    counts = launch_counts()
+    print("[vote-shapenet] checks")
+    for name in ("gather_rows", "wls", "densify_bf16", "gather_max"):
+        check(f"{name} launched", counts[name] > 0, f"{counts[name]}")
+    check("two calls give the same scores", results[0] == results[1],
+          f"{results[0]}")
+    _, test_ds, num_classes = train_shapenet.build_datasets_and_classes(args)
+    model = train_shapenet.shapenet_model(args, num_classes)
+    target = restore_any(str(ckpts), create_train_state(
+        model, sgd_momentum(0.1)), params_only=True)
+    want, _ = evaluate_voting(model, target, BatchLoader(
+        test_ds, args.batch_size, shuffle=False, drop_last=False),
+        train_shapenet.augment, num_votes=VOTES, seed=args.seed)
+    check("the CLI's mIoU is evaluate_voting's on the restored weights",
+          results[0]["test mIoU"] == want,
+          f"{results[0]['test mIoU']} and {want}")
+    print(f"[vote-shapenet] {VOTES} votes on {len(test_ds)} test clouds "
+          f"(B={args.batch_size}, N={args.num_points}): "
+          f"{np.median(times) * 1e3:.1f} ms a call of the CLI's main "
+          f"(host clock, synchronised; {[round(t * 1e3, 1) for t in times]}"
+          f", the datasets from their cache and the checkpoint's restore "
+          f"included); card: {card}", flush=True)
+    return counts
+
+
+def fit_shapeseg_phase(seed, dev, card):
+    """``[fit-shapeseg]``: ``train_shapeseg.main`` on the card at the
+    recipe's full width (8 classes, (128,) x 8, depth 1, embedding 512)
+    and its defaults (B=8, N=1024, k=20, Adam lr 0.005 with StepLR, bf16
+    dense operators under the f32 stack, exact kNN) on the archive
+    :func:`write_shapeseg` writes: the datasets' builds timed, FIT_EPOCHS
+    epochs (the archive's fixed member counts give 192 training clouds,
+    24 steps an epoch) with a validation and a test pass each, the
+    kernels launched, host ms a step beside one step's device time;
+    every best validation epoch saves its state as step 0 of the run's
+    checkpoints, which restores bit-equal (model, optimizer state, lr,
+    step) to the state at the last best epoch, and the evaluate-only
+    ``--checkpoint`` run of it repeats that epoch's test accuracy.
+    Returns the fit's launch counts."""
+    import copy
+    import tempfile
+
+    from deltaconv_tpu_torch import (launch_counts, reset_launch_counts,
+                                     training)
+    from deltaconv_tpu_torch.experiments import train_shapeseg as cli
+    from deltaconv_tpu_torch.training import (make_train_step,
+                                              restore_checkpoint)
+
+    tag = "fit-shapeseg"
+    rng = np.random.default_rng([seed, FIT_EPOCHS, len(tag)])
+    tmp = tempfile.mkdtemp(prefix="fit-")
+    save = training.save_checkpoint
+    saved = []
+
+    def recording_save(ckpt_dir, state, step=None):
+        saved.append(copy.deepcopy(state))
+        return save(ckpt_dir, state, step=step)
+
+    try:
+        root = Path(tmp) / "data"
+        base = ["--data_root", str(root), "--seed", str(seed + 1)]
+        args = cli.build_parser().parse_args(base)
+        t0 = time.perf_counter()
+        wrote = write_shapeseg(root, rng, args)
+        written = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_ds, val_ds, test_ds = cli.build_datasets(args)
+        first = time.perf_counter() - t0
+        print(f"[{tag}] fixture: {wrote}, written in {written:.2f} s; "
+              f"{len(train_ds)} train, {len(val_ds)} validation and "
+              f"{len(test_ds)} test clouds, built in {first:.2f} s (host "
+              f"clock); {args.operator_dtype} operators, {args.knn_method} "
+              f"kNN, k={args.k}, Adam lr {args.lr}, B={args.batch_size}, "
+              f"N={args.num_points}; card: {card}", flush=True)
+        times = []
+        reset_launch_counts()
+        training.save_checkpoint = recording_save
+        with timed_fit_steps(times) as made:
+            full, best = cli.main(base + ["--epochs", str(FIT_EPOCHS),
+                                          "--logdir", f"{tmp}/full"])
+        training.save_checkpoint = save
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"[{tag}] launches in {FIT_EPOCHS} epochs with their evals: "
+              f"{ {n: c for n, c in counts.items() if c} }")
+        for name in FIT_KERNELS:
+            check(f"[{tag}] {name} launched", counts[name] > 0,
+                  f"{counts[name]} launches")
+        check(f"[{tag}] the edge sum's adjacency or gather_sum launched",
+              counts["adjacency"] + counts["gather_sum"] > 0,
+              f"adjacency {counts['adjacency']}, gather_sum "
+              f"{counts['gather_sum']}")
+        per_epoch = len(train_ds) // args.batch_size
+        check(f"[{tag}] {len(times)} steps of {FIT_EPOCHS} epochs",
+              full.step == len(times) == FIT_EPOCHS * per_epoch,
+              f"state.step {full.step}, {per_epoch} steps an epoch")
+        state, batch = made.step.last
+        scratch = copy.deepcopy(state)
+        step = make_train_step(scratch.model, smoothing=cli.RECIPE[
+            "smoothing"], per_point=True)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dev_ms = device_ms(lambda: step(scratch, batch, gen))
+        del scratch
+        print(f"[{tag}] fit: median {np.median(times[1:]) * 1e3:.3f} ms a "
+              f"step on the host clock (synchronised; {len(times)} steps, "
+              f"the first {times[0] * 1e3:.1f} ms left out) against "
+              f"{dev_ms:.3f} ms of device time a step; best {best}; card: "
+              f"{card}", flush=True)
+
+        (ckpts,) = list((Path(tmp) / "full" / "runs").glob(
+            "*/*/checkpoints"))
+        check(f"[{tag}] the best epochs saved step 0 only",
+              sorted(p.name for p in ckpts.iterdir()) == ["step_0"]
+              and len(saved) >= 1, f"{len(saved)} saves")
+        target = copy.deepcopy(full)
+        t0 = time.perf_counter()
+        restore_checkpoint(str(ckpts), target, step=0)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        size = (ckpts / "step_0" / "checkpoint.pt").stat().st_size
+        print(f"[{tag}] the best epoch's checkpoint: {size} bytes (model, "
+              f"optimizer, scheduler, step), restored in {restore_ms:.2f} "
+              f"ms (host clock, synchronised, a warm local disk); card: "
+              f"{card}", flush=True)
+        diff = _states_bit_equal(saved[-1], target)
+        check(f"[{tag}] the best checkpoint restores the best epoch's state",
+              diff == "", f"first difference: {diff or 'none'}")
+        _, again = cli.main(base + ["--checkpoint", str(ckpts)])
+        check(f"[{tag}] the evaluate-only run repeats the best test "
+              f"accuracy", again["test accuracy"] == best["test accuracy"],
+              f"{again['test accuracy']} and {best['test accuracy']}")
+        return counts
+    finally:
+        training.save_checkpoint = save
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def host_ms(fn, reps) -> float:
+    """The median host ms of ``reps`` synchronised calls of ``fn`` after
+    one (for calls long enough that the launch cost is noise)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _height_field(rng, n):
+    """One cloud ``[n, 3]`` on a random quadratic height field over
+    [-1, 1]^2 with its analytic frames and heights (the de Rham fixture
+    of ``tests/geometry/test_grad_div.py``): ``(pos, normal, x_basis,
+    y_basis, f)`` f32 numpy."""
+    uv = (rng.random((n, 2)) * 2 - 1).astype(np.float32)
+    c = rng.random(6).astype(np.float32)
+    u, v = uv[:, 0], uv[:, 1]
+    f = (c[0] + c[1] * u + c[2] * v + c[3] * u * u + c[4] * u * v
+         + c[5] * v * v)[:, None]
+    dfdx = np.stack([np.ones_like(u), np.zeros_like(u),
+                     c[1] + 2 * c[3] * u + c[4] * v], 1)
+    dfdy = np.stack([np.zeros_like(u), np.ones_like(u),
+                     c[2] + c[4] * u + 2 * c[5] * v], 1)
+    normal = np.cross(dfdx, dfdy)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    x_basis = dfdx / np.linalg.norm(dfdx, axis=1, keepdims=True)
+    y_basis = np.cross(normal, x_basis)
+    return tuple(a.astype(np.float32) for a in (
+        np.concatenate([uv, f], 1), normal, x_basis, y_basis, f))
+
+
+def _derham_rules(gd, pos, nrm, x_an, y_an, f):
+    """The values of ``tests/geometry/test_grad_div.py``'s de Rham checks
+    on the operators ``gd`` (anything with ``grad`` and ``div``) of one
+    height-field cloud with its analytic frames ``x_an, y_an`` and
+    heights ``f``; each rule holds when its value is within DERHAM_TOL."""
+    from deltaconv_tpu_torch.geometry import J, curl, laplacian
+
+    ones = torch.ones((pos.shape[0], 1), dtype=pos.dtype, device=pos.device)
+    gx = gd.grad(pos[:, :1])
+    gf = gd.grad(f)
+    mc = laplacian(pos, gd)
+    sq = (curl(gx, gd).square(), gd.div(J(gx)).square())
+    return {
+        "max |grad 1|": float(gd.grad(ones).abs().max()),
+        "mean |lap 1|": float(laplacian(ones, gd).abs().mean()),
+        "curl grad x": float(max(sq[0].mean(), sq[0].median())),
+        "div J grad x": float(max(sq[1].mean(), sq[1].median())),
+        "grad f - the frames' z": float(torch.maximum(
+            (gf[:, 0, 0] - x_an[:, 2]).abs().max(),
+            (gf[:, 1, 0] - y_an[:, 2]).abs().max())),
+        "lap pos off -normal": float(
+            (-(mc * nrm).sum(1) - mc.norm(dim=1)).abs().max())}
+
+
+class _GatheredApplies:
+    """``grad``/``div`` of a :class:`GradDiv`'s coefficients as gathers and
+    einsums in their own dtype (the f64 torch math's operators, which no
+    kernel applies)."""
+
+    def __init__(self, gd):
+        self.gd, self.idx = gd, gd.nbr_idx.long()
+
+    def grad(self, x):
+        return torch.einsum("nkd,nkc->ndc", self.gd.grad_coef, x[self.idx])
+
+    def div(self, v):
+        return torch.einsum("nkd,nkdc->nc", self.gd.div_coef, v[self.idx])
+
+
+def _derham_phase(pos, nrm, x_an, y_an, f, idx, mask, n, k, first, card):
+    """The de Rham checks at one shape, on three builds of the operators
+    (regularizer 1e-8, unnormalized): the kernels' (``build_grad_div``),
+    the torch math's in f32 and in f64 (``_tables_math``). The kernels'
+    coefficients lie at most DERHAM_F32_RATIO times as far from the f64
+    math's as the f32 math's do (relative Frobenius distance); the
+    kernels' operators pass every rule the f32 math's pass, and at the
+    ``first`` shape every rule. Where the f32 math fails a rule the line
+    says whether the f64 math fails it too (the fixture: a rule that
+    does not hold on this cloud at all) or not (f32 rounding of the
+    fit)."""
+    from deltaconv_tpu_torch.geometry import build_grad_div
+    from deltaconv_tpu_torch.geometry import grad_div as gdm
+
+    kw = {"regularizer": 1e-8, "normalized": False}
+    kern = build_grad_div(pos, nrm, x_an, y_an, idx, mask, **kw)
+    m32 = gdm._tables_math(pos, x_an, y_an, pos, nrm, x_an, y_an, idx, mask,
+                           **kw)
+    p64, n64, x64, y64, f64 = (a.double() for a in (pos, nrm, x_an, y_an, f))
+    m64 = gdm._tables_math(p64, x64, y64, p64, n64, x64, y64, idx, mask,
+                           **kw)
+    dist = {}
+    for name, gd in (("kernels", kern), ("f32 math", m32)):
+        dist[name] = max(float((a.double() - b).norm() / b.norm()) for a, b in
+                         ((gd.grad_coef, m64.grad_coef),
+                          (gd.div_coef, m64.div_coef)))
+    rules = {"kernels": _derham_rules(kern, pos, nrm, x_an, y_an, f),
+             "f32 math": _derham_rules(m32, pos, nrm, x_an, y_an, f),
+             "f64 math": _derham_rules(_GatheredApplies(m64), p64, n64, x64,
+                                       y64, f64)}
+    ok = {side: {r: v <= DERHAM_TOL for r, v in vals.items()}
+          for side, vals in rules.items()}
+    held = [r for r in ok["kernels"]
+            if ok["kernels"][r] or not (first or ok["f32 math"][r])]
+    edge = float((pos[idx[:, 1:].long()] - pos[:, None]).norm(dim=-1).mean())
+    check(f"[geometry-single] N={n}, K={k}: de Rham on the kernels' "
+          f"operators" + (", every rule" if first else ", every rule the "
+                          "f32 torch math's pass"),
+          len(held) == len(ok["kernels"])
+          and dist["kernels"] <= DERHAM_F32_RATIO * dist["f32 math"],
+          "; ".join(
+              f"{r}: kernels {rules['kernels'][r]:.3g}, f32 math "
+              f"{rules['f32 math'][r]:.3g}, f64 math {rules['f64 math'][r]:.3g}"
+              + ("" if ok["f32 math"][r] else
+                 " (> the bound in f64 too: the fixture)" if not
+                 ok["f64 math"][r] else " (f32 rounding: f64 holds)")
+              for r in rules["kernels"])
+          + f" (bound {DERHAM_TOL}); coefficients' distance from the f64 "
+          f"math: kernels {dist['kernels']:.3g} <= {DERHAM_F32_RATIO} x f32 "
+          f"math {dist['f32 math']:.3g}; mean edge length {edge:.4g}; card: "
+          f"{card}")
+
+
+def geometry_single_phase(seed, dev, card):
+    """``[geometry-single]``: the single-cloud geometry on the card. At
+    one cloud of N points and K neighbours for each (N, K) of GEO_SHAPES
+    (a quadratic height field with its analytic frames):
+    ``geometry.build_grad_div`` through its kernels (``gather_rows`` and
+    ``wls`` once each a build) against the torch math on the same
+    tensors (``_tables_math``), ``normalized`` True and False, the same
+    indices and coefficients within GEO_COEF_REL x max|coef|, both timed;
+    the de Rham checks of ``tests/geometry/test_grad_div.py`` on the
+    kernels' operators beside the torch math's in f32 and f64
+    (:func:`_derham_phase`); ``DeltaConv``
+    (eval and train, f32 and bf16) on the operators of the cloud
+    (``build_operators`` on ``[N, 3]``) bit-equal to the batched call at
+    B=1. Then ``geometry.knn_tiled`` of one TILED_N-point cloud against
+    the exact body of ``knn_topk`` (``quantized=False``): each row's ids
+    the same as sets, or, on the rows where they part, the same sorted
+    squared distances (in f64) within TIE_ULPS f32 ulps of the scores'
+    scale, 2 max|p|^2 (near-ties: the two round ``|q|^2 + |p|^2 - 2 q.p``
+    their own ways); both timed, and the tile's selection both ways
+    (``top_k``'s stable sort and its int64 ``select``), the same ids.
+    Returns the phase's launch counts."""
+    from collections import Counter
+
+    from deltaconv_tpu_torch import launch_counts, ops, reset_launch_counts
+    from deltaconv_tpu_torch.geometry import (build_grad_div,
+                                              build_tangent_basis, knn,
+                                              knn_tiled)
+    from deltaconv_tpu_torch.geometry import grad_div as gdm
+    from deltaconv_tpu_torch.geometry.knn import squared_norms, top_k
+    from deltaconv_tpu_torch.models import build_operators
+    from deltaconv_tpu_torch.nn import DeltaConv
+
+    rng = np.random.default_rng([seed, GEO_TAG])
+    total = Counter()
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    for n, k in GEO_SHAPES:
+        pos, nrm, x_an, y_an, f = (t(a) for a in _height_field(rng, n))
+        xb, yb = build_tangent_basis(nrm)
+        idx, mask = knn(pos, k)
+        for normalized in (True, False):
+            reset_launch_counts()
+            got = build_grad_div(pos, nrm, xb, yb, idx, mask,
+                                 normalized=normalized)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            total.update(counts)
+            want = gdm._tables_math(pos, xb, yb, pos, nrm, xb, yb, idx, mask,
+                                    normalized=normalized)
+            errs = [float((a - b).abs().max() / b.abs().max()) for a, b in (
+                (got.grad_coef, want.grad_coef),
+                (got.div_coef, want.div_coef))]
+            ms = median_ms(lambda: build_grad_div(
+                pos, nrm, xb, yb, idx, mask, normalized=normalized),
+                reps=GEO_REPS)
+            math_ms = median_ms(lambda: gdm._tables_math(
+                pos, xb, yb, pos, nrm, xb, yb, idx, mask,
+                normalized=normalized), reps=GEO_REPS)
+            check(f"[geometry-single] N={n}, K={k}, normalized "
+                  f"{normalized}: the kernels' build against the torch math",
+                  counts["gather_rows"] == 1 and counts["wls"] == 1
+                  and got.single and torch.equal(got.nbr_idx, want.nbr_idx)
+                  and torch.equal(got.nbr_mask, want.nbr_mask)
+                  and max(errs) <= GEO_COEF_REL,
+                  f"gather_rows {counts['gather_rows']}, wls "
+                  f"{counts['wls']} launches; max |diff| / max|coef| grad "
+                  f"{errs[0]:.3g}, div {errs[1]:.3g} <= {GEO_COEF_REL}; "
+                  f"{ms:.4f} ms a build against the torch math's "
+                  f"{math_ms:.4f} (CUDA events); card: {card}")
+
+        _derham_phase(pos, nrm, x_an, y_an, f, idx, mask, n, k,
+                      (n, k) == GEO_SHAPES[0], card)
+
+        bad = []
+        for dtype in (None, torch.bfloat16):
+            single = build_operators(pos, k, nrm, operator_dtype=dtype)
+            batch = single.batched()
+            for train in (False, True):
+                x = torch.randn((n, 3), device=dev)
+                v = single.grad(x)
+                outs = []
+                for g, xx, vv in ((single, x, v), (batch, x[None], v[None])):
+                    torch.manual_seed(seed)
+                    conv = DeltaConv(3, 64, centralized=True,
+                                     dtype=dtype).to(dev)
+                    conv.train(train)
+                    with torch.no_grad():
+                        outs.append(conv(xx, vv, g))
+                (xs, vs), (xb1, vb1) = outs
+                if not (raw_equal(xs, xb1[0]) and raw_equal(vs, vb1[0])):
+                    bad.append(f"{dtype} train={train}")
+        check(f"[geometry-single] N={n}, K={k}: DeltaConv of one cloud "
+              f"bit-equal to the batch of one", not bad,
+              f"differ: {bad or 'none'}")
+
+    pos = t(_height_field(rng, TILED_N)[0])
+    reset_launch_counts()
+    ids, tmask = knn_tiled(pos, TILED_K, tile=TILED_TILE)
+    want = ops.knn_topk(pos[None], TILED_K, quantized=False)[0]
+    torch.cuda.synchronize()
+    total.update(launch_counts())
+    same = torch.equal(torch.sort(ids, 1).values, torch.sort(want, 1).values)
+    rows = (torch.sort(ids, 1).values != torch.sort(want, 1).values).any(1)
+    p = pos.double()
+    d_got, d_want = (torch.sort((p[i[rows].long()] - p[rows][:, None]).square(
+    ).sum(-1), 1).values for i in (ids, want))
+    tol = TIE_ULPS * 2.0 ** -23 * 2 * float(p.square().sum(1).max())
+    ties = bool(((d_got - d_want).abs() <= tol).all())
+    tiled_ms, topk_ms = (host_ms(fn, TILED_REPS) for fn in (
+        lambda: knn_tiled(pos, TILED_K, tile=TILED_TILE),
+        lambda: ops.knn_topk(pos[None], TILED_K, quantized=False)))
+    check(f"[geometry-single] knn_tiled at N={TILED_N}, K={TILED_K}, tiles "
+          f"of {TILED_TILE} against knn_topk's exact body",
+          bool(tmask.all()) and (same or ties),
+          f"{int(rows.sum())} of {TILED_N} rows part as sets, all at "
+          f"near-ties (squared distances within {tol:.3g}): {ties}; knn_tiled {tiled_ms:.3f} ms, knn_topk (exact) "
+          f"{topk_ms:.3f} ms (host clock, synchronised, median of "
+          f"{TILED_REPS} after one); card: {card}")
+
+    sq = squared_norms(pos)
+    neg = -(sq[:TILED_TILE, None] + sq[None, :]
+            - 2.0 * torch.matmul(pos[:TILED_TILE], pos.T))
+    sel = [top_k(neg, TILED_K, select=s)[1] for s in (False, True)]
+    sort_ms, select_ms = (median_ms(
+        lambda s=s: top_k(neg, TILED_K, select=s), reps=GEO_REPS)
+        for s in (False, True))
+    check(f"[geometry-single] one tile's selection, {TILED_TILE} x "
+          f"{TILED_N} scores, top {TILED_K}: top_k's int64 select against "
+          f"its stable sort", torch.equal(*sel),
+          f"the same ids; sort {sort_ms:.3f} ms, select {select_ms:.3f} ms "
+          f"(CUDA events); card: {card}")
+    return total
+
+
 def fit_phases(seed, dev, card):
     """The group "training loop and checkpoints": ``[knn-ties]``, then
-    ``[fit-scanobjectnn]`` and ``[fit-modelnet]``; returns the two fits'
-    launch counts."""
+    ``[fit-scanobjectnn]``, ``[fit-modelnet]``, ``[fit-shrec]``,
+    ``[fit-shapenet]`` with ``[vote-shapenet]`` on its checkpoints,
+    ``[fit-shapeseg]``, and ``[geometry-single]``; returns each phase's
+    launch counts by its tag."""
     from deltaconv_tpu_torch.experiments import (train_modelnet,
-                                                 train_scanobjectnn)
+                                                 train_scanobjectnn,
+                                                 train_shapenet,
+                                                 train_shrec)
 
     knn_ties_phase(seed, dev, card)
-    return (fit_phase("fit-scanobjectnn", train_scanobjectnn,
-                      write_scanobjectnn, seed, dev, card),
-            fit_phase("fit-modelnet", train_modelnet, write_modelnet, seed,
-                      dev, card))
+    out = {
+        "fit-scanobjectnn": fit_phase("fit-scanobjectnn", train_scanobjectnn,
+                                      write_scanobjectnn, seed, dev, card),
+        "fit-modelnet": fit_phase("fit-modelnet", train_modelnet,
+                                  write_modelnet, seed, dev, card),
+        "fit-shrec": fit_phase("fit-shrec", train_shrec, write_shrec, seed,
+                               dev, card, cold=False)}
+    votes = {}
+
+    def vote(args, base, ckpts):
+        votes["vote-shapenet"] = vote_shapenet_phase(args, base, ckpts, card)
+
+    out["fit-shapenet"] = fit_phase(
+        "fit-shapenet", train_shapenet, write_shapenet, seed, dev, card,
+        kernels=FIT_KERNELS_DEPTH2, edges="gather", cold=False, after=vote)
+    out.update(votes)
+    out["fit-shapeseg"] = fit_shapeseg_phase(seed, dev, card)
+    out["geometry-single"] = geometry_single_phase(seed, dev, card)
+    return out
 
 
 def compare_phases(seed, dev, card):
@@ -8785,8 +9485,8 @@ def main():
     train_no_normals = train_no_normals_phase(args.seed, dev, card)
     shard_no_normals = shard_no_normals_phase(args.seed, dev, card)
     mark("clouds without normals")
-    fit_sonn, fit_modelnet = fit_phases(args.seed, dev, card)
-    mark("training loop and checkpoints")
+    fits = fit_phases(args.seed, dev, card)
+    mark("training loop, checkpoints and CLIs")
     if args.parent:
         parent_phase(args.parent, args.seed, card)
         mark("parent tree")
@@ -8808,8 +9508,7 @@ def main():
             ("serve-no-normals", no_normals),
             ("serve-no-normals-bf16", no_normals_bf16), ("vote", vote),
             ("train-no-normals", train_no_normals),
-            ("shard-no-normals", shard_no_normals),
-            ("fit-scanobjectnn", fit_sonn), ("fit-modelnet", fit_modelnet)):
+            ("shard-no-normals", shard_no_normals), *fits.items()):
         check(f"[{label}] the WLS and fused-build direct routes and the "
               f"sum's route D never",
               counts["wls_direct"] == 0 and counts["wls_bwd_direct"] == 0

@@ -5,4 +5,9 @@ Run as modules from the root of a checkout::
     python -m deltaconv_tpu_torch.experiments.train_scanobjectnn \\
         --data_root experiments/data/ScanObjectNN
     python -m deltaconv_tpu_torch.experiments.train_modelnet
+    python -m deltaconv_tpu_torch.experiments.train_shrec
+    python -m deltaconv_tpu_torch.experiments.train_shapenet
+    python -m deltaconv_tpu_torch.experiments.test_shapenet \\
+        --checkpoint RUN_DIR/checkpoints
+    python -m deltaconv_tpu_torch.experiments.train_shapeseg
 """

@@ -1,5 +1,7 @@
 """Dense form of the grad/div operators (counterpart of
-``deltaconv_tpu/geometry/dense.py``, f32, bf16 or int8).
+``deltaconv_tpu/geometry/dense.py``, f32, bf16 or int8), batched or of
+one cloud (every tensor without its batch axis: the applies and the
+neighbour maxes take ``[N, ...]`` features, as a batch of one).
 
 ``W_grad [B, 2, N, N]``: plane d maps scalars to the d-component;
 ``W_div [B, 2, N, N]``: plane d maps the d-component to scalars. Built
@@ -61,7 +63,7 @@ import torch
 
 from ..ops.gather_max import int8_quantize
 from .grad_div import GradDiv
-from .nbr_ops import NeighborAggregations
+from .nbr_ops import NeighborAggregations, one_cloud
 
 __all__ = ["DenseGradDiv", "densify"]
 
@@ -192,6 +194,7 @@ class DenseGradDiv(NeighborAggregations):
         """True for the int8 serving form."""
         return self.w_grad.dtype == torch.int8
 
+    @one_cloud("h")
     def nbr_max(self, h):
         """int8 form: the masked max in the quantized domain
         (``gather_max_int8``, rows with no valid neighbour 0); otherwise
@@ -200,6 +203,7 @@ class DenseGradDiv(NeighborAggregations):
             return self.ops.gather_max_int8(h, self.nbr_idx, self.nbr_mask)
         return super().nbr_max(h)
 
+    @one_cloud("x")
     def nbr_matmul_max(self, x, w, affine=None):
         """int8 form: ``x`` quantized per cloud, the masked max of
         ``(xq @ w)[nbr]`` (``gather_matmul_max_int8``), dequantized by the
@@ -217,8 +221,10 @@ class DenseGradDiv(NeighborAggregations):
                                               self.nbr_mask)
         return (out.float() * s[:, None, None]).to(x.dtype)
 
+    @one_cloud("x")
     def grad(self, x):
-        """``[B, N, C] -> [B, N, 2, C]`` via one batched matmul."""
+        """``[B, N, C] -> [B, N, 2, C]`` via one batched matmul (``[N, C]
+        -> [N, 2, C]`` on one cloud)."""
         x = self._scaled(x)
         if self.int8:
             b, n = x.shape[:2]
@@ -237,8 +243,10 @@ class DenseGradDiv(NeighborAggregations):
         out = _bf16_product(self.w_grad.flatten(1, 2), x)  # [B, 2N, C]
         return out.view(b, 2, n, -1).transpose(1, 2).to(x.dtype)
 
+    @one_cloud("v")
     def div(self, v):
-        """``[B, N, 2, C] -> [B, N, C]`` as two component matmuls."""
+        """``[B, N, 2, C] -> [B, N, C]`` as two component matmuls
+        (``[N, 2, C] -> [N, C]`` on one cloud)."""
         v = self._scaled(v)
         w = self.w_div
         if self.int8:

@@ -60,8 +60,14 @@ def estimate_basis(pos, nbr_idx, nbr_mask=None, orientation=None,
 
     Returns:
       ``(normal, x_basis, y_basis)``, each ``[B, N, 3]``, orthonormal and
-      right-handed (``y = n x x``).
+      right-handed (``y = n x x``). One cloud (``pos [N, 3]``, every
+      argument without its batch axis) is a batch of one, returned
+      ``[N, 3]``.
     """
+    if pos.dim() == 2:
+        return tuple(t[0] for t in estimate_basis(*(
+            None if t is None else t[None]
+            for t in (pos, nbr_idx, nbr_mask, orientation, table))))
     tab = pos if table is None else table
     offsets = _rows(tab, nbr_idx) - pos[:, :, None, :]  # [B, N, K, 3]
     if nbr_mask is not None:

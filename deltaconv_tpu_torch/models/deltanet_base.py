@@ -97,7 +97,10 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
     coefficient form.
 
     Args:
-      pos: ``[B, N, 3]`` positions.
+      pos: ``[B, N, 3]`` positions, or ``[N, 3]``: one cloud, built as a
+        batch of one by the same kernels and returned as the operators of
+        one cloud (every tensor without its batch axis; ``normal`` and
+        ``point_mask`` then lack theirs too).
       k: neighbours of the operator graph (self loop in slot 0).
       normal: ``[B, N, 3]`` unit normals, or None: the frames are then
         estimated from a ``normal_k``-NN graph of the same ``knn_method``
@@ -117,6 +120,12 @@ def build_operators(pos, k: int, normal=None, point_mask=None,
     too) and ``normal`` (f32 and bf16 operators; the kNN runs on detached
     positions); int8 operators raise on inputs that require grad.
     """
+    if pos.dim() == 2:
+        return build_operators(
+            pos[None], k, None if normal is None else normal[None],
+            None if point_mask is None else point_mask[None], kernel_width,
+            regularizer, ops, operator_dtype, knn_method, dense_operators,
+            normal_k).unbatched()
     if (dense_operators and to_dtype(operator_dtype) == torch.int8
             and _requires_grad(pos, normal)):
         raise NotImplementedError(

@@ -409,7 +409,13 @@ class DeltaConv(nn.Module):
         (dense, or in coefficient form for large clouds), ``point_mask``
         optional ``[B, N]`` validity (left out of the BatchNorm
         statistics). Returns ``(x', v')`` (``v'`` is None on the last
-        layer)."""
+        layer). On the operators of one cloud (``nbr_idx [N, K]``) every
+        input and output lacks its batch axis, and the layer runs as the
+        batch of one (the same kernels, the same bits)."""
+        if gd.nbr_idx.dim() == 2:
+            x, v = self(x[None], v[None], gd.batched(),
+                        None if point_mask is None else point_mask[None])
+            return x[0], None if v is None else v[0]
         if self.centralized:  # the edges of valid points
             stats_mask = gd.nbr_mask if point_mask is not None else None
         else:

@@ -329,14 +329,16 @@ def edge_planes(pos, normal, x_basis, y_basis, nbr_idx, nbr_mask, pm,
 def build_grad_div_tables(table, pc, nc, xc, yc, nbr_idx, nbr_mask,
                           point_mask=None, kernel_width: float = 1.0,
                           regularizer: float = 0.001, avg_reduce=None,
-                          max_reduce=None, ops=None) -> GradDiv:
+                          max_reduce=None, ops=None,
+                          normalized: bool = True) -> GradDiv:
     """The operators of the centre rows ``pc, nc, xc, yc [B, N, 3]`` whose
     neighbours ``nbr_idx [B, N, K]`` index ``table [B, Nt, 9]`` (the
     positions and frames of the whole cloud): the counterpart of JAX's
     ``build_grad_div_tables``, on the port's kernels. ``point_mask [B,
     N]`` marks the valid centres; ``avg_reduce(sum, count)`` completes
     the mean edge length and ``max_reduce`` the infinity norm across the
-    ranks of a point-sharded cloud. The returned :class:`GradDiv` keeps
+    ranks of a point-sharded cloud; ``normalized=False`` leaves out the
+    infinity-norm normalization. The returned :class:`GradDiv` keeps
     index 0 on its masked slots (JAX's convention), so filler columns
     beyond the table never reach a gather."""
     if ops is None:
@@ -348,21 +350,25 @@ def build_grad_div_tables(table, pc, nc, xc, yc, nbr_idx, nbr_mask,
     edges = edge_planes_tables(table, pc, nc, xc, yc, nbr_idx, nbr_mask, pm,
                                ops.gather_rows, avg_reduce)
     g, d = ops.wls(edges, kernel_width, regularizer)
-    return _normalized(g, d, nbr_idx, nbr_mask, pm, max_reduce, ops)
+    return _normalized(g, d, nbr_idx, nbr_mask, pm, max_reduce, ops,
+                       normalized)
 
 
-def _normalized(g, d, nbr_idx, nbr_mask, pm, max_reduce, ops) -> GradDiv:
+def _normalized(g, d, nbr_idx, nbr_mask, pm, max_reduce, ops,
+                normalized: bool = True) -> GradDiv:
     """``[B, 2, K, N]`` coefficients -> :class:`GradDiv` ``[B, N, K, 2]``,
     divided by the per-cloud infinity norm of grad (div scales with it:
-    it is linear in the grad row)."""
+    it is linear in the grad row) unless ``normalized`` is False."""
     g = g.permute(0, 3, 2, 1)
     d = d.permute(0, 3, 2, 1)
-    row_norm = torch.linalg.vector_norm(g.abs().sum(dim=2), dim=-1) * pm
-    inf_norm = row_norm.amax(dim=1)  # [B]
-    if max_reduce is not None:
-        inf_norm = max_reduce(inf_norm)
-    scale = torch.where(inf_norm > 1e-5, 1.0 / inf_norm, 1.0)
-    scale = scale[:, None, None, None]
+    scale = 1.0
+    if normalized:
+        row_norm = torch.linalg.vector_norm(g.abs().sum(dim=2), dim=-1) * pm
+        inf_norm = row_norm.amax(dim=1)  # [B]
+        if max_reduce is not None:
+            inf_norm = max_reduce(inf_norm)
+        scale = torch.where(inf_norm > 1e-5, 1.0 / inf_norm, 1.0)
+        scale = scale[:, None, None, None]
     return GradDiv(nbr_idx=nbr_idx, nbr_mask=nbr_mask,
                    grad_coef=(g * scale).contiguous(),
                    div_coef=(d * scale).contiguous(), ops=ops)

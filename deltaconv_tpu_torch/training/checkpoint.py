@@ -126,7 +126,10 @@ def restore_checkpoint(ckpt_dir: str, target_state,
 
 
 def _restore(path: str, target_state, params_only: bool):
-    payload = _load(path, _model_device(target_state.model))
+    # Read on the host: the load_state_dict calls place each tensor as a
+    # live state holds it (parameters and their moments on the model's
+    # device, Adam's step counts on the host, where torch keeps them).
+    payload = _load(path, "cpu")
     target_state.model.load_state_dict(payload["model_state_dict"],
                                        strict=True)
     if not params_only:

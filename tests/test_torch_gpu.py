@@ -3548,3 +3548,138 @@ def _graph_valid(ids, pm):
     valid = pm.cpu().numpy()
     return np.take_along_axis(valid[:, None, :].repeat(ids.shape[1], 1),
                               ids, axis=-1)
+
+
+def _surface_cloud(rng, n):
+    """One cloud ``[N, 3]`` on a random quadratic height field with its
+    analytic frames."""
+    uv = rng.uniform(-1.0, 1.0, (n, 2)).astype(np.float32)
+    c = rng.random(5).astype(np.float32)
+    f = c[0] * uv[:, 0] + c[1] * uv[:, 1] + c[2] * uv[:, 0] ** 2 \
+        + c[3] * uv[:, 0] * uv[:, 1] + c[4] * uv[:, 1] ** 2
+    pos = np.concatenate([uv, f[:, None]], 1).astype(np.float32)
+    fx = np.stack([np.ones(n), np.zeros(n), c[0] + 2 * c[2] * uv[:, 0]
+                   + c[3] * uv[:, 1]], 1)
+    fy = np.stack([np.zeros(n), np.ones(n), c[1] + c[3] * uv[:, 0]
+                   + 2 * c[4] * uv[:, 1]], 1)
+    nrm = np.cross(fx, fy)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return pos, nrm.astype(np.float32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("normalized", [True, False])
+def test_single_cloud_build_on_the_kernels(cuda, normalized, masked):
+    """``geometry.build_grad_div`` of one cloud on CUDA tensors launches
+    ``gather_rows`` and ``wls`` once each and agrees with the torch math
+    (``_tables_math``) on the card: the same indices and masks,
+    coefficients within 1e-4 x max|coef|; with ``shape_regularizer`` it
+    runs the torch math and launches no kernel, and its operators apply
+    on the card."""
+    from deltaconv_tpu_torch.geometry import build_grad_div
+    from deltaconv_tpu_torch.geometry import grad_div as gdm
+
+    rng = np.random.default_rng(30)
+    pos, nrm = (torch.from_numpy(a).to(cuda) for a in _surface_cloud(
+        rng, 1000))
+    xb, yb = build_tangent_basis(nrm)
+    idx, mask = knn(pos, 20)
+    pm = None
+    if masked:
+        pm = torch.from_numpy(rng.random(1000) > 0.2).to(cuda)
+    reset_launch_counts()
+    got = build_grad_div(pos, nrm, xb, yb, idx, mask, pm,
+                         normalized=normalized)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["gather_rows"] == 1 and counts["wls"] == 1
+    want = gdm._tables_math(pos, xb, yb, pos, nrm, xb, yb, idx, mask, pm,
+                            normalized=normalized)
+    assert got.single and torch.equal(got.nbr_idx, want.nbr_idx)
+    assert torch.equal(got.nbr_mask, want.nbr_mask)
+    for a, b in ((got.grad_coef, want.grad_coef),
+                 (got.div_coef, want.div_coef)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    view = pos[:, :1]  # a strided view: the applies copy it first
+    for apply, arg in ((got.grad, view), (got.div, got.grad(view))):
+        assert torch.equal(apply(arg), apply(arg.contiguous()))
+    reset_launch_counts()
+    shaped = build_grad_div(pos, nrm, xb, yb, idx, mask, pm,
+                            shape_regularizer=1e-2)
+    assert sum(launch_counts().values()) == 0
+    lap = shaped.div(shaped.grad(pos))  # the applies' kernels take them
+    assert lap.shape == (1000, 3) and bool(lap.isfinite().all())
+
+
+def test_knn_tiled_on_the_card(cuda):
+    """``geometry.knn_tiled`` of one cloud (N=5000, tiles of 1024, the last
+    partial): self in slot 0, every slot valid, and each row's distances
+    those of the exact kNN's selection (``knn`` on ``[N, 3]``) within
+    1e-6 (the two score forms may order a near-tie otherwise)."""
+    from deltaconv_tpu_torch.geometry import knn_tiled
+
+    rng = np.random.default_rng(31)
+    pos = torch.from_numpy(rng.random((5000, 3)).astype(np.float32)).to(cuda)
+    idx, mask = knn_tiled(pos, 16, tile=1024)
+    want, _ = knn(pos, 16)
+    assert idx.dtype == torch.int32 and bool(mask.all())
+    assert torch.equal(idx[:, 0], torch.arange(5000, device=cuda,
+                                               dtype=torch.int32))
+    p = pos.double()
+    d = [torch.sort((p[i.long()] - p[:, None]).norm(dim=-1), dim=1).values
+         for i in (idx, want)]
+    torch.testing.assert_close(d[0], d[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [40, 3000, 65536])
+def test_top_k_select_on_the_card(cuda, m):
+    """``top_k(..., select=True)`` (``knn_tiled``'s selection, ``torch.topk``
+    of unique int64 keys) on the card: on rows of exact ties, signed zeros
+    and infinities the ids equal the stable-sort rule on the host and
+    ``top_k``'s sort on the card, and the values their bits."""
+    from deltaconv_tpu_torch.geometry.knn import top_k
+
+    rng = np.random.default_rng(32)
+    s = rng.integers(-3, 4, (16, m)).astype(np.float32)
+    s[:, ::7] = -0.0
+    s[:, 3] = np.inf
+    s[1::2, 5] = -np.inf
+    st = torch.from_numpy(s).to(cuda)
+    for k in (1, 20, 40):
+        values, idx = top_k(st, k, select=True)
+        want = _stable_top_k(s, k)
+        np.testing.assert_array_equal(idx.cpu().numpy(), want)
+        assert torch.equal(idx, top_k(st, k)[1])
+        np.testing.assert_array_equal(
+            values.cpu().numpy().view(np.int32),
+            np.take_along_axis(s, want, -1).view(np.int32))
+
+
+def test_adam_checkpoint_restores_the_live_placement(cuda, tmp_path):
+    """An Adam state restored on the card holds every optimizer tensor on
+    the device a live state holds it (the step counts on the host, the
+    moments on the card) and the same bits, so a resumed step runs as an
+    uninterrupted one."""
+    from deltaconv_tpu_torch.training import (adam_steplr,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+
+    torch.manual_seed(0)
+    model = torch.nn.Linear(8, 4)
+    state = create_train_state(model, adam_steplr(0.01, 30, 0.1, 4),
+                               device=cuda)
+    for _ in range(2):
+        state.optimizer.zero_grad()
+        model(torch.randn(5, 8, device=cuda)).square().sum().backward()
+        state.optimizer.step()
+    save_checkpoint(str(tmp_path), state, step=1)
+    target = create_train_state(torch.nn.Linear(8, 4),
+                                adam_steplr(0.01, 30, 0.1, 4), device=cuda)
+    restore_checkpoint(str(tmp_path), target)
+    live = state.optimizer.state_dict()["state"]
+    got = target.optimizer.state_dict()["state"]
+    for i, entry in live.items():
+        for name, value in entry.items():
+            assert got[i][name].device == value.device, name
+            assert torch.equal(got[i][name], value), name

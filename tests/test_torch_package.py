@@ -35,7 +35,10 @@ for name in names:
 for name in ("data.io", "data.modelnet", "data.shapenet", "data.shapeseg",
              "data.shrec", "utils.ply_export", "training.logging",
              "training.checkpoint", "training.loop", "experiments.common",
-             "experiments.train_scanobjectnn", "experiments.train_modelnet"):
+             "experiments.train_scanobjectnn", "experiments.train_modelnet",
+             "experiments.train_shrec", "experiments.train_shapenet",
+             "experiments.test_shapenet", "experiments.train_shapeseg",
+             "geometry.connection"):
     assert "deltaconv_tpu_torch." + name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "flax", "deltaconv_tpu")
