@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of deltaconv_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--seed S] [--parent DIR] [--phase fit]
+    python3 chip_smoke.py [--seed S] [--parent DIR] [--phase fit|ranks]
 
 (``--phase fit`` runs only the group "training loop, checkpoints and
-CLIs", items 36 to 42.)
+CLIs", items 36 to 42; ``--phase ranks`` only "training across ranks",
+items 43 to 45.)
 
 Run on a machine with a CUDA card and the CUDA toolkit, from any working
 directory: the script puts its own directory (the root of a checkout)
@@ -508,7 +509,50 @@ first on ``sys.path``. It
     ``geometry.knn_tiled`` of one 65,536-point cloud (K=20, tiles of
     2048) against ``knn_topk``'s exact body, row-wise sets equal or
     parted only at near-ties, both timed;
-43. with ``--parent DIR`` (another checkout's root, e.g. the parent
+43. ``[dp-step]``: the reference ModelNet40 train step (B=32, N=1024,
+    K=20, (64, 64, 128, 256), SGD lr 0.1, momentum 0.9, weight decay
+    1e-4, smoothing 0.2, dropout 0.5), f32 (exact kNN) and bf16 (bf16
+    compute and operators, approximate kNN), data-parallel: (a)
+    ``parallel.shard_train_step`` on a 1-rank ``nccl`` group bit-equal to
+    ``make_train_step`` over 2 steps with the same generator (a group of
+    one rank is None in the port: the one-process step twice, so this
+    shows it deterministic; no NCCL collective runs); (b) 2 processes
+    sharing the card over ``gloo`` (``parallel.launch.run_ranks``), 16
+    clouds a rank, against the one-process step: the ranks bit-equal;
+    the loss within rtol 1e-5 (f32) or 1e-3 (bf16), or twice the spread
+    of the controls where that is larger; parameters and running
+    statistics by ``held_update`` (their distance from the one-process
+    step over its move within 1e-2, or twice the largest of 3 controls,
+    and never above 0.25; a control is the one-process step on the
+    batch's clouds in another order, each dropout mask permuted with
+    them: the same function, its sums in another order); the tensors
+    holding most of the distance and the entries beyond JAX's
+    data-parallel bounds (atol 1e-5 + rtol 1e-4) printed, not held;
+    each rank's launches a step (counted from 0 over 3 steps), device
+    and host ms a step;
+44. ``[shard-train]``: ``parallel.point_sharded_train_step`` at the bench
+    config (ONE 65,536-point cloud, reference width, coefficient
+    operators, bf16, approximate kNN, SGD 0.01) on a 1-rank ``nccl``
+    group: two calls from the same state bit-equal; the f32 form within
+    1e-3 (parameters) and 1e-4 (statistics) x max of the unsharded f32
+    step on the same graph and operators; the launches, device ms, host
+    ms, points/s and peak memory of a step on one rank; then the
+    ShapeNet recipe on one 8192-point cloud (f32, exact kNN, dropout
+    0.5) on the 2 gloo ranks against its one-process sharded step: the
+    ranks bit-equal, the one-process step twice bit-equal, the loss
+    within rtol 1e-5 (or twice the controls' spread), the state by
+    ``held_update`` with controls on the cloud's points in another
+    order, each dropout mask permuted with them; each rank's launches
+    and host ms a step;
+45. ``[fit-dp]``: ``train_modelnet.main`` for 2 epochs on a written
+    ModelNet fixture on the 2 gloo ranks (data parallelism, the CLI's
+    defaults, under the group) against the one-process run
+    (``--no_data_parallel``): final parameters by ``held_update``
+    (controls: the one-process run on every cloud's points in another
+    order; exact kNN, so the graphs do not move), the ranks bit-equal,
+    rank 0 alone writing checkpoints, 1 epoch then ``--resume`` to 2
+    bit-equal to the uninterrupted run;
+46. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
     gather plan's build where the package has one), ``[kernel-times]``
@@ -546,6 +590,7 @@ import contextlib
 import dataclasses
 import functools
 import importlib
+import io
 import json
 import re
 import shutil
@@ -9300,6 +9345,653 @@ def geometry_single_phase(seed, dev, card):
     return total
 
 
+# -- training across ranks -------------------------------------------------------
+
+# JAX's own data-parallel bounds (tests/training/test_parallel.py): the
+# loss to rtol 1e-5, parameters and running statistics to atol 1e-5 +
+# rtol 1e-4; tests/test_torch_train.py's for the sharded f32 step against
+# the unsharded one: parameters 1e-3 and statistics 1e-4 x the tensor's
+# max.
+DP_LOSS_RTOL, DP_ATOL, DP_RTOL = 1e-5, 1e-5, 1e-4
+# A bf16 step's loss against another order of its sums: a quarter of a
+# bf16 ulp.
+DP_BF16_LOSS_RTOL = 1e-3
+SHARD_PARAM_REL, SHARD_STATS_REL = 1e-3, 1e-4
+RANKS = 2  # processes sharing the one card over gloo
+RANKS_TIMEOUT = 600  # s: the spawned ranks' whole job
+RANK_REPS = 3  # timed steps a rank
+SHARD_TRAIN_LR = 0.01  # bench.py's point_shard_train_points_per_sec
+DP_CONFIGS = {"f32": {}, "bf16": dict(knn_method="approx",
+                                      precision="bfloat16")}
+# The 2-rank runs against one process (held_update): the parameters' (and
+# the running statistics') distance from the one-process run over that
+# run's own move, ||got - want|| / ||want - start||. A control is the
+# one-process run on the same inputs in another order along the split
+# axis (the batch's clouds, or one cloud's points), every dropout mask
+# permuted with them and the graph unchanged: the same function with its
+# sums in another order. The distance is held within UPDATE_REL, or
+# CONTROL_FACTOR times the largest of CONTROLS controls where that is
+# larger, and never above UPDATE_CAP: a gradient scaled by 3/4 or 5/4 or
+# worse (a pmean left out or done twice, a rank's rows dropped from a
+# sum) moves the parameters at least that far from the one-process step.
+UPDATE_REL = 1e-2
+CONTROL_FACTOR = 2.0
+UPDATE_CAP = 0.25
+CONTROLS = 3
+
+
+@contextlib.contextmanager
+def nccl_group():
+    """A 1-rank ``nccl`` group on a FileStore in a temporary directory (no
+    network), destroyed on exit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{tmp}/store", 1), rank=0, world_size=1)
+        try:
+            yield dist.group.WORLD
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def permuted_masks(perm, dim):
+    """Every train-mode ``Dropout`` of a one-process step draws its mask
+    as the port's does, then takes it in the order ``perm`` along ``dim``
+    (0: the batch's clouds, 1: one cloud's points), so a step on inputs
+    permuted by ``perm`` along that axis drops each cloud's (point's)
+    entries as the step on the inputs in their own order does."""
+    from deltaconv_tpu_torch.nn import dropout
+
+    forward = dropout.Dropout.forward
+
+    def permuted(self, x, generator=None, full_shape=None, offset=0):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
+        keep = keep.index_select(dim, perm)
+        return torch.where(keep, x / keep_prob, 0.0)
+
+    dropout.Dropout.forward = permuted
+    try:
+        yield
+    finally:
+        dropout.Dropout.forward = forward
+
+
+def state_bits(model) -> dict:
+    """The model's ``state_dict`` on the host."""
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def bits_equal_states(a: dict, b: dict) -> str:
+    """'' when two ``state_bits`` hold the same bits, else the first key
+    that differs."""
+    for key, value in a.items():
+        if not raw_equal(value, b[key]):
+            return key
+    return ""
+
+
+def _kind(key):
+    return "stat" if ".running_" in key else "param"
+
+
+def update_dist(got: dict, want: dict, start: dict) -> dict:
+    """``||got - want|| / ||want - start||`` over the parameters and over
+    the running statistics (``{"param": .., "stat": ..}``)."""
+    num, den = {"param": 0.0, "stat": 0.0}, {"param": 0.0, "stat": 0.0}
+    for key, w in want.items():
+        if not w.is_floating_point():
+            continue
+        num[_kind(key)] += float(((got[key] - w).double() ** 2).sum())
+        den[_kind(key)] += float(((w - start[key]).double() ** 2).sum())
+    return {k: (num[k] / max(den[k], 1e-300)) ** 0.5 for k in num}
+
+
+def largest_tensors(got: dict, want: dict, start: dict, count=4) -> str:
+    """The parameter tensors that hold most of ``||got - want||^2``: each
+    with its share of it and its own distance over its own move."""
+    rows, total = [], 0.0
+    for key, w in want.items():
+        if not w.is_floating_point() or _kind(key) == "stat":
+            continue
+        d = float(((got[key] - w).double() ** 2).sum())
+        m = float(((w - start[key]).double() ** 2).sum())
+        total += d
+        rows.append((d, key, (d / max(m, 1e-300)) ** 0.5))
+    rows.sort(reverse=True)
+    return "; ".join(f"{key} {d / max(total, 1e-300):.1%} of it ({own:.3e} "
+                     f"of its move)" for d, key, own in rows[:count])
+
+
+def jax_bounds_beyond(got: dict, want: dict) -> str:
+    """How ``got`` stands to JAX's data-parallel bounds (atol 1e-5 + rtol
+    1e-4) of ``want``: the entries beyond them and the worst excess."""
+    worst, where, beyond, total = -np.inf, "", 0, 0
+    for key, w in want.items():
+        if not w.is_floating_point():
+            continue
+        excess = ((got[key].float() - w.float()).abs()
+                  - (DP_ATOL + DP_RTOL * w.float().abs()))
+        beyond += int((excess > 0).sum())
+        total += excess.numel()
+        if float(excess.max()) > worst:
+            worst, where = float(excess.max()), key
+    return (f"{beyond} of {total} entries beyond JAX's data-parallel bounds, "
+            f"worst excess {worst:.3e} ({where})")
+
+
+def held_update(label, got: dict, want: dict, start: dict, controls):
+    """``got`` (a 2-rank run's state bits) against ``want`` (one
+    process's from the same ``start``): the parameters' and the running
+    statistics' distance (:func:`update_dist`) within UPDATE_REL, or
+    CONTROL_FACTOR times the largest of ``controls``' (the one-process
+    run with its sums in another order) where that is larger, and within
+    UPDATE_CAP; then the tensors that hold most of the distance and the
+    entries beyond JAX's data-parallel bounds (a reading)."""
+    dist = update_dist(got, want, start)
+    for kind in ("param", "stat"):
+        ctrl = max(update_dist(c, want, start)[kind] for c in controls)
+        bound = min(UPDATE_CAP, max(UPDATE_REL, CONTROL_FACTOR * ctrl))
+        check(f"{label}: {kind}s", dist[kind] <= bound,
+              f"{dist[kind]:.3e} of the one-process move <= {bound:.3e} "
+              f"(the {len(controls)} one-process runs in another order: up "
+              f"to {ctrl:.3e})")
+    print(f"  {label}: most of the distance in "
+          f"{largest_tensors(got, want, start)}", flush=True)
+    print(f"  {label}: {jax_bounds_beyond(got, want)}", flush=True)
+
+
+def held_loss(label, got: float, want: float, controls, rtol):
+    """A 2-rank run's loss against one process's: within ``rtol``, or
+    CONTROL_FACTOR times the controls' largest distance where that is
+    larger."""
+    spread = max(abs(c - want) for c in controls)
+    bound = max(rtol * abs(want), CONTROL_FACTOR * spread)
+    check(label, abs(got - want) <= bound,
+          f"{got} vs {want}, |diff| {abs(got - want):.3e} <= {bound:.3e} "
+          f"(rtol {rtol:g}, or twice the {len(controls)} one-process runs "
+          f"in another order: up to {spread:.3e})")
+
+
+def held_rel(label, got: dict, want: dict):
+    """Parameters within 1e-3 and running statistics within 1e-4 x each
+    tensor's max of ``want`` (tests/test_torch_train.py's bounds)."""
+    worst = {"param": (0.0, ""), "stat": (0.0, "")}
+    for key, w in want.items():
+        if not w.is_floating_point():
+            continue
+        rel = float((got[key] - w).abs().max()) / max(float(w.abs().max()),
+                                                      1e-30)
+        worst[_kind(key)] = max(worst[_kind(key)], (rel, key))
+    for kind, tol in (("param", SHARD_PARAM_REL), ("stat", SHARD_STATS_REL)):
+        rel, key = worst[kind]
+        check(f"{label}: {kind}s", rel <= tol,
+              f"worst {rel:.3e} x max ({key}) <= {tol}")
+
+
+def launches_a_step(run) -> dict:
+    """The launch counts of one call of ``run`` (the mean of RANK_REPS
+    calls, counted from 0)."""
+    from deltaconv_tpu_torch import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(RANK_REPS):
+        run()
+    torch.cuda.synchronize()
+    return {k: v / RANK_REPS for k, v in launch_counts().items() if v}
+
+
+def dp_model(seed, dev, config):
+    """The reference ModelNet40 classifier (dropout 0.5) of
+    ``[dp-step]``, seeded weights; ``config``: ``DP_CONFIGS``'."""
+    return random_model(seed, dev, affine=False, **config)
+
+
+def dp_step(model, group):
+    """``(state, step)``: the reference recipe's SGD (lr 0.1, momentum
+    0.9, weight decay 1e-4, smoothing 0.2), data-parallel over ``group``
+    through ``shard_train_step`` (None: one process)."""
+    from deltaconv_tpu_torch.parallel import shard_train_step
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_train_step, sgd_momentum)
+
+    state = create_train_state(model, sgd_momentum(TRAIN_LR, 0.9, 1e-4),
+                               device=next(model.parameters()).device)
+    return state, shard_train_step(make_train_step(model, smoothing=0.2,
+                                                   group=group))
+
+
+def step_times(step, state, batch, gen):
+    """``(device ms, host ms)`` of one step: the profiler's device time
+    over RANK_REPS steps, and the median host clock of RANK_REPS
+    synchronised steps."""
+    return (device_ms(lambda: step(state, batch, gen), RANK_REPS),
+            host_ms(lambda: step(state, batch, gen), RANK_REPS))
+
+
+def rank_dp_case(group, case, dev):
+    """A spawned rank's ``[dp-step]`` case: one step of the global batch's
+    rows it holds (compared), its launches a step (counted from 0 over
+    RANK_REPS steps), then its timed steps."""
+    model = dp_model(case["seed"], dev, case["config"])
+    state, step = dp_step(model, group)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in case["batch"].items()}
+    gen = torch.Generator(device=dev).manual_seed(case["seed"])
+    loss = float(step(state, batch, gen)["loss"])
+    bits = state_bits(model)
+    counts = launches_a_step(lambda: step(state, batch, gen))
+    return loss, bits, step_times(step, state, batch, gen), counts
+
+
+def shard_seg_model(seed, dev):
+    """The ShapeNet recipe in coefficient form, f32, exact kNN, dropout
+    0.5 (the recipe's)."""
+    return random_seg_model(seed, dev, "exact", dense_operators=False)
+
+
+def shard_seg_case(seed, dev, group, case, perm=None, timed=True):
+    """``(loss, state bits, host ms, launches a step)``: one point-sharded
+    segmentation step (:func:`shard_seg_model`, lr SEG_LR) of this rank's
+    rows of ``case``'s cloud (``group=None``: the whole cloud in one
+    process; ``perm``: its points in that order, the dropout masks
+    permuted with them), then (``timed``) its launches a step and host
+    ms (else None for both)."""
+    from deltaconv_tpu_torch.parallel import (pad_cloud,
+                                              point_sharded_train_step,
+                                              shard_rows)
+    from deltaconv_tpu_torch.training import create_train_state, sgd_momentum
+
+    model = shard_seg_model(seed, dev)
+    state = create_train_state(model, sgd_momentum(SEG_LR), device=dev)
+    step = point_sharded_train_step(model, group, per_point=True)
+    order = slice(None) if perm is None else perm
+    pos, nrm, mask = pad_cloud(
+        torch.from_numpy(case["pos"][order]).to(dev), RANKS,
+        torch.from_numpy(case["normal"][order]).to(dev))
+    rows = [shard_rows(t, group) for t in (
+        pos, nrm, torch.from_numpy(case["label"][order]).to(dev), mask)]
+    cat = torch.zeros(16, device=dev)
+    cat[case["category"]] = 1.0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def once():
+        return step(state, rows[0], rows[1], rows[2], gen,
+                    point_mask=rows[3], category=cat)
+
+    masks = (contextlib.nullcontext() if perm is None else permuted_masks(
+        torch.from_numpy(perm).to(dev), 1))
+    with masks:
+        loss = float(once()["loss"])
+    bits = state_bits(model)
+    if not timed:
+        return loss, bits, None, None
+    return loss, bits, host_ms(once, RANK_REPS), launches_a_step(once)
+
+
+def rank_fit_case(group, case, dev):
+    """A spawned rank's ``[fit-dp]``: ``train_modelnet.main`` for
+    FIT_EPOCHS epochs, then 1 epoch and ``--resume`` to FIT_EPOCHS, each
+    under the group; the checkpoint writes this rank made."""
+    from deltaconv_tpu_torch.experiments import train_modelnet
+    from deltaconv_tpu_torch.training import loop
+
+    writes = []
+    save = loop.save_checkpoint
+
+    def counted(ckpt_dir, state, step=None):
+        writes.append(step)
+        return save(ckpt_dir, state, step)
+
+    loop.save_checkpoint = counted
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            full, _ = train_modelnet.main(
+                case["argv"] + ["--epochs", str(FIT_EPOCHS), "--logdir",
+                                case["logs"] + "/full"])
+            train_modelnet.main(case["argv"] + [
+                "--epochs", "1", "--logdir", case["logs"] + "/part"])
+            runs = sorted(Path(case["logs"], "part", "runs").glob("*/*"))
+            resumed, _ = train_modelnet.main(
+                case["argv"] + ["--epochs", str(FIT_EPOCHS), "--logdir",
+                                case["logs"] + "/part", "--resume",
+                                str(runs[-1])])
+    finally:
+        loop.save_checkpoint = save
+    return {"full": state_bits(full.model),
+            "resumed": state_bits(resumed.model), "writes": writes,
+            "step": full.step}
+
+
+def ranks_job(group, job):
+    """The spawned ranks' job: every case of ``[dp-step]`` (b),
+    ``[shard-train]``'s segmentation and ``[fit-dp]`` on the parent's
+    card (``job["device"]``)."""
+    dev = torch.device(job["device"])
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, case in job["cases"].items():
+        if name.startswith("dp-"):
+            out[name] = rank_dp_case(group, case, dev)
+        elif name == "shard-seg":
+            out[name] = shard_seg_case(case["seed"], dev, group, case)
+        else:
+            out[name] = rank_fit_case(group, case, dev)
+    return out
+
+
+def dp_step_nccl(seed, dev, card, batch, config, tag):
+    """``[dp-step]`` (a): ``shard_train_step`` on a 1-rank ``nccl`` group
+    against ``make_train_step``, 2 steps from the same weights with the
+    same generator: losses and every parameter and statistic bit-equal.
+    A group of one rank is None in the port, so this runs the one-process
+    step twice: it shows the step deterministic and the 1-rank group
+    accepted, and no NCCL collective runs (one card holds one NCCL
+    rank). Returns ``{"loss", "bits", "times", "start", "controls"}``:
+    the one-process step's loss and state bits after one step, its
+    (device ms, host ms) a step, the weights it started from, and the
+    losses and bits of CONTROLS one-process steps on the batch's clouds
+    in another order, each dropout mask permuted with them (the
+    controls of :func:`held_update`)."""
+    controls = []
+    for i in range(CONTROLS):
+        perm = torch.from_numpy(np.random.default_rng([seed, 29, i])
+                                .permutation(B)).to(dev)
+        model = dp_model(seed, dev, config)
+        start = state_bits(model)
+        state, step = dp_step(model, None)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with permuted_masks(perm, 0):
+            loss = float(step(state, {k: v[perm] for k, v in batch.items()},
+                              gen)["loss"])
+        controls.append((loss, state_bits(model)))
+        del model, state, step
+    out = {}
+    for label, grouped in (("one process", False), ("nccl", True)):
+        model = dp_model(seed, dev, config)
+        ctx = nccl_group() if grouped else contextlib.nullcontext()
+        with ctx as group:
+            state, step = dp_step(model, group)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            losses = [float(step(state, batch, gen)["loss"])]
+            first = state_bits(model)
+            losses.append(float(step(state, batch, gen)["loss"]))
+            out[label] = losses, state_bits(model)
+            if not grouped:
+                one = {"loss": losses[0], "bits": first, "start": start,
+                       "controls": controls,
+                       "times": step_times(step, state, batch, gen)}
+    (la, sa), (lb, sb) = out["one process"], out["nccl"]
+    check(f"[dp-step] {tag}: shard_train_step on a 1-rank nccl group vs "
+          f"make_train_step, 2 steps (the one-process step twice)",
+          la == lb and bits_equal_states(sa, sb) == "", f"losses {la} vs "
+          f"{lb}; first differing tensor: {bits_equal_states(sa, sb) or 'none'}")
+    return one
+
+
+def shard_train_nccl(seed, dev, card, cloud, normal, label):
+    """``[shard-train]`` on a 1-rank ``nccl`` group at the bench config
+    (ONE 65,536-point cloud, reference width, coefficient operators,
+    bf16, approximate kNN, SGD 0.01, dropout 0.5): two calls from the
+    same state bit-equal; the f32 form held to the unsharded f32 step
+    on the same one-cloud batch and the same graph (the sharded build's
+    operators, with their gather plan, passed as ``operators``); the
+    launches, device ms, host ms, points/s and peak memory of a bf16
+    step on one rank (the group of one rank is None: the sharded
+    operators and their gathers' backward run, no collective). Returns
+    its launch counts a step."""
+    import dataclasses
+
+    from deltaconv_tpu_torch import KERNEL_OPS
+    from deltaconv_tpu_torch.parallel import (point_sharded_operators,
+                                              point_sharded_train_step)
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              sgd_momentum,
+                                              smooth_cross_entropy)
+
+    pos = torch.from_numpy(cloud).to(dev)
+    nrm = torch.from_numpy(normal).to(dev)
+    lab = torch.tensor(label, device=dev)
+
+    def sharded(precision, group):
+        model = shard_model(seed, dev, precision, "approx")
+        state = create_train_state(model, sgd_momentum(SHARD_TRAIN_LR),
+                                   device=dev)
+        step = point_sharded_train_step(model, group)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return model, state, lambda: step(state, pos, nrm, lab, gen)
+
+    with nccl_group() as group:
+        runs = []
+        for _ in range(2):
+            model, _, once = sharded("bfloat16", group)
+            runs.append((float(once()["loss"]), state_bits(model)))
+        (la, sa), (lb, sb) = runs
+        check("[shard-train] bf16: two calls from the same state",
+              la == lb and bits_equal_states(sa, sb) == "",
+              f"losses {la} vs {lb}; first differing tensor: "
+              f"{bits_equal_states(sa, sb) or 'none'}")
+        model, state, once = sharded("bfloat16", group)
+        once()
+        counts = launches_a_step(once)
+        torch.cuda.reset_peak_memory_stats()
+        host = host_ms(once, RANK_REPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dev_ms = device_ms(once, RANK_REPS)
+        print(f"[shard-train] bf16, one cloud of N={SHARD_N} on one rank: "
+              f"launches per point-sharded step: {counts}; device "
+              f"{dev_ms:.3f} ms, host {host:.3f} ms a step, "
+              f"{SHARD_N / host * 1e3:.0f} points/s, peak {peak:.3f} GiB; "
+              f"card: {card}", flush=True)
+        for name in ("knn_topk_bucketed_q", "gather_rows",
+                     "inverse_adjacency", "scatter_rows", "wls"):
+            check(f"[shard-train] {name} launched", counts.get(name, 0) > 0,
+                  f"{counts.get(name, 0)} a step")
+        del model, state, once
+        torch.cuda.empty_cache()
+
+        model, _, once = sharded(None, group)
+        loss_s = float(once()["loss"])
+        got = state_bits(model)
+    del model
+    # The unsharded f32 step on the same graph and operators.
+    model = shard_model(seed, dev, None, "approx")
+    state = create_train_state(model, sgd_momentum(SHARD_TRAIN_LR),
+                               device=dev)
+    with torch.no_grad():
+        gd = point_sharded_operators(pos, K, nrm, knn_method="approx")
+        gd = dataclasses.replace(gd, plan=KERNEL_OPS.coef_plan(
+            pos[None], gd.nbr_idx, None))
+    model.train()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = model(pos[None], nrm[None], generator=gen, operators=gd)
+    loss_u = smooth_cross_entropy(logits, lab.reshape(1), 0.2)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss_u.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    loss_u = float(loss_u.detach())
+    check("[shard-train] f32 sharded vs unsharded step: loss",
+          abs(loss_s - loss_u) <= DP_LOSS_RTOL * abs(loss_u),
+          f"{loss_s} vs {loss_u}")
+    held_rel("[shard-train] f32 sharded vs unsharded step", got,
+             state_bits(model))
+    return counts
+
+
+class _Reordered:
+    """A dataset whose clouds' points come in another order (a fixed
+    permutation of each cloud, from ``seed`` and its index)."""
+
+    def __init__(self, dataset, seed):
+        self.dataset, self.seed = dataset, seed
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        c = self.dataset[i]
+        perm = np.random.default_rng([*self.seed, i]).permutation(len(c.pos))
+        return dataclasses.replace(c, pos=c.pos[perm], normal=c.normal[perm])
+
+
+@contextlib.contextmanager
+def reordered_points(cli, seed):
+    """``cli.build_datasets`` giving :class:`_Reordered` datasets."""
+    build = cli.build_datasets
+    cli.build_datasets = lambda args: tuple(
+        _Reordered(d, seed) for d in build(args))
+    try:
+        yield
+    finally:
+        cli.build_datasets = build
+
+
+def ranks_phases(seed, dev, card):
+    """``[dp-step]``, ``[shard-train]`` and ``[fit-dp]``: training across
+    ranks, on a 1-rank ``nccl`` group and on RANKS processes sharing the
+    card over ``gloo`` (``parallel.launch.run_ranks``, one spawn for every
+    multi-process case). Returns the launch counts a step of each gloo
+    rank's data-parallel steps (f32, bf16) and point-sharded segmentation
+    step, and of the one-rank point-sharded bf16 step, by tag."""
+    import tempfile
+
+    from deltaconv_tpu_torch.experiments import train_modelnet
+    from deltaconv_tpu_torch.experiments.common import finish_args
+    from deltaconv_tpu_torch.parallel.launch import run_ranks
+
+    rng = np.random.default_rng([seed, 28])
+    cpu = train_batch(rng, "cpu", [N] * B)
+    batch = {k: v.to(dev) for k, v in cpu.items()}
+    job, ones, counts = {}, {}, {}
+    for tag, config in DP_CONFIGS.items():
+        ones[tag] = dp_step_nccl(seed, dev, card, batch, config, tag)
+        job[f"dp-{tag}"] = dict(seed=seed, config=config, batch={
+            k: v.numpy() for k, v in cpu.items()})
+
+    (cloud,), (normal,) = ellipsoid_clouds(rng, [SHARD_N])
+    counts["shard-train"] = shard_train_nccl(
+        seed, dev, card, cloud, normal, int(rng.integers(0, NUM_CLASSES)))
+    (seg_cloud,), (seg_normal,) = ellipsoid_clouds(rng, [SHARD_SEG_N])
+    job["shard-seg"] = dict(
+        seed=seed, pos=seg_cloud, normal=seg_normal,
+        label=rng.integers(0, SEG_CLASSES, SHARD_SEG_N),
+        category=int(rng.integers(0, 16)))
+
+    tmp = tempfile.mkdtemp(prefix="fit-dp-")
+    try:
+        root = Path(tmp) / "data"
+        argv = ["--data_root", str(root), "--seed", str(seed + 1)]
+        args = train_modelnet.build_parser().parse_args(
+            argv + ["--no_data_parallel"])
+        write_modelnet(root, np.random.default_rng([seed, 28, 1]), args)
+        t0 = time.perf_counter()
+        train_modelnet.build_datasets(finish_args(args, "modelnet40",
+                                                  "ModelNet40"))
+        built = time.perf_counter() - t0
+        job["fit"] = dict(argv=argv, logs=f"{tmp}/ranks")
+        t0 = time.perf_counter()
+        ranks = run_ranks(ranks_job, RANKS, {"device": str(dev),
+                                             "cases": job},
+                          timeout=RANKS_TIMEOUT, threads=0)
+        spawn_s = time.perf_counter() - t0
+        one_argv = argv + ["--epochs", str(FIT_EPOCHS), "--no_data_parallel"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            one_fit, _ = train_modelnet.main(one_argv + ["--logdir",
+                                                         f"{tmp}/one"])
+            one_fit = state_bits(one_fit.model)
+            fit_controls = []
+            for i in range(CONTROLS):
+                with reordered_points(train_modelnet, [seed, 31, i]):
+                    ctrl, _ = train_modelnet.main(
+                        one_argv + ["--logdir", f"{tmp}/control{i}"])
+                fit_controls.append(state_bits(ctrl.model))
+        fit_start = state_bits(train_modelnet.build_model(args).to(dev))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[ranks] {RANKS} gloo ranks on one card ran every multi-process "
+          f"case in {spawn_s:.1f} s (host clock, spawn included; the "
+          f"ModelNet fixture's datasets built before in {built:.1f} s)",
+          flush=True)
+
+    for tag in DP_CONFIGS:
+        name = f"dp-{tag}"
+        (l0, s0, t0_, c0), (l1, s1, t1_, _) = ranks[0][name], ranks[1][name]
+        check(f"[dp-step] {tag}: the {RANKS} ranks bit-equal",
+              l0 == l1 and bits_equal_states(s0, s1) == "",
+              f"losses {l0} vs {l1}; first differing tensor: "
+              f"{bits_equal_states(s0, s1) or 'none'}")
+        one = ones[tag]
+        loss1, times1 = one["loss"], one["times"]
+        held_loss(f"[dp-step] {tag}: {RANKS} gloo ranks vs one process: loss",
+                  l0, loss1, [c[0] for c in one["controls"]],
+                  DP_BF16_LOSS_RTOL if tag == "bf16" else DP_LOSS_RTOL)
+        held_update(f"[dp-step] {tag}: {RANKS} gloo ranks vs one process",
+                    s0, one["bits"], one["start"],
+                    [c[1] for c in one["controls"]])
+        counts[name] = c0
+        print(f"[dp-step] {tag}: B={B} ({B // RANKS} clouds a rank), N={N}, "
+              f"K={K}: launches per data-parallel step on rank 0 of "
+              f"{RANKS} gloo ranks: {c0}; device ms / host ms a step, rank 0 "
+              f"{t0_[0]:.3f} / {t0_[1]:.3f}, rank 1 {t1_[0]:.3f} / "
+              f"{t1_[1]:.3f} ({RANKS} gloo processes sharing the card) "
+              f"against one process {times1[0]:.3f} / {times1[1]:.3f}; "
+              f"card: {card}", flush=True)
+
+    (l0, s0, h0, c0), (l1, s1, h1, _) = (ranks[0]["shard-seg"],
+                                         ranks[1]["shard-seg"])
+    check("[shard-train] segmentation: the ranks bit-equal",
+          l0 == l1 and bits_equal_states(s0, s1) == "",
+          f"losses {l0} vs {l1}")
+    lone, sone, hone, _ = shard_seg_case(seed, dev, None, job["shard-seg"])
+    again = shard_seg_case(seed, dev, None, job["shard-seg"], timed=False)
+    check("[shard-train] segmentation: the one-process step twice",
+          again[0] == lone and bits_equal_states(again[1], sone) == "",
+          f"losses {lone} vs {again[0]}; first differing tensor: "
+          f"{bits_equal_states(again[1], sone) or 'none'}")
+    seg_start = state_bits(shard_seg_model(seed, dev))
+    seg_controls = [shard_seg_case(
+        seed, dev, None, job["shard-seg"], np.random.default_rng(
+            [seed, 30, i]).permutation(SHARD_SEG_N), timed=False)[:2]
+        for i in range(CONTROLS)]
+    held_loss(f"[shard-train] segmentation, {RANKS} gloo ranks vs one "
+              f"process: loss", l0, lone, [c[0] for c in seg_controls],
+              DP_LOSS_RTOL)
+    held_update(f"[shard-train] segmentation, {RANKS} gloo ranks vs one "
+                f"process", s0, sone, seg_start, [c[1] for c in seg_controls])
+    counts["shard-seg"] = c0
+    print(f"[shard-train] ShapeNet recipe, one cloud of N={SHARD_SEG_N} "
+          f"(f32, exact kNN, dropout 0.5): launches per point-sharded step "
+          f"on rank 0 of {RANKS} gloo ranks: {c0}; host ms a step, rank 0 "
+          f"{h0:.3f}, rank 1 {h1:.3f} ({RANKS} gloo processes sharing the "
+          f"card) against {hone:.3f} in one process; card: {card}",
+          flush=True)
+
+    r0, r1 = ranks[0]["fit"], ranks[1]["fit"]
+    held_update(f"[fit-dp] train_modelnet.main, {FIT_EPOCHS} epochs on "
+                f"{RANKS} gloo ranks vs one process", r0["full"], one_fit,
+                fit_start, fit_controls)
+    check("[fit-dp] the ranks bit-equal",
+          bits_equal_states(r0["full"], r1["full"]) == "",
+          bits_equal_states(r0["full"], r1["full"]) or "every tensor")
+    check("[fit-dp] a resume bit-equal to the uninterrupted run",
+          bits_equal_states(r0["full"], r0["resumed"]) == "",
+          bits_equal_states(r0["full"], r0["resumed"]) or "every tensor")
+    check("[fit-dp] rank 0 alone writes checkpoints",
+          len(r0["writes"]) > 0 and r1["writes"] == [],
+          f"rank 0 wrote steps {r0['writes']}, rank 1 {r1['writes']}")
+    return counts
+
+
 def fit_phases(seed, dev, card):
     """The group "training loop and checkpoints": ``[knn-ties]``, then
     ``[fit-scanobjectnn]``, ``[fit-modelnet]``, ``[fit-shrec]``,
@@ -9378,10 +10070,11 @@ def main():
     parser.add_argument("--parent", default=None,
                         help="root of another checkout (the parent commit) "
                         "to time in turns with this tree at the end")
-    parser.add_argument("--phase", choices=("compare", "fit"), default=None,
+    parser.add_argument("--phase", choices=("compare", "fit", "ranks"),
+                        default=None,
                         help="run only these phases (no record): the "
-                        "timed comparisons, or the training loop and "
-                        "checkpoints group")
+                        "timed comparisons, the training loop and "
+                        "checkpoints group, or training across ranks")
     parser.add_argument("--cold-serve", default=None, metavar="JSON",
                         help="(used by [fit-*]) serve a run's checkpoint "
                         "in this fresh process and print its times")
@@ -9399,7 +10092,8 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         ops.library()
-        phases = {"compare": compare_phases, "fit": fit_phases}[args.phase]
+        phases = {"compare": compare_phases, "fit": fit_phases,
+                  "ranks": ranks_phases}[args.phase]
         phases(args.seed, torch.device("cuda", 0), card_line())
         return
 
@@ -9487,6 +10181,8 @@ def main():
     mark("clouds without normals")
     fits = fit_phases(args.seed, dev, card)
     mark("training loop, checkpoints and CLIs")
+    ranks_phases(args.seed, dev, card)
+    mark("training across ranks")
     if args.parent:
         parent_phase(args.parent, args.seed, card)
         mark("parent tree")

@@ -3,7 +3,17 @@ JAX package's ``experiments/common.py``): the reference's argparse
 vocabulary (train_modelnet.py:145-226), the JAX CLIs' extras (operator
 dtype, kNN method, data parallelism) and ``--device``. Datasets and runs
 default to the JAX CLIs' folders, so one dataset on disk serves both
-packages."""
+packages.
+
+Every training CLI trains data-parallel under ``torchrun`` (a rank per
+card; ``--no_data_parallel`` opts out)::
+
+    torchrun --nproc_per_node=<cards> -m \
+        deltaconv_tpu_torch.experiments.train_modelnet
+
+:func:`finish_args` joins the ranks (``parallel.make_mesh``), and
+:func:`make_logger` gives rank 0 the run directory and the others its
+checkpoint directory, with a silent logger."""
 
 from __future__ import annotations
 
@@ -11,6 +21,9 @@ import argparse
 import os
 from pathlib import Path
 
+import torch.distributed as dist
+
+from ..parallel.mesh import is_main_rank, make_mesh
 from ..training import MetricsLogger, make_run_dir
 
 __all__ = ["EXPERIMENTS_DIR", "base_parser", "finish_args", "make_logger"]
@@ -69,8 +82,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="kNN search (approx: the knn_topk kernel's packed "
                         "keys on uniform batches)")
     p.add_argument("--no_data_parallel", action="store_true",
-                   help="Disable data parallelism (the port has none yet: "
-                        "with more than one visible card, pass this)")
+                   help="Disable data parallelism (by default the batch is "
+                        "split over the ranks of torchrun, a rank per card)")
     p.add_argument("--device", type=str, default="cuda",
                    help="Device to train and evaluate on (default: cuda; "
                         "cpu runs the kernels' plain versions)")
@@ -84,6 +97,8 @@ def finish_args(args, experiment_name: str, default_data_subdir: str):
         args.data_root = str(EXPERIMENTS_DIR / "data" / default_data_subdir)
     if not args.logdir:
         args.logdir = str(EXPERIMENTS_DIR)
+    if not args.no_data_parallel:
+        make_mesh(backend="gloo" if args.device == "cpu" else None)
     return args
 
 
@@ -91,9 +106,19 @@ def make_logger(args):
     """``(logger, checkpoint dir)`` of the run: none when evaluating; the
     run being resumed (``--resume``), where metrics.jsonl appends and
     checkpoints land beside the earlier ones; else a new run directory
-    with its ``settings.txt``."""
+    with its ``settings.txt``. Under a group of ranks, rank 0 makes it
+    and the others get its checkpoint directory and a silent logger."""
     if args.evaluating:
         return MetricsLogger(None), None
+    if not (dist.is_available() and dist.is_initialized()):
+        return _make_logger(args)
+    made = _make_logger(args) if is_main_rank() else None
+    ckpt = [None if made is None else made[1]]
+    dist.broadcast_object_list(ckpt, src=0)
+    return made if made is not None else (MetricsLogger(None), ckpt[0])
+
+
+def _make_logger(args):
     if getattr(args, "resume", ""):
         run_dir = args.resume
         cand = os.path.join(run_dir, "checkpoints")

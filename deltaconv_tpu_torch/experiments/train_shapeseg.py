@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import is_main_rank
 from ..transforms import augment as aug
 from .common import base_parser, finish_args, make_logger
 
@@ -179,7 +180,7 @@ def main(argv=None):
                    "test accuracy": test["test accuracy"]}
         if scalars["validation accuracy"] > best["validation accuracy"]:
             best.update(scalars)
-            if ckpt_dir:
+            if ckpt_dir and is_main_rank():
                 # The reference's best.pt: step 0 of the run's checkpoints.
                 training.save_checkpoint(ckpt_dir, s, step=0)
         return scalars

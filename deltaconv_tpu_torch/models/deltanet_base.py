@@ -43,7 +43,8 @@ When neither input requires grad (or grad mode is off), the build keeps
 no autograd graph. Routes whose forward has no VJP raise instead of
 returning a partial gradient: bf16 or int8 operators or compute (the bf16
 applies give the operators no cotangent), the fused eval build (forward
-only), and prebuilt ``operators``.
+only), and prebuilt ``operators`` (which serve and train for the
+parameters).
 """
 
 from __future__ import annotations
@@ -241,10 +242,12 @@ class DeltaNetBase(nn.Module):
                 and pos.shape[1] % 128 == 0)
 
     def forward(self, pos, normal=None, point_mask=None,
-                ops: Ops = KERNEL_OPS, operators=None):
+                ops: Ops = KERNEL_OPS, operators=None, group=None):
         """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``.
         ``operators``: a prebuilt operator object (the point-sharded
-        forward's ``ShardedGradDiv``, eval only) in place of the build."""
+        forward's ``ShardedGradDiv``, eval or train) in place of the
+        build. ``group``: the ranks that hold the other rows of the
+        convs' BatchNorm statistics (train mode; None: this rank's)."""
         if (self.training and self.dense_operators
                 and self.operator_dtype == torch.int8):
             raise NotImplementedError(
@@ -252,10 +255,6 @@ class DeltaNetBase(nn.Module):
                 "the quantization has no gradient): call model.eval()")
         differentiated = _requires_grad(pos, normal)
         if operators is not None:
-            if self.training:
-                raise NotImplementedError(
-                    "prebuilt operators serve only (point-sharded training "
-                    "is not ported yet): call model.eval()")
             if differentiated:
                 raise NotImplementedError(
                     "prebuilt operators carry no gradient for the positions "
@@ -286,7 +285,8 @@ class DeltaNetBase(nn.Module):
         x = pos if self.compute_dtype is None else pos.to(self.compute_dtype)
         v = gd.grad(x)
         out = []
+        across = {} if group is None else {"group": group}
         for conv in self.convs:
-            x, v = conv(x, v, gd, point_mask)
+            x, v = conv(x, v, gd, point_mask, **across)
             out.append(x)
         return out

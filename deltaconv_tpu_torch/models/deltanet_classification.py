@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..nn.dropout import Dropout
+from ..nn.dropout import Dropout, rank_block
 from ..nn.init import torch_linear_init_
 from ..nn.mlp import MLP
 from ..ops import KERNEL_OPS, Ops
@@ -105,20 +105,38 @@ class DeltaNetClassification(nn.Module):
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS,
                 generator: Optional[torch.Generator] = None,
-                operators=None, group=None):
+                operators=None, group=None, batch_group=None):
         """``pos``/``normal`` ``[B, N, 3]``, ``point_mask`` optional
         ``[B, N]`` bool -> logits ``[B, num_classes]``. ``ops`` selects
         the kernels (default) or their plain versions; ``generator``
         (on the batch's device) draws the train-mode dropout masks.
-        ``operators`` and ``group``: the point-sharded forward's operator
-        object and process group (``parallel.point_sharding``); the pools
-        complete across the group's ranks."""
+
+        Two process groups, at most one of them set:
+
+        - ``operators`` and ``group``: the point-sharded forward's
+          operator object and the ranks that hold the cloud's other
+          points (``parallel.point_sharding``): the pools complete
+          across them, and so do the train-mode statistics of every
+          BatchNorm before the pools; the head's BatchNorms see the
+          pooled row, the same on every rank, and stay local (as JAX's
+          ``head0``/``head1``, which get no ``axis_name``), and every
+          rank draws the same dropout masks;
+        - ``batch_group``: the ranks that hold the batch's other clouds
+          (data parallelism): every BatchNorm completes over them, and
+          each rank draws the whole batch's dropout masks and keeps its
+          rows (``nn.dropout.rank_block``), so the ranks drop as one
+          process on the whole batch would.
+        """
+        rows = group if group is not None else batch_group
         conv_out = self.deltanet_base(pos, normal, point_mask, ops,
-                                      operators)
-        x = self.lin_embedding(torch.cat(conv_out, dim=-1), point_mask)
+                                      operators, rows)
+        x = self.lin_embedding(torch.cat(conv_out, dim=-1), point_mask,
+                               rows)
         x = torch.cat([global_max_pool(x, point_mask, group),
                        global_mean_pool(x, point_mask, group)], dim=-1)
         mlp0, drop0, mlp1, drop1, out = self.classification_head
-        x = drop0(mlp0(x), generator)
-        x = drop1(mlp1(x), generator)
+        x = mlp0(x, None, batch_group)
+        x = drop0(x, generator, *rank_block(x, batch_group))
+        x = mlp1(x, None, batch_group)
+        x = drop1(x, generator, *rank_block(x, batch_group))
         return out(x.float())

@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..nn.dropout import Dropout
+from ..nn.dropout import Dropout, rank_block
 from ..nn.init import torch_linear_init_
 from ..nn.mlp import MLP
 from ..ops import KERNEL_OPS, Ops
@@ -117,18 +117,28 @@ class DeltaNetSegmentation(nn.Module):
     def forward(self, pos, normal=None, point_mask=None, category=None,
                 ops: Ops = KERNEL_OPS,
                 generator: Optional[torch.Generator] = None,
-                operators=None, group=None):
+                operators=None, group=None, batch_group=None):
         """``pos``/``normal`` ``[B, N, 3]``, ``point_mask`` optional
         ``[B, N]`` bool, ``category`` ``[B, 16]`` one-hot (required when
         ``categorical_vector``) -> per-point logits ``[B, N,
         num_classes]`` f32. ``ops`` selects the kernels (default) or
         their plain versions; ``generator`` (on the batch's device) draws
-        the train-mode dropout masks; ``operators`` and ``group`` are the
-        point-sharded forward's (the global max pool completes across the
-        group's ranks)."""
+        the train-mode dropout masks.
+
+        Two process groups, at most one of them set: ``operators`` and
+        ``group`` are the point-sharded forward's (the ranks that hold
+        the cloud's other points: the global max pool and the train-mode
+        statistics of every per-point BatchNorm, the head's included,
+        complete across them; ``lin_categorical`` sees the cloud's one
+        category row and stays local, as JAX's, and each rank draws the
+        whole cloud's dropout masks and keeps its points);
+        ``batch_group`` the data-parallel ranks that hold the batch's
+        other clouds (every BatchNorm completes over them, and each rank
+        keeps its clouds' rows of the whole batch's dropout masks)."""
+        rows = group if group is not None else batch_group
         conv_out = self.deltanet_base(pos, normal, point_mask, ops,
-                                      operators)
-        x = self.lin_global(torch.cat(conv_out, dim=-1), point_mask)
+                                      operators, rows)
+        x = self.lin_global(torch.cat(conv_out, dim=-1), point_mask, rows)
         b, n = pos.shape[:2]
         parts = [global_max_pool(x, point_mask, group)[:, None].expand(
             b, n, -1)]
@@ -136,10 +146,13 @@ class DeltaNetSegmentation(nn.Module):
             if category is None:
                 raise ValueError(
                     "categorical_vector=True requires a category one-hot")
-            cat = self.lin_categorical(category)
+            cat = self.lin_categorical(category, None, batch_group)
             parts.append(cat[:, None].expand(b, n, -1))
         x = torch.cat(parts + conv_out, dim=-1)
         mlp0, drop0, mlp1, drop1, lin2, act, out = self.segmentation_head
-        x = drop0(mlp0(x, point_mask), generator)
-        x = drop1(mlp1(x, point_mask), generator)
+        dim = 1 if group is not None else 0  # the axis split over ranks
+        x = mlp0(x, point_mask, rows)
+        x = drop0(x, generator, *rank_block(x, rows, dim))
+        x = mlp1(x, point_mask, rows)
+        x = drop1(x, generator, *rank_block(x, rows, dim))
         return out(act(lin2(x.float())))

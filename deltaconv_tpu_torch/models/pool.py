@@ -1,7 +1,10 @@
 """Masked global pooling over the point axis (counterpart of
 ``deltaconv_tpu/models/pool.py``). ``group``: the process group a
 point-sharded cloud's rows are spread over; the pools then complete
-across its ranks (None: one rank)."""
+across its ranks (None: one rank), differentiably: the max through
+``all_gather`` and a max (its gradient split among tied ranks, as JAX's
+``_cross_shard_max``), the mean through ``psum``
+(``parallel.collectives``)."""
 
 from __future__ import annotations
 

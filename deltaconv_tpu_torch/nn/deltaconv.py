@@ -41,7 +41,16 @@ JAX layers do with ``hasattr``: a point-sharded one
 ``nbr_mlp_max``, so EdgeMaxMLP and PointMaxMLP take the int8 routes
 above, and DeepMaxMLP the unfused one (the edge tensor of the gathered
 rows, or the per-point MLP, then the masked max), which gathers from the
-whole cloud's table and so is right at any world size.
+whole cloud's table and so is right at any world size. Lacking
+``nbr_matmul_max_train`` too, it sends a lane-narrower bf16 PointMaxMLP
+in training down the per-point BatchNorm and ``gd.nbr_max``, as the JAX
+convs do.
+
+In training a ``group`` (a ``torch.distributed`` process group: the
+ranks that hold the batch's other clouds, or the cloud's other points)
+completes every BatchNorm's moments and the centralized conv's edge
+moments over its ranks (``nonlin.batch_moments``); None or a group of
+one rank leaves them local.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from torch import nn
 from ..geometry.operators import I_J, J, norm
 from ..ops.gather_mlp_max import mlp_chain
 from .mlp import MLP, VectorMLP, linear
+from ..parallel.collectives import psum, rank_and_size
 from .nonlin import batch_moments, leaky_relu02
 
 __all__ = ["DeepMaxMLP", "DeltaConv", "EdgeMaxMLP", "PointMaxMLP"]
@@ -121,13 +131,14 @@ def _edge_max(h, gd, dim=2):
     return _masked_rows_to_zero(out, gd, None)
 
 
-def _edge_moments(y, gd, stats_mask, table_dtype=None):
+def _edge_moments(y, gd, stats_mask, table_dtype=None, group=None):
     """Mean and clamped variance of ``y_j - y_i`` over the edges of
     ``stats_mask`` (None: every slot), from neighbour sums ``s1, s2`` of
     ``[y, y^2]`` (``gd.nbr_sum``, the table rounded to ``table_dtype``
     when given) and the valid-slot counts ``cnt``: ``sum_e (y_j - y_i) =
     sum_n s1_n - cnt_n y_n`` and ``sum_e (y_j - y_i)^2 = sum_n s2_n - 2
-    y_n s1_n + cnt_n y_n^2``."""
+    y_n s1_n + cnt_n y_n^2``; both sums and the edge count ``psum`` over
+    ``group``'s ranks (JAX ``EdgeMaxMLP`` with an ``axis_name``)."""
     smask = (torch.ones_like(gd.nbr_mask) if stats_mask is None
              else stats_mask)
     c = y.shape[-1]
@@ -137,23 +148,30 @@ def _edge_moments(y, gd, stats_mask, table_dtype=None):
     s = gd.nbr_sum(table, smask)
     s1, s2 = s[..., :c], s[..., c:]
     cnt = smask.sum(dim=-1, keepdim=True).to(y.dtype)
-    edges = torch.clamp(cnt.sum(), min=1.0)
     lead = tuple(range(y.dim() - 1))
-    mean = (s1 - cnt * y).sum(dim=lead) / edges
-    mean2 = (s2 - 2.0 * y * s1 + cnt * y * y).sum(dim=lead) / edges
+    sum_h = (s1 - cnt * y).sum(dim=lead)
+    sum_h2 = (s2 - 2.0 * y * s1 + cnt * y * y).sum(dim=lead)
+    edges = cnt.sum()
+    if rank_and_size(group)[1] > 1:
+        sums = psum(torch.cat([sum_h, sum_h2, edges[None]]), group)
+        sum_h, sum_h2, edges = sums[:c], sums[c:2 * c], sums[2 * c]
+    edges = torch.clamp(edges, min=1.0)
+    mean = sum_h / edges
+    mean2 = sum_h2 / edges
     return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
-def _commuted_max_train(lin, bn, x, gd, stats_mask, dtype):
+def _commuted_max_train(lin, bn, x, gd, stats_mask, dtype, group=None):
     """The commuted bf16 train max of one Linear + BatchNorm + LeakyReLU
     layer (JAX ``fused_train``): the per-point bf16 product feeds only
     the BatchNorm batch moments (the variance left unclamped, as the JAX
     branch computes it); the max runs on ``gd.nbr_matmul_max_train``
     with the weight's columns flipped by ``sign(inv)``, and the epilogue
     ``LeakyReLU((sign * max - mean) * inv + bias)`` in f32, cast to
-    ``dtype``."""
+    ``dtype``. The moments complete over ``group`` (count-weighted, as
+    every BatchNorm of the port)."""
     y = linear(lin, x, dtype).float()
-    mean, var = batch_moments(y, stats_mask, clamp=False)
+    mean, var = batch_moments(y, stats_mask, clamp=False, group=group)
     bn.update_running(mean, var)
     inv = bn.inv(var)
     sign = torch.where(inv >= 0, 1.0, -1.0)
@@ -188,9 +206,10 @@ class EdgeMaxMLP(MLP):
     def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__([in_channels, out_channels], dtype)
 
-    def forward(self, x, gd, stats_mask=None):
+    def forward(self, x, gd, stats_mask=None, group=None):
         """``stats_mask``: the ``[B, N, K]`` edges of the statistics
-        (None: every slot, as the reference's mask-free BatchNorm)."""
+        (None: every slot, as the reference's mask-free BatchNorm);
+        ``group``: the ranks they complete over."""
         lin, bn = self[0][0], self[0][1].bn
         y = linear(lin, x, self.dtype).float()
         if self.dtype is not None and not self.training and _fusible(gd):
@@ -200,7 +219,7 @@ class EdgeMaxMLP(MLP):
             yp = (y * affine[0]).to(self.dtype)
             return gd.nbr_max_affine(yp, affine, sub_self=True)
         if self.training:
-            mean, var = _edge_moments(y, gd, stats_mask)
+            mean, var = _edge_moments(y, gd, stats_mask, group=group)
             bn.update_running(mean, var)
         else:
             mean, var = bn.running_mean, bn.running_var
@@ -235,20 +254,22 @@ class PointMaxMLP(MLP):
     BatchNorm + LeakyReLU, cast to bf16, then ``gd.nbr_max``.
 
     The commuted train branch is :func:`_commuted_max_train` (JAX
-    ``fused_train``)."""
+    ``fused_train``), on an operator object that offers
+    ``nbr_matmul_max_train`` (not a point-sharded one)."""
 
     def __init__(self, in_channels: int, out_channels: int, dtype=None):
         super().__init__([in_channels, out_channels], dtype)
 
-    def forward(self, x, gd, stats_mask=None):
+    def forward(self, x, gd, stats_mask=None, group=None):
         lin, bn = self[0][0], self[0][1].bn
         narrower = _pad128(lin.in_features) < _pad128(lin.out_features)
         if self.dtype is None or (
-                (self.training or not _fusible(gd)) and not narrower):
-            return gd.nbr_max(super().forward(x, stats_mask))
+                (self.training or not _fusible(gd)) and not narrower) or (
+                self.training and not hasattr(gd, "nbr_matmul_max_train")):
+            return gd.nbr_max(super().forward(x, stats_mask, group))
         if self.training:
             return _commuted_max_train(lin, bn, x, gd, stats_mask,
-                                       self.dtype)
+                                       self.dtype, group)
         affine = _bn_affine(bn)
         sign = affine[0]
         if narrower:
@@ -309,7 +330,7 @@ class DeepMaxMLP(MLP):
         super().__init__([in_channels, *channels], dtype)
         self.centralized = centralized
 
-    def forward(self, x, gd, stats_mask=None):
+    def forward(self, x, gd, stats_mask=None, group=None):
         if self.dtype is not None:
             x = x.to(self.dtype)
         c_out = self[-1][0].out_features
@@ -320,27 +341,28 @@ class DeepMaxMLP(MLP):
         if self.dtype is not None and self.training and not gd.int8:
             if (_EDGE_FUSED_TRAIN and self.centralized and len(self) == 2
                     and hasattr(gd, "nbr_max_affine")):
-                return self._edge_fused_train(x, gd, stats_mask)
+                return self._edge_fused_train(x, gd, stats_mask, group)
             if (not self.centralized and hasattr(gd, "nbr_matmul_max_train")
                     and _pad128(self[-1][0].in_features) < _pad128(c_out)):
                 h = x
                 for lin, norm in list(self)[:-1]:
                     h = leaky_relu02(norm(linear(lin, h, self.dtype),
-                                          stats_mask)).to(self.dtype)
+                                          stats_mask, group)).to(self.dtype)
                 return _commuted_max_train(self[-1][0], self[-1][1].bn, h,
-                                           gd, stats_mask, self.dtype)
+                                           gd, stats_mask, self.dtype, group)
         if not self.centralized:
-            return gd.nbr_max(super().forward(x, stats_mask))
-        h = super().forward(gd.nbr_gather(x) - x[:, :, None, :], stats_mask)
+            return gd.nbr_max(super().forward(x, stats_mask, group))
+        h = super().forward(gd.nbr_gather(x) - x[:, :, None, :], stats_mask,
+                            group)
         return _edge_max(h, gd)
 
-    def _edge_fused_train(self, x, gd, stats_mask):
+    def _edge_fused_train(self, x, gd, stats_mask, group=None):
         """Branch (a) of the class docstring."""
         (lin0, norm0), (lin1, norm1) = self
         bn0, bn1 = norm0.bn, norm1.bn
         y = linear(lin0, x, self.dtype)
         mean0, var0 = _edge_moments(y.float(), gd, stats_mask,
-                                    torch.bfloat16)
+                                    torch.bfloat16, group)
         bn0.update_running(mean0, var0)
         a0 = bn0.inv(var0)
         b0 = bn0.bias - mean0 * a0
@@ -349,7 +371,8 @@ class DeepMaxMLP(MLP):
                           w1.to(self.dtype).float())[0]
         y1 = gd.nbr_edge_mlp(y, a0, b0, w1, z0).float()  # [B, K, N, C1]
         mean1, var1 = batch_moments(
-            y1, None if stats_mask is None else stats_mask.transpose(1, 2))
+            y1, None if stats_mask is None else stats_mask.transpose(1, 2),
+            group=group)
         bn1.update_running(mean1, var1)
         h1 = leaky_relu02((y1 - mean1) * bn1.inv(var1) + bn1.bias)
         return _edge_max(h1.to(self.dtype), gd, dim=1)
@@ -404,23 +427,26 @@ class DeltaConv(nn.Module):
         self.v_mlp = (VectorMLP([2 * (2 * in_channels + out_channels),
                                  *channels], dtype) if vector else None)
 
-    def forward(self, x, v, gd, point_mask=None):
+    def forward(self, x, v, gd, point_mask=None, group=None):
         """``x [B, N, C]``, ``v [B, N, 2, C]``, ``gd`` the operators
-        (dense, or in coefficient form for large clouds), ``point_mask``
-        optional ``[B, N]`` validity (left out of the BatchNorm
-        statistics). Returns ``(x', v')`` (``v'`` is None on the last
-        layer). On the operators of one cloud (``nbr_idx [N, K]``) every
-        input and output lacks its batch axis, and the layer runs as the
-        batch of one (the same kernels, the same bits)."""
+        (dense, or in coefficient form for large clouds, or a
+        point-sharded ``ShardedGradDiv``), ``point_mask`` optional ``[B,
+        N]`` validity (left out of the BatchNorm statistics), ``group``
+        the ranks the train-mode statistics complete over. Returns
+        ``(x', v')`` (``v'`` is None on the last layer). On the operators
+        of one cloud (``nbr_idx [N, K]``) every input and output lacks
+        its batch axis, and the layer runs as the batch of one (the same
+        kernels, the same bits)."""
         if gd.nbr_idx.dim() == 2:
             x, v = self(x[None], v[None], gd.batched(),
-                        None if point_mask is None else point_mask[None])
+                        None if point_mask is None else point_mask[None],
+                        group)
             return x[0], None if v is None else v[0]
         if self.centralized:  # the edges of valid points
             stats_mask = gd.nbr_mask if point_mask is not None else None
         else:
             stats_mask = point_mask
-        x_max = self.s_mlp_max(x, gd, stats_mask)
+        x_max = self.s_mlp_max(x, gd, stats_mask, group)
 
         # div([v, Jv]) yields div(v) and -curl(v) in ONE apply.
         c = x.shape[-1]
@@ -428,7 +454,7 @@ class DeltaConv(nn.Module):
         div_v = dd[..., :c]
         curl_v = -dd[..., c:]
         x_cat = torch.cat([x, div_v, curl_v, norm(v)], dim=-1)
-        x = x_max + self.s_mlp(x_cat, point_mask)
+        x = x_max + self.s_mlp(x_cat, point_mask, group)
 
         if self.v_mlp is None:
             return x, None
@@ -436,4 +462,4 @@ class DeltaConv(nn.Module):
         gg = gd.grad(torch.cat([div_v, curl_v, x], dim=-1))
         hodge = -(gg[..., :c] + J(gg[..., c:2 * c]))
         v_cat = torch.cat([v, hodge, gg[..., 2 * c:]], dim=-1)
-        return x, self.v_mlp(I_J(v_cat), point_mask)
+        return x, self.v_mlp(I_J(v_cat), point_mask, group)

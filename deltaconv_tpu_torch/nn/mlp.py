@@ -3,8 +3,10 @@
 BatchNorm -> LeakyReLU(0.2); each vector layer is bias-free Linear
 (acting per component, hence equivariant) -> VectorNonLin. A ``mask``
 over the rows leaves padded points out of the train-mode BatchNorm
-statistics. Parameter names follow the upstream release:
-``{j}.0.weight``, ``{j}.1.bn.*`` and ``{j}.1.batchnorm.bn.*``.
+statistics, and a ``group`` completes them over the ranks that hold the
+other rows (``nonlin.batch_moments``). Parameter names follow the
+upstream release: ``{j}.0.weight``, ``{j}.1.bn.*`` and
+``{j}.1.batchnorm.bn.*``.
 
 ``dtype`` (None for f32, or ``torch.bfloat16``) is the compute dtype of
 the JAX package's mixed precision: the Linear layers multiply the input
@@ -50,10 +52,10 @@ class MLP(nn.ModuleList):
             for c_in, c_out in zip(channels[:-1], channels[1:]))
         self.dtype = dtype
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, group=None):
         for lin, norm in self:
-            x = _cast(leaky_relu02(norm(linear(lin, x, self.dtype), mask)),
-                      self.dtype)
+            x = _cast(leaky_relu02(norm(linear(lin, x, self.dtype), mask,
+                                        group)), self.dtype)
         return x
 
 
@@ -69,7 +71,8 @@ class VectorMLP(nn.ModuleList):
             for c_in, c_out in zip(channels[:-1], channels[1:]))
         self.dtype = dtype
 
-    def forward(self, v, mask=None):
+    def forward(self, v, mask=None, group=None):
         for lin, nonlin in self:
-            v = _cast(nonlin(linear(lin, v, self.dtype), mask), self.dtype)
+            v = _cast(nonlin(linear(lin, v, self.dtype), mask, group),
+                      self.dtype)
         return v

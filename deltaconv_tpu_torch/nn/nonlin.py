@@ -15,6 +15,17 @@ package's ``dtype=float32`` BatchNorm under mixed precision), in
 training as in eval, and the gradient reaches the bf16 input through
 the widening cast; the result is f32 and callers cast it back.
 
+Across ranks (``group``: a ``torch.distributed`` process group whose
+ranks hold the other rows of the input, the batch's other clouds under
+data parallelism or the cloud's other points under point sharding) the
+train-mode moments are those of every rank's rows together:
+``psum(masked sum) / psum(count)`` of ``x`` and ``x^2``, one collective
+for both and the count. They equal the moments of the concatenated rows
+whatever each rank's count, so the running statistics come out the same
+on every rank. (The JAX package's flax BatchNorm with an ``axis_name``
+averages each rank's masked MEANS instead, which is the global mean only
+when every rank keeps as many rows.) A group of one rank is None.
+
 Train or eval is the module's ``training`` flag (``model.train()`` /
 ``model.eval()``). Module and buffer names follow the upstream release
 (``.bn.weight``, ``.bn.running_mean``, ...), so its ``state_dict``s load
@@ -27,6 +38,7 @@ import torch
 from torch import nn
 
 from ..geometry.utils import safe_norm
+from ..parallel.collectives import psum, rank_and_size
 
 EPS = 1e-8
 
@@ -39,15 +51,28 @@ def leaky_relu02(x):
     return torch.where(x >= 0, x, 0.2 * x)
 
 
-def batch_moments(x, mask=None, clamp: bool = True):
+def batch_moments(x, mask=None, clamp: bool = True, group=None):
     """Per-channel ``(mean, var)`` of ``x [..., C]`` over every other
     axis, restricted to the rows where ``mask`` (``x.shape[:-1]``) is
-    true; ``var`` is the fast variance ``E[x^2] - E[x]^2``, clamped at 0
-    as flax's BatchNorm does unless ``clamp`` is False (the commuted
+    true, and completed over ``group``'s ranks (``psum`` of the sums and
+    the count); ``var`` is the fast variance ``E[x^2] - E[x]^2``, clamped
+    at 0 as flax's BatchNorm does unless ``clamp`` is False (the commuted
     bf16 train branch of ``PointMaxMLP``, whose JAX counterpart hands its
     BatchNorm the unclamped one)."""
     lead = tuple(range(x.dim() - 1))
-    if mask is None:
+    if rank_and_size(group)[1] > 1:
+        if mask is None:
+            xm = x
+            count = x.new_full((1,), x.numel() // x.shape[-1])
+        else:
+            m = mask[..., None]
+            xm = torch.where(m, x, 0.0)
+            count = m.sum(dim=lead).to(x.dtype)
+        c = x.shape[-1]
+        sums = psum(torch.cat([xm.sum(dim=lead), (xm * xm).sum(dim=lead),
+                               count]), group)
+        mean, mean2 = sums[:c] / sums[2 * c:], sums[c:2 * c] / sums[2 * c:]
+    elif mask is None:
         mean = x.mean(dim=lead)
         mean2 = (x * x).mean(dim=lead)
     else:
@@ -89,14 +114,14 @@ class BatchNorm(nn.Module):
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, group=None):
         """``mask``: optional validity over ``x.shape[:-1]``; masked rows
-        are left out of the batch statistics (train mode only). Returns
-        f32."""
+        are left out of the batch statistics (train mode only), which
+        complete over ``group``'s ranks. Returns f32."""
         x = x.float()
         if not self.training:
             return (x - self.running_mean) * self.inv() + self.bias
-        mean, var = batch_moments(x, mask)
+        mean, var = batch_moments(x, mask, group=group)
         self.update_running(mean, var)
         return (x - mean) * self.inv(var) + self.bias
 
@@ -114,8 +139,8 @@ class BatchNormSlot(nn.Module):
         super().__init__()
         self.bn = BatchNorm(num_features)
 
-    def forward(self, x, mask=None):
-        return self.bn(x, mask)
+    def forward(self, x, mask=None, group=None):
+        return self.bn(x, mask, group)
 
 
 class VectorNonLin(nn.Module):
@@ -132,11 +157,12 @@ class VectorNonLin(nn.Module):
         super().__init__()
         self.batchnorm = BatchNormSlot(num_features)
 
-    def forward(self, v, mask=None):
+    def forward(self, v, mask=None, group=None):
         """``mask``: optional validity over ``v.shape[:-2]``, left out of
-        the norms' batch statistics."""
+        the norms' batch statistics, which complete over ``group``."""
         n = safe_norm(v.float(), dim=-2)  # [..., C]
-        scale = torch.relu(self.batchnorm(n, mask)) / torch.clamp(n, min=EPS)
+        scale = torch.relu(self.batchnorm(n, mask, group)) / torch.clamp(
+            n, min=EPS)
         return v * scale[..., None, :].to(v.dtype)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):

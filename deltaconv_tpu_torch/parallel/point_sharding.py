@@ -19,8 +19,17 @@ The N points of one cloud are spread over the ranks of a
 
 With ``group=None`` (one rank) nothing is communicated: ``bench.py
 --mode=point-shard`` serves a 65,536-point cloud this way on one card.
-The forwards serve only (eval): point-sharded training is not ported
-yet, and a model in train mode is refused.
+
+Training (:func:`point_sharded_train_step`, JAX's of the same name):
+the forward runs in train mode on this rank's rows, every BatchNorm
+before the pools (and the segmentation head's) completes its moments
+over the group, the centralized conv's edge moments too; the loss is
+replicated on every rank, the backward runs through the differentiable
+collectives (``parallel.collectives``) and the gathers' backward
+(``ops.gather_rows``: destination-major sums, no float atomics), and the
+parameter gradients are averaged over the group before the optimizer
+steps, so the parameters and the running statistics stay the same on
+every rank.
 """
 
 from __future__ import annotations
@@ -32,12 +41,14 @@ from ..geometry.frames import build_tangent_basis, estimate_basis
 from ..geometry.grad_div import GradDiv
 from ..ops import KERNEL_OPS, Ops
 from ..ops.wls_fused import build_grad_div_tables
-from .collectives import all_gather, pmax, psum, rank_and_size
+from .collectives import (all_gather, pmax, pmean_gradients, psum,
+                          rank_and_size)
 
 __all__ = ["ShardedGradDiv", "pad_cloud", "point_sharded_classification",
            "point_sharded_div", "point_sharded_grad",
            "point_sharded_laplacian", "point_sharded_operators",
-           "point_sharded_segmentation", "shard_rows"]
+           "point_sharded_segmentation", "point_sharded_train_step",
+           "shard_rows"]
 
 _NEG = -3.0e38
 _BIG = 2e30
@@ -85,17 +96,51 @@ def _local_knn(pos_local, pos_full, k, offset, point_mask_full=None,
               point_mask=point_mask_full, quantized=quantized)
 
 
+class _HiLoContract(torch.autograd.Function):
+    """``sum_k a[n, j, k] g[n, k, c]`` of the bf16 hi/lo halves of the
+    f32 ``a`` and bf16 ``g``, f32 sums (:meth:`ShardedGradDiv._contract`);
+    the backward gives ``g`` the product of ``(hi + lo)^T`` and the f32
+    cotangent, in f32, rounded to bf16 once (the coefficients, built
+    without a graph, take none)."""
+
+    @staticmethod
+    def forward(ctx, a, g):
+        hi = a.to(torch.bfloat16)
+        lo = (a - hi.float()).to(torch.bfloat16)
+        ctx.save_for_backward(hi, lo)
+        out = _bmm_f32(torch.cat([hi, lo], dim=1), g)
+        j = a.shape[1]
+        return out[:, :j] + out[:, j:]
+
+    @staticmethod
+    def backward(ctx, ct):
+        hi, lo = ctx.saved_tensors
+        a = (hi.float() + lo.float()).transpose(1, 2)
+        return None, torch.bmm(a, ct.float()).to(torch.bfloat16)
+
+
 class ShardedGradDiv:
     """The operator object of this rank's rows (``local``: a batch of one
     :class:`GradDiv` whose ``nbr_idx`` are GLOBAL rows): every neighbour
     gather first all-gathers the feature table over ``group``. It offers
-    what the eval conv stack asks of an operator object: ``grad``,
-    ``div``, ``nbr_max``, ``nbr_matmul_max`` (no epilogue) and
-    ``nbr_gather``; and the min/max hooks ``nbr_minmax`` and
-    ``nbr_matmul_minmax`` (plain torch, as JAX's sharded forms). Lacking ``nbr_max_affine`` and ``nbr_mlp_max``, it
-    sends the convs down their unfused routes, as the JAX convs route a
+    what the conv stack asks of an operator object: ``grad``, ``div``,
+    ``nbr_max``, ``nbr_sum`` (the train-mode edge moments),
+    ``nbr_matmul_max`` (no epilogue) and ``nbr_gather``; and the min/max
+    hooks ``nbr_minmax`` and ``nbr_matmul_minmax`` (plain torch, as JAX's
+    sharded forms). Lacking ``nbr_max_affine``, ``nbr_mlp_max`` and
+    ``nbr_matmul_max_train``, it sends the convs down their unfused
+    routes in eval and in training, as the JAX convs route a
     ``ShardedGradDiv``; and the depth-2 max gathers the whole table's
     rows, so it is right at any world size.
+
+    Differentiated in the features (training), the gathered table's rows
+    come through ``ops.gather_rows``, whose backward sums each table
+    row's edges destination-major with no float atomics
+    (``inverse_adjacency`` + ``scatter_rows``, over the whole table), a
+    bf16 cotangent in f32 rounded once; then the all-gather's backward
+    (a reduce-scatter) returns each rank its rows' sums. The maxes and
+    mins over gathered rows stay ``amax``/``amin``, whose gradient splits
+    among tied winners, as ``jnp.max``'s in JAX's sharded forms.
 
     Contractions as JAX's (``_coef_contract``): f32 features against the
     f32 coefficients in full f32; bf16 features against a hi/lo bf16
@@ -122,8 +167,17 @@ class ShardedGradDiv:
 
     def _rows(self, table):
         """Rows ``table[nbr_idx]`` of a FULL table: ``[1, N, ...] -> [1,
-        n_l, K, ...]``."""
-        return table[0][self.nbr_idx[0].long()][None]
+        n_l, K, ...]``; through ``ops.gather_rows`` (in f32, cast back)
+        when the table is differentiated."""
+        if not (table.requires_grad and torch.is_grad_enabled()):
+            return table[0][self.nbr_idx[0].long()][None]
+        b, n_t = table.shape[:2]
+        flat = table.reshape(b, n_t, -1)
+        rows = self.local.ops.gather_rows(flat.float().contiguous(),
+                                          self.nbr_idx)
+        n, k = self.nbr_idx.shape[1:]
+        rows = rows.permute(0, 3, 2, 1).to(table.dtype)  # [1, n, K, C']
+        return rows.reshape(b, n, k, *table.shape[2:])
 
     @staticmethod
     def _contract(coef, g):
@@ -136,6 +190,8 @@ class ShardedGradDiv:
         a = coef[0].transpose(1, 2)  # [n, J, K]
         if g.dtype != torch.bfloat16:
             return torch.bmm(a, g[0])[None]
+        if g.requires_grad and torch.is_grad_enabled():
+            return _HiLoContract.apply(a, g[0])[None]
         hi = a.to(torch.bfloat16)
         lo = (a - hi.float()).to(torch.bfloat16)
         out = _bmm_f32(torch.cat([hi, lo], dim=1), g[0])
@@ -201,6 +257,14 @@ class ShardedGradDiv:
         JAX's sharded form (the unsharded hook always works in bf16)."""
         g = self._gathered(self._matmul_full(x, w))
         return self._max_of(g), self._min_of(g)
+
+    def nbr_sum(self, h, mask=None):
+        """``sum_k mask[n, k] h[nbr[n, k]]`` in f32 (JAX's sharded
+        ``nbr_sum``): ``[1, n_l, C] -> [1, n_l, C]``; ``mask`` defaults to
+        the graph's."""
+        mask = self.nbr_mask if mask is None else mask
+        g = self._rows(self._full(h)).float()
+        return (g * mask[..., None].float()).sum(dim=-2)
 
     def nbr_gather(self, h):
         """Per-neighbour rows ``[1, n_l, C] -> [1, n_l, K, C]``."""
@@ -306,15 +370,14 @@ def point_sharded_laplacian(pos, x, k: int, normal=None, group=None,
 
 
 def _forward(model, pos, normal, point_mask, group, ops, **kwargs):
-    """The eval forward of a DeltaNet model on this rank's rows."""
-    if model.training:
-        raise NotImplementedError(
-            "point-sharded training (point_sharded_train_step) is not "
-            "ported yet; call model.eval()")
+    """The forward of a DeltaNet model on this rank's rows, in the
+    model's mode (eval, or train: the operators built without a graph,
+    the parameters differentiated)."""
     base = model.deltanet_base
-    gd = _build_local(pos, normal, point_mask, base.num_neighbors, group,
-                      base.grad_kernel_width, base.grad_regularizer,
-                      base.knn_method, ops)
+    with torch.no_grad():
+        gd = _build_local(pos, normal, point_mask, base.num_neighbors, group,
+                          base.grad_kernel_width, base.grad_regularizer,
+                          base.knn_method, ops)
     pm = None if point_mask is None else point_mask[None]
     nrm = None if normal is None else normal[None]
     return model(pos[None], nrm, pm, ops=ops,
@@ -338,3 +401,73 @@ def point_sharded_segmentation(model, pos, normal=None, point_mask=None,
     ``category``: the ``[16]`` one-hot."""
     kwargs = {} if category is None else {"category": category[None]}
     return _forward(model, pos, normal, point_mask, group, ops, **kwargs)
+
+
+def point_sharded_train_step(model, group=None, smoothing: float = 0.2,
+                             per_point: bool = False,
+                             ops: Ops = KERNEL_OPS):
+    """Returns ``step(state, pos, normal, label, generator,
+    point_mask=None, category=None) -> metrics`` (JAX's
+    ``point_sharded_train_step``): one train step of a DeltaNet model
+    (``state.model``) on ONE cloud whose rows are spread over ``group``.
+
+    Each rank passes its rows: ``pos``, ``normal`` (or None) ``[n_l,
+    3]``, ``point_mask`` ``[n_l]``; ``label`` the cloud's class (a 0-d
+    int tensor), or with ``per_point`` this rank's ``[n_l]`` point
+    labels; ``category`` the ``[16]`` one-hot. Every rank passes a
+    generator in the same state: the classification head's dropout
+    masks after the pools are then the same on every rank, and the
+    segmentation head's are the whole cloud's, each rank keeping its
+    points, so a step on D ranks equals the step on one, dropout
+    included. (JAX's per-point sharded dropout folds the axis index into
+    its key and cannot equal its own single-device step.)
+
+    The loss is replicated on every rank: the classification loss of the
+    pooled logits, or ``psum(sum nll m) / psum(sum m)`` per point. The
+    backward runs through the differentiable collectives, which
+    transpose as JAX's do, so each rank's gradient is the group's size
+    times its share; the mean of the gradients over the ranks
+    (:func:`pmean_gradients`) is the single-device gradient, and the
+    optimizer steps with it on every rank. Every BatchNorm's moments are
+    count-weighted across ranks (``nn.nonlin.batch_moments``), which
+    holds on a padded cloud too, whose padding ``pad_cloud`` puts on the
+    last rank. Returns ``{"loss", "accuracy"}`` (0-d, the same on every
+    rank); updates ``state`` in place."""
+    from ..training.losses import smooth_cross_entropy, smooth_nll
+    from ..training.steps import _strict_f32
+
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(state, pos, normal, label, generator, point_mask=None,
+             category=None):
+        _strict_f32()
+        model.train()
+        kwargs = {} if category is None else {"category": category[None]}
+        logits = _forward(model, pos, normal, point_mask, group, ops,
+                          generator=generator, **kwargs)
+        if per_point:
+            nll = smooth_nll(logits, label, smoothing)
+            m = (torch.ones_like(nll) if point_mask is None
+                 else point_mask.to(nll.dtype))
+            sums = psum(torch.stack([(nll * m).sum(), m.sum()]), group)
+            loss = sums[0] / torch.clamp(sums[1], min=1.0)
+        else:
+            loss = smooth_cross_entropy(logits[None], label.reshape(1),
+                                        smoothing)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        pmean_gradients(params, group)
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        with torch.no_grad():
+            correct = (logits.argmax(dim=-1) == label).float()
+            if per_point:
+                sums = psum(torch.stack([(correct * m).sum(), m.sum()]),
+                            group)
+                accuracy = sums[0] / torch.clamp(sums[1], min=1.0)
+            else:
+                accuracy = correct.reshape(())
+        return {"loss": loss.detach(), "accuracy": accuracy}
+
+    return step

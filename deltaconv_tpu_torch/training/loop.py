@@ -11,6 +11,16 @@ masks) is one ``torch.Generator`` on the model's device seeded from
 ``(seed, epoch)`` alone, and :meth:`BatchLoader.set_epoch` makes the
 shuffle order a function of ``(seed, epoch)`` too, so a run resumed from
 a checkpoint follows the uninterrupted run bit for bit.
+
+Data parallelism (``FitConfig.data_parallel``, the default, under an
+initialised ``torch.distributed`` group of more than one rank, one rank
+per card, e.g. ``torchrun --nproc_per_node=<cards>``): every rank
+iterates the same loader, augments the GLOBAL batch from the epoch's
+generator and keeps its block of it (``parallel.shard_train_step``); the
+step completes the statistics, loss and gradients over the ranks
+(``make_train_step(..., group=)``), so the ranks hold the same
+parameters. Rank 0 alone logs and writes checkpoints; every rank
+restores. Evaluation runs unsharded on every rank, as JAX's.
 """
 
 from __future__ import annotations
@@ -20,8 +30,10 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import KERNEL_OPS, Ops
+from ..parallel.mesh import is_main_rank, shard_train_step
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .logging import MetricsLogger
 from .metrics import accuracy, balanced_accuracy, shape_iou
@@ -71,14 +83,22 @@ def _host_mean(window) -> float:
     return float(np.mean(torch.stack(window).cpu().numpy()))
 
 
-def _check_data_parallel(config: FitConfig, device: torch.device):
-    if (config.data_parallel and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
+def _data_group(config: FitConfig, device: torch.device):
+    """The group the batch is split over: the default group when
+    ``data_parallel`` and it holds more than one rank, else None. One
+    process that sees several cards drives one of them, so it raises
+    rather than leave the others idle."""
+    if not config.data_parallel:
+        return None
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD if dist.get_world_size() > 1 else None
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             f"data_parallel=True with {torch.cuda.device_count()} visible "
-            "cards: the port has no data parallelism yet (ROADMAP queue 1 "
-            "item [11]); pass data_parallel=False (--no_data_parallel) or "
-            "make one card visible")
+            "cards in one process: start a rank per card (torchrun "
+            "--nproc_per_node=<cards>), or pass data_parallel=False "
+            "(--no_data_parallel) or make one card visible")
+    return None
 
 
 def fit(model, state: TrainState, train_loader, test_loader,
@@ -96,9 +116,9 @@ def fit(model, state: TrainState, train_loader, test_loader,
         device the loop runs on.
       train_loader / test_loader: BatchLoader-compatible iterables of
         numpy batches.
-      config: loop hyperparameters. ``data_parallel`` changes nothing on
-        one visible card and raises with more (the port has no data
-        parallelism yet).
+      config: loop hyperparameters. ``data_parallel``: split each batch
+        over the ranks of the initialised default group (module
+        docstring); one process that sees several cards raises.
       logger: MetricsLogger (or None for silent).
       checkpoint_dir: where periodic and final checkpoints go.
       augment: optional ``(generator, batch) -> batch`` on the batch's
@@ -113,9 +133,10 @@ def fit(model, state: TrainState, train_loader, test_loader,
         is trained again). A no-op when no checkpoint exists yet.
       ops: the kernels (default) or their plain versions.
     """
-    logger = logger or MetricsLogger(None)
     device = _device(model)
-    _check_data_parallel(config, device)
+    group = _data_group(config, device)
+    main = is_main_rank(group)
+    logger = logger if (logger is not None and main) else MetricsLogger(None)
     start_epoch = 1
     if resume and checkpoint_dir:
         last = latest_step(checkpoint_dir)
@@ -123,7 +144,9 @@ def fit(model, state: TrainState, train_loader, test_loader,
             restore_checkpoint(checkpoint_dir, state, step=last)
             start_epoch = last + 1
     train_step = make_train_step(model, smoothing=config.smoothing,
-                                 per_point=per_point, ops=ops)
+                                 per_point=per_point, ops=ops, group=group)
+    if group is not None:
+        train_step = shard_train_step(train_step)
 
     if eval_fn is None:
         if per_point:
@@ -161,11 +184,13 @@ def fit(model, state: TrainState, train_loader, test_loader,
         for tag, value in scalars.items():
             logger.add_scalar(tag, value, epoch)
 
-        if checkpoint_dir and epoch % config.checkpoint_every == 0:
+        if checkpoint_dir and main and epoch % config.checkpoint_every == 0:
             save_checkpoint(checkpoint_dir, state, step=epoch)
 
-    if checkpoint_dir:
+    if checkpoint_dir and main:
         save_checkpoint(checkpoint_dir, state, step=config.epochs)
+    if group is not None:  # every rank returns with the checkpoint written
+        dist.barrier(group)
     return state
 
 

@@ -369,14 +369,16 @@ def test_fit_resume_matches_uninterrupted(tmp_path, narrow):
 
 
 def test_data_parallel_with_several_cards_raises(monkeypatch):
+    """One process that sees several cards and has no group of ranks
+    raises (a rank per card: torchrun); without data parallelism, or
+    with one card, the loop runs on one device (no group)."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match=r"\[11\]"):
-        loop_mod._check_data_parallel(FitConfig(),
-                                      torch.device("cuda", 0))
-    loop_mod._check_data_parallel(FitConfig(data_parallel=False),
-                                  torch.device("cuda", 0))
+    with pytest.raises(NotImplementedError, match="torchrun"):
+        loop_mod._data_group(FitConfig(), torch.device("cuda", 0))
+    assert loop_mod._data_group(FitConfig(data_parallel=False),
+                                torch.device("cuda", 0)) is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    loop_mod._check_data_parallel(FitConfig(), torch.device("cuda", 0))
+    assert loop_mod._data_group(FitConfig(), torch.device("cuda", 0)) is None
 
 
 # -- evaluations -----------------------------------------------------------------

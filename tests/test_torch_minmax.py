@@ -34,20 +34,16 @@ Tolerances, and why:
   reference within 2e-5, the bound of tests/training/test_point_sharding.py.
 """
 
-import time
-from datetime import timedelta
-
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from deltaconv_tpu_torch import KERNEL_OPS, PLAIN_OPS, ops
 from deltaconv_tpu_torch.models import build_operators
 from deltaconv_tpu_torch.parallel import (ShardedGradDiv, pad_cloud,
                                           point_sharded_operators, shard_rows)
 from deltaconv_tpu_torch.parallel import point_sharding as ps
+from deltaconv_tpu_torch.parallel.launch import run_ranks
 
 torch.set_num_threads(1)
 
@@ -540,22 +536,6 @@ def test_hooks_route_through_the_ops_bundle():
 # -- the sharded forms on two gloo ranks --------------------------------------
 
 
-def _rank_main(rank, world, store, job, out):
-    """A spawned rank: joins the group, runs the sharded hooks on its
-    rows, gathers the results (rank 0 saves them)."""
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world,
-                            timeout=timedelta(seconds=60))
-    try:
-        job = torch.load(job, weights_only=False)
-        results = _sharded_hooks(job, dist.group.WORLD)
-        if rank == 0:
-            torch.save(results, out)
-    finally:
-        dist.destroy_process_group()
-
-
 def _sharded_hooks(job, group):
     """The sharded hooks of this rank's rows, gathered whole: for each
     dtype ``nbr_minmax(h)`` and ``nbr_matmul_minmax(x, w)``."""
@@ -577,27 +557,17 @@ def _sharded_hooks(job, group):
     return out
 
 
-def _spawn(tmp_path, job, world=2):
-    """Runs the sharded hooks on ``world`` gloo ranks; rank 0's results."""
-    job_path, out = tmp_path / "job.pt", tmp_path / "out.pt"
-    torch.save(job, job_path)
-    ctx = mp.start_processes(
-        _rank_main, args=(world, str(tmp_path / "store"), str(job_path),
-                          str(out)),
-        nprocs=world, join=False, start_method="spawn")
-    try:
-        deadline = time.monotonic() + SPAWN_TIMEOUT
-        while not ctx.join(timeout=5):
-            assert time.monotonic() < deadline, "the ranks did not finish"
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
-            p.join(timeout=10)
-    return torch.load(out, weights_only=False)
+def _spawn(job, world=2):
+    """Runs the sharded hooks on ``world`` gloo ranks
+    (``parallel.launch``); rank 0's results."""
+    return run_ranks(_run_hooks, world, job, timeout=SPAWN_TIMEOUT)[0]
 
 
-def test_sharded_hooks_two_ranks(tmp_path):
+def _run_hooks(group, job):
+    return _sharded_hooks(job, group)
+
+
+def test_sharded_hooks_two_ranks():
     """``ShardedGradDiv.nbr_minmax`` and ``nbr_matmul_minmax`` on 2 gloo
     ranks (a cloud of 256 points, k=8), held against the 1-process hooks
     on the same cloud's operators (``build_operators``, coefficient form)
@@ -614,7 +584,7 @@ def test_sharded_hooks_two_ranks(tmp_path):
                h=rng.standard_normal((n, 12)).astype(np.float32),
                x=rng.random((n, 4)).astype(np.float32),
                w=rng.random((4, 6)).astype(np.float32))
-    got = _spawn(tmp_path, job)
+    got = _spawn(job)
     assert got["rank_size"] == (0, 2)
     gd = build_operators(_t(pos)[None], k, _t(nrm)[None],
                          dense_operators=False)

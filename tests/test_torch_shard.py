@@ -6,8 +6,9 @@ JAX side runs its Pallas kernels in interpret mode with the small tiles
 of its own tests (``tile_q=32``, ``tile_c=128``); its sharded forwards
 run on a sub-mesh of the virtual CPU devices, ``Mesh(jax.devices()[:D])``.
 The port runs the same cloud in ``D`` processes: 2 ``gloo`` ranks spawned
-from the test (a ``FileStore`` in ``tmp_path``, a 60 s
-``init_process_group`` timeout, a bounded join), or in-process at D=1.
+from the test by ``parallel.launch.run_ranks`` (a ``FileStore`` in a
+temporary folder, a 60 s ``init_process_group`` timeout, a bounded
+join), or in-process at D=1.
 This module imports JAX inside its test functions, so the spawned ranks,
 which import it again, load only torch.
 
@@ -28,14 +29,11 @@ Tolerances, and why:
   lane-narrower PointMaxMLP), as JAX does for a ``ShardedGradDiv``.
 """
 
-import time
-from datetime import timedelta
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from deltaconv_tpu_torch import (DeltaNetClassification, DeltaNetSegmentation,
                                  InferenceEngine, state_dict_from_flax)
@@ -44,6 +42,7 @@ from deltaconv_tpu_torch.ops import knn_bucketed as kb
 from deltaconv_tpu_torch.parallel import (pad_cloud, point_sharded_laplacian,
                                           point_sharded_operators, shard_rows)
 from deltaconv_tpu_torch.parallel import point_sharding as ps
+from deltaconv_tpu_torch.parallel.launch import run_ranks
 
 torch.set_num_threads(1)
 
@@ -423,25 +422,6 @@ def test_predict_sharded_refuses_int8():
 # -- two gloo ranks -------------------------------------------------------------
 
 
-def _rank_main(rank, world, store, job, out):
-    """A spawned rank: joins the group, runs ``job``'s cases on its rows,
-    saves what it got (rank 0)."""
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world,
-                            timeout=timedelta(seconds=60))
-    try:
-        job = torch.load(job, weights_only=False)
-        group = dist.group.WORLD
-        results = {}
-        for name, case in job.items():
-            results[name] = _run_case(case, group)
-        if rank == 0:
-            torch.save(results, out)
-    finally:
-        dist.destroy_process_group()
-
-
 def _run_case(case, group):
     pos = _t(case["pos"])
     nrm = None if case["normal"] is None else _t(case["normal"])
@@ -465,27 +445,18 @@ def _run_case(case, group):
                                   case.get("category"), group)
 
 
-def _spawn(tmp_path, job, world=2):
-    """Runs ``job`` on ``world`` gloo ranks; returns rank 0's results."""
-    job_path, out = tmp_path / "job.pt", tmp_path / "out.pt"
-    torch.save(job, job_path)
-    ctx = mp.start_processes(
-        _rank_main, args=(world, str(tmp_path / "store"), str(job_path),
-                          str(out)),
-        nprocs=world, join=False, start_method="spawn")
-    try:
-        deadline = time.monotonic() + SPAWN_TIMEOUT
-        while not ctx.join(timeout=5):
-            assert time.monotonic() < deadline, "the ranks did not finish"
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
-            p.join(timeout=10)
-    return torch.load(out, weights_only=False)
+def _run_job(group, job):
+    """A spawned rank: ``job``'s cases on its rows."""
+    return {name: _run_case(case, group) for name, case in job.items()}
 
 
-def test_two_ranks_build_and_laplacian(tmp_path):
+def _spawn(job, world=2):
+    """Runs ``job`` on ``world`` gloo ranks (``parallel.launch``); returns
+    rank 0's results."""
+    return run_ranks(_run_job, world, job, timeout=SPAWN_TIMEOUT)[0]
+
+
+def test_two_ranks_build_and_laplacian():
     """The table-form build on 2 ranks (a cloud of 301 points, padded to
     302 with a point mask) against JAX's ``point_sharded_operators`` on a
     2-device mesh: the global neighbour ids and masks equal, the
@@ -502,7 +473,7 @@ def test_two_ranks_build_and_laplacian(tmp_path):
         mesh, p, k, normal=nn, point_mask=m))(p, nn, m)
     jlap = np.asarray(jax.jit(lambda p, x, nn: jps.point_sharded_laplacian(
         mesh, p, x, k, normal=nn))(pos[:n - 1], x, nrm[:n - 1]))
-    got = _spawn(tmp_path, {"ops": dict(kind="operators", pos=pos,
+    got = _spawn({"ops": dict(kind="operators", pos=pos,
                                         normal=nrm, k=k, x=x)})["ops"]
     idx, mask, grad, div, lap = got
     np.testing.assert_array_equal(idx, np.asarray(jgd.nbr_idx))
@@ -512,7 +483,7 @@ def test_two_ranks_build_and_laplacian(tmp_path):
     _within(lap, jlap, F32_REL, "laplacian")
 
 
-def test_two_ranks_forwards(tmp_path, monkeypatch):
+def test_two_ranks_forwards(monkeypatch):
     """``predict_sharded`` of both models, f32 and bf16, on 2 ranks
     against JAX's sharded forwards on a 2-device mesh (a cloud of 255
     points, padded to 256): f32 within 1e-4, bf16 within 0.05 x
@@ -541,7 +512,7 @@ def test_two_ranks_forwards(tmp_path, monkeypatch):
                 single = InferenceEngine(port, num_points=n, batch_size=1,
                                          device="cpu").predict_sharded(
                     pos, nrm, cat)
-    got = _spawn(tmp_path, job)
+    got = _spawn(job)
     for name, logits in got.items():
         assert logits.shape == want[name].shape, name
         _within(logits, want[name], F32_REL if "float32" in name
@@ -550,7 +521,7 @@ def test_two_ranks_forwards(tmp_path, monkeypatch):
             "seg-bfloat16, 2 ranks vs 1")
 
 
-def test_two_ranks_forward_without_normals(tmp_path):
+def test_two_ranks_forward_without_normals():
     """``predict_sharded`` of a cloud without normals (255 points, padded
     to 256, f32): each rank estimates its rows' frames on a 10-NN graph
     against the whole table. 2 ranks within 1e-4 x max|logit| of 1 rank;
@@ -572,7 +543,7 @@ def test_two_ranks_forward_without_normals(tmp_path):
     _within(single, want, F32_REL, "no normals, 1 rank vs JAX")
     _within(single, engine.predict([pos])[0], F32_REL,
             "no normals, predict_sharded vs predict")
-    got = _spawn(tmp_path, {"cls": dict(
+    got = _spawn({"cls": dict(
         kind="model", seg=False, pos=pos, normal=None,
         state=port.state_dict(), widths=NARROW)})["cls"]
     _within(got, single, F32_REL, "no normals, 2 ranks vs 1")
