@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of deltaconv_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--seed S] [--parent DIR] [--phase fit|ranks]
+    python3 chip_smoke.py [--seed S] [--parent DIR] [--phase fit|ranks|rest]
 
 (``--phase fit`` runs only the group "training loop, checkpoints and
 CLIs", items 36 to 42; ``--phase ranks`` only "training across ranks",
-items 43 to 45.)
+items 43 to 45; ``--phase rest`` only "the rest of the JAX package",
+items 46 to 52.)
 
 Run on a machine with a CUDA card and the CUDA toolkit, from any working
 directory: the script puts its own directory (the root of a checkout)
@@ -552,7 +553,39 @@ first on ``sys.path``. It
     order; exact kNN, so the graphs do not move), the ranks bit-equal,
     rank 0 alone writing checkpoints, 1 epoch then ``--resume`` to 2
     bit-equal to the uninterrupted run;
-46. with ``--parent DIR`` (another checkout's root, e.g. the parent
+46. ``[pos-grad-bf16]``: the production classifier (bf16 compute and
+    operators, approximate kNN, reference width, dropout 0) in train
+    mode at B=32, N=1024, K=20: ``pos`` and ``normal`` require grad, the
+    cross entropy, ``backward()``; launches a backward exact
+    (``coef_cotangent`` 8, ``wls_bwd`` 1, ``densify_bwd`` 0) and every
+    kernel of the path launched; the kernels' gradients bit-equal across
+    two calls; against the plain versions on the same build: the loss
+    within 1e-3, each gradient within 0.2 by its relative Frobenius
+    deviation and its distance to the f32 gradient (the same weights
+    through the kernels) within 1.25x the plain versions'; bf16 and f32
+    forward + backward in host time, device time and peak memory, and
+    the backward's kernels' share (profiler);
+47. ``[pos-grad-bf16-large]``: the same in coefficient form at B=4,
+    N=8192 (the gather plan's kernels once a forward);
+48. ``[features]``: that classifier with ``in_channels=6`` on positions
+    and normals, and with ``centralize_first=False``, f32 and bf16: an
+    eval forward and 3 ``make_train_step`` steps through the kernels,
+    each step also taken from the same weights and optimizer state
+    through the plain versions, held as ``[train]`` and ``[train-bf16]``
+    hold theirs; each variant's launches;
+49. ``[aggr]``: one train-mode ``DeltaConv`` 64 -> 64 at B=32, N=1024,
+    K=20, ``aggr`` "mean" and "sum", centralized and not, f32 and bf16:
+    the forward bit-equal to the plain versions, the parameters' and
+    inputs' gradients within 1e-4 x max (f32) or 1e-2 by relative
+    Frobenius deviation (bf16), launches, the forward's device time;
+50. ``[study]``: the anisotropic-diffusion study at the notebook's
+    settings (20 Perona-Malik steps of a 128 x 128 image, 200 Adam
+    iterations, width 16, 16 layers): each network's final L1;
+51. ``[convergence]``: ``synthetic_convergence`` at its defaults: the
+    training loss falls, the held-out accuracy beats chance;
+52. ``[rehearsal]``: the offline rehearsal (a ModelNet10 ``.pt``
+    evaluated by ``train_modelnet``, ShapeNet's 2-vote evaluation);
+53. with ``--parent DIR`` (another checkout's root, e.g. the parent
     commit unpacked by ``git archive``): ``[coef-applies]`` (one
     forward's eight applies at B=4, N=8192 in device time, with the
     gather plan's build where the package has one), ``[kernel-times]``
@@ -597,6 +630,7 @@ import shutil
 import subprocess
 import sys
 import time
+from copy import deepcopy
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -10025,6 +10059,495 @@ def fit_phases(seed, dev, card):
     return out
 
 
+# The rest of the JAX package (the port's last slice): bf16 gradients for
+# positions and normals, the backbone's features / in_channels /
+# centralize_first, DeltaConv's aggr, and the three experiments.
+REST_TAG = 29  # the group's data: np.random.default_rng([seed, REST_TAG, i])
+# [pos-grad-bf16]: one train-mode backward of the production bf16
+# classifier (approximate kNN) in the positions and normals launches, as
+# the f32 one, coef_cotangent once an apply (4 grads and 4 divs), wls_bwd
+# once and no densify_bwd; the bf16 train maxes' kernels, the edge
+# moments' adjacency (dense) or gather_sum (coefficient form, streaming),
+# and the gather's scatter_rows besides.
+POS_GRAD_BF16_PER_BACKWARD = {"coef_cotangent": 8, "densify_bwd": 0,
+                              "wls_bwd": 1, "wls_bwd_direct": 0}
+POS_GRAD_BF16_KERNELS = {
+    True: ("knn_topk", "gather_rows", "wls", "densify_bf16", "adjacency",
+           "gather_max_win_bf16", "gather_max_bwd_bf16",
+           "gather_matmul_max_win", "scatter_rows", "inverse_adjacency"),
+    False: ("knn_topk", "gather_rows", "wls", *COEF_KERNELS, "gather_sum",
+            "gather_sum_bwd", "gather_max_win_bf16", "gather_max_bwd_bf16",
+            "gather_matmul_max_win", "scatter_rows", "inverse_adjacency")}
+# Kernels vs plain versions on one build, bf16: the forward is the same
+# function but not the same bits (the matmul max's and the applies' f32
+# sums in another order round a few bf16 values the other way), so
+# neighbour-max winners flip at near-ties and move whole cotangents, as
+# in the bf16 train steps: the loss is held at BF16_LOSS_RTOL, each
+# gradient by its relative Frobenius deviation from the plain one, and
+# its distance to the f32 gradient (the same weights through the
+# kernels) at most BF16_F32_RATIO times the plain versions'.
+POS_GRAD_BF16_FROB = 0.2  # measured up to 8.0e-2 on an H100 at 700 W
+# [features]: 3 train steps, kernels vs plain versions.
+FEATURE_STEPS = 3
+# [aggr]: DeltaConv 64 -> 64 at B=32, N=1024, K=20. Kernels vs plain
+# versions on the same operators: the forward is bit-equal (the gather
+# and the counts are exact); the backward's scatter sums in another
+# order, f32 within AGGR_REL x max, bf16 (the sums rounded to bf16, a few
+# values one ulp apart) by the relative Frobenius deviation AGGR_FROB.
+AGGR_C = 64
+AGGR_REL = 1e-4
+AGGR_FROB = 1e-2
+AGGR_KERNELS = {True: ("gather_rows", "scatter_rows", "inverse_adjacency"),
+                False: ("adjacency",)}
+
+
+def pos_grad_bf16_once(batch, seed, dev, ops, precision, **config):
+    """The loss and ``d loss / d pos``, ``d loss / d normal`` of a fresh
+    train-mode classifier (dropout 0, batch statistics) through ``ops``
+    (:func:`pos_grad_once` at ``precision``)."""
+    model = random_model(seed, dev, dropout=0.0, affine=False,
+                         precision=precision, **config).train()
+    p = batch["pos"].clone().requires_grad_()
+    q = batch["normal"].clone().requires_grad_()
+    loss = torch.nn.functional.cross_entropy(
+        model(p, q, batch.get("point_mask"), ops=ops), batch["label"])
+    loss.backward()
+    return float(loss.detach()), p.grad, q.grad
+
+
+def frob(a, b) -> float:
+    """Relative Frobenius deviation of ``a`` from ``b``."""
+    a, b = a.detach().double(), b.detach().double()
+    return float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)),
+                                                 1e-300))
+
+
+def pos_grad_bf16_phase(seed, dev, card, large=False):
+    """``[pos-grad-bf16]``: the production classifier (bf16 compute and
+    operators, approximate kNN, reference width, dropout 0) in train mode
+    at B=32, N=1024, K=20, dense: ``pos`` and ``normal`` require grad, the
+    cross entropy, ``backward()``. ``[pos-grad-bf16-large]`` (``large``):
+    the coefficient form at B=4, N=8192. Held: the launches (per
+    backward, and every kernel of the path), the kernels' gradients
+    bit-equal across two calls, and kernels against the plain versions on
+    the same build (the build's kernels with the plain VJPs of
+    :func:`compare_pos_grads`, and the plain applies, maxes and sum): the
+    loss, each gradient's relative Frobenius deviation and its distance to
+    the f32 gradient (see POS_GRAD_BF16_FROB). Prints forward + backward
+    device and host time and the peak memory, bf16 beside f32 on the same
+    weights and clouds. Both sides run under :func:`deterministic_torch`,
+    as ``[pos-grad]``'s."""
+    from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS, launch_counts,
+                                     reset_launch_counts)
+    from deltaconv_tpu_torch.ops import (densify_coefs_plain,
+                                         gather_rows_plain)
+
+    tag = "pos-grad-bf16-large" if large else "pos-grad-bf16"
+    rng = np.random.default_rng([seed, REST_TAG, int(large)])
+    b, n = (LARGE_B, LARGE_N) if large else (B, N)
+    config = dict(knn_method="approx", dense_operators=not large)
+    per = dict(POS_GRAD_BF16_PER_BACKWARD, **(COEF_PER_FORWARD if large
+                                               else {}))
+    batch = train_batch(rng, dev, [n] * b, n)
+    print(f"[{tag}] {b} uniform clouds of {n} points, "
+          f"{'coefficient form' if large else 'dense bf16 operators'}, "
+          f"train mode", flush=True)
+    reset_launch_counts()
+    with deterministic_torch():
+        lk, gpk, gnk = pos_grad_bf16_once(batch, seed, dev, KERNEL_OPS,
+                                          "bfloat16", **config)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"[{tag}] launches in one forward + backward: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for name, want in per.items():
+        check(f"[{tag}] {name} {want} a backward", counts[name] == want,
+              f"{counts[name]} launches")
+    for name in POS_GRAD_BF16_KERNELS[not large]:
+        check(f"[{tag}] {name} launched", counts[name] > 0,
+              f"{counts[name]} launches")
+    check(f"[{tag}] gradients finite", bool(torch.isfinite(gpk).all())
+          and bool(torch.isfinite(gnk).all()), "pos.grad and normal.grad")
+    with deterministic_torch():
+        lk2, gpk2, gnk2 = pos_grad_bf16_once(batch, seed, dev, KERNEL_OPS,
+                                             "bfloat16", **config)
+    check(f"[{tag}] two calls through the kernels", lk == lk2
+          and torch.equal(gpk, gpk2) and torch.equal(gnk, gnk2),
+          "loss and both gradients bit-equal")
+    same = KERNEL_OPS._replace(
+        gather_rows=gather_rows_plain, wls=_plain_vjp_wls(),
+        densify_coefs=densify_coefs_plain, gather_max=PLAIN_OPS.gather_max,
+        gather_sum=PLAIN_OPS.gather_sum,
+        gather_matmul_max_train=PLAIN_OPS.gather_matmul_max_train,
+        coef_apply_grad=PLAIN_OPS.coef_apply_grad,
+        coef_apply_div=PLAIN_OPS.coef_apply_div,
+        coef_cotangent=PLAIN_OPS.coef_cotangent)
+    with deterministic_torch():
+        lp, gpp, gnp = pos_grad_bf16_once(batch, seed, dev, same, "bfloat16",
+                                          **config)
+        lf, gpf, gnf = pos_grad_bf16_once(batch, seed, dev, KERNEL_OPS, None,
+                                          **config)
+    check(f"[{tag}] loss kernels vs plain", abs(lk - lp) <= BF16_LOSS_RTOL
+          * abs(lp), f"{lk} vs {lp}, rel {abs(lk - lp) / abs(lp):.3e} <= "
+          f"{BF16_LOSS_RTOL} (f32 loss {lf})")
+    for what, gk, gp, gf in (("pos.grad", gpk, gpp, gpf),
+                             ("normal.grad", gnk, gnp, gnf)):
+        dev_kp, far_k, far_p = frob(gk, gp), frob(gk, gf), frob(gp, gf)
+        check(f"[{tag}] {what} kernels vs plain", dev_kp <= POS_GRAD_BF16_FROB,
+              f"relative Frobenius deviation {dev_kp:.3e} <= "
+              f"{POS_GRAD_BF16_FROB}; elementwise {max_err(gk, gp) / max(float(gp.abs().max()), 1e-30):.3e} x max")
+        check(f"[{tag}] {what} distance to the f32 gradient",
+              far_k <= BF16_F32_RATIO * far_p,
+              f"kernels {far_k:.3e}, plain {far_p:.3e}, ratio "
+              f"{far_k / max(far_p, 1e-30):.3f} <= {BF16_F32_RATIO}")
+
+    for precision in (None, "bfloat16"):
+        model = random_model(seed, dev, dropout=0.0, affine=False,
+                             precision=precision, **config).train()
+
+        def step():
+            p = batch["pos"].clone().requires_grad_()
+            q = batch["normal"].clone().requires_grad_()
+            torch.nn.functional.cross_entropy(
+                model(p, q), batch["label"]).backward()
+            model.zero_grad(set_to_none=True)
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(POS_GRAD_CALLS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        t = float(np.median(times)) * 1e3
+        print(f"[{tag}] {precision or 'float32'}: train-mode forward + "
+              f"backward in the positions and normals of {b} clouds (N={n},"
+              f" K={K}, reference width, approximate kNN): median "
+              f"{t:.3f} ms (host clock, synchronised), {device_ms(step):.3f}"
+              f" ms of device time (profiler), peak {peak:.3f} GiB; card: "
+              f"{card}", flush=True)
+    total, ours = profile(tag, "one bf16 train-mode forward + backward", step,
+                          t)
+    # The backward's kernels by the names of their CUDA functions.
+    for name, fn in (("coef_cotangent", "cotangent_"),
+                     ("wls_bwd", "wls_split_bwd_kernel"),
+                     ("scatter_rows", "scatter_rows_kernel"),
+                     ("inverse_adjacency", "inverse_adjacency_kernel")):
+        us = sum(r[0] for r in ours if f"::{fn}" in r[2])
+        print(f"[{tag}] {name}: {us / 1e3:.4f} ms in one bf16 forward + "
+              f"backward ({counts[name]} launches), {us / max(total, 1e-9):.4f}"
+              f" of its device time")
+    return counts
+
+
+def features_phase(seed, dev, card):
+    """``[features]``: the reference classifier (B=32, N=1024, K=20,
+    dropout 0) with ``in_channels=6`` on features = positions | normals,
+    and with ``centralize_first=False`` on the positions, in f32 (exact
+    kNN) and bf16 (bf16 compute and operators, approximate kNN): an eval
+    forward, then FEATURE_STEPS ``make_train_step`` steps through the
+    kernels, each step also taken from the same weights and optimizer
+    state through the plain versions (the build's kernels on both sides;
+    the maxes, sums, gathers and applies plain): the eval logits at
+    LOGIT_ATOL (f32) or BF16_PATH_REL x max|logit| (bf16), each step's
+    loss at LOSS_RTOL (f32) or BF16_LOSS_RTOL (bf16), the parameters
+    after it at PARAM_RTOL x max (f32) or by BF16_PARAM_FROB (bf16), the
+    running statistics at STATS_RTOL or BF16_STATS_RTOL x max. (A bf16
+    trajectory of its own through the plain versions parts from the
+    kernels' by the order of f32 sums, amplified each step at lr 0.1:
+    its loss read 1.7e-3 apart at step 2 on an H100 at 700 W.) Each
+    variant's launches counted from 0 over its kernel route; the first
+    conv's width and centralization checked."""
+    from deltaconv_tpu_torch import (KERNEL_OPS, PLAIN_OPS, launch_counts,
+                                     reset_launch_counts)
+    from deltaconv_tpu_torch.training import (create_train_state,
+                                              make_eval_step,
+                                              make_train_step, sgd_momentum)
+
+    rng = np.random.default_rng([seed, REST_TAG, 2])
+    batch = train_batch(rng, dev, [N] * B, N)
+    feats = torch.cat([batch["pos"], batch["normal"]], dim=-1)
+    plain = KERNEL_OPS._replace(
+        gather_max=PLAIN_OPS.gather_max, gather_sum=PLAIN_OPS.gather_sum,
+        gather_rows=PLAIN_OPS.gather_rows,
+        gather_matmul_max_train=PLAIN_OPS.gather_matmul_max_train,
+        gather_max_affine=PLAIN_OPS.gather_max_affine,
+        gather_matmul_max=PLAIN_OPS.gather_matmul_max)
+    out = {}
+    for variant, arch, data in (
+            ("in_channels=6", dict(in_channels=6), dict(batch, features=feats)),
+            ("centralize_first=False", dict(centralize_first=False), batch)):
+        for precision in (None, "bfloat16"):
+            label = f"[features] {variant}, {precision or 'float32'}"
+            config = dict(arch, precision=precision,
+                          knn_method="approx" if precision else "exact")
+            models = {r: random_model(seed, dev, dropout=0.0, affine=False,
+                                      **config) for r in ("kernels", "plain")}
+            mk, mp = models["kernels"], models["plain"]
+            conv0 = mk.deltanet_base.convs[0]
+            check(f"{label} conv0", conv0.s_mlp[0][0].in_features
+                  == 4 * arch.get("in_channels", 3) and conv0.centralized
+                  == arch.get("centralize_first", True),
+                  f"s_mlp in {conv0.s_mlp[0][0].in_features}, centralized "
+                  f"{conv0.centralized}")
+            reset_launch_counts()
+            lk = make_eval_step(mk)(None, data).float().cpu().numpy()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            lp = make_eval_step(mp, ops=plain)(
+                None, data).float().cpu().numpy()
+            if precision:
+                held_to(f"{label} eval logits kernels vs plain", lk, lp,
+                        BF16_PATH_REL)
+            else:
+                err = float(np.abs(lk - lp).max())
+                check(f"{label} eval logits kernels vs plain",
+                      err <= LOGIT_ATOL, f"max_abs_err {err} <= {LOGIT_ATOL}")
+            sk = create_train_state(mk, sgd_momentum(TRAIN_LR))
+            sp = create_train_state(mp, sgd_momentum(TRAIN_LR))
+            step_k = make_train_step(mk)
+            step_p = make_train_step(mp, ops=plain)
+            losses = []
+            for i in range(FEATURE_STEPS):
+                mp.load_state_dict(mk.state_dict())
+                # A copy: the loaded state would share the momentum
+                # buffers, which the kernels' step then updates in place.
+                sp.optimizer.load_state_dict(deepcopy(
+                    sk.optimizer.state_dict()))
+                reset_launch_counts()
+                a = float(step_k(sk, data, None)["loss"])
+                torch.cuda.synchronize()
+                counts = {k: counts[k] + v for k, v in launch_counts().items()}
+                b_ = float(step_p(sp, data, None)["loss"])
+                losses.append(a)
+                rtol = BF16_LOSS_RTOL if precision else LOSS_RTOL
+                check(f"{label} step {i} loss kernels vs plain",
+                      np.isfinite(a) and abs(a - b_) <= rtol * abs(b_),
+                      f"{a} vs {b_}, rel {abs(a - b_) / abs(b_):.3e} <= "
+                      f"{rtol}")
+                stats_p = dict(mp.named_buffers())
+                worst = max((max_err(s, stats_p[k]) / max(float(
+                    stats_p[k].abs().max()), 1e-30), k)
+                    for k, s in mk.named_buffers())
+                tol = BF16_STATS_RTOL if precision else STATS_RTOL
+                check(f"{label} step {i} stats kernels vs plain",
+                      worst[0] <= tol,
+                      f"worst {worst[0]:.3e} x max ({worst[1]}) <= {tol}")
+                devs = _deviations(mk, mp)["param"]
+                if precision:
+                    check(f"{label} step {i} params kernels vs plain",
+                          devs[0] <= BF16_PARAM_FROB,
+                          f"relative Frobenius deviation over all tensors "
+                          f"{devs[0]:.3e} <= {BF16_PARAM_FROB}")
+                else:
+                    check(f"{label} step {i} params kernels vs plain",
+                          devs[2][0] <= PARAM_RTOL,
+                          f"worst {devs[2][0]:.3e} x max ({devs[2][1]}) <= "
+                          f"{PARAM_RTOL}")
+            out[f"{variant}, {precision}"] = counts
+            print(f"{label}: launches in the eval forward and "
+                  f"{FEATURE_STEPS} steps: "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            path = TRAIN_BF16_KERNELS if precision else TRAIN_KERNELS
+            # The edge moments' counts belong to the centralized conv0.
+            for name in (k for k in path if conv0.centralized
+                         or k != "adjacency"):
+                check(f"{label} {name} launched", counts[name] > 0,
+                      f"{counts[name]} launches")
+            print(f"{label}: losses {[round(x, 5) for x in losses]}; card: "
+                  f"{card}", flush=True)
+    return out
+
+
+def aggr_phase(seed, dev, card):
+    """``[aggr]``: one train-mode ``DeltaConv`` 64 -> 64 at B=32, N=1024,
+    K=20 with ``aggr`` "mean" and "sum", centralized (the edge rows
+    through ``gather_rows``, backward ``scatter_rows``) and not (the
+    neighbour sum: at this size its differentiated route is the
+    ``adjacency`` counts and their products, the streaming
+    ``gather_sum``/``gather_sum_bwd`` above 256 MB of counts), f32 and
+    bf16 (bf16 operators and compute), on the operators of 32 clouds:
+    forward and backward (the parameters' and both inputs' gradients of
+    a random projection of the outputs) through the kernels against the
+    plain versions on the same operators (AGGR_REL, AGGR_FROB); each
+    variant's launches from 0; the forward's device time."""
+    from deltaconv_tpu_torch import (PLAIN_OPS, launch_counts,
+                                     reset_launch_counts)
+    from deltaconv_tpu_torch.models import build_operators
+    from deltaconv_tpu_torch.nn import DeltaConv
+
+    rng = np.random.default_rng([seed, REST_TAG, 3])
+    batch = train_batch(rng, dev, [N] * B, N)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x0 = torch.randn((B, N, AGGR_C), generator=gen, device=dev)
+    v0 = torch.randn((B, N, 2, AGGR_C), generator=gen, device=dev)
+    ct_x = torch.randn((B, N, AGGR_C), generator=gen, device=dev)
+    ct_v = torch.randn((B, N, 2, AGGR_C), generator=gen, device=dev)
+    out = {}
+    for precision in (None, torch.bfloat16):
+        gd = build_operators(batch["pos"], K, batch["normal"],
+                             operator_dtype=precision)
+        routes = {"kernels": gd,
+                  "plain": dataclasses.replace(gd, ops=PLAIN_OPS)}
+        for centralized in (True, False):
+            for aggr in ("mean", "sum"):
+                label = (f"[aggr] {aggr}, {'centralized' if centralized else 'per point'},"
+                         f" {'bf16' if precision else 'f32'}")
+                conv = DeltaConv(AGGR_C, AGGR_C, centralized=centralized,
+                                 aggr=aggr, dtype=precision,
+                                 ).to(dev).train()
+                state = {k: v.clone() for k, v in conv.state_dict().items()}
+                res = {}
+                for route, g in routes.items():
+                    conv.load_state_dict(state)
+                    conv.zero_grad(set_to_none=True)
+                    x = x0.to(precision or torch.float32).clone()
+                    v = v0.to(precision or torch.float32).clone()
+                    x.requires_grad_()
+                    v.requires_grad_()
+                    if route == "kernels":
+                        reset_launch_counts()
+                    xo, vo = conv(x, v, g)
+                    ((xo.float() * ct_x).sum()
+                     + (vo.float() * ct_v).sum()).backward()
+                    if route == "kernels":
+                        torch.cuda.synchronize()
+                        out[label] = launch_counts()
+                    res[route] = [xo, vo, x.grad, v.grad] + [
+                        p.grad.clone() for p in conv.parameters()]
+                counts = out[label]
+                print(f"{label}: launches in one forward + backward: "
+                      f"{ {k: v for k, v in counts.items() if v} }")
+                for name in AGGR_KERNELS[centralized]:
+                    check(f"{label} {name} launched", counts[name] > 0,
+                          f"{counts[name]} launches")
+                k_, p_ = res["kernels"], res["plain"]
+                check(f"{label} forward kernels vs plain",
+                      torch.equal(k_[0], p_[0]) and torch.equal(k_[1], p_[1]),
+                      "x' and v' bit-equal")
+                if precision:
+                    worst = max(frob(a, b_) for a, b_ in zip(k_[2:], p_[2:]))
+                    check(f"{label} gradients kernels vs plain",
+                          worst <= AGGR_FROB,
+                          f"worst relative Frobenius deviation {worst:.3e} "
+                          f"<= {AGGR_FROB}")
+                else:
+                    worst = max(max_err(a, b_) / max(float(b_.abs().max()),
+                                                     1e-30)
+                                for a, b_ in zip(k_[2:], p_[2:]))
+                    check(f"{label} gradients kernels vs plain",
+                          worst <= AGGR_REL,
+                          f"worst {worst:.3e} x max <= {AGGR_REL}")
+                x = x0.to(precision or torch.float32)
+                v = v0.to(precision or torch.float32)
+                with torch.no_grad():
+                    ms = device_ms(lambda: conv(x, v, gd))
+                print(f"{label}: train-mode forward {ms:.4f} ms of device "
+                      f"time; card: {card}", flush=True)
+    return out
+
+
+def study_phase(card):
+    """``[study]``: the anisotropic-diffusion study
+    (``experiments.anisotropic_diffusion.run_study.main``) at the
+    notebook's settings (20 Perona-Malik steps of the 128 x 128 test
+    image, 200 Adam iterations, width 16, 16 layers) on the card: each
+    architecture's final L1 (finite) and the seconds it took."""
+    from deltaconv_tpu_torch.experiments.anisotropic_diffusion import \
+        run_study
+
+    t0 = time.perf_counter()
+    results = run_study.main(["--device", "cuda"])
+    took = time.perf_counter() - t0
+    for name, l1 in results:
+        check(f"[study] {name} final L1 finite", bool(np.isfinite(l1)),
+              f"{l1:.6f}")
+    print(f"[study] final L1: " + ", ".join(
+        f"{name} {l1:.6f}" for name, l1 in results)
+        + f"; {took:.1f} s for the six networks; card: {card}", flush=True)
+
+
+def convergence_phase(card):
+    """``[convergence]``: ``experiments.synthetic_convergence`` at its
+    defaults on the card (the reference classifier on 64 synthetic
+    training clouds of 128 points, 60 epochs unless the held-out accuracy
+    reaches 0.99): the final JSON line, the mean training loss of the
+    last epoch below the first's and the best held-out accuracy above
+    chance (0.25)."""
+    import tempfile
+
+    from deltaconv_tpu_torch.experiments import synthetic_convergence
+
+    with tempfile.TemporaryDirectory() as logdir:
+        args = synthetic_convergence.build_args(["--logdir", logdir])
+        t0 = time.perf_counter()
+        best, hit, _ = synthetic_convergence.run(args)
+        took = time.perf_counter() - t0
+        rows = [json.loads(line) for line in
+                (Path(logdir) / "metrics.jsonl").read_text().splitlines()]
+    loss = [r["value"] for r in rows if r["tag"] == "training loss"]
+    check("[convergence] the training loss falls", loss[-1] < loss[0],
+          f"{loss[0]:.4f} -> {loss[-1]:.4f} over {len(loss)} epochs")
+    check("[convergence] held-out accuracy above chance", best > 0.25,
+          f"best {best:.4f}, target reached at epoch {hit}")
+    print(f"[convergence] {len(loss)} epochs in {took:.1f} s; card: {card}",
+          flush=True)
+
+
+def rehearsal_phase(card):
+    """``[rehearsal]``: ``experiments.offline_rehearsal`` on the card: a
+    ModelNet10 fixture and a release-layout ``.pt`` evaluated by
+    ``train_modelnet.main(["--checkpoint", ...])``, a ShapeNet fixture by
+    ``test_shapenet``'s 2-vote evaluation; exit 0."""
+    from deltaconv_tpu_torch.experiments import offline_rehearsal
+
+    t0 = time.perf_counter()
+    rc = offline_rehearsal.main(["--device", "cuda"])
+    check("[rehearsal] offline rehearsal", rc == 0,
+          f"exit {rc} in {time.perf_counter() - t0:.1f} s; card: {card}")
+
+
+def rest_counts(rest):
+    """``(label, launch counts)`` of every counted run of
+    :func:`rest_phases`: a phase's own, or each variant's of
+    ``[features]`` and ``[aggr]``."""
+    out = []
+    for tag, counts in rest.items():
+        if counts is None:
+            continue
+        if "wls" in counts:
+            out.append((tag, counts))
+        else:
+            out.extend((f"{tag} {label}", c) for label, c in counts.items())
+    return out
+
+
+def rest_phases(seed, dev, card):
+    """The group "the rest of the JAX package": ``[pos-grad-bf16]``,
+    ``[pos-grad-bf16-large]``, ``[features]``, ``[aggr]``, ``[study]``,
+    ``[convergence]``, ``[rehearsal]``; returns each phase's launch counts
+    by its tag (the experiments' are not counted) and prints each
+    phase's seconds."""
+    out, took = {}, []
+    for tag, fn in (
+            ("pos-grad-bf16", lambda: pos_grad_bf16_phase(seed, dev, card)),
+            ("pos-grad-bf16-large",
+             lambda: pos_grad_bf16_phase(seed, dev, card, large=True)),
+            ("features", lambda: features_phase(seed, dev, card)),
+            ("aggr", lambda: aggr_phase(seed, dev, card)),
+            ("study", lambda: study_phase(card)),
+            ("convergence", lambda: convergence_phase(card)),
+            ("rehearsal", lambda: rehearsal_phase(card))):
+        t0 = time.perf_counter()
+        out[tag] = fn()
+        took.append(f"{tag} {time.perf_counter() - t0:.1f}")
+    print("[rest] seconds per phase: " + ", ".join(took), flush=True)
+    return out
+
+
 def compare_phases(seed, dev, card):
     """The phases that time one tree against another in one call: the
     coefficient applies (:func:`coef_apply_table`), the redesigned
@@ -10070,11 +10593,13 @@ def main():
     parser.add_argument("--parent", default=None,
                         help="root of another checkout (the parent commit) "
                         "to time in turns with this tree at the end")
-    parser.add_argument("--phase", choices=("compare", "fit", "ranks"),
+    parser.add_argument("--phase", choices=("compare", "fit", "ranks",
+                                            "rest"),
                         default=None,
                         help="run only these phases (no record): the "
                         "timed comparisons, the training loop and "
-                        "checkpoints group, or training across ranks")
+                        "checkpoints group, training across ranks, or the "
+                        "rest of the JAX package")
     parser.add_argument("--cold-serve", default=None, metavar="JSON",
                         help="(used by [fit-*]) serve a run's checkpoint "
                         "in this fresh process and print its times")
@@ -10093,7 +10618,7 @@ def main():
         torch.backends.cudnn.allow_tf32 = False
         ops.library()
         phases = {"compare": compare_phases, "fit": fit_phases,
-                  "ranks": ranks_phases}[args.phase]
+                  "ranks": ranks_phases, "rest": rest_phases}[args.phase]
         phases(args.seed, torch.device("cuda", 0), card_line())
         return
 
@@ -10183,6 +10708,8 @@ def main():
     mark("training loop, checkpoints and CLIs")
     ranks_phases(args.seed, dev, card)
     mark("training across ranks")
+    rest = rest_phases(args.seed, dev, card)
+    mark("the rest of the JAX package")
     if args.parent:
         parent_phase(args.parent, args.seed, card)
         mark("parent tree")
@@ -10204,7 +10731,8 @@ def main():
             ("serve-no-normals", no_normals),
             ("serve-no-normals-bf16", no_normals_bf16), ("vote", vote),
             ("train-no-normals", train_no_normals),
-            ("shard-no-normals", shard_no_normals), *fits.items()):
+            ("shard-no-normals", shard_no_normals), *fits.items(),
+            *rest_counts(rest)):
         check(f"[{label}] the WLS and fused-build direct routes and the "
               f"sum's route D never",
               counts["wls_direct"] == 0 and counts["wls_bwd_direct"] == 0

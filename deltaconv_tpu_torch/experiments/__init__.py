@@ -10,4 +10,7 @@ Run as modules from the root of a checkout::
     python -m deltaconv_tpu_torch.experiments.test_shapenet \\
         --checkpoint RUN_DIR/checkpoints
     python -m deltaconv_tpu_torch.experiments.train_shapeseg
+    python -m deltaconv_tpu_torch.experiments.synthetic_convergence
+    python -m deltaconv_tpu_torch.experiments.offline_rehearsal
+    python -m deltaconv_tpu_torch.experiments.anisotropic_diffusion.run_study
 """

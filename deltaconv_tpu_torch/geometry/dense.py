@@ -19,11 +19,11 @@ result is ``torch.bmm(..., out_dtype=torch.float32)`` on the card (one
 rounding, as XLA); on the CPU, where that overload does not exist, the
 bf16 operands are widened to f32 first, which is the same arithmetic.
 
-The bf16 applies are differentiable in the features (the operators take
-no gradient), with the JAX VJP's rounding: the cotangent of the f32
-product is the cotangent of the cast, a bf16 value; it is contracted
-with the transposed bf16 operator, f32 accumulation and result, and the
-result is cast to the bf16 input's dtype.
+The bf16 applies are differentiable in the features with the JAX VJP's
+rounding: the cotangent of the f32 product is the cotangent of the
+cast, a bf16 value; it is contracted with the transposed bf16 operator,
+f32 accumulation and result, and the result is cast to the bf16 input's
+dtype.
 
 The int8 serving form (``densify(..., torch.int8)``, eval only) keeps
 one dequantization scale a cloud and operator (``op_scale_grad``,
@@ -38,15 +38,24 @@ in the quantized domain: ``nbr_max`` through ``gather_max_int8``,
 and the dequantization, without the epilogue.
 
 Differentiated in their coefficients (gradients for positions and
-normals, f32 only: the model refuses bf16 and int8 there), the f32
-applies are autograd Functions of their input and the coefficients:
-:func:`densify` builds ``W`` without a graph and keeps the coefficients
-(``grad_coef``, ``div_coef``); the forward is the same ``torch.matmul``
-on ``W``, the input's cotangent ``W^T @ ct`` by ``torch.matmul``, and
-the coefficients' cotangent ``ops.coef_cotangent`` of the input and the
-cotangent, a sampled product that forms only the edges' entries: no
-``[B, 2, N, N]`` cotangent is formed, added or copied. Every apply's
-``[B, N, K, 2]`` cotangent reaches the coefficients through autograd.
+normals; int8 has none), the f32 and bf16 applies are autograd Functions
+of their input and the coefficients: :func:`densify` builds ``W``
+without a graph and keeps the coefficients (``grad_coef``,
+``div_coef``); the forward is the same product on ``W`` (f32:
+``torch.matmul``; bf16: one ``[B, 2N, N]`` product or two ``[B, N,
+N]`` ones, f32 accumulation), the input's cotangent
+``W^T @ ct`` as the non-differentiated applies take it, and the
+coefficients' cotangent ``ops.coef_cotangent`` of the input (bf16
+widened to f32, exactly) and the cotangent, a sampled product that
+forms only the edges' entries: no ``[B, 2, N, N]`` cotangent is formed,
+added or copied. Every apply's ``[B, N, K, 2]`` cotangent reaches the
+coefficients through autograd. On bf16 operators the coefficients the
+applies see are cast to bf16, so each apply's cotangent is rounded to
+bf16 and the applies' are added in bf16 before the cast widens them:
+the JAX package's rounding points (its transpose of the bf16 product
+rounds the operator's cotangent to bf16 in each cell, and its backward
+adds the applies' bf16 cotangents in bf16, before ``_densify_bwd``
+gathers them).
 
 ``scale`` (``[B]`` f32, or None) is the fused eval build's deferred
 per-cloud normalization (its operators are unnormalized): ``grad`` and
@@ -124,28 +133,64 @@ def _bmm_f32(a, b):
     return torch.bmm(a.float(), b.float())
 
 
-class _Bf16Apply(torch.autograd.Function):
-    """``w @ x`` of a bf16 operator and bf16 features with an f32 result;
-    the backward gives ``x`` the product of ``w^T`` and the cotangent
-    rounded to bf16 (exact: it is the cotangent of a cast from bf16),
-    cast to bf16."""
+class _Bf16GradApply(torch.autograd.Function):
+    """``grad`` on bf16 operators: ``x [B, N, C]`` bf16 -> ``[B, N, 2,
+    C]`` f32, one product of the flattened ``[B, 2N, N]`` operator (f32
+    accumulation and result, as XLA's ``preferred_element_type``). The
+    backward gives ``x`` the product of ``W^T`` and the cotangent rounded
+    to bf16 (exact for the cotangent of a cast from bf16), cast to bf16,
+    and, when ``coef`` (the coefficients cast to bf16, see
+    :func:`densify`, or None) is differentiated, ``ops.coef_cotangent``
+    of ``x`` widened to f32 (exact) and the f32 cotangent, rounded to
+    bf16."""
 
     @staticmethod
-    def forward(ctx, w, x):
-        ctx.save_for_backward(w)
-        return _bmm_f32(w, x)
+    def forward(ctx, x, coef, w, idx, ops):
+        x = x.detach()
+        ctx.save_for_backward(x, w, idx)
+        ctx.ops = ops
+        b, n = x.shape[:2]
+        return _bmm_f32(w.flatten(1, 2), x).view(b, 2, n, -1).transpose(1, 2)
 
     @staticmethod
-    def backward(ctx, g):
-        (w,) = ctx.saved_tensors
-        dx = _bmm_f32(w.transpose(1, 2), g.to(w.dtype)).to(w.dtype)
-        return None, dx
+    def backward(ctx, ct):
+        x, w, idx = ctx.saved_tensors
+        dx = dc = None
+        if ctx.needs_input_grad[0]:
+            g = ct.transpose(1, 2).flatten(1, 2).to(w.dtype)  # [B, 2N, C]
+            dx = _bmm_f32(w.flatten(1, 2).transpose(1, 2), g).to(w.dtype)
+        if ctx.needs_input_grad[1]:
+            dc = ctx.ops.coef_cotangent(x.float(), ct.float(), idx).to(
+                w.dtype)
+        return dx, dc, None, None, None
 
 
-def _bf16_product(w, x):
-    """``w [B, M, N] @ x [B, N, C]`` for bf16 ``w``: ``x`` rounded to
-    bf16, f32 accumulation, f32 result; differentiable in ``x``."""
-    return _Bf16Apply.apply(w, x.to(w.dtype))
+class _Bf16DivApply(torch.autograd.Function):
+    """``div`` on bf16 operators: ``v [B, N, 2, C]`` bf16 -> ``[B, N,
+    C]`` f32, the two component products added in f32. The backward gives
+    each component of ``v`` what :class:`_Bf16GradApply` gives ``x``,
+    and a differentiated ``coef`` ``ops.coef_cotangent`` of ``v``
+    widened to f32 and the f32 cotangent, rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, v, coef, w, idx, ops):
+        v = v.detach()
+        ctx.save_for_backward(v, w, idx)
+        ctx.ops = ops
+        return _bmm_f32(w[:, 0], v[:, :, 0]) + _bmm_f32(w[:, 1], v[:, :, 1])
+
+    @staticmethod
+    def backward(ctx, ct):
+        v, w, idx = ctx.saved_tensors
+        dv = dc = None
+        if ctx.needs_input_grad[0]:
+            g = ct.to(w.dtype)
+            dv = torch.stack([_bmm_f32(w[:, d].transpose(1, 2), g)
+                              for d in range(2)], dim=2).to(w.dtype)
+        if ctx.needs_input_grad[1]:
+            dc = ctx.ops.coef_cotangent(v.float(), ct.float(), idx).to(
+                w.dtype)
+        return dv, dc, None, None, None
 
 
 def _int8_products(w, xq):
@@ -179,8 +224,9 @@ class DenseGradDiv(NeighborAggregations):
     op_scale_grad: torch.Tensor = None  # [B] f32 (int8 form) or None
     op_scale_div: torch.Tensor = None  # [B] f32 (int8 form) or None
     scale: torch.Tensor = None  # [B] f32 deferred normalization, or None
-    grad_coef: torch.Tensor = None  # [B, N, K, 2] f32 with a graph, or None
-    div_coef: torch.Tensor = None  # [B, N, K, 2] f32 with a graph, or None
+    # [B, N, K, 2] with a graph (f32; bf16 on bf16 operators), or None
+    grad_coef: torch.Tensor = None
+    div_coef: torch.Tensor = None
 
     def _scaled(self, x):
         """``x * scale`` per cloud, in f32, cast back to ``x``'s dtype."""
@@ -233,15 +279,15 @@ class DenseGradDiv(NeighborAggregations):
             s = self.op_scale_grad * sx
             out = acc.float() * s[:, None, None]
             return out.view(b, 2, n, -1).transpose(1, 2).to(x.dtype)
+        if self.w_grad.dtype == torch.bfloat16:
+            return _Bf16GradApply.apply(
+                x.to(torch.bfloat16), self.grad_coef, self.w_grad,
+                self.nbr_idx, self.ops).to(x.dtype)
         if _differentiated(self.grad_coef):
             return _GradApply.apply(x, self.grad_coef, self.w_grad,
                                     self.nbr_idx, self.ops)
-        if self.w_grad.dtype == torch.float32:
-            out = torch.matmul(self.w_grad, x[:, None].float())
-            return out.transpose(1, 2).to(x.dtype)  # [B, N, 2, C]
-        b, n = x.shape[:2]
-        out = _bf16_product(self.w_grad.flatten(1, 2), x)  # [B, 2N, C]
-        return out.view(b, 2, n, -1).transpose(1, 2).to(x.dtype)
+        out = torch.matmul(self.w_grad, x[:, None].float())
+        return out.transpose(1, 2).to(x.dtype)  # [B, N, 2, C]
 
     @one_cloud("v")
     def div(self, v):
@@ -256,16 +302,15 @@ class DenseGradDiv(NeighborAggregations):
                    + _int8_products(w[:, 1], vq[:, 1]))
             s = self.op_scale_div * sv
             return (acc.float() * s[:, None, None]).to(v.dtype)
+        if w.dtype == torch.bfloat16:
+            return _Bf16DivApply.apply(v.to(torch.bfloat16), self.div_coef,
+                                       w, self.nbr_idx, self.ops).to(v.dtype)
         if _differentiated(self.div_coef):
             return _DivApply.apply(v, self.div_coef, w, self.nbr_idx,
                                    self.ops)
-        if w.dtype == torch.float32:
-            vf = v.float()
-            out = (torch.matmul(w[:, 0], vf[:, :, 0])
-                   + torch.matmul(w[:, 1], vf[:, :, 1]))
-        else:
-            out = (_bf16_product(w[:, 0], v[:, :, 0])
-                   + _bf16_product(w[:, 1], v[:, :, 1]))
+        vf = v.float()
+        out = (torch.matmul(w[:, 0], vf[:, :, 0])
+               + torch.matmul(w[:, 1], vf[:, :, 1]))
         return out.to(v.dtype)
 
 
@@ -282,15 +327,22 @@ def densify(gd: GradDiv, ops, dtype=None) -> DenseGradDiv:
         return DenseGradDiv(nbr_idx=gd.nbr_idx, nbr_mask=gd.nbr_mask,
                             w_grad=w_grad, w_div=w_div, ops=ops,
                             op_scale_grad=s_grad, op_scale_div=s_div)
-    if dtype in (None, torch.float32) and _differentiated(gd.grad_coef,
-                                                         gd.div_coef):
+    if _differentiated(gd.grad_coef, gd.div_coef):
         # The applies differentiate the coefficients themselves (the
-        # sampled product); W carries no graph.
+        # sampled product); W carries no graph. On bf16 operators they
+        # differentiate the coefficients cast to bf16, as the JAX
+        # package's transpose of the bf16 product rounds each apply's
+        # operator cotangent to W's dtype and adds the applies' in bf16:
+        # autograd rounds each apply's cotangent to the cast's dtype,
+        # adds them in it, and the cast's backward widens the sum.
         w_grad, w_div = ops.densify_coefs(gd.nbr_idx, gd.grad_coef.detach(),
                                           gd.div_coef.detach(), dtype)
+        coefs = (gd.grad_coef, gd.div_coef)
+        if dtype == torch.bfloat16:
+            coefs = tuple(c.to(dtype) for c in coefs)
         return DenseGradDiv(nbr_idx=gd.nbr_idx, nbr_mask=gd.nbr_mask,
                             w_grad=w_grad, w_div=w_div, ops=ops,
-                            grad_coef=gd.grad_coef, div_coef=gd.div_coef)
+                            grad_coef=coefs[0], div_coef=coefs[1])
     w_grad, w_div = ops.densify_coefs(gd.nbr_idx, gd.grad_coef, gd.div_coef,
                                       dtype)
     return DenseGradDiv(nbr_idx=gd.nbr_idx, nbr_mask=gd.nbr_mask,

@@ -33,18 +33,27 @@ its rounding has no gradient), so a train-mode forward on int8
 operators raises.
 
 Gradients for positions and normals (``pos.requires_grad_()``, as
-``jax.grad`` of a loss in ``pos`` or ``normal``): in f32, dense or in
-coefficient form, the build runs under autograd, through the VJPs of its
-kernels (``scatter_rows`` for the gather, ``wls_bwd``), and the
-coefficients take their cotangents from the applies (``coef_cotangent``,
-a sampled product; the dense operators themselves carry no graph). The
-kNN runs on detached positions (its indices carry no gradient, as XLA's ``top_k``).
-When neither input requires grad (or grad mode is off), the build keeps
-no autograd graph. Routes whose forward has no VJP raise instead of
-returning a partial gradient: bf16 or int8 operators or compute (the bf16
-applies give the operators no cotangent), the fused eval build (forward
+``jax.grad`` of a loss in ``pos`` or ``normal``): in f32, and in bf16 in
+train mode, dense (f32 or bf16 operators) or in coefficient form, the
+build runs under autograd, through the VJPs of its kernels
+(``scatter_rows`` for the gather, ``wls_bwd``), and the coefficients
+take their cotangents from the applies (``coef_cotangent``, a sampled
+product; the dense operators themselves carry no graph; on bf16
+operators each apply's cotangent is rounded to bf16 and the applies'
+are added in bf16, as the JAX package's). The kNN runs on detached
+positions (its indices carry no gradient, as XLA's ``top_k``). When
+neither input requires grad (or grad mode is off), the build keeps no
+autograd graph. Routes whose forward has no VJP raise instead of
+returning a partial gradient: bf16 compute in eval (its neighbour maxes
+with the epilogue in the kernel have none, as on the JAX package's TPU
+route), int8 operators (their rounding), the fused eval build (forward
 only), and prebuilt ``operators`` (which serve and train for the
 parameters).
+
+The first conv reads ``features`` (``[B, N, in_channels]``) when given,
+else the positions (``in_channels`` 3, the default); it is centralized
+(``centralize_first``, the default) or takes the non-centralized max
+branch of the other convs.
 """
 
 from __future__ import annotations
@@ -83,9 +92,10 @@ def to_dtype(name):
 
 
 def _requires_grad(pos, normal) -> bool:
-    """Whether the positions or normals are differentiated."""
-    return torch.is_grad_enabled() and (
-        pos.requires_grad or (normal is not None and normal.requires_grad))
+    """Whether the positions or normals (either may be None) are
+    differentiated."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (pos, normal))
 
 
 def build_operators(pos, k: int, normal=None, point_mask=None,
@@ -190,7 +200,12 @@ class DeltaNetBase(nn.Module):
     positions: the first conv is centralized, the last drops the vector
     stream, and every stage's scalar output is returned for the heads.
     ``mlp_depth`` is the depth of every conv's internal MLPs (1 for
-    classification, 2 for segmentation); ``dense_operators=False`` applies
+    classification, 2 for segmentation); ``in_channels`` is the width of
+    the first conv's input (the positions' 3, or the ``features``'
+    width); ``centralize_first=False`` takes the first conv's max branch
+    on the features themselves (``PointMaxMLP``, or a non-centralized
+    ``DeepMaxMLP``) instead of their edge differences;
+    ``dense_operators=False`` applies
     the operators in coefficient form (large clouds); ``fused_eval_build=True``
     opts in to the fused eval build (JAX's switch, off by default: the
     JAX package measured it slower on its TPU)."""
@@ -200,7 +215,8 @@ class DeltaNetBase(nn.Module):
                  grad_kernel_width: float = 1.0, operator_dtype=None,
                  compute_dtype=None, knn_method: str = "exact",
                  dense_operators: bool = True,
-                 fused_eval_build: bool = False):
+                 fused_eval_build: bool = False, in_channels: int = 3,
+                 centralize_first: bool = True):
         super().__init__()
         self.fused_eval_build = fused_eval_build
         self.num_neighbors = num_neighbors
@@ -208,11 +224,12 @@ class DeltaNetBase(nn.Module):
         self.grad_kernel_width = grad_kernel_width
         self.knn_method = knn_method
         self.dense_operators = dense_operators
-        widths = [3, *conv_channels]  # the first conv reads positions
+        widths = [in_channels, *conv_channels]
         last = len(conv_channels) - 1
         self.convs = nn.ModuleList(
             DeltaConv(widths[i], widths[i + 1], depth=mlp_depth,
-                      centralized=(i == 0), vector=(i != last))
+                      centralized=(centralize_first and i == 0),
+                      vector=(i != last))
             for i in range(len(conv_channels)))
         self.set_precision(compute_dtype, operator_dtype)
 
@@ -242,8 +259,11 @@ class DeltaNetBase(nn.Module):
                 and pos.shape[1] % 128 == 0)
 
     def forward(self, pos, normal=None, point_mask=None,
-                ops: Ops = KERNEL_OPS, operators=None, group=None):
+                ops: Ops = KERNEL_OPS, operators=None, group=None,
+                features=None):
         """``pos [B, N, 3]`` -> list of per-stage ``[B, N, C_i]``.
+        ``features``: ``[B, N, in_channels]`` input scalars of the first
+        conv (None: the positions), differentiable as the positions are.
         ``operators``: a prebuilt operator object (the point-sharded
         forward's ``ShardedGradDiv``, eval or train) in place of the
         build. ``group``: the ranks that hold the other rows of the
@@ -254,6 +274,14 @@ class DeltaNetBase(nn.Module):
                 "int8 operators serve only, as the JAX package's (eval; "
                 "the quantization has no gradient): call model.eval()")
         differentiated = _requires_grad(pos, normal)
+        if (not self.training and self.compute_dtype is not None
+                and (differentiated or _requires_grad(features, None))):
+            raise NotImplementedError(
+                "bf16 eval has no gradient for positions, normals or "
+                "features: its neighbour maxes with the epilogue "
+                "(gather_max_affine, gather_matmul_max, gather_mlp_max) have "
+                "no VJP, as on the JAX package's TPU route; differentiate in "
+                "train mode (model.train()) or in f32 (compute_dtype=None)")
         if operators is not None:
             if differentiated:
                 raise NotImplementedError(
@@ -266,14 +294,6 @@ class DeltaNetBase(nn.Module):
                 pos, self.num_neighbors, normal, self.grad_kernel_width,
                 self.grad_regularizer, self.knn_method, ops)
         else:
-            if differentiated and (self.compute_dtype is not None or (
-                    self.dense_operators
-                    and self.operator_dtype is not None)):
-                raise NotImplementedError(
-                    "gradients for positions or normals run in f32 only: the "
-                    "bf16 operator applies give the operators no cotangent "
-                    "and int8 operators have none (ROADMAP queue 1 item "
-                    "[15]); use compute_dtype=None and operator_dtype=None")
             # Without a differentiated input the build keeps no autograd
             # graph: the loss is differentiated for the parameters only.
             with torch.set_grad_enabled(differentiated):
@@ -282,7 +302,9 @@ class DeltaNetBase(nn.Module):
                                      self.grad_regularizer, ops,
                                      self.operator_dtype, self.knn_method,
                                      self.dense_operators)
-        x = pos if self.compute_dtype is None else pos.to(self.compute_dtype)
+        x = pos if features is None else features
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         v = gd.grad(x)
         out = []
         across = {} if group is None else {"group": group}

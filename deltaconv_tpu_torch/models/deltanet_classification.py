@@ -51,7 +51,11 @@ class DeltaNetClassification(nn.Module):
     embedding and head MLPs compute in ``compute_dtype`` (dropout on the
     bf16 activations in training); the last Linear (``head_out``) runs in
     f32 on the f32-cast activations, so logits, and the loss, are f32.
-    Parameters stay f32 in every mode.
+    Parameters stay f32 in every mode. ``in_channels`` (the upstream
+    reference's name, 3 by default) is the width of the backbone's input:
+    the positions, or the ``features`` a forward is given (e.g. positions
+    and normals, 6); ``centralize_first=False`` runs the first conv on the
+    features themselves rather than their edge differences.
     """
 
     def __init__(self, num_classes: int,
@@ -61,14 +65,17 @@ class DeltaNetClassification(nn.Module):
                  dropout: float = 0.5, operator_dtype=None,
                  compute_dtype=None, knn_method: str = "exact",
                  dense_operators: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 in_channels: int = 3, centralize_first: bool = True):
         super().__init__()
         self.deltanet_base = DeltaNetBase(conv_channels,
                                           num_neighbors=num_neighbors,
                                           grad_regularizer=grad_regularizer,
                                           grad_kernel_width=grad_kernel_width,
                                           knn_method=knn_method,
-                                          dense_operators=dense_operators)
+                                          dense_operators=dense_operators,
+                                          in_channels=in_channels,
+                                          centralize_first=centralize_first)
         self.lin_embedding = MLP([sum(conv_channels), embedding_size])
         self.dropout = dropout
         # Positions 1 and 3 hold the reference's dropout (no parameters),
@@ -105,11 +112,14 @@ class DeltaNetClassification(nn.Module):
     def forward(self, pos, normal=None, point_mask=None,
                 ops: Ops = KERNEL_OPS,
                 generator: Optional[torch.Generator] = None,
-                operators=None, group=None, batch_group=None):
+                operators=None, group=None, batch_group=None,
+                features=None):
         """``pos``/``normal`` ``[B, N, 3]``, ``point_mask`` optional
         ``[B, N]`` bool -> logits ``[B, num_classes]``. ``ops`` selects
         the kernels (default) or their plain versions; ``generator``
         (on the batch's device) draws the train-mode dropout masks.
+        ``features`` (``[B, N, in_channels]``, keyword) are the first
+        conv's input in place of the positions, as JAX's ``features``.
 
         Two process groups, at most one of them set:
 
@@ -129,7 +139,7 @@ class DeltaNetClassification(nn.Module):
         """
         rows = group if group is not None else batch_group
         conv_out = self.deltanet_base(pos, normal, point_mask, ops,
-                                      operators, rows)
+                                      operators, rows, features)
         x = self.lin_embedding(torch.cat(conv_out, dim=-1), point_mask,
                                rows)
         x = torch.cat([global_max_pool(x, point_mask, group),

@@ -54,7 +54,8 @@ class DeltaNetSegmentation(nn.Module):
     stay f32 in every mode. It trains in f32 and bf16 through
     ``training.make_train_step(model, per_point=True)`` (the categorical
     head's BatchNorm over the batch's clouds, the head's dropout from the
-    step's generator).
+    step's generator). ``in_channels`` and ``centralize_first`` are the
+    backbone's (:class:`DeltaNetClassification`'s docstring).
     """
 
     def __init__(self, num_classes: int,
@@ -65,13 +66,15 @@ class DeltaNetSegmentation(nn.Module):
                  grad_kernel_width: float = 1.0, dropout: float = 0.5,
                  operator_dtype=None, compute_dtype=None,
                  knn_method: str = "exact", dense_operators: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 in_channels: int = 3, centralize_first: bool = True):
         super().__init__()
         self.deltanet_base = DeltaNetBase(
             conv_channels, mlp_depth=mlp_depth, num_neighbors=num_neighbors,
             grad_regularizer=grad_regularizer,
             grad_kernel_width=grad_kernel_width, knn_method=knn_method,
-            dense_operators=dense_operators)
+            dense_operators=dense_operators, in_channels=in_channels,
+            centralize_first=centralize_first)
         conv_width = sum(conv_channels)
         self.lin_global = MLP([conv_width, embedding_size])
         self.lin_categorical = (MLP([NUM_CATEGORIES, 64])
@@ -117,13 +120,16 @@ class DeltaNetSegmentation(nn.Module):
     def forward(self, pos, normal=None, point_mask=None, category=None,
                 ops: Ops = KERNEL_OPS,
                 generator: Optional[torch.Generator] = None,
-                operators=None, group=None, batch_group=None):
+                operators=None, group=None, batch_group=None,
+                features=None):
         """``pos``/``normal`` ``[B, N, 3]``, ``point_mask`` optional
         ``[B, N]`` bool, ``category`` ``[B, 16]`` one-hot (required when
         ``categorical_vector``) -> per-point logits ``[B, N,
         num_classes]`` f32. ``ops`` selects the kernels (default) or
         their plain versions; ``generator`` (on the batch's device) draws
-        the train-mode dropout masks.
+        the train-mode dropout masks; ``features`` (``[B, N,
+        in_channels]``, keyword) are the first conv's input in place of
+        the positions, as JAX's ``features``.
 
         Two process groups, at most one of them set: ``operators`` and
         ``group`` are the point-sharded forward's (the ranks that hold
@@ -137,7 +143,7 @@ class DeltaNetSegmentation(nn.Module):
         keeps its clouds' rows of the whole batch's dropout masks)."""
         rows = group if group is not None else batch_group
         conv_out = self.deltanet_base(pos, normal, point_mask, ops,
-                                      operators, rows)
+                                      operators, rows, features)
         x = self.lin_global(torch.cat(conv_out, dim=-1), point_mask, rows)
         b, n = pos.shape[:2]
         parts = [global_max_pool(x, point_mask, group)[:, None].expand(

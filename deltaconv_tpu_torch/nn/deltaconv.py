@@ -3,7 +3,9 @@
 
 Scalar stream:
   ``x' = maxagg_k(s_mlp_max(x)[nbr]) + s_mlp([x, div v, curl v, |v|])``
-  (the first, centralized conv runs ``s_mlp_max`` on ``x_j - x_i``).
+  (the first, centralized conv runs ``s_mlp_max`` on ``x_j - x_i``;
+with ``aggr="mean"`` or ``"sum"`` a masked mean or sum takes the max's
+place, :class:`AggrMLP`).
 Vector stream (skipped on the last layer):
   ``v' = v_mlp(I_J([v, hodge_laplacian(v), grad x']))``
 
@@ -66,7 +68,10 @@ from .mlp import MLP, VectorMLP, linear
 from ..parallel.collectives import psum, rank_and_size
 from .nonlin import batch_moments, leaky_relu02
 
-__all__ = ["DeepMaxMLP", "DeltaConv", "EdgeMaxMLP", "PointMaxMLP"]
+__all__ = ["AggrMLP", "DeepMaxMLP", "DeltaConv", "EdgeMaxMLP", "PointMaxMLP",
+           "gather_neighbors"]
+
+_AGGREGATIONS = ("max", "mean", "sum", "add")
 
 # DeepMaxMLP's fused centralized depth-2 train branch (``gd.nbr_edge_mlp``,
 # the ``edge_delta_mlp`` kernels): the JAX package's switch of the same
@@ -88,6 +93,16 @@ def _fusible(gd) -> bool:
     operator object with the affine kernels (a point-sharded one has
     none) that is not on int8 operators (JAX's ``_epilogue_fusible``)."""
     return not gd.int8 and hasattr(gd, "nbr_max_affine")
+
+
+def gather_neighbors(x, nbr_idx):
+    """Per-neighbour features ``x [..., N, C], nbr_idx [..., N, K] ->
+    [..., N, K, C]`` with any number of leading batch axes (JAX
+    ``gather_neighbors``); differentiable in ``x``."""
+    lead, c = nbr_idx.shape[:-2], x.shape[-1]
+    flat = nbr_idx.reshape(*lead, -1, 1).long().expand(
+        *lead, nbr_idx.shape[-2] * nbr_idx.shape[-1], c)
+    return torch.gather(x, -2, flat).view(*nbr_idx.shape, c)
 
 
 def _masked_rows_to_zero(out, gd, dtype):
@@ -395,6 +410,44 @@ class DeepMaxMLP(MLP):
                               (sign, inv, bn.running_mean, bn.bias))
 
 
+def _per_count(out, gd):
+    """``out`` over each point's count of valid slots (at least 1), in
+    ``out``'s dtype (JAX's ``sum / maximum(sum(mask), 1)``)."""
+    cnt = torch.clamp(gd.nbr_mask.sum(dim=-1, keepdim=True), min=1)
+    return out / cnt.to(out.dtype)
+
+
+class AggrMLP(MLP):
+    """Scalar branch of a conv whose aggregation is ``"mean"`` or
+    ``"sum"`` (``"add"``), JAX ``DeltaConv``'s ``aggr`` branches with
+    ``_aggregate``: centralized, the MLP on the gathered edge
+    differences ``x_j - x_i`` (``gd.nbr_gather``; ``stats_mask`` the
+    edges of its BatchNorm statistics), then the masked sum over the
+    neighbour axis in f32 (bf16 values widened exactly, as ``jnp.sum``
+    upcasts), cast to the compute dtype; otherwise the MLP once a point,
+    then the masked neighbour sum of its output (``gd.nbr_sum`` on the
+    f32-widened rows, cast back; ``stats_mask`` its points). The mean
+    divides the sum by the point's valid-slot count (at least 1).
+    Parameters are those of ``MLP([C_in, *channels])``."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 centralized: bool, aggr: str, dtype=None):
+        super().__init__([in_channels, *channels], dtype)
+        self.centralized = centralized
+        self.aggr = aggr
+
+    def forward(self, x, gd, stats_mask=None, group=None):
+        if self.centralized:
+            h = super().forward(gd.nbr_gather(x) - x[:, :, None, :],
+                                stats_mask, group)
+            out = torch.where(gd.nbr_mask[..., None], h.float(), 0.0).sum(
+                dim=-2).to(h.dtype)
+        else:
+            h = super().forward(x, stats_mask, group)
+            out = gd.nbr_sum(h.float()).to(h.dtype)
+        return _per_count(out, gd) if self.aggr == "mean" else out
+
+
 class DeltaConv(nn.Module):
     """One DeltaConv block.
 
@@ -409,15 +462,24 @@ class DeltaConv(nn.Module):
       vector: propagate the vector stream (False on the last layer).
       dtype: compute dtype (None for f32, or ``torch.bfloat16``), handed
         to the three MLPs.
+      aggr: the scalar branch's aggregation over the neighbours
+        (JAX's): ``"max"`` (the default: the max branches above), or
+        ``"mean"`` or ``"sum"`` (``"add"``): :class:`AggrMLP`.
     """
 
     def __init__(self, in_channels: int, out_channels: int, depth: int = 1,
                  centralized: bool = False, vector: bool = True,
-                 dtype=None):
+                 dtype=None, aggr: str = "max"):
         super().__init__()
+        if aggr not in _AGGREGATIONS:
+            raise ValueError(f"unknown aggregation {aggr!r}: one of "
+                             f"{_AGGREGATIONS}")
         self.centralized = centralized
         channels = [out_channels] * depth
-        if depth == 1:
+        if aggr != "max":
+            self.s_mlp_max = AggrMLP(in_channels, channels, centralized,
+                                     aggr, dtype)
+        elif depth == 1:
             branch = EdgeMaxMLP if centralized else PointMaxMLP
             self.s_mlp_max = branch(in_channels, out_channels, dtype)
         else:

@@ -24,7 +24,8 @@ from torch import nn
 
 from .nonlin import BatchNormSlot, VectorNonLin, leaky_relu02
 
-__all__ = ["MLP", "VectorMLP", "linear"]
+__all__ = ["MLP", "ScalarVectorIdentity", "ScalarVectorMLP", "VectorMLP",
+           "linear"]
 
 
 def linear(lin: nn.Linear, x, dtype: Optional[torch.dtype]):
@@ -42,20 +43,23 @@ def _cast(x, dtype):
 class MLP(nn.ModuleList):
     """Stack of (Linear no-bias -> BatchNorm -> LeakyReLU) layers.
     ``channels`` lists the input width, then every layer's output
-    width."""
+    width; ``nonlin=False`` leaves the LeakyReLU out (JAX's
+    ``nonlin=None``)."""
 
     def __init__(self, channels: Sequence[int],
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, nonlin: bool = True):
         super().__init__(
             nn.Sequential(nn.Linear(c_in, c_out, bias=False),
                           BatchNormSlot(c_out))
             for c_in, c_out in zip(channels[:-1], channels[1:]))
         self.dtype = dtype
+        self.nonlin = nonlin
 
     def forward(self, x, mask=None, group=None):
+        act = leaky_relu02 if self.nonlin else (lambda h: h)
         for lin, norm in self:
-            x = _cast(leaky_relu02(norm(linear(lin, x, self.dtype), mask,
-                                        group)), self.dtype)
+            x = _cast(act(norm(linear(lin, x, self.dtype), mask, group)),
+                      self.dtype)
         return x
 
 
@@ -76,3 +80,37 @@ class VectorMLP(nn.ModuleList):
             v = _cast(nonlin(linear(lin, v, self.dtype), mask, group),
                       self.dtype)
         return v
+
+
+class ScalarVectorMLP(nn.Module):
+    """Paired scalar and vector MLPs over an ``(x, v)`` tuple (JAX
+    ``ScalarVectorMLP``, the upstream export; no shipped model uses it):
+    ``scalar_mlp`` (``MLP(channels)``, without its LeakyReLU when
+    ``nonlin`` is False) on ``x``, and with ``vector_stream``
+    ``vector_mlp`` (``VectorMLP(channels)``) on ``v``, returning ``(x,
+    v)``; without it, ``x`` alone. ``channels`` lists the input width,
+    then every layer's output width."""
+
+    def __init__(self, channels: Sequence[int], nonlin: bool = True,
+                 vector_stream: bool = True):
+        super().__init__()
+        self.scalar_mlp = MLP(channels, nonlin=nonlin)
+        self.vector_mlp = VectorMLP(channels) if vector_stream else None
+
+    def forward(self, xv, mask=None, group=None):
+        x, v = xv if isinstance(xv, tuple) else (xv, None)
+        x = self.scalar_mlp(x, mask, group)
+        if self.vector_mlp is None:
+            return x
+        if v is None:
+            raise ValueError(
+                "vector_stream=True requires an (x, v) tuple input")
+        return x, self.vector_mlp(v, mask, group)
+
+
+class ScalarVectorIdentity(nn.Module):
+    """The identity on an ``(x, v)`` tuple or a tensor (JAX
+    ``ScalarVectorIdentity``, the upstream export)."""
+
+    def forward(self, xv, mask=None, group=None):
+        return xv

@@ -41,12 +41,10 @@ def _strict_f32():
 
 def _batch_kwargs(batch) -> dict:
     """The optional model inputs present in the batch (JAX
-    ``_batch_kwargs``): ``normal``, ``point_mask`` and ``category``."""
-    if batch.get("features") is not None:
-        raise NotImplementedError(
-            "per-point input features (the backbone's `features` input) are "
-            "not ported yet: ROADMAP queue 1 item [14]")
-    return {key: batch[key] for key in ("normal", "point_mask", "category")
+    ``_batch_kwargs``): ``normal``, ``features``, ``point_mask`` and
+    ``category``."""
+    return {key: batch[key]
+            for key in ("normal", "features", "point_mask", "category")
             if batch.get(key) is not None}
 
 
@@ -67,7 +65,8 @@ def make_train_step(model, smoothing: float = 0.2, per_point: bool = False,
     ``batch``: a dict of tensors on the model's device, ``pos`` and
     ``normal`` ``[B, N, 3]``, ``label`` (``[B]`` int, or ``[B, N]`` with
     ``per_point``, the segmentation labels) and optionally ``point_mask
-    [B, N]`` bool and ``category [B, 16]`` (the segmentation model's
+    [B, N]`` bool, ``features [B, N, C]`` (the backbone's input in place
+    of the positions) and ``category [B, 16]`` (the segmentation model's
     one-hot). ``generator`` (on the same device) draws the dropout masks.
     With ``per_point`` the loss and the accuracy leave out the points
     ``point_mask`` pads. The step updates ``state`` in place and returns

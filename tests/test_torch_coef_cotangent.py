@@ -249,12 +249,15 @@ def test_differentiated_dense_build_keeps_no_operator_graph(bundle):
 def test_dense_applies_unchanged_without_differentiated_coefficients():
     """Without coefficients that require grad the dense build keeps none
     and its applies are the plain products, as before; a bf16 build of
-    differentiated coefficients keeps the assembly's graph (its applies
-    give the operators no cotangent)."""
+    differentiated coefficients, as an f32 one, keeps no graph on ``W``
+    and keeps the coefficients, cast to bf16 (its applies give them
+    their cotangent, rounded to bf16 as JAX's)."""
     rng = np.random.default_rng(12)
     gd = _coef_operators(rng, PLAIN_OPS)
     with torch.no_grad():
         dense = densify(gd, PLAIN_OPS)
     assert dense.grad_coef is None and dense.div_coef is None
     bf16 = densify(gd, PLAIN_OPS, torch.bfloat16)
-    assert bf16.grad_coef is None and bf16.w_grad.requires_grad
+    assert not bf16.w_grad.requires_grad and not bf16.w_div.requires_grad
+    assert bf16.grad_coef.dtype == bf16.div_coef.dtype == torch.bfloat16
+    assert bf16.grad_coef.requires_grad and bf16.div_coef.requires_grad

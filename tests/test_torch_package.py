@@ -534,9 +534,8 @@ def test_engine_rejects_oversized_and_mismatched_clouds():
         engine.predict([cloud[:8]], [cloud[:7]])
 
 
-def test_normal_estimation_not_ported():
-    """Kept under its old name: normal estimation is ported now, so a
-    build without normals returns finite operators (dense and in
+def test_build_without_normals_gives_finite_operators():
+    """A build without normals returns finite operators (dense and in
     coefficient form) on frames estimated from the cloud."""
     gen = torch.Generator().manual_seed(0)
     pos = torch.randn((2, 24, 3), generator=gen)

@@ -557,25 +557,52 @@ def test_bf16_seg_train_step_matches_jax(conv0, masked, monkeypatch):
     assert np.mean(stats_port) <= 1.25 * np.mean(stats_jax)
 
 
-def test_steps_pass_categories_and_refuse_features():
+def test_steps_pass_categories_and_features_to_the_model():
     """The steps hand ``category`` to the model (a categorical model
-    without it raises in the model, as JAX's), and a batch with per-point
-    ``features`` raises, naming the ROADMAP item that ports them."""
+    without it raises in the model, as JAX's) and per-point ``features``
+    (4 channels: the positions and the first normal component; the model
+    built with ``in_channels=4``): the f32 eval logits and one train
+    step's loss and parameters against JAX's steps on the same batch and
+    weights, as :func:`test_three_seg_train_steps_match_jax` holds them."""
     rng = np.random.default_rng(104)
-    _, tbatch = _seg_batch(rng, True)
-    port = DeltaNetSegmentation(NUM_CLASSES, dropout=0.0, **WIDTH)
+    jbatch, tbatch = _seg_batch(rng, True)
+    feats = np.concatenate([np.asarray(jbatch["pos"]),
+                            np.asarray(jbatch["normal"])[..., :1]], -1)
+    jbatch["features"], tbatch["features"] = jnp.asarray(feats), _t(feats)
+    model = JaxModel(num_classes=NUM_CLASSES, dropout=0.0, **WIDTH)
+    variables = jax.jit(lambda key, p, n_, f, c: model.init(
+        key, p, normal=n_, features=f, category=c))(
+        jax.random.PRNGKey(0), jbatch["pos"], jbatch["normal"],
+        jbatch["features"], jbatch["category"])
+    params = _perturb(_to_numpy(variables["params"]), rng, True)
+    stats = _perturb(_to_numpy(variables["batch_stats"]), rng, True)
+    jstate = JaxTrainState.create(apply_fn=model.apply, params=params,
+                                  batch_stats=stats, tx=jax_sgd(LR))
+    port = DeltaNetSegmentation(NUM_CLASSES, dropout=0.0, in_channels=4,
+                                **WIDTH)
+    port.load_state_dict(state_dict_from_flax(params, stats, "segmentation"),
+                         strict=True)
     state = create_train_state(port, sgd_momentum(LR), device="cpu")
     logits = make_eval_step(port)(state, tbatch)
     assert logits.shape == (B, N, NUM_CLASSES)
+    want = jax_eval_step(model, per_point=True)(jstate, jbatch)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4 * float(np.abs(want).max()))
     bare = {k: v for k, v in tbatch.items() if k != "category"}
     with pytest.raises(ValueError, match="category"):
         make_eval_step(port)(state, bare)
-    with_features = dict(tbatch, features=torch.zeros((B, N, 4)))
-    for step in (make_train_step(port, per_point=True),
-                 make_eval_step(port)):
-        with pytest.raises(NotImplementedError, match=r"\[14\]"):
-            step(state, with_features, None) if step.__name__ == (
-                "train_step") else step(state, with_features)
+    jstate, jm = jax_train_step(model, smoothing=0.0, per_point=True)(
+        jstate, jbatch, jax.random.PRNGKey(0))
+    tm = make_train_step(port, smoothing=0.0, per_point=True)(state, tbatch,
+                                                              None)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    want = state_dict_from_flax(_to_numpy(jstate.params),
+                                _to_numpy(jstate.batch_stats), "segmentation")
+    for key, w in port.state_dict().items():
+        np.testing.assert_allclose(
+            _np(w), want[key].numpy(), rtol=0,
+            atol=1e-4 * float(want[key].abs().max()) + 1e-9, err_msg=key)
 
 
 def test_seg_head_dropout_draws_from_the_generator():
